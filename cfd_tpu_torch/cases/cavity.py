@@ -1,0 +1,180 @@
+"""Lid-driven cavity case (the port of cfd_tpu.cases.cavity).
+
+Reference: CavitySolver (cavity-01.cpp:306-775). Defaults reproduce the
+reference's constants and dt rule bit for bit (cavity-01.cpp:309-320,
+355-363).
+
+Ported: the float32 multigrid branch on the quad layout — the
+tentative-carry stage kernel, the quad finest-level V-cycle kernels and the
+coarse red/black smoother, V(2,1), the extrapolated warm start, and the
+bf16 coarse hierarchy under the reference's auto rule with "device is
+cuda" in place of "platform is tpu" (the CPU keeps the f32 ladder, as the
+reference's interpret mode does). The fused whole-solve that the reference
+takes on a TPU where its hierarchy fits in VMEM is not ported, so the
+per-kernel composition runs at every size. Everything else raises
+NotImplementedError rather than being ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from cfd_tpu_torch.bc import lid_cavity_bc
+from cfd_tpu_torch.grid import Grid, cfl_time_step, optimal_omega
+from cfd_tpu_torch.kernels.quad import (
+    from_quad,
+    make_quad_corr_predictor_source,
+    make_quad_corrector,
+    make_quad_post_prolong_smooth,
+    make_quad_pre_smooth_restrict,
+    quad_dims,
+    to_quad,
+    uncorrect_quad,
+)
+from cfd_tpu_torch.ops.stencil import StencilCoeffs
+from cfd_tpu_torch.params import check_cfl, validate_case_params
+from cfd_tpu_torch.poisson.multigrid import (
+    MGConfig,
+    _round_up8_128,
+    auto_bf16_coarse,
+    cavity_problem,
+    make_multigrid_poisson,
+    mg_compatible,
+    normalize_coarse_dtype_optout,
+)
+from cfd_tpu_torch.precision import as_dtype
+from cfd_tpu_torch.solver import Case
+from cfd_tpu_torch.state import State
+
+
+def _not_ported(what: str, where: str):
+    return NotImplementedError(f"{what} is not ported yet ({where})")
+
+
+def make_cavity_case(
+    n_interior: int = 63,
+    reynolds_number: float = 1000.0,
+    cavity_length: float = 1.0,
+    cavity_height: float = 1.0,
+    lid_velocity: float = 1.0,
+    density: float = 1.0,
+    cfl_number: float = 0.5,
+    final_time: float = 20.0,
+    tolerance_factor: float = 1e-9,
+    max_sor_iterations: int = 10000,
+    print_interval: int = 100,
+    save_interval: int = 100,
+    dt: float | None = None,
+    poisson: str = "auto",  # "auto" | "multigrid" ("sor" is not ported)
+    dtype=torch.float64,
+    layout: str = "auto",  # "auto" | "quad"
+    mg_overrides: dict | None = None,  # MGConfig field overrides
+    forcing: tuple | None = None,
+    fuse_pre: bool = False,
+    device="cuda",  # "cpu" runs the kernels' plain PyTorch twins
+) -> Case:
+    dtype = as_dtype(dtype)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
+                           "the kernels' plain PyTorch twins on the CPU")
+    validate_case_params(
+        reynolds_number=reynolds_number, density=density, cfl=cfl_number,
+        final_time=final_time, tolerance_factor=tolerance_factor, dt=dt,
+        max_iterations=max_sor_iterations, print_interval=print_interval,
+        save_interval=save_interval, cavity_length=cavity_length,
+        cavity_height=cavity_height)
+    grid = Grid.regular(n_interior, n_interior, cavity_length, cavity_height)
+    viscosity = density * lid_velocity * cavity_length / reynolds_number
+    if dt is None:
+        dt = cfl_time_step(grid.dx, grid.dy, viscosity, lid_velocity, cfl_number)
+    else:
+        check_cfl(dt, grid.dx, grid.dy, viscosity, abs(lid_velocity))
+    coeffs = StencilCoeffs(dx=grid.dx, dy=grid.dy, dt=dt, viscosity=viscosity,
+                           density=density)
+    omega = optimal_omega(n_interior)  # square form, cavity-01.cpp:74-78
+    if poisson == "auto":
+        poisson = ("multigrid" if mg_compatible(n_interior, n_interior)
+                   and n_interior >= 128 else "sor")
+    if poisson == "sor":
+        raise _not_ported("the SOR pressure solver", "ROADMAP.md queue A item 6")
+    if poisson != "multigrid":
+        raise ValueError(f"unknown poisson solver: {poisson}")
+    if dtype != torch.float32:
+        raise _not_ported("the float64 multigrid path", "ROADMAP.md queue A item 3")
+    if forcing is not None:
+        raise _not_ported("body forcing", "ROADMAP.md queue A item 11")
+    if fuse_pre:
+        raise _not_ported("fuse_pre", "ROADMAP.md queue B item 15")
+    if layout not in ("auto", "quad"):
+        raise _not_ported(f"layout={layout!r}", "ROADMAP.md queue B item 7")
+    coarse_shape = _round_up8_128((n_interior // 2 + 2, n_interior // 2 + 2))
+    _, _, Hq8, Wqa = quad_dims(grid.shape)
+    if coarse_shape != (Hq8, Wqa):
+        # n = 14 mod 16: the reference runs the natural-layout kernels here
+        raise _not_ported(f"n_interior={n_interior} (coarse shape {coarse_shape} != "
+                          f"quad plane shape {(Hq8, Wqa)})", "ROADMAP.md queue B item 7")
+
+    explicit_f32_coarse, mg_overrides = normalize_coarse_dtype_optout(mg_overrides)
+    mg = MGConfig(tol_factor=tolerance_factor, abs_tol=0.0)
+    if mg_overrides:
+        mg = dataclasses.replace(mg, **mg_overrides)
+    # f32 perf path: V(2,1) (cfd_tpu/cases/cavity.py:139-144)
+    if not (mg_overrides and "post_sweeps" in mg_overrides):
+        mg = dataclasses.replace(mg, post_sweeps=1)
+    if auto_bf16_coarse(device.type == "cuda", explicit_f32_coarse, mg, mg_overrides):
+        mg = dataclasses.replace(mg, coarse_dtype="bfloat16")
+
+    problem = cavity_problem(n_interior, n_interior, grid.dx, grid.dy)
+    corr = make_quad_corrector(grid.shape, coeffs, lid_velocity)
+    carry = make_quad_corr_predictor_source(grid.shape, coeffs, lid_velocity)
+    quad_l0 = (
+        make_quad_pre_smooth_restrict(grid.shape, problem, mg.omega, mg.pre_sweeps,
+                                      coarse_shape, device=device),
+        make_quad_post_prolong_smooth(grid.shape, problem, mg.omega, mg.post_sweeps,
+                                      coarse_shape, device=device),
+    )
+    solve = make_multigrid_poisson(problem, mg, quad_l0, device=device)
+
+    # Tentative-state boundary converters: the carried u/v are the
+    # TENTATIVE (u*, v*) fields; the logical state applies the corrector
+    # (unalign) or its exact inverse (align; one f32 rounding round trip).
+    def align_state(state: State) -> State:
+        us, vs = uncorrect_quad(state.u, state.v, state.p, grid.shape, coeffs)
+        t = lambda a: to_quad(a, grid.shape)
+        p_prev = state.p if state.p_prev is None else state.p_prev
+        return State(t(us), t(vs), t(state.p), state.T, t(p_prev))
+
+    def unalign_state(state: State) -> State:
+        u2, v2, _ = corr(state.u, state.v, state.p, state.p)
+        f = lambda a: from_quad(a, grid.shape)
+        return State(f(u2), f(v2), f(state.p), state.T,
+                     None if state.p_prev is None else f(state.p_prev))
+
+    return Case(
+        poisson_max_iters=mg.max_cycles,
+        step_kernels=(carry, corr),
+        align_state=align_state,
+        unalign_state=unalign_state,
+        name="cavity",
+        extrapolate_warm_start=True,
+        grid=grid,
+        coeffs=coeffs,
+        ordering="cavity",
+        velocity_bc=lid_cavity_bc(grid, lid_velocity),
+        poisson_solve=solve,
+        ke_divisor=n_interior * n_interior,
+        final_time=final_time,
+        total_steps=int(final_time / dt),
+        print_interval=print_interval,
+        save_interval=save_interval,
+        dtype=dtype,
+        device=device,
+        info=dict(banner_title="Lid-Driven Cavity Flow Simulation",
+                  length=cavity_length, height=cavity_height,
+                  square_spacing=True, reynolds=reynolds_number,
+                  cfl=cfl_number, omega=omega, lid_velocity=lid_velocity,
+                  mg=mg),
+    )

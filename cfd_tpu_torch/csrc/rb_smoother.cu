@@ -1,0 +1,137 @@
+// Coarse-level red/black smoother on the natural (H8, W) layout.
+//
+// Replaces cfd_tpu/kernels/rb_smoother.py make_rb_pairs (:37), reached
+// through rb_pairs_for_level (:322): the plain variant (post-smooth) and
+// the with_residual_field variant (pre-smooth + the signed residual field
+// b - A p, masked to the interior). Storage is float or bfloat16, the
+// arithmetic always float32 (rb_smoother.py:199-200,255).
+//
+// Bound on the H100: device-memory bytes and, on the small levels, launch
+// latency. A half-sweep reads p and b and writes half of p; with bfloat16
+// storage the inputs are half the bytes, but the iterate lives in a float32
+// scratch array between half-sweeps so that, as on the TPU (one f32 slab in
+// VMEM for all sweeps), rounding to the storage type happens once, at the
+// end. The levels below 128^2 are a few microseconds of work each and the
+// launches dominate; fusing the coarse tail into one persistent kernel is
+// later work (ROADMAP.md queue B, make_mg_tail).
+//
+// Design: one launch per half-sweep, one thread per cell, in-place updates
+// on the scratch iterate (see mg_smooth.cuh), then one finishing launch
+// that rounds the iterate to the storage type and, for the residual
+// variant, writes the residual computed from the float32 iterate.
+#include "common.cuh"
+#include "mg_smooth.cuh"
+
+namespace {
+
+struct Level {
+  int H8, W, ny, nx;
+  float idx2, idy2, omega;
+  const float* wE;  // (W,)
+  const float* wW;
+  const float* wN;  // (H8,)
+  const float* wS;
+};
+
+template <typename T>
+__device__ __forceinline__ float ld(const T* a, int j, int i, const Level& L) {
+  return (j >= 0 && j < L.H8 && i >= 0 && i < L.W)
+             ? cfd::to_f32(a[static_cast<long long>(j) * L.W + i])
+             : 0.f;
+}
+
+__device__ __forceinline__ bool interior(int j, int i, const Level& L) {
+  return j >= 1 && j <= L.ny && i >= 1 && i <= L.nx;
+}
+
+// half-sweep of colour (0 = red = (i + j) even) from src (storage T or the
+// float scratch) into the float iterate dst
+template <typename TS, typename TB>
+__global__ void half_sweep(const TS* src, float* dst, const TB* b, int colour, bool copy,
+                           Level L) {
+  long long n = static_cast<long long>(L.H8) * L.W;
+  long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  int j = static_cast<int>(idx / L.W);
+  int i = static_cast<int>(idx - static_cast<long long>(j) * L.W);
+  float p = cfd::to_f32(src[idx]);
+  if (((j + i) & 1) == colour && interior(j, i, L)) {
+    dst[idx] = cfd::gs_update(p, ld(src, j, i + 1, L), ld(src, j, i - 1, L),
+                              ld(src, j + 1, i, L), ld(src, j - 1, i, L),
+                              cfd::to_f32(b[idx]), L.wE[i], L.wW[i], L.wN[j], L.wS[j],
+                              L.idx2, L.idy2, L.omega);
+  } else if (copy) {
+    dst[idx] = p;
+  }
+}
+
+// out = storage(iterate); r = storage(b - A iterate) on the interior, 0
+// elsewhere (r may be null)
+template <typename T>
+__global__ void finish(const float* it, const T* b, T* out, T* r, Level L) {
+  long long n = static_cast<long long>(L.H8) * L.W;
+  long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  int j = static_cast<int>(idx / L.W);
+  int i = static_cast<int>(idx - static_cast<long long>(j) * L.W);
+  float p = it[idx];
+  if (r != nullptr) {
+    float rv = 0.f;
+    if (interior(j, i, L)) {
+      float ap = cfd::apply_a(p, ld(it, j, i + 1, L), ld(it, j, i - 1, L),
+                              ld(it, j + 1, i, L), ld(it, j - 1, i, L), L.wE[i], L.wW[i],
+                              L.wN[j], L.wS[j], L.idx2, L.idy2);
+      rv = cfd::to_f32(b[idx]) - ap;
+    }
+    r[idx] = cfd::from_f32<T>(rv);
+  }
+  if (static_cast<const void*>(out) != static_cast<const void*>(it)) {
+    out[idx] = cfd::from_f32<T>(p);
+  }
+}
+
+template <typename T>
+int run_pairs(const T* p, const T* b, T* out, float* it, T* r, int n_pairs,
+              const Level& L, cudaStream_t s) {
+  const int blocks = cfd::blocks_for(static_cast<long long>(L.H8) * L.W);
+  for (int k = 0; k < n_pairs; ++k) {
+    if (k == 0) {
+      half_sweep<T, T><<<blocks, cfd::kThreads, 0, s>>>(p, it, b, 0, true, L);
+    } else {
+      half_sweep<float, T><<<blocks, cfd::kThreads, 0, s>>>(it, it, b, 0, false, L);
+    }
+    half_sweep<float, T><<<blocks, cfd::kThreads, 0, s>>>(it, it, b, 1, false, L);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (r != nullptr || static_cast<void*>(out) != static_cast<void*>(it)) {
+    finish<T><<<blocks, cfd::kThreads, 0, s>>>(it, b, out, r, L);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// storage: 0 = float32, 1 = bfloat16. scratch: a float32 (H8, W) iterate;
+// for float32 storage the caller passes scratch == out. r: null for the
+// plain variant.
+extern "C" int cfd_rb_pairs(int storage, const void* p, const void* b, void* out,
+                            float* scratch, void* r, const float* wE, const float* wW,
+                            const float* wN, const float* wS, int H8, int W, int ny,
+                            int nx, float idx2, float idy2, float omega, int n_pairs,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Level L{H8, W, ny, nx, idx2, idy2, omega, wE, wW, wN, wS};
+  if (storage == 0) {
+    return run_pairs<float>(static_cast<const float*>(p), static_cast<const float*>(b),
+                            static_cast<float*>(out), scratch, static_cast<float*>(r),
+                            n_pairs, L, s);
+  }
+  if (storage == 1) {
+    return run_pairs<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(p), static_cast<const __nv_bfloat16*>(b),
+        static_cast<__nv_bfloat16*>(out), scratch, static_cast<__nv_bfloat16*>(r),
+        n_pairs, L, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

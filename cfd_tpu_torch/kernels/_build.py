@@ -1,0 +1,153 @@
+"""Build and bind the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ONE nvcc call into a shared library
+with a plain C interface, loaded with ctypes (no PyTorch headers, so the
+build takes seconds, not minutes):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
+         -shared -Xcompiler -fPIC -o build/cfd_tpu_torch/libcfd_tpu_torch_<sha>.so csrc/*.cu
+
+``<sha>`` hashes the sources and the flags, so an edited source builds a
+new library. The build runs at the first CUDA call (``library()``), never
+at import. A missing nvcc or a failed build raises with the compiler's
+output; nothing falls back to the plain PyTorch versions.
+
+``--fmad=false``: nvcc would otherwise contract ``a*b + c`` into one fused
+multiply-add, while PyTorch's eager ops round every product. Without
+contraction each kernel performs the same float32 operations in the same
+order as its plain twin, so the card comparisons hold to a few ulps (and
+most outputs bit for bit), and the V-cycle counts cannot drift apart. The
+stencils are bound by memory traffic, so the lost FMAs cost no time that
+matters here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cfd_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# C entry points: argument types (pointers and the stream as c_void_p,
+# ints as c_int, coefficients as c_float); every one returns cudaError_t.
+SIGNATURES = {
+    "cfd_quad_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
+    "cfd_quad_carry": [_P] * 11 + [_I] * 4 + [_F] * 10 + [_P],
+    "cfd_quad_pre_smooth_restrict": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I, _P],
+    "cfd_quad_post_prolong_smooth": [_P] * 9 + [_I] * 4 + [_F] * 3 + [_I, _P],
+    "cfd_rb_pairs": [_I] + [_P] * 9 + [_I] * 4 + [_F] * 3 + [_I, _P],
+}
+
+
+def find_nvcc() -> str | None:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    return str(default) if default.exists() else None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _sources():
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libcfd_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the library unless this source hash is already built.
+    Returns (path, seconds spent compiling)."""
+    out = library_path()
+    if out.exists():
+        return out, 0.0
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
+                           "cfd_tpu_torch CUDA kernels cannot be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *(str(f) for f in sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.cfd_error_string.argtypes = [ctypes.c_int]
+    lib.cfd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+class Kernel:
+    """One C entry point of the library and its launch counter.
+
+    ``launches`` is a plain int that grows by one each time the entry point
+    launches its kernels on the card, and nowhere else (the CPU plain twin
+    does not count)."""
+
+    def __init__(self, name: str, symbol: str, source: str, replaces: str):
+        self.name = name
+        self.symbol = symbol
+        self.source = source  # path in the repository
+        self.replaces = replaces  # file:line of the TPU kernel
+        self.launches = 0
+
+    def __call__(self, like, *args) -> None:
+        """Launch on the current stream of ``like``'s device; ``args`` are
+        the C arguments before the stream."""
+        lib = library()
+        if like.device.type != "cuda":
+            raise ValueError(f"{self.symbol} needs CUDA tensors, got {like.device}")
+        err = getattr(lib, self.symbol)(*args, stream_of(like))
+        if err != 0:
+            raise RuntimeError(f"{self.symbol}: CUDA error {err} "
+                               f"({lib.cfd_error_string(err).decode()})")
+        self.launches += 1
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def route(*tensors) -> str:
+    """'cpu' (plain twin) or 'cuda' (kernel) from the tensors' device; any
+    other device, or a mix, raises."""
+    kinds = {t.device.type for t in tensors}
+    if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
+        raise ValueError(f"tensors must all lie on the CPU or all on one CUDA "
+                         f"device, got {sorted(kinds)}")
+    return kinds.pop()

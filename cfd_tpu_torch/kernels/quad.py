@@ -1,0 +1,495 @@
+"""Quad (2x2 block-parity) layout and the four quad-layout kernels of the
+cavity fast path (the port of cfd_tpu.kernels.quad).
+
+Layout: four quarter-resolution planes per field, indexed by the (row,
+column) parity of the logical cell, ``Q[2r+s][J, I] = a[2J+r, 2I+s]``,
+padded to (4, Hq8, Wqa) with ``Hq8 = round_up(ceil(H/2), 8)`` and
+``Wqa = round_up(ceil(W/2), 128)``. The port keeps the JAX shapes at every
+public function, padding included, so the tests compare element by
+element; whether Hopper wants the padding is a later, measured choice.
+
+Each kernel has three faces:
+
+* ``plain(...)`` — a whole-array PyTorch transliteration of the Pallas
+  ``compute`` (torch.roll + torch.where; no slabs, no bands), usable on any
+  device. The CPU tests hold it against the JAX kernels in interpret mode
+  and chip_smoke.py holds the CUDA kernel against it on the card.
+* ``kernel(...)`` — the hand-written CUDA kernel (csrc/quad_stage.cu,
+  csrc/quad_vcycle.cu); CUDA tensors only.
+* ``__call__`` — dispatch on the tensors' device: the CPU goes to
+  ``plain``, CUDA to ``kernel``. No fallback: a failed build or launch
+  raises.
+
+The TPU kernels' slab/halo/band machinery (quad.py:132-417, _band_maker
+:611-627) exists for a sequential grid with large VMEM and is not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from cfd_tpu_torch.kernels._build import Kernel, ptr, route
+from cfd_tpu_torch.ops.stencil import StencilCoeffs
+
+CARRY = Kernel("quad_corr_predictor_source", "cfd_quad_carry",
+               "cfd_tpu_torch/csrc/quad_stage.cu", "cfd_tpu/kernels/quad.py:938")
+CORRECTOR = Kernel("quad_corrector", "cfd_quad_corrector",
+                   "cfd_tpu_torch/csrc/quad_stage.cu", "cfd_tpu/kernels/quad.py:488")
+PRE = Kernel("quad_pre_smooth_restrict", "cfd_quad_pre_smooth_restrict",
+             "cfd_tpu_torch/csrc/quad_vcycle.cu", "cfd_tpu/kernels/quad.py:630")
+POST = Kernel("quad_post_prolong_smooth", "cfd_quad_post_prolong_smooth",
+              "cfd_tpu_torch/csrc/quad_vcycle.cu", "cfd_tpu/kernels/quad.py:700")
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def quad_dims(shape: tuple[int, int]) -> tuple[int, int, int, int]:
+    """(Hq, Wq, Hq8, Wqa): logical and aligned plane dims for a logical
+    padded (H, W) grid."""
+    H, W = shape
+    Hq, Wq = -(-H // 2), -(-W // 2)
+    return Hq, Wq, _round_up(Hq, 8), _round_up(Wq, 128)
+
+
+def quad_shape(shape: tuple[int, int]) -> tuple[int, int, int]:
+    _, _, Hq8, Wqa = quad_dims(shape)
+    return (4, Hq8, Wqa)
+
+
+def to_quad(a: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
+    """(H, W) natural -> (4, Hq8, Wqa) quad (boundary-only: init/resume)."""
+    H, W = shape
+    Hq, Wq, Hq8, Wqa = quad_dims(shape)
+    ap = torch.nn.functional.pad(a, (0, 2 * Wq - W, 0, 2 * Hq - H))
+    g = ap.reshape(Hq, 2, Wq, 2)
+    planes = torch.stack([g[:, 0, :, 0], g[:, 0, :, 1], g[:, 1, :, 0], g[:, 1, :, 1]])
+    return torch.nn.functional.pad(planes, (0, Wqa - Wq, 0, Hq8 - Hq)).contiguous()
+
+
+def from_quad(q: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
+    """(4, Hq8, Wqa) quad -> (H, W) natural (inverse of to_quad)."""
+    H, W = shape
+    Hq, Wq, _, _ = quad_dims(shape)
+    p = q[:, :Hq, :Wq]
+    g = torch.stack([torch.stack([p[0], p[1]], dim=-1),
+                     torch.stack([p[2], p[3]], dim=-1)], dim=1)
+    return g.reshape(2 * Hq, 2 * Wq)[:H, :W].contiguous()
+
+
+def uncorrect_quad(u, v, p, shape, coeffs: StencilCoeffs):
+    """Inverse of the rho-multiplied cavity correction on NATURAL arrays
+    (resume boundary only): us = u + c*(pE - p) on valid faces, 0 elsewhere,
+    so correct(uncorrect(u, v, p), p) == (u, v) up to one f32 rounding."""
+    H, Wp = shape
+    ny, nx = H - 2, Wp - 2
+    cu = coeffs.dt / coeffs.dx * coeffs.density
+    cv = coeffs.dt / coeffs.dy * coeffs.density
+    jj = torch.arange(H, device=u.device)[:, None]
+    ii = torch.arange(Wp, device=u.device)[None, :]
+    u_valid = (jj >= 1) & (jj <= ny) & (ii >= 1) & (ii <= nx - 1)
+    v_valid = (jj >= 1) & (jj <= ny - 1) & (ii >= 1) & (ii <= nx)
+    pE = torch.roll(p, -1, dims=1)
+    pN = torch.roll(p, -1, dims=0)
+    zero = torch.zeros_like(u)
+    return (torch.where(u_valid, u + cu * (pE - p), zero),
+            torch.where(v_valid, v + cv * (pN - p), zero))
+
+
+# ---------------------------------------------------------------- plain math
+
+def _qshift(planes, dj: int, di: int):
+    """shifted[q][J, I] = a[2J+r+dj, 2I+s+di] (roll convention: consumers
+    mask the wraparound). Only planes whose parity carries need a roll."""
+    out = [None] * 4
+    for r in range(2):
+        for s in range(2):
+            rp, cj = (r + dj) % 2, (r + dj) // 2
+            sp, ci = (s + di) % 2, (s + di) // 2
+            a = planes[2 * rp + sp]
+            if cj:
+                a = torch.roll(a, -cj, dims=0)
+            if ci:
+                a = torch.roll(a, -ci, dims=1)
+            out[2 * r + s] = a
+    return out
+
+
+def _qiota(Hq8: int, Wqa: int, device):
+    """Per-plane global (row, col) index arrays: grow[q] = 2J + r,
+    gcol[q] = 2I + s."""
+    J = torch.arange(Hq8, device=device)[:, None]
+    I = torch.arange(Wqa, device=device)[None, :]
+    return ([2 * J + (q >> 1) for q in range(4)], [2 * I + (q & 1) for q in range(4)])
+
+
+def _where4(conds, vals, planes):
+    return [torch.where(c, v, p) for c, v, p in zip(conds, vals, planes)]
+
+
+def _cavity_bc_quad(u, v, grow, gcol, ny: int, nx: int, lid: float):
+    """Lid-cavity ghosts in quad form, the reference's update order
+    (cfd_tpu/kernels/quad.py:420-435)."""
+    uS = _qshift(u, -1, 0)
+    u = _where4([(g == ny + 1) & (c <= nx) for g, c in zip(grow, gcol)],
+                [2.0 * lid - a for a in uS], u)
+    uN = _qshift(u, 1, 0)
+    u = _where4([(g == 0) & (c <= nx) for g, c in zip(grow, gcol)], [-a for a in uN], u)
+    vE = _qshift(v, 0, 1)
+    v = _where4([(c == 0) & (g <= ny) for g, c in zip(grow, gcol)], [-a for a in vE], v)
+    vW = _qshift(v, 0, -1)
+    v = _where4([(c == nx + 1) & (g <= ny) for g, c in zip(grow, gcol)],
+                [-a for a in vW], v)
+    return u, v
+
+
+def _valid_masks(grow, gcol, ny: int, nx: int):
+    u_valid = [(g >= 1) & (g <= ny) & (c >= 1) & (c <= nx - 1) for g, c in zip(grow, gcol)]
+    v_valid = [(g >= 1) & (g <= ny - 1) & (c >= 1) & (c <= nx) for g, c in zip(grow, gcol)]
+    cell = [(g >= 1) & (g <= ny) & (c >= 1) & (c <= nx) for g, c in zip(grow, gcol)]
+    return u_valid, v_valid, cell
+
+
+def _predictor_quad(u, v, c: StencilCoeffs):
+    """MAC predictor over quad planes (cavity-01.cpp:548-603), the JAX
+    package's operation order (cfd_tpu/kernels/quad.py:808-844)."""
+    nu, dt = c.viscosity, c.dt
+    idx, idy, idx2, idy2 = c.idx, c.idy, c.idx2, c.idy2
+    uE, uW = _qshift(u, 0, 1), _qshift(u, 0, -1)
+    uN, uS = _qshift(u, 1, 0), _qshift(u, -1, 0)
+    vE, vW = _qshift(v, 0, 1), _qshift(v, 0, -1)
+    vN, vS = _qshift(v, 1, 0), _qshift(v, -1, 0)
+    vSE = _qshift(v, -1, 1)
+    uNW = _qshift(u, 1, -1)
+    us, vs = [], []
+    for q in range(4):
+        lap_u = (uE[q] - 2.0 * u[q] + uW[q]) * idx2 + (uN[q] - 2.0 * u[q] + uS[q]) * idy2
+        u_e = 0.5 * (u[q] + uE[q])
+        u_w = 0.5 * (uW[q] + u[q])
+        conv_ux = (u_e * u_e - u_w * u_w) * idx
+        v_n = 0.5 * (v[q] + vE[q])
+        v_s = 0.5 * (vS[q] + vSE[q])
+        u_n = 0.5 * (uN[q] + u[q])
+        u_s = 0.5 * (uS[q] + u[q])
+        conv_uy = (v_n * u_n - v_s * u_s) * idy
+        us.append(u[q] + dt * (nu * lap_u - conv_ux - conv_uy))
+        lap_v = (vE[q] - 2.0 * v[q] + vW[q]) * idx2 + (vN[q] - 2.0 * v[q] + vS[q]) * idy2
+        v_nn = 0.5 * (v[q] + vN[q])
+        v_ss = 0.5 * (vS[q] + v[q])
+        conv_vy = (v_nn * v_nn - v_ss * v_ss) * idy
+        u_e2 = 0.5 * (u[q] + uN[q])
+        u_w2 = 0.5 * (uW[q] + uNW[q])
+        v_e2 = 0.5 * (v[q] + vE[q])
+        v_w2 = 0.5 * (vW[q] + v[q])
+        conv_vx = (u_e2 * v_e2 - u_w2 * v_w2) * idx
+        vs.append(v[q] + dt * (nu * lap_v - conv_vy - conv_vx))
+    return us, vs
+
+
+def _corrector_quad(us, vs, p, p_prev, grow, gcol, ny, nx, cu, cv, lid):
+    """rho-multiplied correction on valid faces, ghosts rebuilt from the
+    corrected interior, and the extrapolated guess 2p - p_prev."""
+    u_valid, v_valid, _ = _valid_masks(grow, gcol, ny, nx)
+    pE, pN = _qshift(p, 0, 1), _qshift(p, 1, 0)
+    u, v, guess = [], [], []
+    for q in range(4):
+        zero = torch.zeros_like(us[q])
+        u.append(torch.where(u_valid[q], us[q] - cu * (pE[q] - p[q]), zero))
+        v.append(torch.where(v_valid[q], vs[q] - cv * (pN[q] - p[q]), zero))
+        guess.append(2.0 * p[q] - p_prev[q])
+    u, v = _cavity_bc_quad(u, v, grow, gcol, ny, nx, lid)
+    return u, v, guess
+
+
+def _smooth_pairs_quad(p, b, n_pairs, omega, idx2, idy2, wE, wW, wN, wS, masks):
+    """n_pairs red(planes 0,3)+black(planes 1,2) Gauss-Seidel pairs
+    (cfd_tpu/kernels/quad.py:569-596, whole array: every band is full)."""
+    inv = []
+    for q in range(4):
+        r, sp = q >> 1, q & 1
+        denom = idx2 * (wE[sp] + wW[sp]) + idy2 * (wN[r] + wS[r])
+        denom = torch.broadcast_to(denom, p[q].shape)
+        safe = torch.where(denom > 0, denom, torch.ones_like(denom))
+        inv.append(torch.where(masks[q], 1.0 / safe, torch.zeros_like(denom)))
+
+    def half(p, upd):
+        E, Wm = _qshift(p, 0, 1), _qshift(p, 0, -1)
+        N, S = _qshift(p, 1, 0), _qshift(p, -1, 0)
+        out = list(p)
+        for q in upd:
+            r, sp = q >> 1, q & 1
+            gs = (idx2 * (wE[sp] * E[q] + wW[sp] * Wm[q])
+                  + idy2 * (wN[r] * N[q] + wS[r] * S[q]) - b[q]) * inv[q]
+            out[q] = torch.where(masks[q], p[q] + omega * (gs - p[q]), p[q])
+        return out
+
+    for _ in range(n_pairs):
+        p = half(p, (0, 3))
+        p = half(p, (1, 2))
+    return p
+
+
+def _residual_quad(p, b, idx2, idy2, wE, wW, wN, wS, masks):
+    E, Wm = _qshift(p, 0, 1), _qshift(p, 0, -1)
+    N, S = _qshift(p, 1, 0), _qshift(p, -1, 0)
+    out = []
+    for q in range(4):
+        r, sp = q >> 1, q & 1
+        ap = (idx2 * (wE[sp] * (E[q] - p[q]) + wW[sp] * (Wm[q] - p[q]))
+              + idy2 * (wN[r] * (N[q] - p[q]) + wS[r] * (S[q] - p[q])))
+        out.append(torch.where(masks[q], b[q] - ap, torch.zeros_like(b[q])))
+    return out
+
+
+def _check(shape, *tensors, dtype=torch.float32):
+    for t in tensors:
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(f"expected a contiguous {dtype} tensor of shape "
+                             f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
+                             f"(contiguous={t.is_contiguous()})")
+
+
+# ------------------------------------------------------------- stage kernels
+
+class QuadCorrector:
+    """(us4, vs4, p4, p_prev4) -> (u4, v4, guess4): rho-multiplied cavity
+    projection, ghosts rebuilt from the corrected interior, and the next
+    solve's warm start 2p - p_prev (cfd_tpu/kernels/quad.py:488). Used at
+    the stats/export boundary (cases/cavity.py unalign_state)."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, lid_velocity: float = 1.0):
+        self.qshape = quad_shape(shape)
+        self.ny, self.nx = shape[0] - 2, shape[1] - 2
+        self.cu = coeffs.dt / coeffs.dx * coeffs.density
+        self.cv = coeffs.dt / coeffs.dy * coeffs.density
+        self.lid = lid_velocity
+
+    def __call__(self, us, vs, p, p_prev):
+        _check(self.qshape, us, vs, p, p_prev)
+        if route(us, vs, p, p_prev) == "cuda":
+            return self.kernel(us, vs, p, p_prev)
+        return self.plain(us, vs, p, p_prev)
+
+    def plain(self, us, vs, p, p_prev):
+        grow, gcol = _qiota(self.qshape[1], self.qshape[2], us.device)
+        u, v, guess = _corrector_quad(list(us), list(vs), list(p), list(p_prev),
+                                      grow, gcol, self.ny, self.nx, self.cu, self.cv,
+                                      self.lid)
+        return torch.stack(u), torch.stack(v), torch.stack(guess)
+
+    def kernel(self, us, vs, p, p_prev):
+        u2, v2, guess = (torch.empty_like(us) for _ in range(3))
+        _, Hq8, Wqa = self.qshape
+        CORRECTOR(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u2), ptr(v2), ptr(guess),
+                  Hq8, Wqa, self.ny, self.nx, self.cu, self.cv, 2.0 * self.lid)
+        return u2, v2, guess
+
+
+class QuadCorrPredictorSource(QuadCorrector):
+    """Tentative-state cavity stage (cfd_tpu/kernels/quad.py:938):
+    (us, vs, p, p_prev) -> (us', vs', b', guess, max|b'|). Corrects the
+    carried (u*, v*) with p, rebuilds the lid-cavity ghosts, runs the MAC
+    predictor, builds b = rho/dt * div on the cells and reduces max|b|.
+    ``max|b'|`` is a 0-d float32 tensor on the fields' device."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, lid_velocity: float = 1.0):
+        super().__init__(shape, coeffs, lid_velocity)
+        self.coeffs = coeffs
+        self.rho_dt = coeffs.density / coeffs.dt
+
+    def plain(self, us, vs, p, p_prev):
+        grow, gcol = _qiota(self.qshape[1], self.qshape[2], us.device)
+        ny, nx, c = self.ny, self.nx, self.coeffs
+        u, v, guess = _corrector_quad(list(us), list(vs), list(p), list(p_prev),
+                                      grow, gcol, ny, nx, self.cu, self.cv, self.lid)
+        us_raw, vs_raw = _predictor_quad(u, v, c)
+        u_valid, v_valid, cell = _valid_masks(grow, gcol, ny, nx)
+        zero = torch.zeros_like(u[0])
+        us2 = [torch.where(u_valid[q], us_raw[q], zero) for q in range(4)]
+        vs2 = [torch.where(v_valid[q], vs_raw[q], zero) for q in range(4)]
+        usW = _qshift(us2, 0, -1)
+        vsS = _qshift(vs2, -1, 0)
+        b = []
+        for q in range(4):
+            div = (us2[q] - usW[q]) * c.idx + (vs2[q] - vsS[q]) * c.idy
+            b.append(torch.where(cell[q], self.rho_dt * div, torch.zeros_like(div)))
+        b = torch.stack(b)
+        return (torch.stack(us2), torch.stack(vs2), b, torch.stack(guess),
+                torch.max(torch.abs(b)))
+
+    def kernel(self, us, vs, p, p_prev):
+        u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
+        max_b = torch.empty((), dtype=torch.float32, device=us.device)
+        _, Hq8, Wqa = self.qshape
+        c = self.coeffs
+        CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr), ptr(v_scr), ptr(us2),
+              ptr(vs2), ptr(b), ptr(guess), ptr(max_b), Hq8, Wqa, self.ny, self.nx,
+              self.cu, self.cv, 2.0 * self.lid, c.dt, c.viscosity, c.idx, c.idy,
+              c.idx2, c.idy2, self.rho_dt)
+        return us2, vs2, b, guess, max_b
+
+
+def make_quad_corrector(shape, coeffs, lid_velocity: float = 1.0) -> QuadCorrector:
+    return QuadCorrector(shape, coeffs, lid_velocity)
+
+
+def make_quad_corr_predictor_source(shape, coeffs, lid_velocity: float = 1.0
+                                    ) -> QuadCorrPredictorSource:
+    return QuadCorrPredictorSource(shape, coeffs, lid_velocity)
+
+
+# ------------------------------------------------------- finest V-cycle level
+
+class _QuadLevel0(nn.Module):
+    """Shared constants of the finest-level kernels: the separable coupling
+    weights of ``problem`` as natural (2*Wqa,) column and (2*Hq8,) row
+    vectors, zero outside the interior (buffers on ``device``)."""
+
+    def __init__(self, shape, problem, omega: float, n_pairs: int, coarse_shape,
+                 device="cpu"):
+        super().__init__()
+        _, _, Hq8, Wqa = quad_dims(shape)
+        if tuple(coarse_shape) != (Hq8, Wqa):
+            raise ValueError(f"coarse shape {tuple(coarse_shape)} != quad plane "
+                             f"shape {(Hq8, Wqa)}")
+        if n_pairs < 1:
+            raise ValueError(f"n_pairs must be >= 1, got {n_pairs}")
+        self.qshape = (4, Hq8, Wqa)
+        self.coarse_shape = (Hq8, Wqa)
+        self.ny, self.nx = problem.ny, problem.nx
+        self.idx2 = 1.0 / (problem.dx * problem.dx)
+        self.idy2 = 1.0 / (problem.dy * problem.dy)
+        self.omega = omega
+        self.n_pairs = n_pairs
+        nx, ny = problem.nx, problem.ny
+
+        def col(w):
+            v = np.zeros(2 * Wqa)
+            v[1 : nx + 1] = w[1, 1 : nx + 1]
+            return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+        def row(w):
+            v = np.zeros(2 * Hq8)
+            v[1 : ny + 1] = w[1 : ny + 1, 1]
+            return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+        self.register_buffer("wE", col(problem.wE))
+        self.register_buffer("wW", col(problem.wW))
+        self.register_buffer("wN", row(problem.wN))
+        self.register_buffer("wS", row(problem.wS))
+
+    def _plane_weights(self):
+        """Per-parity plane vectors: wE[s] (1, Wqa), wN[r] (Hq8, 1)."""
+        _, Hq8, Wqa = self.qshape
+        cols = [[w[s::2].reshape(1, Wqa) for s in range(2)] for w in (self.wE, self.wW)]
+        rows = [[w[r::2].reshape(Hq8, 1) for r in range(2)] for w in (self.wN, self.wS)]
+        return (*cols, *rows)
+
+    def _masks(self, device):
+        grow, gcol = _qiota(self.qshape[1], self.qshape[2], device)
+        return _valid_masks(grow, gcol, self.ny, self.nx)[2]
+
+    def _kernel_args(self):
+        _, Hq8, Wqa = self.qshape
+        return (ptr(self.wE), ptr(self.wW), ptr(self.wN), ptr(self.wS), Hq8, Wqa,
+                self.ny, self.nx, self.idx2, self.idy2, self.omega, self.n_pairs)
+
+    def _check_device(self, t):
+        if t.device != self.wE.device:
+            raise ValueError(f"tensor on {t.device}, kernel constants on "
+                             f"{self.wE.device}")
+
+
+class QuadPreSmoothRestrict(_QuadLevel0):
+    """(p4, b4) -> (p4, rc): n_pairs red/black pairs on the finest level,
+    then the residual restricted (full weighting) straight into the aligned
+    level-1 source rc (Hq8, Wqa) (cfd_tpu/kernels/quad.py:630)."""
+
+    def forward(self, p, b):
+        _check(self.qshape, p, b)
+        self._check_device(p)
+        if route(p, b) == "cuda":
+            return self.kernel(p, b)
+        return self.plain(p, b)
+
+    def plain(self, p, b):
+        wE, wW, wN, wS = self._plane_weights()
+        masks = self._masks(p.device)
+        P = _smooth_pairs_quad(list(p), list(b), self.n_pairs, self.omega, self.idx2,
+                               self.idy2, wE, wW, wN, wS, masks)
+        r = _residual_quad(P, list(b), self.idx2, self.idy2, wE, wW, wN, wS, masks)
+        # coarse cell (Jc, Ic) children: planes (1,1)@(Jc-1,Ic-1),
+        # (1,0)@(Jc-1,Ic), (0,1)@(Jc,Ic-1), (0,0)@(Jc,Ic)
+        rc = 0.25 * (r[0]
+                     + torch.roll(r[1], 1, dims=1)
+                     + torch.roll(r[2], 1, dims=0)
+                     + torch.roll(torch.roll(r[3], 1, dims=0), 1, dims=1))
+        Hc, Wc = self.coarse_shape
+        Jc = torch.arange(Hc, device=p.device)[:, None]
+        Ic = torch.arange(Wc, device=p.device)[None, :]
+        cmask = (Jc >= 1) & (Jc <= self.ny // 2) & (Ic >= 1) & (Ic <= self.nx // 2)
+        return torch.stack(P), torch.where(cmask, rc, torch.zeros_like(rc))
+
+    def kernel(self, p, b):
+        p_out = torch.empty_like(p)
+        rc = torch.empty(self.coarse_shape, dtype=torch.float32, device=p.device)
+        PRE(p, ptr(p), ptr(b), ptr(p_out), ptr(rc), *self._kernel_args())
+        return p_out, rc
+
+
+class QuadPostProlongSmooth(_QuadLevel0):
+    """(p4, b4, ec) -> (p4, max|b - Ap|): bilinear 9-3-3-1 prolongation of the
+    level-1 correction ec (Hq8, Wqa) with edge clamps, added on the interior,
+    then n_pairs pairs, then the tolerance residual
+    (cfd_tpu/kernels/quad.py:700). The residual is a 0-d float32 tensor."""
+
+    def forward(self, p, b, ec):
+        _check(self.qshape, p, b)
+        _check(self.coarse_shape, ec)
+        self._check_device(p)
+        if route(p, b, ec) == "cuda":
+            return self.kernel(p, b, ec)
+        return self.plain(p, b, ec)
+
+    def plain(self, p, b, ec):
+        wE, wW, wN, wS = self._plane_weights()
+        masks = self._masks(p.device)
+        nyc, nxc = self.ny // 2, self.nx // 2
+        Hc, Wc = self.coarse_shape
+        Jc = torch.arange(Hc, device=p.device)[:, None]
+        Ic = torch.arange(Wc, device=p.device)[None, :]
+        ecJ1 = torch.roll(ec, -1, dims=0)
+        ecJ0 = torch.where(Jc == 0, ecJ1, ec)        # clamp J=0 ghost -> row 1
+        ecJ1 = torch.where(Jc == nyc, ec, ecJ1)      # clamp J+1 > nyc -> row nyc
+        rowmix = [0.75 * ecJ0 + 0.25 * ecJ1,         # r = 0: hi child of Jc
+                  0.25 * ecJ0 + 0.75 * ecJ1]         # r = 1: lo child of Jc+1
+        corr = []
+        for r in range(2):
+            m1 = torch.roll(rowmix[r], -1, dims=1)
+            m0 = torch.where(Ic == 0, m1, rowmix[r])
+            m1 = torch.where(Ic == nxc, rowmix[r], m1)
+            corr.append([0.75 * m0 + 0.25 * m1, 0.25 * m0 + 0.75 * m1])
+        P = [torch.where(masks[q], p[q] + corr[q >> 1][q & 1], p[q]) for q in range(4)]
+        P = _smooth_pairs_quad(P, list(b), self.n_pairs, self.omega, self.idx2,
+                               self.idy2, wE, wW, wN, wS, masks)
+        r = _residual_quad(P, list(b), self.idx2, self.idy2, wE, wW, wN, wS, masks)
+        return torch.stack(P), torch.max(torch.abs(torch.stack(r)))
+
+    def kernel(self, p, b, ec):
+        p_out = torch.empty_like(p)
+        res = torch.empty((), dtype=torch.float32, device=p.device)
+        POST(p, ptr(p), ptr(b), ptr(ec), ptr(p_out), ptr(res), *self._kernel_args())
+        return p_out, res
+
+
+def make_quad_pre_smooth_restrict(shape, problem, omega: float, n_pairs: int,
+                                  coarse_shape, device="cpu") -> QuadPreSmoothRestrict:
+    return QuadPreSmoothRestrict(shape, problem, omega, n_pairs, coarse_shape, device)
+
+
+def make_quad_post_prolong_smooth(shape, problem, omega: float, n_pairs: int,
+                                  coarse_shape, device="cpu") -> QuadPostProlongSmooth:
+    return QuadPostProlongSmooth(shape, problem, omega, n_pairs, coarse_shape, device)

@@ -1,0 +1,133 @@
+"""Coarse-level red/black smoother on separable weights (the port of
+cfd_tpu.kernels.rb_smoother).
+
+``pairs(p, b) -> p`` after n red+black Gauss-Seidel pairs, or with
+``with_residual_field`` ``-> (p, r)`` with the signed residual b - A p of
+the smoothed iterate, masked to the interior. Arrays are the aligned
+(H8, W) levels of the multigrid hierarchy in their storage dtype (float32,
+or bfloat16 for the mixed-precision coarse hierarchy); the arithmetic is
+always float32 and the iterate is rounded to the storage type once, after
+the last half-sweep, as on the TPU (rb_smoother.py:199-200,255).
+
+The kernel is csrc/rb_smoother.cu. ``plain`` is the whole-array PyTorch
+twin (no slabs, no bands); ``forward`` sends CPU tensors to it and CUDA
+tensors to the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+from torch import nn
+
+from cfd_tpu_torch.kernels._build import Kernel, ptr, route
+
+RB_PAIRS = Kernel("rb_pairs", "cfd_rb_pairs", "cfd_tpu_torch/csrc/rb_smoother.cu",
+                  "cfd_tpu/kernels/rb_smoother.py:37")
+
+_STORAGE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class RBPairs(nn.Module):
+    """Red/black pairs on one aligned separable level.
+
+    wE, wW: (W,) and wN, wS: (H8,) coupling vectors, 0 outside the interior
+    (float32 buffers; a bfloat16 level passes its bf16-rounded weights, as
+    rb_pairs_for_level reads them back from the bf16 arrays)."""
+
+    def __init__(self, shape, wE, wW, wN, wS, idx2: float, idy2: float, omega: float,
+                 n_pairs: int, ny: int, nx: int, dtype=torch.float32,
+                 with_residual_field: bool = False):
+        super().__init__()
+        if dtype not in _STORAGE:
+            raise ValueError(f"storage dtype must be float32 or bfloat16, got {dtype}")
+        if n_pairs < 1:
+            raise ValueError(f"n_pairs must be >= 1, got {n_pairs}")
+        H8, W = shape
+        self.shape = (H8, W)
+        self.dtype = dtype
+        self.idx2, self.idy2, self.omega = idx2, idy2, omega
+        self.n_pairs, self.ny, self.nx = n_pairs, ny, nx
+        self.with_residual_field = with_residual_field
+        f32 = lambda w, n: torch.as_tensor(w, dtype=torch.float32).reshape(n).clone()
+        self.register_buffer("wE", f32(wE, W))
+        self.register_buffer("wW", f32(wW, W))
+        self.register_buffer("wN", f32(wN, H8))
+        self.register_buffer("wS", f32(wS, H8))
+
+    def forward(self, p, b):
+        for t in (p, b):
+            if t.dtype != self.dtype or tuple(t.shape) != self.shape or not t.is_contiguous():
+                raise ValueError(f"expected contiguous {self.dtype} {self.shape}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+        if p.device != self.wE.device:
+            raise ValueError(f"tensor on {p.device}, kernel constants on {self.wE.device}")
+        if route(p, b) == "cuda":
+            return self.kernel(p, b)
+        return self.plain(p, b)
+
+    def _masks(self, device):
+        H8, W = self.shape
+        jj = torch.arange(H8, device=device)[:, None]
+        ii = torch.arange(W, device=device)[None, :]
+        interior = (jj >= 1) & (jj <= self.ny) & (ii >= 1) & (ii <= self.nx)
+        even = ((jj + ii) % 2) == 0
+        return interior, even
+
+    def plain(self, p, b):
+        we, ww = self.wE.reshape(1, -1), self.wW.reshape(1, -1)
+        wn, ws = self.wN.reshape(-1, 1), self.wS.reshape(-1, 1)
+        idx2, idy2, omega = self.idx2, self.idy2, self.omega
+        interior, even = self._masks(p.device)
+        denom = idx2 * (we + ww) + idy2 * (wn + ws)
+        safe = torch.where(denom > 0, denom, torch.ones_like(denom))
+        inv = torch.where(interior, 1.0 / safe, torch.zeros_like(safe))
+        b = b.float()
+        p = p.float()
+
+        def half(p, mask):
+            pE = torch.roll(p, -1, dims=1)
+            pW = torch.roll(p, 1, dims=1)
+            pN = torch.roll(p, -1, dims=0)
+            pS = torch.roll(p, 1, dims=0)
+            gs = (idx2 * (we * pE + ww * pW) + idy2 * (wn * pN + ws * pS) - b) * inv
+            return torch.where(mask, p + omega * (gs - p), p)
+
+        for _ in range(self.n_pairs):
+            p = half(p, interior & even)
+            p = half(p, interior & ~even)
+        if not self.with_residual_field:
+            return p.to(self.dtype)
+        pE = torch.roll(p, -1, dims=1)
+        pW = torch.roll(p, 1, dims=1)
+        pN = torch.roll(p, -1, dims=0)
+        pS = torch.roll(p, 1, dims=0)
+        ap = (idx2 * (we * (pE - p) + ww * (pW - p))
+              + idy2 * (wn * (pN - p) + ws * (pS - p)))
+        r = torch.where(interior, b - ap, torch.zeros_like(b))
+        return p.to(self.dtype), r.to(self.dtype)
+
+    def kernel(self, p, b):
+        out = torch.empty_like(p)
+        scratch = out if self.dtype == torch.float32 else torch.empty(
+            self.shape, dtype=torch.float32, device=p.device)
+        r = torch.empty_like(p) if self.with_residual_field else None
+        H8, W = self.shape
+        RB_PAIRS(p, _STORAGE[self.dtype], ptr(p), ptr(b), ptr(out), ptr(scratch),
+                 ptr(r) if r is not None else ctypes.c_void_p(None),
+                 ptr(self.wE), ptr(self.wW), ptr(self.wN), ptr(self.wS), H8, W, self.ny,
+                 self.nx, self.idx2, self.idy2, self.omega, self.n_pairs)
+        return out if r is None else (out, r)
+
+
+def rb_pairs_for_level(level, omega: float, n_pairs: int,
+                       with_residual_field: bool = False) -> RBPairs:
+    """Adapter from an aligned separable multigrid level
+    (poisson.multigrid._Level) to the smoother, in the level's storage dtype
+    and on the level's device."""
+    H8, W = level.shape
+    return RBPairs(level.shape, level.wE.reshape(W), level.wW.reshape(W),
+                   level.wN.reshape(H8), level.wS.reshape(H8), level.idx2, level.idy2,
+                   omega, n_pairs, level.ny, level.nx, dtype=level.dtype,
+                   with_residual_field=with_residual_field).to(level.wE.device)

@@ -1,0 +1,403 @@
+"""Geometric multigrid pressure-Poisson solver, separable quad path (the
+port of cfd_tpu.poisson.multigrid).
+
+Ported: the rectangle (separable-weight) hierarchy of the cavity flavor,
+solved with the finest level in the quad layout (kernels.quad pre/post
+kernels) and every coarser level on aligned arrays (kernels.rb_smoother),
+in float32 or with the bfloat16 coarse hierarchy of
+``MGConfig.coarse_dtype``. The coarse-level restriction/prolongation and the
+coarsest dense solve are XLA glue in the reference, outside any kernel;
+here they are plain PyTorch ops.
+
+The tolerance loop runs on the host: every V-cycle reads its residual back
+once, where the reference runs a device ``lax.while_loop``. The stopping
+rule is the reference's exactly (multigrid.py:836-849,883-885), evaluated
+in float32: tol = max(tol_factor * (max_b if max_b > 0 else 1), abs_tol);
+stop on res <= tol, on max_cycles, or when res >= stall_ratio * prev, with
+the finite sentinels 1e30/2 and 1e30.
+
+Unified operator (multigrid.py:13-26):
+
+    A(p) = idx2*(wE*(pE - p) + wW*(pW - p)) + idy2*(wN*(pN - p) + wS*(pS - p))
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from cfd_tpu_torch.kernels.rb_smoother import rb_pairs_for_level
+
+
+@dataclasses.dataclass(frozen=True)
+class PoissonProblem:
+    """Host-side spec of one weighted-Poisson level."""
+
+    nx: int
+    ny: int
+    dx: float
+    dy: float
+    wE: np.ndarray  # (ny+2, nx+2) float; coupling weights, 0 outside interior
+    wW: np.ndarray
+    wN: np.ndarray
+    wS: np.ndarray
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.ny + 2, self.nx + 2)
+
+
+def mg_compatible(nx: int, ny: int, min_coarse: int = 4) -> bool:
+    """True when at least one factor-2 coarsening is possible."""
+    return nx % 2 == 0 and ny % 2 == 0 and nx // 2 >= min_coarse and ny // 2 >= min_coarse
+
+
+def _interior_mask(nx: int, ny: int) -> np.ndarray:
+    m = np.zeros((ny + 2, nx + 2), dtype=bool)
+    m[1 : ny + 1, 1 : nx + 1] = True
+    return m
+
+
+def cavity_problem(nx: int, ny: int, dx: float, dy: float) -> PoissonProblem:
+    """The cavity flavor: Neumann sides except the always-on south coupling
+    (cavity-01.cpp:644-647)."""
+    jj = np.arange(ny + 2)[:, None]
+    ii = np.arange(nx + 2)[None, :]
+    interior = _interior_mask(nx, ny)
+    wE = ((ii < nx) & interior).astype(np.float64)
+    wW = ((ii > 1) & interior).astype(np.float64)
+    wN = ((jj < ny) & interior).astype(np.float64)
+    wS = interior.astype(np.float64)  # reference quirk: couples j=1 to 0-ghost
+    return PoissonProblem(nx, ny, dx, dy, wE, wW, wN, wS)
+
+
+def coarsen_problem(p: PoissonProblem) -> PoissonProblem:
+    """Factor-2 coarsening with interface-averaged couplings and the
+    domain-edge Dirichlet fix w_c = 4w/(2+w) (1 -> 4/3 -> 8/5 -> ...), see
+    cfd_tpu/poisson/multigrid.py:227-270."""
+    assert p.nx % 2 == 0 and p.ny % 2 == 0
+    nx, ny = p.nx // 2, p.ny // 2
+
+    def block(a: np.ndarray) -> np.ndarray:
+        return a[1 : p.ny + 1, 1 : p.nx + 1].reshape(ny, 2, nx, 2)
+
+    def pad(interior: np.ndarray) -> np.ndarray:
+        w = np.zeros((ny + 2, nx + 2))
+        w[1 : ny + 1, 1 : nx + 1] = interior
+        return w
+
+    wE = pad(block(p.wE)[:, :, :, 1].mean(axis=1))
+    wW = pad(block(p.wW)[:, :, :, 0].mean(axis=1))
+    wN = pad(block(p.wN)[:, 1, :, :].mean(axis=-1))
+    wS = pad(block(p.wS)[:, 0, :, :].mean(axis=-1))
+
+    def edge_fix(w):
+        return 4.0 * w / (2.0 + w)
+
+    wS[1, 1 : nx + 1] = edge_fix(wS[1, 1 : nx + 1])
+    wN[ny, 1 : nx + 1] = edge_fix(wN[ny, 1 : nx + 1])
+    wW[1 : ny + 1, 1] = edge_fix(wW[1 : ny + 1, 1])
+    wE[1 : ny + 1, nx] = edge_fix(wE[1 : ny + 1, nx])
+    return PoissonProblem(nx, ny, p.dx * 2, p.dy * 2, wE, wW, wN, wS)
+
+
+def _is_separable(p: PoissonProblem) -> bool:
+    inter = np.s_[1 : p.ny + 1, 1 : p.nx + 1]
+
+    def rows_equal(w):
+        return bool((w[inter] == w[inter][0:1, :]).all())
+
+    def cols_equal(w):
+        return bool((w[inter] == w[inter][:, 0:1]).all())
+
+    return (rows_equal(p.wE) and rows_equal(p.wW)
+            and cols_equal(p.wN) and cols_equal(p.wS))
+
+
+def _apply_np(p: PoissonProblem, x: np.ndarray) -> np.ndarray:
+    """numpy A(x) for host-side dense-matrix probing."""
+    idx2, idy2 = 1.0 / (p.dx * p.dx), 1.0 / (p.dy * p.dy)
+    xE = np.roll(x, -1, axis=1)
+    xW = np.roll(x, 1, axis=1)
+    xN = np.roll(x, -1, axis=0)
+    xS = np.roll(x, 1, axis=0)
+    a = idx2 * (p.wE * (xE - x) + p.wW * (xW - x)) + idy2 * (p.wN * (xN - x) + p.wS * (xS - x))
+    return np.where(_interior_mask(p.nx, p.ny), a, 0.0)
+
+
+def _dense_pinv(p: PoissonProblem) -> np.ndarray:
+    """Pseudo-inverse of the coarsest operator over interior cells (the
+    near-constant mode makes an iterative coarsest solve slow)."""
+    n = p.nx * p.ny
+    A = np.zeros((n, n))
+    for k in range(n):
+        e = np.zeros((p.ny + 2, p.nx + 2))
+        e[1 + k // p.nx, 1 + k % p.nx] = 1.0
+        A[:, k] = _apply_np(p, e)[1 : p.ny + 1, 1 : p.nx + 1].ravel()
+    return np.linalg.pinv(A, rcond=1e-12)
+
+
+@dataclasses.dataclass(frozen=True)
+class MGConfig:
+    """The reference's multigrid configuration (cfd_tpu MGConfig). The port
+    honours omega, pre/post_sweeps, max_cycles, tol_factor, abs_tol,
+    min_coarse, stall_ratio and coarse_dtype; pin_mean, tail_from,
+    whole_solve, whole_step and corr_opt raise NotImplementedError until
+    their kernels are ported (ROADMAP.md queue B). The reference's
+    coarse_sweeps is read by nothing there, so it has no field here and an
+    override naming it is refused."""
+
+    omega: float = 1.0
+    pre_sweeps: int = 2
+    post_sweeps: int = 2
+    max_cycles: int = 100
+    tol_factor: float = 1e-9
+    abs_tol: float = 0.0
+    min_coarse: int = 4
+    pin_mean: bool = False
+    stall_ratio: float = 0.9
+    tail_from: int | None = None
+    whole_solve: bool = False
+    whole_step: bool = False
+    coarse_dtype: str | None = None
+    corr_opt: bool = False
+
+
+def normalize_coarse_dtype_optout(mg_overrides):
+    """``coarse_dtype='float32'/'f32'`` in mg_overrides is the explicit
+    opt-out of the auto bf16 coarse hierarchy: strip the key and report it.
+    Returns ``(explicit_f32, stripped_overrides)``."""
+    explicit_f32 = bool(
+        mg_overrides and mg_overrides.get("coarse_dtype") in ("float32", "f32"))
+    if explicit_f32:
+        mg_overrides = {k: v for k, v in mg_overrides.items() if k != "coarse_dtype"}
+    return explicit_f32, mg_overrides
+
+
+def auto_bf16_coarse(on_cuda: bool, explicit_f32: bool, mg: MGConfig,
+                     mg_overrides) -> bool:
+    """The fully-auto condition for the bf16 coarse hierarchy
+    (cfd_tpu.poisson.multigrid.auto_bf16_coarse with "device is cuda" in
+    place of "platform is tpu"): the CPU keeps the f32 ladder, as the
+    reference's interpret mode does; any manual fusion/precision knob keeps
+    full precision."""
+    return (on_cuda and not explicit_f32
+            and mg.coarse_dtype is None
+            and mg.tail_from is None and not mg.whole_step
+            and not (mg_overrides and any(
+                k in mg_overrides for k in (
+                    "whole_solve", "whole_step", "tail_from", "coarse_dtype"))))
+
+
+def _round_up8_128(shape: tuple[int, int], dtype=torch.float32) -> tuple[int, int]:
+    """Aligned dims of the reference: rows to 8 (float32) or 16 (2-byte
+    dtypes), columns to 128."""
+    H, W = shape
+    g = 16 if dtype.itemsize == 2 else 8
+    return (-(-H // g) * g, -(-W // 128) * 128)
+
+
+class _Level(nn.Module):
+    """One aligned separable level: wE/wW (1, W) and wN/wS (H, 1) coupling
+    vectors in the level's storage dtype (buffers), zero outside the
+    interior; shape is the aligned (H, W)."""
+
+    def __init__(self, wE, wW, wN, wS, idx2: float, idy2: float,
+                 shape: tuple[int, int], ny: int, nx: int, dtype: torch.dtype):
+        super().__init__()
+        self.register_buffer("wE", wE)
+        self.register_buffer("wW", wW)
+        self.register_buffer("wN", wN)
+        self.register_buffer("wS", wS)
+        self.idx2, self.idy2 = idx2, idy2
+        self.shape = shape
+        self.ny, self.nx = ny, nx
+        self.dtype = dtype
+
+
+def _build_level(p: PoissonProblem, dtype: torch.dtype, device="cpu") -> _Level:
+    """Aligned level (cfd_tpu _build_level(aligned=True)) of a separable
+    problem, its weights rounded to ``dtype`` (bf16: 4/3 -> 1.3359375)."""
+    if not _is_separable(p):
+        raise NotImplementedError("masked (non-separable) hierarchies are not "
+                                  "ported yet (ROADMAP.md queue A item 8)")
+    H, W = _round_up8_128((p.ny + 2, p.nx + 2), dtype)
+    wE = np.zeros((1, W))
+    wE[0, 1 : p.nx + 1] = p.wE[1, 1 : p.nx + 1]
+    wW = np.zeros((1, W))
+    wW[0, 1 : p.nx + 1] = p.wW[1, 1 : p.nx + 1]
+    wN = np.zeros((H, 1))
+    wN[1 : p.ny + 1, 0] = p.wN[1 : p.ny + 1, 1]
+    wS = np.zeros((H, 1))
+    wS[1 : p.ny + 1, 0] = p.wS[1 : p.ny + 1, 1]
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return _Level(t(wE), t(wW), t(wN), t(wS), 1.0 / (p.dx * p.dx),
+                  1.0 / (p.dy * p.dy), (H, W), p.ny, p.nx, dtype)
+
+
+def build_problems(problem: PoissonProblem, cfg: MGConfig) -> list[PoissonProblem]:
+    probs = [problem]
+    while (probs[-1].nx % 2 == 0 and probs[-1].ny % 2 == 0
+           and probs[-1].nx // 2 >= cfg.min_coarse and probs[-1].ny // 2 >= cfg.min_coarse):
+        probs.append(coarsen_problem(probs[-1]))
+    return probs
+
+
+def _restrict(fine: _Level, coarse: _Level, r: torch.Tensor) -> torch.Tensor:
+    """Full weighting: coarse cell = mean of its 4 fine children, summed in
+    float32 in the row-major window order of the reference's reduce_window,
+    rounded once to the storage dtype."""
+    inner = r[1 : fine.ny + 1, 1 : fine.nx + 1].float()
+    rc = ((inner[0::2, 0::2] + inner[0::2, 1::2]) + inner[1::2, 0::2]
+          + inner[1::2, 1::2]) * 0.25
+    out = torch.zeros(coarse.shape, dtype=r.dtype, device=r.device)
+    out[1 : coarse.ny + 1, 1 : coarse.nx + 1] = rc.to(r.dtype)
+    return out
+
+
+def _prolong(coarse: _Level, fine: _Level, e: torch.Tensor) -> torch.Tensor:
+    """Bilinear (cell-centered 9-3-3-1) interpolation of the coarse
+    correction with edge-extrapolated ghosts (cfd_tpu multigrid._prolong),
+    computed in float32 and rounded once to e's dtype; 0 outside the fine
+    interior."""
+    ny_c, nx_c = coarse.ny, coarse.nx
+    ce = torch.nn.functional.pad(e[1 : ny_c + 1, 1 : nx_c + 1].float()[None, None],
+                                 (1, 1, 1, 1), mode="replicate")[0, 0]
+    c = ce[1:-1, 1:-1]
+    cw, ceast = ce[1:-1, :-2], ce[1:-1, 2:]
+    cs, cn = ce[:-2, 1:-1], ce[2:, 1:-1]
+    csw, cse = ce[:-2, :-2], ce[:-2, 2:]
+    cnw, cne = ce[2:, :-2], ce[2:, 2:]
+    k = 1.0 / 16.0
+    c00 = k * (9 * c + 3 * cw + 3 * cs + csw)  # child (j-lo, i-lo)
+    c01 = k * (9 * c + 3 * ceast + 3 * cs + cse)
+    c10 = k * (9 * c + 3 * cw + 3 * cn + cnw)
+    c11 = k * (9 * c + 3 * ceast + 3 * cn + cne)
+    ef = torch.empty((2 * ny_c, 2 * nx_c), dtype=torch.float32, device=e.device)
+    ef[0::2, 0::2], ef[0::2, 1::2] = c00, c01
+    ef[1::2, 0::2], ef[1::2, 1::2] = c10, c11
+    out = torch.zeros(fine.shape, dtype=e.dtype, device=e.device)
+    out[1 : fine.ny + 1, 1 : fine.nx + 1] = ef[: fine.ny, : fine.nx].to(e.dtype)
+    return out
+
+
+def _fold_sum(x: torch.Tensor) -> torch.Tensor:
+    """Row sums by a fixed pairwise tree of elementwise adds: the same
+    rounding on every device (a library reduction's order is its own)."""
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        head = x[:, :h] + x[:, h : 2 * h]
+        x = torch.cat([head, x[:, 2 * h :]], dim=1)
+    return x[:, 0]
+
+
+class MultigridPoisson(nn.Module):
+    """``solve(p4_warm, b4, max_b=None) -> (p4, cycles, res)`` with the
+    quad-level-0 contract of cfd_tpu make_multigrid_poisson(aligned_io=True,
+    quad_level0=...): p and b in the (4, Hq8, Wqa) quad layout, ``cycles``
+    an int and ``res`` the final max|b - Ap| as a float32 host number.
+
+    Buffers: every level's coupling vectors (in the level's storage dtype)
+    and the coarsest pseudo-inverse."""
+
+    def __init__(self, problem: PoissonProblem, cfg: MGConfig, quad_level0,
+                 device="cpu"):
+        super().__init__()
+        unported = [name for name in ("pin_mean", "whole_solve", "whole_step", "corr_opt")
+                    if getattr(cfg, name)]
+        if cfg.tail_from is not None:
+            unported.append("tail_from")
+        if unported:
+            raise NotImplementedError(
+                f"MGConfig {', '.join(unported)} not ported yet (ROADMAP.md queue B)")
+        coarse_dt = None
+        if cfg.coarse_dtype is not None:
+            if cfg.coarse_dtype not in ("bfloat16", "bf16"):
+                raise ValueError(f"unsupported coarse_dtype {cfg.coarse_dtype!r}"
+                                 " (only 'bfloat16')")
+            coarse_dt = torch.bfloat16
+        self.cfg = cfg
+        self.coarse_dt = coarse_dt
+        probs = build_problems(problem, cfg)
+        if len(probs) < 3:
+            raise ValueError("the quad-level-0 hierarchy needs at least 3 levels")
+        self.levels = nn.ModuleList(
+            _build_level(p, torch.float32 if k == 0 else (coarse_dt or torch.float32),
+                         device) for k, p in enumerate(probs))
+        self.register_buffer(
+            "pinv", torch.as_tensor(_dense_pinv(probs[-1]), dtype=torch.float32,
+                                    device=device))
+        self.pre0, self.post0 = quad_level0
+        # coarse levels 1..L-2: pre-smooth + residual field, post-smooth
+        inner = self.levels[1:-1]
+        self.pre = nn.ModuleList(rb_pairs_for_level(lv, cfg.omega, cfg.pre_sweeps,
+                                                    with_residual_field=True)
+                                 for lv in inner)
+        self.post = nn.ModuleList(rb_pairs_for_level(lv, cfg.omega, cfg.post_sweeps)
+                                  for lv in inner)
+
+    def coarse_solve(self, b: torch.Tensor) -> torch.Tensor:
+        """Dense pinv product on the coarsest interior, in b's dtype (the
+        pinv is rounded to it, as multigrid.py:762-766) with float32 sums."""
+        bot = self.levels[-1]
+        vec = b[1 : bot.ny + 1, 1 : bot.nx + 1].reshape(-1).float()
+        pinv = self.pinv.to(b.dtype).float()
+        e = _fold_sum(pinv * vec[None, :]).reshape(bot.ny, bot.nx)
+        out = torch.zeros(bot.shape, dtype=b.dtype, device=b.device)
+        out[1 : bot.ny + 1, 1 : bot.nx + 1] = e.to(b.dtype)
+        return out
+
+    def vcycle(self, k: int, p: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Coarse V-cycle from level k >= 1 (p is zeros at every call)."""
+        if k == len(self.levels) - 1:
+            return self.coarse_solve(b)
+        level, below = self.levels[k], self.levels[k + 1]
+        p, r = self.pre[k - 1](p, b)
+        rc = _restrict(level, below, r)
+        ec = self.vcycle(k + 1, torch.zeros(below.shape, dtype=rc.dtype,
+                                            device=rc.device), rc)
+        p = p + _prolong(below, level, ec)
+        return self.post[k - 1](p, b)
+
+    def cycle(self, p: torch.Tensor, b: torch.Tensor):
+        """One V-cycle from the quad finest level: (p4, b4) -> (p4, res)."""
+        p, rc = self.pre0(p, b)
+        rc_shape = rc.shape
+        lv1 = self.levels[1]
+        if self.coarse_dt is not None:
+            # bf16 level 1 is 16-row aligned: pad the 8-aligned rc and cast,
+            # then slice ec back and cast to f32 (multigrid.py:781-791)
+            rc = torch.nn.functional.pad(
+                rc, (0, lv1.shape[1] - rc_shape[1], 0, lv1.shape[0] - rc_shape[0])
+            ).to(self.coarse_dt)
+        ec = self.vcycle(1, torch.zeros(lv1.shape, dtype=rc.dtype, device=rc.device), rc)
+        if self.coarse_dt is not None:
+            ec = ec[: rc_shape[0], : rc_shape[1]].float().contiguous()
+        return self.post0(p, b, ec)
+
+    def forward(self, p_warm: torch.Tensor, b: torch.Tensor, max_b=None):
+        cfg = self.cfg
+        if max_b is None:
+            max_b = torch.max(torch.abs(b))
+        max_b = np.float32(max_b.item())
+        f32 = np.float32
+        tol = max(f32(cfg.tol_factor) * (max_b if max_b > 0 else f32(1.0)),
+                  f32(cfg.abs_tol))
+        stall = f32(cfg.stall_ratio)
+        # finite sentinels, as the reference (not finfo.max)
+        prev = f32(1e30)
+        res = prev / f32(2.0)
+        p, it = p_warm, 0
+        while res > tol and it < cfg.max_cycles and res < stall * prev:
+            p, new_res = self.cycle(p, b)
+            prev, res = res, f32(new_res.item())
+            it += 1
+        return p, it, res
+
+
+def make_multigrid_poisson(problem: PoissonProblem, cfg: MGConfig, quad_level0,
+                           device="cpu") -> MultigridPoisson:
+    return MultigridPoisson(problem, cfg, quad_level0, device)

@@ -1,0 +1,183 @@
+"""Where the time of one cavity step goes on the card.
+
+    python -m cfd_tpu_torch.profile_step [--n 2048] [--warmup 100] [--steps 50]
+                                         [--out DIR]
+
+Drives the cavity main path, make_cavity_case(n_interior=n,
+poisson="multigrid", dtype=float32, tolerance_factor=1e-6) on cuda, through
+Simulation's step function, in three windows:
+
+1. ``--warmup`` steps, untimed;
+2. ``--steps`` steps timed with the host clock between two synchronizes,
+   with no profiler attached (the unprofiled wall);
+3. ``--steps`` more steps under torch.profiler with CUDA activity only,
+   again timed with the host clock between two synchronizes. The device
+   is busy for the union of the kernel, memcpy and memset intervals of the
+   exported trace; busy and idle shares are of THIS window's wall, so both
+   come from one traced window. The profiler slows the host, so the traced
+   wall is longer than the unprofiled one: both are printed.
+
+Launches are split into the port's own kernels (the ``__global__``
+functions of csrc/) and everything else (PyTorch's glue ops). The trace is
+written to ``DIR/trace.json`` (default build/cfd_tpu_torch/profile). The
+last line printed is a JSON summary. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+from cfd_tpu_torch.kernels._build import CSRC
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+DEFAULT_OUT = Path(__file__).resolve().parents[1] / "build" / "cfd_tpu_torch" / "profile"
+
+
+def port_kernel_names() -> set[str]:
+    """The ``__global__`` function names of csrc/."""
+    names = set()
+    for f in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        names.update(re.findall(r"__global__\s+void\s+(\w+)", f.read_text()))
+    return names
+
+
+def is_port_kernel(trace_name: str, names: set[str]) -> bool:
+    """True when a trace kernel name is one of ``names``: the demangled name
+    holds ``<fn>(`` or ``<fn><`` after a ``::`` or at its start."""
+    return any(re.search(rf"(^|::|\s){re.escape(n)}[(<]", trace_name) for n in names)
+
+
+def busy_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of ``(start, duration)`` intervals."""
+    total, end = 0.0, float("-inf")
+    for start, dur in sorted(intervals):
+        stop = start + dur
+        if stop <= end:
+            continue
+        total += stop - max(start, end)
+        end = stop
+    return total
+
+
+def summarize_trace(events: list[dict], names: set[str], n_steps: int,
+                    wall_s: float) -> dict:
+    """Per-step device numbers of one traced window from its chrome-trace
+    events: busy µs (interval union), idle share of ``wall_s``, launches
+    of the port's kernels and of the rest, and device µs by kernel name."""
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
+    by_name: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
+    port = other = 0
+    port_us = other_us = 0.0
+    for e in dev:
+        name, dur = e.get("name", "?"), float(e["dur"])
+        by_name[name][0] += dur
+        by_name[name][1] += 1
+        if e["cat"] == "kernel" and is_port_kernel(name, names):
+            port, port_us = port + 1, port_us + dur
+        else:
+            other, other_us = other + 1, other_us + dur
+    busy = busy_us([(float(e["ts"]), float(e["dur"])) for e in dev])
+    wall_us = wall_s * 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return dict(
+        wall_ms_per_step=wall_us / n_steps / 1e3,
+        busy_ms_per_step=busy / n_steps / 1e3,
+        idle_share=1.0 - busy / wall_us,
+        launches_per_step=(port + other) / n_steps,
+        port_launches_per_step=port / n_steps,
+        other_launches_per_step=other / n_steps,
+        port_ms_per_step=port_us / n_steps / 1e3,
+        other_ms_per_step=other_us / n_steps / 1e3,
+        top=[dict(name=n, us_per_step=us / n_steps, launches_per_step=c / n_steps)
+             for n, (us, c) in top[:12]],
+    )
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m cfd_tpu_torch.profile_step",
+                                 description=__doc__.split("\n")[0])
+    ap.add_argument("--n", type=int, default=2048, help="interior cells per side")
+    ap.add_argument("--warmup", type=int, default=100)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--out", type=Path, default=DEFAULT_OUT)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: needs a CUDA device")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cfd_tpu_torch.cases import make_cavity_case
+    from cfd_tpu_torch.solver import Simulation
+
+    card = card_line()
+    case = make_cavity_case(n_interior=args.n, poisson="multigrid", dtype=torch.float32,
+                            tolerance_factor=1e-6, device="cuda")
+    sim = Simulation(case, log=lambda m: None)
+    state = sim.initial_state()
+
+    cycles: list[int] = []
+
+    def window(n_steps: int):
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            state, diag = sim._step(state)
+            cycles.append(diag.poisson_iters)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    window(args.warmup)
+    del cycles[:]
+    wall_plain = window(args.steps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall_traced = window(args.steps)
+    args.out.mkdir(parents=True, exist_ok=True)
+    trace_path = args.out / "trace.json"
+    prof.export_chrome_trace(str(trace_path))
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    s = summarize_trace(events, port_kernel_names(), args.steps, wall_traced)
+    if s["busy_ms_per_step"] <= 0:
+        raise SystemExit("profile_step: the trace holds no device activity")
+
+    print(f"card: {card}")
+    print(f"cavity {args.n}^2, {args.warmup} warm-up steps, windows of {args.steps} "
+          f"steps, {sum(cycles) / len(cycles):.2f} V-cycles/step")
+    print(f"unprofiled wall: {wall_plain / args.steps * 1e3:.4f} ms/step")
+    print(f"traced wall:     {s['wall_ms_per_step']:.4f} ms/step")
+    print(f"traced device busy: {s['busy_ms_per_step']:.4f} ms/step, "
+          f"idle share of the traced wall {s['idle_share']:.4f}")
+    print(f"launches/step: {s['launches_per_step']:.2f} "
+          f"(port kernels {s['port_launches_per_step']:.2f}, "
+          f"other {s['other_launches_per_step']:.2f})")
+    print(f"device ms/step: port kernels {s['port_ms_per_step']:.4f}, "
+          f"other {s['other_ms_per_step']:.4f}")
+    for t in s["top"]:
+        print(f"  {t['us_per_step']:9.2f} us/step {t['launches_per_step']:7.2f} "
+              f"launches/step  {t['name'][:90]}")
+    print(json.dumps(dict(card=card, n=args.n, steps=args.steps,
+                          unprofiled_wall_ms_per_step=wall_plain / args.steps * 1e3,
+                          cycles_per_step=sum(cycles) / len(cycles),
+                          trace=str(trace_path),
+                          **{k: v for k, v in s.items() if k != "top"})))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,184 @@
+"""Projection-method time integration (the port of cfd_tpu.solver).
+
+Ported: the tentative-carry cavity ordering of ``make_step``
+(cfd_tpu/solver.py:221-228) — the state's u/v are the TENTATIVE velocities
+and one fused corrector+BC+predictor+source kernel runs at the start of
+each step, followed by the pressure solve — and the ``Simulation`` time loop
+with its stats rows and NaN/KE-blowup abort. The JAX package runs a chunk
+of steps as one device program (lax.scan around lax.while_loop); PyTorch
+runs eagerly, so a step here is a sequence of kernel launches and the
+solve reads each V-cycle's residual back to the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import torch
+
+from cfd_tpu_torch.bc import VelocityBC
+from cfd_tpu_torch.grid import Grid
+from cfd_tpu_torch.ops.reductions import flow_statistics
+from cfd_tpu_torch.ops.stencil import StencilCoeffs
+from cfd_tpu_torch.state import State, StepDiagnostics
+
+
+@dataclasses.dataclass(frozen=True)
+class Case:
+    """Full static description of a simulation case (cfd_tpu.solver.Case,
+    restricted to the fields the ported paths read)."""
+
+    name: str
+    grid: Grid
+    coeffs: StencilCoeffs
+    ordering: str  # "cavity" is ported; "channel" and the others raise
+    velocity_bc: VelocityBC
+    poisson_solve: Callable
+    ke_divisor: int
+    final_time: float
+    total_steps: int
+    print_interval: int
+    save_interval: int
+    # (carry stage, corrector) kernels of the quad fast path; the carried
+    # u/v are the TENTATIVE velocities
+    step_kernels: tuple
+    # carried-layout <-> logical-layout converters (init/resume in,
+    # stats/export out)
+    align_state: Callable
+    unalign_state: Callable
+    dtype: torch.dtype = torch.float32
+    device: torch.device = torch.device("cpu")
+    extrapolate_warm_start: bool = False
+    # iteration cap of the pressure solver; a step that hits it logs the
+    # reference's non-convergence warning (cavity-01.cpp:681-684)
+    poisson_max_iters: Optional[int] = None
+    info: Optional[dict] = None
+
+    @property
+    def dt(self) -> float:
+        return self.coeffs.dt
+
+
+def make_step(case: Case) -> Callable[[State], tuple[State, StepDiagnostics]]:
+    """The per-step function of a case. Only the tentative-carry cavity
+    ordering is ported; the others raise."""
+    if case.ordering != "cavity":
+        raise NotImplementedError(
+            f"the {case.ordering!r} ordering is not ported yet "
+            "(ROADMAP.md queue A items 7 and 8)")
+    fused = case.step_kernels[0]
+
+    def step(state: State) -> tuple[State, StepDiagnostics]:
+        us2, vs2, b, guess, max_b = fused(state.u, state.v, state.p, state.p_prev)
+        p, iters, res = case.poisson_solve(guess, b, max_b)
+        return State(us2, vs2, p, state.T, state.p), StepDiagnostics(iters, res)
+
+    return step
+
+
+class Simulation:
+    """Host-side time loop with periodic diagnostics (the reference
+    ``run()`` loops, cfd_tpu.solver.Simulation)."""
+
+    def __init__(self, case: Case, log=print):
+        self.case = case
+        self.log = log
+        self._step = make_step(case)
+        grid = case.grid
+        self._cell_mask = torch.as_tensor(grid.cell_mask, device=case.device)
+        self.history: list[dict] = []
+        # V-cycles of every step run, in order (host ints)
+        self.step_iters: list[int] = []
+        self.blowup_ke_threshold = 1e6
+
+    def initial_state(self) -> State:
+        case = self.case
+        s = State.zeros(case.grid.shape, dtype=case.dtype, device=case.device)
+        u, v = case.velocity_bc(s.u, s.v)
+        p_prev = s.p if case.extrapolate_warm_start else None
+        return case.align_state(State(u, v, s.p, s.T, p_prev))
+
+    def _logical(self, state: State) -> State:
+        """The carried state in the logical (ny+2, nx+2) layout."""
+        return self.case.unalign_state(state)
+
+    def statistics(self, state: State) -> dict[str, float]:
+        state = self._logical(state)
+        vals = flow_statistics(state.u, state.v, self.case.coeffs, self._cell_mask,
+                               self.case.ke_divisor)
+        keys = list(vals)
+        # one device->host transfer for the whole row
+        flat = torch.stack([vals[k].to(torch.float32) for k in keys]).cpu()
+        return dict(zip(keys, map(float, flat)))
+
+    def run(self, state: Optional[State] = None, n_steps: Optional[int] = None,
+            start_step: int = 0, steps_per_call: int = 1) -> State:
+        """Advance ``n_steps`` (default: to ``total_steps``), printing a stats
+        row every ``print_interval`` steps and at the end. ``steps_per_call``
+        keeps the reference's chunk contract: it must divide the print
+        interval, and rows come at chunk ends. Eager PyTorch has no
+        per-dispatch cost to amortize, so it changes nothing else."""
+        case = self.case
+        if case.print_interval % steps_per_call:
+            raise ValueError(f"steps_per_call={steps_per_call} must divide the "
+                             f"print interval ({case.print_interval})")
+        if state is None:
+            state = self.initial_state()
+        elif tuple(state.u.shape) == case.grid.shape:
+            state = case.align_state(state)  # resumed in the logical layout
+        n = case.total_steps if n_steps is None else start_step + n_steps
+        n_cells = case.grid.n_fluid
+        t_wall0 = time.perf_counter()
+        prev_k, prev_wall = start_step, t_wall0
+        cap = case.poisson_max_iters
+        worst = 0  # max Poisson iterations since the last row
+
+        def after_step(k: int, state: State, diag: StepDiagnostics) -> None:
+            nonlocal prev_k, prev_wall, worst
+            t = k * case.dt
+            if k % case.print_interval == 0 or k == n:
+                now = time.perf_counter()
+                row = self.statistics(state)
+                interval_wall = max(now - prev_wall, 1e-12)
+                row.update(
+                    step=k, time=t,
+                    poisson_iters=int(diag.poisson_iters),
+                    poisson_residual=float(diag.poisson_residual),
+                    wall_seconds=now - t_wall0,
+                    cell_updates_per_sec=n_cells * (k - prev_k) / interval_wall,
+                )
+                prev_k, prev_wall = k, now
+                self.history.append(row)
+                ke = row["avg_kinetic_energy"]
+                if not (ke == ke) or ke > self.blowup_ke_threshold:  # NaN or blowup
+                    raise RuntimeError(
+                        f"solver diverged at step {k}: avg_KE={ke} "
+                        f"(max_div={row['max_divergence']}, "
+                        f"poisson_residual={row['poisson_residual']}); "
+                        "reduce dt/CFL or check boundary conditions")
+                self.log(
+                    f"Step {k:6d}/{case.total_steps} | t={t:8.3f}"
+                    f" | max(div)={row['max_divergence']:10.2e}"
+                    f" | avg_KE={row['avg_kinetic_energy']:10.6f}"
+                    f" | PPE iters={row['poisson_iters']:4d}"
+                    f" | res={row['poisson_residual']:10.2e}"
+                )
+                if cap is not None and worst >= cap:
+                    self.log(
+                        f"Warning: SOR solver did not converge in {cap} "
+                        f"iterations. Final residual: "
+                        f"{row['poisson_residual']:.6e}")
+                worst = 0
+
+        # rows come at chunk ends, then after each step of the tail that
+        # the chunk size does not divide (the reference's bookkeeping)
+        main_end = start_step + ((n - start_step) // steps_per_call) * steps_per_call
+        for k in range(start_step + 1, n + 1):
+            state, diag = self._step(state)
+            self.step_iters.append(int(diag.poisson_iters))
+            worst = max(worst, int(diag.poisson_iters))
+            if k > main_end or (k - start_step) % steps_per_call == 0:
+                after_step(k, state, diag)
+        return state
