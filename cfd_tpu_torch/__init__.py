@@ -7,7 +7,8 @@ torch and never jax. Its Hopper kernels are hand-written CUDA C++ under
 the CPU every kernel wrapper runs its plain PyTorch twin instead.
 
 Ported so far: the f32 quad-layout multigrid lid-driven cavity
-(cases/cavity.py) stepped by solver.Simulation.
+(cases/cavity.py) and channel (cases/channel.py), stepped by
+solver.Simulation.
 """
 
 from cfd_tpu_torch.grid import Grid, cfl_time_step, optimal_omega

@@ -9,10 +9,13 @@ tentative-carry stage kernel, the quad finest-level V-cycle kernels and the
 coarse red/black smoother, V(2,1), the extrapolated warm start, and the
 bf16 coarse hierarchy under the reference's auto rule with "device is
 cuda" in place of "platform is tpu" (the CPU keeps the f32 ladder, as the
-reference's interpret mode does). The fused whole-solve that the reference
-takes on a TPU where its hierarchy fits in VMEM is not ported, so the
-per-kernel composition runs at every size. Everything else raises
-NotImplementedError rather than being ignored.
+reference's interpret mode does). The fused whole-solve
+(kernels.whole_solve, float32 hierarchy) is ported and runs when
+mg_overrides sets whole_solve=True; by default the per-kernel composition
+runs at every size. The reference's auto rule takes the whole-solve on a TPU
+wherever its hierarchy fits in VMEM (not at 2048^2); whether the card's
+default should follow it needs its own measurement (ROADMAP.md queue A item
+5). Everything else raises NotImplementedError rather than being ignored.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from cfd_tpu_torch.kernels.quad import (
     to_quad,
     uncorrect_quad,
 )
+from cfd_tpu_torch.kernels.whole_solve import make_quad_whole_solve
 from cfd_tpu_torch.ops.stencil import StencilCoeffs
 from cfd_tpu_torch.params import check_cfl, validate_case_params
 from cfd_tpu_torch.poisson.multigrid import (
@@ -130,13 +134,16 @@ def make_cavity_case(
     problem = cavity_problem(n_interior, n_interior, grid.dx, grid.dy)
     corr = make_quad_corrector(grid.shape, coeffs, lid_velocity)
     carry = make_quad_corr_predictor_source(grid.shape, coeffs, lid_velocity)
-    quad_l0 = (
-        make_quad_pre_smooth_restrict(grid.shape, problem, mg.omega, mg.pre_sweeps,
-                                      coarse_shape, device=device),
-        make_quad_post_prolong_smooth(grid.shape, problem, mg.omega, mg.post_sweeps,
-                                      coarse_shape, device=device),
-    )
-    solve = make_multigrid_poisson(problem, mg, quad_l0, device=device)
+    if mg.whole_solve:
+        solve = make_quad_whole_solve(grid.shape, problem, mg, device=device)
+    else:
+        quad_l0 = (
+            make_quad_pre_smooth_restrict(grid.shape, problem, mg.omega, mg.pre_sweeps,
+                                          coarse_shape, device=device),
+            make_quad_post_prolong_smooth(grid.shape, problem, mg.omega, mg.post_sweeps,
+                                          coarse_shape, device=device),
+        )
+        solve = make_multigrid_poisson(problem, mg, quad_l0, device=device)
 
     # Tentative-state boundary converters: the carried u/v are the
     # TENTATIVE (u*, v*) fields; the logical state applies the corrector
@@ -165,6 +172,7 @@ def make_cavity_case(
         ordering="cavity",
         velocity_bc=lid_cavity_bc(grid, lid_velocity),
         poisson_solve=solve,
+        remove_source_mean=False,
         ke_divisor=n_interior * n_interior,
         final_time=final_time,
         total_steps=int(final_time / dt),

@@ -1,13 +1,17 @@
-"""Command-line entry point (the port of cfd_tpu.cli, cavity only).
+"""Command-line entry point (the port of cfd_tpu.cli: the cavity and
+channel cases).
 
 Usage:
     python -m cfd_tpu_torch.cli cavity --Nx 2048 --Ny 2048 --precision f32 \\
         --no-vtk --steps 300 --steps-per-call 100
+    python -m cfd_tpu_torch.cli channel --Nx 1536 --Ny 512 --precision f32 \\
+        --no-vtk --steps 300 --steps-per-call 100
 
-The flags are the reference CLI's for the ported path. VTK export is not
-ported yet, so a run needs --no-vtk; flags of modules not ported yet
-(channel/step/RB cases, SOR, checkpoints, metrics, adaptive dt, meshes)
-are refused with a message instead of being ignored.
+The flags are the reference CLI's for the ported paths, with its defaults
+per case (cfd_tpu/cli.py:103-106). VTK export is not ported yet, so a run
+needs --no-vtk; flags of modules not ported yet (step/RB cases, SOR,
+checkpoints, metrics, adaptive dt, meshes) are refused with a message
+instead of being ignored.
 """
 
 from __future__ import annotations
@@ -21,43 +25,51 @@ def build_parser() -> argparse.ArgumentParser:
         prog="cfd_tpu_torch",
         description="Incompressible Navier-Stokes solvers on PyTorch/CUDA (cfd_tpu port)")
     sub = p.add_subparsers(dest="case", required=True)
-    sp = sub.add_parser("cavity", help="lid-driven cavity (cavity-01.cpp)")
-    sp.add_argument("--Re", type=float, default=1000.0, help="Reynolds number")
-    sp.add_argument("--Nx", type=int, default=63, help="interior cells in x")
-    sp.add_argument("--Ny", type=int, default=63, help="interior cells in y")
-    sp.add_argument("--dt", type=float, default=None,
-                    help="time step (default: reference CFL rule)")
-    sp.add_argument("--T", type=float, default=20.0, help="final time")
-    sp.add_argument("--steps", type=int, default=None,
-                    help="run exactly N steps instead of to final time")
-    sp.add_argument("--precision", choices=["f32", "f64"], default="f32",
-                    help="f32 (the ported multigrid path); f64 is not ported yet")
-    sp.add_argument("--print-interval", type=int, default=None)
-    sp.add_argument("--steps-per-call", type=int, default=1,
-                    help="steps per chunk; must divide the print interval")
-    sp.add_argument("--no-vtk", action="store_true", help="disable VTK export")
-    sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="cuda runs the CUDA kernels; cpu runs their plain "
-                         "PyTorch twins")
-    sp.add_argument("--poisson", choices=["auto", "sor", "multigrid"], default="auto",
-                    help="pressure solver (auto: SOR below 128^2, which is not "
-                         "ported yet; multigrid at scale)")
+
+    def common(sp, nx: int, ny: int, re: float, t_final: float):
+        sp.add_argument("--Re", type=float, default=re, help="Reynolds number")
+        sp.add_argument("--Nx", type=int, default=nx, help="interior cells in x")
+        sp.add_argument("--Ny", type=int, default=ny, help="interior cells in y")
+        sp.add_argument("--dt", type=float, default=None,
+                        help="time step (default: reference CFL rule)")
+        sp.add_argument("--T", type=float, default=t_final, help="final time")
+        sp.add_argument("--steps", type=int, default=None,
+                        help="run exactly N steps instead of to final time")
+        sp.add_argument("--precision", choices=["f32", "f64"], default="f32",
+                        help="f32 (the ported multigrid path); f64 is not ported yet")
+        sp.add_argument("--print-interval", type=int, default=None)
+        sp.add_argument("--steps-per-call", type=int, default=1,
+                        help="steps per chunk; must divide the print interval")
+        sp.add_argument("--no-vtk", action="store_true", help="disable VTK export")
+        sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="cuda runs the CUDA kernels; cpu runs their plain "
+                             "PyTorch twins")
+        sp.add_argument("--poisson", choices=["auto", "sor", "multigrid"], default="auto",
+                        help="pressure solver (auto: SOR at the reference sizes, which "
+                             "is not ported yet; multigrid at scale)")
+
+    common(sub.add_parser("cavity", help="lid-driven cavity (cavity-01.cpp)"),
+           63, 63, 1000.0, 20.0)
+    common(sub.add_parser("channel", help="channel / Poiseuille start-up (channel-01.cpp)"),
+           93, 31, 100.0, 10.0)
     return p
 
 
 def make_case_from_args(args):
-    from cfd_tpu_torch.cases import make_cavity_case
+    from cfd_tpu_torch.cases import make_cavity_case, make_channel_case
     from cfd_tpu_torch.precision import as_dtype
 
-    if args.Nx != args.Ny:
-        raise SystemExit("cavity requires Nx == Ny (square grid)")
-    kw = dict(final_time=args.T, dtype=as_dtype(args.precision), poisson=args.poisson)
+    kw = dict(final_time=args.T, dtype=as_dtype(args.precision), poisson=args.poisson,
+              device=args.device)
     if args.dt is not None:
         kw["dt"] = args.dt
     if args.print_interval is not None:
         kw["print_interval"] = args.print_interval
-    return make_cavity_case(n_interior=args.Nx, reynolds_number=args.Re,
-                            device=args.device, **kw)
+    if args.case == "channel":
+        return make_channel_case(nx=args.Nx, ny=args.Ny, reynolds_number=args.Re, **kw)
+    if args.Nx != args.Ny:
+        raise SystemExit("cavity requires Nx == Ny (square grid)")
+    return make_cavity_case(n_interior=args.Nx, reynolds_number=args.Re, **kw)
 
 
 def main(argv=None) -> int:

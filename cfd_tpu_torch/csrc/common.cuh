@@ -64,6 +64,11 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// max of two values >= 0 (or NaN, which sorts above +inf) on their int bits
+__device__ __forceinline__ float bits_max(float a, float b) {
+  return __int_as_float(max(__float_as_int(a), __float_as_int(b)));
+}
+
 // Block-wide max of v >= 0 into *out (as int bits). Every thread of the
 // block must call it.
 __device__ __forceinline__ void block_max_into(float v, float* out) {
@@ -78,6 +83,42 @@ __device__ __forceinline__ void block_max_into(float v, float* out) {
     for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_down_sync(0xffffffffu, x, o));
     if (lane == 0) atomicMax(reinterpret_cast<int*>(out), x);
   }
+}
+
+// Fixed-order block sum of v into *out: a pairwise tree over the block's
+// kThreads values in shared memory (s[t] += s[t + stride], stride =
+// kThreads/2 ... 1). Every thread of the block must call it. The order does
+// not depend on scheduling, so a plain PyTorch twin that folds the same
+// kThreads-wide rows pairwise rounds identically.
+__device__ __forceinline__ void block_sum_to(float v, float* out) {
+  __shared__ float s[kThreads];
+  s[threadIdx.x] = v;
+  __syncthreads();
+  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
+    if (threadIdx.x < stride) s[threadIdx.x] = s[threadIdx.x] + s[threadIdx.x + stride];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *out = s[0];
+}
+
+// In-place fold of x[0:n] to its sum, the order of the PyTorch twin
+// fold_sum: x[t] += x[t + h] for t < h = n/2, the odd last element moves
+// to x[h], repeat on h + (n & 1) elements. `first` is the calling thread's
+// rank, `step` the number of threads that share the fold; `sync()` must be a
+// barrier over exactly those threads.
+template <class Sync>
+__device__ __forceinline__ float fold_sum(float* x, int n, int first, int step, Sync sync) {
+  while (n > 1) {
+    const int h = n >> 1;
+    for (int t = first; t < h; t += step) x[t] = x[t] + x[t + h];
+    sync();
+    if (n & 1) {
+      if (first == 0) x[h] = x[2 * h];
+      sync();
+    }
+    n = h + (n & 1);
+  }
+  return x[0];
 }
 
 }  // namespace cfd

@@ -1,0 +1,101 @@
+// The finest multigrid level on the quad layout: its constants and the
+// per-cell arithmetic of the half-sweep, the residual, the full-weighting
+// restriction into level 1 and the 9-3-3-1 prolongation from level 1.
+// Shared by the per-kernel V-cycle kernels (quad_vcycle.cu) and the
+// whole-solve kernel (whole_solve.cu), so that the index math is written
+// once.
+#pragma once
+
+#include "common.cuh"
+#include "mg_smooth.cuh"
+
+namespace cfd {
+
+struct Level0 {
+  int Hq8, Wqa, ny, nx;
+  float idx2, idy2, omega;
+  const float* wE;  // (2*Wqa,) natural column vectors, 0 outside the interior
+  const float* wW;
+  const float* wN;  // (2*Hq8,) natural row vectors
+  const float* wS;
+};
+
+__device__ __forceinline__ bool interior(int j, int i, const Level0& L) {
+  return j >= 1 && j <= L.ny && i >= 1 && i <= L.nx;
+}
+
+// True when quad cell c is an interior cell of `colour` (0 = red = planes
+// {0, 3}), which a half-sweep of that colour updates.
+__device__ __forceinline__ bool quad_updates(const QuadCell& c, int colour,
+                                             const Level0& L) {
+  return ((c.q == 0 || c.q == 3) ? 0 : 1) == colour && interior(c.j, c.i, L);
+}
+
+// The Gauss-Seidel update of quad cell c from the other colour in src.
+__device__ __forceinline__ float quad_gs(const float* src, const float* b,
+                                         const QuadCell& c, const Level0& L) {
+  const int j = c.j, i = c.i, H = L.Hq8, W = L.Wqa;
+  return gs_update(src[c.idx], qld(src, j, i + 1, H, W), qld(src, j, i - 1, H, W),
+                   qld(src, j + 1, i, H, W), qld(src, j - 1, i, H, W), b[c.idx], L.wE[i],
+                   L.wW[i], L.wN[j], L.wS[j], L.idx2, L.idy2, L.omega);
+}
+
+// signed residual b - A p at interior cell (j, i), 0 elsewhere
+__device__ __forceinline__ float quad_residual(const float* p, const float* b, int j, int i,
+                                               const Level0& L) {
+  if (!interior(j, i, L)) return 0.f;
+  const int H = L.Hq8, W = L.Wqa;
+  long long k = qidx(j, i, H, W);
+  float ap = apply_a(p[k], qld(p, j, i + 1, H, W), qld(p, j, i - 1, H, W),
+                     qld(p, j + 1, i, H, W), qld(p, j - 1, i, H, W), L.wE[i], L.wW[i],
+                     L.wN[j], L.wS[j], L.idx2, L.idy2);
+  return b[k] - ap;
+}
+
+// Level-1 source at aligned cell idx of (Hq8, Wqa): rc[Jc, Ic] = 0.25 *
+// (r(2Jc, 2Ic) + r(2Jc, 2Ic-1) + r(2Jc-1, 2Ic) + r(2Jc-1, 2Ic-1)) on the
+// coarse interior, else 0 (quad.py:678-687)
+__device__ __forceinline__ float quad_restrict_value(const float* p, const float* b,
+                                                     long long idx, const Level0& L) {
+  int Jc = static_cast<int>(idx / L.Wqa);
+  int Ic = static_cast<int>(idx - static_cast<long long>(Jc) * L.Wqa);
+  if (!(Jc >= 1 && Jc <= L.ny / 2 && Ic >= 1 && Ic <= L.nx / 2)) return 0.f;
+  int j = 2 * Jc, i = 2 * Ic;
+  return 0.25f * (quad_residual(p, b, j, i, L) + quad_residual(p, b, j, i - 1, L) +
+                  quad_residual(p, b, j - 1, i, L) + quad_residual(p, b, j - 1, i - 1, L));
+}
+
+// p + prolong(ec) at quad cell idx on the interior, p elsewhere, with the
+// edge clamps of quad.py:741-760 (ec is the aligned (Hq8, Wqa) level-1
+// correction)
+__device__ __forceinline__ float quad_prolong_add_value(const float* p, const float* ec,
+                                                        long long idx, const Level0& L) {
+  QuadCell c = quad_cell(idx, L.Hq8, L.Wqa);
+  float pc = p[idx];
+  if (!interior(c.j, c.i, L)) return pc;
+  const int r = c.q >> 1, s = c.q & 1, J = c.j >> 1, I = c.i >> 1;
+  const int nyc = L.ny / 2, nxc = L.nx / 2, W = L.Wqa;
+  const int J1 = (J + 1) % L.Hq8;  // jnp.roll(ec, -1, axis=0)
+  auto rowmix = [&](int col) {
+    float e0 = ec[static_cast<long long>(J) * W + col];
+    float e1 = ec[static_cast<long long>(J1) * W + col];
+    float ecJ0 = (J == 0) ? e1 : e0;    // clamp the J = 0 ghost to row 1
+    float ecJ1 = (J == nyc) ? e0 : e1;  // clamp J + 1 > nyc to row nyc
+    return r == 0 ? 0.75f * ecJ0 + 0.25f * ecJ1 : 0.25f * ecJ0 + 0.75f * ecJ1;
+  };
+  float rm = rowmix(I);
+  float rm1 = rowmix((I + 1) % W);
+  float m0 = (I == 0) ? rm1 : rm;
+  float m1 = (I == nxc) ? rm : rm1;
+  float corr = s == 0 ? 0.75f * m0 + 0.25f * m1 : 0.25f * m0 + 0.75f * m1;
+  return pc + corr;
+}
+
+// |b - A p| at quad cell idx (0 outside the interior)
+__device__ __forceinline__ float quad_abs_residual(const float* p, const float* b,
+                                                   long long idx, const Level0& L) {
+  QuadCell c = quad_cell(idx, L.Hq8, L.Wqa);
+  return fabsf(quad_residual(p, b, c.j, c.i, L));
+}
+
+}  // namespace cfd

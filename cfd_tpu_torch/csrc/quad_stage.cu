@@ -1,30 +1,49 @@
-// Stage kernels of the tentative-carry lid-driven cavity step, quad layout.
+// Stage kernels of the tentative-carry step on the quad layout: the
+// lid-driven cavity and the channel.
 //
-// Replaces cfd_tpu/kernels/quad.py make_quad_corrector (:488) and
+// Replaces cfd_tpu/kernels/quad.py make_quad_corrector (:488),
 // make_quad_corr_predictor_source (:938, math in cavity_carry_compute
-// :1062-1123).
+// :1062-1123), make_quad_channel_corrector (:892) and
+// make_quad_channel_corr_predictor_source (:1126, math in
+// channel_carry_compute :1160-1222).
 //
-// Bound on the H100: device-memory bytes. The corrector reads 4 quad
-// fields and writes 3; the carry reads 4 and writes 4 plus the scalar
-// max|b| (19 MB per field at 2048^2). The arithmetic (about 60 flops a cell
-// for the predictor) is far below the card's rate.
+// Bound on the H100: device-memory bytes. The correctors read 4 quad fields
+// and write 3; the carries read 4 and write 4 plus one scalar (19 MB per
+// field at 2048^2, 3.8 MB at 1536x512). The arithmetic (about 60 flops a
+// cell for the predictor) is far below the card's rate.
 //
 // Design: one thread per quad cell, neighbours through the guarded quad
 // accessor, so one code path serves every plane and no halo bookkeeping is
-// needed. The carry runs as TWO launches: (1) the corrector writes the
-// corrected and ghost-rebuilt u, v into scratch fields, (2) the predictor +
-// source + max|b| reads them. A thread of launch 2 evaluates the predictor
-// at its own faces and again at the west/south faces its divergence needs
-// (re-reads that hit L1/L2). This costs one extra round trip of u, v through
-// device memory compared with a single fused launch with a shared-memory
-// tile and a 3-cell halo, which is the next kernel step.
+// needed. A carry runs as TWO launches (three for the channel, see below):
+// (1) the corrector writes the corrected and ghost-rebuilt u, v into scratch
+// fields, (2) the predictor + source + reduction reads them. A thread of
+// launch 2 evaluates the predictor at its own faces and again at the
+// west/south faces its divergence needs (re-reads that hit L1/L2). This
+// costs one extra round trip of u, v through device memory compared with a
+// single fused launch with a shared-memory tile and a 3-cell halo, which is
+// the next kernel step.
 //
-// Ghost rebuild order (cfd_tpu/kernels/quad.py:420-435, cavity-01.cpp:
+// Cavity ghost order (cfd_tpu/kernels/quad.py:420-435, cavity-01.cpp:
 // 523-543): u top ghost row j = ny+1 for i <= nx, then u bottom row j = 0
 // for i <= nx, then v west column i = 0 for j <= ny, then v east column
 // i = nx+1 for j <= ny. Each ghost reads the corrected interior value,
 // which no earlier step of that order changes, so every thread can
 // recompute its own ghost value independently.
+//
+// Channel ghost order (quad.py:781-805, channel-01.cpp:513-529): u inlet
+// column, v inlet column, u outlet column i = nx copied from nx-1, v outlet
+// column, v bottom wall, u ghost row 0, v top wall, u ghost row ny+1. The u
+// ghost rows read row 1 / row ny AFTER the inlet and outlet updates, so a
+// thread that rebuilds a corner ghost (j = 0 or ny+1 at i = 0 or nx)
+// recomputes the inlet or outlet value it depends on (channel_u). The
+// channel carry applies these ghosts twice, on the corrected fields and on
+// the tentative fields.
+//
+// Channel source sum: each block of launch 2 sums its kThreads values of b
+// by a fixed pairwise tree into a per-block partial (cfd::block_sum_to);
+// launch 3, one block, folds the partials in the order of the PyTorch
+// twin's fold_sum. No float atomics: the sum is the same on every run, and
+// equal bit for bit to the plain twin's fixed_order_sum.
 #include "common.cuh"
 
 namespace {
@@ -33,7 +52,8 @@ using cfd::qld;
 
 struct Corr {
   int Hq8, Wqa, ny, nx;
-  float cu, cv, two_lid;
+  float cu, cv;
+  float ghost;  // the cavity's 2 * lid velocity, or the channel's inlet velocity
 };
 
 struct Pred {
@@ -69,7 +89,7 @@ __global__ void corrector_kernel(const float* us, const float* vs, const float* 
   int j = cell.j, i = cell.i;
   float u;
   if (j == c.ny + 1 && i <= c.nx) {
-    u = c.two_lid - u_corr(us, p, c.ny, i, c);
+    u = c.ghost - u_corr(us, p, c.ny, i, c);
   } else if (j == 0 && i <= c.nx) {
     u = -u_corr(us, p, 1, i, c);
   } else {
@@ -155,6 +175,83 @@ __global__ void predictor_source_kernel(const float* u, const float* v, float* u
   cfd::block_max_into(absb, max_b);
 }
 
+// u after the channel ghost update of a pre-ghost field f(j, i) (0 outside
+// the valid u faces), in the reference's order: rows 1..ny take the inlet
+// value at i = 0 and f(j, nx-1) at i = nx; the ghost rows j = 0 and
+// j = ny+1 (i <= nx) are minus rows 1 and ny AFTER that.
+template <class F>
+__device__ __forceinline__ float channel_u(F f, int j, int i, int ny, int nx, float uin) {
+  auto row = [&](int jj, int ii) -> float {
+    if (ii == 0) return uin;
+    if (ii == nx) return nx == 1 ? uin : f(jj, nx - 1);
+    return f(jj, ii);
+  };
+  if (j == 0 && i <= nx) return -row(1, i);
+  if (j == ny + 1 && i <= nx) return -row(ny, i);
+  if (j >= 1 && j <= ny) return row(j, i);
+  return f(j, i);
+}
+
+// v after the channel ghost update of a pre-ghost field f(j, i) (0 outside
+// the valid v faces): 0 on the inlet column and on the wall rows, the
+// outlet column i = nx+1 copied from i = nx.
+template <class F>
+__device__ __forceinline__ float channel_v(F f, int j, int i, int ny, int nx) {
+  if (i == 0 && j <= ny) return 0.f;
+  if (i == nx + 1 && j <= ny) return f(j, nx);
+  if ((j == 0 || j == ny) && i >= 1 && i <= nx) return 0.f;
+  return f(j, i);
+}
+
+__global__ void channel_corrector_kernel(const float* us, const float* vs, const float* p,
+                                         const float* p_prev, float* u2, float* v2,
+                                         float* guess, Corr c) {
+  long long n = 4LL * c.Hq8 * c.Wqa;
+  long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
+  auto uc = [&](int j, int i) { return u_corr(us, p, j, i, c); };
+  auto vc = [&](int j, int i) { return v_corr(vs, p, j, i, c); };
+  u2[idx] = channel_u(uc, cell.j, cell.i, c.ny, c.nx, c.ghost);
+  v2[idx] = channel_v(vc, cell.j, cell.i, c.ny, c.nx);
+  guess[idx] = 2.0f * p[idx] - p_prev[idx];
+}
+
+// predictor, channel ghosts on the tentative fields, b = rho/dt * div on the
+// cells, and the block's partial sum of b (fixed tree)
+__global__ void channel_predictor_source_kernel(const float* u, const float* v, float* us2,
+                                                float* vs2, float* b, float* partials,
+                                                Pred c, float uin) {
+  long long n = 4LL * c.Hq8 * c.Wqa;
+  long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  float bb = 0.f;
+  if (idx < n) {
+    cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
+    const int j = cell.j, i = cell.i;
+    auto fu = [&](int jj, int ii) { return u_star(u, v, jj, ii, c); };
+    auto fv = [&](int jj, int ii) { return v_star(u, v, jj, ii, c); };
+    float a = channel_u(fu, j, i, c.ny, c.nx, uin);
+    float bv = channel_v(fv, j, i, c.ny, c.nx);
+    us2[idx] = a;
+    vs2[idx] = bv;
+    if (j >= 1 && j <= c.ny && i >= 1 && i <= c.nx) {
+      float aw = channel_u(fu, j, i - 1, c.ny, c.nx, uin);
+      float bs = channel_v(fv, j - 1, i, c.ny, c.nx);
+      float div = (a - aw) * c.idx + (bv - bs) * c.idy;
+      bb = c.rho_dt * div;
+    }
+    b[idx] = bb;
+  }
+  cfd::block_sum_to(bb, partials + blockIdx.x);
+}
+
+// one block: the partials folded into *sum in the twin's fold_sum order
+__global__ void fold_partials_kernel(float* partials, int n, float* sum) {
+  float s = cfd::fold_sum(partials, n, static_cast<int>(threadIdx.x),
+                          static_cast<int>(blockDim.x), [] { __syncthreads(); });
+  if (threadIdx.x == 0) *sum = s;
+}
+
 }  // namespace
 
 extern "C" int cfd_quad_corrector(const float* us, const float* vs, const float* p,
@@ -187,6 +284,43 @@ extern "C" int cfd_quad_carry(const float* us, const float* vs, const float* p,
   Pred pc{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt};
   predictor_source_kernel<<<cfd::blocks_for(n), cfd::kThreads, 0, s>>>(
       u_scr, v_scr, us2, vs2, b, max_b, pc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cfd_quad_channel_corrector(const float* us, const float* vs,
+                                          const float* p, const float* p_prev, float* u2,
+                                          float* v2, float* guess, int Hq8, int Wqa, int ny,
+                                          int nx, float cu, float cv, float uin,
+                                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Corr c{Hq8, Wqa, ny, nx, cu, cv, uin};
+  channel_corrector_kernel<<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
+      us, vs, p, p_prev, u2, v2, guess, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// partials: cfd::blocks_for(4 * Hq8 * Wqa) floats of scratch
+extern "C" int cfd_quad_channel_carry(const float* us, const float* vs, const float* p,
+                                      const float* p_prev, float* u_scr, float* v_scr,
+                                      float* us2, float* vs2, float* b, float* guess,
+                                      float* partials, float* sum_b, int Hq8, int Wqa,
+                                      int ny, int nx, float cu, float cv, float uin,
+                                      float dt, float nu, float idx, float idy,
+                                      float idx2, float idy2, float rho_dt, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = 4LL * Hq8 * Wqa;
+  const int blocks = cfd::blocks_for(n);
+  Corr c{Hq8, Wqa, ny, nx, cu, cv, uin};
+  channel_corrector_kernel<<<blocks, cfd::kThreads, 0, s>>>(us, vs, p, p_prev, u_scr,
+                                                            v_scr, guess, c);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Pred pc{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt};
+  channel_predictor_source_kernel<<<blocks, cfd::kThreads, 0, s>>>(u_scr, v_scr, us2, vs2,
+                                                                   b, partials, pc, uin);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fold_partials_kernel<<<1, cfd::kThreads, 0, s>>>(partials, blocks, sum_b);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,25 +21,11 @@
 // child mapping of quad.py:678-687. Keeping several sweeps in shared
 // memory (temporal blocking) is the next step for these kernels; the slab,
 // halo and band bookkeeping of the TPU kernels is not needed here.
-#include "common.cuh"
-#include "mg_smooth.cuh"
+#include "quad_level0.cuh"
 
 namespace {
 
-using cfd::qld;
-
-struct Level0 {
-  int Hq8, Wqa, ny, nx;
-  float idx2, idy2, omega;
-  const float* wE;  // (2*Wqa,) natural column vectors, 0 outside the interior
-  const float* wW;
-  const float* wN;  // (2*Hq8,) natural row vectors
-  const float* wS;
-};
-
-__device__ __forceinline__ bool interior(int j, int i, const Level0& L) {
-  return j >= 1 && j <= L.ny && i >= 1 && i <= L.nx;
-}
+using cfd::Level0;
 
 // One half-sweep over the planes of `colour` (0 = red = planes {0, 3}).
 // src != dst copies the other colour's cells, so the first launch can move
@@ -50,85 +36,31 @@ __global__ void quad_half_sweep(const float* src, float* dst, const float* b, in
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n) return;
   cfd::QuadCell c = cfd::quad_cell(idx, L.Hq8, L.Wqa);
-  int mine = ((c.q == 0 || c.q == 3) ? 0 : 1) == colour;
-  float p = src[idx];
-  if (mine && interior(c.j, c.i, L)) {
-    const int j = c.j, i = c.i, H = L.Hq8, W = L.Wqa;
-    p = cfd::gs_update(p, qld(src, j, i + 1, H, W), qld(src, j, i - 1, H, W),
-                       qld(src, j + 1, i, H, W), qld(src, j - 1, i, H, W), b[idx],
-                       L.wE[i], L.wW[i], L.wN[j], L.wS[j], L.idx2, L.idy2, L.omega);
-    dst[idx] = p;
+  if (cfd::quad_updates(c, colour, L)) {
+    dst[idx] = cfd::quad_gs(src, b, c, L);
   } else if (src != dst) {
-    dst[idx] = p;
+    dst[idx] = src[idx];
   }
 }
 
-// signed residual b - A p at interior cell (j, i), 0 elsewhere
-__device__ __forceinline__ float residual(const float* p, const float* b, int j, int i,
-                                          const Level0& L) {
-  if (!interior(j, i, L)) return 0.f;
-  const int H = L.Hq8, W = L.Wqa;
-  long long k = cfd::qidx(j, i, H, W);
-  float ap = cfd::apply_a(p[k], qld(p, j, i + 1, H, W), qld(p, j, i - 1, H, W),
-                          qld(p, j + 1, i, H, W), qld(p, j - 1, i, H, W), L.wE[i],
-                          L.wW[i], L.wN[j], L.wS[j], L.idx2, L.idy2);
-  return b[k] - ap;
-}
-
-// rc[Jc, Ic] = 0.25 * (r(2Jc, 2Ic) + r(2Jc, 2Ic-1) + r(2Jc-1, 2Ic)
-//                      + r(2Jc-1, 2Ic-1)) on the coarse interior, else 0
 __global__ void residual_restrict(const float* p, const float* b, float* rc, Level0 L) {
   long long n = static_cast<long long>(L.Hq8) * L.Wqa;
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n) return;
-  int Jc = static_cast<int>(idx / L.Wqa);
-  int Ic = static_cast<int>(idx - static_cast<long long>(Jc) * L.Wqa);
-  float out = 0.f;
-  if (Jc >= 1 && Jc <= L.ny / 2 && Ic >= 1 && Ic <= L.nx / 2) {
-    int j = 2 * Jc, i = 2 * Ic;
-    out = 0.25f * (residual(p, b, j, i, L) + residual(p, b, j, i - 1, L) +
-                   residual(p, b, j - 1, i, L) + residual(p, b, j - 1, i - 1, L));
-  }
-  rc[idx] = out;
+  rc[idx] = cfd::quad_restrict_value(p, b, idx, L);
 }
 
-// p + prolong(ec) on the interior, p elsewhere (quad.py:741-760)
 __global__ void prolong_add(const float* p, const float* ec, float* out, Level0 L) {
   long long n = 4LL * L.Hq8 * L.Wqa;
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n) return;
-  cfd::QuadCell c = cfd::quad_cell(idx, L.Hq8, L.Wqa);
-  float pc = p[idx];
-  if (!interior(c.j, c.i, L)) {
-    out[idx] = pc;
-    return;
-  }
-  const int r = c.q >> 1, s = c.q & 1, J = c.j >> 1, I = c.i >> 1;
-  const int nyc = L.ny / 2, nxc = L.nx / 2, W = L.Wqa;
-  const int J1 = (J + 1) % L.Hq8;  // jnp.roll(ec, -1, axis=0)
-  auto rowmix = [&](int col) {
-    float e0 = ec[static_cast<long long>(J) * W + col];
-    float e1 = ec[static_cast<long long>(J1) * W + col];
-    float ecJ0 = (J == 0) ? e1 : e0;    // clamp the J = 0 ghost to row 1
-    float ecJ1 = (J == nyc) ? e0 : e1;  // clamp J + 1 > nyc to row nyc
-    return r == 0 ? 0.75f * ecJ0 + 0.25f * ecJ1 : 0.25f * ecJ0 + 0.75f * ecJ1;
-  };
-  float rm = rowmix(I);
-  float rm1 = rowmix((I + 1) % W);
-  float m0 = (I == 0) ? rm1 : rm;
-  float m1 = (I == nxc) ? rm : rm1;
-  float corr = s == 0 ? 0.75f * m0 + 0.25f * m1 : 0.25f * m0 + 0.75f * m1;
-  out[idx] = pc + corr;
+  out[idx] = cfd::quad_prolong_add_value(p, ec, idx, L);
 }
 
 __global__ void residual_max(const float* p, const float* b, float* res, Level0 L) {
   long long n = 4LL * L.Hq8 * L.Wqa;
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float r = 0.f;
-  if (idx < n) {
-    cfd::QuadCell c = cfd::quad_cell(idx, L.Hq8, L.Wqa);
-    r = fabsf(residual(p, b, c.j, c.i, L));
-  }
+  float r = idx < n ? cfd::quad_abs_residual(p, b, idx, L) : 0.f;
   cfd::block_max_into(r, res);
 }
 

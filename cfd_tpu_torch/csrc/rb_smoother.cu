@@ -19,30 +19,12 @@
 // on the scratch iterate (see mg_smooth.cuh), then one finishing launch
 // that rounds the iterate to the storage type and, for the residual
 // variant, writes the residual computed from the float32 iterate.
-#include "common.cuh"
-#include "mg_smooth.cuh"
+#include "aligned_level.cuh"
 
 namespace {
 
-struct Level {
-  int H8, W, ny, nx;
-  float idx2, idy2, omega;
-  const float* wE;  // (W,)
-  const float* wW;
-  const float* wN;  // (H8,)
-  const float* wS;
-};
-
-template <typename T>
-__device__ __forceinline__ float ld(const T* a, int j, int i, const Level& L) {
-  return (j >= 0 && j < L.H8 && i >= 0 && i < L.W)
-             ? cfd::to_f32(a[static_cast<long long>(j) * L.W + i])
-             : 0.f;
-}
-
-__device__ __forceinline__ bool interior(int j, int i, const Level& L) {
-  return j >= 1 && j <= L.ny && i >= 1 && i <= L.nx;
-}
+using cfd::interior;
+using cfd::Level;
 
 // half-sweep of colour (0 = red = (i + j) even) from src (storage T or the
 // float scratch) into the float iterate dst
@@ -54,14 +36,10 @@ __global__ void half_sweep(const TS* src, float* dst, const TB* b, int colour, b
   if (idx >= n) return;
   int j = static_cast<int>(idx / L.W);
   int i = static_cast<int>(idx - static_cast<long long>(j) * L.W);
-  float p = cfd::to_f32(src[idx]);
   if (((j + i) & 1) == colour && interior(j, i, L)) {
-    dst[idx] = cfd::gs_update(p, ld(src, j, i + 1, L), ld(src, j, i - 1, L),
-                              ld(src, j + 1, i, L), ld(src, j - 1, i, L),
-                              cfd::to_f32(b[idx]), L.wE[i], L.wW[i], L.wN[j], L.wS[j],
-                              L.idx2, L.idy2, L.omega);
+    dst[idx] = cfd::rb_update(src, b, j, i, L);
   } else if (copy) {
-    dst[idx] = p;
+    dst[idx] = cfd::to_f32(src[idx]);
   }
 }
 
@@ -78,9 +56,9 @@ __global__ void finish(const float* it, const T* b, T* out, T* r, Level L) {
   if (r != nullptr) {
     float rv = 0.f;
     if (interior(j, i, L)) {
-      float ap = cfd::apply_a(p, ld(it, j, i + 1, L), ld(it, j, i - 1, L),
-                              ld(it, j + 1, i, L), ld(it, j - 1, i, L), L.wE[i], L.wW[i],
-                              L.wN[j], L.wS[j], L.idx2, L.idy2);
+      float ap = cfd::apply_a(p, cfd::ld(it, j, i + 1, L), cfd::ld(it, j, i - 1, L),
+                              cfd::ld(it, j + 1, i, L), cfd::ld(it, j - 1, i, L), L.wE[i],
+                              L.wW[i], L.wN[j], L.wS[j], L.idx2, L.idy2);
       rv = cfd::to_f32(b[idx]) - ap;
     }
     r[idx] = cfd::from_f32<T>(rv);

@@ -1,0 +1,333 @@
+// The whole tolerance-driven multigrid solve of the separable quad path in
+// ONE cooperative launch.
+//
+// Replaces cfd_tpu/kernels/whole_solve.py make_quad_whole_solve (:507;
+// the body is separable_vcycle_ctx :178 inside _solve_from_ctx :442 and
+// tolerance_loop :138): the finest-level pairs, residual and restriction,
+// the coarse hierarchy (kernels/mg_tail.py run_tail_vcycle), the coarsest
+// dense pseudo-inverse, the prolongations and post pairs back up, the
+// tolerance residual max and the stop rule, for every cycle of one solve.
+//
+// Bound on the H100: at the channel's 1536x512 the finest quad field is
+// 3.8 MB and the whole hierarchy about 10 MB, so after the first cycle every
+// level is served from the 50 MB L2 cache. What bounds a cycle is then the
+// number of dependent phases: each red or black half-sweep needs the other
+// colour's final values over the whole level, so the grid synchronises
+// between phases (about 60 grid-wide barriers a V(1,2) cycle on 8 levels).
+// The per-kernel composition pays a launch and a host round trip for each
+// of those steps instead (PERF.md section 5).
+//
+// Design: one persistent grid of kThreads-thread blocks, as many as can be
+// co-resident (the occupancy API, at most kMaxBlocksPerSM per SM, since a
+// grid-wide barrier costs more with more blocks), launched with
+// cudaLaunchCooperativeKernel; every phase is a grid-stride loop followed by
+// cooperative_groups' grid sync. The iterate and source of every level stay
+// in device memory (scratch the caller allocates once). The arithmetic of
+// each phase is the per-kernel path's, through the same device functions
+// (quad_level0.cuh, aligned_level.cuh) or, for the transfers between coarse
+// levels and the coarsest solve, in the exact operation order of their
+// PyTorch glue (kernels/mg_tail.py _restrict, _prolong, dense_coarse_solve),
+// so the solve equals the per-kernel composition bit for bit.
+//
+// Reductions and the stop rule: max|b| and each cycle's residual max are
+// taken on the int bits of |x| with atomicMax (order-independent, so exact).
+// The residual goes to one of two slots by cycle parity; the slot the next
+// cycle uses is zeroed after the first barrier of this cycle, when no
+// thread reads it any more. After each cycle's last barrier every thread
+// reads the slot and evaluates the same float32 stop rule as the host loop
+// (poisson/multigrid.py tolerance_loop), so all blocks leave together.
+#include <cooperative_groups.h>
+
+#include "aligned_level.cuh"
+#include "quad_level0.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kMaxLevels = 16;
+constexpr int kMaxBlocksPerSM = 2;
+
+struct Params {
+  cfd::Level0 L0;              // the finest level, quad layout
+  int n_coarse;                // aligned levels 1..n_coarse (>= 2)
+  cfd::Level lv[kMaxLevels];   // lv[k - 1] is level k
+  float* p_lv[kMaxLevels];     // iterate of level k
+  float* b_lv[kMaxLevels];     // source of level k
+  const float* p_in;           // warm start (quad)
+  const float* b0;             // source (quad)
+  float* p0;                   // the solution (quad)
+  const float* max_b;          // null: max|b| is computed here
+  float* ctl;                  // [0] max|b|, [1] [2] residual slots; zeroed before launch
+  float* stats;                // (cycles, res)
+  float* fold;                 // n * n scratch of the coarsest solve
+  const float* pinv;           // (n, n), n = ny * nx of the coarsest level
+  int pre, post, max_cycles;
+  float tol_factor, abs_tol, stall;
+};
+
+struct Sweep {
+  long long first, step;
+  template <class F>
+  __device__ __forceinline__ void each(long long n, F f) const {
+    for (long long k = first; k < n; k += step) f(k);
+  }
+};
+
+// one red (colour 0) or black half-sweep of an aligned level in place;
+// from_zero: the iterate is all zeros (the first half-sweep of a descent),
+// so its reads are zeros and the cells it does not update become 0
+__device__ void level_half_sweep(const Sweep& s, const cfd::Level& L, float* p,
+                                 const float* b, int colour, bool from_zero) {
+  s.each(static_cast<long long>(L.H8) * L.W, [&](long long idx) {
+    const int j = static_cast<int>(idx / L.W);
+    const int i = static_cast<int>(idx - static_cast<long long>(j) * L.W);
+    if (((j + i) & 1) == colour && cfd::interior(j, i, L)) {
+      p[idx] = from_zero ? cfd::gs_update(0.f, 0.f, 0.f, 0.f, 0.f, b[idx], L.wE[i],
+                                          L.wW[i], L.wN[j], L.wS[j], L.idx2, L.idy2,
+                                          L.omega)
+                         : cfd::rb_update(p, b, j, i, L);
+    } else if (from_zero) {
+      p[idx] = 0.f;
+    }
+  });
+}
+
+// bc = full weighting of the residual b - A p of level L into level Lc, in
+// the order of mg_tail._restrict: ((r(2J-1,2I-1) + r(2J-1,2I)) + r(2J,2I-1)
+// + r(2J,2I)) * 0.25 on the coarse interior, 0 elsewhere
+__device__ void level_restrict(const Sweep& s, const cfd::Level& L, const float* p,
+                               const float* b, const cfd::Level& Lc, float* bc) {
+  s.each(static_cast<long long>(Lc.H8) * Lc.W, [&](long long idx) {
+    const int J = static_cast<int>(idx / Lc.W);
+    const int I = static_cast<int>(idx - static_cast<long long>(J) * Lc.W);
+    float out = 0.f;
+    if (cfd::interior(J, I, Lc)) {
+      const int j = 2 * J, i = 2 * I;
+      out = (((cfd::rb_residual(p, b, j - 1, i - 1, L) + cfd::rb_residual(p, b, j - 1, i, L)) +
+              cfd::rb_residual(p, b, j, i - 1, L)) +
+             cfd::rb_residual(p, b, j, i, L)) *
+            0.25f;
+    }
+    bc[idx] = out;
+  });
+}
+
+// p += the bilinear 9-3-3-1 prolongation of the coarse correction e (level
+// Lc, edge-replicated ghosts) on the interior of level L, in the order of
+// mg_tail._prolong: 0.0625 * (((9c + 3h) + 3v) + d)
+__device__ void level_prolong_add(const Sweep& s, const cfd::Level& Lc, const float* e,
+                                  const cfd::Level& L, float* p) {
+  s.each(static_cast<long long>(L.H8) * L.W, [&](long long idx) {
+    const int j = static_cast<int>(idx / L.W);
+    const int i = static_cast<int>(idx - static_cast<long long>(j) * L.W);
+    if (!cfd::interior(j, i, L)) return;
+    const int jc = (j - 1) >> 1, ic = (i - 1) >> 1;
+    const int dj = ((j - 1) & 1) ? 1 : -1, di = ((i - 1) & 1) ? 1 : -1;
+    auto E = [&](int a, int c) {
+      a = min(max(a, 0), Lc.ny - 1);
+      c = min(max(c, 0), Lc.nx - 1);
+      return e[static_cast<long long>(a + 1) * Lc.W + (c + 1)];
+    };
+    const float v = 0.0625f * (((9.0f * E(jc, ic) + 3.0f * E(jc, ic + di)) +
+                                3.0f * E(jc + dj, ic)) +
+                               E(jc + dj, ic + di));
+    p[idx] = p[idx] + v;
+  });
+}
+
+__global__ void __launch_bounds__(cfd::kThreads) whole_solve_kernel(Params P) {
+  cg::grid_group grid = cg::this_grid();
+  const Sweep s{static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x,
+                static_cast<long long>(gridDim.x) * blockDim.x};
+  const bool lead = s.first == 0;
+  const cfd::Level0& L0 = P.L0;
+  const long long n0 = 4LL * L0.Hq8 * L0.Wqa;
+  const long long n1 = static_cast<long long>(L0.Hq8) * L0.Wqa;
+
+  // the warm start into the output, and max|b| for the tolerance
+  float m = 0.f;
+  s.each(n0, [&](long long idx) {
+    P.p0[idx] = P.p_in[idx];
+    m = cfd::bits_max(m, fabsf(P.b0[idx]));
+  });
+  if (P.max_b == nullptr) cfd::block_max_into(m, P.ctl);
+  grid.sync();
+  const float max_b = P.max_b != nullptr ? *P.max_b : __ldcg(P.ctl);
+  const float tol = fmaxf(P.tol_factor * (max_b > 0.f ? max_b : 1.0f), P.abs_tol);
+
+  float prev = 1e30f;
+  float res = prev / 2.0f;
+  int it = 0;
+  while (res > tol && it < P.max_cycles && res < P.stall * prev) {
+    // --- finest level: pre pairs, then the residual restricted into level 1
+    for (int k = 0; k < P.pre; ++k) {
+      for (int colour = 0; colour < 2; ++colour) {
+        s.each(n0, [&](long long idx) {
+          cfd::QuadCell c = cfd::quad_cell(idx, L0.Hq8, L0.Wqa);
+          if (cfd::quad_updates(c, colour, L0)) P.p0[idx] = cfd::quad_gs(P.p0, P.b0, c, L0);
+        });
+        grid.sync();
+      }
+    }
+    if (lead) P.ctl[1 + ((it + 1) & 1)] = 0.f;  // the next cycle's residual slot
+    s.each(n1, [&](long long idx) { P.b_lv[1][idx] = cfd::quad_restrict_value(P.p0, P.b0, idx, L0); });
+    grid.sync();
+
+    // --- coarse descent from zero iterates
+    const int nc = P.n_coarse;
+    for (int k = 1; k < nc; ++k) {
+      const cfd::Level& L = P.lv[k - 1];
+      for (int pair = 0; pair < P.pre; ++pair) {
+        level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 0, pair == 0);
+        grid.sync();
+        level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 1, false);
+        grid.sync();
+      }
+      level_restrict(s, L, P.p_lv[k], P.b_lv[k], P.lv[k], P.b_lv[k + 1]);
+      grid.sync();
+    }
+
+    // --- coarsest level: the dense pinv product, rows summed in the
+    // fold_sum order
+    {
+      const cfd::Level& L = P.lv[nc - 1];
+      const int n = L.ny * L.nx;
+      float* pc = P.p_lv[nc];
+      const float* bc = P.b_lv[nc];
+      s.each(static_cast<long long>(n) * n, [&](long long idx) {
+        const int k = static_cast<int>(idx % n);
+        const float vec = bc[static_cast<long long>(1 + k / L.nx) * L.W + 1 + k % L.nx];
+        P.fold[idx] = P.pinv[idx] * vec;
+      });
+      s.each(static_cast<long long>(L.H8) * L.W, [&](long long idx) {
+        const int j = static_cast<int>(idx / L.W);
+        if (!cfd::interior(j, static_cast<int>(idx - static_cast<long long>(j) * L.W), L)) {
+          pc[idx] = 0.f;
+        }
+      });
+      grid.sync();
+      s.each(n, [&](long long r) {
+        const float e = cfd::fold_sum(P.fold + r * n, n, 0, 1, [] {});
+        pc[static_cast<long long>(1 + r / L.nx) * L.W + 1 + r % L.nx] = e;
+      });
+      grid.sync();
+    }
+
+    // --- coarse ascent: prolongation, post pairs
+    for (int k = nc - 1; k >= 1; --k) {
+      const cfd::Level& L = P.lv[k - 1];
+      level_prolong_add(s, P.lv[k], P.p_lv[k + 1], L, P.p_lv[k]);
+      grid.sync();
+      for (int pair = 0; pair < P.post; ++pair) {
+        level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 0, false);
+        grid.sync();
+        level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 1, false);
+        grid.sync();
+      }
+    }
+
+    // --- finest level: prolongation, post pairs, the tolerance residual
+    s.each(n0, [&](long long idx) {
+      P.p0[idx] = cfd::quad_prolong_add_value(P.p0, P.p_lv[1], idx, L0);
+    });
+    grid.sync();
+    for (int k = 0; k < P.post; ++k) {
+      for (int colour = 0; colour < 2; ++colour) {
+        s.each(n0, [&](long long idx) {
+          cfd::QuadCell c = cfd::quad_cell(idx, L0.Hq8, L0.Wqa);
+          if (cfd::quad_updates(c, colour, L0)) P.p0[idx] = cfd::quad_gs(P.p0, P.b0, c, L0);
+        });
+        grid.sync();
+      }
+    }
+    float r = 0.f;
+    s.each(n0, [&](long long idx) { r = cfd::bits_max(r, cfd::quad_abs_residual(P.p0, P.b0, idx, L0)); });
+    cfd::block_max_into(r, P.ctl + 1 + (it & 1));
+    grid.sync();
+    prev = res;
+    res = __ldcg(P.ctl + 1 + (it & 1));
+    ++it;
+  }
+  if (lead) {
+    P.stats[0] = static_cast<float>(it);
+    P.stats[1] = res;
+  }
+}
+
+}  // namespace
+
+// Grid of the cooperative launch on the current device: blocks, blocks per
+// SM, and the kernel's registers per thread (for the build log).
+extern "C" int cfd_whole_solve_grid(int* blocks, int* per_sm, int* regs) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int coop = 0, sms = 0;
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, whole_solve_kernel,
+                                                      cfd::kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (*per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  *blocks = sms * min(*per_sm, kMaxBlocksPerSM);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, whole_solve_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  return 0;
+}
+
+// idims: n_coarse * (H8, W, ny, nx); fdims: n_coarse * (idx2, idy2); ptrs:
+// n_coarse * (wE, wW, wN, wS, p, b), levels 1..n_coarse, all host arrays.
+// ctl: 3 floats of device scratch; stats: 2 floats (cycles, res); fold:
+// n * n floats for the coarsest level.
+extern "C" int cfd_whole_solve(const float* p_in, const float* b0, float* p0,
+                               const float* max_b, float* ctl, float* stats, float* fold,
+                               const float* pinv, const float* wE, const float* wW,
+                               const float* wN, const float* wS, int Hq8, int Wqa, int ny,
+                               int nx, float idx2, float idy2, int n_coarse,
+                               const int* idims, const float* fdims, void* const* ptrs,
+                               float omega, int pre, int post, int max_cycles,
+                               float tol_factor, float abs_tol, float stall, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_coarse < 2 || n_coarse >= kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
+  Params P{};
+  P.L0 = cfd::Level0{Hq8, Wqa, ny, nx, idx2, idy2, omega, wE, wW, wN, wS};
+  P.n_coarse = n_coarse;
+  for (int k = 1; k <= n_coarse; ++k) {
+    const int* d = idims + 4 * (k - 1);
+    const float* f = fdims + 2 * (k - 1);
+    void* const* q = ptrs + 6 * (k - 1);
+    P.lv[k - 1] = cfd::Level{d[0], d[1], d[2], d[3], f[0], f[1], omega,
+                             static_cast<const float*>(q[0]), static_cast<const float*>(q[1]),
+                             static_cast<const float*>(q[2]), static_cast<const float*>(q[3])};
+    P.p_lv[k] = static_cast<float*>(q[4]);
+    P.b_lv[k] = static_cast<float*>(q[5]);
+  }
+  P.p_in = p_in;
+  P.b0 = b0;
+  P.p0 = p0;
+  P.max_b = max_b;
+  P.ctl = ctl;
+  P.stats = stats;
+  P.fold = fold;
+  P.pinv = pinv;
+  P.pre = pre;
+  P.post = post;
+  P.max_cycles = max_cycles;
+  P.tol_factor = tol_factor;
+  P.abs_tol = abs_tol;
+  P.stall = stall;
+  int blocks = 0, per_sm = 0, regs = 0;
+  int e = cfd_whole_solve_grid(&blocks, &per_sm, &regs);
+  if (e) return e;
+  cudaError_t err = cudaMemsetAsync(ctl, 0, 3 * sizeof(float), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&P};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(whole_solve_kernel), blocks,
+                                    cfd::kThreads, args, 0, s);
+  return static_cast<int>(err);
+}

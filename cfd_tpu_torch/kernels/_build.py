@@ -1,16 +1,20 @@
 """Build and bind the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ONE nvcc call into a shared library
-with a plain C interface, loaded with ctypes (no PyTorch headers, so the
-build takes seconds, not minutes):
+Every ``csrc/*.cu`` file is compiled by its own nvcc process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so the build takes
+seconds, not minutes):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -o build/cfd_tpu_torch/libcfd_tpu_torch_<sha>.so csrc/*.cu
+         -Xptxas -v -Xcompiler -fPIC -c csrc/<name>.cu -o <name>.o   (each)
+    nvcc -shared -o build/cfd_tpu_torch/libcfd_tpu_torch_<sha>.so *.o
 
 ``<sha>`` hashes the sources and the flags, so an edited source builds a
 new library. The build runs at the first CUDA call (``library()``), never
 at import. A missing nvcc or a failed build raises with the compiler's
-output; nothing falls back to the plain PyTorch versions.
+output; nothing falls back to the plain PyTorch versions. The compiler's
+report (``-Xptxas -v``: registers, shared memory and spills of every
+kernel) is kept beside the library as ``<library>.log``.
 
 ``--fmad=false``: nvcc would otherwise contract ``a*b + c`` into one fused
 multiply-add, while PyTorch's eager ops round every product. Without
@@ -29,13 +33,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cfd_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -47,6 +52,11 @@ SIGNATURES = {
     "cfd_quad_pre_smooth_restrict": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I, _P],
     "cfd_quad_post_prolong_smooth": [_P] * 9 + [_I] * 4 + [_F] * 3 + [_I, _P],
     "cfd_rb_pairs": [_I] + [_P] * 9 + [_I] * 4 + [_F] * 3 + [_I, _P],
+    "cfd_quad_channel_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
+    "cfd_quad_channel_carry": [_P] * 12 + [_I] * 4 + [_F] * 10 + [_P],
+    "cfd_whole_solve": ([_P] * 12 + [_I] * 4 + [_F] * 2 + [_I] + [_P] * 3 + [_F]
+                        + [_I] * 3 + [_F] * 3 + [_P]),
+    "cfd_whole_solve_grid": [_P] * 3,
 }
 
 
@@ -82,13 +92,29 @@ def build() -> tuple[Path, float]:
                            "cfd_tpu_torch CUDA kernels cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(f) for f in sorted(CSRC.glob("*.cu")))]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(objdir) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.PIPE, text=True)))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            log.append(f"$ {' '.join(cmd)}\n{stdout}{stderr}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed (exit {proc.returncode}):\n{log[-1]}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+                *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(f"$ {' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log[-1]}")
+    out.with_suffix(".log").write_text("\n".join(log))
     os.replace(tmp, out)
     return out, time.perf_counter() - t0
 

@@ -1,5 +1,5 @@
-"""Quad (2x2 block-parity) layout and the four quad-layout kernels of the
-cavity fast path (the port of cfd_tpu.kernels.quad).
+"""Quad (2x2 block-parity) layout and the quad-layout kernels of the cavity
+and channel fast paths (the port of cfd_tpu.kernels.quad).
 
 Layout: four quarter-resolution planes per field, indexed by the (row,
 column) parity of the logical cell, ``Q[2r+s][J, I] = a[2J+r, 2I+s]``,
@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from cfd_tpu_torch.kernels._build import Kernel, ptr, route
+from cfd_tpu_torch.kernels.mg_tail import fold_sum
 from cfd_tpu_torch.ops.stencil import StencilCoeffs
 
 CARRY = Kernel("quad_corr_predictor_source", "cfd_quad_carry",
@@ -41,6 +42,14 @@ PRE = Kernel("quad_pre_smooth_restrict", "cfd_quad_pre_smooth_restrict",
              "cfd_tpu_torch/csrc/quad_vcycle.cu", "cfd_tpu/kernels/quad.py:630")
 POST = Kernel("quad_post_prolong_smooth", "cfd_quad_post_prolong_smooth",
               "cfd_tpu_torch/csrc/quad_vcycle.cu", "cfd_tpu/kernels/quad.py:700")
+CHANNEL_CARRY = Kernel("quad_channel_corr_predictor_source", "cfd_quad_channel_carry",
+                       "cfd_tpu_torch/csrc/quad_stage.cu", "cfd_tpu/kernels/quad.py:1126")
+CHANNEL_CORRECTOR = Kernel("quad_channel_corrector", "cfd_quad_channel_corrector",
+                           "cfd_tpu_torch/csrc/quad_stage.cu", "cfd_tpu/kernels/quad.py:892")
+
+# threads per block of the stage kernels (cfd::kThreads): the block size of
+# the fixed-order source sum
+SUM_BLOCK = 256
 
 
 def _round_up(x: int, m: int) -> int:
@@ -80,14 +89,20 @@ def from_quad(q: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
     return g.reshape(2 * Hq, 2 * Wq)[:H, :W].contiguous()
 
 
-def uncorrect_quad(u, v, p, shape, coeffs: StencilCoeffs):
-    """Inverse of the rho-multiplied cavity correction on NATURAL arrays
-    (resume boundary only): us = u + c*(pE - p) on valid faces, 0 elsewhere,
-    so correct(uncorrect(u, v, p), p) == (u, v) up to one f32 rounding."""
+def uncorrect_quad(u, v, p, shape, coeffs: StencilCoeffs, cavity_form: bool = True):
+    """Inverse of the pressure correction on NATURAL arrays (resume boundary
+    only): us = u + c*(pE - p) on valid faces, 0 elsewhere, so
+    correct(uncorrect(u, v, p), p) == (u, v) up to one f32 rounding. The
+    cavity form multiplies by rho (cavity-01.cpp:701), the channel form
+    divides (channel-01.cpp:693-702)."""
     H, Wp = shape
     ny, nx = H - 2, Wp - 2
-    cu = coeffs.dt / coeffs.dx * coeffs.density
-    cv = coeffs.dt / coeffs.dy * coeffs.density
+    if cavity_form:
+        cu = coeffs.dt / coeffs.dx * coeffs.density
+        cv = coeffs.dt / coeffs.dy * coeffs.density
+    else:
+        cu = coeffs.dt / (coeffs.density * coeffs.dx)
+        cv = coeffs.dt / (coeffs.density * coeffs.dy)
     jj = torch.arange(H, device=u.device)[:, None]
     ii = torch.arange(Wp, device=u.device)[None, :]
     u_valid = (jj >= 1) & (jj <= ny) & (ii >= 1) & (ii <= nx - 1)
@@ -126,6 +141,14 @@ def _qiota(Hq8: int, Wqa: int, device):
     return ([2 * J + (q >> 1) for q in range(4)], [2 * I + (q & 1) for q in range(4)])
 
 
+def quad_cell_mask(shape, device) -> torch.Tensor:
+    """(4, Hq8, Wqa) bool: the interior cells of the padded (H, W) grid, in
+    the quad layout."""
+    _, Hq8, Wqa = quad_shape(shape)
+    grow, gcol = _qiota(Hq8, Wqa, device)
+    return torch.stack(_valid_masks(grow, gcol, shape[0] - 2, shape[1] - 2)[2])
+
+
 def _where4(conds, vals, planes):
     return [torch.where(c, v, p) for c, v, p in zip(conds, vals, planes)]
 
@@ -143,6 +166,31 @@ def _cavity_bc_quad(u, v, grow, gcol, ny: int, nx: int, lid: float):
     vW = _qshift(v, 0, -1)
     v = _where4([(c == nx + 1) & (g <= ny) for g, c in zip(grow, gcol)],
                 [-a for a in vW], v)
+    return u, v
+
+
+def _channel_bc_quad(u, v, grow, gcol, ny: int, nx: int, uin: float):
+    """Channel ghosts in quad form, the reference's update order
+    (cfd_tpu/kernels/quad.py:781-805): inlet column, outlet column copied
+    from nx-1, bottom-wall v, u ghost row 0 (reading the updated inlet and
+    outlet columns), top-wall v, u ghost row ny+1."""
+    u = _where4([(c == 0) & (g >= 1) & (g <= ny) for g, c in zip(grow, gcol)],
+                [torch.full_like(a, uin) for a in u], u)
+    v = _where4([(c == 0) & (g <= ny) for g, c in zip(grow, gcol)],
+                [torch.zeros_like(a) for a in v], v)
+    uW = _qshift(u, 0, -1)
+    u = _where4([(c == nx) & (g >= 1) & (g <= ny) for g, c in zip(grow, gcol)], uW, u)
+    vW = _qshift(v, 0, -1)
+    v = _where4([(c == nx + 1) & (g <= ny) for g, c in zip(grow, gcol)], vW, v)
+    v = _where4([(g == 0) & (c >= 1) & (c <= nx) for g, c in zip(grow, gcol)],
+                [torch.zeros_like(a) for a in v], v)
+    uN = _qshift(u, 1, 0)
+    u = _where4([(g == 0) & (c <= nx) for g, c in zip(grow, gcol)], [-a for a in uN], u)
+    v = _where4([(g == ny) & (c >= 1) & (c <= nx) for g, c in zip(grow, gcol)],
+                [torch.zeros_like(a) for a in v], v)
+    uS = _qshift(u, -1, 0)
+    u = _where4([(g == ny + 1) & (c <= nx) for g, c in zip(grow, gcol)],
+                [-a for a in uS], u)
     return u, v
 
 
@@ -189,9 +237,9 @@ def _predictor_quad(u, v, c: StencilCoeffs):
     return us, vs
 
 
-def _corrector_quad(us, vs, p, p_prev, grow, gcol, ny, nx, cu, cv, lid):
-    """rho-multiplied correction on valid faces, ghosts rebuilt from the
-    corrected interior, and the extrapolated guess 2p - p_prev."""
+def _project_quad(us, vs, p, p_prev, grow, gcol, ny, nx, cu, cv):
+    """The pressure correction on valid faces (0 elsewhere) and the
+    extrapolated guess 2p - p_prev; the ghosts are the caller's."""
     u_valid, v_valid, _ = _valid_masks(grow, gcol, ny, nx)
     pE, pN = _qshift(p, 0, 1), _qshift(p, 1, 0)
     u, v, guess = [], [], []
@@ -200,8 +248,37 @@ def _corrector_quad(us, vs, p, p_prev, grow, gcol, ny, nx, cu, cv, lid):
         u.append(torch.where(u_valid[q], us[q] - cu * (pE[q] - p[q]), zero))
         v.append(torch.where(v_valid[q], vs[q] - cv * (pN[q] - p[q]), zero))
         guess.append(2.0 * p[q] - p_prev[q])
-    u, v = _cavity_bc_quad(u, v, grow, gcol, ny, nx, lid)
     return u, v, guess
+
+
+def _predictor_source_quad(u, v, c: StencilCoeffs, grow, gcol, ny, nx, bc=None):
+    """MAC predictor on valid faces (0 elsewhere), the ghost update ``bc`` on
+    the tentative fields, and b = rho/dt * div on the cells."""
+    us_raw, vs_raw = _predictor_quad(u, v, c)
+    u_valid, v_valid, cell = _valid_masks(grow, gcol, ny, nx)
+    zero = torch.zeros_like(u[0])
+    us2 = [torch.where(u_valid[q], us_raw[q], zero) for q in range(4)]
+    vs2 = [torch.where(v_valid[q], vs_raw[q], zero) for q in range(4)]
+    if bc is not None:
+        us2, vs2 = bc(us2, vs2)
+    usW = _qshift(us2, 0, -1)
+    vsS = _qshift(vs2, -1, 0)
+    rho_dt = c.density / c.dt
+    b = []
+    for q in range(4):
+        div = (us2[q] - usW[q]) * c.idx + (vs2[q] - vsS[q]) * c.idy
+        b.append(torch.where(cell[q], rho_dt * div, torch.zeros_like(div)))
+    return torch.stack(us2), torch.stack(vs2), torch.stack(b)
+
+
+def fixed_order_sum(b: torch.Tensor) -> torch.Tensor:
+    """Sum of a quad field in the stage kernels' fixed order: the flat array
+    in blocks of SUM_BLOCK, each summed by a pairwise tree, then the block
+    partials by the same fold. Every device rounds it alike."""
+    flat = b.reshape(-1)
+    flat = torch.nn.functional.pad(flat, (0, (-flat.numel()) % SUM_BLOCK))
+    partials = fold_sum(flat.reshape(-1, SUM_BLOCK))
+    return fold_sum(partials[None, :])[0]
 
 
 def _smooth_pairs_quad(p, b, n_pairs, omega, idx2, idy2, wE, wW, wN, wS, masks):
@@ -254,18 +331,13 @@ def _check(shape, *tensors, dtype=torch.float32):
 
 # ------------------------------------------------------------- stage kernels
 
-class QuadCorrector:
-    """(us4, vs4, p4, p_prev4) -> (u4, v4, guess4): rho-multiplied cavity
-    projection, ghosts rebuilt from the corrected interior, and the next
-    solve's warm start 2p - p_prev (cfd_tpu/kernels/quad.py:488). Used at
-    the stats/export boundary (cases/cavity.py unalign_state)."""
+class _QuadStage:
+    """Dispatch of a stage kernel on the quad fields (us, vs, p, p_prev):
+    CPU tensors go to ``plain``, CUDA tensors to ``kernel``."""
 
-    def __init__(self, shape, coeffs: StencilCoeffs, lid_velocity: float = 1.0):
+    def __init__(self, shape):
         self.qshape = quad_shape(shape)
         self.ny, self.nx = shape[0] - 2, shape[1] - 2
-        self.cu = coeffs.dt / coeffs.dx * coeffs.density
-        self.cv = coeffs.dt / coeffs.dy * coeffs.density
-        self.lid = lid_velocity
 
     def __call__(self, us, vs, p, p_prev):
         _check(self.qshape, us, vs, p, p_prev)
@@ -273,11 +345,30 @@ class QuadCorrector:
             return self.kernel(us, vs, p, p_prev)
         return self.plain(us, vs, p, p_prev)
 
+    def _iota(self, device):
+        return _qiota(self.qshape[1], self.qshape[2], device)
+
+
+class QuadCorrector(_QuadStage):
+    """(us4, vs4, p4, p_prev4) -> (u4, v4, guess4): rho-multiplied cavity
+    projection, ghosts rebuilt from the corrected interior, and the next
+    solve's warm start 2p - p_prev (cfd_tpu/kernels/quad.py:488). Used at
+    the stats/export boundary (cases/cavity.py unalign_state)."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, lid_velocity: float = 1.0):
+        super().__init__(shape)
+        self.cu = coeffs.dt / coeffs.dx * coeffs.density
+        self.cv = coeffs.dt / coeffs.dy * coeffs.density
+        self.lid = lid_velocity
+
+    def _corrected(self, us, vs, p, p_prev, grow, gcol):
+        u, v, guess = _project_quad(list(us), list(vs), list(p), list(p_prev), grow,
+                                    gcol, self.ny, self.nx, self.cu, self.cv)
+        u, v = _cavity_bc_quad(u, v, grow, gcol, self.ny, self.nx, self.lid)
+        return u, v, guess
+
     def plain(self, us, vs, p, p_prev):
-        grow, gcol = _qiota(self.qshape[1], self.qshape[2], us.device)
-        u, v, guess = _corrector_quad(list(us), list(vs), list(p), list(p_prev),
-                                      grow, gcol, self.ny, self.nx, self.cu, self.cv,
-                                      self.lid)
+        u, v, guess = self._corrected(us, vs, p, p_prev, *self._iota(us.device))
         return torch.stack(u), torch.stack(v), torch.stack(guess)
 
     def kernel(self, us, vs, p, p_prev):
@@ -301,24 +392,11 @@ class QuadCorrPredictorSource(QuadCorrector):
         self.rho_dt = coeffs.density / coeffs.dt
 
     def plain(self, us, vs, p, p_prev):
-        grow, gcol = _qiota(self.qshape[1], self.qshape[2], us.device)
-        ny, nx, c = self.ny, self.nx, self.coeffs
-        u, v, guess = _corrector_quad(list(us), list(vs), list(p), list(p_prev),
-                                      grow, gcol, ny, nx, self.cu, self.cv, self.lid)
-        us_raw, vs_raw = _predictor_quad(u, v, c)
-        u_valid, v_valid, cell = _valid_masks(grow, gcol, ny, nx)
-        zero = torch.zeros_like(u[0])
-        us2 = [torch.where(u_valid[q], us_raw[q], zero) for q in range(4)]
-        vs2 = [torch.where(v_valid[q], vs_raw[q], zero) for q in range(4)]
-        usW = _qshift(us2, 0, -1)
-        vsS = _qshift(vs2, -1, 0)
-        b = []
-        for q in range(4):
-            div = (us2[q] - usW[q]) * c.idx + (vs2[q] - vsS[q]) * c.idy
-            b.append(torch.where(cell[q], self.rho_dt * div, torch.zeros_like(div)))
-        b = torch.stack(b)
-        return (torch.stack(us2), torch.stack(vs2), b, torch.stack(guess),
-                torch.max(torch.abs(b)))
+        grow, gcol = self._iota(us.device)
+        u, v, guess = self._corrected(us, vs, p, p_prev, grow, gcol)
+        us2, vs2, b = _predictor_source_quad(u, v, self.coeffs, grow, gcol, self.ny,
+                                             self.nx)
+        return us2, vs2, b, torch.stack(guess), torch.max(torch.abs(b))
 
     def kernel(self, us, vs, p, p_prev):
         u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
@@ -332,6 +410,76 @@ class QuadCorrPredictorSource(QuadCorrector):
         return us2, vs2, b, guess, max_b
 
 
+class QuadChannelCorrector(_QuadStage):
+    """(us4, vs4, p4, p_prev4) -> (u4, v4, guess4): rho-DIVIDED channel
+    projection on valid faces (channel-01.cpp:693-702), the channel ghosts
+    on the corrected fields, and the warm start 2p - p_prev
+    (cfd_tpu/kernels/quad.py:892). Used at the stats/export boundary
+    (cases/channel.py unalign_state)."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, inlet_velocity: float = 1.0):
+        super().__init__(shape)
+        self.cu = coeffs.dt / (coeffs.density * coeffs.dx)
+        self.cv = coeffs.dt / (coeffs.density * coeffs.dy)
+        self.uin = inlet_velocity
+
+    def _bc(self, grow, gcol):
+        return lambda u, v: _channel_bc_quad(u, v, grow, gcol, self.ny, self.nx, self.uin)
+
+    def _corrected(self, us, vs, p, p_prev, grow, gcol):
+        u, v, guess = _project_quad(list(us), list(vs), list(p), list(p_prev), grow,
+                                    gcol, self.ny, self.nx, self.cu, self.cv)
+        u, v = self._bc(grow, gcol)(u, v)
+        return u, v, guess
+
+    def plain(self, us, vs, p, p_prev):
+        u, v, guess = self._corrected(us, vs, p, p_prev, *self._iota(us.device))
+        return torch.stack(u), torch.stack(v), torch.stack(guess)
+
+    def kernel(self, us, vs, p, p_prev):
+        u2, v2, guess = (torch.empty_like(us) for _ in range(3))
+        _, Hq8, Wqa = self.qshape
+        CHANNEL_CORRECTOR(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u2), ptr(v2),
+                          ptr(guess), Hq8, Wqa, self.ny, self.nx, self.cu, self.cv,
+                          self.uin)
+        return u2, v2, guess
+
+
+class QuadChannelCorrPredictorSource(QuadChannelCorrector):
+    """Tentative-state channel stage (cfd_tpu/kernels/quad.py:1126, math in
+    channel_carry_compute :1160): (us, vs, p, p_prev) -> (us', vs', b',
+    guess, sum b'). The rho-divided correction, the channel ghosts on the
+    corrected fields, the MAC predictor, the channel ghosts again on the
+    tentative fields, b = rho/dt * div on the cells, and the interior sum of
+    b (the caller removes its mean). ``sum b'`` is a 0-d float32 tensor,
+    summed in fixed_order_sum's order."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, inlet_velocity: float = 1.0):
+        super().__init__(shape, coeffs, inlet_velocity)
+        self.coeffs = coeffs
+        self.rho_dt = coeffs.density / coeffs.dt
+
+    def plain(self, us, vs, p, p_prev):
+        grow, gcol = self._iota(us.device)
+        u, v, guess = self._corrected(us, vs, p, p_prev, grow, gcol)
+        us2, vs2, b = _predictor_source_quad(u, v, self.coeffs, grow, gcol, self.ny,
+                                             self.nx, bc=self._bc(grow, gcol))
+        return us2, vs2, b, torch.stack(guess), fixed_order_sum(b)
+
+    def kernel(self, us, vs, p, p_prev):
+        u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
+        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
+                               device=us.device)
+        sum_b = torch.empty((), dtype=torch.float32, device=us.device)
+        _, Hq8, Wqa = self.qshape
+        c = self.coeffs
+        CHANNEL_CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr), ptr(v_scr),
+                      ptr(us2), ptr(vs2), ptr(b), ptr(guess), ptr(partials), ptr(sum_b),
+                      Hq8, Wqa, self.ny, self.nx, self.cu, self.cv, self.uin, c.dt,
+                      c.viscosity, c.idx, c.idy, c.idx2, c.idy2, self.rho_dt)
+        return us2, vs2, b, guess, sum_b
+
+
 def make_quad_corrector(shape, coeffs, lid_velocity: float = 1.0) -> QuadCorrector:
     return QuadCorrector(shape, coeffs, lid_velocity)
 
@@ -339,6 +487,16 @@ def make_quad_corrector(shape, coeffs, lid_velocity: float = 1.0) -> QuadCorrect
 def make_quad_corr_predictor_source(shape, coeffs, lid_velocity: float = 1.0
                                     ) -> QuadCorrPredictorSource:
     return QuadCorrPredictorSource(shape, coeffs, lid_velocity)
+
+
+def make_quad_channel_corrector(shape, coeffs, inlet_velocity: float = 1.0
+                                ) -> QuadChannelCorrector:
+    return QuadChannelCorrector(shape, coeffs, inlet_velocity)
+
+
+def make_quad_channel_corr_predictor_source(shape, coeffs, inlet_velocity: float = 1.0
+                                            ) -> QuadChannelCorrPredictorSource:
+    return QuadChannelCorrPredictorSource(shape, coeffs, inlet_velocity)
 
 
 # ------------------------------------------------------- finest V-cycle level

@@ -1,0 +1,165 @@
+"""The whole tolerance-driven multigrid solve in one kernel launch (the port
+of cfd_tpu.kernels.whole_solve, separable flavor).
+
+``solve(p4_warm, b4, max_b=None) -> (p4, cycles, res)`` with the contract
+of the reference's make_quad_whole_solve (whole_solve.py:121-135, 507): p
+and b in the (4, Hq8, Wqa) quad layout, ``cycles`` an int, ``res`` the final
+max|b - Ap| as a float32 host number.
+
+* ``kernel`` — csrc/whole_solve.cu: ONE cooperative launch runs every
+  V-cycle of the solve and the stop rule on the card, with the hierarchy's
+  scratch allocated once as buffers of this module. The host reads
+  (cycles, res) once per solve.
+* ``plain`` — the same solve as the tolerance loop over the per-kernel
+  composition's PyTorch twins (MultigridPoisson.cycle(plain=True): the quad
+  pre/post twins, run_tail_vcycle over the rb_smoother twins, the glue
+  transfers and the coarsest pinv product) with the float32 coarse
+  hierarchy. The kernel repeats that arithmetic in the same order, so the
+  two agree bit for bit, and on the CPU ``whole_solve`` on and off give
+  identical results.
+
+The reference's in-VMEM coarse hierarchy runs lane transfers as matmuls
+(mg_tail.py), so its rounding differs from the per-kernel path by a few
+ulps: its whole-solve and per-kernel cycle counts may differ by one
+(tests/test_whole_solve.py). The port's do not differ. Not ported: the
+bf16 in-kernel hierarchy and pin_mean (ROADMAP.md queue B item 14), and
+the reference's VMEM estimates and toolchain ceiling, which are TPU limits
+(ROADMAP.md queue A item 13).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+from torch import nn
+
+from cfd_tpu_torch.kernels._build import Kernel, library, ptr, route
+from cfd_tpu_torch.kernels.quad import (
+    _check,
+    make_quad_post_prolong_smooth,
+    make_quad_pre_smooth_restrict,
+    quad_dims,
+)
+# the module, not its names: poisson.multigrid imports kernels.mg_tail, whose
+# package (this one) lists every kernel, this one included
+from cfd_tpu_torch.poisson import multigrid as mgp
+
+WHOLE_SOLVE = Kernel("quad_whole_solve", "cfd_whole_solve",
+                     "cfd_tpu_torch/csrc/whole_solve.cu",
+                     "cfd_tpu/kernels/whole_solve.py:507")
+
+
+def launch_grid() -> dict:
+    """The cooperative grid the kernel launches with on the current CUDA
+    device: blocks, blocks per SM and registers per thread. Raises when
+    the card refuses a co-resident grid."""
+    lib = library()
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = lib.cfd_whole_solve_grid(*(ctypes.cast(ctypes.byref(v), ctypes.c_void_p)
+                                     for v in vals))
+    if err != 0:
+        raise RuntimeError(f"cfd_whole_solve_grid: CUDA error {err} "
+                           f"({lib.cfd_error_string(err).decode()})")
+    return dict(zip(("blocks", "blocks_per_sm", "registers"), (v.value for v in vals)))
+
+
+class WholeSolve(nn.Module):
+    """The separable quad-level-0 multigrid solve of ``problem`` on the
+    padded grid ``shape``, as one launch. ``cfg`` must use the float32
+    coarse hierarchy."""
+
+    def __init__(self, shape, problem, cfg: mgp.MGConfig, device="cpu"):
+        super().__init__()
+        if cfg.coarse_dtype is not None:
+            raise NotImplementedError("the whole-solve with the bfloat16 coarse "
+                                      "hierarchy is not ported yet (ROADMAP.md queue B "
+                                      "item 14)")
+        _, _, Hq8, Wqa = quad_dims(shape)
+        coarse = (Hq8, Wqa)
+        quad_l0 = (make_quad_pre_smooth_restrict(shape, problem, cfg.omega, cfg.pre_sweeps,
+                                                 coarse, device=device),
+                   make_quad_post_prolong_smooth(shape, problem, cfg.omega, cfg.post_sweeps,
+                                                 coarse, device=device))
+        self.mg = mgp.MultigridPoisson(problem, cfg, quad_l0, device)
+        if self.mg.levels[1].shape != coarse:
+            raise ValueError(f"aligned coarse shape {self.mg.levels[1].shape} != quad "
+                             f"plane shape {coarse}")
+        self.cfg = cfg
+        self.qshape = (4, Hq8, Wqa)
+        # per coarse level: iterate and source; the coarsest fold scratch;
+        # the (max|b|, residual, residual) slots and the (cycles, res) pair
+        f32 = dict(dtype=torch.float32, device=device)
+        for k, lv in enumerate(self.mg.levels[1:], start=1):
+            self.register_buffer(f"p{k}", torch.zeros(lv.shape, **f32), persistent=False)
+            self.register_buffer(f"b{k}", torch.zeros(lv.shape, **f32), persistent=False)
+        self.register_buffer("fold", torch.zeros(self.mg.pinv.numel(), **f32),
+                             persistent=False)
+        self.register_buffer("ctl", torch.zeros(3, **f32), persistent=False)
+        self.register_buffer("stats", torch.zeros(2, **f32), persistent=False)
+
+    def forward(self, p_warm: torch.Tensor, b: torch.Tensor, max_b=None):
+        _check(self.qshape, p_warm, b)
+        if route(p_warm, b) == "cuda":
+            return self.kernel(p_warm, b, max_b)
+        return self.plain(p_warm, b, max_b)
+
+    def plain(self, p_warm, b, max_b=None):
+        return mgp.tolerance_loop(p_warm, b, max_b, self.cfg,
+                              lambda p, bb: self.mg.cycle(p, bb, plain=True))
+
+    def kernel(self, p_warm, b, max_b=None):
+        if p_warm.device != self.ctl.device:
+            raise ValueError(f"tensor on {p_warm.device}, solver buffers on "
+                             f"{self.ctl.device}")
+        if max_b is not None and (max_b.device != p_warm.device or max_b.numel() != 1
+                                  or max_b.dtype != torch.float32):
+            raise ValueError(f"max_b must be one float32 value on {p_warm.device}, got "
+                             f"{max_b.dtype} {tuple(max_b.shape)} on {max_b.device}")
+        mg, cfg = self.mg, self.cfg
+        l0 = mg.pre0
+        coarse = mg.levels[1:]
+        idims = (ctypes.c_int * (4 * len(coarse)))(
+            *(d for lv in coarse for d in (*lv.shape, lv.ny, lv.nx)))
+        fdims = (ctypes.c_float * (2 * len(coarse)))(
+            *(d for lv in coarse for d in (lv.idx2, lv.idy2)))
+        ptrs = []
+        for k, lv in enumerate(coarse, start=1):
+            ptrs += [getattr(lv, w).data_ptr() for w in ("wE", "wW", "wN", "wS")]
+            ptrs += [getattr(self, f"p{k}").data_ptr(), getattr(self, f"b{k}").data_ptr()]
+        ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        p_out = torch.empty_like(p_warm)
+        max_b_ptr = ptr(max_b) if max_b is not None else ctypes.c_void_p(None)
+        as_ptr = lambda a: ctypes.cast(a, ctypes.c_void_p)
+        WHOLE_SOLVE(p_warm, ptr(p_warm), ptr(b), ptr(p_out), max_b_ptr, ptr(self.ctl),
+                    ptr(self.stats), ptr(self.fold), ptr(mg.pinv), ptr(l0.wE), ptr(l0.wW),
+                    ptr(l0.wN), ptr(l0.wS), self.qshape[1], self.qshape[2], l0.ny, l0.nx,
+                    l0.idx2, l0.idy2, len(coarse), as_ptr(idims), as_ptr(fdims),
+                    as_ptr(ptr_arr), cfg.omega, cfg.pre_sweeps, cfg.post_sweeps,
+                    cfg.max_cycles, cfg.tol_factor, cfg.abs_tol, cfg.stall_ratio)
+        cycles, res = self.stats.tolist()
+        return p_out, int(cycles), np.float32(res)
+
+
+def make_quad_whole_solve(shape, problem, cfg: mgp.MGConfig, device="cpu") -> WholeSolve:
+    return WholeSolve(shape, problem, cfg, device)
+
+
+def auto_whole_solve(mg: mgp.MGConfig, mg_overrides, on_cuda: bool, build, fallback):
+    """The reference's default policy for the f32 quad factories
+    (cfd_tpu.kernels.whole_solve.auto_whole_solve) with "device is cuda" in
+    place of "platform is tpu and not interpret": the whole-solve on the
+    card, the per-kernel composition on the CPU. An explicit fusion knob in
+    mg_overrides (whole_solve, whole_step, tail_from, coarse_dtype) takes
+    manual control. Build rejections raise; nothing is swallowed.
+    Returns ``(solve, mg)`` with ``mg.whole_solve`` set to the path taken."""
+    import dataclasses
+
+    if mg.whole_solve:
+        return build(), mg
+    manual = bool(mg_overrides) and any(
+        k in mg_overrides for k in ("whole_solve", "whole_step", "tail_from", "coarse_dtype"))
+    if not on_cuda or manual or mg.whole_step or mg.tail_from is not None:
+        return fallback(), mg
+    return build(), dataclasses.replace(mg, whole_solve=True)

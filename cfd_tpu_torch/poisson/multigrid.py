@@ -1,13 +1,15 @@
 """Geometric multigrid pressure-Poisson solver, separable quad path (the
 port of cfd_tpu.poisson.multigrid).
 
-Ported: the rectangle (separable-weight) hierarchy of the cavity flavor,
-solved with the finest level in the quad layout (kernels.quad pre/post
-kernels) and every coarser level on aligned arrays (kernels.rb_smoother),
-in float32 or with the bfloat16 coarse hierarchy of
-``MGConfig.coarse_dtype``. The coarse-level restriction/prolongation and the
-coarsest dense solve are XLA glue in the reference, outside any kernel;
-here they are plain PyTorch ops.
+Ported: the rectangle (separable-weight) hierarchies of the cavity and
+channel flavors, solved with the finest level in the quad layout
+(kernels.quad pre/post kernels) and every coarser level on aligned arrays
+(kernels.rb_smoother, composed by kernels.mg_tail.run_tail_vcycle), in
+float32 or with the bfloat16 coarse hierarchy of ``MGConfig.coarse_dtype``.
+The coarse-level restriction/prolongation and the coarsest dense solve are
+XLA glue in the reference, outside any kernel; here they are plain PyTorch
+ops (kernels.mg_tail). The whole solve in one kernel launch is
+kernels.whole_solve.
 
 The tolerance loop runs on the host: every V-cycle reads its residual back
 once, where the reference runs a device ``lax.while_loop``. The stopping
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from cfd_tpu_torch.kernels.mg_tail import dense_coarse_solve, run_tail_vcycle
 from cfd_tpu_torch.kernels.rb_smoother import rb_pairs_for_level
 
 
@@ -72,6 +75,27 @@ def cavity_problem(nx: int, ny: int, dx: float, dy: float) -> PoissonProblem:
     wN = ((jj < ny) & interior).astype(np.float64)
     wS = interior.astype(np.float64)  # reference quirk: couples j=1 to 0-ghost
     return PoissonProblem(nx, ny, dx, dy, wE, wW, wN, wS)
+
+
+def neumann_problem(nx: int, ny: int, dx: float, dy: float) -> PoissonProblem:
+    """Pure-Neumann box (use with mean-pinning / mean-removed sources)."""
+    jj = np.arange(ny + 2)[:, None]
+    ii = np.arange(nx + 2)[None, :]
+    interior = _interior_mask(nx, ny)
+    wE = ((ii < nx) & interior).astype(np.float64)
+    wW = ((ii > 1) & interior).astype(np.float64)
+    wN = ((jj < ny) & interior).astype(np.float64)
+    wS = ((jj > 1) & interior).astype(np.float64)
+    return PoissonProblem(nx, ny, dx, dy, wE, wW, wN, wS)
+
+
+def channel_problem(nx: int, ny: int, dx: float, dy: float) -> PoissonProblem:
+    """Channel flavor: inlet/walls Neumann, outlet Dirichlet-0 through the
+    ghost column (channel-01.cpp:531-541)."""
+    p = neumann_problem(nx, ny, dx, dy)
+    wE = p.wE.copy()
+    wE[1 : ny + 1, nx] = 1.0  # outlet column couples to the 0-pinned ghost
+    return dataclasses.replace(p, wE=wE)
 
 
 def coarsen_problem(p: PoissonProblem) -> PoissonProblem:
@@ -144,8 +168,10 @@ def _dense_pinv(p: PoissonProblem) -> np.ndarray:
 class MGConfig:
     """The reference's multigrid configuration (cfd_tpu MGConfig). The port
     honours omega, pre/post_sweeps, max_cycles, tol_factor, abs_tol,
-    min_coarse, stall_ratio and coarse_dtype; pin_mean, tail_from,
-    whole_solve, whole_step and corr_opt raise NotImplementedError until
+    min_coarse, stall_ratio and coarse_dtype, and whole_solve with the
+    float32 hierarchy (the case factories then build
+    kernels.whole_solve); pin_mean, tail_from, whole_step, corr_opt and
+    whole_solve with the bfloat16 hierarchy raise NotImplementedError until
     their kernels are ported (ROADMAP.md queue B). The reference's
     coarse_sweeps is read by nothing there, so it has no field here and an
     override naming it is refused."""
@@ -246,52 +272,28 @@ def build_problems(problem: PoissonProblem, cfg: MGConfig) -> list[PoissonProble
     return probs
 
 
-def _restrict(fine: _Level, coarse: _Level, r: torch.Tensor) -> torch.Tensor:
-    """Full weighting: coarse cell = mean of its 4 fine children, summed in
-    float32 in the row-major window order of the reference's reduce_window,
-    rounded once to the storage dtype."""
-    inner = r[1 : fine.ny + 1, 1 : fine.nx + 1].float()
-    rc = ((inner[0::2, 0::2] + inner[0::2, 1::2]) + inner[1::2, 0::2]
-          + inner[1::2, 1::2]) * 0.25
-    out = torch.zeros(coarse.shape, dtype=r.dtype, device=r.device)
-    out[1 : coarse.ny + 1, 1 : coarse.nx + 1] = rc.to(r.dtype)
-    return out
-
-
-def _prolong(coarse: _Level, fine: _Level, e: torch.Tensor) -> torch.Tensor:
-    """Bilinear (cell-centered 9-3-3-1) interpolation of the coarse
-    correction with edge-extrapolated ghosts (cfd_tpu multigrid._prolong),
-    computed in float32 and rounded once to e's dtype; 0 outside the fine
-    interior."""
-    ny_c, nx_c = coarse.ny, coarse.nx
-    ce = torch.nn.functional.pad(e[1 : ny_c + 1, 1 : nx_c + 1].float()[None, None],
-                                 (1, 1, 1, 1), mode="replicate")[0, 0]
-    c = ce[1:-1, 1:-1]
-    cw, ceast = ce[1:-1, :-2], ce[1:-1, 2:]
-    cs, cn = ce[:-2, 1:-1], ce[2:, 1:-1]
-    csw, cse = ce[:-2, :-2], ce[:-2, 2:]
-    cnw, cne = ce[2:, :-2], ce[2:, 2:]
-    k = 1.0 / 16.0
-    c00 = k * (9 * c + 3 * cw + 3 * cs + csw)  # child (j-lo, i-lo)
-    c01 = k * (9 * c + 3 * ceast + 3 * cs + cse)
-    c10 = k * (9 * c + 3 * cw + 3 * cn + cnw)
-    c11 = k * (9 * c + 3 * ceast + 3 * cn + cne)
-    ef = torch.empty((2 * ny_c, 2 * nx_c), dtype=torch.float32, device=e.device)
-    ef[0::2, 0::2], ef[0::2, 1::2] = c00, c01
-    ef[1::2, 0::2], ef[1::2, 1::2] = c10, c11
-    out = torch.zeros(fine.shape, dtype=e.dtype, device=e.device)
-    out[1 : fine.ny + 1, 1 : fine.nx + 1] = ef[: fine.ny, : fine.nx].to(e.dtype)
-    return out
-
-
-def _fold_sum(x: torch.Tensor) -> torch.Tensor:
-    """Row sums by a fixed pairwise tree of elementwise adds: the same
-    rounding on every device (a library reduction's order is its own)."""
-    while x.shape[1] > 1:
-        h = x.shape[1] // 2
-        head = x[:, :h] + x[:, h : 2 * h]
-        x = torch.cat([head, x[:, 2 * h :]], dim=1)
-    return x[:, 0]
+def tolerance_loop(p, b, max_b, cfg: MGConfig, cycle):
+    """The reference's stopping rule (multigrid.py:836-849,883-885) in
+    float32 around ``cycle(p, b) -> (p, res)``: tol = max(tol_factor *
+    (max_b if max_b > 0 else 1), abs_tol); stop on res <= tol, on
+    max_cycles, or when res >= stall_ratio * prev, with the finite sentinels
+    1e30/2 and 1e30. Returns (p, cycles, res)."""
+    if max_b is None:
+        max_b = torch.max(torch.abs(b))
+    max_b = np.float32(max_b.item())
+    f32 = np.float32
+    tol = max(f32(cfg.tol_factor) * (max_b if max_b > 0 else f32(1.0)),
+              f32(cfg.abs_tol))
+    stall = f32(cfg.stall_ratio)
+    # finite sentinels, as the reference (not finfo.max)
+    prev = f32(1e30)
+    res = prev / f32(2.0)
+    it = 0
+    while res > tol and it < cfg.max_cycles and res < stall * prev:
+        p, new_res = cycle(p, b)
+        prev, res = res, f32(new_res.item())
+        it += 1
+    return p, it, res
 
 
 class MultigridPoisson(nn.Module):
@@ -306,10 +308,12 @@ class MultigridPoisson(nn.Module):
     def __init__(self, problem: PoissonProblem, cfg: MGConfig, quad_level0,
                  device="cpu"):
         super().__init__()
-        unported = [name for name in ("pin_mean", "whole_solve", "whole_step", "corr_opt")
+        unported = [name for name in ("pin_mean", "whole_step", "corr_opt")
                     if getattr(cfg, name)]
         if cfg.tail_from is not None:
             unported.append("tail_from")
+        if cfg.whole_solve and cfg.coarse_dtype is not None:
+            unported.append("whole_solve with the bfloat16 coarse hierarchy")
         if unported:
             raise NotImplementedError(
                 f"MGConfig {', '.join(unported)} not ported yet (ROADMAP.md queue B)")
@@ -340,31 +344,12 @@ class MultigridPoisson(nn.Module):
                                   for lv in inner)
 
     def coarse_solve(self, b: torch.Tensor) -> torch.Tensor:
-        """Dense pinv product on the coarsest interior, in b's dtype (the
-        pinv is rounded to it, as multigrid.py:762-766) with float32 sums."""
-        bot = self.levels[-1]
-        vec = b[1 : bot.ny + 1, 1 : bot.nx + 1].reshape(-1).float()
-        pinv = self.pinv.to(b.dtype).float()
-        e = _fold_sum(pinv * vec[None, :]).reshape(bot.ny, bot.nx)
-        out = torch.zeros(bot.shape, dtype=b.dtype, device=b.device)
-        out[1 : bot.ny + 1, 1 : bot.nx + 1] = e.to(b.dtype)
-        return out
+        return dense_coarse_solve(self.levels[-1], self.pinv, b)
 
-    def vcycle(self, k: int, p: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """Coarse V-cycle from level k >= 1 (p is zeros at every call)."""
-        if k == len(self.levels) - 1:
-            return self.coarse_solve(b)
-        level, below = self.levels[k], self.levels[k + 1]
-        p, r = self.pre[k - 1](p, b)
-        rc = _restrict(level, below, r)
-        ec = self.vcycle(k + 1, torch.zeros(below.shape, dtype=rc.dtype,
-                                            device=rc.device), rc)
-        p = p + _prolong(below, level, ec)
-        return self.post[k - 1](p, b)
-
-    def cycle(self, p: torch.Tensor, b: torch.Tensor):
-        """One V-cycle from the quad finest level: (p4, b4) -> (p4, res)."""
-        p, rc = self.pre0(p, b)
+    def cycle(self, p: torch.Tensor, b: torch.Tensor, plain: bool = False):
+        """One V-cycle from the quad finest level: (p4, b4) -> (p4, res).
+        ``plain`` runs every kernel's plain twin whatever the device."""
+        p, rc = self.pre0.plain(p, b) if plain else self.pre0(p, b)
         rc_shape = rc.shape
         lv1 = self.levels[1]
         if self.coarse_dt is not None:
@@ -373,29 +358,14 @@ class MultigridPoisson(nn.Module):
             rc = torch.nn.functional.pad(
                 rc, (0, lv1.shape[1] - rc_shape[1], 0, lv1.shape[0] - rc_shape[0])
             ).to(self.coarse_dt)
-        ec = self.vcycle(1, torch.zeros(lv1.shape, dtype=rc.dtype, device=rc.device), rc)
+        ec = run_tail_vcycle(self.levels[1:], rc, self.pre, self.post, self.coarse_solve,
+                             plain=plain)
         if self.coarse_dt is not None:
             ec = ec[: rc_shape[0], : rc_shape[1]].float().contiguous()
-        return self.post0(p, b, ec)
+        return self.post0.plain(p, b, ec) if plain else self.post0(p, b, ec)
 
     def forward(self, p_warm: torch.Tensor, b: torch.Tensor, max_b=None):
-        cfg = self.cfg
-        if max_b is None:
-            max_b = torch.max(torch.abs(b))
-        max_b = np.float32(max_b.item())
-        f32 = np.float32
-        tol = max(f32(cfg.tol_factor) * (max_b if max_b > 0 else f32(1.0)),
-                  f32(cfg.abs_tol))
-        stall = f32(cfg.stall_ratio)
-        # finite sentinels, as the reference (not finfo.max)
-        prev = f32(1e30)
-        res = prev / f32(2.0)
-        p, it = p_warm, 0
-        while res > tol and it < cfg.max_cycles and res < stall * prev:
-            p, new_res = self.cycle(p, b)
-            prev, res = res, f32(new_res.item())
-            it += 1
-        return p, it, res
+        return tolerance_loop(p_warm, b, max_b, self.cfg, self.cycle)
 
 
 def make_multigrid_poisson(problem: PoissonProblem, cfg: MGConfig, quad_level0,

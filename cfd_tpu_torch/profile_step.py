@@ -1,11 +1,18 @@
-"""Where the time of one cavity step goes on the card.
+"""Where the time of one cavity or channel step goes on the card.
 
     python -m cfd_tpu_torch.profile_step [--n 2048] [--warmup 100] [--steps 50]
                                          [--out DIR]
+    python -m cfd_tpu_torch.profile_step --case channel [--nx 1536 --ny 512]
+                                         [--mg default|whole|per-kernel] ...
 
-Drives the cavity main path, make_cavity_case(n_interior=n,
-poisson="multigrid", dtype=float32, tolerance_factor=1e-6) on cuda, through
-Simulation's step function, in three windows:
+Drives a main path on cuda through Simulation's step function: the cavity,
+make_cavity_case(n_interior=n, poisson="multigrid", dtype=float32,
+tolerance_factor=1e-6), or the channel, make_channel_case(nx, ny,
+poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0, dtype=float32)
+with its default whole-solve (one launch per pressure solve) or the
+per-kernel solve. ``--mg`` picks the solve: ``default`` is the case's own
+(the per-kernel solve for the cavity, the whole-solve for the channel),
+``whole`` and ``per-kernel`` force one. It runs three windows:
 
 1. ``--warmup`` steps, untimed;
 2. ``--steps`` steps timed with the host clock between two synchronizes,
@@ -46,7 +53,8 @@ def port_kernel_names() -> set[str]:
     """The ``__global__`` function names of csrc/."""
     names = set()
     for f in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
-        names.update(re.findall(r"__global__\s+void\s+(\w+)", f.read_text()))
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", f.read_text()))
     return names
 
 
@@ -109,10 +117,36 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def make_case(args):
+    """The profiled case on cuda (see the module docstring)."""
+    from cfd_tpu_torch.cases import make_cavity_case, make_channel_case
+
+    ov = {"whole": {"whole_solve": True}, "default": None,
+          "per-kernel": {"whole_solve": False} if args.case == "channel" else None}[args.mg]
+    if args.case == "cavity":
+        case = make_cavity_case(n_interior=args.n, poisson="multigrid",
+                                dtype=torch.float32, tolerance_factor=1e-6, device="cuda",
+                                mg_overrides=ov)
+        what = f"cavity {args.n}^2"
+    else:
+        case = make_channel_case(nx=args.nx, ny=args.ny, poisson="multigrid",
+                                 tolerance_factor=1e-6, abs_tol=0.0, dtype=torch.float32,
+                                 device="cuda", mg_overrides=ov)
+        what = f"channel {args.nx}x{args.ny}"
+    mg = case.info["mg"]
+    return case, (f"{what} ({'whole' if mg.whole_solve else 'per-kernel'} solve, "
+                  f"coarse {mg.coarse_dtype or 'float32'})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m cfd_tpu_torch.profile_step",
                                  description=__doc__.split("\n")[0])
-    ap.add_argument("--n", type=int, default=2048, help="interior cells per side")
+    ap.add_argument("--case", choices=["cavity", "channel"], default="cavity")
+    ap.add_argument("--n", type=int, default=2048, help="cavity: interior cells per side")
+    ap.add_argument("--nx", type=int, default=1536, help="channel: interior cells in x")
+    ap.add_argument("--ny", type=int, default=512, help="channel: interior cells in y")
+    ap.add_argument("--mg", choices=["default", "whole", "per-kernel"], default="default",
+                    help="the pressure solve (default: the case's own path)")
     ap.add_argument("--warmup", type=int, default=100)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--out", type=Path, default=DEFAULT_OUT)
@@ -122,12 +156,10 @@ def main(argv=None) -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    from cfd_tpu_torch.cases import make_cavity_case
     from cfd_tpu_torch.solver import Simulation
 
     card = card_line()
-    case = make_cavity_case(n_interior=args.n, poisson="multigrid", dtype=torch.float32,
-                            tolerance_factor=1e-6, device="cuda")
+    case, what = make_case(args)
     sim = Simulation(case, log=lambda m: None)
     state = sim.initial_state()
 
@@ -157,7 +189,7 @@ def main(argv=None) -> int:
         raise SystemExit("profile_step: the trace holds no device activity")
 
     print(f"card: {card}")
-    print(f"cavity {args.n}^2, {args.warmup} warm-up steps, windows of {args.steps} "
+    print(f"{what}, {args.warmup} warm-up steps, windows of {args.steps} "
           f"steps, {sum(cycles) / len(cycles):.2f} V-cycles/step")
     print(f"unprofiled wall: {wall_plain / args.steps * 1e3:.4f} ms/step")
     print(f"traced wall:     {s['wall_ms_per_step']:.4f} ms/step")
@@ -171,7 +203,7 @@ def main(argv=None) -> int:
     for t in s["top"]:
         print(f"  {t['us_per_step']:9.2f} us/step {t['launches_per_step']:7.2f} "
               f"launches/step  {t['name'][:90]}")
-    print(json.dumps(dict(card=card, n=args.n, steps=args.steps,
+    print(json.dumps(dict(card=card, case=what, steps=args.steps,
                           unprofiled_wall_ms_per_step=wall_plain / args.steps * 1e3,
                           cycles_per_step=sum(cycles) / len(cycles),
                           trace=str(trace_path),

@@ -1,10 +1,12 @@
 """Projection-method time integration (the port of cfd_tpu.solver).
 
-Ported: the tentative-carry cavity ordering of ``make_step``
-(cfd_tpu/solver.py:221-228) — the state's u/v are the TENTATIVE velocities
-and one fused corrector+BC+predictor+source kernel runs at the start of
-each step, followed by the pressure solve — and the ``Simulation`` time loop
-with its stats rows and NaN/KE-blowup abort. The JAX package runs a chunk
+Ported: the tentative-carry orderings of ``make_step`` for the cavity
+(cfd_tpu/solver.py:221-228) and for the channel with the extrapolated warm
+start (:230-239) — the state's u/v are the TENTATIVE velocities and one
+fused corrector+BC+predictor+source kernel runs at the start of each step,
+followed (for the channel) by the source mean removal and then the pressure
+solve — and the ``Simulation`` time loop with its stats rows and
+NaN/KE-blowup abort. The JAX package runs a chunk
 of steps as one device program (lax.scan around lax.while_loop); PyTorch
 runs eagerly, so a step here is a sequence of kernel launches and the
 solve reads each V-cycle's residual back to the host.
@@ -33,9 +35,10 @@ class Case:
     name: str
     grid: Grid
     coeffs: StencilCoeffs
-    ordering: str  # "cavity" is ported; "channel" and the others raise
+    ordering: str  # "cavity" | "channel" (tentative carry only)
     velocity_bc: VelocityBC
     poisson_solve: Callable
+    remove_source_mean: bool
     ke_divisor: int
     final_time: float
     total_steps: int
@@ -61,18 +64,48 @@ class Case:
         return self.coeffs.dt
 
 
+def remove_mean_quad(b: torch.Tensor, sum_b: torch.Tensor, grid: Grid,
+                     cell: torch.Tensor) -> torch.Tensor:
+    """Mean removal over the quad-plane layout (cfd_tpu/solver.py:174-188):
+    b - sum_b / n_fluid on the cells (``cell``, the quad cell mask), b
+    elsewhere. Torch glue between the stage kernel and the solve."""
+    return torch.where(cell, b - sum_b / grid.n_fluid, b)
+
+
 def make_step(case: Case) -> Callable[[State], tuple[State, StepDiagnostics]]:
-    """The per-step function of a case. Only the tentative-carry cavity
-    ordering is ported; the others raise."""
-    if case.ordering != "cavity":
+    """The per-step function of a case: the tentative-carry cavity ordering,
+    or the channel ordering with the extrapolated warm start. The other
+    orderings raise."""
+    if case.ordering not in ("cavity", "channel"):
         raise NotImplementedError(
             f"the {case.ordering!r} ordering is not ported yet "
-            "(ROADMAP.md queue A items 7 and 8)")
+            "(ROADMAP.md queue A item 8)")
     fused = case.step_kernels[0]
 
+    if case.ordering == "cavity":
+
+        def step(state: State) -> tuple[State, StepDiagnostics]:
+            us2, vs2, b, guess, max_b = fused(state.u, state.v, state.p, state.p_prev)
+            p, iters, res = case.poisson_solve(guess, b, max_b)
+            return State(us2, vs2, p, state.T, state.p), StepDiagnostics(iters, res)
+
+        return step
+
+    if not case.extrapolate_warm_start:
+        raise NotImplementedError("the channel ordering with the plain previous-p warm "
+                                  "start (the step case) is not ported yet (ROADMAP.md "
+                                  "queue A item 8)")
+    from cfd_tpu_torch.kernels.quad import quad_cell_mask
+
+    g = case.grid
+    cell = quad_cell_mask(g.shape, case.device)
+
     def step(state: State) -> tuple[State, StepDiagnostics]:
-        us2, vs2, b, guess, max_b = fused(state.u, state.v, state.p, state.p_prev)
-        p, iters, res = case.poisson_solve(guess, b, max_b)
+        us2, vs2, b, guess, sum_b = fused(state.u, state.v, state.p, state.p_prev)
+        if case.remove_source_mean:
+            b = remove_mean_quad(b, sum_b, g, cell)
+        # no max_b: the tolerance base is max|b| after the mean removal
+        p, iters, res = case.poisson_solve(guess, b)
         return State(us2, vs2, p, state.T, state.p), StepDiagnostics(iters, res)
 
     return step

@@ -7,25 +7,46 @@ Run from the root of a checkout. It imports torch and the port, never jax
 or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
 
 1. Device and build: requires a CUDA device, prints the card's name and
-   power limit (nvidia-smi), builds the kernels from csrc/ with nvcc and
-   prints the build seconds.
-2. Per-kernel check at the 2048^2 main-path shapes: each hand-written
-   kernel against its plain PyTorch twin on the same seeded inputs on the
-   card. Error = max |kernel - plain| / max |plain| per output; limits:
-   1e-5 for float32 fields and scalars, 2^-7 for bfloat16-stored fields.
-   Times are CUDA-event medians of 20 launches.
-3. The slice: make_cavity_case(n_interior=2048, poisson="multigrid",
+   power limit (nvidia-smi), builds the kernels from csrc/ with nvcc (one
+   process per source, in parallel), prints the build seconds, the
+   whole-solve kernel's registers and its cooperative grid.
+2. Per-kernel check at the 2048^2 cavity shapes: each hand-written kernel
+   of the cavity path against its plain PyTorch twin on the same seeded
+   inputs on the card. Error = max |kernel - plain| / max |plain| per
+   output; limits: 1e-5 for float32 fields and scalars, 2^-7 for
+   bfloat16-stored fields. Times are CUDA-event medians of 20 launches.
+3. The cavity slice: make_cavity_case(n_interior=2048, poisson="multigrid",
    dtype=float32, tolerance_factor=1e-6) on cuda through
    Simulation.run(n_steps=300, steps_per_call=100). Launch counters are
    zeroed just before; every kernel of the path must have launched.
    Prints steps/s and V-cycles/step over the last 100 steps.
-4. Card against CPU: the slice at 256^2 for 20 steps with the kernels on
-   the card and the plain twins on the CPU, with the f32 and with the bf16
-   coarse hierarchy: per-step V-cycle counts equal, fields within 5e-5
-   relative, avg_KE within 1e-6 relative.
+4. Cavity card against CPU: the slice at 256^2 for 20 steps with the
+   kernels on the card and the plain twins on the CPU, with the f32 and
+   with the bf16 coarse hierarchy: per-step V-cycle counts equal, fields
+   within 5e-5 relative, avg_KE within 1e-6 relative.
+5. Per-kernel check at the 1536x512 channel shapes: the channel carry and
+   corrector against their twins (1e-5), and the whole-solve kernel on a
+   seeded source against its twin (the same cycles, p within 1e-5) and
+   against the per-kernel composition of the cavity path's kernels
+   (cycles within 1, p within 50 tol). Times as in phase 2; the
+   whole-solve also per V-cycle.
+6. The channel slice: make_channel_case(nx=1536, ny=512,
+   poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0, dtype=float32)
+   on cuda, 300 steps in chunks of 100, with the launch counters zeroed
+   just before; every kernel of the path must have launched. Then 100
+   steps of the same case with whole_solve=False (the per-kernel solve).
+   Prints steps/s, V-cycles/step and cell-steps/s over the last 100 steps
+   of each.
+7. Channel card against CPU at 256x128, 20 steps, with the default path
+   (the whole-solve on the card) and with whole_solve=False: cycles equal
+   every step, fields within 5e-5 relative, avg_KE within 1e-6 relative.
 
-The line before the last is a JSON object {"kernels": [...]}; the last
-line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object {"kernels": [...]}: per kernel,
+its launches on its path's run, its error against its twin, its time and
+its twin's, and its bound: the larger of the bytes it must move (each
+input read once, each output written once) over 3.35 TB/s and its float32
+operations (counted per cell below) over 67 TFLOP/s, the H100 SXM's
+spec-sheet peaks. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -41,8 +62,17 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 N_MAIN = 2048
+CHANNEL = (1536, 512)
 TOL_F32 = 1e-5
 TOL_BF16 = 2.0 ** -7
+PEAK_BYTES_S = 3.35e12  # H100 SXM device memory, spec sheet
+PEAK_F32_S = 67e12      # H100 SXM float32 outside the tensor cores, spec sheet
+# float32 operations per cell, counted from the kernels' formulas: one
+# red/black update (gs_update), one residual b - A p, one prolongation
+# value and its add, the restriction sums per coarse cell, the predictor
+# (u* and v*) with the source, and a corrector (two faces and the guess)
+GS_OPS, RES_OPS, PROLONG_OPS, RESTRICT_OPS = 20, 14, 10, 4
+PREDICTOR_SOURCE_OPS, CORRECTOR_OPS = 76, 8
 
 
 def log(msg: str) -> None:
@@ -99,6 +129,19 @@ def rel_err(got, want, what: str, tol: float, errs: list) -> float:
     return abs_err
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the float32 rate, whichever is larger (ms)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
+    if t_bytes >= t_ops:
+        return dict(bound_ms=t_bytes, bound_by="bytes")
+    return dict(bound_ms=t_ops, bound_by="operations")
+
+
 def check_kernels(case, dev) -> dict:
     """Phase 2: every kernel against its plain twin at the case's shapes."""
     from cfd_tpu_torch.kernels.quad import to_quad
@@ -127,9 +170,12 @@ def check_kernels(case, dev) -> dict:
     got, want = carry.kernel(us, vs, p, p_prev), carry.plain(us, vs, p, p_prev)
     for name, a, b in zip(("us'", "vs'", "b", "guess", "max|b|"), got, want):
         rel_err(a, b, f"quad_corr_predictor_source {name}", TOL_F32, errs)
+    cells = g.nx * g.ny
     results["quad_corr_predictor_source"] = dict(
         err=max(errs), ms=median_ms(lambda: carry.kernel(us, vs, p, p_prev)),
-        plain_ms=median_ms(lambda: carry.plain(us, vs, p, p_prev)))
+        plain_ms=median_ms(lambda: carry.plain(us, vs, p, p_prev)),
+        **bound(nbytes(us, vs, p, p_prev, *got),
+                cells * (CORRECTOR_OPS + PREDICTOR_SOURCE_OPS)))
 
     # 2. corrector
     errs = []
@@ -138,7 +184,8 @@ def check_kernels(case, dev) -> dict:
         rel_err(a, b, f"quad_corrector {name}", TOL_F32, errs)
     results["quad_corrector"] = dict(
         err=max(errs), ms=median_ms(lambda: corr.kernel(us, vs, p, p_prev)),
-        plain_ms=median_ms(lambda: corr.plain(us, vs, p, p_prev)))
+        plain_ms=median_ms(lambda: corr.plain(us, vs, p, p_prev)),
+        **bound(nbytes(us, vs, p, p_prev, *got), cells * CORRECTOR_OPS))
 
     # 3./4. finest-level V-cycle kernels (b on the interior, as the carry emits)
     b = field(scale=1e3, interior_only=True)
@@ -147,9 +194,12 @@ def check_kernels(case, dev) -> dict:
     got, want = pre.kernel(p, b), pre.plain(p, b)
     for name, a, w in zip(("p", "rc"), got, want):
         rel_err(a, w, f"quad_pre_smooth_restrict {name}", TOL_F32, errs)
+    weights = (pre.wE, pre.wW, pre.wN, pre.wS)
     results["quad_pre_smooth_restrict"] = dict(
         err=max(errs), ms=median_ms(lambda: pre.kernel(p, b)),
-        plain_ms=median_ms(lambda: pre.plain(p, b)))
+        plain_ms=median_ms(lambda: pre.plain(p, b)),
+        **bound(nbytes(p, b, *got, *weights),
+                cells * (pre.n_pairs * GS_OPS + RES_OPS) + cells // 4 * RESTRICT_OPS))
     Hc, Wc = pre.coarse_shape
     ec_np = np.zeros((Hc, Wc), np.float32)
     ec_np[1 : g.ny // 2 + 1, 1 : g.nx // 2 + 1] = rng.standard_normal(
@@ -161,7 +211,9 @@ def check_kernels(case, dev) -> dict:
         rel_err(a, w, f"quad_post_prolong_smooth {name}", TOL_F32, errs)
     results["quad_post_prolong_smooth"] = dict(
         err=max(errs), ms=median_ms(lambda: post.kernel(p, b, ec)),
-        plain_ms=median_ms(lambda: post.plain(p, b, ec)))
+        plain_ms=median_ms(lambda: post.plain(p, b, ec)),
+        **bound(nbytes(p, b, ec, *got, *weights),
+                cells * (PROLONG_OPS + post.n_pairs * GS_OPS + RES_OPS + 1)))
 
     # 5. coarse smoother: every level shape the path smooths, f32 and bf16
     errs, timing = [], None
@@ -187,7 +239,9 @@ def check_kernels(case, dev) -> dict:
                     rel_err(x, y, f"{tag} {name}", tol, errs)
                 if k == 1 and dt == torch.bfloat16 and field_variant:
                     timing = dict(ms=median_ms(lambda: sm.kernel(pp, bb)),
-                                  plain_ms=median_ms(lambda: sm.plain(pp, bb)))
+                                  plain_ms=median_ms(lambda: sm.plain(pp, bb)),
+                                  **bound(nbytes(pp, bb, *got, sm.wE, sm.wW, sm.wN, sm.wS),
+                                          prob.nx * prob.ny * (n_pairs * GS_OPS + RES_OPS)))
     results["rb_pairs"] = dict(err=max(errs), **timing)
     return results
 
@@ -199,41 +253,154 @@ def solve_problem(case):
     return cavity_problem(g.nx, g.ny, g.dx, g.dy)
 
 
-def run_slice(case, n_steps: int, spc: int):
+def run_slice(case, n_steps: int, spc: int, state=None, start_step: int = 0):
     from cfd_tpu_torch.solver import Simulation
 
     sim = Simulation(case, log=lambda m: log("  " + m))
-    state = sim.run(n_steps=n_steps, steps_per_call=spc)
+    state = sim.run(state=state, n_steps=n_steps, start_step=start_step,
+                    steps_per_call=spc)
     torch.cuda.synchronize()
-    return sim, sim._logical(state)
+    return sim, state
 
 
-def card_vs_cpu(coarse: str) -> None:
-    """Phase 4 for one coarse dtype: kernels on the card vs plain on the CPU."""
-    from cfd_tpu_torch.cases import make_cavity_case
+def run_path(case, n_steps: int, path_kernels, what: str, card: str, rate,
+             state=None, start_step: int = 0):
+    """Drive a main path through Simulation.run in chunks of 100 steps with
+    every launch counter zeroed just before and read just after; every
+    kernel of ``path_kernels`` must have launched. ``rate`` is (name, cells
+    per step as a function of V-cycles/step). Returns (launches, carried
+    state, steps/s and V-cycles/step over the last 100 steps)."""
+    from cfd_tpu_torch.kernels import KERNELS
+
+    for kern in KERNELS:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    sim, state = run_slice(case, n_steps, 100, state, start_step)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    log(f"  launches: {launches}")
+    missing = [k.name for k in path_kernels if launches[k.name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {what} path: {missing}")
+    st = sim._logical(state)
+    for fname in ("u", "v", "p"):
+        if not bool(torch.isfinite(getattr(st, fname)).all()):
+            raise AssertionError(f"non-finite {fname} after the {what} run")
+    ke = sim.history[-1]["avg_kinetic_energy"]
+    if not ke > 0:
+        raise AssertionError(f"avg_KE={ke} after the {what} run")
+    cycles = float(np.mean(sim.step_iters[-100:]))
+    walls = [0.0] + [row["wall_seconds"] for row in sim.history]
+    steps_s = 100 / (walls[-1] - walls[-2])
+    log(f"  {what}: {n_steps} steps in {wall:.2f} s; last 100: {steps_s:.2f} steps/s, "
+        f"{cycles:.2f} V-cycles/step, {rate[1](cycles) * steps_s:.4e} {rate[0]}, "
+        f"avg_KE={ke:.6f} ({card})")
+    return launches, state, dict(steps_s=steps_s, cycles=cycles)
+
+
+def card_vs_cpu(make, kw: dict, what: str) -> None:
+    """One card-against-CPU comparison: the kernels on the card, the plain
+    twins on the CPU, 20 steps."""
     from cfd_tpu_torch.solver import Simulation
 
-    kw = dict(n_interior=256, poisson="multigrid", dtype=torch.float32,
-              tolerance_factor=1e-6, print_interval=20,
-              mg_overrides={"coarse_dtype": coarse})
     out = {}
     for where, dev in (("card", "cuda"), ("cpu", "cpu")):
-        sim = Simulation(make_cavity_case(device=dev, **kw), log=lambda m: None)
+        sim = Simulation(make(device=dev, **kw), log=lambda m: None)
         st = sim._logical(sim.run(n_steps=20))
         out[where] = (sim.step_iters, st, sim.history[-1]["avg_kinetic_energy"])
     (it_g, st_g, ke_g), (it_c, st_c, ke_c) = out["card"], out["cpu"]
-    log(f"  coarse {coarse}: cycles/step card {it_g}")
-    log(f"  coarse {coarse}: cycles/step cpu  {it_c}")
+    log(f"  {what}: cycles/step card {it_g}")
+    log(f"  {what}: cycles/step cpu  {it_c}")
     if it_g != it_c:
-        raise AssertionError(f"coarse {coarse}: card and CPU cycle counts differ")
+        raise AssertionError(f"{what}: card and CPU cycle counts differ")
     for name in ("u", "v", "p"):
         a = getattr(st_g, name).float().cpu()
         b = getattr(st_c, name).float()
-        rel_err(a, b, f"256^2 {coarse} card vs cpu {name}", 5e-5, [])
+        rel_err(a, b, f"{what} card vs cpu {name}", 5e-5, [])
     rel = abs(ke_g - ke_c) / abs(ke_c)
-    log(f"  256^2 {coarse} avg_KE card {ke_g!r} cpu {ke_c!r} rel {rel:.3e} (limit 1e-6)")
+    log(f"  {what} avg_KE card {ke_g!r} cpu {ke_c!r} rel {rel:.3e} (limit 1e-6)")
     if not rel <= 1e-6:
-        raise AssertionError(f"coarse {coarse}: avg_KE differs by {rel:.3e}")
+        raise AssertionError(f"{what}: avg_KE differs by {rel:.3e}")
+
+
+def check_channel_kernels(case, dev) -> dict:
+    """Phase 5: the channel stage kernels and the whole-solve against their
+    twins at the channel's shapes."""
+    from cfd_tpu_torch.kernels.quad import to_quad
+
+    rng = np.random.default_rng(1536)
+    g = case.grid
+    shape = g.shape
+    cells = g.nx * g.ny
+    inner = np.zeros(shape, np.float32)
+    inner[1:-1, 1:-1] = 1.0
+
+    def field(scale=0.1, interior_only=False):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        if interior_only:
+            a *= inner
+        return to_quad(torch.from_numpy(a).to(dev), shape)
+
+    results = {}
+    carry, corr = case.step_kernels
+    us, vs, p, p_prev = field(), field(), field(interior_only=True), field(interior_only=True)
+    errs = []
+    got, want = carry.kernel(us, vs, p, p_prev), carry.plain(us, vs, p, p_prev)
+    for name, a, b in zip(("us'", "vs'", "b", "guess", "sum b"), got, want):
+        rel_err(a, b, f"quad_channel_corr_predictor_source {name}", TOL_F32, errs)
+    results["quad_channel_corr_predictor_source"] = dict(
+        err=max(errs), ms=median_ms(lambda: carry.kernel(us, vs, p, p_prev)),
+        plain_ms=median_ms(lambda: carry.plain(us, vs, p, p_prev)),
+        **bound(nbytes(us, vs, p, p_prev, *got),
+                cells * (CORRECTOR_OPS + PREDICTOR_SOURCE_OPS)))
+    errs = []
+    got, want = corr.kernel(us, vs, p, p_prev), corr.plain(us, vs, p, p_prev)
+    for name, a, b in zip(("u", "v", "guess"), got, want):
+        rel_err(a, b, f"quad_channel_corrector {name}", TOL_F32, errs)
+    results["quad_channel_corrector"] = dict(
+        err=max(errs), ms=median_ms(lambda: corr.kernel(us, vs, p, p_prev)),
+        plain_ms=median_ms(lambda: corr.plain(us, vs, p, p_prev)),
+        **bound(nbytes(us, vs, p, p_prev, *got), cells * CORRECTOR_OPS))
+
+    # the whole-solve on a seeded, mean-free source from a zero warm start
+    ws = case.poisson_solve
+    b = field(scale=1e3, interior_only=True)
+    b = torch.where(b != 0, b - b.sum() / cells, b)
+    p0 = torch.zeros_like(b)
+    pk, ck, rk = ws.kernel(p0, b)
+    pp, cp, rp = ws.plain(p0, b)
+    pm, cm, rm = ws.mg(p0, b)  # the per-kernel composition of the cavity kernels
+    tol = ws.cfg.tol_factor * float(b.abs().max())
+    log(f"  quad_whole_solve cycles: kernel {ck}, plain twin {cp}, per-kernel {cm}; "
+        f"res {float(rk)!r} / {float(rp)!r} / {float(rm)!r}; tol {tol:.4e}")
+    if ck != cp:
+        raise AssertionError(f"whole-solve: {ck} cycles, its twin {cp}")
+    if abs(ck - cm) > 1:
+        raise AssertionError(f"whole-solve: {ck} cycles, the per-kernel path {cm}")
+    errs = []
+    rel_err(pk, pp, "quad_whole_solve p vs twin", TOL_F32, errs)
+    diff = float((pk - pm).abs().max())
+    log(f"  quad_whole_solve p vs per-kernel: max|err|={diff:.3e} (limit 50 tol "
+        f"{50 * tol:.3e})")
+    if not diff <= 50 * tol:
+        raise AssertionError(f"whole-solve p differs from the per-kernel path by {diff}")
+    ms = median_ms(lambda: ws.kernel(p0, b))
+    levels = ws.mg.levels
+    cfg = ws.cfg
+    ops_per_cycle = cells * ((cfg.pre_sweeps + cfg.post_sweeps) * GS_OPS + 2 * RES_OPS + 1
+                             + PROLONG_OPS)
+    for lv, below in zip(levels[1:-1], levels[2:]):
+        n = lv.nx * lv.ny
+        ops_per_cycle += (n * ((cfg.pre_sweeps + cfg.post_sweeps) * GS_OPS + RES_OPS
+                               + PROLONG_OPS) + below.nx * below.ny * RESTRICT_OPS)
+    ops_per_cycle += 2 * ws.mg.pinv.numel()
+    solve_bound = bound(nbytes(p0, b, pk, ws.mg.pinv), ck * ops_per_cycle + cells)
+    results["quad_whole_solve"] = dict(
+        err=max(errs), ms=ms, plain_ms=median_ms(lambda: ws.plain(p0, b), reps=5),
+        cycles=ck, ms_per_cycle=ms / ck,
+        bound_bytes_ms=nbytes(p0, b, pk, ws.mg.pinv) / PEAK_BYTES_S * 1e3,
+        bound_ops_ms_per_cycle=ops_per_cycle / PEAK_F32_S * 1e3, **solve_bound)
+    return results
 
 
 def main() -> int:
@@ -241,9 +408,11 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check "
                          "needs a CUDA GPU")
     import_port()
-    from cfd_tpu_torch.cases import make_cavity_case
-    from cfd_tpu_torch.kernels import KERNELS
-    from cfd_tpu_torch.kernels import _build
+    from cfd_tpu_torch.cases import make_cavity_case, make_channel_case
+    from cfd_tpu_torch.kernels import KERNELS, _build
+    from cfd_tpu_torch.kernels import quad as Q
+    from cfd_tpu_torch.kernels import rb_smoother as RB
+    from cfd_tpu_torch.kernels import whole_solve as WS
 
     dev = torch.device("cuda")
     card = card_line()
@@ -253,6 +422,15 @@ def main() -> int:
     path, build_s = _build.build()
     _build.library()
     log(f"  built {path.relative_to(ROOT)} in {build_s:.1f} s")
+    ptxas = path.with_suffix(".log").read_text().splitlines()
+    for i, line in enumerate(ptxas):
+        if "Compiling entry function" in line and "whole_solve_kernel" in line:
+            for info in ptxas[i + 1 : i + 4]:
+                if "Function properties" not in info:
+                    log(f"  whole_solve_kernel ptxas: {info.strip()}")
+    grid = WS.launch_grid()
+    log(f"  whole_solve_kernel: {grid['registers']} registers/thread, cooperative grid of "
+        f"{grid['blocks']} blocks ({grid['blocks_per_sm']} co-resident per SM)")
 
     log(f"phase 2: kernels vs plain twins at {N_MAIN}^2 shapes ({card})")
     case = make_cavity_case(n_interior=N_MAIN, poisson="multigrid", dtype=torch.float32,
@@ -261,45 +439,78 @@ def main() -> int:
     log(f"  solver config: V({mg.pre_sweeps},{mg.post_sweeps}) coarse_dtype="
         f"{mg.coarse_dtype} levels={len(case.poisson_solve.levels)}")
     checks = check_kernels(case, dev)
-    for k, r in checks.items():
-        log(f"  {k:28s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  ({card})")
 
     log(f"phase 3: the slice at {N_MAIN}^2, 300 steps in chunks of 100 ({card})")
-    for kern in KERNELS:
-        kern.launches = 0
-    t0 = time.perf_counter()
-    sim, st = run_slice(case, 300, 100)
-    wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in KERNELS}
-    log(f"  launches: {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    for fname in ("u", "v", "p"):
-        if not bool(torch.isfinite(getattr(st, fname)).all()):
-            raise AssertionError(f"non-finite {fname} after the 2048^2 run")
-    ke = sim.history[-1]["avg_kinetic_energy"]
-    if not ke > 0:
-        raise AssertionError(f"avg_KE={ke} after the 2048^2 run")
-    last = sim.step_iters[-100:]
-    cycles = float(np.mean(last))
-    t100 = sim.history[-1]["wall_seconds"] - sim.history[-2]["wall_seconds"]
-    steps_s = 100 / t100
-    updates = N_MAIN * N_MAIN * (5 + 16 / 3 * cycles) * steps_s
-    log(f"  300 steps in {wall:.2f} s; last 100: {steps_s:.2f} steps/s, "
-        f"{cycles:.2f} V-cycles/step, {updates:.4e} cell-updates/s, "
-        f"avg_KE={ke:.6f} ({card})")
+    cavity_launches, _, _ = run_path(
+        case, 300, (Q.CARRY, Q.CORRECTOR, Q.PRE, Q.POST, RB.RB_PAIRS), "cavity 2048^2",
+        card, ("cell-updates/s", lambda c: N_MAIN * N_MAIN * (5 + 16 / 3 * c)))
+    del case
 
-    log("phase 4: card vs CPU at 256^2, 20 steps")
+    log("phase 4: cavity card vs CPU at 256^2, 20 steps")
     for coarse in ("float32", "bfloat16"):
-        card_vs_cpu(coarse)
+        card_vs_cpu(make_cavity_case, dict(n_interior=256, poisson="multigrid",
+                                           dtype=torch.float32, tolerance_factor=1e-6,
+                                           print_interval=20,
+                                           mg_overrides={"coarse_dtype": coarse}),
+                    f"cavity 256^2 {coarse}")
 
+    nx, ny = CHANNEL
+    ch_kw = dict(nx=nx, ny=ny, poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0,
+                 dtype=torch.float32)
+    log(f"phase 5: kernels vs plain twins at the {nx}x{ny} channel shapes ({card})")
+    case = make_channel_case(device=dev, **ch_kw)
+    mg = case.info["mg"]
+    log(f"  solver config: V({mg.pre_sweeps},{mg.post_sweeps}) whole_solve="
+        f"{mg.whole_solve} levels={len(case.poisson_solve.mg.levels)}")
+    checks.update(check_channel_kernels(case, dev))
+    for k, r in checks.items():
+        log(f"  {k:36s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
+    w = checks["quad_whole_solve"]
+    log(f"  quad_whole_solve: {w['cycles']} V-cycles, {w['ms_per_cycle']:.4f} ms per "
+        f"V-cycle; bound {w['bound_bytes_ms']:.4f} ms per solve (bytes), "
+        f"{w['bound_ops_ms_per_cycle']:.4f} ms per V-cycle (operations)  ({card})")
+
+    log(f"phase 6: the channel slice at {nx}x{ny}, 300 steps in chunks of 100, then the "
+        f"per-kernel solve and the whole-solve again for 100 steps each ({card})")
+    cells = ("cell-steps/s", lambda c: nx * ny)
+    channel_launches, state, whole = run_path(
+        case, 300, (Q.CHANNEL_CARRY, Q.CHANNEL_CORRECTOR, WS.WHOLE_SOLVE),
+        "channel whole-solve", card, cells)
+    per_kernel_case = make_channel_case(device=dev, mg_overrides={"whole_solve": False},
+                                        **ch_kw)
+    _, state, per_kernel = run_path(
+        per_kernel_case, 100, (Q.CHANNEL_CARRY, Q.PRE, Q.POST, RB.RB_PAIRS),
+        "channel per-kernel", card, cells, state=state, start_step=300)
+    del per_kernel_case
+    _, _, whole_again = run_path(
+        case, 100, (Q.CHANNEL_CARRY, WS.WHOLE_SOLVE), "channel whole-solve again", card,
+        cells, state=state, start_step=400)
+    log(f"  channel A/B, steps/s: whole-solve {whole['steps_s']:.2f} "
+        f"({whole['cycles']:.2f} V-cycles/step), per-kernel {per_kernel['steps_s']:.2f} "
+        f"({per_kernel['cycles']:.2f}), whole-solve again {whole_again['steps_s']:.2f} "
+        f"({whole_again['cycles']:.2f}); reference parity target 2.1 V-cycles/step  "
+        f"({card})")
+    del case
+
+    log("phase 7: channel card vs CPU at 256x128, 20 steps")
+    for ov in (None, {"whole_solve": False}):
+        card_vs_cpu(make_channel_case, dict(nx=256, ny=128, poisson="multigrid",
+                                            dtype=torch.float32, tolerance_factor=1e-6,
+                                            abs_tol=0.0, print_interval=20,
+                                            mg_overrides=ov),
+                    f"channel 256x128 {'per-kernel' if ov else 'default'}")
+
+    launches = {**cavity_launches, **{k: channel_launches[k] for k in (
+        Q.CHANNEL_CARRY.name, Q.CHANNEL_CORRECTOR.name, WS.WHOLE_SOLVE.name)}}
     kernels = []
     for k in KERNELS:
         r = checks[k.name]
         kernels.append(dict(name=k.name, route="cuda", source=k.source,
                             replaces=k.replaces, launches=launches[k.name],
-                            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"]))
+                            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            library_ms=None))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

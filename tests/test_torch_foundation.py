@@ -154,7 +154,8 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import cfd_tpu_torch, cfd_tpu_torch.solver, cfd_tpu_torch.cases.cavity\n"
             "import cfd_tpu_torch.cli, cfd_tpu_torch.convert, cfd_tpu_torch.kernels\n"
-            "import cfd_tpu_torch.profile_step\n"
+            "import cfd_tpu_torch.profile_step, cfd_tpu_torch.cases.channel\n"
+            "import cfd_tpu_torch.kernels.whole_solve, cfd_tpu_torch.kernels.mg_tail\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'cfd_tpu' or m.startswith('cfd_tpu.'))\n"
             "assert not bad, bad\n"
@@ -175,7 +176,7 @@ def test_profile_trace_summary():
 
     names = port_kernel_names()
     assert {"corrector_kernel", "predictor_source_kernel", "quad_half_sweep",
-            "half_sweep", "finish"} <= names
+            "half_sweep", "finish", "whole_solve_kernel"} <= names
     assert is_port_kernel("(anonymous namespace)::quad_half_sweep(float const*, int)", names)
     assert is_port_kernel("void (anonymous namespace)::half_sweep<float, float>(int)", names)
     assert not is_port_kernel("void at::native::elementwise_kernel<128, 2>(int)", names)

@@ -161,7 +161,8 @@ def test_bf16_coarse_solve_matches_jax_bf16():
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0, atol=5e-5)
 
 
-@pytest.mark.parametrize("knob", [dict(pin_mean=True), dict(whole_solve=True),
+@pytest.mark.parametrize("knob", [dict(pin_mean=True),
+                                  dict(whole_solve=True, coarse_dtype="bfloat16"),
                                   dict(whole_step=True), dict(tail_from=1),
                                   dict(corr_opt=True)])
 def test_unported_mg_options_raise(knob):
