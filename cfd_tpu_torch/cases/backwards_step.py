@@ -1,0 +1,189 @@
+"""Backward-facing step case (the port of cfd_tpu.cases.backwards_step).
+
+Reference: BackwardsStepSolver (backwards_step-01.cpp:316-1061). Geometry:
+the solid block {i <= step_i and j > inlet_j_max}
+(backwards_step-01.cpp:499-520) on a masked grid.
+
+Ported: the float32 multigrid branch on the quad layout
+(cfd_tpu/cases/backwards_step.py:116-276) — the tentative-carry masked
+stage kernel with the fluid-only source mean removal, the masked corrector
+at the stats/export boundary, V(1,2) unless the overrides name the sweeps,
+the plain previous-p warm start, and the reference's auto_whole_solve rule
+with "device is cuda" in place of "platform is tpu": the masked
+whole-solve (one kernel launch per pressure solve) on the card, the
+per-kernel defect-correction solve on the CPU, and manual control when
+mg_overrides names a fusion knob. Everything else (SOR, float64, the
+natural layout, whole_step, adaptive dt) raises NotImplementedError rather
+than being ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from cfd_tpu_torch.bc import step_bc
+from cfd_tpu_torch.cases.channel import _not_ported
+from cfd_tpu_torch.grid import Grid, cfl_time_step, optimal_omega
+from cfd_tpu_torch.kernels.quad import from_quad, quad_dims, to_quad
+from cfd_tpu_torch.kernels.step_quad import (
+    make_quad_step_corr_predictor_source,
+    make_quad_step_corrector,
+    uncorrect_step_quad,
+)
+from cfd_tpu_torch.kernels.whole_solve import auto_whole_solve, make_quad_step_whole_solve
+from cfd_tpu_torch.ops.stencil import StencilCoeffs
+from cfd_tpu_torch.params import check_cfl, validate_case_params
+from cfd_tpu_torch.poisson.multigrid import (
+    MGConfig,
+    _round_up8_128,
+    make_masked_quad_multigrid_poisson,
+    mg_compatible,
+    step_rect_params,
+)
+from cfd_tpu_torch.precision import as_dtype
+from cfd_tpu_torch.solver import Case
+from cfd_tpu_torch.state import State
+
+
+def make_backwards_step_case(
+    nx: int = 256,
+    ny: int = 32,
+    length: float = 8.0,
+    height_inlet: float = 1.0,
+    height_total: float = 2.0,
+    step_location: float = 2.0,
+    reynolds_number: float = 100.0,
+    inlet_velocity: float = 1.0,
+    density: float = 1.0,
+    cfl: float = 0.2,
+    final_time: float = 15.0,
+    tolerance_factor: float = 1e-7,
+    abs_tol: float = 1e-10,
+    max_sor_iterations: int = 10000,
+    print_interval: int = 10,
+    save_interval: int = 10,
+    dt: float | None = None,
+    poisson: str = "auto",  # "auto" | "multigrid" ("sor" is not ported)
+    dtype=torch.float64,
+    layout: str = "auto",  # "auto" | "quad"
+    mg_overrides: dict | None = None,  # MGConfig field overrides
+    device="cuda",  # "cpu" runs the kernels' plain PyTorch twins
+) -> Case:
+    dtype = as_dtype(dtype)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
+                           "the kernels' plain PyTorch twins on the CPU")
+    validate_case_params(
+        reynolds_number=reynolds_number, density=density, cfl=cfl,
+        final_time=final_time, tolerance_factor=tolerance_factor, dt=dt,
+        max_iterations=max_sor_iterations, print_interval=print_interval,
+        save_interval=save_interval, length=length, height_inlet=height_inlet,
+        height_total=height_total, step_location=step_location,
+        inlet_velocity=inlet_velocity)
+    # geometry bounds (backwards_step-01.cpp:455-461)
+    if not height_inlet < height_total:
+        raise ValueError(f"height_inlet ({height_inlet}) must be < height_total "
+                         f"({height_total})")
+    if not step_location < length:
+        raise ValueError(f"step_location ({step_location}) must be < length ({length})")
+    dx = length / nx
+    dy = height_total / ny
+    step_i = int(step_location / dx)  # backwards_step-01.cpp:387
+    inlet_j_max = int(height_inlet / dy)  # backwards_step-01.cpp:493
+    # fluid raster (backwards_step-01.cpp:508-520): before the step only the
+    # inlet rows are fluid, after it the full height
+    jj = np.arange(1, ny + 1)[:, None]
+    ii = np.arange(1, nx + 1)[None, :]
+    fluid = np.broadcast_to(np.where(ii <= step_i, jj <= inlet_j_max, True), (ny, nx))
+    grid = Grid.masked(nx, ny, length, height_total, np.ascontiguousarray(fluid))
+    viscosity = inlet_velocity * height_inlet / reynolds_number  # backwards_step-01.cpp:379
+    if dt is None:
+        dt = cfl_time_step(dx, dy, viscosity, inlet_velocity, cfl)
+    else:
+        check_cfl(dt, dx, dy, viscosity, abs(inlet_velocity))
+    coeffs = StencilCoeffs(dx=dx, dy=dy, dt=dt, viscosity=viscosity, density=density)
+    omega = optimal_omega(nx, ny)
+    if poisson == "auto":
+        poisson = "multigrid" if mg_compatible(nx, ny) and max(nx, ny) >= 128 else "sor"
+    if poisson == "sor":
+        raise _not_ported("the SOR pressure solver", "ROADMAP.md queue A item 6")
+    if poisson != "multigrid":
+        raise ValueError(f"unknown poisson solver: {poisson}")
+    if dtype != torch.float32:
+        raise _not_ported("the float64 masked multigrid path", "ROADMAP.md queue A item 8")
+    if layout not in ("auto", "quad"):
+        raise _not_ported(f"layout={layout!r}", "ROADMAP.md queue A item 8")
+    rect = step_rect_params(grid)
+    coarse_shape = _round_up8_128((ny // 2 + 2, nx // 2 + 2))
+    _, _, Hq8, Wqa = quad_dims(grid.shape)
+    if rect is None or coarse_shape != (Hq8, Wqa):
+        if layout == "quad":
+            raise ValueError(f"quad layout unavailable: rect={rect}, coarse shape "
+                             f"{coarse_shape} vs quad plane shape {(Hq8, Wqa)}")
+        # the reference runs the natural-layout masked path here
+        raise _not_ported(f"nx={nx}, ny={ny} off the quad path (rect={rect}, coarse "
+                          f"shape {coarse_shape})", "ROADMAP.md queue A item 8")
+    step_i, inlet_j = rect
+
+    mg = MGConfig(tol_factor=tolerance_factor, abs_tol=abs_tol)
+    if mg_overrides:
+        mg = dataclasses.replace(mg, **mg_overrides)
+    if mg.whole_step:
+        raise _not_ported("whole_step", "ROADMAP.md queue B item 15")
+    # V(1,2) unless overridden (cfd_tpu/cases/backwards_step.py:162-171)
+    if not (mg_overrides and ("post_sweeps" in mg_overrides
+                              or "pre_sweeps" in mg_overrides)):
+        mg = dataclasses.replace(mg, pre_sweeps=1, post_sweeps=2)
+
+    corr = make_quad_step_corrector(grid.shape, coeffs, step_i, inlet_j, inlet_velocity)
+    carry = make_quad_step_corr_predictor_source(grid.shape, coeffs, step_i, inlet_j,
+                                                 inlet_velocity)
+    solve, mg = auto_whole_solve(
+        mg, mg_overrides, device.type == "cuda",
+        build=lambda: make_quad_step_whole_solve(grid, coeffs, mg, device=device),
+        fallback=lambda: make_masked_quad_multigrid_poisson(grid, coeffs, mg,
+                                                            device=device))
+
+    # Tentative-state boundary converters with the masked, rho-divided
+    # correction; no p_prev (the plain previous-p warm start)
+    def align_state(state: State) -> State:
+        us, vs = uncorrect_step_quad(state.u, state.v, state.p, grid.shape, coeffs,
+                                     step_i, inlet_j)
+        t = lambda a: to_quad(a, grid.shape)
+        return State(t(us), t(vs), t(state.p), state.T, None)
+
+    def unalign_state(state: State) -> State:
+        u2, v2 = corr(state.u, state.v, state.p)
+        f = lambda a: from_quad(a, grid.shape)
+        return State(f(u2), f(v2), f(state.p), state.T, None)
+
+    return Case(
+        name="backwards_step",
+        poisson_max_iters=mg.max_cycles,
+        step_kernels=(carry, corr),
+        align_state=align_state,
+        unalign_state=unalign_state,
+        extrapolate_warm_start=False,
+        grid=grid,
+        coeffs=coeffs,
+        ordering="channel",
+        velocity_bc=step_bc(grid, inlet_velocity, inlet_j_max),
+        poisson_solve=solve,
+        remove_source_mean=True,
+        ke_divisor=grid.n_fluid,  # backwards_step-01.cpp:1055
+        final_time=final_time,
+        total_steps=int(final_time / dt),
+        print_interval=print_interval,
+        save_interval=save_interval,
+        dtype=dtype,
+        device=device,
+        info=dict(banner_title="Backwards Step Flow Simulation",
+                  length=length, height=height_total,
+                  step_height=height_total - height_inlet,
+                  step_location=step_location, reynolds=reynolds_number,
+                  cfl=cfl, omega=omega, inlet_velocity=inlet_velocity, mg=mg),
+    )

@@ -1,15 +1,17 @@
-"""Command-line entry point (the port of cfd_tpu.cli: the cavity and
-channel cases).
+"""Command-line entry point (the port of cfd_tpu.cli: the cavity, channel
+and backward-step cases).
 
 Usage:
     python -m cfd_tpu_torch.cli cavity --Nx 2048 --Ny 2048 --precision f32 \\
         --no-vtk --steps 300 --steps-per-call 100
     python -m cfd_tpu_torch.cli channel --Nx 1536 --Ny 512 --precision f32 \\
         --no-vtk --steps 300 --steps-per-call 100
+    python -m cfd_tpu_torch.cli backwards_step --Nx 2048 --Ny 256 --precision f32 \\
+        --no-vtk --steps 300 --steps-per-call 100 --print-interval 100
 
 The flags are the reference CLI's for the ported paths, with its defaults
 per case (cfd_tpu/cli.py:103-106). VTK export is not ported yet, so a run
-needs --no-vtk; flags of modules not ported yet (step/RB cases, SOR,
+needs --no-vtk; flags of modules not ported yet (the RB case, SOR,
 checkpoints, metrics, adaptive dt, meshes) are refused with a message
 instead of being ignored.
 """
@@ -52,11 +54,15 @@ def build_parser() -> argparse.ArgumentParser:
            63, 63, 1000.0, 20.0)
     common(sub.add_parser("channel", help="channel / Poiseuille start-up (channel-01.cpp)"),
            93, 31, 100.0, 10.0)
+    common(sub.add_parser("backwards_step",
+                          help="backward-facing step (backwards_step-01.cpp)"),
+           256, 32, 100.0, 15.0)
     return p
 
 
 def make_case_from_args(args):
-    from cfd_tpu_torch.cases import make_cavity_case, make_channel_case
+    from cfd_tpu_torch.cases import (make_backwards_step_case, make_cavity_case,
+                                     make_channel_case)
     from cfd_tpu_torch.precision import as_dtype
 
     kw = dict(final_time=args.T, dtype=as_dtype(args.precision), poisson=args.poisson,
@@ -67,6 +73,9 @@ def make_case_from_args(args):
         kw["print_interval"] = args.print_interval
     if args.case == "channel":
         return make_channel_case(nx=args.Nx, ny=args.Ny, reynolds_number=args.Re, **kw)
+    if args.case == "backwards_step":
+        return make_backwards_step_case(nx=args.Nx, ny=args.Ny, reynolds_number=args.Re,
+                                        **kw)
     if args.Nx != args.Ny:
         raise SystemExit("cavity requires Nx == Ny (square grid)")
     return make_cavity_case(n_interior=args.Nx, reynolds_number=args.Re, **kw)

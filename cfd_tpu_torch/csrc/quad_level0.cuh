@@ -65,17 +65,13 @@ __device__ __forceinline__ float quad_restrict_value(const float* p, const float
                   quad_residual(p, b, j - 1, i, L) + quad_residual(p, b, j - 1, i - 1, L));
 }
 
-// p + prolong(ec) at quad cell idx on the interior, p elsewhere, with the
-// edge clamps of quad.py:741-760 (ec is the aligned (Hq8, Wqa) level-1
-// correction)
-__device__ __forceinline__ float quad_prolong_add_value(const float* p, const float* ec,
-                                                        long long idx, const Level0& L) {
-  QuadCell c = quad_cell(idx, L.Hq8, L.Wqa);
-  float pc = p[idx];
-  if (!interior(c.j, c.i, L)) return pc;
+// The bilinear 9-3-3-1 prolongation of the aligned (Hq8, Wqa) level-1
+// correction ec at quad cell c, with the edge clamps of quad.py:741-760
+__device__ __forceinline__ float quad_prolong_corr(const float* ec, const QuadCell& c,
+                                                   int Hq8, int Wqa, int ny, int nx) {
   const int r = c.q >> 1, s = c.q & 1, J = c.j >> 1, I = c.i >> 1;
-  const int nyc = L.ny / 2, nxc = L.nx / 2, W = L.Wqa;
-  const int J1 = (J + 1) % L.Hq8;  // jnp.roll(ec, -1, axis=0)
+  const int nyc = ny / 2, nxc = nx / 2, W = Wqa;
+  const int J1 = (J + 1) % Hq8;  // jnp.roll(ec, -1, axis=0)
   auto rowmix = [&](int col) {
     float e0 = ec[static_cast<long long>(J) * W + col];
     float e1 = ec[static_cast<long long>(J1) * W + col];
@@ -87,8 +83,16 @@ __device__ __forceinline__ float quad_prolong_add_value(const float* p, const fl
   float rm1 = rowmix((I + 1) % W);
   float m0 = (I == 0) ? rm1 : rm;
   float m1 = (I == nxc) ? rm : rm1;
-  float corr = s == 0 ? 0.75f * m0 + 0.25f * m1 : 0.25f * m0 + 0.75f * m1;
-  return pc + corr;
+  return s == 0 ? 0.75f * m0 + 0.25f * m1 : 0.25f * m0 + 0.75f * m1;
+}
+
+// p + prolong(ec) at quad cell idx on the interior, p elsewhere
+__device__ __forceinline__ float quad_prolong_add_value(const float* p, const float* ec,
+                                                        long long idx, const Level0& L) {
+  QuadCell c = quad_cell(idx, L.Hq8, L.Wqa);
+  float pc = p[idx];
+  if (!interior(c.j, c.i, L)) return pc;
+  return pc + quad_prolong_corr(ec, c, L.Hq8, L.Wqa, L.ny, L.nx);
 }
 
 // |b - A p| at quad cell idx (0 outside the interior)

@@ -3,8 +3,11 @@
 // Replaces cfd_tpu/kernels/rb_smoother.py make_rb_pairs (:37), reached
 // through rb_pairs_for_level (:322): the plain variant (post-smooth) and
 // the with_residual_field variant (pre-smooth + the signed residual field
-// b - A p, masked to the interior). Storage is float or bfloat16, the
-// arithmetic always float32 (rb_smoother.py:199-200,255).
+// b - A p, masked to the interior), on separable weights (cfd_rb_pairs,
+// float or bfloat16 storage, the arithmetic always float32,
+// rb_smoother.py:199-200,255) and on the full-2D weights of a masked level
+// (cfd_rb_pairs_full, float32, rb_smoother.py:106-127,185-198: a cell
+// updates only where denom > 0, see aligned_level.cuh).
 //
 // Bound on the H100: device-memory bytes and, on the small levels, launch
 // latency. A half-sweep reads p and b and writes half of p; with bfloat16
@@ -23,7 +26,6 @@
 
 namespace {
 
-using cfd::interior;
 using cfd::Level;
 
 // half-sweep of colour (0 = red = (i + j) even) from src (storage T or the
@@ -36,7 +38,7 @@ __global__ void half_sweep(const TS* src, float* dst, const TB* b, int colour, b
   if (idx >= n) return;
   int j = static_cast<int>(idx / L.W);
   int i = static_cast<int>(idx - static_cast<long long>(j) * L.W);
-  if (((j + i) & 1) == colour && interior(j, i, L)) {
+  if (((j + i) & 1) == colour && cfd::active(j, i, L)) {
     dst[idx] = cfd::rb_update(src, b, j, i, L);
   } else if (copy) {
     dst[idx] = cfd::to_f32(src[idx]);
@@ -55,10 +57,11 @@ __global__ void finish(const float* it, const T* b, T* out, T* r, Level L) {
   float p = it[idx];
   if (r != nullptr) {
     float rv = 0.f;
-    if (interior(j, i, L)) {
+    if (cfd::active(j, i, L)) {
+      const cfd::Weights w = cfd::weights(j, i, L);
       float ap = cfd::apply_a(p, cfd::ld(it, j, i + 1, L), cfd::ld(it, j, i - 1, L),
-                              cfd::ld(it, j + 1, i, L), cfd::ld(it, j - 1, i, L), L.wE[i],
-                              L.wW[i], L.wN[j], L.wS[j], L.idx2, L.idy2);
+                              cfd::ld(it, j + 1, i, L), cfd::ld(it, j - 1, i, L), w.e, w.w,
+                              w.n, w.s, L.idx2, L.idy2);
       rv = cfd::to_f32(b[idx]) - ap;
     }
     r[idx] = cfd::from_f32<T>(rv);
@@ -99,7 +102,7 @@ extern "C" int cfd_rb_pairs(int storage, const void* p, const void* b, void* out
                             int nx, float idx2, float idy2, float omega, int n_pairs,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Level L{H8, W, ny, nx, idx2, idy2, omega, wE, wW, wN, wS};
+  Level L{H8, W, ny, nx, idx2, idy2, omega, wE, wW, wN, wS, 0};
   if (storage == 0) {
     return run_pairs<float>(static_cast<const float*>(p), static_cast<const float*>(b),
                             static_cast<float*>(out), scratch, static_cast<float*>(r),
@@ -112,4 +115,16 @@ extern "C" int cfd_rb_pairs(int storage, const void* p, const void* b, void* out
         n_pairs, L, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Full-2D weights (a masked level), float32 storage: wE, wW, wN, wS are
+// (H8, W) arrays; out doubles as the float32 iterate. r: null for the plain
+// variant.
+extern "C" int cfd_rb_pairs_full(const float* p, const float* b, float* out, float* r,
+                                 const float* wE, const float* wW, const float* wN,
+                                 const float* wS, int H8, int W, int ny, int nx,
+                                 float idx2, float idy2, float omega, int n_pairs,
+                                 void* stream) {
+  Level L{H8, W, ny, nx, idx2, idy2, omega, wE, wW, wN, wS, 1};
+  return run_pairs<float>(p, b, out, out, r, n_pairs, L, static_cast<cudaStream_t>(stream));
 }

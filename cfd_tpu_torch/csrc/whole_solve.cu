@@ -1,9 +1,11 @@
-// The whole tolerance-driven multigrid solve of the separable quad path in
-// ONE cooperative launch.
+// The whole tolerance-driven multigrid solve of a quad path in ONE
+// cooperative launch: the separable flavor (cavity, channel) and the masked
+// flavor (the backward step).
 //
 // Replaces cfd_tpu/kernels/whole_solve.py make_quad_whole_solve (:507;
 // the body is separable_vcycle_ctx :178 inside _solve_from_ctx :442 and
-// tolerance_loop :138): the finest-level pairs, residual and restriction,
+// tolerance_loop :138) and make_quad_step_whole_solve (:569; the body is
+// masked_vcycle_ctx :297-424): the finest-level pairs, residual and restriction,
 // the coarse hierarchy (kernels/mg_tail.py run_tail_vcycle), the coarsest
 // dense pseudo-inverse, the prolongations and post pairs back up, the
 // tolerance residual max and the stop rule, for every cycle of one solve.
@@ -24,10 +26,20 @@
 // cooperative_groups' grid sync. The iterate and source of every level stay
 // in device memory (scratch the caller allocates once). The arithmetic of
 // each phase is the per-kernel path's, through the same device functions
-// (quad_level0.cuh, aligned_level.cuh) or, for the transfers between coarse
-// levels and the coarsest solve, in the exact operation order of their
-// PyTorch glue (kernels/mg_tail.py _restrict, _prolong, dense_coarse_solve),
-// so the solve equals the per-kernel composition bit for bit.
+// (quad_level0.cuh, step_level0.cuh, aligned_level.cuh) or, for the
+// transfers between coarse levels and the coarsest solve, in the exact
+// operation order of their PyTorch glue (kernels/mg_tail.py _restrict,
+// _solid_fill, _prolong, dense_coarse_solve), so the solve equals the
+// per-kernel composition bit for bit.
+//
+// The masked flavor (kMasked): the finest level is the step's exact
+// operator (step_level0.cuh). Its ghost stage reads one array and writes
+// another, so the finest iterate alternates between the output array and a
+// scratch array, phase by phase exactly as the per-kernel kernels
+// (step_vcycle.cu) run it; the coarse levels carry full-2D weights, and a
+// correction leaving a masked coarse level is first solid-filled into a
+// scratch array (a phase of its own: the fill reads the neighbours of the
+// cells it writes).
 //
 // Reductions and the stop rule: max|b| and each cycle's residual max are
 // taken on the int bits of |x| with atomicMax (order-independent, so exact).
@@ -40,6 +52,7 @@
 
 #include "aligned_level.cuh"
 #include "quad_level0.cuh"
+#include "step_level0.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -49,7 +62,8 @@ constexpr int kMaxLevels = 16;
 constexpr int kMaxBlocksPerSM = 2;
 
 struct Params {
-  cfd::Level0 L0;              // the finest level, quad layout
+  cfd::Level0 L0;              // the finest level, quad layout (separable)
+  cfd::StepL0 S0;              // the finest level, quad layout (masked)
   int n_coarse;                // aligned levels 1..n_coarse (>= 2)
   cfd::Level lv[kMaxLevels];   // lv[k - 1] is level k
   float* p_lv[kMaxLevels];     // iterate of level k
@@ -57,6 +71,8 @@ struct Params {
   const float* p_in;           // warm start (quad)
   const float* b0;             // source (quad)
   float* p0;                   // the solution (quad)
+  float* q0;                   // masked: the second finest iterate (quad)
+  float* filled;               // masked: a solid-filled correction (level-1 size)
   const float* max_b;          // null: max|b| is computed here
   float* ctl;                  // [0] max|b|, [1] [2] residual slots; zeroed before launch
   float* stats;                // (cycles, res)
@@ -82,10 +98,10 @@ __device__ void level_half_sweep(const Sweep& s, const cfd::Level& L, float* p,
   s.each(static_cast<long long>(L.H8) * L.W, [&](long long idx) {
     const int j = static_cast<int>(idx / L.W);
     const int i = static_cast<int>(idx - static_cast<long long>(j) * L.W);
-    if (((j + i) & 1) == colour && cfd::interior(j, i, L)) {
-      p[idx] = from_zero ? cfd::gs_update(0.f, 0.f, 0.f, 0.f, 0.f, b[idx], L.wE[i],
-                                          L.wW[i], L.wN[j], L.wS[j], L.idx2, L.idy2,
-                                          L.omega)
+    if (((j + i) & 1) == colour && cfd::active(j, i, L)) {
+      const cfd::Weights w = cfd::weights(j, i, L);
+      p[idx] = from_zero ? cfd::gs_update(0.f, 0.f, 0.f, 0.f, 0.f, b[idx], w.e, w.w, w.n,
+                                          w.s, L.idx2, L.idy2, L.omega)
                          : cfd::rb_update(p, b, j, i, L);
     } else if (from_zero) {
       p[idx] = 0.f;
@@ -114,14 +130,14 @@ __device__ void level_restrict(const Sweep& s, const cfd::Level& L, const float*
 }
 
 // p += the bilinear 9-3-3-1 prolongation of the coarse correction e (level
-// Lc, edge-replicated ghosts) on the interior of level L, in the order of
-// mg_tail._prolong: 0.0625 * (((9c + 3h) + 3v) + d)
+// Lc, edge-replicated ghosts) on the active cells of level L, in the order
+// of mg_tail._prolong: 0.0625 * (((9c + 3h) + 3v) + d)
 __device__ void level_prolong_add(const Sweep& s, const cfd::Level& Lc, const float* e,
                                   const cfd::Level& L, float* p) {
   s.each(static_cast<long long>(L.H8) * L.W, [&](long long idx) {
     const int j = static_cast<int>(idx / L.W);
     const int i = static_cast<int>(idx - static_cast<long long>(j) * L.W);
-    if (!cfd::interior(j, i, L)) return;
+    if (!cfd::active(j, i, L)) return;
     const int jc = (j - 1) >> 1, ic = (i - 1) >> 1;
     const int dj = ((j - 1) & 1) ? 1 : -1, di = ((i - 1) & 1) ? 1 : -1;
     auto E = [&](int a, int c) {
@@ -136,6 +152,56 @@ __device__ void level_prolong_add(const Sweep& s, const cfd::Level& Lc, const fl
   });
 }
 
+// out = the solid fill of a masked level's correction e (the whole array)
+__device__ void level_solid_fill(const Sweep& s, const cfd::Level& L, const float* e,
+                                 float* out) {
+  s.each(static_cast<long long>(L.H8) * L.W, [&](long long idx) {
+    const int j = static_cast<int>(idx / L.W);
+    const int i = static_cast<int>(idx - static_cast<long long>(j) * L.W);
+    out[idx] = cfd::solid_fill_value(e, j, i, L);
+  });
+}
+
+// The masked finest level's iterate: P.p0 or P.q0, whichever holds it;
+// every phase that applies the ghost stage writes the other one.
+struct FineIterate {
+  float* cur;
+  float* other;
+  __device__ void swap() {
+    float* t = cur;
+    cur = other;
+    other = t;
+  }
+};
+
+// n exact masked pairs and the trailing ghost stage (step_vcycle.cu smooth)
+__device__ void step_smooth(const Sweep& s, cg::grid_group& grid, const Params& P,
+                            FineIterate& it, int n_pairs) {
+  const cfd::StepL0& L = P.S0;
+  const long long n0 = 4LL * L.Hq8 * L.Wqa;
+  for (int k = 0; k < n_pairs; ++k) {
+    s.each(n0, [&](long long idx) {
+      it.other[idx] = cfd::ghost_red_value(it.cur, P.b0, cfd::quad_cell(idx, L.Hq8, L.Wqa), L);
+    });
+    grid.sync();
+    it.swap();
+    s.each(n0, [&](long long idx) {
+      float v;
+      if (cfd::black_update(it.cur, P.b0, cfd::quad_cell(idx, L.Hq8, L.Wqa), L, &v)) {
+        it.cur[idx] = v;
+      }
+    });
+    grid.sync();
+  }
+  s.each(n0, [&](long long idx) {
+    const cfd::QuadCell c = cfd::quad_cell(idx, L.Hq8, L.Wqa);
+    it.other[idx] = cfd::ghost_value(it.cur, c.j, c.i, L);
+  });
+  grid.sync();
+  it.swap();
+}
+
+template <bool kMasked>
 __global__ void __launch_bounds__(cfd::kThreads) whole_solve_kernel(Params P) {
   cg::grid_group grid = cg::this_grid();
   const Sweep s{static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x,
@@ -144,6 +210,7 @@ __global__ void __launch_bounds__(cfd::kThreads) whole_solve_kernel(Params P) {
   const cfd::Level0& L0 = P.L0;
   const long long n0 = 4LL * L0.Hq8 * L0.Wqa;
   const long long n1 = static_cast<long long>(L0.Hq8) * L0.Wqa;
+  (void)n1;
 
   // the warm start into the output, and max|b| for the tolerance
   float m = 0.f;
@@ -159,19 +226,28 @@ __global__ void __launch_bounds__(cfd::kThreads) whole_solve_kernel(Params P) {
   float prev = 1e30f;
   float res = prev / 2.0f;
   int it = 0;
+  FineIterate fine{P.p0, P.q0};
   while (res > tol && it < P.max_cycles && res < P.stall * prev) {
     // --- finest level: pre pairs, then the residual restricted into level 1
-    for (int k = 0; k < P.pre; ++k) {
-      for (int colour = 0; colour < 2; ++colour) {
-        s.each(n0, [&](long long idx) {
-          cfd::QuadCell c = cfd::quad_cell(idx, L0.Hq8, L0.Wqa);
-          if (cfd::quad_updates(c, colour, L0)) P.p0[idx] = cfd::quad_gs(P.p0, P.b0, c, L0);
-        });
-        grid.sync();
+    if constexpr (kMasked) {
+      step_smooth(s, grid, P, fine, P.pre);
+      if (lead) P.ctl[1 + ((it + 1) & 1)] = 0.f;  // the next cycle's residual slot
+      s.each(n1, [&](long long idx) {
+        P.b_lv[1][idx] = cfd::step_restrict_value(fine.cur, P.b0, idx, P.S0);
+      });
+    } else {
+      for (int k = 0; k < P.pre; ++k) {
+        for (int colour = 0; colour < 2; ++colour) {
+          s.each(n0, [&](long long idx) {
+            cfd::QuadCell c = cfd::quad_cell(idx, L0.Hq8, L0.Wqa);
+            if (cfd::quad_updates(c, colour, L0)) P.p0[idx] = cfd::quad_gs(P.p0, P.b0, c, L0);
+          });
+          grid.sync();
+        }
       }
+      if (lead) P.ctl[1 + ((it + 1) & 1)] = 0.f;  // the next cycle's residual slot
+      s.each(n1, [&](long long idx) { P.b_lv[1][idx] = cfd::quad_restrict_value(P.p0, P.b0, idx, L0); });
     }
-    if (lead) P.ctl[1 + ((it + 1) & 1)] = 0.f;  // the next cycle's residual slot
-    s.each(n1, [&](long long idx) { P.b_lv[1][idx] = cfd::quad_restrict_value(P.p0, P.b0, idx, L0); });
     grid.sync();
 
     // --- coarse descent from zero iterates
@@ -217,7 +293,13 @@ __global__ void __launch_bounds__(cfd::kThreads) whole_solve_kernel(Params P) {
     // --- coarse ascent: prolongation, post pairs
     for (int k = nc - 1; k >= 1; --k) {
       const cfd::Level& L = P.lv[k - 1];
-      level_prolong_add(s, P.lv[k], P.p_lv[k + 1], L, P.p_lv[k]);
+      const float* e = P.p_lv[k + 1];
+      if (P.lv[k].full) {
+        level_solid_fill(s, P.lv[k], e, P.filled);
+        grid.sync();
+        e = P.filled;
+      }
+      level_prolong_add(s, P.lv[k], e, L, P.p_lv[k]);
       grid.sync();
       for (int pair = 0; pair < P.post; ++pair) {
         level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 0, false);
@@ -228,26 +310,47 @@ __global__ void __launch_bounds__(cfd::kThreads) whole_solve_kernel(Params P) {
     }
 
     // --- finest level: prolongation, post pairs, the tolerance residual
-    s.each(n0, [&](long long idx) {
-      P.p0[idx] = cfd::quad_prolong_add_value(P.p0, P.p_lv[1], idx, L0);
-    });
-    grid.sync();
-    for (int k = 0; k < P.post; ++k) {
-      for (int colour = 0; colour < 2; ++colour) {
-        s.each(n0, [&](long long idx) {
-          cfd::QuadCell c = cfd::quad_cell(idx, L0.Hq8, L0.Wqa);
-          if (cfd::quad_updates(c, colour, L0)) P.p0[idx] = cfd::quad_gs(P.p0, P.b0, c, L0);
-        });
-        grid.sync();
-      }
-    }
     float r = 0.f;
-    s.each(n0, [&](long long idx) { r = cfd::bits_max(r, cfd::quad_abs_residual(P.p0, P.b0, idx, L0)); });
+    if constexpr (kMasked) {
+      // the level-1 correction solid-filled, then added on the fluid cells
+      level_solid_fill(s, P.lv[0], P.p_lv[1], P.filled);
+      grid.sync();
+      s.each(n0, [&](long long idx) {
+        fine.other[idx] = cfd::step_prolong_add_value(fine.cur, P.filled, idx, P.S0);
+      });
+      grid.sync();
+      fine.swap();
+      step_smooth(s, grid, P, fine, P.post);
+      s.each(n0, [&](long long idx) {
+        const cfd::QuadCell c = cfd::quad_cell(idx, P.S0.Hq8, P.S0.Wqa);
+        r = cfd::bits_max(r, fabsf(cfd::step_residual(fine.cur, P.b0, c.j, c.i, P.S0)));
+      });
+    } else {
+      s.each(n0, [&](long long idx) {
+        P.p0[idx] = cfd::quad_prolong_add_value(P.p0, P.p_lv[1], idx, L0);
+      });
+      grid.sync();
+      for (int k = 0; k < P.post; ++k) {
+        for (int colour = 0; colour < 2; ++colour) {
+          s.each(n0, [&](long long idx) {
+            cfd::QuadCell c = cfd::quad_cell(idx, L0.Hq8, L0.Wqa);
+            if (cfd::quad_updates(c, colour, L0)) P.p0[idx] = cfd::quad_gs(P.p0, P.b0, c, L0);
+          });
+          grid.sync();
+        }
+      }
+      s.each(n0, [&](long long idx) { r = cfd::bits_max(r, cfd::quad_abs_residual(P.p0, P.b0, idx, L0)); });
+    }
     cfd::block_max_into(r, P.ctl + 1 + (it & 1));
     grid.sync();
     prev = res;
     res = __ldcg(P.ctl + 1 + (it & 1));
     ++it;
+  }
+  if constexpr (kMasked) {
+    if (fine.cur != P.p0) {  // the solution into the output array
+      s.each(n0, [&](long long idx) { P.p0[idx] = fine.cur[idx]; });
+    }
   }
   if (lead) {
     P.stats[0] = static_cast<float>(it);
@@ -255,11 +358,17 @@ __global__ void __launch_bounds__(cfd::kThreads) whole_solve_kernel(Params P) {
   }
 }
 
+void* kernel_of(int masked) {
+  return masked ? reinterpret_cast<void*>(whole_solve_kernel<true>)
+                : reinterpret_cast<void*>(whole_solve_kernel<false>);
+}
+
 }  // namespace
 
-// Grid of the cooperative launch on the current device: blocks, blocks per
-// SM, and the kernel's registers per thread (for the build log).
-extern "C" int cfd_whole_solve_grid(int* blocks, int* per_sm, int* regs) {
+// Grid of the cooperative launch of the separable (masked = 0) or masked
+// kernel on the current device: blocks, blocks per SM, and the kernel's
+// registers per thread (for the build log).
+extern "C" int cfd_whole_solve_grid(int masked, int* blocks, int* per_sm, int* regs) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -268,48 +377,60 @@ extern "C" int cfd_whole_solve_grid(int* blocks, int* per_sm, int* regs) {
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, whole_solve_kernel,
-                                                      cfd::kThreads, 0);
+  const void* fn = kernel_of(masked);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, cfd::kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (*per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   *blocks = sms * min(*per_sm, kMaxBlocksPerSM);
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, whole_solve_kernel);
+  err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   *regs = attr.numRegs;
   return 0;
 }
 
-// idims: n_coarse * (H8, W, ny, nx); fdims: n_coarse * (idx2, idy2); ptrs:
-// n_coarse * (wE, wW, wN, wS, p, b), levels 1..n_coarse, all host arrays.
-// ctl: 3 floats of device scratch; stats: 2 floats (cycles, res); fold:
-// n * n floats for the coarsest level.
-extern "C" int cfd_whole_solve(const float* p_in, const float* b0, float* p0,
-                               const float* max_b, float* ctl, float* stats, float* fold,
-                               const float* pinv, const float* wE, const float* wW,
-                               const float* wN, const float* wS, int Hq8, int Wqa, int ny,
-                               int nx, float idx2, float idy2, int n_coarse,
+// masked: 0 = the separable flavor (fine weights wE..wS, q0, filled and the
+// step geometry unused), 1 = the masked flavor (wE..wS null; q0 a quad
+// field, filled a level-1-size array). idims: n_coarse * (H8, W, ny, nx,
+// full); fdims: n_coarse * (idx2, idy2); ptrs: n_coarse * (wE, wW, wN, wS,
+// p, b), levels 1..n_coarse, all host arrays. ctl: 3 floats of device
+// scratch; stats: 2 floats (cycles, res); fold: n * n floats for the
+// coarsest level.
+extern "C" int cfd_whole_solve(int masked, const float* p_in, const float* b0, float* p0,
+                               float* q0, float* filled, const float* max_b, float* ctl,
+                               float* stats, float* fold, const float* pinv, const float* wE,
+                               const float* wW, const float* wN, const float* wS, int Hq8,
+                               int Wqa, int ny, int nx, int step_i, int inlet_j, float idx2,
+                               float idy2, float denom, float one_minus_omega, int n_coarse,
                                const int* idims, const float* fdims, void* const* ptrs,
                                float omega, int pre, int post, int max_cycles,
                                float tol_factor, float abs_tol, float stall, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_coarse < 2 || n_coarse >= kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
+  if (masked && (q0 == nullptr || filled == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Params P{};
   P.L0 = cfd::Level0{Hq8, Wqa, ny, nx, idx2, idy2, omega, wE, wW, wN, wS};
+  P.S0 = cfd::StepL0{Hq8, Wqa, ny, nx, step_i, inlet_j, idx2, idy2, denom, omega,
+                     one_minus_omega};
   P.n_coarse = n_coarse;
   for (int k = 1; k <= n_coarse; ++k) {
-    const int* d = idims + 4 * (k - 1);
+    const int* d = idims + 5 * (k - 1);
     const float* f = fdims + 2 * (k - 1);
     void* const* q = ptrs + 6 * (k - 1);
     P.lv[k - 1] = cfd::Level{d[0], d[1], d[2], d[3], f[0], f[1], omega,
                              static_cast<const float*>(q[0]), static_cast<const float*>(q[1]),
-                             static_cast<const float*>(q[2]), static_cast<const float*>(q[3])};
+                             static_cast<const float*>(q[2]), static_cast<const float*>(q[3]),
+                             d[4]};
     P.p_lv[k] = static_cast<float*>(q[4]);
     P.b_lv[k] = static_cast<float*>(q[5]);
   }
   P.p_in = p_in;
   P.b0 = b0;
   P.p0 = p0;
+  P.q0 = q0;
+  P.filled = filled;
   P.max_b = max_b;
   P.ctl = ctl;
   P.stats = stats;
@@ -322,12 +443,11 @@ extern "C" int cfd_whole_solve(const float* p_in, const float* b0, float* p0,
   P.abs_tol = abs_tol;
   P.stall = stall;
   int blocks = 0, per_sm = 0, regs = 0;
-  int e = cfd_whole_solve_grid(&blocks, &per_sm, &regs);
+  int e = cfd_whole_solve_grid(masked, &blocks, &per_sm, &regs);
   if (e) return e;
   cudaError_t err = cudaMemsetAsync(ctl, 0, 3 * sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&P};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(whole_solve_kernel), blocks,
-                                    cfd::kThreads, args, 0, s);
+  err = cudaLaunchCooperativeKernel(kernel_of(masked), blocks, cfd::kThreads, args, 0, s);
   return static_cast<int>(err);
 }

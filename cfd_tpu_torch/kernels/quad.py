@@ -321,6 +321,28 @@ def _residual_quad(p, b, idx2, idy2, wE, wW, wN, wS, masks):
     return out
 
 
+def _bilinear_corr(ec, ny: int, nx: int):
+    """The bilinear 9-3-3-1 prolongation of the aligned level-1 correction
+    ec (Hq8, Wqa) to the four quad planes, with the edge clamps of
+    cfd_tpu/kernels/quad.py:741-760 (plane q gets corr[q])."""
+    nyc, nxc = ny // 2, nx // 2
+    Hc, Wc = ec.shape
+    Jc = torch.arange(Hc, device=ec.device)[:, None]
+    Ic = torch.arange(Wc, device=ec.device)[None, :]
+    ecJ1 = torch.roll(ec, -1, dims=0)
+    ecJ0 = torch.where(Jc == 0, ecJ1, ec)        # clamp J=0 ghost -> row 1
+    ecJ1 = torch.where(Jc == nyc, ec, ecJ1)      # clamp J+1 > nyc -> row nyc
+    rowmix = [0.75 * ecJ0 + 0.25 * ecJ1,         # r = 0: hi child of Jc
+              0.25 * ecJ0 + 0.75 * ecJ1]         # r = 1: lo child of Jc+1
+    corr = []
+    for r in range(2):
+        m1 = torch.roll(rowmix[r], -1, dims=1)
+        m0 = torch.where(Ic == 0, m1, rowmix[r])
+        m1 = torch.where(Ic == nxc, rowmix[r], m1)
+        corr += [0.75 * m0 + 0.25 * m1, 0.25 * m0 + 0.75 * m1]
+    return corr
+
+
 def _check(shape, *tensors, dtype=torch.float32):
     for t in tensors:
         if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
@@ -615,22 +637,8 @@ class QuadPostProlongSmooth(_QuadLevel0):
     def plain(self, p, b, ec):
         wE, wW, wN, wS = self._plane_weights()
         masks = self._masks(p.device)
-        nyc, nxc = self.ny // 2, self.nx // 2
-        Hc, Wc = self.coarse_shape
-        Jc = torch.arange(Hc, device=p.device)[:, None]
-        Ic = torch.arange(Wc, device=p.device)[None, :]
-        ecJ1 = torch.roll(ec, -1, dims=0)
-        ecJ0 = torch.where(Jc == 0, ecJ1, ec)        # clamp J=0 ghost -> row 1
-        ecJ1 = torch.where(Jc == nyc, ec, ecJ1)      # clamp J+1 > nyc -> row nyc
-        rowmix = [0.75 * ecJ0 + 0.25 * ecJ1,         # r = 0: hi child of Jc
-                  0.25 * ecJ0 + 0.75 * ecJ1]         # r = 1: lo child of Jc+1
-        corr = []
-        for r in range(2):
-            m1 = torch.roll(rowmix[r], -1, dims=1)
-            m0 = torch.where(Ic == 0, m1, rowmix[r])
-            m1 = torch.where(Ic == nxc, rowmix[r], m1)
-            corr.append([0.75 * m0 + 0.25 * m1, 0.25 * m0 + 0.75 * m1])
-        P = [torch.where(masks[q], p[q] + corr[q >> 1][q & 1], p[q]) for q in range(4)]
+        corr = _bilinear_corr(ec, self.ny, self.nx)
+        P = [torch.where(masks[q], p[q] + corr[q], p[q]) for q in range(4)]
         P = _smooth_pairs_quad(P, list(b), self.n_pairs, self.omega, self.idx2,
                                self.idy2, wE, wW, wN, wS, masks)
         r = _residual_quad(P, list(b), self.idx2, self.idy2, wE, wW, wN, wS, masks)

@@ -1,5 +1,5 @@
-"""Coarse-level red/black smoother on separable weights (the port of
-cfd_tpu.kernels.rb_smoother).
+"""Coarse-level red/black smoother on separable or full-2D weights (the
+port of cfd_tpu.kernels.rb_smoother).
 
 ``pairs(p, b) -> p`` after n red+black Gauss-Seidel pairs, or with
 ``with_residual_field`` ``-> (p, r)`` with the signed residual b - A p of
@@ -25,16 +25,22 @@ from cfd_tpu_torch.kernels._build import Kernel, ptr, route
 
 RB_PAIRS = Kernel("rb_pairs", "cfd_rb_pairs", "cfd_tpu_torch/csrc/rb_smoother.cu",
                   "cfd_tpu/kernels/rb_smoother.py:37")
+RB_PAIRS_FULL = Kernel("rb_pairs_full", "cfd_rb_pairs_full",
+                       "cfd_tpu_torch/csrc/rb_smoother.cu",
+                       "cfd_tpu/kernels/rb_smoother.py:37")
 
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class RBPairs(nn.Module):
-    """Red/black pairs on one aligned separable level.
+    """Red/black pairs on one aligned level.
 
-    wE, wW: (W,) and wN, wS: (H8,) coupling vectors, 0 outside the interior
-    (float32 buffers; a bfloat16 level passes its bf16-rounded weights, as
-    rb_pairs_for_level reads them back from the bf16 arrays)."""
+    Separable: wE, wW (W,) and wN, wS (H8,) coupling vectors, 0 outside the
+    interior (float32 buffers; a bfloat16 level passes its bf16-rounded
+    weights, as rb_pairs_for_level reads them back from the bf16 arrays).
+    Full-2D (a masked level, rb_smoother.py:106-127): four (H8, W) weight
+    arrays, float32 storage only; a cell updates only where its coupling
+    sum denom > 0, so solid cells never change (rb_smoother.py:194-197)."""
 
     def __init__(self, shape, wE, wW, wN, wS, idx2: float, idy2: float, omega: float,
                  n_pairs: int, ny: int, nx: int, dtype=torch.float32,
@@ -50,11 +56,15 @@ class RBPairs(nn.Module):
         self.idx2, self.idy2, self.omega = idx2, idy2, omega
         self.n_pairs, self.ny, self.nx = n_pairs, ny, nx
         self.with_residual_field = with_residual_field
+        self.full = torch.as_tensor(wE).dim() == 2
+        if self.full and dtype != torch.float32:
+            raise ValueError("full-2D weights are float32 only")
+        cols, rows = ((H8, W), (H8, W)) if self.full else (W, H8)
         f32 = lambda w, n: torch.as_tensor(w, dtype=torch.float32).reshape(n).clone()
-        self.register_buffer("wE", f32(wE, W))
-        self.register_buffer("wW", f32(wW, W))
-        self.register_buffer("wN", f32(wN, H8))
-        self.register_buffer("wS", f32(wS, H8))
+        self.register_buffer("wE", f32(wE, cols))
+        self.register_buffer("wW", f32(wW, cols))
+        self.register_buffer("wN", f32(wN, rows))
+        self.register_buffer("wS", f32(wS, rows))
 
     def forward(self, p, b):
         for t in (p, b):
@@ -67,20 +77,23 @@ class RBPairs(nn.Module):
             return self.kernel(p, b)
         return self.plain(p, b)
 
-    def _masks(self, device):
-        H8, W = self.shape
-        jj = torch.arange(H8, device=device)[:, None]
-        ii = torch.arange(W, device=device)[None, :]
-        interior = (jj >= 1) & (jj <= self.ny) & (ii >= 1) & (ii <= self.nx)
-        even = ((jj + ii) % 2) == 0
-        return interior, even
+    def _weights(self):
+        if self.full:
+            return self.wE, self.wW, self.wN, self.wS
+        return (self.wE.reshape(1, -1), self.wW.reshape(1, -1), self.wN.reshape(-1, 1),
+                self.wS.reshape(-1, 1))
 
     def plain(self, p, b):
-        we, ww = self.wE.reshape(1, -1), self.wW.reshape(1, -1)
-        wn, ws = self.wN.reshape(-1, 1), self.wS.reshape(-1, 1)
+        we, ww, wn, ws = self._weights()
         idx2, idy2, omega = self.idx2, self.idy2, self.omega
-        interior, even = self._masks(p.device)
+        H8, W = self.shape
+        jj = torch.arange(H8, device=p.device)[:, None]
+        ii = torch.arange(W, device=p.device)[None, :]
+        interior = (jj >= 1) & (jj <= self.ny) & (ii >= 1) & (ii <= self.nx)
+        even = ((jj + ii) % 2) == 0
         denom = idx2 * (we + ww) + idy2 * (wn + ws)
+        if self.full:
+            interior = interior & (denom > 0)
         safe = torch.where(denom > 0, denom, torch.ones_like(denom))
         inv = torch.where(interior, 1.0 / safe, torch.zeros_like(safe))
         b = b.float()
@@ -109,11 +122,19 @@ class RBPairs(nn.Module):
         return p.to(self.dtype), r.to(self.dtype)
 
     def kernel(self, p, b):
+        H8, W = self.shape
+        if self.full:
+            out = torch.empty_like(p)
+            r = torch.empty_like(p) if self.with_residual_field else None
+            RB_PAIRS_FULL(p, ptr(p), ptr(b), ptr(out),
+                          ptr(r) if r is not None else ctypes.c_void_p(None),
+                          ptr(self.wE), ptr(self.wW), ptr(self.wN), ptr(self.wS), H8, W,
+                          self.ny, self.nx, self.idx2, self.idy2, self.omega, self.n_pairs)
+            return out if r is None else (out, r)
         out = torch.empty_like(p)
         scratch = out if self.dtype == torch.float32 else torch.empty(
             self.shape, dtype=torch.float32, device=p.device)
         r = torch.empty_like(p) if self.with_residual_field else None
-        H8, W = self.shape
         RB_PAIRS(p, _STORAGE[self.dtype], ptr(p), ptr(b), ptr(out), ptr(scratch),
                  ptr(r) if r is not None else ctypes.c_void_p(None),
                  ptr(self.wE), ptr(self.wW), ptr(self.wN), ptr(self.wS), H8, W, self.ny,
@@ -123,11 +144,12 @@ class RBPairs(nn.Module):
 
 def rb_pairs_for_level(level, omega: float, n_pairs: int,
                        with_residual_field: bool = False) -> RBPairs:
-    """Adapter from an aligned separable multigrid level
-    (poisson.multigrid._Level) to the smoother, in the level's storage dtype
-    and on the level's device."""
-    H8, W = level.shape
-    return RBPairs(level.shape, level.wE.reshape(W), level.wW.reshape(W),
-                   level.wN.reshape(H8), level.wS.reshape(H8), level.idx2, level.idy2,
-                   omega, n_pairs, level.ny, level.nx, dtype=level.dtype,
+    """Adapter from an aligned multigrid level (poisson.multigrid._Level) to
+    the smoother, in the level's storage dtype and on the level's device; a
+    masked level's (H8, W) weights select the full-2D mode."""
+    weights = [getattr(level, w) for w in ("wE", "wW", "wN", "wS")]
+    if level.separable:  # (1, W) and (H8, 1) vectors
+        weights = [w.reshape(-1) for w in weights]
+    return RBPairs(level.shape, *weights, level.idx2, level.idy2, omega, n_pairs, level.ny,
+                   level.nx, dtype=level.dtype,
                    with_residual_field=with_residual_field).to(level.wE.device)

@@ -1,0 +1,427 @@
+"""Quad-layout kernels of the backward-facing step (the port of
+cfd_tpu.kernels.step_quad).
+
+The step's solid block is the rectangle {i <= step_i and j > inlet_j}
+(backwards_step-01.cpp:499-520), expressed as per-plane conditions on the
+global (row, column) iotas:
+
+* fluid    = in-range & ~(c <= step_i & g > inlet_j)
+* u_valid  = u-range & ~((c < step_i) & (g > inlet_j))
+* v_valid  = v-range & fluid
+* u-zero   = (c == step_i) & (inlet_j < g <= ny), v-zero = (g == inlet_j) &
+  (1 <= c <= step_i): the solid-interface faces, zeroed last by the BCs
+* solid-cell pressure ghosts: the east column c == step_i (< nx) and the
+  bottom row g == inlet_j + 1 (> 1) of the block take the mean of their
+  fluid neighbours (backwards_step-01.cpp:708-739).
+
+Each kernel has the three faces of kernels.quad: ``plain`` (whole-array
+PyTorch, any device), ``kernel`` (csrc/step_stage.cu, csrc/step_vcycle.cu;
+CUDA tensors only) and ``__call__``/``forward``, which sends CPU tensors to
+``plain`` and CUDA tensors to ``kernel`` and never falls back. Not ported:
+``traced_dt``/``emit_courant`` (adaptive dt, ROADMAP.md queue A item 10)
+and ``shard`` (queue B item 16).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from cfd_tpu_torch.kernels._build import Kernel, ptr, route
+from cfd_tpu_torch.kernels.quad import (
+    SUM_BLOCK,
+    _bilinear_corr,
+    _check,
+    _predictor_quad,
+    _qiota,
+    _qshift,
+    _where4,
+    fixed_order_sum,
+    quad_dims,
+    quad_shape,
+)
+from cfd_tpu_torch.ops.stencil import StencilCoeffs
+
+STEP_CARRY = Kernel("quad_step_corr_predictor_source", "cfd_step_carry",
+                    "cfd_tpu_torch/csrc/step_stage.cu", "cfd_tpu/kernels/step_quad.py:100")
+STEP_CORRECTOR = Kernel("quad_step_corrector", "cfd_step_corrector",
+                        "cfd_tpu_torch/csrc/step_stage.cu",
+                        "cfd_tpu/kernels/step_quad.py:204")
+STEP_PRE = Kernel("quad_step_pre_smooth_restrict", "cfd_step_pre_smooth_restrict",
+                  "cfd_tpu_torch/csrc/step_vcycle.cu", "cfd_tpu/kernels/step_quad.py:354")
+STEP_POST = Kernel("quad_step_post_prolong_smooth", "cfd_step_post_prolong_smooth",
+                   "cfd_tpu_torch/csrc/step_vcycle.cu", "cfd_tpu/kernels/step_quad.py:419")
+
+
+def _step_masks(grow, gcol, ny: int, nx: int, step_i: int, inlet_j: int):
+    """(fluid, u_valid, v_valid) per plane from the global iotas."""
+    fluid, u_valid, v_valid = [], [], []
+    for g, c in zip(grow, gcol):
+        in_range = (g >= 1) & (g <= ny) & (c >= 1) & (c <= nx)
+        fluid.append(in_range & ~((c <= step_i) & (g > inlet_j)))
+        u_rng = (g >= 1) & (g <= ny) & (c >= 1) & (c <= nx - 1)
+        u_valid.append(u_rng & ~((c < step_i) & (g > inlet_j)))
+        v_rng = (g >= 1) & (g <= ny - 1) & (c >= 1) & (c <= nx)
+        v_valid.append(v_rng & ~((c <= step_i) & (g > inlet_j)))
+    return fluid, u_valid, v_valid
+
+
+def step_cell_mask(shape, step_i: int, inlet_j: int, device) -> torch.Tensor:
+    """(4, Hq8, Wqa) bool: the fluid cells of the padded (H, W) step grid in
+    the quad layout (where b lives and the source mean is removed)."""
+    _, Hq8, Wqa = quad_shape(shape)
+    grow, gcol = _qiota(Hq8, Wqa, device)
+    return torch.stack(_step_masks(grow, gcol, shape[0] - 2, shape[1] - 2, step_i,
+                                   inlet_j)[0])
+
+
+def _step_bc_quad(u, v, grow, gcol, ny: int, nx: int, step_i: int, inlet_j: int,
+                  uin: float):
+    """step_bc in quad form (cfd_tpu/kernels/step_quad.py:60-97): the channel
+    BCs with the inlet on rows g <= inlet_j, then the interface zeroing, in
+    the reference's update order."""
+    gc = list(zip(grow, gcol))
+    zeros = lambda planes: [torch.zeros_like(a) for a in planes]
+    u = _where4([(c == 0) & (g >= 1) & (g <= inlet_j) for g, c in gc],
+                [torch.full_like(a, uin) for a in u], u)
+    u = _where4([(c == 0) & (g > inlet_j) & (g <= ny) for g, c in gc], zeros(u), u)
+    v = _where4([(c == 0) & (g <= ny) for g, c in gc], zeros(v), v)
+    u = _where4([(c == nx) & (g >= 1) & (g <= ny) for g, c in gc], _qshift(u, 0, -1), u)
+    v = _where4([(c == nx + 1) & (g <= ny) for g, c in gc], _qshift(v, 0, -1), v)
+    v = _where4([(g == 0) & (c >= 1) & (c <= nx) for g, c in gc], zeros(v), v)
+    u = _where4([(g == 0) & (c <= nx) for g, c in gc], [-a for a in _qshift(u, 1, 0)], u)
+    v = _where4([(g == ny) & (c >= 1) & (c <= nx) for g, c in gc], zeros(v), v)
+    u = _where4([(g == ny + 1) & (c <= nx) for g, c in gc],
+                [-a for a in _qshift(u, -1, 0)], u)
+    u = _where4([(c == step_i) & (g > inlet_j) & (g <= ny) for g, c in gc], zeros(u), u)
+    v = _where4([(g == inlet_j) & (c >= 1) & (c <= step_i) for g, c in gc], zeros(v), v)
+    return u, v
+
+
+def uncorrect_step_quad(u, v, p, shape, coeffs: StencilCoeffs, step_i: int,
+                        inlet_j: int):
+    """Inverse of the masked pressure correction on NATURAL arrays (the
+    resume boundary): us = u + c*(pE - p) on valid faces, 0 elsewhere
+    (cfd_tpu/kernels/step_quad.py:244)."""
+    H, Wp = shape
+    ny, nx = H - 2, Wp - 2
+    cu = coeffs.dt / (coeffs.density * coeffs.dx)
+    cv = coeffs.dt / (coeffs.density * coeffs.dy)
+    jj = torch.arange(H, device=u.device)[:, None]
+    ii = torch.arange(Wp, device=u.device)[None, :]
+    u_valid = ((jj >= 1) & (jj <= ny) & (ii >= 1) & (ii <= nx - 1)
+               & ~((ii < step_i) & (jj > inlet_j)))
+    v_valid = ((jj >= 1) & (jj <= ny - 1) & (ii >= 1) & (ii <= nx)
+               & ~((ii <= step_i) & (jj > inlet_j)))
+    pE = torch.roll(p, -1, dims=1)
+    pN = torch.roll(p, -1, dims=0)
+    zero = torch.zeros_like(u)
+    return (torch.where(u_valid, u + cu * (pE - p), zero),
+            torch.where(v_valid, v + cv * (pN - p), zero))
+
+
+# ------------------------------------------------------------- stage kernels
+
+class _StepStage:
+    """Shared geometry of the stage kernels; (us, vs, p) quad fields in."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, step_i: int, inlet_j: int,
+                 inlet_velocity: float = 1.0):
+        self.qshape = quad_shape(shape)
+        self.ny, self.nx = shape[0] - 2, shape[1] - 2
+        self.step_i, self.inlet_j = step_i, inlet_j
+        self.uin = inlet_velocity
+        self.coeffs = coeffs
+        # rho-DIVIDED correction (backwards_step-01.cpp, as the channel)
+        self.cu = coeffs.dt / (coeffs.density * coeffs.dx)
+        self.cv = coeffs.dt / (coeffs.density * coeffs.dy)
+
+    def __call__(self, us, vs, p):
+        _check(self.qshape, us, vs, p)
+        if route(us, vs, p) == "cuda":
+            return self.kernel(us, vs, p)
+        return self.plain(us, vs, p)
+
+    def _geometry(self, device):
+        grow, gcol = _qiota(self.qshape[1], self.qshape[2], device)
+        masks = _step_masks(grow, gcol, self.ny, self.nx, self.step_i, self.inlet_j)
+        return grow, gcol, masks
+
+    def _bc(self, u, v, grow, gcol):
+        return _step_bc_quad(u, v, grow, gcol, self.ny, self.nx, self.step_i,
+                             self.inlet_j, self.uin)
+
+    def _corrected(self, us, vs, p, grow, gcol, u_valid, v_valid):
+        pE, pN = _qshift(list(p), 0, 1), _qshift(list(p), 1, 0)
+        u, v = [], []
+        for q in range(4):
+            zero = torch.zeros_like(us[q])
+            u.append(torch.where(u_valid[q], us[q] - self.cu * (pE[q] - p[q]), zero))
+            v.append(torch.where(v_valid[q], vs[q] - self.cv * (pN[q] - p[q]), zero))
+        return self._bc(u, v, grow, gcol)
+
+    def _ints(self):
+        _, Hq8, Wqa = self.qshape
+        return (Hq8, Wqa, self.ny, self.nx, self.step_i, self.inlet_j)
+
+
+class QuadStepCorrector(_StepStage):
+    """(us4, vs4, p4) -> (u4, v4): the rho-divided projection on valid faces
+    and the step BCs (cfd_tpu/kernels/step_quad.py:204). Used at the
+    stats/export boundary (cases/backwards_step.py unalign_state)."""
+
+    def plain(self, us, vs, p):
+        grow, gcol, (_, u_valid, v_valid) = self._geometry(us.device)
+        u, v = self._corrected(us, vs, p, grow, gcol, u_valid, v_valid)
+        return torch.stack(u), torch.stack(v)
+
+    def kernel(self, us, vs, p):
+        u2, v2 = torch.empty_like(us), torch.empty_like(us)
+        STEP_CORRECTOR(us, ptr(us), ptr(vs), ptr(p), ptr(u2), ptr(v2), *self._ints(),
+                       self.cu, self.cv, self.uin)
+        return u2, v2
+
+
+class QuadStepCorrPredictorSource(_StepStage):
+    """Tentative-state step stage (cfd_tpu/kernels/step_quad.py:100, math in
+    step_carry_compute :144): (us, vs, p) -> (us', vs', b', sum b'). The
+    rho-divided correction on valid faces, the step BCs, the MAC predictor
+    on valid faces, the step BCs on the tentative fields, b = rho/dt * div
+    on FLUID cells and its sum (b is 0 elsewhere), which the caller removes
+    over n_fluid. No warm-start output: the step warm-starts from plain p.
+    ``sum b'`` is a 0-d float32 tensor summed in fixed_order_sum's order."""
+
+    def plain(self, us, vs, p):
+        c = self.coeffs
+        grow, gcol, (fluid, u_valid, v_valid) = self._geometry(us.device)
+        u, v = self._corrected(us, vs, p, grow, gcol, u_valid, v_valid)
+        us_raw, vs_raw = _predictor_quad(u, v, c)
+        zero = torch.zeros_like(u[0])
+        us2 = [torch.where(u_valid[q], us_raw[q], zero) for q in range(4)]
+        vs2 = [torch.where(v_valid[q], vs_raw[q], zero) for q in range(4)]
+        us2, vs2 = self._bc(us2, vs2, grow, gcol)
+        usW, vsS = _qshift(us2, 0, -1), _qshift(vs2, -1, 0)
+        rho_dt = c.density / c.dt
+        b = []
+        for q in range(4):
+            div = (us2[q] - usW[q]) * c.idx + (vs2[q] - vsS[q]) * c.idy
+            b.append(torch.where(fluid[q], rho_dt * div, torch.zeros_like(div)))
+        b = torch.stack(b)
+        return torch.stack(us2), torch.stack(vs2), b, fixed_order_sum(b)
+
+    def kernel(self, us, vs, p):
+        u_scr, v_scr, us2, vs2, b = (torch.empty_like(us) for _ in range(5))
+        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
+                               device=us.device)
+        sum_b = torch.empty((), dtype=torch.float32, device=us.device)
+        c = self.coeffs
+        STEP_CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(u_scr), ptr(v_scr), ptr(us2),
+                   ptr(vs2), ptr(b), ptr(partials), ptr(sum_b), *self._ints(), self.cu,
+                   self.cv, self.uin, c.dt, c.viscosity, c.idx, c.idy, c.idx2, c.idy2,
+                   c.density / c.dt)
+        return us2, vs2, b, sum_b
+
+
+def make_quad_step_corrector(shape, coeffs, step_i: int, inlet_j: int,
+                             inlet_velocity: float = 1.0) -> QuadStepCorrector:
+    return QuadStepCorrector(shape, coeffs, step_i, inlet_j, inlet_velocity)
+
+
+def make_quad_step_corr_predictor_source(shape, coeffs, step_i: int, inlet_j: int,
+                                         inlet_velocity: float = 1.0
+                                         ) -> QuadStepCorrPredictorSource:
+    return QuadStepCorrPredictorSource(shape, coeffs, step_i, inlet_j, inlet_velocity)
+
+
+# ------------------------------------------------- the exact masked level 0
+
+def _step_ghosts_quad(p, grow, gcol, ny: int, nx: int, step_i: int, inlet_j: int):
+    """The exact pressure ghosts (cfd_tpu/kernels/step_quad.py:270-302):
+    the channel domain ghosts from the OLD values (column 0 = column 1,
+    column nx+1 = 0, row 0 = row 1, row ny+1 = row ny), then each solid
+    cell on the block's east column (c == step_i < nx) or bottom row
+    (g == inlet_j + 1 > 1) takes the mean of its east/south fluid neighbour."""
+    row_in = [(g >= 1) & (g <= ny) for g in grow]
+    col_in = [(c >= 1) & (c <= nx) for c in gcol]
+    p = _where4([(c == 0) & r for c, r in zip(gcol, row_in)], _qshift(p, 0, 1), p)
+    p = _where4([(c == nx + 1) & r for c, r in zip(gcol, row_in)],
+                [torch.zeros_like(a) for a in p], p)
+    p = _where4([(g == 0) & ci for g, ci in zip(grow, col_in)], _qshift(p, 1, 0), p)
+    p = _where4([(g == ny + 1) & ci for g, ci in zip(grow, col_in)], _qshift(p, -1, 0), p)
+    pE, pS = _qshift(p, 0, 1), _qshift(p, -1, 0)
+    out = []
+    for q in range(4):
+        g, c = grow[q], gcol[q]
+        solid = row_in[q] & col_in[q] & (c <= step_i) & (g > inlet_j)
+        eastw = solid & (c == step_i) & (c < nx)
+        southw = solid & (g == inlet_j + 1) & (g > 1)
+        cnt = eastw.to(p[q].dtype) + southw.to(p[q].dtype)
+        has = cnt > 0
+        inv = torch.where(has, 1.0 / torch.where(has, cnt, torch.ones_like(cnt)),
+                          torch.zeros_like(cnt))
+        zero = torch.zeros_like(p[q])
+        avg = (torch.where(eastw, pE[q], zero) + torch.where(southw, pS[q], zero)) * inv
+        out.append(torch.where(has, avg, p[q]))
+    return out
+
+
+class _StepLevel0(nn.Module):
+    """Shared constants of the exact masked finest-level kernels. The
+    Gauss-Seidel update is (1 - omega)*p + omega*gs with gs = (idx2*(E + W)
+    + idy2*(N + S) - b) / denom, denom = 2*(idx2 + idy2), the reference's
+    unweighted 5-point operator over the ghosts (multigrid.py:995-999)."""
+
+    def __init__(self, shape, step_i: int, inlet_j: int, idx2: float, idy2: float,
+                 omega: float, n_pairs: int, coarse_shape, device="cpu"):
+        super().__init__()
+        _, _, Hq8, Wqa = quad_dims(shape)
+        if tuple(coarse_shape) != (Hq8, Wqa):
+            raise ValueError(f"coarse shape {tuple(coarse_shape)} != quad plane "
+                             f"shape {(Hq8, Wqa)}")
+        if n_pairs < 1:
+            raise ValueError(f"n_pairs must be >= 1, got {n_pairs}")
+        self.qshape = (4, Hq8, Wqa)
+        self.coarse_shape = (Hq8, Wqa)
+        self.ny, self.nx = shape[0] - 2, shape[1] - 2
+        self.step_i, self.inlet_j = step_i, inlet_j
+        self.idx2, self.idy2 = idx2, idy2
+        self.denom = 2.0 * (idx2 + idy2)
+        self.omega = omega
+        self.n_pairs = n_pairs
+        self.device = torch.device(device)
+
+    def _geometry(self, device):
+        grow, gcol = _qiota(self.qshape[1], self.qshape[2], device)
+        fluid = _step_masks(grow, gcol, self.ny, self.nx, self.step_i, self.inlet_j)[0]
+        return grow, gcol, fluid
+
+    def _ghosts(self, p, grow, gcol):
+        return _step_ghosts_quad(p, grow, gcol, self.ny, self.nx, self.step_i,
+                                 self.inlet_j)
+
+    def _smooth(self, p, b, grow, gcol, fluid):
+        """n_pairs exact (ghosts, red planes, black planes) iterations, then
+        the trailing ghosts (step_quad.py:305-336)."""
+        idx2, idy2, omega = self.idx2, self.idy2, self.omega
+        # a device tensor: on CUDA a Python divisor becomes a reciprocal
+        # multiply, which the kernel's true division would not match
+        denom = torch.tensor(self.denom, dtype=torch.float32, device=b[0].device)
+
+        def half(p, upd):
+            E, Wm = _qshift(p, 0, 1), _qshift(p, 0, -1)
+            N, S = _qshift(p, 1, 0), _qshift(p, -1, 0)
+            out = list(p)
+            for q in upd:
+                gs = (idx2 * (E[q] + Wm[q]) + idy2 * (N[q] + S[q]) - b[q]) / denom
+                val = (1.0 - omega) * p[q] + omega * gs
+                out[q] = torch.where(fluid[q], val, p[q])
+            return out
+
+        for _ in range(self.n_pairs):
+            p = self._ghosts(p, grow, gcol)
+            p = half(p, (0, 3))  # red: parity (r + s) even
+            p = half(p, (1, 2))
+        return self._ghosts(p, grow, gcol)
+
+    def _residual(self, p, b, grow, gcol, fluid):
+        """The exact residual: ghosts re-applied, then where(fluid, b - lap, 0)
+        (step_quad.py:339-351)."""
+        pg = self._ghosts(p, grow, gcol)
+        E, Wm = _qshift(pg, 0, 1), _qshift(pg, 0, -1)
+        N, S = _qshift(pg, 1, 0), _qshift(pg, -1, 0)
+        out = []
+        for q in range(4):
+            lap = ((E[q] - 2.0 * pg[q] + Wm[q]) * self.idx2
+                   + (N[q] - 2.0 * pg[q] + S[q]) * self.idy2)
+            out.append(torch.where(fluid[q], b[q] - lap, torch.zeros_like(b[q])))
+        return out
+
+    def _kernel_args(self):
+        _, Hq8, Wqa = self.qshape
+        return (Hq8, Wqa, self.ny, self.nx, self.step_i, self.inlet_j, self.idx2,
+                self.idy2, self.denom, self.omega, 1.0 - self.omega, self.n_pairs)
+
+    def _check_device(self, t):
+        if t.device.type != self.device.type:
+            raise ValueError(f"tensor on {t.device}, kernel built for {self.device}")
+
+
+class QuadStepPreSmoothRestrict(_StepLevel0):
+    """(p4, b4) -> (p4, rc): n_pairs exact masked iterations (with the
+    trailing ghosts), then the exact residual restricted by full weighting
+    into the aligned level-1 source rc (Hq8, Wqa)
+    (cfd_tpu/kernels/step_quad.py:354)."""
+
+    def forward(self, p, b):
+        _check(self.qshape, p, b)
+        self._check_device(p)
+        if route(p, b) == "cuda":
+            return self.kernel(p, b)
+        return self.plain(p, b)
+
+    def plain(self, p, b):
+        grow, gcol, fluid = self._geometry(p.device)
+        P = self._smooth(list(p), list(b), grow, gcol, fluid)
+        r = self._residual(P, list(b), grow, gcol, fluid)
+        rc = 0.25 * (r[0]
+                     + torch.roll(r[1], 1, dims=1)
+                     + torch.roll(r[2], 1, dims=0)
+                     + torch.roll(torch.roll(r[3], 1, dims=0), 1, dims=1))
+        Hc, Wc = self.coarse_shape
+        Jc = torch.arange(Hc, device=p.device)[:, None]
+        Ic = torch.arange(Wc, device=p.device)[None, :]
+        cmask = (Jc >= 1) & (Jc <= self.ny // 2) & (Ic >= 1) & (Ic <= self.nx // 2)
+        return torch.stack(P), torch.where(cmask, rc, torch.zeros_like(rc))
+
+    def kernel(self, p, b):
+        p_out, scr = torch.empty_like(p), torch.empty_like(p)
+        rc = torch.empty(self.coarse_shape, dtype=torch.float32, device=p.device)
+        STEP_PRE(p, ptr(p), ptr(b), ptr(p_out), ptr(scr), ptr(rc), *self._kernel_args())
+        return p_out, rc
+
+
+class QuadStepPostProlongSmooth(_StepLevel0):
+    """(p4, b4, ec) -> (p4, max|r|): the bilinear 9-3-3-1 prolongation of the
+    (solid-filled) level-1 correction ec added on FLUID cells, n_pairs exact
+    iterations with the trailing ghosts, and the max of the exact residual
+    (cfd_tpu/kernels/step_quad.py:419). The residual is a 0-d float32
+    tensor."""
+
+    def forward(self, p, b, ec):
+        _check(self.qshape, p, b)
+        _check(self.coarse_shape, ec)
+        self._check_device(p)
+        if route(p, b, ec) == "cuda":
+            return self.kernel(p, b, ec)
+        return self.plain(p, b, ec)
+
+    def plain(self, p, b, ec):
+        grow, gcol, fluid = self._geometry(p.device)
+        corr = _bilinear_corr(ec, self.ny, self.nx)
+        P = [torch.where(fluid[q], p[q] + corr[q], p[q]) for q in range(4)]
+        P = self._smooth(P, list(b), grow, gcol, fluid)
+        r = self._residual(P, list(b), grow, gcol, fluid)
+        return torch.stack(P), torch.max(torch.abs(torch.stack(r)))
+
+    def kernel(self, p, b, ec):
+        p_out, scr = torch.empty_like(p), torch.empty_like(p)
+        res = torch.empty((), dtype=torch.float32, device=p.device)
+        STEP_POST(p, ptr(p), ptr(b), ptr(ec), ptr(p_out), ptr(scr), ptr(res),
+                  *self._kernel_args())
+        return p_out, res
+
+
+def make_quad_step_pre_smooth_restrict(shape, step_i: int, inlet_j: int, idx2: float,
+                                       idy2: float, omega: float, n_pairs: int,
+                                       coarse_shape, device="cpu"
+                                       ) -> QuadStepPreSmoothRestrict:
+    return QuadStepPreSmoothRestrict(shape, step_i, inlet_j, idx2, idy2, omega, n_pairs,
+                                     coarse_shape, device)
+
+
+def make_quad_step_post_prolong_smooth(shape, step_i: int, inlet_j: int, idx2: float,
+                                       idy2: float, omega: float, n_pairs: int,
+                                       coarse_shape, device="cpu"
+                                       ) -> QuadStepPostProlongSmooth:
+    return QuadStepPostProlongSmooth(shape, step_i, inlet_j, idx2, idy2, omega, n_pairs,
+                                     coarse_shape, device)

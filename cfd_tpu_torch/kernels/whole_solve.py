@@ -1,5 +1,7 @@
 """The whole tolerance-driven multigrid solve in one kernel launch (the port
-of cfd_tpu.kernels.whole_solve, separable flavor).
+of cfd_tpu.kernels.whole_solve): the separable flavor (WholeSolve, the
+cavity and the channel) and the masked flavor of the backward step
+(StepWholeSolve).
 
 ``solve(p4_warm, b4, max_b=None) -> (p4, cycles, res)`` with the contract
 of the reference's make_quad_whole_solve (whole_solve.py:121-135, 507): p
@@ -11,12 +13,13 @@ max|b - Ap| as a float32 host number.
   scratch allocated once as buffers of this module. The host reads
   (cycles, res) once per solve.
 * ``plain`` — the same solve as the tolerance loop over the per-kernel
-  composition's PyTorch twins (MultigridPoisson.cycle(plain=True): the quad
-  pre/post twins, run_tail_vcycle over the rb_smoother twins, the glue
-  transfers and the coarsest pinv product) with the float32 coarse
-  hierarchy. The kernel repeats that arithmetic in the same order, so the
-  two agree bit for bit, and on the CPU ``whole_solve`` on and off give
-  identical results.
+  composition's PyTorch twins (MultigridPoisson.cycle(plain=True) or
+  MaskedQuadMultigridPoisson.cycle(plain=True): the finest-level pre/post
+  twins, run_tail_vcycle over the rb_smoother twins, the glue transfers
+  and the coarsest pinv product) with the float32 coarse hierarchy. The
+  kernel repeats that arithmetic in the same order, so the two agree bit
+  for bit, and on the CPU ``whole_solve`` on and off give identical
+  results.
 
 The reference's in-VMEM coarse hierarchy runs lane transfers as matmuls
 (mg_tail.py), so its rounding differs from the per-kernel path by a few
@@ -49,23 +52,91 @@ from cfd_tpu_torch.poisson import multigrid as mgp
 WHOLE_SOLVE = Kernel("quad_whole_solve", "cfd_whole_solve",
                      "cfd_tpu_torch/csrc/whole_solve.cu",
                      "cfd_tpu/kernels/whole_solve.py:507")
+STEP_WHOLE_SOLVE = Kernel("quad_step_whole_solve", "cfd_whole_solve",
+                          "cfd_tpu_torch/csrc/whole_solve.cu",
+                          "cfd_tpu/kernels/whole_solve.py:569")
 
 
-def launch_grid() -> dict:
-    """The cooperative grid the kernel launches with on the current CUDA
-    device: blocks, blocks per SM and registers per thread. Raises when
-    the card refuses a co-resident grid."""
+def launch_grid(masked: bool = False) -> dict:
+    """The cooperative grid the separable (or, with ``masked``, the step's)
+    kernel launches with on the current CUDA device: blocks, blocks per SM
+    and registers per thread. Raises when the card refuses a co-resident
+    grid."""
     lib = library()
     vals = [ctypes.c_int(0) for _ in range(3)]
-    err = lib.cfd_whole_solve_grid(*(ctypes.cast(ctypes.byref(v), ctypes.c_void_p)
-                                     for v in vals))
+    err = lib.cfd_whole_solve_grid(int(masked), *(
+        ctypes.cast(ctypes.byref(v), ctypes.c_void_p) for v in vals))
     if err != 0:
         raise RuntimeError(f"cfd_whole_solve_grid: CUDA error {err} "
                            f"({lib.cfd_error_string(err).decode()})")
     return dict(zip(("blocks", "blocks_per_sm", "registers"), (v.value for v in vals)))
 
 
-class WholeSolve(nn.Module):
+class _WholeSolveBase(nn.Module):
+    """The tolerance loop of ``self.mg`` (a per-kernel composition with a
+    ``cycle(p, b, plain)`` and the coarse ``levels`` the kernel walks) as
+    one cooperative launch, with the hierarchy's scratch allocated once as
+    buffers of this module."""
+
+    MASKED = False
+
+    def _alloc_scratch(self, coarse, device):
+        # per coarse level: iterate and source; the coarsest fold scratch;
+        # the (max|b|, residual, residual) slots and the (cycles, res) pair
+        f32 = dict(dtype=torch.float32, device=device)
+        for k, lv in enumerate(coarse, start=1):
+            self.register_buffer(f"p{k}", torch.zeros(lv.shape, **f32), persistent=False)
+            self.register_buffer(f"b{k}", torch.zeros(lv.shape, **f32), persistent=False)
+        self.register_buffer("fold", torch.zeros(self.mg.pinv.numel(), **f32),
+                             persistent=False)
+        self.register_buffer("ctl", torch.zeros(3, **f32), persistent=False)
+        self.register_buffer("stats", torch.zeros(2, **f32), persistent=False)
+
+    def forward(self, p_warm: torch.Tensor, b: torch.Tensor, max_b=None):
+        _check(self.qshape, p_warm, b)
+        if route(p_warm, b) == "cuda":
+            return self.kernel(p_warm, b, max_b)
+        return self.plain(p_warm, b, max_b)
+
+    def plain(self, p_warm, b, max_b=None):
+        return mgp.tolerance_loop(p_warm, b, max_b, self.cfg,
+                                  lambda p, bb: self.mg.cycle(p, bb, plain=True))
+
+    def _launch(self, p_warm, b, max_b, coarse, fine_ptrs, fine_ints, fine_floats,
+                scratch):
+        if p_warm.device != self.ctl.device:
+            raise ValueError(f"tensor on {p_warm.device}, solver buffers on "
+                             f"{self.ctl.device}")
+        if max_b is not None and (max_b.device != p_warm.device or max_b.numel() != 1
+                                  or max_b.dtype != torch.float32):
+            raise ValueError(f"max_b must be one float32 value on {p_warm.device}, got "
+                             f"{max_b.dtype} {tuple(max_b.shape)} on {max_b.device}")
+        cfg = self.cfg
+        idims = (ctypes.c_int * (5 * len(coarse)))(
+            *(d for lv in coarse for d in (*lv.shape, lv.ny, lv.nx, int(not lv.separable))))
+        fdims = (ctypes.c_float * (2 * len(coarse)))(
+            *(d for lv in coarse for d in (lv.idx2, lv.idy2)))
+        ptrs = []
+        for k, lv in enumerate(coarse, start=1):
+            ptrs += [getattr(lv, w).data_ptr() for w in ("wE", "wW", "wN", "wS")]
+            ptrs += [getattr(self, f"p{k}").data_ptr(), getattr(self, f"b{k}").data_ptr()]
+        ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        p_out = torch.empty_like(p_warm)
+        null = ctypes.c_void_p(None)
+        opt = lambda t: ptr(t) if t is not None else null
+        as_ptr = lambda a: ctypes.cast(a, ctypes.c_void_p)
+        kernel = STEP_WHOLE_SOLVE if self.MASKED else WHOLE_SOLVE
+        kernel(p_warm, int(self.MASKED), ptr(p_warm), ptr(b), ptr(p_out), *map(opt, scratch),
+               opt(max_b), ptr(self.ctl), ptr(self.stats), ptr(self.fold), ptr(self.mg.pinv),
+               *map(opt, fine_ptrs), self.qshape[1], self.qshape[2], *fine_ints,
+               *fine_floats, len(coarse), as_ptr(idims), as_ptr(fdims), as_ptr(ptr_arr),
+               cfg.omega, cfg.pre_sweeps, cfg.post_sweeps, cfg.max_cycles, cfg.tol_factor,
+               cfg.abs_tol, cfg.stall_ratio)
+        cycles, res = self.stats.tolist()
+        return p_out, int(cycles), np.float32(res)
+
+
+class WholeSolve(_WholeSolveBase):
     """The separable quad-level-0 multigrid solve of ``problem`` on the
     padded grid ``shape``, as one launch. ``cfg`` must use the float32
     coarse hierarchy."""
@@ -88,62 +159,57 @@ class WholeSolve(nn.Module):
                              f"plane shape {coarse}")
         self.cfg = cfg
         self.qshape = (4, Hq8, Wqa)
-        # per coarse level: iterate and source; the coarsest fold scratch;
-        # the (max|b|, residual, residual) slots and the (cycles, res) pair
-        f32 = dict(dtype=torch.float32, device=device)
-        for k, lv in enumerate(self.mg.levels[1:], start=1):
-            self.register_buffer(f"p{k}", torch.zeros(lv.shape, **f32), persistent=False)
-            self.register_buffer(f"b{k}", torch.zeros(lv.shape, **f32), persistent=False)
-        self.register_buffer("fold", torch.zeros(self.mg.pinv.numel(), **f32),
-                             persistent=False)
-        self.register_buffer("ctl", torch.zeros(3, **f32), persistent=False)
-        self.register_buffer("stats", torch.zeros(2, **f32), persistent=False)
-
-    def forward(self, p_warm: torch.Tensor, b: torch.Tensor, max_b=None):
-        _check(self.qshape, p_warm, b)
-        if route(p_warm, b) == "cuda":
-            return self.kernel(p_warm, b, max_b)
-        return self.plain(p_warm, b, max_b)
-
-    def plain(self, p_warm, b, max_b=None):
-        return mgp.tolerance_loop(p_warm, b, max_b, self.cfg,
-                              lambda p, bb: self.mg.cycle(p, bb, plain=True))
+        self._alloc_scratch(self.mg.levels[1:], device)
 
     def kernel(self, p_warm, b, max_b=None):
-        if p_warm.device != self.ctl.device:
-            raise ValueError(f"tensor on {p_warm.device}, solver buffers on "
-                             f"{self.ctl.device}")
-        if max_b is not None and (max_b.device != p_warm.device or max_b.numel() != 1
-                                  or max_b.dtype != torch.float32):
-            raise ValueError(f"max_b must be one float32 value on {p_warm.device}, got "
-                             f"{max_b.dtype} {tuple(max_b.shape)} on {max_b.device}")
-        mg, cfg = self.mg, self.cfg
-        l0 = mg.pre0
-        coarse = mg.levels[1:]
-        idims = (ctypes.c_int * (4 * len(coarse)))(
-            *(d for lv in coarse for d in (*lv.shape, lv.ny, lv.nx)))
-        fdims = (ctypes.c_float * (2 * len(coarse)))(
-            *(d for lv in coarse for d in (lv.idx2, lv.idy2)))
-        ptrs = []
-        for k, lv in enumerate(coarse, start=1):
-            ptrs += [getattr(lv, w).data_ptr() for w in ("wE", "wW", "wN", "wS")]
-            ptrs += [getattr(self, f"p{k}").data_ptr(), getattr(self, f"b{k}").data_ptr()]
-        ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-        p_out = torch.empty_like(p_warm)
-        max_b_ptr = ptr(max_b) if max_b is not None else ctypes.c_void_p(None)
-        as_ptr = lambda a: ctypes.cast(a, ctypes.c_void_p)
-        WHOLE_SOLVE(p_warm, ptr(p_warm), ptr(b), ptr(p_out), max_b_ptr, ptr(self.ctl),
-                    ptr(self.stats), ptr(self.fold), ptr(mg.pinv), ptr(l0.wE), ptr(l0.wW),
-                    ptr(l0.wN), ptr(l0.wS), self.qshape[1], self.qshape[2], l0.ny, l0.nx,
-                    l0.idx2, l0.idy2, len(coarse), as_ptr(idims), as_ptr(fdims),
-                    as_ptr(ptr_arr), cfg.omega, cfg.pre_sweeps, cfg.post_sweeps,
-                    cfg.max_cycles, cfg.tol_factor, cfg.abs_tol, cfg.stall_ratio)
-        cycles, res = self.stats.tolist()
-        return p_out, int(cycles), np.float32(res)
+        l0 = self.mg.pre0
+        return self._launch(p_warm, b, max_b, self.mg.levels[1:],
+                            (l0.wE, l0.wW, l0.wN, l0.wS), (l0.ny, l0.nx, 0, 0),
+                            (l0.idx2, l0.idy2, 0.0, 0.0), (None, None))
+
+
+class StepWholeSolve(_WholeSolveBase):
+    """The masked (backward-step) solve as one launch (cfd_tpu
+    make_quad_step_whole_solve, whole_solve.py:569, body masked_vcycle_ctx
+    :297-424): the exact masked fine level of kernels.step_quad, the
+    full-2D-weight coarse hierarchy with the solid fill before every
+    prolongation, and the tolerance loop. ``plain`` is the tolerance loop
+    over the per-kernel masked composition's twins
+    (poisson.multigrid.MaskedQuadMultigridPoisson); the kernel repeats its
+    arithmetic in order, so the two agree bit for bit."""
+
+    MASKED = True
+
+    def __init__(self, grid, coeffs, cfg: mgp.MGConfig, device="cpu"):
+        super().__init__()
+        self.mg = mgp.make_masked_quad_multigrid_poisson(grid, coeffs, cfg, device)
+        if len(self.mg.levels) < 2:
+            raise ValueError("the quad-level-0 hierarchy needs at least 3 levels")
+        self.cfg = cfg
+        self.qshape = self.mg.pre0.qshape
+        self._alloc_scratch(self.mg.levels, device)
+        f32 = dict(dtype=torch.float32, device=device)
+        # the fine level's second iterate (a ghost stage reads one array and
+        # writes the other) and the solid-filled copy of a coarse correction
+        self.register_buffer("q0", torch.zeros(self.qshape, **f32), persistent=False)
+        self.register_buffer("filled", torch.zeros(self.mg.levels[0].shape, **f32),
+                             persistent=False)
+
+    def kernel(self, p_warm, b, max_b=None):
+        l0 = self.mg.pre0
+        return self._launch(p_warm, b, max_b, self.mg.levels, (None,) * 4,
+                            (l0.ny, l0.nx, l0.step_i, l0.inlet_j),
+                            (l0.idx2, l0.idy2, l0.denom, 1.0 - l0.omega),
+                            (self.q0, self.filled))
 
 
 def make_quad_whole_solve(shape, problem, cfg: mgp.MGConfig, device="cpu") -> WholeSolve:
     return WholeSolve(shape, problem, cfg, device)
+
+
+def make_quad_step_whole_solve(grid, coeffs, cfg: mgp.MGConfig, device="cpu"
+                               ) -> StepWholeSolve:
+    return StepWholeSolve(grid, coeffs, cfg, device)
 
 
 def auto_whole_solve(mg: mgp.MGConfig, mg_overrides, on_cuda: bool, build, fallback):

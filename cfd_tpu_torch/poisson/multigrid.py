@@ -1,11 +1,15 @@
-"""Geometric multigrid pressure-Poisson solver, separable quad path (the
-port of cfd_tpu.poisson.multigrid).
+"""Geometric multigrid pressure-Poisson solver on the quad path (the port
+of cfd_tpu.poisson.multigrid).
 
 Ported: the rectangle (separable-weight) hierarchies of the cavity and
 channel flavors, solved with the finest level in the quad layout
 (kernels.quad pre/post kernels) and every coarser level on aligned arrays
 (kernels.rb_smoother, composed by kernels.mg_tail.run_tail_vcycle), in
-float32 or with the bfloat16 coarse hierarchy of ``MGConfig.coarse_dtype``.
+float32 or with the bfloat16 coarse hierarchy of ``MGConfig.coarse_dtype``;
+and the backward step's masked defect-correction hierarchy
+(MaskedQuadMultigridPoisson: the exact masked finest level of
+kernels.step_quad over full-2D-weight coarse levels with the solid fill),
+float32 only.
 The coarse-level restriction/prolongation and the coarsest dense solve are
 XLA glue in the reference, outside any kernel; here they are plain PyTorch
 ops (kernels.mg_tail). The whole solve in one kernel launch is
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from cfd_tpu_torch.kernels.mg_tail import dense_coarse_solve, run_tail_vcycle
+from cfd_tpu_torch.kernels.mg_tail import _solid_fill, dense_coarse_solve, run_tail_vcycle
 from cfd_tpu_torch.kernels.rb_smoother import rb_pairs_for_level
 
 
@@ -227,12 +231,14 @@ def _round_up8_128(shape: tuple[int, int], dtype=torch.float32) -> tuple[int, in
 
 
 class _Level(nn.Module):
-    """One aligned separable level: wE/wW (1, W) and wN/wS (H, 1) coupling
-    vectors in the level's storage dtype (buffers), zero outside the
-    interior; shape is the aligned (H, W)."""
+    """One aligned level: for a separable problem wE/wW (1, W) and wN/wS
+    (H, 1) coupling vectors, for a masked one whole (H, W) weight arrays
+    (``separable`` False), in the level's storage dtype (buffers), zero
+    outside the interior; shape is the aligned (H, W)."""
 
     def __init__(self, wE, wW, wN, wS, idx2: float, idy2: float,
-                 shape: tuple[int, int], ny: int, nx: int, dtype: torch.dtype):
+                 shape: tuple[int, int], ny: int, nx: int, dtype: torch.dtype,
+                 separable: bool = True):
         super().__init__()
         self.register_buffer("wE", wE)
         self.register_buffer("wW", wW)
@@ -242,14 +248,24 @@ class _Level(nn.Module):
         self.shape = shape
         self.ny, self.nx = ny, nx
         self.dtype = dtype
+        self.separable = separable
 
 
-def _build_level(p: PoissonProblem, dtype: torch.dtype, device="cpu") -> _Level:
-    """Aligned level (cfd_tpu _build_level(aligned=True)) of a separable
-    problem, its weights rounded to ``dtype`` (bf16: 4/3 -> 1.3359375)."""
+def _build_level(p: PoissonProblem, dtype: torch.dtype, device="cpu",
+                 allow_full: bool = False) -> _Level:
+    """Aligned level (cfd_tpu _build_level(aligned=True)), its weights
+    rounded to ``dtype`` (bf16: 4/3 -> 1.3359375). A non-separable (masked)
+    problem needs ``allow_full`` and keeps its whole 2D weights, zero-padded
+    to the aligned shape (multigrid.py:169-182)."""
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     if not _is_separable(p):
-        raise NotImplementedError("masked (non-separable) hierarchies are not "
-                                  "ported yet (ROADMAP.md queue A item 8)")
+        if not allow_full:
+            raise ValueError("aligned levels require separable weights")
+        H, W = _round_up8_128((p.ny + 2, p.nx + 2), dtype)
+        pad = lambda w: np.pad(w, ((0, H - w.shape[0]), (0, W - w.shape[1])))
+        return _Level(t(pad(p.wE)), t(pad(p.wW)), t(pad(p.wN)), t(pad(p.wS)),
+                      1.0 / (p.dx * p.dx), 1.0 / (p.dy * p.dy), (H, W), p.ny, p.nx,
+                      dtype, separable=False)
     H, W = _round_up8_128((p.ny + 2, p.nx + 2), dtype)
     wE = np.zeros((1, W))
     wE[0, 1 : p.nx + 1] = p.wE[1, 1 : p.nx + 1]
@@ -259,7 +275,6 @@ def _build_level(p: PoissonProblem, dtype: torch.dtype, device="cpu") -> _Level:
     wN[1 : p.ny + 1, 0] = p.wN[1 : p.ny + 1, 1]
     wS = np.zeros((H, 1))
     wS[1 : p.ny + 1, 0] = p.wS[1 : p.ny + 1, 1]
-    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     return _Level(t(wE), t(wW), t(wN), t(wS), 1.0 / (p.dx * p.dx),
                   1.0 / (p.dy * p.dy), (H, W), p.ny, p.nx, dtype)
 
@@ -371,3 +386,126 @@ class MultigridPoisson(nn.Module):
 def make_multigrid_poisson(problem: PoissonProblem, cfg: MGConfig, quad_level0,
                            device="cpu") -> MultigridPoisson:
     return MultigridPoisson(problem, cfg, quad_level0, device)
+
+
+def masked_channel_problem(grid, dx: float, dy: float) -> PoissonProblem:
+    """Weighted operator of a masked grid with channel domain BCs
+    (cfd_tpu multigrid.py:930-944): fluid-fluid couplings 1, couplings
+    through solid cells 0, inlet/wall Neumann, outlet Dirichlet-0. The
+    COARSE-hierarchy operator of the step's defect correction."""
+    f = grid.fluid.astype(np.float64)
+    nx, ny = grid.nx, grid.ny
+    wE = f * np.roll(f, -1, axis=1)
+    wW = f * np.roll(f, 1, axis=1)
+    wN = f * np.roll(f, -1, axis=0)
+    wS = f * np.roll(f, 1, axis=0)
+    wE[1 : ny + 1, nx] = grid.fluid[1 : ny + 1, nx]  # outlet Dirichlet-0 ghost
+    return PoissonProblem(nx, ny, dx, dy, wE, wW, wN, wS)
+
+
+def step_rect_params(grid) -> tuple[int, int] | None:
+    """(step_i, inlet_j_max) when the grid's solid raster is exactly the
+    backward-step rectangle {i <= step_i and j > inlet_j_max}
+    (backwards_step-01.cpp:499-520, cfd_tpu multigrid.py:947-965), else
+    None."""
+    nx, ny = grid.nx, grid.ny
+    solid = ~grid.fluid[1 : ny + 1, 1 : nx + 1]
+    if not solid.any():
+        return None
+    jj, ii = np.nonzero(solid)
+    step_i = int(ii.max()) + 1  # back to 1-based padded indexing
+    inlet_j_max = int(jj.min())  # the first solid row is inlet_j_max + 1
+    jj1 = np.arange(1, ny + 1)[:, None]
+    ii1 = np.arange(1, nx + 1)[None, :]
+    if (solid == ((ii1 <= step_i) & (jj1 > inlet_j_max))).all():
+        return step_i, inlet_j_max
+    return None
+
+
+class MaskedQuadMultigridPoisson(nn.Module):
+    """The step's defect-correction solve (cfd_tpu
+    make_masked_quad_multigrid_poisson, multigrid.py:1042-1181) with the
+    quad-level-0 contract of MultigridPoisson: the finest level smooths
+    and measures the residual with the EXACT operator (kernels.step_quad
+    pre/post: ghost refresh with solid-cell averaging), the aligned coarse
+    levels 1.. use the weighted masked approximation with full-2D weights
+    (kernels.rb_smoother full mode), and the level-1 correction is
+    solid-filled before the fine prolongation.
+
+    ``levels`` holds the coarse levels only (levels[0] is global level 1).
+    Buffers: their weight arrays and the coarsest pseudo-inverse."""
+
+    def __init__(self, problem: PoissonProblem, cfg: MGConfig, quad_level0,
+                 device="cpu"):
+        super().__init__()
+        if cfg.coarse_dtype is not None:
+            raise ValueError("coarse_dtype is not supported on the masked "
+                             "(defect-correction) hierarchy")
+        unported = [name for name in ("pin_mean", "whole_step", "corr_opt")
+                    if getattr(cfg, name)]
+        if cfg.tail_from is not None:
+            unported.append("tail_from")
+        if unported:
+            raise NotImplementedError(
+                f"MGConfig {', '.join(unported)} not ported yet for the masked "
+                "hierarchy (ROADMAP.md queue B)")
+        probs = build_problems(problem, cfg)
+        if len(probs) < 2:
+            raise ValueError("grid too small for the quad masked hierarchy")
+        self.cfg = cfg
+        self.levels = nn.ModuleList(_build_level(p, torch.float32, device, allow_full=True)
+                                    for p in probs[1:])
+        self.register_buffer(
+            "pinv", torch.as_tensor(_dense_pinv(probs[-1]), dtype=torch.float32,
+                                    device=device))
+        self.pre0, self.post0 = quad_level0
+        if self.levels[0].shape != self.pre0.coarse_shape:
+            raise ValueError(f"aligned coarse shape {self.levels[0].shape} != quad "
+                             f"plane shape {self.pre0.coarse_shape}")
+        inner = self.levels[:-1]
+        self.pre = nn.ModuleList(rb_pairs_for_level(lv, cfg.omega, cfg.pre_sweeps,
+                                                    with_residual_field=True)
+                                 for lv in inner)
+        self.post = nn.ModuleList(rb_pairs_for_level(lv, cfg.omega, cfg.post_sweeps)
+                                  for lv in inner)
+
+    def coarse_solve(self, b: torch.Tensor) -> torch.Tensor:
+        return dense_coarse_solve(self.levels[-1], self.pinv, b)
+
+    def cycle(self, p: torch.Tensor, b: torch.Tensor, plain: bool = False):
+        """One V-cycle: (p4, b4) -> (p4, res). ``plain`` runs every kernel's
+        plain twin whatever the device."""
+        p, rc = self.pre0.plain(p, b) if plain else self.pre0(p, b)
+        ec = run_tail_vcycle(self.levels, rc, self.pre, self.post, self.coarse_solve,
+                             plain=plain)
+        # the post kernel's 1 -> 0 prolongation is mask-blind: Neumann-extend
+        # the correction into the level-1 solid cells first (multigrid.py:1170)
+        ec = _solid_fill(self.levels[0], ec)
+        return self.post0.plain(p, b, ec) if plain else self.post0(p, b, ec)
+
+    def forward(self, p_warm: torch.Tensor, b: torch.Tensor, max_b=None):
+        return tolerance_loop(p_warm, b, max_b, self.cfg, self.cycle)
+
+
+def make_masked_quad_multigrid_poisson(grid, coeffs, cfg: MGConfig,
+                                       device="cpu") -> MaskedQuadMultigridPoisson:
+    """The per-kernel masked solve of a step-rectangle grid: the
+    kernels.step_quad level-0 pair over masked_channel_problem's hierarchy.
+    Raises ValueError when the raster is not the step rectangle or level 1
+    does not coincide with the quad plane shape."""
+    from cfd_tpu_torch.kernels.quad import quad_dims
+    from cfd_tpu_torch.kernels.step_quad import (
+        make_quad_step_post_prolong_smooth,
+        make_quad_step_pre_smooth_restrict,
+    )
+
+    rect = step_rect_params(grid)
+    if rect is None:
+        raise ValueError("the quad masked multigrid needs the step rectangle raster")
+    _, _, Hq8, Wqa = quad_dims(grid.shape)
+    kw = dict(shape=grid.shape, step_i=rect[0], inlet_j=rect[1], idx2=coeffs.idx2,
+              idy2=coeffs.idy2, omega=cfg.omega, coarse_shape=(Hq8, Wqa), device=device)
+    l0 = (make_quad_step_pre_smooth_restrict(n_pairs=cfg.pre_sweeps, **kw),
+          make_quad_step_post_prolong_smooth(n_pairs=cfg.post_sweeps, **kw))
+    return MaskedQuadMultigridPoisson(masked_channel_problem(grid, coeffs.dx, coeffs.dy),
+                                      cfg, l0, device)

@@ -1,18 +1,22 @@
-"""Where the time of one cavity or channel step goes on the card.
+"""Where the time of one cavity, channel or backward-step step goes on the
+card.
 
     python -m cfd_tpu_torch.profile_step [--n 2048] [--warmup 100] [--steps 50]
                                          [--out DIR]
     python -m cfd_tpu_torch.profile_step --case channel [--nx 1536 --ny 512]
                                          [--mg default|whole|per-kernel] ...
+    python -m cfd_tpu_torch.profile_step --case step [--nx 2048 --ny 256]
+                                         [--mg default|whole|per-kernel] ...
 
 Drives a main path on cuda through Simulation's step function: the cavity,
 make_cavity_case(n_interior=n, poisson="multigrid", dtype=float32,
-tolerance_factor=1e-6), or the channel, make_channel_case(nx, ny,
+tolerance_factor=1e-6), the channel, make_channel_case(nx, ny,
 poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0, dtype=float32)
-with its default whole-solve (one launch per pressure solve) or the
-per-kernel solve. ``--mg`` picks the solve: ``default`` is the case's own
-(the per-kernel solve for the cavity, the whole-solve for the channel),
-``whole`` and ``per-kernel`` force one. It runs three windows:
+(default 1536x512), or the step, make_backwards_step_case(nx, ny, the same
+solver settings) (default 2048x256), with the case's default solve or the
+other one. ``--mg`` picks the solve: ``default`` is the case's own (the
+per-kernel solve for the cavity, the whole-solve for the channel and the
+step), ``whole`` and ``per-kernel`` force one. It runs three windows:
 
 1. ``--warmup`` steps, untimed;
 2. ``--steps`` steps timed with the host clock between two synchronizes,
@@ -119,32 +123,39 @@ def card_line() -> str:
 
 def make_case(args):
     """The profiled case on cuda (see the module docstring)."""
-    from cfd_tpu_torch.cases import make_cavity_case, make_channel_case
+    from cfd_tpu_torch.cases import (make_backwards_step_case, make_cavity_case,
+                                     make_channel_case)
 
     ov = {"whole": {"whole_solve": True}, "default": None,
-          "per-kernel": {"whole_solve": False} if args.case == "channel" else None}[args.mg]
+          "per-kernel": {"whole_solve": False} if args.case != "cavity" else None}[args.mg]
     if args.case == "cavity":
         case = make_cavity_case(n_interior=args.n, poisson="multigrid",
                                 dtype=torch.float32, tolerance_factor=1e-6, device="cuda",
                                 mg_overrides=ov)
-        what = f"cavity {args.n}^2"
-    else:
-        case = make_channel_case(nx=args.nx, ny=args.ny, poisson="multigrid",
-                                 tolerance_factor=1e-6, abs_tol=0.0, dtype=torch.float32,
-                                 device="cuda", mg_overrides=ov)
-        what = f"channel {args.nx}x{args.ny}"
+        return case, describe(case, f"cavity {args.n}^2")
+    make, (nx, ny) = {"channel": (make_channel_case, (1536, 512)),
+                      "step": (make_backwards_step_case, (2048, 256))}[args.case]
+    nx, ny = args.nx or nx, args.ny or ny
+    case = make(nx=nx, ny=ny, poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0,
+                dtype=torch.float32, device="cuda", mg_overrides=ov)
+    return case, describe(case, f"{args.case} {nx}x{ny}")
+
+
+def describe(case, what: str) -> str:
     mg = case.info["mg"]
-    return case, (f"{what} ({'whole' if mg.whole_solve else 'per-kernel'} solve, "
-                  f"coarse {mg.coarse_dtype or 'float32'})")
+    return (f"{what} ({'whole' if mg.whole_solve else 'per-kernel'} solve, "
+            f"coarse {mg.coarse_dtype or 'float32'})")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m cfd_tpu_torch.profile_step",
                                  description=__doc__.split("\n")[0])
-    ap.add_argument("--case", choices=["cavity", "channel"], default="cavity")
+    ap.add_argument("--case", choices=["cavity", "channel", "step"], default="cavity")
     ap.add_argument("--n", type=int, default=2048, help="cavity: interior cells per side")
-    ap.add_argument("--nx", type=int, default=1536, help="channel: interior cells in x")
-    ap.add_argument("--ny", type=int, default=512, help="channel: interior cells in y")
+    ap.add_argument("--nx", type=int, default=None,
+                    help="channel/step: interior cells in x (default 1536 / 2048)")
+    ap.add_argument("--ny", type=int, default=None,
+                    help="channel/step: interior cells in y (default 512 / 256)")
     ap.add_argument("--mg", choices=["default", "whole", "per-kernel"], default="default",
                     help="the pressure solve (default: the case's own path)")
     ap.add_argument("--warmup", type=int, default=100)

@@ -1,11 +1,12 @@
 """Projection-method time integration (the port of cfd_tpu.solver).
 
 Ported: the tentative-carry orderings of ``make_step`` for the cavity
-(cfd_tpu/solver.py:221-228) and for the channel with the extrapolated warm
-start (:230-239) — the state's u/v are the TENTATIVE velocities and one
+(cfd_tpu/solver.py:221-228), for the channel with the extrapolated warm
+start (:230-239) and for the backward step with the plain previous-p warm
+start (:241-252) — the state's u/v are the TENTATIVE velocities and one
 fused corrector+BC+predictor+source kernel runs at the start of each step,
-followed (for the channel) by the source mean removal and then the pressure
-solve — and the ``Simulation`` time loop with its stats rows and
+followed (channel and step) by the source mean removal and then the
+pressure solve — and the ``Simulation`` time loop with its stats rows and
 NaN/KE-blowup abort. The JAX package runs a chunk
 of steps as one device program (lax.scan around lax.while_loop); PyTorch
 runs eagerly, so a step here is a sequence of kernel launches and the
@@ -35,7 +36,7 @@ class Case:
     name: str
     grid: Grid
     coeffs: StencilCoeffs
-    ordering: str  # "cavity" | "channel" (tentative carry only)
+    ordering: str  # "cavity" | "channel" (tentative carry only; the step is "channel")
     velocity_bc: VelocityBC
     poisson_solve: Callable
     remove_source_mean: bool
@@ -64,22 +65,27 @@ class Case:
         return self.coeffs.dt
 
 
-def remove_mean_quad(b: torch.Tensor, sum_b: torch.Tensor, grid: Grid,
+def remove_mean_quad(b: torch.Tensor, sum_b: torch.Tensor, n_fluid: torch.Tensor,
                      cell: torch.Tensor) -> torch.Tensor:
     """Mean removal over the quad-plane layout (cfd_tpu/solver.py:174-188):
-    b - sum_b / n_fluid on the cells (``cell``, the quad cell mask), b
-    elsewhere. Torch glue between the stage kernel and the solve."""
-    return torch.where(cell, b - sum_b / grid.n_fluid, b)
+    b - sum_b / n_fluid on the cells (``cell``: the quad cell mask, fluid
+    cells only on the step, where b is 0 on solid cells and must stay so), b
+    elsewhere. ``n_fluid`` is a 0-d tensor on b's device, so the division is
+    a true division on every device (PyTorch turns a Python divisor of a
+    CUDA tensor into a reciprocal multiply). Torch glue between the stage
+    kernel and the solve."""
+    return torch.where(cell, b - sum_b / n_fluid, b)
 
 
 def make_step(case: Case) -> Callable[[State], tuple[State, StepDiagnostics]]:
     """The per-step function of a case: the tentative-carry cavity ordering,
-    or the channel ordering with the extrapolated warm start. The other
-    orderings raise."""
+    or the channel ordering with the extrapolated warm start (the channel)
+    or with the plain previous-p warm start (the step,
+    cfd_tpu/solver.py:241-252). The other orderings raise."""
     if case.ordering not in ("cavity", "channel"):
         raise NotImplementedError(
             f"the {case.ordering!r} ordering is not ported yet "
-            "(ROADMAP.md queue A item 8)")
+            "(ROADMAP.md queue A)")
     fused = case.step_kernels[0]
 
     if case.ordering == "cavity":
@@ -91,19 +97,33 @@ def make_step(case: Case) -> Callable[[State], tuple[State, StepDiagnostics]]:
 
         return step
 
-    if not case.extrapolate_warm_start:
-        raise NotImplementedError("the channel ordering with the plain previous-p warm "
-                                  "start (the step case) is not ported yet (ROADMAP.md "
-                                  "queue A item 8)")
-    from cfd_tpu_torch.kernels.quad import quad_cell_mask
-
     g = case.grid
-    cell = quad_cell_mask(g.shape, case.device)
+    if g.has_solids:
+        from cfd_tpu_torch.kernels.step_quad import step_cell_mask
+        from cfd_tpu_torch.poisson.multigrid import step_rect_params
+
+        cell = step_cell_mask(g.shape, *step_rect_params(g), case.device)
+    else:
+        from cfd_tpu_torch.kernels.quad import quad_cell_mask
+
+        cell = quad_cell_mask(g.shape, case.device)
+    n_fluid = torch.tensor(float(g.n_fluid), dtype=case.dtype, device=case.device)
+
+    if not case.extrapolate_warm_start:
+
+        def step(state: State) -> tuple[State, StepDiagnostics]:
+            us2, vs2, b, sum_b = fused(state.u, state.v, state.p)
+            if case.remove_source_mean:
+                b = remove_mean_quad(b, sum_b, n_fluid, cell)
+            p, iters, res = case.poisson_solve(state.p, b)
+            return State(us2, vs2, p, state.T, None), StepDiagnostics(iters, res)
+
+        return step
 
     def step(state: State) -> tuple[State, StepDiagnostics]:
         us2, vs2, b, guess, sum_b = fused(state.u, state.v, state.p, state.p_prev)
         if case.remove_source_mean:
-            b = remove_mean_quad(b, sum_b, g, cell)
+            b = remove_mean_quad(b, sum_b, n_fluid, cell)
         # no max_b: the tolerance base is max|b| after the mean removal
         p, iters, res = case.poisson_solve(guess, b)
         return State(us2, vs2, p, state.T, state.p), StepDiagnostics(iters, res)

@@ -40,6 +40,24 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
 7. Channel card against CPU at 256x128, 20 steps, with the default path
    (the whole-solve on the card) and with whole_solve=False: cycles equal
    every step, fields within 5e-5 relative, avg_KE within 1e-6 relative.
+8. Per-kernel check at the 2048x256 backward-step shapes: the masked carry
+   and corrector, the masked finest-level pre and post kernels, the
+   full-2D coarse pairs on level 1 (both variants) against their twins
+   (1e-5) on seeded inputs with b on the fluid cells, and the masked
+   whole-solve against its twin and against the per-kernel composition of
+   the step's kernels (the same cycles, p within 1e-5). Times as in phase
+   2, each with its bound.
+9. The step slice: make_backwards_step_case(nx=2048, ny=256,
+   poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0, dtype=float32,
+   print_interval=100) on cuda, 300 steps in chunks of 100 with the launch
+   counters zeroed just before; every kernel of the path must have
+   launched. Then 100 steps with whole_solve=False (the per-kernel masked
+   solve: the pre/post kernels and the full-2D pairs). Prints steps/s,
+   V-cycles/step and cell-steps/s (n_fluid x steps/s) over the last 100
+   steps of each.
+10. Step card against CPU at 512x64, 20 steps, on both solves: cycles
+    equal every step, fields within 5e-5 relative, avg_KE within 1e-6
+    relative.
 
 The line before the last is a JSON object {"kernels": [...]}: per kernel,
 its launches on its path's run, its error against its twin, its time and
@@ -73,6 +91,11 @@ PEAK_F32_S = 67e12      # H100 SXM float32 outside the tensor cores, spec sheet
 # (u* and v*) with the source, and a corrector (two faces and the guess)
 GS_OPS, RES_OPS, PROLONG_OPS, RESTRICT_OPS = 20, 14, 10, 4
 PREDICTOR_SOURCE_OPS, CORRECTOR_OPS = 76, 8
+# the step's exact fine level: one (1 - omega)*p + omega*gs update and one
+# b - lap residual per fluid cell (step_level0.cuh); the solid fill per
+# coarse cell
+STEP_GS_OPS, STEP_RES_OPS, FILL_OPS = 10, 10, 8
+STEP = (2048, 256)
 
 
 def log(msg: str) -> None:
@@ -403,6 +426,129 @@ def check_channel_kernels(case, dev) -> dict:
     return results
 
 
+def check_step_kernels(case, dev) -> dict:
+    """Phase 8: the step's kernels against their twins at its shapes."""
+    from cfd_tpu_torch.kernels.mg_tail import level_masks
+    from cfd_tpu_torch.kernels.quad import to_quad
+
+    rng = np.random.default_rng(2056)
+    g = case.grid
+    shape = g.shape
+    fluid = g.fluid.astype(np.float32)
+    cells, n_fluid = g.nx * g.ny, g.n_fluid
+
+    def field(scale=0.1, fluid_only=False):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        if fluid_only:
+            a *= fluid
+        return to_quad(torch.from_numpy(a).to(dev), shape)
+
+    results = {}
+    carry, corr = case.step_kernels
+    us, vs, p = field(), field(), field(fluid_only=True)
+    errs = []
+    got, want = carry.kernel(us, vs, p), carry.plain(us, vs, p)
+    for name, a, b in zip(("us'", "vs'", "b", "sum b"), got, want):
+        rel_err(a, b, f"quad_step_corr_predictor_source {name}", TOL_F32, errs)
+    results["quad_step_corr_predictor_source"] = dict(
+        err=max(errs), ms=median_ms(lambda: carry.kernel(us, vs, p)),
+        plain_ms=median_ms(lambda: carry.plain(us, vs, p)),
+        **bound(nbytes(us, vs, p, *got), cells * (CORRECTOR_OPS + PREDICTOR_SOURCE_OPS)))
+    errs = []
+    got, want = corr.kernel(us, vs, p), corr.plain(us, vs, p)
+    for name, a, b in zip(("u", "v"), got, want):
+        rel_err(a, b, f"quad_step_corrector {name}", TOL_F32, errs)
+    results["quad_step_corrector"] = dict(
+        err=max(errs), ms=median_ms(lambda: corr.kernel(us, vs, p)),
+        plain_ms=median_ms(lambda: corr.plain(us, vs, p)),
+        **bound(nbytes(us, vs, p, *got), cells * CORRECTOR_OPS))
+
+    ws = case.poisson_solve
+    mg, cfg = ws.mg, ws.cfg
+    pre, post = mg.pre0, mg.post0
+    b = field(scale=1e3, fluid_only=True)
+    errs = []
+    got, want = pre.kernel(p, b), pre.plain(p, b)
+    for name, a, w in zip(("p", "rc"), got, want):
+        rel_err(a, w, f"quad_step_pre_smooth_restrict {name}", TOL_F32, errs)
+    results["quad_step_pre_smooth_restrict"] = dict(
+        err=max(errs), ms=median_ms(lambda: pre.kernel(p, b)),
+        plain_ms=median_ms(lambda: pre.plain(p, b)),
+        **bound(nbytes(p, b, *got),
+                n_fluid * (pre.n_pairs * STEP_GS_OPS + STEP_RES_OPS) + cells // 4 * RESTRICT_OPS))
+    lv1 = mg.levels[0]
+    _, active1 = level_masks(lv1, dev)
+    ec = torch.from_numpy(rng.standard_normal(lv1.shape).astype(np.float32) * 0.1).to(dev)
+    ec = ec * active1
+    errs = []
+    got, want = post.kernel(p, b, ec), post.plain(p, b, ec)
+    for name, a, w in zip(("p", "max|r|"), got, want):
+        rel_err(a, w, f"quad_step_post_prolong_smooth {name}", TOL_F32, errs)
+    results["quad_step_post_prolong_smooth"] = dict(
+        err=max(errs), ms=median_ms(lambda: post.kernel(p, b, ec)),
+        plain_ms=median_ms(lambda: post.plain(p, b, ec)),
+        **bound(nbytes(p, b, ec, *got),
+                n_fluid * (PROLONG_OPS + post.n_pairs * STEP_GS_OPS + STEP_RES_OPS + 1)))
+
+    # the full-2D pairs on every level the path smooths; timed on level 1
+    errs, timing = [], None
+    for k, lv in enumerate(mg.levels[:-1]):
+        _, active = level_masks(lv, dev)
+        pp = torch.from_numpy(rng.standard_normal(lv.shape).astype(np.float32) * 0.1).to(dev)
+        bb = torch.from_numpy(rng.standard_normal(lv.shape).astype(np.float32) * 1e2).to(dev)
+        pp, bb = pp * active, bb * active
+        for sm in (mg.pre[k], mg.post[k]):
+            got, want = sm.kernel(pp, bb), sm.plain(pp, bb)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            tag = f"rb_pairs_full L{k + 1} {tuple(lv.shape)} n={sm.n_pairs}"
+            for name, x, y in zip(("p", "r"), got, want):
+                rel_err(x, y, f"{tag} {name}", TOL_F32, errs)
+            if k == 0 and sm.with_residual_field:
+                n_act = int(active.sum())
+                timing = dict(ms=median_ms(lambda: sm.kernel(pp, bb)),
+                              plain_ms=median_ms(lambda: sm.plain(pp, bb)),
+                              **bound(nbytes(pp, bb, *got, sm.wE, sm.wW, sm.wN, sm.wS),
+                                      n_act * (sm.n_pairs * GS_OPS + RES_OPS)))
+    results["rb_pairs_full"] = dict(err=max(errs), **timing)
+
+    # the masked whole-solve on a seeded, fluid-mean-free source
+    bn = np.where(g.fluid, rng.standard_normal(shape), 0.0)
+    bn = np.where(g.fluid, bn - bn.sum() / n_fluid, 0.0).astype(np.float32) * 1e3
+    b = to_quad(torch.from_numpy(bn).to(dev), shape)
+    p0 = torch.zeros_like(b)
+    pk, ck, rk = ws.kernel(p0, b)
+    pp_, cp, rp = ws.plain(p0, b)
+    pm, cm, rm = ws.mg(p0, b)  # the per-kernel composition of the step's kernels
+    tol = cfg.tol_factor * float(b.abs().max())
+    bit = bool(torch.equal(pk, pm)) and bool(torch.equal(pk, pp_))
+    log(f"  quad_step_whole_solve cycles: kernel {ck}, plain twin {cp}, per-kernel {cm}; "
+        f"res {float(rk)!r} / {float(rp)!r} / {float(rm)!r}; tol {tol:.4e}; "
+        f"p bit-identical to both: {bit}")
+    if not ck == cp == cm:
+        raise AssertionError(f"step whole-solve: {ck} cycles, its twin {cp}, the "
+                             f"per-kernel path {cm}")
+    errs = []
+    rel_err(pk, pp_, "quad_step_whole_solve p vs twin", TOL_F32, errs)
+    rel_err(pk, pm, "quad_step_whole_solve p vs per-kernel", TOL_F32, [])
+    ms = median_ms(lambda: ws.kernel(p0, b))
+    ops_per_cycle = n_fluid * ((cfg.pre_sweeps + cfg.post_sweeps) * STEP_GS_OPS
+                               + 2 * STEP_RES_OPS + 1 + PROLONG_OPS)
+    for lv, below in zip(mg.levels[:-1], mg.levels[1:]):
+        n = lv.nx * lv.ny
+        ops_per_cycle += (n * ((cfg.pre_sweeps + cfg.post_sweeps) * GS_OPS + RES_OPS
+                               + PROLONG_OPS + FILL_OPS)
+                          + below.nx * below.ny * RESTRICT_OPS)
+    ops_per_cycle += 2 * mg.pinv.numel()
+    results["quad_step_whole_solve"] = dict(
+        err=max(errs), ms=ms, plain_ms=median_ms(lambda: ws.plain(p0, b), reps=5),
+        cycles=ck, ms_per_cycle=ms / ck,
+        bound_bytes_ms=nbytes(p0, b, pk, mg.pinv) / PEAK_BYTES_S * 1e3,
+        bound_ops_ms_per_cycle=ops_per_cycle / PEAK_F32_S * 1e3,
+        **bound(nbytes(p0, b, pk, mg.pinv), ck * ops_per_cycle + cells))
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -501,8 +647,63 @@ def main() -> int:
                                             mg_overrides=ov),
                     f"channel 256x128 {'per-kernel' if ov else 'default'}")
 
+    from cfd_tpu_torch.cases import make_backwards_step_case
+    from cfd_tpu_torch.kernels import step_quad as SQ
+
+    nx, ny = STEP
+    st_kw = dict(nx=nx, ny=ny, poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0,
+                 dtype=torch.float32, print_interval=100)
+    log(f"phase 8: kernels vs plain twins at the {nx}x{ny} backward-step shapes ({card})")
+    case = make_backwards_step_case(device=dev, **st_kw)
+    mg = case.info["mg"]
+    g = case.grid
+    log(f"  solver config: V({mg.pre_sweeps},{mg.post_sweeps}) whole_solve="
+        f"{mg.whole_solve} coarse levels={len(case.poisson_solve.mg.levels)}; n_fluid="
+        f"{g.n_fluid}")
+    grid = WS.launch_grid(masked=True)
+    log(f"  masked whole_solve_kernel: {grid['registers']} registers/thread, cooperative "
+        f"grid of {grid['blocks']} blocks ({grid['blocks_per_sm']} co-resident per SM)")
+    step_checks = check_step_kernels(case, dev)
+    for k, r in step_checks.items():
+        log(f"  {k:36s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
+    w = step_checks["quad_step_whole_solve"]
+    log(f"  quad_step_whole_solve: {w['cycles']} V-cycles, {w['ms_per_cycle']:.4f} ms per "
+        f"V-cycle; bound {w['bound_bytes_ms']:.4f} ms per solve (bytes), "
+        f"{w['bound_ops_ms_per_cycle']:.4f} ms per V-cycle (operations)  ({card})")
+    checks.update(step_checks)
+
+    log(f"phase 9: the step slice at {nx}x{ny}, 300 steps in chunks of 100, then the "
+        f"per-kernel solve for 100 steps ({card})")
+    cells = ("cell-steps/s", lambda c: g.n_fluid)
+    step_launches, state, whole = run_path(
+        case, 300, (SQ.STEP_CARRY, SQ.STEP_CORRECTOR, WS.STEP_WHOLE_SOLVE),
+        "step whole-solve", card, cells)
+    del case
+    per_kernel_case = make_backwards_step_case(device=dev, mg_overrides={"whole_solve": False},
+                                               **st_kw)
+    step_pk_launches, _, per_kernel = run_path(
+        per_kernel_case, 100, (SQ.STEP_CARRY, SQ.STEP_PRE, SQ.STEP_POST, RB.RB_PAIRS_FULL),
+        "step per-kernel", card, cells, state=state, start_step=300)
+    del per_kernel_case
+    log(f"  step, steps/s: whole-solve {whole['steps_s']:.2f} ({whole['cycles']:.2f} "
+        f"V-cycles/step), per-kernel {per_kernel['steps_s']:.2f} "
+        f"({per_kernel['cycles']:.2f}); reference parity target 4.1 V-cycles/step  ({card})")
+
+    log("phase 10: step card vs CPU at 512x64, 20 steps")
+    for ov in (None, {"whole_solve": False}):
+        card_vs_cpu(make_backwards_step_case, dict(nx=512, ny=64, poisson="multigrid",
+                                                   dtype=torch.float32, tolerance_factor=1e-6,
+                                                   abs_tol=0.0, print_interval=20,
+                                                   mg_overrides=ov),
+                    f"step 512x64 {'per-kernel' if ov else 'default'}")
+
     launches = {**cavity_launches, **{k: channel_launches[k] for k in (
-        Q.CHANNEL_CARRY.name, Q.CHANNEL_CORRECTOR.name, WS.WHOLE_SOLVE.name)}}
+        Q.CHANNEL_CARRY.name, Q.CHANNEL_CORRECTOR.name, WS.WHOLE_SOLVE.name)},
+        **{k: step_launches[k] for k in (SQ.STEP_CARRY.name, SQ.STEP_CORRECTOR.name,
+                                          WS.STEP_WHOLE_SOLVE.name)},
+        **{k: step_pk_launches[k] for k in (SQ.STEP_PRE.name, SQ.STEP_POST.name,
+                                             RB.RB_PAIRS_FULL.name)}}
     kernels = []
     for k in KERNELS:
         r = checks[k.name]

@@ -220,9 +220,9 @@ def test_unported_options_raise(kw):
 
 
 def test_other_orderings_raise():
-    """The channel ordering with the plain previous-p warm start (the step
-    case) is not ported."""
-    case = dataclasses.replace(_port(), ordering="channel", extrapolate_warm_start=False)
+    """An ordering other than the tentative-carry cavity and channel ones
+    raises instead of running a wrong step."""
+    case = dataclasses.replace(_port(), ordering="natural")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_step(case)
 

@@ -156,6 +156,7 @@ def test_port_imports_no_jax():
             "import cfd_tpu_torch.cli, cfd_tpu_torch.convert, cfd_tpu_torch.kernels\n"
             "import cfd_tpu_torch.profile_step, cfd_tpu_torch.cases.channel\n"
             "import cfd_tpu_torch.kernels.whole_solve, cfd_tpu_torch.kernels.mg_tail\n"
+            "import cfd_tpu_torch.cases.backwards_step, cfd_tpu_torch.kernels.step_quad\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'cfd_tpu' or m.startswith('cfd_tpu.'))\n"
             "assert not bad, bad\n"
@@ -181,6 +182,15 @@ def test_profile_trace_summary():
     assert is_port_kernel("void (anonymous namespace)::half_sweep<float, float>(int)", names)
     assert not is_port_kernel("void at::native::elementwise_kernel<128, 2>(int)", names)
     assert not is_port_kernel("(anonymous namespace)::quad_half_sweep_x(int)", names)
+    # the step's kernels, whose names contain other kernels' names
+    assert {"step_ghost_red", "step_black", "step_ghosts", "step_prolong_add",
+            "step_residual_restrict", "step_residual_max", "step_corrector_kernel",
+            "step_predictor_source_kernel", "step_fold_partials_kernel"} <= names
+    assert is_port_kernel("void (anonymous namespace)::whole_solve_kernel<true>(Params)",
+                          names)
+    assert is_port_kernel("(anonymous namespace)::step_ghosts(float const*, StepL0)", names)
+    assert is_port_kernel("(anonymous namespace)::step_prolong_add(float const*)", names)
+    assert not is_port_kernel("(anonymous namespace)::step_ghost(float const*)", names)
     assert busy_us([(0, 10), (5, 10), (30, 5), (31, 1)]) == 20
     events = [
         dict(cat="kernel", name="(anonymous namespace)::finish<float>(int)", ts=0, dur=10),
