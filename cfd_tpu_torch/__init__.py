@@ -7,8 +7,9 @@ torch and never jax. Its Hopper kernels are hand-written CUDA C++ under
 the CPU every kernel wrapper runs its plain PyTorch twin instead.
 
 Ported so far: the f32 quad-layout multigrid lid-driven cavity
-(cases/cavity.py) and channel (cases/channel.py), stepped by
-solver.Simulation.
+(cases/cavity.py), channel (cases/channel.py), backward-facing step
+(cases/backwards_step.py) and Rayleigh-Benard convection
+(physics/boussinesq.py), stepped by solver.Simulation.
 """
 
 from cfd_tpu_torch.grid import Grid, cfl_time_step, optimal_omega

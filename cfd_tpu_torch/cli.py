@@ -1,5 +1,5 @@
-"""Command-line entry point (the port of cfd_tpu.cli: the cavity, channel
-and backward-step cases).
+"""Command-line entry point (the port of cfd_tpu.cli: the cavity, channel,
+backward-step and Rayleigh-Benard cases).
 
 Usage:
     python -m cfd_tpu_torch.cli cavity --Nx 2048 --Ny 2048 --precision f32 \\
@@ -8,12 +8,15 @@ Usage:
         --no-vtk --steps 300 --steps-per-call 100
     python -m cfd_tpu_torch.cli backwards_step --Nx 2048 --Ny 256 --precision f32 \\
         --no-vtk --steps 300 --steps-per-call 100 --print-interval 100
+    python -m cfd_tpu_torch.cli rayleigh_benard --Nx 1536 --Ny 512 --Ra 1e6 \
+        --no-vtk --steps 300 --steps-per-call 100
 
 The flags are the reference CLI's for the ported paths, with its defaults
 per case (cfd_tpu/cli.py:103-106). VTK export is not ported yet, so a run
-needs --no-vtk; flags of modules not ported yet (the RB case, SOR,
-checkpoints, metrics, adaptive dt, meshes) are refused with a message
-instead of being ignored.
+needs --no-vtk; flags of modules not ported yet (FTLE, SOR, checkpoints,
+metrics, adaptive dt, meshes) are refused with a message instead of being
+ignored. The Rayleigh-Benard case always solves with multigrid and ignores
+--poisson and --Re, as the reference does (cfd_tpu/cli.py:173-181).
 """
 
 from __future__ import annotations
@@ -57,12 +60,19 @@ def build_parser() -> argparse.ArgumentParser:
     common(sub.add_parser("backwards_step",
                           help="backward-facing step (backwards_step-01.cpp)"),
            256, 32, 100.0, 15.0)
+    rb = sub.add_parser("rayleigh_benard", help="Rayleigh-Benard convection")
+    common(rb, 192, 64, 0.0, 50.0)
+    rb.add_argument("--Ra", type=float, default=1e6, help="Rayleigh number")
+    rb.add_argument("--Pr", type=float, default=0.71, help="Prandtl number")
+    rb.add_argument("--ftle-window", type=int, default=0,
+                    help="backward FTLE over the last N saved frames (not ported yet: "
+                         "only 0 is accepted)")
     return p
 
 
 def make_case_from_args(args):
     from cfd_tpu_torch.cases import (make_backwards_step_case, make_cavity_case,
-                                     make_channel_case)
+                                     make_channel_case, make_rayleigh_benard_case)
     from cfd_tpu_torch.precision import as_dtype
 
     kw = dict(final_time=args.T, dtype=as_dtype(args.precision), poisson=args.poisson,
@@ -71,6 +81,12 @@ def make_case_from_args(args):
         kw["dt"] = args.dt
     if args.print_interval is not None:
         kw["print_interval"] = args.print_interval
+    if args.case == "rayleigh_benard":
+        if args.ftle_window:
+            raise SystemExit("--ftle-window: FTLE (physics/ftle.py) is not ported yet")
+        kw.pop("poisson")  # RB always solves with multigrid
+        return make_rayleigh_benard_case(nx=args.Nx, ny=args.Ny, rayleigh=args.Ra,
+                                         prandtl=args.Pr, **kw)
     if args.case == "channel":
         return make_channel_case(nx=args.Nx, ny=args.Ny, reynolds_number=args.Re, **kw)
     if args.case == "backwards_step":

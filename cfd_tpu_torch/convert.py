@@ -1,7 +1,8 @@
 """State hand-over between the JAX package and the port.
 
-Both packages keep the same LOGICAL state: u, v, p and the previous
-pressure p_prev on the padded (ny+2, nx+2) grid. These helpers move it as
+Both packages keep the same LOGICAL state: u, v, p, the previous
+pressure p_prev and, for the Boussinesq case, the temperature T on the
+padded (ny+2, nx+2) grid. These helpers move it as
 numpy arrays, so a run that cfd_tpu started can be continued by
 cfd_tpu_torch (``Simulation.run(state=...)`` aligns a logical state into
 the carried layout itself), and the tests can feed both from one state.
@@ -17,33 +18,33 @@ import torch
 from cfd_tpu_torch.state import State
 
 
-def state_from_numpy(u, v, p, p_prev=None, *, device="cpu",
+def state_from_numpy(u, v, p, p_prev=None, T=None, *, device="cpu",
                      dtype=torch.float32) -> State:
     """Logical-layout numpy arrays -> a port State on ``device``."""
-    t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)  # a copy
-    return State(t(u), t(v), t(p), None, None if p_prev is None else t(p_prev))
+    t = lambda a: None if a is None else torch.as_tensor(np.array(a), dtype=dtype,
+                                                         device=device)  # a copy
+    return State(t(u), t(v), t(p), t(T), t(p_prev))
 
 
 def state_to_numpy(state: State) -> tuple[np.ndarray, ...]:
-    """A port State in the LOGICAL layout -> (u, v, p, p_prev) numpy arrays
-    (p_prev None when the state carries none); inverse of state_from_numpy."""
+    """A port State in the LOGICAL layout -> (u, v, p, p_prev, T) numpy
+    arrays (p_prev or T None when the state carries none); inverse of
+    state_from_numpy."""
     n = lambda a: None if a is None else a.detach().cpu().numpy()
-    return n(state.u), n(state.v), n(state.p), n(state.p_prev)
+    return n(state.u), n(state.v), n(state.p), n(state.p_prev), n(state.T)
 
 
 def load_jax_checkpoint(path, case, device=None) -> tuple[State, int]:
     """(logical State, step) from an npz written by cfd_tpu's
-    CheckpointManager (keys u, v, p, [p_prev], step; io/checkpoint.py:46-54).
-    A checkpoint without p_prev seeds p_prev = p when the case extrapolates
-    its warm start, as cfd_tpu's restore does."""
+    CheckpointManager (keys u, v, p, [T], [p_prev], step;
+    io/checkpoint.py:46-54). A checkpoint without p_prev seeds p_prev = p
+    when the case extrapolates its warm start, as cfd_tpu's restore does."""
     device = case.device if device is None else device
     with np.load(Path(path)) as z:
-        if "T" in z.files:
-            raise NotImplementedError("temperature (Boussinesq) checkpoints are not "
-                                      "ported yet (ROADMAP.md queue A item 9)")
         p_prev = z["p_prev"] if "p_prev" in z.files else None
         if p_prev is None and case.extrapolate_warm_start:
             p_prev = z["p"]
-        state = state_from_numpy(z["u"], z["v"], z["p"], p_prev, device=device,
+        state = state_from_numpy(z["u"], z["v"], z["p"], p_prev,
+                                 z["T"] if "T" in z.files else None, device=device,
                                  dtype=case.dtype)
         return state, int(z["step"])

@@ -121,4 +121,9 @@ __device__ __forceinline__ float fold_sum(float* x, int n, int first, int step, 
   return x[0];
 }
 
+// One block folds partials[0:n] into *sum in the PyTorch twin's fold_sum
+// order (the last launch of each carry that sums its source). Defined once,
+// in quad_stage.cu; returns the launch's error.
+cudaError_t fold_partials(float* partials, int n, float* sum, cudaStream_t stream);
+
 }  // namespace cfd

@@ -211,6 +211,11 @@ __global__ void fold_partials_kernel(float* partials, int n, float* sum) {
 
 }  // namespace
 
+cudaError_t cfd::fold_partials(float* partials, int n, float* sum, cudaStream_t stream) {
+  fold_partials_kernel<<<1, kThreads, 0, stream>>>(partials, n, sum);
+  return cudaGetLastError();
+}
+
 extern "C" int cfd_quad_corrector(const float* us, const float* vs, const float* p,
                                   const float* p_prev, float* u2, float* v2,
                                   float* guess, int Hq8, int Wqa, int ny, int nx,
@@ -277,8 +282,7 @@ extern "C" int cfd_quad_channel_carry(const float* us, const float* vs, const fl
                                                                    b, partials, pc, uin);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fold_partials_kernel<<<1, cfd::kThreads, 0, s>>>(partials, blocks, sum_b);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cfd::fold_partials(partials, blocks, sum_b, s));
 }
 
 extern "C" const char* cfd_error_string(int err) {

@@ -1,0 +1,236 @@
+// Stage kernels of the Rayleigh-Benard tentative-carry step on the quad
+// layout: the fused carry and the stats/export corrector.
+//
+// Replaces cfd_tpu/kernels/rb_quad.py make_quad_rb_step_kernel (:81, math in
+// rb_carry_compute :130-222; the plain and emit_guess variants) and
+// make_quad_rb_corrector (:225).
+//
+// Bound on the H100: device-memory bytes. The carry reads 4 quad fields
+// (5 with the warm-start guess) and writes 4 (5) plus one scalar, 3.8 MB per
+// field at 1536x512; its arithmetic (about 110 flops a cell: the corrector,
+// the temperature update, the predictor with buoyancy, the source) is far
+// below the card's rate.
+//
+// Design: one thread per quad cell, neighbours through the guarded quad
+// accessor, as csrc/quad_stage.cu. The stages depend on their neighbours'
+// results of the stage before, so the carry runs as FOUR launches:
+// (1) the corrector with the box no-slip ghosts writes the corrected u2, v2
+// into scratch (and the guess 2p - p_prev), (2) the temperature stage reads
+// T and the scratch u2, v2 and writes T' with its ghosts, (3) the predictor,
+// the buoyancy from T', the box ghosts on the tentative fields, the source
+// and the per-block partial sums of b, (4) one block folds the partials in
+// the order of the PyTorch twin's fixed_order_sum. A thread that writes a
+// ghost recomputes the pre-ghost value it copies from (box_u, box_v,
+// temperature), so no stage needs a second pass for its ghosts.
+//
+// The corrector keeps the tentative value on invalid faces (u_else = us,
+// rb_quad.py:171-174, 251-252), unlike the cavity and channel correctors,
+// which write 0 there.
+//
+// Ghost order (rb_quad.py:40-78): u's ghost rows j = 0 and ny+1 (i <= nx)
+// are minus rows 1 and ny, read BEFORE the side columns i = 0 and nx are
+// zeroed, so u's four corner ghosts are minus the pre-ghost side-column
+// values; v's ghost columns i = 0 and nx+1 (j <= ny) read columns 1 and nx
+// before the wall rows j = 0 and ny are zeroed. T's ghost rows (1 <= i <=
+// nx) reflect the wall values, its ghost columns (1 <= j <= ny) copy
+// columns 1 and nx, and its four corners keep the pre-step T.
+#include "common.cuh"
+#include "predictor.cuh"
+
+namespace {
+
+using cfd::Pred;
+using cfd::qld;
+
+struct RBCorr {
+  int Hq8, Wqa, ny, nx;
+  float cu, cv;
+};
+
+struct RBTemp {
+  int Hq8, Wqa, ny, nx;
+  float dt, kappa, idx, idy, idx2, idy2, two_tb, two_tt;
+};
+
+__device__ __forceinline__ bool u_valid(int j, int i, int ny, int nx) {
+  return j >= 1 && j <= ny && i >= 1 && i <= nx - 1;
+}
+
+__device__ __forceinline__ bool v_valid(int j, int i, int ny, int nx) {
+  return j >= 1 && j <= ny - 1 && i >= 1 && i <= nx;
+}
+
+__device__ __forceinline__ bool is_cell(int j, int i, int ny, int nx) {
+  return j >= 1 && j <= ny && i >= 1 && i <= nx;
+}
+
+// u after the box no-slip ghost update of a pre-ghost field f(j, i)
+template <class F>
+__device__ __forceinline__ float box_u(F f, int j, int i, int ny, int nx) {
+  if (j == 0 && i <= nx) return -f(1, i);
+  if (j == ny + 1 && i <= nx) return -f(ny, i);
+  if ((i == 0 || i == nx) && j >= 1 && j <= ny) return 0.f;
+  return f(j, i);
+}
+
+// v after the box no-slip ghost update of a pre-ghost field f(j, i)
+template <class F>
+__device__ __forceinline__ float box_v(F f, int j, int i, int ny, int nx) {
+  if (i == 0 && j <= ny) return -f(j, 1);
+  if (i == nx + 1 && j <= ny) return -f(j, nx);
+  if ((j == 0 || j == ny) && i >= 1 && i <= nx) return 0.f;
+  return f(j, i);
+}
+
+// corrected u on valid faces, the tentative value elsewhere
+__device__ __forceinline__ float rb_u_corr(const float* us, const float* p, int j, int i,
+                                           const RBCorr& c) {
+  const float a = qld(us, j, i, c.Hq8, c.Wqa);
+  if (!u_valid(j, i, c.ny, c.nx)) return a;
+  return a - c.cu * (qld(p, j, i + 1, c.Hq8, c.Wqa) - qld(p, j, i, c.Hq8, c.Wqa));
+}
+
+__device__ __forceinline__ float rb_v_corr(const float* vs, const float* p, int j, int i,
+                                           const RBCorr& c) {
+  const float a = qld(vs, j, i, c.Hq8, c.Wqa);
+  if (!v_valid(j, i, c.ny, c.nx)) return a;
+  return a - c.cv * (qld(p, j + 1, i, c.Hq8, c.Wqa) - qld(p, j, i, c.Hq8, c.Wqa));
+}
+
+// launch 1 (and the corrector entry point): the corrected, ghosted u2, v2;
+// guess = 2p - p_prev where p_prev is given
+__global__ void rb_corrector_kernel(const float* us, const float* vs, const float* p,
+                                    const float* p_prev, float* u2, float* v2, float* guess,
+                                    RBCorr c) {
+  const long long n = 4LL * c.Hq8 * c.Wqa;
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
+  auto fu = [&](int j, int i) { return rb_u_corr(us, p, j, i, c); };
+  auto fv = [&](int j, int i) { return rb_v_corr(vs, p, j, i, c); };
+  u2[idx] = box_u(fu, cell.j, cell.i, c.ny, c.nx);
+  v2[idx] = box_v(fv, cell.j, cell.i, c.ny, c.nx);
+  if (p_prev != nullptr) guess[idx] = 2.0f * p[idx] - p_prev[idx];
+}
+
+// T before its ghost update: the flux-form advection + diffusion on the
+// cells (the twin's operation order), the old value elsewhere
+__device__ __forceinline__ float t_pre(const float* T, const float* u, const float* v, int j,
+                                       int i, const RBTemp& c) {
+  const int H = c.Hq8, W = c.Wqa;
+  const float t = qld(T, j, i, H, W);
+  if (!is_cell(j, i, c.ny, c.nx)) return t;
+  const float te = qld(T, j, i + 1, H, W), tw = qld(T, j, i - 1, H, W);
+  const float tn = qld(T, j + 1, i, H, W), ts = qld(T, j - 1, i, H, W);
+  const float fe = qld(u, j, i, H, W) * 0.5f * (t + te);
+  const float fw = qld(u, j, i - 1, H, W) * 0.5f * (tw + t);
+  const float fn = qld(v, j, i, H, W) * 0.5f * (t + tn);
+  const float fs = qld(v, j - 1, i, H, W) * 0.5f * (ts + t);
+  const float adv = (fe - fw) * c.idx + (fn - fs) * c.idy;
+  const float lap = (te - 2.0f * t + tw) * c.idx2 + (tn - 2.0f * t + ts) * c.idy2;
+  return t + c.dt * (c.kappa * lap - adv);
+}
+
+// launch 2: T' with the Dirichlet ghost rows and the adiabatic ghost columns
+__global__ void rb_temperature_kernel(const float* T, const float* u, const float* v,
+                                      float* T2, RBTemp c) {
+  const long long n = 4LL * c.Hq8 * c.Wqa;
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
+  const int j = cell.j, i = cell.i, ny = c.ny, nx = c.nx;
+  float out;
+  if (j == 0 && i >= 1 && i <= nx) {
+    out = c.two_tb - t_pre(T, u, v, 1, i, c);
+  } else if (j == ny + 1 && i >= 1 && i <= nx) {
+    out = c.two_tt - t_pre(T, u, v, ny, i, c);
+  } else if (i == 0 && j >= 1 && j <= ny) {
+    out = t_pre(T, u, v, j, 1, c);
+  } else if (i == nx + 1 && j >= 1 && j <= ny) {
+    out = t_pre(T, u, v, j, nx, c);
+  } else {
+    out = t_pre(T, u, v, j, i, c);
+  }
+  T2[idx] = out;
+}
+
+// launch 3: predictor on the valid faces (u2, v2 elsewhere), the buoyancy
+// buoy * (T'(j) + T'(j+1)) on the valid v faces, the box ghosts on the
+// tentative fields, b = rho/dt * div on the cells and the block's partial
+// sum of b (fixed tree)
+__global__ void rb_predictor_source_kernel(const float* u, const float* v, const float* T2,
+                                           float* us2, float* vs2, float* b, float* partials,
+                                           Pred c, float buoy) {
+  const long long n = 4LL * c.Hq8 * c.Wqa;
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  float bb = 0.f;
+  if (idx < n) {
+    const cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
+    const int j = cell.j, i = cell.i;
+    auto fu = [&](int jj, int ii) {
+      return u_valid(jj, ii, c.ny, c.nx) ? cfd::u_star(u, v, jj, ii, c)
+                                         : qld(u, jj, ii, c.Hq8, c.Wqa);
+    };
+    auto fv = [&](int jj, int ii) {
+      if (!v_valid(jj, ii, c.ny, c.nx)) return qld(v, jj, ii, c.Hq8, c.Wqa);
+      const float t = qld(T2, jj, ii, c.Hq8, c.Wqa) + qld(T2, jj + 1, ii, c.Hq8, c.Wqa);
+      return cfd::v_star(u, v, jj, ii, c) + buoy * t;
+    };
+    const float a = box_u(fu, j, i, c.ny, c.nx);
+    const float bv = box_v(fv, j, i, c.ny, c.nx);
+    us2[idx] = a;
+    vs2[idx] = bv;
+    if (is_cell(j, i, c.ny, c.nx)) {
+      const float aw = box_u(fu, j, i - 1, c.ny, c.nx);
+      const float bs = box_v(fv, j - 1, i, c.ny, c.nx);
+      const float div = (a - aw) * c.idx + (bv - bs) * c.idy;
+      bb = c.rho_dt * div;
+    }
+    b[idx] = bb;
+  }
+  cfd::block_sum_to(bb, partials + blockIdx.x);
+}
+
+}  // namespace
+
+extern "C" int cfd_rb_corrector(const float* us, const float* vs, const float* p, float* u2,
+                                float* v2, int Hq8, int Wqa, int ny, int nx, float cu,
+                                float cv, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  RBCorr c{Hq8, Wqa, ny, nx, cu, cv};
+  rb_corrector_kernel<<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
+      us, vs, p, nullptr, u2, v2, nullptr, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// p_prev and guess: both null (plain carry) or both given (emit_guess);
+// u_scr, v_scr: quad scratch; partials: cfd::blocks_for(4 * Hq8 * Wqa)
+// floats of scratch; two_tb, two_tt: 2 * the wall temperatures; buoy:
+// dt * 0.5 (the free-fall buoyancy 1)
+extern "C" int cfd_rb_carry(const float* us, const float* vs, const float* p, const float* T,
+                            const float* p_prev, float* u_scr, float* v_scr, float* us2,
+                            float* vs2, float* T2, float* b, float* guess, float* partials,
+                            float* sum_b, int Hq8, int Wqa, int ny, int nx, float cu, float cv,
+                            float dt, float nu, float idx, float idy, float idx2, float idy2,
+                            float rho_dt, float kappa, float two_tb, float two_tt, float buoy,
+                            void* stream) {
+  if ((p_prev == nullptr) != (guess == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = 4LL * Hq8 * Wqa;
+  const int blocks = cfd::blocks_for(n);
+  RBCorr cc{Hq8, Wqa, ny, nx, cu, cv};
+  rb_corrector_kernel<<<blocks, cfd::kThreads, 0, s>>>(us, vs, p, p_prev, u_scr, v_scr, guess,
+                                                       cc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  RBTemp tc{Hq8, Wqa, ny, nx, dt, kappa, idx, idy, idx2, idy2, two_tb, two_tt};
+  rb_temperature_kernel<<<blocks, cfd::kThreads, 0, s>>>(T, u_scr, v_scr, T2, tc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Pred pc{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt};
+  rb_predictor_source_kernel<<<blocks, cfd::kThreads, 0, s>>>(u_scr, v_scr, T2, us2, vs2, b,
+                                                              partials, pc, buoy);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cfd::fold_partials(partials, blocks, sum_b, s));  // launch 4
+}

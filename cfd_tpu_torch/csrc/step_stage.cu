@@ -154,13 +154,6 @@ __global__ void step_predictor_source_kernel(const float* u, const float* v, flo
   cfd::block_sum_to(bb, partials + blockIdx.x);
 }
 
-// one block: the partials folded into *sum in the twin's fold_sum order
-__global__ void step_fold_partials_kernel(float* partials, int n, float* sum) {
-  const float total = cfd::fold_sum(partials, n, static_cast<int>(threadIdx.x),
-                                    static_cast<int>(blockDim.x), [] { __syncthreads(); });
-  if (threadIdx.x == 0) *sum = total;
-}
-
 }  // namespace
 
 extern "C" int cfd_step_corrector(const float* us, const float* vs, const float* p,
@@ -192,6 +185,5 @@ extern "C" int cfd_step_carry(const float* us, const float* vs, const float* p,
                                                                   partials, c, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  step_fold_partials_kernel<<<1, cfd::kThreads, 0, st>>>(partials, blocks, sum_b);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cfd::fold_partials(partials, blocks, sum_b, st));
 }

@@ -4,7 +4,8 @@
 //
 // Replaces cfd_tpu/kernels/whole_solve.py make_quad_whole_solve (:507;
 // the body is separable_vcycle_ctx :178 inside _solve_from_ctx :442 and
-// tolerance_loop :138) and make_quad_step_whole_solve (:569; the body is
+// tolerance_loop :138; with or without pin_mean) and
+// make_quad_step_whole_solve (:569; the body is
 // masked_vcycle_ctx :297-424): the finest-level pairs, residual and restriction,
 // the coarse hierarchy (kernels/mg_tail.py run_tail_vcycle), the coarsest
 // dense pseudo-inverse, the prolongations and post pairs back up, the
@@ -48,6 +49,16 @@
 // thread reads it any more. After each cycle's last barrier every thread
 // reads the slot and evaluates the same float32 stop rule as the host loop
 // (poisson/multigrid.py tolerance_loop), so all blocks leave together.
+//
+// The pure-Neumann mean pin (pin_mean, the Rayleigh-Benard solve;
+// whole_solve.py:285-289): after each cycle's tolerance residual, which is
+// taken BEFORE the shift as in the reference, every block sums its
+// kThreads-wide chunks of p by the fixed tree into per-chunk partials, one
+// block folds the partials in fixed_order_sum's order after a grid sync,
+// and after a second grid sync every thread subtracts sum / n_int (an IEEE
+// division) on the quad cells. p is 0 off the cells by construction, so the
+// sum over the whole array is the cell sum. Two more barriers a cycle; the
+// host loop's twin (MultigridPoisson.cycle) does the same arithmetic.
 #include <cooperative_groups.h>
 
 #include "aligned_level.cuh"
@@ -74,12 +85,16 @@ struct Params {
   float* q0;                   // masked: the second finest iterate (quad)
   float* filled;               // masked: a solid-filled correction (level-1 size)
   const float* max_b;          // null: max|b| is computed here
-  float* ctl;                  // [0] max|b|, [1] [2] residual slots; zeroed before launch
+  float* ctl;                  // [0] max|b|, [1] [2] residual slots, [3] the pin's sum;
+                               // zeroed before launch
   float* stats;                // (cycles, res)
   float* fold;                 // n * n scratch of the coarsest solve
   const float* pinv;           // (n, n), n = ny * nx of the coarsest level
   int pre, post, max_cycles;
   float tol_factor, abs_tol, stall;
+  int pin_mean;                // separable only: shift p to zero mean each cycle
+  float* partials;             // pin_mean: blocks_for(4 * Hq8 * Wqa) floats of scratch
+  float n_int;                 // pin_mean: the number of interior cells
 };
 
 struct Sweep {
@@ -159,6 +174,29 @@ __device__ void level_solid_fill(const Sweep& s, const cfd::Level& L, const floa
     const int j = static_cast<int>(idx / L.W);
     const int i = static_cast<int>(idx - static_cast<long long>(j) * L.W);
     out[idx] = cfd::solid_fill_value(e, j, i, L);
+  });
+}
+
+// p0 -= fixed_order_sum(p0) / n_int on the quad cells (see the header)
+__device__ void pin_mean_phase(const Sweep& s, cg::grid_group& grid, const Params& P) {
+  const cfd::Level0& L0 = P.L0;
+  const long long n0 = 4LL * L0.Hq8 * L0.Wqa;
+  const int chunks = static_cast<int>((n0 + cfd::kThreads - 1) / cfd::kThreads);
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+    const long long k = static_cast<long long>(c) * cfd::kThreads + threadIdx.x;
+    cfd::block_sum_to(k < n0 ? P.p0[k] : 0.f, P.partials + c);
+  }
+  grid.sync();
+  if (blockIdx.x == 0) {
+    const float sum = cfd::fold_sum(P.partials, chunks, static_cast<int>(threadIdx.x),
+                                    static_cast<int>(blockDim.x), [] { __syncthreads(); });
+    if (threadIdx.x == 0) P.ctl[3] = sum;
+  }
+  grid.sync();
+  const float mean = __ldcg(P.ctl + 3) / P.n_int;
+  s.each(n0, [&](long long idx) {
+    const cfd::QuadCell c = cfd::quad_cell(idx, L0.Hq8, L0.Wqa);
+    if (c.j >= 1 && c.j <= L0.ny && c.i >= 1 && c.i <= L0.nx) P.p0[idx] = P.p0[idx] - mean;
   });
 }
 
@@ -342,6 +380,9 @@ __global__ void __launch_bounds__(cfd::kThreads) whole_solve_kernel(Params P) {
       s.each(n0, [&](long long idx) { r = cfd::bits_max(r, cfd::quad_abs_residual(P.p0, P.b0, idx, L0)); });
     }
     cfd::block_max_into(r, P.ctl + 1 + (it & 1));
+    if constexpr (!kMasked) {
+      if (P.pin_mean) pin_mean_phase(s, grid, P);
+    }
     grid.sync();
     prev = res;
     res = __ldcg(P.ctl + 1 + (it & 1));
@@ -393,9 +434,11 @@ extern "C" int cfd_whole_solve_grid(int masked, int* blocks, int* per_sm, int* r
 // step geometry unused), 1 = the masked flavor (wE..wS null; q0 a quad
 // field, filled a level-1-size array). idims: n_coarse * (H8, W, ny, nx,
 // full); fdims: n_coarse * (idx2, idy2); ptrs: n_coarse * (wE, wW, wN, wS,
-// p, b), levels 1..n_coarse, all host arrays. ctl: 3 floats of device
+// p, b), levels 1..n_coarse, all host arrays. ctl: 4 floats of device
 // scratch; stats: 2 floats (cycles, res); fold: n * n floats for the
-// coarsest level.
+// coarsest level. pin_mean (separable only): partials is
+// blocks_for(4 * Hq8 * Wqa) floats of scratch and n_int the interior cell
+// count; otherwise partials is null.
 extern "C" int cfd_whole_solve(int masked, const float* p_in, const float* b0, float* p0,
                                float* q0, float* filled, const float* max_b, float* ctl,
                                float* stats, float* fold, const float* pinv, const float* wE,
@@ -404,10 +447,14 @@ extern "C" int cfd_whole_solve(int masked, const float* p_in, const float* b0, f
                                float idy2, float denom, float one_minus_omega, int n_coarse,
                                const int* idims, const float* fdims, void* const* ptrs,
                                float omega, int pre, int post, int max_cycles,
-                               float tol_factor, float abs_tol, float stall, void* stream) {
+                               float tol_factor, float abs_tol, float stall, int pin_mean,
+                               float* partials, float n_int, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_coarse < 2 || n_coarse >= kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
   if (masked && (q0 == nullptr || filled == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (pin_mean && (masked || partials == nullptr || !(n_int > 0.f))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params P{};
@@ -442,10 +489,13 @@ extern "C" int cfd_whole_solve(int masked, const float* p_in, const float* b0, f
   P.tol_factor = tol_factor;
   P.abs_tol = abs_tol;
   P.stall = stall;
+  P.pin_mean = pin_mean;
+  P.partials = partials;
+  P.n_int = n_int;
   int blocks = 0, per_sm = 0, regs = 0;
   int e = cfd_whole_solve_grid(masked, &blocks, &per_sm, &regs);
   if (e) return e;
-  cudaError_t err = cudaMemsetAsync(ctl, 0, 3 * sizeof(float), s);
+  cudaError_t err = cudaMemsetAsync(ctl, 0, 4 * sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&P};
   err = cudaLaunchCooperativeKernel(kernel_of(masked), blocks, cfd::kThreads, args, 0, s);

@@ -2,6 +2,7 @@
 cfd_tpu.io.console). The stats ROWS are emitted by solver.Simulation.run.
 
 printSimulationInfo: cavity-01.cpp:501-518, backwards_step-01.cpp:588-608;
+the Rayleigh-Benard line as cfd_tpu/io/console.py:57-60;
 the geometry report backwards_step-01.cpp:523-531; ANSI colors
 cavity-01.cpp:35-41.
 """
@@ -43,9 +44,14 @@ def banner_lines(case) -> list[str]:
         lines.append(f"Grid: {g.nx}x{g.ny} (dx={f(g.dx)}, dy={f(g.dy)})")
     lines.append(f"Time: dt={f(case.dt)}, steps={case.total_steps}, "
                  f"final_time={f(case.final_time)}")
-    lines.append(f"Reynolds={f(info.get('reynolds', 0.0))}, "
-                 f"kinematic viscosity={f(case.coeffs.viscosity)}, "
-                 f"CFL={f(info.get('cfl', 0.0))}")
+    if "rayleigh" in info:
+        lines.append(f"Rayleigh={info['rayleigh']:.6g}, "
+                     f"Prandtl={f(info['prandtl'])}, "
+                     f"CFL={f(info.get('cfl', 0.0))}")
+    else:
+        lines.append(f"Reynolds={f(info.get('reynolds', 0.0))}, "
+                     f"kinematic viscosity={f(case.coeffs.viscosity)}, "
+                     f"CFL={f(info.get('cfl', 0.0))}")
     if "omega" in info:
         lines.append(f"Relaxation factor={f(info['omega'])}")
     lines.append(f"VTK export interval={case.save_interval} steps")

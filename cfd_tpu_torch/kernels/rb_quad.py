@@ -1,0 +1,250 @@
+"""Quad-layout kernels of the Rayleigh-Benard (Boussinesq) step (the port of
+cfd_tpu.kernels.rb_quad).
+
+The carried state at the entry of step n+1 is (us*, vs*, p, T): the
+TENTATIVE velocities of step n, its pressure and the temperature T_n. One
+stage kernel completes step n and starts step n+1:
+
+    corrector (rho-divided; invalid faces KEEP the tentative value, the
+    u_else = us convention of physics.boussinesq) + box no-slip ghosts
+      -> T' = flux-form advection + diffusion of T with the corrected
+         u2/v2, then the temperature ghosts
+      -> MAC predictor of u2/v2, buoyancy dt*T'_face on the valid v faces
+         (invalid faces keep u2/v2), box no-slip ghosts
+      -> b = rho/dt * div on the cells and its sum (the caller removes the
+         mean; the Poisson problem is pure Neumann)
+
+The ghost updates follow the reference's order (cfd_tpu/kernels/
+rb_quad.py:40-78), which decides the corners: u's ghost rows read the side
+columns BEFORE they are zeroed, v's ghost columns read the wall rows before
+they are zeroed, T's ghost rows are written before its ghost columns and
+the four T corners keep their pre-step value.
+
+Each kernel has the three faces of kernels.quad: ``plain`` (whole-array
+PyTorch, any device), ``kernel`` (csrc/rb_stage.cu; CUDA tensors only) and
+``__call__``, which sends CPU tensors to ``plain`` and CUDA tensors to
+``kernel`` and never falls back. Not ported: the ``traced_dt`` and
+``emit_courant`` variants (adaptive dt, ROADMAP.md queue A item 10) and
+``shard`` (queue B item 16).
+"""
+
+from __future__ import annotations
+
+from typing import TYPE_CHECKING
+
+import torch
+
+from cfd_tpu_torch.kernels._build import Kernel, ptr, route
+from cfd_tpu_torch.kernels.quad import (
+    SUM_BLOCK,
+    _check,
+    _predictor_quad,
+    _qiota,
+    _qshift,
+    _valid_masks,
+    _where4,
+    fixed_order_sum,
+    quad_shape,
+)
+from cfd_tpu_torch.ops.stencil import StencilCoeffs
+
+if TYPE_CHECKING:
+    from cfd_tpu_torch.physics.boussinesq import RBParams
+
+RB_CARRY = Kernel("quad_rb_step", "cfd_rb_carry", "cfd_tpu_torch/csrc/rb_stage.cu",
+                  "cfd_tpu/kernels/rb_quad.py:81")
+RB_CORRECTOR = Kernel("quad_rb_corrector", "cfd_rb_corrector",
+                      "cfd_tpu_torch/csrc/rb_stage.cu", "cfd_tpu/kernels/rb_quad.py:225")
+
+
+def _box_noslip_bc_quad(u, v, grow, gcol, ny: int, nx: int):
+    """physics.boussinesq.box_noslip_bc in quad form, the same update order
+    (cfd_tpu/kernels/rb_quad.py:40-59)."""
+    u = _where4([(g == 0) & (c <= nx) for g, c in zip(grow, gcol)],
+                [-a for a in _qshift(u, 1, 0)], u)
+    u = _where4([(g == ny + 1) & (c <= nx) for g, c in zip(grow, gcol)],
+                [-a for a in _qshift(u, -1, 0)], u)
+    zero = [torch.zeros_like(a) for a in u]
+    u = _where4([((c == 0) | (c == nx)) & (g >= 1) & (g <= ny)
+                 for g, c in zip(grow, gcol)], zero, u)
+    v = _where4([(c == 0) & (g <= ny) for g, c in zip(grow, gcol)],
+                [-a for a in _qshift(v, 0, 1)], v)
+    v = _where4([(c == nx + 1) & (g <= ny) for g, c in zip(grow, gcol)],
+                [-a for a in _qshift(v, 0, -1)], v)
+    v = _where4([((g == 0) | (g == ny)) & (c >= 1) & (c <= nx)
+                 for g, c in zip(grow, gcol)], zero, v)
+    return u, v
+
+
+def _temperature_bc_quad(T, grow, gcol, ny: int, nx: int, t_bottom: float, t_top: float):
+    """physics.boussinesq.temperature_bc in quad form: the Dirichlet ghost
+    rows by reflection, then the adiabatic ghost columns
+    (cfd_tpu/kernels/rb_quad.py:62-78)."""
+    T = _where4([(g == 0) & (c >= 1) & (c <= nx) for g, c in zip(grow, gcol)],
+                [2.0 * t_bottom - a for a in _qshift(T, 1, 0)], T)
+    T = _where4([(g == ny + 1) & (c >= 1) & (c <= nx) for g, c in zip(grow, gcol)],
+                [2.0 * t_top - a for a in _qshift(T, -1, 0)], T)
+    T = _where4([(c == 0) & (g >= 1) & (g <= ny) for g, c in zip(grow, gcol)],
+                _qshift(T, 0, 1), T)
+    return _where4([(c == nx + 1) & (g >= 1) & (g <= ny) for g, c in zip(grow, gcol)],
+                   _qshift(T, 0, -1), T)
+
+
+class QuadRBCorrector:
+    """(us4, vs4, p4) -> (u4, v4): the rho-divided projection on valid faces,
+    the tentative value elsewhere, then the box no-slip ghosts
+    (cfd_tpu/kernels/rb_quad.py:225). Used at the stats/export boundary
+    (physics/boussinesq.py unalign_state)."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs):
+        self.qshape = quad_shape(shape)
+        self.ny, self.nx = shape[0] - 2, shape[1] - 2
+        self.coeffs = coeffs
+        self.cu = coeffs.dt / (coeffs.density * coeffs.dx)
+        self.cv = coeffs.dt / (coeffs.density * coeffs.dy)
+
+    def __call__(self, us, vs, p):
+        _check(self.qshape, us, vs, p)
+        if route(us, vs, p) == "cuda":
+            return self.kernel(us, vs, p)
+        return self.plain(us, vs, p)
+
+    def _geometry(self, device):
+        grow, gcol = _qiota(self.qshape[1], self.qshape[2], device)
+        return grow, gcol, _valid_masks(grow, gcol, self.ny, self.nx)
+
+    def _corrected(self, us, vs, p, grow, gcol, u_valid, v_valid):
+        pE, pN = _qshift(list(p), 0, 1), _qshift(list(p), 1, 0)
+        u = [torch.where(u_valid[q], us[q] - self.cu * (pE[q] - p[q]), us[q])
+             for q in range(4)]
+        v = [torch.where(v_valid[q], vs[q] - self.cv * (pN[q] - p[q]), vs[q])
+             for q in range(4)]
+        return _box_noslip_bc_quad(u, v, grow, gcol, self.ny, self.nx)
+
+    def plain(self, us, vs, p):
+        grow, gcol, (u_valid, v_valid, _) = self._geometry(us.device)
+        u, v = self._corrected(us, vs, p, grow, gcol, u_valid, v_valid)
+        return torch.stack(u), torch.stack(v)
+
+    def _ints(self):
+        _, Hq8, Wqa = self.qshape
+        return (Hq8, Wqa, self.ny, self.nx)
+
+    def kernel(self, us, vs, p):
+        u2, v2 = torch.empty_like(us), torch.empty_like(us)
+        RB_CORRECTOR(us, ptr(us), ptr(vs), ptr(p), ptr(u2), ptr(v2), *self._ints(),
+                     self.cu, self.cv)
+        return u2, v2
+
+
+class QuadRBStep(QuadRBCorrector):
+    """The fused tentative-carry Rayleigh-Benard stage
+    (cfd_tpu/kernels/rb_quad.py:81, math in rb_carry_compute :130-222):
+    (us, vs, p, T[, p_prev]) -> (us', vs', T', b[, guess], sum b). With
+    ``emit_guess`` the call takes p_prev and also returns the extrapolated
+    warm start 2 p - p_prev. ``sum b`` is a 0-d float32 tensor summed in
+    fixed_order_sum's order. The wall temperatures are ``params``'.
+
+    The buoyancy constant is the reference's ``dt * buoyancy * 0.5`` with
+    the free-fall buoyancy 1, formed as a Python double and then multiplied
+    as one float32 (rb_quad.py:201); plain and kernel take the same value."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, kappa: float, params: RBParams,
+                 emit_guess: bool = False):
+        super().__init__(shape, coeffs)
+        self.kappa = kappa
+        self.t_bottom, self.t_top = params.t_bottom, params.t_top
+        self.buoy = coeffs.dt * 0.5
+        self.rho_dt = coeffs.density / coeffs.dt
+        self.emit_guess = emit_guess
+
+    def __call__(self, us, vs, p, T, p_prev=None):
+        fields = (us, vs, p, T) + ((p_prev,) if self.emit_guess else ())
+        if (p_prev is not None) != self.emit_guess:
+            raise ValueError("p_prev is required with emit_guess and refused without it")
+        _check(self.qshape, *fields)
+        if route(*fields) == "cuda":
+            return self.kernel(*fields)
+        return self.plain(*fields)
+
+    def plain(self, us, vs, p, T, p_prev=None):
+        c = self.coeffs
+        ny, nx = self.ny, self.nx
+        grow, gcol, (u_valid, v_valid, cell) = self._geometry(us.device)
+        u2, v2 = self._corrected(us, vs, p, grow, gcol, u_valid, v_valid)
+
+        T = list(T)
+        TE, TW = _qshift(T, 0, 1), _qshift(T, 0, -1)
+        TN, TS = _qshift(T, 1, 0), _qshift(T, -1, 0)
+        fe = [u2[q] * 0.5 * (T[q] + TE[q]) for q in range(4)]
+        fn = [v2[q] * 0.5 * (T[q] + TN[q]) for q in range(4)]
+        feW, fnS = _qshift(fe, 0, -1), _qshift(fn, -1, 0)
+        T2 = []
+        for q in range(4):
+            adv = (fe[q] - feW[q]) * c.idx + (fn[q] - fnS[q]) * c.idy
+            lap = ((TE[q] - 2.0 * T[q] + TW[q]) * c.idx2
+                   + (TN[q] - 2.0 * T[q] + TS[q]) * c.idy2)
+            T2.append(torch.where(cell[q], T[q] + c.dt * (self.kappa * lap - adv), T[q]))
+        T2 = _temperature_bc_quad(T2, grow, gcol, ny, nx, self.t_bottom, self.t_top)
+
+        us_raw, vs_raw = _predictor_quad(u2, v2, c)
+        T2N = _qshift(T2, 1, 0)
+        us2 = [torch.where(u_valid[q], us_raw[q], u2[q]) for q in range(4)]
+        vs2 = [torch.where(v_valid[q], vs_raw[q] + self.buoy * (T2[q] + T2N[q]), v2[q])
+               for q in range(4)]
+        us2, vs2 = _box_noslip_bc_quad(us2, vs2, grow, gcol, ny, nx)
+
+        usW, vsS = _qshift(us2, 0, -1), _qshift(vs2, -1, 0)
+        b = []
+        for q in range(4):
+            div = (us2[q] - usW[q]) * c.idx + (vs2[q] - vsS[q]) * c.idy
+            b.append(torch.where(cell[q], self.rho_dt * div, torch.zeros_like(div)))
+        b = torch.stack(b)
+        outs = [torch.stack(us2), torch.stack(vs2), torch.stack(T2), b]
+        if self.emit_guess:
+            outs.append(2.0 * p - p_prev)
+        return (*outs, fixed_order_sum(b))
+
+    def kernel(self, us, vs, p, T, p_prev=None):
+        u_scr, v_scr, us2, vs2, T2, b = (torch.empty_like(us) for _ in range(6))
+        guess = torch.empty_like(us) if self.emit_guess else None
+        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
+                               device=us.device)
+        sum_b = torch.empty((), dtype=torch.float32, device=us.device)
+        c = self.coeffs
+        opt = lambda t: ptr(t) if t is not None else None
+        RB_CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(T), opt(p_prev), ptr(u_scr), ptr(v_scr),
+                 ptr(us2), ptr(vs2), ptr(T2), ptr(b), opt(guess), ptr(partials), ptr(sum_b),
+                 *self._ints(), self.cu, self.cv, c.dt, c.viscosity, c.idx, c.idy, c.idx2,
+                 c.idy2, self.rho_dt, self.kappa, 2.0 * self.t_bottom, 2.0 * self.t_top,
+                 self.buoy)
+        outs = [us2, vs2, T2, b] + ([guess] if self.emit_guess else [])
+        return (*outs, sum_b)
+
+
+def make_quad_rb_step_kernel(shape, coeffs, kappa: float, params: RBParams,
+                             emit_guess: bool = False) -> QuadRBStep:
+    return QuadRBStep(shape, coeffs, kappa, params, emit_guess)
+
+
+def make_quad_rb_corrector(shape, coeffs) -> QuadRBCorrector:
+    return QuadRBCorrector(shape, coeffs)
+
+
+def uncorrect_rb_quad(u, v, p, shape, coeffs: StencilCoeffs):
+    """Inverse correction on NATURAL-layout arrays (resume boundary):
+    us = u + c*(pE - p) on valid faces and u elsewhere (the u_else = us
+    convention's inverse), so corr(uncorrect(u, v, p), p) == (u, v) up to
+    one f32 rounding (cfd_tpu/kernels/rb_quad.py:263). Torch glue."""
+    H, Wp = shape
+    ny, nx = H - 2, Wp - 2
+    cu = coeffs.dt / (coeffs.density * coeffs.dx)
+    cv = coeffs.dt / (coeffs.density * coeffs.dy)
+    jj = torch.arange(H, device=u.device)[:, None]
+    ii = torch.arange(Wp, device=u.device)[None, :]
+    u_valid = (jj >= 1) & (jj <= ny) & (ii >= 1) & (ii <= nx - 1)
+    v_valid = (jj >= 1) & (jj <= ny - 1) & (ii >= 1) & (ii <= nx)
+    pE = torch.roll(p, -1, dims=1)
+    pN = torch.roll(p, -1, dims=0)
+    return (torch.where(u_valid, u + cu * (pE - p), u),
+            torch.where(v_valid, v + cv * (pN - p), v))

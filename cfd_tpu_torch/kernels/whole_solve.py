@@ -1,6 +1,7 @@
 """The whole tolerance-driven multigrid solve in one kernel launch (the port
 of cfd_tpu.kernels.whole_solve): the separable flavor (WholeSolve, the
-cavity and the channel) and the masked flavor of the backward step
+cavity and the channel, and with pin_mean the Rayleigh-Benard case's
+pure-Neumann solve) and the masked flavor of the backward step
 (StepWholeSolve).
 
 ``solve(p4_warm, b4, max_b=None) -> (p4, cycles, res)`` with the contract
@@ -24,9 +25,11 @@ max|b - Ap| as a float32 host number.
 The reference's in-VMEM coarse hierarchy runs lane transfers as matmuls
 (mg_tail.py), so its rounding differs from the per-kernel path by a few
 ulps: its whole-solve and per-kernel cycle counts may differ by one
-(tests/test_whole_solve.py). The port's do not differ. Not ported: the
-bf16 in-kernel hierarchy and pin_mean (ROADMAP.md queue B item 14), and
-the reference's VMEM estimates and toolchain ceiling, which are TPU limits
+(tests/test_whole_solve.py). The port's do not differ. ``cfg.pin_mean``
+(separable only) shifts p to zero interior mean after each cycle's
+residual, in the kernel as in the twin (MultigridPoisson.cycle). Not
+ported: the bf16 in-kernel hierarchy (ROADMAP.md queue B item 14), and the
+reference's VMEM estimates and toolchain ceiling, which are TPU limits
 (ROADMAP.md queue A item 13).
 """
 
@@ -40,6 +43,7 @@ from torch import nn
 
 from cfd_tpu_torch.kernels._build import Kernel, library, ptr, route
 from cfd_tpu_torch.kernels.quad import (
+    SUM_BLOCK,
     _check,
     make_quad_post_prolong_smooth,
     make_quad_pre_smooth_restrict,
@@ -55,6 +59,9 @@ WHOLE_SOLVE = Kernel("quad_whole_solve", "cfd_whole_solve",
 STEP_WHOLE_SOLVE = Kernel("quad_step_whole_solve", "cfd_whole_solve",
                           "cfd_tpu_torch/csrc/whole_solve.cu",
                           "cfd_tpu/kernels/whole_solve.py:569")
+WHOLE_SOLVE_PIN_MEAN = Kernel("quad_whole_solve_pin_mean", "cfd_whole_solve",
+                              "cfd_tpu_torch/csrc/whole_solve.cu",
+                              "cfd_tpu/kernels/whole_solve.py:507 (pin_mean)")
 
 
 def launch_grid(masked: bool = False) -> dict:
@@ -82,14 +89,15 @@ class _WholeSolveBase(nn.Module):
 
     def _alloc_scratch(self, coarse, device):
         # per coarse level: iterate and source; the coarsest fold scratch;
-        # the (max|b|, residual, residual) slots and the (cycles, res) pair
+        # the (max|b|, residual, residual, pin sum) slots and the (cycles,
+        # res) pair
         f32 = dict(dtype=torch.float32, device=device)
         for k, lv in enumerate(coarse, start=1):
             self.register_buffer(f"p{k}", torch.zeros(lv.shape, **f32), persistent=False)
             self.register_buffer(f"b{k}", torch.zeros(lv.shape, **f32), persistent=False)
         self.register_buffer("fold", torch.zeros(self.mg.pinv.numel(), **f32),
                              persistent=False)
-        self.register_buffer("ctl", torch.zeros(3, **f32), persistent=False)
+        self.register_buffer("ctl", torch.zeros(4, **f32), persistent=False)
         self.register_buffer("stats", torch.zeros(2, **f32), persistent=False)
 
     def forward(self, p_warm: torch.Tensor, b: torch.Tensor, max_b=None):
@@ -103,7 +111,7 @@ class _WholeSolveBase(nn.Module):
                                   lambda p, bb: self.mg.cycle(p, bb, plain=True))
 
     def _launch(self, p_warm, b, max_b, coarse, fine_ptrs, fine_ints, fine_floats,
-                scratch):
+                scratch, kernel, pin=(0, None, 0.0)):
         if p_warm.device != self.ctl.device:
             raise ValueError(f"tensor on {p_warm.device}, solver buffers on "
                              f"{self.ctl.device}")
@@ -125,13 +133,12 @@ class _WholeSolveBase(nn.Module):
         null = ctypes.c_void_p(None)
         opt = lambda t: ptr(t) if t is not None else null
         as_ptr = lambda a: ctypes.cast(a, ctypes.c_void_p)
-        kernel = STEP_WHOLE_SOLVE if self.MASKED else WHOLE_SOLVE
         kernel(p_warm, int(self.MASKED), ptr(p_warm), ptr(b), ptr(p_out), *map(opt, scratch),
                opt(max_b), ptr(self.ctl), ptr(self.stats), ptr(self.fold), ptr(self.mg.pinv),
                *map(opt, fine_ptrs), self.qshape[1], self.qshape[2], *fine_ints,
                *fine_floats, len(coarse), as_ptr(idims), as_ptr(fdims), as_ptr(ptr_arr),
                cfg.omega, cfg.pre_sweeps, cfg.post_sweeps, cfg.max_cycles, cfg.tol_factor,
-               cfg.abs_tol, cfg.stall_ratio)
+               cfg.abs_tol, cfg.stall_ratio, pin[0], opt(pin[1]), pin[2])
         cycles, res = self.stats.tolist()
         return p_out, int(cycles), np.float32(res)
 
@@ -139,7 +146,9 @@ class _WholeSolveBase(nn.Module):
 class WholeSolve(_WholeSolveBase):
     """The separable quad-level-0 multigrid solve of ``problem`` on the
     padded grid ``shape``, as one launch. ``cfg`` must use the float32
-    coarse hierarchy."""
+    coarse hierarchy. With ``cfg.pin_mean`` (a pure-Neumann problem) every
+    cycle ends with the mean pin over the nx * ny cells, and the launches
+    count on WHOLE_SOLVE_PIN_MEAN."""
 
     def __init__(self, shape, problem, cfg: mgp.MGConfig, device="cpu"):
         super().__init__()
@@ -160,12 +169,20 @@ class WholeSolve(_WholeSolveBase):
         self.cfg = cfg
         self.qshape = (4, Hq8, Wqa)
         self._alloc_scratch(self.mg.levels[1:], device)
+        if cfg.pin_mean:  # the per-chunk partial sums of the pin
+            self.register_buffer("partials", torch.zeros(
+                -(-4 * Hq8 * Wqa // SUM_BLOCK), dtype=torch.float32, device=device),
+                persistent=False)
 
     def kernel(self, p_warm, b, max_b=None):
         l0 = self.mg.pre0
+        if self.cfg.pin_mean:
+            kernel, pin = WHOLE_SOLVE_PIN_MEAN, (1, self.partials, float(self.mg.n_interior))
+        else:
+            kernel, pin = WHOLE_SOLVE, (0, None, 0.0)
         return self._launch(p_warm, b, max_b, self.mg.levels[1:],
                             (l0.wE, l0.wW, l0.wN, l0.wS), (l0.ny, l0.nx, 0, 0),
-                            (l0.idx2, l0.idy2, 0.0, 0.0), (None, None))
+                            (l0.idx2, l0.idy2, 0.0, 0.0), (None, None), kernel, pin)
 
 
 class StepWholeSolve(_WholeSolveBase):
@@ -200,7 +217,7 @@ class StepWholeSolve(_WholeSolveBase):
         return self._launch(p_warm, b, max_b, self.mg.levels, (None,) * 4,
                             (l0.ny, l0.nx, l0.step_i, l0.inlet_j),
                             (l0.idx2, l0.idy2, l0.denom, 1.0 - l0.omega),
-                            (self.q0, self.filled))
+                            (self.q0, self.filled), STEP_WHOLE_SOLVE)
 
 
 def make_quad_whole_solve(shape, problem, cfg: mgp.MGConfig, device="cpu") -> WholeSolve:

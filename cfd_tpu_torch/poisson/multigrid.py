@@ -1,11 +1,13 @@
 """Geometric multigrid pressure-Poisson solver on the quad path (the port
 of cfd_tpu.poisson.multigrid).
 
-Ported: the rectangle (separable-weight) hierarchies of the cavity and
-channel flavors, solved with the finest level in the quad layout
-(kernels.quad pre/post kernels) and every coarser level on aligned arrays
-(kernels.rb_smoother, composed by kernels.mg_tail.run_tail_vcycle), in
-float32 or with the bfloat16 coarse hierarchy of ``MGConfig.coarse_dtype``;
+Ported: the rectangle (separable-weight) hierarchies of the cavity,
+channel and Rayleigh-Benard flavors (the last pure Neumann, with the
+per-cycle mean pin of ``MGConfig.pin_mean``), solved with the finest
+level in the quad layout (kernels.quad pre/post kernels) and every coarser
+level on aligned arrays (kernels.rb_smoother, composed by
+kernels.mg_tail.run_tail_vcycle), in float32 or with the bfloat16 coarse
+hierarchy of ``MGConfig.coarse_dtype``;
 and the backward step's masked defect-correction hierarchy
 (MaskedQuadMultigridPoisson: the exact masked finest level of
 kernels.step_quad over full-2D-weight coarse levels with the solid fill),
@@ -22,6 +24,14 @@ in float32: tol = max(tol_factor * (max_b if max_b > 0 else 1), abs_tol);
 stop on res <= tol, on max_cycles, or when res >= stall_ratio * prev, with
 the finite sentinels 1e30/2 and 1e30.
 
+pin_mean (multigrid.py:854-866): after each V-cycle the iterate is shifted
+by its interior mean, sum(p) / (nx * ny), on the quad cells. The cycle's
+fused residual is taken before the shift; it stays valid after it only
+when the constant is the operator's nullspace, so the pin is taken for
+pure-Neumann problems only. As in the reference it is glue around the
+kernels: torch ops, with the sum in fixed_order_sum's order and a true
+division by a device scalar.
+
 Unified operator (multigrid.py:13-26):
 
     A(p) = idx2*(wE*(pE - p) + wW*(pW - p)) + idy2*(wN*(pN - p) + wS*(pS - p))
@@ -36,6 +46,7 @@ import torch
 from torch import nn
 
 from cfd_tpu_torch.kernels.mg_tail import _solid_fill, dense_coarse_solve, run_tail_vcycle
+from cfd_tpu_torch.kernels.quad import fixed_order_sum, quad_cell_mask
 from cfd_tpu_torch.kernels.rb_smoother import rb_pairs_for_level
 
 
@@ -156,6 +167,13 @@ def _apply_np(p: PoissonProblem, x: np.ndarray) -> np.ndarray:
     return np.where(_interior_mask(p.nx, p.ny), a, 0.0)
 
 
+def is_pure_neumann(p: PoissonProblem) -> bool:
+    """True when the constant is in the operator's nullspace (A 1 == 0 on
+    the interior), the condition for pin_mean (multigrid.py:642-643)."""
+    ones = _interior_mask(p.nx, p.ny).astype(np.float64)
+    return float(np.abs(_apply_np(p, ones)).max()) == 0.0
+
+
 def _dense_pinv(p: PoissonProblem) -> np.ndarray:
     """Pseudo-inverse of the coarsest operator over interior cells (the
     near-constant mode makes an iterative coarsest solve slow)."""
@@ -172,13 +190,13 @@ def _dense_pinv(p: PoissonProblem) -> np.ndarray:
 class MGConfig:
     """The reference's multigrid configuration (cfd_tpu MGConfig). The port
     honours omega, pre/post_sweeps, max_cycles, tol_factor, abs_tol,
-    min_coarse, stall_ratio and coarse_dtype, and whole_solve with the
-    float32 hierarchy (the case factories then build
-    kernels.whole_solve); pin_mean, tail_from, whole_step, corr_opt and
-    whole_solve with the bfloat16 hierarchy raise NotImplementedError until
-    their kernels are ported (ROADMAP.md queue B). The reference's
-    coarse_sweeps is read by nothing there, so it has no field here and an
-    override naming it is refused."""
+    min_coarse, stall_ratio and coarse_dtype, whole_solve with the float32
+    hierarchy (the case factories then build kernels.whole_solve), and
+    pin_mean on pure-Neumann separable problems; tail_from, whole_step,
+    corr_opt, whole_solve with the bfloat16 hierarchy and pin_mean
+    elsewhere raise NotImplementedError until they are ported (ROADMAP.md
+    queues A and B). The reference's coarse_sweeps is read by nothing
+    there, so it has no field here and an override naming it is refused."""
 
     omega: float = 1.0
     pre_sweeps: int = 2
@@ -317,14 +335,22 @@ class MultigridPoisson(nn.Module):
     quad_level0=...): p and b in the (4, Hq8, Wqa) quad layout, ``cycles``
     an int and ``res`` the final max|b - Ap| as a float32 host number.
 
+    ``cfg.pin_mean`` shifts p to zero mean over its nx * ny cells after
+    every cycle (module docstring).
+
     Buffers: every level's coupling vectors (in the level's storage dtype)
-    and the coarsest pseudo-inverse."""
+    and the coarsest pseudo-inverse; with pin_mean the quad cell mask and
+    the cell count ``n_interior`` as a 0-d float32 tensor."""
 
     def __init__(self, problem: PoissonProblem, cfg: MGConfig, quad_level0,
                  device="cpu"):
         super().__init__()
-        unported = [name for name in ("pin_mean", "whole_step", "corr_opt")
-                    if getattr(cfg, name)]
+        unported = [name for name in ("whole_step", "corr_opt") if getattr(cfg, name)]
+        if cfg.pin_mean and not is_pure_neumann(problem):
+            # the reference takes it only on its unfused natural path there
+            unported.append("pin_mean on a problem that is not pure Neumann (the "
+                            "unfused residual of the natural path, ROADMAP.md queue A "
+                            "item 2)")
         if cfg.tail_from is not None:
             unported.append("tail_from")
         if cfg.whole_solve and cfg.coarse_dtype is not None:
@@ -349,6 +375,11 @@ class MultigridPoisson(nn.Module):
         self.register_buffer(
             "pinv", torch.as_tensor(_dense_pinv(probs[-1]), dtype=torch.float32,
                                     device=device))
+        if cfg.pin_mean:  # pure Neumann: the interior is the whole rectangle
+            self.n_interior = problem.nx * problem.ny
+            self.register_buffer("cell", quad_cell_mask(problem.shape, device))
+            self.register_buffer("n_int", torch.tensor(float(self.n_interior),
+                                                       dtype=torch.float32, device=device))
         self.pre0, self.post0 = quad_level0
         # coarse levels 1..L-2: pre-smooth + residual field, post-smooth
         inner = self.levels[1:-1]
@@ -362,8 +393,15 @@ class MultigridPoisson(nn.Module):
         return dense_coarse_solve(self.levels[-1], self.pinv, b)
 
     def cycle(self, p: torch.Tensor, b: torch.Tensor, plain: bool = False):
-        """One V-cycle from the quad finest level: (p4, b4) -> (p4, res).
+        """One V-cycle from the quad finest level: (p4, b4) -> (p4, res),
+        then the mean pin when ``cfg.pin_mean`` (res is taken before it).
         ``plain`` runs every kernel's plain twin whatever the device."""
+        p, res = self._vcycle(p, b, plain)
+        if self.cfg.pin_mean:
+            p = torch.where(self.cell, p - fixed_order_sum(p) / self.n_int, p)
+        return p, res
+
+    def _vcycle(self, p, b, plain):
         p, rc = self.pre0.plain(p, b) if plain else self.pre0(p, b)
         rc_shape = rc.shape
         lv1 = self.levels[1]

@@ -1,5 +1,5 @@
-"""Where the time of one cavity, channel or backward-step step goes on the
-card.
+"""Where the time of one cavity, channel, backward-step or Rayleigh-Benard
+step goes on the card.
 
     python -m cfd_tpu_torch.profile_step [--n 2048] [--warmup 100] [--steps 50]
                                          [--out DIR]
@@ -7,16 +7,20 @@ card.
                                          [--mg default|whole|per-kernel] ...
     python -m cfd_tpu_torch.profile_step --case step [--nx 2048 --ny 256]
                                          [--mg default|whole|per-kernel] ...
+    python -m cfd_tpu_torch.profile_step --case rb [--nx 1536 --ny 512]
+                                         [--mg default|whole|per-kernel] ...
 
 Drives a main path on cuda through Simulation's step function: the cavity,
 make_cavity_case(n_interior=n, poisson="multigrid", dtype=float32,
 tolerance_factor=1e-6), the channel, make_channel_case(nx, ny,
 poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0, dtype=float32)
-(default 1536x512), or the step, make_backwards_step_case(nx, ny, the same
-solver settings) (default 2048x256), with the case's default solve or the
-other one. ``--mg`` picks the solve: ``default`` is the case's own (the
-per-kernel solve for the cavity, the whole-solve for the channel and the
-step), ``whole`` and ``per-kernel`` force one. It runs three windows:
+(default 1536x512), the step, make_backwards_step_case(nx, ny, the same
+solver settings) (default 2048x256), or Rayleigh-Benard,
+make_rayleigh_benard_case(nx, ny, rayleigh=1e6, dtype=float32) with its own
+tolerances (default 1536x512), with the case's default solve or the other
+one. ``--mg`` picks the solve: ``default`` is the case's own (the
+per-kernel solve for the cavity, the whole-solve for the others),
+``whole`` and ``per-kernel`` force one. It runs three windows:
 
 1. ``--warmup`` steps, untimed;
 2. ``--steps`` steps timed with the host clock between two synchronizes,
@@ -124,7 +128,7 @@ def card_line() -> str:
 def make_case(args):
     """The profiled case on cuda (see the module docstring)."""
     from cfd_tpu_torch.cases import (make_backwards_step_case, make_cavity_case,
-                                     make_channel_case)
+                                     make_channel_case, make_rayleigh_benard_case)
 
     ov = {"whole": {"whole_solve": True}, "default": None,
           "per-kernel": {"whole_solve": False} if args.case != "cavity" else None}[args.mg]
@@ -134,8 +138,13 @@ def make_case(args):
                                 mg_overrides=ov)
         return case, describe(case, f"cavity {args.n}^2")
     make, (nx, ny) = {"channel": (make_channel_case, (1536, 512)),
-                      "step": (make_backwards_step_case, (2048, 256))}[args.case]
+                      "step": (make_backwards_step_case, (2048, 256)),
+                      "rb": (make_rayleigh_benard_case, (1536, 512))}[args.case]
     nx, ny = args.nx or nx, args.ny or ny
+    if args.case == "rb":
+        case = make(nx=nx, ny=ny, rayleigh=1e6, dtype=torch.float32, device="cuda",
+                    mg_overrides=ov)
+        return case, describe(case, f"rb {nx}x{ny}")
     case = make(nx=nx, ny=ny, poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0,
                 dtype=torch.float32, device="cuda", mg_overrides=ov)
     return case, describe(case, f"{args.case} {nx}x{ny}")
@@ -150,12 +159,13 @@ def describe(case, what: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m cfd_tpu_torch.profile_step",
                                  description=__doc__.split("\n")[0])
-    ap.add_argument("--case", choices=["cavity", "channel", "step"], default="cavity")
+    ap.add_argument("--case", choices=["cavity", "channel", "step", "rb"], default="cavity")
     ap.add_argument("--n", type=int, default=2048, help="cavity: interior cells per side")
     ap.add_argument("--nx", type=int, default=None,
-                    help="channel/step: interior cells in x (default 1536 / 2048)")
+                    help="channel/step/rb: interior cells in x (default 1536 / 2048 / "
+                         "1536)")
     ap.add_argument("--ny", type=int, default=None,
-                    help="channel/step: interior cells in y (default 512 / 256)")
+                    help="channel/step/rb: interior cells in y (default 512 / 256 / 512)")
     ap.add_argument("--mg", choices=["default", "whole", "per-kernel"], default="default",
                     help="the pressure solve (default: the case's own path)")
     ap.add_argument("--warmup", type=int, default=100)

@@ -6,9 +6,12 @@ start (:230-239) and for the backward step with the plain previous-p warm
 start (:241-252) — the state's u/v are the TENTATIVE velocities and one
 fused corrector+BC+predictor+source kernel runs at the start of each step,
 followed (channel and step) by the source mean removal and then the
-pressure solve — and the ``Simulation`` time loop with its stats rows and
-NaN/KE-blowup abort. The JAX package runs a chunk
-of steps as one device program (lax.scan around lax.while_loop); PyTorch
+pressure solve — the channel ordering with the temperature carried through
+the fused kernel (Rayleigh-Benard, in place of the reference's
+``custom_step``, cfd_tpu/physics/boussinesq.py:334-353), the per-case
+hooks ``extra_stats`` and ``initial_state_fn`` (cfd_tpu/solver.py:139-141),
+and the ``Simulation`` time loop with its stats rows and NaN/KE-blowup
+abort. The JAX package runs a chunk of steps as one device program (lax.scan around lax.while_loop); PyTorch
 runs eagerly, so a step here is a sequence of kernel launches and the
 solve reads each V-cycle's residual back to the host.
 """
@@ -36,7 +39,9 @@ class Case:
     name: str
     grid: Grid
     coeffs: StencilCoeffs
-    ordering: str  # "cavity" | "channel" (tentative carry only; the step is "channel")
+    # "cavity" | "channel" | "rayleigh_benard" (tentative carry only; the
+    # step is "channel")
+    ordering: str
     velocity_bc: VelocityBC
     poisson_solve: Callable
     remove_source_mean: bool
@@ -59,6 +64,8 @@ class Case:
     # reference's non-convergence warning (cavity-01.cpp:681-684)
     poisson_max_iters: Optional[int] = None
     info: Optional[dict] = None
+    extra_stats: Optional[Callable] = None  # (logical State) -> dict of 0-d tensors
+    initial_state_fn: Optional[Callable] = None  # () -> carried State
 
     @property
     def dt(self) -> float:
@@ -81,8 +88,11 @@ def make_step(case: Case) -> Callable[[State], tuple[State, StepDiagnostics]]:
     """The per-step function of a case: the tentative-carry cavity ordering,
     or the channel ordering with the extrapolated warm start (the channel)
     or with the plain previous-p warm start (the step,
-    cfd_tpu/solver.py:241-252). The other orderings raise."""
-    if case.ordering not in ("cavity", "channel"):
+    cfd_tpu/solver.py:241-252); the "rayleigh_benard" ordering is the
+    channel's with T carried through the fused kernel, (us, vs, p, T[,
+    p_prev]) -> (us', vs', T', b[, guess], sum b). The other orderings
+    raise."""
+    if case.ordering not in ("cavity", "channel", "rayleigh_benard"):
         raise NotImplementedError(
             f"the {case.ordering!r} ordering is not ported yet "
             "(ROADMAP.md queue A)")
@@ -108,25 +118,34 @@ def make_step(case: Case) -> Callable[[State], tuple[State, StepDiagnostics]]:
 
         cell = quad_cell_mask(g.shape, case.device)
     n_fluid = torch.tensor(float(g.n_fluid), dtype=case.dtype, device=case.device)
+    with_T = case.ordering == "rayleigh_benard"
+
+    def carry(state: State, *p_prev):
+        """(us', vs', T', b, *guess, sum b); T passes through unchanged
+        where the case carries no temperature."""
+        if with_T:
+            return fused(state.u, state.v, state.p, state.T, *p_prev)
+        us2, vs2, *rest = fused(state.u, state.v, state.p, *p_prev)
+        return (us2, vs2, state.T, *rest)
 
     if not case.extrapolate_warm_start:
 
         def step(state: State) -> tuple[State, StepDiagnostics]:
-            us2, vs2, b, sum_b = fused(state.u, state.v, state.p)
+            us2, vs2, T2, b, sum_b = carry(state)
             if case.remove_source_mean:
                 b = remove_mean_quad(b, sum_b, n_fluid, cell)
             p, iters, res = case.poisson_solve(state.p, b)
-            return State(us2, vs2, p, state.T, None), StepDiagnostics(iters, res)
+            return State(us2, vs2, p, T2, None), StepDiagnostics(iters, res)
 
         return step
 
     def step(state: State) -> tuple[State, StepDiagnostics]:
-        us2, vs2, b, guess, sum_b = fused(state.u, state.v, state.p, state.p_prev)
+        us2, vs2, T2, b, guess, sum_b = carry(state, state.p_prev)
         if case.remove_source_mean:
             b = remove_mean_quad(b, sum_b, n_fluid, cell)
         # no max_b: the tolerance base is max|b| after the mean removal
         p, iters, res = case.poisson_solve(guess, b)
-        return State(us2, vs2, p, state.T, state.p), StepDiagnostics(iters, res)
+        return State(us2, vs2, p, T2, state.p), StepDiagnostics(iters, res)
 
     return step
 
@@ -148,6 +167,8 @@ class Simulation:
 
     def initial_state(self) -> State:
         case = self.case
+        if case.initial_state_fn is not None:
+            return case.initial_state_fn()
         s = State.zeros(case.grid.shape, dtype=case.dtype, device=case.device)
         u, v = case.velocity_bc(s.u, s.v)
         p_prev = s.p if case.extrapolate_warm_start else None
@@ -161,6 +182,8 @@ class Simulation:
         state = self._logical(state)
         vals = flow_statistics(state.u, state.v, self.case.coeffs, self._cell_mask,
                                self.case.ke_divisor)
+        if self.case.extra_stats is not None:
+            vals.update(self.case.extra_stats(state))
         keys = list(vals)
         # one device->host transfer for the whole row
         flat = torch.stack([vals[k].to(torch.float32) for k in keys]).cpu()

@@ -58,6 +58,26 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
 10. Step card against CPU at 512x64, 20 steps, on both solves: cycles
     equal every step, fields within 5e-5 relative, avg_KE within 1e-6
     relative.
+11. Per-kernel check at the 1536x512 Rayleigh-Benard shapes: the RB carry
+    (the plain and the warm-start-guess variants) and the RB corrector
+    against their twins (1e-5) on seeded inputs, and the pin-mean
+    whole-solve on a seeded mean-free source against its twin and against
+    the per-kernel composition (the same cycles, p within 1e-5), through
+    both exits of its tolerance loop: the slice's configuration stops on
+    the stall rule there, a copy with tol_factor 1e-3 on the tolerance.
+    Times as in phase 2, each with its bound; the whole-solve also per
+    V-cycle.
+12. The RB slice: make_rayleigh_benard_case(nx=1536, ny=512, rayleigh=1e6,
+    dtype=float32) on cuda (its own tolerances 1e-7 and 1e-10, V(2,1), the
+    pin-mean whole-solve), 300 steps in chunks of 100 with the launch
+    counters zeroed just before; every kernel of the path must have
+    launched and u, v, p and T must stay finite. Then 100 steps with
+    whole_solve=False (the per-kernel pin-mean solve). Prints steps/s,
+    V-cycles/step and cell-steps/s (nx x ny x steps/s) over the last 100
+    steps of each, and the last row's Nusselt numbers.
+13. RB card against CPU at 256x128, 20 steps, on both solves: cycles equal
+    every step, u, v, p and T within 5e-5 relative, avg_KE and
+    nusselt_volume within 1e-6 relative.
 
 The line before the last is a JSON object {"kernels": [...]}: per kernel,
 its launches on its path's run, its error against its twin, its time and
@@ -69,6 +89,7 @@ spec-sheet peaks. The last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -96,6 +117,11 @@ PREDICTOR_SOURCE_OPS, CORRECTOR_OPS = 76, 8
 # coarse cell
 STEP_GS_OPS, STEP_RES_OPS, FILL_OPS = 10, 10, 8
 STEP = (2048, 256)
+# the RB carry's temperature update (the two face fluxes, the advection and
+# the diffusion, the Euler step) and buoyancy per cell (rb_stage.cu); the
+# pin per cell per cycle (the sum and the shift)
+TEMPERATURE_OPS, BUOYANCY_OPS, PIN_OPS = 24, 3, 2
+RB_SHAPE = (1536, 512)
 
 
 def log(msg: str) -> None:
@@ -306,8 +332,9 @@ def run_path(case, n_steps: int, path_kernels, what: str, card: str, rate,
     if missing:
         raise AssertionError(f"kernels never launched on the {what} path: {missing}")
     st = sim._logical(state)
-    for fname in ("u", "v", "p"):
-        if not bool(torch.isfinite(getattr(st, fname)).all()):
+    for fname in ("u", "v", "p", "T"):
+        a = getattr(st, fname)
+        if a is not None and not bool(torch.isfinite(a).all()):
             raise AssertionError(f"non-finite {fname} after the {what} run")
     ke = sim.history[-1]["avg_kinetic_energy"]
     if not ke > 0:
@@ -318,7 +345,7 @@ def run_path(case, n_steps: int, path_kernels, what: str, card: str, rate,
     log(f"  {what}: {n_steps} steps in {wall:.2f} s; last 100: {steps_s:.2f} steps/s, "
         f"{cycles:.2f} V-cycles/step, {rate[1](cycles) * steps_s:.4e} {rate[0]}, "
         f"avg_KE={ke:.6f} ({card})")
-    return launches, state, dict(steps_s=steps_s, cycles=cycles)
+    return launches, state, dict(steps_s=steps_s, cycles=cycles, row=sim.history[-1])
 
 
 def card_vs_cpu(make, kw: dict, what: str) -> None:
@@ -330,20 +357,26 @@ def card_vs_cpu(make, kw: dict, what: str) -> None:
     for where, dev in (("card", "cuda"), ("cpu", "cpu")):
         sim = Simulation(make(device=dev, **kw), log=lambda m: None)
         st = sim._logical(sim.run(n_steps=20))
-        out[where] = (sim.step_iters, st, sim.history[-1]["avg_kinetic_energy"])
-    (it_g, st_g, ke_g), (it_c, st_c, ke_c) = out["card"], out["cpu"]
+        out[where] = (sim.step_iters, st, sim.history[-1])
+    (it_g, st_g, row_g), (it_c, st_c, row_c) = out["card"], out["cpu"]
     log(f"  {what}: cycles/step card {it_g}")
     log(f"  {what}: cycles/step cpu  {it_c}")
     if it_g != it_c:
         raise AssertionError(f"{what}: card and CPU cycle counts differ")
-    for name in ("u", "v", "p"):
+    for name in ("u", "v", "p", "T"):
+        if getattr(st_c, name) is None:
+            continue
         a = getattr(st_g, name).float().cpu()
         b = getattr(st_c, name).float()
         rel_err(a, b, f"{what} card vs cpu {name}", 5e-5, [])
-    rel = abs(ke_g - ke_c) / abs(ke_c)
-    log(f"  {what} avg_KE card {ke_g!r} cpu {ke_c!r} rel {rel:.3e} (limit 1e-6)")
-    if not rel <= 1e-6:
-        raise AssertionError(f"{what}: avg_KE differs by {rel:.3e}")
+    for key in ("avg_kinetic_energy", "nusselt_volume"):
+        if key not in row_c:
+            continue
+        rel = abs(row_g[key] - row_c[key]) / abs(row_c[key])
+        log(f"  {what} {key} card {row_g[key]!r} cpu {row_c[key]!r} rel {rel:.3e} "
+            f"(limit 1e-6)")
+        if not rel <= 1e-6:
+            raise AssertionError(f"{what}: {key} differs by {rel:.3e}")
 
 
 def check_channel_kernels(case, dev) -> dict:
@@ -549,10 +582,118 @@ def check_step_kernels(case, dev) -> dict:
     return results
 
 
+def check_rb_kernels(case, dev) -> dict:
+    """Phase 11: the RB carry (both variants), the RB corrector and the
+    pin-mean whole-solve against their twins at the RB shapes. The solve is
+    checked through both of its exits: the slice's own configuration stops
+    on the stall rule on a white-noise source (its f32 floor lies above
+    tol_factor 1e-7 times max|b|), and a copy with tol_factor 1e-3 stops on
+    the tolerance."""
+    from cfd_tpu_torch.kernels.quad import to_quad
+    from cfd_tpu_torch.kernels.rb_quad import make_quad_rb_step_kernel
+    from cfd_tpu_torch.kernels.whole_solve import make_quad_whole_solve
+    from cfd_tpu_torch.physics.boussinesq import RBParams
+    from cfd_tpu_torch.poisson.multigrid import neumann_problem
+
+    rng = np.random.default_rng(1538)
+    g = case.grid
+    shape = g.shape
+    cells = g.nx * g.ny
+    inner = np.zeros(shape, np.float32)
+    inner[1:-1, 1:-1] = 1.0
+
+    def field(scale=0.1, interior_only=False, offset=None):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        if offset is not None:
+            a += offset
+        if interior_only:
+            a *= inner
+        return to_quad(torch.from_numpy(a).to(dev), shape)
+
+    results = {}
+    carry, corr = case.step_kernels
+    profile = np.linspace(1.0, 0.0, shape[0], dtype=np.float32)[:, None]
+    us, vs, p = field(), field(), field(interior_only=True)
+    T, p_prev = field(0.01, offset=profile), field(interior_only=True)
+    errs = []
+    got, want = carry.kernel(us, vs, p, T), carry.plain(us, vs, p, T)
+    for name, a, b in zip(("us'", "vs'", "T'", "b", "sum b"), got, want):
+        rel_err(a, b, f"quad_rb_step {name}", TOL_F32, errs)
+    guess_op = make_quad_rb_step_kernel(
+        shape, case.coeffs, case.info["kappa"],
+        RBParams(case.info["rayleigh"], case.info["prandtl"]), emit_guess=True)
+    got_g = guess_op.kernel(us, vs, p, T, p_prev)
+    want_g = guess_op.plain(us, vs, p, T, p_prev)
+    for name, a, b in zip(("us'", "vs'", "T'", "b", "guess", "sum b"), got_g, want_g):
+        rel_err(a, b, f"quad_rb_step (emit_guess) {name}", TOL_F32, errs)
+    results["quad_rb_step"] = dict(
+        err=max(errs), ms=median_ms(lambda: carry.kernel(us, vs, p, T)),
+        plain_ms=median_ms(lambda: carry.plain(us, vs, p, T)),
+        **bound(nbytes(us, vs, p, T, *got),
+                cells * (CORRECTOR_OPS + TEMPERATURE_OPS + PREDICTOR_SOURCE_OPS
+                         + BUOYANCY_OPS)))
+    errs = []
+    got, want = corr.kernel(us, vs, p), corr.plain(us, vs, p)
+    for name, a, b in zip(("u", "v"), got, want):
+        rel_err(a, b, f"quad_rb_corrector {name}", TOL_F32, errs)
+    results["quad_rb_corrector"] = dict(
+        err=max(errs), ms=median_ms(lambda: corr.kernel(us, vs, p)),
+        plain_ms=median_ms(lambda: corr.plain(us, vs, p)),
+        **bound(nbytes(us, vs, p, *got), cells * CORRECTOR_OPS))
+
+    # the pin-mean whole-solve on a seeded, mean-free source from a zero
+    # warm start
+    ws = case.poisson_solve
+    mg, cfg = ws.mg, ws.cfg
+    b = field(scale=1e3, interior_only=True)
+    b = torch.where(b != 0, b - b.sum() / cells, b)
+    p0 = torch.zeros_like(b)
+    loose = make_quad_whole_solve(
+        shape, neumann_problem(g.nx, g.ny, g.dx, g.dy),
+        dataclasses.replace(cfg, tol_factor=1e-3), device=dev)
+    errs = []
+    for exit_rule, solve in (("stall", ws), ("tolerance", loose)):
+        pk, ck, rk = solve.kernel(p0, b)
+        pp, cp, rp = solve.plain(p0, b)
+        pm, cm, rm = solve.mg(p0, b)  # the per-kernel composition of the quad kernels
+        tol = max(solve.cfg.tol_factor * float(b.abs().max()), solve.cfg.abs_tol)
+        bit = bool(torch.equal(pk, pm)) and bool(torch.equal(pk, pp))
+        log(f"  quad_whole_solve_pin_mean, {exit_rule} exit (tol_factor "
+            f"{solve.cfg.tol_factor:g}): cycles kernel {ck}, plain twin {cp}, per-kernel "
+            f"{cm}; res {float(rk)!r} / {float(rp)!r} / {float(rm)!r}; tol {tol:.4e}; "
+            f"p bit-identical to both: {bit}")
+        if not ck == cp == cm:
+            raise AssertionError(f"pin-mean whole-solve ({exit_rule} exit): {ck} cycles, "
+                                 f"its twin {cp}, the per-kernel path {cm}")
+        if (float(rk) <= tol) != (exit_rule == "tolerance") or ck >= solve.cfg.max_cycles:
+            raise AssertionError(f"pin-mean whole-solve: expected the {exit_rule} exit, got "
+                                 f"res {float(rk)!r} against tol {tol:.4e} after {ck} cycles")
+        rel_err(pk, pp, f"quad_whole_solve_pin_mean ({exit_rule}) p vs twin", TOL_F32, errs)
+        rel_err(pk, pm, f"quad_whole_solve_pin_mean ({exit_rule}) p vs per-kernel", TOL_F32,
+                [])
+    pk, ck, _ = ws.kernel(p0, b)  # the slice's own solve is the one timed
+    ms = median_ms(lambda: ws.kernel(p0, b))
+    ops_per_cycle = cells * ((cfg.pre_sweeps + cfg.post_sweeps) * GS_OPS + 2 * RES_OPS + 1
+                             + PROLONG_OPS + PIN_OPS)
+    for lv, below in zip(mg.levels[1:-1], mg.levels[2:]):
+        n = lv.nx * lv.ny
+        ops_per_cycle += (n * ((cfg.pre_sweeps + cfg.post_sweeps) * GS_OPS + RES_OPS
+                               + PROLONG_OPS) + below.nx * below.ny * RESTRICT_OPS)
+    ops_per_cycle += 2 * mg.pinv.numel()
+    results["quad_whole_solve_pin_mean"] = dict(
+        err=max(errs), ms=ms, plain_ms=median_ms(lambda: ws.plain(p0, b), reps=3),
+        cycles=ck, ms_per_cycle=ms / ck,
+        bound_bytes_ms=nbytes(p0, b, pk, mg.pinv) / PEAK_BYTES_S * 1e3,
+        bound_ops_ms_per_cycle=ops_per_cycle / PEAK_F32_S * 1e3,
+        **bound(nbytes(p0, b, pk, mg.pinv), ck * ops_per_cycle + cells))
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check "
                          "needs a CUDA GPU")
+    t_start = time.perf_counter()
     import_port()
     from cfd_tpu_torch.cases import make_cavity_case, make_channel_case
     from cfd_tpu_torch.kernels import KERNELS, _build
@@ -698,12 +839,69 @@ def main() -> int:
                                                    mg_overrides=ov),
                     f"step 512x64 {'per-kernel' if ov else 'default'}")
 
+    from cfd_tpu_torch.cases import make_rayleigh_benard_case
+    from cfd_tpu_torch.kernels import rb_quad as RQ
+
+    nx, ny = RB_SHAPE
+    rb_kw = dict(nx=nx, ny=ny, rayleigh=1e6, dtype=torch.float32)
+    log(f"phase 11: kernels vs plain twins at the {nx}x{ny} Rayleigh-Benard shapes ({card})")
+    case = make_rayleigh_benard_case(device=dev, **rb_kw)
+    mg = case.info["mg"]
+    log(f"  solver config: V({mg.pre_sweeps},{mg.post_sweeps}) whole_solve={mg.whole_solve} "
+        f"pin_mean={mg.pin_mean} tol_factor={mg.tol_factor} abs_tol={mg.abs_tol} "
+        f"levels={len(case.poisson_solve.mg.levels)}")
+    rb_checks = check_rb_kernels(case, dev)
+    for k, r in rb_checks.items():
+        log(f"  {k:36s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
+    w = rb_checks["quad_whole_solve_pin_mean"]
+    log(f"  quad_whole_solve_pin_mean: {w['cycles']} V-cycles, {w['ms_per_cycle']:.4f} ms "
+        f"per V-cycle; bound {w['bound_bytes_ms']:.4f} ms per solve (bytes), "
+        f"{w['bound_ops_ms_per_cycle']:.4f} ms per V-cycle (operations)  ({card})")
+    checks.update(rb_checks)
+
+    log(f"phase 12: the RB slice at {nx}x{ny}, Ra=1e6, 300 steps in chunks of 100, then "
+        f"the per-kernel solve for 100 steps ({card})")
+    cells = ("cell-steps/s", lambda c: nx * ny)
+    rb_launches, state, whole = run_path(
+        case, 300, (RQ.RB_CARRY, RQ.RB_CORRECTOR, WS.WHOLE_SOLVE_PIN_MEAN),
+        "rb whole-solve", card, cells)
+    del case
+    per_kernel_case = make_rayleigh_benard_case(device=dev, mg_overrides={"whole_solve": False},
+                                                **rb_kw)
+    _, _, per_kernel = run_path(
+        per_kernel_case, 100, (RQ.RB_CARRY, Q.PRE, Q.POST, RB.RB_PAIRS), "rb per-kernel", card,
+        cells, state=state, start_step=300)
+    del per_kernel_case
+    for what, r in (("whole-solve", whole), ("per-kernel", per_kernel)):
+        row = r["row"]
+        log(f"  rb {what}, step {row['step']}: Nu bottom {row['nusselt_bottom']:.6f}, top "
+            f"{row['nusselt_top']:.6f}, volume {row['nusselt_volume']:.6f}; T in "
+            f"[{row['temperature_min']:.6f}, {row['temperature_max']:.6f}]")
+    log(f"  rb, steps/s: whole-solve {whole['steps_s']:.2f} ({whole['cycles']:.2f} "
+        f"V-cycles/step, {nx * ny * whole['steps_s']:.4e} cell-steps/s), per-kernel "
+        f"{per_kernel['steps_s']:.2f} ({per_kernel['cycles']:.2f}, "
+        f"{nx * ny * per_kernel['steps_s']:.4e}); reference parity target 2.1 "
+        f"V-cycles/step  ({card})")
+    if not whole["cycles"] <= 3.0:
+        raise AssertionError(f"rb: {whole['cycles']:.2f} V-cycles/step over steps 201-300 "
+                             "(limit 3.0)")
+
+    log("phase 13: RB card vs CPU at 256x128, 20 steps")
+    for ov in (None, {"whole_solve": False}):
+        card_vs_cpu(make_rayleigh_benard_case, dict(nx=256, ny=128, rayleigh=1e6,
+                                                    dtype=torch.float32, print_interval=20,
+                                                    mg_overrides=ov),
+                    f"rb 256x128 {'per-kernel' if ov else 'default'}")
+
     launches = {**cavity_launches, **{k: channel_launches[k] for k in (
         Q.CHANNEL_CARRY.name, Q.CHANNEL_CORRECTOR.name, WS.WHOLE_SOLVE.name)},
         **{k: step_launches[k] for k in (SQ.STEP_CARRY.name, SQ.STEP_CORRECTOR.name,
                                           WS.STEP_WHOLE_SOLVE.name)},
         **{k: step_pk_launches[k] for k in (SQ.STEP_PRE.name, SQ.STEP_POST.name,
-                                             RB.RB_PAIRS_FULL.name)}}
+                                             RB.RB_PAIRS_FULL.name)},
+        **{k: rb_launches[k] for k in (RQ.RB_CARRY.name, RQ.RB_CORRECTOR.name,
+                                       WS.WHOLE_SOLVE_PIN_MEAN.name)}}
     kernels = []
     for k in KERNELS:
         r = checks[k.name]
@@ -712,6 +910,8 @@ def main() -> int:
                             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=None))
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s, the "
+        f"build included")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -157,6 +157,8 @@ def test_port_imports_no_jax():
             "import cfd_tpu_torch.profile_step, cfd_tpu_torch.cases.channel\n"
             "import cfd_tpu_torch.kernels.whole_solve, cfd_tpu_torch.kernels.mg_tail\n"
             "import cfd_tpu_torch.cases.backwards_step, cfd_tpu_torch.kernels.step_quad\n"
+            "import cfd_tpu_torch.physics.boussinesq, cfd_tpu_torch.kernels.rb_quad\n"
+            "import cfd_tpu_torch.ops.random\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'cfd_tpu' or m.startswith('cfd_tpu.'))\n"
             "assert not bad, bad\n"
@@ -185,7 +187,7 @@ def test_profile_trace_summary():
     # the step's kernels, whose names contain other kernels' names
     assert {"step_ghost_red", "step_black", "step_ghosts", "step_prolong_add",
             "step_residual_restrict", "step_residual_max", "step_corrector_kernel",
-            "step_predictor_source_kernel", "step_fold_partials_kernel"} <= names
+            "step_predictor_source_kernel", "fold_partials_kernel"} <= names
     assert is_port_kernel("void (anonymous namespace)::whole_solve_kernel<true>(Params)",
                           names)
     assert is_port_kernel("(anonymous namespace)::step_ghosts(float const*, StepL0)", names)
