@@ -12,9 +12,10 @@ the plain previous-p warm start, and the reference's auto_whole_solve rule
 with "device is cuda" in place of "platform is tpu": the masked
 whole-solve (one kernel launch per pressure solve) on the card, the
 per-kernel defect-correction solve on the CPU, and manual control when
-mg_overrides names a fusion knob. Everything else (SOR, float64, the
-natural layout, whole_step, adaptive dt) raises NotImplementedError rather
-than being ignored.
+mg_overrides names a fusion knob; the lagged adaptive controller's
+``adaptive_impl_carry`` (cfd_tpu/cases/backwards_step.py:227-276).
+Everything else (SOR, float64, the natural layout, whole_step) raises
+NotImplementedError rather than being ignored.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from cfd_tpu_torch.kernels.quad import from_quad, quad_dims, to_quad
 from cfd_tpu_torch.kernels.step_quad import (
     make_quad_step_corr_predictor_source,
     make_quad_step_corrector,
+    step_cell_mask,
     uncorrect_step_quad,
 )
 from cfd_tpu_torch.kernels.whole_solve import auto_whole_solve, make_quad_step_whole_solve
@@ -44,8 +46,8 @@ from cfd_tpu_torch.poisson.multigrid import (
     step_rect_params,
 )
 from cfd_tpu_torch.precision import as_dtype
-from cfd_tpu_torch.solver import Case
-from cfd_tpu_torch.state import State
+from cfd_tpu_torch.solver import Case, remove_mean_quad
+from cfd_tpu_torch.state import State, StepDiagnostics
 
 
 def make_backwards_step_case(
@@ -161,6 +163,36 @@ def make_backwards_step_case(
         f = lambda a: from_quad(a, grid.shape)
         return State(f(u2), f(v2), f(state.p), state.T, None)
 
+    def adaptive_impl_carry():
+        """The lagged controller's step: the traced-dt + Courant masked
+        carry, the fluid-only mean removal, the solve from plain p."""
+        fused_a = make_quad_step_corr_predictor_source(grid.shape, coeffs, step_i, inlet_j,
+                                                       inlet_velocity, adaptive=True)
+        corr_a = make_quad_step_corrector(grid.shape, coeffs, step_i, inlet_j,
+                                          inlet_velocity, traced_dt=True)
+        idx_, idy_ = 1.0 / grid.dx, 1.0 / grid.dy
+        cell = step_cell_mask(grid.shape, step_i, inlet_j, device)
+        n_fluid = torch.tensor(float(grid.n_fluid), dtype=torch.float32, device=device)
+
+        def step(state: State, dts):
+            us2, vs2, b, sum_b, mu, mv = fused_a(dts, state.u, state.v, state.p)
+            p, iters, res = solve(state.p, remove_mean_quad(b, sum_b, n_fluid, cell))
+            return (State(us2, vs2, p, state.T, None), StepDiagnostics(iters, res),
+                    mu * idx_ + mv * idy_)
+
+        def to_aligned(st: State, dt: float) -> State:
+            us, vs = uncorrect_step_quad(st.u, st.v, st.p, grid.shape, coeffs, step_i,
+                                         inlet_j, dt=dt)
+            t = lambda a: to_quad(a, grid.shape)
+            return State(t(us), t(vs), t(st.p), st.T, None)
+
+        def to_logical(st: State, dt_used) -> State:
+            u2, v2 = corr_a(dt_used, st.u, st.v, st.p)
+            f = lambda a: from_quad(a, grid.shape)
+            return State(f(u2), f(v2), f(st.p), st.T, None)
+
+        return step, to_aligned, to_logical
+
     return Case(
         name="backwards_step",
         poisson_max_iters=mg.max_cycles,
@@ -186,4 +218,5 @@ def make_backwards_step_case(
                   step_height=height_total - height_inlet,
                   step_location=step_location, reynolds=reynolds_number,
                   cfl=cfl, omega=omega, inlet_velocity=inlet_velocity, mg=mg),
+        adaptive_impl_carry=adaptive_impl_carry,
     )

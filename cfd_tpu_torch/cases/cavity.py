@@ -15,7 +15,11 @@ mg_overrides sets whole_solve=True; by default the per-kernel composition
 runs at every size. The reference's auto rule takes the whole-solve on a TPU
 wherever its hierarchy fits in VMEM (not at 2048^2); whether the card's
 default should follow it needs its own measurement (ROADMAP.md queue A item
-5). Everything else raises NotImplementedError rather than being ignored.
+5). Adaptive stepping: ``adaptive_impl`` (the exact controller: the
+traced-dt non-carry stage, the solve, the traced-dt corrector) and
+``adaptive_impl_carry`` (the lagged controller on the traced-dt + Courant
+carry), cfd_tpu/cases/cavity.py:296-378. Everything else raises
+NotImplementedError rather than being ignored.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from cfd_tpu_torch.kernels.quad import (
     make_quad_corrector,
     make_quad_post_prolong_smooth,
     make_quad_pre_smooth_restrict,
+    make_quad_predictor_source,
     quad_dims,
     to_quad,
     uncorrect_quad,
@@ -50,7 +55,7 @@ from cfd_tpu_torch.poisson.multigrid import (
 )
 from cfd_tpu_torch.precision import as_dtype
 from cfd_tpu_torch.solver import Case
-from cfd_tpu_torch.state import State
+from cfd_tpu_torch.state import State, StepDiagnostics
 
 
 def _not_ported(what: str, where: str):
@@ -160,6 +165,61 @@ def make_cavity_case(
         return State(f(u2), f(v2), f(state.p), state.T,
                      None if state.p_prev is None else f(state.p_prev))
 
+    idx_, idy_ = 1.0 / grid.dx, 1.0 / grid.dy
+    t = lambda a: to_quad(a, grid.shape)
+    f = lambda a: from_quad(a, grid.shape)
+
+    def adaptive_impl():
+        """The exact controller's step on the non-carry quad kernels with a
+        traced dt: the carried u, v are the CORRECTED fields and the p_prev
+        slot holds the next solve's guess 2p - p_prev."""
+        pred_a = make_quad_predictor_source(grid.shape, coeffs, lid_velocity)
+        corr_a = make_quad_corrector(grid.shape, coeffs, lid_velocity, traced_dt=True)
+
+        def step(state: State, dt):
+            us, vs, b, max_b = pred_a(dt, state.u, state.v)
+            p, iters, res = solve(state.p_prev, b, max_b)
+            u2, v2, guess = corr_a(dt, us, vs, p, state.p)
+            co_per_dt = torch.max(torch.abs(u2)) * idx_ + torch.max(torch.abs(v2)) * idy_
+            return State(u2, v2, p, state.T, guess), StepDiagnostics(iters, res), co_per_dt
+
+        def to_aligned(st: State) -> State:
+            p_prev = st.p if st.p_prev is None else st.p_prev
+            return State(t(st.u), t(st.v), t(st.p), st.T, t(2.0 * st.p - p_prev))
+
+        def to_logical(st: State) -> State:
+            p_prev = None if st.p_prev is None else f(2.0 * st.p - st.p_prev)  # guess -> p_prev
+            return State(f(st.u), f(st.v), f(st.p), st.T, p_prev)
+
+        return step, to_aligned, to_logical
+
+    def adaptive_impl_carry():
+        """The lagged controller's step on the tentative-carry kernel with
+        (dt_corr, dt_pred) and the fused Courant maxima; the corrected fields
+        exist only inside that kernel, so the feedback is one step stale."""
+        fused_a = make_quad_corr_predictor_source(grid.shape, coeffs, lid_velocity,
+                                                  adaptive=True)
+        corr_a = make_quad_corrector(grid.shape, coeffs, lid_velocity, traced_dt=True)
+
+        def step(state: State, dts):
+            us2, vs2, b, guess, max_b, mu, mv = fused_a(dts, state.u, state.v, state.p,
+                                                        state.p_prev)
+            p, iters, res = solve(guess, b, max_b)
+            return (State(us2, vs2, p, state.T, state.p), StepDiagnostics(iters, res),
+                    mu * idx_ + mv * idy_)
+
+        def to_aligned(st: State, dt: float) -> State:
+            us, vs = uncorrect_quad(st.u, st.v, st.p, grid.shape, coeffs, dt=dt)
+            p_prev = st.p if st.p_prev is None else st.p_prev
+            return State(t(us), t(vs), t(st.p), st.T, t(p_prev))
+
+        def to_logical(st: State, dt_used) -> State:
+            u2, v2, _ = corr_a(dt_used, st.u, st.v, st.p, st.p)
+            return State(f(u2), f(v2), f(st.p), st.T,
+                         None if st.p_prev is None else f(st.p_prev))
+
+        return step, to_aligned, to_logical
+
     return Case(
         poisson_max_iters=mg.max_cycles,
         step_kernels=(carry, corr),
@@ -185,4 +245,6 @@ def make_cavity_case(
                   square_spacing=True, reynolds=reynolds_number,
                   cfl=cfl_number, omega=omega, lid_velocity=lid_velocity,
                   mg=mg),
+        adaptive_impl=adaptive_impl,
+        adaptive_impl_carry=adaptive_impl_carry,
     )

@@ -10,8 +10,10 @@ name the sweeps (cfd_tpu/cases/channel.py:125-127), the extrapolated warm
 start, and the reference's auto_whole_solve rule with "device is cuda" in
 place of "platform is tpu": the whole solve in one kernel launch
 (kernels.whole_solve) on the card, the per-kernel composition on the CPU,
-and manual control when mg_overrides names a fusion knob. Everything else
-raises NotImplementedError rather than being ignored.
+and manual control when mg_overrides names a fusion knob; the lagged
+adaptive controller's ``adaptive_impl_carry`` (cfd_tpu/cases/channel.py:
+212-263). Everything else raises NotImplementedError rather than being
+ignored.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from cfd_tpu_torch.kernels.quad import (
     make_quad_channel_corrector,
     make_quad_post_prolong_smooth,
     make_quad_pre_smooth_restrict,
+    quad_cell_mask,
     quad_dims,
     to_quad,
     uncorrect_quad,
@@ -43,8 +46,8 @@ from cfd_tpu_torch.poisson.multigrid import (
     mg_compatible,
 )
 from cfd_tpu_torch.precision import as_dtype
-from cfd_tpu_torch.solver import Case
-from cfd_tpu_torch.state import State
+from cfd_tpu_torch.solver import Case, remove_mean_quad
+from cfd_tpu_torch.state import State, StepDiagnostics
 
 
 def _not_ported(what: str, where: str):
@@ -157,6 +160,39 @@ def make_channel_case(
         return State(f(u2), f(v2), f(state.p), state.T,
                      None if state.p_prev is None else f(state.p_prev))
 
+    def adaptive_impl_carry():
+        """The lagged controller's step: the traced-dt + Courant channel
+        carry, the source mean removal, the solve from the guess."""
+        fused_a = make_quad_channel_corr_predictor_source(grid.shape, coeffs,
+                                                          inlet_velocity, adaptive=True)
+        corr_a = make_quad_channel_corrector(grid.shape, coeffs, inlet_velocity,
+                                             traced_dt=True)
+        idx_, idy_ = 1.0 / grid.dx, 1.0 / grid.dy
+        cell = quad_cell_mask(grid.shape, device)
+        n_cells = torch.tensor(float(nx * ny), dtype=torch.float32, device=device)
+
+        def step(state: State, dts):
+            us2, vs2, b, guess, sum_b, mu, mv = fused_a(dts, state.u, state.v, state.p,
+                                                        state.p_prev)
+            p, iters, res = solve(guess, remove_mean_quad(b, sum_b, n_cells, cell))
+            return (State(us2, vs2, p, state.T, state.p), StepDiagnostics(iters, res),
+                    mu * idx_ + mv * idy_)
+
+        def to_aligned(st: State, dt: float) -> State:
+            us, vs = uncorrect_quad(st.u, st.v, st.p, grid.shape, coeffs,
+                                    cavity_form=False, dt=dt)
+            t = lambda a: to_quad(a, grid.shape)
+            p_prev = st.p if st.p_prev is None else st.p_prev
+            return State(t(us), t(vs), t(st.p), st.T, t(p_prev))
+
+        def to_logical(st: State, dt_used) -> State:
+            u2, v2, _ = corr_a(dt_used, st.u, st.v, st.p, st.p)
+            f = lambda a: from_quad(a, grid.shape)
+            return State(f(u2), f(v2), f(st.p), st.T,
+                         None if st.p_prev is None else f(st.p_prev))
+
+        return step, to_aligned, to_logical
+
     return Case(
         name="channel",
         poisson_max_iters=mg.max_cycles,
@@ -180,4 +216,5 @@ def make_channel_case(
         info=dict(banner_title="Channel Flow Simulation",
                   length=length, height=height, reynolds=reynolds_number,
                   cfl=cfl, omega=omega, inlet_velocity=inlet_velocity, mg=mg),
+        adaptive_impl_carry=adaptive_impl_carry,
     )

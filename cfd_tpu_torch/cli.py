@@ -10,12 +10,16 @@ Usage:
         --no-vtk --steps 300 --steps-per-call 100 --print-interval 100
     python -m cfd_tpu_torch.cli rayleigh_benard --Nx 1536 --Ny 512 --Ra 1e6 \
         --no-vtk --steps 300 --steps-per-call 100
+    python -m cfd_tpu_torch.cli cavity --Nx 2048 --Ny 2048 --precision f32 \
+        --no-vtk --steps 300 --steps-per-call 100 --adaptive-dt 0.7 \
+        --adaptive-controller lagged
 
 The flags are the reference CLI's for the ported paths, with its defaults
 per case (cfd_tpu/cli.py:103-106). VTK export is not ported yet, so a run
 needs --no-vtk; flags of modules not ported yet (FTLE, SOR, checkpoints,
-metrics, adaptive dt, meshes) are refused with a message instead of being
-ignored. The Rayleigh-Benard case always solves with multigrid and ignores
+metrics, meshes) are refused with a message instead of being ignored.
+--adaptive-dt MAX_CO runs cfd_tpu_torch.adaptive.run_adaptive with the
+--adaptive-controller (exact: the cavity only; lagged: every case). The Rayleigh-Benard case always solves with multigrid and ignores
 --poisson and --Re, as the reference does (cfd_tpu/cli.py:173-181).
 """
 
@@ -45,6 +49,14 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--print-interval", type=int, default=None)
         sp.add_argument("--steps-per-call", type=int, default=1,
                         help="steps per chunk; must divide the print interval")
+        sp.add_argument("--adaptive-dt", type=float, default=None, metavar="MAX_CO",
+                        help="Courant-limited adaptive time stepping toward this max "
+                             "Courant number (the OpenFOAM adjustTimeStep/maxCo knob)")
+        sp.add_argument("--adaptive-controller", choices=["exact", "lagged"],
+                        default="exact",
+                        help="Courant feedback: 'exact' measures the step just "
+                             "produced (the cavity); 'lagged' runs the tentative-carry "
+                             "kernel with one-step-stale feedback (every case)")
         sp.add_argument("--no-vtk", action="store_true", help="disable VTK export")
         sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda runs the CUDA kernels; cpu runs their plain "
@@ -111,7 +123,15 @@ def main(argv=None) -> int:
     console.print_banner(case)
     print(f"device: {case.device}")
     sim = Simulation(case)
-    sim.run(n_steps=args.steps, steps_per_call=args.steps_per_call)
+    if args.adaptive_dt is not None:
+        from cfd_tpu_torch.adaptive import run_adaptive
+
+        run_adaptive(sim, max_courant=args.adaptive_dt, n_steps=args.steps,
+                     final_time=None if args.steps else case.final_time,
+                     steps_per_call=args.steps_per_call,
+                     controller=args.adaptive_controller)
+    else:
+        sim.run(n_steps=args.steps, steps_per_call=args.steps_per_call)
     return 0
 
 

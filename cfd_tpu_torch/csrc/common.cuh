@@ -85,6 +85,27 @@ __device__ __forceinline__ void block_max_into(float v, float* out) {
   }
 }
 
+// Block-wide maxima of a >= 0 and b >= 0 into out[0] and out[1] (the
+// Courant feedback max|u|, max|v| of the emit_courant stage instances). The
+// barrier between the two passes keeps warp 0's reads of the first apart
+// from the second's writes of the same shared array.
+__device__ __forceinline__ void block_max2_into(float a, float b, float* out) {
+  block_max_into(a, out);
+  __syncthreads();
+  block_max_into(b, out + 1);
+}
+
+// A pressure-correction coefficient from a traced dt (adaptive stepping) in
+// the reference's float32 order: the cavity's rho-multiplied form
+// dt * (rho/dx) (cfd_tpu/kernels/quad.py:505, :1080), the channel's, the
+// step's and RB's rho-divided form dt / (rho*dx) (quad.py:913,
+// step_quad.py:163, rb_quad.py:155). ``factor`` is the float32 rho/dx or
+// rho*dx that the host folded in double.
+template <bool kDivided>
+__device__ __forceinline__ float traced_coeff(float dt, float factor) {
+  return kDivided ? dt / factor : dt * factor;
+}
+
 // Fixed-order block sum of v into *out: a pairwise tree over the block's
 // kThreads values in shared memory (s[t] += s[t + stride], stride =
 // kThreads/2 ... 1). Every thread of the block must call it. The order does

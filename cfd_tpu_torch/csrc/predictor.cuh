@@ -1,5 +1,5 @@
 // The MAC predictor on the quad layout, shared by the stage kernels of
-// every case (quad_stage.cu, step_stage.cu).
+// every case (quad_stage.cu, step_stage.cu, rb_stage.cu).
 #pragma once
 
 #include "common.cuh"
@@ -9,18 +9,33 @@ namespace cfd {
 struct Pred {
   int Hq8, Wqa, ny, nx;
   float dt, nu, idx, idy, idx2, idy2, rho_dt;
+  float rho;  // the density, read only by the traced-dt instances (pred_at)
 };
 
+// The coefficients of a traced-dt launch (adaptive stepping): dt read from
+// the card and rho/dt formed from it in float32, the reference's
+// coeffs.density / dt_pred (cfd_tpu/kernels/quad.py:457, :1083, :1181).
+// The fixed-dt instances keep the host's dt and rho/dt.
+template <bool kTraced>
+__device__ __forceinline__ Pred pred_at(Pred c, const float* dt) {
+  if constexpr (kTraced) {
+    c.dt = *dt;
+    c.rho_dt = c.rho / c.dt;
+  }
+  return c;
+}
+
 // MAC predictor (cfd_tpu/kernels/quad.py _predictor_quad, :808-844), in the
-// JAX package's operation order; 0 outside the valid faces.
-__device__ __forceinline__ float u_star(const float* u, const float* v, int j, int i,
-                                        const Pred& c) {
+// JAX package's operation order; 0 outside the valid faces. ``u(j, i)`` and
+// ``v(j, i)`` read the input fields: plain loads (u_star, v_star below), or
+// loads that apply ghost values on read (the cavity's non-carry stage).
+template <class LU, class LV>
+__device__ __forceinline__ float u_star_at(LU u, LV v, int j, int i, const Pred& c) {
   if (!(j >= 1 && j <= c.ny && i >= 1 && i <= c.nx - 1)) return 0.f;
-  const int H = c.Hq8, W = c.Wqa;
-  float uc = qld(u, j, i, H, W), uE = qld(u, j, i + 1, H, W), uW = qld(u, j, i - 1, H, W);
-  float uN = qld(u, j + 1, i, H, W), uS = qld(u, j - 1, i, H, W);
-  float vc = qld(v, j, i, H, W), vE = qld(v, j, i + 1, H, W);
-  float vS = qld(v, j - 1, i, H, W), vSE = qld(v, j - 1, i + 1, H, W);
+  float uc = u(j, i), uE = u(j, i + 1), uW = u(j, i - 1);
+  float uN = u(j + 1, i), uS = u(j - 1, i);
+  float vc = v(j, i), vE = v(j, i + 1);
+  float vS = v(j - 1, i), vSE = v(j - 1, i + 1);
   float lap_u = (uE - 2.0f * uc + uW) * c.idx2 + (uN - 2.0f * uc + uS) * c.idy2;
   float u_e = 0.5f * (uc + uE);
   float u_w = 0.5f * (uW + uc);
@@ -33,14 +48,13 @@ __device__ __forceinline__ float u_star(const float* u, const float* v, int j, i
   return uc + c.dt * (c.nu * lap_u - conv_ux - conv_uy);
 }
 
-__device__ __forceinline__ float v_star(const float* u, const float* v, int j, int i,
-                                        const Pred& c) {
+template <class LU, class LV>
+__device__ __forceinline__ float v_star_at(LU u, LV v, int j, int i, const Pred& c) {
   if (!(j >= 1 && j <= c.ny - 1 && i >= 1 && i <= c.nx)) return 0.f;
-  const int H = c.Hq8, W = c.Wqa;
-  float vc = qld(v, j, i, H, W), vE = qld(v, j, i + 1, H, W), vW = qld(v, j, i - 1, H, W);
-  float vN = qld(v, j + 1, i, H, W), vS = qld(v, j - 1, i, H, W);
-  float uc = qld(u, j, i, H, W), uN = qld(u, j + 1, i, H, W);
-  float uW = qld(u, j, i - 1, H, W), uNW = qld(u, j + 1, i - 1, H, W);
+  float vc = v(j, i), vE = v(j, i + 1), vW = v(j, i - 1);
+  float vN = v(j + 1, i), vS = v(j - 1, i);
+  float uc = u(j, i), uN = u(j + 1, i);
+  float uW = u(j, i - 1), uNW = u(j + 1, i - 1);
   float lap_v = (vE - 2.0f * vc + vW) * c.idx2 + (vN - 2.0f * vc + vS) * c.idy2;
   float v_nn = 0.5f * (vc + vN);
   float v_ss = 0.5f * (vS + vc);
@@ -51,6 +65,20 @@ __device__ __forceinline__ float v_star(const float* u, const float* v, int j, i
   float v_w2 = 0.5f * (vW + vc);
   float conv_vx = (u_e2 * v_e2 - u_w2 * v_w2) * c.idx;
   return vc + c.dt * (c.nu * lap_v - conv_vy - conv_vx);
+}
+
+__device__ __forceinline__ float u_star(const float* u, const float* v, int j, int i,
+                                        const Pred& c) {
+  auto lu = [&](int jj, int ii) { return qld(u, jj, ii, c.Hq8, c.Wqa); };
+  auto lv = [&](int jj, int ii) { return qld(v, jj, ii, c.Hq8, c.Wqa); };
+  return u_star_at(lu, lv, j, i, c);
+}
+
+__device__ __forceinline__ float v_star(const float* u, const float* v, int j, int i,
+                                        const Pred& c) {
+  auto lu = [&](int jj, int ii) { return qld(u, jj, ii, c.Hq8, c.Wqa); };
+  auto lv = [&](int jj, int ii) { return qld(v, jj, ii, c.Hq8, c.Wqa); };
+  return v_star_at(lu, lv, j, i, c);
 }
 
 }  // namespace cfd

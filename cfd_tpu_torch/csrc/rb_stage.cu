@@ -2,8 +2,9 @@
 // layout: the fused carry and the stats/export corrector.
 //
 // Replaces cfd_tpu/kernels/rb_quad.py make_quad_rb_step_kernel (:81, math in
-// rb_carry_compute :130-222; the plain and emit_guess variants) and
-// make_quad_rb_corrector (:225).
+// rb_carry_compute :130-222; the plain and emit_guess variants, and
+// traced_dt + emit_courant) and make_quad_rb_corrector (:225; fixed and
+// traced_dt).
 //
 // Bound on the H100: device-memory bytes. The carry reads 4 quad fields
 // (5 with the warm-start guess) and writes 4 (5) plus one scalar, 3.8 MB per
@@ -34,6 +35,12 @@
 // before the wall rows j = 0 and ny are zeroed. T's ghost rows (1 <= i <=
 // nx) reflect the wall values, its ghost columns (1 <= j <= ny) copy
 // columns 1 and nx, and its four corners keep the pre-step T.
+//
+// Adaptive stepping (template flags kTraced, kCourant, as csrc/quad_stage.cu):
+// the carry completes step n with dt_corr, the corrector AND the temperature
+// transport (rb_quad.py:153-157), and advances step n+1 with dt_pred, the
+// predictor, the buoyancy dt_pred * 0.5 (rb_quad.py:195) and the source; the
+// corrector reduces max|u2|, max|v2| (rb_quad.py:211).
 #include "common.cuh"
 #include "predictor.cuh"
 
@@ -98,19 +105,34 @@ __device__ __forceinline__ float rb_v_corr(const float* vs, const float* p, int 
 }
 
 // launch 1 (and the corrector entry point): the corrected, ghosted u2, v2;
-// guess = 2p - p_prev where p_prev is given
+// guess = 2p - p_prev where p_prev is given. kTraced: cu, cv formed from
+// *dt (c0 holds rho*dx, rho*dy); kCourant: max|u2|, max|v2| into courant[0],
+// courant[1]
+template <bool kTraced, bool kCourant>
 __global__ void rb_corrector_kernel(const float* us, const float* vs, const float* p,
                                     const float* p_prev, float* u2, float* v2, float* guess,
-                                    RBCorr c) {
+                                    RBCorr c0, const float* dt, float* courant) {
+  RBCorr c = c0;
+  if constexpr (kTraced) {
+    c.cu = cfd::traced_coeff<true>(*dt, c0.cu);
+    c.cv = cfd::traced_coeff<true>(*dt, c0.cv);
+  }
   const long long n = 4LL * c.Hq8 * c.Wqa;
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
-  auto fu = [&](int j, int i) { return rb_u_corr(us, p, j, i, c); };
-  auto fv = [&](int j, int i) { return rb_v_corr(vs, p, j, i, c); };
-  u2[idx] = box_u(fu, cell.j, cell.i, c.ny, c.nx);
-  v2[idx] = box_v(fv, cell.j, cell.i, c.ny, c.nx);
-  if (p_prev != nullptr) guess[idx] = 2.0f * p[idx] - p_prev[idx];
+  float au = 0.f, av = 0.f;
+  if (idx < n) {
+    const cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
+    auto fu = [&](int j, int i) { return rb_u_corr(us, p, j, i, c); };
+    auto fv = [&](int j, int i) { return rb_v_corr(vs, p, j, i, c); };
+    const float u = box_u(fu, cell.j, cell.i, c.ny, c.nx);
+    const float v = box_v(fv, cell.j, cell.i, c.ny, c.nx);
+    u2[idx] = u;
+    v2[idx] = v;
+    if (p_prev != nullptr) guess[idx] = 2.0f * p[idx] - p_prev[idx];
+    au = fabsf(u);
+    av = fabsf(v);
+  }
+  if constexpr (kCourant) cfd::block_max2_into(au, av, courant);
 }
 
 // T before its ghost update: the flux-form advection + diffusion on the
@@ -132,8 +154,12 @@ __device__ __forceinline__ float t_pre(const float* T, const float* u, const flo
 }
 
 // launch 2: T' with the Dirichlet ghost rows and the adiabatic ghost columns
+// (kTraced: over the step of *dt, dt_corr)
+template <bool kTraced>
 __global__ void rb_temperature_kernel(const float* T, const float* u, const float* v,
-                                      float* T2, RBTemp c) {
+                                      float* T2, RBTemp c0, const float* dt) {
+  RBTemp c = c0;
+  if constexpr (kTraced) c.dt = *dt;
   const long long n = 4LL * c.Hq8 * c.Wqa;
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n) return;
@@ -157,10 +183,14 @@ __global__ void rb_temperature_kernel(const float* T, const float* u, const floa
 // launch 3: predictor on the valid faces (u2, v2 elsewhere), the buoyancy
 // buoy * (T'(j) + T'(j+1)) on the valid v faces, the box ghosts on the
 // tentative fields, b = rho/dt * div on the cells and the block's partial
-// sum of b (fixed tree)
+// sum of b (fixed tree). kTraced: dt, rho/dt and buoy = dt * 0.5 from *dt
+// (dt_pred), the reference's (dt_pred * buoyancy) * 0.5 at buoyancy 1
+template <bool kTraced>
 __global__ void rb_predictor_source_kernel(const float* u, const float* v, const float* T2,
                                            float* us2, float* vs2, float* b, float* partials,
-                                           Pred c, float buoy) {
+                                           Pred c0, float buoy0, const float* dt) {
+  const Pred c = cfd::pred_at<kTraced>(c0, dt);
+  const float buoy = kTraced ? c.dt * 0.5f : buoy0;
   const long long n = 4LL * c.Hq8 * c.Wqa;
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   float bb = 0.f;
@@ -193,13 +223,53 @@ __global__ void rb_predictor_source_kernel(const float* u, const float* v, const
 
 }  // namespace
 
+namespace {
+
+// the carry's four launches; kAdaptive: dts = (dt_corr, dt_pred) on the card
+template <bool kAdaptive>
+cudaError_t rb_carry(const float* us, const float* vs, const float* p, const float* T,
+                     const float* p_prev, float* u_scr, float* v_scr, float* us2, float* vs2,
+                     float* T2, float* b, float* guess, float* partials, float* sum_b,
+                     float* courant, const float* dts, const RBCorr& cc, const RBTemp& tc,
+                     const Pred& pc, float buoy, cudaStream_t s) {
+  if ((p_prev == nullptr) != (guess == nullptr)) return cudaErrorInvalidValue;
+  const int blocks = cfd::blocks_for(4LL * cc.Hq8 * cc.Wqa);
+  rb_corrector_kernel<kAdaptive, kAdaptive><<<blocks, cfd::kThreads, 0, s>>>(
+      us, vs, p, p_prev, u_scr, v_scr, guess, cc, dts, courant);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rb_temperature_kernel<kAdaptive><<<blocks, cfd::kThreads, 0, s>>>(T, u_scr, v_scr, T2, tc,
+                                                                   dts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rb_predictor_source_kernel<kAdaptive><<<blocks, cfd::kThreads, 0, s>>>(
+      u_scr, v_scr, T2, us2, vs2, b, partials, pc, buoy, kAdaptive ? dts + 1 : nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return cfd::fold_partials(partials, blocks, sum_b, s);  // launch 4
+}
+
+}  // namespace
+
 extern "C" int cfd_rb_corrector(const float* us, const float* vs, const float* p, float* u2,
                                 float* v2, int Hq8, int Wqa, int ny, int nx, float cu,
                                 float cv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   RBCorr c{Hq8, Wqa, ny, nx, cu, cv};
-  rb_corrector_kernel<<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
-      us, vs, p, nullptr, u2, v2, nullptr, c);
+  rb_corrector_kernel<false, false><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
+      us, vs, p, nullptr, u2, v2, nullptr, c, nullptr, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// traced dt: *dt on the card; cu_f, cv_f the float32 rho*dx, rho*dy
+extern "C" int cfd_rb_corrector_traced(const float* us, const float* vs, const float* p,
+                                       float* u2, float* v2, const float* dt, int Hq8,
+                                       int Wqa, int ny, int nx, float cu_f, float cv_f,
+                                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  RBCorr c{Hq8, Wqa, ny, nx, cu_f, cv_f};
+  rb_corrector_kernel<true, false><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
+      us, vs, p, nullptr, u2, v2, nullptr, c, dt, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -214,23 +284,31 @@ extern "C" int cfd_rb_carry(const float* us, const float* vs, const float* p, co
                             float dt, float nu, float idx, float idy, float idx2, float idy2,
                             float rho_dt, float kappa, float two_tb, float two_tt, float buoy,
                             void* stream) {
-  if ((p_prev == nullptr) != (guess == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n = 4LL * Hq8 * Wqa;
-  const int blocks = cfd::blocks_for(n);
   RBCorr cc{Hq8, Wqa, ny, nx, cu, cv};
-  rb_corrector_kernel<<<blocks, cfd::kThreads, 0, s>>>(us, vs, p, p_prev, u_scr, v_scr, guess,
-                                                       cc);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
   RBTemp tc{Hq8, Wqa, ny, nx, dt, kappa, idx, idy, idx2, idy2, two_tb, two_tt};
-  rb_temperature_kernel<<<blocks, cfd::kThreads, 0, s>>>(T, u_scr, v_scr, T2, tc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
   Pred pc{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt};
-  rb_predictor_source_kernel<<<blocks, cfd::kThreads, 0, s>>>(u_scr, v_scr, T2, us2, vs2, b,
-                                                              partials, pc, buoy);
-  err = cudaGetLastError();
+  return static_cast<int>(rb_carry<false>(us, vs, p, T, p_prev, u_scr, v_scr, us2, vs2, T2, b,
+                                           guess, partials, sum_b, nullptr, nullptr, cc, tc, pc,
+                                           buoy, static_cast<cudaStream_t>(stream)));
+}
+
+// traced_dt + emit_courant (no guess: the adaptive RB step warm-starts from
+// plain p): dts = (dt_corr, dt_pred) on the card; cu_f, cv_f the float32
+// rho*dx, rho*dy; courant: 2 floats, zeroed here
+extern "C" int cfd_rb_carry_adaptive(const float* us, const float* vs, const float* p,
+                                     const float* T, float* u_scr, float* v_scr, float* us2,
+                                     float* vs2, float* T2, float* b, float* partials,
+                                     float* sum_b, float* courant, const float* dts, int Hq8,
+                                     int Wqa, int ny, int nx, float cu_f, float cv_f, float nu,
+                                     float idx, float idy, float idx2, float idy2, float rho,
+                                     float kappa, float two_tb, float two_tt, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(courant, 0, 2 * sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cfd::fold_partials(partials, blocks, sum_b, s));  // launch 4
+  RBCorr cc{Hq8, Wqa, ny, nx, cu_f, cv_f};
+  RBTemp tc{Hq8, Wqa, ny, nx, 0.f, kappa, idx, idy, idx2, idy2, two_tb, two_tt};
+  Pred pc{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho};
+  return static_cast<int>(rb_carry<true>(us, vs, p, T, nullptr, u_scr, v_scr, us2, vs2, T2, b,
+                                          nullptr, partials, sum_b, courant, dts, cc, tc, pc,
+                                          0.f, s));
 }

@@ -2,8 +2,8 @@
 // layout.
 //
 // Replaces cfd_tpu/kernels/step_quad.py make_quad_step_corr_predictor_source
-// (:100, math in step_carry_compute :144-201) and make_quad_step_corrector
-// (:204).
+// (:100, math in step_carry_compute :144-201; fixed dt, and traced_dt +
+// emit_courant) and make_quad_step_corrector (:204; fixed and traced_dt).
 //
 // Bound on the H100: device-memory bytes. The corrector reads 3 quad fields
 // and writes 2; the carry reads 3 and writes 3 plus one scalar (2.5 MB per
@@ -25,6 +25,11 @@
 // row inlet_j on columns 1..step_i set to 0. The ghost rows read rows 1 and
 // ny AFTER the inlet and outlet updates and BEFORE the interface zeroing, so
 // a thread rebuilding a ghost recomputes the value it depends on (step_u).
+//
+// The adaptive-stepping instances (template flags kTraced, kCourant) follow
+// csrc/quad_stage.cu: dt from the card, the rho-divided coefficients
+// dt / (rho*dx) in float32 (step_quad.py:163), the carry's pair (dt_corr,
+// dt_pred), and max|u|, max|v| of the corrected, BC'd fields.
 #include "common.cuh"
 #include "predictor.cuh"
 
@@ -110,23 +115,41 @@ __device__ __forceinline__ float v_corr(const float* vs, const float* p, int j, 
   return qld(vs, j, i, s.Hq8, s.Wqa) - s.cv * (pn - pc);
 }
 
+// kTraced: cu, cv formed from *dt (s0 holds rho*dx, rho*dy); kCourant:
+// max|u|, max|v| of the outputs into courant[0], courant[1]
+template <bool kTraced, bool kCourant>
 __global__ void step_corrector_kernel(const float* us, const float* vs, const float* p,
-                                      float* u2, float* v2, Step s) {
+                                      float* u2, float* v2, Step s0, const float* dt,
+                                      float* courant) {
+  Step s = s0;
+  if constexpr (kTraced) {
+    s.cu = cfd::traced_coeff<true>(*dt, s0.cu);
+    s.cv = cfd::traced_coeff<true>(*dt, s0.cv);
+  }
   const long long n = 4LL * s.Hq8 * s.Wqa;
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const cfd::QuadCell cell = cfd::quad_cell(idx, s.Hq8, s.Wqa);
-  auto uc = [&](int j, int i) { return u_corr(us, p, j, i, s); };
-  auto vc = [&](int j, int i) { return v_corr(vs, p, j, i, s); };
-  u2[idx] = step_u(uc, cell.j, cell.i, s);
-  v2[idx] = step_v(vc, cell.j, cell.i, s);
+  float au = 0.f, av = 0.f;
+  if (idx < n) {
+    const cfd::QuadCell cell = cfd::quad_cell(idx, s.Hq8, s.Wqa);
+    auto uc = [&](int j, int i) { return u_corr(us, p, j, i, s); };
+    auto vc = [&](int j, int i) { return v_corr(vs, p, j, i, s); };
+    const float u = step_u(uc, cell.j, cell.i, s);
+    const float v = step_v(vc, cell.j, cell.i, s);
+    u2[idx] = u;
+    v2[idx] = v;
+    au = fabsf(u);
+    av = fabsf(v);
+  }
+  if constexpr (kCourant) cfd::block_max2_into(au, av, courant);
 }
 
 // predictor on valid faces, the step BCs on the tentative fields, b on the
 // fluid cells, and the block's partial sum of b (fixed tree)
+template <bool kTraced>
 __global__ void step_predictor_source_kernel(const float* u, const float* v, float* us2,
-                                             float* vs2, float* b, float* partials, Pred c,
-                                             Step s) {
+                                             float* vs2, float* b, float* partials, Pred c0,
+                                             Step s, const float* dt) {
+  const Pred c = cfd::pred_at<kTraced>(c0, dt);
   const long long n = 4LL * s.Hq8 * s.Wqa;
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   float bb = 0.f;
@@ -156,14 +179,51 @@ __global__ void step_predictor_source_kernel(const float* u, const float* v, flo
 
 }  // namespace
 
+namespace {
+
+// the carry's three launches: corrector, predictor + source + partial sums,
+// fold
+template <bool kAdaptive>
+cudaError_t step_carry(const float* us, const float* vs, const float* p, float* u_scr,
+                       float* v_scr, float* us2, float* vs2, float* b, float* partials,
+                       float* sum_b, float* courant, const float* dts, const Step& s,
+                       const Pred& c, cudaStream_t st) {
+  const int blocks = cfd::blocks_for(4LL * s.Hq8 * s.Wqa);
+  step_corrector_kernel<kAdaptive, kAdaptive><<<blocks, cfd::kThreads, 0, st>>>(
+      us, vs, p, u_scr, v_scr, s, dts, courant);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  step_predictor_source_kernel<kAdaptive><<<blocks, cfd::kThreads, 0, st>>>(
+      u_scr, v_scr, us2, vs2, b, partials, c, s, kAdaptive ? dts + 1 : nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return cfd::fold_partials(partials, blocks, sum_b, st);
+}
+
+}  // namespace
+
 extern "C" int cfd_step_corrector(const float* us, const float* vs, const float* p,
                                   float* u2, float* v2, int Hq8, int Wqa, int ny, int nx,
                                   int step_i, int inlet_j, float cu, float cv, float uin,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Step s{Hq8, Wqa, ny, nx, step_i, inlet_j, cu, cv, uin};
-  step_corrector_kernel<<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, st>>>(
-      us, vs, p, u2, v2, s);
+  step_corrector_kernel<false, false>
+      <<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, st>>>(us, vs, p, u2, v2, s,
+                                                                  nullptr, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// traced dt: *dt on the card; cu_f, cv_f the float32 rho*dx, rho*dy
+extern "C" int cfd_step_corrector_traced(const float* us, const float* vs, const float* p,
+                                         float* u2, float* v2, const float* dt, int Hq8,
+                                         int Wqa, int ny, int nx, int step_i, int inlet_j,
+                                         float cu_f, float cv_f, float uin, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Step s{Hq8, Wqa, ny, nx, step_i, inlet_j, cu_f, cv_f, uin};
+  step_corrector_kernel<true, false>
+      <<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, st>>>(us, vs, p, u2, v2, s, dt,
+                                                                  nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -174,16 +234,27 @@ extern "C" int cfd_step_carry(const float* us, const float* vs, const float* p,
                               int nx, int step_i, int inlet_j, float cu, float cv,
                               float uin, float dt, float nu, float idx, float idy,
                               float idx2, float idy2, float rho_dt, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = cfd::blocks_for(4LL * Hq8 * Wqa);
   Step s{Hq8, Wqa, ny, nx, step_i, inlet_j, cu, cv, uin};
-  step_corrector_kernel<<<blocks, cfd::kThreads, 0, st>>>(us, vs, p, u_scr, v_scr, s);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
   Pred c{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt};
-  step_predictor_source_kernel<<<blocks, cfd::kThreads, 0, st>>>(u_scr, v_scr, us2, vs2, b,
-                                                                  partials, c, s);
-  err = cudaGetLastError();
+  return static_cast<int>(step_carry<false>(us, vs, p, u_scr, v_scr, us2, vs2, b, partials,
+                                             sum_b, nullptr, nullptr, s, c,
+                                             static_cast<cudaStream_t>(stream)));
+}
+
+// traced_dt + emit_courant: dts = (dt_corr, dt_pred) on the card; cu_f, cv_f
+// the float32 rho*dx, rho*dy; courant: 2 floats, zeroed here
+extern "C" int cfd_step_carry_adaptive(const float* us, const float* vs, const float* p,
+                                       float* u_scr, float* v_scr, float* us2, float* vs2,
+                                       float* b, float* partials, float* sum_b,
+                                       float* courant, const float* dts, int Hq8, int Wqa,
+                                       int ny, int nx, int step_i, int inlet_j, float cu_f,
+                                       float cv_f, float uin, float nu, float idx, float idy,
+                                       float idx2, float idy2, float rho, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(courant, 0, 2 * sizeof(float), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cfd::fold_partials(partials, blocks, sum_b, st));
+  Step s{Hq8, Wqa, ny, nx, step_i, inlet_j, cu_f, cv_f, uin};
+  Pred c{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho};
+  return static_cast<int>(step_carry<true>(us, vs, p, u_scr, v_scr, us2, vs2, b, partials,
+                                            sum_b, courant, dts, s, c, st));
 }

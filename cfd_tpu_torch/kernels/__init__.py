@@ -1,20 +1,38 @@
 """Hand-written Hopper kernels (csrc/*.cu) with their plain PyTorch twins.
 
 ``KERNELS`` lists every kernel entry point of the ported paths (the cavity,
-the channel, the backward step and Rayleigh-Benard), each with its launch
-counter (kernels._build.Kernel)."""
+the channel, the backward step and Rayleigh-Benard at a fixed dt, and their
+adaptive-stepping instances), each with its launch counter
+(kernels._build.Kernel)."""
 
 from cfd_tpu_torch.kernels.quad import (
     CARRY,
+    CARRY_ADAPTIVE,
     CHANNEL_CARRY,
+    CHANNEL_CARRY_ADAPTIVE,
     CHANNEL_CORRECTOR,
+    CHANNEL_CORRECTOR_TRACED,
     CORRECTOR,
+    CORRECTOR_TRACED,
     POST,
     PRE,
+    PREDICTOR_SOURCE,
 )
-from cfd_tpu_torch.kernels.rb_quad import RB_CARRY, RB_CORRECTOR
+from cfd_tpu_torch.kernels.rb_quad import (
+    RB_CARRY,
+    RB_CARRY_ADAPTIVE,
+    RB_CORRECTOR,
+    RB_CORRECTOR_TRACED,
+)
 from cfd_tpu_torch.kernels.rb_smoother import RB_PAIRS, RB_PAIRS_FULL
-from cfd_tpu_torch.kernels.step_quad import STEP_CARRY, STEP_CORRECTOR, STEP_POST, STEP_PRE
+from cfd_tpu_torch.kernels.step_quad import (
+    STEP_CARRY,
+    STEP_CARRY_ADAPTIVE,
+    STEP_CORRECTOR,
+    STEP_CORRECTOR_TRACED,
+    STEP_POST,
+    STEP_PRE,
+)
 from cfd_tpu_torch.kernels.whole_solve import (
     STEP_WHOLE_SOLVE,
     WHOLE_SOLVE,
@@ -23,6 +41,9 @@ from cfd_tpu_torch.kernels.whole_solve import (
 
 KERNELS = (CARRY, CORRECTOR, PRE, POST, RB_PAIRS, CHANNEL_CARRY, CHANNEL_CORRECTOR,
            WHOLE_SOLVE, STEP_CARRY, STEP_CORRECTOR, STEP_PRE, STEP_POST, RB_PAIRS_FULL,
-           STEP_WHOLE_SOLVE, RB_CARRY, RB_CORRECTOR, WHOLE_SOLVE_PIN_MEAN)
+           STEP_WHOLE_SOLVE, RB_CARRY, RB_CORRECTOR, WHOLE_SOLVE_PIN_MEAN,
+           PREDICTOR_SOURCE, CORRECTOR_TRACED, CARRY_ADAPTIVE, CHANNEL_CORRECTOR_TRACED,
+           CHANNEL_CARRY_ADAPTIVE, STEP_CORRECTOR_TRACED, STEP_CARRY_ADAPTIVE,
+           RB_CORRECTOR_TRACED, RB_CARRY_ADAPTIVE)
 
 __all__ = ["KERNELS"]

@@ -64,6 +64,17 @@ SIGNATURES = {
     "cfd_rb_pairs_full": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I, _P],
     "cfd_rb_corrector": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_P],
     "cfd_rb_carry": [_P] * 14 + [_I] * 4 + [_F] * 13 + [_P],
+    # adaptive stepping: the traced-dt correctors, the traced-dt cavity
+    # predictor+source, the traced-dt + Courant carries
+    "cfd_quad_corrector_traced": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
+    "cfd_quad_predictor_source": [_P] * 7 + [_I] * 4 + [_F] * 7 + [_P],
+    "cfd_quad_carry_adaptive": [_P] * 13 + [_I] * 4 + [_F] * 9 + [_P],
+    "cfd_quad_channel_corrector_traced": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
+    "cfd_quad_channel_carry_adaptive": [_P] * 14 + [_I] * 4 + [_F] * 9 + [_P],
+    "cfd_step_corrector_traced": [_P] * 6 + [_I] * 6 + [_F] * 3 + [_P],
+    "cfd_step_carry_adaptive": [_P] * 12 + [_I] * 6 + [_F] * 9 + [_P],
+    "cfd_rb_corrector_traced": [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P],
+    "cfd_rb_carry_adaptive": [_P] * 14 + [_I] * 4 + [_F] * 11 + [_P],
 }
 
 

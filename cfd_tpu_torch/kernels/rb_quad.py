@@ -23,9 +23,12 @@ the four T corners keep their pre-step value.
 Each kernel has the three faces of kernels.quad: ``plain`` (whole-array
 PyTorch, any device), ``kernel`` (csrc/rb_stage.cu; CUDA tensors only) and
 ``__call__``, which sends CPU tensors to ``plain`` and CUDA tensors to
-``kernel`` and never falls back. Not ported: the ``traced_dt`` and
-``emit_courant`` variants (adaptive dt, ROADMAP.md queue A item 10) and
-``shard`` (queue B item 16).
+``kernel`` and never falls back. The adaptive-stepping instances follow
+kernels.quad's: the carry with ``traced_dt`` and ``emit_courant`` completes
+step n with dt_corr (the corrector AND the temperature transport) and
+advances step n+1 with dt_pred (the predictor, the buoyancy and the
+source); the corrector with ``traced_dt``. Not ported: ``shard``
+(ROADMAP.md queue B item 16).
 """
 
 from __future__ import annotations
@@ -38,13 +41,16 @@ from cfd_tpu_torch.kernels._build import Kernel, ptr, route
 from cfd_tpu_torch.kernels.quad import (
     SUM_BLOCK,
     _check,
+    _courant,
     _predictor_quad,
     _qiota,
     _qshift,
+    _Traced,
     _valid_masks,
     _where4,
     fixed_order_sum,
     quad_shape,
+    rho_over,
 )
 from cfd_tpu_torch.ops.stencil import StencilCoeffs
 
@@ -55,6 +61,10 @@ RB_CARRY = Kernel("quad_rb_step", "cfd_rb_carry", "cfd_tpu_torch/csrc/rb_stage.c
                   "cfd_tpu/kernels/rb_quad.py:81")
 RB_CORRECTOR = Kernel("quad_rb_corrector", "cfd_rb_corrector",
                       "cfd_tpu_torch/csrc/rb_stage.cu", "cfd_tpu/kernels/rb_quad.py:225")
+RB_CORRECTOR_TRACED = Kernel("quad_rb_corrector_traced", "cfd_rb_corrector_traced",
+                             "cfd_tpu_torch/csrc/rb_stage.cu", "cfd_tpu/kernels/rb_quad.py:225")
+RB_CARRY_ADAPTIVE = Kernel("quad_rb_step_adaptive", "cfd_rb_carry_adaptive",
+                           "cfd_tpu_torch/csrc/rb_stage.cu", "cfd_tpu/kernels/rb_quad.py:81")
 
 
 def _box_noslip_bc_quad(u, v, grow, gcol, ny: int, nx: int):
@@ -113,11 +123,13 @@ class QuadRBCorrector:
         grow, gcol = _qiota(self.qshape[1], self.qshape[2], device)
         return grow, gcol, _valid_masks(grow, gcol, self.ny, self.nx)
 
-    def _corrected(self, us, vs, p, grow, gcol, u_valid, v_valid):
+    def _corrected(self, us, vs, p, grow, gcol, u_valid, v_valid, cu=None, cv=None):
+        cu = self.cu if cu is None else cu
+        cv = self.cv if cv is None else cv
         pE, pN = _qshift(list(p), 0, 1), _qshift(list(p), 1, 0)
-        u = [torch.where(u_valid[q], us[q] - self.cu * (pE[q] - p[q]), us[q])
+        u = [torch.where(u_valid[q], us[q] - cu * (pE[q] - p[q]), us[q])
              for q in range(4)]
-        v = [torch.where(v_valid[q], vs[q] - self.cv * (pN[q] - p[q]), vs[q])
+        v = [torch.where(v_valid[q], vs[q] - cv * (pN[q] - p[q]), vs[q])
              for q in range(4)]
         return _box_noslip_bc_quad(u, v, grow, gcol, self.ny, self.nx)
 
@@ -168,10 +180,18 @@ class QuadRBStep(QuadRBCorrector):
         return self.plain(*fields)
 
     def plain(self, us, vs, p, T, p_prev=None):
+        return self._stage(us, vs, p, T, p_prev)[:-2]
+
+    def _stage(self, us, vs, p, T, p_prev=None, cu=None, cv=None, dts=None):
+        """(us', vs', T', b[, guess], sum b, u2, v2): the stage with the
+        corrected fields u2, v2, at the host's coefficients or (``dts`` =
+        (dt_corr, dt_pred)) the traced ones."""
         c = self.coeffs
         ny, nx = self.ny, self.nx
+        dt_corr, dt_pred = (c.dt, None) if dts is None else (dts[0], dts[1])
+        buoy = self.buoy if dts is None else dt_pred * 0.5
         grow, gcol, (u_valid, v_valid, cell) = self._geometry(us.device)
-        u2, v2 = self._corrected(us, vs, p, grow, gcol, u_valid, v_valid)
+        u2, v2 = self._corrected(us, vs, p, grow, gcol, u_valid, v_valid, cu, cv)
 
         T = list(T)
         TE, TW = _qshift(T, 0, 1), _qshift(T, 0, -1)
@@ -184,26 +204,27 @@ class QuadRBStep(QuadRBCorrector):
             adv = (fe[q] - feW[q]) * c.idx + (fn[q] - fnS[q]) * c.idy
             lap = ((TE[q] - 2.0 * T[q] + TW[q]) * c.idx2
                    + (TN[q] - 2.0 * T[q] + TS[q]) * c.idy2)
-            T2.append(torch.where(cell[q], T[q] + c.dt * (self.kappa * lap - adv), T[q]))
+            T2.append(torch.where(cell[q], T[q] + dt_corr * (self.kappa * lap - adv), T[q]))
         T2 = _temperature_bc_quad(T2, grow, gcol, ny, nx, self.t_bottom, self.t_top)
 
-        us_raw, vs_raw = _predictor_quad(u2, v2, c)
+        us_raw, vs_raw = _predictor_quad(u2, v2, c, dt_pred)
         T2N = _qshift(T2, 1, 0)
         us2 = [torch.where(u_valid[q], us_raw[q], u2[q]) for q in range(4)]
-        vs2 = [torch.where(v_valid[q], vs_raw[q] + self.buoy * (T2[q] + T2N[q]), v2[q])
+        vs2 = [torch.where(v_valid[q], vs_raw[q] + buoy * (T2[q] + T2N[q]), v2[q])
                for q in range(4)]
         us2, vs2 = _box_noslip_bc_quad(us2, vs2, grow, gcol, ny, nx)
 
         usW, vsS = _qshift(us2, 0, -1), _qshift(vs2, -1, 0)
+        rho_dt = self.rho_dt if dts is None else rho_over(c, dt_pred)
         b = []
         for q in range(4):
             div = (us2[q] - usW[q]) * c.idx + (vs2[q] - vsS[q]) * c.idy
-            b.append(torch.where(cell[q], self.rho_dt * div, torch.zeros_like(div)))
+            b.append(torch.where(cell[q], rho_dt * div, torch.zeros_like(div)))
         b = torch.stack(b)
         outs = [torch.stack(us2), torch.stack(vs2), torch.stack(T2), b]
-        if self.emit_guess:
+        if p_prev is not None:
             outs.append(2.0 * p - p_prev)
-        return (*outs, fixed_order_sum(b))
+        return (*outs, fixed_order_sum(b), torch.stack(u2), torch.stack(v2))
 
     def kernel(self, us, vs, p, T, p_prev=None):
         u_scr, v_scr, us2, vs2, T2, b = (torch.empty_like(us) for _ in range(6))
@@ -222,24 +243,88 @@ class QuadRBStep(QuadRBCorrector):
         return (*outs, sum_b)
 
 
+class QuadRBCorrectorTraced(_Traced, QuadRBCorrector):
+    """(dt, us4, vs4, p4) -> (u4, v4): the RB corrector with a traced dt
+    (cfd_tpu/kernels/rb_quad.py:225 traced_dt, cu = dt / (rho*dx)): the
+    lagged controller's logical boundary."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs):
+        super().__init__(shape, coeffs)
+        self.cu_f, self.cv_f = self._factors(coeffs)
+
+    def plain(self, dt, us, vs, p):
+        grow, gcol, (u_valid, v_valid, _) = self._geometry(us.device)
+        u, v = self._corrected(us, vs, p, grow, gcol, u_valid, v_valid,
+                               *self._coeffs_at(dt))
+        return torch.stack(u), torch.stack(v)
+
+    def kernel(self, dt, us, vs, p):
+        u2, v2 = torch.empty_like(us), torch.empty_like(us)
+        RB_CORRECTOR_TRACED(us, ptr(us), ptr(vs), ptr(p), ptr(u2), ptr(v2), ptr(dt),
+                            *self._ints(), self.cu_f, self.cv_f)
+        return u2, v2
+
+
+class QuadRBStepAdaptive(_Traced, QuadRBStep):
+    """The RB carry with traced_dt and emit_courant
+    (cfd_tpu/kernels/rb_quad.py:81): (dts, us, vs, p, T) -> (us', vs', T',
+    b, sum b, max|u2|, max|v2|). dts = (dt_corr, dt_pred): dt_corr corrects
+    the carried fields and transports T (completing step n), dt_pred drives
+    the predictor, the buoyancy dt_pred * 0.5 and the source (step n+1). No
+    warm-start guess: the adaptive RB step warm-starts from plain p, as the
+    reference's (physics/boussinesq.py:372-411)."""
+
+    n_dt = 2
+
+    def __init__(self, shape, coeffs: StencilCoeffs, kappa: float, params: RBParams):
+        super().__init__(shape, coeffs, kappa, params)
+        self.cu_f, self.cv_f = self._factors(coeffs)
+
+    def plain(self, dts, us, vs, p, T):
+        *outs, u2, v2 = self._stage(us, vs, p, T, None, *self._coeffs_at(dts[0]), dts=dts)
+        return (*outs, *_courant(u2, v2))
+
+    def kernel(self, dts, us, vs, p, T):
+        u_scr, v_scr, us2, vs2, T2, b = (torch.empty_like(us) for _ in range(6))
+        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
+                               device=us.device)
+        scal = torch.empty(3, dtype=torch.float32, device=us.device)  # sum b, max|u|, max|v|
+        c = self.coeffs
+        RB_CARRY_ADAPTIVE(us, ptr(us), ptr(vs), ptr(p), ptr(T), ptr(u_scr), ptr(v_scr),
+                          ptr(us2), ptr(vs2), ptr(T2), ptr(b), ptr(partials), ptr(scal),
+                          ptr(scal[1:]), ptr(dts), *self._ints(), self.cu_f, self.cv_f,
+                          c.viscosity, c.idx, c.idy, c.idx2, c.idy2, c.density, self.kappa,
+                          2.0 * self.t_bottom, 2.0 * self.t_top)
+        return us2, vs2, T2, b, scal[0], scal[1], scal[2]
+
+
 def make_quad_rb_step_kernel(shape, coeffs, kappa: float, params: RBParams,
-                             emit_guess: bool = False) -> QuadRBStep:
+                             emit_guess: bool = False, adaptive: bool = False) -> QuadRBStep:
+    """``adaptive``: the traced_dt + emit_courant instance (no guess)."""
+    if adaptive:
+        if emit_guess:
+            raise ValueError("the adaptive RB carry takes no p_prev (emit_guess)")
+        return QuadRBStepAdaptive(shape, coeffs, kappa, params)
     return QuadRBStep(shape, coeffs, kappa, params, emit_guess)
 
 
-def make_quad_rb_corrector(shape, coeffs) -> QuadRBCorrector:
+def make_quad_rb_corrector(shape, coeffs, traced_dt: bool = False) -> QuadRBCorrector:
+    if traced_dt:
+        return QuadRBCorrectorTraced(shape, coeffs)
     return QuadRBCorrector(shape, coeffs)
 
 
-def uncorrect_rb_quad(u, v, p, shape, coeffs: StencilCoeffs):
+def uncorrect_rb_quad(u, v, p, shape, coeffs: StencilCoeffs, dt: float | None = None):
     """Inverse correction on NATURAL-layout arrays (resume boundary):
     us = u + c*(pE - p) on valid faces and u elsewhere (the u_else = us
     convention's inverse), so corr(uncorrect(u, v, p), p) == (u, v) up to
-    one f32 rounding (cfd_tpu/kernels/rb_quad.py:263). Torch glue."""
+    one f32 rounding (cfd_tpu/kernels/rb_quad.py:263). ``dt`` (a Python
+    float) overrides coeffs.dt (the adaptive carry's entry). Torch glue."""
     H, Wp = shape
     ny, nx = H - 2, Wp - 2
-    cu = coeffs.dt / (coeffs.density * coeffs.dx)
-    cv = coeffs.dt / (coeffs.density * coeffs.dy)
+    dt = coeffs.dt if dt is None else dt
+    cu = dt / (coeffs.density * coeffs.dx)
+    cv = dt / (coeffs.density * coeffs.dy)
     jj = torch.arange(H, device=u.device)[:, None]
     ii = torch.arange(Wp, device=u.device)[None, :]
     u_valid = (jj >= 1) & (jj <= ny) & (ii >= 1) & (ii <= nx - 1)

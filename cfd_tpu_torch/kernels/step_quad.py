@@ -17,9 +17,10 @@ global (row, column) iotas:
 Each kernel has the three faces of kernels.quad: ``plain`` (whole-array
 PyTorch, any device), ``kernel`` (csrc/step_stage.cu, csrc/step_vcycle.cu;
 CUDA tensors only) and ``__call__``/``forward``, which sends CPU tensors to
-``plain`` and CUDA tensors to ``kernel`` and never falls back. Not ported:
-``traced_dt``/``emit_courant`` (adaptive dt, ROADMAP.md queue A item 10)
-and ``shard`` (queue B item 16).
+``plain`` and CUDA tensors to ``kernel`` and never falls back. The
+adaptive-stepping instances (``traced_dt``, and ``emit_courant`` on the
+carry) follow kernels.quad's. Not ported: ``shard`` (ROADMAP.md queue B
+item 16).
 """
 
 from __future__ import annotations
@@ -32,13 +33,16 @@ from cfd_tpu_torch.kernels.quad import (
     SUM_BLOCK,
     _bilinear_corr,
     _check,
+    _courant,
     _predictor_quad,
     _qiota,
     _qshift,
+    _Traced,
     _where4,
     fixed_order_sum,
     quad_dims,
     quad_shape,
+    rho_over,
 )
 from cfd_tpu_torch.ops.stencil import StencilCoeffs
 
@@ -51,6 +55,12 @@ STEP_PRE = Kernel("quad_step_pre_smooth_restrict", "cfd_step_pre_smooth_restrict
                   "cfd_tpu_torch/csrc/step_vcycle.cu", "cfd_tpu/kernels/step_quad.py:354")
 STEP_POST = Kernel("quad_step_post_prolong_smooth", "cfd_step_post_prolong_smooth",
                    "cfd_tpu_torch/csrc/step_vcycle.cu", "cfd_tpu/kernels/step_quad.py:419")
+STEP_CORRECTOR_TRACED = Kernel("quad_step_corrector_traced", "cfd_step_corrector_traced",
+                               "cfd_tpu_torch/csrc/step_stage.cu",
+                               "cfd_tpu/kernels/step_quad.py:204")
+STEP_CARRY_ADAPTIVE = Kernel("quad_step_corr_predictor_source_adaptive",
+                             "cfd_step_carry_adaptive", "cfd_tpu_torch/csrc/step_stage.cu",
+                             "cfd_tpu/kernels/step_quad.py:100")
 
 
 def _step_masks(grow, gcol, ny: int, nx: int, step_i: int, inlet_j: int):
@@ -99,14 +109,16 @@ def _step_bc_quad(u, v, grow, gcol, ny: int, nx: int, step_i: int, inlet_j: int,
 
 
 def uncorrect_step_quad(u, v, p, shape, coeffs: StencilCoeffs, step_i: int,
-                        inlet_j: int):
+                        inlet_j: int, dt: float | None = None):
     """Inverse of the masked pressure correction on NATURAL arrays (the
     resume boundary): us = u + c*(pE - p) on valid faces, 0 elsewhere
-    (cfd_tpu/kernels/step_quad.py:244)."""
+    (cfd_tpu/kernels/step_quad.py:244). ``dt`` (a Python float) overrides
+    coeffs.dt (the adaptive carry's entry)."""
     H, Wp = shape
     ny, nx = H - 2, Wp - 2
-    cu = coeffs.dt / (coeffs.density * coeffs.dx)
-    cv = coeffs.dt / (coeffs.density * coeffs.dy)
+    dt = coeffs.dt if dt is None else dt
+    cu = dt / (coeffs.density * coeffs.dx)
+    cv = dt / (coeffs.density * coeffs.dy)
     jj = torch.arange(H, device=u.device)[:, None]
     ii = torch.arange(Wp, device=u.device)[None, :]
     u_valid = ((jj >= 1) & (jj <= ny) & (ii >= 1) & (ii <= nx - 1)
@@ -151,13 +163,15 @@ class _StepStage:
         return _step_bc_quad(u, v, grow, gcol, self.ny, self.nx, self.step_i,
                              self.inlet_j, self.uin)
 
-    def _corrected(self, us, vs, p, grow, gcol, u_valid, v_valid):
+    def _corrected(self, us, vs, p, grow, gcol, u_valid, v_valid, cu=None, cv=None):
+        cu = self.cu if cu is None else cu
+        cv = self.cv if cv is None else cv
         pE, pN = _qshift(list(p), 0, 1), _qshift(list(p), 1, 0)
         u, v = [], []
         for q in range(4):
             zero = torch.zeros_like(us[q])
-            u.append(torch.where(u_valid[q], us[q] - self.cu * (pE[q] - p[q]), zero))
-            v.append(torch.where(v_valid[q], vs[q] - self.cv * (pN[q] - p[q]), zero))
+            u.append(torch.where(u_valid[q], us[q] - cu * (pE[q] - p[q]), zero))
+            v.append(torch.where(v_valid[q], vs[q] - cv * (pN[q] - p[q]), zero))
         return self._bc(u, v, grow, gcol)
 
     def _ints(self):
@@ -192,22 +206,28 @@ class QuadStepCorrPredictorSource(_StepStage):
     ``sum b'`` is a 0-d float32 tensor summed in fixed_order_sum's order."""
 
     def plain(self, us, vs, p):
+        return self._stage(us, vs, p)[:4]
+
+    def _stage(self, us, vs, p, cu=None, cv=None, dt=None):
+        """(us', vs', b', sum b', u, v): the stage with the corrected fields
+        u, v, at the host's coefficients or the traced ones."""
         c = self.coeffs
         grow, gcol, (fluid, u_valid, v_valid) = self._geometry(us.device)
-        u, v = self._corrected(us, vs, p, grow, gcol, u_valid, v_valid)
-        us_raw, vs_raw = _predictor_quad(u, v, c)
+        u, v = self._corrected(us, vs, p, grow, gcol, u_valid, v_valid, cu, cv)
+        us_raw, vs_raw = _predictor_quad(u, v, c, dt)
         zero = torch.zeros_like(u[0])
         us2 = [torch.where(u_valid[q], us_raw[q], zero) for q in range(4)]
         vs2 = [torch.where(v_valid[q], vs_raw[q], zero) for q in range(4)]
         us2, vs2 = self._bc(us2, vs2, grow, gcol)
         usW, vsS = _qshift(us2, 0, -1), _qshift(vs2, -1, 0)
-        rho_dt = c.density / c.dt
+        rho_dt = rho_over(c, dt)
         b = []
         for q in range(4):
             div = (us2[q] - usW[q]) * c.idx + (vs2[q] - vsS[q]) * c.idy
             b.append(torch.where(fluid[q], rho_dt * div, torch.zeros_like(div)))
         b = torch.stack(b)
-        return torch.stack(us2), torch.stack(vs2), b, fixed_order_sum(b)
+        return (torch.stack(us2), torch.stack(vs2), b, fixed_order_sum(b), torch.stack(u),
+                torch.stack(v))
 
     def kernel(self, us, vs, p):
         u_scr, v_scr, us2, vs2, b = (torch.empty_like(us) for _ in range(5))
@@ -222,15 +242,73 @@ class QuadStepCorrPredictorSource(_StepStage):
         return us2, vs2, b, sum_b
 
 
+class QuadStepCorrectorTraced(_Traced, QuadStepCorrector):
+    """(dt, us4, vs4, p4) -> (u4, v4): the step corrector with a traced dt
+    (cfd_tpu/kernels/step_quad.py:204 traced_dt, cu = dt / (rho*dx)): the
+    lagged controller's logical boundary."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, step_i: int, inlet_j: int,
+                 inlet_velocity: float = 1.0):
+        super().__init__(shape, coeffs, step_i, inlet_j, inlet_velocity)
+        self.cu_f, self.cv_f = self._factors(coeffs)
+
+    def plain(self, dt, us, vs, p):
+        grow, gcol, (_, u_valid, v_valid) = self._geometry(us.device)
+        u, v = self._corrected(us, vs, p, grow, gcol, u_valid, v_valid,
+                               *self._coeffs_at(dt))
+        return torch.stack(u), torch.stack(v)
+
+    def kernel(self, dt, us, vs, p):
+        u2, v2 = torch.empty_like(us), torch.empty_like(us)
+        STEP_CORRECTOR_TRACED(us, ptr(us), ptr(vs), ptr(p), ptr(u2), ptr(v2), ptr(dt),
+                              *self._ints(), self.cu_f, self.cv_f, self.uin)
+        return u2, v2
+
+
+class QuadStepCorrPredictorSourceAdaptive(_Traced, QuadStepCorrPredictorSource):
+    """The step carry with traced_dt and emit_courant
+    (cfd_tpu/kernels/step_quad.py:100): (dts, us, vs, p) -> (us', vs', b',
+    sum b', max|u|, max|v|), dts = (dt_corr, dt_pred) as kernels.quad's
+    adaptive carries."""
+
+    n_dt = 2
+
+    def __init__(self, shape, coeffs: StencilCoeffs, step_i: int, inlet_j: int,
+                 inlet_velocity: float = 1.0):
+        super().__init__(shape, coeffs, step_i, inlet_j, inlet_velocity)
+        self.cu_f, self.cv_f = self._factors(coeffs)
+
+    def plain(self, dts, us, vs, p):
+        us2, vs2, b, sum_b, u, v = self._stage(us, vs, p, *self._coeffs_at(dts[0]),
+                                               dt=dts[1])
+        return us2, vs2, b, sum_b, *_courant(u, v)
+
+    def kernel(self, dts, us, vs, p):
+        u_scr, v_scr, us2, vs2, b = (torch.empty_like(us) for _ in range(5))
+        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
+                               device=us.device)
+        scal = torch.empty(3, dtype=torch.float32, device=us.device)  # sum b, max|u|, max|v|
+        c = self.coeffs
+        STEP_CARRY_ADAPTIVE(us, ptr(us), ptr(vs), ptr(p), ptr(u_scr), ptr(v_scr), ptr(us2),
+                            ptr(vs2), ptr(b), ptr(partials), ptr(scal), ptr(scal[1:]),
+                            ptr(dts), *self._ints(), self.cu_f, self.cv_f, self.uin,
+                            c.viscosity, c.idx, c.idy, c.idx2, c.idy2, c.density)
+        return us2, vs2, b, scal[0], scal[1], scal[2]
+
+
 def make_quad_step_corrector(shape, coeffs, step_i: int, inlet_j: int,
-                             inlet_velocity: float = 1.0) -> QuadStepCorrector:
-    return QuadStepCorrector(shape, coeffs, step_i, inlet_j, inlet_velocity)
+                             inlet_velocity: float = 1.0, traced_dt: bool = False
+                             ) -> QuadStepCorrector:
+    cls = QuadStepCorrectorTraced if traced_dt else QuadStepCorrector
+    return cls(shape, coeffs, step_i, inlet_j, inlet_velocity)
 
 
 def make_quad_step_corr_predictor_source(shape, coeffs, step_i: int, inlet_j: int,
-                                         inlet_velocity: float = 1.0
+                                         inlet_velocity: float = 1.0, adaptive: bool = False
                                          ) -> QuadStepCorrPredictorSource:
-    return QuadStepCorrPredictorSource(shape, coeffs, step_i, inlet_j, inlet_velocity)
+    """``adaptive``: the traced_dt + emit_courant instance."""
+    cls = QuadStepCorrPredictorSourceAdaptive if adaptive else QuadStepCorrPredictorSource
+    return cls(shape, coeffs, step_i, inlet_j, inlet_velocity)
 
 
 # ------------------------------------------------- the exact masked level 0

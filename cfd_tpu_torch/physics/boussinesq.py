@@ -20,10 +20,11 @@ name post_sweeps, the plain previous-p warm start (or, with
 the stats/export boundary, and the reference's auto_whole_solve rule with
 "device is cuda" in place of "platform is tpu": the pin-mean whole-solve
 (one launch per pressure solve) on the card, the per-kernel pin-mean solve
-on the CPU. The stats rows carry the Nusselt numbers. The natural-layout
-XLA step, float64, whole_step and other layouts raise NotImplementedError;
-the port has no adaptive-dt controller yet (ROADMAP.md queue A item 10),
-so the reference's adaptive_impl_carry has no counterpart.
+on the CPU. The stats rows carry the Nusselt numbers. The lagged adaptive
+controller's ``adaptive_impl_carry`` and ``adaptive_diffusivity`` =
+max(nu, kappa) (cfd_tpu/physics/boussinesq.py:372-411, :498). The
+natural-layout XLA step, float64, whole_step and other layouts raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from cfd_tpu_torch.kernels.quad import (
     from_quad,
     make_quad_post_prolong_smooth,
     make_quad_pre_smooth_restrict,
+    quad_cell_mask,
     quad_dims,
     to_quad,
 )
@@ -58,8 +60,8 @@ from cfd_tpu_torch.poisson.multigrid import (
     neumann_problem,
 )
 from cfd_tpu_torch.precision import as_dtype
-from cfd_tpu_torch.solver import Case
-from cfd_tpu_torch.state import State
+from cfd_tpu_torch.solver import Case, remove_mean_quad
+from cfd_tpu_torch.state import State, StepDiagnostics
 
 
 def _not_ported(what: str, where: str):
@@ -285,6 +287,36 @@ def make_rayleigh_benard_case(
         u, v = vel_bc(z, z)
         return align_state(State(u, v, z, T, z if extrapolate_warm_start else None))
 
+    def adaptive_impl_carry():
+        """The lagged controller's step on the traced-dt + Courant RB carry:
+        dt_corr completes step n (corrector, T transport), dt_pred advances
+        step n+1 (predictor, buoyancy, source); the mean removal and the
+        solve from plain p."""
+        fused_a = make_quad_rb_step_kernel(grid.shape, coeffs, kappa, params, adaptive=True)
+        corr_a = make_quad_rb_corrector(grid.shape, coeffs, traced_dt=True)
+        idx_, idy_ = 1.0 / grid.dx, 1.0 / grid.dy
+        cell = quad_cell_mask(grid.shape, device)
+        n_t = torch.tensor(float(n_cells), dtype=torch.float32, device=device)
+        t = lambda a: to_quad(a, grid.shape)
+        f = lambda a: from_quad(a, grid.shape)
+
+        def step(state: State, dts):
+            us2, vs2, T2, b, sum_b, mu, mv = fused_a(dts, state.u, state.v, state.p,
+                                                     state.T)
+            p, iters, res = solve(state.p, remove_mean_quad(b, sum_b, n_t, cell))
+            return (State(us2, vs2, p, T2, None), StepDiagnostics(iters, res),
+                    mu * idx_ + mv * idy_)
+
+        def to_aligned(st: State, dt: float) -> State:
+            us, vs = uncorrect_rb_quad(st.u, st.v, st.p, grid.shape, coeffs, dt=dt)
+            return State(t(us), t(vs), t(st.p), t(st.T), None)
+
+        def to_logical(st: State, dt_used) -> State:
+            u2, v2 = corr_a(dt_used, st.u, st.v, st.p)
+            return State(f(u2), f(v2), f(st.p), f(st.T), None)
+
+        return step, to_aligned, to_logical
+
     return Case(
         name="rayleigh_benard",
         poisson_max_iters=mg.max_cycles,
@@ -311,4 +343,6 @@ def make_rayleigh_benard_case(
                   mg=mg),
         extra_stats=lambda state: nusselt_numbers(state, grid, params, kappa=kappa),
         initial_state_fn=initial_state_fn,
+        adaptive_impl_carry=adaptive_impl_carry,
+        adaptive_diffusivity=max(nu, kappa),
     )

@@ -10,6 +10,8 @@ pressure solve — the channel ordering with the temperature carried through
 the fused kernel (Rayleigh-Benard, in place of the reference's
 ``custom_step``, cfd_tpu/physics/boussinesq.py:334-353), the per-case
 hooks ``extra_stats`` and ``initial_state_fn`` (cfd_tpu/solver.py:139-141),
+the adaptive-stepping builders ``adaptive_impl``, ``adaptive_impl_carry``
+and ``adaptive_diffusivity`` (:122-134, driven by cfd_tpu_torch.adaptive),
 and the ``Simulation`` time loop with its stats rows and NaN/KE-blowup
 abort. The JAX package runs a chunk of steps as one device program (lax.scan around lax.while_loop); PyTorch
 runs eagerly, so a step here is a sequence of kernel launches and the
@@ -66,6 +68,19 @@ class Case:
     info: Optional[dict] = None
     extra_stats: Optional[Callable] = None  # (logical State) -> dict of 0-d tensors
     initial_state_fn: Optional[Callable] = None  # () -> carried State
+    # Adaptive stepping (cfd_tpu_torch.adaptive). The exact controller's
+    # builder: () -> (step(state, dt) -> (state, diag, courant_per_dt),
+    # to_aligned(logical state), to_logical(state)), dt a 0-d float32 tensor
+    # read by the kernels on the card.
+    adaptive_impl: Optional[Callable] = None
+    # The lagged controller's, on the tentative-carry kernels: () ->
+    # (step(state, dts) -> (state, diag, courant_per_dt), to_aligned(logical
+    # state, dt), to_logical(state, dt_used)), dts the (2,) tensor (dt_corr,
+    # dt_pred), dt a Python float, dt_used a 0-d tensor.
+    adaptive_impl_carry: Optional[Callable] = None
+    # Diffusivity of the controller's ceiling dt <= 0.25 h^2 / D (default:
+    # the viscosity; RB: max(nu, kappa))
+    adaptive_diffusivity: Optional[float] = None
 
     @property
     def dt(self) -> float:
@@ -163,6 +178,8 @@ class Simulation:
         self.history: list[dict] = []
         # V-cycles of every step run, in order (host ints)
         self.step_iters: list[int] = []
+        # dt of every step an adaptive run took (cfd_tpu_torch.adaptive)
+        self.step_dts: list[float] = []
         self.blowup_ke_threshold = 1e6
 
     def initial_state(self) -> State:
@@ -179,7 +196,10 @@ class Simulation:
         return self.case.unalign_state(state)
 
     def statistics(self, state: State) -> dict[str, float]:
-        state = self._logical(state)
+        """The stats row of a carried state, or of a logical one (the
+        adaptive runs hand over their own logical states)."""
+        if tuple(state.u.shape) != self.case.grid.shape:
+            state = self._logical(state)
         vals = flow_statistics(state.u, state.v, self.case.coeffs, self._cell_mask,
                                self.case.ke_divisor)
         if self.case.extra_stats is not None:

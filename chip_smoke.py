@@ -78,6 +78,26 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
 13. RB card against CPU at 256x128, 20 steps, on both solves: cycles equal
     every step, u, v, p and T within 5e-5 relative, avg_KE and
     nusselt_volume within 1e-6 relative.
+14. Per-kernel check of the adaptive-stepping instances at the full shapes
+    of phases 2, 5, 8 and 11: the traced-dt non-carry cavity stage, the
+    traced-dt correctors and the traced-dt + Courant carries of the four
+    flows against their twins (1e-5) with dt_corr = 0.8 dt and dt_pred =
+    1.1 dt, each timed beside the fixed-dt instance on the same inputs.
+15. Adaptive runs through cfd_tpu_torch.adaptive.run_adaptive at the full
+    widths, max_courant 0.7 from the case's own dt, the launch counters
+    zeroed just before each: the cavity 2048^2 with the exact controller on
+    the host loop (200 steps) and the lagged one in chunks of 100 (300
+    steps), the channel 1536x512, the step 2048x256 (print_interval 100)
+    and RB 1536x512, Ra = 1e6, lagged, 300 steps in chunks of 100. Each must
+    launch its kernels, stay finite, print no Courant number above 0.7 *
+    1.2 and take no dt above the diffusive ceiling; it prints steps/s and
+    V-cycles/step over its last 100 steps, the final dt and its ratio to the
+    case's dt, the last Courant number and the simulated time reached.
+16. Adaptive card against CPU, 20 steps: the cavity at 256^2 with the bf16
+    coarse hierarchy on both (the exact controller on the host loop and in
+    chunks of 10, the lagged one), the
+    channel at 256x128, the step at 512x64 and RB at 256x128 (lagged): the
+    same dt every step, equal cycles, fields within 5e-5 relative.
 
 The line before the last is a JSON object {"kernels": [...]}: per kernel,
 its launches on its path's run, its error against its twin, its time and
@@ -122,6 +142,10 @@ STEP = (2048, 256)
 # pin per cell per cycle (the sum and the shift)
 TEMPERATURE_OPS, BUOYANCY_OPS, PIN_OPS = 24, 3, 2
 RB_SHAPE = (1536, 512)
+# adaptive stepping: the Courant feedback per cell (two |.|, two maxima);
+# the controller's target and growth
+COURANT_OPS = 4
+MAX_CO, GROWTH = 0.7, 1.2
 
 
 def log(msg: str) -> None:
@@ -689,6 +713,179 @@ def check_rb_kernels(case, dev) -> dict:
     return results
 
 
+def check_adaptive_kernels(flows: dict, dev) -> dict:
+    """Phase 14: each adaptive-stepping instance against its twin at the
+    full shapes, dt_corr = 0.8 dt and dt_pred = 1.1 dt, timed beside the
+    fixed-dt instance on the same inputs (for the non-carry cavity stage:
+    the fixed carry, whose second launch it shares)."""
+    from cfd_tpu_torch.kernels import quad as Q
+    from cfd_tpu_torch.kernels import rb_quad as RQ
+    from cfd_tpu_torch.kernels import step_quad as SQ
+    from cfd_tpu_torch.kernels.quad import to_quad
+    from cfd_tpu_torch.physics.boussinesq import RBParams
+
+    rng = np.random.default_rng(14)
+    results = {}
+    for flow, (g, c, info) in flows.items():
+        shape = g.shape
+        cells = g.nx * g.ny
+        inner = np.zeros(shape, np.float32)
+        inner[1:-1, 1:-1] = 1.0
+        if flow == "step":
+            inner = g.fluid.astype(np.float32)
+
+        def field(scale=0.1, interior_only=False, offset=0.0):
+            a = (rng.standard_normal(shape) * scale).astype(np.float32) + offset
+            if interior_only:
+                a *= inner
+            return to_quad(torch.from_numpy(a).to(dev), shape)
+
+        us, vs, p, p_prev = field(), field(), field(interior_only=True), \
+            field(interior_only=True)
+        one = lambda s: torch.tensor(s * c.dt, dtype=torch.float32, device=dev)
+        pair = torch.tensor([0.8 * c.dt, 1.1 * c.dt], dtype=torch.float32, device=dev)
+        stage_ops = cells * (CORRECTOR_OPS + PREDICTOR_SOURCE_OPS + COURANT_OPS)
+        courant = ("max|u|", "max|v|")
+        if flow == "cavity":
+            specs = [
+                ("quad_predictor_source", Q.make_quad_predictor_source(shape, c),
+                 Q.make_quad_corr_predictor_source(shape, c), one(1.1), (us, vs),
+                 (us, vs, p, p_prev), ("us'", "vs'", "b", "max|b|"),
+                 cells * PREDICTOR_SOURCE_OPS),
+                ("quad_corrector_traced", Q.make_quad_corrector(shape, c, traced_dt=True),
+                 Q.make_quad_corrector(shape, c), one(0.8), (us, vs, p, p_prev), None,
+                 ("u", "v", "guess"), cells * CORRECTOR_OPS),
+                ("quad_corr_predictor_source_adaptive",
+                 Q.make_quad_corr_predictor_source(shape, c, adaptive=True),
+                 Q.make_quad_corr_predictor_source(shape, c), pair, (us, vs, p, p_prev),
+                 None, ("us'", "vs'", "b", "guess", "max|b|") + courant, stage_ops)]
+        elif flow == "channel":
+            specs = [
+                ("quad_channel_corrector_traced",
+                 Q.make_quad_channel_corrector(shape, c, traced_dt=True),
+                 Q.make_quad_channel_corrector(shape, c), one(0.8), (us, vs, p, p_prev),
+                 None, ("u", "v", "guess"), cells * CORRECTOR_OPS),
+                ("quad_channel_corr_predictor_source_adaptive",
+                 Q.make_quad_channel_corr_predictor_source(shape, c, adaptive=True),
+                 Q.make_quad_channel_corr_predictor_source(shape, c), pair,
+                 (us, vs, p, p_prev), None, ("us'", "vs'", "b", "guess", "sum b") + courant,
+                 stage_ops)]
+        elif flow == "step":
+            rect = info["rect"]
+            specs = [
+                ("quad_step_corrector_traced",
+                 SQ.make_quad_step_corrector(shape, c, *rect, traced_dt=True),
+                 SQ.make_quad_step_corrector(shape, c, *rect), one(0.8), (us, vs, p), None,
+                 ("u", "v"), cells * CORRECTOR_OPS),
+                ("quad_step_corr_predictor_source_adaptive",
+                 SQ.make_quad_step_corr_predictor_source(shape, c, *rect, adaptive=True),
+                 SQ.make_quad_step_corr_predictor_source(shape, c, *rect), pair,
+                 (us, vs, p), None, ("us'", "vs'", "b", "sum b") + courant, stage_ops)]
+        else:
+            profile = np.linspace(1.0, 0.0, shape[0], dtype=np.float32)[:, None]
+            T = field(0.01, offset=profile)
+            params = RBParams(info["rayleigh"], info["prandtl"])
+            specs = [
+                ("quad_rb_corrector_traced", RQ.make_quad_rb_corrector(shape, c, traced_dt=True),
+                 RQ.make_quad_rb_corrector(shape, c), one(0.8), (us, vs, p), None,
+                 ("u", "v"), cells * CORRECTOR_OPS),
+                ("quad_rb_step_adaptive",
+                 RQ.make_quad_rb_step_kernel(shape, c, info["kappa"], params, adaptive=True),
+                 RQ.make_quad_rb_step_kernel(shape, c, info["kappa"], params), pair,
+                 (us, vs, p, T), None, ("us'", "vs'", "T'", "b", "sum b") + courant,
+                 stage_ops + cells * (TEMPERATURE_OPS + BUOYANCY_OPS))]
+        for name, op, fixed, dts, args, fixed_args, outs, ops in specs:
+            fixed_args = args if fixed_args is None else fixed_args
+            errs = []
+            got, want = op.kernel(dts, *args), op.plain(dts, *args)
+            for out, a, b in zip(outs, got, want, strict=True):
+                rel_err(a, b, f"{name} {out}", TOL_F32, errs)
+            results[name] = dict(
+                err=max(errs), ms=median_ms(lambda: op.kernel(dts, *args)),
+                fixed_ms=median_ms(lambda: fixed.kernel(*fixed_args)),
+                plain_ms=median_ms(lambda: op.plain(dts, *args)),
+                **bound(nbytes(dts, *args, *got), ops))
+    return results
+
+
+def run_adaptive_path(case, n_steps: int, spc: int, controller: str, path_kernels,
+                      what: str, card: str) -> tuple[dict, dict]:
+    """Phase 15: one adaptive run through run_adaptive with every launch
+    counter zeroed just before and read just after; fails on a kernel of
+    ``path_kernels`` that never launched, a non-finite field, a printed
+    Courant number above MAX_CO * GROWTH or a dt above the diffusive
+    ceiling. Returns (launches, steps/s and V-cycles/step over the last 100
+    steps, the final dt, its ratio to the case's dt, the last Courant number,
+    the simulated time)."""
+    from cfd_tpu_torch.adaptive import run_adaptive
+    from cfd_tpu_torch.kernels import KERNELS
+    from cfd_tpu_torch.solver import Simulation
+
+    for kern in KERNELS:
+        kern.launches = 0
+    sim = Simulation(case, log=lambda m: log("  " + m))
+    t0 = time.perf_counter()
+    st, rows = run_adaptive(sim, max_courant=MAX_CO, growth=GROWTH, n_steps=n_steps,
+                            steps_per_call=spc, controller=controller)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    log(f"  launches: {launches}")
+    missing = [k.name for k in path_kernels if launches[k.name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {what} path: {missing}")
+    for fname in ("u", "v", "p", "T"):
+        a = getattr(st, fname)
+        if a is not None and not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"non-finite {fname} after the {what} run")
+    co_max = max(r["courant"] for r in rows)
+    if not co_max <= MAX_CO * GROWTH:
+        raise AssertionError(f"{what}: printed Courant number {co_max} > {MAX_CO * GROWTH}")
+    c = case.coeffs
+    diffusivity = case.adaptive_diffusivity or c.viscosity
+    ceiling = 0.25 * min(c.dx, c.dy) ** 2 / diffusivity
+    if not max(sim.step_dts) <= ceiling * (1 + 1e-6):
+        raise AssertionError(f"{what}: dt {max(sim.step_dts)} above the diffusive ceiling "
+                             f"{ceiling}")
+    walls = [0.0] + [r["wall_seconds"] for r in rows]
+    steps_s = 100 / (walls[-1] - walls[-2])
+    out = dict(steps_s=steps_s, cycles=float(np.mean(sim.step_iters[-100:])),
+               dt=sim.step_dts[-1], ratio=sim.step_dts[-1] / case.dt, co=rows[-1]["courant"],
+               t=rows[-1]["time"], row=rows[-1])
+    log(f"  {what}: {n_steps} steps in {wall:.2f} s; last 100: {steps_s:.2f} steps/s, "
+        f"{out['cycles']:.2f} V-cycles/step; final dt {out['dt']:.6e} = "
+        f"{out['ratio']:.4f} x the case's dt {case.dt:.6e} (ceiling {ceiling:.6e}); last "
+        f"Co {out['co']:.4f} (max printed {co_max:.4f}); t = {out['t']:.6f}  ({card})")
+    return launches, out
+
+
+def adaptive_card_vs_cpu(make, kw: dict, controller: str, spc: int, what: str) -> None:
+    """Phase 16: 20 adaptive steps with the kernels on the card and the plain
+    twins on the CPU: the same dt every step, equal cycles, fields within
+    5e-5."""
+    from cfd_tpu_torch.adaptive import run_adaptive
+    from cfd_tpu_torch.solver import Simulation
+
+    out = {}
+    for where, dev in (("card", "cuda"), ("cpu", "cpu")):
+        sim = Simulation(make(device=dev, **kw), log=lambda m: None)
+        st, _ = run_adaptive(sim, max_courant=MAX_CO, n_steps=20, steps_per_call=spc,
+                             controller=controller)
+        out[where] = (sim.step_iters, sim.step_dts, st)
+    (it_g, dt_g, st_g), (it_c, dt_c, st_c) = out["card"], out["cpu"]
+    log(f"  {what}: cycles/step card {it_g}, cpu {it_c}; dt step 20 card {dt_g[-1]!r} "
+        f"cpu {dt_c[-1]!r} ({dt_g[-1] / dt_g[0]:.3f} x step 1)")
+    if it_g != it_c:
+        raise AssertionError(f"{what}: card and CPU cycle counts differ")
+    if dt_g != dt_c:
+        raise AssertionError(f"{what}: card and CPU dt sequences differ: {dt_g} / {dt_c}")
+    for name in ("u", "v", "p", "T"):
+        if getattr(st_c, name) is None:
+            continue
+        rel_err(getattr(st_g, name).float().cpu(), getattr(st_c, name).float(),
+                f"{what} card vs cpu {name}", 5e-5, [])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -726,6 +923,7 @@ def main() -> int:
     log(f"  solver config: V({mg.pre_sweeps},{mg.post_sweeps}) coarse_dtype="
         f"{mg.coarse_dtype} levels={len(case.poisson_solve.levels)}")
     checks = check_kernels(case, dev)
+    flows = {"cavity": (case.grid, case.coeffs, None)}  # phase 14's shapes
 
     log(f"phase 3: the slice at {N_MAIN}^2, 300 steps in chunks of 100 ({card})")
     cavity_launches, _, _ = run_path(
@@ -750,6 +948,7 @@ def main() -> int:
     log(f"  solver config: V({mg.pre_sweeps},{mg.post_sweeps}) whole_solve="
         f"{mg.whole_solve} levels={len(case.poisson_solve.mg.levels)}")
     checks.update(check_channel_kernels(case, dev))
+    flows["channel"] = (case.grid, case.coeffs, None)
     for k, r in checks.items():
         log(f"  {k:36s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
@@ -805,6 +1004,9 @@ def main() -> int:
     log(f"  masked whole_solve_kernel: {grid['registers']} registers/thread, cooperative "
         f"grid of {grid['blocks']} blocks ({grid['blocks_per_sm']} co-resident per SM)")
     step_checks = check_step_kernels(case, dev)
+    from cfd_tpu_torch.poisson.multigrid import step_rect_params
+
+    flows["step"] = (g, case.coeffs, dict(rect=step_rect_params(g)))
     for k, r in step_checks.items():
         log(f"  {k:36s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
@@ -851,6 +1053,7 @@ def main() -> int:
         f"pin_mean={mg.pin_mean} tol_factor={mg.tol_factor} abs_tol={mg.abs_tol} "
         f"levels={len(case.poisson_solve.mg.levels)}")
     rb_checks = check_rb_kernels(case, dev)
+    flows["rb"] = (case.grid, case.coeffs, case.info)
     for k, r in rb_checks.items():
         log(f"  {k:36s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
@@ -894,6 +1097,65 @@ def main() -> int:
                                                     mg_overrides=ov),
                     f"rb 256x128 {'per-kernel' if ov else 'default'}")
 
+    log(f"phase 14: the adaptive-stepping kernel instances vs plain twins at the full "
+        f"shapes, dt_corr = 0.8 dt, dt_pred = 1.1 dt ({card})")
+    ad_checks = check_adaptive_kernels(flows, dev)
+    for k, r in ad_checks.items():
+        log(f"  {k:44s} kernel {r['ms']:.4f} ms  fixed-dt {r['fixed_ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
+    checks.update(ad_checks)
+
+    log(f"phase 15: adaptive runs at the full widths, max_courant {MAX_CO}, growth "
+        f"{GROWTH}, from the case's own dt ({card})")
+    ad_launches = {}
+    cav_kw = dict(n_interior=N_MAIN, poisson="multigrid", dtype=torch.float32,
+                  tolerance_factor=1e-6, device=dev)
+    runs = [
+        ("cavity exact", make_cavity_case, cav_kw, 200, 1, "exact",
+         (Q.PREDICTOR_SOURCE, Q.CORRECTOR_TRACED, Q.PRE, Q.POST, RB.RB_PAIRS)),
+        ("cavity lagged", make_cavity_case, cav_kw, 300, 100, "lagged",
+         (Q.CARRY_ADAPTIVE, Q.CORRECTOR_TRACED, Q.PRE, Q.POST, RB.RB_PAIRS)),
+        ("channel lagged", make_channel_case, dict(ch_kw, device=dev), 300, 100, "lagged",
+         (Q.CHANNEL_CARRY_ADAPTIVE, Q.CHANNEL_CORRECTOR_TRACED, WS.WHOLE_SOLVE)),
+        ("step lagged", make_backwards_step_case, dict(st_kw, device=dev), 300, 100, "lagged",
+         (SQ.STEP_CARRY_ADAPTIVE, SQ.STEP_CORRECTOR_TRACED, WS.STEP_WHOLE_SOLVE)),
+        ("rb lagged", make_rayleigh_benard_case, dict(rb_kw, device=dev), 300, 100, "lagged",
+         (RQ.RB_CARRY_ADAPTIVE, RQ.RB_CORRECTOR_TRACED, WS.WHOLE_SOLVE_PIN_MEAN)),
+    ]
+    for what, make, kw, n, spc, ctl, path in runs:
+        case = make(**kw)
+        got, r = run_adaptive_path(case, n, spc, ctl, path, what, card)
+        for k in path[:2]:
+            ad_launches.setdefault(k.name, got[k.name])
+        if what == "rb lagged":
+            row = r["row"]
+            log(f"  rb lagged at step 300: t = {r['t']:.6f} against the fixed dt's "
+                f"{300 * case.dt:.6f} (phase 12); Nu bottom {row['nusselt_bottom']:.6f}, "
+                f"top {row['nusselt_top']:.6f}, volume {row['nusselt_volume']:.6f}")
+        del case
+
+    log("phase 16: adaptive card vs CPU, 20 steps")
+    # the card's cavity default, the bf16 coarse hierarchy, pinned on the CPU too
+    cav_small = dict(n_interior=256, poisson="multigrid", dtype=torch.float32,
+                     tolerance_factor=1e-6, print_interval=20,
+                     mg_overrides={"coarse_dtype": "bfloat16"})
+    small = [
+        (make_cavity_case, cav_small, "exact", 1, "cavity 256^2 exact"),
+        (make_cavity_case, cav_small, "exact", 10, "cavity 256^2 exact chunked"),
+        (make_cavity_case, cav_small, "lagged", 10, "cavity 256^2 lagged"),
+        (make_channel_case, dict(nx=256, ny=128, poisson="multigrid", dtype=torch.float32,
+                                 tolerance_factor=1e-6, abs_tol=0.0, print_interval=20),
+         "lagged", 10, "channel 256x128 lagged"),
+        (make_backwards_step_case, dict(nx=512, ny=64, poisson="multigrid",
+                                        dtype=torch.float32, tolerance_factor=1e-6,
+                                        abs_tol=0.0, print_interval=20), "lagged", 10,
+         "step 512x64 lagged"),
+        (make_rayleigh_benard_case, dict(nx=256, ny=128, rayleigh=1e6, dtype=torch.float32,
+                                         print_interval=20), "lagged", 10, "rb 256x128 lagged"),
+    ]
+    for make, kw, ctl, spc, what in small:
+        adaptive_card_vs_cpu(make, kw, ctl, spc, what)
+
     launches = {**cavity_launches, **{k: channel_launches[k] for k in (
         Q.CHANNEL_CARRY.name, Q.CHANNEL_CORRECTOR.name, WS.WHOLE_SOLVE.name)},
         **{k: step_launches[k] for k in (SQ.STEP_CARRY.name, SQ.STEP_CORRECTOR.name,
@@ -901,7 +1163,8 @@ def main() -> int:
         **{k: step_pk_launches[k] for k in (SQ.STEP_PRE.name, SQ.STEP_POST.name,
                                              RB.RB_PAIRS_FULL.name)},
         **{k: rb_launches[k] for k in (RQ.RB_CARRY.name, RQ.RB_CORRECTOR.name,
-                                       WS.WHOLE_SOLVE_PIN_MEAN.name)}}
+                                       WS.WHOLE_SOLVE_PIN_MEAN.name)},
+        **ad_launches}
     kernels = []
     for k in KERNELS:
         r = checks[k.name]
