@@ -26,6 +26,11 @@ Controllers (``controller``):
   next predictor, so the feedback is one step stale. The controller state
   (dt_used, dt, t) stays on the device; it is read at print cadence.
 
+Every controller keeps the steps' (cycles, res) where the solve left them
+(0-d device tensors on the whole-solve paths) and reads them once per stats
+row and at the end (solver.read_diagnostics); only the exact host loop's
+read of Co a step remains, because its controller needs it.
+
 Not ported: the multi-chip controller (_run_adaptive_sharded), checkpoint
 resume of adaptive runs (the port has no checkpointer yet) and
 make_adaptive_step (the reference's fallback for the SOR, f64 and XLA cases
@@ -39,6 +44,7 @@ import time
 import torch
 
 from cfd_tpu_torch.kernels.quad import scalar_like
+from cfd_tpu_torch.solver import read_diagnostics
 
 
 def _ceiling(case) -> float:
@@ -126,6 +132,25 @@ def _done(k: int, t: float, n_steps, final_time) -> bool:
             or (final_time is not None and t >= final_time))
 
 
+class _Pending:
+    """The steps' diagnostics since the last read; ``read()`` appends their
+    cycles to sim.step_iters with one transfer and returns the last step's
+    (cycles, res)."""
+
+    def __init__(self, sim):
+        self.sim, self.diags, self.last = sim, [], None
+
+    def append(self, diag) -> None:
+        self.diags.append(diag)
+
+    def read(self):
+        if self.diags:
+            iters, res = read_diagnostics(self.diags)
+            self.sim.step_iters.extend(iters)
+            self.diags, self.last = [], (iters[-1], res[-1])
+        return self.last
+
+
 def _row(sim, logical, k, t, dt, co, iters, res, t_wall0, log) -> dict:
     now = time.perf_counter()
     row = sim.statistics(logical)
@@ -142,21 +167,23 @@ def _run_exact_host(sim, step, to_logical, state, dt, n_steps, final_time, log, 
     """The exact controller in Python floats, one host read a step
     (cfd_tpu/adaptive.py:431-462)."""
     interval = sim.case.print_interval
+    pending = _Pending(sim)
     rows, k, t, t0 = [], 0, 0.0, time.perf_counter()
     while not _done(k, t, n_steps, final_time):
         state, diag, co_per_dt = step(state, scalar_like(dt, state.u))
         k += 1
         t += dt
         co = dt * float(co_per_dt)
-        sim.step_iters.append(int(diag.poisson_iters))
+        pending.append(diag)
         sim.step_dts.append(dt)
         if k % interval == 0:
-            rows.append(_row(sim, to_logical(state), k, t, dt, co, diag.poisson_iters,
-                             diag.poisson_residual, t0, log))
+            rows.append(_row(sim, to_logical(state), k, t, dt, co, *pending.read(), t0,
+                             log))
         # approach max_courant from below, never above the diffusive
         # ceiling; shrink at once when over the target
         scale = min(growth, max_courant / max(co, 1e-12))
         dt = min(dt * scale, ceiling)
+    pending.read()
     return to_logical(state), rows
 
 
@@ -167,13 +194,14 @@ def _run_exact_chunked(sim, step, to_logical, state, dt, n_steps, final_time, lo
     ctl = _DeviceController(state.u, max_courant, growth, ceiling)
     interval = sim.case.print_interval
     d = scalar_like(dt, state.u)
+    pending = _Pending(sim)
     rows, k, t, t0 = [], 0, 0.0, time.perf_counter()
     while not _done(k, t, n_steps, final_time):
         dts = []
         for _ in range(spc):
             state, diag, co_per_dt = step(state, d)
             co = d * co_per_dt
-            sim.step_iters.append(int(diag.poisson_iters))
+            pending.append(diag)
             dts.append(d)
             d = ctl(d, co)
         k += spc
@@ -184,7 +212,8 @@ def _run_exact_chunked(sim, step, to_logical, state, dt, n_steps, final_time, lo
         sim.step_dts.extend(per_step)
         if k % interval == 0:
             rows.append(_row(sim, to_logical(state), k, t, per_step[-1], co_last,
-                             diag.poisson_iters, diag.poisson_residual, t0, log))
+                             *pending.read(), t0, log))
+    pending.read()
     return to_logical(state), rows
 
 
@@ -201,12 +230,13 @@ def _run_lagged(sim, step, to_logical, state, dt, n_steps, final_time, log, spc,
     d = scalar_like(dt, state.u)
     t_dev = scalar_like(0.0, state.u)
     pending = []  # dts of the steps since the last read
+    diags = _Pending(sim)
     rows, k, t, t0 = [], 0, 0.0, time.perf_counter()
     while not _done(k, t, n_steps, final_time):
         for _ in range(spc):
             state, diag, co_per_dt = step(state, torch.stack((du, d)))
             co_prev = du * co_per_dt
-            sim.step_iters.append(int(diag.poisson_iters))
+            diags.append(diag)
             pending.append(d)
             du, d, t_dev = d, ctl(d, co_prev), t_dev + d
         k += spc
@@ -218,5 +248,6 @@ def _run_lagged(sim, step, to_logical, state, dt, n_steps, final_time, log, spc,
             pending = []
         if k % interval == 0:
             rows.append(_row(sim, to_logical(state, du), k, t, per_step[-1], co_last,
-                             diag.poisson_iters, diag.poisson_residual, t0, log))
+                             *diags.read(), t0, log))
+    diags.read()
     return to_logical(state, du), rows

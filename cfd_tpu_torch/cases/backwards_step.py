@@ -12,9 +12,11 @@ the plain previous-p warm start, and the reference's auto_whole_solve rule
 with "device is cuda" in place of "platform is tpu": the masked
 whole-solve (one kernel launch per pressure solve) on the card, the
 per-kernel defect-correction solve on the CPU, and manual control when
-mg_overrides names a fusion knob; the lagged adaptive controller's
+mg_overrides names a fusion knob; the whole time step in one kernel under
+``mg_overrides={"whole_step": True}`` (kernels.whole_step,
+cfd_tpu/cases/backwards_step.py:182-190); the lagged adaptive controller's
 ``adaptive_impl_carry`` (cfd_tpu/cases/backwards_step.py:227-276).
-Everything else (SOR, float64, the natural layout, whole_step) raises
+Everything else (SOR, float64, the natural layout) raises
 NotImplementedError rather than being ignored.
 """
 
@@ -36,6 +38,7 @@ from cfd_tpu_torch.kernels.step_quad import (
     uncorrect_step_quad,
 )
 from cfd_tpu_torch.kernels.whole_solve import auto_whole_solve, make_quad_step_whole_solve
+from cfd_tpu_torch.kernels.whole_step import make_quad_whole_step_step
 from cfd_tpu_torch.ops.stencil import StencilCoeffs
 from cfd_tpu_torch.params import check_cfl, validate_case_params
 from cfd_tpu_torch.poisson.multigrid import (
@@ -134,8 +137,6 @@ def make_backwards_step_case(
     mg = MGConfig(tol_factor=tolerance_factor, abs_tol=abs_tol)
     if mg_overrides:
         mg = dataclasses.replace(mg, **mg_overrides)
-    if mg.whole_step:
-        raise _not_ported("whole_step", "ROADMAP.md queue B item 15")
     # V(1,2) unless overridden (cfd_tpu/cases/backwards_step.py:162-171)
     if not (mg_overrides and ("post_sweeps" in mg_overrides
                               or "pre_sweeps" in mg_overrides)):
@@ -149,6 +150,8 @@ def make_backwards_step_case(
         build=lambda: make_quad_step_whole_solve(grid, coeffs, mg, device=device),
         fallback=lambda: make_masked_quad_multigrid_poisson(grid, coeffs, mg,
                                                             device=device))
+    whole_step = (make_quad_whole_step_step(grid, coeffs, mg, step_i, inlet_j, inlet_velocity,
+                                            device=device) if mg.whole_step else None)
 
     # Tentative-state boundary converters with the masked, rho-divided
     # correction; no p_prev (the plain previous-p warm start)
@@ -219,4 +222,5 @@ def make_backwards_step_case(
                   step_location=step_location, reynolds=reynolds_number,
                   cfl=cfl, omega=omega, inlet_velocity=inlet_velocity, mg=mg),
         adaptive_impl_carry=adaptive_impl_carry,
+        whole_step_kernel=whole_step,
     )

@@ -7,19 +7,19 @@ reference's constants and dt rule bit for bit (cavity-01.cpp:309-320,
 Ported: the float32 multigrid branch on the quad layout — the
 tentative-carry stage kernel, the quad finest-level V-cycle kernels and the
 coarse red/black smoother, V(2,1), the extrapolated warm start, and the
-bf16 coarse hierarchy under the reference's auto rule with "device is
-cuda" in place of "platform is tpu" (the CPU keeps the f32 ladder, as the
-reference's interpret mode does). The fused whole-solve
-(kernels.whole_solve, float32 hierarchy) is ported and runs when
-mg_overrides sets whole_solve=True; by default the per-kernel composition
-runs at every size. The reference's auto rule takes the whole-solve on a TPU
-wherever its hierarchy fits in VMEM (not at 2048^2); whether the card's
-default should follow it needs its own measurement (ROADMAP.md queue A item
-5). Adaptive stepping: ``adaptive_impl`` (the exact controller: the
-traced-dt non-carry stage, the solve, the traced-dt corrector) and
-``adaptive_impl_carry`` (the lagged controller on the traced-dt + Courant
-carry), cfd_tpu/cases/cavity.py:296-378. Everything else raises
-NotImplementedError rather than being ignored.
+reference's solve policy (cfd_tpu/cases/cavity.py:207-245) with "device is
+cuda" in place of "platform is tpu": auto_whole_solve takes the fused
+whole-solve (kernels.whole_solve, float32 hierarchy) on the card, where no
+VMEM ceiling rejects it (ROADMAP.md queue A item 13), and the per-kernel
+composition on the CPU or under a manual fusion knob in mg_overrides; the
+bf16 coarse hierarchy of the auto rule applies to that per-kernel fallback
+only, as the reference's mg_fb does. ``mg_overrides={"whole_step": True}``
+runs the whole time step in one kernel (kernels.whole_step,
+cfd_tpu/cases/cavity.py:191-201). Adaptive stepping: ``adaptive_impl`` (the
+exact controller: the traced-dt non-carry stage, the solve, the traced-dt
+corrector) and ``adaptive_impl_carry`` (the lagged controller on the
+traced-dt + Courant carry), cfd_tpu/cases/cavity.py:296-378. Everything
+else raises NotImplementedError rather than being ignored.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ from cfd_tpu_torch.kernels.quad import (
     to_quad,
     uncorrect_quad,
 )
-from cfd_tpu_torch.kernels.whole_solve import make_quad_whole_solve
+from cfd_tpu_torch.kernels.whole_solve import auto_whole_solve, make_quad_whole_solve
+from cfd_tpu_torch.kernels.whole_step import make_quad_whole_step_cavity
 from cfd_tpu_torch.ops.stencil import StencilCoeffs
 from cfd_tpu_torch.params import check_cfl, validate_case_params
 from cfd_tpu_torch.poisson.multigrid import (
@@ -116,15 +117,15 @@ def make_cavity_case(
     if forcing is not None:
         raise _not_ported("body forcing", "ROADMAP.md queue A item 11")
     if fuse_pre:
-        raise _not_ported("fuse_pre", "ROADMAP.md queue B item 15")
+        raise _not_ported("fuse_pre", "ROADMAP.md queue B row 7")
     if layout not in ("auto", "quad"):
-        raise _not_ported(f"layout={layout!r}", "ROADMAP.md queue B item 7")
+        raise _not_ported(f"layout={layout!r}", "ROADMAP.md queue B row 11")
     coarse_shape = _round_up8_128((n_interior // 2 + 2, n_interior // 2 + 2))
     _, _, Hq8, Wqa = quad_dims(grid.shape)
     if coarse_shape != (Hq8, Wqa):
         # n = 14 mod 16: the reference runs the natural-layout kernels here
         raise _not_ported(f"n_interior={n_interior} (coarse shape {coarse_shape} != "
-                          f"quad plane shape {(Hq8, Wqa)})", "ROADMAP.md queue B item 7")
+                          f"quad plane shape {(Hq8, Wqa)})", "ROADMAP.md queue B row 11")
 
     explicit_f32_coarse, mg_overrides = normalize_coarse_dtype_optout(mg_overrides)
     mg = MGConfig(tol_factor=tolerance_factor, abs_tol=0.0)
@@ -133,22 +134,33 @@ def make_cavity_case(
     # f32 perf path: V(2,1) (cfd_tpu/cases/cavity.py:139-144)
     if not (mg_overrides and "post_sweeps" in mg_overrides):
         mg = dataclasses.replace(mg, post_sweeps=1)
-    if auto_bf16_coarse(device.type == "cuda", explicit_f32_coarse, mg, mg_overrides):
-        mg = dataclasses.replace(mg, coarse_dtype="bfloat16")
+    on_cuda = device.type == "cuda"
+    # the bf16 coarse hierarchy of the auto rule, for the per-kernel fallback
+    # only (the reference's mg_fb, cfd_tpu/cases/cavity.py:219-245)
+    mg_fb = (dataclasses.replace(mg, coarse_dtype="bfloat16")
+             if auto_bf16_coarse(on_cuda, explicit_f32_coarse, mg, mg_overrides) else mg)
 
     problem = cavity_problem(n_interior, n_interior, grid.dx, grid.dy)
     corr = make_quad_corrector(grid.shape, coeffs, lid_velocity)
     carry = make_quad_corr_predictor_source(grid.shape, coeffs, lid_velocity)
-    if mg.whole_solve:
-        solve = make_quad_whole_solve(grid.shape, problem, mg, device=device)
-    else:
+
+    def per_kernel():
         quad_l0 = (
-            make_quad_pre_smooth_restrict(grid.shape, problem, mg.omega, mg.pre_sweeps,
-                                          coarse_shape, device=device),
-            make_quad_post_prolong_smooth(grid.shape, problem, mg.omega, mg.post_sweeps,
-                                          coarse_shape, device=device),
+            make_quad_pre_smooth_restrict(grid.shape, problem, mg_fb.omega,
+                                          mg_fb.pre_sweeps, coarse_shape, device=device),
+            make_quad_post_prolong_smooth(grid.shape, problem, mg_fb.omega,
+                                          mg_fb.post_sweeps, coarse_shape, device=device),
         )
-        solve = make_multigrid_poisson(problem, mg, quad_l0, device=device)
+        return make_multigrid_poisson(problem, mg_fb, quad_l0, device=device)
+
+    solve, mg = auto_whole_solve(
+        mg, mg_overrides, on_cuda,
+        build=lambda: make_quad_whole_solve(grid.shape, problem, mg, device=device),
+        fallback=per_kernel)
+    if not mg.whole_solve:
+        mg = mg_fb  # the fallback's actual config
+    whole_step = (make_quad_whole_step_cavity(grid.shape, problem, coeffs, mg, lid_velocity,
+                                              device=device) if mg.whole_step else None)
 
     # Tentative-state boundary converters: the carried u/v are the
     # TENTATIVE (u*, v*) fields; the logical state applies the corrector
@@ -247,4 +259,5 @@ def make_cavity_case(
                   mg=mg),
         adaptive_impl=adaptive_impl,
         adaptive_impl_carry=adaptive_impl_carry,
+        whole_step_kernel=whole_step,
     )

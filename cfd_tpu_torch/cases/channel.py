@@ -10,7 +10,9 @@ name the sweeps (cfd_tpu/cases/channel.py:125-127), the extrapolated warm
 start, and the reference's auto_whole_solve rule with "device is cuda" in
 place of "platform is tpu": the whole solve in one kernel launch
 (kernels.whole_solve) on the card, the per-kernel composition on the CPU,
-and manual control when mg_overrides names a fusion knob; the lagged
+and manual control when mg_overrides names a fusion knob; the whole time
+step in one kernel under ``mg_overrides={"whole_step": True}``
+(kernels.whole_step, cfd_tpu/cases/channel.py:170-176); the lagged
 adaptive controller's ``adaptive_impl_carry`` (cfd_tpu/cases/channel.py:
 212-263). Everything else raises NotImplementedError rather than being
 ignored.
@@ -36,6 +38,7 @@ from cfd_tpu_torch.kernels.quad import (
     uncorrect_quad,
 )
 from cfd_tpu_torch.kernels.whole_solve import auto_whole_solve, make_quad_whole_solve
+from cfd_tpu_torch.kernels.whole_step import make_quad_whole_step_channel
 from cfd_tpu_torch.ops.stencil import StencilCoeffs
 from cfd_tpu_torch.params import check_cfl, validate_case_params
 from cfd_tpu_torch.poisson.multigrid import (
@@ -106,7 +109,7 @@ def make_channel_case(
     if dtype != torch.float32:
         raise _not_ported("the float64 multigrid path", "ROADMAP.md queue A item 3")
     if layout not in ("auto", "quad"):
-        raise _not_ported(f"layout={layout!r}", "ROADMAP.md queue B item 11")
+        raise _not_ported(f"layout={layout!r}", "ROADMAP.md queue B row 11")
     coarse_shape = _round_up8_128((ny // 2 + 2, nx // 2 + 2))
     _, _, Hq8, Wqa = quad_dims(grid.shape)
     if coarse_shape != (Hq8, Wqa):
@@ -115,13 +118,11 @@ def make_channel_case(
                              f"quad plane shape {(Hq8, Wqa)}")
         # n = 14 mod 16: the reference runs the natural-layout kernels here
         raise _not_ported(f"nx={nx}, ny={ny} (coarse shape {coarse_shape} != quad "
-                          f"plane shape {(Hq8, Wqa)})", "ROADMAP.md queue B item 11")
+                          f"plane shape {(Hq8, Wqa)})", "ROADMAP.md queue B row 11")
 
     mg = MGConfig(tol_factor=tolerance_factor, abs_tol=abs_tol)
     if mg_overrides:
         mg = dataclasses.replace(mg, **mg_overrides)
-    if mg.whole_step:
-        raise _not_ported("whole_step", "ROADMAP.md queue B item 15")
     # f32 perf path: V(1,2) (cfd_tpu/cases/channel.py:112-127)
     if not (mg_overrides and ("post_sweeps" in mg_overrides
                               or "pre_sweeps" in mg_overrides)):
@@ -144,6 +145,9 @@ def make_channel_case(
         mg, mg_overrides, device.type == "cuda",
         build=lambda: make_quad_whole_solve(grid.shape, problem, mg, device=device),
         fallback=per_kernel)
+    whole_step = (make_quad_whole_step_channel(grid.shape, problem, coeffs, mg, nx * ny,
+                                               inlet_velocity, device=device)
+                  if mg.whole_step else None)
 
     # Tentative-state boundary converters (see the cavity factory), with the
     # rho-divided channel correction
@@ -217,4 +221,5 @@ def make_channel_case(
                   length=length, height=height, reynolds=reynolds_number,
                   cfl=cfl, omega=omega, inlet_velocity=inlet_velocity, mg=mg),
         adaptive_impl_carry=adaptive_impl_carry,
+        whole_step_kernel=whole_step,
     )

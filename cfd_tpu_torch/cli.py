@@ -7,20 +7,28 @@ Usage:
     python -m cfd_tpu_torch.cli channel --Nx 1536 --Ny 512 --precision f32 \\
         --no-vtk --steps 300 --steps-per-call 100
     python -m cfd_tpu_torch.cli backwards_step --Nx 2048 --Ny 256 --precision f32 \\
-        --no-vtk --steps 300 --steps-per-call 100 --print-interval 100
+        --no-vtk --steps 300 --steps-per-call 100 --print-interval 100 \\
+        --save-interval 100
     python -m cfd_tpu_torch.cli rayleigh_benard --Nx 1536 --Ny 512 --Ra 1e6 \
         --no-vtk --steps 300 --steps-per-call 100
     python -m cfd_tpu_torch.cli cavity --Nx 2048 --Ny 2048 --precision f32 \
         --no-vtk --steps 300 --steps-per-call 100 --adaptive-dt 0.7 \
         --adaptive-controller lagged
+    python -m cfd_tpu_torch.cli channel --Nx 1536 --Ny 512 --precision f32 \
+        --no-vtk --steps 300 --steps-per-call 100 --mg whole_step=true
 
 The flags are the reference CLI's for the ported paths, with its defaults
 per case (cfd_tpu/cli.py:103-106). VTK export is not ported yet, so a run
 needs --no-vtk; flags of modules not ported yet (FTLE, SOR, checkpoints,
 metrics, meshes) are refused with a message instead of being ignored.
 --adaptive-dt MAX_CO runs cfd_tpu_torch.adaptive.run_adaptive with the
---adaptive-controller (exact: the cavity only; lagged: every case). The Rayleigh-Benard case always solves with multigrid and ignores
---poisson and --Re, as the reference does (cfd_tpu/cli.py:173-181).
+--adaptive-controller (exact: the cavity only; lagged: every case).
+--mg K=V[,K=V...] overrides MGConfig fields as the reference's flag does
+(cfd_tpu/cli.py:84-88, 133-156); --mg whole_step=true runs the whole time
+step in one kernel. --save-interval sets the case's save interval, which
+--steps-per-call must divide (no exporter reads it yet). The
+Rayleigh-Benard case always solves with multigrid and ignores --poisson and
+--Re, as the reference does (cfd_tpu/cli.py:173-181).
 """
 
 from __future__ import annotations
@@ -47,8 +55,15 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--precision", choices=["f32", "f64"], default="f32",
                         help="f32 (the ported multigrid path); f64 is not ported yet")
         sp.add_argument("--print-interval", type=int, default=None)
+        sp.add_argument("--save-interval", type=int, default=None,
+                        help="save interval in steps (no exporter reads it yet; "
+                             "--steps-per-call must divide it)")
         sp.add_argument("--steps-per-call", type=int, default=1,
-                        help="steps per chunk; must divide the print interval")
+                        help="steps per chunk; must divide the print and save intervals")
+        sp.add_argument("--mg", default=None, metavar="K=V[,K=V...]",
+                        help="multigrid overrides (MGConfig fields), e.g. --mg "
+                             "pre_sweeps=2 or --mg whole_step=true (the whole time step "
+                             "in one kernel)")
         sp.add_argument("--adaptive-dt", type=float, default=None, metavar="MAX_CO",
                         help="Courant-limited adaptive time stepping toward this max "
                              "Courant number (the OpenFOAM adjustTimeStep/maxCo knob)")
@@ -82,6 +97,34 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def parse_mg(text: str) -> dict:
+    """--mg K=V[,K=V...] as MGConfig overrides, with the reference's value
+    rules (cfd_tpu/cli.py:133-156): true/false, none or empty, a float when
+    the value has a '.' or an 'e', else an int, else the string."""
+    import dataclasses
+
+    from cfd_tpu_torch.poisson.multigrid import MGConfig
+
+    fields = {f.name for f in dataclasses.fields(MGConfig)}
+    ov = {}
+    for item in text.split(","):
+        k, _, v = item.partition("=")
+        k, v = k.strip(), v.strip()
+        if k not in fields:
+            raise SystemExit(f"--mg: unknown MGConfig field {k!r} "
+                             f"(valid: {', '.join(sorted(fields))})")
+        if v.lower() in ("true", "false"):
+            ov[k] = v.lower() == "true"
+        elif v.lower() in ("none", ""):
+            ov[k] = None
+        else:
+            try:
+                ov[k] = float(v) if any(c in v for c in ".e") else int(v)
+            except ValueError:
+                ov[k] = v  # string-valued field (e.g. coarse_dtype)
+    return ov
+
+
 def make_case_from_args(args):
     from cfd_tpu_torch.cases import (make_backwards_step_case, make_cavity_case,
                                      make_channel_case, make_rayleigh_benard_case)
@@ -93,6 +136,10 @@ def make_case_from_args(args):
         kw["dt"] = args.dt
     if args.print_interval is not None:
         kw["print_interval"] = args.print_interval
+    if args.save_interval is not None:
+        kw["save_interval"] = args.save_interval
+    if args.mg:
+        kw["mg_overrides"] = parse_mg(args.mg)
     if args.case == "rayleigh_benard":
         if args.ftle_window:
             raise SystemExit("--ftle-window: FTLE (physics/ftle.py) is not ported yet")

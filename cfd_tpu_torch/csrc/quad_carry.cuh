@@ -1,0 +1,199 @@
+// Per-cell bodies of the cavity and channel tentative-carry stages on the
+// quad layout: the correctors and the predictor + source. Shared by the
+// standalone stage kernels (quad_stage.cu) and the whole-step kernel
+// (whole_step.cu), so that the two run the same code. The ghost orders and
+// the traced-dt instances are described in quad_stage.cu.
+#pragma once
+
+#include "common.cuh"
+#include "predictor.cuh"
+
+namespace cfd {
+namespace quad {
+
+struct Corr {
+  int Hq8, Wqa, ny, nx;
+  float cu, cv;  // traced-dt instances: the dt-free factors (cfd::traced_coeff)
+  float ghost;  // the cavity's 2 * lid velocity, or the channel's inlet velocity
+};
+
+// the correction coefficients of a launch: the host's, or formed from the
+// traced dt (the cavity multiplies, the channel divides)
+template <bool kTraced, bool kDivided>
+__device__ __forceinline__ Corr corr_at(Corr c, const float* dt) {
+  if constexpr (kTraced) {
+    c.cu = cfd::traced_coeff<kDivided>(*dt, c.cu);
+    c.cv = cfd::traced_coeff<kDivided>(*dt, c.cv);
+  }
+  return c;
+}
+
+// corrected u on valid faces (j in [1, ny], i in [1, nx-1]), else 0
+__device__ __forceinline__ float u_corr(const float* us, const float* p, int j, int i,
+                                        const Corr& c) {
+  if (!(j >= 1 && j <= c.ny && i >= 1 && i <= c.nx - 1)) return 0.f;
+  float pc = qld(p, j, i, c.Hq8, c.Wqa);
+  float pe = qld(p, j, i + 1, c.Hq8, c.Wqa);
+  return qld(us, j, i, c.Hq8, c.Wqa) - c.cu * (pe - pc);
+}
+
+// corrected v on valid faces (j in [1, ny-1], i in [1, nx]), else 0
+__device__ __forceinline__ float v_corr(const float* vs, const float* p, int j, int i,
+                                        const Corr& c) {
+  if (!(j >= 1 && j <= c.ny - 1 && i >= 1 && i <= c.nx)) return 0.f;
+  float pc = qld(p, j, i, c.Hq8, c.Wqa);
+  float pn = qld(p, j + 1, i, c.Hq8, c.Wqa);
+  return qld(vs, j, i, c.Hq8, c.Wqa) - c.cv * (pn - pc);
+}
+
+// The cavity corrector at quad cell idx: the corrected u, v with the lid
+// ghosts into u2, v2 and the warm start 2p - p_prev into guess. Returns
+// (|u|, |v|) for the Courant maxima.
+__device__ __forceinline__ float2 cavity_corrector_cell(const float* us, const float* vs,
+                                                        const float* p, const float* p_prev,
+                                                        float* u2, float* v2, float* guess,
+                                                        long long idx, const Corr& c) {
+  cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
+  int j = cell.j, i = cell.i;
+  float u;
+  if (j == c.ny + 1 && i <= c.nx) {
+    u = c.ghost - u_corr(us, p, c.ny, i, c);
+  } else if (j == 0 && i <= c.nx) {
+    u = -u_corr(us, p, 1, i, c);
+  } else {
+    u = u_corr(us, p, j, i, c);
+  }
+  float v;
+  if (i == 0 && j <= c.ny) {
+    v = -v_corr(vs, p, j, 1, c);
+  } else if (i == c.nx + 1 && j <= c.ny) {
+    v = -v_corr(vs, p, j, c.nx, c);
+  } else {
+    v = v_corr(vs, p, j, i, c);
+  }
+  u2[idx] = u;
+  v2[idx] = v;
+  guess[idx] = 2.0f * p[idx] - p_prev[idx];
+  return make_float2(fabsf(u), fabsf(v));
+}
+
+// the lid-cavity ghosts applied to an input field on read, in the
+// corrector's order: u's top ghost row is 2*lid minus row ny, its bottom
+// ghost row minus row 1 (i <= nx); v's west ghost column is minus column 1,
+// its east minus column nx (j <= ny). No ghost reads another ghost.
+__device__ __forceinline__ float lid_u(const float* u, int j, int i, const Pred& c,
+                                       float two_lid) {
+  if (j == c.ny + 1 && i <= c.nx) return two_lid - qld(u, c.ny, i, c.Hq8, c.Wqa);
+  if (j == 0 && i <= c.nx) return -qld(u, 1, i, c.Hq8, c.Wqa);
+  return qld(u, j, i, c.Hq8, c.Wqa);
+}
+
+__device__ __forceinline__ float lid_v(const float* v, int j, int i, const Pred& c) {
+  if (i == 0 && j <= c.ny) return -qld(v, j, 1, c.Hq8, c.Wqa);
+  if (i == c.nx + 1 && j <= c.ny) return -qld(v, j, c.nx, c.Hq8, c.Wqa);
+  return qld(v, j, i, c.Hq8, c.Wqa);
+}
+
+// The cavity predictor at quad cell idx into us2, vs2 and b = rho/dt * div
+// on the cells (0 elsewhere); returns b. kLid applies the lid ghosts to u,
+// v on read (the non-carry stage, quad.py:438).
+template <bool kLid>
+__device__ __forceinline__ float predictor_source_cell(const float* u, const float* v,
+                                                       float* us2, float* vs2, float* b,
+                                                       long long idx, const Pred& c,
+                                                       float two_lid) {
+  cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
+  int j = cell.j, i = cell.i;
+  auto lu = [&](int jj, int ii) {
+    return kLid ? lid_u(u, jj, ii, c, two_lid) : qld(u, jj, ii, c.Hq8, c.Wqa);
+  };
+  auto lv = [&](int jj, int ii) {
+    return kLid ? lid_v(v, jj, ii, c) : qld(v, jj, ii, c.Hq8, c.Wqa);
+  };
+  float a = cfd::u_star_at(lu, lv, j, i, c);
+  float bv = cfd::v_star_at(lu, lv, j, i, c);
+  us2[idx] = a;
+  vs2[idx] = bv;
+  float bb = 0.f;
+  if (j >= 1 && j <= c.ny && i >= 1 && i <= c.nx) {
+    float aw = cfd::u_star_at(lu, lv, j, i - 1, c);
+    float bs = cfd::v_star_at(lu, lv, j - 1, i, c);
+    float div = (a - aw) * c.idx + (bv - bs) * c.idy;
+    bb = c.rho_dt * div;
+  }
+  b[idx] = bb;
+  return bb;
+}
+
+// u after the channel ghost update of a pre-ghost field f(j, i) (0 outside
+// the valid u faces), in the reference's order: rows 1..ny take the inlet
+// value at i = 0 and f(j, nx-1) at i = nx; the ghost rows j = 0 and
+// j = ny+1 (i <= nx) are minus rows 1 and ny AFTER that.
+template <class F>
+__device__ __forceinline__ float channel_u(F f, int j, int i, int ny, int nx, float uin) {
+  auto row = [&](int jj, int ii) -> float {
+    if (ii == 0) return uin;
+    if (ii == nx) return nx == 1 ? uin : f(jj, nx - 1);
+    return f(jj, ii);
+  };
+  if (j == 0 && i <= nx) return -row(1, i);
+  if (j == ny + 1 && i <= nx) return -row(ny, i);
+  if (j >= 1 && j <= ny) return row(j, i);
+  return f(j, i);
+}
+
+// v after the channel ghost update of a pre-ghost field f(j, i) (0 outside
+// the valid v faces): 0 on the inlet column and on the wall rows, the
+// outlet column i = nx+1 copied from i = nx.
+template <class F>
+__device__ __forceinline__ float channel_v(F f, int j, int i, int ny, int nx) {
+  if (i == 0 && j <= ny) return 0.f;
+  if (i == nx + 1 && j <= ny) return f(j, nx);
+  if ((j == 0 || j == ny) && i >= 1 && i <= nx) return 0.f;
+  return f(j, i);
+}
+
+// The channel corrector at quad cell idx: the rho-divided correction, the
+// channel ghosts, the warm start. Returns (|u|, |v|).
+__device__ __forceinline__ float2 channel_corrector_cell(const float* us, const float* vs,
+                                                         const float* p, const float* p_prev,
+                                                         float* u2, float* v2, float* guess,
+                                                         long long idx, const Corr& c) {
+  cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
+  auto uc = [&](int j, int i) { return u_corr(us, p, j, i, c); };
+  auto vc = [&](int j, int i) { return v_corr(vs, p, j, i, c); };
+  const float u = channel_u(uc, cell.j, cell.i, c.ny, c.nx, c.ghost);
+  const float v = channel_v(vc, cell.j, cell.i, c.ny, c.nx);
+  u2[idx] = u;
+  v2[idx] = v;
+  guess[idx] = 2.0f * p[idx] - p_prev[idx];
+  return make_float2(fabsf(u), fabsf(v));
+}
+
+// The channel predictor at quad cell idx, the channel ghosts on the
+// tentative fields, b = rho/dt * div on the cells (0 elsewhere); returns b.
+__device__ __forceinline__ float channel_predictor_source_cell(const float* u, const float* v,
+                                                               float* us2, float* vs2,
+                                                               float* b, long long idx,
+                                                               const Pred& c, float uin) {
+  cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
+  const int j = cell.j, i = cell.i;
+  auto fu = [&](int jj, int ii) { return u_star(u, v, jj, ii, c); };
+  auto fv = [&](int jj, int ii) { return v_star(u, v, jj, ii, c); };
+  float a = channel_u(fu, j, i, c.ny, c.nx, uin);
+  float bv = channel_v(fv, j, i, c.ny, c.nx);
+  us2[idx] = a;
+  vs2[idx] = bv;
+  float bb = 0.f;
+  if (j >= 1 && j <= c.ny && i >= 1 && i <= c.nx) {
+    float aw = channel_u(fu, j, i - 1, c.ny, c.nx, uin);
+    float bs = channel_v(fv, j - 1, i, c.ny, c.nx);
+    float div = (a - aw) * c.idx + (bv - bs) * c.idy;
+    bb = c.rho_dt * div;
+  }
+  b[idx] = bb;
+  return bb;
+}
+
+}  // namespace quad
+}  // namespace cfd

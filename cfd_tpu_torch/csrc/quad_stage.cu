@@ -16,11 +16,13 @@
 //
 // Design: one thread per quad cell, neighbours through the guarded quad
 // accessor, so one code path serves every plane and no halo bookkeeping is
-// needed. A carry runs as TWO launches (three for the channel, see below):
-// (1) the corrector writes the corrected and ghost-rebuilt u, v into scratch
-// fields, (2) the predictor + source + reduction reads them. A thread of
-// launch 2 evaluates the predictor at its own faces and again at the
-// west/south faces its divergence needs (re-reads that hit L1/L2). This
+// needed. The per-cell bodies live in quad_carry.cuh, which the whole-step
+// kernel (whole_step.cu) runs too. A carry runs as TWO launches (three for
+// the channel, see below): (1) the corrector writes the corrected and
+// ghost-rebuilt u, v into scratch fields, (2) the predictor + source +
+// reduction reads them. A thread of launch 2 evaluates the predictor at its
+// own faces and again at the west/south faces its divergence needs
+// (re-reads that hit L1/L2). This
 // costs one extra round trip of u, v through device memory compared with a
 // single fused launch with a shared-memory tile and a 3-cell halo, which is
 // the next kernel step.
@@ -62,48 +64,13 @@
 // equal bit for bit to the plain twin's fixed_order_sum.
 #include "common.cuh"
 #include "predictor.cuh"
+#include "quad_carry.cuh"
 
 namespace {
 
 using cfd::Pred;
-using cfd::qld;
-using cfd::u_star;
-using cfd::v_star;
-
-struct Corr {
-  int Hq8, Wqa, ny, nx;
-  float cu, cv;  // traced-dt instances: the dt-free factors (cfd::traced_coeff)
-  float ghost;  // the cavity's 2 * lid velocity, or the channel's inlet velocity
-};
-
-// the correction coefficients of a launch: the host's, or formed from the
-// traced dt (the cavity multiplies, the channel divides)
-template <bool kTraced, bool kDivided>
-__device__ __forceinline__ Corr corr_at(Corr c, const float* dt) {
-  if constexpr (kTraced) {
-    c.cu = cfd::traced_coeff<kDivided>(*dt, c.cu);
-    c.cv = cfd::traced_coeff<kDivided>(*dt, c.cv);
-  }
-  return c;
-}
-
-// corrected u on valid faces (j in [1, ny], i in [1, nx-1]), else 0
-__device__ __forceinline__ float u_corr(const float* us, const float* p, int j, int i,
-                                        const Corr& c) {
-  if (!(j >= 1 && j <= c.ny && i >= 1 && i <= c.nx - 1)) return 0.f;
-  float pc = qld(p, j, i, c.Hq8, c.Wqa);
-  float pe = qld(p, j, i + 1, c.Hq8, c.Wqa);
-  return qld(us, j, i, c.Hq8, c.Wqa) - c.cu * (pe - pc);
-}
-
-// corrected v on valid faces (j in [1, ny-1], i in [1, nx]), else 0
-__device__ __forceinline__ float v_corr(const float* vs, const float* p, int j, int i,
-                                        const Corr& c) {
-  if (!(j >= 1 && j <= c.ny - 1 && i >= 1 && i <= c.nx)) return 0.f;
-  float pc = qld(p, j, i, c.Hq8, c.Wqa);
-  float pn = qld(p, j + 1, i, c.Hq8, c.Wqa);
-  return qld(vs, j, i, c.Hq8, c.Wqa) - c.cv * (pn - pc);
-}
+using cfd::quad::Corr;
+using cfd::quad::corr_at;
 
 // kCourant: max|u|, max|v| of the outputs into courant[0], courant[1]
 template <bool kTraced, bool kCourant>
@@ -115,48 +82,12 @@ __global__ void corrector_kernel(const float* us, const float* vs, const float* 
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   float au = 0.f, av = 0.f;
   if (idx < n) {
-    cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
-    int j = cell.j, i = cell.i;
-    float u;
-    if (j == c.ny + 1 && i <= c.nx) {
-      u = c.ghost - u_corr(us, p, c.ny, i, c);
-    } else if (j == 0 && i <= c.nx) {
-      u = -u_corr(us, p, 1, i, c);
-    } else {
-      u = u_corr(us, p, j, i, c);
-    }
-    float v;
-    if (i == 0 && j <= c.ny) {
-      v = -v_corr(vs, p, j, 1, c);
-    } else if (i == c.nx + 1 && j <= c.ny) {
-      v = -v_corr(vs, p, j, c.nx, c);
-    } else {
-      v = v_corr(vs, p, j, i, c);
-    }
-    u2[idx] = u;
-    v2[idx] = v;
-    guess[idx] = 2.0f * p[idx] - p_prev[idx];
-    au = fabsf(u);
-    av = fabsf(v);
+    const float2 a =
+        cfd::quad::cavity_corrector_cell(us, vs, p, p_prev, u2, v2, guess, idx, c);
+    au = a.x;
+    av = a.y;
   }
   if constexpr (kCourant) cfd::block_max2_into(au, av, courant);
-}
-
-// the lid-cavity ghosts applied to an input field on read, in the
-// corrector's order: u's top ghost row is 2*lid minus row ny, its bottom
-// ghost row minus row 1 (i <= nx); v's west ghost column is minus column 1,
-// its east minus column nx (j <= ny). No ghost reads another ghost.
-__device__ __forceinline__ float lid_u(const float* u, int j, int i, const Pred& c,
-                                       float two_lid) {
-  if (j == c.ny + 1 && i <= c.nx) return two_lid - qld(u, c.ny, i, c.Hq8, c.Wqa);
-  if (j == 0 && i <= c.nx) return -qld(u, 1, i, c.Hq8, c.Wqa);
-  return qld(u, j, i, c.Hq8, c.Wqa);
-}
-
-__device__ __forceinline__ float lid_v(const float* v, int j, int i, const Pred& c) {
-  if (i == 0 && j <= c.ny) return -qld(v, j, 1, c.Hq8, c.Wqa);
-  if (i == c.nx + 1 && j <= c.ny) return -qld(v, j, c.nx, c.Hq8, c.Wqa);
-  return qld(v, j, i, c.Hq8, c.Wqa);
 }
 
 // the predictor, b = rho/dt * div on the cells and max|b|; kLid applies the
@@ -170,57 +101,10 @@ __global__ void predictor_source_kernel(const float* u, const float* v, float* u
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   float absb = 0.f;
   if (idx < n) {
-    cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
-    int j = cell.j, i = cell.i;
-    auto lu = [&](int jj, int ii) {
-      return kLid ? lid_u(u, jj, ii, c, two_lid) : qld(u, jj, ii, c.Hq8, c.Wqa);
-    };
-    auto lv = [&](int jj, int ii) {
-      return kLid ? lid_v(v, jj, ii, c) : qld(v, jj, ii, c.Hq8, c.Wqa);
-    };
-    float a = cfd::u_star_at(lu, lv, j, i, c);
-    float bv = cfd::v_star_at(lu, lv, j, i, c);
-    us2[idx] = a;
-    vs2[idx] = bv;
-    float bb = 0.f;
-    if (j >= 1 && j <= c.ny && i >= 1 && i <= c.nx) {
-      float aw = cfd::u_star_at(lu, lv, j, i - 1, c);
-      float bs = cfd::v_star_at(lu, lv, j - 1, i, c);
-      float div = (a - aw) * c.idx + (bv - bs) * c.idy;
-      bb = c.rho_dt * div;
-    }
-    b[idx] = bb;
-    absb = fabsf(bb);
+    absb = fabsf(
+        cfd::quad::predictor_source_cell<kLid>(u, v, us2, vs2, b, idx, c, two_lid));
   }
   cfd::block_max_into(absb, max_b);
-}
-
-// u after the channel ghost update of a pre-ghost field f(j, i) (0 outside
-// the valid u faces), in the reference's order: rows 1..ny take the inlet
-// value at i = 0 and f(j, nx-1) at i = nx; the ghost rows j = 0 and
-// j = ny+1 (i <= nx) are minus rows 1 and ny AFTER that.
-template <class F>
-__device__ __forceinline__ float channel_u(F f, int j, int i, int ny, int nx, float uin) {
-  auto row = [&](int jj, int ii) -> float {
-    if (ii == 0) return uin;
-    if (ii == nx) return nx == 1 ? uin : f(jj, nx - 1);
-    return f(jj, ii);
-  };
-  if (j == 0 && i <= nx) return -row(1, i);
-  if (j == ny + 1 && i <= nx) return -row(ny, i);
-  if (j >= 1 && j <= ny) return row(j, i);
-  return f(j, i);
-}
-
-// v after the channel ghost update of a pre-ghost field f(j, i) (0 outside
-// the valid v faces): 0 on the inlet column and on the wall rows, the
-// outlet column i = nx+1 copied from i = nx.
-template <class F>
-__device__ __forceinline__ float channel_v(F f, int j, int i, int ny, int nx) {
-  if (i == 0 && j <= ny) return 0.f;
-  if (i == nx + 1 && j <= ny) return f(j, nx);
-  if ((j == 0 || j == ny) && i >= 1 && i <= nx) return 0.f;
-  return f(j, i);
 }
 
 template <bool kTraced, bool kCourant>
@@ -233,16 +117,10 @@ __global__ void channel_corrector_kernel(const float* us, const float* vs, const
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   float au = 0.f, av = 0.f;
   if (idx < n) {
-    cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
-    auto uc = [&](int j, int i) { return u_corr(us, p, j, i, c); };
-    auto vc = [&](int j, int i) { return v_corr(vs, p, j, i, c); };
-    const float u = channel_u(uc, cell.j, cell.i, c.ny, c.nx, c.ghost);
-    const float v = channel_v(vc, cell.j, cell.i, c.ny, c.nx);
-    u2[idx] = u;
-    v2[idx] = v;
-    guess[idx] = 2.0f * p[idx] - p_prev[idx];
-    au = fabsf(u);
-    av = fabsf(v);
+    const float2 a =
+        cfd::quad::channel_corrector_cell(us, vs, p, p_prev, u2, v2, guess, idx, c);
+    au = a.x;
+    av = a.y;
   }
   if constexpr (kCourant) cfd::block_max2_into(au, av, courant);
 }
@@ -258,21 +136,7 @@ __global__ void channel_predictor_source_kernel(const float* u, const float* v, 
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   float bb = 0.f;
   if (idx < n) {
-    cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
-    const int j = cell.j, i = cell.i;
-    auto fu = [&](int jj, int ii) { return u_star(u, v, jj, ii, c); };
-    auto fv = [&](int jj, int ii) { return v_star(u, v, jj, ii, c); };
-    float a = channel_u(fu, j, i, c.ny, c.nx, uin);
-    float bv = channel_v(fv, j, i, c.ny, c.nx);
-    us2[idx] = a;
-    vs2[idx] = bv;
-    if (j >= 1 && j <= c.ny && i >= 1 && i <= c.nx) {
-      float aw = channel_u(fu, j, i - 1, c.ny, c.nx, uin);
-      float bs = channel_v(fv, j - 1, i, c.ny, c.nx);
-      float div = (a - aw) * c.idx + (bv - bs) * c.idy;
-      bb = c.rho_dt * div;
-    }
-    b[idx] = bb;
+    bb = cfd::quad::channel_predictor_source_cell(u, v, us2, vs2, b, idx, c, uin);
   }
   cfd::block_sum_to(bb, partials + blockIdx.x);
 }

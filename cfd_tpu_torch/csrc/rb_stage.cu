@@ -13,8 +13,10 @@
 // below the card's rate.
 //
 // Design: one thread per quad cell, neighbours through the guarded quad
-// accessor, as csrc/quad_stage.cu. The stages depend on their neighbours'
-// results of the stage before, so the carry runs as FOUR launches:
+// accessor, as csrc/quad_stage.cu; the per-cell bodies live in
+// rb_carry.cuh, which the whole-step kernel (whole_step.cu) runs too. The
+// stages depend on their neighbours' results of the stage before, so the
+// carry runs as FOUR launches:
 // (1) the corrector with the box no-slip ghosts writes the corrected u2, v2
 // into scratch (and the guess 2p - p_prev), (2) the temperature stage reads
 // T and the scratch u2, v2 and writes T' with its ghosts, (3) the predictor,
@@ -43,66 +45,13 @@
 // corrector reduces max|u2|, max|v2| (rb_quad.py:211).
 #include "common.cuh"
 #include "predictor.cuh"
+#include "rb_carry.cuh"
 
 namespace {
 
 using cfd::Pred;
-using cfd::qld;
-
-struct RBCorr {
-  int Hq8, Wqa, ny, nx;
-  float cu, cv;
-};
-
-struct RBTemp {
-  int Hq8, Wqa, ny, nx;
-  float dt, kappa, idx, idy, idx2, idy2, two_tb, two_tt;
-};
-
-__device__ __forceinline__ bool u_valid(int j, int i, int ny, int nx) {
-  return j >= 1 && j <= ny && i >= 1 && i <= nx - 1;
-}
-
-__device__ __forceinline__ bool v_valid(int j, int i, int ny, int nx) {
-  return j >= 1 && j <= ny - 1 && i >= 1 && i <= nx;
-}
-
-__device__ __forceinline__ bool is_cell(int j, int i, int ny, int nx) {
-  return j >= 1 && j <= ny && i >= 1 && i <= nx;
-}
-
-// u after the box no-slip ghost update of a pre-ghost field f(j, i)
-template <class F>
-__device__ __forceinline__ float box_u(F f, int j, int i, int ny, int nx) {
-  if (j == 0 && i <= nx) return -f(1, i);
-  if (j == ny + 1 && i <= nx) return -f(ny, i);
-  if ((i == 0 || i == nx) && j >= 1 && j <= ny) return 0.f;
-  return f(j, i);
-}
-
-// v after the box no-slip ghost update of a pre-ghost field f(j, i)
-template <class F>
-__device__ __forceinline__ float box_v(F f, int j, int i, int ny, int nx) {
-  if (i == 0 && j <= ny) return -f(j, 1);
-  if (i == nx + 1 && j <= ny) return -f(j, nx);
-  if ((j == 0 || j == ny) && i >= 1 && i <= nx) return 0.f;
-  return f(j, i);
-}
-
-// corrected u on valid faces, the tentative value elsewhere
-__device__ __forceinline__ float rb_u_corr(const float* us, const float* p, int j, int i,
-                                           const RBCorr& c) {
-  const float a = qld(us, j, i, c.Hq8, c.Wqa);
-  if (!u_valid(j, i, c.ny, c.nx)) return a;
-  return a - c.cu * (qld(p, j, i + 1, c.Hq8, c.Wqa) - qld(p, j, i, c.Hq8, c.Wqa));
-}
-
-__device__ __forceinline__ float rb_v_corr(const float* vs, const float* p, int j, int i,
-                                           const RBCorr& c) {
-  const float a = qld(vs, j, i, c.Hq8, c.Wqa);
-  if (!v_valid(j, i, c.ny, c.nx)) return a;
-  return a - c.cv * (qld(p, j + 1, i, c.Hq8, c.Wqa) - qld(p, j, i, c.Hq8, c.Wqa));
-}
+using cfd::rb::RBCorr;
+using cfd::rb::RBTemp;
 
 // launch 1 (and the corrector entry point): the corrected, ghosted u2, v2;
 // guess = 2p - p_prev where p_prev is given. kTraced: cu, cv formed from
@@ -121,36 +70,11 @@ __global__ void rb_corrector_kernel(const float* us, const float* vs, const floa
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   float au = 0.f, av = 0.f;
   if (idx < n) {
-    const cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
-    auto fu = [&](int j, int i) { return rb_u_corr(us, p, j, i, c); };
-    auto fv = [&](int j, int i) { return rb_v_corr(vs, p, j, i, c); };
-    const float u = box_u(fu, cell.j, cell.i, c.ny, c.nx);
-    const float v = box_v(fv, cell.j, cell.i, c.ny, c.nx);
-    u2[idx] = u;
-    v2[idx] = v;
-    if (p_prev != nullptr) guess[idx] = 2.0f * p[idx] - p_prev[idx];
-    au = fabsf(u);
-    av = fabsf(v);
+    const float2 a = cfd::rb::corrector_cell(us, vs, p, p_prev, u2, v2, guess, idx, c);
+    au = a.x;
+    av = a.y;
   }
   if constexpr (kCourant) cfd::block_max2_into(au, av, courant);
-}
-
-// T before its ghost update: the flux-form advection + diffusion on the
-// cells (the twin's operation order), the old value elsewhere
-__device__ __forceinline__ float t_pre(const float* T, const float* u, const float* v, int j,
-                                       int i, const RBTemp& c) {
-  const int H = c.Hq8, W = c.Wqa;
-  const float t = qld(T, j, i, H, W);
-  if (!is_cell(j, i, c.ny, c.nx)) return t;
-  const float te = qld(T, j, i + 1, H, W), tw = qld(T, j, i - 1, H, W);
-  const float tn = qld(T, j + 1, i, H, W), ts = qld(T, j - 1, i, H, W);
-  const float fe = qld(u, j, i, H, W) * 0.5f * (t + te);
-  const float fw = qld(u, j, i - 1, H, W) * 0.5f * (tw + t);
-  const float fn = qld(v, j, i, H, W) * 0.5f * (t + tn);
-  const float fs = qld(v, j - 1, i, H, W) * 0.5f * (ts + t);
-  const float adv = (fe - fw) * c.idx + (fn - fs) * c.idy;
-  const float lap = (te - 2.0f * t + tw) * c.idx2 + (tn - 2.0f * t + ts) * c.idy2;
-  return t + c.dt * (c.kappa * lap - adv);
 }
 
 // launch 2: T' with the Dirichlet ghost rows and the adiabatic ghost columns
@@ -163,28 +87,13 @@ __global__ void rb_temperature_kernel(const float* T, const float* u, const floa
   const long long n = 4LL * c.Hq8 * c.Wqa;
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n) return;
-  const cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
-  const int j = cell.j, i = cell.i, ny = c.ny, nx = c.nx;
-  float out;
-  if (j == 0 && i >= 1 && i <= nx) {
-    out = c.two_tb - t_pre(T, u, v, 1, i, c);
-  } else if (j == ny + 1 && i >= 1 && i <= nx) {
-    out = c.two_tt - t_pre(T, u, v, ny, i, c);
-  } else if (i == 0 && j >= 1 && j <= ny) {
-    out = t_pre(T, u, v, j, 1, c);
-  } else if (i == nx + 1 && j >= 1 && j <= ny) {
-    out = t_pre(T, u, v, j, nx, c);
-  } else {
-    out = t_pre(T, u, v, j, i, c);
-  }
-  T2[idx] = out;
+  cfd::rb::temperature_cell(T, u, v, T2, idx, c);
 }
 
-// launch 3: predictor on the valid faces (u2, v2 elsewhere), the buoyancy
-// buoy * (T'(j) + T'(j+1)) on the valid v faces, the box ghosts on the
-// tentative fields, b = rho/dt * div on the cells and the block's partial
-// sum of b (fixed tree). kTraced: dt, rho/dt and buoy = dt * 0.5 from *dt
-// (dt_pred), the reference's (dt_pred * buoyancy) * 0.5 at buoyancy 1
+// launch 3: the predictor, the buoyancy, the box ghosts, the source and the
+// block's partial sum of b (fixed tree). kTraced: dt, rho/dt and buoy = dt *
+// 0.5 from *dt (dt_pred), the reference's (dt_pred * buoyancy) * 0.5 at
+// buoyancy 1
 template <bool kTraced>
 __global__ void rb_predictor_source_kernel(const float* u, const float* v, const float* T2,
                                            float* us2, float* vs2, float* b, float* partials,
@@ -194,30 +103,7 @@ __global__ void rb_predictor_source_kernel(const float* u, const float* v, const
   const long long n = 4LL * c.Hq8 * c.Wqa;
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   float bb = 0.f;
-  if (idx < n) {
-    const cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
-    const int j = cell.j, i = cell.i;
-    auto fu = [&](int jj, int ii) {
-      return u_valid(jj, ii, c.ny, c.nx) ? cfd::u_star(u, v, jj, ii, c)
-                                         : qld(u, jj, ii, c.Hq8, c.Wqa);
-    };
-    auto fv = [&](int jj, int ii) {
-      if (!v_valid(jj, ii, c.ny, c.nx)) return qld(v, jj, ii, c.Hq8, c.Wqa);
-      const float t = qld(T2, jj, ii, c.Hq8, c.Wqa) + qld(T2, jj + 1, ii, c.Hq8, c.Wqa);
-      return cfd::v_star(u, v, jj, ii, c) + buoy * t;
-    };
-    const float a = box_u(fu, j, i, c.ny, c.nx);
-    const float bv = box_v(fv, j, i, c.ny, c.nx);
-    us2[idx] = a;
-    vs2[idx] = bv;
-    if (is_cell(j, i, c.ny, c.nx)) {
-      const float aw = box_u(fu, j, i - 1, c.ny, c.nx);
-      const float bs = box_v(fv, j - 1, i, c.ny, c.nx);
-      const float div = (a - aw) * c.idx + (bv - bs) * c.idy;
-      bb = c.rho_dt * div;
-    }
-    b[idx] = bb;
-  }
+  if (idx < n) bb = cfd::rb::predictor_source_cell(u, v, T2, us2, vs2, b, idx, c, buoy);
   cfd::block_sum_to(bb, partials + blockIdx.x);
 }
 

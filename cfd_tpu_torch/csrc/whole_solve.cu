@@ -25,8 +25,11 @@
 // grid-wide barrier costs more with more blocks), launched with
 // cudaLaunchCooperativeKernel; every phase is a grid-stride loop followed by
 // cooperative_groups' grid sync. The iterate and source of every level stay
-// in device memory (scratch the caller allocates once). The arithmetic of
-// each phase is the per-kernel path's, through the same device functions
+// in device memory (scratch the caller allocates once). The device code
+// (the phases and the cycle loop) lives in whole_solve.cuh, which the
+// whole-step kernel (whole_step.cu) runs after its carry stages. The
+// arithmetic of each phase is the per-kernel path's, through the same
+// device functions
 // (quad_level0.cuh, step_level0.cuh, aligned_level.cuh) or, for the
 // transfers between coarse levels and the coarsest solve, in the exact
 // operation order of their PyTorch glue (kernels/mg_tail.py _restrict,
@@ -59,196 +62,20 @@
 // division) on the quad cells. p is 0 off the cells by construction, so the
 // sum over the whole array is the cell sum. Two more barriers a cycle; the
 // host loop's twin (MultigridPoisson.cycle) does the same arithmetic.
-#include <cooperative_groups.h>
-
-#include "aligned_level.cuh"
-#include "quad_level0.cuh"
-#include "step_level0.cuh"
-
-namespace cg = cooperative_groups;
+#include "whole_solve.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 16;
-constexpr int kMaxBlocksPerSM = 2;
-
-struct Params {
-  cfd::Level0 L0;              // the finest level, quad layout (separable)
-  cfd::StepL0 S0;              // the finest level, quad layout (masked)
-  int n_coarse;                // aligned levels 1..n_coarse (>= 2)
-  cfd::Level lv[kMaxLevels];   // lv[k - 1] is level k
-  float* p_lv[kMaxLevels];     // iterate of level k
-  float* b_lv[kMaxLevels];     // source of level k
-  const float* p_in;           // warm start (quad)
-  const float* b0;             // source (quad)
-  float* p0;                   // the solution (quad)
-  float* q0;                   // masked: the second finest iterate (quad)
-  float* filled;               // masked: a solid-filled correction (level-1 size)
-  const float* max_b;          // null: max|b| is computed here
-  float* ctl;                  // [0] max|b|, [1] [2] residual slots, [3] the pin's sum;
-                               // zeroed before launch
-  float* stats;                // (cycles, res)
-  float* fold;                 // n * n scratch of the coarsest solve
-  const float* pinv;           // (n, n), n = ny * nx of the coarsest level
-  int pre, post, max_cycles;
-  float tol_factor, abs_tol, stall;
-  int pin_mean;                // separable only: shift p to zero mean each cycle
-  float* partials;             // pin_mean: blocks_for(4 * Hq8 * Wqa) floats of scratch
-  float n_int;                 // pin_mean: the number of interior cells
-};
-
-struct Sweep {
-  long long first, step;
-  template <class F>
-  __device__ __forceinline__ void each(long long n, F f) const {
-    for (long long k = first; k < n; k += step) f(k);
-  }
-};
-
-// one red (colour 0) or black half-sweep of an aligned level in place;
-// from_zero: the iterate is all zeros (the first half-sweep of a descent),
-// so its reads are zeros and the cells it does not update become 0
-__device__ void level_half_sweep(const Sweep& s, const cfd::Level& L, float* p,
-                                 const float* b, int colour, bool from_zero) {
-  s.each(static_cast<long long>(L.H8) * L.W, [&](long long idx) {
-    const int j = static_cast<int>(idx / L.W);
-    const int i = static_cast<int>(idx - static_cast<long long>(j) * L.W);
-    if (((j + i) & 1) == colour && cfd::active(j, i, L)) {
-      const cfd::Weights w = cfd::weights(j, i, L);
-      p[idx] = from_zero ? cfd::gs_update(0.f, 0.f, 0.f, 0.f, 0.f, b[idx], w.e, w.w, w.n,
-                                          w.s, L.idx2, L.idy2, L.omega)
-                         : cfd::rb_update(p, b, j, i, L);
-    } else if (from_zero) {
-      p[idx] = 0.f;
-    }
-  });
-}
-
-// bc = full weighting of the residual b - A p of level L into level Lc, in
-// the order of mg_tail._restrict: ((r(2J-1,2I-1) + r(2J-1,2I)) + r(2J,2I-1)
-// + r(2J,2I)) * 0.25 on the coarse interior, 0 elsewhere
-__device__ void level_restrict(const Sweep& s, const cfd::Level& L, const float* p,
-                               const float* b, const cfd::Level& Lc, float* bc) {
-  s.each(static_cast<long long>(Lc.H8) * Lc.W, [&](long long idx) {
-    const int J = static_cast<int>(idx / Lc.W);
-    const int I = static_cast<int>(idx - static_cast<long long>(J) * Lc.W);
-    float out = 0.f;
-    if (cfd::interior(J, I, Lc)) {
-      const int j = 2 * J, i = 2 * I;
-      out = (((cfd::rb_residual(p, b, j - 1, i - 1, L) + cfd::rb_residual(p, b, j - 1, i, L)) +
-              cfd::rb_residual(p, b, j, i - 1, L)) +
-             cfd::rb_residual(p, b, j, i, L)) *
-            0.25f;
-    }
-    bc[idx] = out;
-  });
-}
-
-// p += the bilinear 9-3-3-1 prolongation of the coarse correction e (level
-// Lc, edge-replicated ghosts) on the active cells of level L, in the order
-// of mg_tail._prolong: 0.0625 * (((9c + 3h) + 3v) + d)
-__device__ void level_prolong_add(const Sweep& s, const cfd::Level& Lc, const float* e,
-                                  const cfd::Level& L, float* p) {
-  s.each(static_cast<long long>(L.H8) * L.W, [&](long long idx) {
-    const int j = static_cast<int>(idx / L.W);
-    const int i = static_cast<int>(idx - static_cast<long long>(j) * L.W);
-    if (!cfd::active(j, i, L)) return;
-    const int jc = (j - 1) >> 1, ic = (i - 1) >> 1;
-    const int dj = ((j - 1) & 1) ? 1 : -1, di = ((i - 1) & 1) ? 1 : -1;
-    auto E = [&](int a, int c) {
-      a = min(max(a, 0), Lc.ny - 1);
-      c = min(max(c, 0), Lc.nx - 1);
-      return e[static_cast<long long>(a + 1) * Lc.W + (c + 1)];
-    };
-    const float v = 0.0625f * (((9.0f * E(jc, ic) + 3.0f * E(jc, ic + di)) +
-                                3.0f * E(jc + dj, ic)) +
-                               E(jc + dj, ic + di));
-    p[idx] = p[idx] + v;
-  });
-}
-
-// out = the solid fill of a masked level's correction e (the whole array)
-__device__ void level_solid_fill(const Sweep& s, const cfd::Level& L, const float* e,
-                                 float* out) {
-  s.each(static_cast<long long>(L.H8) * L.W, [&](long long idx) {
-    const int j = static_cast<int>(idx / L.W);
-    const int i = static_cast<int>(idx - static_cast<long long>(j) * L.W);
-    out[idx] = cfd::solid_fill_value(e, j, i, L);
-  });
-}
-
-// p0 -= fixed_order_sum(p0) / n_int on the quad cells (see the header)
-__device__ void pin_mean_phase(const Sweep& s, cg::grid_group& grid, const Params& P) {
-  const cfd::Level0& L0 = P.L0;
-  const long long n0 = 4LL * L0.Hq8 * L0.Wqa;
-  const int chunks = static_cast<int>((n0 + cfd::kThreads - 1) / cfd::kThreads);
-  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
-    const long long k = static_cast<long long>(c) * cfd::kThreads + threadIdx.x;
-    cfd::block_sum_to(k < n0 ? P.p0[k] : 0.f, P.partials + c);
-  }
-  grid.sync();
-  if (blockIdx.x == 0) {
-    const float sum = cfd::fold_sum(P.partials, chunks, static_cast<int>(threadIdx.x),
-                                    static_cast<int>(blockDim.x), [] { __syncthreads(); });
-    if (threadIdx.x == 0) P.ctl[3] = sum;
-  }
-  grid.sync();
-  const float mean = __ldcg(P.ctl + 3) / P.n_int;
-  s.each(n0, [&](long long idx) {
-    const cfd::QuadCell c = cfd::quad_cell(idx, L0.Hq8, L0.Wqa);
-    if (c.j >= 1 && c.j <= L0.ny && c.i >= 1 && c.i <= L0.nx) P.p0[idx] = P.p0[idx] - mean;
-  });
-}
-
-// The masked finest level's iterate: P.p0 or P.q0, whichever holds it;
-// every phase that applies the ghost stage writes the other one.
-struct FineIterate {
-  float* cur;
-  float* other;
-  __device__ void swap() {
-    float* t = cur;
-    cur = other;
-    other = t;
-  }
-};
-
-// n exact masked pairs and the trailing ghost stage (step_vcycle.cu smooth)
-__device__ void step_smooth(const Sweep& s, cg::grid_group& grid, const Params& P,
-                            FineIterate& it, int n_pairs) {
-  const cfd::StepL0& L = P.S0;
-  const long long n0 = 4LL * L.Hq8 * L.Wqa;
-  for (int k = 0; k < n_pairs; ++k) {
-    s.each(n0, [&](long long idx) {
-      it.other[idx] = cfd::ghost_red_value(it.cur, P.b0, cfd::quad_cell(idx, L.Hq8, L.Wqa), L);
-    });
-    grid.sync();
-    it.swap();
-    s.each(n0, [&](long long idx) {
-      float v;
-      if (cfd::black_update(it.cur, P.b0, cfd::quad_cell(idx, L.Hq8, L.Wqa), L, &v)) {
-        it.cur[idx] = v;
-      }
-    });
-    grid.sync();
-  }
-  s.each(n0, [&](long long idx) {
-    const cfd::QuadCell c = cfd::quad_cell(idx, L.Hq8, L.Wqa);
-    it.other[idx] = cfd::ghost_value(it.cur, c.j, c.i, L);
-  });
-  grid.sync();
-  it.swap();
-}
+namespace cg = cooperative_groups;
+using cfd::ws::Params;
+using cfd::ws::Sweep;
 
 template <bool kMasked>
 __global__ void __launch_bounds__(cfd::kThreads) whole_solve_kernel(Params P) {
   cg::grid_group grid = cg::this_grid();
   const Sweep s{static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x,
                 static_cast<long long>(gridDim.x) * blockDim.x};
-  const bool lead = s.first == 0;
-  const cfd::Level0& L0 = P.L0;
-  const long long n0 = 4LL * L0.Hq8 * L0.Wqa;
-  const long long n1 = static_cast<long long>(L0.Hq8) * L0.Wqa;
-  (void)n1;
+  const long long n0 = 4LL * P.L0.Hq8 * P.L0.Wqa;
 
   // the warm start into the output, and max|b| for the tolerance
   float m = 0.f;
@@ -259,144 +86,7 @@ __global__ void __launch_bounds__(cfd::kThreads) whole_solve_kernel(Params P) {
   if (P.max_b == nullptr) cfd::block_max_into(m, P.ctl);
   grid.sync();
   const float max_b = P.max_b != nullptr ? *P.max_b : __ldcg(P.ctl);
-  const float tol = fmaxf(P.tol_factor * (max_b > 0.f ? max_b : 1.0f), P.abs_tol);
-
-  float prev = 1e30f;
-  float res = prev / 2.0f;
-  int it = 0;
-  FineIterate fine{P.p0, P.q0};
-  while (res > tol && it < P.max_cycles && res < P.stall * prev) {
-    // --- finest level: pre pairs, then the residual restricted into level 1
-    if constexpr (kMasked) {
-      step_smooth(s, grid, P, fine, P.pre);
-      if (lead) P.ctl[1 + ((it + 1) & 1)] = 0.f;  // the next cycle's residual slot
-      s.each(n1, [&](long long idx) {
-        P.b_lv[1][idx] = cfd::step_restrict_value(fine.cur, P.b0, idx, P.S0);
-      });
-    } else {
-      for (int k = 0; k < P.pre; ++k) {
-        for (int colour = 0; colour < 2; ++colour) {
-          s.each(n0, [&](long long idx) {
-            cfd::QuadCell c = cfd::quad_cell(idx, L0.Hq8, L0.Wqa);
-            if (cfd::quad_updates(c, colour, L0)) P.p0[idx] = cfd::quad_gs(P.p0, P.b0, c, L0);
-          });
-          grid.sync();
-        }
-      }
-      if (lead) P.ctl[1 + ((it + 1) & 1)] = 0.f;  // the next cycle's residual slot
-      s.each(n1, [&](long long idx) { P.b_lv[1][idx] = cfd::quad_restrict_value(P.p0, P.b0, idx, L0); });
-    }
-    grid.sync();
-
-    // --- coarse descent from zero iterates
-    const int nc = P.n_coarse;
-    for (int k = 1; k < nc; ++k) {
-      const cfd::Level& L = P.lv[k - 1];
-      for (int pair = 0; pair < P.pre; ++pair) {
-        level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 0, pair == 0);
-        grid.sync();
-        level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 1, false);
-        grid.sync();
-      }
-      level_restrict(s, L, P.p_lv[k], P.b_lv[k], P.lv[k], P.b_lv[k + 1]);
-      grid.sync();
-    }
-
-    // --- coarsest level: the dense pinv product, rows summed in the
-    // fold_sum order
-    {
-      const cfd::Level& L = P.lv[nc - 1];
-      const int n = L.ny * L.nx;
-      float* pc = P.p_lv[nc];
-      const float* bc = P.b_lv[nc];
-      s.each(static_cast<long long>(n) * n, [&](long long idx) {
-        const int k = static_cast<int>(idx % n);
-        const float vec = bc[static_cast<long long>(1 + k / L.nx) * L.W + 1 + k % L.nx];
-        P.fold[idx] = P.pinv[idx] * vec;
-      });
-      s.each(static_cast<long long>(L.H8) * L.W, [&](long long idx) {
-        const int j = static_cast<int>(idx / L.W);
-        if (!cfd::interior(j, static_cast<int>(idx - static_cast<long long>(j) * L.W), L)) {
-          pc[idx] = 0.f;
-        }
-      });
-      grid.sync();
-      s.each(n, [&](long long r) {
-        const float e = cfd::fold_sum(P.fold + r * n, n, 0, 1, [] {});
-        pc[static_cast<long long>(1 + r / L.nx) * L.W + 1 + r % L.nx] = e;
-      });
-      grid.sync();
-    }
-
-    // --- coarse ascent: prolongation, post pairs
-    for (int k = nc - 1; k >= 1; --k) {
-      const cfd::Level& L = P.lv[k - 1];
-      const float* e = P.p_lv[k + 1];
-      if (P.lv[k].full) {
-        level_solid_fill(s, P.lv[k], e, P.filled);
-        grid.sync();
-        e = P.filled;
-      }
-      level_prolong_add(s, P.lv[k], e, L, P.p_lv[k]);
-      grid.sync();
-      for (int pair = 0; pair < P.post; ++pair) {
-        level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 0, false);
-        grid.sync();
-        level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 1, false);
-        grid.sync();
-      }
-    }
-
-    // --- finest level: prolongation, post pairs, the tolerance residual
-    float r = 0.f;
-    if constexpr (kMasked) {
-      // the level-1 correction solid-filled, then added on the fluid cells
-      level_solid_fill(s, P.lv[0], P.p_lv[1], P.filled);
-      grid.sync();
-      s.each(n0, [&](long long idx) {
-        fine.other[idx] = cfd::step_prolong_add_value(fine.cur, P.filled, idx, P.S0);
-      });
-      grid.sync();
-      fine.swap();
-      step_smooth(s, grid, P, fine, P.post);
-      s.each(n0, [&](long long idx) {
-        const cfd::QuadCell c = cfd::quad_cell(idx, P.S0.Hq8, P.S0.Wqa);
-        r = cfd::bits_max(r, fabsf(cfd::step_residual(fine.cur, P.b0, c.j, c.i, P.S0)));
-      });
-    } else {
-      s.each(n0, [&](long long idx) {
-        P.p0[idx] = cfd::quad_prolong_add_value(P.p0, P.p_lv[1], idx, L0);
-      });
-      grid.sync();
-      for (int k = 0; k < P.post; ++k) {
-        for (int colour = 0; colour < 2; ++colour) {
-          s.each(n0, [&](long long idx) {
-            cfd::QuadCell c = cfd::quad_cell(idx, L0.Hq8, L0.Wqa);
-            if (cfd::quad_updates(c, colour, L0)) P.p0[idx] = cfd::quad_gs(P.p0, P.b0, c, L0);
-          });
-          grid.sync();
-        }
-      }
-      s.each(n0, [&](long long idx) { r = cfd::bits_max(r, cfd::quad_abs_residual(P.p0, P.b0, idx, L0)); });
-    }
-    cfd::block_max_into(r, P.ctl + 1 + (it & 1));
-    if constexpr (!kMasked) {
-      if (P.pin_mean) pin_mean_phase(s, grid, P);
-    }
-    grid.sync();
-    prev = res;
-    res = __ldcg(P.ctl + 1 + (it & 1));
-    ++it;
-  }
-  if constexpr (kMasked) {
-    if (fine.cur != P.p0) {  // the solution into the output array
-      s.each(n0, [&](long long idx) { P.p0[idx] = fine.cur[idx]; });
-    }
-  }
-  if (lead) {
-    P.stats[0] = static_cast<float>(it);
-    P.stats[1] = res;
-  }
+  cfd::ws::solve_cycles<kMasked>(s, grid, P, max_b);
 }
 
 void* kernel_of(int masked) {
@@ -410,24 +100,7 @@ void* kernel_of(int masked) {
 // kernel on the current device: blocks, blocks per SM, and the kernel's
 // registers per thread (for the build log).
 extern "C" int cfd_whole_solve_grid(int masked, int* blocks, int* per_sm, int* regs) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int coop = 0, sms = 0;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const void* fn = kernel_of(masked);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, cfd::kThreads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (*per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  *blocks = sms * min(*per_sm, kMaxBlocksPerSM);
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *regs = attr.numRegs;
-  return 0;
+  return cfd::ws::coop_grid(kernel_of(masked), blocks, per_sm, regs);
 }
 
 // masked: 0 = the separable flavor (fine weights wE..wS, q0, filled and the
@@ -435,13 +108,13 @@ extern "C" int cfd_whole_solve_grid(int masked, int* blocks, int* per_sm, int* r
 // field, filled a level-1-size array). idims: n_coarse * (H8, W, ny, nx,
 // full); fdims: n_coarse * (idx2, idy2); ptrs: n_coarse * (wE, wW, wN, wS,
 // p, b), levels 1..n_coarse, all host arrays. ctl: 4 floats of device
-// scratch; stats: 2 floats (cycles, res); fold: n * n floats for the
-// coarsest level. pin_mean (separable only): partials is
-// blocks_for(4 * Hq8 * Wqa) floats of scratch and n_int the interior cell
-// count; otherwise partials is null.
+// scratch; stats: 2 ints, the cycles and the bits of the final float32
+// residual; fold: n * n floats for the coarsest level. pin_mean (separable
+// only): partials is blocks_for(4 * Hq8 * Wqa) floats of scratch and n_int
+// the interior cell count; otherwise partials is null.
 extern "C" int cfd_whole_solve(int masked, const float* p_in, const float* b0, float* p0,
                                float* q0, float* filled, const float* max_b, float* ctl,
-                               float* stats, float* fold, const float* pinv, const float* wE,
+                               int* stats, float* fold, const float* pinv, const float* wE,
                                const float* wW, const float* wN, const float* wS, int Hq8,
                                int Wqa, int ny, int nx, int step_i, int inlet_j, float idx2,
                                float idy2, float denom, float one_minus_omega, int n_coarse,
@@ -450,50 +123,15 @@ extern "C" int cfd_whole_solve(int masked, const float* p_in, const float* b0, f
                                float tol_factor, float abs_tol, float stall, int pin_mean,
                                float* partials, float n_int, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_coarse < 2 || n_coarse >= kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
-  if (masked && (q0 == nullptr || filled == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (pin_mean && (masked || partials == nullptr || !(n_int > 0.f))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Params P{};
-  P.L0 = cfd::Level0{Hq8, Wqa, ny, nx, idx2, idy2, omega, wE, wW, wN, wS};
-  P.S0 = cfd::StepL0{Hq8, Wqa, ny, nx, step_i, inlet_j, idx2, idy2, denom, omega,
-                     one_minus_omega};
-  P.n_coarse = n_coarse;
-  for (int k = 1; k <= n_coarse; ++k) {
-    const int* d = idims + 5 * (k - 1);
-    const float* f = fdims + 2 * (k - 1);
-    void* const* q = ptrs + 6 * (k - 1);
-    P.lv[k - 1] = cfd::Level{d[0], d[1], d[2], d[3], f[0], f[1], omega,
-                             static_cast<const float*>(q[0]), static_cast<const float*>(q[1]),
-                             static_cast<const float*>(q[2]), static_cast<const float*>(q[3]),
-                             d[4]};
-    P.p_lv[k] = static_cast<float*>(q[4]);
-    P.b_lv[k] = static_cast<float*>(q[5]);
-  }
-  P.p_in = p_in;
-  P.b0 = b0;
-  P.p0 = p0;
-  P.q0 = q0;
-  P.filled = filled;
-  P.max_b = max_b;
-  P.ctl = ctl;
-  P.stats = stats;
-  P.fold = fold;
-  P.pinv = pinv;
-  P.pre = pre;
-  P.post = post;
-  P.max_cycles = max_cycles;
-  P.tol_factor = tol_factor;
-  P.abs_tol = abs_tol;
-  P.stall = stall;
-  P.pin_mean = pin_mean;
-  P.partials = partials;
-  P.n_int = n_int;
+  Params P;
+  int e = cfd::ws::solve_params(&P, masked, p_in, b0, p0, q0, filled, max_b, ctl, stats, fold,
+                                pinv, wE, wW, wN, wS, Hq8, Wqa, ny, nx, step_i, inlet_j, idx2,
+                                idy2, denom, one_minus_omega, n_coarse, idims, fdims, ptrs,
+                                omega, pre, post, max_cycles, tol_factor, abs_tol, stall,
+                                pin_mean, partials, n_int);
+  if (e) return e;
   int blocks = 0, per_sm = 0, regs = 0;
-  int e = cfd_whole_solve_grid(masked, &blocks, &per_sm, &regs);
+  e = cfd_whole_solve_grid(masked, &blocks, &per_sm, &regs);
   if (e) return e;
   cudaError_t err = cudaMemsetAsync(ctl, 0, 4 * sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,9 +1,9 @@
 """Hand-written Hopper kernels (csrc/*.cu) with their plain PyTorch twins.
 
 ``KERNELS`` lists every kernel entry point of the ported paths (the cavity,
-the channel, the backward step and Rayleigh-Benard at a fixed dt, and their
-adaptive-stepping instances), each with its launch counter
-(kernels._build.Kernel)."""
+the channel, the backward step and Rayleigh-Benard at a fixed dt, their
+adaptive-stepping instances and their whole time steps in one launch), each
+with its launch counter (kernels._build.Kernel)."""
 
 from cfd_tpu_torch.kernels.quad import (
     CARRY,
@@ -38,12 +38,19 @@ from cfd_tpu_torch.kernels.whole_solve import (
     WHOLE_SOLVE,
     WHOLE_SOLVE_PIN_MEAN,
 )
+from cfd_tpu_torch.kernels.whole_step import (
+    WHOLE_STEP_CAVITY,
+    WHOLE_STEP_CHANNEL,
+    WHOLE_STEP_RB,
+    WHOLE_STEP_STEP,
+)
 
 KERNELS = (CARRY, CORRECTOR, PRE, POST, RB_PAIRS, CHANNEL_CARRY, CHANNEL_CORRECTOR,
            WHOLE_SOLVE, STEP_CARRY, STEP_CORRECTOR, STEP_PRE, STEP_POST, RB_PAIRS_FULL,
            STEP_WHOLE_SOLVE, RB_CARRY, RB_CORRECTOR, WHOLE_SOLVE_PIN_MEAN,
            PREDICTOR_SOURCE, CORRECTOR_TRACED, CARRY_ADAPTIVE, CHANNEL_CORRECTOR_TRACED,
            CHANNEL_CARRY_ADAPTIVE, STEP_CORRECTOR_TRACED, STEP_CARRY_ADAPTIVE,
-           RB_CORRECTOR_TRACED, RB_CARRY_ADAPTIVE)
+           RB_CORRECTOR_TRACED, RB_CARRY_ADAPTIVE, WHOLE_STEP_CAVITY, WHOLE_STEP_CHANNEL,
+           WHOLE_STEP_RB, WHOLE_STEP_STEP)
 
 __all__ = ["KERNELS"]

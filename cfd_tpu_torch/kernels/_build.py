@@ -57,6 +57,11 @@ SIGNATURES = {
     "cfd_whole_solve": ([_I] + [_P] * 14 + [_I] * 6 + [_F] * 4 + [_I] + [_P] * 3 + [_F]
                         + [_I] * 3 + [_F] * 3 + [_I, _P, _F] + [_P]),
     "cfd_whole_solve_grid": [_I] + [_P] * 3,
+    # the whole time step: flavor, io, cf, then cfd_whole_solve's arguments
+    # from `masked` on without p_in, b0 and max_b
+    "cfd_whole_step": ([_I, _P, _P, _I] + [_P] * 11 + [_I] * 6 + [_F] * 4 + [_I] + [_P] * 3
+                       + [_F] + [_I] * 3 + [_F] * 3 + [_I, _P, _F] + [_P]),
+    "cfd_whole_step_grid": [_I] + [_P] * 3,
     "cfd_step_corrector": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P],
     "cfd_step_carry": [_P] * 10 + [_I] * 6 + [_F] * 10 + [_P],
     "cfd_step_pre_smooth_restrict": [_P] * 5 + [_I] * 6 + [_F] * 5 + [_I, _P],

@@ -6,13 +6,16 @@ pure-Neumann solve) and the masked flavor of the backward step
 
 ``solve(p4_warm, b4, max_b=None) -> (p4, cycles, res)`` with the contract
 of the reference's make_quad_whole_solve (whole_solve.py:121-135, 507): p
-and b in the (4, Hq8, Wqa) quad layout, ``cycles`` an int, ``res`` the final
-max|b - Ap| as a float32 host number.
+and b in the (4, Hq8, Wqa) quad layout, ``cycles`` an int32 and ``res`` the
+final max|b - Ap| as a float32, both 0-d tensors on the input's device.
+They stay there until the caller reads them: the run loop reads a stats
+row's worth at once (solver.Simulation.run), not one per solve.
 
 * ``kernel`` — csrc/whole_solve.cu: ONE cooperative launch runs every
   V-cycle of the solve and the stop rule on the card, with the hierarchy's
-  scratch allocated once as buffers of this module. The host reads
-  (cycles, res) once per solve.
+  scratch allocated once as buffers of this module. (cycles, res) are
+  written into a fresh 2-element output of every call, so a later solve
+  never overwrites an earlier one's counts.
 * ``plain`` — the same solve as the tolerance loop over the per-kernel
   composition's PyTorch twins (MultigridPoisson.cycle(plain=True) or
   MaskedQuadMultigridPoisson.cycle(plain=True): the finest-level pre/post
@@ -30,14 +33,14 @@ ulps: its whole-solve and per-kernel cycle counts may differ by one
 residual, in the kernel as in the twin (MultigridPoisson.cycle). Not
 ported: the bf16 in-kernel hierarchy (ROADMAP.md queue B item 14), and the
 reference's VMEM estimates and toolchain ceiling, which are TPU limits
-(ROADMAP.md queue A item 13).
+(ROADMAP.md queue A item 13). The whole time step in one launch
+(kernels.whole_step) runs this module's solve after its carry stages.
 """
 
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -64,19 +67,38 @@ WHOLE_SOLVE_PIN_MEAN = Kernel("quad_whole_solve_pin_mean", "cfd_whole_solve",
                               "cfd_tpu/kernels/whole_solve.py:507 (pin_mean)")
 
 
-def launch_grid(masked: bool = False) -> dict:
-    """The cooperative grid the separable (or, with ``masked``, the step's)
-    kernel launches with on the current CUDA device: blocks, blocks per SM
-    and registers per thread. Raises when the card refuses a co-resident
-    grid."""
+def cooperative_grid(symbol: str, which: int) -> dict:
+    """The cooperative grid that the kernel chosen by ``which`` of the C entry
+    point ``symbol`` (cfd_whole_solve_grid, cfd_whole_step_grid) launches
+    with on the current CUDA device: blocks, blocks per SM and registers per
+    thread. Raises when the card refuses a co-resident grid."""
     lib = library()
     vals = [ctypes.c_int(0) for _ in range(3)]
-    err = lib.cfd_whole_solve_grid(int(masked), *(
+    err = getattr(lib, symbol)(which, *(
         ctypes.cast(ctypes.byref(v), ctypes.c_void_p) for v in vals))
     if err != 0:
-        raise RuntimeError(f"cfd_whole_solve_grid: CUDA error {err} "
+        raise RuntimeError(f"{symbol}: CUDA error {err} "
                            f"({lib.cfd_error_string(err).decode()})")
     return dict(zip(("blocks", "blocks_per_sm", "registers"), (v.value for v in vals)))
+
+
+def launch_grid(masked: bool = False) -> dict:
+    """The cooperative grid of the separable (or, with ``masked``, the
+    step's) whole-solve kernel (cooperative_grid)."""
+    return cooperative_grid("cfd_whole_solve_grid", int(masked))
+
+
+def stats_tensors(cycles: int, res, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """A host (cycles, res) as the kernels return them: an int32 and a
+    float32 0-d tensor on ``device``."""
+    return (torch.tensor(cycles, dtype=torch.int32, device=device),
+            torch.tensor(res, dtype=torch.float32, device=device))
+
+
+def split_stats(stats: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 2-int32 output a kernel wrote (cycles, the bits of the float32
+    residual) as two 0-d views: no copy, no launch."""
+    return stats[0], stats.view(torch.float32)[1]
 
 
 class _WholeSolveBase(nn.Module):
@@ -89,8 +111,7 @@ class _WholeSolveBase(nn.Module):
 
     def _alloc_scratch(self, coarse, device):
         # per coarse level: iterate and source; the coarsest fold scratch;
-        # the (max|b|, residual, residual, pin sum) slots and the (cycles,
-        # res) pair
+        # the (max|b|, residual, residual, sum) slots
         f32 = dict(dtype=torch.float32, device=device)
         for k, lv in enumerate(coarse, start=1):
             self.register_buffer(f"p{k}", torch.zeros(lv.shape, **f32), persistent=False)
@@ -98,7 +119,6 @@ class _WholeSolveBase(nn.Module):
         self.register_buffer("fold", torch.zeros(self.mg.pinv.numel(), **f32),
                              persistent=False)
         self.register_buffer("ctl", torch.zeros(4, **f32), persistent=False)
-        self.register_buffer("stats", torch.zeros(2, **f32), persistent=False)
 
     def forward(self, p_warm: torch.Tensor, b: torch.Tensor, max_b=None):
         _check(self.qshape, p_warm, b)
@@ -107,19 +127,32 @@ class _WholeSolveBase(nn.Module):
         return self.plain(p_warm, b, max_b)
 
     def plain(self, p_warm, b, max_b=None):
-        return mgp.tolerance_loop(p_warm, b, max_b, self.cfg,
-                                  lambda p, bb: self.mg.cycle(p, bb, plain=True))
+        p, cycles, res = mgp.tolerance_loop(p_warm, b, max_b, self.cfg,
+                                            lambda p, bb: self.mg.cycle(p, bb, plain=True))
+        return (p, *stats_tensors(cycles, res, p.device))
 
-    def _launch(self, p_warm, b, max_b, coarse, fine_ptrs, fine_ints, fine_floats,
-                scratch, kernel, pin=(0, None, 0.0)):
-        if p_warm.device != self.ctl.device:
-            raise ValueError(f"tensor on {p_warm.device}, solver buffers on "
-                             f"{self.ctl.device}")
+    def kernel(self, p_warm, b, max_b=None):
         if max_b is not None and (max_b.device != p_warm.device or max_b.numel() != 1
                                   or max_b.dtype != torch.float32):
             raise ValueError(f"max_b must be one float32 value on {p_warm.device}, got "
                              f"{max_b.dtype} {tuple(max_b.shape)} on {max_b.device}")
+        record, masked, scratch, common = self.launch_args(p_warm)
+        p_out = torch.empty_like(p_warm)
+        stats = torch.empty(2, dtype=torch.int32, device=p_warm.device)
+        opt = lambda t: ptr(t) if t is not None else ctypes.c_void_p(None)
+        record(p_warm, masked, ptr(p_warm), ptr(b), ptr(p_out), *scratch, opt(max_b),
+               ptr(self.ctl), ptr(stats), *common)
+        return (p_out, *split_stats(stats))
+
+    def launch_args(self, like):
+        """(launch counter, masked, (q0, filled), the C arguments of
+        cfd_whole_solve after ``stats``) for a launch on ``like``'s device
+        (the casts of the host arrays keep them alive)."""
+        if like.device != self.ctl.device:
+            raise ValueError(f"tensor on {like.device}, solver buffers on "
+                             f"{self.ctl.device}")
         cfg = self.cfg
+        coarse, fine_ptrs, fine_ints, fine_floats, scratch, record, pin = self._fine()
         idims = (ctypes.c_int * (5 * len(coarse)))(
             *(d for lv in coarse for d in (*lv.shape, lv.ny, lv.nx, int(not lv.separable))))
         fdims = (ctypes.c_float * (2 * len(coarse)))(
@@ -129,18 +162,14 @@ class _WholeSolveBase(nn.Module):
             ptrs += [getattr(lv, w).data_ptr() for w in ("wE", "wW", "wN", "wS")]
             ptrs += [getattr(self, f"p{k}").data_ptr(), getattr(self, f"b{k}").data_ptr()]
         ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-        p_out = torch.empty_like(p_warm)
-        null = ctypes.c_void_p(None)
-        opt = lambda t: ptr(t) if t is not None else null
+        opt = lambda t: ptr(t) if t is not None else ctypes.c_void_p(None)
         as_ptr = lambda a: ctypes.cast(a, ctypes.c_void_p)
-        kernel(p_warm, int(self.MASKED), ptr(p_warm), ptr(b), ptr(p_out), *map(opt, scratch),
-               opt(max_b), ptr(self.ctl), ptr(self.stats), ptr(self.fold), ptr(self.mg.pinv),
-               *map(opt, fine_ptrs), self.qshape[1], self.qshape[2], *fine_ints,
-               *fine_floats, len(coarse), as_ptr(idims), as_ptr(fdims), as_ptr(ptr_arr),
-               cfg.omega, cfg.pre_sweeps, cfg.post_sweeps, cfg.max_cycles, cfg.tol_factor,
-               cfg.abs_tol, cfg.stall_ratio, pin[0], opt(pin[1]), pin[2])
-        cycles, res = self.stats.tolist()
-        return p_out, int(cycles), np.float32(res)
+        common = (ptr(self.fold), ptr(self.mg.pinv), *map(opt, fine_ptrs), self.qshape[1],
+                  self.qshape[2], *fine_ints, *fine_floats, len(coarse), as_ptr(idims),
+                  as_ptr(fdims), as_ptr(ptr_arr), cfg.omega, cfg.pre_sweeps,
+                  cfg.post_sweeps, cfg.max_cycles, cfg.tol_factor, cfg.abs_tol,
+                  cfg.stall_ratio, pin[0], opt(pin[1]), pin[2])
+        return record, int(self.MASKED), tuple(map(opt, scratch)), common
 
 
 class WholeSolve(_WholeSolveBase):
@@ -174,15 +203,16 @@ class WholeSolve(_WholeSolveBase):
                 -(-4 * Hq8 * Wqa // SUM_BLOCK), dtype=torch.float32, device=device),
                 persistent=False)
 
-    def kernel(self, p_warm, b, max_b=None):
+    def _fine(self):
+        """(coarse levels, fine weights, fine ints, fine floats, scratch,
+        launch counter, pin) of the launch."""
         l0 = self.mg.pre0
         if self.cfg.pin_mean:
-            kernel, pin = WHOLE_SOLVE_PIN_MEAN, (1, self.partials, float(self.mg.n_interior))
+            record, pin = WHOLE_SOLVE_PIN_MEAN, (1, self.partials, float(self.mg.n_interior))
         else:
-            kernel, pin = WHOLE_SOLVE, (0, None, 0.0)
-        return self._launch(p_warm, b, max_b, self.mg.levels[1:],
-                            (l0.wE, l0.wW, l0.wN, l0.wS), (l0.ny, l0.nx, 0, 0),
-                            (l0.idx2, l0.idy2, 0.0, 0.0), (None, None), kernel, pin)
+            record, pin = WHOLE_SOLVE, (0, None, 0.0)
+        return (self.mg.levels[1:], (l0.wE, l0.wW, l0.wN, l0.wS), (l0.ny, l0.nx, 0, 0),
+                (l0.idx2, l0.idy2, 0.0, 0.0), (None, None), record, pin)
 
 
 class StepWholeSolve(_WholeSolveBase):
@@ -212,12 +242,11 @@ class StepWholeSolve(_WholeSolveBase):
         self.register_buffer("filled", torch.zeros(self.mg.levels[0].shape, **f32),
                              persistent=False)
 
-    def kernel(self, p_warm, b, max_b=None):
+    def _fine(self):
         l0 = self.mg.pre0
-        return self._launch(p_warm, b, max_b, self.mg.levels, (None,) * 4,
-                            (l0.ny, l0.nx, l0.step_i, l0.inlet_j),
-                            (l0.idx2, l0.idy2, l0.denom, 1.0 - l0.omega),
-                            (self.q0, self.filled), STEP_WHOLE_SOLVE)
+        return (self.mg.levels, (None,) * 4, (l0.ny, l0.nx, l0.step_i, l0.inlet_j),
+                (l0.idx2, l0.idy2, l0.denom, 1.0 - l0.omega), (self.q0, self.filled),
+                STEP_WHOLE_SOLVE, (0, None, 0.0))
 
 
 def make_quad_whole_solve(shape, problem, cfg: mgp.MGConfig, device="cpu") -> WholeSolve:

@@ -22,9 +22,11 @@ the stats/export boundary, and the reference's auto_whole_solve rule with
 (one launch per pressure solve) on the card, the per-kernel pin-mean solve
 on the CPU. The stats rows carry the Nusselt numbers. The lagged adaptive
 controller's ``adaptive_impl_carry`` and ``adaptive_diffusivity`` =
-max(nu, kappa) (cfd_tpu/physics/boussinesq.py:372-411, :498). The
-natural-layout XLA step, float64, whole_step and other layouts raise
-NotImplementedError.
+max(nu, kappa) (cfd_tpu/physics/boussinesq.py:372-411, :498). The whole
+time step in one kernel under ``mg_overrides={"whole_step": True}``
+(kernels.whole_step; with ``extrapolate_warm_start`` it raises the
+reference's ValueError, boussinesq.py:311-316). The natural-layout XLA
+step, float64 and other layouts raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from cfd_tpu_torch.kernels.rb_quad import (
     uncorrect_rb_quad,
 )
 from cfd_tpu_torch.kernels.whole_solve import auto_whole_solve, make_quad_whole_solve
+from cfd_tpu_torch.kernels.whole_step import make_quad_whole_step_rb
 from cfd_tpu_torch.ops.random import uniform
 from cfd_tpu_torch.ops.stencil import StencilCoeffs, _sh
 from cfd_tpu_torch.params import validate_case_params
@@ -223,7 +226,7 @@ def make_rayleigh_benard_case(
         raise _not_ported("the float64 Rayleigh-Benard step (the natural XLA path)",
                           "ROADMAP.md queue A item 9")
     if layout not in ("auto", "quad"):
-        raise _not_ported(f"layout={layout!r}", "ROADMAP.md queue B item 11")
+        raise _not_ported(f"layout={layout!r}", "ROADMAP.md queue B row 11")
     coarse_shape = _round_up8_128((ny // 2 + 2, nx // 2 + 2))
     _, _, Hq8, Wqa = quad_dims(grid.shape)
     if coarse_shape != (Hq8, Wqa):
@@ -233,8 +236,9 @@ def make_rayleigh_benard_case(
         raise _not_ported(f"nx={nx}, ny={ny} (coarse shape {coarse_shape} != quad plane "
                           f"shape {(Hq8, Wqa)}: the natural XLA step)",
                           "ROADMAP.md queue A item 9")
-    if mg.whole_step:
-        raise _not_ported("whole_step", "ROADMAP.md queue B item 15")
+    if mg.whole_step and extrapolate_warm_start:
+        raise ValueError("extrapolate_warm_start is not supported with whole_step (the "
+                         "fused time-step kernel warm-starts from plain p)")
     # V(2,1) on the quad path (cfd_tpu/physics/boussinesq.py:264-265)
     if not (mg_overrides and "post_sweeps" in mg_overrides):
         mg = dataclasses.replace(mg, post_sweeps=1)
@@ -256,6 +260,11 @@ def make_rayleigh_benard_case(
         fallback=per_kernel)
     fused = make_quad_rb_step_kernel(grid.shape, coeffs, kappa, params,
                                      emit_guess=extrapolate_warm_start)
+    # the fused RB carry + mean removal + the pure-Neumann pinned solve in
+    # one kernel a step (cfd_tpu/physics/boussinesq.py:311-332)
+    whole_step = (make_quad_whole_step_rb(grid.shape, problem, coeffs, mg, kappa, n_cells,
+                                          params.t_bottom, params.t_top, device=device)
+                  if mg.whole_step else None)
     corr = make_quad_rb_corrector(grid.shape, coeffs)
     vel_bc = box_noslip_bc(grid)
     temp_bc = temperature_bc(grid, params.t_bottom, params.t_top)
@@ -345,4 +354,5 @@ def make_rayleigh_benard_case(
         initial_state_fn=initial_state_fn,
         adaptive_impl_carry=adaptive_impl_carry,
         adaptive_diffusivity=max(nu, kappa),
+        whole_step_kernel=whole_step,
     )

@@ -191,11 +191,12 @@ class MGConfig:
     """The reference's multigrid configuration (cfd_tpu MGConfig). The port
     honours omega, pre/post_sweeps, max_cycles, tol_factor, abs_tol,
     min_coarse, stall_ratio and coarse_dtype, whole_solve with the float32
-    hierarchy (the case factories then build kernels.whole_solve), and
-    pin_mean on pure-Neumann separable problems; tail_from, whole_step,
-    corr_opt, whole_solve with the bfloat16 hierarchy and pin_mean
-    elsewhere raise NotImplementedError until they are ported (ROADMAP.md
-    queues A and B). The reference's coarse_sweeps is read by nothing
+    hierarchy (the case factories then build kernels.whole_solve),
+    whole_step (the case factories consume it and build
+    kernels.whole_step), and pin_mean on pure-Neumann separable problems;
+    tail_from, corr_opt, whole_solve with the bfloat16 hierarchy and
+    pin_mean elsewhere raise NotImplementedError until they are ported
+    (ROADMAP.md queues A and B). The reference's coarse_sweeps is read by nothing
     there, so it has no field here and an override naming it is refused."""
 
     omega: float = 1.0
@@ -345,7 +346,7 @@ class MultigridPoisson(nn.Module):
     def __init__(self, problem: PoissonProblem, cfg: MGConfig, quad_level0,
                  device="cpu"):
         super().__init__()
-        unported = [name for name in ("whole_step", "corr_opt") if getattr(cfg, name)]
+        unported = ["corr_opt"] if cfg.corr_opt else []
         if cfg.pin_mean and not is_pure_neumann(problem):
             # the reference takes it only on its unfused natural path there
             unported.append("pin_mean on a problem that is not pure Neumann (the "
@@ -479,8 +480,7 @@ class MaskedQuadMultigridPoisson(nn.Module):
         if cfg.coarse_dtype is not None:
             raise ValueError("coarse_dtype is not supported on the masked "
                              "(defect-correction) hierarchy")
-        unported = [name for name in ("pin_mean", "whole_step", "corr_opt")
-                    if getattr(cfg, name)]
+        unported = [name for name in ("pin_mean", "corr_opt") if getattr(cfg, name)]
         if cfg.tail_from is not None:
             unported.append("tail_from")
         if unported:

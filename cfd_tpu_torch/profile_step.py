@@ -4,11 +4,11 @@ step goes on the card.
     python -m cfd_tpu_torch.profile_step [--n 2048] [--warmup 100] [--steps 50]
                                          [--out DIR]
     python -m cfd_tpu_torch.profile_step --case channel [--nx 1536 --ny 512]
-                                         [--mg default|whole|per-kernel] ...
+                                         [--mg default|whole|per-kernel|whole-step] ...
     python -m cfd_tpu_torch.profile_step --case step [--nx 2048 --ny 256]
-                                         [--mg default|whole|per-kernel] ...
+                                         [--mg default|whole|per-kernel|whole-step] ...
     python -m cfd_tpu_torch.profile_step --case rb [--nx 1536 --ny 512]
-                                         [--mg default|whole|per-kernel] ...
+                                         [--mg default|whole|per-kernel|whole-step] ...
 
 Drives a main path on cuda through Simulation's step function: the cavity,
 make_cavity_case(n_interior=n, poisson="multigrid", dtype=float32,
@@ -19,8 +19,11 @@ solver settings) (default 2048x256), or Rayleigh-Benard,
 make_rayleigh_benard_case(nx, ny, rayleigh=1e6, dtype=float32) with its own
 tolerances (default 1536x512), with the case's default solve or the other
 one. ``--mg`` picks the solve: ``default`` is the case's own (the
-per-kernel solve for the cavity, the whole-solve for the others),
-``whole`` and ``per-kernel`` force one. It runs three windows:
+whole-solve on the card), ``whole`` and ``per-kernel`` force one, and
+``whole-step`` runs the whole time step in one kernel (kernels.whole_step).
+The steps' V-cycle counts stay on the card until each window ends, as in
+Simulation.run, so no window reads the host between its steps. It runs
+three windows:
 
 1. ``--warmup`` steps, untimed;
 2. ``--steps`` steps timed with the host clock between two synchronizes,
@@ -131,7 +134,8 @@ def make_case(args):
                                      make_channel_case, make_rayleigh_benard_case)
 
     ov = {"whole": {"whole_solve": True}, "default": None,
-          "per-kernel": {"whole_solve": False} if args.case != "cavity" else None}[args.mg]
+          "per-kernel": {"whole_solve": False},
+          "whole-step": {"whole_step": True}}[args.mg]
     if args.case == "cavity":
         case = make_cavity_case(n_interior=args.n, poisson="multigrid",
                                 dtype=torch.float32, tolerance_factor=1e-6, device="cuda",
@@ -152,8 +156,9 @@ def make_case(args):
 
 def describe(case, what: str) -> str:
     mg = case.info["mg"]
-    return (f"{what} ({'whole' if mg.whole_solve else 'per-kernel'} solve, "
-            f"coarse {mg.coarse_dtype or 'float32'})")
+    path = ("whole step" if mg.whole_step else
+            "whole solve" if mg.whole_solve else "per-kernel solve")
+    return f"{what} ({path}, coarse {mg.coarse_dtype or 'float32'})"
 
 
 def main(argv=None) -> int:
@@ -166,8 +171,10 @@ def main(argv=None) -> int:
                          "1536)")
     ap.add_argument("--ny", type=int, default=None,
                     help="channel/step/rb: interior cells in y (default 512 / 256 / 512)")
-    ap.add_argument("--mg", choices=["default", "whole", "per-kernel"], default="default",
-                    help="the pressure solve (default: the case's own path)")
+    ap.add_argument("--mg", choices=["default", "whole", "per-kernel", "whole-step"],
+                    default="default",
+                    help="the pressure solve (default: the case's own path), or the "
+                         "whole step in one kernel")
     ap.add_argument("--warmup", type=int, default=100)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--out", type=Path, default=DEFAULT_OUT)
@@ -177,7 +184,7 @@ def main(argv=None) -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    from cfd_tpu_torch.solver import Simulation
+    from cfd_tpu_torch.solver import Simulation, read_diagnostics
 
     card = card_line()
     case, what = make_case(args)
@@ -187,14 +194,19 @@ def main(argv=None) -> int:
     cycles: list[int] = []
 
     def window(n_steps: int):
+        """n_steps steps, timed between two synchronizes; their cycles are
+        read after the second."""
         nonlocal state
+        diags = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n_steps):
             state, diag = sim._step(state)
-            cycles.append(diag.poisson_iters)
+            diags.append(diag)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        cycles.extend(read_diagnostics(diags)[0])
+        return wall
 
     window(args.warmup)
     del cycles[:]

@@ -12,10 +12,16 @@ the fused kernel (Rayleigh-Benard, in place of the reference's
 hooks ``extra_stats`` and ``initial_state_fn`` (cfd_tpu/solver.py:139-141),
 the adaptive-stepping builders ``adaptive_impl``, ``adaptive_impl_carry``
 and ``adaptive_diffusivity`` (:122-134, driven by cfd_tpu_torch.adaptive),
-and the ``Simulation`` time loop with its stats rows and NaN/KE-blowup
-abort. The JAX package runs a chunk of steps as one device program (lax.scan around lax.while_loop); PyTorch
-runs eagerly, so a step here is a sequence of kernel launches and the
-solve reads each V-cycle's residual back to the host.
+the whole-step ordering (cfd_tpu/solver.py:193-209, and RB's whole-step
+``custom_step``, cfd_tpu/physics/boussinesq.py:326-332): one kernel a step
+(kernels.whole_step), reached through ``Case.whole_step_kernel``, and the
+``Simulation`` time loop with its stats rows and NaN/KE-blowup abort. The
+JAX package runs a chunk of steps as one device program (lax.scan around
+lax.while_loop); PyTorch runs eagerly, so a step here is a sequence of
+kernel launches. On the whole-solve and whole-step paths each step's
+(cycles, res) stay on the device until a stats row reads them all at once
+(the reference's pending_iter_max, cfd_tpu/solver.py:496-499, 536-542);
+only the per-kernel solve reads each V-cycle's residual back to the host.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import dataclasses
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from cfd_tpu_torch.bc import VelocityBC
@@ -81,6 +88,11 @@ class Case:
     # Diffusivity of the controller's ceiling dt <= 0.25 h^2 / D (default:
     # the viscosity; RB: max(nu, kappa))
     adaptive_diffusivity: Optional[float] = None
+    # The whole time step in one kernel (kernels.whole_step), when
+    # mg.whole_step is set: (us, vs, p[, p_prev | T]) -> (us', vs'[, T'], p',
+    # cycles, res); step_kernels stay for the stats/export boundary and the
+    # adaptive builders.
+    whole_step_kernel: Optional[Callable] = None
 
     @property
     def dt(self) -> float:
@@ -99,10 +111,28 @@ def remove_mean_quad(b: torch.Tensor, sum_b: torch.Tensor, n_fluid: torch.Tensor
     return torch.where(cell, b - sum_b / n_fluid, b)
 
 
+def read_diagnostics(diags) -> tuple[list[int], list[float]]:
+    """Every step's (cycles, res) of ``diags`` (StepDiagnostics) as host
+    numbers. The whole-solve and whole-step paths return 0-d tensors; they
+    are stacked and read with ONE device-to-host transfer (the residual's
+    float32 bits ride beside the int32 cycles). The per-kernel solve's host
+    numbers pass through."""
+    if not diags:
+        return [], []
+    if not isinstance(diags[0].poisson_iters, torch.Tensor):
+        return ([int(d.poisson_iters) for d in diags],
+                [float(d.poisson_residual) for d in diags])
+    flat = torch.stack([x for d in diags for x in (
+        d.poisson_iters, d.poisson_residual.view(torch.int32))]).cpu().numpy()
+    res = np.ascontiguousarray(flat[1::2]).view(np.float32)
+    return flat[0::2].tolist(), [float(r) for r in res]
+
+
 def make_step(case: Case) -> Callable[[State], tuple[State, StepDiagnostics]]:
-    """The per-step function of a case: the tentative-carry cavity ordering,
-    or the channel ordering with the extrapolated warm start (the channel)
-    or with the plain previous-p warm start (the step,
+    """The per-step function of a case: the whole step in one kernel when
+    the case has a ``whole_step_kernel``; else the tentative-carry cavity
+    ordering, or the channel ordering with the extrapolated warm start (the
+    channel) or with the plain previous-p warm start (the step,
     cfd_tpu/solver.py:241-252); the "rayleigh_benard" ordering is the
     channel's with T carried through the fused kernel, (us, vs, p, T[,
     p_prev]) -> (us', vs', T', b[, guess], sum b). The other orderings
@@ -111,6 +141,8 @@ def make_step(case: Case) -> Callable[[State], tuple[State, StepDiagnostics]]:
         raise NotImplementedError(
             f"the {case.ordering!r} ordering is not ported yet "
             "(ROADMAP.md queue A)")
+    if case.whole_step_kernel is not None:
+        return _whole_step(case)
     fused = case.step_kernels[0]
 
     if case.ordering == "cavity":
@@ -165,6 +197,33 @@ def make_step(case: Case) -> Callable[[State], tuple[State, StepDiagnostics]]:
     return step
 
 
+def _whole_step(case: Case) -> Callable[[State], tuple[State, StepDiagnostics]]:
+    """One kernel a step (cfd_tpu/solver.py:193-209): the cavity and the
+    channel warm-start from 2p - p_prev computed in the kernel, and the
+    p_prev slot keeps carrying the pre-solve p; the step and RB from the
+    plain previous p (RB carries T, cfd_tpu/physics/boussinesq.py:326-332)."""
+    ws = case.whole_step_kernel
+    if case.ordering == "rayleigh_benard":
+
+        def step(state: State) -> tuple[State, StepDiagnostics]:
+            us2, vs2, T2, p, iters, res = ws(state.u, state.v, state.p, state.T)
+            return State(us2, vs2, p, T2, None), StepDiagnostics(iters, res)
+
+    elif case.ordering == "cavity" or case.extrapolate_warm_start:
+
+        def step(state: State) -> tuple[State, StepDiagnostics]:
+            us2, vs2, p, iters, res = ws(state.u, state.v, state.p, state.p_prev)
+            return State(us2, vs2, p, state.T, state.p), StepDiagnostics(iters, res)
+
+    else:
+
+        def step(state: State) -> tuple[State, StepDiagnostics]:
+            us2, vs2, p, iters, res = ws(state.u, state.v, state.p)
+            return State(us2, vs2, p, state.T, None), StepDiagnostics(iters, res)
+
+    return step
+
+
 class Simulation:
     """Host-side time loop with periodic diagnostics (the reference
     ``run()`` loops, cfd_tpu.solver.Simulation)."""
@@ -213,13 +272,17 @@ class Simulation:
             start_step: int = 0, steps_per_call: int = 1) -> State:
         """Advance ``n_steps`` (default: to ``total_steps``), printing a stats
         row every ``print_interval`` steps and at the end. ``steps_per_call``
-        keeps the reference's chunk contract: it must divide the print
-        interval, and rows come at chunk ends. Eager PyTorch has no
-        per-dispatch cost to amortize, so it changes nothing else."""
+        keeps the reference's chunk contract (cfd_tpu/solver.py:466-474): it
+        must divide the print and the save interval, and rows come at chunk
+        ends. Eager PyTorch has no per-dispatch cost to amortize, so it
+        changes nothing else. Every step's (cycles, res) waits on the device
+        until the next row reads them all with one transfer; that read fills
+        ``step_iters`` and drives the non-convergence warning."""
         case = self.case
-        if case.print_interval % steps_per_call:
-            raise ValueError(f"steps_per_call={steps_per_call} must divide the "
-                             f"print interval ({case.print_interval})")
+        for name, iv in (("print", case.print_interval), ("save", case.save_interval)):
+            if iv % steps_per_call:
+                raise ValueError(f"steps_per_call={steps_per_call} must divide the "
+                                 f"{name} interval ({iv})")
         if state is None:
             state = self.initial_state()
         elif tuple(state.u.shape) == case.grid.shape:
@@ -229,19 +292,22 @@ class Simulation:
         t_wall0 = time.perf_counter()
         prev_k, prev_wall = start_step, t_wall0
         cap = case.poisson_max_iters
-        worst = 0  # max Poisson iterations since the last row
+        pending: list[StepDiagnostics] = []  # the steps since the last row
 
-        def after_step(k: int, state: State, diag: StepDiagnostics) -> None:
-            nonlocal prev_k, prev_wall, worst
+        def after_step(k: int, state: State) -> None:
+            nonlocal prev_k, prev_wall
             t = k * case.dt
             if k % case.print_interval == 0 or k == n:
+                iters, residuals = read_diagnostics(pending)
+                pending.clear()
+                self.step_iters.extend(iters)
                 now = time.perf_counter()
                 row = self.statistics(state)
                 interval_wall = max(now - prev_wall, 1e-12)
                 row.update(
                     step=k, time=t,
-                    poisson_iters=int(diag.poisson_iters),
-                    poisson_residual=float(diag.poisson_residual),
+                    poisson_iters=iters[-1],
+                    poisson_residual=residuals[-1],
                     wall_seconds=now - t_wall0,
                     cell_updates_per_sec=n_cells * (k - prev_k) / interval_wall,
                 )
@@ -261,20 +327,18 @@ class Simulation:
                     f" | PPE iters={row['poisson_iters']:4d}"
                     f" | res={row['poisson_residual']:10.2e}"
                 )
-                if cap is not None and worst >= cap:
+                if cap is not None and max(iters) >= cap:
                     self.log(
                         f"Warning: SOR solver did not converge in {cap} "
                         f"iterations. Final residual: "
                         f"{row['poisson_residual']:.6e}")
-                worst = 0
 
         # rows come at chunk ends, then after each step of the tail that
         # the chunk size does not divide (the reference's bookkeeping)
         main_end = start_step + ((n - start_step) // steps_per_call) * steps_per_call
         for k in range(start_step + 1, n + 1):
             state, diag = self._step(state)
-            self.step_iters.append(int(diag.poisson_iters))
-            worst = max(worst, int(diag.poisson_iters))
+            pending.append(diag)
             if k > main_end or (k - start_step) % steps_per_call == 0:
-                after_step(k, state, diag)
+                after_step(k, state)
         return state

@@ -9,21 +9,26 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
 1. Device and build: requires a CUDA device, prints the card's name and
    power limit (nvidia-smi), builds the kernels from csrc/ with nvcc (one
    process per source, in parallel), prints the build seconds, the
-   whole-solve kernel's registers and its cooperative grid.
+   whole-solve and whole-step kernels' registers and their cooperative
+   grids.
 2. Per-kernel check at the 2048^2 cavity shapes: each hand-written kernel
-   of the cavity path against its plain PyTorch twin on the same seeded
-   inputs on the card. Error = max |kernel - plain| / max |plain| per
+   of the per-kernel cavity path (mg_overrides whole_solve=False) against
+   its plain PyTorch twin on the same seeded inputs on the card. Error = max |kernel - plain| / max |plain| per
    output; limits: 1e-5 for float32 fields and scalars, 2^-7 for
    bfloat16-stored fields. Times are CUDA-event medians of 20 launches.
 3. The cavity slice: make_cavity_case(n_interior=2048, poisson="multigrid",
-   dtype=float32, tolerance_factor=1e-6) on cuda through
-   Simulation.run(n_steps=300, steps_per_call=100). Launch counters are
-   zeroed just before; every kernel of the path must have launched.
-   Prints steps/s and V-cycles/step over the last 100 steps.
+   dtype=float32, tolerance_factor=1e-6) on cuda, its default solve (the
+   float32 whole-solve), through Simulation.run(n_steps=300,
+   steps_per_call=100), then 100 steps with whole_solve=False (the
+   per-kernel solve). Launch counters are zeroed just before each run;
+   every kernel of the path must have launched. Prints steps/s and
+   V-cycles/step over the last 100 steps of each.
 4. Cavity card against CPU: the slice at 256^2 for 20 steps with the
-   kernels on the card and the plain twins on the CPU, with the f32 and
-   with the bf16 coarse hierarchy: per-step V-cycle counts equal, fields
-   within 5e-5 relative, avg_KE within 1e-6 relative.
+   kernels on the card and the plain twins on the CPU, with the default
+   solves (the whole-solve on the card, the per-kernel solve on the CPU),
+   and with the f32 and the bf16 coarse hierarchy pinned: per-step V-cycle
+   counts equal, fields within 5e-5 relative, avg_KE within 1e-6
+   relative.
 5. Per-kernel check at the 1536x512 channel shapes: the channel carry and
    corrector against their twins (1e-5), and the whole-solve kernel on a
    seeded source against its twin (the same cycles, p within 1e-5) and
@@ -49,7 +54,7 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
    2, each with its bound.
 9. The step slice: make_backwards_step_case(nx=2048, ny=256,
    poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0, dtype=float32,
-   print_interval=100) on cuda, 300 steps in chunks of 100 with the launch
+   print_interval=100, save_interval=100) on cuda, 300 steps in chunks of 100 with the launch
    counters zeroed just before; every kernel of the path must have
    launched. Then 100 steps with whole_solve=False (the per-kernel masked
    solve: the pre/post kernels and the full-2D pairs). Prints steps/s,
@@ -98,6 +103,18 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
     chunks of 10, the lagged one), the
     channel at 256x128, the step at 512x64 and RB at 256x128 (lagged): the
     same dt every step, equal cycles, fields within 5e-5 relative.
+17. The whole time step in one launch (mg_overrides whole_step=True) at
+    the full widths of phases 3, 6, 9 and 12: each flavor's kernel against
+    its twin (the composition carry -> mean removal -> whole-solve twin)
+    on seeded fields: bit-identical fields, equal cycles and residual;
+    CUDA-event medians of 10 launches (the twin's of 3), the bound.
+18. 300 steps of each flow with whole_step at the full widths, in chunks
+    of 100, the counters zeroed just before: 300 launches of the flavor's
+    kernel (the corrector runs only at the stats rows), the cycles of the
+    composed whole-solve run of phases 3, 6, 9 and 12 at every step and a
+    bit-identical carried state after 300 steps; steps/s, V-cycles/step.
+19. Whole-step card against CPU, 20 steps, at 256^2, 256x128, 512x64 and
+    256x128: equal cycles every step, fields within 5e-5 relative.
 
 The line before the last is a JSON object {"kernels": [...]}: per kernel,
 its launches on its path's run, its error against its twin, its time and
@@ -200,6 +217,13 @@ def rel_err(got, want, what: str, tol: float, errs: list) -> float:
         raise AssertionError(f"{what}: relative error {rel:.3e} > {tol:.1e}")
     errs.append(abs_err)
     return abs_err
+
+
+def host(out):
+    """A solve's or a step's outputs with (cycles, res) read to the host: the
+    whole-solve and whole-step wrappers leave them on the card."""
+    *fields, cycles, res = out
+    return (*fields, int(cycles), float(res))
 
 
 def nbytes(*tensors) -> int:
@@ -369,7 +393,8 @@ def run_path(case, n_steps: int, path_kernels, what: str, card: str, rate,
     log(f"  {what}: {n_steps} steps in {wall:.2f} s; last 100: {steps_s:.2f} steps/s, "
         f"{cycles:.2f} V-cycles/step, {rate[1](cycles) * steps_s:.4e} {rate[0]}, "
         f"avg_KE={ke:.6f} ({card})")
-    return launches, state, dict(steps_s=steps_s, cycles=cycles, row=sim.history[-1])
+    return launches, state, dict(steps_s=steps_s, cycles=cycles, row=sim.history[-1],
+                                 iters=list(sim.step_iters))
 
 
 def card_vs_cpu(make, kw: dict, what: str) -> None:
@@ -447,9 +472,9 @@ def check_channel_kernels(case, dev) -> dict:
     b = field(scale=1e3, interior_only=True)
     b = torch.where(b != 0, b - b.sum() / cells, b)
     p0 = torch.zeros_like(b)
-    pk, ck, rk = ws.kernel(p0, b)
-    pp, cp, rp = ws.plain(p0, b)
-    pm, cm, rm = ws.mg(p0, b)  # the per-kernel composition of the cavity kernels
+    pk, ck, rk = host(ws.kernel(p0, b))
+    pp, cp, rp = host(ws.plain(p0, b))
+    pm, cm, rm = host(ws.mg(p0, b))  # the per-kernel composition of the cavity kernels
     tol = ws.cfg.tol_factor * float(b.abs().max())
     log(f"  quad_whole_solve cycles: kernel {ck}, plain twin {cp}, per-kernel {cm}; "
         f"res {float(rk)!r} / {float(rp)!r} / {float(rm)!r}; tol {tol:.4e}")
@@ -465,15 +490,7 @@ def check_channel_kernels(case, dev) -> dict:
     if not diff <= 50 * tol:
         raise AssertionError(f"whole-solve p differs from the per-kernel path by {diff}")
     ms = median_ms(lambda: ws.kernel(p0, b))
-    levels = ws.mg.levels
-    cfg = ws.cfg
-    ops_per_cycle = cells * ((cfg.pre_sweeps + cfg.post_sweeps) * GS_OPS + 2 * RES_OPS + 1
-                             + PROLONG_OPS)
-    for lv, below in zip(levels[1:-1], levels[2:]):
-        n = lv.nx * lv.ny
-        ops_per_cycle += (n * ((cfg.pre_sweeps + cfg.post_sweeps) * GS_OPS + RES_OPS
-                               + PROLONG_OPS) + below.nx * below.ny * RESTRICT_OPS)
-    ops_per_cycle += 2 * ws.mg.pinv.numel()
+    ops_per_cycle = solve_ops_per_cycle(ws, cells)
     solve_bound = bound(nbytes(p0, b, pk, ws.mg.pinv), ck * ops_per_cycle + cells)
     results["quad_whole_solve"] = dict(
         err=max(errs), ms=ms, plain_ms=median_ms(lambda: ws.plain(p0, b), reps=5),
@@ -574,9 +591,9 @@ def check_step_kernels(case, dev) -> dict:
     bn = np.where(g.fluid, bn - bn.sum() / n_fluid, 0.0).astype(np.float32) * 1e3
     b = to_quad(torch.from_numpy(bn).to(dev), shape)
     p0 = torch.zeros_like(b)
-    pk, ck, rk = ws.kernel(p0, b)
-    pp_, cp, rp = ws.plain(p0, b)
-    pm, cm, rm = ws.mg(p0, b)  # the per-kernel composition of the step's kernels
+    pk, ck, rk = host(ws.kernel(p0, b))
+    pp_, cp, rp = host(ws.plain(p0, b))
+    pm, cm, rm = host(ws.mg(p0, b))  # the per-kernel composition of the step's kernels
     tol = cfg.tol_factor * float(b.abs().max())
     bit = bool(torch.equal(pk, pm)) and bool(torch.equal(pk, pp_))
     log(f"  quad_step_whole_solve cycles: kernel {ck}, plain twin {cp}, per-kernel {cm}; "
@@ -589,14 +606,7 @@ def check_step_kernels(case, dev) -> dict:
     rel_err(pk, pp_, "quad_step_whole_solve p vs twin", TOL_F32, errs)
     rel_err(pk, pm, "quad_step_whole_solve p vs per-kernel", TOL_F32, [])
     ms = median_ms(lambda: ws.kernel(p0, b))
-    ops_per_cycle = n_fluid * ((cfg.pre_sweeps + cfg.post_sweeps) * STEP_GS_OPS
-                               + 2 * STEP_RES_OPS + 1 + PROLONG_OPS)
-    for lv, below in zip(mg.levels[:-1], mg.levels[1:]):
-        n = lv.nx * lv.ny
-        ops_per_cycle += (n * ((cfg.pre_sweeps + cfg.post_sweeps) * GS_OPS + RES_OPS
-                               + PROLONG_OPS + FILL_OPS)
-                          + below.nx * below.ny * RESTRICT_OPS)
-    ops_per_cycle += 2 * mg.pinv.numel()
+    ops_per_cycle = solve_ops_per_cycle(ws, n_fluid)
     results["quad_step_whole_solve"] = dict(
         err=max(errs), ms=ms, plain_ms=median_ms(lambda: ws.plain(p0, b), reps=5),
         cycles=ck, ms_per_cycle=ms / ck,
@@ -677,9 +687,9 @@ def check_rb_kernels(case, dev) -> dict:
         dataclasses.replace(cfg, tol_factor=1e-3), device=dev)
     errs = []
     for exit_rule, solve in (("stall", ws), ("tolerance", loose)):
-        pk, ck, rk = solve.kernel(p0, b)
-        pp, cp, rp = solve.plain(p0, b)
-        pm, cm, rm = solve.mg(p0, b)  # the per-kernel composition of the quad kernels
+        pk, ck, rk = host(solve.kernel(p0, b))
+        pp, cp, rp = host(solve.plain(p0, b))
+        pm, cm, rm = host(solve.mg(p0, b))  # the per-kernel composition of the quad kernels
         tol = max(solve.cfg.tol_factor * float(b.abs().max()), solve.cfg.abs_tol)
         bit = bool(torch.equal(pk, pm)) and bool(torch.equal(pk, pp))
         log(f"  quad_whole_solve_pin_mean, {exit_rule} exit (tol_factor "
@@ -695,15 +705,9 @@ def check_rb_kernels(case, dev) -> dict:
         rel_err(pk, pp, f"quad_whole_solve_pin_mean ({exit_rule}) p vs twin", TOL_F32, errs)
         rel_err(pk, pm, f"quad_whole_solve_pin_mean ({exit_rule}) p vs per-kernel", TOL_F32,
                 [])
-    pk, ck, _ = ws.kernel(p0, b)  # the slice's own solve is the one timed
+    pk, ck, _ = host(ws.kernel(p0, b))  # the slice's own solve is the one timed
     ms = median_ms(lambda: ws.kernel(p0, b))
-    ops_per_cycle = cells * ((cfg.pre_sweeps + cfg.post_sweeps) * GS_OPS + 2 * RES_OPS + 1
-                             + PROLONG_OPS + PIN_OPS)
-    for lv, below in zip(mg.levels[1:-1], mg.levels[2:]):
-        n = lv.nx * lv.ny
-        ops_per_cycle += (n * ((cfg.pre_sweeps + cfg.post_sweeps) * GS_OPS + RES_OPS
-                               + PROLONG_OPS) + below.nx * below.ny * RESTRICT_OPS)
-    ops_per_cycle += 2 * mg.pinv.numel()
+    ops_per_cycle = solve_ops_per_cycle(ws, cells)
     results["quad_whole_solve_pin_mean"] = dict(
         err=max(errs), ms=ms, plain_ms=median_ms(lambda: ws.plain(p0, b), reps=3),
         cycles=ck, ms_per_cycle=ms / ck,
@@ -886,6 +890,110 @@ def adaptive_card_vs_cpu(make, kw: dict, controller: str, spc: int, what: str) -
                 f"{what} card vs cpu {name}", 5e-5, [])
 
 
+def seeded_fields(case, seed: int):
+    """The carried fields of a whole step's call: the case's initial state
+    in the logical layout with seeded noise on u, v and p over its fluid
+    cells, aligned."""
+    from cfd_tpu_torch.convert import state_from_numpy
+    from cfd_tpu_torch.solver import Simulation
+
+    sim = Simulation(case, log=lambda m: None)
+    st = sim._logical(sim.initial_state())
+    rng = np.random.default_rng(seed)
+    mask = np.asarray(case.grid.cell_mask, dtype=np.float32)
+    f = {k: getattr(st, k).cpu().numpy().copy()
+         for k in ("u", "v", "p", "T", "p_prev") if getattr(st, k) is not None}
+    for k, scale in (("u", 0.05), ("v", 0.05), ("p", 0.01)):
+        f[k] = f[k] + (scale * rng.standard_normal(f[k].shape) * mask).astype(np.float32)
+    s = case.align_state(state_from_numpy(f["u"], f["v"], f["p"], f.get("p_prev"),
+                                          f.get("T"), device=case.device))
+    if case.ordering == "rayleigh_benard":
+        return (s.u, s.v, s.p, s.T)
+    return (s.u, s.v, s.p) if s.p_prev is None else (s.u, s.v, s.p, s.p_prev)
+
+
+def solve_ops_per_cycle(solver, cells: int) -> int:
+    """float32 operations of one V-cycle of a whole-solve (the separable,
+    pin-mean or masked flavor) over ``cells`` finest cells (fluid cells on
+    the step), counted as in phases 5, 8 and 11."""
+    cfg, mg = solver.cfg, solver.mg
+    sweeps = cfg.pre_sweeps + cfg.post_sweeps
+    if solver.MASKED:
+        ops = cells * (sweeps * STEP_GS_OPS + 2 * STEP_RES_OPS + 1 + PROLONG_OPS)
+        coarse, fill = zip(mg.levels[:-1], mg.levels[1:]), FILL_OPS
+    else:
+        ops = cells * (sweeps * GS_OPS + 2 * RES_OPS + 1 + PROLONG_OPS
+                       + (PIN_OPS if cfg.pin_mean else 0))
+        coarse, fill = zip(mg.levels[1:-1], mg.levels[2:]), 0
+    for lv, below in coarse:
+        ops += (lv.nx * lv.ny * (sweeps * GS_OPS + RES_OPS + PROLONG_OPS + fill)
+                + below.nx * below.ny * RESTRICT_OPS)
+    return ops + 2 * mg.pinv.numel()
+
+
+def check_whole_steps(cases: dict) -> dict:
+    """Phase 17: each flavor's whole-step kernel against its twin (the
+    composition carry -> mean removal -> whole-solve twin) at the full
+    widths on seeded fields: bit-identical fields, equal cycles and
+    residual. Times as in phase 2 (the twin over 3 runs); the bound counts
+    the carried state read once and written once plus the solve's pinv, and
+    the carry's, the mean removal's and the solve's operations."""
+    results = {}
+    for flow, case in cases.items():
+        ws = case.whole_step_kernel
+        fields = seeded_fields(case, seed=1700 + len(results))
+        got, want = host(ws.kernel(*fields)), host(ws.plain(*fields))
+        names = ("us'", "vs'", "T'", "p'") if flow == "rb" else ("us'", "vs'", "p'")
+        errs = []
+        for name, a, b in zip(names, got[:-2], want[:-2], strict=True):
+            rel_err(a, b, f"{ws.RECORD.name} {name}", TOL_F32, errs)
+        bit = all(bool(torch.equal(a, b)) for a, b in zip(got[:-2], want[:-2]))
+        log(f"  {ws.RECORD.name}: cycles kernel {got[-2]}, twin {want[-2]}; res "
+            f"{got[-1]!r} / {want[-1]!r}; fields bit-identical: {bit}")
+        if got[-2:] != want[-2:]:
+            raise AssertionError(f"{ws.RECORD.name}: (cycles, res) {got[-2:]} against the "
+                                 f"twin's {want[-2:]}")
+        cells = case.grid.n_fluid
+        carry_ops = CORRECTOR_OPS + PREDICTOR_SOURCE_OPS + (
+            TEMPERATURE_OPS + BUOYANCY_OPS if flow == "rb" else 0)
+        ops = (cells * (carry_ops + (0 if flow == "cavity" else 2))
+               + got[-2] * solve_ops_per_cycle(ws.solver, cells))
+        n_bytes = nbytes(*fields, *got[:-2], ws.solver.mg.pinv)
+        results[ws.RECORD.name] = dict(
+            err=max(errs), ms=median_ms(lambda: ws.kernel(*fields), reps=10),
+            plain_ms=median_ms(lambda: ws.plain(*fields), reps=3), cycles=got[-2],
+            bound_bytes_ms=n_bytes / PEAK_BYTES_S * 1e3,
+            bound_ops_ms_per_cycle=solve_ops_per_cycle(ws.solver, cells) / PEAK_F32_S * 1e3,
+            **bound(n_bytes, ops))
+    return results
+
+
+def run_whole_steps(full: dict, ws_cases: dict, composed: dict, card: str) -> dict:
+    """Phase 18: 300 steps of each whole-step case through run_path; each
+    step must be one launch of the flavor's kernel, and the cycles and the
+    carried state those of the composed run (``composed[flow]`` = its
+    per-step cycles and carried state). Returns the kernels' launches."""
+    launches = {}
+    for flow, (_, _, record, flow_rate) in full.items():
+        case = ws_cases.pop(flow)
+        got, state, r = run_path(case, 300, (record,), f"{flow} whole-step", card, flow_rate)
+        launches[record.name] = got[record.name]
+        others = {k: n for k, n in got.items() if n and k != record.name}
+        iters, ref_state = composed.pop(flow)
+        same = all(a is None or bool(torch.equal(a, b)) for a, b in zip(state, ref_state))
+        log(f"  {flow} whole-step: {got[record.name]} launches of {record.name} in 300 steps "
+            f"({sum(got.values()) / 300:.4f} port launches a step, the rest {others} at the "
+            f"stats rows); cycles equal to the composed run's at every step: "
+            f"{r['iters'] == iters}; carried state bit-identical: {same}  ({card})")
+        if got[record.name] != 300:
+            raise AssertionError(f"{flow}: {got[record.name]} whole-step launches in 300 steps")
+        if r["iters"] != iters or not same:
+            raise AssertionError(f"{flow}: the whole step left the composed path's cycles or "
+                                 "fields")
+        del case
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -897,6 +1005,7 @@ def main() -> int:
     from cfd_tpu_torch.kernels import quad as Q
     from cfd_tpu_torch.kernels import rb_smoother as RB
     from cfd_tpu_torch.kernels import whole_solve as WS
+    from cfd_tpu_torch.kernels import whole_step as WST
 
     dev = torch.device("cuda")
     card = card_line()
@@ -908,36 +1017,59 @@ def main() -> int:
     log(f"  built {path.relative_to(ROOT)} in {build_s:.1f} s")
     ptxas = path.with_suffix(".log").read_text().splitlines()
     for i, line in enumerate(ptxas):
-        if "Compiling entry function" in line and "whole_solve_kernel" in line:
-            for info in ptxas[i + 1 : i + 4]:
-                if "Function properties" not in info:
-                    log(f"  whole_solve_kernel ptxas: {info.strip()}")
+        for kname in ("whole_solve_kernel", "whole_step_kernel"):
+            if "Compiling entry function" in line and kname in line:
+                for info in ptxas[i + 1 : i + 4]:
+                    if "Function properties" not in info:
+                        log(f"  {kname} ptxas: {info.strip()}")
     grid = WS.launch_grid()
     log(f"  whole_solve_kernel: {grid['registers']} registers/thread, cooperative grid of "
         f"{grid['blocks']} blocks ({grid['blocks_per_sm']} co-resident per SM)")
+    for flavor, fname in ((WST.CAVITY, "cavity"), (WST.CHANNEL, "channel"),
+                          (WST.RB, "rb"), (WST.STEP, "step")):
+        grid = WST.launch_grid(flavor)
+        log(f"  whole_step_kernel<{fname}>: {grid['registers']} registers/thread, "
+            f"cooperative grid of {grid['blocks']} blocks ({grid['blocks_per_sm']} "
+            f"co-resident per SM)")
 
     log(f"phase 2: kernels vs plain twins at {N_MAIN}^2 shapes ({card})")
-    case = make_cavity_case(n_interior=N_MAIN, poisson="multigrid", dtype=torch.float32,
-                            tolerance_factor=1e-6, device=dev)
-    mg = case.info["mg"]
-    log(f"  solver config: V({mg.pre_sweeps},{mg.post_sweeps}) coarse_dtype="
-        f"{mg.coarse_dtype} levels={len(case.poisson_solve.levels)}")
-    checks = check_kernels(case, dev)
-    flows = {"cavity": (case.grid, case.coeffs, None)}  # phase 14's shapes
+    cav_main = dict(n_interior=N_MAIN, poisson="multigrid", dtype=torch.float32,
+                    tolerance_factor=1e-6)
+    # the per-kernel cavity, explicitly: the card's default is the whole-solve
+    pk_case = make_cavity_case(device=dev, mg_overrides={"whole_solve": False}, **cav_main)
+    mg = pk_case.info["mg"]
+    log(f"  per-kernel solver config: V({mg.pre_sweeps},{mg.post_sweeps}) coarse_dtype="
+        f"{mg.coarse_dtype} levels={len(pk_case.poisson_solve.levels)}")
+    checks = check_kernels(pk_case, dev)
+    flows = {"cavity": (pk_case.grid, pk_case.coeffs, None)}  # phase 14's shapes
 
-    log(f"phase 3: the slice at {N_MAIN}^2, 300 steps in chunks of 100 ({card})")
-    cavity_launches, _, _ = run_path(
-        case, 300, (Q.CARRY, Q.CORRECTOR, Q.PRE, Q.POST, RB.RB_PAIRS), "cavity 2048^2",
-        card, ("cell-updates/s", lambda c: N_MAIN * N_MAIN * (5 + 16 / 3 * c)))
+    log(f"phase 3: the cavity at {N_MAIN}^2, its cuda default (the whole-solve) for 300 "
+        f"steps in chunks of 100, then the per-kernel solve for 100 steps ({card})")
+    case = make_cavity_case(device=dev, **cav_main)
+    mg = case.info["mg"]
+    log(f"  default solver config: whole_solve={mg.whole_solve} coarse_dtype="
+        f"{mg.coarse_dtype}")
+    rate = ("cell-updates/s", lambda c: N_MAIN * N_MAIN * (5 + 16 / 3 * c))
+    cavity_launches, state, whole = run_path(
+        case, 300, (Q.CARRY, Q.CORRECTOR, WS.WHOLE_SOLVE), "cavity whole-solve", card, rate)
+    composed = {"cavity": (whole["iters"], state)}  # phase 18 holds the whole step to them
     del case
+    pk_launches, _, per_kernel = run_path(
+        pk_case, 100, (Q.CARRY, Q.PRE, Q.POST, RB.RB_PAIRS), "cavity per-kernel", card, rate,
+        state=state, start_step=300)
+    cavity_launches.update({k.name: pk_launches[k.name] for k in (Q.PRE, Q.POST, RB.RB_PAIRS)})
+    log(f"  cavity A/B, steps/s: whole-solve {whole['steps_s']:.2f} ({whole['cycles']:.2f} "
+        f"V-cycles/step), per-kernel {per_kernel['steps_s']:.2f} "
+        f"({per_kernel['cycles']:.2f}); reference parity target 1.0 V-cycles/step  ({card})")
+    del pk_case
 
     log("phase 4: cavity card vs CPU at 256^2, 20 steps")
-    for coarse in ("float32", "bfloat16"):
+    for coarse in (None, "float32", "bfloat16"):
         card_vs_cpu(make_cavity_case, dict(n_interior=256, poisson="multigrid",
                                            dtype=torch.float32, tolerance_factor=1e-6,
                                            print_interval=20,
-                                           mg_overrides={"coarse_dtype": coarse}),
-                    f"cavity 256^2 {coarse}")
+                                           mg_overrides=coarse and {"coarse_dtype": coarse}),
+                    f"cavity 256^2 {coarse or 'default'}")
 
     nx, ny = CHANNEL
     ch_kw = dict(nx=nx, ny=ny, poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0,
@@ -963,6 +1095,7 @@ def main() -> int:
     channel_launches, state, whole = run_path(
         case, 300, (Q.CHANNEL_CARRY, Q.CHANNEL_CORRECTOR, WS.WHOLE_SOLVE),
         "channel whole-solve", card, cells)
+    composed["channel"] = (whole["iters"], state)
     per_kernel_case = make_channel_case(device=dev, mg_overrides={"whole_solve": False},
                                         **ch_kw)
     _, state, per_kernel = run_path(
@@ -992,7 +1125,7 @@ def main() -> int:
 
     nx, ny = STEP
     st_kw = dict(nx=nx, ny=ny, poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0,
-                 dtype=torch.float32, print_interval=100)
+                 dtype=torch.float32, print_interval=100, save_interval=100)
     log(f"phase 8: kernels vs plain twins at the {nx}x{ny} backward-step shapes ({card})")
     case = make_backwards_step_case(device=dev, **st_kw)
     mg = case.info["mg"]
@@ -1016,12 +1149,14 @@ def main() -> int:
         f"{w['bound_ops_ms_per_cycle']:.4f} ms per V-cycle (operations)  ({card})")
     checks.update(step_checks)
 
+    step_fluid = g.n_fluid
     log(f"phase 9: the step slice at {nx}x{ny}, 300 steps in chunks of 100, then the "
         f"per-kernel solve for 100 steps ({card})")
     cells = ("cell-steps/s", lambda c: g.n_fluid)
     step_launches, state, whole = run_path(
         case, 300, (SQ.STEP_CARRY, SQ.STEP_CORRECTOR, WS.STEP_WHOLE_SOLVE),
         "step whole-solve", card, cells)
+    composed["step"] = (whole["iters"], state)
     del case
     per_kernel_case = make_backwards_step_case(device=dev, mg_overrides={"whole_solve": False},
                                                **st_kw)
@@ -1069,6 +1204,7 @@ def main() -> int:
     rb_launches, state, whole = run_path(
         case, 300, (RQ.RB_CARRY, RQ.RB_CORRECTOR, WS.WHOLE_SOLVE_PIN_MEAN),
         "rb whole-solve", card, cells)
+    composed["rb"] = (whole["iters"], state)
     del case
     per_kernel_case = make_rayleigh_benard_case(device=dev, mg_overrides={"whole_solve": False},
                                                 **rb_kw)
@@ -1112,9 +1248,9 @@ def main() -> int:
                   tolerance_factor=1e-6, device=dev)
     runs = [
         ("cavity exact", make_cavity_case, cav_kw, 200, 1, "exact",
-         (Q.PREDICTOR_SOURCE, Q.CORRECTOR_TRACED, Q.PRE, Q.POST, RB.RB_PAIRS)),
+         (Q.PREDICTOR_SOURCE, Q.CORRECTOR_TRACED, WS.WHOLE_SOLVE)),
         ("cavity lagged", make_cavity_case, cav_kw, 300, 100, "lagged",
-         (Q.CARRY_ADAPTIVE, Q.CORRECTOR_TRACED, Q.PRE, Q.POST, RB.RB_PAIRS)),
+         (Q.CARRY_ADAPTIVE, Q.CORRECTOR_TRACED, WS.WHOLE_SOLVE)),
         ("channel lagged", make_channel_case, dict(ch_kw, device=dev), 300, 100, "lagged",
          (Q.CHANNEL_CARRY_ADAPTIVE, Q.CHANNEL_CORRECTOR_TRACED, WS.WHOLE_SOLVE)),
         ("step lagged", make_backwards_step_case, dict(st_kw, device=dev), 300, 100, "lagged",
@@ -1156,6 +1292,43 @@ def main() -> int:
     for make, kw, ctl, spc, what in small:
         adaptive_card_vs_cpu(make, kw, ctl, spc, what)
 
+    ws_on = {"whole_step": True}
+    full = {"cavity": (make_cavity_case, cav_main, WST.WHOLE_STEP_CAVITY,
+                       rate),
+            "channel": (make_channel_case, ch_kw, WST.WHOLE_STEP_CHANNEL,
+                        ("cell-steps/s", lambda c: CHANNEL[0] * CHANNEL[1])),
+            "step": (make_backwards_step_case, st_kw, WST.WHOLE_STEP_STEP,
+                     ("cell-steps/s", lambda c, n=step_fluid: n)),
+            "rb": (make_rayleigh_benard_case, rb_kw, WST.WHOLE_STEP_RB,
+                   ("cell-steps/s", lambda c: RB_SHAPE[0] * RB_SHAPE[1]))}
+    log(f"phase 17: the whole-step kernels vs plain twins at the full widths ({card})")
+    ws_cases = {flow: make(device=dev, mg_overrides=ws_on, **kw)
+                for flow, (make, kw, _, _) in full.items()}
+    ws_checks = check_whole_steps(ws_cases)
+    for k, r in ws_checks.items():
+        log(f"  {k:36s} kernel {r['ms']:.4f} ms ({r['cycles']} V-cycles)  plain "
+            f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}; bytes "
+            f"{r['bound_bytes_ms']:.4f} ms a step, operations {r['bound_ops_ms_per_cycle']:.4f}"
+            f" ms a V-cycle)  ({card})")
+    checks.update(ws_checks)
+
+    log(f"phase 18: 300 steps of each flow with whole_step at the full widths in chunks of "
+        f"100, against the composed runs of phases 3, 6, 9 and 12 ({card})")
+    ws_launches = run_whole_steps(full, ws_cases, composed, card)
+
+    log("phase 19: whole-step card vs CPU, 20 steps")
+    for make, kw, what in (
+            (make_cavity_case, dict(n_interior=256, poisson="multigrid",
+                                    tolerance_factor=1e-6), "cavity 256^2"),
+            (make_channel_case, dict(nx=256, ny=128, poisson="multigrid",
+                                     tolerance_factor=1e-6, abs_tol=0.0), "channel 256x128"),
+            (make_backwards_step_case, dict(nx=512, ny=64, poisson="multigrid",
+                                            tolerance_factor=1e-6, abs_tol=0.0),
+             "step 512x64"),
+            (make_rayleigh_benard_case, dict(nx=256, ny=128, rayleigh=1e6), "rb 256x128")):
+        card_vs_cpu(make, dict(kw, dtype=torch.float32, print_interval=20,
+                               mg_overrides=ws_on), f"{what} whole-step")
+
     launches = {**cavity_launches, **{k: channel_launches[k] for k in (
         Q.CHANNEL_CARRY.name, Q.CHANNEL_CORRECTOR.name, WS.WHOLE_SOLVE.name)},
         **{k: step_launches[k] for k in (SQ.STEP_CARRY.name, SQ.STEP_CORRECTOR.name,
@@ -1164,7 +1337,7 @@ def main() -> int:
                                              RB.RB_PAIRS_FULL.name)},
         **{k: rb_launches[k] for k in (RQ.RB_CARRY.name, RQ.RB_CORRECTOR.name,
                                        WS.WHOLE_SOLVE_PIN_MEAN.name)},
-        **ad_launches}
+        **ad_launches, **ws_launches}
     kernels = []
     for k in KERNELS:
         r = checks[k.name]

@@ -212,11 +212,34 @@ def test_run_aborts_on_blowup():
     dict(poisson="sor"), dict(n_interior=63, poisson="auto"), dict(dtype=torch.float64),
     dict(forcing=(0.0, 0.0)), dict(fuse_pre=True), dict(layout="aligned"),
     dict(n_interior=30), dict(mg_overrides={"whole_solve": True, "coarse_dtype": "bfloat16"}),
-    dict(mg_overrides={"whole_step": True}), dict(mg_overrides={"tail_from": 1}),
+    dict(mg_overrides={"corr_opt": True}), dict(mg_overrides={"tail_from": 1}),
 ])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         make_cavity_case(device="cpu", **{**KW, "dtype": torch.float32, **kw})
+
+
+def test_whole_step_option_builds_and_steps():
+    """mg_overrides whole_step=True (refused until the whole step was
+    ported) builds the one-kernel step, and on the CPU its twin takes the
+    same steps as the composed path, bit for bit with equal cycles."""
+    runs = []
+    for ws in (False, True):
+        case = _port(mg_overrides={"whole_step": ws})
+        assert (case.whole_step_kernel is not None) == ws
+        sim = Simulation(case, log=lambda m: None)
+        s = sim.initial_state()
+        iters = []
+        for _ in range(2):
+            s, d = sim._step(s)
+            iters.append(int(d.poisson_iters))
+        runs.append((iters, sim._logical(s)))
+    (it0, s0), (it1, s1) = runs
+    assert it0 == it1
+    for a, b in zip(s0, s1):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
 
 
 def test_other_orderings_raise():

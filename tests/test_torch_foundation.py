@@ -159,6 +159,7 @@ def test_port_imports_no_jax():
             "import cfd_tpu_torch.cases.backwards_step, cfd_tpu_torch.kernels.step_quad\n"
             "import cfd_tpu_torch.physics.boussinesq, cfd_tpu_torch.kernels.rb_quad\n"
             "import cfd_tpu_torch.ops.random, cfd_tpu_torch.adaptive\n"
+            "import cfd_tpu_torch.kernels.whole_step\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'cfd_tpu' or m.startswith('cfd_tpu.'))\n"
             "assert not bad, bad\n"

@@ -87,7 +87,7 @@ def _port_run(case, n=N_STEPS, state=None):
     iters, states = [], []
     for _ in range(n):
         s, d = sim._step(s)
-        iters.append(d.poisson_iters)
+        iters.append(int(d.poisson_iters))
         states.append(sim._logical(s))
     return iters, states, sim.statistics(s)
 
@@ -202,13 +202,36 @@ def test_stats_rows_and_banner_match_jax(ref):
 
 @pytest.mark.parametrize("kw", [
     dict(dtype=torch.float64), dict(layout="aligned"), dict(ny=14),
-    dict(mg_overrides={"whole_step": True}),
+    dict(mg_overrides={"corr_opt": True}),
     dict(mg_overrides={"whole_solve": True, "coarse_dtype": "bfloat16"}),
     dict(mg_overrides={"tail_from": 1}),
 ])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         _port(**kw)
+
+
+def test_whole_step_option_builds_and_steps():
+    """mg_overrides whole_step=True (refused until the whole step was
+    ported) builds the one-kernel step, and on the CPU its twin takes the
+    same steps as the composed path, bit for bit with equal cycles."""
+    runs = []
+    for ws in (False, True):
+        case = _port(mg_overrides={"whole_step": ws})
+        assert (case.whole_step_kernel is not None) == ws
+        sim = Simulation(case, log=lambda m: None)
+        s = sim.initial_state()
+        iters = []
+        for _ in range(2):
+            s, d = sim._step(s)
+            iters.append(int(d.poisson_iters))
+        runs.append((iters, sim._logical(s)))
+    (it0, s0), (it1, s1) = runs
+    assert it0 == it1
+    for a, b in zip(s0, s1):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
 
 
 def test_build_rejections_raise(monkeypatch):
