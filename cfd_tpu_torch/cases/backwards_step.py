@@ -15,9 +15,15 @@ per-kernel defect-correction solve on the CPU, and manual control when
 mg_overrides names a fusion knob; the whole time step in one kernel under
 ``mg_overrides={"whole_step": True}`` (kernels.whole_step,
 cfd_tpu/cases/backwards_step.py:182-190); the lagged adaptive controller's
-``adaptive_impl_carry`` (cfd_tpu/cases/backwards_step.py:227-276).
-Everything else (SOR, float64, the natural layout) raises
-NotImplementedError rather than being ignored.
+``adaptive_impl_carry`` (cfd_tpu/cases/backwards_step.py:227-276). The
+multigrid knobs: ``tail_from`` (the per-kernel solve's fused coarse tail),
+``corr_opt`` (every solve; not a manual knob, so the card keeps its
+whole-solve with the steplength in the kernel) and
+``coarse_dtype="bfloat16"`` with whole_solve or whole_step (the per-kernel
+masked hierarchy refuses it, as the reference's does; under whole_step the
+case's own solve is then the bf16 whole-solve). Everything else (SOR,
+float64, the natural layout) raises NotImplementedError rather than being
+ignored.
 """
 
 from __future__ import annotations
@@ -145,11 +151,17 @@ def make_backwards_step_case(
     corr = make_quad_step_corrector(grid.shape, coeffs, step_i, inlet_j, inlet_velocity)
     carry = make_quad_step_corr_predictor_source(grid.shape, coeffs, step_i, inlet_j,
                                                  inlet_velocity)
+    def per_kernel():
+        if mg.whole_step and mg.coarse_dtype is not None:
+            # the per-kernel masked hierarchy takes no bf16: the whole step's
+            # own solve serves the paths outside it
+            return make_quad_step_whole_solve(grid, coeffs, mg, device=device)
+        return make_masked_quad_multigrid_poisson(grid, coeffs, mg, device=device)
+
     solve, mg = auto_whole_solve(
         mg, mg_overrides, device.type == "cuda",
         build=lambda: make_quad_step_whole_solve(grid, coeffs, mg, device=device),
-        fallback=lambda: make_masked_quad_multigrid_poisson(grid, coeffs, mg,
-                                                            device=device))
+        fallback=per_kernel)
     whole_step = (make_quad_whole_step_step(grid, coeffs, mg, step_i, inlet_j, inlet_velocity,
                                             device=device) if mg.whole_step else None)
 

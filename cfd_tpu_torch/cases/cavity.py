@@ -15,11 +15,16 @@ composition on the CPU or under a manual fusion knob in mg_overrides; the
 bf16 coarse hierarchy of the auto rule applies to that per-kernel fallback
 only, as the reference's mg_fb does. ``mg_overrides={"whole_step": True}``
 runs the whole time step in one kernel (kernels.whole_step,
-cfd_tpu/cases/cavity.py:191-201). Adaptive stepping: ``adaptive_impl`` (the
-exact controller: the traced-dt non-carry stage, the solve, the traced-dt
-corrector) and ``adaptive_impl_carry`` (the lagged controller on the
-traced-dt + Courant carry), cfd_tpu/cases/cavity.py:296-378. Everything
-else raises NotImplementedError rather than being ignored.
+cfd_tpu/cases/cavity.py:191-201). The multigrid knobs ``tail_from`` (the
+per-kernel solve's fused coarse tail, with the float32 coarse hierarchy:
+the auto bf16 rule excludes it) and ``coarse_dtype="bfloat16"`` with
+whole_solve or whole_step (the whole-solve's bf16 rounding) are manual;
+``corr_opt`` raises the reference's ValueError (a masked knob). Adaptive
+stepping: ``adaptive_impl`` (the exact controller: the traced-dt non-carry
+stage, the solve, the traced-dt corrector) and ``adaptive_impl_carry`` (the
+lagged controller on the traced-dt + Courant carry),
+cfd_tpu/cases/cavity.py:296-378. Everything else raises
+NotImplementedError rather than being ignored.
 """
 
 from __future__ import annotations

@@ -14,8 +14,10 @@ and manual control when mg_overrides names a fusion knob; the whole time
 step in one kernel under ``mg_overrides={"whole_step": True}``
 (kernels.whole_step, cfd_tpu/cases/channel.py:170-176); the lagged
 adaptive controller's ``adaptive_impl_carry`` (cfd_tpu/cases/channel.py:
-212-263). Everything else raises NotImplementedError rather than being
-ignored.
+212-263). The multigrid knobs ``tail_from`` and ``coarse_dtype="bfloat16"``
+(with whole_solve or whole_step) are manual; ``corr_opt`` raises the
+reference's ValueError. Everything else raises NotImplementedError rather
+than being ignored.
 """
 
 from __future__ import annotations

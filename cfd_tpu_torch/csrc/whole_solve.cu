@@ -53,6 +53,17 @@
 // reads the slot and evaluates the same float32 stop rule as the host loop
 // (poisson/multigrid.py tolerance_loop), so all blocks leave together.
 //
+// The bfloat16 hierarchy (store_bf16, coarse_dtype="bfloat16";
+// whole_solve.py:156, 216-219, 340): the buffers stay float32 and every
+// value is rounded where the reference stores it in bfloat16: each coarse
+// source b[k] as it is written (the fine and coarse restrictions), each
+// pre-smoothed iterate ps[k] as the prolong-add reads it (a cell reads only
+// its own value there), the weights and the pinv by the caller; the
+// arithmetic and the correction between levels stay float32. corr_opt
+// (masked; whole_solve.py:379-398): after the ascent, one more phase scales
+// the level-1 correction by its clamped line-search steplength from the
+// unrounded rc (whole_solve.cuh corr_alpha_phase), three barriers a cycle.
+//
 // The pure-Neumann mean pin (pin_mean, the Rayleigh-Benard solve;
 // whole_solve.py:285-289): after each cycle's tolerance residual, which is
 // taken BEFORE the shift as in the reference, every block sums its
@@ -111,7 +122,11 @@ extern "C" int cfd_whole_solve_grid(int masked, int* blocks, int* per_sm, int* r
 // scratch; stats: 2 ints, the cycles and the bits of the final float32
 // residual; fold: n * n floats for the coarsest level. pin_mean (separable
 // only): partials is blocks_for(4 * Hq8 * Wqa) floats of scratch and n_int
-// the interior cell count; otherwise partials is null.
+// the interior cell count. corr_opt (masked only): partials is 2 *
+// blocks_for(H8 * W of level 1) floats of scratch. Otherwise partials is
+// null. store_bf16: the bfloat16 rounding points of the hierarchy (the
+// caller passes weights and pinv already rounded); rc32, a level-1-size
+// array, exactly when corr_opt and store_bf16 are both on.
 extern "C" int cfd_whole_solve(int masked, const float* p_in, const float* b0, float* p0,
                                float* q0, float* filled, const float* max_b, float* ctl,
                                int* stats, float* fold, const float* pinv, const float* wE,
@@ -121,14 +136,15 @@ extern "C" int cfd_whole_solve(int masked, const float* p_in, const float* b0, f
                                const int* idims, const float* fdims, void* const* ptrs,
                                float omega, int pre, int post, int max_cycles,
                                float tol_factor, float abs_tol, float stall, int pin_mean,
-                               float* partials, float n_int, void* stream) {
+                               float* partials, float n_int, int store_bf16, int corr_opt,
+                               float* rc32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params P;
   int e = cfd::ws::solve_params(&P, masked, p_in, b0, p0, q0, filled, max_b, ctl, stats, fold,
                                 pinv, wE, wW, wN, wS, Hq8, Wqa, ny, nx, step_i, inlet_j, idx2,
                                 idy2, denom, one_minus_omega, n_coarse, idims, fdims, ptrs,
                                 omega, pre, post, max_cycles, tol_factor, abs_tol, stall,
-                                pin_mean, partials, n_int);
+                                pin_mean, partials, n_int, store_bf16, corr_opt, rc32);
   if (e) return e;
   int blocks = 0, per_sm = 0, regs = 0;
   e = cfd_whole_solve_grid(masked, &blocks, &per_sm, &regs);

@@ -223,7 +223,8 @@ extern "C" int cfd_whole_step_grid(int flavor, int* blocks, int* per_sm, int* re
 // n_fluid. The rest are cfd_whole_solve's arguments from `masked` on, with
 // p_in and max_b unused (the warm start and max|b| are formed in-kernel):
 // masked must be 1 exactly for the step and pin_mean 1 exactly for RB; p0
-// receives p', stats (2 ints) the cycles and the bits of the final residual.
+// receives p', stats (2 ints) the cycles and the bits of the final residual;
+// store_bf16, corr_opt (the step only) and rc32 as for cfd_whole_solve.
 extern "C" int cfd_whole_step(int flavor, void* const* io, const float* cf, int masked,
                               float* p0, float* q0, float* filled, float* ctl, int* stats,
                               float* fold, const float* pinv, const float* wE,
@@ -233,7 +234,8 @@ extern "C" int cfd_whole_step(int flavor, void* const* io, const float* cf, int 
                               const int* idims, const float* fdims, void* const* ptrs,
                               float omega, int pre, int post, int max_cycles,
                               float tol_factor, float abs_tol, float stall, int pin_mean,
-                              float* partials, float n_int, void* stream) {
+                              float* partials, float n_int, int store_bf16, int corr_opt,
+                              float* rc32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* fn = kernel_of(flavor);
   if (fn == nullptr || masked != (flavor == kStep) || pin_mean != (flavor == kRB)) {
@@ -276,7 +278,7 @@ extern "C" int cfd_whole_step(int flavor, void* const* io, const float* cf, int 
                                 fold, pinv, wE, wW, wN, wS, Hq8, Wqa, ny, nx, step_i, inlet_j,
                                 idx2, idy2, denom, one_minus_omega, n_coarse, idims, fdims,
                                 ptrs, omega, pre, post, max_cycles, tol_factor, abs_tol,
-                                stall, pin_mean, partials, n_int);
+                                stall, pin_mean, partials, n_int, store_bf16, corr_opt, rc32);
   if (e) return e;
   int blocks = 0, per_sm = 0, regs = 0;
   e = cfd::ws::coop_grid(fn, &blocks, &per_sm, &regs);

@@ -2,9 +2,12 @@
 
 ``KERNELS`` lists every kernel entry point of the ported paths (the cavity,
 the channel, the backward step and Rayleigh-Benard at a fixed dt, their
-adaptive-stepping instances and their whole time steps in one launch), each
-with its launch counter (kernels._build.Kernel)."""
+adaptive-stepping instances, their whole time steps in one launch, the
+fused coarse tail and the bfloat16 and corr_opt instances of the
+whole-solve and the whole step), each with its launch counter
+(kernels._build.Kernel)."""
 
+from cfd_tpu_torch.kernels.mg_tail import MG_TAIL, MG_TAIL_FULL
 from cfd_tpu_torch.kernels.quad import (
     CARRY,
     CARRY_ADAPTIVE,
@@ -35,14 +38,23 @@ from cfd_tpu_torch.kernels.step_quad import (
 )
 from cfd_tpu_torch.kernels.whole_solve import (
     STEP_WHOLE_SOLVE,
+    STEP_WHOLE_SOLVE_BF16,
+    STEP_WHOLE_SOLVE_CORR_OPT,
     WHOLE_SOLVE,
+    WHOLE_SOLVE_BF16,
     WHOLE_SOLVE_PIN_MEAN,
+    WHOLE_SOLVE_PIN_MEAN_BF16,
 )
 from cfd_tpu_torch.kernels.whole_step import (
     WHOLE_STEP_CAVITY,
+    WHOLE_STEP_CAVITY_BF16,
     WHOLE_STEP_CHANNEL,
+    WHOLE_STEP_CHANNEL_BF16,
     WHOLE_STEP_RB,
+    WHOLE_STEP_RB_BF16,
     WHOLE_STEP_STEP,
+    WHOLE_STEP_STEP_BF16,
+    WHOLE_STEP_STEP_CORR_OPT,
 )
 
 KERNELS = (CARRY, CORRECTOR, PRE, POST, RB_PAIRS, CHANNEL_CARRY, CHANNEL_CORRECTOR,
@@ -51,6 +63,9 @@ KERNELS = (CARRY, CORRECTOR, PRE, POST, RB_PAIRS, CHANNEL_CARRY, CHANNEL_CORRECT
            PREDICTOR_SOURCE, CORRECTOR_TRACED, CARRY_ADAPTIVE, CHANNEL_CORRECTOR_TRACED,
            CHANNEL_CARRY_ADAPTIVE, STEP_CORRECTOR_TRACED, STEP_CARRY_ADAPTIVE,
            RB_CORRECTOR_TRACED, RB_CARRY_ADAPTIVE, WHOLE_STEP_CAVITY, WHOLE_STEP_CHANNEL,
-           WHOLE_STEP_RB, WHOLE_STEP_STEP)
+           WHOLE_STEP_RB, WHOLE_STEP_STEP, MG_TAIL, MG_TAIL_FULL, WHOLE_SOLVE_BF16,
+           WHOLE_SOLVE_PIN_MEAN_BF16, STEP_WHOLE_SOLVE_BF16, WHOLE_STEP_CAVITY_BF16,
+           WHOLE_STEP_CHANNEL_BF16, WHOLE_STEP_RB_BF16, WHOLE_STEP_STEP_BF16,
+           STEP_WHOLE_SOLVE_CORR_OPT, WHOLE_STEP_STEP_CORR_OPT)
 
 __all__ = ["KERNELS"]

@@ -55,12 +55,15 @@ SIGNATURES = {
     "cfd_quad_channel_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
     "cfd_quad_channel_carry": [_P] * 12 + [_I] * 4 + [_F] * 10 + [_P],
     "cfd_whole_solve": ([_I] + [_P] * 14 + [_I] * 6 + [_F] * 4 + [_I] + [_P] * 3 + [_F]
-                        + [_I] * 3 + [_F] * 3 + [_I, _P, _F] + [_P]),
+                        + [_I] * 3 + [_F] * 3 + [_I, _P, _F] + [_I, _I, _P] + [_P]),
     "cfd_whole_solve_grid": [_I] + [_P] * 3,
     # the whole time step: flavor, io, cf, then cfd_whole_solve's arguments
     # from `masked` on without p_in, b0 and max_b
     "cfd_whole_step": ([_I, _P, _P, _I] + [_P] * 11 + [_I] * 6 + [_F] * 4 + [_I] + [_P] * 3
-                       + [_F] + [_I] * 3 + [_F] * 3 + [_I, _P, _F] + [_P]),
+                       + [_F] + [_I] * 3 + [_F] * 3 + [_I, _P, _F] + [_I, _I, _P] + [_P]),
+    # the fused coarse tail: b, e, filled, fold, pinv, the levels, omega,
+    # pre, post
+    "cfd_mg_tail": [_P] * 5 + [_I] + [_P] * 3 + [_F] + [_I] * 2 + [_P],
     "cfd_whole_step_grid": [_I] + [_P] * 3,
     "cfd_step_corrector": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P],
     "cfd_step_carry": [_P] * 10 + [_I] * 6 + [_F] * 10 + [_P],

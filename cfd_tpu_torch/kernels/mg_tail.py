@@ -1,27 +1,45 @@
 """The coarse V-cycle below the finest level (the plain twin of the body of
-cfd_tpu.kernels.mg_tail.run_tail_vcycle, mg_tail.py:231-308).
+cfd_tpu.kernels.mg_tail.run_tail_vcycle, mg_tail.py:231-308), and the fused
+coarse tail that runs it in one kernel launch (MGTail, the port of
+make_mg_tail, mg_tail.py:329).
 
 ``run_tail_vcycle`` runs one V-cycle over aligned levels (separable, or
 masked with full-2D weights) from a zero iterate and returns the
 correction on the first of them. It is the
 single coarse-hierarchy composition of the port: MultigridPoisson runs it
 with each smoother's dispatching wrapper (the CUDA kernel for CUDA
-tensors), and the whole-solve's plain twin runs it with the smoothers'
-``plain`` twins. The inter-level transfers and the coarsest dense solve
-below are XLA glue in the reference, outside any kernel; here they are
-plain PyTorch ops, shared by both callers. On a masked level the
+tensors), and the whole-solve's and the tail's plain twins run it with the
+smoothers' ``plain`` twins. The inter-level transfers and the coarsest
+dense solve below are XLA glue in the reference, outside any kernel; here
+they are plain PyTorch ops, shared by every caller. On a masked level the
 prolongation first solid-fills the coarse correction and writes only the
-fine level's active cells (multigrid.py:350-389).
+fine level's active cells (multigrid.py:350-389). With ``store_dtype`` it
+rounds where the reference's whole-solve stores its bfloat16 hierarchy.
 
-The reference's make_mg_tail (mg_tail.py:329), the whole coarse cycle as
-one kernel launch, is not ported (ROADMAP.md queue B item 13); on the card
-the whole-solve kernel (csrc/whole_solve.cu) runs this same arithmetic
-inside its one launch.
+``MGTail`` (``tail(b) -> e``, MGConfig.tail_from) runs that V-cycle over
+the levels from ``tail_from`` down as ONE cooperative launch of
+csrc/mg_tail.cu, the coarse part of the whole-solve kernel's device code
+(csrc/whole_solve.cuh); its plain twin is run_tail_vcycle over the
+smoothers' twins. Not carried over: the reference's VMEM cap
+(mg_tail.py:340-350) and its lane-block pinv limit (coarsest ny <= 12,
+mg_tail.py:212-214), which are TPU layout limits (ROADMAP.md queue A item
+13). The reference's tail sums its transfers as matmuls in another order,
+so its corrections differ from this one's by f32 rounding.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+from torch import nn
+
+from cfd_tpu_torch.kernels._build import Kernel, ptr, route
+
+MG_TAIL = Kernel("mg_tail", "cfd_mg_tail", "cfd_tpu_torch/csrc/mg_tail.cu",
+                 "cfd_tpu/kernels/mg_tail.py:329")
+MG_TAIL_FULL = Kernel("mg_tail_full", "cfd_mg_tail", "cfd_tpu_torch/csrc/mg_tail.cu",
+                      "cfd_tpu/kernels/mg_tail.py:329 (full-2D weights)")
 
 
 def _restrict(fine, coarse, r: torch.Tensor) -> torch.Tensor:
@@ -120,7 +138,7 @@ def dense_coarse_solve(bot, pinv: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 
 def run_tail_vcycle(levels, b0: torch.Tensor, pre, post, coarse_solve,
-                    plain: bool = False) -> torch.Tensor:
+                    plain: bool = False, store_dtype=None) -> torch.Tensor:
     """One V-cycle over ``levels`` (aligned levels; ``b0`` is the source on
     ``levels[0]``) from a zero iterate; returns the correction on
     ``levels[0]``.
@@ -128,9 +146,19 @@ def run_tail_vcycle(levels, b0: torch.Tensor, pre, post, coarse_solve,
     ``pre[k]`` (pairs + residual field) and ``post[k]`` (pairs) are the
     red/black smoothers of ``levels[k]`` for every level but the last;
     ``coarse_solve(b)`` solves on the last. ``plain`` runs the smoothers'
-    plain twins whatever the tensors' device."""
+    plain twins whatever the tensors' device.
+
+    ``store_dtype`` (float32 levels only): the rounding points of the
+    reference's whole-solve hierarchy (mg_tail.py run_tail_vcycle with
+    store_dtype): every level's source b[k] (b0 included) and its
+    pre-smoothed iterate ps[k] are rounded to that type and kept in float32,
+    ps[k] after the residual has been taken from its unrounded value; the
+    arithmetic and the correction passed up stay float32."""
     def smooth(op, *args):
         return op.plain(*args) if plain else op(*args)
+
+    store = ((lambda x: x) if store_dtype is None
+             else (lambda x: x.to(store_dtype).to(x.dtype)))
 
     def down(k: int, b: torch.Tensor) -> torch.Tensor:
         if k == len(levels) - 1:
@@ -138,7 +166,88 @@ def run_tail_vcycle(levels, b0: torch.Tensor, pre, post, coarse_solve,
         level, below = levels[k], levels[k + 1]
         p = torch.zeros(level.shape, dtype=b.dtype, device=b.device)
         p, r = smooth(pre[k], p, b)
-        ec = down(k + 1, _restrict(level, below, r))
-        return smooth(post[k], p + _prolong(below, level, ec), b)
+        ec = down(k + 1, store(_restrict(level, below, r)))
+        return smooth(post[k], store(p) + _prolong(below, level, ec), b)
 
-    return down(0, b0)
+    return down(0, store(b0))
+
+
+def level_arrays(levels, iterates, sources):
+    """The host arrays that describe aligned levels to the CUDA entry points
+    (cfd_whole_solve, cfd_mg_tail): idims (H8, W, ny, nx, full) and fdims
+    (idx2, idy2) per level, and ptrs (wE, wW, wN, wS, iterate, source) per
+    level, from the levels' weight buffers and the given tensors."""
+    idims = (ctypes.c_int * (5 * len(levels)))(
+        *(d for lv in levels for d in (*lv.shape, lv.ny, lv.nx, int(not lv.separable))))
+    fdims = (ctypes.c_float * (2 * len(levels)))(
+        *(d for lv in levels for d in (lv.idx2, lv.idy2)))
+    ptrs = []
+    for lv, p, b in zip(levels, iterates, sources, strict=True):
+        ptrs += [getattr(lv, w).data_ptr() for w in ("wE", "wW", "wN", "wS")]
+        ptrs += [p.data_ptr(), b.data_ptr()]
+    return idims, fdims, (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+class MGTail(nn.Module):
+    """``tail(b) -> e``: one V-cycle over ``levels`` (aligned float32
+    levels, separable or full-2D, finest first) from zero iterates with the
+    dense ``pinv`` solve on the coarsest, the drop-in for the recursion
+    below the level ``levels[0]`` (cfd_tpu make_mg_tail). ``pre``/``post``
+    are the levels' smoothers (for every level but the last), as
+    run_tail_vcycle takes them; the kernel reads their omega and pair
+    counts. ``b`` and ``e`` are (H8, W) float32 on levels[0].
+
+    * ``kernel`` — csrc/mg_tail.cu: one cooperative launch, the scratch of
+      the levels below the first allocated once as buffers of this module;
+      the launches count on MG_TAIL (separable) or MG_TAIL_FULL.
+    * ``plain`` — run_tail_vcycle over the smoothers' plain twins and the
+      glue; the kernel repeats its arithmetic in order, bit for bit."""
+
+    def __init__(self, levels, pre, post, pinv: torch.Tensor):
+        super().__init__()
+        if len(levels) < 2:
+            raise ValueError("the fused tail needs at least two levels")
+        if any(lv.dtype != torch.float32 for lv in levels):
+            raise ValueError("the fused tail runs float32 levels")
+        self.levels = list(levels)  # owned by the caller's hierarchy
+        self.pre, self.post, self.pinv = pre, post, pinv
+        self.omega, self.n_pre, self.n_post = pre[0].omega, pre[0].n_pairs, post[0].n_pairs
+        self.record = MG_TAIL if levels[0].separable else MG_TAIL_FULL
+        f32 = dict(dtype=torch.float32, device=pinv.device)
+        for k, lv in enumerate(self.levels[1:], start=2):
+            self.register_buffer(f"p{k}", torch.zeros(lv.shape, **f32), persistent=False)
+            self.register_buffer(f"b{k}", torch.zeros(lv.shape, **f32), persistent=False)
+        self.register_buffer("fold", torch.zeros(pinv.numel(), **f32), persistent=False)
+        # a solid-filled correction of the levels below the first
+        masked = not all(lv.separable for lv in self.levels[1:])
+        self.register_buffer("filled", torch.zeros(self.levels[1].shape, **f32)
+                             if masked else None, persistent=False)
+
+    def forward(self, b: torch.Tensor) -> torch.Tensor:
+        shape = self.levels[0].shape
+        if b.dtype != torch.float32 or tuple(b.shape) != shape or not b.is_contiguous():
+            raise ValueError(f"expected contiguous float32 {shape}, got {b.dtype} "
+                             f"{tuple(b.shape)}")
+        if b.device != self.fold.device:
+            raise ValueError(f"tensor on {b.device}, tail buffers on {self.fold.device}")
+        if route(b) == "cuda":
+            return self.kernel(b)
+        return self.plain(b)
+
+    def plain(self, b: torch.Tensor) -> torch.Tensor:
+        return run_tail_vcycle(self.levels, b, self.pre, self.post,
+                               lambda bb: dense_coarse_solve(self.levels[-1], self.pinv, bb),
+                               plain=True)
+
+    def kernel(self, b: torch.Tensor) -> torch.Tensor:
+        e = torch.empty_like(b)
+        n = len(self.levels)
+        idims, fdims, ptrs = level_arrays(
+            self.levels, [e] + [getattr(self, f"p{k}") for k in range(2, n + 1)],
+            [b] + [getattr(self, f"b{k}") for k in range(2, n + 1)])
+        as_ptr = lambda a: ctypes.cast(a, ctypes.c_void_p)
+        filled = ptr(self.filled) if self.filled is not None else ctypes.c_void_p(None)
+        self.record(b, ptr(b), ptr(e), filled, ptr(self.fold), ptr(self.pinv), n,
+                    as_ptr(idims), as_ptr(fdims), as_ptr(ptrs), self.omega, self.n_pre,
+                    self.n_post)
+        return e

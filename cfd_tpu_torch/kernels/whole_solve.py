@@ -30,21 +30,40 @@ The reference's in-VMEM coarse hierarchy runs lane transfers as matmuls
 ulps: its whole-solve and per-kernel cycle counts may differ by one
 (tests/test_whole_solve.py). The port's do not differ. ``cfg.pin_mean``
 (separable only) shifts p to zero interior mean after each cycle's
-residual, in the kernel as in the twin (MultigridPoisson.cycle). Not
-ported: the bf16 in-kernel hierarchy (ROADMAP.md queue B item 14), and the
-reference's VMEM estimates and toolchain ceiling, which are TPU limits
-(ROADMAP.md queue A item 13). The whole time step in one launch
-(kernels.whole_step) runs this module's solve after its carry stages.
+residual, in the kernel as in the twin (MultigridPoisson.cycle).
+
+``cfg.coarse_dtype="bfloat16"`` (whole_solve.py:156, 216-219, 340): the
+reference's bfloat16 in-VMEM hierarchy, which is not the per-kernel bf16
+levels: float32 levels whose weights and coarsest pinv are rounded to
+bfloat16 once, and every level's source b[k] and pre-smoothed iterate
+ps[k] rounded to bfloat16 where the reference stores them, with float32
+arithmetic and a float32 correction between levels (the twin:
+MultigridPoisson or MaskedQuadMultigridPoisson with ``store_dtype``). The
+kernel keeps its float32 buffers and rounds at the same points, so it
+computes the same function; its launches count on the *_BF16 counters.
+``cfg.corr_opt`` (masked only, whole_solve.py:379-398): the level-1
+correction scaled by its clamped line-search steplength before the solid
+fill, from the UNROUNDED level-1 source, in the kernel as in the twin
+(poisson.multigrid._corr_alpha); its launches count on
+STEP_WHOLE_SOLVE_CORR_OPT (with bf16 too). ``cfg.tail_from`` is superseded:
+the whole-solve runs its whole hierarchy in the one launch anyway.
+
+Not carried over: the reference's VMEM estimates and toolchain ceiling,
+which are TPU limits (ROADMAP.md queue A item 13). The whole time step in
+one launch (kernels.whole_step) runs this module's solve after its carry
+stages.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 from torch import nn
 
 from cfd_tpu_torch.kernels._build import Kernel, library, ptr, route
+from cfd_tpu_torch.kernels.mg_tail import level_arrays
 from cfd_tpu_torch.kernels.quad import (
     SUM_BLOCK,
     _check,
@@ -65,6 +84,36 @@ STEP_WHOLE_SOLVE = Kernel("quad_step_whole_solve", "cfd_whole_solve",
 WHOLE_SOLVE_PIN_MEAN = Kernel("quad_whole_solve_pin_mean", "cfd_whole_solve",
                               "cfd_tpu_torch/csrc/whole_solve.cu",
                               "cfd_tpu/kernels/whole_solve.py:507 (pin_mean)")
+WHOLE_SOLVE_BF16 = Kernel("quad_whole_solve_bf16", "cfd_whole_solve",
+                          "cfd_tpu_torch/csrc/whole_solve.cu",
+                          "cfd_tpu/kernels/whole_solve.py:178 (coarse_dtype)")
+WHOLE_SOLVE_PIN_MEAN_BF16 = Kernel("quad_whole_solve_pin_mean_bf16", "cfd_whole_solve",
+                                   "cfd_tpu_torch/csrc/whole_solve.cu",
+                                   "cfd_tpu/kernels/whole_solve.py:178 (pin_mean, "
+                                   "coarse_dtype)")
+STEP_WHOLE_SOLVE_BF16 = Kernel("quad_step_whole_solve_bf16", "cfd_whole_solve",
+                               "cfd_tpu_torch/csrc/whole_solve.cu",
+                               "cfd_tpu/kernels/whole_solve.py:297 (coarse_dtype)")
+STEP_WHOLE_SOLVE_CORR_OPT = Kernel("quad_step_whole_solve_corr_opt", "cfd_whole_solve",
+                                   "cfd_tpu_torch/csrc/whole_solve.cu",
+                                   "cfd_tpu/kernels/whole_solve.py:379-398 (corr_opt)")
+
+
+def coarse_store_dtype(cfg) -> torch.dtype | None:
+    """The whole-solve's rounding type from ``cfg.coarse_dtype`` (cfd_tpu
+    whole_solve._coarse_dt): None or torch.bfloat16."""
+    if cfg.coarse_dtype is None:
+        return None
+    if cfg.coarse_dtype not in ("bfloat16", "bf16"):
+        raise ValueError(f"unsupported coarse_dtype {cfg.coarse_dtype!r} (only 'bfloat16')")
+    return torch.bfloat16
+
+
+def hierarchy_cfg(cfg):
+    """The per-kernel composition's config under a whole-solve: the bf16
+    hierarchy is the whole-solve's own rounding (``store_dtype``), and
+    tail_from is superseded."""
+    return dataclasses.replace(cfg, coarse_dtype=None, tail_from=None)
 
 
 def cooperative_grid(symbol: str, which: int) -> dict:
@@ -119,6 +168,7 @@ class _WholeSolveBase(nn.Module):
         self.register_buffer("fold", torch.zeros(self.mg.pinv.numel(), **f32),
                              persistent=False)
         self.register_buffer("ctl", torch.zeros(4, **f32), persistent=False)
+        self.register_buffer("rc32", None, persistent=False)
 
     def forward(self, p_warm: torch.Tensor, b: torch.Tensor, max_b=None):
         _check(self.qshape, p_warm, b)
@@ -153,45 +203,40 @@ class _WholeSolveBase(nn.Module):
                              f"{self.ctl.device}")
         cfg = self.cfg
         coarse, fine_ptrs, fine_ints, fine_floats, scratch, record, pin = self._fine()
-        idims = (ctypes.c_int * (5 * len(coarse)))(
-            *(d for lv in coarse for d in (*lv.shape, lv.ny, lv.nx, int(not lv.separable))))
-        fdims = (ctypes.c_float * (2 * len(coarse)))(
-            *(d for lv in coarse for d in (lv.idx2, lv.idy2)))
-        ptrs = []
-        for k, lv in enumerate(coarse, start=1):
-            ptrs += [getattr(lv, w).data_ptr() for w in ("wE", "wW", "wN", "wS")]
-            ptrs += [getattr(self, f"p{k}").data_ptr(), getattr(self, f"b{k}").data_ptr()]
-        ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        idims, fdims, ptr_arr = level_arrays(
+            coarse, [getattr(self, f"p{k}") for k in range(1, len(coarse) + 1)],
+            [getattr(self, f"b{k}") for k in range(1, len(coarse) + 1)])
         opt = lambda t: ptr(t) if t is not None else ctypes.c_void_p(None)
         as_ptr = lambda a: ctypes.cast(a, ctypes.c_void_p)
         common = (ptr(self.fold), ptr(self.mg.pinv), *map(opt, fine_ptrs), self.qshape[1],
                   self.qshape[2], *fine_ints, *fine_floats, len(coarse), as_ptr(idims),
                   as_ptr(fdims), as_ptr(ptr_arr), cfg.omega, cfg.pre_sweeps,
                   cfg.post_sweeps, cfg.max_cycles, cfg.tol_factor, cfg.abs_tol,
-                  cfg.stall_ratio, pin[0], opt(pin[1]), pin[2])
+                  cfg.stall_ratio, pin[0], opt(pin[1]), pin[2],
+                  int(self.mg.store_dtype is not None), int(cfg.corr_opt), opt(self.rc32))
         return record, int(self.MASKED), tuple(map(opt, scratch)), common
 
 
 class WholeSolve(_WholeSolveBase):
     """The separable quad-level-0 multigrid solve of ``problem`` on the
-    padded grid ``shape``, as one launch. ``cfg`` must use the float32
-    coarse hierarchy. With ``cfg.pin_mean`` (a pure-Neumann problem) every
-    cycle ends with the mean pin over the nx * ny cells, and the launches
-    count on WHOLE_SOLVE_PIN_MEAN."""
+    padded grid ``shape``, as one launch. With ``cfg.pin_mean`` (a
+    pure-Neumann problem) every cycle ends with the mean pin over the
+    nx * ny cells; with ``cfg.coarse_dtype`` the hierarchy rounds to
+    bfloat16 (module docstring). The launches count on WHOLE_SOLVE,
+    WHOLE_SOLVE_PIN_MEAN or their _BF16 counterparts. ``cfg.corr_opt``
+    raises ValueError, as the reference's separable context does."""
 
     def __init__(self, shape, problem, cfg: mgp.MGConfig, device="cpu"):
         super().__init__()
-        if cfg.coarse_dtype is not None:
-            raise NotImplementedError("the whole-solve with the bfloat16 coarse "
-                                      "hierarchy is not ported yet (ROADMAP.md queue B "
-                                      "item 14)")
+        store = coarse_store_dtype(cfg)
         _, _, Hq8, Wqa = quad_dims(shape)
         coarse = (Hq8, Wqa)
         quad_l0 = (make_quad_pre_smooth_restrict(shape, problem, cfg.omega, cfg.pre_sweeps,
                                                  coarse, device=device),
                    make_quad_post_prolong_smooth(shape, problem, cfg.omega, cfg.post_sweeps,
                                                  coarse, device=device))
-        self.mg = mgp.MultigridPoisson(problem, cfg, quad_l0, device)
+        self.mg = mgp.MultigridPoisson(problem, hierarchy_cfg(cfg), quad_l0, device,
+                                       store_dtype=store)
         if self.mg.levels[1].shape != coarse:
             raise ValueError(f"aligned coarse shape {self.mg.levels[1].shape} != quad "
                              f"plane shape {coarse}")
@@ -205,12 +250,14 @@ class WholeSolve(_WholeSolveBase):
 
     def _fine(self):
         """(coarse levels, fine weights, fine ints, fine floats, scratch,
-        launch counter, pin) of the launch."""
+        launch counter, (pin_mean, partials, n_int)) of the launch."""
         l0 = self.mg.pre0
+        bf16 = self.mg.store_dtype is not None
         if self.cfg.pin_mean:
-            record, pin = WHOLE_SOLVE_PIN_MEAN, (1, self.partials, float(self.mg.n_interior))
+            record = WHOLE_SOLVE_PIN_MEAN_BF16 if bf16 else WHOLE_SOLVE_PIN_MEAN
+            pin = (1, self.partials, float(self.mg.n_interior))
         else:
-            record, pin = WHOLE_SOLVE, (0, None, 0.0)
+            record, pin = WHOLE_SOLVE_BF16 if bf16 else WHOLE_SOLVE, (0, None, 0.0)
         return (self.mg.levels[1:], (l0.wE, l0.wW, l0.wN, l0.wS), (l0.ny, l0.nx, 0, 0),
                 (l0.idx2, l0.idy2, 0.0, 0.0), (None, None), record, pin)
 
@@ -220,16 +267,21 @@ class StepWholeSolve(_WholeSolveBase):
     make_quad_step_whole_solve, whole_solve.py:569, body masked_vcycle_ctx
     :297-424): the exact masked fine level of kernels.step_quad, the
     full-2D-weight coarse hierarchy with the solid fill before every
-    prolongation, and the tolerance loop. ``plain`` is the tolerance loop
-    over the per-kernel masked composition's twins
+    prolongation, and the tolerance loop, with the bfloat16 rounding of
+    ``cfg.coarse_dtype`` and the corr_opt steplength on request. ``plain``
+    is the tolerance loop over the per-kernel masked composition's twins
     (poisson.multigrid.MaskedQuadMultigridPoisson); the kernel repeats its
-    arithmetic in order, so the two agree bit for bit."""
+    arithmetic in order, so the two agree bit for bit. The launches count
+    on STEP_WHOLE_SOLVE, STEP_WHOLE_SOLVE_BF16 or, with corr_opt,
+    STEP_WHOLE_SOLVE_CORR_OPT."""
 
     MASKED = True
 
     def __init__(self, grid, coeffs, cfg: mgp.MGConfig, device="cpu"):
         super().__init__()
-        self.mg = mgp.make_masked_quad_multigrid_poisson(grid, coeffs, cfg, device)
+        store = coarse_store_dtype(cfg)
+        self.mg = mgp.make_masked_quad_multigrid_poisson(grid, coeffs, hierarchy_cfg(cfg),
+                                                         device, store_dtype=store)
         if len(self.mg.levels) < 2:
             raise ValueError("the quad-level-0 hierarchy needs at least 3 levels")
         self.cfg = cfg
@@ -239,14 +291,24 @@ class StepWholeSolve(_WholeSolveBase):
         # the fine level's second iterate (a ghost stage reads one array and
         # writes the other) and the solid-filled copy of a coarse correction
         self.register_buffer("q0", torch.zeros(self.qshape, **f32), persistent=False)
-        self.register_buffer("filled", torch.zeros(self.mg.levels[0].shape, **f32),
-                             persistent=False)
+        lv1 = self.mg.levels[0].shape
+        self.register_buffer("filled", torch.zeros(lv1, **f32), persistent=False)
+        if cfg.corr_opt:  # the two sums' per-chunk partials; the unrounded rc
+            self.register_buffer("partials", torch.zeros(
+                2 * -(-lv1[0] * lv1[1] // SUM_BLOCK), **f32), persistent=False)
+            if store is not None:
+                self.register_buffer("rc32", torch.zeros(lv1, **f32), persistent=False)
 
     def _fine(self):
         l0 = self.mg.pre0
+        if self.cfg.corr_opt:
+            record, pin = STEP_WHOLE_SOLVE_CORR_OPT, (0, self.partials, 0.0)
+        else:
+            bf16 = self.mg.store_dtype is not None
+            record, pin = STEP_WHOLE_SOLVE_BF16 if bf16 else STEP_WHOLE_SOLVE, (0, None, 0.0)
         return (self.mg.levels, (None,) * 4, (l0.ny, l0.nx, l0.step_i, l0.inlet_j),
                 (l0.idx2, l0.idy2, l0.denom, 1.0 - l0.omega), (self.q0, self.filled),
-                STEP_WHOLE_SOLVE, (0, None, 0.0))
+                record, pin)
 
 
 def make_quad_whole_solve(shape, problem, cfg: mgp.MGConfig, device="cpu") -> WholeSolve:
@@ -265,9 +327,9 @@ def auto_whole_solve(mg: mgp.MGConfig, mg_overrides, on_cuda: bool, build, fallb
     card, the per-kernel composition on the CPU. An explicit fusion knob in
     mg_overrides (whole_solve, whole_step, tail_from, coarse_dtype) takes
     manual control. Build rejections raise; nothing is swallowed.
-    Returns ``(solve, mg)`` with ``mg.whole_solve`` set to the path taken."""
-    import dataclasses
-
+    Returns ``(solve, mg)`` with ``mg.whole_solve`` set to the path taken.
+    corr_opt is not a manual knob: the masked whole-solve takes it in the
+    kernel (tests/test_corr_opt.py:134)."""
     if mg.whole_solve:
         return build(), mg
     manual = bool(mg_overrides) and any(

@@ -25,10 +25,14 @@ composed path does (solver.make_step).
   two agree bit for bit with equal cycles, and on the CPU ``whole_step`` on
   and off give identical steps.
 
+The solve takes its whole-solve's options: ``cfg.coarse_dtype="bfloat16"``
+(all four flavors; launches on the *_BF16 counters) and, on the step,
+``cfg.corr_opt`` (on WHOLE_STEP_STEP_CORR_OPT, with bf16 too).
+
 Not carried over: the reference's WHOLE_STEP_MAX_PADDED_CELLS, its VMEM
 estimate and CFD_TPU_WHOLE_STEP_NO_CEILING, which are TPU toolchain limits
 (ROADMAP.md queue A item 13): the port builds the whole step at every size
-its whole-solve takes, with the float32 coarse hierarchy.
+its whole-solve takes.
 """
 
 from __future__ import annotations
@@ -69,6 +73,21 @@ WHOLE_STEP_RB = Kernel("quad_whole_step_rb", "cfd_whole_step",
 WHOLE_STEP_STEP = Kernel("quad_whole_step_step", "cfd_whole_step",
                          "cfd_tpu_torch/csrc/whole_step.cu",
                          "cfd_tpu/kernels/whole_step.py:239")
+WHOLE_STEP_CAVITY_BF16 = Kernel("quad_whole_step_cavity_bf16", "cfd_whole_step",
+                                "cfd_tpu_torch/csrc/whole_step.cu",
+                                "cfd_tpu/kernels/whole_step.py:165 (coarse_dtype)")
+WHOLE_STEP_CHANNEL_BF16 = Kernel("quad_whole_step_channel_bf16", "cfd_whole_step",
+                                 "cfd_tpu_torch/csrc/whole_step.cu",
+                                 "cfd_tpu/kernels/whole_step.py:186 (coarse_dtype)")
+WHOLE_STEP_RB_BF16 = Kernel("quad_whole_step_rb_bf16", "cfd_whole_step",
+                            "cfd_tpu_torch/csrc/whole_step.cu",
+                            "cfd_tpu/kernels/whole_step.py:211 (coarse_dtype)")
+WHOLE_STEP_STEP_BF16 = Kernel("quad_whole_step_step_bf16", "cfd_whole_step",
+                              "cfd_tpu_torch/csrc/whole_step.cu",
+                              "cfd_tpu/kernels/whole_step.py:239 (coarse_dtype)")
+WHOLE_STEP_STEP_CORR_OPT = Kernel("quad_whole_step_step_corr_opt", "cfd_whole_step",
+                                  "cfd_tpu_torch/csrc/whole_step.cu",
+                                  "cfd_tpu/kernels/whole_step.py:239 (corr_opt)")
 
 # the kernel's flavor argument (csrc/whole_step.cu Flavor)
 CAVITY, CHANNEL, RB, STEP = 0, 1, 2, 3
@@ -92,11 +111,17 @@ class _WholeStep(nn.Module):
     """One flavor's whole step: ``carry`` (the flavor's tentative-carry stage
     object), ``solver`` (a WholeSolve or StepWholeSolve), and for the flavors
     with a mean removal the quad mask of the cells it runs over and their
-    count."""
+    count. ``RECORD`` counts the launches with the float32 hierarchy,
+    ``RECORD_BF16`` with the bfloat16 one; ``record`` is this instance's."""
 
     FLAVOR: int
     RECORD: Kernel
+    RECORD_BF16: Kernel
     N_FIELDS: int = 4
+
+    @property
+    def record(self) -> Kernel:
+        return self.RECORD_BF16 if self.solver.mg.store_dtype is not None else self.RECORD
 
     def __init__(self, carry, solver, cell=None, n_fluid: int | None = None):
         super().__init__()
@@ -155,7 +180,7 @@ class _WholeStep(nn.Module):
             self.partials.data_ptr())
         cf = (ctypes.c_float * 15)(*self._coeffs())
         as_ptr = lambda a: ctypes.cast(a, ctypes.c_void_p)
-        self.RECORD(us, self.FLAVOR, as_ptr(io), as_ptr(cf), masked, ptr(p_out), *scratch,
+        self.record(us, self.FLAVOR, as_ptr(io), as_ptr(cf), masked, ptr(p_out), *scratch,
                     ptr(self.solver.ctl), ptr(stats), *common)
         cycles, res = split_stats(stats)
         outs = (us2, vs2) + ((T2,) if T2 is not None else ())
@@ -168,7 +193,7 @@ class QuadWholeStepCavity(_WholeStep):
     eps-regularised operator is nonsingular), the solve from the guess 2p -
     p_prev with the carry's max|b|."""
 
-    FLAVOR, RECORD = CAVITY, WHOLE_STEP_CAVITY
+    FLAVOR, RECORD, RECORD_BF16 = CAVITY, WHOLE_STEP_CAVITY, WHOLE_STEP_CAVITY_BF16
 
     def plain(self, us, vs, p, p_prev):
         us2, vs2, b, guess, max_b = self.carry.plain(us, vs, p, p_prev)
@@ -181,7 +206,7 @@ class QuadWholeStepChannel(_WholeStep):
     carry, the interior source mean removal (channel-01.cpp:620-628), the
     solve from the guess 2p - p_prev."""
 
-    FLAVOR, RECORD = CHANNEL, WHOLE_STEP_CHANNEL
+    FLAVOR, RECORD, RECORD_BF16 = CHANNEL, WHOLE_STEP_CHANNEL, WHOLE_STEP_CHANNEL_BF16
 
     def plain(self, us, vs, p, p_prev):
         us2, vs2, b, guess, sum_b = self.carry.plain(us, vs, p, p_prev)
@@ -195,7 +220,7 @@ class QuadWholeStepRB(_WholeStep):
     removal over the nx * ny cells, the pure-Neumann pinned solve from the
     plain previous p."""
 
-    FLAVOR, RECORD = RB, WHOLE_STEP_RB
+    FLAVOR, RECORD, RECORD_BF16 = RB, WHOLE_STEP_RB, WHOLE_STEP_RB_BF16
 
     def plain(self, us, vs, p, T):
         us2, vs2, T2, b, sum_b = self.carry.plain(us, vs, p, T)
@@ -206,9 +231,14 @@ class QuadWholeStepRB(_WholeStep):
 class QuadWholeStepStep(_WholeStep):
     """ws(us, vs, p) -> (us', vs', p', cycles, res): the masked step carry,
     the fluid-only mean removal, the masked solve from the plain previous
-    p."""
+    p; with ``cfg.corr_opt`` the launches count on
+    WHOLE_STEP_STEP_CORR_OPT."""
 
-    FLAVOR, RECORD, N_FIELDS = STEP, WHOLE_STEP_STEP, 3
+    FLAVOR, RECORD, RECORD_BF16, N_FIELDS = STEP, WHOLE_STEP_STEP, WHOLE_STEP_STEP_BF16, 3
+
+    @property
+    def record(self) -> Kernel:
+        return WHOLE_STEP_STEP_CORR_OPT if self.solver.cfg.corr_opt else super().record
 
     def plain(self, us, vs, p):
         us2, vs2, b, sum_b = self.carry.plain(us, vs, p)

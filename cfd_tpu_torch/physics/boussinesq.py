@@ -25,8 +25,12 @@ controller's ``adaptive_impl_carry`` and ``adaptive_diffusivity`` =
 max(nu, kappa) (cfd_tpu/physics/boussinesq.py:372-411, :498). The whole
 time step in one kernel under ``mg_overrides={"whole_step": True}``
 (kernels.whole_step; with ``extrapolate_warm_start`` it raises the
-reference's ValueError, boussinesq.py:311-316). The natural-layout XLA
-step, float64 and other layouts raise NotImplementedError.
+reference's ValueError, boussinesq.py:311-316). The multigrid knobs
+``tail_from`` (the tail under the per-cycle mean pin) and
+``coarse_dtype="bfloat16"`` (with whole_solve or whole_step: the pin-mean
+whole-solve's bf16 rounding) are manual; ``corr_opt`` raises the
+reference's ValueError. The natural-layout XLA step, float64 and other
+layouts raise NotImplementedError.
 """
 
 from __future__ import annotations

@@ -10,12 +10,15 @@ kernels.mg_tail.run_tail_vcycle), in float32 or with the bfloat16 coarse
 hierarchy of ``MGConfig.coarse_dtype``;
 and the backward step's masked defect-correction hierarchy
 (MaskedQuadMultigridPoisson: the exact masked finest level of
-kernels.step_quad over full-2D-weight coarse levels with the solid fill),
-float32 only.
+kernels.step_quad over full-2D-weight coarse levels with the solid fill,
+and the line-searched level-1 correction of ``MGConfig.corr_opt``),
+float32 only. Both take ``MGConfig.tail_from``: every level from there
+down runs as one launch of the fused coarse tail (kernels.mg_tail.MGTail).
 The coarse-level restriction/prolongation and the coarsest dense solve are
 XLA glue in the reference, outside any kernel; here they are plain PyTorch
-ops (kernels.mg_tail). The whole solve in one kernel launch is
-kernels.whole_solve.
+ops (kernels.mg_tail), and so is corr_opt's steplength (_corr_alpha). The
+whole solve in one kernel launch is kernels.whole_solve; its twin is this
+module's cycle with ``store_dtype`` for the bfloat16 hierarchy.
 
 The tolerance loop runs on the host: every V-cycle reads its residual back
 once, where the reference runs a device ``lax.while_loop``. The stopping
@@ -45,7 +48,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from cfd_tpu_torch.kernels.mg_tail import _solid_fill, dense_coarse_solve, run_tail_vcycle
+from cfd_tpu_torch.kernels.mg_tail import (
+    MGTail,
+    _solid_fill,
+    dense_coarse_solve,
+    level_masks,
+    run_tail_vcycle,
+)
 from cfd_tpu_torch.kernels.quad import fixed_order_sum, quad_cell_mask
 from cfd_tpu_torch.kernels.rb_smoother import rb_pairs_for_level
 
@@ -190,14 +199,16 @@ def _dense_pinv(p: PoissonProblem) -> np.ndarray:
 class MGConfig:
     """The reference's multigrid configuration (cfd_tpu MGConfig). The port
     honours omega, pre/post_sweeps, max_cycles, tol_factor, abs_tol,
-    min_coarse, stall_ratio and coarse_dtype, whole_solve with the float32
-    hierarchy (the case factories then build kernels.whole_solve),
-    whole_step (the case factories consume it and build
-    kernels.whole_step), and pin_mean on pure-Neumann separable problems;
-    tail_from, corr_opt, whole_solve with the bfloat16 hierarchy and
-    pin_mean elsewhere raise NotImplementedError until they are ported
-    (ROADMAP.md queues A and B). The reference's coarse_sweeps is read by nothing
-    there, so it has no field here and an override naming it is refused."""
+    min_coarse, stall_ratio, coarse_dtype (the per-kernel bfloat16 levels,
+    or the whole-solve's bfloat16 rounding points), tail_from (the fused
+    coarse tail of the per-kernel solves; whole_solve and whole_step
+    supersede it), corr_opt (masked hierarchies only), whole_solve (the
+    case factories then build kernels.whole_solve), whole_step (the case
+    factories consume it and build kernels.whole_step), and pin_mean on
+    pure-Neumann separable problems; pin_mean elsewhere raises
+    NotImplementedError until it is ported (ROADMAP.md queue A). The
+    reference's coarse_sweeps is read by nothing there, so it has no field
+    here and an override naming it is refused."""
 
     omega: float = 1.0
     pre_sweeps: int = 2
@@ -271,12 +282,16 @@ class _Level(nn.Module):
 
 
 def _build_level(p: PoissonProblem, dtype: torch.dtype, device="cpu",
-                 allow_full: bool = False) -> _Level:
+                 allow_full: bool = False, round_to: torch.dtype | None = None) -> _Level:
     """Aligned level (cfd_tpu _build_level(aligned=True)), its weights
-    rounded to ``dtype`` (bf16: 4/3 -> 1.3359375). A non-separable (masked)
-    problem needs ``allow_full`` and keeps its whole 2D weights, zero-padded
-    to the aligned shape (multigrid.py:169-182)."""
-    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    rounded to ``dtype`` (bf16: 4/3 -> 1.3359375), or with ``round_to``
+    rounded to that type and kept in ``dtype`` (the whole-solve's bfloat16
+    constants, cfd_tpu build_tail_consts(dtype=...)). A non-separable
+    (masked) problem needs ``allow_full`` and keeps its whole 2D weights,
+    zero-padded to the aligned shape (multigrid.py:169-182)."""
+    def t(a):
+        w = torch.as_tensor(a, dtype=dtype, device=device)
+        return w if round_to is None else w.to(round_to).to(dtype)
     if not _is_separable(p):
         if not allow_full:
             raise ValueError("aligned levels require separable weights")
@@ -337,45 +352,54 @@ class MultigridPoisson(nn.Module):
     an int and ``res`` the final max|b - Ap| as a float32 host number.
 
     ``cfg.pin_mean`` shifts p to zero mean over its nx * ny cells after
-    every cycle (module docstring).
+    every cycle (module docstring). ``cfg.tail_from`` (global level index,
+    taken when 1 <= tail_from <= levels - 2 and otherwise ignored, as
+    multigrid.py:689-694) runs every level from there down as one launch of
+    the fused tail (``tail``, kernels.mg_tail.MGTail).
+
+    ``store_dtype`` (the whole-solve's twin, kernels.whole_solve, with
+    ``cfg.coarse_dtype`` None): float32 levels whose weights and coarsest
+    pinv are rounded to that type, and the V-cycle of
+    run_tail_vcycle(store_dtype=...), cfd_tpu separable_vcycle_ctx with
+    coarse_dtype. Not the per-kernel bfloat16 levels of cfg.coarse_dtype.
 
     Buffers: every level's coupling vectors (in the level's storage dtype)
     and the coarsest pseudo-inverse; with pin_mean the quad cell mask and
     the cell count ``n_interior`` as a 0-d float32 tensor."""
 
     def __init__(self, problem: PoissonProblem, cfg: MGConfig, quad_level0,
-                 device="cpu"):
+                 device="cpu", store_dtype: torch.dtype | None = None):
         super().__init__()
-        unported = ["corr_opt"] if cfg.corr_opt else []
-        if cfg.pin_mean and not is_pure_neumann(problem):
-            # the reference takes it only on its unfused natural path there
-            unported.append("pin_mean on a problem that is not pure Neumann (the "
-                            "unfused residual of the natural path, ROADMAP.md queue A "
-                            "item 2)")
-        if cfg.tail_from is not None:
-            unported.append("tail_from")
-        if cfg.whole_solve and cfg.coarse_dtype is not None:
-            unported.append("whole_solve with the bfloat16 coarse hierarchy")
-        if unported:
-            raise NotImplementedError(
-                f"MGConfig {', '.join(unported)} not ported yet (ROADMAP.md queue B)")
         coarse_dt = None
         if cfg.coarse_dtype is not None:
             if cfg.coarse_dtype not in ("bfloat16", "bf16"):
                 raise ValueError(f"unsupported coarse_dtype {cfg.coarse_dtype!r}"
                                  " (only 'bfloat16')")
+            if cfg.tail_from is not None:
+                raise ValueError("coarse_dtype is incompatible with the fused coarse tail "
+                                 "(tail_from) — the tail keeps its own in-VMEM f32 "
+                                 "hierarchy")
             coarse_dt = torch.bfloat16
+        if cfg.corr_opt:
+            raise ValueError("corr_opt is a masked defect-correction knob — separable "
+                             "hierarchies coarsen consistently (coarsen_problem "
+                             "edge_fix) and do not take it")
+        if cfg.pin_mean and not is_pure_neumann(problem):
+            # the reference takes it only on its unfused natural path there
+            raise NotImplementedError(
+                "MGConfig pin_mean on a problem that is not pure Neumann (the unfused "
+                "residual of the natural path) not ported yet (ROADMAP.md queue A item 2)")
         self.cfg = cfg
         self.coarse_dt = coarse_dt
+        self.store_dtype = store_dtype
         probs = build_problems(problem, cfg)
         if len(probs) < 3:
             raise ValueError("the quad-level-0 hierarchy needs at least 3 levels")
         self.levels = nn.ModuleList(
             _build_level(p, torch.float32 if k == 0 else (coarse_dt or torch.float32),
-                         device) for k, p in enumerate(probs))
-        self.register_buffer(
-            "pinv", torch.as_tensor(_dense_pinv(probs[-1]), dtype=torch.float32,
-                                    device=device))
+                         device, round_to=store_dtype if k > 0 else None)
+            for k, p in enumerate(probs))
+        self.register_buffer("pinv", _pinv_tensor(probs[-1], store_dtype, device))
         if cfg.pin_mean:  # pure Neumann: the interior is the whole rectangle
             self.n_interior = problem.nx * problem.ny
             self.register_buffer("cell", quad_cell_mask(problem.shape, device))
@@ -389,6 +413,11 @@ class MultigridPoisson(nn.Module):
                                  for lv in inner)
         self.post = nn.ModuleList(rb_pairs_for_level(lv, cfg.omega, cfg.post_sweeps)
                                   for lv in inner)
+        self.tail_from = None
+        if cfg.tail_from is not None and 1 <= cfg.tail_from <= len(self.levels) - 2:
+            self.tail_from = k = cfg.tail_from
+            self.tail = MGTail(self.levels[k:], self.pre[k - 1 :], self.post[k - 1 :],
+                               self.pinv)
 
     def coarse_solve(self, b: torch.Tensor) -> torch.Tensor:
         return dense_coarse_solve(self.levels[-1], self.pinv, b)
@@ -412,14 +441,33 @@ class MultigridPoisson(nn.Module):
             rc = torch.nn.functional.pad(
                 rc, (0, lv1.shape[1] - rc_shape[1], 0, lv1.shape[0] - rc_shape[0])
             ).to(self.coarse_dt)
-        ec = run_tail_vcycle(self.levels[1:], rc, self.pre, self.post, self.coarse_solve,
-                             plain=plain)
+        ec = _coarse_correction(self, self.levels[1:], rc, plain)
         if self.coarse_dt is not None:
             ec = ec[: rc_shape[0], : rc_shape[1]].float().contiguous()
         return self.post0.plain(p, b, ec) if plain else self.post0(p, b, ec)
 
     def forward(self, p_warm: torch.Tensor, b: torch.Tensor, max_b=None):
         return tolerance_loop(p_warm, b, max_b, self.cfg, self.cycle)
+
+
+def _pinv_tensor(p: PoissonProblem, round_to: torch.dtype | None, device) -> torch.Tensor:
+    """The coarsest pseudo-inverse in float32, with ``round_to`` rounded to
+    that type first (cfd_tpu build_tail_consts(dtype=...))."""
+    pinv = torch.as_tensor(_dense_pinv(p), dtype=torch.float32, device=device)
+    return pinv if round_to is None else pinv.to(round_to).float()
+
+
+def _coarse_correction(mg, coarse, rc, plain):
+    """The correction on ``coarse[0]`` (global level 1) from its source rc:
+    run_tail_vcycle over the coarse levels down to the fused tail's first
+    level, which ``mg.tail`` solves in one launch, or down to the coarsest,
+    which the dense pinv solves. ``mg.tail_from`` is a global index, and
+    coarse[k] is global level k + 1."""
+    if mg.tail_from is None:
+        return run_tail_vcycle(coarse, rc, mg.pre, mg.post, mg.coarse_solve, plain=plain,
+                               store_dtype=mg.store_dtype)
+    tail = mg.tail.plain if plain else mg.tail
+    return run_tail_vcycle(coarse[: mg.tail_from], rc, mg.pre, mg.post, tail, plain=plain)
 
 
 def make_multigrid_poisson(problem: PoissonProblem, cfg: MGConfig, quad_level0,
@@ -471,31 +519,35 @@ class MaskedQuadMultigridPoisson(nn.Module):
     (kernels.rb_smoother full mode), and the level-1 correction is
     solid-filled before the fine prolongation.
 
+    ``cfg.tail_from`` (global: coarse index tail_from - 1, taken when it is
+    a level above the coarsest and otherwise ignored, multigrid.py:1104-1111)
+    runs those levels as one launch of the fused tail. ``cfg.corr_opt``
+    scales the level-1 correction by _corr_alpha before the solid fill.
+    ``store_dtype``: the masked whole-solve's twin with its bfloat16
+    rounding points (MultigridPoisson); corr_opt then still reads the
+    unrounded rc.
+
     ``levels`` holds the coarse levels only (levels[0] is global level 1).
     Buffers: their weight arrays and the coarsest pseudo-inverse."""
 
     def __init__(self, problem: PoissonProblem, cfg: MGConfig, quad_level0,
-                 device="cpu"):
+                 device="cpu", store_dtype: torch.dtype | None = None):
         super().__init__()
         if cfg.coarse_dtype is not None:
             raise ValueError("coarse_dtype is not supported on the masked "
                              "(defect-correction) hierarchy")
-        unported = [name for name in ("pin_mean", "corr_opt") if getattr(cfg, name)]
-        if cfg.tail_from is not None:
-            unported.append("tail_from")
-        if unported:
-            raise NotImplementedError(
-                f"MGConfig {', '.join(unported)} not ported yet for the masked "
-                "hierarchy (ROADMAP.md queue B)")
+        if cfg.pin_mean:
+            raise NotImplementedError("MGConfig pin_mean not ported yet for the masked "
+                                      "hierarchy (ROADMAP.md queue A)")
         probs = build_problems(problem, cfg)
         if len(probs) < 2:
             raise ValueError("grid too small for the quad masked hierarchy")
         self.cfg = cfg
-        self.levels = nn.ModuleList(_build_level(p, torch.float32, device, allow_full=True)
+        self.store_dtype = store_dtype
+        self.levels = nn.ModuleList(_build_level(p, torch.float32, device, allow_full=True,
+                                                 round_to=store_dtype)
                                     for p in probs[1:])
-        self.register_buffer(
-            "pinv", torch.as_tensor(_dense_pinv(probs[-1]), dtype=torch.float32,
-                                    device=device))
+        self.register_buffer("pinv", _pinv_tensor(probs[-1], store_dtype, device))
         self.pre0, self.post0 = quad_level0
         if self.levels[0].shape != self.pre0.coarse_shape:
             raise ValueError(f"aligned coarse shape {self.levels[0].shape} != quad "
@@ -506,6 +558,11 @@ class MaskedQuadMultigridPoisson(nn.Module):
                                  for lv in inner)
         self.post = nn.ModuleList(rb_pairs_for_level(lv, cfg.omega, cfg.post_sweeps)
                                   for lv in inner)
+        self.tail_from = None
+        if cfg.tail_from is not None and 0 <= cfg.tail_from - 1 <= len(self.levels) - 2:
+            self.tail_from = cfg.tail_from  # global; levels[k] is global level k + 1
+            k = cfg.tail_from - 1
+            self.tail = MGTail(self.levels[k:], self.pre[k:], self.post[k:], self.pinv)
 
     def coarse_solve(self, b: torch.Tensor) -> torch.Tensor:
         return dense_coarse_solve(self.levels[-1], self.pinv, b)
@@ -514,8 +571,9 @@ class MaskedQuadMultigridPoisson(nn.Module):
         """One V-cycle: (p4, b4) -> (p4, res). ``plain`` runs every kernel's
         plain twin whatever the device."""
         p, rc = self.pre0.plain(p, b) if plain else self.pre0(p, b)
-        ec = run_tail_vcycle(self.levels, rc, self.pre, self.post, self.coarse_solve,
-                             plain=plain)
+        ec = _coarse_correction(self, self.levels, rc, plain)
+        if self.cfg.corr_opt:
+            ec = _corr_alpha(self.levels[0], rc, ec) * ec
         # the post kernel's 1 -> 0 prolongation is mask-blind: Neumann-extend
         # the correction into the level-1 solid cells first (multigrid.py:1170)
         ec = _solid_fill(self.levels[0], ec)
@@ -525,12 +583,35 @@ class MaskedQuadMultigridPoisson(nn.Module):
         return tolerance_loop(p_warm, b, max_b, self.cfg, self.cycle)
 
 
-def make_masked_quad_multigrid_poisson(grid, coeffs, cfg: MGConfig,
-                                       device="cpu") -> MaskedQuadMultigridPoisson:
+def _corr_alpha(level, rc: torch.Tensor, ec: torch.Tensor) -> torch.Tensor:
+    """corr_opt's clamped steplength of the level-1 correction (cfd_tpu
+    multigrid._corr_alpha, :501-519, and the whole-solve's in-kernel twin,
+    whole_solve.py:379-398): alpha = clip(<rc, A ec>/<A ec, A ec>, 1, 1.5)
+    with A the level's weighted operator on its active cells, and alpha = 1
+    where the denominator is 0. Both sums are fixed_order_sum's, so every
+    device and the whole-solve kernel round them alike. A 0-d float32
+    tensor on ec's device."""
+    wE, wW, wN, wS = level.wE, level.wW, level.wN, level.wS
+    roll = lambda a, s, d: torch.roll(a, s, dims=d)
+    ap = (level.idx2 * (wE * (roll(ec, -1, 1) - ec) + wW * (roll(ec, 1, 1) - ec))
+          + level.idy2 * (wN * (roll(ec, -1, 0) - ec) + wS * (roll(ec, 1, 0) - ec)))
+    aec = torch.where(level_masks(level, ec.device)[1], ap, torch.zeros_like(ap))
+    num = fixed_order_sum(rc * aec)
+    den = fixed_order_sum(aec * aec)
+    one = torch.ones_like(den)
+    raw = torch.where(den > 0, num / torch.where(den > 0, den, one), one)
+    return torch.clamp(raw, 1.0, 1.5)
+
+
+def make_masked_quad_multigrid_poisson(grid, coeffs, cfg: MGConfig, device="cpu",
+                                       store_dtype: torch.dtype | None = None
+                                       ) -> MaskedQuadMultigridPoisson:
     """The per-kernel masked solve of a step-rectangle grid: the
-    kernels.step_quad level-0 pair over masked_channel_problem's hierarchy.
-    Raises ValueError when the raster is not the step rectangle or level 1
-    does not coincide with the quad plane shape."""
+    kernels.step_quad level-0 pair over masked_channel_problem's hierarchy
+    (``store_dtype``: the whole-solve twin's rounding, see
+    MaskedQuadMultigridPoisson). Raises ValueError when the raster is not
+    the step rectangle or level 1 does not coincide with the quad plane
+    shape."""
     from cfd_tpu_torch.kernels.quad import quad_dims
     from cfd_tpu_torch.kernels.step_quad import (
         make_quad_step_post_prolong_smooth,
@@ -546,4 +627,4 @@ def make_masked_quad_multigrid_poisson(grid, coeffs, cfg: MGConfig,
     l0 = (make_quad_step_pre_smooth_restrict(n_pairs=cfg.pre_sweeps, **kw),
           make_quad_step_post_prolong_smooth(n_pairs=cfg.post_sweeps, **kw))
     return MaskedQuadMultigridPoisson(masked_channel_problem(grid, coeffs.dx, coeffs.dy),
-                                      cfg, l0, device)
+                                      cfg, l0, device, store_dtype)

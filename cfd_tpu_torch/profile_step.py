@@ -4,11 +4,9 @@ step goes on the card.
     python -m cfd_tpu_torch.profile_step [--n 2048] [--warmup 100] [--steps 50]
                                          [--out DIR]
     python -m cfd_tpu_torch.profile_step --case channel [--nx 1536 --ny 512]
-                                         [--mg default|whole|per-kernel|whole-step] ...
-    python -m cfd_tpu_torch.profile_step --case step [--nx 2048 --ny 256]
-                                         [--mg default|whole|per-kernel|whole-step] ...
-    python -m cfd_tpu_torch.profile_step --case rb [--nx 1536 --ny 512]
-                                         [--mg default|whole|per-kernel|whole-step] ...
+                                         [--mg default|whole|per-kernel|whole-step|K=V,...]
+    python -m cfd_tpu_torch.profile_step --case step [--nx 2048 --ny 256] [--mg ...] ...
+    python -m cfd_tpu_torch.profile_step --case rb [--nx 1536 --ny 512] [--mg ...] ...
 
 Drives a main path on cuda through Simulation's step function: the cavity,
 make_cavity_case(n_interior=n, poisson="multigrid", dtype=float32,
@@ -20,7 +18,10 @@ make_rayleigh_benard_case(nx, ny, rayleigh=1e6, dtype=float32) with its own
 tolerances (default 1536x512), with the case's default solve or the other
 one. ``--mg`` picks the solve: ``default`` is the case's own (the
 whole-solve on the card), ``whole`` and ``per-kernel`` force one, and
-``whole-step`` runs the whole time step in one kernel (kernels.whole_step).
+``whole-step`` runs the whole time step in one kernel (kernels.whole_step);
+any other value is MGConfig overrides ``K=V[,K=V...]`` as the CLI's --mg
+takes them (e.g. ``tail_from=1``, ``whole_solve=true,coarse_dtype=bfloat16``,
+``corr_opt=true``).
 The steps' V-cycle counts stay on the card until each window ends, as in
 Simulation.run, so no window reads the host between its steps. It runs
 three windows:
@@ -133,9 +134,11 @@ def make_case(args):
     from cfd_tpu_torch.cases import (make_backwards_step_case, make_cavity_case,
                                      make_channel_case, make_rayleigh_benard_case)
 
-    ov = {"whole": {"whole_solve": True}, "default": None,
-          "per-kernel": {"whole_solve": False},
-          "whole-step": {"whole_step": True}}[args.mg]
+    from cfd_tpu_torch.cli import parse_mg
+
+    presets = {"whole": {"whole_solve": True}, "default": None,
+               "per-kernel": {"whole_solve": False}, "whole-step": {"whole_step": True}}
+    ov = presets[args.mg] if args.mg in presets else parse_mg(args.mg)
     if args.case == "cavity":
         case = make_cavity_case(n_interior=args.n, poisson="multigrid",
                                 dtype=torch.float32, tolerance_factor=1e-6, device="cuda",
@@ -158,7 +161,9 @@ def describe(case, what: str) -> str:
     mg = case.info["mg"]
     path = ("whole step" if mg.whole_step else
             "whole solve" if mg.whole_solve else "per-kernel solve")
-    return f"{what} ({path}, coarse {mg.coarse_dtype or 'float32'})"
+    knobs = "".join(f", {k}={getattr(mg, k)}" for k in ("tail_from", "corr_opt")
+                    if getattr(mg, k))
+    return f"{what} ({path}, coarse {mg.coarse_dtype or 'float32'}{knobs})"
 
 
 def main(argv=None) -> int:
@@ -171,10 +176,10 @@ def main(argv=None) -> int:
                          "1536)")
     ap.add_argument("--ny", type=int, default=None,
                     help="channel/step/rb: interior cells in y (default 512 / 256 / 512)")
-    ap.add_argument("--mg", choices=["default", "whole", "per-kernel", "whole-step"],
-                    default="default",
-                    help="the pressure solve (default: the case's own path), or the "
-                         "whole step in one kernel")
+    ap.add_argument("--mg", default="default",
+                    help="the pressure solve: default (the case's own path), whole, "
+                         "per-kernel, whole-step (the whole step in one kernel), or "
+                         "MGConfig overrides K=V[,K=V...]")
     ap.add_argument("--warmup", type=int, default=100)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--out", type=Path, default=DEFAULT_OUT)

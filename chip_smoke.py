@@ -115,6 +115,32 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
     bit-identical carried state after 300 steps; steps/s, V-cycles/step.
 19. Whole-step card against CPU, 20 steps, at 256^2, 256x128, 512x64 and
     256x128: equal cycles every step, fields within 5e-5 relative.
+20. The fused coarse tail (mg_overrides tail_from=1): the tail kernel
+    against its twin on a seeded source at the four flows' level-1 shapes
+    and, on the cavity, from level 3 (bit-identical); times as in phase 2,
+    the bound over one V-cycle of the tail's levels.
+21. 100 steps of each flow with tail_from=1 from the state the per-kernel
+    run of phases 3, 6, 9 and 12 started from, the counters zeroed just
+    before: the tail launched once a V-cycle, no coarse smoother launch,
+    the cycles of that per-kernel run at every step (within 1 on the
+    channel) and its fields within 1e-5 relative; launches a step and
+    steps/s beside the per-kernel run's.
+22. The bfloat16 hierarchy (coarse_dtype="bfloat16"): the whole-solve
+    kernels (separable on the cavity and the channel, pin-mean on RB,
+    masked on the step) and the four whole steps against their twins at
+    the full widths (bit-identical, equal cycles), then 300 steps of each
+    flow on the bf16 whole-solve and on the bf16 whole step: the whole step
+    held to the bf16 whole-solve run's cycles and carried state, as phase 18
+    holds the float32 ones; V-cycles/step beside the float32 runs'.
+23. The step with corr_opt: the masked whole-solve (float32 and bf16
+    hierarchy) and the whole step against their twins at 2048x256
+    (bit-identical), 300 steps on the whole-solve and on the whole step
+    (held to each other as in phase 18), 100 steps of the per-kernel solve;
+    V-cycles/step with and without corr_opt.
+24. Card against CPU, 5 steps, at the widths of phase 19, for each new
+    knob: tail_from=1, the bf16 whole-solve and the bf16 whole step on the
+    four flows, corr_opt on the step's three solves: equal cycles every
+    step, fields within 5e-5 relative.
 
 The line before the last is a JSON object {"kernels": [...]}: per kernel,
 its launches on its path's run, its error against its twin, its time and
@@ -158,6 +184,8 @@ STEP = (2048, 256)
 # the diffusion, the Euler step) and buoyancy per cell (rb_stage.cu); the
 # pin per cell per cycle (the sum and the shift)
 TEMPERATURE_OPS, BUOYANCY_OPS, PIN_OPS = 24, 3, 2
+# corr_opt per level-1 cell: A e, the two products and sums, the scaling
+CORR_OPS = 18
 RB_SHAPE = (1536, 512)
 # adaptive stepping: the Courant feedback per cell (two |.|, two maxima);
 # the controller's target and growth
@@ -165,7 +193,13 @@ COURANT_OPS = 4
 MAX_CO, GROWTH = 0.7, 1.2
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's first line carries the seconds since start."""
+    if msg.startswith("phase "):
+        msg = f"{msg} [{time.perf_counter() - T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -397,15 +431,15 @@ def run_path(case, n_steps: int, path_kernels, what: str, card: str, rate,
                                  iters=list(sim.step_iters))
 
 
-def card_vs_cpu(make, kw: dict, what: str) -> None:
+def card_vs_cpu(make, kw: dict, what: str, n_steps: int = 20) -> None:
     """One card-against-CPU comparison: the kernels on the card, the plain
-    twins on the CPU, 20 steps."""
+    twins on the CPU, ``n_steps`` steps."""
     from cfd_tpu_torch.solver import Simulation
 
     out = {}
     for where, dev in (("card", "cuda"), ("cpu", "cpu")):
         sim = Simulation(make(device=dev, **kw), log=lambda m: None)
-        st = sim._logical(sim.run(n_steps=20))
+        st = sim._logical(sim.run(n_steps=n_steps))
         out[where] = (sim.step_iters, st, sim.history[-1])
     (it_g, st_g, row_g), (it_c, st_c, row_c) = out["card"], out["cpu"]
     log(f"  {what}: cycles/step card {it_g}")
@@ -920,6 +954,8 @@ def solve_ops_per_cycle(solver, cells: int) -> int:
     sweeps = cfg.pre_sweeps + cfg.post_sweeps
     if solver.MASKED:
         ops = cells * (sweeps * STEP_GS_OPS + 2 * STEP_RES_OPS + 1 + PROLONG_OPS)
+        if cfg.corr_opt:
+            ops += mg.levels[0].nx * mg.levels[0].ny * CORR_OPS
         coarse, fill = zip(mg.levels[:-1], mg.levels[1:]), FILL_OPS
     else:
         ops = cells * (sweeps * GS_OPS + 2 * RES_OPS + 1 + PROLONG_OPS
@@ -946,12 +982,12 @@ def check_whole_steps(cases: dict) -> dict:
         names = ("us'", "vs'", "T'", "p'") if flow == "rb" else ("us'", "vs'", "p'")
         errs = []
         for name, a, b in zip(names, got[:-2], want[:-2], strict=True):
-            rel_err(a, b, f"{ws.RECORD.name} {name}", TOL_F32, errs)
+            rel_err(a, b, f"{ws.record.name} {name}", TOL_F32, errs)
         bit = all(bool(torch.equal(a, b)) for a, b in zip(got[:-2], want[:-2]))
-        log(f"  {ws.RECORD.name}: cycles kernel {got[-2]}, twin {want[-2]}; res "
+        log(f"  {ws.record.name}: cycles kernel {got[-2]}, twin {want[-2]}; res "
             f"{got[-1]!r} / {want[-1]!r}; fields bit-identical: {bit}")
         if got[-2:] != want[-2:]:
-            raise AssertionError(f"{ws.RECORD.name}: (cycles, res) {got[-2:]} against the "
+            raise AssertionError(f"{ws.record.name}: (cycles, res) {got[-2:]} against the "
                                  f"twin's {want[-2:]}")
         cells = case.grid.n_fluid
         carry_ops = CORRECTOR_OPS + PREDICTOR_SOURCE_OPS + (
@@ -959,7 +995,7 @@ def check_whole_steps(cases: dict) -> dict:
         ops = (cells * (carry_ops + (0 if flow == "cavity" else 2))
                + got[-2] * solve_ops_per_cycle(ws.solver, cells))
         n_bytes = nbytes(*fields, *got[:-2], ws.solver.mg.pinv)
-        results[ws.RECORD.name] = dict(
+        results[ws.record.name] = dict(
             err=max(errs), ms=median_ms(lambda: ws.kernel(*fields), reps=10),
             plain_ms=median_ms(lambda: ws.plain(*fields), reps=3), cycles=got[-2],
             bound_bytes_ms=n_bytes / PEAK_BYTES_S * 1e3,
@@ -994,17 +1030,117 @@ def run_whole_steps(full: dict, ws_cases: dict, composed: dict, card: str) -> di
     return launches
 
 
+def tail_ops(tail) -> int:
+    """float32 operations of one V-cycle of a fused tail over its levels,
+    counted as solve_ops_per_cycle counts the coarse levels."""
+    sweeps = tail.n_pre + tail.n_post
+    ops = 2 * tail.pinv.numel()
+    for lv, below in zip(tail.levels[:-1], tail.levels[1:]):
+        fill = 0 if below.separable else FILL_OPS
+        ops += (lv.nx * lv.ny * (sweeps * GS_OPS + RES_OPS + PROLONG_OPS + fill)
+                + below.nx * below.ny * RESTRICT_OPS)
+    return ops
+
+
+def check_tail(tail, what: str, seed: int) -> dict:
+    """Phase 20: a fused tail's kernel against its twin on a seeded source
+    over its first level's active cells; times as in phase 2 (the twin over
+    5 runs); the bound: the source, the correction and the levels'
+    constants once, and one V-cycle's operations."""
+    from cfd_tpu_torch.kernels.mg_tail import level_masks
+
+    lv = tail.levels[0]
+    rng = np.random.default_rng(seed)
+    active = level_masks(lv, tail.pinv.device)[1]
+    b = torch.from_numpy(rng.standard_normal(lv.shape).astype(np.float32) * 1e2)
+    b = torch.where(active, b.to(tail.pinv.device), 0.0)
+    got, want = tail.kernel(b), tail.plain(b)
+    errs = []
+    rel_err(got, want, f"{tail.record.name} {what} e", TOL_F32, errs)
+    log(f"  {tail.record.name} {what}: {len(tail.levels)} levels from {tuple(lv.shape)}; "
+        f"bit-identical: {bool(torch.equal(got, want))}")
+    consts = [getattr(level, w) for level in tail.levels for w in ("wE", "wW", "wN", "wS")]
+    return dict(err=max(errs), ms=median_ms(lambda: tail.kernel(b)),
+                plain_ms=median_ms(lambda: tail.plain(b), reps=5),
+                **bound(nbytes(b, got, tail.pinv, *consts), tail_ops(tail)))
+
+
+def seeded_source(case, seed: int):
+    """A seeded source on the case's fluid cells, scaled by 1e3 and free of
+    its mean over them, in the quad layout on the case's device."""
+    from cfd_tpu_torch.kernels.quad import to_quad
+
+    rng = np.random.default_rng(seed)
+    mask = np.asarray(case.grid.cell_mask, bool)
+    bn = np.where(mask, rng.standard_normal(case.grid.shape), 0.0)
+    bn = (np.where(mask, bn - bn[mask].mean(), 0.0) * 1e3).astype(np.float32)
+    return to_quad(torch.from_numpy(bn).to(case.device), case.grid.shape)
+
+
+def check_solve(solve, b, cells: int) -> dict:
+    """Phases 22 and 23: a whole-solve kernel against its twin on the source
+    b from a zero warm start: equal cycles and residual, p within 1e-5
+    (bit-identical expected). Times and bound as in phase 5, the twin's over
+    one run."""
+    record = solve._fine()[5]
+    p0 = torch.zeros_like(b)
+    pk, ck, rk = host(solve.kernel(p0, b))
+    pp, cp, rp = host(solve.plain(p0, b))
+    log(f"  {record.name}: cycles kernel {ck}, twin {cp}; res {rk!r} / {rp!r}; p "
+        f"bit-identical: {bool(torch.equal(pk, pp))}")
+    if (ck, rk) != (cp, rp):
+        raise AssertionError(f"{record.name}: (cycles, res) ({ck}, {rk}) against the twin's "
+                             f"({cp}, {rp})")
+    errs = []
+    rel_err(pk, pp, f"{record.name} p vs twin", TOL_F32, errs)
+    ms = median_ms(lambda: solve.kernel(p0, b))
+    ops_per_cycle = solve_ops_per_cycle(solve, cells)
+    n_bytes = nbytes(p0, b, pk, solve.mg.pinv)
+    return dict(err=max(errs), ms=ms, plain_ms=median_ms(lambda: solve.plain(p0, b), reps=1),
+                cycles=ck, ms_per_cycle=ms / ck, **bound(n_bytes, ck * ops_per_cycle + cells))
+
+
+def run_tail_path(case, what: str, path_kernels, ref, card: str, rate, cycle_slack: int):
+    """Phase 21: 100 steps of a tail_from=1 case through run_path from the
+    per-kernel run's start state; ``ref`` = (start state, its per-step
+    cycles, its end state, its rates). The tail must launch once a V-cycle
+    and no coarse smoother at all; cycles within ``cycle_slack`` of the
+    per-kernel run's every step and the end state within 1e-5 relative."""
+    from cfd_tpu_torch.kernels import rb_smoother as RB
+
+    start, iters, end, pk = ref
+    got, state, r = run_path(case, 100, path_kernels, what, card, rate, state=start,
+                             start_step=300)
+    tail = path_kernels[-1]
+    smoother = got[RB.RB_PAIRS.name] + got[RB.RB_PAIRS_FULL.name]
+    if got[tail.name] != sum(r["iters"]) or smoother:
+        raise AssertionError(f"{what}: {got[tail.name]} tail launches for {sum(r['iters'])} "
+                             f"V-cycles, {smoother} coarse smoother launches")
+    off = max(abs(a - b) for a, b in zip(r["iters"], iters, strict=True))
+    if off > cycle_slack:
+        raise AssertionError(f"{what}: cycles differ from the per-kernel run's by {off}")
+    for name, a, b in zip(("u", "v", "p", "T", "p_prev"), state, end):
+        if a is not None:
+            rel_err(a, b, f"{what} vs per-kernel {name}", TOL_F32, [])
+    log(f"  {what}: {sum(got.values()) / 100:.2f} port launches a step "
+        f"({tail.name} {got[tail.name]}); cycles equal to the per-kernel run's at every "
+        f"step: {r['iters'] == iters}; {r['steps_s']:.2f} steps/s at {r['cycles']:.2f} "
+        f"V-cycles/step against the per-kernel solve's {pk['steps_s']:.2f} at "
+        f"{pk['cycles']:.2f}  ({card})")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check "
                          "needs a CUDA GPU")
-    t_start = time.perf_counter()
     import_port()
     from cfd_tpu_torch.cases import make_cavity_case, make_channel_case
     from cfd_tpu_torch.kernels import KERNELS, _build
     from cfd_tpu_torch.kernels import quad as Q
     from cfd_tpu_torch.kernels import rb_smoother as RB
     from cfd_tpu_torch.kernels import whole_solve as WS
+    from cfd_tpu_torch.kernels import mg_tail as MT
     from cfd_tpu_torch.kernels import whole_step as WST
 
     dev = torch.device("cuda")
@@ -1017,7 +1153,7 @@ def main() -> int:
     log(f"  built {path.relative_to(ROOT)} in {build_s:.1f} s")
     ptxas = path.with_suffix(".log").read_text().splitlines()
     for i, line in enumerate(ptxas):
-        for kname in ("whole_solve_kernel", "whole_step_kernel"):
+        for kname in ("whole_solve_kernel", "whole_step_kernel", "mg_tail_kernel"):
             if "Compiling entry function" in line and kname in line:
                 for info in ptxas[i + 1 : i + 4]:
                     if "Function properties" not in info:
@@ -1053,10 +1189,13 @@ def main() -> int:
     cavity_launches, state, whole = run_path(
         case, 300, (Q.CARRY, Q.CORRECTOR, WS.WHOLE_SOLVE), "cavity whole-solve", card, rate)
     composed = {"cavity": (whole["iters"], state)}  # phase 18 holds the whole step to them
+    f32_cycles = {"cavity": whole["cycles"]}  # phase 22 prints the bf16 runs' beside them
     del case
-    pk_launches, _, per_kernel = run_path(
+    pk_launches, pk_state, per_kernel = run_path(
         pk_case, 100, (Q.CARRY, Q.PRE, Q.POST, RB.RB_PAIRS), "cavity per-kernel", card, rate,
         state=state, start_step=300)
+    # phase 21 runs the tail from the same state
+    pk_ref = {"cavity": (state, per_kernel["iters"], pk_state, per_kernel)}
     cavity_launches.update({k.name: pk_launches[k.name] for k in (Q.PRE, Q.POST, RB.RB_PAIRS)})
     log(f"  cavity A/B, steps/s: whole-solve {whole['steps_s']:.2f} ({whole['cycles']:.2f} "
         f"V-cycles/step), per-kernel {per_kernel['steps_s']:.2f} "
@@ -1096,11 +1235,14 @@ def main() -> int:
         case, 300, (Q.CHANNEL_CARRY, Q.CHANNEL_CORRECTOR, WS.WHOLE_SOLVE),
         "channel whole-solve", card, cells)
     composed["channel"] = (whole["iters"], state)
+    f32_cycles["channel"] = whole["cycles"]
     per_kernel_case = make_channel_case(device=dev, mg_overrides={"whole_solve": False},
                                         **ch_kw)
+    start = state
     _, state, per_kernel = run_path(
         per_kernel_case, 100, (Q.CHANNEL_CARRY, Q.PRE, Q.POST, RB.RB_PAIRS),
         "channel per-kernel", card, cells, state=state, start_step=300)
+    pk_ref["channel"] = (start, per_kernel["iters"], state, per_kernel)
     del per_kernel_case
     _, _, whole_again = run_path(
         case, 100, (Q.CHANNEL_CARRY, WS.WHOLE_SOLVE), "channel whole-solve again", card,
@@ -1157,12 +1299,14 @@ def main() -> int:
         case, 300, (SQ.STEP_CARRY, SQ.STEP_CORRECTOR, WS.STEP_WHOLE_SOLVE),
         "step whole-solve", card, cells)
     composed["step"] = (whole["iters"], state)
+    f32_cycles["step"] = whole["cycles"]
     del case
     per_kernel_case = make_backwards_step_case(device=dev, mg_overrides={"whole_solve": False},
                                                **st_kw)
-    step_pk_launches, _, per_kernel = run_path(
+    step_pk_launches, pk_state, per_kernel = run_path(
         per_kernel_case, 100, (SQ.STEP_CARRY, SQ.STEP_PRE, SQ.STEP_POST, RB.RB_PAIRS_FULL),
         "step per-kernel", card, cells, state=state, start_step=300)
+    pk_ref["step"] = (state, per_kernel["iters"], pk_state, per_kernel)
     del per_kernel_case
     log(f"  step, steps/s: whole-solve {whole['steps_s']:.2f} ({whole['cycles']:.2f} "
         f"V-cycles/step), per-kernel {per_kernel['steps_s']:.2f} "
@@ -1205,12 +1349,14 @@ def main() -> int:
         case, 300, (RQ.RB_CARRY, RQ.RB_CORRECTOR, WS.WHOLE_SOLVE_PIN_MEAN),
         "rb whole-solve", card, cells)
     composed["rb"] = (whole["iters"], state)
+    f32_cycles["rb"] = whole["cycles"]
     del case
     per_kernel_case = make_rayleigh_benard_case(device=dev, mg_overrides={"whole_solve": False},
                                                 **rb_kw)
-    _, _, per_kernel = run_path(
+    _, pk_state, per_kernel = run_path(
         per_kernel_case, 100, (RQ.RB_CARRY, Q.PRE, Q.POST, RB.RB_PAIRS), "rb per-kernel", card,
         cells, state=state, start_step=300)
+    pk_ref["rb"] = (state, per_kernel["iters"], pk_state, per_kernel)
     del per_kernel_case
     for what, r in (("whole-solve", whole), ("per-kernel", per_kernel)):
         row = r["row"]
@@ -1329,6 +1475,136 @@ def main() -> int:
         card_vs_cpu(make, dict(kw, dtype=torch.float32, print_interval=20,
                                mg_overrides=ws_on), f"{what} whole-step")
 
+
+    tail_on = {"tail_from": 1}
+    log(f"phase 20: the fused coarse tail vs its plain twin at the level-1 shapes of the "
+        f"full widths ({card})")
+    tail_cases = {flow: make(device=dev, mg_overrides=tail_on, **kw)
+                  for flow, (make, kw, _, _) in full.items()}
+    for seed, (flow, case) in enumerate(tail_cases.items()):
+        tail = case.poisson_solve.tail
+        r = check_tail(tail, flow, seed=2000 + seed)
+        checks.setdefault(tail.record.name, r)  # the cavity's (mg_tail), the step's (full)
+        log(f"  {tail.record.name} {flow}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} "
+            f"ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
+    deep = make_cavity_case(device=dev, mg_overrides={"tail_from": 3}, **cav_main)
+    r = check_tail(deep.poisson_solve.tail, "cavity from level 3", seed=2010)
+    log(f"  mg_tail cavity from level 3: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} "
+        f"ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
+    del deep
+
+    log(f"phase 21: 100 steps of each flow with tail_from=1 from the per-kernel runs' start "
+        f"states of phases 3, 6, 9 and 12 ({card})")
+    tail_paths = {"cavity": (Q.CARRY, Q.PRE, Q.POST, MT.MG_TAIL),
+                  "channel": (Q.CHANNEL_CARRY, Q.PRE, Q.POST, MT.MG_TAIL),
+                  "step": (SQ.STEP_CARRY, SQ.STEP_PRE, SQ.STEP_POST, MT.MG_TAIL_FULL),
+                  "rb": (RQ.RB_CARRY, Q.PRE, Q.POST, MT.MG_TAIL)}
+    tail_launches = {}
+    for flow, case in list(tail_cases.items()):
+        got = run_tail_path(case, f"{flow} tail_from=1", tail_paths[flow], pk_ref.pop(flow),
+                            card, full[flow][3], cycle_slack=1 if flow == "channel" else 0)
+        tail_launches.setdefault(tail_paths[flow][-1].name, got[tail_paths[flow][-1].name])
+        del tail_cases[flow], case
+
+    bf16 = "bfloat16"
+    log(f"phase 22: the bf16 hierarchy's whole-solve and whole-step kernels vs their twins "
+        f"at the full widths, then 300 steps of each flow on each ({card})")
+    solve_paths = {"cavity": (Q.CARRY, Q.CORRECTOR), "channel": (Q.CHANNEL_CARRY,
+                                                                 Q.CHANNEL_CORRECTOR),
+                   "step": (SQ.STEP_CARRY, SQ.STEP_CORRECTOR), "rb": (RQ.RB_CARRY,
+                                                                      RQ.RB_CORRECTOR)}
+    bf16_launches = {}
+    for flow, (make, kw, _, flow_rate) in full.items():
+        case = make(device=dev, mg_overrides={"whole_solve": True, "coarse_dtype": bf16}, **kw)
+        solve = case.poisson_solve
+        record = solve._fine()[5]
+        r = check_solve(solve, seeded_source(case, seed=2200 + len(bf16_launches)),
+                        case.grid.n_fluid)
+        checks.setdefault(record.name, r)  # the cavity's for the separable kernel
+        log(f"  {record.name} {flow}: kernel {r['ms']:.4f} ms ({r['cycles']} V-cycles, "
+            f"{r['ms_per_cycle']:.4f} ms each)  plain {r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
+        ws_case = make(device=dev, mg_overrides={"whole_step": True, "coarse_dtype": bf16},
+                       **kw)
+        ws_record = ws_case.whole_step_kernel.record
+        r = check_whole_steps({flow: ws_case})[ws_record.name]
+        checks[ws_record.name] = r
+        log(f"  {ws_record.name}: kernel {r['ms']:.4f} ms ({r['cycles']} V-cycles)  plain "
+            f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
+        got, state, whole = run_path(case, 300, (*solve_paths[flow], record),
+                                     f"{flow} bf16 whole-solve", card, flow_rate)
+        bf16_launches.setdefault(record.name, got[record.name])
+        del case
+        bf16_launches.update(run_whole_steps({flow: (make, kw, ws_record, flow_rate)},
+                                             {flow: ws_case}, {flow: (whole["iters"], state)},
+                                             card))
+        log(f"  {flow}: {whole['cycles']:.2f} V-cycles/step over steps 201-300 with the bf16 "
+            f"hierarchy, {f32_cycles[flow]:.2f} with the float32 one (phases 3, 6, 9, 12); "
+            f"{whole['steps_s']:.2f} steps/s  ({card})")
+
+    log(f"phase 23: the step with corr_opt on its three solves at {STEP[0]}x{STEP[1]} "
+        f"({card})")
+    corr = {"corr_opt": True}
+    case = make_backwards_step_case(device=dev, mg_overrides=corr, **st_kw)
+    solve = case.poisson_solve
+    if not (case.info["mg"].whole_solve and solve.cfg.corr_opt):
+        raise AssertionError("corr_opt took the step off its whole-solve on the card")
+    r = check_solve(solve, seeded_source(case, seed=2300), step_fluid)
+    checks[WS.STEP_WHOLE_SOLVE_CORR_OPT.name] = r
+    log(f"  {WS.STEP_WHOLE_SOLVE_CORR_OPT.name}: kernel {r['ms']:.4f} ms ({r['cycles']} "
+        f"V-cycles)  plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})  ({card})")
+    both = make_backwards_step_case(device=dev, mg_overrides={**corr, "whole_solve": True,
+                                                              "coarse_dtype": bf16}, **st_kw)
+    check_solve(both.poisson_solve, seeded_source(both, seed=2301), step_fluid)
+    del both
+    ws_case = make_backwards_step_case(device=dev, mg_overrides={**corr, "whole_step": True},
+                                       **st_kw)
+    r = check_whole_steps({"step": ws_case})[WST.WHOLE_STEP_STEP_CORR_OPT.name]
+    checks[WST.WHOLE_STEP_STEP_CORR_OPT.name] = r
+    log(f"  {WST.WHOLE_STEP_STEP_CORR_OPT.name}: kernel {r['ms']:.4f} ms ({r['cycles']} "
+        f"V-cycles)  plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})  ({card})")
+    step_rate = full["step"][3]
+    got, state, whole = run_path(case, 300, (SQ.STEP_CARRY, SQ.STEP_CORRECTOR,
+                                             WS.STEP_WHOLE_SOLVE_CORR_OPT),
+                                 "step corr_opt whole-solve", card, step_rate)
+    corr_launches = {WS.STEP_WHOLE_SOLVE_CORR_OPT.name: got[WS.STEP_WHOLE_SOLVE_CORR_OPT.name]}
+    del case
+    corr_launches.update(run_whole_steps(
+        {"step": (make_backwards_step_case, st_kw, WST.WHOLE_STEP_STEP_CORR_OPT, step_rate)},
+        {"step": ws_case}, {"step": (whole["iters"], state)}, card))
+    pk_case = make_backwards_step_case(device=dev, mg_overrides={**corr, "whole_solve": False},
+                                       **st_kw)
+    _, _, pk = run_path(pk_case, 100, (SQ.STEP_CARRY, SQ.STEP_PRE, SQ.STEP_POST,
+                                       RB.RB_PAIRS_FULL),
+                        "step corr_opt per-kernel", card, step_rate, state=state,
+                        start_step=300)
+    del pk_case
+    log(f"  step V-cycles/step over steps 201-300: corr_opt {whole['cycles']:.2f} "
+        f"({whole['steps_s']:.2f} steps/s), without {f32_cycles['step']:.2f} (phase 9); "
+        f"per-kernel with corr_opt {pk['cycles']:.2f} over steps 301-400 "
+        f"({pk['steps_s']:.2f} steps/s)  ({card})")
+
+    log("phase 24: card vs CPU for the new knobs, 5 steps")
+    small = {"cavity": (make_cavity_case, dict(n_interior=256, poisson="multigrid",
+                                               tolerance_factor=1e-6), "cavity 256^2"),
+             "channel": (make_channel_case, dict(nx=256, ny=128, poisson="multigrid",
+                                                 tolerance_factor=1e-6, abs_tol=0.0),
+                         "channel 256x128"),
+             "step": (make_backwards_step_case, dict(nx=512, ny=64, poisson="multigrid",
+                                                     tolerance_factor=1e-6, abs_tol=0.0),
+                      "step 512x64"),
+             "rb": (make_rayleigh_benard_case, dict(nx=256, ny=128, rayleigh=1e6),
+                    "rb 256x128")}
+    knobs = [tail_on, {"whole_solve": True, "coarse_dtype": bf16},
+             {"whole_step": True, "coarse_dtype": bf16}]
+    for flow, (make, kw, what) in small.items():
+        for ov in knobs + ([corr, {**corr, "whole_step": True},
+                            {**corr, "whole_solve": False}] if flow == "step" else []):
+            card_vs_cpu(make, dict(kw, dtype=torch.float32, print_interval=5,
+                                   mg_overrides=ov), f"{what} {ov}", n_steps=5)
+
     launches = {**cavity_launches, **{k: channel_launches[k] for k in (
         Q.CHANNEL_CARRY.name, Q.CHANNEL_CORRECTOR.name, WS.WHOLE_SOLVE.name)},
         **{k: step_launches[k] for k in (SQ.STEP_CARRY.name, SQ.STEP_CORRECTOR.name,
@@ -1337,7 +1613,7 @@ def main() -> int:
                                              RB.RB_PAIRS_FULL.name)},
         **{k: rb_launches[k] for k in (RQ.RB_CARRY.name, RQ.RB_CORRECTOR.name,
                                        WS.WHOLE_SOLVE_PIN_MEAN.name)},
-        **ad_launches, **ws_launches}
+        **ad_launches, **ws_launches, **tail_launches, **bf16_launches, **corr_launches}
     kernels = []
     for k in KERNELS:
         r = checks[k.name]
@@ -1346,7 +1622,7 @@ def main() -> int:
                             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=None))
-    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s, the "
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s, the "
         f"build included")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

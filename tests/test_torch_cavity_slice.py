@@ -211,12 +211,20 @@ def test_run_aborts_on_blowup():
 @pytest.mark.parametrize("kw", [
     dict(poisson="sor"), dict(n_interior=63, poisson="auto"), dict(dtype=torch.float64),
     dict(forcing=(0.0, 0.0)), dict(fuse_pre=True), dict(layout="aligned"),
-    dict(n_interior=30), dict(mg_overrides={"whole_solve": True, "coarse_dtype": "bfloat16"}),
-    dict(mg_overrides={"corr_opt": True}), dict(mg_overrides={"tail_from": 1}),
+    dict(n_interior=30), dict(mg_overrides={"pin_mean": True}),
+    dict(mg_overrides={"pin_mean": True, "whole_solve": True}),
 ])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         make_cavity_case(device="cpu", **{**KW, "dtype": torch.float32, **kw})
+
+
+@pytest.mark.parametrize("ov", [{"corr_opt": True}])
+def test_separable_corr_opt_raises(ov):
+    """corr_opt is the masked hierarchy's knob: the reference's ValueError
+    (cfd_tpu/poisson/multigrid.py:664-667)."""
+    with pytest.raises(ValueError, match="corr_opt is a masked defect-correction knob"):
+        make_cavity_case(device="cpu", **{**KW, "dtype": torch.float32, "mg_overrides": ov})
 
 
 def test_whole_step_option_builds_and_steps():

@@ -191,13 +191,20 @@ def test_handover_from_jax_continues(ref, via, tmp_path):
 
 @pytest.mark.parametrize("kw", [
     dict(poisson="sor"), dict(nx=93, ny=31, poisson="auto"), dict(dtype=torch.float64),
-    dict(layout="aligned"), dict(ny=30), dict(mg_overrides={"corr_opt": True}),
-    dict(mg_overrides={"whole_solve": True, "coarse_dtype": "bfloat16"}),
-    dict(mg_overrides={"tail_from": 1}), dict(mg_overrides={"pin_mean": True}),
+    dict(layout="aligned"), dict(ny=30), dict(mg_overrides={"pin_mean": True, "whole_step": True}),
+    dict(mg_overrides={"pin_mean": True, "whole_solve": True}),
+    dict(mg_overrides={"pin_mean": True, "tail_from": 1}), dict(mg_overrides={"pin_mean": True}),
 ])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         make_channel_case(device="cpu", **{**KW, "dtype": torch.float32, **kw})
+
+
+@pytest.mark.parametrize("ov", [{"corr_opt": True}])
+def test_separable_corr_opt_raises(ov):
+    """The reference's ValueError for corr_opt on a separable hierarchy."""
+    with pytest.raises(ValueError, match="corr_opt is a masked defect-correction knob"):
+        make_channel_case(device="cpu", **{**KW, "dtype": torch.float32, "mg_overrides": ov})
 
 
 def test_whole_step_option_builds_and_steps():

@@ -162,14 +162,26 @@ def test_bf16_coarse_solve_matches_jax_bf16():
 
 
 @pytest.mark.parametrize("knob", [dict(pin_mean=True),
-                                  dict(whole_solve=True, coarse_dtype="bfloat16"),
-                                  dict(whole_solve=True, coarse_dtype="bf16"),
-                                  dict(tail_from=1),
-                                  dict(corr_opt=True)])
+                                  dict(pin_mean=True, whole_solve=True,
+                                       coarse_dtype="bfloat16"),
+                                  dict(pin_mean=True, whole_solve=True, coarse_dtype="bf16"),
+                                  dict(pin_mean=True, tail_from=1)])
 def test_unported_mg_options_raise(knob):
+    """pin_mean off a pure-Neumann problem stays unported, alone and beside
+    the knobs that are ported."""
     n = 32
     cfg = dataclasses.replace(TM.MGConfig(), **knob)
     with pytest.raises(NotImplementedError):
+        TM.make_multigrid_poisson(TM.cavity_problem(n, n, 1 / n, 1 / n), cfg,
+                                  _port_l0(n, cfg))
+
+
+@pytest.mark.parametrize("knob", [dict(corr_opt=True)])
+def test_separable_corr_opt_raises(knob):
+    """The reference's ValueError (cfd_tpu/poisson/multigrid.py:664-667)."""
+    n = 32
+    cfg = dataclasses.replace(TM.MGConfig(), **knob)
+    with pytest.raises(ValueError, match="corr_opt is a masked defect-correction knob"):
         TM.make_multigrid_poisson(TM.cavity_problem(n, n, 1 / n, 1 / n), cfg,
                                   _port_l0(n, cfg))
 

@@ -202,13 +202,19 @@ def test_stats_rows_and_banner_match_jax(ref):
 
 @pytest.mark.parametrize("kw", [
     dict(dtype=torch.float64), dict(layout="aligned"), dict(ny=14),
-    dict(mg_overrides={"corr_opt": True}),
-    dict(mg_overrides={"whole_solve": True, "coarse_dtype": "bfloat16"}),
-    dict(mg_overrides={"tail_from": 1}),
+    dict(layout="natural"),
+    dict(nx=62, ny=30),
 ])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         _port(**kw)
+
+
+@pytest.mark.parametrize("ov", [{"corr_opt": True}])
+def test_separable_corr_opt_raises(ov):
+    """The reference's ValueError for corr_opt on a separable hierarchy."""
+    with pytest.raises(ValueError, match="corr_opt is a masked defect-correction knob"):
+        _port(mg_overrides=ov)
 
 
 def test_whole_step_option_builds_and_steps():

@@ -340,9 +340,13 @@ def test_masked_solve_guards(cases):
     g, c = port.grid, port.coeffs
     with pytest.raises(ValueError, match="coarse_dtype"):
         TM.make_masked_quad_multigrid_poisson(g, c, TM.MGConfig(coarse_dtype="bfloat16"))
-    for knob in (dict(corr_opt=True), dict(tail_from=1), dict(pin_mean=True)):
-        with pytest.raises(NotImplementedError):
-            TM.make_masked_quad_multigrid_poisson(g, c, TM.MGConfig(**knob))
+    with pytest.raises(NotImplementedError):
+        TM.make_masked_quad_multigrid_poisson(g, c, TM.MGConfig(pin_mean=True))
+    # corr_opt and tail_from are ported: they build (the fused tail from
+    # global level 1, the whole coarse hierarchy)
+    assert TM.make_masked_quad_multigrid_poisson(g, c, TM.MGConfig(corr_opt=True)).cfg.corr_opt
+    tail = TM.make_masked_quad_multigrid_poisson(g, c, TM.MGConfig(tail_from=1))
+    assert tail.tail_from == 1 and len(tail.tail.levels) == len(tail.levels)
     with pytest.raises(ValueError, match="rectangle"):
         TM.make_masked_quad_multigrid_poisson(TM_regular(), c, TM.MGConfig())
 

@@ -97,8 +97,11 @@ def test_cpu_dispatch_runs_plain_and_counts_no_launch():
 
 
 def test_bf16_hierarchy_and_shallow_hierarchies_raise():
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        _port(TM.MGConfig(coarse_dtype="bfloat16"))
+    """The bf16 hierarchy is ported (tests/test_torch_coarse_bf16.py); any
+    other coarse_dtype raises the reference's ValueError."""
+    assert _port(TM.MGConfig(coarse_dtype="bfloat16")).mg.store_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="bfloat16"):
+        _port(TM.MGConfig(coarse_dtype="float16"))
     with pytest.raises(ValueError, match="3 levels"):
         TW.make_quad_whole_solve((18, 34), TM.channel_problem(32, 16, 0.1, 0.1),
                                  TM.MGConfig(min_coarse=8))
