@@ -23,7 +23,22 @@ whole_solve or whole_step (the whole-solve's bf16 rounding) are manual;
 stepping: ``adaptive_impl`` (the exact controller: the traced-dt non-carry
 stage, the solve, the traced-dt corrector) and ``adaptive_impl_carry`` (the
 lagged controller on the traced-dt + Courant carry),
-cfd_tpu/cases/cavity.py:296-378. Everything else raises
+cfd_tpu/cases/cavity.py:296-378.
+
+The natural aligned layout (cfd_tpu/cases/cavity.py:379-412), under
+``layout="aligned"`` and by the auto rule wherever the quad layout does not
+exist (n = 14 mod 16, where the aligned level-1 shape differs from the quad
+plane shape): the natural stage kernels (kernels.projection, the
+predictor+source with max|b| and the corrector with the guess), the
+aligned solve (MultigridPoisson without quad_level0: the row-5 smoothers
+with the fused residuals, ``tail_from`` and ``coarse_dtype`` as the
+reference takes them, no auto bf16 and no whole-solve) and the non-carry
+ordering (solver._natural_step). The carried state is the (H8, W) aligned
+layout whose p_prev slot holds the next guess (convert.natural_converters).
+whole_solve and whole_step off the quad path raise the reference's
+ValueError, pin_mean its ValueError (the cavity's problem is not pure
+Neumann), adaptive dt NotImplementedError (the reference's
+make_adaptive_step, ROADMAP.md queue A item 6). Everything else raises
 NotImplementedError rather than being ignored.
 """
 
@@ -35,6 +50,7 @@ import torch
 
 from cfd_tpu_torch.bc import lid_cavity_bc
 from cfd_tpu_torch.grid import Grid, cfl_time_step, optimal_omega
+from cfd_tpu_torch.kernels.projection import make_corrector, make_predictor_source
 from cfd_tpu_torch.kernels.quad import (
     from_quad,
     make_quad_corr_predictor_source,
@@ -60,7 +76,7 @@ from cfd_tpu_torch.poisson.multigrid import (
     normalize_coarse_dtype_optout,
 )
 from cfd_tpu_torch.precision import as_dtype
-from cfd_tpu_torch.solver import Case
+from cfd_tpu_torch.solver import Case, natural_case
 from cfd_tpu_torch.state import State, StepDiagnostics
 
 
@@ -84,7 +100,7 @@ def make_cavity_case(
     dt: float | None = None,
     poisson: str = "auto",  # "auto" | "multigrid" ("sor" is not ported)
     dtype=torch.float64,
-    layout: str = "auto",  # "auto" | "quad"
+    layout: str = "auto",  # "auto" | "quad" | "aligned"
     mg_overrides: dict | None = None,  # MGConfig field overrides
     forcing: tuple | None = None,
     fuse_pre: bool = False,
@@ -123,14 +139,16 @@ def make_cavity_case(
         raise _not_ported("body forcing", "ROADMAP.md queue A item 11")
     if fuse_pre:
         raise _not_ported("fuse_pre", "ROADMAP.md queue B row 7")
-    if layout not in ("auto", "quad"):
-        raise _not_ported(f"layout={layout!r}", "ROADMAP.md queue B row 11")
+    if layout not in ("auto", "quad", "aligned"):
+        raise ValueError(f"unknown layout {layout!r} (auto, quad or aligned)")
     coarse_shape = _round_up8_128((n_interior // 2 + 2, n_interior // 2 + 2))
     _, _, Hq8, Wqa = quad_dims(grid.shape)
-    if coarse_shape != (Hq8, Wqa):
-        # n = 14 mod 16: the reference runs the natural-layout kernels here
-        raise _not_ported(f"n_interior={n_interior} (coarse shape {coarse_shape} != "
-                          f"quad plane shape {(Hq8, Wqa)})", "ROADMAP.md queue B row 11")
+    # the quad layout needs the aligned level-1 shape to be the quad plane
+    # shape; n = 14 mod 16 takes the natural layout (cavity.py:151-164)
+    use_quad = layout in ("auto", "quad") and coarse_shape == (Hq8, Wqa)
+    if layout == "quad" and not use_quad:
+        raise ValueError(f"quad layout unavailable: coarse shape {coarse_shape} != "
+                         f"quad plane shape {(Hq8, Wqa)}")
 
     explicit_f32_coarse, mg_overrides = normalize_coarse_dtype_optout(mg_overrides)
     mg = MGConfig(tol_factor=tolerance_factor, abs_tol=0.0)
@@ -139,13 +157,28 @@ def make_cavity_case(
     # f32 perf path: V(2,1) (cfd_tpu/cases/cavity.py:139-144)
     if not (mg_overrides and "post_sweeps" in mg_overrides):
         mg = dataclasses.replace(mg, post_sweeps=1)
+    problem = cavity_problem(n_interior, n_interior, grid.dx, grid.dy)
+    common = dict(
+        poisson_max_iters=mg.max_cycles, name="cavity", extrapolate_warm_start=True,
+        grid=grid, coeffs=coeffs, ordering="cavity",
+        velocity_bc=lid_cavity_bc(grid, lid_velocity), remove_source_mean=False,
+        ke_divisor=n_interior * n_interior, final_time=final_time,
+        total_steps=int(final_time / dt), print_interval=print_interval,
+        save_interval=save_interval, dtype=dtype, device=device)
+    info = dict(banner_title="Lid-Driven Cavity Flow Simulation", length=cavity_length,
+                height=cavity_height, square_spacing=True, reynolds=reynolds_number,
+                cfl=cfl_number, omega=omega, lid_velocity=lid_velocity)
+    if not use_quad:
+        return natural_case(mg, common, info,
+                            (make_predictor_source(grid.shape, coeffs, lid_velocity),
+                             make_corrector(grid.shape, coeffs, lid_velocity)),
+                            lambda: make_multigrid_poisson(problem, mg, device=device))
     on_cuda = device.type == "cuda"
     # the bf16 coarse hierarchy of the auto rule, for the per-kernel fallback
     # only (the reference's mg_fb, cfd_tpu/cases/cavity.py:219-245)
     mg_fb = (dataclasses.replace(mg, coarse_dtype="bfloat16")
              if auto_bf16_coarse(on_cuda, explicit_f32_coarse, mg, mg_overrides) else mg)
 
-    problem = cavity_problem(n_interior, n_interior, grid.dx, grid.dy)
     corr = make_quad_corrector(grid.shape, coeffs, lid_velocity)
     carry = make_quad_corr_predictor_source(grid.shape, coeffs, lid_velocity)
 
@@ -238,31 +271,13 @@ def make_cavity_case(
         return step, to_aligned, to_logical
 
     return Case(
-        poisson_max_iters=mg.max_cycles,
         step_kernels=(carry, corr),
         align_state=align_state,
         unalign_state=unalign_state,
-        name="cavity",
-        extrapolate_warm_start=True,
-        grid=grid,
-        coeffs=coeffs,
-        ordering="cavity",
-        velocity_bc=lid_cavity_bc(grid, lid_velocity),
         poisson_solve=solve,
-        remove_source_mean=False,
-        ke_divisor=n_interior * n_interior,
-        final_time=final_time,
-        total_steps=int(final_time / dt),
-        print_interval=print_interval,
-        save_interval=save_interval,
-        dtype=dtype,
-        device=device,
-        info=dict(banner_title="Lid-Driven Cavity Flow Simulation",
-                  length=cavity_length, height=cavity_height,
-                  square_spacing=True, reynolds=reynolds_number,
-                  cfl=cfl_number, omega=omega, lid_velocity=lid_velocity,
-                  mg=mg),
+        info=dict(info, mg=mg),
         adaptive_impl=adaptive_impl,
         adaptive_impl_carry=adaptive_impl_carry,
         whole_step_kernel=whole_step,
+        **common,
     )

@@ -16,7 +16,19 @@ step in one kernel under ``mg_overrides={"whole_step": True}``
 adaptive controller's ``adaptive_impl_carry`` (cfd_tpu/cases/channel.py:
 212-263). The multigrid knobs ``tail_from`` and ``coarse_dtype="bfloat16"``
 (with whole_solve or whole_step) are manual; ``corr_opt`` raises the
-reference's ValueError. Everything else raises NotImplementedError rather
+reference's ValueError.
+
+The natural aligned layout (cfd_tpu/cases/channel.py:264-297), under
+``layout="aligned"`` and by the auto rule wherever the quad layout does not
+exist (ny or nx = 14 mod 16 and the like, where the aligned level-1 shape
+differs from the quad plane shape): the natural channel stage kernels
+(kernels.projection), the source mean removal, the aligned solve
+(MultigridPoisson without quad_level0) and the non-carry ordering
+(solver._natural_step), with the cavity's converters
+(convert.natural_converters). whole_solve and whole_step off the quad path
+raise the reference's ValueError; adaptive dt raises (the exact controller
+NotImplementedError, ROADMAP.md queue A item 6; the lagged one the
+reference's ValueError). Everything else raises NotImplementedError rather
 than being ignored.
 """
 
@@ -28,6 +40,10 @@ import torch
 
 from cfd_tpu_torch.bc import channel_bc
 from cfd_tpu_torch.grid import Grid, cfl_time_step, optimal_omega
+from cfd_tpu_torch.kernels.projection import (
+    make_channel_corrector,
+    make_channel_predictor_source,
+)
 from cfd_tpu_torch.kernels.quad import (
     from_quad,
     make_quad_channel_corr_predictor_source,
@@ -51,7 +67,7 @@ from cfd_tpu_torch.poisson.multigrid import (
     mg_compatible,
 )
 from cfd_tpu_torch.precision import as_dtype
-from cfd_tpu_torch.solver import Case, remove_mean_quad
+from cfd_tpu_torch.solver import Case, natural_case, remove_mean_quad
 from cfd_tpu_torch.state import State, StepDiagnostics
 
 
@@ -77,7 +93,7 @@ def make_channel_case(
     dt: float | None = None,
     poisson: str = "auto",  # "auto" | "multigrid" ("sor" is not ported)
     dtype=torch.float64,
-    layout: str = "auto",  # "auto" | "quad"
+    layout: str = "auto",  # "auto" | "quad" | "aligned"
     mg_overrides: dict | None = None,  # MGConfig field overrides
     device="cuda",  # "cpu" runs the kernels' plain PyTorch twins
 ) -> Case:
@@ -110,17 +126,14 @@ def make_channel_case(
         raise ValueError(f"unknown poisson solver: {poisson}")
     if dtype != torch.float32:
         raise _not_ported("the float64 multigrid path", "ROADMAP.md queue A item 3")
-    if layout not in ("auto", "quad"):
-        raise _not_ported(f"layout={layout!r}", "ROADMAP.md queue B row 11")
+    if layout not in ("auto", "quad", "aligned"):
+        raise ValueError(f"unknown layout {layout!r} (auto, quad or aligned)")
     coarse_shape = _round_up8_128((ny // 2 + 2, nx // 2 + 2))
     _, _, Hq8, Wqa = quad_dims(grid.shape)
-    if coarse_shape != (Hq8, Wqa):
-        if layout == "quad":
-            raise ValueError(f"quad layout unavailable: coarse shape {coarse_shape} != "
-                             f"quad plane shape {(Hq8, Wqa)}")
-        # n = 14 mod 16: the reference runs the natural-layout kernels here
-        raise _not_ported(f"nx={nx}, ny={ny} (coarse shape {coarse_shape} != quad "
-                          f"plane shape {(Hq8, Wqa)})", "ROADMAP.md queue B row 11")
+    use_quad = layout in ("auto", "quad") and coarse_shape == (Hq8, Wqa)
+    if layout == "quad" and not use_quad:
+        raise ValueError(f"quad layout unavailable: coarse shape {coarse_shape} != "
+                         f"quad plane shape {(Hq8, Wqa)}")
 
     mg = MGConfig(tol_factor=tolerance_factor, abs_tol=abs_tol)
     if mg_overrides:
@@ -130,6 +143,21 @@ def make_channel_case(
                               or "pre_sweeps" in mg_overrides)):
         mg = dataclasses.replace(mg, pre_sweeps=1, post_sweeps=2)
     problem = channel_problem(nx, ny, grid.dx, grid.dy)
+    common = dict(
+        name="channel", poisson_max_iters=mg.max_cycles, extrapolate_warm_start=True,
+        grid=grid, coeffs=coeffs, ordering="channel",
+        velocity_bc=channel_bc(grid, inlet_velocity), remove_source_mean=True,
+        ke_divisor=nx * ny, final_time=final_time, total_steps=int(final_time / dt),
+        print_interval=print_interval, save_interval=save_interval, dtype=dtype,
+        device=device)
+    info = dict(banner_title="Channel Flow Simulation", length=length, height=height,
+                reynolds=reynolds_number, cfl=cfl, omega=omega,
+                inlet_velocity=inlet_velocity, mg=mg)
+    if not use_quad:
+        return natural_case(mg, common, info,
+                            (make_channel_predictor_source(grid.shape, coeffs, inlet_velocity),
+                             make_channel_corrector(grid.shape, coeffs, inlet_velocity)),
+                            lambda: make_multigrid_poisson(problem, mg, device=device))
 
     corr = make_quad_channel_corrector(grid.shape, coeffs, inlet_velocity)
     carry = make_quad_channel_corr_predictor_source(grid.shape, coeffs, inlet_velocity)
@@ -200,28 +228,12 @@ def make_channel_case(
         return step, to_aligned, to_logical
 
     return Case(
-        name="channel",
-        poisson_max_iters=mg.max_cycles,
         step_kernels=(carry, corr),
         align_state=align_state,
         unalign_state=unalign_state,
-        extrapolate_warm_start=True,
-        grid=grid,
-        coeffs=coeffs,
-        ordering="channel",
-        velocity_bc=channel_bc(grid, inlet_velocity),
         poisson_solve=solve,
-        remove_source_mean=True,
-        ke_divisor=nx * ny,
-        final_time=final_time,
-        total_steps=int(final_time / dt),
-        print_interval=print_interval,
-        save_interval=save_interval,
-        dtype=dtype,
-        device=device,
-        info=dict(banner_title="Channel Flow Simulation",
-                  length=length, height=height, reynolds=reynolds_number,
-                  cfl=cfl, omega=omega, inlet_velocity=inlet_velocity, mg=mg),
+        info=dict(info, mg=mg),
         adaptive_impl_carry=adaptive_impl_carry,
         whole_step_kernel=whole_step,
+        **common,
     )

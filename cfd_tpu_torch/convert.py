@@ -6,6 +6,8 @@ padded (ny+2, nx+2) grid. These helpers move it as
 numpy arrays, so a run that cfd_tpu started can be continued by
 cfd_tpu_torch (``Simulation.run(state=...)`` aligns a logical state into
 the carried layout itself), and the tests can feed both from one state.
+``natural_converters`` are the natural aligned layout's align_state and
+unalign_state, the carried layout of the cases' non-carry paths.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from cfd_tpu_torch.kernels.projection import aligned_shape
 from cfd_tpu_torch.state import State
 
 
@@ -48,3 +51,32 @@ def load_jax_checkpoint(path, case, device=None) -> tuple[State, int]:
                                  z["T"] if "T" in z.files else None, device=device,
                                  dtype=case.dtype)
         return state, int(z["step"])
+
+
+def natural_converters(shape: tuple[int, int]):
+    """(align_state, unalign_state) of the natural aligned carry
+    (cfd_tpu/cases/cavity.py:395-412, channel.py:280-297): every field
+    padded with zeros from the logical ``shape`` to (H8, W), or sliced
+    back, and the p_prev slot swapped: the carry holds the next solve's
+    guess 2p - p_prev, the logical state the previous pressure, and
+    x -> 2p - x converts in both directions (one float32 rounding each
+    way, as the reference's)."""
+    H, Wp = shape
+    H8, W = aligned_shape(shape)
+
+    def swap_guess(st: State) -> State:
+        if st.p_prev is None:
+            return st
+        return State(st.u, st.v, st.p, st.T, 2.0 * st.p - st.p_prev)
+
+    def pad(a):
+        return None if a is None else torch.nn.functional.pad(a, (0, W - Wp, 0, H8 - H))
+
+    def align_state(st: State) -> State:
+        return swap_guess(State(*(pad(a) for a in st)))
+
+    def unalign_state(st: State) -> State:
+        return swap_guess(State(*(None if a is None else a[:H, :Wp].contiguous()
+                                  for a in st)))
+
+    return align_state, unalign_state

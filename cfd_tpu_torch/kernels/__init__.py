@@ -3,11 +3,18 @@
 ``KERNELS`` lists every kernel entry point of the ported paths (the cavity,
 the channel, the backward step and Rayleigh-Benard at a fixed dt, their
 adaptive-stepping instances, their whole time steps in one launch, the
-fused coarse tail and the bfloat16 and corr_opt instances of the
-whole-solve and the whole step), each with its launch counter
+fused coarse tail, the bfloat16 and corr_opt instances of the whole-solve
+and the whole step, and the natural layout's stage kernels, fused-residual
+pairs and exact masked pairs), each with its launch counter
 (kernels._build.Kernel)."""
 
 from cfd_tpu_torch.kernels.mg_tail import MG_TAIL, MG_TAIL_FULL
+from cfd_tpu_torch.kernels.projection import (
+    CHANNEL_CORRECTOR as NATURAL_CHANNEL_CORRECTOR,
+    CHANNEL_PREDICTOR_SOURCE as NATURAL_CHANNEL_PREDICTOR_SOURCE,
+    CORRECTOR as NATURAL_CORRECTOR,
+    PREDICTOR_SOURCE as NATURAL_PREDICTOR_SOURCE,
+)
 from cfd_tpu_torch.kernels.quad import (
     CARRY,
     CARRY_ADAPTIVE,
@@ -27,7 +34,7 @@ from cfd_tpu_torch.kernels.rb_quad import (
     RB_CORRECTOR,
     RB_CORRECTOR_TRACED,
 )
-from cfd_tpu_torch.kernels.rb_smoother import RB_PAIRS, RB_PAIRS_FULL
+from cfd_tpu_torch.kernels.rb_smoother import RB_PAIRS, RB_PAIRS_FULL, RB_PAIRS_RES
 from cfd_tpu_torch.kernels.step_quad import (
     STEP_CARRY,
     STEP_CARRY_ADAPTIVE,
@@ -36,6 +43,7 @@ from cfd_tpu_torch.kernels.step_quad import (
     STEP_POST,
     STEP_PRE,
 )
+from cfd_tpu_torch.kernels.step_smoother import STEP_PAIRS, STEP_PAIRS_RES
 from cfd_tpu_torch.kernels.whole_solve import (
     STEP_WHOLE_SOLVE,
     STEP_WHOLE_SOLVE_BF16,
@@ -66,6 +74,8 @@ KERNELS = (CARRY, CORRECTOR, PRE, POST, RB_PAIRS, CHANNEL_CARRY, CHANNEL_CORRECT
            WHOLE_STEP_RB, WHOLE_STEP_STEP, MG_TAIL, MG_TAIL_FULL, WHOLE_SOLVE_BF16,
            WHOLE_SOLVE_PIN_MEAN_BF16, STEP_WHOLE_SOLVE_BF16, WHOLE_STEP_CAVITY_BF16,
            WHOLE_STEP_CHANNEL_BF16, WHOLE_STEP_RB_BF16, WHOLE_STEP_STEP_BF16,
-           STEP_WHOLE_SOLVE_CORR_OPT, WHOLE_STEP_STEP_CORR_OPT)
+           STEP_WHOLE_SOLVE_CORR_OPT, WHOLE_STEP_STEP_CORR_OPT, NATURAL_PREDICTOR_SOURCE,
+           NATURAL_CORRECTOR, NATURAL_CHANNEL_PREDICTOR_SOURCE, NATURAL_CHANNEL_CORRECTOR,
+           RB_PAIRS_RES, STEP_PAIRS, STEP_PAIRS_RES)
 
 __all__ = ["KERNELS"]

@@ -51,7 +51,7 @@ SIGNATURES = {
     "cfd_quad_carry": [_P] * 11 + [_I] * 4 + [_F] * 10 + [_P],
     "cfd_quad_pre_smooth_restrict": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I, _P],
     "cfd_quad_post_prolong_smooth": [_P] * 9 + [_I] * 4 + [_F] * 3 + [_I, _P],
-    "cfd_rb_pairs": [_I] + [_P] * 9 + [_I] * 4 + [_F] * 3 + [_I, _P],
+    "cfd_rb_pairs": [_I] + [_P] * 10 + [_I] * 4 + [_F] * 3 + [_I, _P],
     "cfd_quad_channel_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
     "cfd_quad_channel_carry": [_P] * 12 + [_I] * 4 + [_F] * 10 + [_P],
     "cfd_whole_solve": ([_I] + [_P] * 14 + [_I] * 6 + [_F] * 4 + [_I] + [_P] * 3 + [_F]
@@ -83,6 +83,13 @@ SIGNATURES = {
     "cfd_step_carry_adaptive": [_P] * 12 + [_I] * 6 + [_F] * 9 + [_P],
     "cfd_rb_corrector_traced": [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P],
     "cfd_rb_carry_adaptive": [_P] * 14 + [_I] * 4 + [_F] * 11 + [_P],
+    # the natural layout: the four stage kernels and the step's exact
+    # masked finest-level pairs
+    "cfd_predictor_source": [_P] * 6 + [_I] * 4 + [_F] * 8 + [_P],
+    "cfd_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
+    "cfd_channel_predictor_source": [_P] * 7 + [_I] * 4 + [_F] * 8 + [_P],
+    "cfd_channel_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
+    "cfd_step_pairs": [_P] * 6 + [_I] * 6 + [_F] * 5 + [_I, _P],
 }
 
 

@@ -3,7 +3,11 @@ port of cfd_tpu.kernels.rb_smoother).
 
 ``pairs(p, b) -> p`` after n red+black Gauss-Seidel pairs, or with
 ``with_residual_field`` ``-> (p, r)`` with the signed residual b - A p of
-the smoothed iterate, masked to the interior. Arrays are the aligned
+the smoothed iterate, masked to the interior, or with ``with_residual``
+``-> (p, max|b - A p|)`` over the interior (separable weights only: the
+natural finest level's post-smooth and tolerance check,
+cfd_tpu/poisson/multigrid.py:715-719), a 0-d float32 tensor on the
+fields' device. Arrays are the aligned
 (H8, W) levels of the multigrid hierarchy in their storage dtype (float32,
 or bfloat16 for the mixed-precision coarse hierarchy); the arithmetic is
 always float32 and the iterate is rounded to the storage type once, after
@@ -28,6 +32,8 @@ RB_PAIRS = Kernel("rb_pairs", "cfd_rb_pairs", "cfd_tpu_torch/csrc/rb_smoother.cu
 RB_PAIRS_FULL = Kernel("rb_pairs_full", "cfd_rb_pairs_full",
                        "cfd_tpu_torch/csrc/rb_smoother.cu",
                        "cfd_tpu/kernels/rb_smoother.py:37")
+RB_PAIRS_RES = Kernel("rb_pairs_residual", "cfd_rb_pairs", "cfd_tpu_torch/csrc/rb_smoother.cu",
+                      "cfd_tpu/kernels/rb_smoother.py:37 (with_residual)")
 
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,7 +50,7 @@ class RBPairs(nn.Module):
 
     def __init__(self, shape, wE, wW, wN, wS, idx2: float, idy2: float, omega: float,
                  n_pairs: int, ny: int, nx: int, dtype=torch.float32,
-                 with_residual_field: bool = False):
+                 with_residual_field: bool = False, with_residual: bool = False):
         super().__init__()
         if dtype not in _STORAGE:
             raise ValueError(f"storage dtype must be float32 or bfloat16, got {dtype}")
@@ -55,10 +61,15 @@ class RBPairs(nn.Module):
         self.dtype = dtype
         self.idx2, self.idy2, self.omega = idx2, idy2, omega
         self.n_pairs, self.ny, self.nx = n_pairs, ny, nx
+        if with_residual and with_residual_field:
+            raise ValueError("with_residual and with_residual_field are exclusive")
         self.with_residual_field = with_residual_field
+        self.with_residual = with_residual
         self.full = torch.as_tensor(wE).dim() == 2
         if self.full and dtype != torch.float32:
             raise ValueError("full-2D weights are float32 only")
+        if self.full and with_residual:
+            raise ValueError("with_residual takes separable weights")
         cols, rows = ((H8, W), (H8, W)) if self.full else (W, H8)
         f32 = lambda w, n: torch.as_tensor(w, dtype=torch.float32).reshape(n).clone()
         self.register_buffer("wE", f32(wE, cols))
@@ -110,7 +121,7 @@ class RBPairs(nn.Module):
         for _ in range(self.n_pairs):
             p = half(p, interior & even)
             p = half(p, interior & ~even)
-        if not self.with_residual_field:
+        if not (self.with_residual_field or self.with_residual):
             return p.to(self.dtype)
         pE = torch.roll(p, -1, dims=1)
         pW = torch.roll(p, 1, dims=1)
@@ -119,6 +130,8 @@ class RBPairs(nn.Module):
         ap = (idx2 * (we * (pE - p) + ww * (pW - p))
               + idy2 * (wn * (pN - p) + ws * (pS - p)))
         r = torch.where(interior, b - ap, torch.zeros_like(b))
+        if self.with_residual:
+            return p.to(self.dtype), torch.max(torch.abs(r))
         return p.to(self.dtype), r.to(self.dtype)
 
     def kernel(self, p, b):
@@ -135,15 +148,22 @@ class RBPairs(nn.Module):
         scratch = out if self.dtype == torch.float32 else torch.empty(
             self.shape, dtype=torch.float32, device=p.device)
         r = torch.empty_like(p) if self.with_residual_field else None
-        RB_PAIRS(p, _STORAGE[self.dtype], ptr(p), ptr(b), ptr(out), ptr(scratch),
-                 ptr(r) if r is not None else ctypes.c_void_p(None),
-                 ptr(self.wE), ptr(self.wW), ptr(self.wN), ptr(self.wS), H8, W, self.ny,
-                 self.nx, self.idx2, self.idy2, self.omega, self.n_pairs)
+        res = (torch.empty((), dtype=torch.float32, device=p.device) if self.with_residual
+               else None)
+        null = ctypes.c_void_p(None)
+        (RB_PAIRS_RES if self.with_residual else RB_PAIRS)(
+            p, _STORAGE[self.dtype], ptr(p), ptr(b), ptr(out), ptr(scratch),
+            ptr(r) if r is not None else null, ptr(res) if res is not None else null,
+            ptr(self.wE), ptr(self.wW), ptr(self.wN), ptr(self.wS), H8, W, self.ny, self.nx,
+            self.idx2, self.idy2, self.omega, self.n_pairs)
+        if self.with_residual:
+            return out, res
         return out if r is None else (out, r)
 
 
 def rb_pairs_for_level(level, omega: float, n_pairs: int,
-                       with_residual_field: bool = False) -> RBPairs:
+                       with_residual_field: bool = False,
+                       with_residual: bool = False) -> RBPairs:
     """Adapter from an aligned multigrid level (poisson.multigrid._Level) to
     the smoother, in the level's storage dtype and on the level's device; a
     masked level's (H8, W) weights select the full-2D mode."""
@@ -152,4 +172,5 @@ def rb_pairs_for_level(level, omega: float, n_pairs: int,
         weights = [w.reshape(-1) for w in weights]
     return RBPairs(level.shape, *weights, level.idx2, level.idy2, omega, n_pairs, level.ny,
                    level.nx, dtype=level.dtype,
-                   with_residual_field=with_residual_field).to(level.wE.device)
+                   with_residual_field=with_residual_field,
+                   with_residual=with_residual).to(level.wE.device)

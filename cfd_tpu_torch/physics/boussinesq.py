@@ -230,7 +230,7 @@ def make_rayleigh_benard_case(
         raise _not_ported("the float64 Rayleigh-Benard step (the natural XLA path)",
                           "ROADMAP.md queue A item 9")
     if layout not in ("auto", "quad"):
-        raise _not_ported(f"layout={layout!r}", "ROADMAP.md queue B row 11")
+        raise _not_ported(f"layout={layout!r}", "ROADMAP.md queue A item 8")
     coarse_shape = _round_up8_128((ny // 2 + 2, nx // 2 + 2))
     _, _, Hq8, Wqa = quad_dims(grid.shape)
     if coarse_shape != (Hq8, Wqa):

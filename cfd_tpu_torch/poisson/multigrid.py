@@ -4,16 +4,20 @@ of cfd_tpu.poisson.multigrid).
 Ported: the rectangle (separable-weight) hierarchies of the cavity,
 channel and Rayleigh-Benard flavors (the last pure Neumann, with the
 per-cycle mean pin of ``MGConfig.pin_mean``), solved with the finest
-level in the quad layout (kernels.quad pre/post kernels) and every coarser
-level on aligned arrays (kernels.rb_smoother, composed by
-kernels.mg_tail.run_tail_vcycle), in float32 or with the bfloat16 coarse
-hierarchy of ``MGConfig.coarse_dtype``;
-and the backward step's masked defect-correction hierarchy
-(MaskedQuadMultigridPoisson: the exact masked finest level of
-kernels.step_quad over full-2D-weight coarse levels with the solid fill,
-and the line-searched level-1 correction of ``MGConfig.corr_opt``),
-float32 only. Both take ``MGConfig.tail_from``: every level from there
-down runs as one launch of the fused coarse tail (kernels.mg_tail.MGTail).
+level in the quad layout (kernels.quad pre/post kernels) or on the natural
+aligned layout (kernels.rb_smoother: the pre-smooth with the residual
+field, the post-smooth with the fused max|b - A p|, multigrid.py:562-900),
+and every coarser level on aligned arrays (kernels.rb_smoother, composed
+by kernels.mg_tail.run_tail_vcycle), in float32 or with the bfloat16
+coarse hierarchy of ``MGConfig.coarse_dtype``;
+and the backward step's masked defect-correction hierarchy, the exact
+masked finest level over full-2D-weight coarse levels with the solid fill
+and the line-searched level-1 correction of ``MGConfig.corr_opt``, float32
+only: on the quad layout (MaskedQuadMultigridPoisson, kernels.step_quad)
+and on the natural layout (MaskedMultigridPoisson, kernels.step_smoother,
+multigrid.py:968-1041). The separable solves and the quad masked solve take
+``MGConfig.tail_from``: every level from there down runs as one launch of
+the fused coarse tail (kernels.mg_tail.MGTail).
 The coarse-level restriction/prolongation and the coarsest dense solve are
 XLA glue in the reference, outside any kernel; here they are plain PyTorch
 ops (kernels.mg_tail), and so is corr_opt's steplength (_corr_alpha). The
@@ -50,6 +54,8 @@ from torch import nn
 
 from cfd_tpu_torch.kernels.mg_tail import (
     MGTail,
+    _prolong,
+    _restrict,
     _solid_fill,
     dense_coarse_solve,
     level_masks,
@@ -282,20 +288,24 @@ class _Level(nn.Module):
 
 
 def _build_level(p: PoissonProblem, dtype: torch.dtype, device="cpu",
-                 allow_full: bool = False, round_to: torch.dtype | None = None) -> _Level:
+                 allow_full: bool = False, round_to: torch.dtype | None = None,
+                 aligned: bool = True) -> _Level:
     """Aligned level (cfd_tpu _build_level(aligned=True)), its weights
     rounded to ``dtype`` (bf16: 4/3 -> 1.3359375), or with ``round_to``
     rounded to that type and kept in ``dtype`` (the whole-solve's bfloat16
     constants, cfd_tpu build_tail_consts(dtype=...)). A non-separable
     (masked) problem needs ``allow_full`` and keeps its whole 2D weights,
-    zero-padded to the aligned shape (multigrid.py:169-182)."""
+    zero-padded to the aligned shape (multigrid.py:169-182), or with
+    ``aligned=False`` on the logical (ny+2, nx+2) shape (the natural masked
+    solve's finest level)."""
     def t(a):
         w = torch.as_tensor(a, dtype=dtype, device=device)
         return w if round_to is None else w.to(round_to).to(dtype)
     if not _is_separable(p):
         if not allow_full:
             raise ValueError("aligned levels require separable weights")
-        H, W = _round_up8_128((p.ny + 2, p.nx + 2), dtype)
+        H, W = (_round_up8_128((p.ny + 2, p.nx + 2), dtype) if aligned
+                else (p.ny + 2, p.nx + 2))
         pad = lambda w: np.pad(w, ((0, H - w.shape[0]), (0, W - w.shape[1])))
         return _Level(t(pad(p.wE)), t(pad(p.wW)), t(pad(p.wN)), t(pad(p.wS)),
                       1.0 / (p.dx * p.dx), 1.0 / (p.dy * p.dy), (H, W), p.ny, p.nx,
@@ -351,6 +361,20 @@ class MultigridPoisson(nn.Module):
     quad_level0=...): p and b in the (4, Hq8, Wqa) quad layout, ``cycles``
     an int and ``res`` the final max|b - Ap| as a float32 host number.
 
+    With ``quad_level0=None`` the contract of make_multigrid_poisson(
+    aligned_io=True, use_pallas=True) without quad_level0 (multigrid.py:
+    562-900): p and b on the natural aligned (H8, W) level 0, the warm start
+    masked to the interior, a V-cycle of the level-0 pre-smooth with the
+    residual field (``pre0``, RBPairs(with_residual_field=True)), the
+    restriction, the coarse correction, the prolong-add and the post-smooth
+    with the fused residual (``post0``, RBPairs(with_residual=True)); the
+    tolerance loop reads that residual. The hierarchy needs 2 levels (the
+    natural auto sizes, n = 14 mod 16, have exactly 2: level 1 then goes
+    straight to the dense pinv). With ``cfg.coarse_dtype`` the restricted
+    residual enters level 1 in bfloat16 and the bf16 correction is promoted
+    in the prolong-add (multigrid.py:813-824). pin_mean off a pure-Neumann
+    problem raises the reference's ValueError (:670-674).
+
     ``cfg.pin_mean`` shifts p to zero mean over its nx * ny cells after
     every cycle (module docstring). ``cfg.tail_from`` (global level index,
     taken when 1 <= tail_from <= levels - 2 and otherwise ignored, as
@@ -367,7 +391,7 @@ class MultigridPoisson(nn.Module):
     and the coarsest pseudo-inverse; with pin_mean the quad cell mask and
     the cell count ``n_interior`` as a 0-d float32 tensor."""
 
-    def __init__(self, problem: PoissonProblem, cfg: MGConfig, quad_level0,
+    def __init__(self, problem: PoissonProblem, cfg: MGConfig, quad_level0=None,
                  device="cpu", store_dtype: torch.dtype | None = None):
         super().__init__()
         coarse_dt = None
@@ -385,6 +409,9 @@ class MultigridPoisson(nn.Module):
                              "hierarchies coarsen consistently (coarsen_problem "
                              "edge_fix) and do not take it")
         if cfg.pin_mean and not is_pure_neumann(problem):
+            if quad_level0 is None:
+                raise ValueError("aligned_io requires the plain Pallas-smoothed separable "
+                                 "path (pin_mean only for pure-Neumann problems)")
             # the reference takes it only on its unfused natural path there
             raise NotImplementedError(
                 "MGConfig pin_mean on a problem that is not pure Neumann (the unfused "
@@ -393,19 +420,31 @@ class MultigridPoisson(nn.Module):
         self.coarse_dt = coarse_dt
         self.store_dtype = store_dtype
         probs = build_problems(problem, cfg)
-        if len(probs) < 3:
+        if quad_level0 is not None and len(probs) < 3:
             raise ValueError("the quad-level-0 hierarchy needs at least 3 levels")
+        if len(probs) < 2:
+            raise ValueError("the aligned hierarchy needs at least 2 levels (one factor-2 "
+                             "coarsening)")
         self.levels = nn.ModuleList(
             _build_level(p, torch.float32 if k == 0 else (coarse_dt or torch.float32),
                          device, round_to=store_dtype if k > 0 else None)
             for k, p in enumerate(probs))
         self.register_buffer("pinv", _pinv_tensor(probs[-1], store_dtype, device))
+        self.aligned = quad_level0 is None
+        level0 = quad_level0
+        if self.aligned:
+            lv0 = self.levels[0]
+            self.register_buffer("interior0", level_masks(lv0, device)[0])
+            level0 = (rb_pairs_for_level(lv0, cfg.omega, cfg.pre_sweeps,
+                                         with_residual_field=True),
+                      rb_pairs_for_level(lv0, cfg.omega, cfg.post_sweeps, with_residual=True))
         if cfg.pin_mean:  # pure Neumann: the interior is the whole rectangle
             self.n_interior = problem.nx * problem.ny
-            self.register_buffer("cell", quad_cell_mask(problem.shape, device))
+            self.register_buffer("cell", self.interior0 if self.aligned
+                                 else quad_cell_mask(problem.shape, device))
             self.register_buffer("n_int", torch.tensor(float(self.n_interior),
                                                        dtype=torch.float32, device=device))
-        self.pre0, self.post0 = quad_level0
+        self.pre0, self.post0 = level0
         # coarse levels 1..L-2: pre-smooth + residual field, post-smooth
         inner = self.levels[1:-1]
         self.pre = nn.ModuleList(rb_pairs_for_level(lv, cfg.omega, cfg.pre_sweeps,
@@ -423,10 +462,10 @@ class MultigridPoisson(nn.Module):
         return dense_coarse_solve(self.levels[-1], self.pinv, b)
 
     def cycle(self, p: torch.Tensor, b: torch.Tensor, plain: bool = False):
-        """One V-cycle from the quad finest level: (p4, b4) -> (p4, res),
-        then the mean pin when ``cfg.pin_mean`` (res is taken before it).
-        ``plain`` runs every kernel's plain twin whatever the device."""
-        p, res = self._vcycle(p, b, plain)
+        """One V-cycle from the finest level: (p, b) -> (p, res), then the
+        mean pin when ``cfg.pin_mean`` (res is taken before it). ``plain``
+        runs every kernel's plain twin whatever the device."""
+        p, res = (self._vcycle_aligned if self.aligned else self._vcycle)(p, b, plain)
         if self.cfg.pin_mean:
             p = torch.where(self.cell, p - fixed_order_sum(p) / self.n_int, p)
         return p, res
@@ -446,7 +485,20 @@ class MultigridPoisson(nn.Module):
             ec = ec[: rc_shape[0], : rc_shape[1]].float().contiguous()
         return self.post0.plain(p, b, ec) if plain else self.post0(p, b, ec)
 
+    def _vcycle_aligned(self, p, b, plain):
+        """multigrid.py vcycle(0) without quad_level0 (:800-828)."""
+        p, r = self.pre0.plain(p, b) if plain else self.pre0(p, b)
+        lv0, lv1 = self.levels[0], self.levels[1]
+        rc = _restrict(lv0, lv1, r)
+        if self.coarse_dt is not None:
+            rc = rc.to(self.coarse_dt)  # enter the bf16 correction path
+        ec = _coarse_correction(self, self.levels[1:], rc, plain)
+        p = p + _prolong(lv1, lv0, ec)  # a bf16 ec is promoted in the add
+        return self.post0.plain(p, b) if plain else self.post0(p, b)
+
     def forward(self, p_warm: torch.Tensor, b: torch.Tensor, max_b=None):
+        if self.aligned:  # the warm start masked to the interior (:843-847)
+            p_warm = torch.where(self.interior0, p_warm, torch.zeros_like(p_warm))
         return tolerance_loop(p_warm, b, max_b, self.cfg, self.cycle)
 
 
@@ -470,8 +522,10 @@ def _coarse_correction(mg, coarse, rc, plain):
     return run_tail_vcycle(coarse[: mg.tail_from], rc, mg.pre, mg.post, tail, plain=plain)
 
 
-def make_multigrid_poisson(problem: PoissonProblem, cfg: MGConfig, quad_level0,
+def make_multigrid_poisson(problem: PoissonProblem, cfg: MGConfig, quad_level0=None,
                            device="cpu") -> MultigridPoisson:
+    """The separable solve: the quad finest level when ``quad_level0`` is
+    given, else the natural aligned one (MultigridPoisson)."""
     return MultigridPoisson(problem, cfg, quad_level0, device)
 
 
@@ -628,3 +682,91 @@ def make_masked_quad_multigrid_poisson(grid, coeffs, cfg: MGConfig, device="cpu"
           make_quad_step_post_prolong_smooth(n_pairs=cfg.post_sweeps, **kw))
     return MaskedQuadMultigridPoisson(masked_channel_problem(grid, coeffs.dx, coeffs.dy),
                                       cfg, l0, device, store_dtype)
+
+
+class MaskedMultigridPoisson(nn.Module):
+    """The step's defect-correction solve on the natural layout (cfd_tpu
+    make_masked_multigrid_poisson, multigrid.py:968-1041): ``solve(p_warm,
+    b, max_b=None) -> (p, cycles, res)`` with p and b on the logical
+    (ny+2, nx+2) grid.
+
+    The finest level smooths and measures the residual with the EXACT
+    operator (kernels.step_smoother: the pre-smooth with the residual field,
+    the post-smooth with its max, the reference's exact_level0_fused; their
+    plain twin is its smooth0 / residual0), the coarse levels 1.. use the
+    weighted masked approximation with full-2D weights, smoothed by
+    RBPairs (the full-2D kernel on the card, cfd_rb_pairs_full, whose twin
+    is the reference's XLA smoother of these levels: the reference's
+    ``use_pallas="auto"`` is False on them, :631-636), with the transfers
+    as glue. A natural step size (ny = 14 mod 16 or nx = 254 mod 256)
+    makes ny / 2 or nx / 2 odd, so its hierarchy has 2 levels and the dense
+    pinv is its only coarse level; grids built here directly may have
+    more. ``tail_from`` is ignored (:689-694). The warm start is not masked
+    (:846-847). ``cfg.corr_opt`` scales the level-1 correction by
+    _corr_alpha. float32 only; ``coarse_dtype`` raises the reference's
+    ValueError (it needs the aligned path, :652-654) and pin_mean is not
+    ported.
+
+    ``top`` is the finest level on the logical shape (full 2D weights);
+    ``levels`` holds the coarse levels (levels[0] is global level 1)."""
+
+    def __init__(self, grid, coeffs, cfg: MGConfig, device="cpu"):
+        super().__init__()
+        from cfd_tpu_torch.kernels.step_smoother import make_step_masked_pairs
+
+        if cfg.coarse_dtype is not None:
+            raise ValueError("coarse_dtype requires the aligned/quad f32 Pallas path "
+                             "(aligned_io=True)")
+        if cfg.pin_mean:
+            raise NotImplementedError("MGConfig pin_mean not ported yet for the masked "
+                                      "hierarchy (ROADMAP.md queue A)")
+        rect = step_rect_params(grid)
+        if rect is None:
+            raise ValueError("the natural masked multigrid needs the step rectangle raster")
+        probs = build_problems(masked_channel_problem(grid, coeffs.dx, coeffs.dy), cfg)
+        if len(probs) < 2:
+            raise ValueError("grid too small for the masked hierarchy")
+        self.cfg = cfg
+        self.top = _build_level(probs[0], torch.float32, device, allow_full=True,
+                                aligned=False)
+        self.levels = nn.ModuleList(_build_level(p, torch.float32, device, allow_full=True)
+                                    for p in probs[1:])
+        self.register_buffer("pinv", _pinv_tensor(probs[-1], None, device))
+        kw = dict(shape=grid.shape, step_i=rect[0], inlet_j_max=rect[1], idx2=coeffs.idx2,
+                  idy2=coeffs.idy2, omega=cfg.omega, device=device)
+        self.pre0 = make_step_masked_pairs(n_pairs=cfg.pre_sweeps, with_residual_field=True,
+                                           **kw)
+        self.post0 = make_step_masked_pairs(n_pairs=cfg.post_sweeps, with_residual=True,
+                                            **kw)
+        inner = self.levels[:-1]
+        self.pre = nn.ModuleList(rb_pairs_for_level(lv, cfg.omega, cfg.pre_sweeps,
+                                                    with_residual_field=True)
+                                 for lv in inner)
+        self.post = nn.ModuleList(rb_pairs_for_level(lv, cfg.omega, cfg.post_sweeps)
+                                  for lv in inner)
+
+    def coarse_solve(self, b: torch.Tensor) -> torch.Tensor:
+        return dense_coarse_solve(self.levels[-1], self.pinv, b)
+
+    def cycle(self, p: torch.Tensor, b: torch.Tensor, plain: bool = False):
+        """One V-cycle (multigrid.py vcycle(0) with exact_level0_fused,
+        :800-828): (p, b) -> (p, res). ``plain`` runs every kernel's plain
+        twin whatever the device."""
+        p, r = self.pre0.plain(p, b) if plain else self.pre0(p, b)
+        rc = _restrict(self.top, self.levels[0], r)
+        ec = run_tail_vcycle(self.levels, rc, self.pre, self.post, self.coarse_solve,
+                             plain=plain)
+        if self.cfg.corr_opt:
+            ec = _corr_alpha(self.levels[0], rc, ec) * ec
+        p = p + _prolong(self.levels[0], self.top, ec)
+        return self.post0.plain(p, b) if plain else self.post0(p, b)
+
+    def forward(self, p_warm: torch.Tensor, b: torch.Tensor, max_b=None):
+        return tolerance_loop(p_warm, b, max_b, self.cfg, self.cycle)
+
+
+def make_masked_multigrid_poisson(grid, coeffs, cfg: MGConfig,
+                                  device="cpu") -> MaskedMultigridPoisson:
+    """The natural-layout masked solve of a step-rectangle grid
+    (MaskedMultigridPoisson)."""
+    return MaskedMultigridPoisson(grid, coeffs, cfg, device)

@@ -7,6 +7,8 @@ step goes on the card.
                                          [--mg default|whole|per-kernel|whole-step|K=V,...]
     python -m cfd_tpu_torch.profile_step --case step [--nx 2048 --ny 256] [--mg ...] ...
     python -m cfd_tpu_torch.profile_step --case rb [--nx 1536 --ny 512] [--mg ...] ...
+    python -m cfd_tpu_torch.profile_step --case cavity --layout aligned
+    python -m cfd_tpu_torch.profile_step --case step --nx 512 --ny 30
 
 Drives a main path on cuda through Simulation's step function: the cavity,
 make_cavity_case(n_interior=n, poisson="multigrid", dtype=float32,
@@ -21,7 +23,9 @@ whole-solve on the card), ``whole`` and ``per-kernel`` force one, and
 ``whole-step`` runs the whole time step in one kernel (kernels.whole_step);
 any other value is MGConfig overrides ``K=V[,K=V...]`` as the CLI's --mg
 takes them (e.g. ``tail_from=1``, ``whole_solve=true,coarse_dtype=bfloat16``,
-``corr_opt=true``).
+``corr_opt=true``). ``--layout aligned`` (cavity, channel) runs the natural
+aligned layout; sizes without a quad layout (e.g. the cavity at n = 142,
+the step at 512x30) take the natural layout by the auto rule.
 The steps' V-cycle counts stay on the card until each window ends, as in
 Simulation.run, so no window reads the host between its steps. It runs
 three windows:
@@ -37,7 +41,9 @@ three windows:
    wall is longer than the unprofiled one: both are printed.
 
 Launches are split into the port's own kernels (the ``__global__``
-functions of csrc/) and everything else (PyTorch's glue ops). The trace is
+functions of csrc/) and everything else (PyTorch's glue ops); the
+wrappers' own launch counters (kernels.KERNELS) give each entry point's
+launches a step in the timed windows. The trace is
 written to ``DIR/trace.json`` (default build/cfd_tpu_torch/profile). The
 last line printed is a JSON summary. Needs a CUDA device.
 """
@@ -139,10 +145,11 @@ def make_case(args):
     presets = {"whole": {"whole_solve": True}, "default": None,
                "per-kernel": {"whole_solve": False}, "whole-step": {"whole_step": True}}
     ov = presets[args.mg] if args.mg in presets else parse_mg(args.mg)
+    layout = {} if args.layout == "auto" else {"layout": args.layout}
     if args.case == "cavity":
         case = make_cavity_case(n_interior=args.n, poisson="multigrid",
                                 dtype=torch.float32, tolerance_factor=1e-6, device="cuda",
-                                mg_overrides=ov)
+                                mg_overrides=ov, **layout)
         return case, describe(case, f"cavity {args.n}^2")
     make, (nx, ny) = {"channel": (make_channel_case, (1536, 512)),
                       "step": (make_backwards_step_case, (2048, 256)),
@@ -153,7 +160,7 @@ def make_case(args):
                     mg_overrides=ov)
         return case, describe(case, f"rb {nx}x{ny}")
     case = make(nx=nx, ny=ny, poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0,
-                dtype=torch.float32, device="cuda", mg_overrides=ov)
+                dtype=torch.float32, device="cuda", mg_overrides=ov, **layout)
     return case, describe(case, f"{args.case} {nx}x{ny}")
 
 
@@ -163,7 +170,8 @@ def describe(case, what: str) -> str:
             "whole solve" if mg.whole_solve else "per-kernel solve")
     knobs = "".join(f", {k}={getattr(mg, k)}" for k in ("tail_from", "corr_opt")
                     if getattr(mg, k))
-    return f"{what} ({path}, coarse {mg.coarse_dtype or 'float32'}{knobs})"
+    layout = "quad" if case.carry_tentative else "natural"
+    return f"{what} ({layout} layout, {path}, coarse {mg.coarse_dtype or 'float32'}{knobs})"
 
 
 def main(argv=None) -> int:
@@ -180,6 +188,8 @@ def main(argv=None) -> int:
                     help="the pressure solve: default (the case's own path), whole, "
                          "per-kernel, whole-step (the whole step in one kernel), or "
                          "MGConfig overrides K=V[,K=V...]")
+    ap.add_argument("--layout", choices=["auto", "quad", "aligned"], default="auto",
+                    help="cavity/channel: the layout (default: the case's auto rule)")
     ap.add_argument("--warmup", type=int, default=100)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--out", type=Path, default=DEFAULT_OUT)
@@ -189,6 +199,7 @@ def main(argv=None) -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
+    from cfd_tpu_torch.kernels import KERNELS
     from cfd_tpu_torch.solver import Simulation, read_diagnostics
 
     card = card_line()
@@ -215,6 +226,8 @@ def main(argv=None) -> int:
 
     window(args.warmup)
     del cycles[:]
+    for kern in KERNELS:
+        kern.launches = 0
     wall_plain = window(args.steps)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall_traced = window(args.steps)
@@ -223,6 +236,7 @@ def main(argv=None) -> int:
     prof.export_chrome_trace(str(trace_path))
     events = json.loads(trace_path.read_text())["traceEvents"]
     s = summarize_trace(events, port_kernel_names(), args.steps, wall_traced)
+    wrapper = {k.name: k.launches / (2 * args.steps) for k in KERNELS if k.launches}
     if s["busy_ms_per_step"] <= 0:
         raise SystemExit("profile_step: the trace holds no device activity")
 
@@ -241,10 +255,11 @@ def main(argv=None) -> int:
     for t in s["top"]:
         print(f"  {t['us_per_step']:9.2f} us/step {t['launches_per_step']:7.2f} "
               f"launches/step  {t['name'][:90]}")
+    print("wrapper launches/step: " + ", ".join(f"{k} {v:.2f}" for k, v in wrapper.items()))
     print(json.dumps(dict(card=card, case=what, steps=args.steps,
                           unprofiled_wall_ms_per_step=wall_plain / args.steps * 1e3,
                           cycles_per_step=sum(cycles) / len(cycles),
-                          trace=str(trace_path),
+                          trace=str(trace_path), wrapper_launches_per_step=wrapper,
                           **{k: v for k, v in s.items() if k != "top"})))
     return 0
 

@@ -14,8 +14,13 @@ the adaptive-stepping builders ``adaptive_impl``, ``adaptive_impl_carry``
 and ``adaptive_diffusivity`` (:122-134, driven by cfd_tpu_torch.adaptive),
 the whole-step ordering (cfd_tpu/solver.py:193-209, and RB's whole-step
 ``custom_step``, cfd_tpu/physics/boussinesq.py:326-332): one kernel a step
-(kernels.whole_step), reached through ``Case.whole_step_kernel``, and the
-``Simulation`` time loop with its stats rows and NaN/KE-blowup abort. The
+(kernels.whole_step), reached through ``Case.whole_step_kernel``, the
+non-carry kernel orderings of the natural aligned layout
+(cfd_tpu/solver.py:253-294: the cavity's predictor+source, solve and
+corrector, the channel's with the source mean removal between), the
+channel ordering of the natural backward step over the stencil ops
+(:318-340, float32), and the ``Simulation`` time loop with its stats rows
+and NaN/KE-blowup abort. The
 JAX package runs a chunk of steps as one device program (lax.scan around
 lax.while_loop); PyTorch runs eagerly, so a step here is a sequence of
 kernel launches. On the whole-solve and whole-step paths each step's
@@ -34,9 +39,10 @@ import numpy as np
 import torch
 
 from cfd_tpu_torch.bc import VelocityBC
+from cfd_tpu_torch.convert import natural_converters
 from cfd_tpu_torch.grid import Grid
 from cfd_tpu_torch.ops.reductions import flow_statistics
-from cfd_tpu_torch.ops.stencil import StencilCoeffs
+from cfd_tpu_torch.ops.stencil import StencilCoeffs, divergence, predictor, pressure_correction
 from cfd_tpu_torch.state import State, StepDiagnostics
 
 
@@ -59,9 +65,10 @@ class Case:
     total_steps: int
     print_interval: int
     save_interval: int
-    # (carry stage, corrector) kernels of the quad fast path; the carried
-    # u/v are the TENTATIVE velocities
-    step_kernels: tuple
+    # (carry stage, corrector) kernels of the quad fast path, where the
+    # carried u/v are the TENTATIVE velocities; (predictor+source,
+    # corrector) of the natural aligned path; None on the natural step
+    step_kernels: Optional[tuple]
     # carried-layout <-> logical-layout converters (init/resume in,
     # stats/export out)
     align_state: Callable
@@ -93,18 +100,51 @@ class Case:
     # cycles, res); step_kernels stay for the stats/export boundary and the
     # adaptive builders.
     whole_step_kernel: Optional[Callable] = None
+    # True on the quad paths (the carried u/v are the tentative velocities);
+    # False on the natural layout (corrected velocities; the non-carry
+    # orderings, cfd_tpu/solver.py:253-340)
+    carry_tentative: bool = True
 
     @property
     def dt(self) -> float:
         return self.coeffs.dt
 
 
+def natural_adaptive_impl():
+    """The exact controller's adaptive_impl on the natural layout: the
+    reference falls back to its make_adaptive_step there
+    (cfd_tpu/adaptive.py:27-80), which is not ported."""
+    raise NotImplementedError("adaptive dt on the natural layout (the reference's "
+                              "make_adaptive_step) is not ported yet (ROADMAP.md queue A "
+                              "item 6)")
+
+
+def natural_case(mg, common: dict, info: dict, step_kernels: Optional[tuple],
+                 make_solve: Callable[[], Callable]) -> Case:
+    """A case on the natural layout, the reference's natural branches
+    (cfd_tpu/cases/cavity.py:379-412, channel.py:264-297,
+    backwards_step.py:96-108): the corrected velocities are carried; with
+    the (predictor+source, corrector) ``step_kernels`` on the aligned carry
+    of convert.natural_converters, without them (the step) on the logical
+    state itself. whole_solve and whole_step raise the reference's
+    ValueError before ``make_solve()`` builds the solve."""
+    if mg.whole_solve or mg.whole_step:
+        raise ValueError("whole_solve/whole_step require the f32 quad multigrid kernel path")
+    if step_kernels is None:
+        align_state = unalign_state = lambda st: st
+    else:
+        align_state, unalign_state = natural_converters(common["grid"].shape)
+    return Case(step_kernels=step_kernels, carry_tentative=False, align_state=align_state,
+                unalign_state=unalign_state, poisson_solve=make_solve(),
+                info=dict(info, mg=mg), adaptive_impl=natural_adaptive_impl, **common)
+
+
 def remove_mean_quad(b: torch.Tensor, sum_b: torch.Tensor, n_fluid: torch.Tensor,
                      cell: torch.Tensor) -> torch.Tensor:
-    """Mean removal over the quad-plane layout (cfd_tpu/solver.py:174-188):
-    b - sum_b / n_fluid on the cells (``cell``: the quad cell mask, fluid
-    cells only on the step, where b is 0 on solid cells and must stay so), b
-    elsewhere. ``n_fluid`` is a 0-d tensor on b's device, so the division is
+    """Mean removal over the quad-plane layout (cfd_tpu/solver.py:174-188)
+    or the natural one (:276-287): b - sum_b / n_fluid on the cells
+    (``cell``: the layout's cell mask, fluid cells only on the step, where b
+    is 0 on solid cells and must stay so), b elsewhere. ``n_fluid`` is a 0-d tensor on b's device, so the division is
     a true division on every device (PyTorch turns a Python divisor of a
     CUDA tensor into a reciprocal multiply). Torch glue between the stage
     kernel and the solve."""
@@ -130,19 +170,22 @@ def read_diagnostics(diags) -> tuple[list[int], list[float]]:
 
 def make_step(case: Case) -> Callable[[State], tuple[State, StepDiagnostics]]:
     """The per-step function of a case: the whole step in one kernel when
-    the case has a ``whole_step_kernel``; else the tentative-carry cavity
-    ordering, or the channel ordering with the extrapolated warm start (the
-    channel) or with the plain previous-p warm start (the step,
-    cfd_tpu/solver.py:241-252); the "rayleigh_benard" ordering is the
-    channel's with T carried through the fused kernel, (us, vs, p, T[,
-    p_prev]) -> (us', vs', T', b[, guess], sum b). The other orderings
-    raise."""
+    the case has a ``whole_step_kernel``; the natural orderings when it does
+    not carry the tentative velocities (_natural_step); else the
+    tentative-carry cavity ordering, or the channel ordering with the
+    extrapolated warm start (the channel) or with the plain previous-p warm
+    start (the step, cfd_tpu/solver.py:241-252); the "rayleigh_benard"
+    ordering is the channel's with T carried through the fused kernel, (us,
+    vs, p, T[, p_prev]) -> (us', vs', T', b[, guess], sum b). The other
+    orderings raise."""
     if case.ordering not in ("cavity", "channel", "rayleigh_benard"):
         raise NotImplementedError(
             f"the {case.ordering!r} ordering is not ported yet "
             "(ROADMAP.md queue A)")
     if case.whole_step_kernel is not None:
         return _whole_step(case)
+    if not case.carry_tentative:
+        return _natural_step(case)
     fused = case.step_kernels[0]
 
     if case.ordering == "cavity":
@@ -193,6 +236,79 @@ def make_step(case: Case) -> Callable[[State], tuple[State, StepDiagnostics]]:
         # no max_b: the tolerance base is max|b| after the mean removal
         p, iters, res = case.poisson_solve(guess, b)
         return State(us2, vs2, p, T2, state.p), StepDiagnostics(iters, res)
+
+    return step
+
+
+def _natural_step(case: Case) -> Callable[[State], tuple[State, StepDiagnostics]]:
+    """The orderings of the natural layout, whose carried u/v are the
+    corrected velocities.
+
+    * The stage kernels (cfd_tpu/solver.py:253-294), on the aligned carry
+      whose p_prev slot holds the next solve's guess 2p - p_prev: the
+      cavity's ``pred_src(u, v) -> (us, vs, b, max|b|)``, the solve from
+      the guess, ``corr(us, vs, p, p) -> (u2, v2, guess)``; the channel's
+      ``pred_src(u, v) -> (us, vs, b, sum b)``, the source mean removal on
+      the cells (an iota cell mask and a true division), the solve without
+      max_b, the corrector.
+    * No stage kernels (the natural step, :318-340): the predictor, the
+      velocity ghosts, the source with its fluid mean removed, the solve
+      from the previous p (the step's plain warm start), the correction
+      with the invalid in-range faces zeroed, the ghosts; torch ops over
+      ops.stencil. The source's sum is fixed_order_sum's, so the card and
+      the CPU round it alike."""
+    from cfd_tpu_torch.kernels.quad import fixed_order_sum
+
+    g, dev = case.grid, case.device
+    n_fluid = torch.tensor(float(g.n_fluid), dtype=case.dtype, device=dev)
+    if case.step_kernels is not None:
+        pred_src, corr = case.step_kernels
+        if case.ordering == "cavity":
+
+            def step(state: State) -> tuple[State, StepDiagnostics]:
+                us, vs, b, max_b = pred_src(state.u, state.v)
+                p, iters, res = case.poisson_solve(state.p_prev, b, max_b)
+                u2, v2, guess = corr(us, vs, p, state.p)
+                return State(u2, v2, p, state.T, guess), StepDiagnostics(iters, res)
+
+            return step
+        H8, W = pred_src.shape
+        jj = torch.arange(H8, device=dev)[:, None]
+        ii = torch.arange(W, device=dev)[None, :]
+        cell = (jj >= 1) & (jj <= g.ny) & (ii >= 1) & (ii <= g.nx)
+
+        def step(state: State) -> tuple[State, StepDiagnostics]:
+            us, vs, b, sum_b = pred_src(state.u, state.v)
+            if case.remove_source_mean:
+                b = remove_mean_quad(b, sum_b, n_fluid, cell)
+            p, iters, res = case.poisson_solve(state.p_prev, b)
+            u2, v2, guess = corr(us, vs, p, state.p)
+            return State(u2, v2, p, state.T, guess), StepDiagnostics(iters, res)
+
+        return step
+
+    if case.ordering != "channel":
+        raise NotImplementedError(f"the natural {case.ordering!r} ordering without stage "
+                                  "kernels is not ported yet (ROADMAP.md queue A item 6)")
+    c, bc = case.coeffs, case.velocity_bc
+    t = lambda a: torch.as_tensor(a, device=dev)
+    cell, u_valid, v_valid = t(g.cell_mask), t(g.u_valid_mask), t(g.v_valid_mask)
+    u_range, v_range = t(g.u_range_mask), t(g.v_range_mask)
+    rho_dt = c.density / c.dt
+
+    def step(state: State) -> tuple[State, StepDiagnostics]:
+        us, vs = predictor(state.u, state.v, c, u_valid, v_valid)
+        us, vs = bc(us, vs)
+        b = rho_dt * divergence(us, vs, c, cell)
+        if case.remove_source_mean:
+            b = remove_mean_quad(b, fixed_order_sum(b), n_fluid, cell)
+        p, iters, res = case.poisson_solve(state.p, b)
+        z = torch.zeros_like(state.u)
+        u2, v2 = pressure_correction(us, vs, p, c, u_valid, v_valid,
+                                     u_else=torch.where(u_range, z, state.u),
+                                     v_else=torch.where(v_range, z, state.v))
+        u2, v2 = bc(u2, v2)
+        return State(u2, v2, p, state.T, None), StepDiagnostics(iters, res)
 
     return step
 

@@ -141,6 +141,25 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
     knob: tail_from=1, the bf16 whole-solve and the bf16 whole step on the
     four flows, corr_opt on the step's three solves: equal cycles every
     step, fields within 5e-5 relative.
+25. The natural layout's kernels against their twins on seeded inputs
+    (limit 1e-5, bit-identical expected), times as in phase 2: the four
+    stage kernels of csrc/projection.cu at the full-width aligned shapes
+    (cavity 2056x2176, channel 520x1664), the with_residual pairs at the
+    cavity's aligned level 0, the step's exact masked pairs (three
+    variants) at the natural step's level 0 (512x30).
+26. The natural slices at full width, counters zeroed before each run and
+    every kernel of the path required to launch: the cavity at 2048^2 with
+    layout="aligned" (300 steps in chunks of 100), the channel at 1536x512
+    with layout="aligned" (300), the cavity by the auto rule at
+    n_interior=142 and the step by the auto rule at 512x30 (2 levels; the
+    dense pinv of 5041 and 3840 cells is built on the host, which sets
+    these sizes), 100 steps each; steps/s, V-cycles/step and cell-steps/s
+    over the last 100 steps beside the quad whole-solve runs of phases 3,
+    6 and 9.
+27. Card against CPU over 20 steps at small natural sizes (the cavity
+    aligned at 64^2 and by the auto rule at 46^2, the channel at 128x30,
+    the step at 128x14): equal cycles every step, fields within 5e-5,
+    avg_KE within 1e-6 relative.
 
 The line before the last is a JSON object {"kernels": [...]}: per kernel,
 its launches on its path's run, its error against its twin, its time and
@@ -191,6 +210,10 @@ RB_SHAPE = (1536, 512)
 # the controller's target and growth
 COURANT_OPS = 4
 MAX_CO, GROWTH = 0.7, 1.2
+# the natural step's size (phases 25, 26): ny = 14 mod 16 has no quad
+# layout, and 512 / 2 * 30 / 2 = 3840 coarsest cells keep the host's dense
+# pinv build short
+NATURAL_STEP = (512, 30)
 
 
 T0 = time.perf_counter()
@@ -1130,6 +1153,144 @@ def run_tail_path(case, what: str, path_kernels, ref, card: str, rate, cycle_sla
     return got
 
 
+def step_grid(nx: int, ny: int):
+    """The step factory's geometry (backwards_step-01.cpp:387,493,508-520):
+    (grid, step_i, inlet_j_max)."""
+    from cfd_tpu_torch.grid import Grid
+    from cfd_tpu_torch.poisson.multigrid import step_rect_params
+
+    dx, dy = 8.0 / nx, 2.0 / ny
+    step_i, inlet = int(2.0 / dx), int(1.0 / dy)
+    jj, ii = np.arange(1, ny + 1)[:, None], np.arange(1, nx + 1)[None, :]
+    grid = Grid.masked(nx, ny, 8.0, 2.0, np.ascontiguousarray(
+        np.broadcast_to(np.where(ii <= step_i, jj <= inlet, True), (ny, nx))))
+    assert step_rect_params(grid) == (step_i, inlet)
+    return grid, step_i, inlet
+
+
+def masked_natural_solve_card_vs_cpu(nx: int, ny: int) -> None:
+    """The natural masked solve where it has smoothed coarse levels: a grid
+    built directly (every natural step size has 2 levels, the dense pinv
+    its only coarse one). On the card its coarse levels run RBPairs'
+    full-2D kernel, which must launch; card against CPU, equal cycles and
+    p within 5e-5 of its scale."""
+    from cfd_tpu_torch.kernels import KERNELS
+    from cfd_tpu_torch.kernels import rb_smoother as RB
+    from cfd_tpu_torch.kernels import step_smoother as SS
+    from cfd_tpu_torch.ops.stencil import StencilCoeffs
+    from cfd_tpu_torch.poisson.multigrid import MGConfig, make_masked_multigrid_poisson
+
+    grid, _, _ = step_grid(nx, ny)
+    coeffs = StencilCoeffs(dx=grid.dx, dy=grid.dy, dt=1e-3, viscosity=0.01)
+    fluid = grid.cell_mask
+    rng = np.random.default_rng(nx + ny)
+    b = np.where(fluid, rng.standard_normal(grid.shape), 0.0)
+    b = torch.from_numpy(np.where(fluid, b - b[fluid].mean(), 0.0).astype(np.float32))
+    cfg = MGConfig(tol_factor=1e-6, abs_tol=0.0)
+    path = (RB.RB_PAIRS_FULL, SS.STEP_PAIRS, SS.STEP_PAIRS_RES)
+    out = {}
+    for where in ("cuda", "cpu"):
+        solve = make_masked_multigrid_poisson(grid, coeffs, cfg, device=where)
+        for kern in KERNELS:
+            kern.launches = 0
+        p, cycles, res = solve(torch.zeros_like(b).to(where), b.to(where))
+        out[where] = (p.cpu(), cycles, res, {k.name: k.launches for k in path})
+    (pg, cg, rg, lg), (pc, cc, rc, _) = out["cuda"], out["cpu"]
+    what = f"masked natural solve {nx}x{ny} ({len(solve.levels) + 1} levels)"
+    log(f"  {what}: cycles card {cg} cpu {cc}, res card {rg!r} cpu {rc!r}, card launches {lg}")
+    missing = [name for name, n in lg.items() if n == 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels never launched on the card: {missing}")
+    if cg != cc:
+        raise AssertionError(f"{what}: card and CPU cycle counts differ")
+    rel_err(pg, pc, f"{what} card vs cpu p", 5e-5, [])
+
+
+def check_natural_kernels(dev) -> dict:
+    """Phase 25: the natural layout's kernels against their twins at the
+    full-width shapes, with their times and bounds."""
+    from cfd_tpu_torch.cases import make_cavity_case, make_channel_case
+    from cfd_tpu_torch.kernels import projection as P
+    from cfd_tpu_torch.kernels.rb_smoother import RB_PAIRS_RES
+    from cfd_tpu_torch.kernels.step_smoother import fluid_mask, make_step_masked_pairs
+
+    rng = np.random.default_rng(25)
+    results = {}
+
+    def aligned_fields(shape, n, scale=0.1):
+        H8, W = P.aligned_shape(shape)
+        out = []
+        for _ in range(n):
+            a = np.zeros((H8, W), np.float32)
+            a[: shape[0], : shape[1]] = rng.standard_normal(shape) * scale
+            out.append(torch.from_numpy(a).to(dev))
+        return out
+
+    def timed(name, fn, plain, n_bytes, n_ops, labels):
+        errs = []
+        got, want = fn(), plain()
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        for label, a, b in zip(labels, got, want, strict=True):
+            rel_err(a, b, f"{name} {label}", TOL_F32, errs)
+        if name in results:  # a second variant of one entry point: the worst error
+            errs.append(results[name]["err"])
+        results[name] = dict(err=max(errs), ms=median_ms(fn), plain_ms=median_ms(plain),
+                             **bound(n_bytes(got), n_ops))
+
+    cav_kw = dict(poisson="multigrid", dtype=torch.float32, tolerance_factor=1e-6,
+                  layout="aligned")
+    cav = make_cavity_case(n_interior=N_MAIN, device=dev, **cav_kw)
+    ch = make_channel_case(nx=CHANNEL[0], ny=CHANNEL[1], poisson="multigrid",
+                           tolerance_factor=1e-6, abs_tol=0.0, dtype=torch.float32,
+                           layout="aligned", device=dev)
+    for case, names, scalar in ((cav, (P.PREDICTOR_SOURCE, P.CORRECTOR), "max|b|"),
+                                (ch, (P.CHANNEL_PREDICTOR_SOURCE, P.CHANNEL_CORRECTOR),
+                                 "sum b")):
+        pred, corr = case.step_kernels
+        g = case.grid
+        cells = g.nx * g.ny
+        log(f"  {case.name}: aligned fields {tuple(pred.shape)}")
+        u, v, p, pp = aligned_fields(g.shape, 4)
+        timed(names[0].name, lambda: pred.kernel(u, v), lambda: pred.plain(u, v),
+              lambda got: nbytes(u, v, *got), cells * PREDICTOR_SOURCE_OPS,
+              ("us", "vs", "b", scalar))
+        timed(names[1].name, lambda: corr.kernel(u, v, p, pp), lambda: corr.plain(u, v, p, pp),
+              lambda got: nbytes(u, v, p, pp, *got), cells * CORRECTOR_OPS,
+              ("u2", "v2", "guess"))
+    # the with_residual pairs at the cavity's aligned level 0 (its post-smooth)
+    solve = cav.poisson_solve
+    post = solve.post0
+    lv0 = solve.levels[0]
+    log(f"  the aligned cavity solve: {len(solve.levels)} levels, level 0 {lv0.shape}, "
+        f"post-smooth pairs {post.n_pairs}")
+    _, b = aligned_fields(cav.grid.shape, 2, scale=1e2)
+    p0 = aligned_fields(cav.grid.shape, 1, scale=1e-2)[0]
+    b = torch.where(solve.interior0, b, torch.zeros_like(b))
+    p0 = torch.where(solve.interior0, p0, torch.zeros_like(p0))
+    timed(RB_PAIRS_RES.name, lambda: post.kernel(p0, b), lambda: post.plain(p0, b),
+          lambda got: nbytes(p0, b, *got, post.wE, post.wW, post.wN, post.wS),
+          N_MAIN * N_MAIN * (post.n_pairs * GS_OPS + RES_OPS), ("p", "max|r|"))
+    del cav, ch, solve
+    # the step's exact masked pairs at the natural step's level 0, three
+    # variants, V(2,2); the plain and the field variant share an entry point,
+    # whose time is the field variant's (the path's)
+    grid, step_i, inlet = step_grid(*NATURAL_STEP)
+    dx, dy = grid.dx, grid.dy
+    fluid = int(fluid_mask(grid.shape, step_i, inlet, "cpu").sum())
+    ps = torch.from_numpy(rng.standard_normal(grid.shape).astype(np.float32)).to(dev)
+    bs = torch.from_numpy((rng.standard_normal(grid.shape) * 10).astype(np.float32)).to(dev)
+    log(f"  the natural step's level 0: {grid.shape}, {fluid} fluid cells")
+    for kw, labels in (({}, ("p",)), ({"with_residual_field": True}, ("p", "r")),
+                       ({"with_residual": True}, ("p", "max|r|"))):
+        pairs = make_step_masked_pairs(grid.shape, step_i, inlet, 1 / dx ** 2, 1 / dy ** 2,
+                                       1.0, 2, device=dev, **kw)
+        n_ops = fluid * (2 * STEP_GS_OPS + (STEP_RES_OPS if kw else 0))
+        timed(pairs.record.name, lambda: pairs.kernel(ps, bs), lambda: pairs.plain(ps, bs),
+              lambda got: nbytes(ps, bs, *got), n_ops, labels)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -1190,6 +1351,7 @@ def main() -> int:
         case, 300, (Q.CARRY, Q.CORRECTOR, WS.WHOLE_SOLVE), "cavity whole-solve", card, rate)
     composed = {"cavity": (whole["iters"], state)}  # phase 18 holds the whole step to them
     f32_cycles = {"cavity": whole["cycles"]}  # phase 22 prints the bf16 runs' beside them
+    quad_whole = {"cavity": whole}  # phase 26 prints the natural runs beside them
     del case
     pk_launches, pk_state, per_kernel = run_path(
         pk_case, 100, (Q.CARRY, Q.PRE, Q.POST, RB.RB_PAIRS), "cavity per-kernel", card, rate,
@@ -1236,6 +1398,7 @@ def main() -> int:
         "channel whole-solve", card, cells)
     composed["channel"] = (whole["iters"], state)
     f32_cycles["channel"] = whole["cycles"]
+    quad_whole["channel"] = whole
     per_kernel_case = make_channel_case(device=dev, mg_overrides={"whole_solve": False},
                                         **ch_kw)
     start = state
@@ -1300,6 +1463,7 @@ def main() -> int:
         "step whole-solve", card, cells)
     composed["step"] = (whole["iters"], state)
     f32_cycles["step"] = whole["cycles"]
+    quad_whole["step"] = whole
     del case
     per_kernel_case = make_backwards_step_case(device=dev, mg_overrides={"whole_solve": False},
                                                **st_kw)
@@ -1605,6 +1769,73 @@ def main() -> int:
             card_vs_cpu(make, dict(kw, dtype=torch.float32, print_interval=5,
                                    mg_overrides=ov), f"{what} {ov}", n_steps=5)
 
+    from cfd_tpu_torch.kernels import projection as PJ
+    from cfd_tpu_torch.kernels import step_smoother as SS
+    from cfd_tpu_torch.poisson.multigrid import MultigridPoisson
+
+    log(f"phase 25: the natural layout's kernels vs plain twins at the full-width shapes "
+        f"({card})")
+    nat_checks = check_natural_kernels(dev)
+    for k, r in nat_checks.items():
+        log(f"  {k:36s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
+    checks.update(nat_checks)
+
+    log(f"phase 26: the natural slices at full width, counters zeroed before each run "
+        f"({card})")
+    snx, sny = NATURAL_STEP
+    natural = (
+        ("cavity aligned", make_cavity_case, dict(cav_main, layout="aligned"), 300,
+         (PJ.PREDICTOR_SOURCE, PJ.CORRECTOR, RB.RB_PAIRS, RB.RB_PAIRS_RES), "cavity"),
+        ("channel aligned", make_channel_case, dict(ch_kw, layout="aligned"), 300,
+         (PJ.CHANNEL_PREDICTOR_SOURCE, PJ.CHANNEL_CORRECTOR, RB.RB_PAIRS, RB.RB_PAIRS_RES),
+         "channel"),
+        ("cavity auto 142^2", make_cavity_case, dict(cav_main, n_interior=142), 100,
+         (PJ.PREDICTOR_SOURCE, PJ.CORRECTOR, RB.RB_PAIRS, RB.RB_PAIRS_RES), None),
+        (f"step auto {snx}x{sny}", make_backwards_step_case, dict(st_kw, nx=snx, ny=sny), 100,
+         (SS.STEP_PAIRS, SS.STEP_PAIRS_RES), None),
+    )
+    nat_launches = {}
+    for what, make, kw, n_steps, path_kernels, quad in natural:
+        t0 = time.perf_counter()
+        case = make(device=dev, **kw)
+        mg = case.info["mg"]
+        solve = case.poisson_solve
+        if case.carry_tentative:
+            raise AssertionError(f"{what} did not take the natural layout")
+        # the separable solve counts level 0 in its levels, the masked one not
+        levels = len(solve.levels) + (0 if isinstance(solve, MultigridPoisson) else 1)
+        log(f"  {what}: built in {time.perf_counter() - t0:.1f} s (the dense pinv on the "
+            f"host); V({mg.pre_sweeps},{mg.post_sweeps}), {levels} levels")
+        got, _, nat = run_path(case, n_steps, path_kernels, f"natural {what}", card,
+                               ("cell-steps/s", lambda c, n=case.grid.n_fluid: n))
+        for k in path_kernels:
+            if k is not RB.RB_PAIRS:  # its count stays the per-kernel cavity's (phase 3)
+                nat_launches.setdefault(k.name, got[k.name])
+        if quad is not None:
+            q = quad_whole[quad]
+            log(f"  {what} against the quad whole-solve (phase {3 if quad == 'cavity' else 6}):"
+                f" {nat['steps_s']:.2f} against {q['steps_s']:.2f} steps/s, "
+                f"{nat['cycles']:.2f} against {q['cycles']:.2f} V-cycles/step  ({card})")
+        del case, solve
+    log(f"  the quad step whole-solve (phase 9, {STEP[0]}x{STEP[1]}): "
+        f"{quad_whole['step']['steps_s']:.2f} steps/s, {quad_whole['step']['cycles']:.2f} "
+        f"V-cycles/step  ({card})")
+
+    log("phase 27: the natural layout card vs CPU, 20 steps")
+    for make, kw, what in (
+            (make_cavity_case, dict(n_interior=64, layout="aligned", poisson="multigrid",
+                                    tolerance_factor=1e-6), "cavity aligned 64^2"),
+            (make_cavity_case, dict(n_interior=46, poisson="multigrid",
+                                    tolerance_factor=1e-6), "cavity auto 46^2"),
+            (make_channel_case, dict(nx=128, ny=30, poisson="multigrid", tolerance_factor=1e-6,
+                                     abs_tol=0.0), "channel auto 128x30"),
+            (make_backwards_step_case, dict(nx=128, ny=14, poisson="multigrid",
+                                            tolerance_factor=1e-6, abs_tol=0.0),
+             "step auto 128x14")):
+        card_vs_cpu(make, dict(kw, dtype=torch.float32, print_interval=20), what)
+    masked_natural_solve_card_vs_cpu(512, 64)
+
     launches = {**cavity_launches, **{k: channel_launches[k] for k in (
         Q.CHANNEL_CARRY.name, Q.CHANNEL_CORRECTOR.name, WS.WHOLE_SOLVE.name)},
         **{k: step_launches[k] for k in (SQ.STEP_CARRY.name, SQ.STEP_CORRECTOR.name,
@@ -1613,7 +1844,8 @@ def main() -> int:
                                              RB.RB_PAIRS_FULL.name)},
         **{k: rb_launches[k] for k in (RQ.RB_CARRY.name, RQ.RB_CORRECTOR.name,
                                        WS.WHOLE_SOLVE_PIN_MEAN.name)},
-        **ad_launches, **ws_launches, **tail_launches, **bf16_launches, **corr_launches}
+        **ad_launches, **ws_launches, **tail_launches, **bf16_launches, **corr_launches,
+        **nat_launches}
     kernels = []
     for k in KERNELS:
         r = checks[k.name]

@@ -296,10 +296,21 @@ def test_cavity_goes_through_auto_whole_solve(monkeypatch):
     assert isinstance(solve, MultigridPoisson) and not mg_manual.whole_solve
 
 
-@pytest.mark.parametrize("kw, row", [(dict(fuse_pre=True), "row 7"),
-                                     (dict(layout="aligned"), "row 11"),
-                                     (dict(n_interior=30), "row 11")])
+@pytest.mark.parametrize("kw, row", [(dict(fuse_pre=True), "row 7")])
 def test_cavity_refusals_cite_their_rows(kw, row):
     """Fault C.3: the refusals point at the rows of ROADMAP.md queue B."""
     with pytest.raises(NotImplementedError, match=row):
         _port_case("cavity", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(layout="aligned"), dict(n_interior=30)])
+def test_cavity_natural_paths_build(kw):
+    """The two refusals that cited row 11 (the natural layout) now build
+    the natural stage kernels over the aligned solve."""
+    from cfd_tpu_torch.kernels.projection import Corrector, PredictorSource
+
+    case = _port_case("cavity", **kw)
+    assert not case.carry_tentative and case.whole_step_kernel is None
+    assert isinstance(case.step_kernels[0], PredictorSource)
+    assert isinstance(case.step_kernels[1], Corrector)
+    assert isinstance(case.poisson_solve, MultigridPoisson) and case.poisson_solve.aligned
