@@ -19,7 +19,13 @@ cfd_tpu/cases/cavity.py:191-201). The multigrid knobs ``tail_from`` (the
 per-kernel solve's fused coarse tail, with the float32 coarse hierarchy:
 the auto bf16 rule excludes it) and ``coarse_dtype="bfloat16"`` with
 whole_solve or whole_step (the whole-solve's bf16 rounding) are manual;
-``corr_opt`` raises the reference's ValueError (a masked knob). Adaptive
+``corr_opt`` raises the reference's ValueError (a masked knob).
+``fuse_pre=True`` on the per-kernel solve (the CPU's default, on the card
+``mg_overrides={"whole_solve": False}``) runs the carry with the first
+cycle's finest pre-smooth and restriction folded in
+(kernels.quad.QuadCorrPredictorSourceFusedPre) and the solve from the
+coarse stage (MultigridPoisson.solve_rc); under the whole-solve or the
+whole step it is ignored, as in the reference. Adaptive
 stepping: ``adaptive_impl`` (the exact controller: the traced-dt non-carry
 stage, the solve, the traced-dt corrector) and ``adaptive_impl_carry`` (the
 lagged controller on the traced-dt + Courant carry),
@@ -52,6 +58,7 @@ from cfd_tpu_torch.bc import lid_cavity_bc
 from cfd_tpu_torch.grid import Grid, cfl_time_step, optimal_omega
 from cfd_tpu_torch.kernels.projection import make_corrector, make_predictor_source
 from cfd_tpu_torch.kernels.quad import (
+    QuadCorrPredictorSourceFusedPre,
     from_quad,
     make_quad_corr_predictor_source,
     make_quad_corrector,
@@ -137,8 +144,6 @@ def make_cavity_case(
         raise _not_ported("the float64 multigrid path", "ROADMAP.md queue A item 3")
     if forcing is not None:
         raise _not_ported("body forcing", "ROADMAP.md queue A item 11")
-    if fuse_pre:
-        raise _not_ported("fuse_pre", "ROADMAP.md queue B row 7")
     if layout not in ("auto", "quad", "aligned"):
         raise ValueError(f"unknown layout {layout!r} (auto, quad or aligned)")
     coarse_shape = _round_up8_128((n_interior // 2 + 2, n_interior // 2 + 2))
@@ -199,6 +204,17 @@ def make_cavity_case(
         mg = mg_fb  # the fallback's actual config
     whole_step = (make_quad_whole_step_cavity(grid.shape, problem, coeffs, mg, lid_velocity,
                                               device=device) if mg.whole_step else None)
+    # fuse_pre on the per-kernel solve only, silently ignored under the
+    # whole-solve or the whole step (cfd_tpu/cases/cavity.py:246-272): the
+    # carry also runs the first cycle's finest pre-smooth and restriction,
+    # and the solve starts that cycle at the coarse stage. The adaptive
+    # builders keep the plain carry and the three-argument ``solve``.
+    carry_fused_pre = fuse_pre and not mg.whole_solve and not mg.whole_step
+    step_kernels, step_solve = (carry, corr), solve
+    if carry_fused_pre:
+        step_kernels = (QuadCorrPredictorSourceFusedPre(grid.shape, coeffs, solve.pre0,
+                                                        lid_velocity), corr)
+        step_solve = solve.solve_rc
 
     # Tentative-state boundary converters: the carried u/v are the
     # TENTATIVE (u*, v*) fields; the logical state applies the corrector
@@ -271,13 +287,14 @@ def make_cavity_case(
         return step, to_aligned, to_logical
 
     return Case(
-        step_kernels=(carry, corr),
+        step_kernels=step_kernels,
         align_state=align_state,
         unalign_state=unalign_state,
-        poisson_solve=solve,
+        poisson_solve=step_solve,
         info=dict(info, mg=mg),
         adaptive_impl=adaptive_impl,
         adaptive_impl_carry=adaptive_impl_carry,
         whole_step_kernel=whole_step,
+        carry_fused_pre=carry_fused_pre,
         **common,
     )

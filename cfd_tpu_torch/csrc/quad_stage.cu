@@ -4,10 +4,11 @@
 // Replaces cfd_tpu/kernels/quad.py make_quad_predictor_source (:438,
 // traced_dt), make_quad_corrector (:488, fixed and traced_dt),
 // make_quad_corr_predictor_source (:938, math in cavity_carry_compute
-// :1062-1123), make_quad_channel_corrector (:892) and
+// :1062-1123), make_quad_channel_corrector (:892),
 // make_quad_channel_corr_predictor_source (:1126, math in
 // channel_carry_compute :1160-1222), the carries fixed and with
-// traced_dt + emit_courant.
+// traced_dt + emit_courant, and make_quad_channel_predictor_source (:847:
+// the channel carry's second and third launches on (u, v) as given).
 //
 // Bound on the H100: device-memory bytes. The correctors read 4 quad fields
 // and write 3; the carries read 4 and write 4 plus one scalar (19 MB per
@@ -312,6 +313,26 @@ extern "C" int cfd_quad_channel_carry(const float* us, const float* vs, const fl
   return static_cast<int>(channel_carry<false>(us, vs, p, p_prev, u_scr, v_scr, us2, vs2, b,
                                                 guess, partials, sum_b, nullptr, nullptr, c,
                                                 pc, static_cast<cudaStream_t>(stream)));
+}
+
+// The non-carry channel stage (quad.py:847): the predictor on (u, v) as
+// given, the channel ghosts on the tentative fields, the raw source and its
+// interior sum; the channel carry's second and third launches.
+// partials: cfd::blocks_for(4 * Hq8 * Wqa) floats of scratch
+extern "C" int cfd_quad_channel_predictor_source(const float* u, const float* v, float* us2,
+                                                 float* vs2, float* b, float* partials,
+                                                 float* sum_b, int Hq8, int Wqa, int ny,
+                                                 int nx, float uin, float dt, float nu,
+                                                 float idx, float idy, float idx2,
+                                                 float idy2, float rho_dt, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = cfd::blocks_for(4LL * Hq8 * Wqa);
+  Pred pc{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt};
+  channel_predictor_source_kernel<false><<<blocks, cfd::kThreads, 0, s>>>(
+      u, v, us2, vs2, b, partials, pc, uin, nullptr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cfd::fold_partials(partials, blocks, sum_b, s));
 }
 
 // traced_dt + emit_courant: dts = (dt_corr, dt_pred) on the card; cu_f, cv_f

@@ -4,8 +4,9 @@
 the channel, the backward step and Rayleigh-Benard at a fixed dt, their
 adaptive-stepping instances, their whole time steps in one launch, the
 fused coarse tail, the bfloat16 and corr_opt instances of the whole-solve
-and the whole step, and the natural layout's stage kernels, fused-residual
-pairs and exact masked pairs), each with its launch counter
+and the whole step, the natural layout's stage kernels, fused-residual
+pairs and exact masked pairs, the cavity carry with the first pre-smooth
+folded in and the channel's non-carry stage), each with its launch counter
 (kernels._build.Kernel)."""
 
 from cfd_tpu_torch.kernels.mg_tail import MG_TAIL, MG_TAIL_FULL
@@ -22,8 +23,10 @@ from cfd_tpu_torch.kernels.quad import (
     CHANNEL_CARRY_ADAPTIVE,
     CHANNEL_CORRECTOR,
     CHANNEL_CORRECTOR_TRACED,
+    CHANNEL_PREDICTOR_SOURCE,
     CORRECTOR,
     CORRECTOR_TRACED,
+    FUSED_PRE,
     POST,
     PRE,
     PREDICTOR_SOURCE,
@@ -76,6 +79,6 @@ KERNELS = (CARRY, CORRECTOR, PRE, POST, RB_PAIRS, CHANNEL_CARRY, CHANNEL_CORRECT
            WHOLE_STEP_CHANNEL_BF16, WHOLE_STEP_RB_BF16, WHOLE_STEP_STEP_BF16,
            STEP_WHOLE_SOLVE_CORR_OPT, WHOLE_STEP_STEP_CORR_OPT, NATURAL_PREDICTOR_SOURCE,
            NATURAL_CORRECTOR, NATURAL_CHANNEL_PREDICTOR_SOURCE, NATURAL_CHANNEL_CORRECTOR,
-           RB_PAIRS_RES, STEP_PAIRS, STEP_PAIRS_RES)
+           RB_PAIRS_RES, STEP_PAIRS, STEP_PAIRS_RES, FUSED_PRE, CHANNEL_PREDICTOR_SOURCE)
 
 __all__ = ["KERNELS"]

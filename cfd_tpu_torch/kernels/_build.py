@@ -90,6 +90,11 @@ SIGNATURES = {
     "cfd_channel_predictor_source": [_P] * 7 + [_I] * 4 + [_F] * 8 + [_P],
     "cfd_channel_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
     "cfd_step_pairs": [_P] * 6 + [_I] * 6 + [_F] * 5 + [_I, _P],
+    # the cavity carry with the first pre-smooth and restriction (one
+    # cooperative launch) and its grid; the non-carry channel stage
+    "cfd_quad_fused_pre": [_P] * 12 + [_F] * 10 + [_P] * 4 + [_I] * 4 + [_F] * 3 + [_I, _P],
+    "cfd_quad_fused_pre_grid": [_P] * 3,
+    "cfd_quad_channel_predictor_source": [_P] * 7 + [_I] * 4 + [_F] * 8 + [_P],
 }
 
 

@@ -15,7 +15,7 @@ Each kernel has three faces:
   device. The CPU tests hold it against the JAX kernels in interpret mode
   and chip_smoke.py holds the CUDA kernel against it on the card.
 * ``kernel(...)`` — the hand-written CUDA kernel (csrc/quad_stage.cu,
-  csrc/quad_vcycle.cu); CUDA tensors only.
+  csrc/quad_vcycle.cu, csrc/quad_fused_pre.cu); CUDA tensors only.
 * ``__call__`` — dispatch on the tensors' device: the CPU goes to
   ``plain``, CUDA to ``kernel``. No fallback: a failed build or launch
   raises.
@@ -70,6 +70,12 @@ CHANNEL_CARRY_ADAPTIVE = Kernel("quad_channel_corr_predictor_source_adaptive",
                                 "cfd_quad_channel_carry_adaptive",
                                 "cfd_tpu_torch/csrc/quad_stage.cu",
                                 "cfd_tpu/kernels/quad.py:1126")
+CHANNEL_PREDICTOR_SOURCE = Kernel("quad_channel_predictor_source",
+                                  "cfd_quad_channel_predictor_source",
+                                  "cfd_tpu_torch/csrc/quad_stage.cu",
+                                  "cfd_tpu/kernels/quad.py:847")
+FUSED_PRE = Kernel("quad_corr_predictor_source_fused_pre", "cfd_quad_fused_pre",
+                   "cfd_tpu_torch/csrc/quad_fused_pre.cu", "cfd_tpu/kernels/quad.py:985")
 
 # threads per block of the stage kernels (cfd::kThreads): the block size of
 # the fixed-order source sum
@@ -562,6 +568,46 @@ class QuadChannelCorrPredictorSource(QuadChannelCorrector):
         return us2, vs2, b, guess, sum_b
 
 
+class QuadChannelPredictorSource(_QuadStage):
+    """(u4, v4) -> (us4, vs4, b4, sum b): the non-carry channel stage
+    (cfd_tpu/kernels/quad.py:847): the MAC predictor on (u, v) as given, the
+    channel ghosts on the tentative fields, the raw source b = rho/dt * div
+    on the cells and its interior sum in fixed_order_sum's order (the caller
+    removes the mean). No factory of either package reaches it: the split
+    ordering QuadChannelCorrector -> this stage equals the channel carry."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, inlet_velocity: float = 1.0):
+        super().__init__(shape)
+        self.coeffs = coeffs
+        self.uin = inlet_velocity
+        self.rho_dt = coeffs.density / coeffs.dt
+
+    def __call__(self, u, v):
+        _check(self.qshape, u, v)
+        if route(u, v) == "cuda":
+            return self.kernel(u, v)
+        return self.plain(u, v)
+
+    def plain(self, u, v):
+        grow, gcol = self._iota(u.device)
+        bc = lambda a, b: _channel_bc_quad(a, b, grow, gcol, self.ny, self.nx, self.uin)
+        us2, vs2, b = _predictor_source_quad(list(u), list(v), self.coeffs, grow, gcol,
+                                             self.ny, self.nx, bc=bc)
+        return us2, vs2, b, fixed_order_sum(b)
+
+    def kernel(self, u, v):
+        us2, vs2, b = (torch.empty_like(u) for _ in range(3))
+        partials = torch.empty(-(-u.numel() // SUM_BLOCK), dtype=torch.float32,
+                               device=u.device)
+        sum_b = torch.empty((), dtype=torch.float32, device=u.device)
+        _, Hq8, Wqa = self.qshape
+        c = self.coeffs
+        CHANNEL_PREDICTOR_SOURCE(u, ptr(u), ptr(v), ptr(us2), ptr(vs2), ptr(b), ptr(partials),
+                                 ptr(sum_b), Hq8, Wqa, self.ny, self.nx, self.uin, c.dt,
+                                 c.viscosity, c.idx, c.idy, c.idx2, c.idy2, self.rho_dt)
+        return us2, vs2, b, sum_b
+
+
 class _Traced:
     """The traced-dt dispatch shared by the adaptive instances: ``dt`` (one
     0-d float32 tensor, or the carries' (2,) pair (dt_corr, dt_pred)) rides
@@ -769,6 +815,11 @@ def make_quad_channel_corrector(shape, coeffs, inlet_velocity: float = 1.0,
     return QuadChannelCorrector(shape, coeffs, inlet_velocity)
 
 
+def make_quad_channel_predictor_source(shape, coeffs, inlet_velocity: float = 1.0
+                                       ) -> QuadChannelPredictorSource:
+    return QuadChannelPredictorSource(shape, coeffs, inlet_velocity)
+
+
 def make_quad_channel_corr_predictor_source(shape, coeffs, inlet_velocity: float = 1.0,
                                             adaptive: bool = False
                                             ) -> QuadChannelCorrPredictorSource:
@@ -916,3 +967,44 @@ def make_quad_pre_smooth_restrict(shape, problem, omega: float, n_pairs: int,
 def make_quad_post_prolong_smooth(shape, problem, omega: float, n_pairs: int,
                                   coarse_shape, device="cpu") -> QuadPostProlongSmooth:
     return QuadPostProlongSmooth(shape, problem, omega, n_pairs, coarse_shape, device)
+
+
+class QuadCorrPredictorSourceFusedPre(QuadCorrPredictorSource):
+    """The cavity carry with the first V-cycle's finest-level pre-smooth,
+    residual and restriction folded in (cfd_tpu/kernels/quad.py:985):
+    (us, vs, p, p_prev) -> (us', vs', b', p1, rc, max|b'|). p1 is the warm
+    start 2p - p_prev after ``pre``'s n_pairs red/black pairs on b', rc
+    (Hq8, Wqa) the restriction of its residual onto level 1; the solve
+    starts its first cycle at the coarse stage with it
+    (MultigridPoisson.solve_rc). The twin is the composition carry twin ->
+    ``pre`` twin, which the reference holds its kernel bit-equal to
+    (tests/test_quad.py:410); the kernel is one cooperative launch
+    (csrc/quad_fused_pre.cu). ``pre`` is the solve's QuadPreSmoothRestrict,
+    whose constants it shares."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, pre: QuadPreSmoothRestrict,
+                 lid_velocity: float = 1.0):
+        super().__init__(shape, coeffs, lid_velocity)
+        if pre.qshape != self.qshape:
+            raise ValueError(f"pre kernel shape {pre.qshape} != {self.qshape}")
+        self.pre = pre
+
+    def __call__(self, us, vs, p, p_prev):
+        self.pre._check_device(us)
+        return super().__call__(us, vs, p, p_prev)
+
+    def plain(self, us, vs, p, p_prev):
+        us2, vs2, b, guess, max_b = super().plain(us, vs, p, p_prev)
+        p1, rc = self.pre.plain(guess, b)
+        return us2, vs2, b, p1, rc, max_b
+
+    def kernel(self, us, vs, p, p_prev):
+        u_scr, v_scr, us2, vs2, b, p1 = (torch.empty_like(us) for _ in range(6))
+        rc = torch.empty(self.pre.coarse_shape, dtype=torch.float32, device=us.device)
+        max_b = torch.empty((), dtype=torch.float32, device=us.device)
+        c = self.coeffs
+        FUSED_PRE(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr), ptr(v_scr), ptr(us2),
+                  ptr(vs2), ptr(b), ptr(p1), ptr(rc), ptr(max_b), self.cu, self.cv,
+                  2.0 * self.lid, c.dt, c.viscosity, c.idx, c.idy, c.idx2, c.idy2,
+                  self.rho_dt, *self.pre._kernel_args())
+        return us2, vs2, b, p1, rc, max_b

@@ -116,14 +116,15 @@ def hierarchy_cfg(cfg):
     return dataclasses.replace(cfg, coarse_dtype=None, tail_from=None)
 
 
-def cooperative_grid(symbol: str, which: int) -> dict:
-    """The cooperative grid that the kernel chosen by ``which`` of the C entry
-    point ``symbol`` (cfd_whole_solve_grid, cfd_whole_step_grid) launches
-    with on the current CUDA device: blocks, blocks per SM and registers per
-    thread. Raises when the card refuses a co-resident grid."""
+def cooperative_grid(symbol: str, *which: int) -> dict:
+    """The cooperative grid that the kernel chosen by ``which`` (if the entry
+    point takes a choice) of the C entry point ``symbol``
+    (cfd_whole_solve_grid, cfd_whole_step_grid, cfd_quad_fused_pre_grid)
+    launches with on the current CUDA device: blocks, blocks per SM and
+    registers per thread. Raises when the card refuses a co-resident grid."""
     lib = library()
     vals = [ctypes.c_int(0) for _ in range(3)]
-    err = getattr(lib, symbol)(which, *(
+    err = getattr(lib, symbol)(*which, *(
         ctypes.cast(ctypes.byref(v), ctypes.c_void_p) for v in vals))
     if err != 0:
         raise RuntimeError(f"{symbol}: CUDA error {err} "

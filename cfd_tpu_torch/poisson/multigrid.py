@@ -379,7 +379,8 @@ class MultigridPoisson(nn.Module):
     every cycle (module docstring). ``cfg.tail_from`` (global level index,
     taken when 1 <= tail_from <= levels - 2 and otherwise ignored, as
     multigrid.py:689-694) runs every level from there down as one launch of
-    the fused tail (``tail``, kernels.mg_tail.MGTail).
+    the fused tail (``tail``, kernels.mg_tail.MGTail). ``solve_rc`` is the
+    quad_first_rc solve that follows the cavity's fused-pre carry.
 
     ``store_dtype`` (the whole-solve's twin, kernels.whole_solve, with
     ``cfg.coarse_dtype`` None): float32 levels whose weights and coarsest
@@ -472,6 +473,11 @@ class MultigridPoisson(nn.Module):
 
     def _vcycle(self, p, b, plain):
         p, rc = self.pre0.plain(p, b) if plain else self.pre0(p, b)
+        return self._coarse_and_post(p, b, rc, plain)
+
+    def _coarse_and_post(self, p, b, rc, plain):
+        """A V-cycle after the finest pre-smooth and restriction: the coarse
+        correction from rc, then the prolongation and post-smooth."""
         rc_shape = rc.shape
         lv1 = self.levels[1]
         if self.coarse_dt is not None:
@@ -500,6 +506,27 @@ class MultigridPoisson(nn.Module):
         if self.aligned:  # the warm start masked to the interior (:843-847)
             p_warm = torch.where(self.interior0, p_warm, torch.zeros_like(p_warm))
         return tolerance_loop(p_warm, b, max_b, self.cfg, self.cycle)
+
+    def solve_rc(self, p1: torch.Tensor, b: torch.Tensor, rc0: torch.Tensor, max_b=None):
+        """The solve after the fused carry (kernels.quad
+        QuadCorrPredictorSourceFusedPre), cfd_tpu make_multigrid_poisson(
+        quad_first_rc=True), multigrid.py:888-918: the first cycle's finest
+        pre-smooth and restriction are done, so cycle 1 starts at the coarse
+        stage with ``rc0`` from the pre-smoothed ``p1``; cycles >= 2 are
+        regular V-cycles; the stop rule is tolerance_loop's. Returns (p,
+        cycles, res). The quad finest level and no pin_mean only (the
+        reference's ValueError)."""
+        if self.aligned or self.cfg.pin_mean:
+            raise ValueError("quad_first_rc requires quad_level0 and pin_mean=False (the "
+                             "fused carry kernel owns the first pre-smooth)")
+        first = [rc0]
+
+        def cycle(p, b):
+            if first:
+                return self._coarse_and_post(p, b, first.pop(), False)
+            return self._vcycle(p, b, False)
+
+        return tolerance_loop(p1, b, max_b, self.cfg, cycle)
 
 
 def _pinv_tensor(p: PoissonProblem, round_to: torch.dtype | None, device) -> torch.Tensor:

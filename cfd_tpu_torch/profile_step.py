@@ -9,6 +9,7 @@ step goes on the card.
     python -m cfd_tpu_torch.profile_step --case rb [--nx 1536 --ny 512] [--mg ...] ...
     python -m cfd_tpu_torch.profile_step --case cavity --layout aligned
     python -m cfd_tpu_torch.profile_step --case step --nx 512 --ny 30
+    python -m cfd_tpu_torch.profile_step --fuse-pre --mg per-kernel
 
 Drives a main path on cuda through Simulation's step function: the cavity,
 make_cavity_case(n_interior=n, poisson="multigrid", dtype=float32,
@@ -25,7 +26,11 @@ any other value is MGConfig overrides ``K=V[,K=V...]`` as the CLI's --mg
 takes them (e.g. ``tail_from=1``, ``whole_solve=true,coarse_dtype=bfloat16``,
 ``corr_opt=true``). ``--layout aligned`` (cavity, channel) runs the natural
 aligned layout; sizes without a quad layout (e.g. the cavity at n = 142,
-the step at 512x30) take the natural layout by the auto rule.
+the step at 512x30) take the natural layout by the auto rule. ``--fuse-pre``
+(cavity) passes fuse_pre=True: on the per-kernel solve (``--mg
+per-kernel`` or a manual knob such as ``tail_from=1``) the carry runs the
+first cycle's pre-smooth and restriction (kernels.quad
+QuadCorrPredictorSourceFusedPre); the whole-solve ignores it.
 The steps' V-cycle counts stay on the card until each window ends, as in
 Simulation.run, so no window reads the host between its steps. It runs
 three windows:
@@ -149,8 +154,10 @@ def make_case(args):
     if args.case == "cavity":
         case = make_cavity_case(n_interior=args.n, poisson="multigrid",
                                 dtype=torch.float32, tolerance_factor=1e-6, device="cuda",
-                                mg_overrides=ov, **layout)
+                                mg_overrides=ov, fuse_pre=args.fuse_pre, **layout)
         return case, describe(case, f"cavity {args.n}^2")
+    if args.fuse_pre:
+        raise SystemExit("profile_step: --fuse-pre is a cavity option")
     make, (nx, ny) = {"channel": (make_channel_case, (1536, 512)),
                       "step": (make_backwards_step_case, (2048, 256)),
                       "rb": (make_rayleigh_benard_case, (1536, 512))}[args.case]
@@ -170,6 +177,7 @@ def describe(case, what: str) -> str:
             "whole solve" if mg.whole_solve else "per-kernel solve")
     knobs = "".join(f", {k}={getattr(mg, k)}" for k in ("tail_from", "corr_opt")
                     if getattr(mg, k))
+    knobs += ", the fused-pre carry" if case.carry_fused_pre else ""
     layout = "quad" if case.carry_tentative else "natural"
     return f"{what} ({layout} layout, {path}, coarse {mg.coarse_dtype or 'float32'}{knobs})"
 
@@ -190,6 +198,8 @@ def main(argv=None) -> int:
                          "MGConfig overrides K=V[,K=V...]")
     ap.add_argument("--layout", choices=["auto", "quad", "aligned"], default="auto",
                     help="cavity/channel: the layout (default: the case's auto rule)")
+    ap.add_argument("--fuse-pre", action="store_true",
+                    help="cavity: fuse_pre=True (taken on the per-kernel solve)")
     ap.add_argument("--warmup", type=int, default=100)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--out", type=Path, default=DEFAULT_OUT)

@@ -1,7 +1,8 @@
 """Projection-method time integration (the port of cfd_tpu.solver).
 
 Ported: the tentative-carry orderings of ``make_step`` for the cavity
-(cfd_tpu/solver.py:221-228), for the channel with the extrapolated warm
+(cfd_tpu/solver.py:221-228, and with the fused-pre carry :210-218), for the
+channel with the extrapolated warm
 start (:230-239) and for the backward step with the plain previous-p warm
 start (:241-252) — the state's u/v are the TENTATIVE velocities and one
 fused corrector+BC+predictor+source kernel runs at the start of each step,
@@ -100,6 +101,10 @@ class Case:
     # cycles, res); step_kernels stay for the stats/export boundary and the
     # adaptive builders.
     whole_step_kernel: Optional[Callable] = None
+    # The cavity's fused-pre carry (fuse_pre on the per-kernel solve):
+    # step_kernels[0] returns (us', vs', b', p1, rc, max|b'|) and
+    # poisson_solve is MultigridPoisson.solve_rc(p1, b, rc, max_b)
+    carry_fused_pre: bool = False
     # True on the quad paths (the carried u/v are the tentative velocities);
     # False on the natural layout (corrected velocities; the non-carry
     # orderings, cfd_tpu/solver.py:253-340)
@@ -187,6 +192,17 @@ def make_step(case: Case) -> Callable[[State], tuple[State, StepDiagnostics]]:
     if not case.carry_tentative:
         return _natural_step(case)
     fused = case.step_kernels[0]
+
+    if case.ordering == "cavity" and case.carry_fused_pre:
+
+        def step(state: State) -> tuple[State, StepDiagnostics]:
+            # the carry and the first cycle's pre-smooth and restriction in
+            # one kernel; the solve starts at the coarse stage
+            us2, vs2, b, p1, rc, max_b = fused(state.u, state.v, state.p, state.p_prev)
+            p, iters, res = case.poisson_solve(p1, b, rc, max_b)
+            return State(us2, vs2, p, state.T, state.p), StepDiagnostics(iters, res)
+
+        return step
 
     if case.ordering == "cavity":
 

@@ -160,6 +160,23 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
     aligned at 64^2 and by the auto rule at 46^2, the channel at 128x30,
     the step at 128x14): equal cycles every step, fields within 5e-5,
     avg_KE within 1e-6 relative.
+28. The cavity's fused-pre carry (row 7, one cooperative launch) at 2048^2
+    and the channel's non-carry stage (row 8c) at 1536x512 against their
+    twins (1e-5, bit-identical expected); row 7 timed in turns with the
+    composed carry -> pre pair it replaces.
+29. The fused-pre path: make_cavity_case(fuse_pre=True,
+    mg_overrides={"whole_solve": False}) at 2048^2, 300 steps from the
+    initial state beside a per-kernel run from the same state, then 100
+    steps with tail_from=1 from phase 21's start state beside phase 21's
+    tail run: equal cycles every step and bit-identical carried fields;
+    one fused launch a step, the pre kernel only on cycles >= 2.
+30. Row 8c on a path: the channel 1536x512 with its carry replaced by the
+    split ordering corrector -> row 8c (split_channel; make_step removes
+    the mean and runs the whole-solve), 300 steps from the initial state
+    beside phase 6's carried run: equal cycles every step, fields within
+    1e-5 relative (bit-identical expected).
+31. Card against CPU over 20 steps: the fused-pre cavity at 256^2 and the
+    split channel at 256x128.
 
 The line before the last is a JSON object {"kernels": [...]}: per kernel,
 its launches on its path's run, its error against its twin, its time and
@@ -1150,7 +1167,7 @@ def run_tail_path(case, what: str, path_kernels, ref, card: str, rate, cycle_sla
         f"step: {r['iters'] == iters}; {r['steps_s']:.2f} steps/s at {r['cycles']:.2f} "
         f"V-cycles/step against the per-kernel solve's {pk['steps_s']:.2f} at "
         f"{pk['cycles']:.2f}  ({card})")
-    return got
+    return got, state, r
 
 
 def step_grid(nx: int, ny: int):
@@ -1291,6 +1308,110 @@ def check_natural_kernels(dev) -> dict:
     return results
 
 
+def check_fused_pre_kernels(dev) -> dict:
+    """Phase 28: row 7 (the cavity carry with the first pre-smooth and
+    restriction) at the 2048^2 shapes, timed beside the composed carry ->
+    pre pair, and row 8c (the channel's non-carry stage) at the 1536x512
+    shapes, against their twins, with their times and bounds."""
+    from cfd_tpu_torch.cases import make_cavity_case, make_channel_case
+    from cfd_tpu_torch.kernels import quad as Q
+
+    rng = np.random.default_rng(28)
+
+    def fields(shape, n, interior_only=0):
+        """n seeded quad fields, the last ``interior_only`` zero on the ghosts."""
+        out = []
+        for k in range(n):
+            a = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+            if k >= n - interior_only:
+                a[0, :] = a[-1, :] = a[:, 0] = a[:, -1] = 0.0
+            out.append(Q.to_quad(torch.from_numpy(a).to(dev), shape))
+        return out
+
+    results = {}
+    case = make_cavity_case(n_interior=N_MAIN, poisson="multigrid", dtype=torch.float32,
+                            tolerance_factor=1e-6, fuse_pre=True,
+                            mg_overrides={"whole_solve": False}, device=dev)
+    fused = case.step_kernels[0]
+    pre = fused.pre
+    carry = Q.make_quad_corr_predictor_source(case.grid.shape, case.coeffs)
+    us, vs, p, pp = fields(case.grid.shape, 4, interior_only=2)
+    errs = []
+    got, want = fused.kernel(us, vs, p, pp), fused.plain(us, vs, p, pp)
+    for name, a, b in zip(("us'", "vs'", "b", "p1", "rc", "max|b|"), got, want, strict=True):
+        rel_err(a, b, f"{Q.FUSED_PRE.name} {name}", TOL_F32, errs)
+
+    def composed():
+        _, _, b, guess, _ = carry.kernel(us, vs, p, pp)
+        return pre.kernel(guess, b)
+
+    run = lambda: fused.kernel(us, vs, p, pp)
+    # in turns: fused, composed, composed, fused
+    times = [median_ms(run), median_ms(composed), median_ms(composed), median_ms(run)]
+    cells = case.grid.nx * case.grid.ny
+    results[Q.FUSED_PRE.name] = dict(
+        err=max(errs), ms=times[0], ms_again=times[3], composed_ms=times[1:3],
+        plain_ms=median_ms(lambda: fused.plain(us, vs, p, pp), reps=5),
+        **bound(nbytes(us, vs, p, pp, *got, pre.wE, pre.wW, pre.wN, pre.wS),
+                cells * (CORRECTOR_OPS + PREDICTOR_SOURCE_OPS + pre.n_pairs * GS_OPS + RES_OPS)
+                + cells // 4 * RESTRICT_OPS))
+    del case, fused, carry, got, want
+    ch = make_channel_case(nx=CHANNEL[0], ny=CHANNEL[1], poisson="multigrid",
+                           tolerance_factor=1e-6, abs_tol=0.0, dtype=torch.float32, device=dev)
+    pred = Q.make_quad_channel_predictor_source(ch.grid.shape, ch.coeffs,
+                                                ch.step_kernels[0].uin)
+    u, v = fields(ch.grid.shape, 2)
+    errs = []
+    got, want = pred.kernel(u, v), pred.plain(u, v)
+    for name, a, b in zip(("us", "vs", "b", "sum b"), got, want, strict=True):
+        rel_err(a, b, f"{Q.CHANNEL_PREDICTOR_SOURCE.name} {name}", TOL_F32, errs)
+    cells = ch.grid.nx * ch.grid.ny
+    results[Q.CHANNEL_PREDICTOR_SOURCE.name] = dict(
+        err=max(errs), ms=median_ms(lambda: pred.kernel(u, v)),
+        plain_ms=median_ms(lambda: pred.plain(u, v)),
+        **bound(nbytes(u, v, *got), cells * (PREDICTOR_SOURCE_OPS + 1)))
+    return results
+
+
+def split_channel(case):
+    """The channel case with its carry replaced by the split ordering the
+    reference holds it to (tests/test_quad.py:371): the corrector (row 8b)
+    then the non-carry stage (row 8c), (us, vs, p, p_prev) -> (us', vs', b,
+    guess, sum b); make_step then removes the mean and runs the case's
+    solve as for the carry. No factory offers this path: it is composed
+    here to drive row 8c at full width."""
+    from cfd_tpu_torch.kernels import quad as Q
+
+    carry, corr = case.step_kernels
+    pred = Q.make_quad_channel_predictor_source(case.grid.shape, case.coeffs, carry.uin)
+
+    def split(us, vs, p, p_prev):
+        u, v, guess = corr(us, vs, p, p_prev)
+        us2, vs2, b, sum_b = pred(u, v)
+        return us2, vs2, b, guess, sum_b
+
+    return dataclasses.replace(case, step_kernels=(split, corr))
+
+
+def hold_run(what: str, iters, state, ref_iters, ref_state, exact: bool) -> None:
+    """A run held to a reference run from the same start: equal cycles on
+    every step, the carried fields within 1e-5 relative and, with ``exact``,
+    bit-identical."""
+    if list(iters) != list(ref_iters):
+        raise AssertionError(f"{what}: cycles differ from the reference run's: {iters} "
+                             f"against {ref_iters}")
+    same = True
+    for name, a, b in zip(("u", "v", "p", "T", "p_prev"), state, ref_state, strict=True):
+        if a is None:
+            continue
+        rel_err(a, b, f"{what} {name}", TOL_F32, [])
+        same = same and torch.equal(a, b)
+    if exact and not same:
+        raise AssertionError(f"{what}: fields not bit-identical to the reference run's")
+    log(f"  {what}: equal cycles on all {len(iters)} steps, fields "
+        f"{'bit-identical' if same else 'within 1e-5 relative, not bit-identical'}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -1314,7 +1435,8 @@ def main() -> int:
     log(f"  built {path.relative_to(ROOT)} in {build_s:.1f} s")
     ptxas = path.with_suffix(".log").read_text().splitlines()
     for i, line in enumerate(ptxas):
-        for kname in ("whole_solve_kernel", "whole_step_kernel", "mg_tail_kernel"):
+        for kname in ("whole_solve_kernel", "whole_step_kernel", "mg_tail_kernel",
+                      "fused_pre_kernel"):
             if "Compiling entry function" in line and kname in line:
                 for info in ptxas[i + 1 : i + 4]:
                     if "Function properties" not in info:
@@ -1328,6 +1450,9 @@ def main() -> int:
         log(f"  whole_step_kernel<{fname}>: {grid['registers']} registers/thread, "
             f"cooperative grid of {grid['blocks']} blocks ({grid['blocks_per_sm']} "
             f"co-resident per SM)")
+    grid = WS.cooperative_grid("cfd_quad_fused_pre_grid")
+    log(f"  fused_pre_kernel: {grid['registers']} registers/thread, cooperative grid of "
+        f"{grid['blocks']} blocks ({grid['blocks_per_sm']} co-resident per SM)")
 
     log(f"phase 2: kernels vs plain twins at {N_MAIN}^2 shapes ({card})")
     cav_main = dict(n_interior=N_MAIN, poisson="multigrid", dtype=torch.float32,
@@ -1397,6 +1522,7 @@ def main() -> int:
         case, 300, (Q.CHANNEL_CARRY, Q.CHANNEL_CORRECTOR, WS.WHOLE_SOLVE),
         "channel whole-solve", card, cells)
     composed["channel"] = (whole["iters"], state)
+    carried_channel = (whole["iters"], state)  # phase 30 holds the split channel to it
     f32_cycles["channel"] = whole["cycles"]
     quad_whole["channel"] = whole
     per_kernel_case = make_channel_case(device=dev, mg_overrides={"whole_solve": False},
@@ -1665,10 +1791,14 @@ def main() -> int:
                   "rb": (RQ.RB_CARRY, Q.PRE, Q.POST, MT.MG_TAIL)}
     tail_launches = {}
     for flow, case in list(tail_cases.items()):
-        got = run_tail_path(case, f"{flow} tail_from=1", tail_paths[flow], pk_ref.pop(flow),
-                            card, full[flow][3], cycle_slack=1 if flow == "channel" else 0)
+        ref = pk_ref.pop(flow)
+        got, state, r = run_tail_path(case, f"{flow} tail_from=1", tail_paths[flow], ref,
+                                      card, full[flow][3],
+                                      cycle_slack=1 if flow == "channel" else 0)
         tail_launches.setdefault(tail_paths[flow][-1].name, got[tail_paths[flow][-1].name])
-        del tail_cases[flow], case
+        if flow == "cavity":  # phase 29 holds the fused-pre tail run to it
+            cavity_tail = (ref[0], r["iters"], state)
+        del tail_cases[flow], case, state
 
     bf16 = "bfloat16"
     log(f"phase 22: the bf16 hierarchy's whole-solve and whole-step kernels vs their twins "
@@ -1836,6 +1966,96 @@ def main() -> int:
         card_vs_cpu(make, dict(kw, dtype=torch.float32, print_interval=20), what)
     masked_natural_solve_card_vs_cpu(512, 64)
 
+    log(f"phase 28: the fused-pre carry (row 7) at {N_MAIN}^2 and the channel's non-carry "
+        f"stage (row 8c) at {CHANNEL[0]}x{CHANNEL[1]} vs their plain twins ({card})")
+    fp_checks = check_fused_pre_kernels(dev)
+    r = fp_checks[Q.FUSED_PRE.name]
+    log(f"  {Q.FUSED_PRE.name}: kernel {r['ms']:.4f} / {r['ms_again']:.4f} ms, the composed "
+        f"carry -> pre kernels {r['composed_ms'][0]:.4f} / {r['composed_ms'][1]:.4f} ms (in "
+        f"turns), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})  ({card})")
+    r = fp_checks[Q.CHANNEL_PREDICTOR_SOURCE.name]
+    log(f"  {Q.CHANNEL_PREDICTOR_SOURCE.name}: kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
+    checks.update(fp_checks)
+
+    log(f"phase 29: the fused-pre path at {N_MAIN}^2 (fuse_pre=True, whole_solve=False), "
+        f"300 steps from the initial state beside the per-kernel composition, then 100 "
+        f"with tail_from=1 from phase 21's start state ({card})")
+    fp_kw = dict(cav_main, fuse_pre=True)
+    case = make_cavity_case(device=dev, mg_overrides={"whole_solve": False}, **cav_main)
+    _, ref_state, ref = run_path(case, 300, (Q.CARRY, Q.PRE, Q.POST, RB.RB_PAIRS),
+                                 "cavity per-kernel from the initial state", card, rate)
+    del case
+    case = make_cavity_case(device=dev, mg_overrides={"whole_solve": False}, **fp_kw)
+    if not case.carry_fused_pre:
+        raise AssertionError("fuse_pre did not take the fused-pre carry")
+    got, state, fp = run_path(case, 300, (Q.FUSED_PRE, Q.POST, RB.RB_PAIRS),
+                              "cavity fused-pre", card, rate)
+    del case
+    hold_run("fused-pre vs per-kernel, 300 steps", fp["iters"], state, ref["iters"],
+             ref_state, exact=True)
+    fp_launches = {Q.FUSED_PRE.name: got[Q.FUSED_PRE.name]}
+    extra = sum(fp["iters"]) - 300
+    if got[Q.FUSED_PRE.name] != 300 or got[Q.CARRY.name] or got[Q.PRE.name] != extra:
+        raise AssertionError(f"fused-pre launches: {got[Q.FUSED_PRE.name]} fused, "
+                             f"{got[Q.CARRY.name]} carry, {got[Q.PRE.name]} pre for {extra} "
+                             "cycles after a first")
+    log(f"  fused-pre: 1.00 fused launch a step, {got[Q.PRE.name] / 300:.2f} pre launches a "
+        f"step ({extra} cycles after a first), {sum(got.values()) / 300:.2f} port launches a "
+        f"step; last 100: {fp['steps_s']:.2f} steps/s at {fp['cycles']:.2f} V-cycles/step "
+        f"against the per-kernel {ref['steps_s']:.2f} at {ref['cycles']:.2f}  ({card})")
+    del state, ref_state
+    start, tail_iters, tail_state = cavity_tail
+    case = make_cavity_case(device=dev, mg_overrides={"tail_from": 1}, **fp_kw)
+    got, state, fpt = run_path(case, 100, (Q.FUSED_PRE, Q.POST, MT.MG_TAIL),
+                               "cavity fused-pre tail_from=1", card, rate, state=start,
+                               start_step=300)
+    del case
+    hold_run("fused-pre with the tail vs phase 21's tail run, 100 steps", fpt["iters"], state,
+             tail_iters, tail_state, exact=True)
+    if got[MT.MG_TAIL.name] != sum(fpt["iters"]) or got[RB.RB_PAIRS.name]:
+        raise AssertionError(f"fused-pre tail: {got[MT.MG_TAIL.name]} tail launches for "
+                             f"{sum(fpt['iters'])} V-cycles, {got[RB.RB_PAIRS.name]} "
+                             "coarse smoother launches")
+    log(f"  fused-pre with the tail: {got[Q.FUSED_PRE.name] / 100:.2f} fused, "
+        f"{got[Q.PRE.name] / 100:.2f} pre, {got[MT.MG_TAIL.name] / 100:.2f} tail launches a "
+        f"step, {sum(got.values()) / 100:.2f} port launches a step; {fpt['steps_s']:.2f} "
+        f"steps/s at {fpt['cycles']:.2f} V-cycles/step  ({card})")
+    del state, start, tail_state, cavity_tail
+
+    log(f"phase 30: the split channel path at {CHANNEL[0]}x{CHANNEL[1]}: the corrector, the "
+        f"non-carry stage (row 8c), remove_mean_quad and the case's whole-solve, 300 steps "
+        f"from the initial state beside phase 6's carried run ({card})")
+    case = split_channel(make_channel_case(device=dev, **ch_kw))
+    got, state, sp = run_path(case, 300, (Q.CHANNEL_CORRECTOR, Q.CHANNEL_PREDICTOR_SOURCE,
+                                          WS.WHOLE_SOLVE), "channel split", card,
+                              full["channel"][3])
+    del case
+    if got[Q.CHANNEL_CARRY.name] or got[Q.CHANNEL_PREDICTOR_SOURCE.name] != 300:
+        raise AssertionError(f"split channel: {got[Q.CHANNEL_CARRY.name]} carry launches, "
+                             f"{got[Q.CHANNEL_PREDICTOR_SOURCE.name]} row 8c launches")
+    fp_launches[Q.CHANNEL_PREDICTOR_SOURCE.name] = got[Q.CHANNEL_PREDICTOR_SOURCE.name]
+    ref_iters, ref_state = carried_channel
+    hold_run("split vs carried channel, 300 steps", sp["iters"], state, ref_iters, ref_state,
+             exact=False)
+    log(f"  split channel: {sum(got.values()) / 300:.2f} port launches a step; last 100: "
+        f"{sp['steps_s']:.2f} steps/s at {sp['cycles']:.2f} V-cycles/step against the "
+        f"carried run's {quad_whole['channel']['steps_s']:.2f} at "
+        f"{quad_whole['channel']['cycles']:.2f} (phase 6)  ({card})")
+    del state, ref_state, carried_channel
+
+    log("phase 31: the fused-pre cavity and the split channel card vs CPU, 20 steps")
+    card_vs_cpu(make_cavity_case, dict(n_interior=256, poisson="multigrid",
+                                       dtype=torch.float32, tolerance_factor=1e-6,
+                                       print_interval=20, fuse_pre=True,
+                                       mg_overrides={"whole_solve": False}),
+                "cavity 256^2 fused-pre")
+    card_vs_cpu(lambda device, **kw: split_channel(make_channel_case(device=device, **kw)),
+                dict(nx=256, ny=128, poisson="multigrid", dtype=torch.float32,
+                     tolerance_factor=1e-6, abs_tol=0.0, print_interval=20),
+                "channel 256x128 split")
+
     launches = {**cavity_launches, **{k: channel_launches[k] for k in (
         Q.CHANNEL_CARRY.name, Q.CHANNEL_CORRECTOR.name, WS.WHOLE_SOLVE.name)},
         **{k: step_launches[k] for k in (SQ.STEP_CARRY.name, SQ.STEP_CORRECTOR.name,
@@ -1845,7 +2065,7 @@ def main() -> int:
         **{k: rb_launches[k] for k in (RQ.RB_CARRY.name, RQ.RB_CORRECTOR.name,
                                        WS.WHOLE_SOLVE_PIN_MEAN.name)},
         **ad_launches, **ws_launches, **tail_launches, **bf16_launches, **corr_launches,
-        **nat_launches}
+        **nat_launches, **fp_launches}
     kernels = []
     for k in KERNELS:
         r = checks[k.name]

@@ -210,7 +210,7 @@ def test_run_aborts_on_blowup():
 
 @pytest.mark.parametrize("kw", [
     dict(poisson="sor"), dict(n_interior=63, poisson="auto"), dict(dtype=torch.float64),
-    dict(forcing=(0.0, 0.0)), dict(fuse_pre=True), dict(mg_overrides={"pin_mean": True}),
+    dict(forcing=(0.0, 0.0)), dict(mg_overrides={"pin_mean": True}),
     dict(mg_overrides={"pin_mean": True, "whole_solve": True}),
 ])
 def test_unported_options_raise(kw):

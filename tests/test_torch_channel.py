@@ -2,7 +2,9 @@
 the CPU: the channel ghost BCs and the channel Poisson operators in
 float64 (1e-12), and the plain twins of the channel carry and corrector
 against cfd_tpu's Pallas kernels in interpret mode at 64x32 (tile_rows=8,
-so the reference runs its slab path).
+so the reference runs its slab path), and of the non-carry stage (row 8c)
+at the 32x16 case of tests/test_quad.py:231, with the split ordering
+corrector -> non-carry stage equal to the carry's twin bit for bit.
 
 Bands (tests/test_quad.py, ROADMAP.md section C): u and v 2e-6, b 1e-5 of
 max|b|, the source sum 1e-6 of sum|b| (the two packages add in other
@@ -107,6 +109,53 @@ def test_channel_corrector_plain_matches_jax():
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
 
 
+def _case_inputs(seed):
+    """The channel of tests/test_quad.py:231 (32x16, the factory's
+    coefficients) in both packages, and a seeded (u, v) for each."""
+    from cfd_tpu.cases.channel import make_channel_case as jax_channel
+    from cfd_tpu_torch.cases import make_channel_case
+
+    jcase = jax_channel(nx=32, ny=16, dtype=jnp.float32, poisson="multigrid",
+                        step_kernel_mode="off")
+    tcase = make_channel_case(nx=32, ny=16, dtype=torch.float32, poisson="multigrid",
+                              device="cpu")
+    shape = jcase.grid.shape
+    rng = np.random.default_rng(seed)
+    u, v = ((rng.standard_normal(shape) * 0.1).astype(np.float32) for _ in range(2))
+    return (jcase, tcase, shape, [TQ.to_quad(torch.from_numpy(a), shape) for a in (u, v)],
+            [JQ.to_quad(jnp.asarray(a), shape) for a in (u, v)])
+
+
+def test_channel_predictor_source_plain_matches_jax():
+    """Row 8c, the non-carry channel stage, against
+    make_quad_channel_predictor_source(interpret=True) (tests/test_quad.py:231)."""
+    jcase, tcase, shape, tin, jin = _case_inputs(11)
+    got = TQ.make_quad_channel_predictor_source(shape, tcase.coeffs, 1.0).plain(*tin)
+    want = JQ.make_quad_channel_predictor_source(shape, jcase.coeffs, 1.0, tile_rows=8,
+                                                 interpret=True)(*jin)
+    b = np.asarray(want[2])
+    _close(got[0], want[0], 2e-6)
+    _close(got[1], want[1], 2e-6)
+    _close(got[2], want[2], 1e-5 * np.abs(b).max())
+    assert abs(float(got[3]) - float(want[3])) <= 1e-6 * np.abs(b).sum()
+
+
+def test_split_corrector_then_predictor_source_is_the_carry():
+    """8b then 8c equals the channel carry (8a), as the reference holds its
+    kernels (tests/test_quad.py:371); here the twins, bit for bit, the sum
+    included."""
+    _, tcase, shape, (u, v), _ = _case_inputs(12)
+    p = TQ.to_quad(torch.from_numpy(np.random.default_rng(13).standard_normal(shape)
+                                    .astype(np.float32) * 0.1), shape)
+    p_prev = 0.5 * p
+    c = tcase.coeffs
+    u2, v2, guess = TQ.make_quad_channel_corrector(shape, c).plain(u, v, p, p_prev)
+    split = TQ.make_quad_channel_predictor_source(shape, c).plain(u2, v2)
+    carry = TQ.make_quad_channel_corr_predictor_source(shape, c).plain(u, v, p, p_prev)
+    for a, b in zip((*split[:3], guess, split[3]), carry, strict=True):
+        assert torch.equal(a, b)
+
+
 def test_channel_corner_ghosts():
     """The u ghost rows read the inlet and outlet columns AFTER their
     update: the four corners are minus the inlet value (west) and minus the
@@ -149,13 +198,17 @@ def test_fixed_order_sum_is_the_kernels_two_level_fold():
     assert abs(float(TQ.fixed_order_sum(b)) - float(b.double().sum())) < 1e-3
 
 
-@pytest.mark.parametrize("name", ["carry", "corrector"])
+@pytest.mark.parametrize("name", ["carry", "corrector", "predictor_source"])
 def test_cpu_dispatch_runs_plain_and_counts_no_launch(name):
     tin, _ = _stage_inputs(16)
     c = TCoeffs(**COEFFS)
-    op = (TQ.make_quad_channel_corr_predictor_source(SHAPE, c) if name == "carry"
-          else TQ.make_quad_channel_corrector(SHAPE, c))
-    before = (TQ.CHANNEL_CARRY.launches, TQ.CHANNEL_CORRECTOR.launches)
+    op = {"carry": TQ.make_quad_channel_corr_predictor_source,
+          "corrector": TQ.make_quad_channel_corrector,
+          "predictor_source": TQ.make_quad_channel_predictor_source}[name](SHAPE, c)
+    if name == "predictor_source":
+        tin = tin[:2]
+    counters = (TQ.CHANNEL_CARRY, TQ.CHANNEL_CORRECTOR, TQ.CHANNEL_PREDICTOR_SOURCE)
+    before = [k.launches for k in counters]
     for a, b in zip(op(*tin), op.plain(*tin), strict=True):
         assert torch.equal(a, b)
-    assert before == (TQ.CHANNEL_CARRY.launches, TQ.CHANNEL_CORRECTOR.launches)
+    assert before == [k.launches for k in counters]

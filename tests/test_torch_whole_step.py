@@ -16,7 +16,8 @@ the CPU, where each flavor runs its plain twin.
   every call; Simulation.run reads them once a stats row (fault C.5 of
   ROADMAP.md), and gives the same rows and step_iters on every solve path.
 * The repaired faults C.1 (the cavity's solve policy), C.2 (the save
-  interval check and --save-interval), C.3 (the refusals' rows), the RB
+  interval check and --save-interval), C.3 (the refusals that cited queue B
+  rows now build their paths; fuse_pre's is tests/test_torch_fused_pre.py), the RB
   refusal of whole_step with extrapolate_warm_start, and the CLI's --mg.
 """
 
@@ -294,13 +295,6 @@ def test_cavity_goes_through_auto_whole_solve(monkeypatch):
     mg, ov, build, fallback = seen[-1]
     solve, mg_manual = auto_whole_solve(mg, ov, True, build, fallback)
     assert isinstance(solve, MultigridPoisson) and not mg_manual.whole_solve
-
-
-@pytest.mark.parametrize("kw, row", [(dict(fuse_pre=True), "row 7")])
-def test_cavity_refusals_cite_their_rows(kw, row):
-    """Fault C.3: the refusals point at the rows of ROADMAP.md queue B."""
-    with pytest.raises(NotImplementedError, match=row):
-        _port_case("cavity", **kw)
 
 
 @pytest.mark.parametrize("kw", [dict(layout="aligned"), dict(n_interior=30)])
