@@ -16,6 +16,8 @@ Usage:
         --adaptive-controller lagged
     python -m cfd_tpu_torch.cli channel --Nx 1536 --Ny 512 --precision f32 \
         --no-vtk --steps 300 --steps-per-call 100 --mg whole_step=true
+    python -m cfd_tpu_torch.cli cavity --Nx 2048 --Ny 2048 --precision f32 \
+        --poisson multigrid --no-vtk --steps 300 --steps-per-call 100 --mesh 4
 
 The flags are the reference CLI's for the ported paths, with its defaults
 per case (cfd_tpu/cli.py:103-106). VTK export is not ported yet, so a run
@@ -25,7 +27,12 @@ metrics, meshes) are refused with a message instead of being ignored.
 --adaptive-controller (exact: the cavity only; lagged: every case).
 --mg K=V[,K=V...] overrides MGConfig fields as the reference's flag does
 (cfd_tpu/cli.py:84-88, 133-156); --mg whole_step=true runs the whole time
-step in one kernel. --save-interval sets the case's save interval, which
+step in one kernel. --mesh N runs the cavity on the sharded quad path over an
+N-shard plane-row mesh (parallel.quad_sharded; every shard on the
+--device's cards, round-robin, so one card holds them all), with the
+reference's checks (cfd_tpu/cli.py:221-233); its solve takes the sharded
+engine's own config (tol_factor 1e-9, V(2,1)), as the reference's does.
+--save-interval sets the case's save interval, which
 --steps-per-call must divide (no exporter reads it yet). The
 Rayleigh-Benard case always solves with multigrid and ignores --poisson and
 --Re, as the reference does (cfd_tpu/cli.py:173-181).
@@ -72,6 +79,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Courant feedback: 'exact' measures the step just "
                              "produced (the cavity); 'lagged' runs the tentative-carry "
                              "kernel with one-step-stale feedback (every case)")
+        sp.add_argument("--mesh", type=int, default=None, metavar="N",
+                        help="shard the domain over N shards (1-D plane-row decomposition "
+                             "on the quad path; the cavity, f32 multigrid; one card may "
+                             "hold every shard)")
         sp.add_argument("--no-vtk", action="store_true", help="disable VTK export")
         sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda runs the CUDA kernels; cpu runs their plain "
@@ -162,6 +173,19 @@ def main(argv=None) -> int:
         raise SystemExit(f"not ported yet or unknown: {' '.join(rest)}")
     if not args.no_vtk:
         raise SystemExit("VTK export is not ported yet: pass --no-vtk")
+    if args.mesh:
+        if args.adaptive_dt is not None and args.adaptive_controller != "lagged":
+            raise SystemExit("--mesh adaptive runs the lagged controller: "
+                             "add --adaptive-controller lagged")
+        if args.precision != "f32":
+            raise SystemExit("--mesh runs the f32 quad fast path: add --precision f32")
+        if args.case != "cavity":
+            raise SystemExit(f"--mesh: only the cavity runs on the sharded path; the "
+                             f"{args.case} flavor is not ported yet (ROADMAP.md queue A "
+                             f"items A.12b, A.12c)")
+        if args.adaptive_dt is not None:
+            raise SystemExit("--mesh with --adaptive-dt: the sharded lagged controller is "
+                             "not ported yet (ROADMAP.md queue A item A.12d)")
     case = make_case_from_args(args)
 
     from cfd_tpu_torch.io import console
@@ -169,7 +193,13 @@ def main(argv=None) -> int:
 
     console.print_banner(case)
     print(f"device: {case.device}")
-    sim = Simulation(case)
+    mesh = None
+    if args.mesh:
+        from cfd_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(n_devices=args.mesh, shape=(args.mesh, 1), device=args.device)
+        print(f"mesh: {args.mesh}x1 plane-row decomposition over {args.device}")
+    sim = Simulation(case, mesh=mesh)
     if args.adaptive_dt is not None:
         from cfd_tpu_torch.adaptive import run_adaptive
 

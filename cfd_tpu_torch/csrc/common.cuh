@@ -7,6 +7,13 @@
 // neighbour: the TPU kernels rely on jnp.roll wraparound plus masks, and
 // every neighbour a masked-in cell reads lies inside the array anyway.
 //
+// Local blocks. A sharded quad field (the plane-row decomposition of
+// cfd_tpu/parallel/quad_sharded.py) is a device's (4, P + 16, Wqa) block
+// whose plane row 0 is the global plane row ``row0``; every j of the
+// helpers below stays the global logical row, so masks keep their global
+// meaning, and the loads subtract 2 * row0. A neighbour outside the block
+// reads 0. row0 is 0 on a whole field.
+//
 // Reductions. A max of non-negative floats is taken on their int bit
 // patterns (same order for non-negative IEEE values; a NaN, sign cleared by
 // fabsf, sorts above +inf and so propagates like jnp.max). One warp-shuffle
@@ -32,24 +39,37 @@ __device__ __forceinline__ long long qidx(int j, int i, int Hq8, int Wqa) {
          (i >> 1);
 }
 
-__device__ __forceinline__ float qld(const float* a, int j, int i, int Hq8, int Wqa) {
+__device__ __forceinline__ float qld(const float* a, int j, int i, int Hq8, int Wqa,
+                                    int row0 = 0) {
+  j -= 2 * row0;
   return (j >= 0 && j < 2 * Hq8 && i >= 0 && i < 2 * Wqa) ? a[qidx(j, i, Hq8, Wqa)]
                                                           : 0.f;
 }
 
-// flat thread index -> (q, J, I) of a quad field -> logical (j, i)
+// flat thread index -> (q, J, I) of a quad field -> logical (j, i), j
+// global (row0: the global plane row of the block's row 0)
 struct QuadCell {
   long long idx;
   int q, j, i;
 };
 
-__device__ __forceinline__ QuadCell quad_cell(long long idx, int Hq8, int Wqa) {
+__device__ __forceinline__ QuadCell quad_cell(long long idx, int Hq8, int Wqa,
+                                              int row0 = 0) {
   long long plane = static_cast<long long>(Hq8) * Wqa;
   int q = static_cast<int>(idx / plane);
   long long rem = idx - q * plane;
   int J = static_cast<int>(rem / Wqa);
   int I = static_cast<int>(rem - static_cast<long long>(J) * Wqa);
-  return {idx, q, 2 * J + (q >> 1), 2 * I + (q & 1)};
+  return {idx, q, 2 * (J + row0) + (q >> 1), 2 * I + (q & 1)};
+}
+
+// Whether flat quad index idx of a (4, Hq8, Wqa) array lies in its own plane
+// rows [halo, Hq8 - halo): a local block's reductions cover only these
+// (halo 8); a whole field (halo 0) owns every row
+__device__ __forceinline__ bool own_row(long long idx, int Hq8, int Wqa, int halo) {
+  if (halo == 0) return true;
+  const int J = static_cast<int>((idx % (static_cast<long long>(Hq8) * Wqa)) / Wqa);
+  return J >= halo && J < Hq8 - halo;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

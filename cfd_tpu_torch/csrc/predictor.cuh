@@ -10,6 +10,7 @@ struct Pred {
   int Hq8, Wqa, ny, nx;
   float dt, nu, idx, idy, idx2, idy2, rho_dt;
   float rho;  // the density, read only by the traced-dt instances (pred_at)
+  int row0 = 0;  // a sharded local block's global plane row of row 0 (common.cuh)
 };
 
 // The coefficients of a traced-dt launch (adaptive stepping): dt read from
@@ -69,15 +70,15 @@ __device__ __forceinline__ float v_star_at(LU u, LV v, int j, int i, const Pred&
 
 __device__ __forceinline__ float u_star(const float* u, const float* v, int j, int i,
                                         const Pred& c) {
-  auto lu = [&](int jj, int ii) { return qld(u, jj, ii, c.Hq8, c.Wqa); };
-  auto lv = [&](int jj, int ii) { return qld(v, jj, ii, c.Hq8, c.Wqa); };
+  auto lu = [&](int jj, int ii) { return qld(u, jj, ii, c.Hq8, c.Wqa, c.row0); };
+  auto lv = [&](int jj, int ii) { return qld(v, jj, ii, c.Hq8, c.Wqa, c.row0); };
   return u_star_at(lu, lv, j, i, c);
 }
 
 __device__ __forceinline__ float v_star(const float* u, const float* v, int j, int i,
                                         const Pred& c) {
-  auto lu = [&](int jj, int ii) { return qld(u, jj, ii, c.Hq8, c.Wqa); };
-  auto lv = [&](int jj, int ii) { return qld(v, jj, ii, c.Hq8, c.Wqa); };
+  auto lu = [&](int jj, int ii) { return qld(u, jj, ii, c.Hq8, c.Wqa, c.row0); };
+  auto lv = [&](int jj, int ii) { return qld(v, jj, ii, c.Hq8, c.Wqa, c.row0); };
   return v_star_at(lu, lv, j, i, c);
 }
 

@@ -15,6 +15,7 @@ struct Corr {
   int Hq8, Wqa, ny, nx;
   float cu, cv;  // traced-dt instances: the dt-free factors (cfd::traced_coeff)
   float ghost;  // the cavity's 2 * lid velocity, or the channel's inlet velocity
+  int row0 = 0;  // a sharded local block's global plane row of row 0 (common.cuh)
 };
 
 // the correction coefficients of a launch: the host's, or formed from the
@@ -32,18 +33,18 @@ __device__ __forceinline__ Corr corr_at(Corr c, const float* dt) {
 __device__ __forceinline__ float u_corr(const float* us, const float* p, int j, int i,
                                         const Corr& c) {
   if (!(j >= 1 && j <= c.ny && i >= 1 && i <= c.nx - 1)) return 0.f;
-  float pc = qld(p, j, i, c.Hq8, c.Wqa);
-  float pe = qld(p, j, i + 1, c.Hq8, c.Wqa);
-  return qld(us, j, i, c.Hq8, c.Wqa) - c.cu * (pe - pc);
+  float pc = qld(p, j, i, c.Hq8, c.Wqa, c.row0);
+  float pe = qld(p, j, i + 1, c.Hq8, c.Wqa, c.row0);
+  return qld(us, j, i, c.Hq8, c.Wqa, c.row0) - c.cu * (pe - pc);
 }
 
 // corrected v on valid faces (j in [1, ny-1], i in [1, nx]), else 0
 __device__ __forceinline__ float v_corr(const float* vs, const float* p, int j, int i,
                                         const Corr& c) {
   if (!(j >= 1 && j <= c.ny - 1 && i >= 1 && i <= c.nx)) return 0.f;
-  float pc = qld(p, j, i, c.Hq8, c.Wqa);
-  float pn = qld(p, j + 1, i, c.Hq8, c.Wqa);
-  return qld(vs, j, i, c.Hq8, c.Wqa) - c.cv * (pn - pc);
+  float pc = qld(p, j, i, c.Hq8, c.Wqa, c.row0);
+  float pn = qld(p, j + 1, i, c.Hq8, c.Wqa, c.row0);
+  return qld(vs, j, i, c.Hq8, c.Wqa, c.row0) - c.cv * (pn - pc);
 }
 
 // The cavity corrector at quad cell idx: the corrected u, v with the lid
@@ -53,7 +54,7 @@ __device__ __forceinline__ float2 cavity_corrector_cell(const float* us, const f
                                                         const float* p, const float* p_prev,
                                                         float* u2, float* v2, float* guess,
                                                         long long idx, const Corr& c) {
-  cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
+  cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa, c.row0);
   int j = cell.j, i = cell.i;
   float u;
   if (j == c.ny + 1 && i <= c.nx) {
@@ -83,15 +84,15 @@ __device__ __forceinline__ float2 cavity_corrector_cell(const float* us, const f
 // its east minus column nx (j <= ny). No ghost reads another ghost.
 __device__ __forceinline__ float lid_u(const float* u, int j, int i, const Pred& c,
                                        float two_lid) {
-  if (j == c.ny + 1 && i <= c.nx) return two_lid - qld(u, c.ny, i, c.Hq8, c.Wqa);
-  if (j == 0 && i <= c.nx) return -qld(u, 1, i, c.Hq8, c.Wqa);
-  return qld(u, j, i, c.Hq8, c.Wqa);
+  if (j == c.ny + 1 && i <= c.nx) return two_lid - qld(u, c.ny, i, c.Hq8, c.Wqa, c.row0);
+  if (j == 0 && i <= c.nx) return -qld(u, 1, i, c.Hq8, c.Wqa, c.row0);
+  return qld(u, j, i, c.Hq8, c.Wqa, c.row0);
 }
 
 __device__ __forceinline__ float lid_v(const float* v, int j, int i, const Pred& c) {
-  if (i == 0 && j <= c.ny) return -qld(v, j, 1, c.Hq8, c.Wqa);
-  if (i == c.nx + 1 && j <= c.ny) return -qld(v, j, c.nx, c.Hq8, c.Wqa);
-  return qld(v, j, i, c.Hq8, c.Wqa);
+  if (i == 0 && j <= c.ny) return -qld(v, j, 1, c.Hq8, c.Wqa, c.row0);
+  if (i == c.nx + 1 && j <= c.ny) return -qld(v, j, c.nx, c.Hq8, c.Wqa, c.row0);
+  return qld(v, j, i, c.Hq8, c.Wqa, c.row0);
 }
 
 // The cavity predictor at quad cell idx into us2, vs2 and b = rho/dt * div
@@ -102,13 +103,13 @@ __device__ __forceinline__ float predictor_source_cell(const float* u, const flo
                                                        float* us2, float* vs2, float* b,
                                                        long long idx, const Pred& c,
                                                        float two_lid) {
-  cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
+  cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa, c.row0);
   int j = cell.j, i = cell.i;
   auto lu = [&](int jj, int ii) {
-    return kLid ? lid_u(u, jj, ii, c, two_lid) : qld(u, jj, ii, c.Hq8, c.Wqa);
+    return kLid ? lid_u(u, jj, ii, c, two_lid) : qld(u, jj, ii, c.Hq8, c.Wqa, c.row0);
   };
   auto lv = [&](int jj, int ii) {
-    return kLid ? lid_v(v, jj, ii, c) : qld(v, jj, ii, c.Hq8, c.Wqa);
+    return kLid ? lid_v(v, jj, ii, c) : qld(v, jj, ii, c.Hq8, c.Wqa, c.row0);
   };
   float a = cfd::u_star_at(lu, lv, j, i, c);
   float bv = cfd::v_star_at(lu, lv, j, i, c);
@@ -159,7 +160,7 @@ __device__ __forceinline__ float2 channel_corrector_cell(const float* us, const 
                                                          const float* p, const float* p_prev,
                                                          float* u2, float* v2, float* guess,
                                                          long long idx, const Corr& c) {
-  cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
+  cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa, c.row0);
   auto uc = [&](int j, int i) { return u_corr(us, p, j, i, c); };
   auto vc = [&](int j, int i) { return v_corr(vs, p, j, i, c); };
   const float u = channel_u(uc, cell.j, cell.i, c.ny, c.nx, c.ghost);
@@ -176,7 +177,7 @@ __device__ __forceinline__ float channel_predictor_source_cell(const float* u, c
                                                                float* us2, float* vs2,
                                                                float* b, long long idx,
                                                                const Pred& c, float uin) {
-  cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa);
+  cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa, c.row0);
   const int j = cell.j, i = cell.i;
   auto fu = [&](int jj, int ii) { return u_star(u, v, jj, ii, c); };
   auto fv = [&](int jj, int ii) { return v_star(u, v, jj, ii, c); };

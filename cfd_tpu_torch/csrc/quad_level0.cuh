@@ -1,9 +1,12 @@
 // The finest multigrid level on the quad layout: its constants and the
 // per-cell arithmetic of the half-sweep, the residual, the full-weighting
 // restriction into level 1 and the 9-3-3-1 prolongation from level 1.
-// Shared by the per-kernel V-cycle kernels (quad_vcycle.cu) and the
-// whole-solve kernel (whole_solve.cu), so that the index math is written
-// once.
+// Shared by the per-kernel V-cycle kernels (quad_vcycle.cu, on a whole field
+// or on a shard's local block) and the whole-solve kernel (whole_solve.cu),
+// so that the index math is written once. On a local block (row0 != 0,
+// common.cuh) every j is global: the masks and the row vectors keep their
+// global meaning, the loads subtract 2 * row0, and a residual outside the
+// block is 0.
 #pragma once
 
 #include "common.cuh"
@@ -16,8 +19,10 @@ struct Level0 {
   float idx2, idy2, omega;
   const float* wE;  // (2*Wqa,) natural column vectors, 0 outside the interior
   const float* wW;
-  const float* wN;  // (2*Hq8,) natural row vectors
+  const float* wN;  // (2*Hq8,) natural row vectors, indexed by the global j
   const float* wS;
+  int row0 = 0;  // a sharded local block's global plane row of row 0
+  int halo = 0;  // its halo strip in plane rows; 0 on a whole field
 };
 
 __device__ __forceinline__ bool interior(int j, int i, const Level0& L) {
@@ -31,34 +36,46 @@ __device__ __forceinline__ bool quad_updates(const QuadCell& c, int colour,
   return ((c.q == 0 || c.q == 3) ? 0 : 1) == colour && interior(c.j, c.i, L);
 }
 
+// Whether half-sweep ``lo`` (from 1) updates local plane row Jl: every row of
+// a whole field; on a local block the band of the TPU kernel's single slab
+// (cfd_tpu/kernels/quad.py:611-627), lo rows in from each block edge except
+// at a physical edge: the bottom shard (row0 <= 0, whose dead rows end the
+// dependency chain as the ghost row does) and the top shard
+__device__ __forceinline__ bool in_band(int Jl, int lo, const Level0& L) {
+  if (L.halo == 0) return true;
+  const bool bottom = L.row0 <= 0, top = L.row0 + L.Hq8 >= (L.ny + 1) / 2 + 1;
+  return Jl >= (bottom ? 0 : lo) && Jl < (top ? L.Hq8 : L.Hq8 - lo);
+}
+
 // The Gauss-Seidel update of quad cell c from the other colour in src.
 __device__ __forceinline__ float quad_gs(const float* src, const float* b,
                                          const QuadCell& c, const Level0& L) {
-  const int j = c.j, i = c.i, H = L.Hq8, W = L.Wqa;
-  return gs_update(src[c.idx], qld(src, j, i + 1, H, W), qld(src, j, i - 1, H, W),
-                   qld(src, j + 1, i, H, W), qld(src, j - 1, i, H, W), b[c.idx], L.wE[i],
-                   L.wW[i], L.wN[j], L.wS[j], L.idx2, L.idy2, L.omega);
+  const int j = c.j, i = c.i, H = L.Hq8, W = L.Wqa, r0 = L.row0;
+  return gs_update(src[c.idx], qld(src, j, i + 1, H, W, r0), qld(src, j, i - 1, H, W, r0),
+                   qld(src, j + 1, i, H, W, r0), qld(src, j - 1, i, H, W, r0), b[c.idx],
+                   L.wE[i], L.wW[i], L.wN[j], L.wS[j], L.idx2, L.idy2, L.omega);
 }
 
-// signed residual b - A p at interior cell (j, i), 0 elsewhere
+// signed residual b - A p at interior cell (j, i) of the block, 0 elsewhere
 __device__ __forceinline__ float quad_residual(const float* p, const float* b, int j, int i,
                                                const Level0& L) {
-  if (!interior(j, i, L)) return 0.f;
-  const int H = L.Hq8, W = L.Wqa;
-  long long k = qidx(j, i, H, W);
-  float ap = apply_a(p[k], qld(p, j, i + 1, H, W), qld(p, j, i - 1, H, W),
-                     qld(p, j + 1, i, H, W), qld(p, j - 1, i, H, W), L.wE[i], L.wW[i],
-                     L.wN[j], L.wS[j], L.idx2, L.idy2);
+  const int H = L.Hq8, W = L.Wqa, r0 = L.row0, jl = j - 2 * r0;
+  if (!interior(j, i, L) || jl < 0 || jl >= 2 * H) return 0.f;
+  long long k = qidx(jl, i, H, W);
+  float ap = apply_a(p[k], qld(p, j, i + 1, H, W, r0), qld(p, j, i - 1, H, W, r0),
+                     qld(p, j + 1, i, H, W, r0), qld(p, j - 1, i, H, W, r0), L.wE[i],
+                     L.wW[i], L.wN[j], L.wS[j], L.idx2, L.idy2);
   return b[k] - ap;
 }
 
 // Level-1 source at aligned cell idx of (Hq8, Wqa): rc[Jc, Ic] = 0.25 *
 // (r(2Jc, 2Ic) + r(2Jc, 2Ic-1) + r(2Jc-1, 2Ic) + r(2Jc-1, 2Ic-1)) on the
-// coarse interior, else 0 (quad.py:678-687)
+// coarse interior, else 0 (quad.py:678-687); Jc global
 __device__ __forceinline__ float quad_restrict_value(const float* p, const float* b,
                                                      long long idx, const Level0& L) {
-  int Jc = static_cast<int>(idx / L.Wqa);
-  int Ic = static_cast<int>(idx - static_cast<long long>(Jc) * L.Wqa);
+  int Jl = static_cast<int>(idx / L.Wqa);
+  int Ic = static_cast<int>(idx - static_cast<long long>(Jl) * L.Wqa);
+  int Jc = Jl + L.row0;
   if (!(Jc >= 1 && Jc <= L.ny / 2 && Ic >= 1 && Ic <= L.nx / 2)) return 0.f;
   int j = 2 * Jc, i = 2 * Ic;
   return 0.25f * (quad_residual(p, b, j, i, L) + quad_residual(p, b, j, i - 1, L) +
@@ -66,14 +83,17 @@ __device__ __forceinline__ float quad_restrict_value(const float* p, const float
 }
 
 // The bilinear 9-3-3-1 prolongation of the aligned (Hq8, Wqa) level-1
-// correction ec at quad cell c, with the edge clamps of quad.py:741-760
+// correction ec at quad cell c, with the edge clamps of quad.py:741-760 on
+// the global row J; row J + 1 wraps within the block, as the TPU kernel's
+// roll within its slab
 __device__ __forceinline__ float quad_prolong_corr(const float* ec, const QuadCell& c,
-                                                   int Hq8, int Wqa, int ny, int nx) {
+                                                   int Hq8, int Wqa, int ny, int nx,
+                                                   int row0 = 0) {
   const int r = c.q >> 1, s = c.q & 1, J = c.j >> 1, I = c.i >> 1;
-  const int nyc = ny / 2, nxc = nx / 2, W = Wqa;
-  const int J1 = (J + 1) % Hq8;  // jnp.roll(ec, -1, axis=0)
+  const int nyc = ny / 2, nxc = nx / 2, W = Wqa, Jl = J - row0;
+  const int J1 = (Jl + 1) % Hq8;  // jnp.roll(ec, -1, axis=0)
   auto rowmix = [&](int col) {
-    float e0 = ec[static_cast<long long>(J) * W + col];
+    float e0 = ec[static_cast<long long>(Jl) * W + col];
     float e1 = ec[static_cast<long long>(J1) * W + col];
     float ecJ0 = (J == 0) ? e1 : e0;    // clamp the J = 0 ghost to row 1
     float ecJ1 = (J == nyc) ? e0 : e1;  // clamp J + 1 > nyc to row nyc
@@ -89,16 +109,16 @@ __device__ __forceinline__ float quad_prolong_corr(const float* ec, const QuadCe
 // p + prolong(ec) at quad cell idx on the interior, p elsewhere
 __device__ __forceinline__ float quad_prolong_add_value(const float* p, const float* ec,
                                                         long long idx, const Level0& L) {
-  QuadCell c = quad_cell(idx, L.Hq8, L.Wqa);
+  QuadCell c = quad_cell(idx, L.Hq8, L.Wqa, L.row0);
   float pc = p[idx];
   if (!interior(c.j, c.i, L)) return pc;
-  return pc + quad_prolong_corr(ec, c, L.Hq8, L.Wqa, L.ny, L.nx);
+  return pc + quad_prolong_corr(ec, c, L.Hq8, L.Wqa, L.ny, L.nx, L.row0);
 }
 
 // |b - A p| at quad cell idx (0 outside the interior)
 __device__ __forceinline__ float quad_abs_residual(const float* p, const float* b,
                                                    long long idx, const Level0& L) {
-  QuadCell c = quad_cell(idx, L.Hq8, L.Wqa);
+  QuadCell c = quad_cell(idx, L.Hq8, L.Wqa, L.row0);
   return fabsf(quad_residual(p, b, c.j, c.i, L));
 }
 

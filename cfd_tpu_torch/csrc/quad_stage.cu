@@ -8,7 +8,16 @@
 // make_quad_channel_corr_predictor_source (:1126, math in
 // channel_carry_compute :1160-1222), the carries fixed and with
 // traced_dt + emit_courant, and make_quad_channel_predictor_source (:847:
-// the channel carry's second and third launches on (u, v) as given).
+// the channel carry's second and third launches on (u, v) as given). The
+// cavity carry also runs with shard=(P, mdy) on one shard's local block
+// (row 16a, cfd_tpu/parallel/quad_sharded.py): the arrays are a shard's
+// (4, P + 16, Wqa) block between two 8-row halo strips, row_base = jy * P - 8
+// is the global plane row of local row 0 (every mask and ghost keeps its
+// global meaning, common.cuh), a neighbour outside the block reads 0, and
+// max|b| covers the own rows only: the shard's partial. The scratch u, v
+// cover the whole block and the stages' radius is 5 rows (quad.py:970-971),
+// inside the halo, so the own rows are exact. A whole field is row_base 0,
+// halo 0.
 //
 // Bound on the H100: device-memory bytes. The correctors read 4 quad fields
 // and write 3; the carries read 4 and write 4 plus one scalar (19 MB per
@@ -92,18 +101,23 @@ __global__ void corrector_kernel(const float* us, const float* vs, const float* 
 }
 
 // the predictor, b = rho/dt * div on the cells and max|b|; kLid applies the
-// lid ghosts to u, v on read (the non-carry stage, quad.py:438)
-template <bool kTraced, bool kLid>
+// lid ghosts to u, v on read (the non-carry stage, quad.py:438). kBlock: a
+// shard's local block, with its row offset and the max over its own rows
+// only (cfd::own_row); a whole field's instance folds the row offset away
+// at compile time (the run-time offset cost it 7% on the H100)
+template <bool kTraced, bool kLid, bool kBlock = false>
 __global__ void predictor_source_kernel(const float* u, const float* v, float* us2,
                                         float* vs2, float* b, float* max_b, Pred c0,
-                                        const float* dt, float two_lid) {
-  const Pred c = cfd::pred_at<kTraced>(c0, dt);
+                                        const float* dt, float two_lid, int halo) {
+  Pred c = cfd::pred_at<kTraced>(c0, dt);
+  if constexpr (!kBlock) c.row0 = 0;
   long long n = 4LL * c.Hq8 * c.Wqa;
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   float absb = 0.f;
   if (idx < n) {
-    absb = fabsf(
-        cfd::quad::predictor_source_cell<kLid>(u, v, us2, vs2, b, idx, c, two_lid));
+    const float bb =
+        cfd::quad::predictor_source_cell<kLid>(u, v, us2, vs2, b, idx, c, two_lid);
+    if (!kBlock || cfd::own_row(idx, c.Hq8, c.Wqa, halo)) absb = fabsf(bb);
   }
   cfd::block_max_into(absb, max_b);
 }
@@ -159,12 +173,14 @@ cudaError_t cfd::fold_partials(float* partials, int n, float* sum, cudaStream_t 
 namespace {
 
 // the cavity carry's two launches: the corrector into the scratch u, v,
-// then the predictor + source + max|b| from them
+// then the predictor + source + max|b| from them (own rows of a block with
+// a `halo`-row strip)
 template <bool kAdaptive>
 cudaError_t cavity_carry(const float* us, const float* vs, const float* p,
                          const float* p_prev, float* u_scr, float* v_scr, float* us2,
                          float* vs2, float* b, float* guess, float* max_b, float* courant,
-                         const float* dts, const Corr& c, const Pred& pc, cudaStream_t s) {
+                         const float* dts, const Corr& c, const Pred& pc, int halo,
+                         cudaStream_t s) {
   const long long n = 4LL * c.Hq8 * c.Wqa;
   corrector_kernel<kAdaptive, kAdaptive><<<cfd::blocks_for(n), cfd::kThreads, 0, s>>>(
       us, vs, p, p_prev, u_scr, v_scr, guess, c, dts, courant);
@@ -172,8 +188,15 @@ cudaError_t cavity_carry(const float* us, const float* vs, const float* p,
   if (err != cudaSuccess) return err;
   err = cudaMemsetAsync(max_b, 0, sizeof(float), s);
   if (err != cudaSuccess) return err;
-  predictor_source_kernel<kAdaptive, false><<<cfd::blocks_for(n), cfd::kThreads, 0, s>>>(
-      u_scr, v_scr, us2, vs2, b, max_b, pc, kAdaptive ? dts + 1 : nullptr, 0.f);
+  const float* dt_pred = kAdaptive ? dts + 1 : nullptr;
+  if (halo > 0) {
+    predictor_source_kernel<kAdaptive, false, true><<<cfd::blocks_for(n), cfd::kThreads, 0,
+                                                      s>>>(u_scr, v_scr, us2, vs2, b, max_b,
+                                                           pc, dt_pred, 0.f, halo);
+  } else {
+    predictor_source_kernel<kAdaptive, false><<<cfd::blocks_for(n), cfd::kThreads, 0, s>>>(
+        u_scr, v_scr, us2, vs2, b, max_b, pc, dt_pred, 0.f, 0);
+  }
   return cudaGetLastError();
 }
 
@@ -235,21 +258,23 @@ extern "C" int cfd_quad_predictor_source(const float* u, const float* v, float* 
   if (err != cudaSuccess) return static_cast<int>(err);
   Pred pc{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho};
   predictor_source_kernel<true, true><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0,
-                                        s>>>(u, v, us2, vs2, b, max_b, pc, dt, two_lid);
+                                        s>>>(u, v, us2, vs2, b, max_b, pc, dt, two_lid, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
+// row_base, halo: a local block's global plane row of row 0 and its halo
+// strip (0, 0 on a whole field)
 extern "C" int cfd_quad_carry(const float* us, const float* vs, const float* p,
                               const float* p_prev, float* u_scr, float* v_scr,
                               float* us2, float* vs2, float* b, float* guess,
                               float* max_b, int Hq8, int Wqa, int ny, int nx, float cu,
                               float cv, float two_lid, float dt, float nu, float idx,
                               float idy, float idx2, float idy2, float rho_dt,
-                              void* stream) {
-  Corr c{Hq8, Wqa, ny, nx, cu, cv, two_lid};
-  Pred pc{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt};
+                              int row_base, int halo, void* stream) {
+  Corr c{Hq8, Wqa, ny, nx, cu, cv, two_lid, row_base};
+  Pred pc{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt, 0.f, row_base};
   return static_cast<int>(cavity_carry<false>(us, vs, p, p_prev, u_scr, v_scr, us2, vs2, b,
-                                               guess, max_b, nullptr, nullptr, c, pc,
+                                               guess, max_b, nullptr, nullptr, c, pc, halo,
                                                static_cast<cudaStream_t>(stream)));
 }
 
@@ -269,7 +294,7 @@ extern "C" int cfd_quad_carry_adaptive(const float* us, const float* vs, const f
   Corr c{Hq8, Wqa, ny, nx, cu_f, cv_f, two_lid};
   Pred pc{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho};
   return static_cast<int>(cavity_carry<true>(us, vs, p, p_prev, u_scr, v_scr, us2, vs2, b,
-                                              guess, max_b, courant, dts, c, pc, s));
+                                              guess, max_b, courant, dts, c, pc, 0, s));
 }
 
 extern "C" int cfd_quad_channel_corrector(const float* us, const float* vs,

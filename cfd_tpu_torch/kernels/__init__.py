@@ -6,8 +6,9 @@ adaptive-stepping instances, their whole time steps in one launch, the
 fused coarse tail, the bfloat16 and corr_opt instances of the whole-solve
 and the whole step, the natural layout's stage kernels, fused-residual
 pairs and exact masked pairs, the cavity carry with the first pre-smooth
-folded in and the channel's non-carry stage), each with its launch counter
-(kernels._build.Kernel)."""
+folded in, the channel's non-carry stage, and the cavity's carry, pre and
+post on one shard's local block of a plane-row mesh), each with its launch
+counter (kernels._build.Kernel)."""
 
 from cfd_tpu_torch.kernels.mg_tail import MG_TAIL, MG_TAIL_FULL
 from cfd_tpu_torch.kernels.projection import (
@@ -30,6 +31,9 @@ from cfd_tpu_torch.kernels.quad import (
     POST,
     PRE,
     PREDICTOR_SOURCE,
+    SHARD_CARRY,
+    SHARD_POST,
+    SHARD_PRE,
 )
 from cfd_tpu_torch.kernels.rb_quad import (
     RB_CARRY,
@@ -79,6 +83,7 @@ KERNELS = (CARRY, CORRECTOR, PRE, POST, RB_PAIRS, CHANNEL_CARRY, CHANNEL_CORRECT
            WHOLE_STEP_CHANNEL_BF16, WHOLE_STEP_RB_BF16, WHOLE_STEP_STEP_BF16,
            STEP_WHOLE_SOLVE_CORR_OPT, WHOLE_STEP_STEP_CORR_OPT, NATURAL_PREDICTOR_SOURCE,
            NATURAL_CORRECTOR, NATURAL_CHANNEL_PREDICTOR_SOURCE, NATURAL_CHANNEL_CORRECTOR,
-           RB_PAIRS_RES, STEP_PAIRS, STEP_PAIRS_RES, FUSED_PRE, CHANNEL_PREDICTOR_SOURCE)
+           RB_PAIRS_RES, STEP_PAIRS, STEP_PAIRS_RES, FUSED_PRE, CHANNEL_PREDICTOR_SOURCE,
+           SHARD_CARRY, SHARD_PRE, SHARD_POST)
 
 __all__ = ["KERNELS"]

@@ -48,9 +48,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ints as c_int, coefficients as c_float); every one returns cudaError_t.
 SIGNATURES = {
     "cfd_quad_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
-    "cfd_quad_carry": [_P] * 11 + [_I] * 4 + [_F] * 10 + [_P],
-    "cfd_quad_pre_smooth_restrict": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I, _P],
-    "cfd_quad_post_prolong_smooth": [_P] * 9 + [_I] * 4 + [_F] * 3 + [_I, _P],
+    # the cavity's carry, pre and post; the last two ints are a sharded
+    # local block's row_base and halo (0, 0 on a whole field)
+    "cfd_quad_carry": [_P] * 11 + [_I] * 4 + [_F] * 10 + [_I, _I, _P],
+    "cfd_quad_pre_smooth_restrict": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
+    "cfd_quad_post_prolong_smooth": [_P] * 9 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
     "cfd_rb_pairs": [_I] + [_P] * 10 + [_I] * 4 + [_F] * 3 + [_I, _P],
     "cfd_quad_channel_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
     "cfd_quad_channel_carry": [_P] * 12 + [_I] * 4 + [_F] * 10 + [_P],

@@ -76,10 +76,21 @@ CHANNEL_PREDICTOR_SOURCE = Kernel("quad_channel_predictor_source",
                                   "cfd_tpu/kernels/quad.py:847")
 FUSED_PRE = Kernel("quad_corr_predictor_source_fused_pre", "cfd_quad_fused_pre",
                    "cfd_tpu_torch/csrc/quad_fused_pre.cu", "cfd_tpu/kernels/quad.py:985")
+# the same entry points on one shard's local block of the plane-row mesh
+# (parallel.quad_sharded), counted apart
+SHARD_CARRY = Kernel("quad_corr_predictor_source_shard", "cfd_quad_carry",
+                     "cfd_tpu_torch/csrc/quad_stage.cu", "cfd_tpu/kernels/quad.py:938 (shard=)")
+SHARD_PRE = Kernel("quad_pre_smooth_restrict_shard", "cfd_quad_pre_smooth_restrict",
+                   "cfd_tpu_torch/csrc/quad_vcycle.cu", "cfd_tpu/kernels/quad.py:630 (shard=)")
+SHARD_POST = Kernel("quad_post_prolong_smooth_shard", "cfd_quad_post_prolong_smooth",
+                    "cfd_tpu_torch/csrc/quad_vcycle.cu", "cfd_tpu/kernels/quad.py:700 (shard=)")
 
 # threads per block of the stage kernels (cfd::kThreads): the block size of
 # the fixed-order source sum
 SUM_BLOCK = 256
+# the halo strip of a sharded local block, in plane rows
+# (cfd_tpu/parallel/quad_sharded.py:68): the TPU kernels' slab halo
+DEV_HALO = 8
 
 
 def _round_up(x: int, m: int) -> int:
@@ -167,10 +178,11 @@ def _qshift(planes, dj: int, di: int):
     return out
 
 
-def _qiota(Hq8: int, Wqa: int, device):
+def _qiota(Hq8: int, Wqa: int, device, row0: int = 0):
     """Per-plane global (row, col) index arrays: grow[q] = 2J + r,
-    gcol[q] = 2I + s."""
-    J = torch.arange(Hq8, device=device)[:, None]
+    gcol[q] = 2I + s, with J = row0 + the array's plane row (row0: a local
+    block's global plane row of its row 0)."""
+    J = row0 + torch.arange(Hq8, device=device)[:, None]
     I = torch.arange(Wqa, device=device)[None, :]
     return ([2 * J + (q >> 1) for q in range(4)], [2 * I + (q & 1) for q in range(4)])
 
@@ -337,9 +349,12 @@ def fixed_order_sum(b: torch.Tensor) -> torch.Tensor:
     return fold_sum(partials[None, :])[0]
 
 
-def _smooth_pairs_quad(p, b, n_pairs, omega, idx2, idy2, wE, wW, wN, wS, masks):
+def _smooth_pairs_quad(p, b, n_pairs, omega, idx2, idy2, wE, wW, wN, wS, masks,
+                       band=None):
     """n_pairs red(planes 0,3)+black(planes 1,2) Gauss-Seidel pairs
-    (cfd_tpu/kernels/quad.py:569-596, whole array: every band is full)."""
+    (cfd_tpu/kernels/quad.py:569-596). Whole array: every band is full; on
+    a sharded local block ``band(lo)`` is the (rows, 1) mask of the rows
+    half-sweep ``lo`` (from 1) updates (_band_maker)."""
     inv = []
     for q in range(4):
         r, sp = q >> 1, q & 1
@@ -348,7 +363,7 @@ def _smooth_pairs_quad(p, b, n_pairs, omega, idx2, idy2, wE, wW, wN, wS, masks):
         safe = torch.where(denom > 0, denom, torch.ones_like(denom))
         inv.append(torch.where(masks[q], 1.0 / safe, torch.zeros_like(denom)))
 
-    def half(p, upd):
+    def half(p, upd, lo):
         E, Wm = _qshift(p, 0, 1), _qshift(p, 0, -1)
         N, S = _qshift(p, 1, 0), _qshift(p, -1, 0)
         out = list(p)
@@ -356,12 +371,13 @@ def _smooth_pairs_quad(p, b, n_pairs, omega, idx2, idy2, wE, wW, wN, wS, masks):
             r, sp = q >> 1, q & 1
             gs = (idx2 * (wE[sp] * E[q] + wW[sp] * Wm[q])
                   + idy2 * (wN[r] * N[q] + wS[r] * S[q]) - b[q]) * inv[q]
-            out[q] = torch.where(masks[q], p[q] + omega * (gs - p[q]), p[q])
+            mask = masks[q] if band is None else masks[q] & band(lo)
+            out[q] = torch.where(mask, p[q] + omega * (gs - p[q]), p[q])
         return out
 
-    for _ in range(n_pairs):
-        p = half(p, (0, 3))
-        p = half(p, (1, 2))
+    for k in range(n_pairs):
+        p = half(p, (0, 3), 2 * k + 1)
+        p = half(p, (1, 2), 2 * k + 2)
     return p
 
 
@@ -377,13 +393,31 @@ def _residual_quad(p, b, idx2, idy2, wE, wW, wN, wS, masks):
     return out
 
 
-def _bilinear_corr(ec, ny: int, nx: int):
+def _restrict_rc(r, ny: int, nx: int, row0: int = 0):
+    """Full weighting of the residual planes r straight into the aligned
+    level-1 source: coarse cell (Jc, Ic) averages planes (1,1)@(Jc-1,Ic-1),
+    (1,0)@(Jc-1,Ic), (0,1)@(Jc,Ic-1), (0,0)@(Jc,Ic), 0 off the coarse
+    interior (cfd_tpu/kernels/quad.py:678-687; row0: a local block's global
+    row 0)."""
+    rc = 0.25 * (r[0]
+                 + torch.roll(r[1], 1, dims=1)
+                 + torch.roll(r[2], 1, dims=0)
+                 + torch.roll(torch.roll(r[3], 1, dims=0), 1, dims=1))
+    Hc, Wc = rc.shape
+    Jc = row0 + torch.arange(Hc, device=rc.device)[:, None]
+    Ic = torch.arange(Wc, device=rc.device)[None, :]
+    cmask = (Jc >= 1) & (Jc <= ny // 2) & (Ic >= 1) & (Ic <= nx // 2)
+    return torch.where(cmask, rc, torch.zeros_like(rc))
+
+
+def _bilinear_corr(ec, ny: int, nx: int, row0: int = 0):
     """The bilinear 9-3-3-1 prolongation of the aligned level-1 correction
     ec (Hq8, Wqa) to the four quad planes, with the edge clamps of
-    cfd_tpu/kernels/quad.py:741-760 (plane q gets corr[q])."""
+    cfd_tpu/kernels/quad.py:741-760 (plane q gets corr[q]); on a local block
+    ``row0`` is its global row 0 and row J + 1 wraps within the block."""
     nyc, nxc = ny // 2, nx // 2
     Hc, Wc = ec.shape
-    Jc = torch.arange(Hc, device=ec.device)[:, None]
+    Jc = row0 + torch.arange(Hc, device=ec.device)[:, None]
     Ic = torch.arange(Wc, device=ec.device)[None, :]
     ecJ1 = torch.roll(ec, -1, dims=0)
     ecJ0 = torch.where(Jc == 0, ecJ1, ec)        # clamp J=0 ghost -> row 1
@@ -492,7 +526,7 @@ class QuadCorrPredictorSource(QuadCorrector):
         CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr), ptr(v_scr), ptr(us2),
               ptr(vs2), ptr(b), ptr(guess), ptr(max_b), Hq8, Wqa, self.ny, self.nx,
               self.cu, self.cv, 2.0 * self.lid, c.dt, c.viscosity, c.idx, c.idy,
-              c.idx2, c.idy2, self.rho_dt)
+              c.idx2, c.idy2, self.rho_dt, 0, 0)
         return us2, vs2, b, guess, max_b
 
 
@@ -801,8 +835,17 @@ def make_quad_predictor_source(shape, coeffs, lid_velocity: float = 1.0
 
 
 def make_quad_corr_predictor_source(shape, coeffs, lid_velocity: float = 1.0,
-                                    adaptive: bool = False) -> QuadCorrPredictorSource:
-    """``adaptive``: the traced_dt + emit_courant instance."""
+                                    adaptive: bool = False,
+                                    shard: tuple[int, int] | None = None
+                                    ) -> QuadCorrPredictorSource:
+    """``adaptive``: the traced_dt + emit_courant instance. ``shard=(P,
+    mdy)``: the kernel of one shard's local block
+    (QuadCorrPredictorSourceShard)."""
+    if shard is not None:
+        if adaptive:
+            raise NotImplementedError("the sharded traced-dt + Courant carry is not ported "
+                                      "yet (ROADMAP.md queue A item A.12d)")
+        return QuadCorrPredictorSourceShard(shape, coeffs, lid_velocity, shard)
     if adaptive:
         return QuadCorrPredictorSourceAdaptive(shape, coeffs, lid_velocity)
     return QuadCorrPredictorSource(shape, coeffs, lid_velocity)
@@ -834,12 +877,26 @@ def make_quad_channel_corr_predictor_source(shape, coeffs, inlet_velocity: float
 class _QuadLevel0(nn.Module):
     """Shared constants of the finest-level kernels: the separable coupling
     weights of ``problem`` as natural (2*Wqa,) column and (2*Hq8,) row
-    vectors, zero outside the interior (buffers on ``device``)."""
+    vectors, zero outside the interior (buffers on ``device``).
+
+    ``shard=(P, mdy)``: the kernels of one shard's local block (4, P + 16,
+    Wqa) of an mdy-way plane-row mesh, whose level-1 block is (P + 16, Wqa);
+    the row vectors are then global, 2 * (mdy * P + 16) long with a
+    16-row zero prefix (cfd_tpu/kernels/quad.py:531-560 rows_len,
+    row_prefix), so that global row j >= -16 reads element j + 16."""
 
     def __init__(self, shape, problem, omega: float, n_pairs: int, coarse_shape,
-                 device="cpu"):
+                 device="cpu", shard: tuple[int, int] | None = None):
         super().__init__()
         _, _, Hq8, Wqa = quad_dims(shape)
+        rows, prefix = Hq8, 0  # plane rows of the row vectors, and their zero prefix
+        if shard is not None:
+            P, mdy = shard
+            if P % 8:
+                raise ValueError(f"shard rows must be a multiple of 8, got {P}")
+            Hq8 = P + 2 * DEV_HALO
+            rows, prefix = mdy * P + 2 * DEV_HALO, DEV_HALO
+        self.shard, self.prefix = shard, prefix
         if tuple(coarse_shape) != (Hq8, Wqa):
             raise ValueError(f"coarse shape {tuple(coarse_shape)} != quad plane "
                              f"shape {(Hq8, Wqa)}")
@@ -860,8 +917,8 @@ class _QuadLevel0(nn.Module):
             return torch.as_tensor(v, dtype=torch.float32, device=device)
 
         def row(w):
-            v = np.zeros(2 * Hq8)
-            v[1 : ny + 1] = w[1 : ny + 1, 1]
+            v = np.zeros(2 * rows)
+            v[2 * prefix + 1 : 2 * prefix + ny + 1] = w[1 : ny + 1, 1]
             return torch.as_tensor(v, dtype=torch.float32, device=device)
 
         self.register_buffer("wE", col(problem.wE))
@@ -869,15 +926,20 @@ class _QuadLevel0(nn.Module):
         self.register_buffer("wN", row(problem.wN))
         self.register_buffer("wS", row(problem.wS))
 
-    def _plane_weights(self):
-        """Per-parity plane vectors: wE[s] (1, Wqa), wN[r] (Hq8, 1)."""
+    def _plane_weights(self, row_base: int = 0, pad: int = 0):
+        """Per-parity plane vectors: wE[s] (1, Wqa), wN[r] (Hq8, 1); on a
+        shard the rows of the block at ``row_base``, with ``pad`` zero rows
+        either side."""
         _, Hq8, Wqa = self.qshape
+        lo = row_base + self.prefix
         cols = [[w[s::2].reshape(1, Wqa) for s in range(2)] for w in (self.wE, self.wW)]
-        rows = [[w[r::2].reshape(Hq8, 1) for r in range(2)] for w in (self.wN, self.wS)]
+        rows = [[_pad_rows(w[r::2][lo : lo + Hq8].reshape(Hq8, 1), pad) for r in range(2)]
+                for w in (self.wN, self.wS)]
         return (*cols, *rows)
 
-    def _masks(self, device):
-        grow, gcol = _qiota(self.qshape[1], self.qshape[2], device)
+    def _masks(self, device, row0: int = 0, n_rows: int | None = None):
+        grow, gcol = _qiota(self.qshape[1] if n_rows is None else n_rows, self.qshape[2],
+                            device, row0)
         return _valid_masks(grow, gcol, self.ny, self.nx)[2]
 
     def _kernel_args(self):
@@ -909,22 +971,12 @@ class QuadPreSmoothRestrict(_QuadLevel0):
         P = _smooth_pairs_quad(list(p), list(b), self.n_pairs, self.omega, self.idx2,
                                self.idy2, wE, wW, wN, wS, masks)
         r = _residual_quad(P, list(b), self.idx2, self.idy2, wE, wW, wN, wS, masks)
-        # coarse cell (Jc, Ic) children: planes (1,1)@(Jc-1,Ic-1),
-        # (1,0)@(Jc-1,Ic), (0,1)@(Jc,Ic-1), (0,0)@(Jc,Ic)
-        rc = 0.25 * (r[0]
-                     + torch.roll(r[1], 1, dims=1)
-                     + torch.roll(r[2], 1, dims=0)
-                     + torch.roll(torch.roll(r[3], 1, dims=0), 1, dims=1))
-        Hc, Wc = self.coarse_shape
-        Jc = torch.arange(Hc, device=p.device)[:, None]
-        Ic = torch.arange(Wc, device=p.device)[None, :]
-        cmask = (Jc >= 1) & (Jc <= self.ny // 2) & (Ic >= 1) & (Ic <= self.nx // 2)
-        return torch.stack(P), torch.where(cmask, rc, torch.zeros_like(rc))
+        return torch.stack(P), _restrict_rc(r, self.ny, self.nx)
 
     def kernel(self, p, b):
         p_out = torch.empty_like(p)
         rc = torch.empty(self.coarse_shape, dtype=torch.float32, device=p.device)
-        PRE(p, ptr(p), ptr(b), ptr(p_out), ptr(rc), *self._kernel_args())
+        PRE(p, ptr(p), ptr(b), ptr(p_out), ptr(rc), *self._kernel_args(), 0, 0)
         return p_out, rc
 
 
@@ -955,17 +1007,215 @@ class QuadPostProlongSmooth(_QuadLevel0):
     def kernel(self, p, b, ec):
         p_out = torch.empty_like(p)
         res = torch.empty((), dtype=torch.float32, device=p.device)
-        POST(p, ptr(p), ptr(b), ptr(ec), ptr(p_out), ptr(res), *self._kernel_args())
+        POST(p, ptr(p), ptr(b), ptr(ec), ptr(p_out), ptr(res), *self._kernel_args(), 0, 0)
+        return p_out, res
+
+
+# ------------------------------------------ one shard of a plane-row mesh
+
+def quad_shard_dims(shape: tuple[int, int], mdy: int) -> tuple[int, int, int]:
+    """(Hq8s, P, Wqa) of an mdy-way plane-ROW decomposition of the quad
+    layout (cfd_tpu/kernels/quad.py:68): the global plane rows padded up so
+    that every shard owns P = Hq8s / mdy rows, P a multiple of 8. Parity
+    lives in the plane index, so a row split never flips the red/black
+    colouring across shards."""
+    Hq, _, _, Wqa = quad_dims(shape)
+    Hq8s = _round_up(Hq, 8 * mdy)
+    return Hq8s, Hq8s // mdy, Wqa
+
+
+def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
+    """t (..., H, W) with n zero rows above and below."""
+    return torch.nn.functional.pad(t, (0, 0, n, n)) if n else t
+
+
+def _crop_rows(t: torch.Tensor, n: int) -> torch.Tensor:
+    return t[..., n : t.shape[-2] - n, :].contiguous()
+
+
+def _block_rows(H: int, pad: int, device) -> torch.Tensor:
+    """(H + 2 pad, 1) mask of a block's H rows in an array padded with pad
+    zero rows either side."""
+    lr = torch.arange(H + 2 * pad, device=device)[:, None] - pad
+    return (lr >= 0) & (lr < H)
+
+
+def _band_maker(row_base: int, H: int, ny: int, device, pad: int = 0):
+    """The TPU kernels' valid band (cfd_tpu/kernels/quad.py:611-627) with
+    the slab = the local block of H plane rows at ``row_base``: band(lo) is
+    the (H + 2 pad, 1) mask of the rows half-sweep lo updates, lo rows in
+    from each block edge except at a physical edge: the bottom shard
+    (row_base <= 0, whose dead rows end the dependency chain as the ghost
+    row does) and the top shard. ``pad``: rows of zero padding either side,
+    never in the band."""
+    lr = torch.arange(H + 2 * pad, device=device)[:, None] - pad
+    at_bottom = row_base <= 0
+    at_top = row_base + H >= (ny + 1) // 2 + 1
+
+    def band(lo):
+        return (lr >= (0 if at_bottom else lo)) & (lr < (H if at_top else H - lo))
+
+    return band
+
+
+class QuadCorrPredictorSourceShard(QuadCorrPredictorSource):
+    """The cavity carry on one shard's local block (row 16a,
+    cfd_tpu/kernels/quad.py:938 with shard=(P, mdy)): (row_base, us, vs, p,
+    p_prev) -> (us', vs', b', guess, max|b'|) on (4, P + 16, Wqa) blocks.
+    row_base = jy * P - 8 is the global plane row of local row 0, so every
+    mask and ghost keeps its global meaning; max|b'| covers the own rows
+    (local 8 ... P + 7): the shard's partial.
+
+    The kernel (csrc/quad_stage.cu) reads 0 outside the block and its
+    corrector writes the corrected u, v of the block only; the twin computes
+    the same on the block padded with DEV_HALO zero rows either side, with
+    the corrected u, v zeroed on the padding. The radius of the stages is 5
+    rows, so the own rows equal the single-device carry's."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, lid_velocity: float = 1.0,
+                 shard: tuple[int, int] = (8, 1)):
+        super().__init__(shape, coeffs, lid_velocity)
+        P, _ = shard
+        if P % 8:
+            raise ValueError(f"shard rows must be a multiple of 8, got {P}")
+        self.P = P
+        self.qshape = (4, P + 2 * DEV_HALO, self.qshape[2])
+
+    def __call__(self, row_base: int, us, vs, p, p_prev):
+        _check(self.qshape, us, vs, p, p_prev)
+        if route(us, vs, p, p_prev) == "cuda":
+            return self.kernel(row_base, us, vs, p, p_prev)
+        return self.plain(row_base, us, vs, p, p_prev)
+
+    def plain(self, row_base, us, vs, p, p_prev):
+        z, H = DEV_HALO, self.qshape[1]
+        grow, gcol = _qiota(H + 2 * z, self.qshape[2], us.device, row_base - z)
+        u, v, guess = self._corrected(*(_pad_rows(t, z) for t in (us, vs, p, p_prev)),
+                                      grow, gcol)
+        block = _block_rows(H, z, us.device)
+        u = [torch.where(block, a, torch.zeros_like(a)) for a in u]
+        v = [torch.where(block, a, torch.zeros_like(a)) for a in v]
+        us2, vs2, b = _predictor_source_quad(u, v, self.coeffs, grow, gcol, self.ny, self.nx)
+        b = _crop_rows(b, z)
+        own = b[:, DEV_HALO : DEV_HALO + self.P]
+        return (_crop_rows(us2, z), _crop_rows(vs2, z), b,
+                _crop_rows(torch.stack(guess), z), torch.max(torch.abs(own)))
+
+    def kernel(self, row_base, us, vs, p, p_prev):
+        u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
+        max_b = torch.empty((), dtype=torch.float32, device=us.device)
+        _, H, Wqa = self.qshape
+        c = self.coeffs
+        with torch.cuda.device(us.device):  # the shards may lie on several cards
+            SHARD_CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr), ptr(v_scr),
+                        ptr(us2), ptr(vs2), ptr(b), ptr(guess), ptr(max_b), H, Wqa,
+                        self.ny, self.nx, self.cu, self.cv, 2.0 * self.lid, c.dt,
+                        c.viscosity, c.idx, c.idy, c.idx2, c.idy2, self.rho_dt,
+                        int(row_base), DEV_HALO)
+        return us2, vs2, b, guess, max_b
+
+
+class QuadPreSmoothRestrictShard(QuadPreSmoothRestrict):
+    """The finest pre-smooth + residual + restriction on one shard's local
+    block (row 16b, cfd_tpu/kernels/quad.py:630 with shard=(P, mdy)):
+    (row_base, p4, b4) -> (p4, rc) with rc the (P + 16, Wqa) local level-1
+    block. Half-sweep k updates the band of quad.py:611-627 (_band_maker);
+    the kernel (csrc/quad_vcycle.cu) reads 0 outside the block and takes the
+    residual there as 0, which the twin does on the block padded with zero
+    rows. The own rows equal the single-device kernel's."""
+
+    def forward(self, row_base: int, p, b):
+        _check(self.qshape, p, b)
+        self._check_device(p)
+        if route(p, b) == "cuda":
+            return self.kernel(row_base, p, b)
+        return self.plain(row_base, p, b)
+
+    def plain(self, row_base, p, b):
+        z, H = DEV_HALO, self.qshape[1]
+        weights = self._plane_weights(row_base, pad=z)
+        masks = self._masks(p.device, row_base - z, H + 2 * z)
+        band = _band_maker(row_base, H, self.ny, p.device, pad=z)
+        bp = list(_pad_rows(b, z))
+        P = _smooth_pairs_quad(list(_pad_rows(p, z)), bp, self.n_pairs, self.omega,
+                               self.idx2, self.idy2, *weights, masks, band)
+        r = _residual_quad(P, bp, self.idx2, self.idy2, *weights, masks)
+        block = _block_rows(H, z, p.device)
+        r = [torch.where(block, a, torch.zeros_like(a)) for a in r]
+        rc = _restrict_rc(r, self.ny, self.nx, row_base - z)
+        return _crop_rows(torch.stack(P), z), _crop_rows(rc, z)
+
+    def kernel(self, row_base, p, b):
+        p_out = torch.empty_like(p)
+        rc = torch.empty(self.coarse_shape, dtype=torch.float32, device=p.device)
+        with torch.cuda.device(p.device):
+            SHARD_PRE(p, ptr(p), ptr(b), ptr(p_out), ptr(rc), *self._kernel_args(),
+                      int(row_base), DEV_HALO)
+        return p_out, rc
+
+
+class QuadPostProlongSmoothShard(QuadPostProlongSmooth):
+    """The prolongation + post-smooth + tolerance residual on one shard's
+    local block (row 16c, cfd_tpu/kernels/quad.py:700 with shard=(P, mdy)):
+    (row_base, p4, b4, ec) -> (p4, res) with ec the (P + 16, Wqa) local
+    level-1 correction, whose row J + 1 wraps within the block as the TPU
+    kernel's roll does; the sweeps' band starts one row further in
+    (quad.py:762-767), and res is max|b - A p| over the own rows: the
+    shard's partial."""
+
+    def forward(self, row_base: int, p, b, ec):
+        _check(self.qshape, p, b)
+        _check(self.coarse_shape, ec)
+        self._check_device(p)
+        if route(p, b, ec) == "cuda":
+            return self.kernel(row_base, p, b, ec)
+        return self.plain(row_base, p, b, ec)
+
+    def plain(self, row_base, p, b, ec):
+        z, H = DEV_HALO, self.qshape[1]
+        masks = self._masks(p.device, row_base)
+        corr = _bilinear_corr(ec, self.ny, self.nx, row_base)
+        P = [_pad_rows(torch.where(masks[q], p[q] + corr[q], p[q]), z) for q in range(4)]
+        weights = self._plane_weights(row_base, pad=z)
+        masks = self._masks(p.device, row_base - z, H + 2 * z)
+        band = _band_maker(row_base, H, self.ny, p.device, pad=z)
+        bp = list(_pad_rows(b, z))
+        P = _smooth_pairs_quad(P, bp, self.n_pairs, self.omega, self.idx2, self.idy2,
+                               *weights, masks, lambda lo: band(lo + 1))
+        r = _residual_quad(P, bp, self.idx2, self.idy2, *weights, masks)
+        own = torch.stack(r)[:, z + DEV_HALO : z + H - DEV_HALO]
+        return _crop_rows(torch.stack(P), z), torch.max(torch.abs(own))
+
+    def kernel(self, row_base, p, b, ec):
+        p_out = torch.empty_like(p)
+        res = torch.empty((), dtype=torch.float32, device=p.device)
+        with torch.cuda.device(p.device):
+            SHARD_POST(p, ptr(p), ptr(b), ptr(ec), ptr(p_out), ptr(res),
+                       *self._kernel_args(), int(row_base), DEV_HALO)
         return p_out, res
 
 
 def make_quad_pre_smooth_restrict(shape, problem, omega: float, n_pairs: int,
-                                  coarse_shape, device="cpu") -> QuadPreSmoothRestrict:
+                                  coarse_shape, device="cpu",
+                                  shard: tuple[int, int] | None = None
+                                  ) -> QuadPreSmoothRestrict:
+    """``shard=(P, mdy)``: the kernel of one shard's local block
+    (QuadPreSmoothRestrictShard; coarse_shape is the local (P + 16, Wqa))."""
+    if shard is not None:
+        return QuadPreSmoothRestrictShard(shape, problem, omega, n_pairs, coarse_shape,
+                                          device, shard)
     return QuadPreSmoothRestrict(shape, problem, omega, n_pairs, coarse_shape, device)
 
 
 def make_quad_post_prolong_smooth(shape, problem, omega: float, n_pairs: int,
-                                  coarse_shape, device="cpu") -> QuadPostProlongSmooth:
+                                  coarse_shape, device="cpu",
+                                  shard: tuple[int, int] | None = None
+                                  ) -> QuadPostProlongSmooth:
+    """``shard=(P, mdy)``: the kernel of one shard's local block
+    (QuadPostProlongSmoothShard)."""
+    if shard is not None:
+        return QuadPostProlongSmoothShard(shape, problem, omega, n_pairs, coarse_shape,
+                                          device, shard)
     return QuadPostProlongSmooth(shape, problem, omega, n_pairs, coarse_shape, device)
 
 

@@ -28,9 +28,12 @@ row's worth at once (solver.Simulation.run), not one per solve.
 The reference's in-VMEM coarse hierarchy runs lane transfers as matmuls
 (mg_tail.py), so its rounding differs from the per-kernel path by a few
 ulps: its whole-solve and per-kernel cycle counts may differ by one
-(tests/test_whole_solve.py). The port's do not differ. ``cfg.pin_mean``
+(tests/test_whole_solve.py). The port's do not differ. ``pin_mean``
 (separable only) shifts p to zero interior mean after each cycle's
-residual, in the kernel as in the twin (MultigridPoisson.cycle).
+residual, in the kernel as in the twin (MultigridPoisson.cycle). As in the
+reference it is the factory's own argument, not ``cfg.pin_mean``
+(whole_solve.py:507-520): only Rayleigh-Benard passes True
+(physics/boussinesq.py:286-290), and the other flavors ignore the field.
 
 ``cfg.coarse_dtype="bfloat16"`` (whole_solve.py:156, 216-219, 340): the
 reference's bfloat16 in-VMEM hierarchy, which is not the per-kernel bf16
@@ -220,14 +223,16 @@ class _WholeSolveBase(nn.Module):
 
 class WholeSolve(_WholeSolveBase):
     """The separable quad-level-0 multigrid solve of ``problem`` on the
-    padded grid ``shape``, as one launch. With ``cfg.pin_mean`` (a
-    pure-Neumann problem) every cycle ends with the mean pin over the
-    nx * ny cells; with ``cfg.coarse_dtype`` the hierarchy rounds to
-    bfloat16 (module docstring). The launches count on WHOLE_SOLVE,
-    WHOLE_SOLVE_PIN_MEAN or their _BF16 counterparts. ``cfg.corr_opt``
-    raises ValueError, as the reference's separable context does."""
+    padded grid ``shape``, as one launch. With ``pin_mean`` (a
+    pure-Neumann problem; ``cfg.pin_mean`` is not read) every cycle ends
+    with the mean pin over the nx * ny cells; with ``cfg.coarse_dtype`` the
+    hierarchy rounds to bfloat16 (module docstring). The launches count on
+    WHOLE_SOLVE, WHOLE_SOLVE_PIN_MEAN or their _BF16 counterparts.
+    ``cfg.corr_opt`` raises ValueError, as the reference's separable
+    context does."""
 
-    def __init__(self, shape, problem, cfg: mgp.MGConfig, device="cpu"):
+    def __init__(self, shape, problem, cfg: mgp.MGConfig, device="cpu",
+                 pin_mean: bool = False):
         super().__init__()
         store = coarse_store_dtype(cfg)
         _, _, Hq8, Wqa = quad_dims(shape)
@@ -236,6 +241,7 @@ class WholeSolve(_WholeSolveBase):
                                                  coarse, device=device),
                    make_quad_post_prolong_smooth(shape, problem, cfg.omega, cfg.post_sweeps,
                                                  coarse, device=device))
+        cfg = dataclasses.replace(cfg, pin_mean=pin_mean)
         self.mg = mgp.MultigridPoisson(problem, hierarchy_cfg(cfg), quad_l0, device,
                                        store_dtype=store)
         if self.mg.levels[1].shape != coarse:
@@ -312,8 +318,9 @@ class StepWholeSolve(_WholeSolveBase):
                 record, pin)
 
 
-def make_quad_whole_solve(shape, problem, cfg: mgp.MGConfig, device="cpu") -> WholeSolve:
-    return WholeSolve(shape, problem, cfg, device)
+def make_quad_whole_solve(shape, problem, cfg: mgp.MGConfig, device="cpu",
+                          pin_mean: bool = False) -> WholeSolve:
+    return WholeSolve(shape, problem, cfg, device, pin_mean)
 
 
 def make_quad_step_whole_solve(grid, coeffs, cfg: mgp.MGConfig, device="cpu"

@@ -38,7 +38,6 @@ its whole-solve takes.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -269,7 +268,7 @@ def make_quad_whole_step_rb(shape, problem, coeffs, cfg, kappa: float, n_interio
         raise NotImplementedError("the RB carry takes the free-fall buoyancy 1 only "
                                   "(kernels.rb_quad.QuadRBStep)")
     carry = QuadRBStep(shape, coeffs, kappa, _Walls(t_bottom, t_top))
-    solver = WholeSolve(shape, problem, dataclasses.replace(cfg, pin_mean=True), device)
+    solver = WholeSolve(shape, problem, cfg, device, pin_mean=True)
     return QuadWholeStepRB(carry, solver, quad_cell_mask(shape, device), n_interior)
 
 

@@ -1,0 +1,448 @@
+"""The cavity's quad path on a plane-row mesh (the port of
+cfd_tpu.parallel.quad_sharded, the cavity flavor).
+
+Decomposition (cfd_tpu/parallel/quad_sharded.py:1-33): 1-D over the quad
+PLANE ROWS (kernels.quad.quad_shard_dims). Shard jy owns P plane rows (P a
+multiple of 8) and carries them as a local (4, P + 16, Wqa) block between
+two DEV_HALO-row strips, refreshed from its neighbours between kernel
+calls; the kernels take row_base = jy * P - DEV_HALO, the global plane row
+of local row 0, so their masks, bands and weight vectors keep their global
+meaning (kernels.quad *Shard: the single-device kernels' entry points in
+csrc/quad_stage.cu and csrc/quad_vcycle.cu, told the block's row_base and
+halo). The 8-row halo is the TPU kernels' slab halo, so the band
+bookkeeping that absorbs slab-edge staleness absorbs shard-edge staleness.
+
+The mesh is single-controller (parallel.mesh): one process drives every
+shard. The halo refresh copies the 8-row strips between neighbouring
+shards' tensors (a device copy when they share a card) and fills zeros at
+the outer edges, as the reference's ppermute does; the reductions take each
+shard's 0-d partial to shard 0's device (parallel.halo).
+
+A V-cycle: the finest level's pre and post kernels on every shard; level 1
+as torch glue on the local blocks with the reference's band bookkeeping
+(the 8-row halo covers V(2,1)'s 2 * (2 + 1) + 1 = 7 rows with no mid-level
+exchange), in the float32 expression of the single-device smoother's twin
+(kernels.rb_smoother.RBPairs.plain); then the level-1 residual's own rows
+are gathered on shard 0's device, levels 2 and below run ONCE there (the
+single-device solve's smoothers, transfers and coarsest pinv, or the fused
+tail from ``tail_from``), and every shard takes its slice of the
+prolonged correction. The reference runs that tail replicated on every
+device; running it once gives the same values. Per cycle: three refreshes
+(p, rc, ec), the gather and the max of the residual partials. The
+tolerance loop is the single-device solve's (poisson.multigrid
+tolerance_loop, one host read of the residual a cycle).
+
+Every shard's own rows then equal the single-device per-kernel solve's
+with the float32 coarse hierarchy, bit for bit where the two run the same
+float32 operations (tests/test_torch_quad_sharded.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from cfd_tpu_torch.kernels.mg_tail import MGTail, _prolong, _restrict, run_tail_vcycle
+from cfd_tpu_torch.kernels.quad import (
+    DEV_HALO,
+    from_quad,
+    make_quad_corr_predictor_source,
+    make_quad_corrector,
+    make_quad_post_prolong_smooth,
+    make_quad_pre_smooth_restrict,
+    quad_dims,
+    quad_shard_dims,
+    to_quad,
+    uncorrect_quad,
+)
+from cfd_tpu_torch.parallel.halo import global_max
+from cfd_tpu_torch.poisson import multigrid as M
+from cfd_tpu_torch.state import State
+
+
+def _refresh(xs: list, P: int) -> list:
+    """Refresh the DEV_HALO-row halo strips of the shards' local blocks in
+    place (rows are the second-to-last axis: (4, P + 16, W) quad and
+    (P + 16, W) level-1 blocks): shard jy's bottom strip takes shard jy-1's
+    last 8 own rows, its top strip shard jy+1's first 8; the outer strips
+    take zeros, as ppermute's fill (cfd_tpu/parallel/quad_sharded.py:93).
+    A 1-shard mesh is left as it is."""
+    mdy, h = len(xs), DEV_HALO
+    if mdy == 1:
+        return xs
+    for jy, x in enumerate(xs):
+        low, high = x[..., :h, :], x[..., P + h :, :]
+        if jy > 0:
+            low.copy_(xs[jy - 1][..., P : P + h, :])
+        else:
+            low.zero_()
+        if jy < mdy - 1:
+            high.copy_(xs[jy + 1][..., h : 2 * h, :])
+        else:
+            high.zero_()
+    return xs
+
+
+def _row_vec_global(w_full: np.ndarray, ny: int, length: int) -> np.ndarray:
+    """(length, 1) globally indexed row vector with a DEV_HALO zero prefix:
+    v[DEV_HALO + g] = w_full[g, 1] for rows g in 1..ny, 0 elsewhere (:144)."""
+    v = np.zeros(length)
+    v[DEV_HALO + 1 : DEV_HALO + ny + 1] = w_full[1 : ny + 1, 1]
+    return v.reshape(length, 1)
+
+
+class ShardedQuadSolve:
+    """``solve(guess, b, max_b) -> (p, cycles, res)`` over a mesh's shards
+    (cfd_tpu/parallel/quad_sharded.py make_sharded_quad_solve, :174-401, the
+    cavity's: no mean pin). ``guess`` and ``b`` are lists of the shards'
+    local (4, P + 16, Wqa) blocks with fresh halos, ``max_b`` the global
+    max|b| (a 0-d tensor); p comes back with fresh halos, cycles an int and
+    res the global max|b - A p| as a host float. ``cfg.pin_mean`` is not
+    read: the reference's builder takes the pin as its own argument, which
+    only Rayleigh-Benard passes (ROADMAP.md queue A item A.12b)."""
+
+    def __init__(self, problem: M.PoissonProblem, cfg: M.MGConfig, shape, devices):
+        if cfg.whole_solve or cfg.whole_step:
+            raise ValueError("whole_solve/whole_step are single-device only (the sharded "
+                             "path fuses the coarse tail via tail_from instead)")
+        cfg = dataclasses.replace(cfg, pin_mean=False)
+        self.cfg = cfg
+        self.devices = list(devices)
+        mdy = len(self.devices)
+        Hq8s, P, W = quad_shard_dims(shape, mdy)
+        self.P, self.Hq8s, self.W = P, Hq8s, W
+        self.Hq8 = quad_dims(shape)[2]
+        loc = (P + 2 * DEV_HALO, W)
+        self.row_base = [jy * P - DEV_HALO for jy in range(mdy)]
+        pre, post = {}, {}
+        for d in dict.fromkeys(self.devices):  # one copy of the weights per device
+            pre[d] = make_quad_pre_smooth_restrict(shape, problem, cfg.omega, cfg.pre_sweeps,
+                                                   loc, device=d, shard=(P, mdy))
+            post[d] = make_quad_post_prolong_smooth(shape, problem, cfg.omega,
+                                                    cfg.post_sweeps, loc, device=d,
+                                                    shard=(P, mdy))
+        self.pre = [pre[d] for d in self.devices]
+        self.post = [post[d] for d in self.devices]
+
+        # the hierarchy below the quad level: the single-device solve's
+        # aligned levels, smoothers and pinv, on shard 0's device
+        dev0 = self.devices[0]
+        probs = M.build_problems(problem, cfg)
+        if len(probs) < 3:
+            raise ValueError("sharded quad multigrid needs >= 3 levels")
+        self.mg = M.MultigridPoisson(problem, dataclasses.replace(cfg, tail_from=None),
+                                     quad_level0=(None, None), device=dev0)
+        levels = self.mg.levels
+        if levels[1].shape != (self.Hq8, W):
+            raise ValueError(f"aligned level-1 shape {levels[1].shape} != quad plane shape "
+                             f"{(self.Hq8, W)}")
+        # the fused tail from GLOBAL level tail_from, clamped to level 2, the
+        # first replicated one (:315-329)
+        self.tail_at, self.tail = None, None
+        if cfg.tail_from is not None:
+            g = max(2, cfg.tail_from)
+            if g <= len(levels) - 2:
+                self.tail_at = g
+                self.tail = MGTail(levels[g:], self.mg.pre[g - 1 :], self.mg.post[g - 1 :],
+                                   self.mg.pinv)
+        self._l1 = [self._l1_geom(jy, probs[1], levels[1], d)
+                    for jy, d in enumerate(self.devices)]
+
+    def _l1_geom(self, jy: int, p1: M.PoissonProblem, L1, device) -> dict:
+        """The level-1 constants of shard jy's local (P + 16, W) block: the
+        interior and colour masks, the inverse diagonal, the sliced row
+        weights and the band of each half-sweep count (:240-265)."""
+        P, mdy = self.P, len(self.devices)
+        H, W = P + 2 * DEV_HALO, self.W
+        lr = torch.arange(H, device=device)[:, None]
+        lc = torch.arange(W, device=device)[None, :]
+        gj = jy * P - DEV_HALO + lr  # global level-1 row
+        interior = (gj >= 1) & (gj <= p1.ny) & (lc >= 1) & (lc <= p1.nx)
+        even = ((gj + lc) % 2) == 0
+        length = self.Hq8s + 2 * DEV_HALO
+        sl = lambda w: torch.as_tensor(_row_vec_global(w, p1.ny, length)[jy * P : jy * P + H],
+                                       dtype=torch.float32, device=device)
+        wE, wW = L1.wE.to(device), L1.wW.to(device)
+        wN, wS = sl(p1.wN), sl(p1.wS)
+        idx2, idy2 = L1.idx2, L1.idy2
+        denom = idx2 * (wE + wW) + idy2 * (wN + wS)
+        safe = torch.where(denom > 0, denom, torch.ones_like(denom))
+        inv = torch.where(interior, 1.0 / safe, torch.zeros_like(safe))
+        n_rows = 2 * (self.cfg.pre_sweeps + self.cfg.post_sweeps) + 1
+        bands = {k: (lr >= (0 if jy == 0 else k)) & (lr < (H if jy == mdy - 1 else H - k))
+                 for k in range(1, n_rows + 1)}
+        return dict(interior=interior, red=interior & even, black=interior & ~even, inv=inv,
+                    w=(wE, wW, wN, wS), idx2=idx2, idy2=idy2, band=bands)
+
+    def _l1_half(self, e, r, mask, g):
+        """One masked Gauss-Seidel half-sweep, RBPairs.plain's expression."""
+        wE, wW, wN, wS = g["w"]
+        pE, pW = torch.roll(e, -1, dims=1), torch.roll(e, 1, dims=1)
+        pN, pS = torch.roll(e, -1, dims=0), torch.roll(e, 1, dims=0)
+        gs = (g["idx2"] * (wE * pE + wW * pW) + g["idy2"] * (wN * pN + wS * pS) - r) * g["inv"]
+        return torch.where(mask, e + self.cfg.omega * (gs - e), e)
+
+    def _l1_residual(self, e, r, g, consumed: int):
+        wE, wW, wN, wS = g["w"]
+        pE, pW = torch.roll(e, -1, dims=1), torch.roll(e, 1, dims=1)
+        pN, pS = torch.roll(e, -1, dims=0), torch.roll(e, 1, dims=0)
+        ap = (g["idx2"] * (wE * (pE - e) + wW * (pW - e))
+              + g["idy2"] * (wN * (pN - e) + wS * (pS - e)))
+        return torch.where(g["interior"] & g["band"][consumed + 1], r - ap,
+                           torch.zeros_like(r))
+
+    def _l1_pairs(self, e, rc, g, k: int, n_pairs: int):
+        for _ in range(n_pairs):
+            e = self._l1_half(e, rc, g["red"] & g["band"][k + 1], g)
+            e = self._l1_half(e, rc, g["black"] & g["band"][k + 2], g)
+            k += 2
+        return e, k
+
+    def _coarse(self, rc2: torch.Tensor) -> torch.Tensor:
+        """The correction on global level 2 from its source: the single-device
+        coarse V-cycle from level 2 down (run_tail_vcycle), with the fused
+        tail solving from ``tail_at``."""
+        mg = self.mg
+        if self.tail is None:
+            return run_tail_vcycle(mg.levels[2:], rc2, mg.pre[1:], mg.post[1:],
+                                   mg.coarse_solve)
+        return run_tail_vcycle(mg.levels[2 : self.tail_at + 1], rc2, mg.pre[1:],
+                               mg.post[1:], self.tail)
+
+    def level1(self, rc: list) -> list:
+        """The level-1 correction of every shard from its fresh-haloed local
+        source (:331-362): pre pairs and residual on the local blocks, the
+        own rows gathered, levels 2 and below once, the slice of the
+        prolonged correction added, post pairs. Own rows exact; the halos
+        are stale by the band (the caller refreshes)."""
+        cfg, P, dev0 = self.cfg, self.P, self.devices[0]
+        es, r1 = [], []
+        for r, g in zip(rc, self._l1, strict=True):
+            e, k = self._l1_pairs(torch.zeros_like(r), r, g, 0, cfg.pre_sweeps)
+            es.append(e)
+            r1.append(self._l1_residual(e, r, g, k))
+        levels = self.mg.levels
+        r_g = torch.cat([x[DEV_HALO : DEV_HALO + P].to(dev0) for x in r1])[: self.Hq8]
+        e2 = self._coarse(_restrict(levels[1], levels[2], r_g))
+        ef = torch.nn.functional.pad(_prolong(levels[2], levels[1], e2),
+                                     (0, 0, DEV_HALO, self.Hq8s + DEV_HALO - self.Hq8))
+        out = []
+        for jy, (e, r, g) in enumerate(zip(es, rc, self._l1, strict=True)):
+            e = e + ef[jy * P : jy * P + P + 2 * DEV_HALO].to(e.device)
+            e, _ = self._l1_pairs(e, r, g, 2 * cfg.pre_sweeps, cfg.post_sweeps)
+            out.append(e)
+        return out
+
+    def cycle(self, p: list, b: list):
+        """One V-cycle from the finest level: (p, b) -> (p, res), p's halos
+        fresh, res the global max|b - A p| (a 0-d tensor)."""
+        P, rb = self.P, self.row_base
+        outs = [pre(r, x, y) for pre, r, x, y in zip(self.pre, rb, p, b, strict=True)]
+        p = _refresh([o[0] for o in outs], P)
+        rc = _refresh([o[1] for o in outs], P)
+        ec = _refresh(self.level1(rc), P)
+        outs = [post(r, x, y, e) for post, r, x, y, e in zip(self.post, rb, p, b, ec,
+                                                             strict=True)]
+        return _refresh([o[0] for o in outs], P), global_max([o[1] for o in outs])
+
+    def __call__(self, guess: list, b: list, max_b: torch.Tensor):
+        return M.tolerance_loop(guess, b, max_b, self.cfg, self.cycle)
+
+
+def make_sharded_quad_solve(problem: M.PoissonProblem, cfg: M.MGConfig, shape,
+                            mesh) -> ShardedQuadSolve:
+    """The sharded quad solve over ``mesh``'s shards (ShardedQuadSolve)."""
+    return ShardedQuadSolve(problem, cfg, shape, mesh.devices)
+
+
+class ShardedQuadProjection:
+    """The cavity on the sharded quad path over a plane-row mesh
+    (cfd_tpu/parallel/quad_sharded.py:699-1300, the cavity flavor).
+
+    State: the tentative carry (us*, vs*, p, p_prev) as a tuple of four
+    lists, each holding the shards' local (4, P + 16, Wqa) blocks on their
+    devices. ``step`` runs one step on every shard: the carry kernel, the
+    refresh of its outputs, max|b| over the shards, the sharded solve.
+    ``logical`` gathers the own rows and applies the corrector at print
+    cadence.
+
+    The solve's config is the reference's, not the case's: V(2,1) with
+    ``tol_factor`` (1e-9 when none is given, :822-823) and abs_tol 0, then
+    ``mg_overrides``. coarse_dtype and corr_opt raise its ValueErrors (they
+    are single-device knobs), and so does a V(pre, post) whose level-1 solve
+    needs more than the 8-row halo. A 1-shard mesh delegates every entry
+    point to the case's own single-device step (the same program a meshless
+    run executes) unless ``force_sharded_path``, ``tol_factor`` or
+    ``mg_overrides`` is given (:790-806). The channel, RB and the step are
+    not ported yet (ROADMAP.md queue A items A.12b, A.12c)."""
+
+    # the mesh size the reference validated and modelled (:740-748)
+    MAX_VALIDATED_MESH = 16
+
+    def __init__(self, case, mesh, tol_factor: float | None = None,
+                 mg_overrides: dict | None = None, allow_unvalidated_mesh: bool = False,
+                 force_sharded_path: bool = False):
+        flavor = (case.name if case.name in ("rayleigh_benard", "backwards_step")
+                  else case.ordering)
+        if flavor not in ("cavity", "channel", "rayleigh_benard", "backwards_step"):
+            raise ValueError("ShardedQuadProjection covers the cavity, channel, "
+                             "rayleigh_benard and backwards_step flavors")
+        if flavor != "cavity":
+            item = "A.12c" if flavor == "backwards_step" else "A.12b"
+            raise NotImplementedError(f"the sharded {flavor} flavor is not ported yet "
+                                      f"(ROADMAP.md queue A item {item})")
+        if case.grid.has_solids:
+            raise ValueError("masked geometry is supported only for the backwards_step "
+                             "rectangle raster")
+        if case.dtype != torch.float32:
+            raise ValueError("the quad fast path is float32")
+        if not case.carry_tentative:
+            raise ValueError("the sharded cavity needs the quad layout (layout='quad', "
+                             "f32 multigrid)")
+        self.flavor, self.case, self.mesh = flavor, case, mesh
+        mdy = mesh.shape["dy"]
+        if mdy > self.MAX_VALIDATED_MESH and not allow_unvalidated_mesh:
+            raise ValueError(
+                f"{mdy}-way 1-D plane-row decomposition exceeds the validated/modeled "
+                f"bound ({self.MAX_VALIDATED_MESH} chips). Pass "
+                "allow_unvalidated_mesh=True to proceed anyway.")
+        self.mdy = mdy
+        self.shape = shape = case.grid.shape
+        self.delegated = (mdy == 1 and not force_sharded_path and tol_factor is None
+                          and not mg_overrides)
+        if self.delegated:
+            from cfd_tpu_torch.solver import make_step
+
+            self._sd_step = make_step(case)
+            return
+        self.devices = list(mesh.devices)
+        self.Hq8s, self.P, self.W = quad_shard_dims(shape, mdy)
+        self._Hq8 = quad_dims(shape)[2]
+        mg = M.MGConfig(tol_factor=1e-9 if tol_factor is None else tol_factor, abs_tol=0.0,
+                        pre_sweeps=2, post_sweeps=1)
+        if mg_overrides:
+            mg = dataclasses.replace(mg, **mg_overrides)
+        if mg.coarse_dtype is not None:
+            raise ValueError(
+                "coarse_dtype (mixed-precision coarse hierarchy) is a single-device "
+                "per-kernel-path knob — the sharded factories keep their own f32 level-1 "
+                "block + replicated tail")
+        if mg.corr_opt:
+            raise ValueError(
+                "corr_opt (line-searched coarse correction) is a single-device "
+                "per-kernel-path knob — the sharded masked solve does not take it")
+        if 2 * (mg.pre_sweeps + mg.post_sweeps) + 1 > DEV_HALO:
+            raise ValueError(
+                f"V({mg.pre_sweeps},{mg.post_sweeps}) consumes "
+                f"{2 * (mg.pre_sweeps + mg.post_sweeps) + 1} halo rows per level-1 solve "
+                f"> the {DEV_HALO}-row device halo")
+        self.mg = mg
+        grid, coeffs = case.grid, case.coeffs
+        lid = (case.info or {}).get("lid_velocity", 1.0)
+        problem = M.cavity_problem(grid.nx, grid.ny, grid.dx, grid.dy)
+        self._carry = make_quad_corr_predictor_source(shape, coeffs, lid,
+                                                      shard=(self.P, mdy))
+        self._solve = make_sharded_quad_solve(problem, mg, shape, mesh)
+        self._corr = make_quad_corrector(shape, coeffs, lid)
+        self._coeffs = coeffs
+        self.n_carry = 4
+
+    # ---------------- layout conversion (print cadence only) ----------------
+
+    def _extend(self, q: torch.Tensor) -> list:
+        """(4, Hq8?, W) global quad field -> the shards' local (4, P + 16, W)
+        blocks, each on its shard's device (:981)."""
+        q = torch.as_tensor(q, dtype=torch.float32)
+        qp = torch.nn.functional.pad(q, (0, 0, DEV_HALO, self.Hq8s - q.shape[1] + DEV_HALO))
+        P = self.P
+        return [qp[:, jy * P : jy * P + P + 2 * DEV_HALO].to(d).contiguous()
+                for jy, d in enumerate(self.devices)]
+
+    def _collapse(self, xs: list) -> torch.Tensor:
+        """The shards' blocks -> the (4, Hq8s, W) global own rows, on shard
+        0's device (:990)."""
+        dev0 = self.devices[0]
+        return torch.cat([x[:, DEV_HALO : DEV_HALO + self.P].to(dev0) for x in xs], dim=1)
+
+    # ---------------- entry points ----------------
+
+    def initial_state(self):
+        """The tentative-carry initial state from the logical zero state with
+        the velocity BCs (:1035); delegated: the case's carry State."""
+        case = self.case
+        s = State.zeros(self.shape, dtype=torch.float32, device=case.device)
+        u, v = case.velocity_bc(s.u, s.v)
+        if self.delegated:
+            return case.align_state(State(u, v, s.p, s.T, s.p))
+        return self.from_logical(State(u, v, s.p, s.T, None))
+
+    def is_logical(self, state) -> bool:
+        """Whether ``state`` is a logical padded-layout State; else it is
+        this engine's carried state (Simulation's engine interface)."""
+        if self.delegated:
+            return tuple(state.u.shape) == self.shape
+        return isinstance(state, State)
+
+    def from_logical(self, st: State):
+        """Logical padded-layout State -> the sharded tentative carry (the
+        inverse of ``logical``, :1050); delegated: the case's carry."""
+        if self.delegated:
+            if tuple(st.u.shape) == self.shape:
+                st = self.case.align_state(st)
+            return st
+        if tuple(st.u.shape) != self.shape:
+            raise ValueError(f"from_logical takes a logical {self.shape} State, got "
+                             f"{tuple(st.u.shape)} fields")
+        us, vs = uncorrect_quad(st.u, st.v, st.p, self.shape, self._coeffs, cavity_form=True)
+        p_prev = st.p if st.p_prev is None else st.p_prev
+        return tuple(self._extend(to_quad(a, self.shape)) for a in (us, vs, st.p, p_prev))
+
+    def step(self, state):
+        """One step: (state, {"poisson_iters": int, "poisson_residual":
+        float}) (:1081, the cavity's step_local :919-928)."""
+        if self.delegated:
+            st, d = self._sd_step(state)
+            return st, {"poisson_iters": d.poisson_iters,
+                        "poisson_residual": d.poisson_residual}
+        us, vs, p, p_prev = state
+        outs = [self._carry(rb, *a) for rb, a in
+                zip(self._solve.row_base, zip(us, vs, p, p_prev), strict=True)]
+        us2, vs2, b, guess = (_refresh([o[k] for o in outs], self.P) for k in range(4))
+        max_b = global_max([o[4] for o in outs])
+        p2, iters, res = self._solve(guess, b, max_b)
+        return (us2, vs2, p2, p), {"poisson_iters": iters, "poisson_residual": res}
+
+    def run_chunk(self, state, n_steps: int):
+        """``n_steps`` steps: (state, {"poisson_iters": [...],
+        "poisson_residual": [...]}), one entry a step (:1090)."""
+        iters, res = [], []
+        for _ in range(n_steps):
+            state, d = self.step(state)
+            iters.append(d["poisson_iters"])
+            res.append(d["poisson_residual"])
+        return state, {"poisson_iters": iters, "poisson_residual": res}
+
+    def make_adaptive(self, max_courant: float, growth: float, dt_ceiling: float,
+                      spc: int):
+        """Lagged adaptive stepping on the sharded path (:1104)."""
+        raise NotImplementedError("adaptive dt on the sharded path (the sharded traced-dt "
+                                  "carries and _run_adaptive_sharded) is not ported yet "
+                                  "(ROADMAP.md queue A item A.12d)")
+
+    def logical(self, state) -> State:
+        """Gather the own rows and correct to the logical padded (ny+2,
+        nx+2) State (:1270); delegated: the case's unalign."""
+        if self.delegated:
+            if tuple(state.u.shape) != self.shape:
+                return self.case.unalign_state(state)
+            return state
+        us, vs, p, aux = (self._collapse(x)[:, : self._Hq8].contiguous() for x in state)
+        u2, v2, _ = self._corr(us, vs, p, p)
+        f = lambda a: from_quad(a, self.shape)
+        return State(f(u2), f(v2), f(p), None, f(aux))
+
+
+# The reference's name from before its channel flavor (:1298-1300)
+ShardedQuadCavity = ShardedQuadProjection

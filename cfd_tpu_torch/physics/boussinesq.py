@@ -260,7 +260,8 @@ def make_rayleigh_benard_case(
 
     solve, mg = auto_whole_solve(
         mg, mg_overrides, device.type == "cuda",
-        build=lambda: make_quad_whole_solve(grid.shape, problem, mg, device=device),
+        build=lambda: make_quad_whole_solve(grid.shape, problem, mg, device=device,
+                                            pin_mean=True),
         fallback=per_kernel)
     fused = make_quad_rb_step_kernel(grid.shape, coeffs, kappa, params,
                                      emit_guess=extrapolate_warm_start)

@@ -211,8 +211,10 @@ class MGConfig:
     supersede it), corr_opt (masked hierarchies only), whole_solve (the
     case factories then build kernels.whole_solve), whole_step (the case
     factories consume it and build kernels.whole_step), and pin_mean on
-    pure-Neumann separable problems; pin_mean elsewhere raises
-    NotImplementedError until it is ported (ROADMAP.md queue A). The
+    pure-Neumann separable problems, as the reference: a separable solve of
+    any other problem raises its ValueError, and the masked hierarchies and
+    the whole-solves ignore the field (the whole-solve factory takes its own
+    pin_mean argument). The
     reference's coarse_sweeps is read by nothing there, so it has no field
     here and an override naming it is refused."""
 
@@ -373,7 +375,8 @@ class MultigridPoisson(nn.Module):
     straight to the dense pinv). With ``cfg.coarse_dtype`` the restricted
     residual enters level 1 in bfloat16 and the bf16 correction is promoted
     in the prolong-add (multigrid.py:813-824). pin_mean off a pure-Neumann
-    problem raises the reference's ValueError (:670-674).
+    problem raises the reference's ValueError (:669-673), on the quad
+    finest level as on the natural one.
 
     ``cfg.pin_mean`` shifts p to zero mean over its nx * ny cells after
     every cycle (module docstring). ``cfg.tail_from`` (global level index,
@@ -410,13 +413,9 @@ class MultigridPoisson(nn.Module):
                              "hierarchies coarsen consistently (coarsen_problem "
                              "edge_fix) and do not take it")
         if cfg.pin_mean and not is_pure_neumann(problem):
-            if quad_level0 is None:
-                raise ValueError("aligned_io requires the plain Pallas-smoothed separable "
-                                 "path (pin_mean only for pure-Neumann problems)")
-            # the reference takes it only on its unfused natural path there
-            raise NotImplementedError(
-                "MGConfig pin_mean on a problem that is not pure Neumann (the unfused "
-                "residual of the natural path) not ported yet (ROADMAP.md queue A item 2)")
+            # multigrid.py:669-673, on the quad finest level as on the natural one
+            raise ValueError("aligned_io requires the plain Pallas-smoothed separable "
+                             "path (pin_mean only for pure-Neumann problems)")
         self.cfg = cfg
         self.coarse_dt = coarse_dt
         self.store_dtype = store_dtype
@@ -604,7 +603,8 @@ class MaskedQuadMultigridPoisson(nn.Module):
     a level above the coarsest and otherwise ignored, multigrid.py:1104-1111)
     runs those levels as one launch of the fused tail. ``cfg.corr_opt``
     scales the level-1 correction by _corr_alpha before the solid fill.
-    ``store_dtype``: the masked whole-solve's twin with its bfloat16
+    ``cfg.pin_mean`` is ignored, as the reference's masked solves never read
+    it. ``store_dtype``: the masked whole-solve's twin with its bfloat16
     rounding points (MultigridPoisson); corr_opt then still reads the
     unrounded rc.
 
@@ -617,9 +617,6 @@ class MaskedQuadMultigridPoisson(nn.Module):
         if cfg.coarse_dtype is not None:
             raise ValueError("coarse_dtype is not supported on the masked "
                              "(defect-correction) hierarchy")
-        if cfg.pin_mean:
-            raise NotImplementedError("MGConfig pin_mean not ported yet for the masked "
-                                      "hierarchy (ROADMAP.md queue A)")
         probs = build_problems(problem, cfg)
         if len(probs) < 2:
             raise ValueError("grid too small for the quad masked hierarchy")
@@ -731,8 +728,8 @@ class MaskedMultigridPoisson(nn.Module):
     more. ``tail_from`` is ignored (:689-694). The warm start is not masked
     (:846-847). ``cfg.corr_opt`` scales the level-1 correction by
     _corr_alpha. float32 only; ``coarse_dtype`` raises the reference's
-    ValueError (it needs the aligned path, :652-654) and pin_mean is not
-    ported.
+    ValueError (it needs the aligned path, :652-654) and pin_mean is
+    ignored, as the reference's masked solves never read it.
 
     ``top`` is the finest level on the logical shape (full 2D weights);
     ``levels`` holds the coarse levels (levels[0] is global level 1)."""
@@ -744,9 +741,6 @@ class MaskedMultigridPoisson(nn.Module):
         if cfg.coarse_dtype is not None:
             raise ValueError("coarse_dtype requires the aligned/quad f32 Pallas path "
                              "(aligned_io=True)")
-        if cfg.pin_mean:
-            raise NotImplementedError("MGConfig pin_mean not ported yet for the masked "
-                                      "hierarchy (ROADMAP.md queue A)")
         rect = step_rect_params(grid)
         if rect is None:
             raise ValueError("the natural masked multigrid needs the step rectangle raster")

@@ -10,6 +10,7 @@ step goes on the card.
     python -m cfd_tpu_torch.profile_step --case cavity --layout aligned
     python -m cfd_tpu_torch.profile_step --case step --nx 512 --ny 30
     python -m cfd_tpu_torch.profile_step --fuse-pre --mg per-kernel
+    python -m cfd_tpu_torch.profile_step --mesh 4 [--mg tail_from=1]
 
 Drives a main path on cuda through Simulation's step function: the cavity,
 make_cavity_case(n_interior=n, poisson="multigrid", dtype=float32,
@@ -30,7 +31,11 @@ the step at 512x30) take the natural layout by the auto rule. ``--fuse-pre``
 (cavity) passes fuse_pre=True: on the per-kernel solve (``--mg
 per-kernel`` or a manual knob such as ``tail_from=1``) the carry runs the
 first cycle's pre-smooth and restriction (kernels.quad
-QuadCorrPredictorSourceFusedPre); the whole-solve ignores it.
+QuadCorrPredictorSourceFusedPre); the whole-solve ignores it. ``--mesh N``
+(cavity) runs the sharded quad path on an N-shard plane-row mesh whose
+shards all live on the card (Simulation(mesh=make_mesh(N),
+sharded_kwargs={"tol_factor": 1e-6}); ``--mg`` overrides then go to the
+sharded solve's own config, parallel.quad_sharded).
 The steps' V-cycle counts stay on the card until each window ends, as in
 Simulation.run, so no window reads the host between its steps. It runs
 three windows:
@@ -200,6 +205,9 @@ def main(argv=None) -> int:
                     help="cavity/channel: the layout (default: the case's auto rule)")
     ap.add_argument("--fuse-pre", action="store_true",
                     help="cavity: fuse_pre=True (taken on the per-kernel solve)")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="cavity: the sharded quad path on an N-shard plane-row mesh on "
+                         "the card")
     ap.add_argument("--warmup", type=int, default=100)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--out", type=Path, default=DEFAULT_OUT)
@@ -213,8 +221,27 @@ def main(argv=None) -> int:
     from cfd_tpu_torch.solver import Simulation, read_diagnostics
 
     card = card_line()
-    case, what = make_case(args)
-    sim = Simulation(case, log=lambda m: None)
+    if args.mesh:
+        from cfd_tpu_torch.cases import make_cavity_case
+        from cfd_tpu_torch.cli import parse_mg
+        from cfd_tpu_torch.parallel import make_mesh
+
+        if args.case != "cavity" or args.fuse_pre or args.layout != "auto":
+            raise SystemExit("profile_step: --mesh runs the quad cavity only")
+        case = make_cavity_case(n_interior=args.n, poisson="multigrid", dtype=torch.float32,
+                                tolerance_factor=1e-6, device="cuda")
+        kw = {"tol_factor": 1e-6}
+        if args.mg != "default":
+            kw["mg_overrides"] = parse_mg(args.mg)
+        sim = Simulation(case, log=lambda m: None, mesh=make_mesh(args.mesh), sharded_kwargs=kw)
+        mg = sim._engine.mg if not sim._engine.delegated else case.info["mg"]
+        knobs = f", tail_from={mg.tail_from}" if mg.tail_from else ""
+        what = (f"cavity {args.n}^2 on a {args.mesh}-shard plane-row mesh (sharded quad "
+                f"path, V({mg.pre_sweeps},{mg.post_sweeps}), tol_factor {mg.tol_factor}"
+                f"{knobs})")
+    else:
+        case, what = make_case(args)
+        sim = Simulation(case, log=lambda m: None)
     state = sim.initial_state()
 
     cycles: list[int] = []

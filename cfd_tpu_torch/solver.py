@@ -356,22 +356,15 @@ def _whole_step(case: Case) -> Callable[[State], tuple[State, StepDiagnostics]]:
     return step
 
 
-class Simulation:
-    """Host-side time loop with periodic diagnostics (the reference
-    ``run()`` loops, cfd_tpu.solver.Simulation)."""
+class CaseEngine:
+    """The case's own single-device step behind the interface Simulation
+    drives: ``initial_state``, ``step``, ``is_logical``, ``logical`` and
+    ``from_logical``. The sharded engine
+    (parallel.quad_sharded.ShardedQuadProjection) is the other one."""
 
-    def __init__(self, case: Case, log=print):
+    def __init__(self, case: Case):
         self.case = case
-        self.log = log
-        self._step = make_step(case)
-        grid = case.grid
-        self._cell_mask = torch.as_tensor(grid.cell_mask, device=case.device)
-        self.history: list[dict] = []
-        # V-cycles of every step run, in order (host ints)
-        self.step_iters: list[int] = []
-        # dt of every step an adaptive run took (cfd_tpu_torch.adaptive)
-        self.step_dts: list[float] = []
-        self.blowup_ke_threshold = 1e6
+        self.step = make_step(case)
 
     def initial_state(self) -> State:
         case = self.case
@@ -382,15 +375,68 @@ class Simulation:
         p_prev = s.p if case.extrapolate_warm_start else None
         return case.align_state(State(u, v, s.p, s.T, p_prev))
 
+    def is_logical(self, state: State) -> bool:
+        """Whether ``state`` has the logical (ny+2, nx+2) shape; else it is
+        the carried one."""
+        return tuple(state.u.shape) == self.case.grid.shape
+
+    def logical(self, state: State) -> State:
+        return self.case.unalign_state(state)
+
+    def from_logical(self, state: State) -> State:
+        return self.case.align_state(state)
+
+
+class Simulation:
+    """Host-side time loop with periodic diagnostics (the reference
+    ``run()`` loops, cfd_tpu.solver.Simulation).
+
+    ``mesh`` (a parallel.mesh.Mesh): run the case on the sharded quad path
+    (parallel.quad_sharded.ShardedQuadProjection with ``sharded_kwargs``,
+    cfd_tpu/solver.py:349-369); the time loop and the stats rows are
+    unchanged, the sharded state is gathered to the logical layout at print
+    cadence only. The engine's solve takes its own config, with
+    tol_factor 1e-9 unless ``sharded_kwargs`` gives one."""
+
+    def __init__(self, case: Case, log=print, mesh=None,
+                 sharded_kwargs: Optional[dict] = None):
+        self.case = case
+        self.log = log
+        if mesh is None:
+            self._engine = CaseEngine(case)
+            self._step = self._engine.step
+        else:
+            from cfd_tpu_torch.parallel.quad_sharded import ShardedQuadProjection
+
+            engine = self._engine = ShardedQuadProjection(case, mesh,
+                                                          **dict(sharded_kwargs or {}))
+
+            def step(state):
+                st, d = engine.step(state)
+                return st, StepDiagnostics(d["poisson_iters"], d["poisson_residual"])
+
+            self._step = step
+        grid = case.grid
+        self._cell_mask = torch.as_tensor(grid.cell_mask, device=case.device)
+        self.history: list[dict] = []
+        # V-cycles of every step run, in order (host ints)
+        self.step_iters: list[int] = []
+        # dt of every step an adaptive run took (cfd_tpu_torch.adaptive)
+        self.step_dts: list[float] = []
+        self.blowup_ke_threshold = 1e6
+
+    def initial_state(self) -> State:
+        return self._engine.initial_state()
+
     def _logical(self, state: State) -> State:
         """The carried state in the logical (ny+2, nx+2) layout."""
-        return self.case.unalign_state(state)
+        return self._engine.logical(state)
 
     def statistics(self, state: State) -> dict[str, float]:
         """The stats row of a carried state, or of a logical one (the
         adaptive runs hand over their own logical states)."""
-        if tuple(state.u.shape) != self.case.grid.shape:
-            state = self._logical(state)
+        if not self._engine.is_logical(state):
+            state = self._engine.logical(state)
         vals = flow_statistics(state.u, state.v, self.case.coeffs, self._cell_mask,
                                self.case.ke_divisor)
         if self.case.extra_stats is not None:
@@ -417,8 +463,8 @@ class Simulation:
                                  f"{name} interval ({iv})")
         if state is None:
             state = self.initial_state()
-        elif tuple(state.u.shape) == case.grid.shape:
-            state = case.align_state(state)  # resumed in the logical layout
+        elif self._engine.is_logical(state):
+            state = self._engine.from_logical(state)  # resumed in the logical layout
         n = case.total_steps if n_steps is None else start_step + n_steps
         n_cells = case.grid.n_fluid
         t_wall0 = time.perf_counter()

@@ -177,6 +177,27 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
     1e-5 relative (bit-identical expected).
 31. Card against CPU over 20 steps: the fused-pre cavity at 256^2 and the
     split channel at 256x128.
+32. The shard kernels (rows 16a-16c: the cavity's carry, pre and post on
+    one shard's local block: the entry points of rows 1, 3 and 4 told the
+    block's row_base and halo) at the 2048^2 shapes of a
+    4-shard plane-row mesh (P = 264, local blocks (4, 280, 1152)), for
+    shards 0, 1 and 3: bit-identical to their twins on every row, and on
+    the own rows equal to the single-device kernels (rows 1, 3, 4) on the
+    same global rows; times on shard 1 as in phase 2, the bound of one
+    local block.
+33. The sharded cavity: make_cavity_case(n_interior=2048, dtype=float32,
+    tolerance_factor=1e-6) on make_mesh(4) (every shard on the card),
+    Simulation(mesh=, sharded_kwargs={"tol_factor": 1e-6}), 300 steps in
+    chunks of 100 beside the single-device per-kernel run with the float32
+    coarse hierarchy (mg_overrides whole_solve=False, fuse_pre=False) from
+    the same initial state: cycles within 1 on every step, fields within
+    2e-5 of scale (bit-identical expected, and reported); steps/s,
+    V-cycles/step, launches/step. Then 100 steps with tail_from=1 beside
+    that run's first 100, and a 1-shard mesh with default kwargs, which
+    delegates: rows 1, 3 and 4 launch, 16a-16c do not.
+34. The sharded cavity card against CPU over 20 steps, at 256^2 on 4
+    shards (P = 40) and at 64^2 on 8 (P = 8, the minimum): equal cycles
+    every step, fields within 5e-5.
 
 The line before the last is a JSON object {"kernels": [...]}: per kernel,
 its launches on its path's run, its error against its twin, its time and
@@ -231,6 +252,8 @@ MAX_CO, GROWTH = 0.7, 1.2
 # layout, and 512 / 2 * 30 / 2 = 3840 coarsest cells keep the host's dense
 # pinv build short
 NATURAL_STEP = (512, 30)
+# the sharded cavity (phases 32-34): shards of the plane-row mesh on the card
+SHARDS = 4
 
 
 T0 = time.perf_counter()
@@ -471,14 +494,19 @@ def run_path(case, n_steps: int, path_kernels, what: str, card: str, rate,
                                  iters=list(sim.step_iters))
 
 
-def card_vs_cpu(make, kw: dict, what: str, n_steps: int = 20) -> None:
+def card_vs_cpu(make, kw: dict, what: str, n_steps: int = 20, shards: int | None = None,
+                sharded_kwargs: dict | None = None) -> None:
     """One card-against-CPU comparison: the kernels on the card, the plain
-    twins on the CPU, ``n_steps`` steps."""
+    twins on the CPU, ``n_steps`` steps; with ``shards``, on a mesh of that
+    many shards of the device (Simulation(mesh=, sharded_kwargs=))."""
+    from cfd_tpu_torch.parallel import make_mesh
     from cfd_tpu_torch.solver import Simulation
 
     out = {}
     for where, dev in (("card", "cuda"), ("cpu", "cpu")):
-        sim = Simulation(make(device=dev, **kw), log=lambda m: None)
+        mesh = make_mesh(shards, device=dev) if shards else None
+        sim = Simulation(make(device=dev, **kw), log=lambda m: None, mesh=mesh,
+                         sharded_kwargs=sharded_kwargs)
         st = sim._logical(sim.run(n_steps=n_steps))
         out[where] = (sim.step_iters, st, sim.history[-1])
     (it_g, st_g, row_g), (it_c, st_c, row_c) = out["card"], out["cpu"]
@@ -758,7 +786,7 @@ def check_rb_kernels(case, dev) -> dict:
     p0 = torch.zeros_like(b)
     loose = make_quad_whole_solve(
         shape, neumann_problem(g.nx, g.ny, g.dx, g.dy),
-        dataclasses.replace(cfg, tol_factor=1e-3), device=dev)
+        dataclasses.replace(cfg, tol_factor=1e-3), device=dev, pin_mean=True)
     errs = []
     for exit_rule, solve in (("stall", ws), ("tolerance", loose)):
         pk, ck, rk = host(solve.kernel(p0, b))
@@ -1393,6 +1421,151 @@ def split_channel(case):
     return dataclasses.replace(case, step_kernels=(split, corr))
 
 
+def check_shard_kernels(case, dev) -> dict:
+    """Phase 32: rows 16a-16c against their twins on shards 0, 1 and 3 of a
+    SHARDS-way mesh at the per-kernel cavity's shapes, and on the own rows
+    against the single-device kernels (rows 1, 3, 4) of ``case``."""
+    from cfd_tpu_torch.kernels import quad as Q
+
+    rng = np.random.default_rng(32)
+    g = case.grid
+    shape = g.shape
+    Hq8s, P, W = Q.quad_shard_dims(shape, SHARDS)
+    Hq8, H = Q.quad_dims(shape)[2], Q.DEV_HALO
+    inner = np.zeros(shape, np.float32)
+    inner[1:-1, 1:-1] = 1.0
+
+    def field(scale=0.1, interior_only=False):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        return Q.to_quad(torch.from_numpy(a * inner if interior_only else a).to(dev), shape)
+
+    us, vs, p, pp = field(), field(), field(interior_only=True), field(interior_only=True)
+    b = field(scale=1e3, interior_only=True)
+    ec = torch.zeros(Hq8, W, device=dev)
+    ec[1 : g.ny // 2 + 1, 1 : g.nx // 2 + 1] = torch.from_numpy(
+        rng.standard_normal((g.ny // 2, g.nx // 2)).astype(np.float32) * 0.1).to(dev)
+    carry, solve, mg = case.step_kernels[0], case.poisson_solve, case.info["mg"]
+    single = {"carry": carry.kernel(us, vs, p, pp), "pre": solve.pre0.kernel(p, b),
+              "post": solve.post0.kernel(p, b, ec)}
+    loc, shard = (P + 2 * H, W), (P, SHARDS)
+    prob = solve_problem(case)
+    ops = {"carry": Q.make_quad_corr_predictor_source(shape, case.coeffs, carry.lid,
+                                                      shard=shard),
+           "pre": Q.make_quad_pre_smooth_restrict(shape, prob, mg.omega, mg.pre_sweeps, loc,
+                                                  device=dev, shard=shard),
+           "post": Q.make_quad_post_prolong_smooth(shape, prob, mg.omega, mg.post_sweeps,
+                                                   loc, device=dev, shard=shard)}
+    names = {"carry": ("us'", "vs'", "b", "guess", "max|b|"), "pre": ("p", "rc"),
+             "post": ("p", "max|r|")}
+    n_fields = {"carry": 4, "pre": 2, "post": 1}
+    errs = {k: [] for k in ops}
+    timing = {}
+    for jy in (0, 1, 3):
+        rb = jy * P - H
+        sl = lambda t: torch.nn.functional.pad(t, (0, 0, H, Hq8s - Hq8 + H))[
+            ..., jy * P : jy * P + P + 2 * H, :].contiguous()
+        args = {"carry": tuple(map(sl, (us, vs, p, pp))), "pre": (sl(p), sl(b)),
+                "post": (sl(p), sl(b), sl(ec))}
+        lo = jy * P
+        hi = max(lo, min(lo + P, Hq8))  # the shard's global rows inside the field
+        for kind, op in ops.items():
+            got, want = op.kernel(rb, *args[kind]), op.plain(rb, *args[kind])
+            for name, a, w in zip(names[kind], got, want, strict=True):
+                rel_err(a, w, f"{op_name(kind)} shard {jy} {name}", TOL_F32, errs[kind])
+                if not torch.equal(a, w):
+                    raise AssertionError(f"{op_name(kind)} shard {jy} {name}: not "
+                                         "bit-identical to its twin")
+            for k in range(n_fields[kind]):
+                if not torch.equal(got[k][..., H : H + hi - lo, :],
+                                   single[kind][k][..., lo:hi, :]):
+                    raise AssertionError(f"{op_name(kind)} shard {jy} {names[kind][k]}: own "
+                                         "rows differ from the single-device kernel's")
+            if jy == 1:
+                timing[kind] = (
+                    median_ms(lambda: op.kernel(rb, *args[kind])),
+                    median_ms(lambda: op.plain(rb, *args[kind]), reps=5),
+                    nbytes(*args[kind], *got, *(op.wE, op.wW, op.wN, op.wS)
+                           if kind != "carry" else ()))
+        log(f"  shard {jy} (row_base {rb}, global rows {lo}..{hi - 1} in the field): "
+            "bit-identical to the twins, own rows equal to rows 1, 3, 4")
+    cells = 2 * (P + 2 * H) * g.nx  # the block's logical cells
+    n_ops = {"carry": cells * (CORRECTOR_OPS + PREDICTOR_SOURCE_OPS),
+             "pre": cells * (mg.pre_sweeps * GS_OPS + RES_OPS) + cells // 4 * RESTRICT_OPS,
+             "post": cells * (PROLONG_OPS + mg.post_sweeps * GS_OPS + RES_OPS + 1)}
+    results = {}
+    for kind in ops:
+        ms, plain_ms, n_bytes = timing[kind]
+        results[op_name(kind)] = dict(err=max(errs[kind]), ms=ms, plain_ms=plain_ms,
+                                      **bound(n_bytes, n_ops[kind]))
+    return results
+
+
+def op_name(kind: str) -> str:
+    from cfd_tpu_torch.kernels import quad as Q
+
+    return {"carry": Q.SHARD_CARRY, "pre": Q.SHARD_PRE, "post": Q.SHARD_POST}[kind].name
+
+
+def run_sharded(case, n_steps: int, what: str, card: str, shards: int, sharded_kwargs,
+                path_kernels, absent=()):
+    """Drive the cavity on a ``shards``-shard mesh on the card through
+    Simulation.run in chunks of 100 (or n_steps), the launch counters
+    zeroed just before and read just after: every kernel of ``path_kernels``
+    must have launched and none of ``absent``. Returns (launches, logical
+    state, iters, steps/s over the last chunk, the engine)."""
+    from cfd_tpu_torch.kernels import KERNELS
+    from cfd_tpu_torch.parallel import make_mesh
+    from cfd_tpu_torch.solver import Simulation
+
+    spc = min(100, n_steps)
+    sim = Simulation(case, log=lambda m: log("  " + m), mesh=make_mesh(shards),
+                     sharded_kwargs=sharded_kwargs)
+    for kern in KERNELS:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    state = sim.run(n_steps=n_steps, steps_per_call=spc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    missing = [k.name for k in path_kernels if launches[k.name] == 0]
+    extra = [k.name for k in absent if launches[k.name]]
+    if missing or extra:
+        raise AssertionError(f"{what}: kernels never launched {missing}, launched against "
+                             f"the path {extra}")
+    st = sim._logical(state)
+    for fname in ("u", "v", "p"):
+        if not bool(torch.isfinite(getattr(st, fname)).all()):
+            raise AssertionError(f"non-finite {fname} after the {what} run")
+    walls = [0.0] + [row["wall_seconds"] for row in sim.history]
+    steps_s = spc / (walls[-1] - walls[-2])
+    cycles = float(np.mean(sim.step_iters[-spc:]))
+    port = sum(launches.values()) / n_steps
+    log(f"  {what}: {n_steps} steps in {wall:.2f} s; last {spc}: {steps_s:.2f} steps/s, "
+        f"{cycles:.2f} V-cycles/step, {port:.2f} port kernel launches/step "
+        f"({', '.join(f'{k} {v / n_steps:.2f}' for k, v in launches.items() if v)})  ({card})")
+    return launches, st, list(sim.step_iters), steps_s, sim._engine
+
+
+def hold_sharded(what: str, iters, st, ref_iters, ref_st) -> bool:
+    """The sharded run against the single-device one: cycles within 1 on
+    every step and the logical fields within 2e-5 of scale; returns whether
+    cycles and fields were bit-identical."""
+    if len(iters) != len(ref_iters) or any(abs(a - b) > 1 for a, b in zip(iters, ref_iters)):
+        raise AssertionError(f"{what}: cycles {iters} against {ref_iters}")
+    same = list(iters) == list(ref_iters)
+    for name in ("u", "v", "p", "p_prev"):
+        a, w = getattr(st, name), getattr(ref_st, name)
+        abs_err = float((a - w).abs().max())
+        limit = 2e-5 * max(1.0, float(w.abs().max()))
+        log(f"  {what} {name}: max|err|={abs_err:.3e} (limit {limit:.3e})")
+        if not abs_err <= limit:
+            raise AssertionError(f"{what}: {name} differs by {abs_err:.3e}")
+        same = same and torch.equal(a, w)
+    log(f"  {what}: {'equal' if list(iters) == list(ref_iters) else 'within 1'} cycles on "
+        f"all {len(iters)} steps, {'bit-identical' if same else 'not bit-identical'}")
+    return same
+
+
 def hold_run(what: str, iters, state, ref_iters, ref_state, exact: bool) -> None:
     """A run held to a reference run from the same start: equal cycles on
     every step, the carried fields within 1e-5 relative and, with ``exact``,
@@ -1410,6 +1583,89 @@ def hold_run(what: str, iters, state, ref_iters, ref_state, exact: bool) -> None
         raise AssertionError(f"{what}: fields not bit-identical to the reference run's")
     log(f"  {what}: equal cycles on all {len(iters)} steps, fields "
         f"{'bit-identical' if same else 'within 1e-5 relative, not bit-identical'}")
+
+
+def sharded_phases(card: str, dev, cav_main: dict) -> tuple[dict, dict]:
+    """Phases 32-34: the shard kernels against their twins, the sharded
+    cavity against the single-device path at full width, card against CPU.
+    Returns the kernels' checks and the 300-step run's launches."""
+    from cfd_tpu_torch.cases import make_cavity_case
+    from cfd_tpu_torch.kernels import KERNELS
+    from cfd_tpu_torch.kernels import mg_tail as MT
+    from cfd_tpu_torch.kernels import quad as Q
+    from cfd_tpu_torch.kernels import rb_smoother as RB
+    from cfd_tpu_torch.kernels import whole_solve as WS
+
+    log(f"phase 32: the shard kernels (rows 16a-16c) at the {N_MAIN}^2 shapes of a "
+        f"{SHARDS}-shard mesh vs their plain twins and the single-device kernels ({card})")
+    pk_case = make_cavity_case(device=dev, mg_overrides={"whole_solve": False}, **cav_main)
+    sh_checks = check_shard_kernels(pk_case, dev)
+    for k, r in sh_checks.items():
+        log(f"  {k:36s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), one local block  ({card})")
+
+    log(f"phase 33: the sharded cavity at {N_MAIN}^2 on {SHARDS} shards of the card, 300 "
+        f"steps beside the single-device per-kernel run, then 100 with tail_from=1, then a "
+        f"1-shard mesh ({card})")
+    from cfd_tpu_torch.parallel import make_mesh
+    from cfd_tpu_torch.solver import Simulation
+
+    pk_case = make_cavity_case(device=dev, fuse_pre=False, mg_overrides={"whole_solve": False},
+                               **cav_main)
+    if pk_case.info["mg"].coarse_dtype is not None:
+        raise AssertionError("the single-device reference run took the bf16 hierarchy")
+    ref = Simulation(pk_case, log=lambda m: log("  " + m))
+    t0 = time.perf_counter()
+    ref_state = ref.run(n_steps=100, steps_per_call=100)
+    ref_100 = (list(ref.step_iters), ref._logical(ref_state))
+    ref_state = ref.run(state=ref_state, n_steps=200, start_step=100, steps_per_call=100)
+    torch.cuda.synchronize()
+    ref_steps_s = 100 / (ref.history[-1]["wall_seconds"] - ref.history[-2]["wall_seconds"])
+    log(f"  single-device per-kernel: 300 steps in {time.perf_counter() - t0:.2f} s; last "
+        f"100: {ref_steps_s:.2f} steps/s, {np.mean(ref.step_iters[-100:]):.2f} "
+        f"V-cycles/step  ({card})")
+    case = make_cavity_case(device=dev, **cav_main)
+    shard_path = (Q.SHARD_CARRY, Q.SHARD_PRE, Q.SHARD_POST, RB.RB_PAIRS)
+    shard_launches, st, iters, steps_s, engine = run_sharded(
+        case, 300, f"sharded cavity, {SHARDS} shards", card, SHARDS, {"tol_factor": 1e-6},
+        shard_path, absent=(Q.CARRY, Q.PRE, Q.POST, WS.WHOLE_SOLVE))
+    if engine.delegated or engine.P != 264:
+        raise AssertionError(f"sharded engine: delegated={engine.delegated} P={engine.P}")
+    same = hold_sharded(f"sharded vs single-device, 300 steps", iters, st, ref.step_iters,
+                        ref._logical(ref_state))
+    log(f"  sharded cavity: {steps_s:.2f} steps/s against the single-device per-kernel "
+        f"{ref_steps_s:.2f}, {np.mean(iters[-100:]):.2f} V-cycles/step, "
+        f"{'bit-identical' if same else 'not bit-identical'}  ({card})")
+    _, st, iters, steps_s, engine = run_sharded(
+        case, 100, "sharded cavity tail_from=1", card, SHARDS,
+        {"tol_factor": 1e-6, "mg_overrides": {"tail_from": 1}},
+        (Q.SHARD_CARRY, Q.SHARD_PRE, Q.SHARD_POST, MT.MG_TAIL), absent=(RB.RB_PAIRS,))
+    if engine._solve.tail_at != 2:
+        raise AssertionError(f"the sharded tail starts at level {engine._solve.tail_at}")
+    hold_sharded("sharded tail_from=1 vs single-device, 100 steps", iters, st, *ref_100)
+    del case, ref, ref_state, st
+    sim = Simulation(pk_case, log=lambda m: None, mesh=make_mesh(1))
+    for kern in KERNELS:
+        kern.launches = 0
+    sim.run(n_steps=20)
+    torch.cuda.synchronize()
+    got = {k.name: k.launches for k in (Q.CARRY, Q.PRE, Q.POST, Q.SHARD_CARRY, Q.SHARD_PRE,
+                                        Q.SHARD_POST)}
+    if (not sim._engine.delegated or not all(got[k.name] for k in (Q.CARRY, Q.PRE, Q.POST))
+            or any(got[k.name] for k in (Q.SHARD_CARRY, Q.SHARD_PRE, Q.SHARD_POST))):
+        raise AssertionError(f"1-shard mesh: delegated={sim._engine.delegated}, launches {got}")
+    log(f"  1-shard mesh, default kwargs: delegated, launches over 20 steps {got}")
+    del pk_case, sim
+
+    log("phase 34: the sharded cavity card vs CPU, 20 steps")
+    for n, shards in ((256, 4), (64, 8)):
+        card_vs_cpu(make_cavity_case, dict(n_interior=n, poisson="multigrid",
+                                           dtype=torch.float32, tolerance_factor=1e-6,
+                                           print_interval=20),
+                    f"sharded cavity {n}^2 on {shards} shards", shards=shards,
+                    sharded_kwargs={"tol_factor": 1e-6})
+
+    return sh_checks, shard_launches
 
 
 def main() -> int:
@@ -2056,6 +2312,9 @@ def main() -> int:
                      tolerance_factor=1e-6, abs_tol=0.0, print_interval=20),
                 "channel 256x128 split")
 
+    sh_checks, shard_launches = sharded_phases(card, dev, cav_main)
+    checks.update(sh_checks)
+
     launches = {**cavity_launches, **{k: channel_launches[k] for k in (
         Q.CHANNEL_CARRY.name, Q.CHANNEL_CORRECTOR.name, WS.WHOLE_SOLVE.name)},
         **{k: step_launches[k] for k in (SQ.STEP_CARRY.name, SQ.STEP_CORRECTOR.name,
@@ -2065,7 +2324,8 @@ def main() -> int:
         **{k: rb_launches[k] for k in (RQ.RB_CARRY.name, RQ.RB_CORRECTOR.name,
                                        WS.WHOLE_SOLVE_PIN_MEAN.name)},
         **ad_launches, **ws_launches, **tail_launches, **bf16_launches, **corr_launches,
-        **nat_launches, **fp_launches}
+        **nat_launches, **fp_launches,
+        **{k.name: shard_launches[k.name] for k in (Q.SHARD_CARRY, Q.SHARD_PRE, Q.SHARD_POST)}}
     kernels = []
     for k in KERNELS:
         r = checks[k.name]

@@ -210,8 +210,7 @@ def test_run_aborts_on_blowup():
 
 @pytest.mark.parametrize("kw", [
     dict(poisson="sor"), dict(n_interior=63, poisson="auto"), dict(dtype=torch.float64),
-    dict(forcing=(0.0, 0.0)), dict(mg_overrides={"pin_mean": True}),
-    dict(mg_overrides={"pin_mean": True, "whole_solve": True}),
+    dict(forcing=(0.0, 0.0)),
 ])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):

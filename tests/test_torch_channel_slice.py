@@ -191,9 +191,6 @@ def test_handover_from_jax_continues(ref, via, tmp_path):
 
 @pytest.mark.parametrize("kw", [
     dict(poisson="sor"), dict(nx=93, ny=31, poisson="auto"), dict(dtype=torch.float64),
-    dict(mg_overrides={"pin_mean": True, "whole_step": True}),
-    dict(mg_overrides={"pin_mean": True, "whole_solve": True}),
-    dict(mg_overrides={"pin_mean": True, "tail_from": 1}), dict(mg_overrides={"pin_mean": True}),
 ])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):

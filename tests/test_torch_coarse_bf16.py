@@ -100,7 +100,7 @@ def test_bf16_whole_solve_matches_jax(flow):
     jsolve = JW.make_quad_whole_solve(shape, getattr(JM, flavor)(nx, ny, dx, dy),
                                       JM.MGConfig(**kw), pin_mean=pin, interpret=True)
     tsolve = TW.make_quad_whole_solve(shape, getattr(TM, flavor)(nx, ny, dx, dy),
-                                      TM.MGConfig(**kw))
+                                      TM.MGConfig(**kw), pin_mean=pin)
     assert tsolve.mg.store_dtype == torch.bfloat16
     assert tsolve._fine()[5] is (TW.WHOLE_SOLVE_PIN_MEAN_BF16 if pin else TW.WHOLE_SOLVE_BF16)
     mask = np.zeros(shape, bool)

@@ -160,6 +160,7 @@ def test_port_imports_no_jax():
             "import cfd_tpu_torch.physics.boussinesq, cfd_tpu_torch.kernels.rb_quad\n"
             "import cfd_tpu_torch.ops.random, cfd_tpu_torch.adaptive\n"
             "import cfd_tpu_torch.kernels.whole_step\n"
+            "import cfd_tpu_torch.parallel, cfd_tpu_torch.parallel.quad_sharded\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'cfd_tpu' or m.startswith('cfd_tpu.'))\n"
             "assert not bad, bad\n"

@@ -167,11 +167,12 @@ def test_bf16_coarse_solve_matches_jax_bf16():
                                   dict(pin_mean=True, whole_solve=True, coarse_dtype="bf16"),
                                   dict(pin_mean=True, tail_from=1)])
 def test_unported_mg_options_raise(knob):
-    """pin_mean off a pure-Neumann problem stays unported, alone and beside
-    the knobs that are ported."""
+    """pin_mean off a pure-Neumann problem raises the reference's ValueError
+    (cfd_tpu/poisson/multigrid.py:669-673), alone and beside the knobs that
+    are ported."""
     n = 32
     cfg = dataclasses.replace(TM.MGConfig(), **knob)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="pin_mean only for pure-Neumann problems"):
         TM.make_multigrid_poisson(TM.cavity_problem(n, n, 1 / n, 1 / n), cfg,
                                   _port_l0(n, cfg))
 

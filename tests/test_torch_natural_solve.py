@@ -174,13 +174,23 @@ def test_masked_natural_solve_matches_jax(name):
 
 
 @pytest.mark.parametrize("knobs, err", [({"coarse_dtype": "bfloat16"}, ValueError),
-                                        ({"pin_mean": True}, NotImplementedError)])
+                                        ({"pin_mean": True}, None)])
 def test_masked_natural_solve_rules(knobs, err):
     """coarse_dtype needs the aligned path (the reference's ValueError,
-    multigrid.py:652-654); pin_mean is not ported on masked hierarchies."""
+    multigrid.py:652-654); pin_mean is ignored, as the reference's masked
+    solves never read it: the solve equals the one without it."""
     _, tg, c = _step_grid(64, 14)
-    with pytest.raises(err):
-        TM.make_masked_multigrid_poisson(tg, c, TM.MGConfig(**knobs))
+    if err is not None:
+        with pytest.raises(err):
+            TM.make_masked_multigrid_poisson(tg, c, TM.MGConfig(**knobs))
+        return
+    rng = np.random.default_rng(3)
+    b = torch.from_numpy(np.where(tg.cell_mask, rng.standard_normal(tg.shape), 0.0)
+                         .astype(np.float32))
+    p0 = torch.zeros_like(b)
+    got = TM.make_masked_multigrid_poisson(tg, c, TM.MGConfig(tol_factor=1e-4, **knobs))(p0, b)
+    want = TM.make_masked_multigrid_poisson(tg, c, TM.MGConfig(tol_factor=1e-4))(p0, b)
+    assert got[1:] == want[1:] and torch.equal(got[0], want[0])
 
 
 def test_masked_natural_solve_ignores_tail_from():

@@ -252,8 +252,10 @@ def _port_per_kernel(cfg):
 
 
 def _port_whole(cfg):
+    """The port's whole-solve as RB builds it: pin_mean is its argument, as
+    in the reference (cfg.pin_mean is not read)."""
     return TW.make_quad_whole_solve(SSHAPE, TM.neumann_problem(SX, SY, 3.0 / SX, 1.0 / SY),
-                                    cfg)
+                                    cfg, pin_mean=True)
 
 
 @pytest.mark.parametrize("tol", [1e-4, 1e-5])
@@ -320,12 +322,13 @@ def test_pin_mean_whole_solve_matches_jax_whole_solve():
 @pytest.mark.parametrize("flavor", ["channel_problem", "cavity_problem"])
 def test_pin_mean_needs_a_pure_neumann_problem(flavor):
     """The fused residual stays valid after the shift only when the constant
-    is the nullspace; elsewhere the reference pins on its natural path."""
+    is the nullspace; elsewhere the quad solve raises the reference's
+    ValueError (cfd_tpu/poisson/multigrid.py:669-673)."""
     prob = getattr(TM, flavor)(SX, SY, 3.0 / SX, 1.0 / SY)
     assert not TM.is_pure_neumann(prob)
     assert TM.is_pure_neumann(TM.neumann_problem(SX, SY, 3.0 / SX, 1.0 / SY))
     cfg = dataclasses.replace(TM.MGConfig(), pin_mean=True)
     l0 = (TQ.make_quad_pre_smooth_restrict(SSHAPE, prob, 1.0, 2, SCOARSE),
           TQ.make_quad_post_prolong_smooth(SSHAPE, prob, 1.0, 2, SCOARSE))
-    with pytest.raises(NotImplementedError, match="pure Neumann"):
+    with pytest.raises(ValueError, match="pin_mean only for pure-Neumann problems"):
         TM.make_multigrid_poisson(prob, cfg, l0)

@@ -340,8 +340,8 @@ def test_masked_solve_guards(cases):
     g, c = port.grid, port.coeffs
     with pytest.raises(ValueError, match="coarse_dtype"):
         TM.make_masked_quad_multigrid_poisson(g, c, TM.MGConfig(coarse_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError):
-        TM.make_masked_quad_multigrid_poisson(g, c, TM.MGConfig(pin_mean=True))
+    # pin_mean is ignored, as the reference's masked solves never read it
+    assert TM.make_masked_quad_multigrid_poisson(g, c, TM.MGConfig(pin_mean=True)).cfg.pin_mean
     # corr_opt and tail_from are ported: they build (the fused tail from
     # global level 1, the whole coarse hierarchy)
     assert TM.make_masked_quad_multigrid_poisson(g, c, TM.MGConfig(corr_opt=True)).cfg.corr_opt
