@@ -27,11 +27,12 @@ metrics, meshes) are refused with a message instead of being ignored.
 --adaptive-controller (exact: the cavity only; lagged: every case).
 --mg K=V[,K=V...] overrides MGConfig fields as the reference's flag does
 (cfd_tpu/cli.py:84-88, 133-156); --mg whole_step=true runs the whole time
-step in one kernel. --mesh N runs the cavity on the sharded quad path over an
-N-shard plane-row mesh (parallel.quad_sharded; every shard on the
---device's cards, round-robin, so one card holds them all), with the
-reference's checks (cfd_tpu/cli.py:221-233); its solve takes the sharded
-engine's own config (tol_factor 1e-9, V(2,1)), as the reference's does.
+step in one kernel. --mesh N runs the cavity, the channel or Rayleigh-Benard
+on the sharded quad path over an N-shard plane-row mesh
+(parallel.quad_sharded; every shard on the --device's cards, round-robin,
+so one card holds them all), with the reference's checks
+(cfd_tpu/cli.py:221-233); its solve takes the sharded engine's own config
+(tol_factor 1e-9; V(2,1), the channel V(1,2)), as the reference's does.
 --save-interval sets the case's save interval, which
 --steps-per-call must divide (no exporter reads it yet). The
 Rayleigh-Benard case always solves with multigrid and ignores --poisson and
@@ -179,10 +180,9 @@ def main(argv=None) -> int:
                              "add --adaptive-controller lagged")
         if args.precision != "f32":
             raise SystemExit("--mesh runs the f32 quad fast path: add --precision f32")
-        if args.case != "cavity":
-            raise SystemExit(f"--mesh: only the cavity runs on the sharded path; the "
-                             f"{args.case} flavor is not ported yet (ROADMAP.md queue A "
-                             f"items A.12b, A.12c)")
+        if args.case == "backwards_step":
+            raise SystemExit("--mesh: the sharded backwards_step flavor is not ported yet "
+                             "(ROADMAP.md queue A item A.12c)")
         if args.adaptive_dt is not None:
             raise SystemExit("--mesh with --adaptive-dt: the sharded lagged controller is "
                              "not ported yet (ROADMAP.md queue A item A.12d)")

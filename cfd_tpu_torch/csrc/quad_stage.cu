@@ -9,15 +9,21 @@
 // channel_carry_compute :1160-1222), the carries fixed and with
 // traced_dt + emit_courant, and make_quad_channel_predictor_source (:847:
 // the channel carry's second and third launches on (u, v) as given). The
-// cavity carry also runs with shard=(P, mdy) on one shard's local block
-// (row 16a, cfd_tpu/parallel/quad_sharded.py): the arrays are a shard's
-// (4, P + 16, Wqa) block between two 8-row halo strips, row_base = jy * P - 8
-// is the global plane row of local row 0 (every mask and ghost keeps its
-// global meaning, common.cuh), a neighbour outside the block reads 0, and
-// max|b| covers the own rows only: the shard's partial. The scratch u, v
-// cover the whole block and the stages' radius is 5 rows (quad.py:970-971),
-// inside the halo, so the own rows are exact. A whole field is row_base 0,
-// halo 0.
+// cavity and channel carries also run with shard=(P, mdy) on one shard's
+// local block (rows 16a and 16d, cfd_tpu/parallel/quad_sharded.py): the
+// arrays are a shard's (4, P + 16, Wqa) block between two 8-row halo
+// strips, row_base = jy * P - 8 is the global plane row of local row 0
+// (every mask and ghost keeps its global meaning, common.cuh), a neighbour
+// outside the block reads 0, and the reduction (the cavity's max|b|, the
+// channel's sum of b) covers the own rows only: the shard's partial. The
+// scratch u, v cover the whole block. The cavity's stages reach 5 rows
+// (quad.py:970-971); the channel's reach 5 too, counting one row for each
+// stage: the corrector (p at j+1), the ghosts on the corrected fields (the
+// ghost rows read rows 1 and ny), the predictor (j-1 ... j+1), the ghosts
+// on the tentative fields and the source (vs at j-1). Both are inside the
+// 8-row halo (kChannelRadius below), so the own rows are exact. A whole
+// field is row_base 0, halo 0, and its instances fold the row offset away
+// at compile time (kBlock).
 //
 // Bound on the H100: device-memory bytes. The correctors read 4 quad fields
 // and write 3; the carries read 4 and write 4 plus one scalar (19 MB per
@@ -82,6 +88,10 @@ using cfd::Pred;
 using cfd::quad::Corr;
 using cfd::quad::corr_at;
 
+// the dependency radius of the channel carry's stages, in rows (above)
+constexpr int kChannelRadius = 5;
+static_assert(kChannelRadius <= 8, "the channel carry reaches past the 8-row halo");
+
 // kCourant: max|u|, max|v| of the outputs into courant[0], courant[1]
 template <bool kTraced, bool kCourant>
 __global__ void corrector_kernel(const float* us, const float* vs, const float* p,
@@ -122,12 +132,14 @@ __global__ void predictor_source_kernel(const float* u, const float* v, float* u
   cfd::block_max_into(absb, max_b);
 }
 
-template <bool kTraced, bool kCourant>
+// kBlock: a shard's local block (its row offset); else row0 folds to 0
+template <bool kTraced, bool kCourant, bool kBlock = false>
 __global__ void channel_corrector_kernel(const float* us, const float* vs, const float* p,
                                          const float* p_prev, float* u2, float* v2,
                                          float* guess, Corr c0, const float* dt,
                                          float* courant) {
-  const Corr c = corr_at<kTraced, true>(c0, dt);
+  Corr c = corr_at<kTraced, true>(c0, dt);
+  if constexpr (!kBlock) c.row0 = 0;
   long long n = 4LL * c.Hq8 * c.Wqa;
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   float au = 0.f, av = 0.f;
@@ -141,19 +153,23 @@ __global__ void channel_corrector_kernel(const float* us, const float* vs, const
 }
 
 // predictor, channel ghosts on the tentative fields, b = rho/dt * div on the
-// cells, and the block's partial sum of b (fixed tree)
-template <bool kTraced>
+// cells, and the block's partial sum of b (fixed tree); kBlock: a shard's
+// local block, whose partials take its own rows only (cfd::own_row)
+template <bool kTraced, bool kBlock = false>
 __global__ void channel_predictor_source_kernel(const float* u, const float* v, float* us2,
                                                 float* vs2, float* b, float* partials,
-                                                Pred c0, float uin, const float* dt) {
-  const Pred c = cfd::pred_at<kTraced>(c0, dt);
+                                                Pred c0, float uin, const float* dt,
+                                                int halo) {
+  Pred c = cfd::pred_at<kTraced>(c0, dt);
+  if constexpr (!kBlock) c.row0 = 0;
   long long n = 4LL * c.Hq8 * c.Wqa;
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float bb = 0.f;
+  float part = 0.f;
   if (idx < n) {
-    bb = cfd::quad::channel_predictor_source_cell(u, v, us2, vs2, b, idx, c, uin);
+    const float bb = cfd::quad::channel_predictor_source_cell(u, v, us2, vs2, b, idx, c, uin);
+    if (!kBlock || cfd::own_row(idx, c.Hq8, c.Wqa, halo)) part = bb;
   }
-  cfd::block_sum_to(bb, partials + blockIdx.x);
+  cfd::block_sum_to(part, partials + blockIdx.x);
 }
 
 // one block: the partials folded into *sum in the twin's fold_sum order
@@ -201,20 +217,20 @@ cudaError_t cavity_carry(const float* us, const float* vs, const float* p,
 }
 
 // the channel carry's three launches: corrector, predictor + source +
-// partial sums, fold
-template <bool kAdaptive>
+// partial sums (own rows of a block with a `halo`-row strip), fold
+template <bool kAdaptive, bool kBlock = false>
 cudaError_t channel_carry(const float* us, const float* vs, const float* p,
                           const float* p_prev, float* u_scr, float* v_scr, float* us2,
                           float* vs2, float* b, float* guess, float* partials, float* sum_b,
                           float* courant, const float* dts, const Corr& c, const Pred& pc,
-                          cudaStream_t s) {
+                          int halo, cudaStream_t s) {
   const int blocks = cfd::blocks_for(4LL * c.Hq8 * c.Wqa);
-  channel_corrector_kernel<kAdaptive, kAdaptive><<<blocks, cfd::kThreads, 0, s>>>(
+  channel_corrector_kernel<kAdaptive, kAdaptive, kBlock><<<blocks, cfd::kThreads, 0, s>>>(
       us, vs, p, p_prev, u_scr, v_scr, guess, c, dts, courant);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  channel_predictor_source_kernel<kAdaptive><<<blocks, cfd::kThreads, 0, s>>>(
-      u_scr, v_scr, us2, vs2, b, partials, pc, c.ghost, kAdaptive ? dts + 1 : nullptr);
+  channel_predictor_source_kernel<kAdaptive, kBlock><<<blocks, cfd::kThreads, 0, s>>>(
+      u_scr, v_scr, us2, vs2, b, partials, pc, c.ghost, kAdaptive ? dts + 1 : nullptr, halo);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return cfd::fold_partials(partials, blocks, sum_b, s);
@@ -325,19 +341,28 @@ extern "C" int cfd_quad_channel_corrector_traced(const float* us, const float* v
   return static_cast<int>(cudaGetLastError());
 }
 
-// partials: cfd::blocks_for(4 * Hq8 * Wqa) floats of scratch
+// partials: cfd::blocks_for(4 * Hq8 * Wqa) floats of scratch; row_base,
+// halo: a local block's global plane row of row 0 and its halo strip (0, 0
+// on a whole field), sum_b then the sum over the own rows
 extern "C" int cfd_quad_channel_carry(const float* us, const float* vs, const float* p,
                                       const float* p_prev, float* u_scr, float* v_scr,
                                       float* us2, float* vs2, float* b, float* guess,
                                       float* partials, float* sum_b, int Hq8, int Wqa,
                                       int ny, int nx, float cu, float cv, float uin,
                                       float dt, float nu, float idx, float idy,
-                                      float idx2, float idy2, float rho_dt, void* stream) {
-  Corr c{Hq8, Wqa, ny, nx, cu, cv, uin};
-  Pred pc{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt};
+                                      float idx2, float idy2, float rho_dt, int row_base,
+                                      int halo, void* stream) {
+  Corr c{Hq8, Wqa, ny, nx, cu, cv, uin, row_base};
+  Pred pc{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt, 0.f, row_base};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (halo > 0) {
+    return static_cast<int>(channel_carry<false, true>(us, vs, p, p_prev, u_scr, v_scr, us2,
+                                                       vs2, b, guess, partials, sum_b, nullptr,
+                                                       nullptr, c, pc, halo, s));
+  }
   return static_cast<int>(channel_carry<false>(us, vs, p, p_prev, u_scr, v_scr, us2, vs2, b,
                                                 guess, partials, sum_b, nullptr, nullptr, c,
-                                                pc, static_cast<cudaStream_t>(stream)));
+                                                pc, 0, s));
 }
 
 // The non-carry channel stage (quad.py:847): the predictor on (u, v) as
@@ -354,7 +379,7 @@ extern "C" int cfd_quad_channel_predictor_source(const float* u, const float* v,
   const int blocks = cfd::blocks_for(4LL * Hq8 * Wqa);
   Pred pc{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt};
   channel_predictor_source_kernel<false><<<blocks, cfd::kThreads, 0, s>>>(
-      u, v, us2, vs2, b, partials, pc, uin, nullptr);
+      u, v, us2, vs2, b, partials, pc, uin, nullptr, 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cfd::fold_partials(partials, blocks, sum_b, s));
@@ -374,7 +399,8 @@ extern "C" int cfd_quad_channel_carry_adaptive(
   Corr c{Hq8, Wqa, ny, nx, cu_f, cv_f, uin};
   Pred pc{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho};
   return static_cast<int>(channel_carry<true>(us, vs, p, p_prev, u_scr, v_scr, us2, vs2, b,
-                                               guess, partials, sum_b, courant, dts, c, pc, s));
+                                               guess, partials, sum_b, courant, dts, c, pc, 0,
+                                               s));
 }
 
 extern "C" const char* cfd_error_string(int err) {

@@ -6,9 +6,9 @@ adaptive-stepping instances, their whole time steps in one launch, the
 fused coarse tail, the bfloat16 and corr_opt instances of the whole-solve
 and the whole step, the natural layout's stage kernels, fused-residual
 pairs and exact masked pairs, the cavity carry with the first pre-smooth
-folded in, the channel's non-carry stage, and the cavity's carry, pre and
-post on one shard's local block of a plane-row mesh), each with its launch
-counter (kernels._build.Kernel)."""
+folded in, the channel's non-carry stage, the cavity's carry, pre and post
+and the channel's and RB's carries on one shard's local block of a
+plane-row mesh), each with its launch counter (kernels._build.Kernel)."""
 
 from cfd_tpu_torch.kernels.mg_tail import MG_TAIL, MG_TAIL_FULL
 from cfd_tpu_torch.kernels.projection import (
@@ -32,6 +32,7 @@ from cfd_tpu_torch.kernels.quad import (
     PRE,
     PREDICTOR_SOURCE,
     SHARD_CARRY,
+    SHARD_CHANNEL_CARRY,
     SHARD_POST,
     SHARD_PRE,
 )
@@ -40,6 +41,7 @@ from cfd_tpu_torch.kernels.rb_quad import (
     RB_CARRY_ADAPTIVE,
     RB_CORRECTOR,
     RB_CORRECTOR_TRACED,
+    SHARD_RB_CARRY,
 )
 from cfd_tpu_torch.kernels.rb_smoother import RB_PAIRS, RB_PAIRS_FULL, RB_PAIRS_RES
 from cfd_tpu_torch.kernels.step_quad import (
@@ -84,6 +86,6 @@ KERNELS = (CARRY, CORRECTOR, PRE, POST, RB_PAIRS, CHANNEL_CARRY, CHANNEL_CORRECT
            STEP_WHOLE_SOLVE_CORR_OPT, WHOLE_STEP_STEP_CORR_OPT, NATURAL_PREDICTOR_SOURCE,
            NATURAL_CORRECTOR, NATURAL_CHANNEL_PREDICTOR_SOURCE, NATURAL_CHANNEL_CORRECTOR,
            RB_PAIRS_RES, STEP_PAIRS, STEP_PAIRS_RES, FUSED_PRE, CHANNEL_PREDICTOR_SOURCE,
-           SHARD_CARRY, SHARD_PRE, SHARD_POST)
+           SHARD_CARRY, SHARD_PRE, SHARD_POST, SHARD_CHANNEL_CARRY, SHARD_RB_CARRY)
 
 __all__ = ["KERNELS"]

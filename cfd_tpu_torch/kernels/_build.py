@@ -55,7 +55,8 @@ SIGNATURES = {
     "cfd_quad_post_prolong_smooth": [_P] * 9 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
     "cfd_rb_pairs": [_I] + [_P] * 10 + [_I] * 4 + [_F] * 3 + [_I, _P],
     "cfd_quad_channel_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
-    "cfd_quad_channel_carry": [_P] * 12 + [_I] * 4 + [_F] * 10 + [_P],
+    # the channel's and RB's carries: the last two ints as the cavity's
+    "cfd_quad_channel_carry": [_P] * 12 + [_I] * 4 + [_F] * 10 + [_I, _I, _P],
     "cfd_whole_solve": ([_I] + [_P] * 14 + [_I] * 6 + [_F] * 4 + [_I] + [_P] * 3 + [_F]
                         + [_I] * 3 + [_F] * 3 + [_I, _P, _F] + [_I, _I, _P] + [_P]),
     "cfd_whole_solve_grid": [_I] + [_P] * 3,
@@ -73,7 +74,7 @@ SIGNATURES = {
     "cfd_step_post_prolong_smooth": [_P] * 6 + [_I] * 6 + [_F] * 5 + [_I, _P],
     "cfd_rb_pairs_full": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I, _P],
     "cfd_rb_corrector": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_P],
-    "cfd_rb_carry": [_P] * 14 + [_I] * 4 + [_F] * 13 + [_P],
+    "cfd_rb_carry": [_P] * 14 + [_I] * 4 + [_F] * 13 + [_I, _I, _P],
     # adaptive stepping: the traced-dt correctors, the traced-dt cavity
     # predictor+source, the traced-dt + Courant carries
     "cfd_quad_corrector_traced": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],

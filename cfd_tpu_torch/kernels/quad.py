@@ -84,6 +84,9 @@ SHARD_PRE = Kernel("quad_pre_smooth_restrict_shard", "cfd_quad_pre_smooth_restri
                    "cfd_tpu_torch/csrc/quad_vcycle.cu", "cfd_tpu/kernels/quad.py:630 (shard=)")
 SHARD_POST = Kernel("quad_post_prolong_smooth_shard", "cfd_quad_post_prolong_smooth",
                     "cfd_tpu_torch/csrc/quad_vcycle.cu", "cfd_tpu/kernels/quad.py:700 (shard=)")
+SHARD_CHANNEL_CARRY = Kernel("quad_channel_corr_predictor_source_shard",
+                             "cfd_quad_channel_carry", "cfd_tpu_torch/csrc/quad_stage.cu",
+                             "cfd_tpu/kernels/quad.py:1126 (shard=)")
 
 # threads per block of the stage kernels (cfd::kThreads): the block size of
 # the fixed-order source sum
@@ -598,7 +601,7 @@ class QuadChannelCorrPredictorSource(QuadChannelCorrector):
         CHANNEL_CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr), ptr(v_scr),
                       ptr(us2), ptr(vs2), ptr(b), ptr(guess), ptr(partials), ptr(sum_b),
                       Hq8, Wqa, self.ny, self.nx, self.cu, self.cv, self.uin, c.dt,
-                      c.viscosity, c.idx, c.idy, c.idx2, c.idy2, self.rho_dt)
+                      c.viscosity, c.idx, c.idy, c.idx2, c.idy2, self.rho_dt, 0, 0)
         return us2, vs2, b, guess, sum_b
 
 
@@ -864,9 +867,17 @@ def make_quad_channel_predictor_source(shape, coeffs, inlet_velocity: float = 1.
 
 
 def make_quad_channel_corr_predictor_source(shape, coeffs, inlet_velocity: float = 1.0,
-                                            adaptive: bool = False
+                                            adaptive: bool = False,
+                                            shard: tuple[int, int] | None = None
                                             ) -> QuadChannelCorrPredictorSource:
-    """``adaptive``: the traced_dt + emit_courant instance."""
+    """``adaptive``: the traced_dt + emit_courant instance. ``shard=(P,
+    mdy)``: the kernel of one shard's local block
+    (QuadChannelCorrPredictorSourceShard)."""
+    if shard is not None:
+        if adaptive:
+            raise NotImplementedError("the sharded traced-dt + Courant channel carry is not "
+                                      "ported yet (ROADMAP.md queue A item A.12d)")
+        return QuadChannelCorrPredictorSourceShard(shape, coeffs, inlet_velocity, shard)
     if adaptive:
         return QuadChannelCorrPredictorSourceAdaptive(shape, coeffs, inlet_velocity)
     return QuadChannelCorrPredictorSource(shape, coeffs, inlet_velocity)
@@ -1040,6 +1051,16 @@ def _block_rows(H: int, pad: int, device) -> torch.Tensor:
     return (lr >= 0) & (lr < H)
 
 
+def own_row_sum(b: torch.Tensor, P: int) -> torch.Tensor:
+    """A local block's partial of the source sum: fixed_order_sum of b on
+    its own rows (local rows DEV_HALO ... DEV_HALO + P - 1) with zeros
+    elsewhere, the order the shard kernels' partials fold in (the
+    reference's scalar_reduce="sum" under shard, quad.py:310-316)."""
+    rows = torch.arange(b.shape[-2], device=b.device)[:, None]
+    own = (rows >= DEV_HALO) & (rows < DEV_HALO + P)
+    return fixed_order_sum(torch.where(own, b, torch.zeros_like(b)))
+
+
 def _band_maker(row_base: int, H: int, ny: int, device, pad: int = 0):
     """The TPU kernels' valid band (cfd_tpu/kernels/quad.py:611-627) with
     the slab = the local block of H plane rows at ``row_base``: band(lo) is
@@ -1113,6 +1134,66 @@ class QuadCorrPredictorSourceShard(QuadCorrPredictorSource):
                         c.viscosity, c.idx, c.idy, c.idx2, c.idy2, self.rho_dt,
                         int(row_base), DEV_HALO)
         return us2, vs2, b, guess, max_b
+
+
+class QuadChannelCorrPredictorSourceShard(QuadChannelCorrPredictorSource):
+    """The channel carry on one shard's local block (row 16d,
+    cfd_tpu/kernels/quad.py:1126 with shard=(P, mdy)): (row_base, us, vs, p,
+    p_prev) -> (us', vs', b', guess, sum_own) on (4, P + 16, Wqa) blocks,
+    with row_base the global plane row of local row 0 (so the inlet and
+    outlet columns and the wall rows test the global row) and sum_own the
+    own rows' sum of b (own_row_sum): the shard's partial, which the caller
+    adds over the shards (parallel.halo.global_sum).
+
+    The twin is the single-device twin on the block padded with DEV_HALO
+    zero rows either side, the corrected u, v zeroed on the padding: the
+    kernel (csrc/quad_stage.cu) reads 0 outside the block. The stages reach
+    5 rows (kChannelRadius there), so the own rows equal the single-device
+    carry's."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, inlet_velocity: float = 1.0,
+                 shard: tuple[int, int] = (8, 1)):
+        super().__init__(shape, coeffs, inlet_velocity)
+        P, _ = shard
+        if P % 8:
+            raise ValueError(f"shard rows must be a multiple of 8, got {P}")
+        self.P = P
+        self.qshape = (4, P + 2 * DEV_HALO, self.qshape[2])
+
+    def __call__(self, row_base: int, us, vs, p, p_prev):
+        _check(self.qshape, us, vs, p, p_prev)
+        if route(us, vs, p, p_prev) == "cuda":
+            return self.kernel(row_base, us, vs, p, p_prev)
+        return self.plain(row_base, us, vs, p, p_prev)
+
+    def plain(self, row_base, us, vs, p, p_prev):
+        z, H = DEV_HALO, self.qshape[1]
+        grow, gcol = _qiota(H + 2 * z, self.qshape[2], us.device, row_base - z)
+        u, v, guess = self._corrected(*(_pad_rows(t, z) for t in (us, vs, p, p_prev)),
+                                      grow, gcol)
+        block = _block_rows(H, z, us.device)
+        u = [torch.where(block, a, torch.zeros_like(a)) for a in u]
+        v = [torch.where(block, a, torch.zeros_like(a)) for a in v]
+        us2, vs2, b = _predictor_source_quad(u, v, self.coeffs, grow, gcol, self.ny, self.nx,
+                                             bc=self._bc(grow, gcol))
+        b = _crop_rows(b, z)
+        return (_crop_rows(us2, z), _crop_rows(vs2, z), b,
+                _crop_rows(torch.stack(guess), z), own_row_sum(b, self.P))
+
+    def kernel(self, row_base, us, vs, p, p_prev):
+        u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
+        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
+                               device=us.device)
+        sum_b = torch.empty((), dtype=torch.float32, device=us.device)
+        _, H, Wqa = self.qshape
+        c = self.coeffs
+        with torch.cuda.device(us.device):  # the shards may lie on several cards
+            SHARD_CHANNEL_CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr),
+                                ptr(v_scr), ptr(us2), ptr(vs2), ptr(b), ptr(guess),
+                                ptr(partials), ptr(sum_b), H, Wqa, self.ny, self.nx, self.cu,
+                                self.cv, self.uin, c.dt, c.viscosity, c.idx, c.idy, c.idx2,
+                                c.idy2, self.rho_dt, int(row_base), DEV_HALO)
+        return us2, vs2, b, guess, sum_b
 
 
 class QuadPreSmoothRestrictShard(QuadPreSmoothRestrict):

@@ -27,8 +27,10 @@ PyTorch, any device), ``kernel`` (csrc/rb_stage.cu; CUDA tensors only) and
 kernels.quad's: the carry with ``traced_dt`` and ``emit_courant`` completes
 step n with dt_corr (the corrector AND the temperature transport) and
 advances step n+1 with dt_pred (the predictor, the buoyancy and the
-source); the corrector with ``traced_dt``. Not ported: ``shard``
-(ROADMAP.md queue B item 16).
+source); the corrector with ``traced_dt``. The carry with ``shard=(P,
+mdy)`` runs on one shard's local block of the plane-row mesh
+(QuadRBStepShard, parallel.quad_sharded); its traced-dt + Courant instance
+is not ported yet (ROADMAP.md queue A item A.12d).
 """
 
 from __future__ import annotations
@@ -39,9 +41,13 @@ import torch
 
 from cfd_tpu_torch.kernels._build import Kernel, ptr, route
 from cfd_tpu_torch.kernels.quad import (
+    DEV_HALO,
     SUM_BLOCK,
+    _block_rows,
     _check,
     _courant,
+    _crop_rows,
+    _pad_rows,
     _predictor_quad,
     _qiota,
     _qshift,
@@ -49,6 +55,7 @@ from cfd_tpu_torch.kernels.quad import (
     _valid_masks,
     _where4,
     fixed_order_sum,
+    own_row_sum,
     quad_shape,
     rho_over,
 )
@@ -65,6 +72,10 @@ RB_CORRECTOR_TRACED = Kernel("quad_rb_corrector_traced", "cfd_rb_corrector_trace
                              "cfd_tpu_torch/csrc/rb_stage.cu", "cfd_tpu/kernels/rb_quad.py:225")
 RB_CARRY_ADAPTIVE = Kernel("quad_rb_step_adaptive", "cfd_rb_carry_adaptive",
                            "cfd_tpu_torch/csrc/rb_stage.cu", "cfd_tpu/kernels/rb_quad.py:81")
+# the carry's entry point on one shard's local block (parallel.quad_sharded),
+# counted apart
+SHARD_RB_CARRY = Kernel("quad_rb_step_shard", "cfd_rb_carry", "cfd_tpu_torch/csrc/rb_stage.cu",
+                        "cfd_tpu/kernels/rb_quad.py:81 (shard=)")
 
 
 def _box_noslip_bc_quad(u, v, grow, gcol, ny: int, nx: int):
@@ -180,18 +191,27 @@ class QuadRBStep(QuadRBCorrector):
         return self.plain(*fields)
 
     def plain(self, us, vs, p, T, p_prev=None):
-        return self._stage(us, vs, p, T, p_prev)[:-2]
+        outs, _, _ = self._stage(us, vs, p, T, p_prev)
+        return (*outs, fixed_order_sum(outs[3]))
 
-    def _stage(self, us, vs, p, T, p_prev=None, cu=None, cv=None, dts=None):
-        """(us', vs', T', b[, guess], sum b, u2, v2): the stage with the
-        corrected fields u2, v2, at the host's coefficients or (``dts`` =
-        (dt_corr, dt_pred)) the traced ones."""
+    def _stage(self, us, vs, p, T, p_prev=None, cu=None, cv=None, dts=None, row0: int = 0,
+               block=None):
+        """([us', vs', T', b[, guess]], u2, v2): the stage with the corrected
+        fields u2, v2, at the host's coefficients or (``dts`` = (dt_corr,
+        dt_pred)) the traced ones. ``row0``: the global plane row of the
+        arrays' row 0; ``block``: the (rows, 1) mask of a local block's rows
+        in padded arrays, outside which u2, v2 and T' are zeroed, as the
+        kernel's scratch reads 0 there."""
         c = self.coeffs
         ny, nx = self.ny, self.nx
         dt_corr, dt_pred = (c.dt, None) if dts is None else (dts[0], dts[1])
         buoy = self.buoy if dts is None else dt_pred * 0.5
-        grow, gcol, (u_valid, v_valid, cell) = self._geometry(us.device)
+        grow, gcol = _qiota(us.shape[1], us.shape[2], us.device, row0)
+        u_valid, v_valid, cell = _valid_masks(grow, gcol, ny, nx)
         u2, v2 = self._corrected(us, vs, p, grow, gcol, u_valid, v_valid, cu, cv)
+        blank = (lambda a: a) if block is None else (
+            lambda a: [torch.where(block, x, torch.zeros_like(x)) for x in a])
+        u2, v2 = blank(u2), blank(v2)
 
         T = list(T)
         TE, TW = _qshift(T, 0, 1), _qshift(T, 0, -1)
@@ -205,7 +225,7 @@ class QuadRBStep(QuadRBCorrector):
             lap = ((TE[q] - 2.0 * T[q] + TW[q]) * c.idx2
                    + (TN[q] - 2.0 * T[q] + TS[q]) * c.idy2)
             T2.append(torch.where(cell[q], T[q] + dt_corr * (self.kappa * lap - adv), T[q]))
-        T2 = _temperature_bc_quad(T2, grow, gcol, ny, nx, self.t_bottom, self.t_top)
+        T2 = blank(_temperature_bc_quad(T2, grow, gcol, ny, nx, self.t_bottom, self.t_top))
 
         us_raw, vs_raw = _predictor_quad(u2, v2, c, dt_pred)
         T2N = _qshift(T2, 1, 0)
@@ -224,7 +244,7 @@ class QuadRBStep(QuadRBCorrector):
         outs = [torch.stack(us2), torch.stack(vs2), torch.stack(T2), b]
         if p_prev is not None:
             outs.append(2.0 * p - p_prev)
-        return (*outs, fixed_order_sum(b), torch.stack(u2), torch.stack(v2))
+        return outs, torch.stack(u2), torch.stack(v2)
 
     def kernel(self, us, vs, p, T, p_prev=None):
         u_scr, v_scr, us2, vs2, T2, b = (torch.empty_like(us) for _ in range(6))
@@ -238,9 +258,62 @@ class QuadRBStep(QuadRBCorrector):
                  ptr(us2), ptr(vs2), ptr(T2), ptr(b), opt(guess), ptr(partials), ptr(sum_b),
                  *self._ints(), self.cu, self.cv, c.dt, c.viscosity, c.idx, c.idy, c.idx2,
                  c.idy2, self.rho_dt, self.kappa, 2.0 * self.t_bottom, 2.0 * self.t_top,
-                 self.buoy)
+                 self.buoy, 0, 0)
         outs = [us2, vs2, T2, b] + ([guess] if self.emit_guess else [])
         return (*outs, sum_b)
+
+
+class QuadRBStepShard(QuadRBStep):
+    """The RB carry on one shard's local block (row 16e,
+    cfd_tpu/kernels/rb_quad.py:81 with shard=(P, mdy)): (row_base, us, vs, p,
+    T) -> (us', vs', T', b, sum_own) on (4, P + 16, Wqa) blocks. row_base =
+    jy * P - 8 is the global plane row of local row 0, so the T ghost rows
+    (global j = 0 and ny + 1) and the walls stay global; sum_own is the own
+    rows' sum of b (own_row_sum), the shard's partial. No warm-start guess:
+    the sharded RB solves from p (cfd_tpu/parallel/quad_sharded.py:861-864).
+
+    The twin is the single-device stage on the block padded with DEV_HALO
+    zero rows either side, with the corrected u2, v2 and T' zeroed on the
+    padding: the kernel (csrc/rb_stage.cu) holds them on the block only and
+    reads 0 outside it. The stages reach 7 rows (kRBRadius there), so the own
+    rows equal the single-device carry's."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, kappa: float, params: RBParams,
+                 shard: tuple[int, int] = (8, 1)):
+        super().__init__(shape, coeffs, kappa, params)
+        P, _ = shard
+        if P % 8:
+            raise ValueError(f"shard rows must be a multiple of 8, got {P}")
+        self.P = P
+        self.qshape = (4, P + 2 * DEV_HALO, self.qshape[2])
+
+    def __call__(self, row_base: int, us, vs, p, T):
+        _check(self.qshape, us, vs, p, T)
+        if route(us, vs, p, T) == "cuda":
+            return self.kernel(row_base, us, vs, p, T)
+        return self.plain(row_base, us, vs, p, T)
+
+    def plain(self, row_base, us, vs, p, T):
+        z, H = DEV_HALO, self.qshape[1]
+        outs, _, _ = self._stage(*(_pad_rows(t, z) for t in (us, vs, p, T)), row0=row_base - z,
+                                 block=_block_rows(H, z, us.device))
+        us2, vs2, T2, b = (_crop_rows(a, z) for a in outs)
+        return us2, vs2, T2, b, own_row_sum(b, self.P)
+
+    def kernel(self, row_base, us, vs, p, T):
+        u_scr, v_scr, us2, vs2, T2, b = (torch.empty_like(us) for _ in range(6))
+        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
+                               device=us.device)
+        sum_b = torch.empty((), dtype=torch.float32, device=us.device)
+        c = self.coeffs
+        with torch.cuda.device(us.device):  # the shards may lie on several cards
+            SHARD_RB_CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(T), None, ptr(u_scr), ptr(v_scr),
+                           ptr(us2), ptr(vs2), ptr(T2), ptr(b), None, ptr(partials),
+                           ptr(sum_b), *self._ints(), self.cu, self.cv, c.dt, c.viscosity,
+                           c.idx, c.idy, c.idx2, c.idy2, self.rho_dt, self.kappa,
+                           2.0 * self.t_bottom, 2.0 * self.t_top, self.buoy, int(row_base),
+                           DEV_HALO)
+        return us2, vs2, T2, b, sum_b
 
 
 class QuadRBCorrectorTraced(_Traced, QuadRBCorrector):
@@ -281,8 +354,8 @@ class QuadRBStepAdaptive(_Traced, QuadRBStep):
         self.cu_f, self.cv_f = self._factors(coeffs)
 
     def plain(self, dts, us, vs, p, T):
-        *outs, u2, v2 = self._stage(us, vs, p, T, None, *self._coeffs_at(dts[0]), dts=dts)
-        return (*outs, *_courant(u2, v2))
+        outs, u2, v2 = self._stage(us, vs, p, T, None, *self._coeffs_at(dts[0]), dts=dts)
+        return (*outs, fixed_order_sum(outs[3]), *_courant(u2, v2))
 
     def kernel(self, dts, us, vs, p, T):
         u_scr, v_scr, us2, vs2, T2, b = (torch.empty_like(us) for _ in range(6))
@@ -299,8 +372,19 @@ class QuadRBStepAdaptive(_Traced, QuadRBStep):
 
 
 def make_quad_rb_step_kernel(shape, coeffs, kappa: float, params: RBParams,
-                             emit_guess: bool = False, adaptive: bool = False) -> QuadRBStep:
-    """``adaptive``: the traced_dt + emit_courant instance (no guess)."""
+                             emit_guess: bool = False, adaptive: bool = False,
+                             shard: tuple[int, int] | None = None) -> QuadRBStep:
+    """``adaptive``: the traced_dt + emit_courant instance (no guess).
+    ``shard=(P, mdy)``: the carry of one shard's local block
+    (QuadRBStepShard; no guess)."""
+    if shard is not None:
+        if adaptive:
+            raise NotImplementedError("the sharded traced-dt + Courant RB carry is not "
+                                      "ported yet (ROADMAP.md queue A item A.12d)")
+        if emit_guess:
+            raise ValueError("the sharded RB carry takes no p_prev (emit_guess): the "
+                             "sharded RB step solves from p")
+        return QuadRBStepShard(shape, coeffs, kappa, params, shard)
     if adaptive:
         if emit_guess:
             raise ValueError("the adaptive RB carry takes no p_prev (emit_guess)")

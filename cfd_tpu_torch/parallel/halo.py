@@ -1,9 +1,12 @@
 """Reductions over the shards of a single-controller mesh (the port of
 cfd_tpu.parallel.halo's global_max and global_sum). Each shard's 0-d
 partial is moved to shard 0's device and reduced there, on the card, with
-no host read. ``exchange_halos`` (the XLA paths' one-cell exchange) is not
-ported yet (ROADMAP.md queue A item A.12); the quad path's 8-row refresh is
-parallel.quad_sharded._refresh."""
+no host read. Callers (parallel.quad_sharded): global_max for max|b| and
+the V-cycle residual; global_sum for the channel's and Rayleigh-Benard's
+source mean (the carries' own-row sums) and RB's per-cycle mean pin (the
+own-row sums of p). ``exchange_halos`` (the XLA paths' one-cell exchange)
+is not ported yet (ROADMAP.md queue A item A.12); the quad path's 8-row
+refresh is parallel.quad_sharded._refresh."""
 
 from __future__ import annotations
 

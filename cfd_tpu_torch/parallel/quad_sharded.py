@@ -1,5 +1,6 @@
-"""The cavity's quad path on a plane-row mesh (the port of
-cfd_tpu.parallel.quad_sharded, the cavity flavor).
+"""The quad path of the cavity, the channel and Rayleigh-Benard on a
+plane-row mesh (the port of cfd_tpu.parallel.quad_sharded; the step flavor
+is not ported yet).
 
 Decomposition (cfd_tpu/parallel/quad_sharded.py:1-33): 1-D over the quad
 PLANE ROWS (kernels.quad.quad_shard_dims). Shard jy owns P plane rows (P a
@@ -7,8 +8,9 @@ multiple of 8) and carries them as a local (4, P + 16, Wqa) block between
 two DEV_HALO-row strips, refreshed from its neighbours between kernel
 calls; the kernels take row_base = jy * P - DEV_HALO, the global plane row
 of local row 0, so their masks, bands and weight vectors keep their global
-meaning (kernels.quad *Shard: the single-device kernels' entry points in
-csrc/quad_stage.cu and csrc/quad_vcycle.cu, told the block's row_base and
+meaning (kernels.quad *Shard and kernels.rb_quad QuadRBStepShard: the
+single-device kernels' entry points in csrc/quad_stage.cu,
+csrc/quad_vcycle.cu and csrc/rb_stage.cu, told the block's row_base and
 halo). The 8-row halo is the TPU kernels' slab halo, so the band
 bookkeeping that absorbs slab-edge staleness absorbs shard-edge staleness.
 
@@ -16,7 +18,9 @@ The mesh is single-controller (parallel.mesh): one process drives every
 shard. The halo refresh copies the 8-row strips between neighbouring
 shards' tensors (a device copy when they share a card) and fills zeros at
 the outer edges, as the reference's ppermute does; the reductions take each
-shard's 0-d partial to shard 0's device (parallel.halo).
+shard's 0-d partial to shard 0's device (parallel.halo): the source mean of
+the channel and RB from the carries' own-row sums, and RB's per-cycle mean
+pin from the own-row sums of p, each added in shard order (global_sum).
 
 A V-cycle: the finest level's pre and post kernels on every shard; level 1
 as torch glue on the local blocks with the reference's band bookkeeping
@@ -34,12 +38,19 @@ tolerance_loop, one host read of the residual a cycle).
 
 Every shard's own rows then equal the single-device per-kernel solve's
 with the float32 coarse hierarchy, bit for bit where the two run the same
-float32 operations (tests/test_torch_quad_sharded.py).
+float32 operations: the cavity (tests/test_torch_quad_sharded.py). The
+channel's and RB's source sums, and RB's pin, add per-shard partials, a
+different float32 order from the single-device sum: those runs equal the
+single-device path with its sums taken in the shards' order
+(chip_smoke.shard_order_case) and hold to the reference's bands of the
+plain one over the reference test's steps
+(tests/test_torch_quad_sharded_flavors.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -48,16 +59,20 @@ from cfd_tpu_torch.kernels.mg_tail import MGTail, _prolong, _restrict, run_tail_
 from cfd_tpu_torch.kernels.quad import (
     DEV_HALO,
     from_quad,
+    make_quad_channel_corr_predictor_source,
+    make_quad_channel_corrector,
     make_quad_corr_predictor_source,
     make_quad_corrector,
     make_quad_post_prolong_smooth,
     make_quad_pre_smooth_restrict,
+    own_row_sum,
     quad_dims,
     quad_shard_dims,
     to_quad,
     uncorrect_quad,
 )
-from cfd_tpu_torch.parallel.halo import global_max
+from cfd_tpu_torch.kernels.rb_quad import make_quad_rb_step_kernel
+from cfd_tpu_torch.parallel.halo import global_max, global_sum
 from cfd_tpu_torch.poisson import multigrid as M
 from cfd_tpu_torch.state import State
 
@@ -85,6 +100,27 @@ def _refresh(xs: list, P: int) -> list:
     return xs
 
 
+@functools.lru_cache(maxsize=64)
+def _local_cells(shape: tuple, rb: int, ny: int, nx: int, device) -> torch.Tensor:
+    """The interior cells of a local (4, rows, W) quad block at global plane
+    row rb, by global index: jj = 2 (rb + local row) + (q >> 1), ii = 2 col
+    + (q & 1) in 1..ny, 1..nx."""
+    q = torch.arange(4, device=device)[:, None, None]
+    rows = torch.arange(shape[1], device=device)[None, :, None]
+    cols = torch.arange(shape[2], device=device)[None, None, :]
+    jj = 2 * (rb + rows) + (q >> 1)
+    ii = 2 * cols + (q & 1)
+    return (jj >= 1) & (jj <= ny) & (ii >= 1) & (ii <= nx)
+
+
+def _sub_mean_local(b: torch.Tensor, mean: torch.Tensor, rb: int, ny: int, nx: int):
+    """b - mean on the globally indexed interior cells of a local quad block
+    (cfd_tpu/parallel/quad_sharded.py:154-171): halo rows get the treatment
+    of their owning shard, so they stay consistent with no extra refresh,
+    and the outer shards' dead rows fall outside 1..ny."""
+    return torch.where(_local_cells(tuple(b.shape), int(rb), ny, nx, b.device), b - mean, b)
+
+
 def _row_vec_global(w_full: np.ndarray, ny: int, length: int) -> np.ndarray:
     """(length, 1) globally indexed row vector with a DEV_HALO zero prefix:
     v[DEV_HALO + g] = w_full[g, 1] for rows g in 1..ny, 0 elsewhere (:144)."""
@@ -95,15 +131,22 @@ def _row_vec_global(w_full: np.ndarray, ny: int, length: int) -> np.ndarray:
 
 class ShardedQuadSolve:
     """``solve(guess, b, max_b) -> (p, cycles, res)`` over a mesh's shards
-    (cfd_tpu/parallel/quad_sharded.py make_sharded_quad_solve, :174-401, the
-    cavity's: no mean pin). ``guess`` and ``b`` are lists of the shards'
-    local (4, P + 16, Wqa) blocks with fresh halos, ``max_b`` the global
-    max|b| (a 0-d tensor); p comes back with fresh halos, cycles an int and
-    res the global max|b - A p| as a host float. ``cfg.pin_mean`` is not
-    read: the reference's builder takes the pin as its own argument, which
-    only Rayleigh-Benard passes (ROADMAP.md queue A item A.12b)."""
+    (cfd_tpu/parallel/quad_sharded.py make_sharded_quad_solve, :174-401).
+    ``guess`` and ``b`` are lists of the shards' local (4, P + 16, Wqa)
+    blocks with fresh halos, ``max_b`` the global max|b| (a 0-d tensor); p
+    comes back with fresh halos, cycles an int and res the global max|b -
+    A p| as a host float.
 
-    def __init__(self, problem: M.PoissonProblem, cfg: M.MGConfig, shape, devices):
+    ``pin_mean`` (the reference's builder argument, which only
+    Rayleigh-Benard passes; ``cfg.pin_mean`` is not read): after each
+    cycle's post-smooth and refresh, p - mean on the globally indexed
+    interior cells, the mean being the sum of every shard's own rows (all
+    four planes and every column, ghost cells included, :367-369, :391-392;
+    own_row_sum's fixed order on each shard) added in shard order and
+    divided by nx * ny. ``res`` is the post kernel's, taken before the pin."""
+
+    def __init__(self, problem: M.PoissonProblem, cfg: M.MGConfig, shape, devices,
+                 pin_mean: bool = False):
         if cfg.whole_solve or cfg.whole_step:
             raise ValueError("whole_solve/whole_step are single-device only (the sharded "
                              "path fuses the coarse tail via tail_from instead)")
@@ -149,6 +192,10 @@ class ShardedQuadSolve:
                                    self.mg.pinv)
         self._l1 = [self._l1_geom(jy, probs[1], levels[1], d)
                     for jy, d in enumerate(self.devices)]
+        self.pin_mean = pin_mean
+        self.ny, self.nx = problem.ny, problem.nx
+        self._n_int = torch.tensor(float(problem.nx * problem.ny), dtype=torch.float32,
+                                   device=dev0)
 
     def _l1_geom(self, jy: int, p1: M.PoissonProblem, L1, device) -> dict:
         """The level-1 constants of shard jy's local (P + 16, W) block: the
@@ -245,38 +292,52 @@ class ShardedQuadSolve:
         ec = _refresh(self.level1(rc), P)
         outs = [post(r, x, y, e) for post, r, x, y, e in zip(self.post, rb, p, b, ec,
                                                              strict=True)]
-        return _refresh([o[0] for o in outs], P), global_max([o[1] for o in outs])
+        p = _refresh([o[0] for o in outs], P)
+        res = global_max([o[1] for o in outs])
+        if self.pin_mean:
+            mean = global_sum([own_row_sum(x, P) for x in p]) / self._n_int
+            p = [_sub_mean_local(x, mean.to(x.device), r, self.ny, self.nx)
+                 for x, r in zip(p, rb, strict=True)]
+        return p, res
 
     def __call__(self, guess: list, b: list, max_b: torch.Tensor):
         return M.tolerance_loop(guess, b, max_b, self.cfg, self.cycle)
 
 
 def make_sharded_quad_solve(problem: M.PoissonProblem, cfg: M.MGConfig, shape,
-                            mesh) -> ShardedQuadSolve:
+                            mesh, pin_mean: bool = False) -> ShardedQuadSolve:
     """The sharded quad solve over ``mesh``'s shards (ShardedQuadSolve)."""
-    return ShardedQuadSolve(problem, cfg, shape, mesh.devices)
+    return ShardedQuadSolve(problem, cfg, shape, mesh.devices, pin_mean)
 
 
 class ShardedQuadProjection:
-    """The cavity on the sharded quad path over a plane-row mesh
-    (cfd_tpu/parallel/quad_sharded.py:699-1300, the cavity flavor).
+    """The cavity, the channel and Rayleigh-Benard on the sharded quad path
+    over a plane-row mesh (cfd_tpu/parallel/quad_sharded.py:699-1300).
 
-    State: the tentative carry (us*, vs*, p, p_prev) as a tuple of four
-    lists, each holding the shards' local (4, P + 16, Wqa) blocks on their
-    devices. ``step`` runs one step on every shard: the carry kernel, the
-    refresh of its outputs, max|b| over the shards, the sharded solve.
-    ``logical`` gathers the own rows and applies the corrector at print
-    cadence.
+    State: the carry as a tuple of four lists, each holding the shards'
+    local (4, P + 16, Wqa) blocks on their devices: (us*, vs*, p, p_prev)
+    for the cavity and the channel, (us*, vs*, p, T) for RB (whatever the
+    case's extrapolate_warm_start, as the reference's). ``step`` runs one
+    step on every shard (:896-928): the flavor's carry kernel, the refresh
+    of its four outputs, and the sharded solve. The cavity takes max|b| from
+    the carry's own-row partials and solves from the guess; the channel and
+    RB first remove the source mean, the shards' own-row sums added in shard
+    order over the fluid cell count, on the globally indexed cells
+    (_sub_mean_local), and take max|b| after it; the channel solves from the
+    guess, RB from p with the per-cycle mean pin. ``logical`` gathers the
+    own rows at print cadence and applies the flavor's corrector (RB: the
+    case's unalign_state).
 
-    The solve's config is the reference's, not the case's: V(2,1) with
-    ``tol_factor`` (1e-9 when none is given, :822-823) and abs_tol 0, then
-    ``mg_overrides``. coarse_dtype and corr_opt raise its ValueErrors (they
-    are single-device knobs), and so does a V(pre, post) whose level-1 solve
-    needs more than the 8-row halo. A 1-shard mesh delegates every entry
-    point to the case's own single-device step (the same program a meshless
+    The solve's config is the reference's, not the case's: V(2,1), V(1,2)
+    for the channel (:814-821), with ``tol_factor`` (1e-9 when none is
+    given, :822-823) and abs_tol 0, then ``mg_overrides``. coarse_dtype and
+    corr_opt raise its ValueErrors (they are single-device knobs), and so
+    does a V(pre, post) whose level-1 solve needs more than the 8-row halo.
+    A 1-shard mesh delegates every entry point to the case's own
+    single-device engine (solver.CaseEngine: the same program a meshless
     run executes) unless ``force_sharded_path``, ``tol_factor`` or
-    ``mg_overrides`` is given (:790-806). The channel, RB and the step are
-    not ported yet (ROADMAP.md queue A items A.12b, A.12c)."""
+    ``mg_overrides`` is given (:790-806). The step flavor is not ported yet
+    (ROADMAP.md queue A item A.12c)."""
 
     # the mesh size the reference validated and modelled (:740-748)
     MAX_VALIDATED_MESH = 16
@@ -289,18 +350,17 @@ class ShardedQuadProjection:
         if flavor not in ("cavity", "channel", "rayleigh_benard", "backwards_step"):
             raise ValueError("ShardedQuadProjection covers the cavity, channel, "
                              "rayleigh_benard and backwards_step flavors")
-        if flavor != "cavity":
-            item = "A.12c" if flavor == "backwards_step" else "A.12b"
-            raise NotImplementedError(f"the sharded {flavor} flavor is not ported yet "
-                                      f"(ROADMAP.md queue A item {item})")
+        if flavor == "backwards_step":
+            raise NotImplementedError("the sharded backwards_step flavor is not ported yet "
+                                      "(ROADMAP.md queue A item A.12c)")
         if case.grid.has_solids:
             raise ValueError("masked geometry is supported only for the backwards_step "
                              "rectangle raster")
         if case.dtype != torch.float32:
             raise ValueError("the quad fast path is float32")
         if not case.carry_tentative:
-            raise ValueError("the sharded cavity needs the quad layout (layout='quad', "
-                             "f32 multigrid)")
+            raise ValueError(f"the sharded {flavor} flavor needs the quad layout "
+                             "(layout='quad', f32 multigrid)")
         self.flavor, self.case, self.mesh = flavor, case, mesh
         mdy = mesh.shape["dy"]
         if mdy > self.MAX_VALIDATED_MESH and not allow_unvalidated_mesh:
@@ -313,15 +373,19 @@ class ShardedQuadProjection:
         self.delegated = (mdy == 1 and not force_sharded_path and tol_factor is None
                           and not mg_overrides)
         if self.delegated:
-            from cfd_tpu_torch.solver import make_step
+            from cfd_tpu_torch.solver import CaseEngine
 
-            self._sd_step = make_step(case)
+            self._sd = CaseEngine(case)
             return
         self.devices = list(mesh.devices)
         self.Hq8s, self.P, self.W = quad_shard_dims(shape, mdy)
         self._Hq8 = quad_dims(shape)[2]
+        # V(1,2) for the channel: V(2,1) cannot contract an error mode of the
+        # 1536x512 channel problem, V(2,2)'s level-1 block (9 rows) would
+        # exceed the halo (:814-821)
+        pre, post = (1, 2) if flavor == "channel" else (2, 1)
         mg = M.MGConfig(tol_factor=1e-9 if tol_factor is None else tol_factor, abs_tol=0.0,
-                        pre_sweeps=2, post_sweeps=1)
+                        pre_sweeps=pre, post_sweeps=post)
         if mg_overrides:
             mg = dataclasses.replace(mg, **mg_overrides)
         if mg.coarse_dtype is not None:
@@ -339,13 +403,33 @@ class ShardedQuadProjection:
                 f"{2 * (mg.pre_sweeps + mg.post_sweeps) + 1} halo rows per level-1 solve "
                 f"> the {DEV_HALO}-row device halo")
         self.mg = mg
-        grid, coeffs = case.grid, case.coeffs
-        lid = (case.info or {}).get("lid_velocity", 1.0)
-        problem = M.cavity_problem(grid.nx, grid.ny, grid.dx, grid.dy)
-        self._carry = make_quad_corr_predictor_source(shape, coeffs, lid,
-                                                      shard=(self.P, mdy))
-        self._solve = make_sharded_quad_solve(problem, mg, shape, mesh)
-        self._corr = make_quad_corrector(shape, coeffs, lid)
+        grid, coeffs, info = case.grid, case.coeffs, case.info or {}
+        shard = (self.P, mdy)
+        args = (grid.nx, grid.ny, grid.dx, grid.dy)
+        if flavor == "cavity":
+            lid = info.get("lid_velocity", 1.0)
+            problem = M.cavity_problem(*args)
+            self._carry = make_quad_corr_predictor_source(shape, coeffs, lid, shard=shard)
+            self._corr = make_quad_corrector(shape, coeffs, lid)
+        elif flavor == "channel":
+            uin = info.get("inlet_velocity", 1.0)
+            problem = M.channel_problem(*args)
+            self._carry = make_quad_channel_corr_predictor_source(shape, coeffs, uin,
+                                                                  shard=shard)
+            self._corr = make_quad_channel_corrector(shape, coeffs, uin)
+        else:
+            from cfd_tpu_torch.physics.boussinesq import RBParams
+
+            problem = M.neumann_problem(*args)
+            params = RBParams(info["rayleigh"], info["prandtl"], info.get("t_bottom", 1.0),
+                              info.get("t_top", 0.0))
+            self._carry = make_quad_rb_step_kernel(shape, coeffs, info["kappa"], params,
+                                                   shard=shard)
+            self._corr = None  # case.unalign_state is RB's boundary
+        self._solve = make_sharded_quad_solve(problem, mg, shape, mesh,
+                                              pin_mean=flavor == "rayleigh_benard")
+        self._n_fluid = torch.tensor(float(grid.n_fluid), dtype=torch.float32,
+                                     device=self.devices[0])
         self._coeffs = coeffs
         self.n_carry = 4
 
@@ -369,50 +453,78 @@ class ShardedQuadProjection:
     # ---------------- entry points ----------------
 
     def initial_state(self):
-        """The tentative-carry initial state from the logical zero state with
-        the velocity BCs (:1035); delegated: the case's carry State."""
+        """The carried initial state (:1035-1048): the cavity and the channel
+        from the logical zero state with the velocity BCs, RB from the case's
+        seeded initial_state_fn (aligned); delegated: the case's own."""
         case = self.case
+        if self.delegated:
+            return self._sd.initial_state()
+        if self.flavor == "rayleigh_benard":
+            st = case.initial_state_fn()
+            return tuple(self._extend(a) for a in (st.u, st.v, st.p, st.T))
         s = State.zeros(self.shape, dtype=torch.float32, device=case.device)
         u, v = case.velocity_bc(s.u, s.v)
-        if self.delegated:
-            return case.align_state(State(u, v, s.p, s.T, s.p))
         return self.from_logical(State(u, v, s.p, s.T, None))
 
     def is_logical(self, state) -> bool:
         """Whether ``state`` is a logical padded-layout State; else it is
         this engine's carried state (Simulation's engine interface)."""
         if self.delegated:
-            return tuple(state.u.shape) == self.shape
+            return self._sd.is_logical(state)
         return isinstance(state, State)
 
     def from_logical(self, st: State):
-        """Logical padded-layout State -> the sharded tentative carry (the
-        inverse of ``logical``, :1050); delegated: the case's carry."""
+        """Logical padded-layout State -> the sharded carry (the inverse of
+        ``logical``, :1050-1079): RB through the case's align_state, the
+        cavity and the channel through uncorrect_quad in their form;
+        delegated: the case's carry."""
         if self.delegated:
-            if tuple(st.u.shape) == self.shape:
-                st = self.case.align_state(st)
-            return st
+            return self._sd.from_logical(st)
         if tuple(st.u.shape) != self.shape:
             raise ValueError(f"from_logical takes a logical {self.shape} State, got "
                              f"{tuple(st.u.shape)} fields")
-        us, vs = uncorrect_quad(st.u, st.v, st.p, self.shape, self._coeffs, cavity_form=True)
+        if self.flavor == "rayleigh_benard":
+            a = self.case.align_state(st)
+            return tuple(self._extend(x) for x in (a.u, a.v, a.p, a.T))
+        us, vs = uncorrect_quad(st.u, st.v, st.p, self.shape, self._coeffs,
+                                cavity_form=self.flavor == "cavity")
         p_prev = st.p if st.p_prev is None else st.p_prev
         return tuple(self._extend(to_quad(a, self.shape)) for a in (us, vs, st.p, p_prev))
 
+    def _remove_mean(self, b: list, partials: list) -> list:
+        """b - mean on every shard's interior cells, the mean being the
+        shards' own-row sums added in shard order over the fluid cells
+        (:905-906, :924-925)."""
+        mean = global_sum(partials) / self._n_fluid
+        g = self.case.grid
+        return [_sub_mean_local(x, mean.to(x.device), r, g.ny, g.nx)
+                for x, r in zip(b, self._solve.row_base, strict=True)]
+
     def step(self, state):
         """One step: (state, {"poisson_iters": int, "poisson_residual":
-        float}) (:1081, the cavity's step_local :919-928)."""
+        float}) (:1081, step_local :896-928)."""
         if self.delegated:
-            st, d = self._sd_step(state)
+            st, d = self._sd.step(state)
             return st, {"poisson_iters": d.poisson_iters,
                         "poisson_residual": d.poisson_residual}
-        us, vs, p, p_prev = state
+        us, vs, p, aux = state
         outs = [self._carry(rb, *a) for rb, a in
-                zip(self._solve.row_base, zip(us, vs, p, p_prev), strict=True)]
-        us2, vs2, b, guess = (_refresh([o[k] for o in outs], self.P) for k in range(4))
-        max_b = global_max([o[4] for o in outs])
-        p2, iters, res = self._solve(guess, b, max_b)
-        return (us2, vs2, p2, p), {"poisson_iters": iters, "poisson_residual": res}
+                zip(self._solve.row_base, zip(us, vs, p, aux), strict=True)]
+        us2, vs2, f2, f3 = (_refresh([o[k] for o in outs], self.P) for k in range(4))
+        parts = [o[4] for o in outs]
+        if self.flavor == "rayleigh_benard":  # f2, f3 = T', b
+            b = self._remove_mean(f3, parts)
+            p2, iters, res = self._solve(p, b, global_max([x.abs().amax() for x in b]))
+            new = (us2, vs2, p2, f2)
+        else:  # f2, f3 = b, guess
+            if self.flavor == "cavity":
+                b, max_b = f2, global_max(parts)
+            else:
+                b = self._remove_mean(f2, parts)
+                max_b = global_max([x.abs().amax() for x in b])
+            p2, iters, res = self._solve(f3, b, max_b)
+            new = (us2, vs2, p2, p)
+        return new, {"poisson_iters": iters, "poisson_residual": res}
 
     def run_chunk(self, state, n_steps: int):
         """``n_steps`` steps: (state, {"poisson_iters": [...],
@@ -433,12 +545,12 @@ class ShardedQuadProjection:
 
     def logical(self, state) -> State:
         """Gather the own rows and correct to the logical padded (ny+2,
-        nx+2) State (:1270); delegated: the case's unalign."""
+        nx+2) State (:1270-1295); delegated: the case's unalign."""
         if self.delegated:
-            if tuple(state.u.shape) != self.shape:
-                return self.case.unalign_state(state)
-            return state
+            return state if self._sd.is_logical(state) else self._sd.logical(state)
         us, vs, p, aux = (self._collapse(x)[:, : self._Hq8].contiguous() for x in state)
+        if self.flavor == "rayleigh_benard":
+            return self.case.unalign_state(State(us, vs, p, aux, None))
         u2, v2, _ = self._corr(us, vs, p, p)
         f = lambda a: from_quad(a, self.shape)
         return State(f(u2), f(v2), f(p), None, f(aux))

@@ -10,7 +10,8 @@ step goes on the card.
     python -m cfd_tpu_torch.profile_step --case cavity --layout aligned
     python -m cfd_tpu_torch.profile_step --case step --nx 512 --ny 30
     python -m cfd_tpu_torch.profile_step --fuse-pre --mg per-kernel
-    python -m cfd_tpu_torch.profile_step --mesh 4 [--mg tail_from=1]
+    python -m cfd_tpu_torch.profile_step --mesh 4 [--case cavity|channel|rb]
+                                         [--mg tail_from=1]
 
 Drives a main path on cuda through Simulation's step function: the cavity,
 make_cavity_case(n_interior=n, poisson="multigrid", dtype=float32,
@@ -32,10 +33,11 @@ the step at 512x30) take the natural layout by the auto rule. ``--fuse-pre``
 per-kernel`` or a manual knob such as ``tail_from=1``) the carry runs the
 first cycle's pre-smooth and restriction (kernels.quad
 QuadCorrPredictorSourceFusedPre); the whole-solve ignores it. ``--mesh N``
-(cavity) runs the sharded quad path on an N-shard plane-row mesh whose
-shards all live on the card (Simulation(mesh=make_mesh(N),
-sharded_kwargs={"tol_factor": 1e-6}); ``--mg`` overrides then go to the
-sharded solve's own config, parallel.quad_sharded).
+(cavity, channel, rb) runs the sharded quad path on an N-shard plane-row
+mesh whose shards all live on the card (Simulation(mesh=make_mesh(N),
+sharded_kwargs=...): tol_factor 1e-6 for the cavity and the channel, RB's
+own tolerances 1e-7 and 1e-10); ``--mg`` overrides then go to the sharded
+solve's own config, parallel.quad_sharded.
 The steps' V-cycle counts stay on the card until each window ends, as in
 Simulation.run, so no window reads the host between its steps. It runs
 three windows:
@@ -108,7 +110,8 @@ def summarize_trace(events: list[dict], names: set[str], n_steps: int,
                     wall_s: float) -> dict:
     """Per-step device numbers of one traced window from its chrome-trace
     events: busy µs (interval union), idle share of ``wall_s``, launches
-    of the port's kernels and of the rest, and device µs by kernel name."""
+    of the port's kernels and of the rest, and device µs by kernel name:
+    the twelve largest (``top``) and every port kernel (``port``)."""
     dev = [e for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
     by_name: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
     port = other = 0
@@ -135,6 +138,8 @@ def summarize_trace(events: list[dict], names: set[str], n_steps: int,
         other_ms_per_step=other_us / n_steps / 1e3,
         top=[dict(name=n, us_per_step=us / n_steps, launches_per_step=c / n_steps)
              for n, (us, c) in top[:12]],
+        port=[dict(name=n, us_per_step=us / n_steps, launches_per_step=c / n_steps)
+              for n, (us, c) in top if is_port_kernel(n, names)],
     )
 
 
@@ -176,6 +181,26 @@ def make_case(args):
     return case, describe(case, f"{args.case} {nx}x{ny}")
 
 
+def mesh_case(args):
+    """The case of ``--mesh`` on cuda, its name and its sharded solve's
+    kwargs (the module docstring)."""
+    from cfd_tpu_torch.cases import (make_cavity_case, make_channel_case,
+                                     make_rayleigh_benard_case)
+
+    if args.case == "cavity":
+        case = make_cavity_case(n_interior=args.n, poisson="multigrid", dtype=torch.float32,
+                                tolerance_factor=1e-6, device="cuda")
+        return case, f"cavity {args.n}^2", {"tol_factor": 1e-6}
+    nx, ny = args.nx or 1536, args.ny or 512
+    if args.case == "rb":
+        case = make_rayleigh_benard_case(nx=nx, ny=ny, rayleigh=1e6, dtype=torch.float32,
+                                         device="cuda")
+        return case, f"rb {nx}x{ny}", {"tol_factor": 1e-7, "mg_overrides": {"abs_tol": 1e-10}}
+    case = make_channel_case(nx=nx, ny=ny, poisson="multigrid", tolerance_factor=1e-6,
+                             abs_tol=0.0, dtype=torch.float32, device="cuda")
+    return case, f"channel {nx}x{ny}", {"tol_factor": 1e-6}
+
+
 def describe(case, what: str) -> str:
     mg = case.info["mg"]
     path = ("whole step" if mg.whole_step else
@@ -206,8 +231,8 @@ def main(argv=None) -> int:
     ap.add_argument("--fuse-pre", action="store_true",
                     help="cavity: fuse_pre=True (taken on the per-kernel solve)")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="cavity: the sharded quad path on an N-shard plane-row mesh on "
-                         "the card")
+                    help="cavity/channel/rb: the sharded quad path on an N-shard plane-row "
+                         "mesh on the card")
     ap.add_argument("--warmup", type=int, default=100)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--out", type=Path, default=DEFAULT_OUT)
@@ -222,23 +247,22 @@ def main(argv=None) -> int:
 
     card = card_line()
     if args.mesh:
-        from cfd_tpu_torch.cases import make_cavity_case
         from cfd_tpu_torch.cli import parse_mg
         from cfd_tpu_torch.parallel import make_mesh
 
-        if args.case != "cavity" or args.fuse_pre or args.layout != "auto":
-            raise SystemExit("profile_step: --mesh runs the quad cavity only")
-        case = make_cavity_case(n_interior=args.n, poisson="multigrid", dtype=torch.float32,
-                                tolerance_factor=1e-6, device="cuda")
-        kw = {"tol_factor": 1e-6}
+        if args.case == "step":
+            raise SystemExit("profile_step: --mesh: the sharded step is not ported yet "
+                             "(ROADMAP.md queue A item A.12c)")
+        if args.fuse_pre or args.layout != "auto":
+            raise SystemExit("profile_step: --mesh runs the quad layout without --fuse-pre")
+        case, what, kw = mesh_case(args)
         if args.mg != "default":
-            kw["mg_overrides"] = parse_mg(args.mg)
+            kw["mg_overrides"] = {**kw.get("mg_overrides", {}), **parse_mg(args.mg)}
         sim = Simulation(case, log=lambda m: None, mesh=make_mesh(args.mesh), sharded_kwargs=kw)
         mg = sim._engine.mg if not sim._engine.delegated else case.info["mg"]
         knobs = f", tail_from={mg.tail_from}" if mg.tail_from else ""
-        what = (f"cavity {args.n}^2 on a {args.mesh}-shard plane-row mesh (sharded quad "
-                f"path, V({mg.pre_sweeps},{mg.post_sweeps}), tol_factor {mg.tol_factor}"
-                f"{knobs})")
+        what = (f"{what} on a {args.mesh}-shard plane-row mesh (sharded quad path, "
+                f"V({mg.pre_sweeps},{mg.post_sweeps}), tol_factor {mg.tol_factor}{knobs})")
     else:
         case, what = make_case(args)
         sim = Simulation(case, log=lambda m: None)
@@ -289,15 +313,17 @@ def main(argv=None) -> int:
           f"other {s['other_launches_per_step']:.2f})")
     print(f"device ms/step: port kernels {s['port_ms_per_step']:.4f}, "
           f"other {s['other_ms_per_step']:.4f}")
-    for t in s["top"]:
-        print(f"  {t['us_per_step']:9.2f} us/step {t['launches_per_step']:7.2f} "
-              f"launches/step  {t['name'][:90]}")
+    for key in ("top", "port"):
+        print("the twelve largest:" if key == "top" else "every port kernel:")
+        for t in s[key]:
+            print(f"  {t['us_per_step']:9.2f} us/step {t['launches_per_step']:7.2f} "
+                  f"launches/step  {t['name'][:90]}")
     print("wrapper launches/step: " + ", ".join(f"{k} {v:.2f}" for k, v in wrapper.items()))
     print(json.dumps(dict(card=card, case=what, steps=args.steps,
                           unprofiled_wall_ms_per_step=wall_plain / args.steps * 1e3,
                           cycles_per_step=sum(cycles) / len(cycles),
                           trace=str(trace_path), wrapper_launches_per_step=wrapper,
-                          **{k: v for k, v in s.items() if k != "top"})))
+                          **{k: v for k, v in s.items() if k not in ("top", "port")})))
     return 0
 
 

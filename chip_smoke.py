@@ -198,6 +198,35 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
 34. The sharded cavity card against CPU over 20 steps, at 256^2 on 4
     shards (P = 40) and at 64^2 on 8 (P = 8, the minimum): equal cycles
     every step, fields within 5e-5.
+35. The channel's and RB's shard carries (rows 16d, 16e: the entry points
+    of rows 8a and 10 told the block's row_base and halo) at the 1536x512
+    shapes of a 4-shard mesh (P = 72, local blocks (4, 88, 896)), for
+    shards 0, 1 and 3: bit-identical to their twins on every row, the
+    own-row sums included, and on the own rows equal to rows 8a and 10 on
+    the same global rows; times on shard 1 as in phase 2, the bound of one
+    local block.
+36. The sharded channel and RB at 1536x512 on make_mesh(4), 300 steps
+    each: the channel with tol_factor 1e-6 (make_channel_case(
+    tolerance_factor=1e-6, abs_tol=0)), RB with tol_factor 1e-7 and abs_tol
+    1e-10 (make_rayleigh_benard_case(rayleigh=1e6)). Held (a) over all 300
+    steps to the single-device per-kernel run (mg_overrides
+    whole_solve=False) whose source sums and RB's pin sums add the same
+    per-shard partials in shard order (shard_order_case): equal cycles and
+    bit-identical fields, i.e. the sum order is the only difference; (b)
+    over the first 3 steps (the reference test's horizon) to the plain
+    single-device per-kernel run at the reference's bands: cycles within 1,
+    u and v within 2e-5 of scale, p within 5e-4 (channel: the source sum's
+    float32 order) or 2e-5 (RB), T within 2e-5. Over 300 steps that
+    float32 difference, amplified by the solves' stall exits, moves cycles
+    by up to 2 and the fields past the bands, so the 300-step gap from the
+    plain run is printed as a measurement. Also steps/s, V-cycles/step,
+    launches/step and RB's last Nusselt numbers beside the single-device
+    run's. Then 100 steps of each with tail_from=1 beside the sharded run's
+    first 100 (the bands of (b)), and a 1-shard mesh of each with default
+    kwargs, which delegates: rows 8a and 10 launch, 16d and 16e do not.
+37. The sharded channel and RB card against CPU over 20 steps on 4 shards:
+    the channel at 256x128 (P = 24) and 96x32 (P = 8, the minimum), RB at
+    256x128: equal cycles every step, fields within 5e-5.
 
 The line before the last is a JSON object {"kernels": [...]}: per kernel,
 its launches on its path's run, its error against its twin, its time and
@@ -252,7 +281,7 @@ MAX_CO, GROWTH = 0.7, 1.2
 # layout, and 512 / 2 * 30 / 2 = 3840 coarsest cells keep the host's dense
 # pinv build short
 NATURAL_STEP = (512, 30)
-# the sharded cavity (phases 32-34): shards of the plane-row mesh on the card
+# the sharded paths (phases 32-37): shards of the plane-row mesh on the card
 SHARDS = 4
 
 
@@ -1421,151 +1450,6 @@ def split_channel(case):
     return dataclasses.replace(case, step_kernels=(split, corr))
 
 
-def check_shard_kernels(case, dev) -> dict:
-    """Phase 32: rows 16a-16c against their twins on shards 0, 1 and 3 of a
-    SHARDS-way mesh at the per-kernel cavity's shapes, and on the own rows
-    against the single-device kernels (rows 1, 3, 4) of ``case``."""
-    from cfd_tpu_torch.kernels import quad as Q
-
-    rng = np.random.default_rng(32)
-    g = case.grid
-    shape = g.shape
-    Hq8s, P, W = Q.quad_shard_dims(shape, SHARDS)
-    Hq8, H = Q.quad_dims(shape)[2], Q.DEV_HALO
-    inner = np.zeros(shape, np.float32)
-    inner[1:-1, 1:-1] = 1.0
-
-    def field(scale=0.1, interior_only=False):
-        a = (rng.standard_normal(shape) * scale).astype(np.float32)
-        return Q.to_quad(torch.from_numpy(a * inner if interior_only else a).to(dev), shape)
-
-    us, vs, p, pp = field(), field(), field(interior_only=True), field(interior_only=True)
-    b = field(scale=1e3, interior_only=True)
-    ec = torch.zeros(Hq8, W, device=dev)
-    ec[1 : g.ny // 2 + 1, 1 : g.nx // 2 + 1] = torch.from_numpy(
-        rng.standard_normal((g.ny // 2, g.nx // 2)).astype(np.float32) * 0.1).to(dev)
-    carry, solve, mg = case.step_kernels[0], case.poisson_solve, case.info["mg"]
-    single = {"carry": carry.kernel(us, vs, p, pp), "pre": solve.pre0.kernel(p, b),
-              "post": solve.post0.kernel(p, b, ec)}
-    loc, shard = (P + 2 * H, W), (P, SHARDS)
-    prob = solve_problem(case)
-    ops = {"carry": Q.make_quad_corr_predictor_source(shape, case.coeffs, carry.lid,
-                                                      shard=shard),
-           "pre": Q.make_quad_pre_smooth_restrict(shape, prob, mg.omega, mg.pre_sweeps, loc,
-                                                  device=dev, shard=shard),
-           "post": Q.make_quad_post_prolong_smooth(shape, prob, mg.omega, mg.post_sweeps,
-                                                   loc, device=dev, shard=shard)}
-    names = {"carry": ("us'", "vs'", "b", "guess", "max|b|"), "pre": ("p", "rc"),
-             "post": ("p", "max|r|")}
-    n_fields = {"carry": 4, "pre": 2, "post": 1}
-    errs = {k: [] for k in ops}
-    timing = {}
-    for jy in (0, 1, 3):
-        rb = jy * P - H
-        sl = lambda t: torch.nn.functional.pad(t, (0, 0, H, Hq8s - Hq8 + H))[
-            ..., jy * P : jy * P + P + 2 * H, :].contiguous()
-        args = {"carry": tuple(map(sl, (us, vs, p, pp))), "pre": (sl(p), sl(b)),
-                "post": (sl(p), sl(b), sl(ec))}
-        lo = jy * P
-        hi = max(lo, min(lo + P, Hq8))  # the shard's global rows inside the field
-        for kind, op in ops.items():
-            got, want = op.kernel(rb, *args[kind]), op.plain(rb, *args[kind])
-            for name, a, w in zip(names[kind], got, want, strict=True):
-                rel_err(a, w, f"{op_name(kind)} shard {jy} {name}", TOL_F32, errs[kind])
-                if not torch.equal(a, w):
-                    raise AssertionError(f"{op_name(kind)} shard {jy} {name}: not "
-                                         "bit-identical to its twin")
-            for k in range(n_fields[kind]):
-                if not torch.equal(got[k][..., H : H + hi - lo, :],
-                                   single[kind][k][..., lo:hi, :]):
-                    raise AssertionError(f"{op_name(kind)} shard {jy} {names[kind][k]}: own "
-                                         "rows differ from the single-device kernel's")
-            if jy == 1:
-                timing[kind] = (
-                    median_ms(lambda: op.kernel(rb, *args[kind])),
-                    median_ms(lambda: op.plain(rb, *args[kind]), reps=5),
-                    nbytes(*args[kind], *got, *(op.wE, op.wW, op.wN, op.wS)
-                           if kind != "carry" else ()))
-        log(f"  shard {jy} (row_base {rb}, global rows {lo}..{hi - 1} in the field): "
-            "bit-identical to the twins, own rows equal to rows 1, 3, 4")
-    cells = 2 * (P + 2 * H) * g.nx  # the block's logical cells
-    n_ops = {"carry": cells * (CORRECTOR_OPS + PREDICTOR_SOURCE_OPS),
-             "pre": cells * (mg.pre_sweeps * GS_OPS + RES_OPS) + cells // 4 * RESTRICT_OPS,
-             "post": cells * (PROLONG_OPS + mg.post_sweeps * GS_OPS + RES_OPS + 1)}
-    results = {}
-    for kind in ops:
-        ms, plain_ms, n_bytes = timing[kind]
-        results[op_name(kind)] = dict(err=max(errs[kind]), ms=ms, plain_ms=plain_ms,
-                                      **bound(n_bytes, n_ops[kind]))
-    return results
-
-
-def op_name(kind: str) -> str:
-    from cfd_tpu_torch.kernels import quad as Q
-
-    return {"carry": Q.SHARD_CARRY, "pre": Q.SHARD_PRE, "post": Q.SHARD_POST}[kind].name
-
-
-def run_sharded(case, n_steps: int, what: str, card: str, shards: int, sharded_kwargs,
-                path_kernels, absent=()):
-    """Drive the cavity on a ``shards``-shard mesh on the card through
-    Simulation.run in chunks of 100 (or n_steps), the launch counters
-    zeroed just before and read just after: every kernel of ``path_kernels``
-    must have launched and none of ``absent``. Returns (launches, logical
-    state, iters, steps/s over the last chunk, the engine)."""
-    from cfd_tpu_torch.kernels import KERNELS
-    from cfd_tpu_torch.parallel import make_mesh
-    from cfd_tpu_torch.solver import Simulation
-
-    spc = min(100, n_steps)
-    sim = Simulation(case, log=lambda m: log("  " + m), mesh=make_mesh(shards),
-                     sharded_kwargs=sharded_kwargs)
-    for kern in KERNELS:
-        kern.launches = 0
-    t0 = time.perf_counter()
-    state = sim.run(n_steps=n_steps, steps_per_call=spc)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in KERNELS}
-    missing = [k.name for k in path_kernels if launches[k.name] == 0]
-    extra = [k.name for k in absent if launches[k.name]]
-    if missing or extra:
-        raise AssertionError(f"{what}: kernels never launched {missing}, launched against "
-                             f"the path {extra}")
-    st = sim._logical(state)
-    for fname in ("u", "v", "p"):
-        if not bool(torch.isfinite(getattr(st, fname)).all()):
-            raise AssertionError(f"non-finite {fname} after the {what} run")
-    walls = [0.0] + [row["wall_seconds"] for row in sim.history]
-    steps_s = spc / (walls[-1] - walls[-2])
-    cycles = float(np.mean(sim.step_iters[-spc:]))
-    port = sum(launches.values()) / n_steps
-    log(f"  {what}: {n_steps} steps in {wall:.2f} s; last {spc}: {steps_s:.2f} steps/s, "
-        f"{cycles:.2f} V-cycles/step, {port:.2f} port kernel launches/step "
-        f"({', '.join(f'{k} {v / n_steps:.2f}' for k, v in launches.items() if v)})  ({card})")
-    return launches, st, list(sim.step_iters), steps_s, sim._engine
-
-
-def hold_sharded(what: str, iters, st, ref_iters, ref_st) -> bool:
-    """The sharded run against the single-device one: cycles within 1 on
-    every step and the logical fields within 2e-5 of scale; returns whether
-    cycles and fields were bit-identical."""
-    if len(iters) != len(ref_iters) or any(abs(a - b) > 1 for a, b in zip(iters, ref_iters)):
-        raise AssertionError(f"{what}: cycles {iters} against {ref_iters}")
-    same = list(iters) == list(ref_iters)
-    for name in ("u", "v", "p", "p_prev"):
-        a, w = getattr(st, name), getattr(ref_st, name)
-        abs_err = float((a - w).abs().max())
-        limit = 2e-5 * max(1.0, float(w.abs().max()))
-        log(f"  {what} {name}: max|err|={abs_err:.3e} (limit {limit:.3e})")
-        if not abs_err <= limit:
-            raise AssertionError(f"{what}: {name} differs by {abs_err:.3e}")
-        same = same and torch.equal(a, w)
-    log(f"  {what}: {'equal' if list(iters) == list(ref_iters) else 'within 1'} cycles on "
-        f"all {len(iters)} steps, {'bit-identical' if same else 'not bit-identical'}")
-    return same
-
-
 def hold_run(what: str, iters, state, ref_iters, ref_state, exact: bool) -> None:
     """A run held to a reference run from the same start: equal cycles on
     every step, the carried fields within 1e-5 relative and, with ``exact``,
@@ -1585,16 +1469,306 @@ def hold_run(what: str, iters, state, ref_iters, ref_state, exact: bool) -> None
         f"{'bit-identical' if same else 'within 1e-5 relative, not bit-identical'}")
 
 
+def check_shard_op(kname: str, op, fields, single, names, n_fields: int, P: int,
+                   extra=()) -> tuple[list, tuple]:
+    """One shard kernel against its twin on shards 0, 1 and 3 of a SHARDS-way
+    mesh: ``fields`` are the global quad (or level-1) inputs, sliced to each
+    shard's local block; every output bit-identical to the twin's, the
+    first ``n_fields`` on the own rows equal to ``single`` (the
+    single-device kernel's outputs) on the same global rows. Returns the
+    errors and, on shard 1, (kernel ms, plain ms, bytes of one block's
+    inputs, outputs and ``extra``)."""
+    from cfd_tpu_torch.kernels import quad as Q
+
+    H = Q.DEV_HALO
+    Hq8 = fields[0].shape[-2]
+    Hq8s = P * SHARDS
+    errs, timing = [], None
+    for jy in (0, 1, 3):
+        rb = jy * P - H
+        args = tuple(torch.nn.functional.pad(t, (0, 0, H, Hq8s - Hq8 + H))[
+            ..., jy * P : jy * P + P + 2 * H, :].contiguous() for t in fields)
+        got, want = op.kernel(rb, *args), op.plain(rb, *args)
+        for name, a, w in zip(names, got, want, strict=True):
+            rel_err(a, w, f"{kname} shard {jy} {name}", TOL_F32, errs)
+            if not torch.equal(a, w):
+                raise AssertionError(f"{kname} shard {jy} {name}: not bit-identical to its "
+                                     "twin")
+        lo = jy * P
+        hi = max(lo, min(lo + P, Hq8))  # the shard's global rows inside the field
+        for k in range(n_fields):
+            if not torch.equal(got[k][..., H : H + hi - lo, :], single[k][..., lo:hi, :]):
+                raise AssertionError(f"{kname} shard {jy} {names[k]}: own rows differ from "
+                                     "the single-device kernel's")
+        if jy == 1:
+            timing = (median_ms(lambda: op.kernel(rb, *args)),
+                      median_ms(lambda: op.plain(rb, *args), reps=5),
+                      nbytes(*args, *got, *extra))
+        log(f"  {kname} shard {jy} (row_base {rb}, global rows {lo}..{hi - 1} in the field): "
+            "bit-identical to the twin, own rows equal to the single-device kernel's")
+    return errs, timing
+
+
+def check_shard_kernels(case, dev) -> dict:
+    """Phase 32: rows 16a-16c against their twins on shards 0, 1 and 3 of a
+    SHARDS-way mesh at the per-kernel cavity's shapes, and on the own rows
+    against the single-device kernels (rows 1, 3, 4) of ``case``."""
+    from cfd_tpu_torch.kernels import quad as Q
+
+    rng = np.random.default_rng(32)
+    g = case.grid
+    shape = g.shape
+    _, P, W = Q.quad_shard_dims(shape, SHARDS)
+    Hq8, H = Q.quad_dims(shape)[2], Q.DEV_HALO
+    inner = np.zeros(shape, np.float32)
+    inner[1:-1, 1:-1] = 1.0
+
+    def field(scale=0.1, interior_only=False):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        return Q.to_quad(torch.from_numpy(a * inner if interior_only else a).to(dev), shape)
+
+    us, vs, p, pp = field(), field(), field(interior_only=True), field(interior_only=True)
+    b = field(scale=1e3, interior_only=True)
+    ec = torch.zeros(Hq8, W, device=dev)
+    ec[1 : g.ny // 2 + 1, 1 : g.nx // 2 + 1] = torch.from_numpy(
+        rng.standard_normal((g.ny // 2, g.nx // 2)).astype(np.float32) * 0.1).to(dev)
+    carry, solve, mg = case.step_kernels[0], case.poisson_solve, case.info["mg"]
+    loc, shard = (P + 2 * H, W), (P, SHARDS)
+    prob = solve_problem(case)
+    pre = Q.make_quad_pre_smooth_restrict(shape, prob, mg.omega, mg.pre_sweeps, loc,
+                                          device=dev, shard=shard)
+    post = Q.make_quad_post_prolong_smooth(shape, prob, mg.omega, mg.post_sweeps, loc,
+                                           device=dev, shard=shard)
+    weights = (pre.wE, pre.wW, pre.wN, pre.wS)
+    cells = 2 * (P + 2 * H) * g.nx  # the block's logical cells
+    checks = (
+        (Q.SHARD_CARRY, Q.make_quad_corr_predictor_source(shape, case.coeffs, carry.lid,
+                                                          shard=shard),
+         (us, vs, p, pp), carry.kernel(us, vs, p, pp), ("us'", "vs'", "b", "guess", "max|b|"),
+         4, (), cells * (CORRECTOR_OPS + PREDICTOR_SOURCE_OPS)),
+        (Q.SHARD_PRE, pre, (p, b), solve.pre0.kernel(p, b), ("p", "rc"), 2, weights,
+         cells * (mg.pre_sweeps * GS_OPS + RES_OPS) + cells // 4 * RESTRICT_OPS),
+        (Q.SHARD_POST, post, (p, b, ec), solve.post0.kernel(p, b, ec), ("p", "max|r|"), 1,
+         weights, cells * (PROLONG_OPS + mg.post_sweeps * GS_OPS + RES_OPS + 1)))
+    results = {}
+    for kern, op, fields, single, names, n_fields, extra, n_ops in checks:
+        errs, (ms, plain_ms, n_bytes) = check_shard_op(kern.name, op, fields, single, names,
+                                                       n_fields, P, extra)
+        results[kern.name] = dict(err=max(errs), ms=ms, plain_ms=plain_ms,
+                                  **bound(n_bytes, n_ops))
+    return results
+
+
+def check_flavor_shard_kernels(cases: dict, dev) -> dict:
+    """Phase 35: rows 16d and 16e against their twins on shards 0, 1 and 3
+    of a SHARDS-way mesh at the channel's and RB's shapes, and on the own
+    rows against the single-device carries (rows 8a, 10) of ``cases``."""
+    from cfd_tpu_torch.kernels import quad as Q
+    from cfd_tpu_torch.kernels import rb_quad as RQ
+    from cfd_tpu_torch.physics.boussinesq import RBParams
+
+    rng = np.random.default_rng(35)
+    results = {}
+    for flavor, case in cases.items():
+        g = case.grid
+        shape = g.shape
+        _, P, _ = Q.quad_shard_dims(shape, SHARDS)
+        inner = np.zeros(shape, np.float32)
+        inner[1:-1, 1:-1] = 1.0
+        profile = np.linspace(1.0, 0.0, shape[0], dtype=np.float32)[:, None]
+
+        def field(scale=0.1, interior_only=False, offset=None):
+            a = (rng.standard_normal(shape) * scale).astype(np.float32)
+            if offset is not None:
+                a += offset
+            return Q.to_quad(torch.from_numpy(a * inner if interior_only else a).to(dev),
+                             shape)
+
+        us, vs, p = field(), field(), field(interior_only=True)
+        aux = field(0.01, offset=profile) if flavor == "rb" else field(interior_only=True)
+        carry = case.step_kernels[0]
+        per_cell = CORRECTOR_OPS + PREDICTOR_SOURCE_OPS
+        if flavor == "channel":
+            kern = Q.SHARD_CHANNEL_CARRY
+            op = Q.make_quad_channel_corr_predictor_source(shape, case.coeffs, carry.uin,
+                                                           shard=(P, SHARDS))
+            names = ("us'", "vs'", "b", "guess", "sum_own")
+        else:
+            kern, info = RQ.SHARD_RB_CARRY, case.info
+            op = RQ.make_quad_rb_step_kernel(
+                shape, case.coeffs, info["kappa"],
+                RBParams(info["rayleigh"], info["prandtl"], info["t_bottom"], info["t_top"]),
+                shard=(P, SHARDS))
+            names = ("us'", "vs'", "T'", "b", "sum_own")
+            per_cell += TEMPERATURE_OPS + BUOYANCY_OPS
+        fields = (us, vs, p, aux)
+        errs, (ms, plain_ms, n_bytes) = check_shard_op(kern.name, op, fields,
+                                                       carry.kernel(*fields), names, 4, P)
+        cells = 2 * (P + 2 * Q.DEV_HALO) * g.nx  # the block's logical cells
+        results[kern.name] = dict(err=max(errs), ms=ms, plain_ms=plain_ms,
+                                  **bound(n_bytes, cells * per_cell))
+    return results
+
+
+def run_stages(sim, stops):
+    """Simulation.run through the steps in ``stops`` (e.g. (3, 100, 300)),
+    one call a stage; returns the logical state at each stop, the carried
+    final state and steps/s over the last 100 steps (the rows come every
+    100 steps and at each stop)."""
+    states, state, k = [], None, 0
+    for stop in stops:
+        state = sim.run(state=state, n_steps=stop - k, start_step=k)
+        states.append(sim._logical(state))
+        last, k = stop - k, stop
+    torch.cuda.synchronize()
+    h = sim.history
+    steps_s = min(100, last) / (h[-1]["wall_seconds"] - (h[-2]["wall_seconds"]
+                                                        if last > 100 else 0.0))
+    return states, state, steps_s
+
+
+def run_sharded(case, stops, what: str, card: str, sharded_kwargs, path_kernels, absent=()):
+    """Drive ``case`` on a SHARDS-shard mesh on the card through run_stages,
+    the launch counters zeroed just before and read just after: every
+    kernel of ``path_kernels`` must have launched and none of ``absent``.
+    Returns (launches, the logical states at ``stops``, steps/s over the
+    last 100 steps, the Simulation)."""
+    from cfd_tpu_torch.kernels import KERNELS
+    from cfd_tpu_torch.parallel import make_mesh
+    from cfd_tpu_torch.solver import Simulation
+
+    sim = Simulation(case, log=lambda m: None, mesh=make_mesh(SHARDS),
+                     sharded_kwargs=sharded_kwargs)
+    for kern in KERNELS:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    states, _, steps_s = run_stages(sim, stops)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    missing = [k.name for k in path_kernels if launches[k.name] == 0]
+    extra = [k.name for k in absent if launches[k.name]]
+    if missing or extra:
+        raise AssertionError(f"{what}: kernels never launched {missing}, launched against "
+                             f"the path {extra}")
+    for fname in ("u", "v", "p", "T"):
+        a = getattr(states[-1], fname)
+        if a is not None and not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"non-finite {fname} after the {what} run")
+    n = stops[-1]
+    log(f"  {what}: {n} steps in {wall:.2f} s; last {min(100, n)}: {steps_s:.2f} steps/s, "
+        f"{np.mean(sim.step_iters[-100:]):.2f} V-cycles/step, "
+        f"{sum(launches.values()) / n:.2f} port kernel launches/step "
+        f"({', '.join(f'{k} {v / n:.2f}' for k, v in launches.items() if v)})  ({card})")
+    return launches, states, steps_s, sim
+
+
+def hold_sharded(what: str, iters, st, ref_iters, ref_st, p_band: float | None) -> bool:
+    """A sharded run against another run from the same start. ``p_band``
+    None: equal cycles on every step and bit-identical logical fields.
+    Else the reference's bands (tests/test_quad_sharded.py:57-93, :163-225,
+    :282-325): cycles within 1 on every step, u, v and T within 2e-5 of
+    scale, p and p_prev (the step before's p) within ``p_band`` of scale.
+    Prints the maxima; returns whether cycles and fields were
+    bit-identical."""
+    diff = [abs(a - b) for a, b in zip(iters, ref_iters)]
+    if len(iters) != len(ref_iters) or max(diff) > (0 if p_band is None else 1):
+        raise AssertionError(f"{what}: cycles {iters} against {ref_iters}")
+    same = max(diff) == 0
+    for name in ("u", "v", "p", "T", "p_prev"):
+        a, w = getattr(st, name), getattr(ref_st, name)
+        if w is None:
+            continue
+        abs_err = float((a - w).abs().max())
+        scale = max(1.0, float(w.abs().max()))
+        band = 0.0 if p_band is None else p_band if name in ("p", "p_prev") else 2e-5
+        log(f"  {what} {name}: max|err|={abs_err:.3e} = {abs_err / scale:.3e} of scale "
+            f"(limit {band:.0e})")
+        if not abs_err <= band * scale:
+            raise AssertionError(f"{what}: {name} differs by {abs_err:.3e}")
+        same = same and torch.equal(a, w)
+    log(f"  {what}: {'equal' if max(diff) == 0 else 'within 1'} cycles on all "
+        f"{len(iters)} steps, {'bit-identical' if same else 'not bit-identical'}")
+    return same
+
+
+def drift(what: str, iters, st, ref_iters, ref_st) -> None:
+    """Print how far a run drifted from another from the same start: the
+    steps whose cycles differ and the fields' largest gap (a measurement,
+    no limit)."""
+    diff = [abs(a - b) for a, b in zip(iters, ref_iters, strict=True)]
+    gaps = []
+    for n in ("u", "v", "p", "T"):
+        a, w = getattr(st, n), getattr(ref_st, n)
+        if w is not None:
+            gaps.append(f"{n} {float((a - w).abs().max()) / max(1.0, float(w.abs().max())):.3e}")
+    first = next((k + 1 for k, d in enumerate(diff) if d), "-")
+    log(f"  {what}: cycles differ on {sum(d > 0 for d in diff)} of {len(diff)} steps (by at "
+        f"most {max(diff)}, first at step {first}); the fields' largest gap, of scale: "
+        f"{', '.join(gaps)}")
+
+
+def shard_order_case(case, engine):
+    """The single-device per-kernel ``case`` with its float32 sums taken in
+    the sharded ``engine``'s order: the carry's source sum and, with the
+    pin, the solve's per-cycle sum of p add the shards' own-row partials
+    (own_row_sum of the engine's local blocks) in shard order (global_sum).
+    Every other operation is the single-device path's, so the sharded run
+    equals this one bit for bit when the sum order is the only difference.
+    No factory offers this path: it is composed here, as split_channel."""
+    from cfd_tpu_torch.kernels.quad import own_row_sum
+    from cfd_tpu_torch.parallel import global_sum
+
+    def shard_sum(q):
+        return global_sum([own_row_sum(x, engine.P) for x in engine._extend(q)])
+
+    carry, corr = case.step_kernels
+    k_b = 3 if case.ordering == "rayleigh_benard" else 2  # (us', vs', T', b) or (us', vs', b)
+
+    def carry_in_shard_order(*fields):
+        out = list(carry(*fields))
+        out[-1] = shard_sum(out[k_b])
+        return tuple(out)
+
+    solve = case.poisson_solve
+    if solve.cfg.pin_mean:
+        def cycle(p, b, plain=False):
+            p, res = solve._vcycle(p, b, plain)
+            return torch.where(solve.cell, p - shard_sum(p) / solve.n_int, p), res
+
+        solve.cycle = cycle
+    return dataclasses.replace(case, step_kernels=(carry_in_shard_order, corr))
+
+
+def delegates(case, single_kerns, shard_kerns) -> None:
+    """A 1-shard mesh with default kwargs delegates to the case's own
+    single-device step: over 20 steps each of ``single_kerns`` launches and
+    none of ``shard_kerns`` does."""
+    from cfd_tpu_torch.kernels import KERNELS
+    from cfd_tpu_torch.parallel import make_mesh
+    from cfd_tpu_torch.solver import Simulation
+
+    sim = Simulation(case, log=lambda m: None, mesh=make_mesh(1))
+    for kern in KERNELS:
+        kern.launches = 0
+    sim.run(n_steps=20)
+    torch.cuda.synchronize()
+    got = {k.name: k.launches for k in (*single_kerns, *shard_kerns)}
+    if (not sim._engine.delegated or not all(k.launches for k in single_kerns)
+            or any(k.launches for k in shard_kerns)):
+        raise AssertionError(f"1-shard mesh: delegated={sim._engine.delegated}, launches {got}")
+    log(f"  1-shard mesh, default kwargs: delegated, launches over 20 steps {got}")
+
+
 def sharded_phases(card: str, dev, cav_main: dict) -> tuple[dict, dict]:
     """Phases 32-34: the shard kernels against their twins, the sharded
     cavity against the single-device path at full width, card against CPU.
     Returns the kernels' checks and the 300-step run's launches."""
     from cfd_tpu_torch.cases import make_cavity_case
-    from cfd_tpu_torch.kernels import KERNELS
     from cfd_tpu_torch.kernels import mg_tail as MT
     from cfd_tpu_torch.kernels import quad as Q
     from cfd_tpu_torch.kernels import rb_smoother as RB
     from cfd_tpu_torch.kernels import whole_solve as WS
+    from cfd_tpu_torch.solver import Simulation
 
     log(f"phase 32: the shard kernels (rows 16a-16c) at the {N_MAIN}^2 shapes of a "
         f"{SHARDS}-shard mesh vs their plain twins and the single-device kernels ({card})")
@@ -1607,55 +1781,38 @@ def sharded_phases(card: str, dev, cav_main: dict) -> tuple[dict, dict]:
     log(f"phase 33: the sharded cavity at {N_MAIN}^2 on {SHARDS} shards of the card, 300 "
         f"steps beside the single-device per-kernel run, then 100 with tail_from=1, then a "
         f"1-shard mesh ({card})")
-    from cfd_tpu_torch.parallel import make_mesh
-    from cfd_tpu_torch.solver import Simulation
-
     pk_case = make_cavity_case(device=dev, fuse_pre=False, mg_overrides={"whole_solve": False},
                                **cav_main)
     if pk_case.info["mg"].coarse_dtype is not None:
         raise AssertionError("the single-device reference run took the bf16 hierarchy")
-    ref = Simulation(pk_case, log=lambda m: log("  " + m))
-    t0 = time.perf_counter()
-    ref_state = ref.run(n_steps=100, steps_per_call=100)
-    ref_100 = (list(ref.step_iters), ref._logical(ref_state))
-    ref_state = ref.run(state=ref_state, n_steps=200, start_step=100, steps_per_call=100)
-    torch.cuda.synchronize()
-    ref_steps_s = 100 / (ref.history[-1]["wall_seconds"] - ref.history[-2]["wall_seconds"])
-    log(f"  single-device per-kernel: 300 steps in {time.perf_counter() - t0:.2f} s; last "
-        f"100: {ref_steps_s:.2f} steps/s, {np.mean(ref.step_iters[-100:]):.2f} "
-        f"V-cycles/step  ({card})")
+    ref = Simulation(pk_case, log=lambda m: None)
+    (ref_100, ref_st), _, ref_steps_s = run_stages(ref, (100, 300))
+    log(f"  single-device per-kernel: last 100 of 300 steps {ref_steps_s:.2f} steps/s, "
+        f"{np.mean(ref.step_iters[-100:]):.2f} V-cycles/step  ({card})")
     case = make_cavity_case(device=dev, **cav_main)
     shard_path = (Q.SHARD_CARRY, Q.SHARD_PRE, Q.SHARD_POST, RB.RB_PAIRS)
-    shard_launches, st, iters, steps_s, engine = run_sharded(
-        case, 300, f"sharded cavity, {SHARDS} shards", card, SHARDS, {"tol_factor": 1e-6},
+    shard_launches, (st,), steps_s, sim = run_sharded(
+        case, (300,), f"sharded cavity, {SHARDS} shards", card, {"tol_factor": 1e-6},
         shard_path, absent=(Q.CARRY, Q.PRE, Q.POST, WS.WHOLE_SOLVE))
-    if engine.delegated or engine.P != 264:
-        raise AssertionError(f"sharded engine: delegated={engine.delegated} P={engine.P}")
-    same = hold_sharded(f"sharded vs single-device, 300 steps", iters, st, ref.step_iters,
-                        ref._logical(ref_state))
+    if sim._engine.delegated or sim._engine.P != 264:
+        raise AssertionError(f"sharded engine: delegated={sim._engine.delegated} "
+                             f"P={sim._engine.P}")
+    same = hold_sharded("sharded vs single-device, 300 steps", sim.step_iters, st,
+                        ref.step_iters, ref_st, 2e-5)
     log(f"  sharded cavity: {steps_s:.2f} steps/s against the single-device per-kernel "
-        f"{ref_steps_s:.2f}, {np.mean(iters[-100:]):.2f} V-cycles/step, "
+        f"{ref_steps_s:.2f}, {np.mean(sim.step_iters[-100:]):.2f} V-cycles/step, "
         f"{'bit-identical' if same else 'not bit-identical'}  ({card})")
-    _, st, iters, steps_s, engine = run_sharded(
-        case, 100, "sharded cavity tail_from=1", card, SHARDS,
+    _, (st,), _, tail = run_sharded(
+        case, (100,), "sharded cavity tail_from=1", card,
         {"tol_factor": 1e-6, "mg_overrides": {"tail_from": 1}},
         (Q.SHARD_CARRY, Q.SHARD_PRE, Q.SHARD_POST, MT.MG_TAIL), absent=(RB.RB_PAIRS,))
-    if engine._solve.tail_at != 2:
-        raise AssertionError(f"the sharded tail starts at level {engine._solve.tail_at}")
-    hold_sharded("sharded tail_from=1 vs single-device, 100 steps", iters, st, *ref_100)
-    del case, ref, ref_state, st
-    sim = Simulation(pk_case, log=lambda m: None, mesh=make_mesh(1))
-    for kern in KERNELS:
-        kern.launches = 0
-    sim.run(n_steps=20)
-    torch.cuda.synchronize()
-    got = {k.name: k.launches for k in (Q.CARRY, Q.PRE, Q.POST, Q.SHARD_CARRY, Q.SHARD_PRE,
-                                        Q.SHARD_POST)}
-    if (not sim._engine.delegated or not all(got[k.name] for k in (Q.CARRY, Q.PRE, Q.POST))
-            or any(got[k.name] for k in (Q.SHARD_CARRY, Q.SHARD_PRE, Q.SHARD_POST))):
-        raise AssertionError(f"1-shard mesh: delegated={sim._engine.delegated}, launches {got}")
-    log(f"  1-shard mesh, default kwargs: delegated, launches over 20 steps {got}")
-    del pk_case, sim
+    if tail._engine._solve.tail_at != 2:
+        raise AssertionError(f"the sharded tail starts at level {tail._engine._solve.tail_at}")
+    hold_sharded("sharded tail_from=1 vs single-device, 100 steps", tail.step_iters, st,
+                 ref.step_iters[:100], ref_100, 2e-5)
+    del case, ref, sim, tail, st
+    delegates(pk_case, (Q.CARRY, Q.PRE, Q.POST), (Q.SHARD_CARRY, Q.SHARD_PRE, Q.SHARD_POST))
+    del pk_case
 
     log("phase 34: the sharded cavity card vs CPU, 20 steps")
     for n, shards in ((256, 4), (64, 8)):
@@ -1666,6 +1823,97 @@ def sharded_phases(card: str, dev, cav_main: dict) -> tuple[dict, dict]:
                     sharded_kwargs={"tol_factor": 1e-6})
 
     return sh_checks, shard_launches
+
+
+def flavor_sharded_phases(card: str, dev) -> tuple[dict, dict]:
+    """Phases 35-37: rows 16d and 16e against their twins, the sharded
+    channel and RB against the single-device per-kernel path at full width,
+    card against CPU. Returns the kernels' checks and the launches of the
+    300-step runs."""
+    from cfd_tpu_torch.cases import make_channel_case, make_rayleigh_benard_case
+    from cfd_tpu_torch.kernels import mg_tail as MT
+    from cfd_tpu_torch.kernels import quad as Q
+    from cfd_tpu_torch.kernels import rb_quad as RQ
+    from cfd_tpu_torch.kernels import rb_smoother as RB
+    from cfd_tpu_torch.kernels import whole_solve as WS
+    from cfd_tpu_torch.solver import Simulation
+
+    nx, ny = CHANNEL
+    per_kernel = {"whole_solve": False}
+    flows = {
+        "channel": (lambda **kw: make_channel_case(
+            nx=nx, ny=ny, poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0,
+            dtype=torch.float32, device=dev, **kw), {"tol_factor": 1e-6}, 5e-4,
+            Q.CHANNEL_CARRY, Q.SHARD_CHANNEL_CARRY),
+        "rb": (lambda **kw: make_rayleigh_benard_case(
+            nx=RB_SHAPE[0], ny=RB_SHAPE[1], rayleigh=1e6, dtype=torch.float32, device=dev,
+            **kw), {"tol_factor": 1e-7, "mg_overrides": {"abs_tol": 1e-10}}, 2e-5,
+            RQ.RB_CARRY, RQ.SHARD_RB_CARRY)}
+
+    log(f"phase 35: the shard carries (rows 16d, 16e) at the {nx}x{ny} shapes of a "
+        f"{SHARDS}-shard mesh vs their plain twins and the single-device carries ({card})")
+    checks = check_flavor_shard_kernels(
+        {f: make(mg_overrides=per_kernel) for f, (make, *_) in flows.items()}, dev)
+    for k, r in checks.items():
+        log(f"  {k:42s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), one local block  ({card})")
+
+    log(f"phase 36: the sharded channel and RB at {nx}x{ny} on {SHARDS} shards of the card, "
+        f"300 steps each beside the single-device per-kernel runs, then 100 with "
+        f"tail_from=1, then a 1-shard mesh ({card})")
+    launches = {}
+    for flavor, (make, kw, p_band, single_kern, shard_kern) in flows.items():
+        what = f"sharded {flavor}, {SHARDS} shards"
+        got, (at3, first_100, st), steps_s, sim = run_sharded(
+            make(), (3, 100, 300), what, card, kw,
+            (shard_kern, Q.SHARD_PRE, Q.SHARD_POST, RB.RB_PAIRS),
+            absent=(single_kern, Q.PRE, Q.POST, WS.WHOLE_SOLVE, WS.WHOLE_SOLVE_PIN_MEAN))
+        engine = sim._engine
+        if engine.delegated or engine.P != 72:
+            raise AssertionError(f"{what}: delegated={engine.delegated} P={engine.P}")
+        launches[shard_kern.name] = got[shard_kern.name]
+        ordered = Simulation(shard_order_case(make(mg_overrides=per_kernel), engine),
+                             log=lambda m: None)
+        (o_st,), _, _ = run_stages(ordered, (300,))
+        hold_sharded(f"{what}, 300 steps vs the single-device run summed in shard order",
+                     sim.step_iters, st, ordered.step_iters, o_st, None)
+        del ordered, o_st
+        ref = Simulation(make(mg_overrides=per_kernel), log=lambda m: None)
+        (r3, r_st), _, ref_steps_s = run_stages(ref, (3, 300))
+        hold_sharded(f"{what}, 3 steps vs single-device", sim.step_iters[:3], at3,
+                     ref.step_iters[:3], r3, p_band)
+        drift(f"{what}, 300 steps vs single-device", sim.step_iters, st, ref.step_iters, r_st)
+        log(f"  {what}: {steps_s:.2f} steps/s against the single-device per-kernel "
+            f"{ref_steps_s:.2f} ({np.mean(ref.step_iters[-100:]):.2f} V-cycles/step)  ({card})")
+        if flavor == "rb":
+            for who, row in (("sharded", sim.history[-1]), ("single-device", ref.history[-1])):
+                log(f"  rb {who}, step {row['step']}: Nu bottom {row['nusselt_bottom']:.6f}, "
+                    f"top {row['nusselt_top']:.6f}, volume {row['nusselt_volume']:.6f}")
+        del ref, r_st
+        tail_kw = {**kw, "mg_overrides": {**kw.get("mg_overrides", {}), "tail_from": 1}}
+        _, (t_st,), _, tail = run_sharded(
+            make(), (100,), f"sharded {flavor} tail_from=1", card, tail_kw,
+            (shard_kern, Q.SHARD_PRE, Q.SHARD_POST, MT.MG_TAIL), absent=(RB.RB_PAIRS,))
+        if tail._engine._solve.tail_at != 2:
+            raise AssertionError(f"the sharded tail starts at level "
+                                 f"{tail._engine._solve.tail_at}")
+        hold_sharded(f"sharded {flavor} tail_from=1 vs the sharded run's first 100 steps",
+                     tail.step_iters, t_st, sim.step_iters[:100], first_100, p_band)
+        del sim, tail, t_st, st
+        delegates(make(mg_overrides=per_kernel), (single_kern, Q.PRE, Q.POST), (shard_kern,))
+
+    log("phase 37: the sharded channel and RB card vs CPU, 20 steps on 4 shards")
+    for cnx, cny in ((256, 128), (96, 32)):
+        card_vs_cpu(make_channel_case, dict(nx=cnx, ny=cny, poisson="multigrid",
+                                            dtype=torch.float32, tolerance_factor=1e-6,
+                                            abs_tol=0.0, print_interval=20),
+                    f"sharded channel {cnx}x{cny} on {SHARDS} shards", shards=SHARDS,
+                    sharded_kwargs=flows["channel"][1])
+    card_vs_cpu(make_rayleigh_benard_case, dict(nx=256, ny=128, rayleigh=1e6,
+                                                dtype=torch.float32, print_interval=20),
+                f"sharded rb 256x128 on {SHARDS} shards", shards=SHARDS,
+                sharded_kwargs=flows["rb"][1])
+    return checks, launches
 
 
 def main() -> int:
@@ -2314,6 +2562,8 @@ def main() -> int:
 
     sh_checks, shard_launches = sharded_phases(card, dev, cav_main)
     checks.update(sh_checks)
+    fl_checks, flavor_launches = flavor_sharded_phases(card, dev)
+    checks.update(fl_checks)
 
     launches = {**cavity_launches, **{k: channel_launches[k] for k in (
         Q.CHANNEL_CARRY.name, Q.CHANNEL_CORRECTOR.name, WS.WHOLE_SOLVE.name)},
@@ -2325,7 +2575,8 @@ def main() -> int:
                                        WS.WHOLE_SOLVE_PIN_MEAN.name)},
         **ad_launches, **ws_launches, **tail_launches, **bf16_launches, **corr_launches,
         **nat_launches, **fp_launches,
-        **{k.name: shard_launches[k.name] for k in (Q.SHARD_CARRY, Q.SHARD_PRE, Q.SHARD_POST)}}
+        **{k.name: shard_launches[k.name] for k in (Q.SHARD_CARRY, Q.SHARD_PRE, Q.SHARD_POST)},
+        **flavor_launches}
     kernels = []
     for k in KERNELS:
         r = checks[k.name]

@@ -207,3 +207,4 @@ def test_profile_trace_summary():
     assert s["idle_share"] == pytest.approx(0.65)
     assert (s["port_launches_per_step"], s["other_launches_per_step"]) == (0.5, 1.0)
     assert s["port_ms_per_step"] == pytest.approx(0.005)
+    assert [t["name"] for t in s["port"]] == ["(anonymous namespace)::finish<float>(int)"]

@@ -18,8 +18,9 @@ its Pallas kernels in interpret mode on the 8-device host mesh
   single-device path at mdy 4 and 8 (P = 8, the minimum): bit-identical,
   because each shard's own rows run the same float32 operations; run_chunk
   equals stepping; tail_from=1 equals no tail.
-* The refusals, the 1-shard delegation, make_mesh, Simulation(mesh=) and
-  the CLI's --mesh.
+* The refusals (the step flavor, A.12c), the 1-shard delegation,
+  make_mesh, Simulation(mesh=) and the CLI's --mesh. The channel and RB
+  flavors: tests/test_torch_quad_sharded_flavors.py.
 """
 
 import jax
@@ -33,8 +34,7 @@ from cfd_tpu.cases import make_cavity_case as jax_case
 from cfd_tpu.kernels import quad as JQ
 from cfd_tpu.parallel.quad_sharded import ShardedQuadCavity as JaxShardedQuadCavity
 from cfd_tpu.poisson import multigrid as JM
-from cfd_tpu_torch.cases import (make_backwards_step_case, make_cavity_case,
-                                 make_channel_case, make_rayleigh_benard_case)
+from cfd_tpu_torch.cases import make_backwards_step_case, make_cavity_case
 from cfd_tpu_torch.kernels import quad as TQ
 from cfd_tpu_torch.parallel import (ShardedQuadCavity, ShardedQuadProjection, global_max,
                                     global_sum, make_mesh)
@@ -323,8 +323,6 @@ def test_sharded_config_refusals(kw, exc, match):
 
 
 @pytest.mark.parametrize("make,kw,item", [
-    (make_channel_case, dict(nx=64, ny=32, poisson="multigrid"), "A.12b"),
-    (make_rayleigh_benard_case, dict(nx=64, ny=32), "A.12b"),
     (make_backwards_step_case, dict(nx=64, ny=16, poisson="multigrid"), "A.12c"),
 ])
 def test_other_flavors_are_refused(make, kw, item):
@@ -420,7 +418,7 @@ def test_cli_mesh(capsys):
     assert main(["cavity", "--mesh", "4", *args]) == 0
     out = capsys.readouterr().out
     assert "mesh: 4x1 plane-row decomposition over cpu" in out and "Step      2" in out
-    with pytest.raises(SystemExit, match="cavity"):
-        main(["channel", "--mesh", "4", *args[4:], "--Nx", "64", "--Ny", "32"])
+    with pytest.raises(SystemExit, match="A.12c"):
+        main(["backwards_step", "--mesh", "4", *args[4:], "--Nx", "64", "--Ny", "16"])
     with pytest.raises(SystemExit, match="lagged"):
         main(["cavity", "--mesh", "4", "--adaptive-dt", "0.7", *args])
