@@ -18,6 +18,9 @@ Usage:
         --no-vtk --steps 300 --steps-per-call 100 --mg whole_step=true
     python -m cfd_tpu_torch.cli cavity --Nx 2048 --Ny 2048 --precision f32 \
         --poisson multigrid --no-vtk --steps 300 --steps-per-call 100 --mesh 4
+    python -m cfd_tpu_torch.cli backwards_step --Nx 2048 --Ny 256 --precision f32 \
+        --poisson multigrid --no-vtk --steps 300 --steps-per-call 100 \
+        --print-interval 100 --save-interval 100 --mesh 4
 
 The flags are the reference CLI's for the ported paths, with its defaults
 per case (cfd_tpu/cli.py:103-106). VTK export is not ported yet, so a run
@@ -27,12 +30,12 @@ metrics, meshes) are refused with a message instead of being ignored.
 --adaptive-controller (exact: the cavity only; lagged: every case).
 --mg K=V[,K=V...] overrides MGConfig fields as the reference's flag does
 (cfd_tpu/cli.py:84-88, 133-156); --mg whole_step=true runs the whole time
-step in one kernel. --mesh N runs the cavity, the channel or Rayleigh-Benard
-on the sharded quad path over an N-shard plane-row mesh
-(parallel.quad_sharded; every shard on the --device's cards, round-robin,
-so one card holds them all), with the reference's checks
-(cfd_tpu/cli.py:221-233); its solve takes the sharded engine's own config
-(tol_factor 1e-9; V(2,1), the channel V(1,2)), as the reference's does.
+step in one kernel. --mesh N runs any of the four cases on the sharded quad
+path over an N-shard plane-row mesh (parallel.quad_sharded; every shard on
+the --device's cards, round-robin, so one card holds them all), with the
+reference's checks (cfd_tpu/cli.py:221-233); its solve takes the sharded
+engine's own config (tol_factor 1e-9; V(2,1), the channel V(1,2), the step
+V(1,1)), as the reference's does.
 --save-interval sets the case's save interval, which
 --steps-per-call must divide (no exporter reads it yet). The
 Rayleigh-Benard case always solves with multigrid and ignores --poisson and
@@ -82,8 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "kernel with one-step-stale feedback (every case)")
         sp.add_argument("--mesh", type=int, default=None, metavar="N",
                         help="shard the domain over N shards (1-D plane-row decomposition "
-                             "on the quad path; the cavity, f32 multigrid; one card may "
-                             "hold every shard)")
+                             "on the quad path, f32 multigrid; one card may hold every "
+                             "shard)")
         sp.add_argument("--no-vtk", action="store_true", help="disable VTK export")
         sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda runs the CUDA kernels; cpu runs their plain "
@@ -180,9 +183,6 @@ def main(argv=None) -> int:
                              "add --adaptive-controller lagged")
         if args.precision != "f32":
             raise SystemExit("--mesh runs the f32 quad fast path: add --precision f32")
-        if args.case == "backwards_step":
-            raise SystemExit("--mesh: the sharded backwards_step flavor is not ported yet "
-                             "(ROADMAP.md queue A item A.12c)")
         if args.adaptive_dt is not None:
             raise SystemExit("--mesh with --adaptive-dt: the sharded lagged controller is "
                              "not ported yet (ROADMAP.md queue A item A.12d)")

@@ -1,8 +1,10 @@
 // Per-cell bodies of the backward step's tentative-carry stages on the quad
 // layout: the masked corrector and the masked predictor + source, with the
-// step BCs. Shared by the standalone stage kernels (step_stage.cu) and the
-// whole-step kernel (whole_step.cu). The BC order is described in
-// step_stage.cu.
+// step BCs. Shared by the standalone stage kernels (step_stage.cu, on a
+// whole field or on a shard's local block) and the whole-step kernel
+// (whole_step.cu). The BC order is described in step_stage.cu. On a local
+// block (row0 != 0, common.cuh) every j is global, so the masks, the
+// inlet rows and the interface faces keep their global meaning.
 #pragma once
 
 #include "common.cuh"
@@ -14,6 +16,7 @@ namespace step {
 struct Step {
   int Hq8, Wqa, ny, nx, step_i, inlet_j;
   float cu, cv, uin;
+  int row0 = 0;  // a sharded local block's global plane row of row 0 (common.cuh)
 };
 
 __device__ __forceinline__ bool u_valid(int j, int i, const Step& s) {
@@ -75,25 +78,29 @@ __device__ __forceinline__ float step_v(F f, int j, int i, const Step& s) {
 __device__ __forceinline__ float u_corr(const float* us, const float* p, int j, int i,
                                         const Step& s) {
   if (!u_valid(j, i, s)) return 0.f;
-  const float pc = qld(p, j, i, s.Hq8, s.Wqa);
-  const float pe = qld(p, j, i + 1, s.Hq8, s.Wqa);
-  return qld(us, j, i, s.Hq8, s.Wqa) - s.cu * (pe - pc);
+  const float pc = qld(p, j, i, s.Hq8, s.Wqa, s.row0);
+  const float pe = qld(p, j, i + 1, s.Hq8, s.Wqa, s.row0);
+  return qld(us, j, i, s.Hq8, s.Wqa, s.row0) - s.cu * (pe - pc);
 }
 
 __device__ __forceinline__ float v_corr(const float* vs, const float* p, int j, int i,
                                         const Step& s) {
   if (!v_valid(j, i, s)) return 0.f;
-  const float pc = qld(p, j, i, s.Hq8, s.Wqa);
-  const float pn = qld(p, j + 1, i, s.Hq8, s.Wqa);
-  return qld(vs, j, i, s.Hq8, s.Wqa) - s.cv * (pn - pc);
+  const float pc = qld(p, j, i, s.Hq8, s.Wqa, s.row0);
+  const float pn = qld(p, j + 1, i, s.Hq8, s.Wqa, s.row0);
+  return qld(vs, j, i, s.Hq8, s.Wqa, s.row0) - s.cv * (pn - pc);
 }
 
 // The step corrector at quad cell idx: the rho-divided correction on valid
-// faces and the step BCs into u2, v2. Returns (|u|, |v|).
+// faces and the step BCs into u2, v2. Returns (|u|, |v|). kBlock: a shard's
+// local block at s.row0; a whole field folds the row offset away at compile
+// time.
+template <bool kBlock = false>
 __device__ __forceinline__ float2 corrector_cell(const float* us, const float* vs,
                                                  const float* p, float* u2, float* v2,
-                                                 long long idx, const Step& s) {
-  const cfd::QuadCell cell = cfd::quad_cell(idx, s.Hq8, s.Wqa);
+                                                 long long idx, Step s) {
+  if constexpr (!kBlock) s.row0 = 0;
+  const cfd::QuadCell cell = cfd::quad_cell(idx, s.Hq8, s.Wqa, s.row0);
   auto uc = [&](int j, int i) { return u_corr(us, p, j, i, s); };
   auto vc = [&](int j, int i) { return v_corr(vs, p, j, i, s); };
   const float u = step_u(uc, cell.j, cell.i, s);
@@ -105,12 +112,16 @@ __device__ __forceinline__ float2 corrector_cell(const float* us, const float* v
 
 // The step predictor at quad cell idx on valid faces, the step BCs on the
 // tentative fields, b = rho/dt * div on the fluid cells (0 elsewhere);
-// returns b.
+// returns b. kBlock as corrector_cell's (c.row0 == s.row0 on a block).
+template <bool kBlock = false>
 __device__ __forceinline__ float predictor_source_cell(const float* u, const float* v,
                                                        float* us2, float* vs2, float* b,
-                                                       long long idx, const Pred& c,
-                                                       const Step& s) {
-  const cfd::QuadCell cell = cfd::quad_cell(idx, s.Hq8, s.Wqa);
+                                                       long long idx, Pred c, Step s) {
+  if constexpr (!kBlock) {
+    c.row0 = 0;
+    s.row0 = 0;
+  }
+  const cfd::QuadCell cell = cfd::quad_cell(idx, s.Hq8, s.Wqa, s.row0);
   const int j = cell.j, i = cell.i;
   auto fu = [&](int jj, int ii) {
     return u_valid(jj, ii, s) ? cfd::u_star(u, v, jj, ii, c) : 0.f;

@@ -6,9 +6,10 @@ adaptive-stepping instances, their whole time steps in one launch, the
 fused coarse tail, the bfloat16 and corr_opt instances of the whole-solve
 and the whole step, the natural layout's stage kernels, fused-residual
 pairs and exact masked pairs, the cavity carry with the first pre-smooth
-folded in, the channel's non-carry stage, the cavity's carry, pre and post
-and the channel's and RB's carries on one shard's local block of a
-plane-row mesh), each with its launch counter (kernels._build.Kernel)."""
+folded in, the channel's non-carry stage, the cavity's carry, pre and post,
+the channel's and RB's carries and the step's carry, pre and post on one
+shard's local block of a plane-row mesh), each with its launch counter
+(kernels._build.Kernel)."""
 
 from cfd_tpu_torch.kernels.mg_tail import MG_TAIL, MG_TAIL_FULL
 from cfd_tpu_torch.kernels.projection import (
@@ -45,6 +46,9 @@ from cfd_tpu_torch.kernels.rb_quad import (
 )
 from cfd_tpu_torch.kernels.rb_smoother import RB_PAIRS, RB_PAIRS_FULL, RB_PAIRS_RES
 from cfd_tpu_torch.kernels.step_quad import (
+    SHARD_STEP_CARRY,
+    SHARD_STEP_POST,
+    SHARD_STEP_PRE,
     STEP_CARRY,
     STEP_CARRY_ADAPTIVE,
     STEP_CORRECTOR,
@@ -86,6 +90,7 @@ KERNELS = (CARRY, CORRECTOR, PRE, POST, RB_PAIRS, CHANNEL_CARRY, CHANNEL_CORRECT
            STEP_WHOLE_SOLVE_CORR_OPT, WHOLE_STEP_STEP_CORR_OPT, NATURAL_PREDICTOR_SOURCE,
            NATURAL_CORRECTOR, NATURAL_CHANNEL_PREDICTOR_SOURCE, NATURAL_CHANNEL_CORRECTOR,
            RB_PAIRS_RES, STEP_PAIRS, STEP_PAIRS_RES, FUSED_PRE, CHANNEL_PREDICTOR_SOURCE,
-           SHARD_CARRY, SHARD_PRE, SHARD_POST, SHARD_CHANNEL_CARRY, SHARD_RB_CARRY)
+           SHARD_CARRY, SHARD_PRE, SHARD_POST, SHARD_CHANNEL_CARRY, SHARD_RB_CARRY,
+           SHARD_STEP_CARRY, SHARD_STEP_PRE, SHARD_STEP_POST)
 
 __all__ = ["KERNELS"]

@@ -69,9 +69,10 @@ SIGNATURES = {
     "cfd_mg_tail": [_P] * 5 + [_I] + [_P] * 3 + [_F] + [_I] * 2 + [_P],
     "cfd_whole_step_grid": [_I] + [_P] * 3,
     "cfd_step_corrector": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P],
-    "cfd_step_carry": [_P] * 10 + [_I] * 6 + [_F] * 10 + [_P],
-    "cfd_step_pre_smooth_restrict": [_P] * 5 + [_I] * 6 + [_F] * 5 + [_I, _P],
-    "cfd_step_post_prolong_smooth": [_P] * 6 + [_I] * 6 + [_F] * 5 + [_I, _P],
+    # the step's carry, pre and post: the last two ints as the cavity's
+    "cfd_step_carry": [_P] * 10 + [_I] * 6 + [_F] * 10 + [_I, _I, _P],
+    "cfd_step_pre_smooth_restrict": [_P] * 5 + [_I] * 6 + [_F] * 5 + [_I] * 3 + [_P],
+    "cfd_step_post_prolong_smooth": [_P] * 6 + [_I] * 6 + [_F] * 5 + [_I] * 3 + [_P],
     "cfd_rb_pairs_full": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I, _P],
     "cfd_rb_corrector": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_P],
     "cfd_rb_carry": [_P] * 14 + [_I] * 4 + [_F] * 13 + [_I, _I, _P],

@@ -19,8 +19,10 @@ PyTorch, any device), ``kernel`` (csrc/step_stage.cu, csrc/step_vcycle.cu;
 CUDA tensors only) and ``__call__``/``forward``, which sends CPU tensors to
 ``plain`` and CUDA tensors to ``kernel`` and never falls back. The
 adaptive-stepping instances (``traced_dt``, and ``emit_courant`` on the
-carry) follow kernels.quad's. Not ported: ``shard`` (ROADMAP.md queue B
-item 16).
+carry) follow kernels.quad's. ``shard=(P, mdy)``: the carry, pre and post
+on one shard's local block of a plane-row mesh (row 16f,
+parallel.quad_sharded), the kernels.quad *Shard contract; the sharded
+traced-dt carry is not ported yet (ROADMAP.md queue A item A.12d).
 """
 
 from __future__ import annotations
@@ -30,16 +32,23 @@ from torch import nn
 
 from cfd_tpu_torch.kernels._build import Kernel, ptr, route
 from cfd_tpu_torch.kernels.quad import (
+    DEV_HALO,
     SUM_BLOCK,
+    _band_maker,
     _bilinear_corr,
+    _block_rows,
     _check,
     _courant,
+    _crop_rows,
+    _pad_rows,
     _predictor_quad,
     _qiota,
     _qshift,
+    _restrict_rc,
     _Traced,
     _where4,
     fixed_order_sum,
+    own_row_sum,
     quad_dims,
     quad_shape,
     rho_over,
@@ -61,6 +70,17 @@ STEP_CORRECTOR_TRACED = Kernel("quad_step_corrector_traced", "cfd_step_corrector
 STEP_CARRY_ADAPTIVE = Kernel("quad_step_corr_predictor_source_adaptive",
                              "cfd_step_carry_adaptive", "cfd_tpu_torch/csrc/step_stage.cu",
                              "cfd_tpu/kernels/step_quad.py:100")
+# the carry, pre and post on one shard's local block of the plane-row mesh
+# (parallel.quad_sharded), counted apart
+SHARD_STEP_CARRY = Kernel("quad_step_corr_predictor_source_shard", "cfd_step_carry",
+                          "cfd_tpu_torch/csrc/step_stage.cu",
+                          "cfd_tpu/kernels/step_quad.py:100 (shard=)")
+SHARD_STEP_PRE = Kernel("quad_step_pre_smooth_restrict_shard", "cfd_step_pre_smooth_restrict",
+                        "cfd_tpu_torch/csrc/step_vcycle.cu",
+                        "cfd_tpu/kernels/step_quad.py:354 (shard=)")
+SHARD_STEP_POST = Kernel("quad_step_post_prolong_smooth_shard", "cfd_step_post_prolong_smooth",
+                         "cfd_tpu_torch/csrc/step_vcycle.cu",
+                         "cfd_tpu/kernels/step_quad.py:419 (shard=)")
 
 
 def _step_masks(grow, gcol, ny: int, nx: int, step_i: int, inlet_j: int):
@@ -211,9 +231,16 @@ class QuadStepCorrPredictorSource(_StepStage):
     def _stage(self, us, vs, p, cu=None, cv=None, dt=None):
         """(us', vs', b', sum b', u, v): the stage with the corrected fields
         u, v, at the host's coefficients or the traced ones."""
+        grow, gcol, masks = self._geometry(us.device)
+        u, v = self._corrected(us, vs, p, grow, gcol, *masks[1:], cu, cv)
+        us2, vs2, b = self._source(u, v, grow, gcol, masks, dt)
+        return us2, vs2, b, fixed_order_sum(b), torch.stack(u), torch.stack(v)
+
+    def _source(self, u, v, grow, gcol, masks, dt=None):
+        """(us', vs', b'): the predictor on the valid faces of the corrected
+        u, v, the step BCs on the tentative fields, b on the fluid cells."""
         c = self.coeffs
-        grow, gcol, (fluid, u_valid, v_valid) = self._geometry(us.device)
-        u, v = self._corrected(us, vs, p, grow, gcol, u_valid, v_valid, cu, cv)
+        fluid, u_valid, v_valid = masks
         us_raw, vs_raw = _predictor_quad(u, v, c, dt)
         zero = torch.zeros_like(u[0])
         us2 = [torch.where(u_valid[q], us_raw[q], zero) for q in range(4)]
@@ -225,9 +252,7 @@ class QuadStepCorrPredictorSource(_StepStage):
         for q in range(4):
             div = (us2[q] - usW[q]) * c.idx + (vs2[q] - vsS[q]) * c.idy
             b.append(torch.where(fluid[q], rho_dt * div, torch.zeros_like(div)))
-        b = torch.stack(b)
-        return (torch.stack(us2), torch.stack(vs2), b, fixed_order_sum(b), torch.stack(u),
-                torch.stack(v))
+        return torch.stack(us2), torch.stack(vs2), torch.stack(b)
 
     def kernel(self, us, vs, p):
         u_scr, v_scr, us2, vs2, b = (torch.empty_like(us) for _ in range(5))
@@ -238,7 +263,63 @@ class QuadStepCorrPredictorSource(_StepStage):
         STEP_CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(u_scr), ptr(v_scr), ptr(us2),
                    ptr(vs2), ptr(b), ptr(partials), ptr(sum_b), *self._ints(), self.cu,
                    self.cv, self.uin, c.dt, c.viscosity, c.idx, c.idy, c.idx2, c.idy2,
-                   c.density / c.dt)
+                   c.density / c.dt, 0, 0)
+        return us2, vs2, b, sum_b
+
+
+class QuadStepCorrPredictorSourceShard(QuadStepCorrPredictorSource):
+    """The step carry on one shard's local block (row 16f,
+    cfd_tpu/kernels/step_quad.py:100 with shard=(P, mdy)): (row_base, us,
+    vs, p) -> (us', vs', b', sum_own) on (4, P + 16, Wqa) blocks. row_base =
+    jy * P - 8 is the global plane row of local row 0, so the masks, the
+    inlet rows and the interface faces keep their global meaning; sum_own
+    is the own rows' sum of b (own_row_sum): the shard's partial, which the
+    caller adds over the shards.
+
+    The twin is the single-device twin on the block padded with DEV_HALO
+    zero rows either side, the corrected u, v zeroed on the padding: the
+    kernel (csrc/step_stage.cu) reads 0 outside the block. The stages reach
+    5 rows (kStepRadius there), so the own rows equal the single-device
+    carry's."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, step_i: int, inlet_j: int,
+                 inlet_velocity: float = 1.0, shard: tuple[int, int] = (8, 1)):
+        super().__init__(shape, coeffs, step_i, inlet_j, inlet_velocity)
+        P, _ = shard
+        if P % 8:
+            raise ValueError(f"shard rows must be a multiple of 8, got {P}")
+        self.P = P
+        self.qshape = (4, P + 2 * DEV_HALO, self.qshape[2])
+
+    def __call__(self, row_base: int, us, vs, p):
+        _check(self.qshape, us, vs, p)
+        if route(us, vs, p) == "cuda":
+            return self.kernel(row_base, us, vs, p)
+        return self.plain(row_base, us, vs, p)
+
+    def plain(self, row_base, us, vs, p):
+        z, H = DEV_HALO, self.qshape[1]
+        grow, gcol = _qiota(H + 2 * z, self.qshape[2], us.device, row_base - z)
+        masks = _step_masks(grow, gcol, self.ny, self.nx, self.step_i, self.inlet_j)
+        u, v = self._corrected(*(_pad_rows(t, z) for t in (us, vs, p)), grow, gcol,
+                               *masks[1:])
+        block = _block_rows(H, z, us.device)
+        u = [torch.where(block, a, torch.zeros_like(a)) for a in u]
+        v = [torch.where(block, a, torch.zeros_like(a)) for a in v]
+        us2, vs2, b = (_crop_rows(t, z) for t in self._source(u, v, grow, gcol, masks))
+        return us2, vs2, b, own_row_sum(b, self.P)
+
+    def kernel(self, row_base, us, vs, p):
+        u_scr, v_scr, us2, vs2, b = (torch.empty_like(us) for _ in range(5))
+        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
+                               device=us.device)
+        sum_b = torch.empty((), dtype=torch.float32, device=us.device)
+        c = self.coeffs
+        with torch.cuda.device(us.device):  # the shards may lie on several cards
+            SHARD_STEP_CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(u_scr), ptr(v_scr), ptr(us2),
+                             ptr(vs2), ptr(b), ptr(partials), ptr(sum_b), *self._ints(),
+                             self.cu, self.cv, self.uin, c.dt, c.viscosity, c.idx, c.idy,
+                             c.idx2, c.idy2, c.density / c.dt, int(row_base), DEV_HALO)
         return us2, vs2, b, sum_b
 
 
@@ -304,9 +385,18 @@ def make_quad_step_corrector(shape, coeffs, step_i: int, inlet_j: int,
 
 
 def make_quad_step_corr_predictor_source(shape, coeffs, step_i: int, inlet_j: int,
-                                         inlet_velocity: float = 1.0, adaptive: bool = False
+                                         inlet_velocity: float = 1.0, adaptive: bool = False,
+                                         shard: tuple[int, int] | None = None
                                          ) -> QuadStepCorrPredictorSource:
-    """``adaptive``: the traced_dt + emit_courant instance."""
+    """``adaptive``: the traced_dt + emit_courant instance. ``shard=(P,
+    mdy)``: the kernel of one shard's local block
+    (QuadStepCorrPredictorSourceShard)."""
+    if shard is not None:
+        if adaptive:
+            raise NotImplementedError("the sharded traced-dt + Courant step carry is not "
+                                      "ported yet (ROADMAP.md queue A item A.12d)")
+        return QuadStepCorrPredictorSourceShard(shape, coeffs, step_i, inlet_j,
+                                                inlet_velocity, shard)
     cls = QuadStepCorrPredictorSourceAdaptive if adaptive else QuadStepCorrPredictorSource
     return cls(shape, coeffs, step_i, inlet_j, inlet_velocity)
 
@@ -347,12 +437,22 @@ class _StepLevel0(nn.Module):
     """Shared constants of the exact masked finest-level kernels. The
     Gauss-Seidel update is (1 - omega)*p + omega*gs with gs = (idx2*(E + W)
     + idy2*(N + S) - b) / denom, denom = 2*(idx2 + idy2), the reference's
-    unweighted 5-point operator over the ghosts (multigrid.py:995-999)."""
+    unweighted 5-point operator over the ghosts (multigrid.py:995-999).
+
+    ``shard=(P, mdy)``: the kernels of one shard's local block (4, P + 16,
+    Wqa) of an mdy-way plane-row mesh, whose level-1 block is (P + 16,
+    Wqa)."""
 
     def __init__(self, shape, step_i: int, inlet_j: int, idx2: float, idy2: float,
-                 omega: float, n_pairs: int, coarse_shape, device="cpu"):
+                 omega: float, n_pairs: int, coarse_shape, device="cpu",
+                 shard: tuple[int, int] | None = None):
         super().__init__()
         _, _, Hq8, Wqa = quad_dims(shape)
+        if shard is not None:
+            P, _ = shard
+            if P % 8:
+                raise ValueError(f"shard rows must be a multiple of 8, got {P}")
+            Hq8 = P + 2 * DEV_HALO
         if tuple(coarse_shape) != (Hq8, Wqa):
             raise ValueError(f"coarse shape {tuple(coarse_shape)} != quad plane "
                              f"shape {(Hq8, Wqa)}")
@@ -377,34 +477,46 @@ class _StepLevel0(nn.Module):
         return _step_ghosts_quad(p, grow, gcol, self.ny, self.nx, self.step_i,
                                  self.inlet_j)
 
-    def _smooth(self, p, b, grow, gcol, fluid):
+    def _ghost_stage(self, p, grow, gcol, band, k):
+        """Ghost stage number k of the ledger: its output on the rows of
+        band(k), its input elsewhere (every row without a band)."""
+        pg = self._ghosts(p, grow, gcol)
+        if band is None:
+            return pg
+        return [torch.where(band(k), g, x) for g, x in zip(pg, p)]
+
+    def _smooth(self, p, b, grow, gcol, fluid, band=None):
         """n_pairs exact (ghosts, red planes, black planes) iterations, then
-        the trailing ghosts (step_quad.py:305-336)."""
+        the trailing ghosts (step_quad.py:305-336); on a local block stage k
+        of that ledger (from 1) writes the rows of ``band(k)`` only."""
         idx2, idy2, omega = self.idx2, self.idy2, self.omega
         # a device tensor: on CUDA a Python divisor becomes a reciprocal
         # multiply, which the kernel's true division would not match
         denom = torch.tensor(self.denom, dtype=torch.float32, device=b[0].device)
 
-        def half(p, upd):
+        def half(p, upd, k):
             E, Wm = _qshift(p, 0, 1), _qshift(p, 0, -1)
             N, S = _qshift(p, 1, 0), _qshift(p, -1, 0)
             out = list(p)
             for q in upd:
                 gs = (idx2 * (E[q] + Wm[q]) + idy2 * (N[q] + S[q]) - b[q]) / denom
                 val = (1.0 - omega) * p[q] + omega * gs
-                out[q] = torch.where(fluid[q], val, p[q])
+                mask = fluid[q] if band is None else fluid[q] & band(k)
+                out[q] = torch.where(mask, val, p[q])
             return out
 
+        k = 0
         for _ in range(self.n_pairs):
-            p = self._ghosts(p, grow, gcol)
-            p = half(p, (0, 3))  # red: parity (r + s) even
-            p = half(p, (1, 2))
-        return self._ghosts(p, grow, gcol)
+            p = self._ghost_stage(p, grow, gcol, band, k + 1)
+            p = half(p, (0, 3), k + 2)  # red: parity (r + s) even
+            p = half(p, (1, 2), k + 3)
+            k += 3
+        return self._ghost_stage(p, grow, gcol, band, k + 1)
 
-    def _residual(self, p, b, grow, gcol, fluid):
-        """The exact residual: ghosts re-applied, then where(fluid, b - lap, 0)
-        (step_quad.py:339-351)."""
-        pg = self._ghosts(p, grow, gcol)
+    def _residual(self, p, b, grow, gcol, fluid, band=None):
+        """The exact residual: ghosts re-applied (the ledger's last stage on
+        a local block), then where(fluid, b - lap, 0) (step_quad.py:339-351)."""
+        pg = self._ghost_stage(p, grow, gcol, band, 3 * self.n_pairs + 2)
         E, Wm = _qshift(pg, 0, 1), _qshift(pg, 0, -1)
         N, S = _qshift(pg, 1, 0), _qshift(pg, -1, 0)
         out = []
@@ -418,6 +530,14 @@ class _StepLevel0(nn.Module):
         _, Hq8, Wqa = self.qshape
         return (Hq8, Wqa, self.ny, self.nx, self.step_i, self.inlet_j, self.idx2,
                 self.idy2, self.denom, self.omega, 1.0 - self.omega, self.n_pairs)
+
+    def _block_geometry(self, row_base: int, device):
+        """(grow, gcol, fluid, band) of a local block at ``row_base`` padded
+        with DEV_HALO zero rows either side, and its band (_band_maker)."""
+        z, H = DEV_HALO, self.qshape[1]
+        grow, gcol = _qiota(H + 2 * z, self.qshape[2], device, row_base - z)
+        fluid = _step_masks(grow, gcol, self.ny, self.nx, self.step_i, self.inlet_j)[0]
+        return grow, gcol, fluid, _band_maker(row_base, H, self.ny, device, pad=z)
 
     def _check_device(self, t):
         if t.device.type != self.device.type:
@@ -441,20 +561,12 @@ class QuadStepPreSmoothRestrict(_StepLevel0):
         grow, gcol, fluid = self._geometry(p.device)
         P = self._smooth(list(p), list(b), grow, gcol, fluid)
         r = self._residual(P, list(b), grow, gcol, fluid)
-        rc = 0.25 * (r[0]
-                     + torch.roll(r[1], 1, dims=1)
-                     + torch.roll(r[2], 1, dims=0)
-                     + torch.roll(torch.roll(r[3], 1, dims=0), 1, dims=1))
-        Hc, Wc = self.coarse_shape
-        Jc = torch.arange(Hc, device=p.device)[:, None]
-        Ic = torch.arange(Wc, device=p.device)[None, :]
-        cmask = (Jc >= 1) & (Jc <= self.ny // 2) & (Ic >= 1) & (Ic <= self.nx // 2)
-        return torch.stack(P), torch.where(cmask, rc, torch.zeros_like(rc))
+        return torch.stack(P), _restrict_rc(r, self.ny, self.nx)
 
     def kernel(self, p, b):
         p_out, scr = torch.empty_like(p), torch.empty_like(p)
         rc = torch.empty(self.coarse_shape, dtype=torch.float32, device=p.device)
-        STEP_PRE(p, ptr(p), ptr(b), ptr(p_out), ptr(scr), ptr(rc), *self._kernel_args())
+        STEP_PRE(p, ptr(p), ptr(b), ptr(p_out), ptr(scr), ptr(rc), *self._kernel_args(), 0, 0)
         return p_out, rc
 
 
@@ -485,21 +597,117 @@ class QuadStepPostProlongSmooth(_StepLevel0):
         p_out, scr = torch.empty_like(p), torch.empty_like(p)
         res = torch.empty((), dtype=torch.float32, device=p.device)
         STEP_POST(p, ptr(p), ptr(b), ptr(ec), ptr(p_out), ptr(scr), ptr(res),
-                  *self._kernel_args())
+                  *self._kernel_args(), 0, 0)
+        return p_out, res
+
+
+class QuadStepPreSmoothRestrictShard(QuadStepPreSmoothRestrict):
+    """The exact masked pre-smooth + residual + restriction on one shard's
+    local block (row 16f, cfd_tpu/kernels/step_quad.py:354 with shard=(P,
+    mdy)): (row_base, p4, b4) -> (p4, rc) with rc the (P + 16, Wqa) local
+    level-1 block. Stage k of the ledger updates the band of quad.py:
+    611-627 (_band_maker); the kernel (csrc/step_vcycle.cu) reads 0 outside
+    the block and takes the residual there as 0, which the twin does on the
+    block padded with zero rows. The own rows equal the single-device
+    kernel's."""
+
+    def forward(self, row_base: int, p, b):
+        _check(self.qshape, p, b)
+        self._check_device(p)
+        if route(p, b) == "cuda":
+            return self.kernel(row_base, p, b)
+        return self.plain(row_base, p, b)
+
+    def plain(self, row_base, p, b):
+        z, H = DEV_HALO, self.qshape[1]
+        grow, gcol, fluid, band = self._block_geometry(row_base, p.device)
+        bp = list(_pad_rows(b, z))
+        P = self._smooth(list(_pad_rows(p, z)), bp, grow, gcol, fluid, band)
+        block = _block_rows(H, z, p.device)
+        r = [torch.where(block, a, torch.zeros_like(a))
+             for a in self._residual(P, bp, grow, gcol, fluid, band)]
+        rc = _restrict_rc(r, self.ny, self.nx, row_base - z)
+        return _crop_rows(torch.stack(P), z), _crop_rows(rc, z)
+
+    def kernel(self, row_base, p, b):
+        p_out, scr = torch.empty_like(p), torch.empty_like(p)
+        rc = torch.empty(self.coarse_shape, dtype=torch.float32, device=p.device)
+        with torch.cuda.device(p.device):  # the shards may lie on several cards
+            SHARD_STEP_PRE(p, ptr(p), ptr(b), ptr(p_out), ptr(scr), ptr(rc),
+                           *self._kernel_args(), int(row_base), DEV_HALO)
+        return p_out, rc
+
+
+class QuadStepPostProlongSmoothShard(QuadStepPostProlongSmooth):
+    """The prolongation + exact masked post-smooth + tolerance residual on
+    one shard's local block (row 16f, cfd_tpu/kernels/step_quad.py:419 with
+    shard=(P, mdy)): (row_base, p4, b4, ec) -> (p4, res) with ec the (P +
+    16, Wqa) local solid-filled level-1 correction, whose row J + 1 wraps
+    within the block as the TPU kernel's roll does; the ledger's bands start
+    one row further in (:471-474), and res is max|r| over the own rows: the
+    shard's partial."""
+
+    def forward(self, row_base: int, p, b, ec):
+        _check(self.qshape, p, b)
+        _check(self.coarse_shape, ec)
+        self._check_device(p)
+        if route(p, b, ec) == "cuda":
+            return self.kernel(row_base, p, b, ec)
+        return self.plain(row_base, p, b, ec)
+
+    def plain(self, row_base, p, b, ec):
+        z, H = DEV_HALO, self.qshape[1]
+        grow, gcol = _qiota(H, self.qshape[2], p.device, row_base)
+        fluid = _step_masks(grow, gcol, self.ny, self.nx, self.step_i, self.inlet_j)[0]
+        corr = _bilinear_corr(ec, self.ny, self.nx, row_base)
+        P = [_pad_rows(torch.where(fluid[q], p[q] + corr[q], p[q]), z) for q in range(4)]
+        grow, gcol, fluid, band = self._block_geometry(row_base, p.device)
+        bp = list(_pad_rows(b, z))
+        shifted = lambda lo: band(lo + 1)
+        P = self._smooth(P, bp, grow, gcol, fluid, shifted)
+        r = torch.stack(self._residual(P, bp, grow, gcol, fluid, shifted))
+        own = r[:, z + DEV_HALO : z + H - DEV_HALO]
+        return _crop_rows(torch.stack(P), z), torch.max(torch.abs(own))
+
+    def kernel(self, row_base, p, b, ec):
+        p_out, scr = torch.empty_like(p), torch.empty_like(p)
+        res = torch.empty((), dtype=torch.float32, device=p.device)
+        with torch.cuda.device(p.device):
+            SHARD_STEP_POST(p, ptr(p), ptr(b), ptr(ec), ptr(p_out), ptr(scr), ptr(res),
+                            *self._kernel_args(), int(row_base), DEV_HALO)
         return p_out, res
 
 
 def make_quad_step_pre_smooth_restrict(shape, step_i: int, inlet_j: int, idx2: float,
                                        idy2: float, omega: float, n_pairs: int,
-                                       coarse_shape, device="cpu"
+                                       coarse_shape, device="cpu",
+                                       shard: tuple[int, int] | None = None
                                        ) -> QuadStepPreSmoothRestrict:
-    return QuadStepPreSmoothRestrict(shape, step_i, inlet_j, idx2, idy2, omega, n_pairs,
-                                     coarse_shape, device)
+    """``shard=(P, mdy)``: the kernel of one shard's local block
+    (QuadStepPreSmoothRestrictShard; coarse_shape is the local (P + 16,
+    Wqa)). Its exact smoother's ledger (a ghost stage, red, black per pair,
+    the trailing ghost stage, the residual's ghost stage, the restriction)
+    consumes a row of the 8-row halo each, so n_pairs must be 1 there
+    (step_quad.py:374-380)."""
+    if shard is not None and n_pairs > 1:
+        raise ValueError(f"sharded masked pre-smoother: n_pairs={n_pairs} consumes "
+                         f"{3 * n_pairs + 5} rows > the 8-row device halo (V(1,1) only)")
+    cls = QuadStepPreSmoothRestrict if shard is None else QuadStepPreSmoothRestrictShard
+    return cls(shape, step_i, inlet_j, idx2, idy2, omega, n_pairs, coarse_shape, device,
+               shard)
 
 
 def make_quad_step_post_prolong_smooth(shape, step_i: int, inlet_j: int, idx2: float,
                                        idy2: float, omega: float, n_pairs: int,
-                                       coarse_shape, device="cpu"
+                                       coarse_shape, device="cpu",
+                                       shard: tuple[int, int] | None = None
                                        ) -> QuadStepPostProlongSmooth:
-    return QuadStepPostProlongSmooth(shape, step_i, inlet_j, idx2, idy2, omega, n_pairs,
-                                     coarse_shape, device)
+    """``shard=(P, mdy)``: the kernel of one shard's local block
+    (QuadStepPostProlongSmoothShard; n_pairs 1, as the pre kernel's,
+    step_quad.py:437-443)."""
+    if shard is not None and n_pairs > 1:
+        raise ValueError(f"sharded masked post-smoother: n_pairs={n_pairs} consumes "
+                         f"{1 + 3 * n_pairs + 4} rows > the 8-row device halo (V(1,1) only)")
+    cls = QuadStepPostProlongSmooth if shard is None else QuadStepPostProlongSmoothShard
+    return cls(shape, step_i, inlet_j, idx2, idy2, omega, n_pairs, coarse_shape, device,
+               shard)

@@ -1,13 +1,14 @@
 """Domain decomposition over a mesh of devices (the port of cfd_tpu.parallel):
-the cavity, the channel and Rayleigh-Benard on the sharded quad path.
+the cavity, the channel, Rayleigh-Benard and the backward-facing step on
+the sharded quad path.
 
 Ported: ``mesh`` (factor_2d, make_mesh: a single-controller Mesh, one
 process holding an ordered list of devices, one per shard), ``halo``
 (global_max, global_sum over per-shard partials) and ``quad_sharded``
-(ShardedQuadProjection, the cavity, channel and rayleigh_benard flavors).
-Not ported yet: the XLA paths sharded.py and mg_sharded.py and
-halo.exchange_halos, the step flavor (ROADMAP.md queue A item A.12c) and
-the sharded adaptive instances (A.12d)."""
+(ShardedQuadProjection, the cavity, channel, rayleigh_benard and
+backwards_step flavors). Not ported yet: the XLA paths sharded.py and
+mg_sharded.py and halo.exchange_halos, and the sharded adaptive instances
+(ROADMAP.md queue A item A.12d)."""
 
 from cfd_tpu_torch.parallel.halo import global_max, global_sum
 from cfd_tpu_torch.parallel.mesh import Mesh, factor_2d, make_mesh

@@ -10,7 +10,7 @@ step goes on the card.
     python -m cfd_tpu_torch.profile_step --case cavity --layout aligned
     python -m cfd_tpu_torch.profile_step --case step --nx 512 --ny 30
     python -m cfd_tpu_torch.profile_step --fuse-pre --mg per-kernel
-    python -m cfd_tpu_torch.profile_step --mesh 4 [--case cavity|channel|rb]
+    python -m cfd_tpu_torch.profile_step --mesh 4 [--case cavity|channel|step|rb]
                                          [--mg tail_from=1]
 
 Drives a main path on cuda through Simulation's step function: the cavity,
@@ -33,11 +33,12 @@ the step at 512x30) take the natural layout by the auto rule. ``--fuse-pre``
 per-kernel`` or a manual knob such as ``tail_from=1``) the carry runs the
 first cycle's pre-smooth and restriction (kernels.quad
 QuadCorrPredictorSourceFusedPre); the whole-solve ignores it. ``--mesh N``
-(cavity, channel, rb) runs the sharded quad path on an N-shard plane-row
-mesh whose shards all live on the card (Simulation(mesh=make_mesh(N),
-sharded_kwargs=...): tol_factor 1e-6 for the cavity and the channel, RB's
-own tolerances 1e-7 and 1e-10); ``--mg`` overrides then go to the sharded
-solve's own config, parallel.quad_sharded.
+runs the sharded quad path on an N-shard plane-row mesh whose shards all
+live on the card (Simulation(mesh=make_mesh(N), sharded_kwargs=...):
+tol_factor 1e-6 for the cavity, the channel and the step (V(1,1), its
+case built with abs_tol 0), RB's own tolerances 1e-7 and 1e-10); ``--mg``
+overrides then go to the sharded solve's own config,
+parallel.quad_sharded.
 The steps' V-cycle counts stay on the card until each window ends, as in
 Simulation.run, so no window reads the host between its steps. It runs
 three windows:
@@ -184,13 +185,19 @@ def make_case(args):
 def mesh_case(args):
     """The case of ``--mesh`` on cuda, its name and its sharded solve's
     kwargs (the module docstring)."""
-    from cfd_tpu_torch.cases import (make_cavity_case, make_channel_case,
-                                     make_rayleigh_benard_case)
+    from cfd_tpu_torch.cases import (make_backwards_step_case, make_cavity_case,
+                                     make_channel_case, make_rayleigh_benard_case)
 
     if args.case == "cavity":
         case = make_cavity_case(n_interior=args.n, poisson="multigrid", dtype=torch.float32,
                                 tolerance_factor=1e-6, device="cuda")
         return case, f"cavity {args.n}^2", {"tol_factor": 1e-6}
+    if args.case == "step":
+        nx, ny = args.nx or 2048, args.ny or 256
+        case = make_backwards_step_case(nx=nx, ny=ny, poisson="multigrid",
+                                        dtype=torch.float32, tolerance_factor=1e-6,
+                                        abs_tol=0.0, device="cuda")
+        return case, f"step {nx}x{ny}", {"tol_factor": 1e-6}
     nx, ny = args.nx or 1536, args.ny or 512
     if args.case == "rb":
         case = make_rayleigh_benard_case(nx=nx, ny=ny, rayleigh=1e6, dtype=torch.float32,
@@ -231,8 +238,7 @@ def main(argv=None) -> int:
     ap.add_argument("--fuse-pre", action="store_true",
                     help="cavity: fuse_pre=True (taken on the per-kernel solve)")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="cavity/channel/rb: the sharded quad path on an N-shard plane-row "
-                         "mesh on the card")
+                    help="the sharded quad path on an N-shard plane-row mesh on the card")
     ap.add_argument("--warmup", type=int, default=100)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--out", type=Path, default=DEFAULT_OUT)
@@ -250,9 +256,6 @@ def main(argv=None) -> int:
         from cfd_tpu_torch.cli import parse_mg
         from cfd_tpu_torch.parallel import make_mesh
 
-        if args.case == "step":
-            raise SystemExit("profile_step: --mesh: the sharded step is not ported yet "
-                             "(ROADMAP.md queue A item A.12c)")
         if args.fuse_pre or args.layout != "auto":
             raise SystemExit("profile_step: --mesh runs the quad layout without --fuse-pre")
         case, what, kw = mesh_case(args)

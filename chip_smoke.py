@@ -227,6 +227,34 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
 37. The sharded channel and RB card against CPU over 20 steps on 4 shards:
     the channel at 256x128 (P = 24) and 96x32 (P = 8, the minimum), RB at
     256x128: equal cycles every step, fields within 5e-5.
+38. The step's shard kernels (row 16f: the carry, pre and post, the entry
+    points of rows 9a, 9c and 9d told the block's row_base and halo) at the
+    2048x256 shapes of a 4-shard mesh (P = 40, local blocks (4, 56, 1152);
+    the first solid row, plane row 64, is shard 1's local row 32), for
+    shards 0, 1 and 3: bit-identical to their twins on every row, and on
+    the own rows equal to rows 9a, 9c and 9d (the per-kernel V(1,1)
+    solve's) on the same global rows; times on shard 1 as in phase 2, the
+    bound of one local block (its fluid cells for the operations).
+39. The sharded step: make_backwards_step_case(nx=2048, ny=256,
+    tolerance_factor=1e-6, abs_tol=0) on make_mesh(4), Simulation(mesh=,
+    sharded_kwargs={"tol_factor": 1e-6}), 300 steps (V(1,1), the masked
+    defect correction on the shards). Held (a) over all 300 steps to the
+    single-device per-kernel V(1,1) run whose source sums add the shards'
+    own-row partials in shard order (shard_order_case): equal cycles and
+    bit-identical fields; (b) over the first 3 steps to the plain
+    single-device per-kernel V(1,1) run at the reference's bands
+    (tests/test_quad_sharded.py:233-280): cycles within 1, u and v within
+    2e-5 of scale, p within 5e-4 (the reference's band for the source
+    mean's float32 rounding, :210-222, as phase 36's channel: at 2048x256
+    p's gap measured 2.05e-5 of scale on an H100 at 700 W); the 300-step
+    gap printed. Steps/s beside the
+    single-device run's, V-cycles/step, launches/step. Then 100 steps with
+    tail_from=1 (the fused tail from level 2) bit-identical to the sharded
+    run's first 100, and a 1-shard mesh with default kwargs, which
+    delegates: rows 9a, 9c, 9d launch, 16f does not.
+40. The sharded step card against CPU over 20 steps: 512x64 on 4 shards
+    (P = 16, the corner row on shard 1's first own row) and 32x8 on 2 (the
+    coarse switch at level 1): equal cycles every step, fields within 5e-5.
 
 The line before the last is a JSON object {"kernels": [...]}: per kernel,
 its launches on its path's run, its error against its twin, its time and
@@ -281,7 +309,7 @@ MAX_CO, GROWTH = 0.7, 1.2
 # layout, and 512 / 2 * 30 / 2 = 3840 coarsest cells keep the host's dense
 # pinv build short
 NATURAL_STEP = (512, 30)
-# the sharded paths (phases 32-37): shards of the plane-row mesh on the card
+# the sharded paths (phases 32-40): shards of the plane-row mesh on the card
 SHARDS = 4
 
 
@@ -1916,6 +1944,138 @@ def flavor_sharded_phases(card: str, dev) -> tuple[dict, dict]:
     return checks, launches
 
 
+def check_step_shard_kernels(case, dev) -> dict:
+    """Phase 38: row 16f against its twins on shards 0, 1 and 3 of a
+    SHARDS-way mesh at the step's shapes, and on the own rows against the
+    single-device kernels (rows 9a, 9c, 9d) of the per-kernel V(1,1)
+    ``case``."""
+    from cfd_tpu_torch.kernels import quad as Q
+    from cfd_tpu_torch.kernels import step_quad as SQ
+    from cfd_tpu_torch.kernels.mg_tail import level_masks
+    from cfd_tpu_torch.poisson.multigrid import step_rect_params
+
+    rng = np.random.default_rng(38)
+    g = case.grid
+    shape = g.shape
+    _, P, W = Q.quad_shard_dims(shape, SHARDS)
+    H = Q.DEV_HALO
+    fluid = g.fluid.astype(np.float32)
+
+    def field(scale=0.1, fluid_only=False):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        return Q.to_quad(torch.from_numpy(a * fluid if fluid_only else a).to(dev), shape)
+
+    us, vs, p = field(), field(), field(fluid_only=True)
+    b = field(scale=1e3, fluid_only=True)
+    solve = case.poisson_solve
+    lv1 = solve.levels[0]
+    ec = torch.from_numpy(rng.standard_normal(lv1.shape).astype(np.float32) * 0.1).to(dev)
+    ec = ec * level_masks(lv1, dev)[1]
+    carry, pre0, post0 = case.step_kernels[0], solve.pre0, solve.post0
+    step_i, inlet_j = step_rect_params(g)
+    loc, shard = (P + 2 * H, W), (P, SHARDS)
+    level0 = (shape, step_i, inlet_j, pre0.idx2, pre0.idy2, pre0.omega, 1, loc)
+    pre = SQ.make_quad_step_pre_smooth_restrict(*level0, device=dev, shard=shard)
+    post = SQ.make_quad_step_post_prolong_smooth(*level0, device=dev, shard=shard)
+    rows = slice(2 * (P - H), 2 * (2 * P + H))  # shard 1's block, in logical rows
+    cells = 2 * (P + 2 * H) * g.nx  # the block's logical cells
+    n_fluid = int(fluid[rows].sum())  # and its fluid cells
+    checks = (
+        (SQ.SHARD_STEP_CARRY, SQ.make_quad_step_corr_predictor_source(
+            shape, case.coeffs, step_i, inlet_j, carry.uin, shard=shard),
+         (us, vs, p), carry.kernel(us, vs, p), ("us'", "vs'", "b", "sum_own"), 3,
+         cells * (CORRECTOR_OPS + PREDICTOR_SOURCE_OPS)),
+        (SQ.SHARD_STEP_PRE, pre, (p, b), pre0.kernel(p, b), ("p", "rc"), 2,
+         n_fluid * (STEP_GS_OPS + STEP_RES_OPS) + cells // 4 * RESTRICT_OPS),
+        (SQ.SHARD_STEP_POST, post, (p, b, ec), post0.kernel(p, b, ec), ("p", "max|r|"), 1,
+         n_fluid * (PROLONG_OPS + STEP_GS_OPS + STEP_RES_OPS + 1)))
+    results = {}
+    for kern, op, fields, single, names, n_fields, n_ops in checks:
+        errs, (ms, plain_ms, n_bytes) = check_shard_op(kern.name, op, fields, single, names,
+                                                       n_fields, P)
+        results[kern.name] = dict(err=max(errs), ms=ms, plain_ms=plain_ms,
+                                  **bound(n_bytes, n_ops))
+    return results
+
+
+def step_sharded_phases(card: str, dev) -> tuple[dict, dict]:
+    """Phases 38-40: row 16f against its twins, the sharded step against the
+    single-device per-kernel V(1,1) path at full width, card against CPU.
+    Returns the kernels' checks and the 300-step run's launches."""
+    from cfd_tpu_torch.cases import make_backwards_step_case
+    from cfd_tpu_torch.kernels import mg_tail as MT
+    from cfd_tpu_torch.kernels import rb_smoother as RB
+    from cfd_tpu_torch.kernels import step_quad as SQ
+    from cfd_tpu_torch.kernels import whole_solve as WS
+    from cfd_tpu_torch.solver import Simulation
+
+    nx, ny = STEP
+    st_kw = dict(nx=nx, ny=ny, poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0,
+                 dtype=torch.float32, print_interval=100, save_interval=100)
+    v11 = {"whole_solve": False, "pre_sweeps": 1, "post_sweeps": 1}
+    make = lambda **kw: make_backwards_step_case(device=dev, **st_kw, **kw)
+
+    log(f"phase 38: the step's shard kernels (row 16f) at the {nx}x{ny} shapes of a "
+        f"{SHARDS}-shard mesh vs their plain twins and the single-device kernels ({card})")
+    checks = check_step_shard_kernels(make(mg_overrides=v11), dev)
+    for k, r in checks.items():
+        log(f"  {k:40s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), one local block  ({card})")
+
+    log(f"phase 39: the sharded step at {nx}x{ny} on {SHARDS} shards of the card, 300 steps "
+        f"beside the single-device per-kernel V(1,1) run, then 100 with tail_from=1, then a "
+        f"1-shard mesh ({card})")
+    kw = {"tol_factor": 1e-6}
+    what = f"sharded step, {SHARDS} shards"
+    shard_path = (SQ.SHARD_STEP_CARRY, SQ.SHARD_STEP_PRE, SQ.SHARD_STEP_POST)
+    got, (at3, first_100, st), steps_s, sim = run_sharded(
+        make(), (3, 100, 300), what, card, kw, (*shard_path, RB.RB_PAIRS_FULL),
+        absent=(SQ.STEP_CARRY, SQ.STEP_PRE, SQ.STEP_POST, WS.STEP_WHOLE_SOLVE))
+    engine = sim._engine
+    if engine.delegated or engine.P != 40 or engine.mg.post_sweeps != 1:
+        raise AssertionError(f"{what}: delegated={engine.delegated} P={engine.P}")
+    launches = {k.name: got[k.name] for k in shard_path}
+    ordered = Simulation(shard_order_case(make(mg_overrides=v11), engine), log=lambda m: None)
+    (o_st,), _, _ = run_stages(ordered, (300,))
+    hold_sharded(f"{what}, 300 steps vs the single-device V(1,1) run summed in shard order",
+                 sim.step_iters, st, ordered.step_iters, o_st, None)
+    del ordered, o_st
+    ref = Simulation(make(mg_overrides=v11), log=lambda m: None)
+    (r3, r_st), _, ref_steps_s = run_stages(ref, (3, 300))
+    # p: the reference's band for the source mean's float32 rounding
+    # (tests/test_quad_sharded.py:210-222), as the channel's in phase 36
+    hold_sharded(f"{what}, 3 steps vs single-device V(1,1)", sim.step_iters[:3], at3,
+                 ref.step_iters[:3], r3, 5e-4)
+    drift(f"{what}, 300 steps vs single-device V(1,1)", sim.step_iters, st, ref.step_iters,
+          r_st)
+    log(f"  {what}: {steps_s:.2f} steps/s against the single-device per-kernel V(1,1) "
+        f"{ref_steps_s:.2f} ({np.mean(ref.step_iters[-100:]):.2f} V-cycles/step)  ({card})")
+    del ref, r_st
+    _, (t_st,), _, tail = run_sharded(
+        make(), (100,), "sharded step tail_from=1", card,
+        {**kw, "mg_overrides": {"tail_from": 1}}, (*shard_path, MT.MG_TAIL_FULL),
+        absent=(RB.RB_PAIRS_FULL,))
+    if tail._engine._solve.tail_at != 2:
+        raise AssertionError(f"the sharded tail starts at level {tail._engine._solve.tail_at}")
+    hold_sharded("sharded step tail_from=1 vs the sharded run's first 100 steps",
+                 tail.step_iters, t_st, sim.step_iters[:100], first_100, None)
+    del sim, tail, t_st, st
+    delegates(make(mg_overrides={"whole_solve": False}),
+              (SQ.STEP_CARRY, SQ.STEP_PRE, SQ.STEP_POST), shard_path)
+
+    log("phase 40: the sharded step card vs CPU, 20 steps")
+    for cnx, cny, shards in ((512, 64, SHARDS), (32, 8, 2)):
+        # the per-kernel case: 32x8 has too few levels for the whole-solve,
+        # which the sharded engine does not run either
+        card_vs_cpu(make_backwards_step_case, dict(nx=cnx, ny=cny, poisson="multigrid",
+                                                   dtype=torch.float32, tolerance_factor=1e-6,
+                                                   abs_tol=0.0, print_interval=20,
+                                                   mg_overrides={"whole_solve": False}),
+                    f"sharded step {cnx}x{cny} on {shards} shards", shards=shards,
+                    sharded_kwargs=kw)
+    return checks, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2564,6 +2724,8 @@ def main() -> int:
     checks.update(sh_checks)
     fl_checks, flavor_launches = flavor_sharded_phases(card, dev)
     checks.update(fl_checks)
+    st_checks, step_shard_launches = step_sharded_phases(card, dev)
+    checks.update(st_checks)
 
     launches = {**cavity_launches, **{k: channel_launches[k] for k in (
         Q.CHANNEL_CARRY.name, Q.CHANNEL_CORRECTOR.name, WS.WHOLE_SOLVE.name)},
@@ -2576,7 +2738,7 @@ def main() -> int:
         **ad_launches, **ws_launches, **tail_launches, **bf16_launches, **corr_launches,
         **nat_launches, **fp_launches,
         **{k.name: shard_launches[k.name] for k in (Q.SHARD_CARRY, Q.SHARD_PRE, Q.SHARD_POST)},
-        **flavor_launches}
+        **flavor_launches, **step_shard_launches}
     kernels = []
     for k in KERNELS:
         r = checks[k.name]

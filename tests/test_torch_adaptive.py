@@ -211,7 +211,7 @@ def test_new_instances_are_listed_with_their_tpu_kernels():
                            ("quad_rb_corrector_traced", "rb_quad.py:225"),
                            ("quad_rb_step_adaptive", "rb_quad.py:81")):
         assert names[name] == f"cfd_tpu/kernels/{replaces}"
-    assert len(names) == len(KERNELS) == 55
+    assert len(names) == len(KERNELS) == 58
 
 
 # ------------------------------------------------------------ uncorrect(dt=)

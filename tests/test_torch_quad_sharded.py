@@ -18,9 +18,10 @@ its Pallas kernels in interpret mode on the 8-device host mesh
   single-device path at mdy 4 and 8 (P = 8, the minimum): bit-identical,
   because each shard's own rows run the same float32 operations; run_chunk
   equals stepping; tail_from=1 equals no tail.
-* The refusals (the step flavor, A.12c), the 1-shard delegation,
-  make_mesh, Simulation(mesh=) and the CLI's --mesh. The channel and RB
-  flavors: tests/test_torch_quad_sharded_flavors.py.
+* The refusals (adaptive stepping on a mesh, A.12d), the 1-shard
+  delegation, make_mesh, Simulation(mesh=) and the CLI's --mesh. The
+  channel and RB flavors: tests/test_torch_quad_sharded_flavors.py; the
+  step: tests/test_torch_quad_sharded_step*.py.
 """
 
 import jax
@@ -323,12 +324,16 @@ def test_sharded_config_refusals(kw, exc, match):
 
 
 @pytest.mark.parametrize("make,kw,item", [
-    (make_backwards_step_case, dict(nx=64, ny=16, poisson="multigrid"), "A.12c"),
+    (make_backwards_step_case, dict(nx=64, ny=16, poisson="multigrid"), "A.12d"),
 ])
 def test_other_flavors_are_refused(make, kw, item):
+    """The step flavor builds; what it still refuses is adaptive stepping
+    on the mesh (the sharded traced-dt carries)."""
     case = make(dtype=torch.float32, device="cpu", **kw)
+    sq = ShardedQuadProjection(case, _cpu_mesh())
+    assert sq.flavor == "backwards_step"
     with pytest.raises(NotImplementedError, match=item):
-        ShardedQuadProjection(case, _cpu_mesh())
+        sq.make_adaptive(0.7, 1.2, 1.0, 10)
 
 
 def test_adaptive_and_the_natural_layout_are_refused():
@@ -418,7 +423,8 @@ def test_cli_mesh(capsys):
     assert main(["cavity", "--mesh", "4", *args]) == 0
     out = capsys.readouterr().out
     assert "mesh: 4x1 plane-row decomposition over cpu" in out and "Step      2" in out
-    with pytest.raises(SystemExit, match="A.12c"):
-        main(["backwards_step", "--mesh", "4", *args[4:], "--Nx", "64", "--Ny", "16"])
+    with pytest.raises(SystemExit, match="A.12d"):
+        main(["backwards_step", "--mesh", "4", *args[4:], "--Nx", "64", "--Ny", "16",
+              "--adaptive-dt", "0.7", "--adaptive-controller", "lagged"])
     with pytest.raises(SystemExit, match="lagged"):
         main(["cavity", "--mesh", "4", "--adaptive-dt", "0.7", *args])

@@ -28,7 +28,7 @@ plain twins and the reference its Pallas kernels in interpret mode on the
 * Behaviour: RB keeps the (us*, vs*, p, T) carry with
   extrapolate_warm_start, Simulation(mesh=) prints RB's single-device rows
   (max(div), on the float32 floor, within 1e-6),
-  the CLI's --mesh runs both flavors and still refuses the step (A.12c),
+  the CLI's --mesh runs both flavors and refuses --adaptive-dt (A.12d),
   the shard factories refuse the adaptive instances (A.12d) and the RB
   guess.
 """
@@ -431,6 +431,6 @@ def test_cli_mesh_runs_the_channel_and_rb(capsys):
     out = capsys.readouterr().out
     assert out.count("mesh: 4x1 plane-row decomposition over cpu") == 2
     assert out.count("Step      2") == 2
-    with pytest.raises(SystemExit, match="A.12c"):
-        main(["backwards_step", "--mesh", "4", "--Nx", "64", "--Ny", "16", "--poisson",
-              "multigrid", *args])
+    with pytest.raises(SystemExit, match="A.12d"):
+        main(["channel", "--mesh", "4", "--Nx", "96", "--Ny", "32", "--poisson",
+              "multigrid", "--adaptive-dt", "0.7", "--adaptive-controller", "lagged", *args])

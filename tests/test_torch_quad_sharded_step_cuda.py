@@ -1,0 +1,112 @@
+"""The step's shard kernels (row 16f: the entry points of rows 9a, 9c and 9d
+in csrc/step_stage.cu and csrc/step_vcycle.cu on a local block) against
+their plain PyTorch twins on the card, and the sharded step on a mesh whose
+shards all live on one card against the CPU.
+
+Every test needs a CUDA card and skips without one. The file imports no
+jax, so on a machine without JAX it runs on its own:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_quad_sharded_step_cuda.py
+
+Limits: the kernels are built with --fmad=false and repeat their twins'
+float32 operations in order, and the partial sums fold in the twins'
+order, so every output of every shard, halo rows included, is expected bit
+for bit; the runs are held to equal cycles and fields within 5e-5 of scale
+(bit-identical expected)."""
+
+import numpy as np
+import pytest
+import torch
+
+from cfd_tpu_torch.cases import make_backwards_step_case
+from cfd_tpu_torch.kernels import quad as TQ
+from cfd_tpu_torch.kernels import step_quad as TSQ
+from cfd_tpu_torch.ops.stencil import StencilCoeffs
+from cfd_tpu_torch.parallel import ShardedQuadProjection, make_mesh
+from cfd_tpu_torch.poisson.multigrid import step_rect_params
+
+H = TQ.DEV_HALO
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _blocks(shape, mdy, jy, device, seed, fluid):
+    """Seeded (us, vs, p, b) local blocks of shard jy (p and b 0 off the
+    fluid cells) and its level-1 correction block ec."""
+    rng = np.random.default_rng(seed)
+    Hq8s, P, W = TQ.quad_shard_dims(shape, mdy)
+    Hq8 = TQ.quad_dims(shape)[2]
+    out = []
+    for k in range(4):
+        a = (rng.standard_normal(shape) * (1e3 if k == 3 else 0.1)).astype(np.float32)
+        if k >= 2:
+            a *= fluid
+        q = TQ.to_quad(torch.from_numpy(a), shape)
+        q = torch.nn.functional.pad(q, (0, 0, H, Hq8s - Hq8 + H))
+        out.append(q[:, jy * P : jy * P + P + 2 * H].contiguous().to(device))
+    ec = (rng.standard_normal((P + 2 * H, W)) * 0.1).astype(np.float32)
+    out.append(torch.from_numpy(ec).to(device))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,mdy", [(128, 64, 4), (2048, 256, 4)])
+def test_step_shard_kernels_match_plain_on_card(cuda_device, nx, ny, mdy):
+    case = make_backwards_step_case(nx=nx, ny=ny, poisson="multigrid", dtype=torch.float32,
+                                    device="cpu")
+    shape, g = case.grid.shape, case.grid
+    step_i, inlet_j = step_rect_params(g)
+    _, P, W = TQ.quad_shard_dims(shape, mdy)
+    loc, shard = (P + 2 * H, W), (P, mdy)
+    coeffs = StencilCoeffs(dx=g.dx, dy=g.dy, dt=case.coeffs.dt, viscosity=1e-2)
+    level0 = (shape, step_i, inlet_j, coeffs.idx2, coeffs.idy2, 1.0, 1, loc)
+    carry = TSQ.make_quad_step_corr_predictor_source(shape, coeffs, step_i, inlet_j, 1.0,
+                                                     shard=shard)
+    pre = TSQ.make_quad_step_pre_smooth_restrict(*level0, device=cuda_device, shard=shard)
+    post = TSQ.make_quad_step_post_prolong_smooth(*level0, device=cuda_device, shard=shard)
+    kerns = (TSQ.SHARD_STEP_CARRY, TSQ.SHARD_STEP_PRE, TSQ.SHARD_STEP_POST)
+    fluid = np.asarray(g.fluid, dtype=np.float32)
+    for jy in range(mdy):
+        us, vs, p, b, ec = _blocks(shape, mdy, jy, cuda_device, seed=nx + jy, fluid=fluid)
+        rb = jy * P - H
+        before = [k.launches for k in kerns]
+        pairs = [(carry(rb, us, vs, p), carry.plain(rb, us, vs, p)),
+                 (pre(rb, p, b), pre.plain(rb, p, b)),
+                 (post(rb, p, b, ec), post.plain(rb, p, b, ec))]
+        torch.cuda.synchronize()
+        assert [k.launches for k in kerns] == [x + 1 for x in before]
+        for got, want in pairs:
+            for a, w in zip(got, want, strict=True):
+                assert torch.equal(a, w), (jy, tuple(a.shape))
+
+
+def _run(sq, steps):
+    st, iters = sq.initial_state(), []
+    for _ in range(steps):
+        st, d = sq.step(st)
+        iters.append(int(d["poisson_iters"]))
+    return iters, sq.logical(st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,mdy", [(512, 64, 4), (32, 8, 2)])
+def test_sharded_step_card_vs_cpu(cuda_device, nx, ny, mdy):
+    out = {}
+    for dev in ("cuda", "cpu"):
+        # the per-kernel case: 32x8 has too few levels for the whole-solve,
+        # which the sharded engine does not run either
+        case = make_backwards_step_case(nx=nx, ny=ny, poisson="multigrid",
+                                        dtype=torch.float32, tolerance_factor=1e-6,
+                                        abs_tol=0.0, mg_overrides={"whole_solve": False},
+                                        device=dev)
+        out[dev] = _run(ShardedQuadProjection(case, make_mesh(mdy, device=dev),
+                                              tol_factor=1e-6), 5)
+    assert out["cuda"][0] == out["cpu"][0]
+    for name in ("u", "v", "p"):
+        a, w = getattr(out["cuda"][1], name).cpu(), getattr(out["cpu"][1], name)
+        assert float((a - w).abs().max()) <= 5e-5 * max(float(w.abs().max()), 1.0), name
