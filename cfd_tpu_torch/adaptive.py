@@ -31,10 +31,17 @@ Every controller keeps the steps' (cycles, res) where the solve left them
 row and at the end (solver.read_diagnostics); only the exact host loop's
 read of Co a step remains, because its controller needs it.
 
-Not ported: the multi-chip controller (_run_adaptive_sharded), checkpoint
-resume of adaptive runs (the port has no checkpointer yet) and
-make_adaptive_step (the reference's fallback for the SOR, f64 and XLA cases
-the port does not have).
+A Simulation on a plane-row mesh routes as the reference's
+(cfd_tpu/adaptive.py:219-235): a 1-shard mesh that delegates takes the
+single-device controllers; a sharded engine runs the lagged controller
+only (the exact one raises the reference's ValueError), its step from
+ShardedQuadProjection.make_adaptive (the traced-dt + Courant carry on every
+shard, the Courant maxima of the shards' own rows) in the same loop, with
+(dt_used, dt, t) on shard 0's device: the port of _run_adaptive_sharded.
+
+Not ported: checkpoint resume of adaptive runs (the port has no
+checkpointer yet) and make_adaptive_step (the reference's fallback for the
+SOR, f64 and XLA cases the port does not have).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ import torch
 
 from cfd_tpu_torch.kernels.quad import scalar_like
 from cfd_tpu_torch.solver import read_diagnostics
+from cfd_tpu_torch.state import State
 
 
 def _ceiling(case) -> float:
@@ -69,6 +77,26 @@ class _DeviceController:
         return torch.minimum(d * scale, self.ceiling)
 
 
+class LaggedController:
+    """The lagged controller's device state and step (cfd_tpu/adaptive.py:
+    326-335): ``advance(step, state) -> (state, diag)`` runs the carry with
+    (dt_used, dt), where dt_used built the carried tentative fields, sets
+    ``co`` to the Courant number of the step it corrected (over dt_used),
+    then dt_used = dt and dt from ``co``. Everything stays on ``like``'s
+    device."""
+
+    def __init__(self, like, dt: float, max_courant: float, growth: float, ceiling: float):
+        self.ctl = _DeviceController(like, max_courant, growth, ceiling)
+        self.du = self.d = scalar_like(dt, like)
+        self.co = None
+
+    def advance(self, step, state):
+        state, diag, co_per_dt = step(state, torch.stack((self.du, self.d)))
+        self.co = self.du * co_per_dt
+        self.du, self.d = self.d, self.ctl(self.d, self.co)
+        return state, diag
+
+
 def run_adaptive(sim, max_courant: float = 0.7, n_steps: int | None = None,
                  final_time: float | None = None, dt0: float | None = None,
                  growth: float = 1.2, state=None, log=None, steps_per_call: int = 1,
@@ -87,37 +115,14 @@ def run_adaptive(sim, max_courant: float = 0.7, n_steps: int | None = None,
     if n_steps is None and final_time is None:
         raise ValueError("run_adaptive needs n_steps or final_time")
     lagged = controller == "lagged"
-    if lagged:
-        if case.adaptive_impl_carry is None:
-            raise ValueError("controller='lagged' needs Case.adaptive_impl_carry (the "
-                             "f32 quad multigrid path)")
-        step, to_aligned, to_logical = case.adaptive_impl_carry()
-    elif case.adaptive_impl is not None:
-        step, to_aligned, to_logical = case.adaptive_impl()
-    elif case.ordering == "rayleigh_benard":
-        # the reference's own refusal (cfd_tpu/adaptive.py:256-260)
-        raise ValueError(f"case {case.name!r} has a custom step with no exact-controller "
-                         "adaptive variant; run it with controller='lagged' (the "
-                         "tentative-carry fused kernel)")
-    else:
-        # the reference falls back to make_adaptive_step here, which fails on
-        # the quad layout (ROADMAP.md section C)
-        raise ValueError(f"case {case.name!r} has no exact-controller adaptive step on "
-                         "the quad path; run it with controller='lagged' (the "
-                         "tentative-carry fused kernel)")
     spc = max(1, steps_per_call)
+    step, to_aligned, to_logical = _resolve(sim, lagged, max_courant, growth, spc)
     if case.print_interval % spc:
         raise ValueError(f"steps_per_call={spc} must divide the print interval "
                          f"({case.print_interval})")
     dt = float(dt0 if dt0 is not None else case.dt)
-    if state is None:
-        state = sim.initial_state()
-    if tuple(state.u.shape) != case.grid.shape:
-        state = case.unalign_state(state)
-    # the lagged carry enters uncorrected with the dt its first step
-    # re-corrects with (dt_corr = dt), so the round trip is one f32 rounding
-    state = to_aligned(state, dt) if lagged else to_aligned(state)
-    run = dict(sim=sim, step=step, to_logical=to_logical, state=state, dt=dt,
+    state, like = _start(sim, state, to_aligned, dt, lagged)
+    run = dict(sim=sim, step=step, to_logical=to_logical, state=state, like=like, dt=dt,
                n_steps=n_steps, final_time=final_time, log=log, spc=spc,
                ceiling=_ceiling(case), max_courant=max_courant, growth=growth)
     if lagged:
@@ -125,6 +130,62 @@ def run_adaptive(sim, max_courant: float = 0.7, n_steps: int | None = None,
     if spc > 1:
         return _run_exact_chunked(**run)
     return _run_exact_host(**run)
+
+
+def lagged_start(sim, max_courant: float = 0.7, growth: float = 1.2,
+                 dt0: float | None = None):
+    """The lagged controller at the start of a run from the case's initial
+    state, for a driver that times its steps one by one (profile_step):
+    (carried state, step, LaggedController); ``controller.advance(step,
+    state)`` runs a step."""
+    step, to_aligned, _ = _resolve(sim, True, max_courant, growth, 1)
+    dt = float(dt0 if dt0 is not None else sim.case.dt)
+    state, like = _start(sim, None, to_aligned, dt, True)
+    return state, step, LaggedController(like, dt, max_courant, growth, _ceiling(sim.case))
+
+
+def _resolve(sim, lagged: bool, max_courant: float, growth: float, spc: int):
+    """(step, to_aligned, to_logical) of the controller on ``sim``'s engine,
+    routed as the reference's (cfd_tpu/adaptive.py:219-262)."""
+    case, engine = sim.case, sim._engine
+    if not getattr(engine, "delegated", True):  # sharded; a 1-shard mesh delegates
+        # the exact controller's non-carry kernels have no sharded story
+        if not lagged:
+            raise ValueError("sharded adaptive runs the lagged controller: pass "
+                             "controller='lagged' (--adaptive-controller lagged)")
+        return engine.make_adaptive(max_courant, growth, _ceiling(case), spc)
+    if lagged:
+        if case.adaptive_impl_carry is None:
+            raise ValueError("controller='lagged' needs Case.adaptive_impl_carry (the "
+                             "f32 quad multigrid path)")
+        return case.adaptive_impl_carry()
+    if case.adaptive_impl is not None:
+        return case.adaptive_impl()
+    if case.ordering == "rayleigh_benard":
+        # the reference's own refusal (cfd_tpu/adaptive.py:256-260)
+        raise ValueError(f"case {case.name!r} has a custom step with no exact-controller "
+                         "adaptive variant; run it with controller='lagged' (the "
+                         "tentative-carry fused kernel)")
+    # the reference falls back to make_adaptive_step here, which fails on
+    # the quad layout (ROADMAP.md section C)
+    raise ValueError(f"case {case.name!r} has no exact-controller adaptive step on "
+                     "the quad path; run it with controller='lagged' (the "
+                     "tentative-carry fused kernel)")
+
+
+def _start(sim, state, to_aligned, dt: float, lagged: bool):
+    """(the carried start state, the controller's device: the fields', shard
+    0's on a mesh) from ``state`` (carried or logical; default the case's
+    initial state)."""
+    engine = sim._engine
+    if state is None:
+        state = sim.initial_state()
+    if not engine.is_logical(state):
+        state = engine.logical(state)
+    # the lagged carry enters uncorrected with the dt its first step
+    # re-corrects with (dt_corr = dt), so the round trip is one f32 rounding
+    state = to_aligned(state, dt) if lagged else to_aligned(state)
+    return state, (state.u if isinstance(state, State) else state[0][0])
 
 
 def _done(k: int, t: float, n_steps, final_time) -> bool:
@@ -162,7 +223,7 @@ def _row(sim, logical, k, t, dt, co, iters, res, t_wall0, log) -> dict:
     return row
 
 
-def _run_exact_host(sim, step, to_logical, state, dt, n_steps, final_time, log, spc,
+def _run_exact_host(sim, step, to_logical, state, like, dt, n_steps, final_time, log, spc,
                     ceiling, max_courant, growth):
     """The exact controller in Python floats, one host read a step
     (cfd_tpu/adaptive.py:431-462)."""
@@ -170,7 +231,7 @@ def _run_exact_host(sim, step, to_logical, state, dt, n_steps, final_time, log, 
     pending = _Pending(sim)
     rows, k, t, t0 = [], 0, 0.0, time.perf_counter()
     while not _done(k, t, n_steps, final_time):
-        state, diag, co_per_dt = step(state, scalar_like(dt, state.u))
+        state, diag, co_per_dt = step(state, scalar_like(dt, like))
         k += 1
         t += dt
         co = dt * float(co_per_dt)
@@ -187,13 +248,13 @@ def _run_exact_host(sim, step, to_logical, state, dt, n_steps, final_time, log, 
     return to_logical(state), rows
 
 
-def _run_exact_chunked(sim, step, to_logical, state, dt, n_steps, final_time, log, spc,
-                       ceiling, max_courant, growth):
+def _run_exact_chunked(sim, step, to_logical, state, like, dt, n_steps, final_time, log,
+                       spc, ceiling, max_courant, growth):
     """The exact controller on the device in chunks of ``spc`` steps, one
     packed read a chunk (cfd_tpu/adaptive.py:370-429)."""
-    ctl = _DeviceController(state.u, max_courant, growth, ceiling)
+    ctl = _DeviceController(like, max_courant, growth, ceiling)
     interval = sim.case.print_interval
-    d = scalar_like(dt, state.u)
+    d = scalar_like(dt, like)
     pending = _Pending(sim)
     rows, k, t, t0 = [], 0, 0.0, time.perf_counter()
     while not _done(k, t, n_steps, final_time):
@@ -217,37 +278,35 @@ def _run_exact_chunked(sim, step, to_logical, state, dt, n_steps, final_time, lo
     return to_logical(state), rows
 
 
-def _run_lagged(sim, step, to_logical, state, dt, n_steps, final_time, log, spc, ceiling,
-                max_courant, growth):
-    """The lagged controller (cfd_tpu/adaptive.py:295-368): each step runs the
-    carry with (dt_used, dt), where dt_used built the carried tentative
-    fields; the Courant number it returns belongs to the step it corrected,
-    over dt_used. (dt_used, dt, t) stay on the device, read at print
-    cadence, at the end, and every chunk when ``final_time`` decides."""
-    ctl = _DeviceController(state.u, max_courant, growth, ceiling)
+def _run_lagged(sim, step, to_logical, state, like, dt, n_steps, final_time, log, spc,
+                ceiling, max_courant, growth):
+    """The lagged controller (cfd_tpu/adaptive.py:295-368, and on a mesh
+    :83-170): each step runs the carry with (dt_used, dt), where dt_used
+    built the carried tentative fields; the Courant number it returns
+    belongs to the step it corrected, over dt_used. (dt_used, dt, t) stay on
+    ``like``'s device, read at print cadence, at the end, and every chunk
+    when ``final_time`` decides."""
+    lag = LaggedController(like, dt, max_courant, growth, ceiling)
     interval = sim.case.print_interval
-    du = scalar_like(dt, state.u)
-    d = scalar_like(dt, state.u)
-    t_dev = scalar_like(0.0, state.u)
+    t_dev = scalar_like(0.0, like)
     pending = []  # dts of the steps since the last read
     diags = _Pending(sim)
     rows, k, t, t0 = [], 0, 0.0, time.perf_counter()
     while not _done(k, t, n_steps, final_time):
         for _ in range(spc):
-            state, diag, co_per_dt = step(state, torch.stack((du, d)))
-            co_prev = du * co_per_dt
+            pending.append(lag.d)
+            t_dev = t_dev + lag.d
+            state, diag = lag.advance(step, state)
             diags.append(diag)
-            pending.append(d)
-            du, d, t_dev = d, ctl(d, co_prev), t_dev + d
         k += spc
         if (final_time is not None or k % interval == 0
                 or (n_steps is not None and k >= n_steps)):
             t, co_last, *per_step = torch.cat(
-                [torch.stack([t_dev, co_prev]), torch.stack(pending)]).tolist()
+                [torch.stack([t_dev, lag.co]), torch.stack(pending)]).tolist()
             sim.step_dts.extend(per_step)
             pending = []
         if k % interval == 0:
-            rows.append(_row(sim, to_logical(state, du), k, t, per_step[-1], co_last,
+            rows.append(_row(sim, to_logical(state, lag.du), k, t, per_step[-1], co_last,
                              *diags.read(), t0, log))
     diags.read()
-    return to_logical(state, du), rows
+    return to_logical(state, lag.du), rows

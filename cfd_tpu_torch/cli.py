@@ -21,6 +21,9 @@ Usage:
     python -m cfd_tpu_torch.cli backwards_step --Nx 2048 --Ny 256 --precision f32 \
         --poisson multigrid --no-vtk --steps 300 --steps-per-call 100 \
         --print-interval 100 --save-interval 100 --mesh 4
+    python -m cfd_tpu_torch.cli cavity --Nx 2048 --Ny 2048 --precision f32 \
+        --poisson multigrid --no-vtk --steps 300 --steps-per-call 100 --mesh 4 \
+        --adaptive-dt 0.7 --adaptive-controller lagged
 
 The flags are the reference CLI's for the ported paths, with its defaults
 per case (cfd_tpu/cli.py:103-106). VTK export is not ported yet, so a run
@@ -35,7 +38,8 @@ path over an N-shard plane-row mesh (parallel.quad_sharded; every shard on
 the --device's cards, round-robin, so one card holds them all), with the
 reference's checks (cfd_tpu/cli.py:221-233); its solve takes the sharded
 engine's own config (tol_factor 1e-9; V(2,1), the channel V(1,2), the step
-V(1,1)), as the reference's does.
+V(1,1)), as the reference's does. With --adaptive-dt a mesh runs the lagged
+controller only, as the reference's (the exact one is refused).
 --save-interval sets the case's save interval, which
 --steps-per-call must divide (no exporter reads it yet). The
 Rayleigh-Benard case always solves with multigrid and ignores --poisson and
@@ -183,9 +187,6 @@ def main(argv=None) -> int:
                              "add --adaptive-controller lagged")
         if args.precision != "f32":
             raise SystemExit("--mesh runs the f32 quad fast path: add --precision f32")
-        if args.adaptive_dt is not None:
-            raise SystemExit("--mesh with --adaptive-dt: the sharded lagged controller is "
-                             "not ported yet (ROADMAP.md queue A item A.12d)")
     case = make_case_from_args(args)
 
     from cfd_tpu_torch.io import console

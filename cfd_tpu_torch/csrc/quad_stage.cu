@@ -9,13 +9,15 @@
 // channel_carry_compute :1160-1222), the carries fixed and with
 // traced_dt + emit_courant, and make_quad_channel_predictor_source (:847:
 // the channel carry's second and third launches on (u, v) as given). The
-// cavity and channel carries also run with shard=(P, mdy) on one shard's
-// local block (rows 16a and 16d, cfd_tpu/parallel/quad_sharded.py): the
+// cavity and channel carries, fixed and traced_dt + emit_courant, also run
+// with shard=(P, mdy) on one shard's local block (rows 16a and 16d, and
+// 16a+ and 16d+, cfd_tpu/parallel/quad_sharded.py): the
 // arrays are a shard's (4, P + 16, Wqa) block between two 8-row halo
 // strips, row_base = jy * P - 8 is the global plane row of local row 0
 // (every mask and ghost keeps its global meaning, common.cuh), a neighbour
-// outside the block reads 0, and the reduction (the cavity's max|b|, the
-// channel's sum of b) covers the own rows only: the shard's partial. The
+// outside the block reads 0, and the reductions (the cavity's max|b|, the
+// channel's sum of b, and the Courant maxima) cover the own rows only: the
+// shard's partials (quad.py:308-312 masks every scalar so). The
 // scratch u, v cover the whole block. The cavity's stages reach 5 rows
 // (quad.py:970-971); the channel's reach 5 too, counting one row for each
 // stage: the corrector (p at j+1), the ghosts on the corrected fields (the
@@ -67,9 +69,9 @@
 // cfd::pred_at); the carries take the pair (dt_corr, dt_pred), dt_corr for
 // the correction of the carried tentative fields, dt_pred for this step's
 // predictor and source. kCourant also reduces max|u| and max|v| of the
-// corrected, ghosted fields over every quad cell (the region of the
-// reference's scalar_reduce, quad.py:300-360) into two device scalars the
-// host zeroes. The non-carry cavity stage make_quad_predictor_source
+// corrected, ghosted fields over every quad cell of a whole field, or the
+// own rows of a shard's block (the region of the reference's
+// scalar_reduce, quad.py:300-360), into two device scalars the host zeroes. The non-carry cavity stage make_quad_predictor_source
 // (quad.py:438, traced dt) is the carry's second launch with the lid ghosts
 // applied to its input on read (lid_u, lid_v).
 //
@@ -92,11 +94,13 @@ using cfd::quad::corr_at;
 constexpr int kChannelRadius = 5;
 static_assert(kChannelRadius <= 8, "the channel carry reaches past the 8-row halo");
 
-// kCourant: max|u|, max|v| of the outputs into courant[0], courant[1]
-template <bool kTraced, bool kCourant>
+// kCourant: max|u|, max|v| of the outputs into courant[0], courant[1];
+// kBlock: a shard's local block, whose maxima take its own rows only
+// (cfd::own_row, the `halo`-row strips excluded)
+template <bool kTraced, bool kCourant, bool kBlock = false>
 __global__ void corrector_kernel(const float* us, const float* vs, const float* p,
                                  const float* p_prev, float* u2, float* v2, float* guess,
-                                 Corr c0, const float* dt, float* courant) {
+                                 Corr c0, const float* dt, float* courant, int halo) {
   const Corr c = corr_at<kTraced, false>(c0, dt);
   long long n = 4LL * c.Hq8 * c.Wqa;
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -104,8 +108,10 @@ __global__ void corrector_kernel(const float* us, const float* vs, const float* 
   if (idx < n) {
     const float2 a =
         cfd::quad::cavity_corrector_cell(us, vs, p, p_prev, u2, v2, guess, idx, c);
-    au = a.x;
-    av = a.y;
+    if (!kBlock || cfd::own_row(idx, c.Hq8, c.Wqa, halo)) {
+      au = a.x;
+      av = a.y;
+    }
   }
   if constexpr (kCourant) cfd::block_max2_into(au, av, courant);
 }
@@ -132,12 +138,13 @@ __global__ void predictor_source_kernel(const float* u, const float* v, float* u
   cfd::block_max_into(absb, max_b);
 }
 
-// kBlock: a shard's local block (its row offset); else row0 folds to 0
+// kBlock: a shard's local block (its row offset, and the Courant maxima
+// over its own rows only); else row0 folds to 0
 template <bool kTraced, bool kCourant, bool kBlock = false>
 __global__ void channel_corrector_kernel(const float* us, const float* vs, const float* p,
                                          const float* p_prev, float* u2, float* v2,
                                          float* guess, Corr c0, const float* dt,
-                                         float* courant) {
+                                         float* courant, int halo) {
   Corr c = corr_at<kTraced, true>(c0, dt);
   if constexpr (!kBlock) c.row0 = 0;
   long long n = 4LL * c.Hq8 * c.Wqa;
@@ -146,8 +153,10 @@ __global__ void channel_corrector_kernel(const float* us, const float* vs, const
   if (idx < n) {
     const float2 a =
         cfd::quad::channel_corrector_cell(us, vs, p, p_prev, u2, v2, guess, idx, c);
-    au = a.x;
-    av = a.y;
+    if (!kBlock || cfd::own_row(idx, c.Hq8, c.Wqa, halo)) {
+      au = a.x;
+      av = a.y;
+    }
   }
   if constexpr (kCourant) cfd::block_max2_into(au, av, courant);
 }
@@ -189,30 +198,25 @@ cudaError_t cfd::fold_partials(float* partials, int n, float* sum, cudaStream_t 
 namespace {
 
 // the cavity carry's two launches: the corrector into the scratch u, v,
-// then the predictor + source + max|b| from them (own rows of a block with
-// a `halo`-row strip)
-template <bool kAdaptive>
+// then the predictor + source + max|b| from them; kBlock: a shard's local
+// block with a `halo`-row strip, whose maxima take its own rows only
+template <bool kAdaptive, bool kBlock = false>
 cudaError_t cavity_carry(const float* us, const float* vs, const float* p,
                          const float* p_prev, float* u_scr, float* v_scr, float* us2,
                          float* vs2, float* b, float* guess, float* max_b, float* courant,
                          const float* dts, const Corr& c, const Pred& pc, int halo,
                          cudaStream_t s) {
   const long long n = 4LL * c.Hq8 * c.Wqa;
-  corrector_kernel<kAdaptive, kAdaptive><<<cfd::blocks_for(n), cfd::kThreads, 0, s>>>(
-      us, vs, p, p_prev, u_scr, v_scr, guess, c, dts, courant);
+  corrector_kernel<kAdaptive, kAdaptive, kBlock><<<cfd::blocks_for(n), cfd::kThreads, 0, s>>>(
+      us, vs, p, p_prev, u_scr, v_scr, guess, c, dts, courant, halo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = cudaMemsetAsync(max_b, 0, sizeof(float), s);
   if (err != cudaSuccess) return err;
-  const float* dt_pred = kAdaptive ? dts + 1 : nullptr;
-  if (halo > 0) {
-    predictor_source_kernel<kAdaptive, false, true><<<cfd::blocks_for(n), cfd::kThreads, 0,
+  predictor_source_kernel<kAdaptive, false, kBlock><<<cfd::blocks_for(n), cfd::kThreads, 0,
                                                       s>>>(u_scr, v_scr, us2, vs2, b, max_b,
-                                                           pc, dt_pred, 0.f, halo);
-  } else {
-    predictor_source_kernel<kAdaptive, false><<<cfd::blocks_for(n), cfd::kThreads, 0, s>>>(
-        u_scr, v_scr, us2, vs2, b, max_b, pc, dt_pred, 0.f, 0);
-  }
+                                                           pc, kAdaptive ? dts + 1 : nullptr,
+                                                           0.f, halo);
   return cudaGetLastError();
 }
 
@@ -226,7 +230,7 @@ cudaError_t channel_carry(const float* us, const float* vs, const float* p,
                           int halo, cudaStream_t s) {
   const int blocks = cfd::blocks_for(4LL * c.Hq8 * c.Wqa);
   channel_corrector_kernel<kAdaptive, kAdaptive, kBlock><<<blocks, cfd::kThreads, 0, s>>>(
-      us, vs, p, p_prev, u_scr, v_scr, guess, c, dts, courant);
+      us, vs, p, p_prev, u_scr, v_scr, guess, c, dts, courant, halo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   channel_predictor_source_kernel<kAdaptive, kBlock><<<blocks, cfd::kThreads, 0, s>>>(
@@ -245,7 +249,7 @@ extern "C" int cfd_quad_corrector(const float* us, const float* vs, const float*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Corr c{Hq8, Wqa, ny, nx, cu, cv, two_lid};
   corrector_kernel<false, false><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
-      us, vs, p, p_prev, u2, v2, guess, c, nullptr, nullptr);
+      us, vs, p, p_prev, u2, v2, guess, c, nullptr, nullptr, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -258,7 +262,7 @@ extern "C" int cfd_quad_corrector_traced(const float* us, const float* vs, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Corr c{Hq8, Wqa, ny, nx, cu_f, cv_f, two_lid};
   corrector_kernel<true, false><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
-      us, vs, p, p_prev, u2, v2, guess, c, dt, nullptr);
+      us, vs, p, p_prev, u2, v2, guess, c, dt, nullptr, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -289,13 +293,20 @@ extern "C" int cfd_quad_carry(const float* us, const float* vs, const float* p,
                               int row_base, int halo, void* stream) {
   Corr c{Hq8, Wqa, ny, nx, cu, cv, two_lid, row_base};
   Pred pc{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt, 0.f, row_base};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (halo > 0) {
+    return static_cast<int>(cavity_carry<false, true>(us, vs, p, p_prev, u_scr, v_scr, us2,
+                                                      vs2, b, guess, max_b, nullptr, nullptr,
+                                                      c, pc, halo, s));
+  }
   return static_cast<int>(cavity_carry<false>(us, vs, p, p_prev, u_scr, v_scr, us2, vs2, b,
-                                               guess, max_b, nullptr, nullptr, c, pc, halo,
-                                               static_cast<cudaStream_t>(stream)));
+                                               guess, max_b, nullptr, nullptr, c, pc, 0, s));
 }
 
 // traced_dt + emit_courant: dts = (dt_corr, dt_pred) on the card; cu_f, cv_f
-// the float32 rho/dx, rho/dy; courant: 2 floats (max|u|, max|v|), zeroed here
+// the float32 rho/dx, rho/dy; courant: 2 floats (max|u|, max|v|), zeroed here;
+// row_base, halo as cfd_quad_carry's, max|b| and the Courant maxima then
+// over the own rows (row 16a+)
 extern "C" int cfd_quad_carry_adaptive(const float* us, const float* vs, const float* p,
                                        const float* p_prev, float* u_scr, float* v_scr,
                                        float* us2, float* vs2, float* b, float* guess,
@@ -303,12 +314,17 @@ extern "C" int cfd_quad_carry_adaptive(const float* us, const float* vs, const f
                                        int Hq8, int Wqa, int ny, int nx, float cu_f,
                                        float cv_f, float two_lid, float nu, float idx,
                                        float idy, float idx2, float idy2, float rho,
-                                       void* stream) {
+                                       int row_base, int halo, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(courant, 0, 2 * sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  Corr c{Hq8, Wqa, ny, nx, cu_f, cv_f, two_lid};
-  Pred pc{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho};
+  Corr c{Hq8, Wqa, ny, nx, cu_f, cv_f, two_lid, row_base};
+  Pred pc{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho, row_base};
+  if (halo > 0) {
+    return static_cast<int>(cavity_carry<true, true>(us, vs, p, p_prev, u_scr, v_scr, us2,
+                                                     vs2, b, guess, max_b, courant, dts, c,
+                                                     pc, halo, s));
+  }
   return static_cast<int>(cavity_carry<true>(us, vs, p, p_prev, u_scr, v_scr, us2, vs2, b,
                                               guess, max_b, courant, dts, c, pc, 0, s));
 }
@@ -321,8 +337,8 @@ extern "C" int cfd_quad_channel_corrector(const float* us, const float* vs,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Corr c{Hq8, Wqa, ny, nx, cu, cv, uin};
   channel_corrector_kernel<false, false>
-      <<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(us, vs, p, p_prev, u2, v2,
-                                                                 guess, c, nullptr, nullptr);
+      <<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
+          us, vs, p, p_prev, u2, v2, guess, c, nullptr, nullptr, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -336,8 +352,8 @@ extern "C" int cfd_quad_channel_corrector_traced(const float* us, const float* v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Corr c{Hq8, Wqa, ny, nx, cu_f, cv_f, uin};
   channel_corrector_kernel<true, false>
-      <<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(us, vs, p, p_prev, u2, v2,
-                                                                 guess, c, dt, nullptr);
+      <<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
+          us, vs, p, p_prev, u2, v2, guess, c, dt, nullptr, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -386,18 +402,25 @@ extern "C" int cfd_quad_channel_predictor_source(const float* u, const float* v,
 }
 
 // traced_dt + emit_courant: dts = (dt_corr, dt_pred) on the card; cu_f, cv_f
-// the float32 rho*dx, rho*dy; courant: 2 floats, zeroed here
+// the float32 rho*dx, rho*dy; courant: 2 floats, zeroed here; row_base,
+// halo as cfd_quad_channel_carry's, the sum and the Courant maxima then over
+// the own rows (row 16d+)
 extern "C" int cfd_quad_channel_carry_adaptive(
     const float* us, const float* vs, const float* p, const float* p_prev, float* u_scr,
     float* v_scr, float* us2, float* vs2, float* b, float* guess, float* partials,
     float* sum_b, float* courant, const float* dts, int Hq8, int Wqa, int ny, int nx,
     float cu_f, float cv_f, float uin, float nu, float idx, float idy, float idx2,
-    float idy2, float rho, void* stream) {
+    float idy2, float rho, int row_base, int halo, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(courant, 0, 2 * sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  Corr c{Hq8, Wqa, ny, nx, cu_f, cv_f, uin};
-  Pred pc{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho};
+  Corr c{Hq8, Wqa, ny, nx, cu_f, cv_f, uin, row_base};
+  Pred pc{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho, row_base};
+  if (halo > 0) {
+    return static_cast<int>(channel_carry<true, true>(us, vs, p, p_prev, u_scr, v_scr, us2,
+                                                      vs2, b, guess, partials, sum_b, courant,
+                                                      dts, c, pc, halo, s));
+  }
   return static_cast<int>(channel_carry<true>(us, vs, p, p_prev, u_scr, v_scr, us2, vs2, b,
                                                guess, partials, sum_b, courant, dts, c, pc, 0,
                                                s));

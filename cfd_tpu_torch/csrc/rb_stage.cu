@@ -46,7 +46,8 @@
 // the T ghost rows j = 0 and ny + 1 and the walls are written by the shard
 // that holds them; a neighbour outside the block reads 0 (the scratch u2,
 // v2 and T' exist on the block only); the partial sums of b take the own
-// rows only. The stages' dependency radius (kRBRadius), one row for each:
+// rows only, and so do the Courant maxima of its traced-dt instance (row
+// 16e+). The stages' dependency radius (kRBRadius), one row for each:
 // the corrector (p at j+1), the box ghosts (the ghost rows read rows 1 and
 // ny), the temperature transport (T, v2 at j-1 ... j+1), the T ghosts, the
 // predictor with the buoyancy (u2, v2 at j-1 ... j+1, T' at j+1), the box
@@ -77,12 +78,12 @@ static_assert(kRBRadius <= 8, "the RB carry reaches past the 8-row halo");
 // launch 1 (and the corrector entry point): the corrected, ghosted u2, v2;
 // guess = 2p - p_prev where p_prev is given. kTraced: cu, cv formed from
 // *dt (c0 holds rho*dx, rho*dy); kCourant: max|u2|, max|v2| into courant[0],
-// courant[1]; kBlock: a shard's local block (its row offset), else row0
-// folds to 0
+// courant[1]; kBlock: a shard's local block (its row offset, and the
+// Courant maxima over its own rows only, cfd::own_row), else row0 folds to 0
 template <bool kTraced, bool kCourant, bool kBlock = false>
 __global__ void rb_corrector_kernel(const float* us, const float* vs, const float* p,
                                     const float* p_prev, float* u2, float* v2, float* guess,
-                                    RBCorr c0, const float* dt, float* courant) {
+                                    RBCorr c0, const float* dt, float* courant, int halo) {
   RBCorr c = c0;
   if constexpr (!kBlock) c.row0 = 0;
   if constexpr (kTraced) {
@@ -94,8 +95,10 @@ __global__ void rb_corrector_kernel(const float* us, const float* vs, const floa
   float au = 0.f, av = 0.f;
   if (idx < n) {
     const float2 a = cfd::rb::corrector_cell(us, vs, p, p_prev, u2, v2, guess, idx, c);
-    au = a.x;
-    av = a.y;
+    if (!kBlock || cfd::own_row(idx, c.Hq8, c.Wqa, halo)) {
+      au = a.x;
+      av = a.y;
+    }
   }
   if constexpr (kCourant) cfd::block_max2_into(au, av, courant);
 }
@@ -150,7 +153,7 @@ cudaError_t rb_carry(const float* us, const float* vs, const float* p, const flo
   if ((p_prev == nullptr) != (guess == nullptr)) return cudaErrorInvalidValue;
   const int blocks = cfd::blocks_for(4LL * cc.Hq8 * cc.Wqa);
   rb_corrector_kernel<kAdaptive, kAdaptive, kBlock><<<blocks, cfd::kThreads, 0, s>>>(
-      us, vs, p, p_prev, u_scr, v_scr, guess, cc, dts, courant);
+      us, vs, p, p_prev, u_scr, v_scr, guess, cc, dts, courant, halo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   rb_temperature_kernel<kAdaptive, kBlock><<<blocks, cfd::kThreads, 0, s>>>(
@@ -172,7 +175,7 @@ extern "C" int cfd_rb_corrector(const float* us, const float* vs, const float* p
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   RBCorr c{Hq8, Wqa, ny, nx, cu, cv};
   rb_corrector_kernel<false, false><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
-      us, vs, p, nullptr, u2, v2, nullptr, c, nullptr, nullptr);
+      us, vs, p, nullptr, u2, v2, nullptr, c, nullptr, nullptr, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -184,7 +187,7 @@ extern "C" int cfd_rb_corrector_traced(const float* us, const float* vs, const f
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   RBCorr c{Hq8, Wqa, ny, nx, cu_f, cv_f};
   rb_corrector_kernel<true, false><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
-      us, vs, p, nullptr, u2, v2, nullptr, c, dt, nullptr);
+      us, vs, p, nullptr, u2, v2, nullptr, c, dt, nullptr, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -216,21 +219,29 @@ extern "C" int cfd_rb_carry(const float* us, const float* vs, const float* p, co
 }
 
 // traced_dt + emit_courant (no guess: the adaptive RB step warm-starts from
-// plain p): dts = (dt_corr, dt_pred) on the card; cu_f, cv_f the float32
-// rho*dx, rho*dy; courant: 2 floats, zeroed here
+// plain p, and so does the sharded one): dts = (dt_corr, dt_pred) on the
+// card; cu_f, cv_f the float32 rho*dx, rho*dy; courant: 2 floats, zeroed
+// here; row_base, halo as cfd_rb_carry's, the sum and the Courant maxima
+// then over the own rows (row 16e+)
 extern "C" int cfd_rb_carry_adaptive(const float* us, const float* vs, const float* p,
                                      const float* T, float* u_scr, float* v_scr, float* us2,
                                      float* vs2, float* T2, float* b, float* partials,
                                      float* sum_b, float* courant, const float* dts, int Hq8,
                                      int Wqa, int ny, int nx, float cu_f, float cv_f, float nu,
                                      float idx, float idy, float idx2, float idy2, float rho,
-                                     float kappa, float two_tb, float two_tt, void* stream) {
+                                     float kappa, float two_tb, float two_tt, int row_base,
+                                     int halo, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(courant, 0, 2 * sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  RBCorr cc{Hq8, Wqa, ny, nx, cu_f, cv_f};
-  RBTemp tc{Hq8, Wqa, ny, nx, 0.f, kappa, idx, idy, idx2, idy2, two_tb, two_tt};
-  Pred pc{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho};
+  RBCorr cc{Hq8, Wqa, ny, nx, cu_f, cv_f, row_base};
+  RBTemp tc{Hq8, Wqa, ny, nx, 0.f, kappa, idx, idy, idx2, idy2, two_tb, two_tt, row_base};
+  Pred pc{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho, row_base};
+  if (halo > 0) {
+    return static_cast<int>(rb_carry<true, true>(us, vs, p, T, nullptr, u_scr, v_scr, us2,
+                                                 vs2, T2, b, nullptr, partials, sum_b, courant,
+                                                 dts, cc, tc, pc, 0.f, halo, s));
+  }
   return static_cast<int>(rb_carry<true>(us, vs, p, T, nullptr, u_scr, v_scr, us2, vs2, T2, b,
                                           nullptr, partials, sum_b, courant, dts, cc, tc, pc,
                                           0.f, 0, s));

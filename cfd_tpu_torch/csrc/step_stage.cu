@@ -4,13 +4,15 @@
 // Replaces cfd_tpu/kernels/step_quad.py make_quad_step_corr_predictor_source
 // (:100, math in step_carry_compute :144-201; fixed dt, and traced_dt +
 // emit_courant) and make_quad_step_corrector (:204; fixed and traced_dt).
-// The fixed-dt carry also runs with shard=(P, mdy) on one shard's local
-// block (row 16f, cfd_tpu/parallel/quad_sharded.py): the arrays are a
+// The carry, fixed and traced_dt + emit_courant, also runs with
+// shard=(P, mdy) on one shard's local block (rows 16f and 16f+,
+// cfd_tpu/parallel/quad_sharded.py): the arrays are a
 // shard's (4, P + 16, Wqa) block between two 8-row halo strips, row_base =
 // jy * P - 8 is the global plane row of local row 0 (every mask, inlet row
 // and interface face keeps its global meaning, common.cuh), a neighbour
 // outside the block reads 0, and the partial sums of b take the own rows
-// only (cfd::own_row), in the twin's fold order: the shard's partial. The
+// only (cfd::own_row), in the twin's fold order: the shard's partial, as do
+// the Courant maxima of the traced-dt instance. The
 // carry's stages reach kStepRadius rows: the corrector (p at j+1), the step
 // BCs on the corrected fields (the ghost rows read rows 1 and ny), the
 // predictor (j-1 ... j+1), the step BCs on the tentative fields and the
@@ -59,11 +61,12 @@ static_assert(kStepRadius <= 8, "the step carry reaches past the 8-row halo");
 
 // kTraced: cu, cv formed from *dt (s0 holds rho*dx, rho*dy); kCourant:
 // max|u|, max|v| of the outputs into courant[0], courant[1]; kBlock: a
-// shard's local block (its row offset)
+// shard's local block (its row offset, and the Courant maxima over its own
+// rows only, cfd::own_row)
 template <bool kTraced, bool kCourant, bool kBlock = false>
 __global__ void step_corrector_kernel(const float* us, const float* vs, const float* p,
                                       float* u2, float* v2, Step s0, const float* dt,
-                                      float* courant) {
+                                      float* courant, int halo) {
   Step s = s0;
   if constexpr (kTraced) {
     s.cu = cfd::traced_coeff<true>(*dt, s0.cu);
@@ -74,8 +77,10 @@ __global__ void step_corrector_kernel(const float* us, const float* vs, const fl
   float au = 0.f, av = 0.f;
   if (idx < n) {
     const float2 a = cfd::step::corrector_cell<kBlock>(us, vs, p, u2, v2, idx, s);
-    au = a.x;
-    av = a.y;
+    if (!kBlock || cfd::own_row(idx, s.Hq8, s.Wqa, halo)) {
+      au = a.x;
+      av = a.y;
+    }
   }
   if constexpr (kCourant) cfd::block_max2_into(au, av, courant);
 }
@@ -112,7 +117,7 @@ cudaError_t step_carry(const float* us, const float* vs, const float* p, float* 
                        const Pred& c, int halo, cudaStream_t st) {
   const int blocks = cfd::blocks_for(4LL * s.Hq8 * s.Wqa);
   step_corrector_kernel<kAdaptive, kAdaptive, kBlock><<<blocks, cfd::kThreads, 0, st>>>(
-      us, vs, p, u_scr, v_scr, s, dts, courant);
+      us, vs, p, u_scr, v_scr, s, dts, courant, halo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   step_predictor_source_kernel<kAdaptive, kBlock><<<blocks, cfd::kThreads, 0, st>>>(
@@ -132,7 +137,7 @@ extern "C" int cfd_step_corrector(const float* us, const float* vs, const float*
   Step s{Hq8, Wqa, ny, nx, step_i, inlet_j, cu, cv, uin};
   step_corrector_kernel<false, false>
       <<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, st>>>(us, vs, p, u2, v2, s,
-                                                                  nullptr, nullptr);
+                                                                  nullptr, nullptr, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -145,7 +150,7 @@ extern "C" int cfd_step_corrector_traced(const float* us, const float* vs, const
   Step s{Hq8, Wqa, ny, nx, step_i, inlet_j, cu_f, cv_f, uin};
   step_corrector_kernel<true, false>
       <<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, st>>>(us, vs, p, u2, v2, s, dt,
-                                                                  nullptr);
+                                                                  nullptr, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -172,19 +177,27 @@ extern "C" int cfd_step_carry(const float* us, const float* vs, const float* p,
 }
 
 // traced_dt + emit_courant: dts = (dt_corr, dt_pred) on the card; cu_f, cv_f
-// the float32 rho*dx, rho*dy; courant: 2 floats, zeroed here
+// the float32 rho*dx, rho*dy; courant: 2 floats, zeroed here; row_base,
+// halo as cfd_step_carry's, the sum and the Courant maxima then over the
+// own rows (row 16f+)
 extern "C" int cfd_step_carry_adaptive(const float* us, const float* vs, const float* p,
                                        float* u_scr, float* v_scr, float* us2, float* vs2,
                                        float* b, float* partials, float* sum_b,
                                        float* courant, const float* dts, int Hq8, int Wqa,
                                        int ny, int nx, int step_i, int inlet_j, float cu_f,
                                        float cv_f, float uin, float nu, float idx, float idy,
-                                       float idx2, float idy2, float rho, void* stream) {
+                                       float idx2, float idy2, float rho, int row_base,
+                                       int halo, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(courant, 0, 2 * sizeof(float), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  Step s{Hq8, Wqa, ny, nx, step_i, inlet_j, cu_f, cv_f, uin};
-  Pred c{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho};
+  Step s{Hq8, Wqa, ny, nx, step_i, inlet_j, cu_f, cv_f, uin, row_base};
+  Pred c{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho, row_base};
+  if (halo > 0) {
+    return static_cast<int>(step_carry<true, true>(us, vs, p, u_scr, v_scr, us2, vs2, b,
+                                                   partials, sum_b, courant, dts, s, c, halo,
+                                                   st));
+  }
   return static_cast<int>(step_carry<true>(us, vs, p, u_scr, v_scr, us2, vs2, b, partials,
                                             sum_b, courant, dts, s, c, 0, st));
 }

@@ -8,8 +8,8 @@ and the whole step, the natural layout's stage kernels, fused-residual
 pairs and exact masked pairs, the cavity carry with the first pre-smooth
 folded in, the channel's non-carry stage, the cavity's carry, pre and post,
 the channel's and RB's carries and the step's carry, pre and post on one
-shard's local block of a plane-row mesh), each with its launch counter
-(kernels._build.Kernel)."""
+shard's local block of a plane-row mesh, and the four traced-dt + Courant
+carries there), each with its launch counter (kernels._build.Kernel)."""
 
 from cfd_tpu_torch.kernels.mg_tail import MG_TAIL, MG_TAIL_FULL
 from cfd_tpu_torch.kernels.projection import (
@@ -33,7 +33,9 @@ from cfd_tpu_torch.kernels.quad import (
     PRE,
     PREDICTOR_SOURCE,
     SHARD_CARRY,
+    SHARD_CARRY_ADAPTIVE,
     SHARD_CHANNEL_CARRY,
+    SHARD_CHANNEL_CARRY_ADAPTIVE,
     SHARD_POST,
     SHARD_PRE,
 )
@@ -43,10 +45,12 @@ from cfd_tpu_torch.kernels.rb_quad import (
     RB_CORRECTOR,
     RB_CORRECTOR_TRACED,
     SHARD_RB_CARRY,
+    SHARD_RB_CARRY_ADAPTIVE,
 )
 from cfd_tpu_torch.kernels.rb_smoother import RB_PAIRS, RB_PAIRS_FULL, RB_PAIRS_RES
 from cfd_tpu_torch.kernels.step_quad import (
     SHARD_STEP_CARRY,
+    SHARD_STEP_CARRY_ADAPTIVE,
     SHARD_STEP_POST,
     SHARD_STEP_PRE,
     STEP_CARRY,
@@ -91,6 +95,7 @@ KERNELS = (CARRY, CORRECTOR, PRE, POST, RB_PAIRS, CHANNEL_CARRY, CHANNEL_CORRECT
            NATURAL_CORRECTOR, NATURAL_CHANNEL_PREDICTOR_SOURCE, NATURAL_CHANNEL_CORRECTOR,
            RB_PAIRS_RES, STEP_PAIRS, STEP_PAIRS_RES, FUSED_PRE, CHANNEL_PREDICTOR_SOURCE,
            SHARD_CARRY, SHARD_PRE, SHARD_POST, SHARD_CHANNEL_CARRY, SHARD_RB_CARRY,
-           SHARD_STEP_CARRY, SHARD_STEP_PRE, SHARD_STEP_POST)
+           SHARD_STEP_CARRY, SHARD_STEP_PRE, SHARD_STEP_POST, SHARD_CARRY_ADAPTIVE,
+           SHARD_CHANNEL_CARRY_ADAPTIVE, SHARD_RB_CARRY_ADAPTIVE, SHARD_STEP_CARRY_ADAPTIVE)
 
 __all__ = ["KERNELS"]

@@ -77,16 +77,17 @@ SIGNATURES = {
     "cfd_rb_corrector": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_P],
     "cfd_rb_carry": [_P] * 14 + [_I] * 4 + [_F] * 13 + [_I, _I, _P],
     # adaptive stepping: the traced-dt correctors, the traced-dt cavity
-    # predictor+source, the traced-dt + Courant carries
+    # predictor+source, the traced-dt + Courant carries (their last two
+    # ints as the fixed carries')
     "cfd_quad_corrector_traced": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
     "cfd_quad_predictor_source": [_P] * 7 + [_I] * 4 + [_F] * 7 + [_P],
-    "cfd_quad_carry_adaptive": [_P] * 13 + [_I] * 4 + [_F] * 9 + [_P],
+    "cfd_quad_carry_adaptive": [_P] * 13 + [_I] * 4 + [_F] * 9 + [_I, _I, _P],
     "cfd_quad_channel_corrector_traced": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
-    "cfd_quad_channel_carry_adaptive": [_P] * 14 + [_I] * 4 + [_F] * 9 + [_P],
+    "cfd_quad_channel_carry_adaptive": [_P] * 14 + [_I] * 4 + [_F] * 9 + [_I, _I, _P],
     "cfd_step_corrector_traced": [_P] * 6 + [_I] * 6 + [_F] * 3 + [_P],
-    "cfd_step_carry_adaptive": [_P] * 12 + [_I] * 6 + [_F] * 9 + [_P],
+    "cfd_step_carry_adaptive": [_P] * 12 + [_I] * 6 + [_F] * 9 + [_I, _I, _P],
     "cfd_rb_corrector_traced": [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P],
-    "cfd_rb_carry_adaptive": [_P] * 14 + [_I] * 4 + [_F] * 11 + [_P],
+    "cfd_rb_carry_adaptive": [_P] * 14 + [_I] * 4 + [_F] * 11 + [_I, _I, _P],
     # the natural layout: the four stage kernels and the step's exact
     # masked finest-level pairs
     "cfd_predictor_source": [_P] * 6 + [_I] * 4 + [_F] * 8 + [_P],

@@ -87,6 +87,15 @@ SHARD_POST = Kernel("quad_post_prolong_smooth_shard", "cfd_quad_post_prolong_smo
 SHARD_CHANNEL_CARRY = Kernel("quad_channel_corr_predictor_source_shard",
                              "cfd_quad_channel_carry", "cfd_tpu_torch/csrc/quad_stage.cu",
                              "cfd_tpu/kernels/quad.py:1126 (shard=)")
+# the traced-dt + Courant carries on one shard's local block (rows 16a+,
+# 16d+: the sharded lagged controller), counted apart
+SHARD_CARRY_ADAPTIVE = Kernel("quad_corr_predictor_source_shard_adaptive",
+                              "cfd_quad_carry_adaptive", "cfd_tpu_torch/csrc/quad_stage.cu",
+                              "cfd_tpu/kernels/quad.py:938 (shard=, traced_dt)")
+SHARD_CHANNEL_CARRY_ADAPTIVE = Kernel("quad_channel_corr_predictor_source_shard_adaptive",
+                                      "cfd_quad_channel_carry_adaptive",
+                                      "cfd_tpu_torch/csrc/quad_stage.cu",
+                                      "cfd_tpu/kernels/quad.py:1126 (shard=, traced_dt)")
 
 # threads per block of the stage kernels (cfd::kThreads): the block size of
 # the fixed-order source sum
@@ -752,16 +761,23 @@ class QuadCorrPredictorSourceAdaptive(_Traced, QuadCorrPredictorSource):
                 *_courant(torch.stack(u), torch.stack(v)))
 
     def kernel(self, dts, us, vs, p, p_prev):
-        u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
-        scal = torch.empty(3, dtype=torch.float32, device=us.device)  # max|b|, max|u|, max|v|
-        _, Hq8, Wqa = self.qshape
-        c = self.coeffs
-        CARRY_ADAPTIVE(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr), ptr(v_scr),
-                       ptr(us2), ptr(vs2), ptr(b), ptr(guess), ptr(scal), ptr(scal[1:]),
-                       ptr(dts), Hq8, Wqa, self.ny, self.nx, self.cu_f, self.cv_f,
-                       2.0 * self.lid, c.viscosity, c.idx, c.idy, c.idx2, c.idy2,
-                       c.density)
-        return us2, vs2, b, guess, scal[0], scal[1], scal[2]
+        return _cavity_carry_adaptive(self, CARRY_ADAPTIVE, dts, (us, vs, p, p_prev), 0, 0)
+
+
+def _cavity_carry_adaptive(op, kern: Kernel, dts, fields, row_base: int, halo: int):
+    """One launch of cfd_quad_carry_adaptive through ``kern`` (its counter):
+    (us', vs', b', guess, max|b'|, max|u|, max|v|), the reductions over the
+    own rows of a block with a ``halo``-row strip."""
+    us, vs, p, p_prev = fields
+    u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
+    scal = torch.empty(3, dtype=torch.float32, device=us.device)  # max|b|, max|u|, max|v|
+    _, H, Wqa = op.qshape
+    c = op.coeffs
+    kern(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr), ptr(v_scr), ptr(us2), ptr(vs2),
+         ptr(b), ptr(guess), ptr(scal), ptr(scal[1:]), ptr(dts), H, Wqa, op.ny, op.nx, op.cu_f,
+         op.cv_f, 2.0 * op.lid, c.viscosity, c.idx, c.idy, c.idx2, c.idy2, c.density, row_base,
+         halo)
+    return us2, vs2, b, guess, scal[0], scal[1], scal[2]
 
 
 class QuadChannelCorrectorTraced(_Traced, QuadChannelCorrector):
@@ -809,18 +825,25 @@ class QuadChannelCorrPredictorSourceAdaptive(_Traced, QuadChannelCorrPredictorSo
                 *_courant(torch.stack(u), torch.stack(v)))
 
     def kernel(self, dts, us, vs, p, p_prev):
-        u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
-        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
-                               device=us.device)
-        scal = torch.empty(3, dtype=torch.float32, device=us.device)  # sum b, max|u|, max|v|
-        _, Hq8, Wqa = self.qshape
-        c = self.coeffs
-        CHANNEL_CARRY_ADAPTIVE(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr),
-                               ptr(v_scr), ptr(us2), ptr(vs2), ptr(b), ptr(guess),
-                               ptr(partials), ptr(scal), ptr(scal[1:]), ptr(dts), Hq8, Wqa,
-                               self.ny, self.nx, self.cu_f, self.cv_f, self.uin, c.viscosity,
-                               c.idx, c.idy, c.idx2, c.idy2, c.density)
-        return us2, vs2, b, guess, scal[0], scal[1], scal[2]
+        return _channel_carry_adaptive(self, CHANNEL_CARRY_ADAPTIVE, dts, (us, vs, p, p_prev),
+                                       0, 0)
+
+
+def _channel_carry_adaptive(op, kern: Kernel, dts, fields, row_base: int, halo: int):
+    """One launch of cfd_quad_channel_carry_adaptive through ``kern``: (us',
+    vs', b', guess, sum b', max|u|, max|v|), the reductions over the own rows
+    of a block with a ``halo``-row strip."""
+    us, vs, p, p_prev = fields
+    u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
+    partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32, device=us.device)
+    scal = torch.empty(3, dtype=torch.float32, device=us.device)  # sum b, max|u|, max|v|
+    _, H, Wqa = op.qshape
+    c = op.coeffs
+    kern(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr), ptr(v_scr), ptr(us2), ptr(vs2),
+         ptr(b), ptr(guess), ptr(partials), ptr(scal), ptr(scal[1:]), ptr(dts), H, Wqa, op.ny,
+         op.nx, op.cu_f, op.cv_f, op.uin, c.viscosity, c.idx, c.idy, c.idx2, c.idy2, c.density,
+         row_base, halo)
+    return us2, vs2, b, guess, scal[0], scal[1], scal[2]
 
 
 def make_quad_corrector(shape, coeffs, lid_velocity: float = 1.0,
@@ -843,11 +866,11 @@ def make_quad_corr_predictor_source(shape, coeffs, lid_velocity: float = 1.0,
                                     ) -> QuadCorrPredictorSource:
     """``adaptive``: the traced_dt + emit_courant instance. ``shard=(P,
     mdy)``: the kernel of one shard's local block
-    (QuadCorrPredictorSourceShard)."""
+    (QuadCorrPredictorSourceShard, with ``adaptive``
+    QuadCorrPredictorSourceShardAdaptive)."""
     if shard is not None:
         if adaptive:
-            raise NotImplementedError("the sharded traced-dt + Courant carry is not ported "
-                                      "yet (ROADMAP.md queue A item A.12d)")
+            return QuadCorrPredictorSourceShardAdaptive(shape, coeffs, lid_velocity, shard)
         return QuadCorrPredictorSourceShard(shape, coeffs, lid_velocity, shard)
     if adaptive:
         return QuadCorrPredictorSourceAdaptive(shape, coeffs, lid_velocity)
@@ -872,11 +895,12 @@ def make_quad_channel_corr_predictor_source(shape, coeffs, inlet_velocity: float
                                             ) -> QuadChannelCorrPredictorSource:
     """``adaptive``: the traced_dt + emit_courant instance. ``shard=(P,
     mdy)``: the kernel of one shard's local block
-    (QuadChannelCorrPredictorSourceShard)."""
+    (QuadChannelCorrPredictorSourceShard, with ``adaptive``
+    QuadChannelCorrPredictorSourceShardAdaptive)."""
     if shard is not None:
         if adaptive:
-            raise NotImplementedError("the sharded traced-dt + Courant channel carry is not "
-                                      "ported yet (ROADMAP.md queue A item A.12d)")
+            return QuadChannelCorrPredictorSourceShardAdaptive(shape, coeffs, inlet_velocity,
+                                                               shard)
         return QuadChannelCorrPredictorSourceShard(shape, coeffs, inlet_velocity, shard)
     if adaptive:
         return QuadChannelCorrPredictorSourceAdaptive(shape, coeffs, inlet_velocity)
@@ -1061,6 +1085,27 @@ def own_row_sum(b: torch.Tensor, P: int) -> torch.Tensor:
     return fixed_order_sum(torch.where(own, b, torch.zeros_like(b)))
 
 
+def own_rows(t: torch.Tensor, P: int) -> torch.Tensor:
+    """The own rows of a local (4, P + 16, W) block (local rows DEV_HALO
+    ... DEV_HALO + P - 1): the region of a shard kernel's reductions."""
+    return t[..., DEV_HALO : DEV_HALO + P, :]
+
+
+class _ShardTraced(_Traced):
+    """The dispatch of a traced-dt + Courant carry on one shard's local
+    block: (row_base, dts, *fields), dts = (dt_corr, dt_pred) on the
+    fields' device."""
+
+    n_dt = 2
+
+    def __call__(self, row_base: int, dts, *fields):
+        _check(self.qshape, *fields)
+        _check((self.n_dt,), dts)
+        if route(dts, *fields) == "cuda":
+            return self.kernel(row_base, dts, *fields)
+        return self.plain(row_base, dts, *fields)
+
+
 def _band_maker(row_base: int, H: int, ny: int, device, pad: int = 0):
     """The TPU kernels' valid band (cfd_tpu/kernels/quad.py:611-627) with
     the slab = the local block of H plane rows at ``row_base``: band(lo) is
@@ -1079,23 +1124,17 @@ def _band_maker(row_base: int, H: int, ny: int, device, pad: int = 0):
     return band
 
 
-class QuadCorrPredictorSourceShard(QuadCorrPredictorSource):
-    """The cavity carry on one shard's local block (row 16a,
-    cfd_tpu/kernels/quad.py:938 with shard=(P, mdy)): (row_base, us, vs, p,
-    p_prev) -> (us', vs', b', guess, max|b'|) on (4, P + 16, Wqa) blocks.
-    row_base = jy * P - 8 is the global plane row of local row 0, so every
-    mask and ghost keeps its global meaning; max|b'| covers the own rows
-    (local 8 ... P + 7): the shard's partial.
+class _CarryBlock:
+    """A cavity or channel carry on one shard's local (4, P + 16, Wqa) block,
+    called (row_base, us, vs, p, p_prev). Its twin is the single-device
+    twin on the block padded with DEV_HALO zero rows either side, the
+    corrected u, v zeroed on the padding: the kernel (csrc/quad_stage.cu)
+    reads 0 outside the block and its corrector writes the corrected u, v of
+    the block only."""
 
-    The kernel (csrc/quad_stage.cu) reads 0 outside the block and its
-    corrector writes the corrected u, v of the block only; the twin computes
-    the same on the block padded with DEV_HALO zero rows either side, with
-    the corrected u, v zeroed on the padding. The radius of the stages is 5
-    rows, so the own rows equal the single-device carry's."""
-
-    def __init__(self, shape, coeffs: StencilCoeffs, lid_velocity: float = 1.0,
+    def __init__(self, shape, coeffs: StencilCoeffs, velocity: float = 1.0,
                  shard: tuple[int, int] = (8, 1)):
-        super().__init__(shape, coeffs, lid_velocity)
+        super().__init__(shape, coeffs, velocity)
         P, _ = shard
         if P % 8:
             raise ValueError(f"shard rows must be a multiple of 8, got {P}")
@@ -1108,19 +1147,40 @@ class QuadCorrPredictorSourceShard(QuadCorrPredictorSource):
             return self.kernel(row_base, us, vs, p, p_prev)
         return self.plain(row_base, us, vs, p, p_prev)
 
-    def plain(self, row_base, us, vs, p, p_prev):
+    def _tentative_bc(self, grow, gcol):
+        """The ghost update of the tentative fields (the cavity's: none)."""
+        return None
+
+    def _block_stage(self, row_base, us, vs, p, p_prev, cu=None, cv=None, dt=None):
+        """(us', vs', b', guess, u, v) on the block, u and v the corrected,
+        ghosted fields, at the host's coefficients or the traced ones."""
         z, H = DEV_HALO, self.qshape[1]
         grow, gcol = _qiota(H + 2 * z, self.qshape[2], us.device, row_base - z)
         u, v, guess = self._corrected(*(_pad_rows(t, z) for t in (us, vs, p, p_prev)),
-                                      grow, gcol)
+                                      grow, gcol, cu, cv)
         block = _block_rows(H, z, us.device)
         u = [torch.where(block, a, torch.zeros_like(a)) for a in u]
         v = [torch.where(block, a, torch.zeros_like(a)) for a in v]
-        us2, vs2, b = _predictor_source_quad(u, v, self.coeffs, grow, gcol, self.ny, self.nx)
-        b = _crop_rows(b, z)
-        own = b[:, DEV_HALO : DEV_HALO + self.P]
-        return (_crop_rows(us2, z), _crop_rows(vs2, z), b,
-                _crop_rows(torch.stack(guess), z), torch.max(torch.abs(own)))
+        us2, vs2, b = _predictor_source_quad(u, v, self.coeffs, grow, gcol, self.ny, self.nx,
+                                             bc=self._tentative_bc(grow, gcol), dt=dt)
+        return tuple(_crop_rows(t, z) for t in (us2, vs2, b, torch.stack(guess),
+                                                torch.stack(u), torch.stack(v)))
+
+
+class QuadCorrPredictorSourceShard(_CarryBlock, QuadCorrPredictorSource):
+    """The cavity carry on one shard's local block (row 16a,
+    cfd_tpu/kernels/quad.py:938 with shard=(P, mdy)): (row_base, us, vs, p,
+    p_prev) -> (us', vs', b', guess, max|b'|) on (4, P + 16, Wqa) blocks.
+    row_base = jy * P - 8 is the global plane row of local row 0, so every
+    mask and ghost keeps its global meaning; max|b'| covers the own rows
+    (local 8 ... P + 7): the shard's partial.
+
+    The twin is _CarryBlock's. The radius of the stages is 5 rows, so the
+    own rows equal the single-device carry's."""
+
+    def plain(self, row_base, us, vs, p, p_prev):
+        us2, vs2, b, guess, _, _ = self._block_stage(row_base, us, vs, p, p_prev)
+        return us2, vs2, b, guess, torch.max(torch.abs(own_rows(b, self.P)))
 
     def kernel(self, row_base, us, vs, p, p_prev):
         u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
@@ -1136,7 +1196,7 @@ class QuadCorrPredictorSourceShard(QuadCorrPredictorSource):
         return us2, vs2, b, guess, max_b
 
 
-class QuadChannelCorrPredictorSourceShard(QuadChannelCorrPredictorSource):
+class QuadChannelCorrPredictorSourceShard(_CarryBlock, QuadChannelCorrPredictorSource):
     """The channel carry on one shard's local block (row 16d,
     cfd_tpu/kernels/quad.py:1126 with shard=(P, mdy)): (row_base, us, vs, p,
     p_prev) -> (us', vs', b', guess, sum_own) on (4, P + 16, Wqa) blocks,
@@ -1145,40 +1205,16 @@ class QuadChannelCorrPredictorSourceShard(QuadChannelCorrPredictorSource):
     own rows' sum of b (own_row_sum): the shard's partial, which the caller
     adds over the shards (parallel.halo.global_sum).
 
-    The twin is the single-device twin on the block padded with DEV_HALO
-    zero rows either side, the corrected u, v zeroed on the padding: the
-    kernel (csrc/quad_stage.cu) reads 0 outside the block. The stages reach
-    5 rows (kChannelRadius there), so the own rows equal the single-device
-    carry's."""
+    The twin is _CarryBlock's with the channel ghosts on the tentative
+    fields. The stages reach 5 rows (kChannelRadius there), so the own rows
+    equal the single-device carry's."""
 
-    def __init__(self, shape, coeffs: StencilCoeffs, inlet_velocity: float = 1.0,
-                 shard: tuple[int, int] = (8, 1)):
-        super().__init__(shape, coeffs, inlet_velocity)
-        P, _ = shard
-        if P % 8:
-            raise ValueError(f"shard rows must be a multiple of 8, got {P}")
-        self.P = P
-        self.qshape = (4, P + 2 * DEV_HALO, self.qshape[2])
-
-    def __call__(self, row_base: int, us, vs, p, p_prev):
-        _check(self.qshape, us, vs, p, p_prev)
-        if route(us, vs, p, p_prev) == "cuda":
-            return self.kernel(row_base, us, vs, p, p_prev)
-        return self.plain(row_base, us, vs, p, p_prev)
+    def _tentative_bc(self, grow, gcol):
+        return self._bc(grow, gcol)
 
     def plain(self, row_base, us, vs, p, p_prev):
-        z, H = DEV_HALO, self.qshape[1]
-        grow, gcol = _qiota(H + 2 * z, self.qshape[2], us.device, row_base - z)
-        u, v, guess = self._corrected(*(_pad_rows(t, z) for t in (us, vs, p, p_prev)),
-                                      grow, gcol)
-        block = _block_rows(H, z, us.device)
-        u = [torch.where(block, a, torch.zeros_like(a)) for a in u]
-        v = [torch.where(block, a, torch.zeros_like(a)) for a in v]
-        us2, vs2, b = _predictor_source_quad(u, v, self.coeffs, grow, gcol, self.ny, self.nx,
-                                             bc=self._bc(grow, gcol))
-        b = _crop_rows(b, z)
-        return (_crop_rows(us2, z), _crop_rows(vs2, z), b,
-                _crop_rows(torch.stack(guess), z), own_row_sum(b, self.P))
+        us2, vs2, b, guess, _, _ = self._block_stage(row_base, us, vs, p, p_prev)
+        return us2, vs2, b, guess, own_row_sum(b, self.P)
 
     def kernel(self, row_base, us, vs, p, p_prev):
         u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
@@ -1194,6 +1230,63 @@ class QuadChannelCorrPredictorSourceShard(QuadChannelCorrPredictorSource):
                                 self.cv, self.uin, c.dt, c.viscosity, c.idx, c.idy, c.idx2,
                                 c.idy2, self.rho_dt, int(row_base), DEV_HALO)
         return us2, vs2, b, guess, sum_b
+
+
+class QuadCorrPredictorSourceShardAdaptive(_ShardTraced, QuadCorrPredictorSourceShard):
+    """The cavity carry with traced_dt and emit_courant on one shard's local
+    block (row 16a+, cfd_tpu/kernels/quad.py:938 with shard=(P, mdy),
+    traced_dt=True, emit_courant=True, called as fused_a(row_base, (dt_corr,
+    dt_pred), *arrays) by cfd_tpu/parallel/quad_sharded.py:1143-1166):
+    (row_base, dts, us, vs, p, p_prev) -> (us', vs', b', guess, max|b'|,
+    max|u|, max|v|), the maxima over the own rows only: the shard's
+    partials (the reference masks every scalar of a shard kernel so,
+    quad.py:308-312). The halo rows' corrected u, v read neighbours that the
+    block does not hold, so a maximum over them would not be the field's.
+    The twin is QuadCorrPredictorSourceShard's at the traced coefficients
+    of QuadCorrPredictorSourceAdaptive."""
+
+    divided = False
+
+    def __init__(self, shape, coeffs: StencilCoeffs, lid_velocity: float = 1.0,
+                 shard: tuple[int, int] = (8, 1)):
+        super().__init__(shape, coeffs, lid_velocity, shard)
+        self.cu_f, self.cv_f = self._factors(coeffs)
+
+    def plain(self, row_base, dts, us, vs, p, p_prev):
+        us2, vs2, b, guess, u, v = self._block_stage(row_base, us, vs, p, p_prev,
+                                                     *self._coeffs_at(dts[0]), dt=dts[1])
+        own = lambda t: own_rows(t, self.P)
+        return (us2, vs2, b, guess, torch.max(torch.abs(own(b))), *_courant(own(u), own(v)))
+
+    def kernel(self, row_base, dts, us, vs, p, p_prev):
+        with torch.cuda.device(us.device):  # the shards may lie on several cards
+            return _cavity_carry_adaptive(self, SHARD_CARRY_ADAPTIVE, dts, (us, vs, p, p_prev),
+                                          int(row_base), DEV_HALO)
+
+
+class QuadChannelCorrPredictorSourceShardAdaptive(_ShardTraced,
+                                                  QuadChannelCorrPredictorSourceShard):
+    """The channel carry with traced_dt and emit_courant on one shard's local
+    block (row 16d+, cfd_tpu/kernels/quad.py:1126 with shard=(P, mdy),
+    traced_dt=True, emit_courant=True): (row_base, dts, us, vs, p, p_prev)
+    -> (us', vs', b', guess, sum_own, max|u|, max|v|), the sum and the
+    maxima over the own rows only, as QuadCorrPredictorSourceShardAdaptive's."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, inlet_velocity: float = 1.0,
+                 shard: tuple[int, int] = (8, 1)):
+        super().__init__(shape, coeffs, inlet_velocity, shard)
+        self.cu_f, self.cv_f = self._factors(coeffs)
+
+    def plain(self, row_base, dts, us, vs, p, p_prev):
+        us2, vs2, b, guess, u, v = self._block_stage(row_base, us, vs, p, p_prev,
+                                                     *self._coeffs_at(dts[0]), dt=dts[1])
+        own = lambda t: own_rows(t, self.P)
+        return us2, vs2, b, guess, own_row_sum(b, self.P), *_courant(own(u), own(v))
+
+    def kernel(self, row_base, dts, us, vs, p, p_prev):
+        with torch.cuda.device(us.device):  # the shards may lie on several cards
+            return _channel_carry_adaptive(self, SHARD_CHANNEL_CARRY_ADAPTIVE, dts,
+                                           (us, vs, p, p_prev), int(row_base), DEV_HALO)
 
 
 class QuadPreSmoothRestrictShard(QuadPreSmoothRestrict):

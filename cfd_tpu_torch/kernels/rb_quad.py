@@ -29,8 +29,8 @@ step n with dt_corr (the corrector AND the temperature transport) and
 advances step n+1 with dt_pred (the predictor, the buoyancy and the
 source); the corrector with ``traced_dt``. The carry with ``shard=(P,
 mdy)`` runs on one shard's local block of the plane-row mesh
-(QuadRBStepShard, parallel.quad_sharded); its traced-dt + Courant instance
-is not ported yet (ROADMAP.md queue A item A.12d).
+(QuadRBStepShard, parallel.quad_sharded), fixed and with traced_dt +
+emit_courant (QuadRBStepShardAdaptive: the sharded lagged controller).
 """
 
 from __future__ import annotations
@@ -51,11 +51,13 @@ from cfd_tpu_torch.kernels.quad import (
     _predictor_quad,
     _qiota,
     _qshift,
+    _ShardTraced,
     _Traced,
     _valid_masks,
     _where4,
     fixed_order_sum,
     own_row_sum,
+    own_rows,
     quad_shape,
     rho_over,
 )
@@ -76,6 +78,10 @@ RB_CARRY_ADAPTIVE = Kernel("quad_rb_step_adaptive", "cfd_rb_carry_adaptive",
 # counted apart
 SHARD_RB_CARRY = Kernel("quad_rb_step_shard", "cfd_rb_carry", "cfd_tpu_torch/csrc/rb_stage.cu",
                         "cfd_tpu/kernels/rb_quad.py:81 (shard=)")
+# its traced-dt + Courant instance (row 16e+), counted apart
+SHARD_RB_CARRY_ADAPTIVE = Kernel("quad_rb_step_shard_adaptive", "cfd_rb_carry_adaptive",
+                                 "cfd_tpu_torch/csrc/rb_stage.cu",
+                                 "cfd_tpu/kernels/rb_quad.py:81 (shard=, traced_dt)")
 
 
 def _box_noslip_bc_quad(u, v, grow, gcol, ny: int, nx: int):
@@ -294,11 +300,17 @@ class QuadRBStepShard(QuadRBStep):
         return self.plain(row_base, us, vs, p, T)
 
     def plain(self, row_base, us, vs, p, T):
-        z, H = DEV_HALO, self.qshape[1]
-        outs, _, _ = self._stage(*(_pad_rows(t, z) for t in (us, vs, p, T)), row0=row_base - z,
-                                 block=_block_rows(H, z, us.device))
-        us2, vs2, T2, b = (_crop_rows(a, z) for a in outs)
+        us2, vs2, T2, b, _, _ = self._block_stage(row_base, us, vs, p, T)
         return us2, vs2, T2, b, own_row_sum(b, self.P)
+
+    def _block_stage(self, row_base, us, vs, p, T, cu=None, cv=None, dts=None):
+        """(us', vs', T', b, u2, v2) on the block, u2 and v2 the corrected,
+        ghosted fields, at the host's coefficients or the traced ones."""
+        z, H = DEV_HALO, self.qshape[1]
+        outs, u2, v2 = self._stage(*(_pad_rows(t, z) for t in (us, vs, p, T)), None, cu, cv,
+                                   dts=dts, row0=row_base - z,
+                                   block=_block_rows(H, z, us.device))
+        return tuple(_crop_rows(a, z) for a in (*outs, u2, v2))
 
     def kernel(self, row_base, us, vs, p, T):
         u_scr, v_scr, us2, vs2, T2, b = (torch.empty_like(us) for _ in range(6))
@@ -358,17 +370,49 @@ class QuadRBStepAdaptive(_Traced, QuadRBStep):
         return (*outs, fixed_order_sum(outs[3]), *_courant(u2, v2))
 
     def kernel(self, dts, us, vs, p, T):
-        u_scr, v_scr, us2, vs2, T2, b = (torch.empty_like(us) for _ in range(6))
-        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
-                               device=us.device)
-        scal = torch.empty(3, dtype=torch.float32, device=us.device)  # sum b, max|u|, max|v|
-        c = self.coeffs
-        RB_CARRY_ADAPTIVE(us, ptr(us), ptr(vs), ptr(p), ptr(T), ptr(u_scr), ptr(v_scr),
-                          ptr(us2), ptr(vs2), ptr(T2), ptr(b), ptr(partials), ptr(scal),
-                          ptr(scal[1:]), ptr(dts), *self._ints(), self.cu_f, self.cv_f,
-                          c.viscosity, c.idx, c.idy, c.idx2, c.idy2, c.density, self.kappa,
-                          2.0 * self.t_bottom, 2.0 * self.t_top)
-        return us2, vs2, T2, b, scal[0], scal[1], scal[2]
+        return _rb_carry_adaptive(self, RB_CARRY_ADAPTIVE, dts, (us, vs, p, T), 0, 0)
+
+
+class QuadRBStepShardAdaptive(_ShardTraced, QuadRBStepShard):
+    """The RB carry with traced_dt and emit_courant on one shard's local
+    block (row 16e+, cfd_tpu/kernels/rb_quad.py:81 with shard=(P, mdy),
+    traced_dt=True, emit_courant=True): (row_base, dts, us, vs, p, T) ->
+    (us', vs', T', b, sum_own, max|u2|, max|v2|), the sum and the maxima
+    over the own rows only. No p_prev: the sharded RB step solves from p
+    (cfd_tpu/parallel/quad_sharded.py:1178-1186). The twin is
+    QuadRBStepShard's at QuadRBStepAdaptive's traced coefficients."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, kappa: float, params: RBParams,
+                 shard: tuple[int, int] = (8, 1)):
+        super().__init__(shape, coeffs, kappa, params, shard)
+        self.cu_f, self.cv_f = self._factors(coeffs)
+
+    def plain(self, row_base, dts, us, vs, p, T):
+        us2, vs2, T2, b, u2, v2 = self._block_stage(row_base, us, vs, p, T,
+                                                    *self._coeffs_at(dts[0]), dts=dts)
+        own = lambda t: own_rows(t, self.P)
+        return us2, vs2, T2, b, own_row_sum(b, self.P), *_courant(own(u2), own(v2))
+
+    def kernel(self, row_base, dts, us, vs, p, T):
+        with torch.cuda.device(us.device):  # the shards may lie on several cards
+            return _rb_carry_adaptive(self, SHARD_RB_CARRY_ADAPTIVE, dts, (us, vs, p, T),
+                                      int(row_base), DEV_HALO)
+
+
+def _rb_carry_adaptive(op, kern: Kernel, dts, fields, row_base: int, halo: int):
+    """One launch of cfd_rb_carry_adaptive through ``kern`` (its counter):
+    (us', vs', T', b, sum b, max|u2|, max|v2|), the reductions over the own
+    rows of a block with a ``halo``-row strip."""
+    us, vs, p, T = fields
+    u_scr, v_scr, us2, vs2, T2, b = (torch.empty_like(us) for _ in range(6))
+    partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32, device=us.device)
+    scal = torch.empty(3, dtype=torch.float32, device=us.device)  # sum b, max|u|, max|v|
+    c = op.coeffs
+    kern(us, ptr(us), ptr(vs), ptr(p), ptr(T), ptr(u_scr), ptr(v_scr), ptr(us2), ptr(vs2),
+         ptr(T2), ptr(b), ptr(partials), ptr(scal), ptr(scal[1:]), ptr(dts), *op._ints(),
+         op.cu_f, op.cv_f, c.viscosity, c.idx, c.idy, c.idx2, c.idy2, c.density, op.kappa,
+         2.0 * op.t_bottom, 2.0 * op.t_top, row_base, halo)
+    return us2, vs2, T2, b, scal[0], scal[1], scal[2]
 
 
 def make_quad_rb_step_kernel(shape, coeffs, kappa: float, params: RBParams,
@@ -376,14 +420,13 @@ def make_quad_rb_step_kernel(shape, coeffs, kappa: float, params: RBParams,
                              shard: tuple[int, int] | None = None) -> QuadRBStep:
     """``adaptive``: the traced_dt + emit_courant instance (no guess).
     ``shard=(P, mdy)``: the carry of one shard's local block
-    (QuadRBStepShard; no guess)."""
+    (QuadRBStepShard, with ``adaptive`` QuadRBStepShardAdaptive; no guess)."""
     if shard is not None:
-        if adaptive:
-            raise NotImplementedError("the sharded traced-dt + Courant RB carry is not "
-                                      "ported yet (ROADMAP.md queue A item A.12d)")
         if emit_guess:
             raise ValueError("the sharded RB carry takes no p_prev (emit_guess): the "
                              "sharded RB step solves from p")
+        if adaptive:
+            return QuadRBStepShardAdaptive(shape, coeffs, kappa, params, shard)
         return QuadRBStepShard(shape, coeffs, kappa, params, shard)
     if adaptive:
         if emit_guess:

@@ -21,8 +21,9 @@ CUDA tensors only) and ``__call__``/``forward``, which sends CPU tensors to
 adaptive-stepping instances (``traced_dt``, and ``emit_courant`` on the
 carry) follow kernels.quad's. ``shard=(P, mdy)``: the carry, pre and post
 on one shard's local block of a plane-row mesh (row 16f,
-parallel.quad_sharded), the kernels.quad *Shard contract; the sharded
-traced-dt carry is not ported yet (ROADMAP.md queue A item A.12d).
+parallel.quad_sharded), the kernels.quad *Shard contract, and the carry's
+traced-dt + Courant instance there (row 16f+: the sharded lagged
+controller).
 """
 
 from __future__ import annotations
@@ -45,10 +46,12 @@ from cfd_tpu_torch.kernels.quad import (
     _qiota,
     _qshift,
     _restrict_rc,
+    _ShardTraced,
     _Traced,
     _where4,
     fixed_order_sum,
     own_row_sum,
+    own_rows,
     quad_dims,
     quad_shape,
     rho_over,
@@ -81,6 +84,10 @@ SHARD_STEP_PRE = Kernel("quad_step_pre_smooth_restrict_shard", "cfd_step_pre_smo
 SHARD_STEP_POST = Kernel("quad_step_post_prolong_smooth_shard", "cfd_step_post_prolong_smooth",
                          "cfd_tpu_torch/csrc/step_vcycle.cu",
                          "cfd_tpu/kernels/step_quad.py:419 (shard=)")
+SHARD_STEP_CARRY_ADAPTIVE = Kernel("quad_step_corr_predictor_source_shard_adaptive",
+                                   "cfd_step_carry_adaptive",
+                                   "cfd_tpu_torch/csrc/step_stage.cu",
+                                   "cfd_tpu/kernels/step_quad.py:100 (shard=, traced_dt)")
 
 
 def _step_masks(grow, gcol, ny: int, nx: int, step_i: int, inlet_j: int):
@@ -298,16 +305,22 @@ class QuadStepCorrPredictorSourceShard(QuadStepCorrPredictorSource):
         return self.plain(row_base, us, vs, p)
 
     def plain(self, row_base, us, vs, p):
+        us2, vs2, b, _, _ = self._block_stage(row_base, us, vs, p)
+        return us2, vs2, b, own_row_sum(b, self.P)
+
+    def _block_stage(self, row_base, us, vs, p, cu=None, cv=None, dt=None):
+        """(us', vs', b', u, v) on the block, u and v the corrected, BC'd
+        fields, at the host's coefficients or the traced ones."""
         z, H = DEV_HALO, self.qshape[1]
         grow, gcol = _qiota(H + 2 * z, self.qshape[2], us.device, row_base - z)
         masks = _step_masks(grow, gcol, self.ny, self.nx, self.step_i, self.inlet_j)
         u, v = self._corrected(*(_pad_rows(t, z) for t in (us, vs, p)), grow, gcol,
-                               *masks[1:])
+                               *masks[1:], cu, cv)
         block = _block_rows(H, z, us.device)
         u = [torch.where(block, a, torch.zeros_like(a)) for a in u]
         v = [torch.where(block, a, torch.zeros_like(a)) for a in v]
-        us2, vs2, b = (_crop_rows(t, z) for t in self._source(u, v, grow, gcol, masks))
-        return us2, vs2, b, own_row_sum(b, self.P)
+        return tuple(_crop_rows(t, z) for t in (*self._source(u, v, grow, gcol, masks, dt),
+                                                torch.stack(u), torch.stack(v)))
 
     def kernel(self, row_base, us, vs, p):
         u_scr, v_scr, us2, vs2, b = (torch.empty_like(us) for _ in range(5))
@@ -365,16 +378,48 @@ class QuadStepCorrPredictorSourceAdaptive(_Traced, QuadStepCorrPredictorSource):
         return us2, vs2, b, sum_b, *_courant(u, v)
 
     def kernel(self, dts, us, vs, p):
-        u_scr, v_scr, us2, vs2, b = (torch.empty_like(us) for _ in range(5))
-        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
-                               device=us.device)
-        scal = torch.empty(3, dtype=torch.float32, device=us.device)  # sum b, max|u|, max|v|
-        c = self.coeffs
-        STEP_CARRY_ADAPTIVE(us, ptr(us), ptr(vs), ptr(p), ptr(u_scr), ptr(v_scr), ptr(us2),
-                            ptr(vs2), ptr(b), ptr(partials), ptr(scal), ptr(scal[1:]),
-                            ptr(dts), *self._ints(), self.cu_f, self.cv_f, self.uin,
-                            c.viscosity, c.idx, c.idy, c.idx2, c.idy2, c.density)
-        return us2, vs2, b, scal[0], scal[1], scal[2]
+        return _step_carry_adaptive(self, STEP_CARRY_ADAPTIVE, dts, (us, vs, p), 0, 0)
+
+
+class QuadStepCorrPredictorSourceShardAdaptive(_ShardTraced,
+                                               QuadStepCorrPredictorSourceShard):
+    """The step carry with traced_dt and emit_courant on one shard's local
+    block (row 16f+, cfd_tpu/kernels/step_quad.py:100 with shard=(P, mdy),
+    traced_dt=True, emit_courant=True): (row_base, dts, us, vs, p) -> (us',
+    vs', b', sum_own, max|u|, max|v|), the fluid-cell sum and the maxima
+    over the own rows only. The twin is QuadStepCorrPredictorSourceShard's
+    at QuadStepCorrPredictorSourceAdaptive's traced coefficients."""
+
+    def __init__(self, shape, coeffs: StencilCoeffs, step_i: int, inlet_j: int,
+                 inlet_velocity: float = 1.0, shard: tuple[int, int] = (8, 1)):
+        super().__init__(shape, coeffs, step_i, inlet_j, inlet_velocity, shard)
+        self.cu_f, self.cv_f = self._factors(coeffs)
+
+    def plain(self, row_base, dts, us, vs, p):
+        us2, vs2, b, u, v = self._block_stage(row_base, us, vs, p, *self._coeffs_at(dts[0]),
+                                              dt=dts[1])
+        own = lambda t: own_rows(t, self.P)
+        return us2, vs2, b, own_row_sum(b, self.P), *_courant(own(u), own(v))
+
+    def kernel(self, row_base, dts, us, vs, p):
+        with torch.cuda.device(us.device):  # the shards may lie on several cards
+            return _step_carry_adaptive(self, SHARD_STEP_CARRY_ADAPTIVE, dts, (us, vs, p),
+                                        int(row_base), DEV_HALO)
+
+
+def _step_carry_adaptive(op, kern: Kernel, dts, fields, row_base: int, halo: int):
+    """One launch of cfd_step_carry_adaptive through ``kern`` (its counter):
+    (us', vs', b', sum b', max|u|, max|v|), the reductions over the own rows
+    of a block with a ``halo``-row strip."""
+    us, vs, p = fields
+    u_scr, v_scr, us2, vs2, b = (torch.empty_like(us) for _ in range(5))
+    partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32, device=us.device)
+    scal = torch.empty(3, dtype=torch.float32, device=us.device)  # sum b, max|u|, max|v|
+    c = op.coeffs
+    kern(us, ptr(us), ptr(vs), ptr(p), ptr(u_scr), ptr(v_scr), ptr(us2), ptr(vs2), ptr(b),
+         ptr(partials), ptr(scal), ptr(scal[1:]), ptr(dts), *op._ints(), op.cu_f, op.cv_f,
+         op.uin, c.viscosity, c.idx, c.idy, c.idx2, c.idy2, c.density, row_base, halo)
+    return us2, vs2, b, scal[0], scal[1], scal[2]
 
 
 def make_quad_step_corrector(shape, coeffs, step_i: int, inlet_j: int,
@@ -390,13 +435,12 @@ def make_quad_step_corr_predictor_source(shape, coeffs, step_i: int, inlet_j: in
                                          ) -> QuadStepCorrPredictorSource:
     """``adaptive``: the traced_dt + emit_courant instance. ``shard=(P,
     mdy)``: the kernel of one shard's local block
-    (QuadStepCorrPredictorSourceShard)."""
+    (QuadStepCorrPredictorSourceShard, with ``adaptive``
+    QuadStepCorrPredictorSourceShardAdaptive)."""
     if shard is not None:
-        if adaptive:
-            raise NotImplementedError("the sharded traced-dt + Courant step carry is not "
-                                      "ported yet (ROADMAP.md queue A item A.12d)")
-        return QuadStepCorrPredictorSourceShard(shape, coeffs, step_i, inlet_j,
-                                                inlet_velocity, shard)
+        cls = (QuadStepCorrPredictorSourceShardAdaptive if adaptive
+               else QuadStepCorrPredictorSourceShard)
+        return cls(shape, coeffs, step_i, inlet_j, inlet_velocity, shard)
     cls = QuadStepCorrPredictorSourceAdaptive if adaptive else QuadStepCorrPredictorSource
     return cls(shape, coeffs, step_i, inlet_j, inlet_velocity)
 

@@ -6,9 +6,9 @@ Ported: ``mesh`` (factor_2d, make_mesh: a single-controller Mesh, one
 process holding an ordered list of devices, one per shard), ``halo``
 (global_max, global_sum over per-shard partials) and ``quad_sharded``
 (ShardedQuadProjection, the cavity, channel, rayleigh_benard and
-backwards_step flavors). Not ported yet: the XLA paths sharded.py and
-mg_sharded.py and halo.exchange_halos, and the sharded adaptive instances
-(ROADMAP.md queue A item A.12d)."""
+backwards_step flavors, fixed dt and the lagged adaptive controller). Not
+ported yet: the XLA paths sharded.py and mg_sharded.py and
+halo.exchange_halos."""
 
 from cfd_tpu_torch.parallel.halo import global_max, global_sum
 from cfd_tpu_torch.parallel.mesh import Mesh, factor_2d, make_mesh

@@ -52,7 +52,10 @@ equal the single-device path with its sums taken in the shards' order
 (chip_smoke.shard_order_case) and hold to the reference's bands of the
 plain one over the reference test's steps
 (tests/test_torch_quad_sharded_flavors.py,
-tests/test_torch_quad_sharded_step.py).
+tests/test_torch_quad_sharded_step.py). The same holds for the lagged
+adaptive runs (ShardedQuadProjection.make_adaptive, driven by
+cfd_tpu_torch.adaptive.run_adaptive), whose dt sequence follows from the
+shards' own-row Courant maxima (tests/test_torch_quad_sharded_adaptive*.py).
 """
 
 from __future__ import annotations
@@ -95,7 +98,7 @@ from cfd_tpu_torch.kernels.step_quad import (
 )
 from cfd_tpu_torch.parallel.halo import global_max, global_sum
 from cfd_tpu_torch.poisson import multigrid as M
-from cfd_tpu_torch.state import State
+from cfd_tpu_torch.state import State, StepDiagnostics
 
 
 def _refresh(xs: list, P: int) -> list:
@@ -505,7 +508,9 @@ class ShardedQuadProjection:
     mean pin, the step from p with the masked defect correction
     (ShardedMaskedStepSolve). ``logical`` gathers the own rows at print
     cadence and applies the flavor's corrector (RB: the case's
-    unalign_state).
+    unalign_state). ``make_adaptive`` gives the lagged adaptive
+    controller's step: the same step on the flavor's traced-dt + Courant
+    carry, and the Courant number from the shards' own-row maxima.
 
     The solve's config is the reference's, not the case's: V(2,1), V(1,2)
     for the channel (:814-821), V(1,1) for the step, with ``tol_factor``
@@ -591,21 +596,22 @@ class ShardedQuadProjection:
                 raise ValueError("the sharded backwards_step flavor requires the reference "
                                  "rectangle raster")
             uin = info.get("inlet_velocity", 1.0)
-            self._carry = make_quad_step_corr_predictor_source(shape, coeffs, *self._step_rect,
-                                                               uin, shard=shard)
+            make_carry = functools.partial(make_quad_step_corr_predictor_source, shape, coeffs,
+                                           *self._step_rect, uin, shard=shard)
             self._corr = make_quad_step_corrector(shape, coeffs, *self._step_rect, uin)
             self._solve = ShardedMaskedStepSolve(grid, coeffs, mg, shape, self.devices)
             self.n_carry = 3
         elif flavor == "cavity":
             lid = info.get("lid_velocity", 1.0)
             problem = M.cavity_problem(*args)
-            self._carry = make_quad_corr_predictor_source(shape, coeffs, lid, shard=shard)
+            make_carry = functools.partial(make_quad_corr_predictor_source, shape, coeffs, lid,
+                                           shard=shard)
             self._corr = make_quad_corrector(shape, coeffs, lid)
         elif flavor == "channel":
             uin = info.get("inlet_velocity", 1.0)
             problem = M.channel_problem(*args)
-            self._carry = make_quad_channel_corr_predictor_source(shape, coeffs, uin,
-                                                                  shard=shard)
+            make_carry = functools.partial(make_quad_channel_corr_predictor_source, shape,
+                                           coeffs, uin, shard=shard)
             self._corr = make_quad_channel_corrector(shape, coeffs, uin)
         else:
             from cfd_tpu_torch.physics.boussinesq import RBParams
@@ -613,9 +619,13 @@ class ShardedQuadProjection:
             problem = M.neumann_problem(*args)
             params = RBParams(info["rayleigh"], info["prandtl"], info.get("t_bottom", 1.0),
                               info.get("t_top", 0.0))
-            self._carry = make_quad_rb_step_kernel(shape, coeffs, info["kappa"], params,
-                                                   shard=shard)
+            make_carry = functools.partial(make_quad_rb_step_kernel, shape, coeffs,
+                                           info["kappa"], params, shard=shard)
             self._corr = None  # case.unalign_state is RB's boundary
+        # the flavor's carry on a shard's block; adaptive=True: its traced-dt
+        # + Courant instance (make_adaptive)
+        self._make_carry = make_carry
+        self._carry = make_carry()
         if flavor != "backwards_step":
             self._solve = make_sharded_quad_solve(problem, mg, shape, mesh,
                                                   pin_mean=flavor == "rayleigh_benard")
@@ -701,8 +711,13 @@ class ShardedQuadProjection:
             st, d = self._sd.step(state)
             return st, {"poisson_iters": d.poisson_iters,
                         "poisson_residual": d.poisson_residual}
-        outs = [self._carry(rb, *a) for rb, a in
-                zip(self._solve.row_base, zip(*state), strict=True)]
+        return self._finish_step(state, [self._carry(rb, *a) for rb, a in
+                                         zip(self._solve.row_base, zip(*state), strict=True)])
+
+    def _finish_step(self, state, outs):
+        """The step after the carries' ``outs`` (their leading outputs are the
+        fixed and the traced-dt carries' alike): the refresh, the source mean,
+        max|b| and the solve (step_local :896-928, astep_local :1171-1207)."""
         if self.flavor == "backwards_step":  # carry, refresh, mean, max_b, solve (:910-916)
             us2, vs2, b = (_refresh([o[k] for o in outs], self.P) for k in range(3))
             b = self._remove_mean(b, [o[3] for o in outs])
@@ -737,27 +752,96 @@ class ShardedQuadProjection:
 
     def make_adaptive(self, max_courant: float, growth: float, dt_ceiling: float,
                       spc: int):
-        """Lagged adaptive stepping on the sharded path (:1104)."""
-        raise NotImplementedError("adaptive dt on the sharded path (the sharded traced-dt "
-                                  "carries and _run_adaptive_sharded) is not ported yet "
-                                  "(ROADMAP.md queue A item A.12d)")
+        """Lagged adaptive stepping on the sharded path (:1104-1266): the
+        flavor's traced-dt + Courant carry on every shard (rows 16a+, 16d+,
+        16e+, 16f+: kernels.quad, rb_quad and step_quad *ShardAdaptive, told
+        the shard's row_base), then the fixed-dt step's refresh, source mean,
+        max|b| and solve (_finish_step), and co_per_dt = global_max(mu) / dx
+        + global_max(mv) / dy over the shards' own-row maxima.
+
+        Returns (step, to_aligned, to_logical), the contract of
+        Case.adaptive_impl_carry, so the single-device lagged loop
+        (adaptive._run_lagged) drives this engine too:
+
+        * step(state, dts) -> (state, StepDiagnostics(cycles, res),
+          co_per_dt), dts = (dt_corr, dt_pred) a (2,) float32 tensor on
+          shard 0's device, co_per_dt a 0-d tensor there;
+        * to_aligned(logical State, dt) and to_logical(state, dt_used): the
+          case's adaptive converters on the gathered global quad arrays
+          (:1250-1264).
+
+        The reference scans ``spc`` steps of its controller, dt' =
+        min(dt * min(growth, max_courant / Co), dt_ceiling), on the device
+        (:1209-1240). The port's loop runs that controller itself, in the
+        same float32 operations on shard 0's device, so the step takes no
+        controller constants. A delegated engine raises the reference's
+        ValueError (:1125-1131): run_adaptive routes it to the
+        single-device controllers."""
+        if self.delegated:
+            raise ValueError(
+                "this 1-device engine delegates to the single-device fast path (quad_sharded "
+                "mdy==1 delegation) — adaptive runs go through "
+                "cfd_tpu_torch.adaptive.run_adaptive, which routes a delegated engine to the "
+                "single-device lagged controller")
+        case = self.case
+        if case.adaptive_impl_carry is None:
+            raise ValueError("sharded adaptive needs the quad kernel case "
+                             "(Case.adaptive_impl_carry: layout='quad', f32 multigrid)")
+        carry = self._make_carry(adaptive=True)
+        idx_, idy_ = 1.0 / case.grid.dx, 1.0 / case.grid.dy
+        n = self.n_carry  # the carries' leading outputs, then (mu, mv)
+
+        def step(state, dts):
+            outs = [carry(rb, dts.to(a[0].device), *a) for rb, a in
+                    zip(self._solve.row_base, zip(*state), strict=True)]
+            new, d = self._finish_step(state, [o[: n + 1] for o in outs])
+            co_per_dt = (global_max([o[n + 1] for o in outs]) * idx_
+                         + global_max([o[n + 2] for o in outs]) * idy_)
+            return new, StepDiagnostics(d["poisson_iters"], d["poisson_residual"]), co_per_dt
+
+        _, to_aligned_c, to_logical_c = case.adaptive_impl_carry()
+
+        def to_aligned(st: State, dt: float):
+            g = to_aligned_c(st, dt)
+            return tuple(self._extend(a) for a in self._carried(g))
+
+        def to_logical(state, dt_used) -> State:
+            return to_logical_c(self._gathered(state), dt_used)
+
+        return step, to_aligned, to_logical
+
+    def _carried(self, st: State) -> tuple:
+        """The carried fields of a global quad State, in the engine's order."""
+        if self.flavor == "rayleigh_benard":
+            return st.u, st.v, st.p, st.T
+        if self.flavor == "backwards_step":
+            return st.u, st.v, st.p
+        return st.u, st.v, st.p, st.p_prev
+
+    def _gathered(self, state) -> State:
+        """The shards' own rows as the global quad State on shard 0's device
+        (the inverse of _carried with _extend)."""
+        f = [self._collapse(x)[:, : self._Hq8].contiguous() for x in state]
+        if self.flavor == "rayleigh_benard":
+            return State(f[0], f[1], f[2], f[3], None)
+        if self.flavor == "backwards_step":
+            return State(f[0], f[1], f[2], None, None)
+        return State(f[0], f[1], f[2], None, f[3])
 
     def logical(self, state) -> State:
         """Gather the own rows and correct to the logical padded (ny+2,
         nx+2) State (:1270-1295); delegated: the case's unalign."""
         if self.delegated:
             return state if self._sd.is_logical(state) else self._sd.logical(state)
-        fields = [self._collapse(x)[:, : self._Hq8].contiguous() for x in state]
+        g = self._gathered(state)
         f = lambda a: from_quad(a, self.shape)
-        if self.flavor == "backwards_step":
-            us, vs, p = fields
-            u2, v2 = self._corr(us, vs, p)
-            return State(f(u2), f(v2), f(p), None, None)
-        us, vs, p, aux = fields
         if self.flavor == "rayleigh_benard":
-            return self.case.unalign_state(State(us, vs, p, aux, None))
-        u2, v2, _ = self._corr(us, vs, p, p)
-        return State(f(u2), f(v2), f(p), None, f(aux))
+            return self.case.unalign_state(g)
+        if self.flavor == "backwards_step":
+            u2, v2 = self._corr(g.u, g.v, g.p)
+            return State(f(u2), f(v2), f(g.p), None, None)
+        u2, v2, _ = self._corr(g.u, g.v, g.p, g.p)
+        return State(f(u2), f(v2), f(g.p), None, f(g.p_prev))
 
 
 # The reference's name from before its channel flavor (:1298-1300)

@@ -12,6 +12,7 @@ step goes on the card.
     python -m cfd_tpu_torch.profile_step --fuse-pre --mg per-kernel
     python -m cfd_tpu_torch.profile_step --mesh 4 [--case cavity|channel|step|rb]
                                          [--mg tail_from=1]
+    python -m cfd_tpu_torch.profile_step [--mesh 4] --adaptive-dt 0.7 [--case ...]
 
 Drives a main path on cuda through Simulation's step function: the cavity,
 make_cavity_case(n_interior=n, poisson="multigrid", dtype=float32,
@@ -38,7 +39,10 @@ live on the card (Simulation(mesh=make_mesh(N), sharded_kwargs=...):
 tol_factor 1e-6 for the cavity, the channel and the step (V(1,1), its
 case built with abs_tol 0), RB's own tolerances 1e-7 and 1e-10); ``--mg``
 overrides then go to the sharded solve's own config,
-parallel.quad_sharded.
+parallel.quad_sharded. ``--adaptive-dt MAX_CO`` steps with the lagged
+adaptive controller (cfd_tpu_torch.adaptive.LaggedController, growth 1.2,
+from the case's dt): the traced-dt + Courant carry and the controller's
+device ops each step, on one device or on the mesh.
 The steps' V-cycle counts stay on the card until each window ends, as in
 Simulation.run, so no window reads the host between its steps. It runs
 three windows:
@@ -239,6 +243,8 @@ def main(argv=None) -> int:
                     help="cavity: fuse_pre=True (taken on the per-kernel solve)")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
                     help="the sharded quad path on an N-shard plane-row mesh on the card")
+    ap.add_argument("--adaptive-dt", type=float, default=None, metavar="MAX_CO",
+                    help="the lagged adaptive controller toward this max Courant number")
     ap.add_argument("--warmup", type=int, default=100)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--out", type=Path, default=DEFAULT_OUT)
@@ -269,7 +275,14 @@ def main(argv=None) -> int:
     else:
         case, what = make_case(args)
         sim = Simulation(case, log=lambda m: None)
-    state = sim.initial_state()
+    if args.adaptive_dt is None:
+        state, advance = sim.initial_state(), sim._step
+    else:
+        from cfd_tpu_torch.adaptive import lagged_start
+
+        state, step, lag = lagged_start(sim, args.adaptive_dt)
+        advance = lambda st: lag.advance(step, st)
+        what += f", the lagged adaptive controller toward Co {args.adaptive_dt}"
 
     cycles: list[int] = []
 
@@ -281,7 +294,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            state, diag = sim._step(state)
+            state, diag = advance(state)
             diags.append(diag)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0

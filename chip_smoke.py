@@ -255,6 +255,36 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
 40. The sharded step card against CPU over 20 steps: 512x64 on 4 shards
     (P = 16, the corner row on shard 1's first own row) and 32x8 on 2 (the
     coarse switch at level 1): equal cycles every step, fields within 5e-5.
+41. The four traced-dt + Courant carries on a shard's local block (rows
+    16a+, 16d+, 16e+, 16f+: the entry points of rows 1+, 8a+, 10+ and 9a+
+    told the block's row_base and halo) at the full widths' 4-shard blocks
+    (the cavity (4, 280, 1152), P = 264; the channel and RB (4, 88, 896),
+    P = 72; the step (4, 56, 1152), P = 40), dt_corr = 0.8 dt, dt_pred =
+    1.1 dt, on shards 0, 1 and 3: bit-identical to their twins on every
+    output, max|u| and max|v| included; on the own rows equal to rows 1+,
+    8a+, 10+ and 9a+ on the same global rows; the maxima of max|u|, max|v|
+    over the 4 shards equal to the whole field's, and unmoved by halo rows
+    set to +-1e3; times on shard 1 beside the fixed-dt shard carry (16a,
+    16d, 16e, 16f) on the same inputs, the bound of one local block.
+42. The sharded lagged runs (ShardedQuadProjection.make_adaptive through
+    run_adaptive) at full width on make_mesh(4): max_courant 0.7, growth
+    1.2, the case's dt, 300 steps in chunks of 100, the counters zeroed
+    just before: 4 launches a step of the flavor's row, none of the
+    single-device carry's; finite fields, no printed Courant number above
+    0.84, no dt above the diffusive ceiling. Held (a) over all 300 steps to
+    the single-device lagged per-kernel run (the cavity with the float32
+    coarse hierarchy; the channel, RB and the step, V(1,1), with their sums
+    in shard order, shard_order_case): the same dt and cycles every step,
+    bit-identical fields; (b) over 3 steps (a stats row each) to the plain
+    single-device lagged run: dt within 1e-5 and Courant within 1e-4
+    relative, cycles within 1, u and v within 2e-5 of scale, p within 5e-4
+    (the channel, the step) or 2e-5; the 300-step gap from the plain run is
+    printed. Steps/s, V-cycles/step, launches a step, the final dt and the
+    simulated time. A 1-shard mesh delegates: rows 1+, 8a+, 10+ and 9a+
+    launch, the shard instances do not.
+43. The sharded lagged runs card against CPU over 20 steps on 4 shards: the
+    cavity at 256^2, the channel 256x128, RB 256x128 and the step 512x64:
+    the same dt and cycles every step, fields within 5e-5.
 
 The line before the last is a JSON object {"kernels": [...]}: per kernel,
 its launches on its path's run, its error against its twin, its time and
@@ -272,6 +302,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -309,8 +340,10 @@ MAX_CO, GROWTH = 0.7, 1.2
 # layout, and 512 / 2 * 30 / 2 = 3840 coarsest cells keep the host's dense
 # pinv build short
 NATURAL_STEP = (512, 30)
-# the sharded paths (phases 32-40): shards of the plane-row mesh on the card
+# the sharded paths (phases 32-43): shards of the plane-row mesh on the card
 SHARDS = 4
+# the sharded lagged runs of phase 42: steps, steps per call
+ADAPTIVE_RUN = (300, 100)
 
 
 T0 = time.perf_counter()
@@ -972,21 +1005,26 @@ def check_adaptive_kernels(flows: dict, dev) -> dict:
 
 
 def run_adaptive_path(case, n_steps: int, spc: int, controller: str, path_kernels,
-                      what: str, card: str) -> tuple[dict, dict]:
-    """Phase 15: one adaptive run through run_adaptive with every launch
-    counter zeroed just before and read just after; fails on a kernel of
-    ``path_kernels`` that never launched, a non-finite field, a printed
-    Courant number above MAX_CO * GROWTH or a dt above the diffusive
-    ceiling. Returns (launches, steps/s and V-cycles/step over the last 100
-    steps, the final dt, its ratio to the case's dt, the last Courant number,
-    the simulated time)."""
+                      what: str, card: str, shards: int | None = None,
+                      sharded_kwargs: dict | None = None, absent=()) -> tuple[dict, dict]:
+    """Phase 15 (and 42, on a mesh of ``shards`` shards of the card with
+    ``sharded_kwargs``): one adaptive run through run_adaptive with every
+    launch counter zeroed just before and read just after; fails on a kernel
+    of ``path_kernels`` that never launched, one of ``absent`` that did, a
+    non-finite field, a printed Courant number above MAX_CO * GROWTH or a dt
+    above the diffusive ceiling. Returns (launches, steps/s and
+    V-cycles/step over the last 100 steps, the final dt, its ratio to the
+    case's dt, the last Courant number, the simulated time, the logical
+    final state and the Simulation)."""
     from cfd_tpu_torch.adaptive import run_adaptive
     from cfd_tpu_torch.kernels import KERNELS
+    from cfd_tpu_torch.parallel import make_mesh
     from cfd_tpu_torch.solver import Simulation
 
+    sim = Simulation(case, log=lambda m: log("  " + m),
+                     mesh=make_mesh(shards) if shards else None, sharded_kwargs=sharded_kwargs)
     for kern in KERNELS:
         kern.launches = 0
-    sim = Simulation(case, log=lambda m: log("  " + m))
     t0 = time.perf_counter()
     st, rows = run_adaptive(sim, max_courant=MAX_CO, growth=GROWTH, n_steps=n_steps,
                             steps_per_call=spc, controller=controller)
@@ -995,8 +1033,10 @@ def run_adaptive_path(case, n_steps: int, spc: int, controller: str, path_kernel
     launches = {k.name: k.launches for k in KERNELS}
     log(f"  launches: {launches}")
     missing = [k.name for k in path_kernels if launches[k.name] == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the {what} path: {missing}")
+    extra = [k.name for k in absent if launches[k.name]]
+    if missing or extra:
+        raise AssertionError(f"{what}: kernels never launched {missing}, launched against "
+                             f"the path {extra}")
     for fname in ("u", "v", "p", "T"):
         a = getattr(st, fname)
         if a is not None and not bool(torch.isfinite(a).all()):
@@ -1014,7 +1054,7 @@ def run_adaptive_path(case, n_steps: int, spc: int, controller: str, path_kernel
     steps_s = 100 / (walls[-1] - walls[-2])
     out = dict(steps_s=steps_s, cycles=float(np.mean(sim.step_iters[-100:])),
                dt=sim.step_dts[-1], ratio=sim.step_dts[-1] / case.dt, co=rows[-1]["courant"],
-               t=rows[-1]["time"], row=rows[-1])
+               t=rows[-1]["time"], row=rows[-1], state=st, sim=sim)
     log(f"  {what}: {n_steps} steps in {wall:.2f} s; last 100: {steps_s:.2f} steps/s, "
         f"{out['cycles']:.2f} V-cycles/step; final dt {out['dt']:.6e} = "
         f"{out['ratio']:.4f} x the case's dt {case.dt:.6e} (ceiling {ceiling:.6e}); last "
@@ -1022,16 +1062,20 @@ def run_adaptive_path(case, n_steps: int, spc: int, controller: str, path_kernel
     return launches, out
 
 
-def adaptive_card_vs_cpu(make, kw: dict, controller: str, spc: int, what: str) -> None:
-    """Phase 16: 20 adaptive steps with the kernels on the card and the plain
-    twins on the CPU: the same dt every step, equal cycles, fields within
-    5e-5."""
+def adaptive_card_vs_cpu(make, kw: dict, controller: str, spc: int, what: str,
+                         shards: int | None = None, sharded_kwargs: dict | None = None) -> None:
+    """Phase 16 (and 43, on a mesh of ``shards`` shards): 20 adaptive steps
+    with the kernels on the card and the plain twins on the CPU: the same dt
+    every step, equal cycles, fields within 5e-5."""
     from cfd_tpu_torch.adaptive import run_adaptive
+    from cfd_tpu_torch.parallel import make_mesh
     from cfd_tpu_torch.solver import Simulation
 
     out = {}
     for where, dev in (("card", "cuda"), ("cpu", "cpu")):
-        sim = Simulation(make(device=dev, **kw), log=lambda m: None)
+        sim = Simulation(make(device=dev, **kw), log=lambda m: None,
+                         mesh=make_mesh(shards, device=dev) if shards else None,
+                         sharded_kwargs=sharded_kwargs)
         st, _ = run_adaptive(sim, max_courant=MAX_CO, n_steps=20, steps_per_call=spc,
                              controller=controller)
         out[where] = (sim.step_iters, sim.step_dts, st)
@@ -1742,7 +1786,9 @@ def shard_order_case(case, engine):
     (own_row_sum of the engine's local blocks) in shard order (global_sum).
     Every other operation is the single-device path's, so the sharded run
     equals this one bit for bit when the sum order is the only difference.
-    No factory offers this path: it is composed here, as split_channel."""
+    The lagged adaptive step (Case.adaptive_impl_carry) takes its source sum
+    in the same order (adaptive_in_shard_order). No factory offers this
+    path: it is composed here, as split_channel."""
     from cfd_tpu_torch.kernels.quad import own_row_sum
     from cfd_tpu_torch.parallel import global_sum
 
@@ -1764,7 +1810,61 @@ def shard_order_case(case, engine):
             return torch.where(solve.cell, p - shard_sum(p) / solve.n_int, p), res
 
         solve.cycle = cycle
-    return dataclasses.replace(case, step_kernels=(carry_in_shard_order, corr))
+    return dataclasses.replace(case, step_kernels=(carry_in_shard_order, corr),
+                               adaptive_impl_carry=adaptive_in_shard_order(case, shard_sum))
+
+
+def adaptive_in_shard_order(case, shard_sum):
+    """``case.adaptive_impl_carry`` with the traced-dt + Courant carry's
+    source sum replaced by ``shard_sum`` of its b: the channel's, RB's and the
+    step's lagged step (cases/channel.py, physics/boussinesq.py,
+    cases/backwards_step.py adaptive_impl_carry) composed from the same
+    carry, mean removal and solve. The cavity sums nothing: its own."""
+    from cfd_tpu_torch.kernels import quad as Q
+    from cfd_tpu_torch.kernels import rb_quad as RQ
+    from cfd_tpu_torch.kernels import step_quad as SQ
+    from cfd_tpu_torch.physics.boussinesq import RBParams
+    from cfd_tpu_torch.solver import remove_mean_quad
+    from cfd_tpu_torch.state import State, StepDiagnostics
+
+    if case.ordering == "cavity":
+        return case.adaptive_impl_carry
+    g, c, info, solve = case.grid, case.coeffs, case.info, case.poisson_solve
+    carry = case.step_kernels[0]
+    n = torch.tensor(float(g.n_fluid), dtype=torch.float32, device=case.device)
+    co = lambda mu, mv: mu * (1.0 / g.dx) + mv * (1.0 / g.dy)
+    if case.ordering == "rayleigh_benard":
+        params = RBParams(info["rayleigh"], info["prandtl"], info["t_bottom"], info["t_top"])
+        fused = RQ.make_quad_rb_step_kernel(g.shape, c, info["kappa"], params, adaptive=True)
+        cell = Q.quad_cell_mask(g.shape, case.device)
+
+        def step(st, dts):
+            us2, vs2, T2, b, _, mu, mv = fused(dts, st.u, st.v, st.p, st.T)
+            p, iters, res = solve(st.p, remove_mean_quad(b, shard_sum(b), n, cell))
+            return State(us2, vs2, p, T2, None), StepDiagnostics(iters, res), co(mu, mv)
+    elif case.name == "backwards_step":
+        fused = SQ.make_quad_step_corr_predictor_source(g.shape, c, carry.step_i,
+                                                        carry.inlet_j, carry.uin, adaptive=True)
+        cell = SQ.step_cell_mask(g.shape, carry.step_i, carry.inlet_j, case.device)
+
+        def step(st, dts):
+            us2, vs2, b, _, mu, mv = fused(dts, st.u, st.v, st.p)
+            p, iters, res = solve(st.p, remove_mean_quad(b, shard_sum(b), n, cell))
+            return State(us2, vs2, p, st.T, None), StepDiagnostics(iters, res), co(mu, mv)
+    else:
+        fused = Q.make_quad_channel_corr_predictor_source(g.shape, c, carry.uin, adaptive=True)
+        cell = Q.quad_cell_mask(g.shape, case.device)
+
+        def step(st, dts):
+            us2, vs2, b, guess, _, mu, mv = fused(dts, st.u, st.v, st.p, st.p_prev)
+            p, iters, res = solve(guess, remove_mean_quad(b, shard_sum(b), n, cell))
+            return State(us2, vs2, p, st.T, st.p), StepDiagnostics(iters, res), co(mu, mv)
+
+    def impl():
+        _, to_aligned, to_logical = case.adaptive_impl_carry()
+        return step, to_aligned, to_logical
+
+    return impl
 
 
 def delegates(case, single_kerns, shard_kerns) -> None:
@@ -2073,6 +2173,251 @@ def step_sharded_phases(card: str, dev) -> tuple[dict, dict]:
                                                    mg_overrides={"whole_solve": False}),
                     f"sharded step {cnx}x{cny} on {shards} shards", shards=shards,
                     sharded_kwargs=kw)
+    return checks, launches
+
+
+def check_adaptive_shard_kernels(cases: dict, dev) -> dict:
+    """Phase 41: rows 16a+, 16d+, 16e+ and 16f+ against their twins on shards
+    0, 1 and 3 of a SHARDS-way mesh at the four flows' full widths, with
+    dt_corr = 0.8 dt and dt_pred = 1.1 dt: every output bit-identical, the
+    own rows equal to the single-device adaptive carries (rows 1+, 8a+, 10+,
+    9a+) on the same global rows, the maxima of mu and mv over all the
+    shards equal to the whole field's, and mu and mv unmoved by halo rows
+    poisoned with +-1e3. Times on shard 1 beside the fixed-dt shard carry
+    (rows 16a, 16d, 16e, 16f) on the same inputs."""
+    from cfd_tpu_torch.kernels import quad as Q
+    from cfd_tpu_torch.kernels import rb_quad as RQ
+    from cfd_tpu_torch.kernels import step_quad as SQ
+    from cfd_tpu_torch.physics.boussinesq import RBParams
+
+    H = Q.DEV_HALO
+    rng = np.random.default_rng(41)
+    results = {}
+    for flow, case in cases.items():
+        g, c, info = case.grid, case.coeffs, case.info
+        shape = g.shape
+        _, P, _ = Q.quad_shard_dims(shape, SHARDS)
+        shard = (P, SHARDS)
+        cells_mask = g.fluid.astype(np.float32) if flow == "step" else np.pad(
+            np.ones((g.ny, g.nx), np.float32), 1)
+        profile = np.linspace(1.0, 0.0, shape[0], dtype=np.float32)[:, None]
+
+        def field(scale=0.1, masked=False, offset=None):
+            a = (rng.standard_normal(shape) * scale).astype(np.float32)
+            if offset is not None:
+                a += offset
+            return Q.to_quad(torch.from_numpy(a * cells_mask if masked else a).to(dev), shape)
+
+        us, vs, p = field(), field(), field(masked=True)
+        per_cell = CORRECTOR_OPS + PREDICTOR_SOURCE_OPS + COURANT_OPS
+        carry = case.step_kernels[0]
+        if flow == "cavity":
+            kern, fixed = Q.SHARD_CARRY_ADAPTIVE, Q.SHARD_CARRY
+            make = lambda **kw: Q.make_quad_corr_predictor_source(shape, c, carry.lid, **kw)
+            fields, n_fields = (us, vs, p, field(masked=True)), 4
+            names = ("us'", "vs'", "b", "guess", "max|b|")
+        elif flow == "channel":
+            kern, fixed = Q.SHARD_CHANNEL_CARRY_ADAPTIVE, Q.SHARD_CHANNEL_CARRY
+            make = lambda **kw: Q.make_quad_channel_corr_predictor_source(shape, c, carry.uin,
+                                                                          **kw)
+            fields, n_fields = (us, vs, p, field(masked=True)), 4
+            names = ("us'", "vs'", "b", "guess", "sum_own")
+        elif flow == "rb":
+            kern, fixed = RQ.SHARD_RB_CARRY_ADAPTIVE, RQ.SHARD_RB_CARRY
+            params = RBParams(info["rayleigh"], info["prandtl"], info["t_bottom"], info["t_top"])
+            make = lambda **kw: RQ.make_quad_rb_step_kernel(shape, c, info["kappa"], params,
+                                                            **kw)
+            fields, n_fields = (us, vs, p, field(0.01, offset=profile)), 4
+            names = ("us'", "vs'", "T'", "b", "sum_own")
+            per_cell += TEMPERATURE_OPS + BUOYANCY_OPS
+        else:
+            kern, fixed = SQ.SHARD_STEP_CARRY_ADAPTIVE, SQ.SHARD_STEP_CARRY
+            make = lambda **kw: SQ.make_quad_step_corr_predictor_source(
+                shape, c, carry.step_i, carry.inlet_j, carry.uin, **kw)
+            fields, n_fields = (us, vs, p), 3
+            names = ("us'", "vs'", "b", "sum_own")
+        names += ("max|u|", "max|v|")
+        dts = torch.tensor([0.8 * c.dt, 1.1 * c.dt], dtype=torch.float32, device=dev)
+        op, fixed_op = make(adaptive=True, shard=shard), make(shard=shard)
+        single = make(adaptive=True).kernel(dts, *fields)
+        with_dts = SimpleNamespace(kernel=lambda rb, *a: op.kernel(rb, dts, *a),
+                                   plain=lambda rb, *a: op.plain(rb, dts, *a))
+        errs, (ms, plain_ms, n_bytes) = check_shard_op(kern.name, with_dts, fields, single,
+                                                       names, n_fields, P, extra=(dts,))
+        blocks = [[t[..., jy * P : jy * P + P + 2 * H, :].contiguous() for t in (
+            torch.nn.functional.pad(f, (0, 0, H, P * SHARDS - f.shape[-2] + H))
+            for f in fields)] for jy in range(SHARDS)]
+        outs = [op.kernel(jy * P - H, dts, *b) for jy, b in enumerate(blocks)]
+        for k in (-2, -1):
+            got = max(float(o[k]) for o in outs)
+            if got != float(single[k]):
+                raise AssertionError(f"{kern.name} {names[k]}: max over the shards {got!r} "
+                                     f"!= the whole field's {float(single[k])!r}")
+        for jy in (0, 1, SHARDS - 2):
+            b = [t.clone() for t in blocks[jy]]
+            for t in b[:2]:
+                t[:, :H] = 1e3
+                t[:, H + P :] = -1e3
+            got = op.kernel(jy * P - H, dts, *b)
+            if float(got[-2]) != float(outs[jy][-2]) or float(got[-1]) != float(outs[jy][-1]):
+                raise AssertionError(f"{kern.name} shard {jy}: poisoned halo rows moved the "
+                                     f"Courant maxima to {float(got[-2])}, {float(got[-1])}")
+        rb1 = blocks[1]
+        fixed_ms = median_ms(lambda: fixed_op.kernel(P - H, *rb1))
+        log(f"  {kern.name}: max|u|, max|v| over the shards = the whole field's "
+            f"({float(single[-2]):.6e}, {float(single[-1]):.6e}); halo rows at +-1e3 leave "
+            "them unmoved")
+        cells = 2 * (P + 2 * H) * g.nx  # the block's logical cells
+        results[kern.name] = dict(err=max(errs), ms=ms, plain_ms=plain_ms, fixed_ms=fixed_ms,
+                                  fixed=fixed.name, **bound(n_bytes, cells * per_cell))
+    return results
+
+
+def adaptive_sharded_phases(card: str, dev) -> tuple[dict, dict]:
+    """Phases 41-43: the four shard-adaptive carries against their twins, the
+    sharded lagged runs at full width against the single-device lagged runs,
+    card against CPU. Returns the kernels' checks and the 300-step runs'
+    launches."""
+    from cfd_tpu_torch.adaptive import run_adaptive
+    from cfd_tpu_torch.cases import (make_backwards_step_case, make_cavity_case,
+                                     make_channel_case, make_rayleigh_benard_case)
+    from cfd_tpu_torch.kernels import KERNELS
+    from cfd_tpu_torch.kernels import quad as Q
+    from cfd_tpu_torch.kernels import rb_quad as RQ
+    from cfd_tpu_torch.kernels import step_quad as SQ
+    from cfd_tpu_torch.parallel import make_mesh
+    from cfd_tpu_torch.solver import Simulation
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    # flow: (case maker, its per-kernel overrides, the sharded kwargs, p's
+    # band over 3 steps, the single-device adaptive carry, the shard one)
+    flows = {
+        "cavity": (lambda **kw: make_cavity_case(
+            n_interior=N_MAIN, poisson="multigrid", tolerance_factor=1e-6, **f32, **kw),
+            dict(fuse_pre=False, mg_overrides={"whole_solve": False}), {"tol_factor": 1e-6},
+            2e-5, Q.CARRY_ADAPTIVE, Q.SHARD_CARRY_ADAPTIVE),
+        "channel": (lambda **kw: make_channel_case(
+            nx=CHANNEL[0], ny=CHANNEL[1], poisson="multigrid", tolerance_factor=1e-6,
+            abs_tol=0.0, **f32, **kw), dict(mg_overrides={"whole_solve": False}),
+            {"tol_factor": 1e-6}, 5e-4, Q.CHANNEL_CARRY_ADAPTIVE,
+            Q.SHARD_CHANNEL_CARRY_ADAPTIVE),
+        "rb": (lambda **kw: make_rayleigh_benard_case(
+            nx=RB_SHAPE[0], ny=RB_SHAPE[1], rayleigh=1e6, **f32, **kw),
+            dict(mg_overrides={"whole_solve": False}),
+            {"tol_factor": 1e-7, "mg_overrides": {"abs_tol": 1e-10}}, 2e-5,
+            RQ.RB_CARRY_ADAPTIVE, RQ.SHARD_RB_CARRY_ADAPTIVE),
+        "step": (lambda print_interval=100, **kw: make_backwards_step_case(
+            nx=STEP[0], ny=STEP[1], poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0,
+            print_interval=print_interval, save_interval=print_interval, **f32, **kw),
+            dict(mg_overrides={"whole_solve": False, "pre_sweeps": 1, "post_sweeps": 1}),
+            {"tol_factor": 1e-6}, 5e-4, SQ.STEP_CARRY_ADAPTIVE, SQ.SHARD_STEP_CARRY_ADAPTIVE)}
+
+    log(f"phase 41: the shard-adaptive carries (rows 16a+, 16d+, 16e+, 16f+) at the full "
+        f"widths' {SHARDS}-shard blocks vs their plain twins and the single-device adaptive "
+        f"carries, dt_corr = 0.8 dt, dt_pred = 1.1 dt ({card})")
+    checks = check_adaptive_shard_kernels(
+        {flow: make(**pk) for flow, (make, pk, *_) in flows.items()}, dev)
+    for k, r in checks.items():
+        log(f"  {k:48s} kernel {r['ms']:.4f} ms  fixed-dt {r['fixed']} {r['fixed_ms']:.4f} ms  "
+            f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"one local block  ({card})")
+
+    log(f"phase 42: the sharded lagged runs at full width on {SHARDS} shards of the card, "
+        f"max_courant {MAX_CO}, growth {GROWTH}, 300 steps in chunks of 100, beside the "
+        f"single-device lagged per-kernel runs ({card})")
+    ad = dict(max_courant=MAX_CO, growth=GROWTH, controller="lagged")
+    n, spc = ADAPTIVE_RUN
+    launches = {}
+    for flow, (make, pk, kw, p_band, single_kern, shard_kern) in flows.items():
+        what = f"sharded {flow} lagged, {SHARDS} shards"
+        got, r = run_adaptive_path(make(), n, spc, "lagged", (shard_kern,), what, card,
+                                   shards=SHARDS, sharded_kwargs=kw, absent=(single_kern,))
+        sim, st = r["sim"], r["state"]
+        if got[shard_kern.name] != SHARDS * n:
+            raise AssertionError(f"{what}: {got[shard_kern.name]} launches of "
+                                 f"{shard_kern.name} for {n} steps")
+        launches[shard_kern.name] = got[shard_kern.name]
+        log(f"  {what}: {sum(got.values()) / n:.2f} port kernel launches/step, "
+            f"{got[shard_kern.name] / n:.2f} of {shard_kern.name}")
+        ref_case = make(**pk)
+        if flow != "cavity":
+            ref_case = shard_order_case(ref_case, sim._engine)
+        ref = Simulation(ref_case, log=lambda m: None)
+        t0 = time.perf_counter()
+        ref_st, _ = run_adaptive(ref, n_steps=n, steps_per_call=spc, **ad)
+        torch.cuda.synchronize()
+        ref_wall = time.perf_counter() - t0
+        label = "summed in shard order" if flow != "cavity" else "per-kernel"
+        if sim.step_dts != ref.step_dts:
+            raise AssertionError(f"{what}: the dt sequence differs from the single-device "
+                                 f"lagged run {label}")
+        hold_sharded(f"{what}, {n} steps vs the single-device lagged run {label} (dt equal "
+                     f"on every step)", sim.step_iters, st, ref.step_iters, ref_st, None)
+        del ref, ref_st, ref_case
+        if flow == "cavity":
+            plain_iters, plain_st = None, None
+        else:
+            plain = Simulation(make(**pk), log=lambda m: None)
+            plain_st, _ = run_adaptive(plain, n_steps=n, steps_per_call=spc, **ad)
+            plain_iters, plain_dts = plain.step_iters, plain.step_dts
+            del plain
+        three = {}
+        for where, mesh, case_kw in (("sharded", make_mesh(SHARDS), {}), ("plain", None, pk)):
+            s3 = Simulation(make(print_interval=1, **case_kw), log=lambda m: None, mesh=mesh,
+                            sharded_kwargs=kw if mesh else None)
+            st3, rows3 = run_adaptive(s3, n_steps=3, steps_per_call=1, **ad)
+            three[where] = (s3, st3, rows3)
+        (s3, st3, rows3), (p3, pst3, prows3) = three["sharded"], three["plain"]
+        co, p_co = [x["courant"] for x in rows3], [x["courant"] for x in prows3]
+        # the reference test's bands (tests/test_adaptive_sharded.py:21-35)
+        if not (all(abs(a - b) <= 1e-5 * b for a, b in zip(s3.step_dts, p3.step_dts,
+                                                             strict=True))
+                and all(abs(a - b) <= 1e-4 * b + 1e-7 for a, b in zip(co, p_co, strict=True))):
+            raise AssertionError(f"{what}: dt {s3.step_dts}, Co {co} over 3 steps against "
+                                 f"{p3.step_dts}, {p_co}")
+        hold_sharded(f"{what}, 3 steps vs the plain single-device lagged run (dt "
+                     f"{s3.step_dts} against {p3.step_dts}, Co {co} against {p_co})",
+                     s3.step_iters, st3, p3.step_iters, pst3, p_band)
+        del three, s3, st3, p3, pst3
+        if plain_st is not None:
+            drift(f"{what}, {n} steps vs the plain single-device lagged run", sim.step_iters,
+                  st, plain_iters, plain_st)
+            log(f"  {what}: final dt {sim.step_dts[-1]!r} against the plain run's "
+                f"{plain_dts[-1]!r}")
+        log(f"  {what}: {r['steps_s']:.2f} steps/s, {r['cycles']:.2f} V-cycles/step over the "
+            f"last 100, final dt {r['dt']:.6e} ({r['ratio']:.4f} x the case's), t = "
+            f"{r['t']:.6f}; the single-device lagged run took {ref_wall:.2f} s for {n} steps "
+            f"({card})")
+        del sim, st, r, plain_st
+        case = make(print_interval=20, **pk)
+        dsim = Simulation(case, log=lambda m: None, mesh=make_mesh(1))
+        for kern in KERNELS:
+            kern.launches = 0
+        run_adaptive(dsim, n_steps=20, steps_per_call=1, **ad)
+        torch.cuda.synchronize()
+        if (not dsim._engine.delegated or not single_kern.launches or shard_kern.launches):
+            raise AssertionError(f"1-shard mesh, {flow}: delegated={dsim._engine.delegated}, "
+                                 f"{single_kern.name} {single_kern.launches}, "
+                                 f"{shard_kern.name} {shard_kern.launches}")
+        log(f"  1-shard mesh, {flow}: delegated; over 20 adaptive steps {single_kern.name} "
+            f"{single_kern.launches}, {shard_kern.name} 0")
+        del case, dsim
+
+    log(f"phase 43: the sharded lagged runs card vs CPU, 20 steps on {SHARDS} shards")
+    small = {"cavity": (make_cavity_case, dict(n_interior=256, poisson="multigrid",
+                                               tolerance_factor=1e-6), "cavity 256^2"),
+             "channel": (make_channel_case, dict(nx=256, ny=128, poisson="multigrid",
+                                                 tolerance_factor=1e-6, abs_tol=0.0),
+                         "channel 256x128"),
+             "rb": (make_rayleigh_benard_case, dict(nx=256, ny=128, rayleigh=1e6),
+                    "rb 256x128"),
+             "step": (make_backwards_step_case, dict(nx=512, ny=64, poisson="multigrid",
+                                                     tolerance_factor=1e-6, abs_tol=0.0),
+                      "step 512x64")}
+    for flow, (make, kw, what) in small.items():
+        adaptive_card_vs_cpu(make, dict(kw, dtype=torch.float32, print_interval=20), "lagged",
+                             10, f"sharded {what} lagged on {SHARDS} shards", shards=SHARDS,
+                             sharded_kwargs=flows[flow][2])
     return checks, launches
 
 
@@ -2726,6 +3071,8 @@ def main() -> int:
     checks.update(fl_checks)
     st_checks, step_shard_launches = step_sharded_phases(card, dev)
     checks.update(st_checks)
+    ad_checks, ad_shard_launches = adaptive_sharded_phases(card, dev)
+    checks.update(ad_checks)
 
     launches = {**cavity_launches, **{k: channel_launches[k] for k in (
         Q.CHANNEL_CARRY.name, Q.CHANNEL_CORRECTOR.name, WS.WHOLE_SOLVE.name)},
@@ -2738,7 +3085,7 @@ def main() -> int:
         **ad_launches, **ws_launches, **tail_launches, **bf16_launches, **corr_launches,
         **nat_launches, **fp_launches,
         **{k.name: shard_launches[k.name] for k in (Q.SHARD_CARRY, Q.SHARD_PRE, Q.SHARD_POST)},
-        **flavor_launches, **step_shard_launches}
+        **flavor_launches, **step_shard_launches, **ad_shard_launches}
     kernels = []
     for k in KERNELS:
         r = checks[k.name]

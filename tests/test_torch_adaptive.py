@@ -211,7 +211,14 @@ def test_new_instances_are_listed_with_their_tpu_kernels():
                            ("quad_rb_corrector_traced", "rb_quad.py:225"),
                            ("quad_rb_step_adaptive", "rb_quad.py:81")):
         assert names[name] == f"cfd_tpu/kernels/{replaces}"
-    assert len(names) == len(KERNELS) == 58
+    for name, replaces in (("quad_corr_predictor_source_shard_adaptive", "quad.py:938"),
+                           ("quad_channel_corr_predictor_source_shard_adaptive",
+                            "quad.py:1126"),
+                           ("quad_rb_step_shard_adaptive", "rb_quad.py:81"),
+                           ("quad_step_corr_predictor_source_shard_adaptive",
+                            "step_quad.py:100")):
+        assert names[name] == f"cfd_tpu/kernels/{replaces} (shard=, traced_dt)"
+    assert len(names) == len(KERNELS) == 62
 
 
 # ------------------------------------------------------------ uncorrect(dt=)

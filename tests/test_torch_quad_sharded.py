@@ -18,10 +18,13 @@ its Pallas kernels in interpret mode on the 8-device host mesh
   single-device path at mdy 4 and 8 (P = 8, the minimum): bit-identical,
   because each shard's own rows run the same float32 operations; run_chunk
   equals stepping; tail_from=1 equals no tail.
-* The refusals (adaptive stepping on a mesh, A.12d), the 1-shard
-  delegation, make_mesh, Simulation(mesh=) and the CLI's --mesh. The
-  channel and RB flavors: tests/test_torch_quad_sharded_flavors.py; the
-  step: tests/test_torch_quad_sharded_step*.py.
+* The refusals (the exact adaptive controller on a mesh, the step's
+  V(1,2), the natural layout), the 1-shard delegation, make_mesh,
+  Simulation(mesh=) and the CLI's --mesh, with the lagged adaptive
+  controller too. The channel and RB flavors:
+  tests/test_torch_quad_sharded_flavors.py; the step:
+  tests/test_torch_quad_sharded_step*.py; adaptive dt on the mesh:
+  tests/test_torch_quad_sharded_adaptive*.py.
 """
 
 import jax
@@ -189,9 +192,14 @@ def test_shard_kernels_take_a_block_and_a_row_base(twins):
         t["carry"](-DEV_HALO, *(torch.zeros(4, 8, 128) for _ in range(4)))
     with pytest.raises(ValueError, match="multiple of 8"):
         TQ.make_quad_corr_predictor_source((66, 66), _port().coeffs, 1.0, shard=(12, 4))
-    with pytest.raises(NotImplementedError, match="A.12d"):
+    with pytest.raises(ValueError, match="multiple of 8"):
         TQ.make_quad_corr_predictor_source((66, 66), _port().coeffs, 1.0, adaptive=True,
-                                           shard=(16, 4))
+                                           shard=(12, 4))
+    adaptive = TQ.make_quad_corr_predictor_source((66, 66), _port().coeffs, 1.0,
+                                                  adaptive=True, shard=(16, 4))
+    assert isinstance(adaptive, TQ.QuadCorrPredictorSourceShardAdaptive)
+    with pytest.raises(ValueError, match="expected a contiguous"):
+        adaptive(-DEV_HALO, torch.zeros(2), *(torch.zeros(4, 8, 128) for _ in range(4)))
 
 
 # ------------------------------------------------- halos and the converters
@@ -324,22 +332,31 @@ def test_sharded_config_refusals(kw, exc, match):
 
 
 @pytest.mark.parametrize("make,kw,item", [
-    (make_backwards_step_case, dict(nx=64, ny=16, poisson="multigrid"), "A.12d"),
+    (make_backwards_step_case, dict(nx=64, ny=16, poisson="multigrid"), r"V\(1,1\) only"),
 ])
 def test_other_flavors_are_refused(make, kw, item):
-    """The step flavor builds; what it still refuses is adaptive stepping
-    on the mesh (the sharded traced-dt carries)."""
+    """The step flavor builds, and so does its lagged adaptive step; what it
+    still refuses is a V-cycle other than V(1,1) (the exact masked
+    smoother's halo budget, cfd_tpu/parallel/quad_sharded.py:837-838)."""
     case = make(dtype=torch.float32, device="cpu", **kw)
     sq = ShardedQuadProjection(case, _cpu_mesh())
     assert sq.flavor == "backwards_step"
-    with pytest.raises(NotImplementedError, match=item):
-        sq.make_adaptive(0.7, 1.2, 1.0, 10)
+    assert all(callable(f) for f in sq.make_adaptive(0.7, 1.2, 1.0, 10))
+    with pytest.raises(ValueError, match=item):
+        ShardedQuadProjection(case, _cpu_mesh(), mg_overrides={"post_sweeps": 2})
 
 
 def test_adaptive_and_the_natural_layout_are_refused():
+    """On a mesh run_adaptive refuses the exact controller (the reference's
+    ValueError, cfd_tpu/adaptive.py:227-232) and runs the lagged one."""
+    from cfd_tpu_torch.adaptive import run_adaptive
+
     sq = ShardedQuadProjection(_port(), _cpu_mesh(), tol_factor=1e-5)
-    with pytest.raises(NotImplementedError, match="A.12d"):
-        sq.make_adaptive(0.7, 1.2, 1.0, 10)
+    sim = Simulation(_port(print_interval=2), log=lambda m: None, mesh=_cpu_mesh())
+    with pytest.raises(ValueError, match="sharded adaptive runs the lagged controller"):
+        run_adaptive(sim, n_steps=2, controller="exact")
+    _, rows = run_adaptive(sim, n_steps=2, controller="lagged")
+    assert [r["step"] for r in rows] == [2] and len(sim.step_dts) == 2
     with pytest.raises(ValueError, match="quad layout"):
         ShardedQuadProjection(_port(layout="aligned"), _cpu_mesh())
     assert sq.mg.tol_factor == 1e-5 and (sq.mg.pre_sweeps, sq.mg.post_sweeps) == (2, 1)
@@ -423,8 +440,9 @@ def test_cli_mesh(capsys):
     assert main(["cavity", "--mesh", "4", *args]) == 0
     out = capsys.readouterr().out
     assert "mesh: 4x1 plane-row decomposition over cpu" in out and "Step      2" in out
-    with pytest.raises(SystemExit, match="A.12d"):
-        main(["backwards_step", "--mesh", "4", *args[4:], "--Nx", "64", "--Ny", "16",
-              "--adaptive-dt", "0.7", "--adaptive-controller", "lagged"])
+    assert main(["backwards_step", "--mesh", "4", *args[4:], "--Nx", "64", "--Ny", "16",
+                 "--adaptive-dt", "0.7", "--adaptive-controller", "lagged"]) == 0
+    out = capsys.readouterr().out
+    assert "mesh: 4x1 plane-row decomposition over cpu" in out and "| Co=" in out
     with pytest.raises(SystemExit, match="lagged"):
         main(["cavity", "--mesh", "4", "--adaptive-dt", "0.7", *args])

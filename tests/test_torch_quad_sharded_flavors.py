@@ -28,9 +28,9 @@ plain twins and the reference its Pallas kernels in interpret mode on the
 * Behaviour: RB keeps the (us*, vs*, p, T) carry with
   extrapolate_warm_start, Simulation(mesh=) prints RB's single-device rows
   (max(div), on the float32 floor, within 1e-6),
-  the CLI's --mesh runs both flavors and refuses --adaptive-dt (A.12d),
-  the shard factories refuse the adaptive instances (A.12d) and the RB
-  guess.
+  the CLI's --mesh runs both flavors, with --adaptive-dt on the lagged
+  controller and not the exact one, the shard factories build the
+  adaptive instances (rows 16d+, 16e+) and refuse the RB guess.
 """
 
 import jax
@@ -237,11 +237,18 @@ def test_sub_mean_local_matches_the_reference():
 
 
 def test_shard_factories_refuse_the_adaptive_instances_and_the_rb_guess():
+    """The adaptive instances on a shard's block build (their twins:
+    tests/test_torch_quad_sharded_adaptive.py); the RB carry refuses the
+    guess with and without them."""
     tc = TCoeffs(**COEFFS)
-    with pytest.raises(NotImplementedError, match="A.12d"):
-        TQ.make_quad_channel_corr_predictor_source(SHAPE, tc, 1.0, adaptive=True, shard=(8, 4))
-    with pytest.raises(NotImplementedError, match="A.12d"):
-        TR.make_quad_rb_step_kernel(SHAPE, tc, KAPPA, PARAMS, adaptive=True, shard=(8, 4))
+    assert isinstance(TQ.make_quad_channel_corr_predictor_source(SHAPE, tc, 1.0, adaptive=True,
+                                                                 shard=(8, 4)),
+                      TQ.QuadChannelCorrPredictorSourceShardAdaptive)
+    assert isinstance(TR.make_quad_rb_step_kernel(SHAPE, tc, KAPPA, PARAMS, adaptive=True,
+                                                  shard=(8, 4)), TR.QuadRBStepShardAdaptive)
+    with pytest.raises(ValueError, match="emit_guess"):
+        TR.make_quad_rb_step_kernel(SHAPE, tc, KAPPA, PARAMS, emit_guess=True, adaptive=True,
+                                    shard=(8, 4))
     with pytest.raises(ValueError, match="emit_guess"):
         TR.make_quad_rb_step_kernel(SHAPE, tc, KAPPA, PARAMS, emit_guess=True, shard=(8, 4))
     with pytest.raises(ValueError, match="multiple of 8"):
@@ -431,6 +438,10 @@ def test_cli_mesh_runs_the_channel_and_rb(capsys):
     out = capsys.readouterr().out
     assert out.count("mesh: 4x1 plane-row decomposition over cpu") == 2
     assert out.count("Step      2") == 2
-    with pytest.raises(SystemExit, match="A.12d"):
-        main(["channel", "--mesh", "4", "--Nx", "96", "--Ny", "32", "--poisson",
-              "multigrid", "--adaptive-dt", "0.7", "--adaptive-controller", "lagged", *args])
+    assert main(["channel", "--mesh", "4", "--Nx", "96", "--Ny", "32", "--poisson",
+                 "multigrid", "--adaptive-dt", "0.7", "--adaptive-controller", "lagged",
+                 *args]) == 0
+    assert "| Co=" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="lagged"):
+        main(["rayleigh_benard", "--mesh", "4", "--Nx", "48", "--Ny", "16", "--adaptive-dt",
+              "0.7", *args])

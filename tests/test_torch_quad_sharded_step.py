@@ -19,7 +19,8 @@ the reference its Pallas kernels in interpret mode.
   tail_from=1 (the tail from level 2) bit-identical to it; a 1-shard mesh
   delegates.
 * The refusals (V(1,2), whole_solve, a raster that is not the rectangle,
-  the sharded traced-dt carry and make_adaptive, A.12d), Simulation(mesh=)
+  two pairs on the shard kernels, the exact adaptive controller on a mesh;
+  the traced-dt shard carry and make_adaptive build), Simulation(mesh=)
   rows and the CLI.
 
 The slice against the reference's ShardedQuadProjection is in
@@ -318,9 +319,9 @@ def test_sharded_step_refusals(make, kw, exc, match):
 
 def test_shard_factories_refuse_the_traced_dt_carry_and_two_pairs():
     tc, loc, shard = TCoeffs(**COEFFS), (32, 128), (16, MDY)
-    with pytest.raises(NotImplementedError, match="A.12d"):
-        TSQ.make_quad_step_corr_predictor_source(SHAPE, tc, STEP_I, INLET_J, 1.0,
-                                                 adaptive=True, shard=shard)
+    assert isinstance(TSQ.make_quad_step_corr_predictor_source(SHAPE, tc, STEP_I, INLET_J, 1.0,
+                                                               adaptive=True, shard=shard),
+                      TSQ.QuadStepCorrPredictorSourceShardAdaptive)
     level0 = (STEP_I, INLET_J, 1.0 / DX ** 2, 1.0 / DY ** 2, 1.0, 2)
     with pytest.raises(ValueError, match="pre-smoother: n_pairs=2 consumes 11 rows"):
         TSQ.make_quad_step_pre_smooth_restrict(SHAPE, *level0, loc, shard=shard)
@@ -329,9 +330,13 @@ def test_shard_factories_refuse_the_traced_dt_carry_and_two_pairs():
     with pytest.raises(ValueError, match="coarse shape"):
         TSQ.make_quad_step_pre_smooth_restrict(SHAPE, *level0[:-1], 1, (40, 128),
                                                shard=shard)
-    sq = ShardedQuadProjection(_port_case(nx=64, ny=16), _cpu_mesh(), tol_factor=1e-5)
-    with pytest.raises(NotImplementedError, match="A.12d"):
-        sq.make_adaptive(0.7, 1.2, 1.0, 10)
+    from cfd_tpu_torch.adaptive import run_adaptive
+
+    sim = Simulation(_port_case(nx=64, ny=16), log=lambda m: None, mesh=_cpu_mesh(),
+                     sharded_kwargs={"tol_factor": 1e-5})
+    assert all(callable(f) for f in sim._engine.make_adaptive(0.7, 1.2, 1.0, 10))
+    with pytest.raises(ValueError, match="sharded adaptive runs the lagged controller"):
+        run_adaptive(sim, n_steps=2, controller="exact")
 
 
 # ------------------------------------------------- Simulation(mesh=) and CLI
