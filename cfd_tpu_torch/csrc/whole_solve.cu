@@ -13,45 +13,65 @@
 //
 // Bound on the H100: at the channel's 1536x512 the finest quad field is
 // 3.8 MB and the whole hierarchy about 10 MB, so after the first cycle every
-// level is served from the 50 MB L2 cache. What bounds a cycle is then the
-// number of dependent phases: each red or black half-sweep needs the other
-// colour's final values over the whole level, so the grid synchronises
-// between phases (about 60 grid-wide barriers a V(1,2) cycle on 8 levels).
-// The per-kernel composition pays a launch and a host round trip for each
-// of those steps instead (PERF.md section 5).
+// level is served from the 50 MB L2 cache (the 2048^2 cavity's finest p and
+// b, 38 MB, mostly so). What bounds a cycle is the chain of dependent
+// phases: each red or black half-sweep needs the other colour's final
+// values over the whole level, so in a grid-stride design the grid
+// synchronises between phases (75 grid-wide barriers a V(2,1) cycle on the
+// cavity's 10 levels, 59-61 at the other shapes), each costing 2-3 us with
+// its L2 round trips, against an operation bound of about 1 us a cycle.
 //
-// Design: one persistent grid of kThreads-thread blocks, as many as can be
-// co-resident (the occupancy API, at most kMaxBlocksPerSM per SM, since a
-// grid-wide barrier costs more with more blocks), launched with
-// cudaLaunchCooperativeKernel; every phase is a grid-stride loop followed by
-// cooperative_groups' grid sync. The iterate and source of every level stay
-// in device memory (scratch the caller allocates once). The device code
-// (the phases and the cycle loop) lives in whole_solve.cuh, which the
-// whole-step kernel (whole_step.cu) runs after its carry stages. The
-// arithmetic of each phase is the per-kernel path's, through the same
-// device functions
-// (quad_level0.cuh, step_level0.cuh, aligned_level.cuh) or, for the
-// transfers between coarse levels and the coarsest solve, in the exact
-// operation order of their PyTorch glue (kernels/mg_tail.py _restrict,
-// _solid_fill, _prolong, dense_coarse_solve), so the solve equals the
-// per-kernel composition bit for bit.
+// Design: one persistent cooperative grid of one 512-thread block an SM
+// (cudaLaunchCooperativeKernel with the plan's dynamic shared memory),
+// laid out by a plan computed on the host (kernels/plan.py, whole_solve.cuh
+// Plan) so that most dependent stages meet at a block barrier instead of a
+// grid one:
+//
+//   * the finest level runs in shared-memory tiles: each block loads its
+//     tile of all four quad planes with a halo as deep as the stages the
+//     phase fuses, runs them there, and writes its own cells. Pre: the pre
+//     pairs (masked: each ghost+red stage, black stage and the trailing
+//     ghost stage), then the residual's restriction into level 1. Post: the
+//     prolong-add of the level-1 correction, the post pairs, the tolerance
+//     residual's max. Halo cells are computed redundantly by the same
+//     arithmetic on the same inputs, so they carry the same bits; the tiles
+//     read one quad iterate and write the other (P.p0, P.q0), two phases a
+//     cycle, so no block reads a cell another block writes in that phase.
+//   * the coarse levels above the plan's switch run on the grid: a level of
+//     at most 100,000 cells in tiles the same way (one phase down from its
+//     zero iterate: the pre pairs and the restriction; one up: the
+//     prolong-add and the post pairs), a larger one as grid-stride phases;
+//   * the levels from the switch down, the coarsest dense pinv product
+//     included, run in ONE block from its shared memory, separated by
+//     __syncthreads(); the other blocks wait at one grid barrier.
+//
+// At the main shapes that leaves 31 (cavity), 17 (channel), 18 (step) and
+// 20 (RB) grid-wide barriers a V-cycle, as the plan counts them
+// (kernels/plan.py grid_barriers). The arithmetic of each cell is the per-kernel path's,
+// through the same device functions where they take arrays
+// (aligned_level.cuh, mg_smooth.cuh) and in their exact operation order
+// where a tile reads shared memory (quad_level0.cuh, step_level0.cuh), and
+// for the transfers between coarse levels and the coarsest solve in the
+// order of their PyTorch glue (kernels/mg_tail.py _restrict, _solid_fill,
+// _prolong, dense_coarse_solve), so the solve equals the per-kernel
+// composition bit for bit.
 //
 // The masked flavor (kMasked): the finest level is the step's exact
-// operator (step_level0.cuh). Its ghost stage reads one array and writes
-// another, so the finest iterate alternates between the output array and a
-// scratch array, phase by phase exactly as the per-kernel kernels
-// (step_vcycle.cu) run it; the coarse levels carry full-2D weights, and a
-// correction leaving a masked coarse level is first solid-filled into a
-// scratch array (a phase of its own: the fill reads the neighbours of the
-// cells it writes).
+// operator (step_level0.cuh), whose ghost stage reads one array and writes
+// another; inside a tile the stages alternate between two shared-memory
+// buffers. The coarse levels carry full-2D weights, and a correction
+// leaving a masked coarse level is solid-filled where the prolongation
+// reads it (the level-1 correction's fill is a phase of its own).
 //
 // Reductions and the stop rule: max|b| and each cycle's residual max are
 // taken on the int bits of |x| with atomicMax (order-independent, so exact).
 // The residual goes to one of two slots by cycle parity; the slot the next
-// cycle uses is zeroed after the first barrier of this cycle, when no
-// thread reads it any more. After each cycle's last barrier every thread
-// reads the slot and evaluates the same float32 stop rule as the host loop
-// (poisson/multigrid.py tolerance_loop), so all blocks leave together.
+// cycle uses is zeroed after the first barrier of this cycle (which follows
+// every read of it, at the end of the previous cycle) and many barriers
+// before the next cycle's atomics. After each cycle's last barrier every
+// thread reads the slot and evaluates the same float32 stop rule as the
+// host loop (poisson/multigrid.py tolerance_loop), so all blocks leave
+// together.
 //
 // The bfloat16 hierarchy (store_bf16, coarse_dtype="bfloat16";
 // whole_solve.py:156, 216-219, 340): the buffers stay float32 and every
@@ -66,13 +86,15 @@
 //
 // The pure-Neumann mean pin (pin_mean, the Rayleigh-Benard solve;
 // whole_solve.py:285-289): after each cycle's tolerance residual, which is
-// taken BEFORE the shift as in the reference, every block sums its
-// kThreads-wide chunks of p by the fixed tree into per-chunk partials, one
-// block folds the partials in fixed_order_sum's order after a grid sync,
-// and after a second grid sync every thread subtracts sum / n_int (an IEEE
-// division) on the quad cells. p is 0 off the cells by construction, so the
-// sum over the whole array is the cell sum. Two more barriers a cycle; the
-// host loop's twin (MultigridPoisson.cycle) does the same arithmetic.
+// taken BEFORE the shift as in the reference, and a barrier, the p0 cells
+// are summed in 256-wide flat chunks, each by the fixed tree (whatever the
+// block size: each 256-thread group of a block takes one chunk at a time),
+// into per-chunk partials; one block folds the partials in fixed_order_sum's
+// order after a grid sync, and after a second grid sync every thread
+// subtracts sum / n_int (an IEEE division) on the quad cells. p is 0 off the
+// cells by construction, so the sum over the whole array is the cell sum.
+// Three more barriers a cycle; the host loop's twin (MultigridPoisson.cycle)
+// does the same arithmetic.
 #include "whole_solve.cuh"
 
 namespace {
@@ -82,7 +104,7 @@ using cfd::ws::Params;
 using cfd::ws::Sweep;
 
 template <bool kMasked>
-__global__ void __launch_bounds__(cfd::kThreads) whole_solve_kernel(Params P) {
+__global__ void __launch_bounds__(cfd::ws::kBlockThreads, 1) whole_solve_kernel(Params P) {
   cg::grid_group grid = cg::this_grid();
   const Sweep s{static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x,
                 static_cast<long long>(gridDim.x) * blockDim.x};
@@ -94,7 +116,7 @@ __global__ void __launch_bounds__(cfd::kThreads) whole_solve_kernel(Params P) {
     P.p0[idx] = P.p_in[idx];
     m = cfd::bits_max(m, fabsf(P.b0[idx]));
   });
-  if (P.max_b == nullptr) cfd::block_max_into(m, P.ctl);
+  if (P.max_b == nullptr) cfd::ws::block_max_into(m, P.ctl);
   grid.sync();
   const float max_b = P.max_b != nullptr ? *P.max_b : __ldcg(P.ctl);
   cfd::ws::solve_cycles<kMasked>(s, grid, P, max_b);
@@ -107,29 +129,36 @@ void* kernel_of(int masked) {
 
 }  // namespace
 
-// Grid of the cooperative launch of the separable (masked = 0) or masked
-// kernel on the current device: blocks, blocks per SM, and the kernel's
-// registers per thread (for the build log).
-extern "C" int cfd_whole_solve_grid(int masked, int* blocks, int* per_sm, int* regs) {
-  return cfd::ws::coop_grid(kernel_of(masked), blocks, per_sm, regs);
+// Readies the separable (masked = 0) or masked kernel on the current
+// device and returns its co-residency at smem_bytes of dynamic shared
+// memory a block (cfd::ws::coop_grid): blocks (SMs x blocks per SM), blocks
+// per SM, and the kernel's registers per thread.
+extern "C" int cfd_whole_solve_grid(int masked, int smem_bytes, int* blocks, int* per_sm,
+                                    int* regs) {
+  return cfd::ws::coop_grid(kernel_of(masked), smem_bytes, blocks, per_sm, regs);
 }
 
-// masked: 0 = the separable flavor (fine weights wE..wS, q0, filled and the
-// step geometry unused), 1 = the masked flavor (wE..wS null; q0 a quad
-// field, filled a level-1-size array). idims: n_coarse * (H8, W, ny, nx,
-// full); fdims: n_coarse * (idx2, idy2); ptrs: n_coarse * (wE, wW, wN, wS,
-// p, b), levels 1..n_coarse, all host arrays. ctl: 4 floats of device
-// scratch; stats: 2 ints, the cycles and the bits of the final float32
-// residual; fold: n * n floats for the coarsest level. pin_mean (separable
-// only): partials is blocks_for(4 * Hq8 * Wqa) floats of scratch and n_int
-// the interior cell count. corr_opt (masked only): partials is 2 *
-// blocks_for(H8 * W of level 1) floats of scratch. Otherwise partials is
-// null. store_bf16: the bfloat16 rounding points of the hierarchy (the
-// caller passes weights and pinv already rounded); rc32, a level-1-size
-// array, exactly when corr_opt and store_bf16 are both on.
+// masked: 0 = the separable flavor (fine weights wE..wS, the step geometry
+// unused, filled null), 1 = the masked flavor (wE..wS null; filled a
+// level-1-size array). q0: a quad field of scratch (the second finest
+// iterate). idims: n_coarse * (H8, W, ny, nx, full); fdims: n_coarse *
+// (idx2, idy2); ptrs: n_coarse * (wE, wW, wN, wS, p, b), levels
+// 1..n_coarse, all host arrays. ctl: 4 floats of device scratch; stats: 2
+// ints, the cycles and the bits of the final float32 residual; pinv: the
+// coarsest level's (n, n) pseudo-inverse. pin_mean (separable only): partials is
+// ceil(4 * Hq8 * Wqa / 256) floats of scratch and n_int the interior cell
+// count. corr_opt (masked only): partials is 2 * ceil(H8 * W of level 1 /
+// 256) floats of scratch. Otherwise partials is null. store_bf16: the
+// bfloat16 rounding points of the hierarchy (the caller passes weights and
+// pinv already rounded); rc32, a level-1-size array, exactly when corr_opt
+// and store_bf16 are both on. plan: a host array of the launch plan
+// (cfd::ws::Plan, 8 + 2 kMaxLevels ints). A plan that does not fit the solve
+// returns an error and launches nothing; cfd_whole_solve_grid must have
+// readied the kernel on this device, or a launch above 48 KB of shared
+// memory fails.
 extern "C" int cfd_whole_solve(int masked, const float* p_in, const float* b0, float* p0,
                                float* q0, float* filled, const float* max_b, float* ctl,
-                               int* stats, float* fold, const float* pinv, const float* wE,
+                               int* stats, const float* pinv, const float* wE,
                                const float* wW, const float* wN, const float* wS, int Hq8,
                                int Wqa, int ny, int nx, int step_i, int inlet_j, float idx2,
                                float idy2, float denom, float one_minus_omega, int n_coarse,
@@ -137,21 +166,19 @@ extern "C" int cfd_whole_solve(int masked, const float* p_in, const float* b0, f
                                float omega, int pre, int post, int max_cycles,
                                float tol_factor, float abs_tol, float stall, int pin_mean,
                                float* partials, float n_int, int store_bf16, int corr_opt,
-                               float* rc32, void* stream) {
+                               float* rc32, const int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params P;
-  int e = cfd::ws::solve_params(&P, masked, p_in, b0, p0, q0, filled, max_b, ctl, stats, fold,
-                                pinv, wE, wW, wN, wS, Hq8, Wqa, ny, nx, step_i, inlet_j, idx2,
+  int e = cfd::ws::solve_params(&P, masked, p_in, b0, p0, q0, filled, max_b, ctl, stats, pinv, wE, wW, wN, wS, Hq8, Wqa, ny, nx, step_i, inlet_j, idx2,
                                 idy2, denom, one_minus_omega, n_coarse, idims, fdims, ptrs,
                                 omega, pre, post, max_cycles, tol_factor, abs_tol, stall,
-                                pin_mean, partials, n_int, store_bf16, corr_opt, rc32);
+                                pin_mean, partials, n_int, store_bf16, corr_opt, rc32, plan);
   if (e) return e;
-  int blocks = 0, per_sm = 0, regs = 0;
-  e = cfd_whole_solve_grid(masked, &blocks, &per_sm, &regs);
-  if (e) return e;
+  const void* fn = kernel_of(masked);
   cudaError_t err = cudaMemsetAsync(ctl, 0, 4 * sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&P};
-  err = cudaLaunchCooperativeKernel(kernel_of(masked), blocks, cfd::kThreads, args, 0, s);
+  err = cudaLaunchCooperativeKernel(fn, P.plan.blocks, cfd::ws::kBlockThreads, args,
+                                    P.plan.smem_bytes, s);
   return static_cast<int>(err);
 }

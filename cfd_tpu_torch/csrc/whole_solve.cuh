@@ -1,10 +1,11 @@
 // The whole tolerance-driven multigrid solve as device code for one
-// cooperative grid: the parameters, the per-level phases, the coarse
-// V-cycle and the V-cycle loop with its stop rule. Run by the whole-solve
-// kernel (whole_solve.cu) after its warm-start copy, and by the whole-step
-// kernel (whole_step.cu) after the carry stages; the fused coarse tail
-// (mg_tail.cu) runs the coarse V-cycle alone. whole_solve.cu describes the
-// design.
+// cooperative grid: the parameters and the launch plan, the finest level's
+// shared-memory tiles, the grid-resident coarse levels, the coarse tail in
+// one block, and the V-cycle loop with its stop rule. Run by the
+// whole-solve kernel (whole_solve.cu) after its warm-start copy, and by the
+// whole-step kernel (whole_step.cu) after the carry stages; the fused
+// coarse tail (mg_tail.cu) runs the coarse V-cycle alone. whole_solve.cu
+// describes the design.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -19,7 +20,31 @@ namespace ws {
 namespace cg = cooperative_groups;
 
 constexpr int kMaxLevels = 16;
-constexpr int kMaxBlocksPerSM = 2;
+// the threads of a block of these kernels (their launch bounds; a multiple
+// of kSumChunk)
+constexpr int kBlockThreads = 512;
+// the width of the fixed-order sums' chunks (the pin's, corr_opt's and the
+// carries' source sums): cfd::kThreads, whatever the block size
+constexpr int kSumChunk = cfd::kThreads;
+// the reduction scratch at the start of the dynamic shared memory (floats)
+constexpr int kRedFloats = kBlockThreads;
+// the shared memory a block may use on the H100 (bytes)
+constexpr int kSmemMax = 232448;
+
+// The launch plan, computed on the host (kernels/plan.py plan_for): coarse
+// levels block_from..n_coarse run in ONE block from its shared memory,
+// levels 1..block_from-1 on the whole grid in tiles of level_rows[k - 1] x
+// level_cols[k - 1] cells; the finest level runs in tiles of tile_rows x
+// tile_cols plane cells (all four planes) with a halo of halo_pre /
+// halo_post plane rows and columns.
+struct Plan {
+  int block_from;
+  int tile_rows, tile_cols;
+  int halo_pre, halo_post;
+  int smem_bytes;  // dynamic shared memory of a block
+  int blocks, threads;
+  int level_rows[kMaxLevels], level_cols[kMaxLevels];
+};
 
 struct Params {
   cfd::Level0 L0;              // the finest level, quad layout (separable)
@@ -28,27 +53,28 @@ struct Params {
   cfd::Level lv[kMaxLevels];   // lv[k - 1] is level k
   float* p_lv[kMaxLevels];     // iterate of level k
   float* b_lv[kMaxLevels];     // source of level k
+  float* q_lv[kMaxLevels];     // a grid level's pre-smoothed iterate
   const float* p_in;           // warm start (quad)
   const float* b0;             // source (quad)
   float* p0;                   // the solution (quad)
-  float* q0;                   // masked: the second finest iterate (quad)
+  float* q0;                   // the second finest iterate (quad): the tiles read one, write the other
   float* filled;               // masked: a solid-filled correction (level-1 size)
   const float* max_b;          // null: max|b| is computed here
   float* ctl;                  // [0] max|b|, [1] [2] residual slots, [3] the pin's sum
                                // or corr_opt's alpha; zeroed before launch
   int* stats;                  // (cycles, the bits of res)
-  float* fold;                 // n * n scratch of the coarsest solve
   const float* pinv;           // (n, n), n = ny * nx of the coarsest level
   int pre, post, max_cycles;
   float tol_factor, abs_tol, stall;
   int pin_mean;                // separable only: shift p to zero mean each cycle
-  float* partials;             // pin_mean: blocks_for(4 * Hq8 * Wqa) floats of scratch;
-                               // corr_opt: 2 * blocks_for(H8 * W of level 1)
+  float* partials;             // pin_mean: ceil(4 * Hq8 * Wqa / kSumChunk) floats of scratch;
+                               // corr_opt: 2 * ceil(H8 * W of level 1 / kSumChunk)
   float n_int;                 // pin_mean: the number of interior cells
   int store_bf16;              // round the coarse sources and pre-smoothed iterates
                                // to bfloat16 where the reference stores them
   int corr_opt;                // masked only: line-search the level-1 correction
   float* rc32;                 // corr_opt with store_bf16: the unrounded level-1 source
+  Plan plan;
 };
 
 // x rounded to the nearest bfloat16 (ties to even, as torch's .to(bfloat16))
@@ -57,30 +83,178 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// the block's dynamic shared memory: kRedFloats of reduction scratch, then
+// the phase's arrays
+__device__ __forceinline__ float* dyn_smem() {
+  extern __shared__ float4 ws_dyn_smem[];
+  return reinterpret_cast<float*>(ws_dyn_smem);
+}
+
 struct Sweep {
   long long first, step;
   template <class F>
   __device__ __forceinline__ void each(long long n, F f) const {
     for (long long k = first; k < n; k += step) f(k);
   }
+  // the same over n < 2^31 with 32-bit indices (an aligned coarse level)
+  template <class F>
+  __device__ __forceinline__ void each32(int n, F f) const {
+    for (int k = static_cast<int>(first); k < n; k += static_cast<int>(step)) f(k);
+  }
 };
 
-// one red (colour 0) or black half-sweep of an aligned level in place;
-// from_zero: the iterate is all zeros (the first half-sweep of a descent),
-// so its reads are zeros and the cells it does not update become 0
-__device__ inline void level_half_sweep(const Sweep& s, const cfd::Level& L, float* p,
-                                 const float* b, int colour, bool from_zero) {
-  s.each(static_cast<long long>(L.H8) * L.W, [&](long long idx) {
-    const int j = static_cast<int>(idx / L.W);
-    const int i = static_cast<int>(idx - static_cast<long long>(j) * L.W);
-    if (((j + i) & 1) == colour && cfd::active(j, i, L)) {
-      const cfd::Weights w = cfd::weights(j, i, L);
-      p[idx] = from_zero ? cfd::gs_update(0.f, 0.f, 0.f, 0.f, 0.f, b[idx], w.e, w.w, w.n,
-                                          w.s, L.idx2, L.idy2, L.omega)
-                         : cfd::rb_update(p, b, j, i, L);
-    } else if (from_zero) {
-      p[idx] = 0.f;
+// ---------------------------------------------------------------- reductions
+
+// Block-wide max of v >= 0 into *out (an atomicMax on the int bits; the
+// order does not matter). Every thread of the block calls it.
+__device__ inline void block_max_into(float v, float* out) {
+  int* s = reinterpret_cast<int*>(dyn_smem());
+  const int t = static_cast<int>(threadIdx.x);
+  s[t] = __float_as_int(v);
+  __syncthreads();
+  for (int stride = static_cast<int>(blockDim.x) / 2; stride > 0; stride >>= 1) {
+    if (t < stride) s[t] = max(s[t], s[t + stride]);
+    __syncthreads();
+  }
+  if (t == 0) atomicMax(reinterpret_cast<int*>(out), s[0]);
+  __syncthreads();
+}
+
+// Fixed-order sums of val(k), k in [0, n), in kSumChunk-wide chunks: chunk
+// c's sum into out[c], by the pairwise tree of cfd::block_sum_to (s[t] +=
+// s[t + stride], stride = kSumChunk/2 ... 1), so the sums do not depend on
+// the block size. Each kSumChunk-thread group of a block sums one chunk at
+// a time; val is called once for each k. Every thread of the grid calls it.
+template <class F>
+__device__ inline void chunk_sums(long long n, float* out, F val) {
+  const int groups = static_cast<int>(blockDim.x) / kSumChunk;
+  const int g = static_cast<int>(threadIdx.x) / kSumChunk;
+  const int t = static_cast<int>(threadIdx.x) % kSumChunk;
+  float* s = dyn_smem() + g * kSumChunk;
+  const long long chunks = (n + kSumChunk - 1) / kSumChunk;
+  const long long rounds = (chunks + groups - 1) / groups;
+  for (long long r = blockIdx.x; r < rounds; r += gridDim.x) {
+    const long long c = r * groups + g;
+    const long long k = c * kSumChunk + t;
+    s[t] = k < n ? val(k) : 0.f;
+    __syncthreads();
+    for (int stride = kSumChunk / 2; stride > 0; stride >>= 1) {
+      if (t < stride) s[t] = s[t] + s[t + stride];
+      __syncthreads();
     }
+    if (t == 0 && c < chunks) out[c] = s[0];
+    __syncthreads();
+  }
+}
+
+// ------------------------------------------------------- block-level loops
+
+// f(j, i) on rows [r0, r1) x columns [c0, c1): warps over rows, lanes over
+// columns
+template <class F>
+__device__ __forceinline__ void each_cell(int r0, int r1, int c0, int c1, F f) {
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int nw = static_cast<int>(blockDim.x) >> 5;
+  for (int j = r0 + (static_cast<int>(threadIdx.x) >> 5); j < r1; j += nw) {
+    for (int i = c0 + lane; i < c1; i += 32) f(j, i);
+  }
+}
+
+// a[0:n] = 0 by the block
+__device__ inline void s_zero(float* a, int n) {
+  for (int k = static_cast<int>(threadIdx.x); k < n; k += static_cast<int>(blockDim.x)) a[k] = 0.f;
+}
+
+// An update of one cell: whether it is written, and its value
+struct Upd {
+  bool on;
+  float v;
+};
+
+// out[j * pitch + i] = f(j, i).v where f(j, i).on, over the cells of
+// `colour` ((j + i) & 1; every cell if colour < 0) of rows [r0, r1) x
+// columns [c0, c1): warps over rows, two cells a lane at a time, both
+// values computed before either is stored. f may read out: no cell an
+// update reads is one that the same pass writes (a red/black sweep's
+// other colour, a pointwise update's own cell).
+template <class F>
+__device__ __forceinline__ void update2(float* out, int pitch, int r0, int r1, int c0, int c1,
+                                        int colour, F f) {
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int nw = static_cast<int>(blockDim.x) >> 5;
+  const int step = colour < 0 ? 32 : 64;
+  for (int j = r0 + (static_cast<int>(threadIdx.x) >> 5); j < r1; j += nw) {
+    const int first = colour < 0 ? c0 + lane : c0 + ((j + c0 + colour) & 1) + 2 * lane;
+    for (int i = first; i < c1; i += 2 * step) {
+      const int i2 = i + step;
+      const Upd a = f(j, i);
+      const Upd b = i2 < c1 ? f(j, i2) : Upd{false, 0.f};
+      if (a.on) out[j * pitch + i] = a.v;
+      if (b.on) out[j * pitch + i2] = b.v;
+    }
+  }
+}
+
+// dst[j * dp + i] = src(j, i) on rows [0, rows) x columns [0, cols): warps
+// over rows, each lane's four columns 32 apart loaded before they are
+// stored, so four loads are in flight a thread
+template <class Src>
+__device__ __forceinline__ void copy_rect(float* dst, int dp, int rows, int cols, Src src) {
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int nw = static_cast<int>(blockDim.x) >> 5;
+  for (int j = static_cast<int>(threadIdx.x) >> 5; j < rows; j += nw) {
+    for (int i0 = lane; i0 < cols; i0 += 128) {
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = i0 + 32 * u < cols ? src(j, i0 + 32 * u) : 0.f;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (i0 + 32 * u < cols) dst[j * dp + i0 + 32 * u] = v[u];
+      }
+    }
+  }
+}
+
+// -------------------------------------------------- grid-resident coarse levels
+//
+// A large grid level runs as grid-stride phases, one barrier after each
+// (the half-sweeps, the restriction, the prolongation); a smaller one
+// (the plan's level_rows > 0) runs in tiles, one phase on the way down and
+// one on the way up, each a tile of rows x cols cells (both even) with a
+// halo of H:
+// down, from a zero iterate, the 2 pre half-sweeps and the residual's full
+// weighting into the next level (H = 2 pre + 2: the restriction's lower
+// children read one row below, their residuals one more); up, the
+// prolong-add of the coarser level's correction and the 2 post
+// half-sweeps (H = 2 post). The pre-smoothed iterate goes to q_lv[k], the
+// level's final correction to p_lv[k], where every phase after reads it.
+// Each stage updates the cells s + 1 from the buffer's edge, as the finest
+// level's tiles.
+
+// one red (colour 0) or black half-sweep of an aligned level in place,
+// over the cells of the colour; from_zero: the iterate is all zeros (the
+// first half-sweep of a descent), so its reads are zeros and every other
+// cell becomes 0
+__device__ inline void level_half_sweep(const Sweep& s, const cfd::Level& L, float* p,
+                                        const float* b, int colour, bool from_zero) {
+  if (from_zero) {
+    s.each32(L.H8 * L.W, [&](int idx) {
+      const int j = idx / L.W, i = idx - j * L.W;
+      if (((j + i) & 1) == colour && cfd::active(j, i, L)) {
+        const cfd::Weights w = cfd::weights(j, i, L);
+        p[idx] = cfd::gs_update(0.f, 0.f, 0.f, 0.f, 0.f, b[idx], w.e, w.w, w.n, w.s, L.idx2,
+                                L.idy2, L.omega);
+      } else {
+        p[idx] = 0.f;
+      }
+    });
+    return;
+  }
+  const int hw = (L.W + 1) / 2;
+  s.each32(L.H8 * hw, [&](int t) {
+    const int j = t / hw;
+    const int i = 2 * (t - j * hw) + ((j + colour) & 1);
+    if (i < L.W && cfd::active(j, i, L)) p[j * L.W + i] = cfd::rb_update(p, b, j, i, L);
   });
 }
 
@@ -89,10 +263,10 @@ __device__ inline void level_half_sweep(const Sweep& s, const cfd::Level& L, flo
 // + r(2J,2I)) * 0.25 on the coarse interior, 0 elsewhere; rounded to
 // bfloat16 with bf16 (the stored b[k + 1] of run_tail_vcycle(store_dtype))
 __device__ inline void level_restrict(const Sweep& s, const cfd::Level& L, const float* p,
-                               const float* b, const cfd::Level& Lc, float* bc, bool bf16) {
-  s.each(static_cast<long long>(Lc.H8) * Lc.W, [&](long long idx) {
-    const int J = static_cast<int>(idx / Lc.W);
-    const int I = static_cast<int>(idx - static_cast<long long>(J) * Lc.W);
+                                      const float* b, const cfd::Level& Lc, float* bc,
+                                      bool bf16) {
+  s.each32(Lc.H8 * Lc.W, [&](int idx) {
+    const int J = idx / Lc.W, I = idx - J * Lc.W;
     float out = 0.f;
     if (cfd::interior(J, I, Lc)) {
       const int j = 2 * J, i = 2 * I;
@@ -105,50 +279,881 @@ __device__ inline void level_restrict(const Sweep& s, const cfd::Level& L, const
   });
 }
 
-// p += the bilinear 9-3-3-1 prolongation of the coarse correction e (level
-// Lc, edge-replicated ghosts) on the active cells of level L, in the order
-// of mg_tail._prolong: 0.0625 * (((9c + 3h) + 3v) + d). With bf16 the
+// The bilinear 9-3-3-1 prolongation of the coarse correction E(a, c)
+// (level Lc, interior cell (a + 1, c + 1), edge-replicated ghosts) at
+// active cell (j, i) of level L, in the order of mg_tail._prolong:
+// 0.0625 * (((9c + 3h) + 3v) + d)
+template <class Ec>
+__device__ __forceinline__ float prolong_value(const Ec& E, const cfd::Level& Lc, int j, int i) {
+  const int jc = (j - 1) >> 1, ic = (i - 1) >> 1;
+  const int dj = ((j - 1) & 1) ? 1 : -1, di = ((i - 1) & 1) ? 1 : -1;
+  auto Ecl = [&](int a, int c) {
+    a = min(max(a, 0), Lc.ny - 1);
+    c = min(max(c, 0), Lc.nx - 1);
+    return E(a, c);
+  };
+  return 0.0625f * (((9.0f * Ecl(jc, ic) + 3.0f * Ecl(jc, ic + di)) + 3.0f * Ecl(jc + dj, ic)) +
+                    Ecl(jc + dj, ic + di));
+}
+
+// p += the prolongation of the coarse correction e (level Lc) on the active
+// cells of level L; a masked Lc's correction is solid-filled first, each
+// filled value computed where the prolongation reads it (the same
+// arithmetic as a fill phase, without its barrier). With bf16 the
 // pre-smoothed p is rounded to bfloat16 first (the stored ps[k]): a cell
 // reads only its own p here, so rounding on read is race-free.
 __device__ inline void level_prolong_add(const Sweep& s, const cfd::Level& Lc, const float* e,
-                                  const cfd::Level& L, float* p, bool bf16) {
-  s.each(static_cast<long long>(L.H8) * L.W, [&](long long idx) {
-    const int j = static_cast<int>(idx / L.W);
-    const int i = static_cast<int>(idx - static_cast<long long>(j) * L.W);
+                                         const cfd::Level& L, float* p, bool bf16) {
+  auto E = [&](int a, int c) {
+    return Lc.full ? cfd::solid_fill_value(e, a + 1, c + 1, Lc) : e[(a + 1) * Lc.W + (c + 1)];
+  };
+  s.each32(L.H8 * L.W, [&](int idx) {
+    const int j = idx / L.W, i = idx - j * L.W;
     if (!cfd::active(j, i, L)) return;
-    const int jc = (j - 1) >> 1, ic = (i - 1) >> 1;
-    const int dj = ((j - 1) & 1) ? 1 : -1, di = ((i - 1) & 1) ? 1 : -1;
-    auto E = [&](int a, int c) {
-      a = min(max(a, 0), Lc.ny - 1);
-      c = min(max(c, 0), Lc.nx - 1);
-      return e[static_cast<long long>(a + 1) * Lc.W + (c + 1)];
-    };
-    const float v = 0.0625f * (((9.0f * E(jc, ic) + 3.0f * E(jc, ic + di)) +
-                                3.0f * E(jc + dj, ic)) +
-                               E(jc + dj, ic + di));
+    const float v = prolong_value(E, Lc, j, i);
     p[idx] = (bf16 ? round_bf16(p[idx]) : p[idx]) + v;
   });
 }
 
 // out = the solid fill of a masked level's correction e (the whole array)
 __device__ inline void level_solid_fill(const Sweep& s, const cfd::Level& L, const float* e,
-                                 float* out) {
-  s.each(static_cast<long long>(L.H8) * L.W, [&](long long idx) {
-    const int j = static_cast<int>(idx / L.W);
-    const int i = static_cast<int>(idx - static_cast<long long>(j) * L.W);
+                                        float* out) {
+  s.each32(L.H8 * L.W, [&](int idx) {
+    const int j = idx / L.W, i = idx - j * L.W;
     out[idx] = cfd::solid_fill_value(e, j, i, L);
   });
 }
 
-// p0 -= fixed_order_sum(p0) / n_int on the quad cells (see the header)
+// one tile of an aligned level: own rows [R0, R0 + rows) x columns [C0,
+// C0 + cols), buffers of (rows + 2H) x (cols + 2H) from (oj, oi); the
+// block's compact level (below) is the tile of the whole level's interior
+// and ghost ring from (0, 0)
+struct LTile {
+  int R0, C0, rows, cols, H, oj, oi, LR, LC;
+};
+
+__device__ inline LTile make_ltile(int t, int rows, int cols, int w_ext, int H) {
+  const int ncol = (w_ext + cols - 1) / cols;
+  LTile T;
+  T.R0 = (t / ncol) * rows;
+  T.C0 = (t % ncol) * cols;
+  T.rows = rows;
+  T.cols = cols;
+  T.H = H;
+  T.oj = T.R0 - H;
+  T.oi = T.C0 - H;
+  T.LR = rows + 2 * H;
+  T.LC = cols + 2 * H;
+  return T;
+}
+
+// a level tile's shared-memory iterate, source and weights (four arrays of
+// a masked level; a separable level's vectors by local column (e, w) and
+// local row (n, s))
+struct LBuf {
+  float* p;
+  float* b;
+  float *we, *ww, *wn, *ws;
+  int full, LC;
+  __device__ __forceinline__ cfd::Weights w(int lj, int li) const {
+    if (full) {
+      const int k = lj * LC + li;
+      return {we[k], ww[k], wn[k], ws[k]};
+    }
+    return {we[li], ww[li], wn[lj], ws[lj]};
+  }
+};
+
+__device__ inline LBuf level_buf(const cfd::Level& L, const LTile& T,
+                                 float* base = dyn_smem() + kRedFloats) {
+  const int n = T.LR * T.LC;
+  float* w = base + 2 * n;
+  if (L.full) return LBuf{base, base + n, w, w + n, w + 2 * n, w + 3 * n, 1, T.LC};
+  return LBuf{base, base + n, w, w + T.LC, w + 2 * T.LC, w + 2 * T.LC + T.LR, 0, T.LC};
+}
+
+// cfd::active at local (lj, li) from the tile's weights
+__device__ __forceinline__ bool l_active(const LBuf& B, const LTile& T, int lj, int li,
+                                         const cfd::Level& L) {
+  if (!cfd::interior(T.oj + lj, T.oi + li, L)) return false;
+  if (!B.full) return true;
+  const cfd::Weights w = B.w(lj, li);
+  return L.idx2 * (w.e + w.w) + L.idy2 * (w.n + w.s) > 0.f;
+}
+
+// dst = the tile's region of level array src (0 outside it), and the
+// level's weights on the region
+__device__ inline void load_level(const float* src, float* dst, const LTile& T,
+                                  const cfd::Level& L) {
+  copy_rect(dst, T.LC, T.LR, T.LC, [&](int lj, int li) {
+    const int j = T.oj + lj, i = T.oi + li;
+    return (j >= 0 && j < L.H8 && i >= 0 && i < L.W) ? src[j * L.W + i] : 0.f;
+  });
+}
+
+__device__ inline void load_level_weights(const LBuf& B, const LTile& T, const cfd::Level& L) {
+  if (B.full) {
+    const float* g[4] = {L.wE, L.wW, L.wN, L.wS};
+    float* d[4] = {B.we, B.ww, B.wn, B.ws};
+    for (int a = 0; a < 4; ++a) load_level(g[a], d[a], T, L);
+    return;
+  }
+  for (int k = static_cast<int>(threadIdx.x); k < T.LC; k += static_cast<int>(blockDim.x)) {
+    const int i = T.oi + k;
+    const bool in = i >= 0 && i < L.W;
+    B.we[k] = in ? L.wE[i] : 0.f;
+    B.ww[k] = in ? L.wW[i] : 0.f;
+  }
+  for (int k = static_cast<int>(threadIdx.x); k < T.LR; k += static_cast<int>(blockDim.x)) {
+    const int j = T.oj + k;
+    const bool in = j >= 0 && j < L.H8;
+    B.wn[k] = in ? L.wN[j] : 0.f;
+    B.ws[k] = in ? L.wS[j] : 0.f;
+  }
+}
+
+// a half-sweep of `colour` (red 0) of a level tile in place (rb_update's
+// arithmetic) on the cells shrink + 1 from the buffer's edge
+__device__ inline void l_half_sweep(const LBuf& B, const LTile& T, const cfd::Level& L,
+                                    int colour, int shrink) {
+  const int local = (colour + T.oj + T.oi) & 1;  // the local parity of the global colour
+  update2(B.p, T.LC, shrink + 1, T.LR - shrink - 1, shrink + 1, T.LC - shrink - 1, local,
+          [&](int lj, int li) {
+    if (!l_active(B, T, lj, li, L)) return Upd{false, 0.f};
+    const float* c = B.p + lj * T.LC + li;
+    const cfd::Weights w = B.w(lj, li);
+    return Upd{true, cfd::gs_update(c[0], c[1], c[-1], c[T.LC], c[-T.LC], B.b[lj * T.LC + li],
+                                    w.e, w.w, w.n, w.s, L.idx2, L.idy2, L.omega)};
+  });
+  __syncthreads();
+}
+
+// the signed residual b - A p at local (lj, li) of a level tile, 0 off the
+// active cells (rb_residual's arithmetic)
+__device__ __forceinline__ float l_residual(const LBuf& B, const LTile& T, int lj, int li,
+                                            const cfd::Level& L) {
+  if (!l_active(B, T, lj, li, L)) return 0.f;
+  const float* c = B.p + lj * T.LC + li;
+  const cfd::Weights w = B.w(lj, li);
+  const float ap = cfd::apply_a(c[0], c[1], c[-1], c[T.LC], c[-T.LC], w.e, w.w, w.n, w.s,
+                                L.idx2, L.idy2);
+  return B.b[lj * T.LC + li] - ap;
+}
+
+// Level k's way down on every tile: 2 pre half-sweeps from a zero iterate
+// (the first reads zeros, every cell it does not update is 0), the
+// pre-smoothed iterate into q_lv[k], and the residual's full weighting in
+// mg_tail._restrict's order, ((r(2J-1,2I-1) + r(2J-1,2I)) + r(2J,2I-1) +
+// r(2J,2I)) * 0.25 on the coarse interior and 0 elsewhere, into b_lv[k +
+// 1] (rounded to bfloat16 with store_bf16). The tiles span max(H8, 2 H8 of
+// level k + 1) x max(W, 2 W of level k + 1), so that every cell of both
+// arrays is written.
+__device__ inline void level_pre_tiles(const Params& P, int k) {
+  const cfd::Level& L = P.lv[k - 1];
+  const cfd::Level& Lc = P.lv[k];
+  const bool bf16 = P.store_bf16 != 0;
+  const int rows = P.plan.level_rows[k - 1], cols = P.plan.level_cols[k - 1];
+  const int h_ext = max(L.H8, 2 * Lc.H8), w_ext = max(L.W, 2 * Lc.W);
+  const int nt = ((h_ext + rows - 1) / rows) * ((w_ext + cols - 1) / cols);
+  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+    const LTile T = make_ltile(t, rows, cols, w_ext, 2 * P.pre + 2);
+    const LBuf B = level_buf(L, T);
+    load_level(P.b_lv[k], B.b, T, L);
+    load_level_weights(B, T, L);
+    s_zero(B.p, T.LR * T.LC);
+    __syncthreads();
+    for (int s = 0; s < 2 * P.pre; ++s) l_half_sweep(B, T, L, s & 1, s);
+    each_cell(T.R0, min(T.R0 + rows, L.H8), T.C0, min(T.C0 + cols, L.W), [&](int j, int i) {
+      P.q_lv[k][j * L.W + i] = B.p[(j - T.oj) * T.LC + (i - T.oi)];
+    });
+    each_cell(T.R0 / 2, min((T.R0 + rows) / 2, Lc.H8), T.C0 / 2, min((T.C0 + cols) / 2, Lc.W),
+              [&](int J, int I) {
+                float out = 0.f;
+                if (cfd::interior(J, I, Lc)) {
+                  const int lj = 2 * J - T.oj, li = 2 * I - T.oi;
+                  out = (((l_residual(B, T, lj - 1, li - 1, L) +
+                           l_residual(B, T, lj - 1, li, L)) +
+                          l_residual(B, T, lj, li - 1, L)) +
+                         l_residual(B, T, lj, li, L)) *
+                        0.25f;
+                }
+                P.b_lv[k + 1][J * Lc.W + I] = bf16 ? round_bf16(out) : out;
+              });
+    __syncthreads();
+  }
+}
+
+// Level k's way up on every tile: the pre-smoothed q_lv[k] (rounded to
+// bfloat16 first with store_bf16: the stored ps[k]) plus the 9-3-3-1
+// prolongation of level k + 1's correction p_lv[k + 1] (solid-filled
+// where the prolongation reads it when level k + 1 is masked) on the
+// active cells, then 2 post half-sweeps; the result into p_lv[k].
+__device__ inline void level_post_tiles(const Params& P, int k) {
+  const cfd::Level& L = P.lv[k - 1];
+  const cfd::Level& Lc = P.lv[k];
+  const bool bf16 = P.store_bf16 != 0;
+  const int rows = P.plan.level_rows[k - 1], cols = P.plan.level_cols[k - 1];
+  const int nt = ((L.H8 + rows - 1) / rows) * ((L.W + cols - 1) / cols);
+  const float* e = P.p_lv[k + 1];
+  auto E = [&](int a, int c) {
+    return Lc.full ? cfd::solid_fill_value(e, a + 1, c + 1, Lc) : e[(a + 1) * Lc.W + (c + 1)];
+  };
+  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+    const LTile T = make_ltile(t, rows, cols, L.W, 2 * P.post);
+    const LBuf B = level_buf(L, T);
+    load_level(P.q_lv[k], B.p, T, L);
+    load_level(P.b_lv[k], B.b, T, L);
+    load_level_weights(B, T, L);
+    __syncthreads();
+    update2(B.p, T.LC, 0, T.LR, 0, T.LC, -1, [&](int lj, int li) {
+      if (!l_active(B, T, lj, li, L)) return Upd{false, 0.f};
+      const float v = prolong_value(E, Lc, T.oj + lj, T.oi + li);
+      const float pc = B.p[lj * T.LC + li];
+      return Upd{true, (bf16 ? round_bf16(pc) : pc) + v};
+    });
+    __syncthreads();
+    for (int s = 0; s < 2 * P.post; ++s) l_half_sweep(B, T, L, s & 1, s);
+    each_cell(T.R0, min(T.R0 + rows, L.H8), T.C0, min(T.C0 + cols, L.W), [&](int j, int i) {
+      P.p_lv[k][j * L.W + i] = B.p[(j - T.oj) * T.LC + (i - T.oi)];
+    });
+    __syncthreads();
+  }
+}
+
+// ------------------------------------------------ the coarse tail in one block
+//
+// Levels block_from..n_coarse live in the block's shared memory, each as
+// the level tile of its compact (ny + 2) x (nx + 2) rectangle (every cell a
+// phase reads lies in it: the interior and the ghost ring; the aligned
+// padding around it holds zeros in device memory): iterate, source and
+// weights. After the levels, a row of n floats per warp for the coarsest
+// solve's folds. The phases are those of the grid levels in the same order,
+// through the same arithmetic, separated by __syncthreads().
+
+__host__ __device__ inline long long compact_cells(const cfd::Level& L) {
+  return static_cast<long long>(L.ny + 2) * (L.nx + 2);
+}
+
+// shared-memory floats of one level of the tail (level_buf's layout)
+__host__ __device__ inline long long tail_level_floats(const cfd::Level& L) {
+  const long long cc = compact_cells(L);
+  return 2 * cc + (L.full ? 4 * cc : 2LL * (L.nx + 2) + 2LL * (L.ny + 2));
+}
+
+__device__ inline LTile compact_tile(const cfd::Level& L) {
+  return LTile{0, 0, L.ny + 2, L.nx + 2, 0, 0, 0, L.ny + 2, L.nx + 2};
+}
+
+// the shared memory after levels from..k-1 of the tail (k = n_coarse + 1:
+// the fold rows)
+__device__ inline float* tail_base(const Params& P, int from, int k) {
+  float* base = dyn_smem() + kRedFloats;
+  for (int l = from; l < k; ++l) base += tail_level_floats(P.lv[l - 1]);
+  return base;
+}
+
+__device__ inline LBuf tail_buf(const Params& P, int from, int k) {
+  const cfd::Level& L = P.lv[k - 1];
+  return level_buf(L, compact_tile(L), tail_base(P, from, k));
+}
+
+// The solid fill of a masked level's compact correction e at (j, i)
+// (cfd::solid_fill_value's arithmetic)
+__device__ __forceinline__ float l_fill_value(const LBuf& B, const LTile& T, const float* e,
+                                              int j, int i, const cfd::Level& L) {
+  const float ec = e[j * T.LC + i];
+  if (!cfd::interior(j, i, L) || l_active(B, T, j, i, L)) return ec;
+  auto nb = [&](int jj, int ii, float* f) {
+    const bool a = l_active(B, T, jj, ii, L);  // the neighbours of an interior cell are in range
+    *f = a ? 1.0f : 0.0f;
+    return e[jj * T.LC + ii] * *f;
+  };
+  float fE, fW, fN, fS;
+  const float vE = nb(j, i + 1, &fE), vW = nb(j, i - 1, &fW);
+  const float vN = nb(j + 1, i, &fN), vS = nb(j - 1, i, &fS);
+  const float den = ((fE + fW) + fN) + fS;
+  if (!(den > 0.f)) return ec;
+  const float num = ((vE + vW) + vN) + vS;
+  return num / fmaxf(den, 1.0f);
+}
+
+// The rest of the V-cycle from level k0 in ONE block: b_lv[k0] and the
+// levels' weights from device memory, the descent's pairs and
+// restrictions, the coarsest pinv product, the ascent's fills,
+// prolong-adds and post pairs; then level k0's correction into p_lv[k0]
+// (the whole (H8, W) array, zeros outside the compact rectangle). Called
+// by one block.
+__device__ inline void block_tail(const Params& P, int k0) {
+  const int nc = P.n_coarse;
+  const bool bf16 = P.store_bf16 != 0;
+  {
+    const cfd::Level& L = P.lv[k0 - 1];
+    load_level(P.b_lv[k0], tail_buf(P, k0, k0).b, compact_tile(L), L);
+    for (int k = k0; k <= nc; ++k) {
+      load_level_weights(tail_buf(P, k0, k), compact_tile(P.lv[k - 1]), P.lv[k - 1]);
+    }
+    __syncthreads();
+  }
+  // --- descent from zero iterates
+  for (int k = k0; k < nc; ++k) {
+    const cfd::Level& L = P.lv[k - 1];
+    const LTile T = compact_tile(L);
+    const LBuf S = tail_buf(P, k0, k);
+    s_zero(S.p, T.LR * T.LC);
+    __syncthreads();
+    for (int h = 0; h < 2 * P.pre; ++h) l_half_sweep(S, T, L, h & 1, 0);
+    const cfd::Level& Lc = P.lv[k];
+    const LBuf C = tail_buf(P, k0, k + 1);
+    const int pc = Lc.nx + 2;
+    each_cell(0, Lc.ny + 2, 0, pc, [&](int J, int I) {
+      float out = 0.f;
+      if (cfd::interior(J, I, Lc)) {
+        const int j = 2 * J, i = 2 * I;
+        out = (((l_residual(S, T, j - 1, i - 1, L) + l_residual(S, T, j - 1, i, L)) +
+                l_residual(S, T, j, i - 1, L)) +
+               l_residual(S, T, j, i, L)) *
+              0.25f;
+      }
+      C.b[J * pc + I] = bf16 ? round_bf16(out) : out;
+    });
+    __syncthreads();
+  }
+  // --- coarsest level: the dense pinv product, each row's products folded
+  // in the fold_sum order by one warp in its shared-memory row
+  {
+    const cfd::Level& L = P.lv[nc - 1];
+    const LBuf S = tail_buf(P, k0, nc);
+    const int n = L.ny * L.nx, pitch = L.nx + 2;
+    s_zero(S.p, static_cast<int>(compact_cells(L)));
+    __syncthreads();
+    const int lane = static_cast<int>(threadIdx.x) & 31, warp = static_cast<int>(threadIdx.x) >> 5;
+    float* x = tail_base(P, k0, nc + 1) + warp * n;
+    for (int r = warp; r < n; r += static_cast<int>(blockDim.x) >> 5) {
+      const float* row = P.pinv + static_cast<long long>(r) * n;
+      for (int t0 = lane; t0 < n; t0 += 128) {
+        float v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = t0 + 32 * u < n ? row[t0 + 32 * u] : 0.f;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int t = t0 + 32 * u;
+          if (t < n) x[t] = v[u] * S.b[(1 + t / L.nx) * pitch + 1 + t % L.nx];
+        }
+      }
+      __syncwarp();
+      const float e = cfd::fold_sum(x, n, lane, 32, [] { __syncwarp(); });
+      if (lane == 0) S.p[(1 + r / L.nx) * pitch + 1 + r % L.nx] = e;
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+  // --- ascent: the solid fill of a masked correction (into the coarse
+  // level's source, which its post pairs no longer need), prolongation,
+  // post pairs
+  for (int k = nc - 1; k >= k0; --k) {
+    const cfd::Level& L = P.lv[k - 1];
+    const cfd::Level& Lc = P.lv[k];
+    const LTile T = compact_tile(L), Tc = compact_tile(Lc);
+    const LBuf S = tail_buf(P, k0, k);
+    const LBuf C = tail_buf(P, k0, k + 1);
+    const float* e = C.p;
+    if (Lc.full) {
+      each_cell(0, Tc.LR, 0, Tc.LC, [&](int j, int i) {
+        C.b[j * Tc.LC + i] = l_fill_value(C, Tc, C.p, j, i, Lc);
+      });
+      __syncthreads();
+      e = C.b;
+    }
+    auto E = [&](int a, int c) { return e[(a + 1) * Tc.LC + (c + 1)]; };
+    update2(S.p, T.LC, 1, L.ny + 1, 1, L.nx + 1, -1, [&](int j, int i) {
+      if (!l_active(S, T, j, i, L)) return Upd{false, 0.f};
+      const float v = prolong_value(E, Lc, j, i);
+      const float pc = S.p[j * T.LC + i];
+      return Upd{true, (bf16 ? round_bf16(pc) : pc) + v};
+    });
+    __syncthreads();
+    for (int h = 0; h < 2 * P.post; ++h) l_half_sweep(S, T, L, h & 1, 0);
+  }
+  // --- hand-over to device memory
+  const cfd::Level& L = P.lv[k0 - 1];
+  const LBuf S = tail_buf(P, k0, k0);
+  each_cell(0, L.H8, 0, L.W, [&](int j, int i) {
+    const bool in = j < L.ny + 2 && i < L.nx + 2;
+    P.p_lv[k0][j * L.W + i] = in ? S.p[j * (L.nx + 2) + i] : 0.f;
+  });
+}
+
+// The V-cycle over the coarse levels 1..n_coarse from zero iterates: the
+// source in P.b_lv[1], the correction left in P.p_lv[1] (the body of
+// mg_tail.run_tail_vcycle). Levels 1..block_from-1 run on the grid, as
+// grid-stride phases or in tiles (one barrier each way); block 0 runs the
+// rest (block_tail) while the others wait at one barrier. With
+// P.store_bf16 it rounds where run_tail_vcycle(store_dtype) stores; the
+// caller rounds b_lv[1]. Every thread of the grid calls it.
+__device__ inline void coarse_vcycle(const Sweep& s, cg::grid_group& grid, const Params& P) {
+  const int k0 = P.plan.block_from;
+  const bool bf16 = P.store_bf16 != 0;
+  for (int k = 1; k < k0; ++k) {
+    if (P.plan.level_rows[k - 1] > 0) {
+      level_pre_tiles(P, k);
+      grid.sync();
+      continue;
+    }
+    const cfd::Level& L = P.lv[k - 1];
+    for (int pair = 0; pair < P.pre; ++pair) {
+      level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 0, pair == 0);
+      grid.sync();
+      level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 1, false);
+      grid.sync();
+    }
+    level_restrict(s, L, P.p_lv[k], P.b_lv[k], P.lv[k], P.b_lv[k + 1], bf16);
+    grid.sync();
+  }
+  if (blockIdx.x == 0) block_tail(P, k0);
+  grid.sync();
+  for (int k = k0 - 1; k >= 1; --k) {
+    if (P.plan.level_rows[k - 1] > 0) {
+      level_post_tiles(P, k);
+      grid.sync();
+      continue;
+    }
+    const cfd::Level& L = P.lv[k - 1];
+    level_prolong_add(s, P.lv[k], P.p_lv[k + 1], L, P.p_lv[k], bf16);
+    grid.sync();
+    for (int pair = 0; pair < P.post; ++pair) {
+      level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 0, false);
+      grid.sync();
+      level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 1, false);
+      grid.sync();
+    }
+  }
+}
+
+// ------------------------------------------------- the finest level in tiles
+//
+// A tile is the block's own plane rows [R0, R0 + rows) x columns [C0, C0 +
+// cols) of all four planes, loaded with a halo of h plane rows and columns
+// into shared memory as a LOGICAL (2 (rows + 2h)) x (2 (cols + 2h)) array
+// (logical cell (j, i) of the quad layout at local (j - oj, i - oi)); a
+// position outside the field reads 0, as qld's. Stage s of a phase (from 0)
+// updates the local cells [s + 1, LR - s - 1) x [s + 1, LC - s - 1) from
+// stage s - 1's values, so after s + 1 stages the cells at least s + 1 from
+// the buffer's edge hold exactly what the grid-wide phases compute there:
+// every stage reads only the 3 x 3 box around a cell (the masked ghost
+// stage included, step_level0.cuh). The halo is as deep as the stages need
+// (kernels/plan.py halos); the tile writes its own cells only. A separable
+// tile also stages its weight vectors (wE, wW by column, wN, wS by row).
+
+struct Tile {
+  int R0, C0, rows, cols, h;
+  int oj, oi;  // the logical origin of the buffers
+  int LR, LC;  // the buffers' logical rows and columns
+};
+
+__device__ inline Tile make_tile(const Plan& pl, int Wqa, int t, int h) {
+  const int ncol = (Wqa + pl.tile_cols - 1) / pl.tile_cols;
+  Tile T;
+  T.R0 = (t / ncol) * pl.tile_rows;
+  T.C0 = (t % ncol) * pl.tile_cols;
+  T.rows = pl.tile_rows;
+  T.cols = pl.tile_cols;
+  T.h = h;
+  T.oj = 2 * (T.R0 - h);
+  T.oi = 2 * (T.C0 - h);
+  T.LR = 2 * (T.rows + 2 * h);
+  T.LC = 2 * (T.cols + 2 * h);
+  return T;
+}
+
+__device__ inline int tile_count(const Plan& pl, int Hq8, int Wqa) {
+  return ((Hq8 + pl.tile_rows - 1) / pl.tile_rows) * ((Wqa + pl.tile_cols - 1) / pl.tile_cols);
+}
+
+// buf_a, buf_b = the tile's region of quad fields a, b in the logical
+// layout (all four planes' loads of a cell issued together)
+__device__ inline void load_tile(const float* a, const float* b, const Tile& T, int Hq8, int Wqa,
+                                 float* buf_a, float* buf_b) {
+  const long long plane = static_cast<long long>(Hq8) * Wqa;
+  each_cell(0, T.rows + 2 * T.h, 0, T.cols + 2 * T.h, [&](int r, int c) {
+    const int gr = T.R0 - T.h + r, gc = T.C0 - T.h + c;
+    const bool in = gr >= 0 && gr < Hq8 && gc >= 0 && gc < Wqa;
+    const long long g = static_cast<long long>(gr) * Wqa + gc;
+    float va[4], vb[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      va[q] = in ? a[q * plane + g] : 0.f;
+      vb[q] = in ? b[q * plane + g] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = (2 * r + (q >> 1)) * T.LC + 2 * c + (q & 1);
+      buf_a[k] = va[q];
+      buf_b[k] = vb[q];
+    }
+  });
+}
+
+// the tile's own cells of buf into quad field dst
+__device__ inline void store_tile(const float* buf, const Tile& T, int Hq8, int Wqa, float* dst) {
+  const long long plane = static_cast<long long>(Hq8) * Wqa;
+  each_cell(T.R0, min(T.R0 + T.rows, Hq8), T.C0, min(T.C0 + T.cols, Wqa), [&](int gr, int gc) {
+    const int r = gr - T.R0 + T.h, c = gc - T.C0 + T.h;
+    const long long g = static_cast<long long>(gr) * Wqa + gc;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      dst[q * plane + g] = buf[(2 * r + (q >> 1)) * T.LC + 2 * c + (q & 1)];
+    }
+  });
+}
+
+// The level-1 correction rows [R0 - h, R0 + rows + h] x columns [C0 - h, C0
+// + cols + h] of aligned (Hq8, Wqa) array ec, the rows and columns the
+// tile's prolongation reads
+struct CoarseTile {
+  const float* e;
+  int J0, I0, pitch;
+  __device__ __forceinline__ float operator()(int J, int I) const {
+    return e[(J - J0) * pitch + (I - I0)];
+  }
+};
+
+__device__ inline CoarseTile load_coarse_tile(const float* ec, const Tile& T, int Hq8, int Wqa,
+                                              float* buf) {
+  const int rows = T.rows + 2 * T.h + 1, cols = T.cols + 2 * T.h + 1;
+  copy_rect(buf, cols, rows, cols, [&](int r, int c) {
+    const int J = T.R0 - T.h + r, I = T.C0 - T.h + c;
+    return (J >= 0 && J < Hq8 && I >= 0 && I < Wqa) ? ec[static_cast<long long>(J) * Wqa + I]
+                                                    : 0.f;
+  });
+  return CoarseTile{buf, T.R0 - T.h, T.C0 - T.h, cols};
+}
+
+// quad_prolong_corr's arithmetic at logical (j, i) from a coarse tile: the
+// 9-3-3-1 prolongation of the level-1 correction with the edge clamps on
+// J = 0, J = ny/2, I = 0, I = nx/2 (a cell of the interior reads rows J,
+// J + 1 and columns I, I + 1, all in the tile)
+__device__ __forceinline__ float tile_prolong_corr(const CoarseTile& E, int j, int i, int ny,
+                                                   int nx) {
+  const int r = j & 1, s = i & 1, J = j >> 1, I = i >> 1;
+  const int nyc = ny / 2, nxc = nx / 2;
+  auto rowmix = [&](int col) {
+    const float e0 = E(J, col);
+    const float e1 = E(J + 1, col);
+    const float ecJ0 = (J == 0) ? e1 : e0;
+    const float ecJ1 = (J == nyc) ? e0 : e1;
+    return r == 0 ? 0.75f * ecJ0 + 0.25f * ecJ1 : 0.25f * ecJ0 + 0.75f * ecJ1;
+  };
+  const float rm = rowmix(I);
+  const float rm1 = rowmix(I + 1);
+  const float m0 = (I == 0) ? rm1 : rm;
+  const float m1 = (I == nxc) ? rm : rm1;
+  return s == 0 ? 0.75f * m0 + 0.25f * m1 : 0.25f * m0 + 0.75f * m1;
+}
+
+// The level-1 source rc at idx: b_lv[1] (rounded to bfloat16 with
+// store_bf16, the stored b[0] of run_tail_vcycle(store_dtype)), and its
+// unrounded value in rc32 where corr_opt needs it
+__device__ __forceinline__ void store_rc(const Params& P, long long idx, float v) {
+  P.b_lv[1][idx] = P.store_bf16 ? round_bf16(v) : v;
+  if (P.rc32 != nullptr) P.rc32[idx] = v;
+}
+
+// A logical buffer of a tile read at global logical (j, i)
+struct TileView {
+  const float* a;
+  int oj, oi, LC;
+  __device__ __forceinline__ float operator()(int j, int i) const {
+    return a[(j - oj) * LC + (i - oi)];
+  }
+};
+
+// --- the separable finest level (quad_level0.cuh's arithmetic)
+
+// the tile's weight vectors in shared memory, by local column (e, w) and
+// local row (n, s)
+struct TileW {
+  float *e, *w, *n, *s;
+};
+
+__device__ inline TileW load_tile_weights(const cfd::Level0& L, const Tile& T, float* buf) {
+  const TileW W{buf, buf + T.LC, buf + 2 * T.LC, buf + 2 * T.LC + T.LR};
+  for (int k = static_cast<int>(threadIdx.x); k < T.LC; k += static_cast<int>(blockDim.x)) {
+    const int i = T.oi + k;
+    const bool in = i >= 0 && i < 2 * L.Wqa;
+    W.e[k] = in ? L.wE[i] : 0.f;
+    W.w[k] = in ? L.wW[i] : 0.f;
+  }
+  for (int k = static_cast<int>(threadIdx.x); k < T.LR; k += static_cast<int>(blockDim.x)) {
+    const int j = T.oj + k;
+    const bool in = j >= 0 && j < 2 * L.Hq8;
+    W.n[k] = in ? L.wN[j] : 0.f;
+    W.s[k] = in ? L.wS[j] : 0.f;
+  }
+  return W;
+}
+
+// signed residual b - A p at local (lj, li) of a tile (quad_residual)
+__device__ __forceinline__ float sep_residual(const float* p, const float* b, const TileW& W,
+                                              const Tile& T, int lj, int li,
+                                              const cfd::Level0& L) {
+  if (!cfd::interior(T.oj + lj, T.oi + li, L)) return 0.f;
+  const int k = lj * T.LC + li;
+  const float* c = p + k;
+  const float ap = cfd::apply_a(c[0], c[1], c[-1], c[T.LC], c[-T.LC], W.e[li], W.w[li],
+                                W.n[lj], W.s[lj], L.idx2, L.idy2);
+  return b[k] - ap;
+}
+
+// n_pairs red/black pairs of the tile's iterate p in place (quad_gs)
+__device__ inline void sep_pairs(float* p, const float* b, const TileW& W, const Tile& T,
+                                 const cfd::Level0& L, int n_pairs) {
+  for (int k = 0; k < 2 * n_pairs; ++k) {
+    update2(p, T.LC, k + 1, T.LR - k - 1, k + 1, T.LC - k - 1, k & 1, [&](int lj, int li) {
+      if (!cfd::interior(T.oj + lj, T.oi + li, L)) return Upd{false, 0.f};
+      const float* c = p + lj * T.LC + li;
+      return Upd{true, cfd::gs_update(c[0], c[1], c[-1], c[T.LC], c[-T.LC], b[lj * T.LC + li],
+                                      W.e[li], W.w[li], W.n[lj], W.s[lj], L.idx2, L.idy2,
+                                      L.omega)};
+    });
+    __syncthreads();
+  }
+}
+
+// The pre phase of the separable finest level on every tile: P.pre pairs
+// from src, the smoothed iterate into dst (own cells), the residual's full
+// weighting into level 1 (quad_restrict_value) through store_rc.
+__device__ inline void sep_pre_tiles(const Params& P, const float* src, float* dst) {
+  const cfd::Level0& L = P.L0;
+  float* p = dyn_smem() + kRedFloats;
+  const int nt = tile_count(P.plan, L.Hq8, L.Wqa);
+  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+    const Tile T = make_tile(P.plan, L.Wqa, t, P.plan.halo_pre);
+    float* b = p + T.LR * T.LC;
+    load_tile(src, P.b0, T, L.Hq8, L.Wqa, p, b);
+    const TileW W = load_tile_weights(L, T, b + T.LR * T.LC);
+    __syncthreads();
+    sep_pairs(p, b, W, T, L, P.pre);
+    store_tile(p, T, L.Hq8, L.Wqa, dst);
+    each_cell(T.R0, min(T.R0 + T.rows, L.Hq8), T.C0, min(T.C0 + T.cols, L.Wqa),
+              [&](int Jc, int Ic) {
+                float v = 0.f;
+                if (Jc >= 1 && Jc <= L.ny / 2 && Ic >= 1 && Ic <= L.nx / 2) {
+                  const int lj = 2 * Jc - T.oj, li = 2 * Ic - T.oi;
+                  v = 0.25f * (sep_residual(p, b, W, T, lj, li, L) +
+                               sep_residual(p, b, W, T, lj, li - 1, L) +
+                               sep_residual(p, b, W, T, lj - 1, li, L) +
+                               sep_residual(p, b, W, T, lj - 1, li - 1, L));
+                }
+                store_rc(P, static_cast<long long>(Jc) * L.Wqa + Ic, v);
+              });
+    __syncthreads();
+  }
+}
+
+// The post phase of the separable finest level on every tile: the
+// prolong-add of the level-1 correction P.p_lv[1] to the pre-smoothed src,
+// P.post pairs, the result into dst (own cells); returns the thread's max
+// |b - A p| over its own cells (quad_abs_residual).
+__device__ inline float sep_post_tiles(const Params& P, const float* src, float* dst) {
+  const cfd::Level0& L = P.L0;
+  float* p = dyn_smem() + kRedFloats;
+  float r = 0.f;
+  const int nt = tile_count(P.plan, L.Hq8, L.Wqa);
+  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+    const Tile T = make_tile(P.plan, L.Wqa, t, P.plan.halo_post);
+    float* b = p + T.LR * T.LC;
+    load_tile(src, P.b0, T, L.Hq8, L.Wqa, p, b);
+    float* wbuf = b + T.LR * T.LC;
+    const TileW W = load_tile_weights(L, T, wbuf);
+    const CoarseTile E = load_coarse_tile(P.p_lv[1], T, L.Hq8, L.Wqa, wbuf + 2 * (T.LR + T.LC));
+    __syncthreads();
+    update2(p, T.LC, 0, T.LR, 0, T.LC, -1, [&](int lj, int li) {
+      const int j = T.oj + lj, i = T.oi + li;
+      if (!cfd::interior(j, i, L)) return Upd{false, 0.f};
+      return Upd{true, p[lj * T.LC + li] + tile_prolong_corr(E, j, i, L.ny, L.nx)};
+    });
+    __syncthreads();
+    sep_pairs(p, b, W, T, L, P.post);
+    store_tile(p, T, L.Hq8, L.Wqa, dst);
+    each_cell(2 * T.h, 2 * (T.h + T.rows), 2 * T.h, 2 * (T.h + T.cols), [&](int lj, int li) {
+      if (((T.oj + lj) >> 1) < L.Hq8 && ((T.oi + li) >> 1) < L.Wqa) {
+        r = cfd::bits_max(r, fabsf(sep_residual(p, b, W, T, lj, li, L)));
+      }
+    });
+    __syncthreads();
+  }
+  return r;
+}
+
+// --- the masked finest level (step_level0.cuh's whole-field arithmetic)
+
+// the ghost stage's output at (j, i) from its input src (ghost_value)
+template <class A>
+__device__ __forceinline__ float t_ghost(const A& src, int j, int i, const cfd::StepL0& L) {
+  const bool row_in = j >= 1 && j <= L.ny, col_in = i >= 1 && i <= L.nx;
+  if (i == 0 && row_in) return src(j, 1);
+  if (i == L.nx + 1 && row_in) return 0.f;
+  if (j == 0 && col_in) return src(1, i);
+  if (j == L.ny + 1 && col_in) return src(L.ny, i);
+  if (row_in && col_in && i <= L.step_i && j > L.inlet_j) {
+    const bool eastw = i == L.step_i && i < L.nx;
+    const bool southw = j == L.inlet_j + 1 && j > 1;
+    if (eastw || southw) {
+      const float cnt = (eastw ? 1.0f : 0.0f) + (southw ? 1.0f : 0.0f);
+      const float inv = 1.0f / cnt;
+      return ((eastw ? src(j, i + 1) : 0.0f) + (southw ? src(j - 1, i) : 0.0f)) * inv;
+    }
+  }
+  return src(j, i);
+}
+
+// the ghost stage then the red half-sweep at (j, i) (ghost_red_value)
+template <class A>
+__device__ __forceinline__ float t_ghost_red(const A& src, const A& b, int j, int i,
+                                             const cfd::StepL0& L) {
+  if (!(((j + i) & 1) == 0 && cfd::step_fluid(j, i, L))) return t_ghost(src, j, i, L);
+  const float E = t_ghost(src, j, i + 1, L);
+  const float Wv = t_ghost(src, j, i - 1, L);
+  const float N = t_ghost(src, j + 1, i, L);
+  const float S = t_ghost(src, j - 1, i, L);
+  const float gs = (L.idx2 * (E + Wv) + L.idy2 * (N + S) - b(j, i)) / L.denom;
+  return L.one_minus_omega * src(j, i) + L.omega * gs;
+}
+
+// the exact residual at (j, i): the ghost stage re-applied to p, then b -
+// lap on fluid cells, 0 elsewhere (step_residual)
+template <class A>
+__device__ __forceinline__ float t_step_residual(const A& p, const A& b, int j, int i,
+                                                 const cfd::StepL0& L) {
+  if (!cfd::step_fluid(j, i, L)) return 0.f;
+  const float pc = t_ghost(p, j, i, L);
+  const float E = t_ghost(p, j, i + 1, L);
+  const float Wv = t_ghost(p, j, i - 1, L);
+  const float N = t_ghost(p, j + 1, i, L);
+  const float S = t_ghost(p, j - 1, i, L);
+  const float lap = (E - 2.0f * pc + Wv) * L.idx2 + (N - 2.0f * pc + S) * L.idy2;
+  return b(j, i) - lap;
+}
+
+// out = stage s of in on the cells s + 1 from the buffer's edge
+template <class F>
+__device__ inline void tile_stage(float* out, const Tile& T, int s, F f) {
+  update2(out, T.LC, s + 1, T.LR - s - 1, s + 1, T.LC - s - 1, -1,
+          [&](int lj, int li) { return Upd{true, f(T.oj + lj, T.oi + li)}; });
+  __syncthreads();
+}
+
+// n_pairs exact masked pairs and the trailing ghost stage (the whole-field
+// step_vcycle.cu smooth) on the tile; *a holds the iterate before and after,
+// *o is the second buffer
+__device__ inline void step_pairs(float** a, float** o, const float* b, const Tile& T,
+                                  const cfd::StepL0& L, int n_pairs) {
+  const TileView bv{b, T.oj, T.oi, T.LC};
+  int s = 0;
+  for (int k = 0; k < n_pairs; ++k) {
+    const TileView av{*a, T.oj, T.oi, T.LC};
+    tile_stage(*o, T, s++, [&](int j, int i) { return t_ghost_red(av, bv, j, i, L); });
+    float* t = *a;
+    *a = *o;
+    *o = t;
+    float* p = *a;
+    const TileView pv{p, T.oj, T.oi, T.LC};
+    update2(p, T.LC, s + 1, T.LR - s - 1, s + 1, T.LC - s - 1, 1, [&](int lj, int li) {
+      const int j = T.oj + lj, i = T.oi + li;
+      if (!cfd::step_fluid(j, i, L)) return Upd{false, 0.f};
+      const float E = pv(j, i + 1), Wv = pv(j, i - 1);
+      const float N = pv(j + 1, i), S = pv(j - 1, i);
+      const float gs = (L.idx2 * (E + Wv) + L.idy2 * (N + S) - bv(j, i)) / L.denom;
+      return Upd{true, L.one_minus_omega * p[lj * T.LC + li] + L.omega * gs};
+    });
+    ++s;
+    __syncthreads();
+  }
+  const TileView av{*a, T.oj, T.oi, T.LC};
+  tile_stage(*o, T, s, [&](int j, int i) { return t_ghost(av, j, i, L); });
+  float* t = *a;
+  *a = *o;
+  *o = t;
+}
+
+// The pre phase of the masked finest level on every tile: P.pre exact pairs
+// and the trailing ghost stage from src, the result into dst (own cells),
+// the exact residual's restriction into level 1 (step_restrict_value)
+// through store_rc.
+__device__ inline void step_pre_tiles(const Params& P, const float* src, float* dst) {
+  const cfd::StepL0& L = P.S0;
+  const int nt = tile_count(P.plan, L.Hq8, L.Wqa);
+  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+    const Tile T = make_tile(P.plan, L.Wqa, t, P.plan.halo_pre);
+    float* a = dyn_smem() + kRedFloats;
+    float* o = a + T.LR * T.LC;
+    float* b = o + T.LR * T.LC;
+    load_tile(src, P.b0, T, L.Hq8, L.Wqa, a, b);
+    __syncthreads();
+    step_pairs(&a, &o, b, T, L, P.pre);
+    store_tile(a, T, L.Hq8, L.Wqa, dst);
+    const TileView av{a, T.oj, T.oi, T.LC}, bv{b, T.oj, T.oi, T.LC};
+    each_cell(T.R0, min(T.R0 + T.rows, L.Hq8), T.C0, min(T.C0 + T.cols, L.Wqa),
+              [&](int Jc, int Ic) {
+                float v = 0.f;
+                if (Jc >= 1 && Jc <= L.ny / 2 && Ic >= 1 && Ic <= L.nx / 2) {
+                  const int j = 2 * Jc, i = 2 * Ic;
+                  v = 0.25f * (t_step_residual(av, bv, j, i, L) +
+                               t_step_residual(av, bv, j, i - 1, L) +
+                               t_step_residual(av, bv, j - 1, i, L) +
+                               t_step_residual(av, bv, j - 1, i - 1, L));
+                }
+                store_rc(P, static_cast<long long>(Jc) * L.Wqa + Ic, v);
+              });
+    __syncthreads();
+  }
+}
+
+// The post phase of the masked finest level on every tile: the prolong-add
+// of the solid-filled level-1 correction P.filled on the fluid cells
+// (step_prolong_add_value), P.post exact pairs and the trailing ghost
+// stage, the result into dst (own cells); returns the thread's max |exact
+// residual| over its own cells.
+__device__ inline float step_post_tiles(const Params& P, const float* src, float* dst) {
+  const cfd::StepL0& L = P.S0;
+  float r = 0.f;
+  const int nt = tile_count(P.plan, L.Hq8, L.Wqa);
+  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+    const Tile T = make_tile(P.plan, L.Wqa, t, P.plan.halo_post);
+    float* a = dyn_smem() + kRedFloats;
+    float* o = a + T.LR * T.LC;
+    float* b = o + T.LR * T.LC;
+    load_tile(src, P.b0, T, L.Hq8, L.Wqa, a, b);
+    const CoarseTile E = load_coarse_tile(P.filled, T, L.Hq8, L.Wqa, b + T.LR * T.LC);
+    __syncthreads();
+    update2(a, T.LC, 0, T.LR, 0, T.LC, -1, [&](int lj, int li) {
+      const int j = T.oj + lj, i = T.oi + li;
+      if (!cfd::step_fluid(j, i, L)) return Upd{false, 0.f};
+      return Upd{true, a[lj * T.LC + li] + tile_prolong_corr(E, j, i, L.ny, L.nx)};
+    });
+    __syncthreads();
+    step_pairs(&a, &o, b, T, L, P.post);
+    store_tile(a, T, L.Hq8, L.Wqa, dst);
+    const TileView av{a, T.oj, T.oi, T.LC}, bv{b, T.oj, T.oi, T.LC};
+    each_cell(2 * T.h, 2 * (T.h + T.rows), 2 * T.h, 2 * (T.h + T.cols), [&](int lj, int li) {
+      const int j = T.oj + lj, i = T.oi + li;
+      if ((j >> 1) < L.Hq8 && (i >> 1) < L.Wqa) {
+        r = cfd::bits_max(r, fabsf(t_step_residual(av, bv, j, i, L)));
+      }
+    });
+    __syncthreads();
+  }
+  return r;
+}
+
+// ------------------------------------------------------ the per-cycle phases
+
+// p0 -= fixed_order_sum(p0) / n_int on the quad cells (see whole_solve.cu)
 __device__ inline void pin_mean_phase(const Sweep& s, cg::grid_group& grid, const Params& P) {
   const cfd::Level0& L0 = P.L0;
   const long long n0 = 4LL * L0.Hq8 * L0.Wqa;
-  const int chunks = static_cast<int>((n0 + cfd::kThreads - 1) / cfd::kThreads);
-  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
-    const long long k = static_cast<long long>(c) * cfd::kThreads + threadIdx.x;
-    cfd::block_sum_to(k < n0 ? P.p0[k] : 0.f, P.partials + c);
-  }
+  const int chunks = static_cast<int>((n0 + kSumChunk - 1) / kSumChunk);
+  chunk_sums(n0, P.partials, [&](long long k) { return P.p0[k]; });
   grid.sync();
   if (blockIdx.x == 0) {
     const float sum = cfd::fold_sum(P.partials, chunks, static_cast<int>(threadIdx.x),
@@ -163,128 +1168,12 @@ __device__ inline void pin_mean_phase(const Sweep& s, cg::grid_group& grid, cons
   });
 }
 
-// The masked finest level's iterate: P.p0 or P.q0, whichever holds it;
-// every phase that applies the ghost stage writes the other one.
-struct FineIterate {
-  float* cur;
-  float* other;
-  __device__ inline void swap() {
-    float* t = cur;
-    cur = other;
-    other = t;
-  }
-};
-
-// n exact masked pairs and the trailing ghost stage (step_vcycle.cu smooth)
-__device__ inline void step_smooth(const Sweep& s, cg::grid_group& grid, const Params& P,
-                            FineIterate& it, int n_pairs) {
-  const cfd::StepL0& L = P.S0;
-  const long long n0 = 4LL * L.Hq8 * L.Wqa;
-  for (int k = 0; k < n_pairs; ++k) {
-    s.each(n0, [&](long long idx) {
-      it.other[idx] = cfd::ghost_red_value(it.cur, P.b0, cfd::quad_cell(idx, L.Hq8, L.Wqa), L);
-    });
-    grid.sync();
-    it.swap();
-    s.each(n0, [&](long long idx) {
-      float v;
-      if (cfd::black_update(it.cur, P.b0, cfd::quad_cell(idx, L.Hq8, L.Wqa), L, &v)) {
-        it.cur[idx] = v;
-      }
-    });
-    grid.sync();
-  }
-  s.each(n0, [&](long long idx) {
-    const cfd::QuadCell c = cfd::quad_cell(idx, L.Hq8, L.Wqa);
-    it.other[idx] = cfd::ghost_value(it.cur, c.j, c.i, L);
-  });
-  grid.sync();
-  it.swap();
-}
-
-// The V-cycle over the coarse levels 1..n_coarse from zero iterates: the
-// source in P.b_lv[1], the correction left in P.p_lv[1] (the body of
-// mg_tail.run_tail_vcycle: the descent's pre pairs and restrictions, the
-// coarsest dense pinv product, the ascent's prolongations and post pairs).
-// With P.store_bf16 it rounds where run_tail_vcycle(store_dtype) stores;
-// the caller rounds b_lv[1]. Every thread of the grid calls it.
-__device__ __forceinline__ void coarse_vcycle(const Sweep& s, cg::grid_group& grid,
-                                              const Params& P) {
-  const int nc = P.n_coarse;
-  const bool bf16 = P.store_bf16 != 0;
-  // --- coarse descent from zero iterates
-  for (int k = 1; k < nc; ++k) {
-    const cfd::Level& L = P.lv[k - 1];
-    for (int pair = 0; pair < P.pre; ++pair) {
-      level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 0, pair == 0);
-      grid.sync();
-      level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 1, false);
-      grid.sync();
-    }
-    level_restrict(s, L, P.p_lv[k], P.b_lv[k], P.lv[k], P.b_lv[k + 1], bf16);
-    grid.sync();
-  }
-
-  // --- coarsest level: the dense pinv product, rows summed in the
-  // fold_sum order
-  {
-    const cfd::Level& L = P.lv[nc - 1];
-    const int n = L.ny * L.nx;
-    float* pc = P.p_lv[nc];
-    const float* bc = P.b_lv[nc];
-    s.each(static_cast<long long>(n) * n, [&](long long idx) {
-      const int k = static_cast<int>(idx % n);
-      const float vec = bc[static_cast<long long>(1 + k / L.nx) * L.W + 1 + k % L.nx];
-      P.fold[idx] = P.pinv[idx] * vec;
-    });
-    s.each(static_cast<long long>(L.H8) * L.W, [&](long long idx) {
-      const int j = static_cast<int>(idx / L.W);
-      if (!cfd::interior(j, static_cast<int>(idx - static_cast<long long>(j) * L.W), L)) {
-        pc[idx] = 0.f;
-      }
-    });
-    grid.sync();
-    s.each(n, [&](long long r) {
-      const float e = cfd::fold_sum(P.fold + r * n, n, 0, 1, [] {});
-      pc[static_cast<long long>(1 + r / L.nx) * L.W + 1 + r % L.nx] = e;
-    });
-    grid.sync();
-  }
-
-  // --- coarse ascent: prolongation, post pairs
-  for (int k = nc - 1; k >= 1; --k) {
-    const cfd::Level& L = P.lv[k - 1];
-    const float* e = P.p_lv[k + 1];
-    if (P.lv[k].full) {
-      level_solid_fill(s, P.lv[k], e, P.filled);
-      grid.sync();
-      e = P.filled;
-    }
-    level_prolong_add(s, P.lv[k], e, L, P.p_lv[k], bf16);
-    grid.sync();
-    for (int pair = 0; pair < P.post; ++pair) {
-      level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 0, false);
-      grid.sync();
-      level_half_sweep(s, L, P.p_lv[k], P.b_lv[k], 1, false);
-      grid.sync();
-    }
-  }
-}
-
-// The level-1 source rc at idx: b_lv[1] (rounded to bfloat16 with
-// store_bf16, the stored b[0] of run_tail_vcycle(store_dtype)), and its
-// unrounded value in rc32 where corr_opt needs it
-__device__ __forceinline__ void store_rc(const Params& P, long long idx, float v) {
-  P.b_lv[1][idx] = P.store_bf16 ? round_bf16(v) : v;
-  if (P.rc32 != nullptr) P.rc32[idx] = v;
-}
-
 // corr_opt (masked; multigrid._corr_alpha, whole_solve.py:379-398): the
 // level-1 correction e = P.p_lv[1] scaled by alpha = clip(<rc, A e> /
 // <A e, A e>, 1, 1.5), 1 where the denominator is 0, with A the level-1
-// weighted operator on its active cells and rc the unrounded source. Each
-// block sums its kThreads-wide chunks of the two products by the fixed tree
-// into per-chunk partials (P.partials, then P.partials + chunks), one block
+// weighted operator on its active cells and rc the unrounded source. The
+// two products are summed in kSumChunk-wide chunks by the fixed tree into
+// per-chunk partials (P.partials, then P.partials + chunks), one block
 // folds them in fixed_order_sum's order and writes alpha into P.ctl[3],
 // and every thread scales its cells: three barriers.
 __device__ inline void corr_alpha_phase(const Sweep& s, cg::grid_group& grid,
@@ -293,26 +1182,24 @@ __device__ inline void corr_alpha_phase(const Sweep& s, cg::grid_group& grid,
   float* e = P.p_lv[1];
   const float* rc = P.rc32 != nullptr ? P.rc32 : P.b_lv[1];
   const long long n1 = static_cast<long long>(L.H8) * L.W;
-  const int chunks = static_cast<int>((n1 + cfd::kThreads - 1) / cfd::kThreads);
-  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
-    const long long k = static_cast<long long>(c) * cfd::kThreads + threadIdx.x;
-    float num = 0.f, den = 0.f;
-    if (k < n1) {
-      const int j = static_cast<int>(k / L.W);
-      const int i = static_cast<int>(k - static_cast<long long>(j) * L.W);
-      float a = 0.f;
-      if (cfd::active(j, i, L)) {
-        const cfd::Weights w = cfd::weights(j, i, L);
-        a = cfd::apply_a(e[k], cfd::ld(e, j, i + 1, L), cfd::ld(e, j, i - 1, L),
-                         cfd::ld(e, j + 1, i, L), cfd::ld(e, j - 1, i, L), w.e, w.w, w.n, w.s,
-                         L.idx2, L.idy2);
-      }
-      num = rc[k] * a;
-      den = a * a;
+  const int chunks = static_cast<int>((n1 + kSumChunk - 1) / kSumChunk);
+  auto a_at = [&](long long k) {
+    const int j = static_cast<int>(k / L.W);
+    const int i = static_cast<int>(k - static_cast<long long>(j) * L.W);
+    float a = 0.f;
+    if (cfd::active(j, i, L)) {
+      const cfd::Weights w = cfd::weights(j, i, L);
+      a = cfd::apply_a(e[k], cfd::ld(e, j, i + 1, L), cfd::ld(e, j, i - 1, L),
+                       cfd::ld(e, j + 1, i, L), cfd::ld(e, j - 1, i, L), w.e, w.w, w.n, w.s,
+                       L.idx2, L.idy2);
     }
-    cfd::block_sum_to(num, P.partials + c);
-    cfd::block_sum_to(den, P.partials + chunks + c);
-  }
+    return a;
+  };
+  chunk_sums(n1, P.partials, [&](long long k) { return rc[k] * a_at(k); });
+  chunk_sums(n1, P.partials + chunks, [&](long long k) {
+    const float a = a_at(k);
+    return a * a;
+  });
   grid.sync();
   if (blockIdx.x == 0) {
     const int t = static_cast<int>(threadIdx.x), nt = static_cast<int>(blockDim.x);
@@ -330,17 +1217,34 @@ __device__ inline void corr_alpha_phase(const Sweep& s, cg::grid_group& grid,
   grid.sync();
 }
 
+// The finest iterate: P.p0 or P.q0, whichever holds it; each tile phase
+// reads one and writes the other, two phases a cycle.
+struct FineIterate {
+  float* cur;
+  float* other;
+  __device__ inline void swap() {
+    float* t = cur;
+    cur = other;
+    other = t;
+  }
+};
+
 // Every V-cycle of one solve from the warm start in P.p0 (and the source
 // in P.b0), with the tolerance max(tol_factor * max|b|, abs_tol), then the
 // solution into P.p0 and (cycles, res) into P.stats. P.ctl[1] must be 0
 // before the call's first barrier. Every thread of the grid calls it.
+//
+// Grid-wide barriers per V-cycle: one after the pre tiles, the grid
+// levels' (coarse_vcycle), the masked level-1 phases (corr_opt's three,
+// the solid fill's one), and the last one before the residual is read;
+// the pin adds three (after the post tiles, after the partial sums, after
+// the fold). The next cycle's residual slot is zeroed right after the
+// first barrier of this cycle, which follows every read of it (the end of
+// the previous cycle), and many barriers before the next cycle's atomics.
 template <bool kMasked>
 __device__ __forceinline__ void solve_cycles(const Sweep& s, cg::grid_group& grid,
                                              const Params& P, float max_b) {
   const bool lead = s.first == 0;
-  const cfd::Level0& L0 = P.L0;
-  const long long n0 = 4LL * L0.Hq8 * L0.Wqa;
-  const long long n1 = static_cast<long long>(L0.Hq8) * L0.Wqa;
   const float tol = fmaxf(P.tol_factor * (max_b > 0.f ? max_b : 1.0f), P.abs_tol);
 
   float prev = 1e30f;
@@ -350,74 +1254,42 @@ __device__ __forceinline__ void solve_cycles(const Sweep& s, cg::grid_group& gri
   while (res > tol && it < P.max_cycles && res < P.stall * prev) {
     // --- finest level: pre pairs, then the residual restricted into level 1
     if constexpr (kMasked) {
-      step_smooth(s, grid, P, fine, P.pre);
-      if (lead) P.ctl[1 + ((it + 1) & 1)] = 0.f;  // the next cycle's residual slot
-      s.each(n1, [&](long long idx) {
-        store_rc(P, idx, cfd::step_restrict_value(fine.cur, P.b0, idx, P.S0));
-      });
+      step_pre_tiles(P, fine.cur, fine.other);
     } else {
-      for (int k = 0; k < P.pre; ++k) {
-        for (int colour = 0; colour < 2; ++colour) {
-          s.each(n0, [&](long long idx) {
-            cfd::QuadCell c = cfd::quad_cell(idx, L0.Hq8, L0.Wqa);
-            if (cfd::quad_updates(c, colour, L0)) P.p0[idx] = cfd::quad_gs(P.p0, P.b0, c, L0);
-          });
-          grid.sync();
-        }
-      }
-      if (lead) P.ctl[1 + ((it + 1) & 1)] = 0.f;  // the next cycle's residual slot
-      s.each(n1, [&](long long idx) { store_rc(P, idx, cfd::quad_restrict_value(P.p0, P.b0, idx, L0)); });
+      sep_pre_tiles(P, fine.cur, fine.other);
     }
+    fine.swap();
     grid.sync();
+    if (lead) P.ctl[1 + ((it + 1) & 1)] = 0.f;  // the next cycle's residual slot
 
     coarse_vcycle(s, grid, P);
 
     // --- finest level: prolongation, post pairs, the tolerance residual
-    float r = 0.f;
+    float r;
     if constexpr (kMasked) {
       if (P.corr_opt) corr_alpha_phase(s, grid, P);
       // the level-1 correction solid-filled, then added on the fluid cells
       level_solid_fill(s, P.lv[0], P.p_lv[1], P.filled);
       grid.sync();
-      s.each(n0, [&](long long idx) {
-        fine.other[idx] = cfd::step_prolong_add_value(fine.cur, P.filled, idx, P.S0);
-      });
-      grid.sync();
-      fine.swap();
-      step_smooth(s, grid, P, fine, P.post);
-      s.each(n0, [&](long long idx) {
-        const cfd::QuadCell c = cfd::quad_cell(idx, P.S0.Hq8, P.S0.Wqa);
-        r = cfd::bits_max(r, fabsf(cfd::step_residual(fine.cur, P.b0, c.j, c.i, P.S0)));
-      });
+      r = step_post_tiles(P, fine.cur, fine.other);
     } else {
-      s.each(n0, [&](long long idx) {
-        P.p0[idx] = cfd::quad_prolong_add_value(P.p0, P.p_lv[1], idx, L0);
-      });
-      grid.sync();
-      for (int k = 0; k < P.post; ++k) {
-        for (int colour = 0; colour < 2; ++colour) {
-          s.each(n0, [&](long long idx) {
-            cfd::QuadCell c = cfd::quad_cell(idx, L0.Hq8, L0.Wqa);
-            if (cfd::quad_updates(c, colour, L0)) P.p0[idx] = cfd::quad_gs(P.p0, P.b0, c, L0);
-          });
-          grid.sync();
-        }
-      }
-      s.each(n0, [&](long long idx) { r = cfd::bits_max(r, cfd::quad_abs_residual(P.p0, P.b0, idx, L0)); });
+      r = sep_post_tiles(P, fine.cur, fine.other);
     }
-    cfd::block_max_into(r, P.ctl + 1 + (it & 1));
+    fine.swap();
+    block_max_into(r, P.ctl + 1 + (it & 1));
     if constexpr (!kMasked) {
-      if (P.pin_mean) pin_mean_phase(s, grid, P);
+      if (P.pin_mean) {
+        grid.sync();  // every tile's p before the sums
+        pin_mean_phase(s, grid, P);
+      }
     }
     grid.sync();
     prev = res;
     res = __ldcg(P.ctl + 1 + (it & 1));
     ++it;
   }
-  if constexpr (kMasked) {
-    if (fine.cur != P.p0) {  // the solution into the output array
-      s.each(n0, [&](long long idx) { P.p0[idx] = fine.cur[idx]; });
-    }
+  if (fine.cur != P.p0) {  // the solution into the output array
+    s.each(4LL * P.L0.Hq8 * P.L0.Wqa, [&](long long idx) { P.p0[idx] = fine.cur[idx]; });
   }
   if (lead) {
     P.stats[0] = it;
@@ -425,30 +1297,111 @@ __device__ __forceinline__ void solve_cycles(const Sweep& s, cg::grid_group& gri
   }
 }
 
-// The cooperative grid of kernel fn on the current device: blocks, blocks
-// per SM (at most kMaxBlocksPerSM) and registers per thread.
-inline int coop_grid(const void* fn, int* blocks, int* per_sm, int* regs) {
+// ------------------------------------------------------------- host side
+
+// Shared-memory floats (after the reduction scratch) that the coarse tail
+// from level block_from needs: its levels' arrays, then a row of n floats
+// per warp for the coarsest solve (n = its cells)
+inline long long tail_floats(const Params& P) {
+  long long n = 0;
+  for (int k = P.plan.block_from; k <= P.n_coarse; ++k) n += tail_level_floats(P.lv[k - 1]);
+  const cfd::Level& Lc = P.lv[P.n_coarse - 1];
+  return n + static_cast<long long>(kBlockThreads / 32) * Lc.ny * Lc.nx;
+}
+
+// ... and one finest-level tile with halo h: `arrays` logical buffers, the
+// separable weight vectors and, for a post phase, the level-1 correction's
+// tile
+inline long long tile_floats(const Plan& pl, int h, int arrays, bool weights, bool post) {
+  const long long lr = 2LL * (pl.tile_rows + 2 * h), lc = 2LL * (pl.tile_cols + 2 * h);
+  return arrays * lr * lc + (weights ? 2 * (lr + lc) : 0) +
+         (post ? static_cast<long long>(pl.tile_rows + 2 * h + 1) * (pl.tile_cols + 2 * h + 1)
+               : 0);
+}
+
+// Whether P.plan holds for P (fine: the finest level runs in tiles;
+// masked: the step's stages): block_from in [1, n_coarse], halos as deep
+// as the stages, blocks of kBlockThreads threads, and shared memory for
+// every phase within smem_bytes and kSmemMax. Returns a CUDA error code.
+inline int check_plan(const Params& P, bool fine, bool masked) {
+  const Plan& pl = P.plan;
+  if (pl.block_from < 1 || pl.block_from > P.n_coarse || pl.blocks < 1 ||
+      pl.threads != kBlockThreads || pl.smem_bytes > kSmemMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  long long need = tail_floats(P);
+  for (int k = 1; k < pl.block_from; ++k) {
+    const int r = pl.level_rows[k - 1], c = pl.level_cols[k - 1];
+    if (r == 0) continue;  // a level of grid-stride phases
+    if (r < 2 || c < 2 || (r & 1) || (c & 1) || P.q_lv[k] == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int h = 2 * P.pre + 2 > 2 * P.post ? 2 * P.pre + 2 : 2 * P.post;
+    const long long lr = r + 2 * h, lc = c + 2 * h;
+    const long long n = 2 * lr * lc + (P.lv[k - 1].full ? 4 * lr * lc : 2 * (lr + lc));
+    need = need > n ? need : n;
+  }
+  if (fine) {
+    if (pl.tile_rows < 1 || pl.tile_cols < 1 || pl.halo_pre < P.pre + (masked ? 2 : 1) ||
+        pl.halo_post < P.post + 1) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int arrays = masked ? 3 : 2;
+    const long long pre = tile_floats(pl, pl.halo_pre, arrays, !masked, false);
+    const long long post = tile_floats(pl, pl.halo_post, arrays, !masked, true);
+    need = need > pre ? need : pre;
+    need = need > post ? need : post;
+  }
+  if ((kRedFloats + need) * 4 > pl.smem_bytes) return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+// The plan from a host array of 8 + 2 kMaxLevels ints (block_from, tile_rows,
+// tile_cols, halo_pre, halo_post, smem_bytes, blocks, threads, then
+// kMaxLevels level_rows and kMaxLevels level_cols)
+inline Plan plan_from(const int* a) {
+  Plan pl{a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], {}, {}};
+  for (int k = 0; k < kMaxLevels; ++k) {
+    pl.level_rows[k] = a[8 + k];
+    pl.level_cols[k] = a[8 + kMaxLevels + k];
+  }
+  return pl;
+}
+
+// Ready kernel fn for cooperative launches on the current device and
+// report its grid there: allow it all the dynamic shared memory a block may
+// opt into, and count the blocks of kBlockThreads threads with smem_bytes
+// of it each that can be resident at once: blocks (SMs x blocks per SM),
+// per_sm, and regs, the kernel's registers per thread. The wrappers call
+// this once before a module's first launch (kernels/plan.py ready_grid), so
+// a launch makes no query; a launch the card cannot hold fails there.
+// Returns a CUDA error code.
+inline int coop_grid(const void* fn, int smem_bytes, int* blocks, int* per_sm, int* regs) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int coop = 0, sms = 0;
+  int coop = 0, sms = 0, optin = 0;
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, cfd::kThreads, 0);
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (*per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  *blocks = sms * min(*per_sm, kMaxBlocksPerSM);
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - static_cast<int>(attr.sharedSizeBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kBlockThreads, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   *regs = attr.numRegs;
+  *blocks = sms * *per_sm;
   return 0;
 }
 
 // The coarse levels 1..n_coarse of P from the host arrays idims (H8, W,
-// ny, nx, full), fdims (idx2, idy2) and ptrs (wE, wW, wN, wS, p, b) per
+// ny, nx, full), fdims (idx2, idy2) and ptrs (wE, wW, wN, wS, p, b, q) per
 // level (cfd_whole_solve describes them); returns a CUDA error code.
 inline int coarse_params(Params* P, int n_coarse, const int* idims, const float* fdims,
                          void* const* ptrs, float omega) {
@@ -457,13 +1410,14 @@ inline int coarse_params(Params* P, int n_coarse, const int* idims, const float*
   for (int k = 1; k <= n_coarse; ++k) {
     const int* d = idims + 5 * (k - 1);
     const float* f = fdims + 2 * (k - 1);
-    void* const* q = ptrs + 6 * (k - 1);
+    void* const* q = ptrs + 7 * (k - 1);
     P->lv[k - 1] = cfd::Level{d[0], d[1], d[2], d[3], f[0], f[1], omega,
                               static_cast<const float*>(q[0]), static_cast<const float*>(q[1]),
                               static_cast<const float*>(q[2]), static_cast<const float*>(q[3]),
                               d[4]};
     P->p_lv[k] = static_cast<float*>(q[4]);
     P->b_lv[k] = static_cast<float*>(q[5]);
+    P->q_lv[k] = static_cast<float*>(q[6]);
   }
   return 0;
 }
@@ -472,15 +1426,15 @@ inline int coarse_params(Params* P, int n_coarse, const int* idims, const float*
 // there); returns a CUDA error code, 0 when the arguments are consistent.
 inline int solve_params(Params* P, int masked, const float* p_in, const float* b0, float* p0,
                         float* q0, float* filled, const float* max_b, float* ctl, int* stats,
-                        float* fold, const float* pinv, const float* wE, const float* wW,
+                        const float* pinv, const float* wE, const float* wW,
                         const float* wN, const float* wS, int Hq8, int Wqa, int ny, int nx,
                         int step_i, int inlet_j, float idx2, float idy2, float denom,
                         float one_minus_omega, int n_coarse, const int* idims,
                         const float* fdims, void* const* ptrs, float omega, int pre,
                         int post, int max_cycles, float tol_factor, float abs_tol,
                         float stall, int pin_mean, float* partials, float n_int,
-                        int store_bf16, int corr_opt, float* rc32) {
-  if (masked && (q0 == nullptr || filled == nullptr)) {
+                        int store_bf16, int corr_opt, float* rc32, const int* plan) {
+  if (q0 == nullptr || (masked && filled == nullptr) || plan == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (pin_mean && (masked || partials == nullptr || !(n_int > 0.f))) {
@@ -506,7 +1460,6 @@ inline int solve_params(Params* P, int masked, const float* p_in, const float* b
   P->max_b = max_b;
   P->ctl = ctl;
   P->stats = stats;
-  P->fold = fold;
   P->pinv = pinv;
   P->pre = pre;
   P->post = post;
@@ -520,7 +1473,9 @@ inline int solve_params(Params* P, int masked, const float* p_in, const float* b
   P->store_bf16 = store_bf16;
   P->corr_opt = corr_opt;
   P->rc32 = rc32;
-  return 0;
+  P->plan = plan_from(plan);
+  if (pre < 1 || post < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return check_plan(*P, true, masked != 0);
 }
 
 }  // namespace ws

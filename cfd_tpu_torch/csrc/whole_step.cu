@@ -11,17 +11,17 @@
 //
 // Bound on the H100: the carried state read once and written once (4 or 5
 // quad fields, 19 MB each at 2048^2, 2.5-3.8 MB at the other flows) plus
-// the solve's V-cycles, which at these sizes run from the 50 MB L2 cache
-// and are bound by their grid-wide barriers (whole_solve.cu). The TPU
-// kernel kept b and every intermediate in VMEM; here they stay in device
-// memory (scratch the caller allocates once), which the L2 serves.
+// the solve's V-cycles, which at these sizes run mostly from the 50 MB L2
+// cache and are bound by their chains of dependent phases (whole_solve.cu).
+// The TPU kernel kept b and every intermediate in VMEM; here they stay in
+// device memory (scratch the caller allocates once), which the L2 serves.
 //
-// Design: the whole-solve's persistent grid (whole_solve.cu,
-// cfd::ws::coop_grid), launched with cudaLaunchCooperativeKernel. The
-// carry's dependent stages, which the standalone carries run as separate
-// launches (quad_stage.cu, step_stage.cu, rb_stage.cu), run here as
-// grid-stride phases separated by grid.sync(), through the same per-cell
-// bodies (quad_carry.cuh, step_carry.cuh, rb_carry.cuh):
+// Design: the whole-solve's persistent grid and launch plan (whole_solve.cu,
+// kernels/plan.py), launched with cudaLaunchCooperativeKernel. The carry's
+// dependent stages, which the standalone carries run as separate launches
+// (quad_stage.cu, step_stage.cu, rb_stage.cu), run here as grid-stride
+// phases separated by grid.sync(), through the same per-cell bodies
+// (quad_carry.cuh, step_carry.cuh, rb_carry.cuh):
 //
 //   cavity   corrector (+ guess 2p - p_prev into the output p),
 //            predictor + source + max|b|
@@ -41,9 +41,9 @@
 // phase.
 //
 // Sums and maxima repeat the composed path's order exactly: the predictor
-// phase walks the quad cells in kThreads-wide chunks, one block a chunk,
-// and sums each by the fixed tree (cfd::block_sum_to) as the standalone
-// predictor's blocks do; one block folds the partials in fold_sum's order;
+// phase walks the quad cells in 256-wide chunks, one 256-thread group of a
+// block a chunk (cfd::ws::chunk_sums), and sums each by the fixed tree of
+// cfd::block_sum_to, as the standalone predictor's blocks do; one block folds the partials in fold_sum's order;
 // the mean is the IEEE float32 division sum_b / n_fluid, subtracted on the
 // cells, as solver.remove_mean_quad does; maxima are taken on int bits. So
 // the step equals the composition carry -> remove_mean_quad -> whole-solve
@@ -89,8 +89,8 @@ struct Carry {
 };
 
 template <int kFlavor>
-__global__ void __launch_bounds__(cfd::kThreads, cfd::ws::kMaxBlocksPerSM)
-    whole_step_kernel(Params P, Carry C) {
+__global__ void __launch_bounds__(cfd::ws::kBlockThreads, 1) whole_step_kernel(Params P,
+                                                                             Carry C) {
   constexpr bool kMasked = kFlavor == kStep;
   cg::grid_group grid = cg::this_grid();
   const Sweep s{static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x,
@@ -135,29 +135,24 @@ __global__ void __launch_bounds__(cfd::kThreads, cfd::ws::kMaxBlocksPerSM)
                                                                C.vs2, C.b, idx, C.pc, 0.f);
       m = cfd::bits_max(m, fabsf(bb));
     });
-    cfd::block_max_into(m, P.ctl);
+    cfd::ws::block_max_into(m, P.ctl);
     grid.sync();
   } else {
-    // predictor + source by kThreads-wide chunks, each summed by the fixed
+    // predictor + source by kSumChunk-wide chunks, each summed by the fixed
     // tree into its partial
-    const int chunks = static_cast<int>((n0 + cfd::kThreads - 1) / cfd::kThreads);
-    for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
-      const long long idx = static_cast<long long>(c) * cfd::kThreads + threadIdx.x;
-      float bb = 0.f;
-      if (idx < n0) {
-        if constexpr (kFlavor == kChannel) {
-          bb = cfd::quad::channel_predictor_source_cell(C.u_scr, C.v_scr, C.us2, C.vs2, C.b,
+    const int chunks = static_cast<int>((n0 + cfd::ws::kSumChunk - 1) / cfd::ws::kSumChunk);
+    cfd::ws::chunk_sums(n0, C.partials, [&](long long idx) {
+      if constexpr (kFlavor == kChannel) {
+        return cfd::quad::channel_predictor_source_cell(C.u_scr, C.v_scr, C.us2, C.vs2, C.b,
                                                         idx, C.pc, C.qc.ghost);
-        } else if constexpr (kFlavor == kStep) {
-          bb = cfd::step::predictor_source_cell(C.u_scr, C.v_scr, C.us2, C.vs2, C.b, idx,
+      } else if constexpr (kFlavor == kStep) {
+        return cfd::step::predictor_source_cell(C.u_scr, C.v_scr, C.us2, C.vs2, C.b, idx,
                                                 C.pc, C.sc);
-        } else {
-          bb = cfd::rb::predictor_source_cell(C.u_scr, C.v_scr, C.T2, C.us2, C.vs2, C.b, idx,
+      } else {
+        return cfd::rb::predictor_source_cell(C.u_scr, C.v_scr, C.T2, C.us2, C.vs2, C.b, idx,
                                               C.pc, C.buoy);
-        }
       }
-      cfd::block_sum_to(bb, C.partials + c);
-    }
+    });
     grid.sync();
     if (blockIdx.x == 0) {
       const float sum = cfd::fold_sum(C.partials, chunks, static_cast<int>(threadIdx.x),
@@ -184,7 +179,7 @@ __global__ void __launch_bounds__(cfd::kThreads, cfd::ws::kMaxBlocksPerSM)
       }
       m = cfd::bits_max(m, fabsf(bv));
     });
-    cfd::block_max_into(m, P.ctl);
+    cfd::ws::block_max_into(m, P.ctl);
     grid.sync();
   }
   cfd::ws::solve_cycles<kMasked>(s, grid, P, __ldcg(P.ctl));
@@ -207,12 +202,15 @@ void* kernel_of(int flavor) {
 
 }  // namespace
 
-// Grid of the cooperative launch of a flavor's kernel (0 cavity, 1 channel,
-// 2 RB, 3 step) on the current device: blocks, blocks per SM, registers.
-extern "C" int cfd_whole_step_grid(int flavor, int* blocks, int* per_sm, int* regs) {
+// Readies a flavor's kernel (0 cavity, 1 channel, 2 RB, 3 step) on the
+// current device and returns its co-residency at smem_bytes of dynamic
+// shared memory a block (cfd::ws::coop_grid): blocks, blocks per SM,
+// registers.
+extern "C" int cfd_whole_step_grid(int flavor, int smem_bytes, int* blocks, int* per_sm,
+                                   int* regs) {
   const void* fn = kernel_of(flavor);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return cfd::ws::coop_grid(fn, blocks, per_sm, regs);
+  return cfd::ws::coop_grid(fn, smem_bytes, blocks, per_sm, regs);
 }
 
 // One time step of a flavor. io (a host array): us, vs, p, p_prev (cavity,
@@ -224,10 +222,11 @@ extern "C" int cfd_whole_step_grid(int flavor, int* blocks, int* per_sm, int* re
 // p_in and max_b unused (the warm start and max|b| are formed in-kernel):
 // masked must be 1 exactly for the step and pin_mean 1 exactly for RB; p0
 // receives p', stats (2 ints) the cycles and the bits of the final residual;
-// store_bf16, corr_opt (the step only) and rc32 as for cfd_whole_solve.
+// store_bf16, corr_opt (the step only), rc32 and the plan as for
+// cfd_whole_solve; cfd_whole_step_grid readies the kernel.
 extern "C" int cfd_whole_step(int flavor, void* const* io, const float* cf, int masked,
                               float* p0, float* q0, float* filled, float* ctl, int* stats,
-                              float* fold, const float* pinv, const float* wE,
+                              const float* pinv, const float* wE,
                               const float* wW, const float* wN, const float* wS, int Hq8,
                               int Wqa, int ny, int nx, int step_i, int inlet_j, float idx2,
                               float idy2, float denom, float one_minus_omega, int n_coarse,
@@ -235,7 +234,7 @@ extern "C" int cfd_whole_step(int flavor, void* const* io, const float* cf, int 
                               float omega, int pre, int post, int max_cycles,
                               float tol_factor, float abs_tol, float stall, int pin_mean,
                               float* partials, float n_int, int store_bf16, int corr_opt,
-                              float* rc32, void* stream) {
+                              float* rc32, const int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* fn = kernel_of(flavor);
   if (fn == nullptr || masked != (flavor == kStep) || pin_mean != (flavor == kRB)) {
@@ -275,15 +274,13 @@ extern "C" int cfd_whole_step(int flavor, void* const* io, const float* cf, int 
   if (flavor != kCavity && !(C.n_fluid > 0.f)) return static_cast<int>(cudaErrorInvalidValue);
   Params P;
   int e = cfd::ws::solve_params(&P, masked, nullptr, C.b, p0, q0, filled, nullptr, ctl, stats,
-                                fold, pinv, wE, wW, wN, wS, Hq8, Wqa, ny, nx, step_i, inlet_j,
+                                pinv, wE, wW, wN, wS, Hq8, Wqa, ny, nx, step_i, inlet_j,
                                 idx2, idy2, denom, one_minus_omega, n_coarse, idims, fdims,
                                 ptrs, omega, pre, post, max_cycles, tol_factor, abs_tol,
-                                stall, pin_mean, partials, n_int, store_bf16, corr_opt, rc32);
-  if (e) return e;
-  int blocks = 0, per_sm = 0, regs = 0;
-  e = cfd::ws::coop_grid(fn, &blocks, &per_sm, &regs);
+                                stall, pin_mean, partials, n_int, store_bf16, corr_opt, rc32,
+                                plan);
   if (e) return e;
   void* args[] = {&P, &C};
-  return static_cast<int>(
-      cudaLaunchCooperativeKernel(fn, blocks, cfd::kThreads, args, 0, s));
+  return static_cast<int>(cudaLaunchCooperativeKernel(fn, P.plan.blocks, cfd::ws::kBlockThreads,
+                                                      args, P.plan.smem_bytes, s));
 }

@@ -57,17 +57,21 @@ SIGNATURES = {
     "cfd_quad_channel_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
     # the channel's and RB's carries: the last two ints as the cavity's
     "cfd_quad_channel_carry": [_P] * 12 + [_I] * 4 + [_F] * 10 + [_I, _I, _P],
-    "cfd_whole_solve": ([_I] + [_P] * 14 + [_I] * 6 + [_F] * 4 + [_I] + [_P] * 3 + [_F]
-                        + [_I] * 3 + [_F] * 3 + [_I, _P, _F] + [_I, _I, _P] + [_P]),
-    "cfd_whole_solve_grid": [_I] + [_P] * 3,
+    # ... the last two pointers before the stream: rc32 and the launch plan
+    # (kernels/whole_solve.py Plan)
+    "cfd_whole_solve": ([_I] + [_P] * 13 + [_I] * 6 + [_F] * 4 + [_I] + [_P] * 3 + [_F]
+                        + [_I] * 3 + [_F] * 3 + [_I, _P, _F] + [_I, _I, _P, _P] + [_P]),
+    # masked, shared memory; blocks, blocks per SM, registers out
+    "cfd_whole_solve_grid": [_I] * 2 + [_P] * 3,
     # the whole time step: flavor, io, cf, then cfd_whole_solve's arguments
     # from `masked` on without p_in, b0 and max_b
-    "cfd_whole_step": ([_I, _P, _P, _I] + [_P] * 11 + [_I] * 6 + [_F] * 4 + [_I] + [_P] * 3
-                       + [_F] + [_I] * 3 + [_F] * 3 + [_I, _P, _F] + [_I, _I, _P] + [_P]),
-    # the fused coarse tail: b, e, filled, fold, pinv, the levels, omega,
-    # pre, post
-    "cfd_mg_tail": [_P] * 5 + [_I] + [_P] * 3 + [_F] + [_I] * 2 + [_P],
-    "cfd_whole_step_grid": [_I] + [_P] * 3,
+    "cfd_whole_step": ([_I, _P, _P, _I] + [_P] * 10 + [_I] * 6 + [_F] * 4 + [_I] + [_P] * 3
+                       + [_F] + [_I] * 3 + [_F] * 3 + [_I, _P, _F] + [_I, _I, _P, _P] + [_P]),
+    # the fused coarse tail: b, e, pinv, the levels, omega, pre, post, the
+    # plan
+    "cfd_mg_tail": [_P] * 3 + [_I] + [_P] * 3 + [_F] + [_I] * 2 + [_P, _P],
+    "cfd_mg_tail_grid": [_I] + [_P] * 3,
+    "cfd_whole_step_grid": [_I] * 2 + [_P] * 3,
     "cfd_step_corrector": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P],
     # the step's carry, pre and post: the last two ints as the cavity's
     "cfd_step_carry": [_P] * 10 + [_I] * 6 + [_F] * 10 + [_I, _I, _P],

@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from cfd_tpu_torch.kernels._build import Kernel, ptr, route
+from cfd_tpu_torch.kernels.plan import device_sms, plan_for, ready_grid
 
 MG_TAIL = Kernel("mg_tail", "cfd_mg_tail", "cfd_tpu_torch/csrc/mg_tail.cu",
                  "cfd_tpu/kernels/mg_tail.py:329")
@@ -172,19 +173,20 @@ def run_tail_vcycle(levels, b0: torch.Tensor, pre, post, coarse_solve,
     return down(0, store(b0))
 
 
-def level_arrays(levels, iterates, sources):
+def level_arrays(levels, iterates, sources, smoothed):
     """The host arrays that describe aligned levels to the CUDA entry points
     (cfd_whole_solve, cfd_mg_tail): idims (H8, W, ny, nx, full) and fdims
-    (idx2, idy2) per level, and ptrs (wE, wW, wN, wS, iterate, source) per
-    level, from the levels' weight buffers and the given tensors."""
+    (idx2, idy2) per level, and ptrs (wE, wW, wN, wS, iterate, source,
+    pre-smoothed iterate or None) per level, from the levels' weight
+    buffers and the given tensors."""
     idims = (ctypes.c_int * (5 * len(levels)))(
         *(d for lv in levels for d in (*lv.shape, lv.ny, lv.nx, int(not lv.separable))))
     fdims = (ctypes.c_float * (2 * len(levels)))(
         *(d for lv in levels for d in (lv.idx2, lv.idy2)))
     ptrs = []
-    for lv, p, b in zip(levels, iterates, sources, strict=True):
+    for lv, p, b, q in zip(levels, iterates, sources, smoothed, strict=True):
         ptrs += [getattr(lv, w).data_ptr() for w in ("wE", "wW", "wN", "wS")]
-        ptrs += [p.data_ptr(), b.data_ptr()]
+        ptrs += [p.data_ptr(), b.data_ptr(), q.data_ptr() if q is not None else None]
     return idims, fdims, (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
@@ -217,19 +219,22 @@ class MGTail(nn.Module):
         for k, lv in enumerate(self.levels[1:], start=2):
             self.register_buffer(f"p{k}", torch.zeros(lv.shape, **f32), persistent=False)
             self.register_buffer(f"b{k}", torch.zeros(lv.shape, **f32), persistent=False)
-        self.register_buffer("fold", torch.zeros(pinv.numel(), **f32), persistent=False)
-        # a solid-filled correction of the levels below the first
-        masked = not all(lv.separable for lv in self.levels[1:])
-        self.register_buffer("filled", torch.zeros(self.levels[1].shape, **f32)
-                             if masked else None, persistent=False)
+        self.plan = plan_for(self.levels, None, self.n_pre, self.n_post,
+                             sms=device_sms(pinv.device))
+        self._plan_ints = self.plan.c_ints()
+        self._grid_ready = False  # ready_grid before the first launch
+        # the pre-smoothed iterates of the levels the grid runs in tiles
+        for k, (lv, (rows, _)) in enumerate(zip(self.levels, self.plan.level_tiles), start=1):
+            if rows:
+                self.register_buffer(f"q{k}", torch.zeros(lv.shape, **f32), persistent=False)
 
     def forward(self, b: torch.Tensor) -> torch.Tensor:
         shape = self.levels[0].shape
         if b.dtype != torch.float32 or tuple(b.shape) != shape or not b.is_contiguous():
             raise ValueError(f"expected contiguous float32 {shape}, got {b.dtype} "
                              f"{tuple(b.shape)}")
-        if b.device != self.fold.device:
-            raise ValueError(f"tensor on {b.device}, tail buffers on {self.fold.device}")
+        if b.device != self.pinv.device:
+            raise ValueError(f"tensor on {b.device}, tail buffers on {self.pinv.device}")
         if route(b) == "cuda":
             return self.kernel(b)
         return self.plain(b)
@@ -240,14 +245,17 @@ class MGTail(nn.Module):
                                plain=True)
 
     def kernel(self, b: torch.Tensor) -> torch.Tensor:
+        if not self._grid_ready:
+            ready_grid(self.plan, b.device, "cfd_mg_tail_grid")
+            self._grid_ready = True
         e = torch.empty_like(b)
         n = len(self.levels)
         idims, fdims, ptrs = level_arrays(
             self.levels, [e] + [getattr(self, f"p{k}") for k in range(2, n + 1)],
-            [b] + [getattr(self, f"b{k}") for k in range(2, n + 1)])
+            [b] + [getattr(self, f"b{k}") for k in range(2, n + 1)],
+            [getattr(self, f"q{k}", None) for k in range(1, n + 1)])
         as_ptr = lambda a: ctypes.cast(a, ctypes.c_void_p)
-        filled = ptr(self.filled) if self.filled is not None else ctypes.c_void_p(None)
-        self.record(b, ptr(b), ptr(e), filled, ptr(self.fold), ptr(self.pinv), n,
+        self.record(b, ptr(b), ptr(e), ptr(self.pinv), n,
                     as_ptr(idims), as_ptr(fdims), as_ptr(ptrs), self.omega, self.n_pre,
-                    self.n_post)
+                    self.n_post, as_ptr(self._plan_ints))
         return e

@@ -1,0 +1,261 @@
+"""The launch plan of the cooperative solve kernels (csrc/whole_solve.cuh
+Plan): the whole-solve (kernels.whole_solve), the whole step
+(kernels.whole_step) and the fused tail (kernels.mg_tail).
+
+Each runs one cooperative grid of one block of BLOCK_THREADS threads on
+every SM. The coarse levels from ``block_from`` down run in ONE
+block from its shared memory (their compact (ny + 2) x (nx + 2) iterates
+and sources), the levels above on the whole grid; the finest level runs in
+shared-memory tiles of ``tile_rows`` x ``tile_cols`` plane cells (all four
+planes) with halos as deep as the stages each tile phase fuses. The plan is
+computed here, on the host, and passed to the C entry points, which check
+it and return an error (the wrapper raises) when the solve cannot hold it;
+before a module's first launch ``ready_grid`` readies its kernel for the
+plan's shared memory and raises when the card cannot hold the grid, so a
+launch makes no query. Nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from cfd_tpu_torch.kernels._build import library
+
+SMEM_MAX = 232_448      # shared memory one block may use on the H100, bytes
+H100_SMS = 132          # the plan's SM count where no card is asked (the CPU)
+BLOCK_THREADS = 512     # csrc/whole_solve.cuh kBlockThreads
+RED_FLOATS = 512        # csrc/whole_solve.cuh kRedFloats: the reduction scratch
+MAX_LEVELS = 16         # csrc/whole_solve.cuh kMaxLevels
+TILE_ROWS, TILE_COLS = 32, 64  # the most plane rows and columns of a tile
+# The switch to the block: the first coarse level of at most this many
+# compact cells whose arrays, with every level below, fit one block's
+# shared memory. One SM alone runs a level's phase in time that grows with
+# its cells, while a grid phase costs a barrier and an L2 round trip
+# whatever its size: the block takes the levels of at most 1500 cells (the
+# cavity's level 6, the channel's, RB's and the step's level 5), which
+# timed faster on an H100 than a switch at 5000 or 17000 cells (PERF.md,
+# the whole-solve's findings).
+BLOCK_TAIL_CELLS = 1_500
+# A grid level of at most this many aligned cells (H8 x W) runs in tiles,
+# one barrier each way; a larger one as grid-stride phases, one barrier a
+# half-sweep, restriction and prolongation: a tile phase of a large level
+# is latency-bound on each SM and costs more than the barriers it saves
+# (the channel's level 1, 264 x 896, is faster in phases, its levels 2-4
+# in tiles; PERF.md, the whole-solve's findings).
+LEVEL_TILE_CELLS = 100_000
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The launch plan of one solve (csrc/whole_solve.cuh Plan); ``barriers``
+    is the grid-wide barriers per V-cycle of its phase schedule."""
+
+    block_from: int
+    tile_rows: int
+    tile_cols: int
+    halo_pre: int
+    halo_post: int
+    smem_bytes: int
+    blocks: int
+    threads: int
+    barriers: int
+    # (rows, cols) of the tiles of grid levels 1.., (0, 0) for grid-stride phases
+    level_tiles: tuple[tuple[int, int], ...] = ()
+
+    def c_ints(self):
+        """The host array the C entry points take: the eight fields, then
+        MAX_LEVELS tile rows and MAX_LEVELS tile columns of the grid levels."""
+        rows = [r for r, _ in self.level_tiles] + [0] * (MAX_LEVELS - len(self.level_tiles))
+        cols = [c for _, c in self.level_tiles] + [0] * (MAX_LEVELS - len(self.level_tiles))
+        return (ctypes.c_int * (8 + 2 * MAX_LEVELS))(
+            self.block_from, self.tile_rows, self.tile_cols, self.halo_pre, self.halo_post,
+            self.smem_bytes, self.blocks, self.threads, *rows, *cols)
+
+
+def compact_cells(level) -> int:
+    """Cells of a coarse level's compact shared-memory array: the interior
+    and its ghost ring."""
+    return (level.ny + 2) * (level.nx + 2)
+
+
+def tail_level_floats(level) -> int:
+    """Shared-memory floats of one level in the block: its compact iterate
+    and source, and its weights (four compact arrays on a masked level, the
+    four (nx + 2) / (ny + 2) vectors on a separable one)."""
+    cc = compact_cells(level)
+    if not level.separable:
+        return 6 * cc
+    return 2 * cc + 2 * (level.nx + 2) + 2 * (level.ny + 2)
+
+
+def tail_floats(coarse, block_from: int) -> int:
+    """Shared-memory floats of the block's levels block_from.. (1-based) and
+    a row of the coarsest level's n cells per warp for its solve's folds."""
+    bottom = coarse[-1]
+    return (sum(tail_level_floats(lv) for lv in coarse[block_from - 1:])
+            + BLOCK_THREADS // 32 * bottom.ny * bottom.nx)
+
+
+def tile_floats(rows: int, cols: int, halo: int, arrays: int, weights: bool,
+                post: bool) -> int:
+    """Shared-memory floats of one finest-level tile: ``arrays`` logical
+    buffers of 2 (rows + 2 halo) x 2 (cols + 2 halo), the separable weight
+    vectors along them, and on a post phase the level-1 correction's (rows +
+    2 halo + 1) x (cols + 2 halo + 1)."""
+    lr, lc = 2 * (rows + 2 * halo), 2 * (cols + 2 * halo)
+    n = arrays * lr * lc + (2 * (lr + lc) if weights else 0)
+    return n + ((rows + 2 * halo + 1) * (cols + 2 * halo + 1) if post else 0)
+
+
+def halos(masked: bool, pre: int, post: int) -> tuple[int, int]:
+    """Plane rows and columns of halo of the pre and post tiles: every
+    stage reads the 3 x 3 box around a cell, so each of a phase's stages
+    costs one logical cell of halo. Pre: the 2 pre half-sweeps (and the
+    masked trailing ghost stage), the residual and the restriction's lower
+    children; post: the 2 post half-sweeps (and the ghost stage) and the
+    residual."""
+    return pre + (2 if masked else 1), post + 1
+
+
+def level_halo(pre: int, post: int) -> int:
+    """Rows and columns of halo of a grid level's tiles: 2 pre + 2 on the
+    way down (the pre half-sweeps, the restriction's lower children and
+    their residuals), 2 post on the way up; the larger of the two."""
+    return max(2 * pre + 2, 2 * post)
+
+
+def level_tile_floats(level, rows: int, cols: int, halo: int) -> int:
+    """Shared-memory floats of a grid level's tile: its iterate and source,
+    and its weights (four arrays on a masked level, vectors on a separable
+    one)."""
+    lr, lc = rows + 2 * halo, cols + 2 * halo
+    return 2 * lr * lc + (4 * lr * lc if not level.separable else 2 * (lr + lc))
+
+
+def tile_shape(Hq8: int, Wqa: int, halo: int, blocks: int, fits,
+               step: int = 1) -> tuple[int, int]:
+    """The tile (plane rows, columns) of least estimated time: waves of
+    tiles over the blocks times a tile's cells with its halo, among rows
+    2..TILE_ROWS (in steps of ``step``) and columns 8..TILE_COLS in steps
+    of 8 that ``fits`` (rows, cols) and that the field needs; ties to the
+    larger tile."""
+    best = None
+    for cols in range(8, TILE_COLS + 1, 8):
+        for rows in range(2, TILE_ROWS + 1, step):
+            if not fits(rows, cols) or (rows > max(Hq8, 2)) or (cols > max(Wqa, 8)):
+                continue
+            tiles = -(-Hq8 // rows) * -(-Wqa // cols)
+            cost = (-(-tiles // blocks) * (rows + 2 * halo) * (cols + 2 * halo), -rows * cols)
+            if best is None or cost < best[0]:
+                best = (cost, rows, cols)
+    if best is None:
+        raise ValueError("no finest-level tile fits one block's shared memory")
+    return best[1], best[2]
+
+
+def block_from_level(coarse, budget_floats: int) -> int:
+    """The switch (1-based): the first coarse level of at most
+    BLOCK_TAIL_CELLS compact cells whose arrays and the levels below fit
+    ``budget_floats``; the coarsest always runs in the block."""
+    for k in range(1, len(coarse) + 1):
+        if ((k == len(coarse) or compact_cells(coarse[k - 1]) <= BLOCK_TAIL_CELLS)
+                and tail_floats(coarse, k) <= budget_floats):
+            return k
+    raise ValueError(f"the coarsest level ({coarse[-1].ny}x{coarse[-1].nx}) does not fit "
+                     f"one block's shared memory")
+
+
+def grid_barriers(level_tiles, pre: int, post: int, *, fine: bool = True,
+                  masked: bool = False, pin_mean: bool = False, corr_opt: bool = False) -> int:
+    """Grid-wide barriers per V-cycle of the plan's schedule
+    (whole_solve.cuh solve_cycles, coarse_vcycle): after the pre tiles; a
+    tiled grid level one each way, a level of grid-stride phases 2 pre + 1
+    down and 1 + 2 post up; one after the block; the masked level-1 phases
+    (corr_opt 3, the fill 1), the last one; the pin 3 more. ``fine`` False:
+    the tail's V-cycle alone."""
+    n = 1 + sum(2 if rows else 2 * pre + 2 * post + 2 for rows, _ in level_tiles)
+    if fine:
+        n += 2 + (1 + 3 * int(corr_opt) if masked else 0) + 3 * int(pin_mean)
+    return n
+
+
+def plan_for(coarse, qshape, pre: int, post: int, *, masked: bool = False,
+             pin_mean: bool = False, corr_opt: bool = False, sms: int = H100_SMS) -> Plan:
+    """The plan of a solve over the coarse levels ``coarse`` (1..n) and the
+    quad finest level ``qshape`` (None: the tail alone, no tiles) with V(pre,
+    post), on ``sms`` SMs."""
+    blocks = sms
+    limit = SMEM_MAX // 4 - RED_FLOATS
+    k0 = block_from_level(coarse, limit)
+    need = tail_floats(coarse, k0)
+    hl = level_halo(pre, post)
+    level_tiles = []
+    for lv, below in zip(coarse[:k0 - 1], coarse[1:k0]):
+        if lv.shape[0] * lv.shape[1] > LEVEL_TILE_CELLS:
+            level_tiles.append((0, 0))
+            continue
+        h_ext = max(lv.shape[0], 2 * below.shape[0])
+        w_ext = max(lv.shape[1], 2 * below.shape[1])
+        fits = lambda r, c, lv=lv: level_tile_floats(lv, r, c, hl) <= limit
+        r, c = tile_shape(h_ext, w_ext, hl, blocks, fits, step=2)
+        level_tiles.append((r, c))
+        need = max(need, level_tile_floats(lv, r, c, hl))
+    rows = cols = h_pre = h_post = 0
+    if qshape is not None:
+        _, Hq8, Wqa = qshape
+        h_pre, h_post = halos(masked, pre, post)
+        arrays = 3 if masked else 2
+
+        def tiles(r, c):
+            return max(tile_floats(r, c, h_pre, arrays, not masked, False),
+                       tile_floats(r, c, h_post, arrays, not masked, True))
+
+        rows, cols = tile_shape(Hq8, Wqa, max(h_pre, h_post), blocks,
+                                lambda r, c: tiles(r, c) <= limit)
+        need = max(need, tiles(rows, cols))
+    return Plan(k0, rows, cols, h_pre, h_post, 4 * (RED_FLOATS + need), blocks, BLOCK_THREADS,
+                grid_barriers(level_tiles, pre, post, fine=qshape is not None, masked=masked,
+                              pin_mean=pin_mean, corr_opt=corr_opt), tuple(level_tiles))
+
+
+def device_sms(device) -> int:
+    """The SM count of ``device``: the card's own, H100_SMS on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return H100_SMS
+
+
+def cooperative_grid(symbol: str, *which: int) -> dict:
+    """The cooperative grid of the kernel chosen by ``which`` (the entry
+    point's arguments before the outputs: a flavor and shared memory where
+    it takes them) of the C entry point ``symbol`` (cfd_whole_solve_grid,
+    cfd_whole_step_grid, cfd_mg_tail_grid, cfd_quad_fused_pre_grid) on the
+    current CUDA device: blocks (SMs x blocks per SM), blocks per SM and
+    registers per thread. Raises when the card refuses the grid."""
+    lib = library()
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = getattr(lib, symbol)(*which, *(
+        ctypes.cast(ctypes.byref(v), ctypes.c_void_p) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {err} "
+                           f"({lib.cfd_error_string(err).decode()})")
+    return dict(zip(("blocks", "blocks_per_sm", "registers"), (v.value for v in vals)))
+
+
+def ready_grid(plan: Plan, device, symbol: str, *which: int) -> dict:
+    """Ready the kernel of ``symbol`` and ``which`` (a flavor, or nothing)
+    on ``device`` for launches at ``plan`` (the grid entry points allow the
+    plan's shared memory), and raise unless the card holds all plan.blocks
+    blocks at once. The solve modules call it once, before their first
+    launch; returns cooperative_grid's dict."""
+    with torch.cuda.device(device):
+        grid = cooperative_grid(symbol, *which, plan.smem_bytes)
+    if grid["blocks"] < plan.blocks:
+        raise RuntimeError(f"{symbol}: the card holds {grid['blocks']} blocks at once at "
+                           f"{plan.smem_bytes} B of shared memory, the plan launches "
+                           f"{plan.blocks}")
+    return grid

@@ -12,10 +12,12 @@ They stay there until the caller reads them: the run loop reads a stats
 row's worth at once (solver.Simulation.run), not one per solve.
 
 * ``kernel`` — csrc/whole_solve.cu: ONE cooperative launch runs every
-  V-cycle of the solve and the stop rule on the card, with the hierarchy's
-  scratch allocated once as buffers of this module. (cycles, res) are
-  written into a fresh 2-element output of every call, so a later solve
-  never overwrites an earlier one's counts.
+  V-cycle of the solve and the stop rule on the card, laid out by the
+  solver's launch plan (``self.plan``, kernels/plan.py: the finest level in
+  shared-memory tiles, the large coarse levels on the grid, the smallest in
+  one block), with the hierarchy's scratch allocated once as buffers of
+  this module. (cycles, res) are written into a fresh 2-element output of
+  every call, so a later solve never overwrites an earlier one's counts.
 * ``plain`` — the same solve as the tolerance loop over the per-kernel
   composition's PyTorch twins (MultigridPoisson.cycle(plain=True) or
   MaskedQuadMultigridPoisson.cycle(plain=True): the finest-level pre/post
@@ -65,8 +67,9 @@ import dataclasses
 import torch
 from torch import nn
 
-from cfd_tpu_torch.kernels._build import Kernel, library, ptr, route
+from cfd_tpu_torch.kernels._build import Kernel, ptr, route
 from cfd_tpu_torch.kernels.mg_tail import level_arrays
+from cfd_tpu_torch.kernels.plan import Plan, cooperative_grid, device_sms, plan_for, ready_grid
 from cfd_tpu_torch.kernels.quad import (
     SUM_BLOCK,
     _check,
@@ -119,26 +122,11 @@ def hierarchy_cfg(cfg):
     return dataclasses.replace(cfg, coarse_dtype=None, tail_from=None)
 
 
-def cooperative_grid(symbol: str, *which: int) -> dict:
-    """The cooperative grid that the kernel chosen by ``which`` (if the entry
-    point takes a choice) of the C entry point ``symbol``
-    (cfd_whole_solve_grid, cfd_whole_step_grid, cfd_quad_fused_pre_grid)
-    launches with on the current CUDA device: blocks, blocks per SM and
-    registers per thread. Raises when the card refuses a co-resident grid."""
-    lib = library()
-    vals = [ctypes.c_int(0) for _ in range(3)]
-    err = getattr(lib, symbol)(*which, *(
-        ctypes.cast(ctypes.byref(v), ctypes.c_void_p) for v in vals))
-    if err != 0:
-        raise RuntimeError(f"{symbol}: CUDA error {err} "
-                           f"({lib.cfd_error_string(err).decode()})")
-    return dict(zip(("blocks", "blocks_per_sm", "registers"), (v.value for v in vals)))
-
-
-def launch_grid(masked: bool = False) -> dict:
+def launch_grid(masked: bool = False, plan: Plan | None = None) -> dict:
     """The cooperative grid of the separable (or, with ``masked``, the
-    step's) whole-solve kernel (cooperative_grid)."""
-    return cooperative_grid("cfd_whole_solve_grid", int(masked))
+    step's) whole-solve kernel at ``plan``'s shared memory (none given:
+    none)."""
+    return cooperative_grid("cfd_whole_solve_grid", int(masked), plan.smem_bytes if plan else 0)
 
 
 def stats_tensors(cycles: int, res, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -163,16 +151,26 @@ class _WholeSolveBase(nn.Module):
     MASKED = False
 
     def _alloc_scratch(self, coarse, device):
-        # per coarse level: iterate and source; the coarsest fold scratch;
-        # the (max|b|, residual, residual, sum) slots
+        # per coarse level: iterate and source; the (max|b|, residual,
+        # residual, sum) slots
         f32 = dict(dtype=torch.float32, device=device)
         for k, lv in enumerate(coarse, start=1):
             self.register_buffer(f"p{k}", torch.zeros(lv.shape, **f32), persistent=False)
             self.register_buffer(f"b{k}", torch.zeros(lv.shape, **f32), persistent=False)
-        self.register_buffer("fold", torch.zeros(self.mg.pinv.numel(), **f32),
-                             persistent=False)
         self.register_buffer("ctl", torch.zeros(4, **f32), persistent=False)
         self.register_buffer("rc32", None, persistent=False)
+        # the finest level's second iterate: each tile phase reads one, writes
+        # the other
+        self.register_buffer("q0", torch.zeros(self.qshape, **f32), persistent=False)
+        self.plan = plan_for(coarse, self.qshape, self.cfg.pre_sweeps, self.cfg.post_sweeps,
+                             masked=self.MASKED, pin_mean=self.cfg.pin_mean and not self.MASKED,
+                             corr_opt=self.cfg.corr_opt, sms=device_sms(device))
+        self._plan_ints = self.plan.c_ints()
+        self._grid_ready = False  # ready_grid before the first launch
+        # the pre-smoothed iterates of the coarse levels the grid runs in tiles
+        for k, (lv, (rows, _)) in enumerate(zip(coarse, self.plan.level_tiles), start=1):
+            if rows:
+                self.register_buffer(f"q{k}", torch.zeros(lv.shape, **f32), persistent=False)
 
     def forward(self, p_warm: torch.Tensor, b: torch.Tensor, max_b=None):
         _check(self.qshape, p_warm, b)
@@ -191,6 +189,9 @@ class _WholeSolveBase(nn.Module):
             raise ValueError(f"max_b must be one float32 value on {p_warm.device}, got "
                              f"{max_b.dtype} {tuple(max_b.shape)} on {max_b.device}")
         record, masked, scratch, common = self.launch_args(p_warm)
+        if not self._grid_ready:
+            ready_grid(self.plan, self.ctl.device, "cfd_whole_solve_grid", masked)
+            self._grid_ready = True
         p_out = torch.empty_like(p_warm)
         stats = torch.empty(2, dtype=torch.int32, device=p_warm.device)
         opt = lambda t: ptr(t) if t is not None else ctypes.c_void_p(None)
@@ -209,15 +210,17 @@ class _WholeSolveBase(nn.Module):
         coarse, fine_ptrs, fine_ints, fine_floats, scratch, record, pin = self._fine()
         idims, fdims, ptr_arr = level_arrays(
             coarse, [getattr(self, f"p{k}") for k in range(1, len(coarse) + 1)],
-            [getattr(self, f"b{k}") for k in range(1, len(coarse) + 1)])
+            [getattr(self, f"b{k}") for k in range(1, len(coarse) + 1)],
+            [getattr(self, f"q{k}", None) for k in range(1, len(coarse) + 1)])
         opt = lambda t: ptr(t) if t is not None else ctypes.c_void_p(None)
         as_ptr = lambda a: ctypes.cast(a, ctypes.c_void_p)
-        common = (ptr(self.fold), ptr(self.mg.pinv), *map(opt, fine_ptrs), self.qshape[1],
+        common = (ptr(self.mg.pinv), *map(opt, fine_ptrs), self.qshape[1],
                   self.qshape[2], *fine_ints, *fine_floats, len(coarse), as_ptr(idims),
                   as_ptr(fdims), as_ptr(ptr_arr), cfg.omega, cfg.pre_sweeps,
                   cfg.post_sweeps, cfg.max_cycles, cfg.tol_factor, cfg.abs_tol,
                   cfg.stall_ratio, pin[0], opt(pin[1]), pin[2],
-                  int(self.mg.store_dtype is not None), int(cfg.corr_opt), opt(self.rc32))
+                  int(self.mg.store_dtype is not None), int(cfg.corr_opt), opt(self.rc32),
+                  as_ptr(self._plan_ints))
         return record, int(self.MASKED), tuple(map(opt, scratch)), common
 
 
@@ -266,7 +269,7 @@ class WholeSolve(_WholeSolveBase):
         else:
             record, pin = WHOLE_SOLVE_BF16 if bf16 else WHOLE_SOLVE, (0, None, 0.0)
         return (self.mg.levels[1:], (l0.wE, l0.wW, l0.wN, l0.wS), (l0.ny, l0.nx, 0, 0),
-                (l0.idx2, l0.idy2, 0.0, 0.0), (None, None), record, pin)
+                (l0.idx2, l0.idy2, 0.0, 0.0), (self.q0, None), record, pin)
 
 
 class StepWholeSolve(_WholeSolveBase):
@@ -295,9 +298,7 @@ class StepWholeSolve(_WholeSolveBase):
         self.qshape = self.mg.pre0.qshape
         self._alloc_scratch(self.mg.levels, device)
         f32 = dict(dtype=torch.float32, device=device)
-        # the fine level's second iterate (a ghost stage reads one array and
-        # writes the other) and the solid-filled copy of a coarse correction
-        self.register_buffer("q0", torch.zeros(self.qshape, **f32), persistent=False)
+        # the solid-filled copy of a coarse correction
         lv1 = self.mg.levels[0].shape
         self.register_buffer("filled", torch.zeros(lv1, **f32), persistent=False)
         if cfg.corr_opt:  # the two sums' per-chunk partials; the unrounded rc

@@ -51,14 +51,10 @@ from cfd_tpu_torch.kernels.quad import (
     _check,
     quad_cell_mask,
 )
+from cfd_tpu_torch.kernels.plan import Plan, cooperative_grid, ready_grid
 from cfd_tpu_torch.kernels.rb_quad import QuadRBStep
 from cfd_tpu_torch.kernels.step_quad import QuadStepCorrPredictorSource, step_cell_mask
-from cfd_tpu_torch.kernels.whole_solve import (
-    StepWholeSolve,
-    WholeSolve,
-    cooperative_grid,
-    split_stats,
-)
+from cfd_tpu_torch.kernels.whole_solve import StepWholeSolve, WholeSolve, split_stats
 
 WHOLE_STEP_CAVITY = Kernel("quad_whole_step_cavity", "cfd_whole_step",
                            "cfd_tpu_torch/csrc/whole_step.cu",
@@ -92,10 +88,11 @@ WHOLE_STEP_STEP_CORR_OPT = Kernel("quad_whole_step_step_corr_opt", "cfd_whole_st
 CAVITY, CHANNEL, RB, STEP = 0, 1, 2, 3
 
 
-def launch_grid(flavor: int) -> dict:
+def launch_grid(flavor: int, plan: Plan | None = None) -> dict:
     """The cooperative grid of a flavor's whole-step kernel on the current
-    CUDA device: blocks, blocks per SM, registers per thread."""
-    return cooperative_grid("cfd_whole_step_grid", flavor)
+    CUDA device at ``plan``'s shared memory (none given: none): blocks,
+    blocks per SM, registers per thread."""
+    return cooperative_grid("cfd_whole_step_grid", flavor, plan.smem_bytes if plan else 0)
 
 
 class _Walls(NamedTuple):
@@ -135,6 +132,7 @@ class _WholeStep(nn.Module):
         self.register_buffer("partials", torch.zeros(-(-n0 // SUM_BLOCK), **f32),
                              persistent=False)
         self.n_fluid = n_fluid
+        self._grid_ready = False  # ready_grid before the first launch
         if cell is not None:
             self.register_buffer("cell", cell, persistent=False)
             self.register_buffer("n_cells", torch.tensor(float(n_fluid), **f32),
@@ -171,6 +169,9 @@ class _WholeStep(nn.Module):
         T2 = torch.empty_like(us) if self.FLAVOR == RB else None
         stats = torch.empty(2, dtype=torch.int32, device=us.device)
         _, masked, scratch, common = self.solver.launch_args(us)
+        if not self._grid_ready:
+            ready_grid(self.solver.plan, us.device, "cfd_whole_step_grid", self.FLAVOR)
+            self._grid_ready = True
         opt = lambda t: t.data_ptr() if t is not None else None
         io = (ctypes.c_void_p * 11)(
             us.data_ptr(), vs.data_ptr(), p.data_ptr(),

@@ -10,12 +10,18 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
    power limit (nvidia-smi), builds the kernels from csrc/ with nvcc (one
    process per source, in parallel), prints the build seconds, the
    whole-solve and whole-step kernels' registers and their cooperative
-   grids.
+   grids at the most shared memory a launch plan may ask (kernels/plan.py).
 2. Per-kernel check at the 2048^2 cavity shapes: each hand-written kernel
    of the per-kernel cavity path (mg_overrides whole_solve=False) against
    its plain PyTorch twin on the same seeded inputs on the card. Error = max |kernel - plain| / max |plain| per
    output; limits: 1e-5 for float32 fields and scalars, 2^-7 for
    bfloat16-stored fields. Times are CUDA-event medians of 20 launches.
+   Then the launch plan of the cavity's f32 whole-solve at 2048^2: its grid
+   levels (tiled or grid-stride), the levels in one block, the finest
+   level's tile and halos, its shared memory, blocks and block size, and
+   its grid-wide barriers per V-cycle beside the earlier grid-phase
+   design's (it fails above half of them); phases 5, 8 and 11 print their
+   whole-solve's plan the same way, with its ms per V-cycle.
 3. The cavity slice: make_cavity_case(n_interior=2048, poisson="multigrid",
    dtype=float32, tolerance_factor=1e-6) on cuda, its default solve (the
    float32 whole-solve), through Simulation.run(n_steps=300,
@@ -34,7 +40,9 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
    seeded source against its twin (the same cycles, p within 1e-5) and
    against the per-kernel composition of the cavity path's kernels
    (cycles within 1, p within 50 tol). Times as in phase 2; the
-   whole-solve also per V-cycle.
+   whole-solve also per V-cycle. Then the cavity's f32 whole-solve at
+   2048^2 against its twin on a seeded source (equal cycles and residual,
+   p bit-identical), timed per V-cycle beside its bound.
 6. The channel slice: make_channel_case(nx=1536, ny=512,
    poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0, dtype=float32)
    on cuda, 300 steps in chunks of 100, with the launch counters zeroed
@@ -1093,28 +1101,6 @@ def adaptive_card_vs_cpu(make, kw: dict, controller: str, spc: int, what: str,
                 f"{what} card vs cpu {name}", 5e-5, [])
 
 
-def seeded_fields(case, seed: int):
-    """The carried fields of a whole step's call: the case's initial state
-    in the logical layout with seeded noise on u, v and p over its fluid
-    cells, aligned."""
-    from cfd_tpu_torch.convert import state_from_numpy
-    from cfd_tpu_torch.solver import Simulation
-
-    sim = Simulation(case, log=lambda m: None)
-    st = sim._logical(sim.initial_state())
-    rng = np.random.default_rng(seed)
-    mask = np.asarray(case.grid.cell_mask, dtype=np.float32)
-    f = {k: getattr(st, k).cpu().numpy().copy()
-         for k in ("u", "v", "p", "T", "p_prev") if getattr(st, k) is not None}
-    for k, scale in (("u", 0.05), ("v", 0.05), ("p", 0.01)):
-        f[k] = f[k] + (scale * rng.standard_normal(f[k].shape) * mask).astype(np.float32)
-    s = case.align_state(state_from_numpy(f["u"], f["v"], f["p"], f.get("p_prev"),
-                                          f.get("T"), device=case.device))
-    if case.ordering == "rayleigh_benard":
-        return (s.u, s.v, s.p, s.T)
-    return (s.u, s.v, s.p) if s.p_prev is None else (s.u, s.v, s.p, s.p_prev)
-
-
 def solve_ops_per_cycle(solver, cells: int) -> int:
     """float32 operations of one V-cycle of a whole-solve (the separable,
     pin-mean or masked flavor) over ``cells`` finest cells (fluid cells on
@@ -1136,6 +1122,74 @@ def solve_ops_per_cycle(solver, cells: int) -> int:
     return ops + 2 * mg.pinv.numel()
 
 
+def grid_phase_barriers(solver) -> int:
+    """Grid-wide barriers per V-cycle of the whole-solve's earlier design,
+    in which every half-sweep, restriction, prolongation and solid fill of
+    every level was a grid-stride phase ending in a grid-wide barrier: the
+    figure each plan's count is held to (at most half)."""
+    cfg = solver.cfg
+    coarse = solver.mg.levels if solver.MASKED else solver.mg.levels[1:]
+    pre, post, masked = cfg.pre_sweeps, cfg.post_sweeps, int(solver.MASKED)
+    down = 2 * pre + masked + 1 + (len(coarse) - 1) * (2 * pre + 1) + 2
+    up = sum(int(not lv.separable) + 1 + 2 * post for lv in coarse[1:])
+    up += 1 + 2 * post + masked + 1 + (3 * int(cfg.corr_opt) + 1 if masked else 0)
+    return down + up + (2 if cfg.pin_mean and not masked else 0)
+
+
+def log_plan(tag: str, solver, card: str, ms_per_cycle: float | None = None) -> None:
+    """Print a whole-solve's launch plan (kernels/plan.py), its grid-wide
+    barriers per V-cycle beside the earlier design's and, where measured,
+    its ms per V-cycle; fail on a plan that keeps more than half of them."""
+    from cfd_tpu_torch.kernels.whole_solve import launch_grid
+
+    pl = solver.plan
+    coarse = solver.mg.levels if solver.MASKED else solver.mg.levels[1:]
+    grid_lv = ", ".join(f"{k}: {'tiles %dx%d' % t if t[0] else 'grid-stride'}"
+                        for k, t in enumerate(pl.level_tiles, start=1)) or "none"
+    g = launch_grid(solver.MASKED, pl)
+    old = grid_phase_barriers(solver)
+    log(f"  {tag} plan: grid levels {{{grid_lv}}}, levels {pl.block_from}..{len(coarse)} in "
+        f"one block; finest tiles {pl.tile_rows}x{pl.tile_cols} plane cells, halo "
+        f"{pl.halo_pre} (pre) / {pl.halo_post} (post); {pl.smem_bytes} B shared memory; "
+        f"{pl.blocks} blocks x {pl.threads} threads ({g['blocks_per_sm']} fit an SM, "
+        f"{g['registers']} registers/thread); {pl.barriers} grid barriers per V-cycle "
+        f"(grid-phase design: {old})"
+        + (f"; {ms_per_cycle:.4f} ms per V-cycle" if ms_per_cycle is not None else "")
+        + f"  ({card})")
+    if 2 * pl.barriers > old:
+        raise AssertionError(f"{tag}: {pl.barriers} grid barriers per V-cycle, more than half "
+                             f"of {old}")
+
+
+def check_cavity_whole_solve(case, dev) -> dict:
+    """Phase 5: the float32 cavity whole-solve at 2048^2 (the cavity's cuda
+    default) against its twin on a seeded source from a zero warm start:
+    equal cycles and residual, p bit-identical; ms per V-cycle; the bound
+    as phase 5's channel whole-solve's."""
+    from cfd_tpu_torch.seeded import seeded_source
+
+    ws = case.poisson_solve
+    b = seeded_source(case, seed=2049)
+    p0 = torch.zeros_like(b)
+    pk, ck, rk = host(ws.kernel(p0, b))
+    pp, cp, rp = host(ws.plain(p0, b))
+    bit = bool(torch.equal(pk, pp))
+    log(f"  quad_whole_solve (cavity {N_MAIN}^2, f32): cycles kernel {ck}, twin {cp}; res "
+        f"{rk!r} / {rp!r}; p bit-identical: {bit}")
+    if (ck, rk) != (cp, rp) or not bit:
+        raise AssertionError(f"cavity whole-solve: ({ck}, {rk}) against the twin's ({cp}, "
+                             f"{rp}), bit-identical {bit}")
+    errs = []
+    rel_err(pk, pp, "quad_whole_solve (cavity) p vs twin", TOL_F32, errs)
+    cells = case.grid.nx * case.grid.ny
+    ms = median_ms(lambda: ws.kernel(p0, b))
+    n_bytes = nbytes(p0, b, pk, ws.mg.pinv)
+    return dict(err=max(errs), ms=ms, plain_ms=median_ms(lambda: ws.plain(p0, b), reps=3),
+                cycles=ck, ms_per_cycle=ms / ck,
+                bound_ops_ms_per_cycle=solve_ops_per_cycle(ws, cells) / PEAK_F32_S * 1e3,
+                **bound(n_bytes, ck * solve_ops_per_cycle(ws, cells) + cells))
+
+
 def check_whole_steps(cases: dict) -> dict:
     """Phase 17: each flavor's whole-step kernel against its twin (the
     composition carry -> mean removal -> whole-solve twin) at the full
@@ -1143,6 +1197,8 @@ def check_whole_steps(cases: dict) -> dict:
     residual. Times as in phase 2 (the twin over 3 runs); the bound counts
     the carried state read once and written once plus the solve's pinv, and
     the carry's, the mean removal's and the solve's operations."""
+    from cfd_tpu_torch.seeded import seeded_fields
+
     results = {}
     for flow, case in cases.items():
         ws = case.whole_step_kernel
@@ -1232,18 +1288,6 @@ def check_tail(tail, what: str, seed: int) -> dict:
     return dict(err=max(errs), ms=median_ms(lambda: tail.kernel(b)),
                 plain_ms=median_ms(lambda: tail.plain(b), reps=5),
                 **bound(nbytes(b, got, tail.pinv, *consts), tail_ops(tail)))
-
-
-def seeded_source(case, seed: int):
-    """A seeded source on the case's fluid cells, scaled by 1e3 and free of
-    its mean over them, in the quad layout on the case's device."""
-    from cfd_tpu_torch.kernels.quad import to_quad
-
-    rng = np.random.default_rng(seed)
-    mask = np.asarray(case.grid.cell_mask, bool)
-    bn = np.where(mask, rng.standard_normal(case.grid.shape), 0.0)
-    bn = (np.where(mask, bn - bn[mask].mean(), 0.0) * 1e3).astype(np.float32)
-    return to_quad(torch.from_numpy(bn).to(case.device), case.grid.shape)
 
 
 def check_solve(solve, b, cells: int) -> dict:
@@ -2433,6 +2477,7 @@ def main() -> int:
     from cfd_tpu_torch.kernels import whole_solve as WS
     from cfd_tpu_torch.kernels import mg_tail as MT
     from cfd_tpu_torch.kernels import whole_step as WST
+    from cfd_tpu_torch.seeded import seeded_source
 
     dev = torch.device("cuda")
     card = card_line()
@@ -2450,15 +2495,21 @@ def main() -> int:
                 for info in ptxas[i + 1 : i + 4]:
                     if "Function properties" not in info:
                         log(f"  {kname} ptxas: {info.strip()}")
-    grid = WS.launch_grid()
-    log(f"  whole_solve_kernel: {grid['registers']} registers/thread, cooperative grid of "
-        f"{grid['blocks']} blocks ({grid['blocks_per_sm']} co-resident per SM)")
+    from cfd_tpu_torch.kernels import plan as PL
+
+    most = PL.Plan(1, 0, 0, 0, 0, PL.SMEM_MAX, 0, PL.BLOCK_THREADS, 0)
+    for masked in (False, True):
+        grid = WS.launch_grid(masked, most)
+        log(f"  whole_solve_kernel<{'masked' if masked else 'separable'}>: "
+            f"{grid['registers']} registers/thread; {grid['blocks']} blocks of "
+            f"{PL.BLOCK_THREADS} threads ({grid['blocks_per_sm']} per SM) at the most shared "
+            f"memory a plan may ask, {PL.SMEM_MAX} B; each flavor's plan in phases 2, 5, 8, 11")
     for flavor, fname in ((WST.CAVITY, "cavity"), (WST.CHANNEL, "channel"),
                           (WST.RB, "rb"), (WST.STEP, "step")):
-        grid = WST.launch_grid(flavor)
+        grid = WST.launch_grid(flavor, most)
         log(f"  whole_step_kernel<{fname}>: {grid['registers']} registers/thread, "
             f"cooperative grid of {grid['blocks']} blocks ({grid['blocks_per_sm']} "
-            f"co-resident per SM)")
+            f"co-resident per SM) at {PL.SMEM_MAX} B")
     grid = WS.cooperative_grid("cfd_quad_fused_pre_grid")
     log(f"  fused_pre_kernel: {grid['registers']} registers/thread, cooperative grid of "
         f"{grid['blocks']} blocks ({grid['blocks_per_sm']} co-resident per SM)")
@@ -2473,6 +2524,10 @@ def main() -> int:
         f"{mg.coarse_dtype} levels={len(pk_case.poisson_solve.levels)}")
     checks = check_kernels(pk_case, dev)
     flows = {"cavity": (pk_case.grid, pk_case.coeffs, None)}  # phase 14's shapes
+    # the cavity's cuda default, the f32 whole-solve: its plan here, its
+    # kernel against its twin in phase 5
+    cav_ws_case = make_cavity_case(device=dev, **cav_main)
+    log_plan("quad_whole_solve (cavity)", cav_ws_case.poisson_solve, card)
 
     log(f"phase 3: the cavity at {N_MAIN}^2, its cuda default (the whole-solve) for 300 "
         f"steps in chunks of 100, then the per-kernel solve for 100 steps ({card})")
@@ -2523,6 +2578,16 @@ def main() -> int:
     log(f"  quad_whole_solve: {w['cycles']} V-cycles, {w['ms_per_cycle']:.4f} ms per "
         f"V-cycle; bound {w['bound_bytes_ms']:.4f} ms per solve (bytes), "
         f"{w['bound_ops_ms_per_cycle']:.4f} ms per V-cycle (operations)  ({card})")
+    log_plan("quad_whole_solve (channel)", case.poisson_solve, card, w["ms_per_cycle"])
+    cav_ws = check_cavity_whole_solve(cav_ws_case, dev)
+    log(f"  quad_whole_solve (cavity {N_MAIN}^2, f32): kernel {cav_ws['ms']:.4f} ms for "
+        f"{cav_ws['cycles']} V-cycles, plain {cav_ws['plain_ms']:.4f} ms, bound "
+        f"{cav_ws['bound_ms']:.4f} ms ({cav_ws['bound_by']}), "
+        f"{cav_ws['bound_ops_ms_per_cycle']:.4f} ms per V-cycle (operations); launches "
+        f"{cavity_launches[WS.WHOLE_SOLVE.name]} on phase 3's path  ({card})")
+    log_plan("quad_whole_solve (cavity)", cav_ws_case.poisson_solve, card,
+             cav_ws["ms_per_cycle"])
+    del cav_ws_case
 
     log(f"phase 6: the channel slice at {nx}x{ny}, 300 steps in chunks of 100, then the "
         f"per-kernel solve and the whole-solve again for 100 steps each ({card})")
@@ -2573,9 +2638,6 @@ def main() -> int:
     log(f"  solver config: V({mg.pre_sweeps},{mg.post_sweeps}) whole_solve="
         f"{mg.whole_solve} coarse levels={len(case.poisson_solve.mg.levels)}; n_fluid="
         f"{g.n_fluid}")
-    grid = WS.launch_grid(masked=True)
-    log(f"  masked whole_solve_kernel: {grid['registers']} registers/thread, cooperative "
-        f"grid of {grid['blocks']} blocks ({grid['blocks_per_sm']} co-resident per SM)")
     step_checks = check_step_kernels(case, dev)
     from cfd_tpu_torch.poisson.multigrid import step_rect_params
 
@@ -2584,6 +2646,7 @@ def main() -> int:
         log(f"  {k:36s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
     w = step_checks["quad_step_whole_solve"]
+    log_plan("quad_step_whole_solve", case.poisson_solve, card, w["ms_per_cycle"])
     log(f"  quad_step_whole_solve: {w['cycles']} V-cycles, {w['ms_per_cycle']:.4f} ms per "
         f"V-cycle; bound {w['bound_bytes_ms']:.4f} ms per solve (bytes), "
         f"{w['bound_ops_ms_per_cycle']:.4f} ms per V-cycle (operations)  ({card})")
@@ -2636,6 +2699,7 @@ def main() -> int:
         log(f"  {k:36s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
     w = rb_checks["quad_whole_solve_pin_mean"]
+    log_plan("quad_whole_solve_pin_mean", case.poisson_solve, card, w["ms_per_cycle"])
     log(f"  quad_whole_solve_pin_mean: {w['cycles']} V-cycles, {w['ms_per_cycle']:.4f} ms "
         f"per V-cycle; bound {w['bound_bytes_ms']:.4f} ms per solve (bytes), "
         f"{w['bound_ops_ms_per_cycle']:.4f} ms per V-cycle (operations)  ({card})")
