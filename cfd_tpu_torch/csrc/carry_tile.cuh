@@ -1,0 +1,326 @@
+// Shared-memory tiles of the one-launch carries: the cavity's
+// (quad_stage.cu) and Rayleigh-Benard's (rb_stage.cu). The tile machinery
+// of the reference's slab kernels (cfd_tpu/kernels/quad.py
+// _make_quad_slab_kernel :132, pl.pallas_call :376), which keeps a row slab
+// and a CARRY_RADIUS-row halo in VMEM, on Hopper: a block owns `rows` x
+// `cols` plane cells of all four parity planes (a 2 rows x 2 cols logical
+// region), loads its inputs with a halo of `halo` plane rows and columns
+// into shared memory in the LOGICAL layout, runs the carry's stages there,
+// each on the region the next stage reads (a box around the own region
+// that shrinks stage by stage), and writes its own cells only. The halo is
+// computed redundantly by the neighbouring tiles, so one launch needs no
+// grid-wide barrier and the corrected fields never go through device
+// memory.
+//
+// Bits. A tile reproduces the per-cell bodies (quad_carry.cuh,
+// rb_carry.cuh) exactly: the stages call the same arithmetic through
+// accessors that read the shared buffers instead of the quad arrays; a
+// position outside the array reads 0, as qld (the loader writes 0 there),
+// and a stage whose result the per-cell kernels kept in a scratch array
+// reads 0 outside the array too (the kernels zero those positions).
+// Reductions take each quad cell once, in its own tile, never a halo copy;
+// the maxima are order-free (cfd::bits_max, atomicMax on the int bits) and
+// the source sum runs after the tile kernel in the twin's fixed order
+// (source_sum below).
+//
+// Paths. A tile whose every staged position lies at least one cell inside
+// the domain's faces (interior()) runs the stages with no ghost or mask
+// test, through the *_formula arithmetic; a tile that touches the walls,
+// the ghost rows and columns, the padding or the array's edge runs the
+// ghost-aware stages (the *_at functions). Both paths compute the same
+// operations on the same operands where both apply. All index arithmetic
+// is 32-bit (the entry points refuse fields of 2^31 floats or more), and
+// the block loops divide once per thread, not per cell (each()).
+#pragma once
+
+#include "common.cuh"
+
+namespace cfd {
+namespace tile {
+
+// the threads of a tile block (the kernels' launch bounds)
+constexpr int kThreads = 512;
+// the shared memory a block may use on the H100 (bytes)
+constexpr int kSmemMax = 232448;
+// the partials the source sum's last block folds in shared memory; levels
+// above it fold in device memory first
+constexpr int kFoldShared = 4096;
+
+// The launch plan, computed on the host (kernels/plan.py carry_plan): tiles
+// of rows x cols plane cells with a halo of `halo` plane rows and columns,
+// smem_bytes of dynamic shared memory (the flow's buffers, each 2 (rows +
+// 2 halo) x 2 (cols + 2 halo) floats), a grid of grid_x tile columns by
+// grid_y tile rows, one tile a block.
+struct Plan {
+  int rows, cols, halo, smem_bytes, grid_x, grid_y;
+};
+
+// the floats of one logical buffer of a tile
+__host__ __device__ inline long long buffer_floats(int rows, int cols, int halo) {
+  return 4LL * (rows + 2 * halo) * (cols + 2 * halo);
+}
+
+// cudaSuccess when the plan covers a (4, Hq8, Wqa) field with a halo of at
+// least `radius` logical rows and its `buffers` buffers, else
+// cudaErrorInvalidValue (the wrapper raises)
+inline cudaError_t check(const Plan& pl, int Hq8, int Wqa, int radius, int buffers) {
+  if (pl.rows < 1 || pl.cols < 1 || 2 * pl.halo < radius) return cudaErrorInvalidValue;
+  if (Hq8 < 1 || Wqa < 1 || 4LL * Hq8 * Wqa >= (1LL << 31)) return cudaErrorInvalidValue;
+  if (pl.grid_x != (Wqa + pl.cols - 1) / pl.cols || pl.grid_y != (Hq8 + pl.rows - 1) / pl.rows)
+    return cudaErrorInvalidValue;
+  const long long bytes = 4LL * buffers * buffer_floats(pl.rows, pl.cols, pl.halo);
+  if (pl.smem_bytes != bytes || bytes > kSmemMax) return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// Allow `fn` the card's most dynamic shared memory and report its
+// occupancy at smem_bytes: blocks (SMs x blocks per SM), blocks per SM and
+// registers per thread. The modules call it once before their first
+// launch (kernels/plan.py ready_grid), so a launch makes no query.
+inline int ready(const void* fn, int smem_bytes, int* blocks, int* per_sm, int* regs) {
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - static_cast<int>(attr.sharedSizeBytes));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kThreads, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *blocks = sms * *per_sm;
+  return 0;
+}
+
+// the block's dynamic shared memory
+__device__ __forceinline__ float* smem() {
+  extern __shared__ float4 carry_tile_smem[];
+  return reinterpret_cast<float*>(carry_tile_smem);
+}
+
+// The block's tile: own plane rows [R0, R0 + rows) x columns [C0, C0 + cols)
+// of the (4, Hq8, Wqa) arrays (clipped at their edge); buffer cell (lj, li)
+// holds array logical (aj + lj, ai + li), global logical row gj + lj.
+struct Tile {
+  int R0, C0, rows, cols, h;
+  int LC;      // the buffers' pitch: logical columns
+  int aj, ai;  // the array's logical row and column of buffer cell (0, 0)
+  int gj;      // its global logical row (aj + 2 row0)
+};
+
+__device__ __forceinline__ Tile make_tile(const Plan& pl, int Hq8, int Wqa, int row0) {
+  Tile T;
+  T.R0 = static_cast<int>(blockIdx.y) * pl.rows;
+  T.C0 = static_cast<int>(blockIdx.x) * pl.cols;
+  T.rows = min(pl.rows, Hq8 - T.R0);
+  T.cols = min(pl.cols, Wqa - T.C0);
+  T.h = pl.halo;
+  T.LC = 2 * (pl.cols + 2 * pl.halo);
+  T.aj = 2 * (T.R0 - pl.halo);
+  T.ai = 2 * (T.C0 - pl.halo);
+  T.gj = T.aj + 2 * row0;
+  return T;
+}
+
+// buffer logical rows [r0, r1) x columns [c0, c1)
+struct Box {
+  int r0, r1, c0, c1;
+};
+
+// the own region widened by s rows south, n north, w columns west, e east
+__device__ __forceinline__ Box around(const Tile& T, int s, int n, int w, int e) {
+  const int o = 2 * T.h;
+  return Box{o - s, o + 2 * T.rows + n, o - w, o + 2 * T.cols + e};
+}
+
+// Whether every position of box B lies in the domain's rows [1, ny - 1] x
+// columns [1, nx - 1] and in the array: there every face is valid, no
+// ghost rule applies and no stage value is zeroed, so the stages need no
+// test (the interior path)
+__device__ __forceinline__ bool interior(const Tile& T, const Box& B, int ny, int nx,
+                                         int Hq8) {
+  return T.gj + B.r0 >= 1 && T.gj + B.r1 - 1 <= ny - 1 && T.ai + B.c0 >= 1 &&
+         T.ai + B.c1 - 1 <= nx - 1 && T.aj + B.r0 >= 0 && T.aj + B.r1 <= 2 * Hq8;
+}
+
+// whether buffer cell (lj, li) lies in the array
+__device__ __forceinline__ bool in_array(const Tile& T, int lj, int li, int Hq8, int Wqa) {
+  const int r = T.aj + lj, c = T.ai + li;
+  return r >= 0 && r < 2 * Hq8 && c >= 0 && c < 2 * Wqa;
+}
+
+// A buffer read at global logical (j, i): the stage arithmetic's accessor
+struct View {
+  const float* a;
+  int gj, ai, LC;
+  __device__ __forceinline__ float operator()(int j, int i) const {
+    return a[(j - gj) * LC + (i - ai)];
+  }
+};
+
+__device__ __forceinline__ View view(const float* a, const Tile& T) {
+  return View{a, T.gj, T.ai, T.LC};
+}
+
+// f(r, c) over rows [r0, r1) x columns [c0, c1) by the block's kThreads
+// threads in flat order, consecutive threads on consecutive columns; one
+// division a thread, none a cell
+template <class F>
+__device__ __forceinline__ void each(int r0, int r1, int c0, int c1, F f) {
+  const int nr = r1 - r0, nc = c1 - c0;
+  if (nr <= 0 || nc <= 0) return;
+  const int t = static_cast<int>(threadIdx.x);
+  int r = t / nc, c = t - r * nc;
+  const int dr = kThreads / nc, dc = kThreads - dr * nc;
+  while (r < nr) {
+    f(r0 + r, c0 + c);
+    c += dc;
+    r += dr;
+    if (c >= nc) {
+      c -= nc;
+      ++r;
+    }
+  }
+}
+
+// f(lj, li, k) over the cells of box B, k = lj * LC + li
+template <class F>
+__device__ __forceinline__ void each_cell(const Box& B, int LC, F f) {
+  each(B.r0, B.r1, B.c0, B.c1, [&](int lj, int li) { f(lj, li, lj * LC + li); });
+}
+
+// dst[f] = the tile's region (own and halo) of quad fields src[f] in the
+// logical layout, 0 outside the array (qld's value); the 4 NF loads of a
+// plane cell are issued together
+template <int NF>
+__device__ __forceinline__ void load(const float* const (&src)[NF], float* const (&dst)[NF],
+                                     const Tile& T, int Hq8, int Wqa) {
+  const int plane = Hq8 * Wqa;
+  each(0, T.rows + 2 * T.h, 0, T.cols + 2 * T.h, [&](int r, int c) {
+    const int gr = T.R0 - T.h + r, gc = T.C0 - T.h + c;
+    const bool in = gr >= 0 && gr < Hq8 && gc >= 0 && gc < Wqa;
+    const int g = gr * Wqa + gc;
+    float v[NF][4];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[f][q] = in ? src[f][q * plane + g] : 0.f;
+    }
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dst[f][(2 * r + (q >> 1)) * T.LC + 2 * c + (q & 1)] = v[f][q];
+    }
+  });
+}
+
+// f(g, gr, lj, li) over the tile's own plane cells: gr the array plane
+// row, g the flat index of plane 0's cell, (lj, li) the buffer cell of its
+// plane-0 logical cell (plane q's at (lj + (q >> 1), li + (q & 1))): the
+// output pass, coalesced over each plane
+template <class F>
+__device__ __forceinline__ void each_own(const Tile& T, int Wqa, F f) {
+  const int o = 2 * T.h;
+  each(0, T.rows, 0, T.cols, [&](int r, int c) {
+    const int gr = T.R0 + r;
+    f(gr * Wqa + T.C0 + c, gr, o + 2 * r, o + 2 * c);
+  });
+}
+
+// Block-wide maxima of v[k] >= 0 (or NaN, sorting above +inf) into out[k]
+// as int bits (atomicMax: the order does not matter); every thread calls it
+template <int N>
+__device__ __forceinline__ void block_max(const float (&v)[N], float* out) {
+  __shared__ int warp_max[N][kThreads / 32];
+  const int lane = static_cast<int>(threadIdx.x) & 31, warp = static_cast<int>(threadIdx.x) >> 5;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    int x = __float_as_int(v[k]);
+    for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_down_sync(0xffffffffu, x, o));
+    if (lane == 0) warp_max[k][warp] = x;
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      int x = lane < kThreads / 32 ? warp_max[k][lane] : 0;
+      for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_down_sync(0xffffffffu, x, o));
+      if (lane == 0) atomicMax(reinterpret_cast<int*>(out) + k, x);
+    }
+  }
+}
+
+// Whether flat quad index k of a (4, Hq8, Wqa) block lies in its own plane
+// rows [halo, Hq8 - halo) (cfd::own_row in 32 bits)
+__device__ __forceinline__ bool own_row32(int k, int Hq8, int Wqa, int halo) {
+  const int J = (k % (Hq8 * Wqa)) / Wqa;
+  return J >= halo && J < Hq8 - halo;
+}
+
+// The source sum of b over the own rows (all rows where halo is 0) in the
+// order of the twin's fixed_order_sum (kernels/quad.py): the flat array in
+// cfd::kThreads-wide chunks, each summed by cfd::block_sum_to's pairwise
+// tree, then the chunk partials by fold_sum. One warp sums one chunk: its
+// lanes hold the chunk's values 32 apart, so the tree's first three levels
+// (strides 128, 64, 32) add a lane's own values and the last five
+// (16 ... 1) are shuffles, the same pairs in the same order as the
+// shared-memory tree. The last block to finish (a __threadfence and an
+// atomic count, which it resets, so no launch zeroes it) folds the
+// partials: the levels above kFoldShared partials in device memory, the
+// rest in shared memory. Launched with cfd::kThreads threads a block.
+template <bool kBlock>
+__device__ __forceinline__ void source_sum(const float* b, int Hq8, int Wqa, int halo,
+                                           float* partials, unsigned int* count, float* sum) {
+  static_assert(cfd::kThreads == 256, "a chunk is 8 values a lane");
+  const int n = 4 * Hq8 * Wqa;
+  const int chunks = (n + cfd::kThreads - 1) / cfd::kThreads;
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int warps = cfd::kThreads / 32;
+  for (int c = static_cast<int>(blockIdx.x) * warps + (static_cast<int>(threadIdx.x) >> 5);
+       c < chunks; c += static_cast<int>(gridDim.x) * warps) {
+    float v[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const int k = c * cfd::kThreads + lane + 32 * m;
+      v[m] = (k < n && (!kBlock || own_row32(k, Hq8, Wqa, halo))) ? b[k] : 0.f;
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) v[m] = v[m] + v[m + 4];
+    v[0] = v[0] + v[2];
+    v[1] = v[1] + v[3];
+    float x = v[0] + v[1];
+    for (int o = 16; o > 0; o >>= 1) x = x + __shfl_down_sync(0xffffffffu, x, o);
+    if (lane == 0) partials[c] = x;
+  }
+  __shared__ bool last;
+  __shared__ float s[kFoldShared];
+  __threadfence();  // this block's partials before its count
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(count, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int first = static_cast<int>(threadIdx.x), step = static_cast<int>(blockDim.x);
+  auto sync = [] { __syncthreads(); };
+  // the partials other blocks wrote are read past L1 (volatile, __ldcg)
+  volatile float* x = partials;
+  int m = chunks;
+  while (m > kFoldShared) m = cfd::fold_level(x, m, first, step, sync);
+  for (int t = first; t < m; t += step) s[t] = __ldcg(partials + t);
+  __syncthreads();
+  const float total = cfd::fold_sum(s, m, first, step, sync);
+  if (threadIdx.x == 0) {
+    *sum = total;
+    *count = 0u;
+  }
+}
+
+}  // namespace tile
+}  // namespace cfd

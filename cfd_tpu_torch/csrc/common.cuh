@@ -46,6 +46,22 @@ __device__ __forceinline__ float qld(const float* a, int j, int i, int Hq8, int 
                                                           : 0.f;
 }
 
+// A quad array read at global logical (j, i) through qld: the accessor the
+// stage arithmetic takes (quad_carry.cuh, rb_carry.cuh) where it reads
+// device memory; ``c`` is any stage's constants (Hq8, Wqa, row0)
+struct QuadRead {
+  const float* a;
+  int Hq8, Wqa, row0;
+  __device__ __forceinline__ float operator()(int j, int i) const {
+    return qld(a, j, i, Hq8, Wqa, row0);
+  }
+};
+
+template <class C>
+__device__ __forceinline__ QuadRead quad_read(const float* a, const C& c) {
+  return QuadRead{a, c.Hq8, c.Wqa, c.row0};
+}
+
 // flat thread index -> (q, J, I) of a quad field -> logical (j, i), j
 // global (row0: the global plane row of the block's row 0)
 struct QuadCell {
@@ -142,23 +158,28 @@ __device__ __forceinline__ void block_sum_to(float v, float* out) {
   if (threadIdx.x == 0) *out = s[0];
 }
 
-// In-place fold of x[0:n] to its sum, the order of the PyTorch twin
+// One level of the in-place fold of x[0:n] in the order of the PyTorch twin
 // fold_sum: x[t] += x[t + h] for t < h = n/2, the odd last element moves
-// to x[h], repeat on h + (n & 1) elements. `first` is the calling thread's
-// rank, `step` the number of threads that share the fold; `sync()` must be a
-// barrier over exactly those threads.
+// to x[h]; returns the h + (n & 1) elements left. `first` is the calling
+// thread's rank, `step` the number of threads that share the fold; `sync()`
+// must be a barrier over exactly those threads. ``x``: a float* or a
+// volatile float* (partials that other blocks wrote).
+template <class P, class Sync>
+__device__ __forceinline__ int fold_level(P x, int n, int first, int step, Sync sync) {
+  const int h = n >> 1;
+  for (int t = first; t < h; t += step) x[t] = x[t] + x[t + h];
+  sync();
+  if (n & 1) {
+    if (first == 0) x[h] = x[2 * h];
+    sync();
+  }
+  return h + (n & 1);
+}
+
+// In-place fold of x[0:n] to its sum, fold_level until one element is left
 template <class Sync>
 __device__ __forceinline__ float fold_sum(float* x, int n, int first, int step, Sync sync) {
-  while (n > 1) {
-    const int h = n >> 1;
-    for (int t = first; t < h; t += step) x[t] = x[t] + x[t + h];
-    sync();
-    if (n & 1) {
-      if (first == 0) x[h] = x[2 * h];
-      sync();
-    }
-    n = h + (n & 1);
-  }
+  while (n > 1) n = fold_level(x, n, first, step, sync);
   return x[0];
 }
 

@@ -27,12 +27,14 @@ __device__ __forceinline__ Pred pred_at(Pred c, const float* dt) {
 }
 
 // MAC predictor (cfd_tpu/kernels/quad.py _predictor_quad, :808-844), in the
-// JAX package's operation order; 0 outside the valid faces. ``u(j, i)`` and
-// ``v(j, i)`` read the input fields: plain loads (u_star, v_star below), or
-// loads that apply ghost values on read (the cavity's non-carry stage).
+// JAX package's operation order. ``u(j, i)`` and ``v(j, i)`` read the input
+// fields: plain loads (u_star, v_star below), loads that apply ghost values
+// on read (the cavity's non-carry stage), or a shared-memory tile
+// (carry_tile.cuh). The *_formula functions are the arithmetic alone, for a
+// face known to be valid (a tile's interior path); the *_at functions give
+// 0 outside the valid faces.
 template <class LU, class LV>
-__device__ __forceinline__ float u_star_at(LU u, LV v, int j, int i, const Pred& c) {
-  if (!(j >= 1 && j <= c.ny && i >= 1 && i <= c.nx - 1)) return 0.f;
+__device__ __forceinline__ float u_star_formula(LU u, LV v, int j, int i, const Pred& c) {
   float uc = u(j, i), uE = u(j, i + 1), uW = u(j, i - 1);
   float uN = u(j + 1, i), uS = u(j - 1, i);
   float vc = v(j, i), vE = v(j, i + 1);
@@ -50,8 +52,7 @@ __device__ __forceinline__ float u_star_at(LU u, LV v, int j, int i, const Pred&
 }
 
 template <class LU, class LV>
-__device__ __forceinline__ float v_star_at(LU u, LV v, int j, int i, const Pred& c) {
-  if (!(j >= 1 && j <= c.ny - 1 && i >= 1 && i <= c.nx)) return 0.f;
+__device__ __forceinline__ float v_star_formula(LU u, LV v, int j, int i, const Pred& c) {
   float vc = v(j, i), vE = v(j, i + 1), vW = v(j, i - 1);
   float vN = v(j + 1, i), vS = v(j - 1, i);
   float uc = u(j, i), uN = u(j + 1, i);
@@ -66,6 +67,18 @@ __device__ __forceinline__ float v_star_at(LU u, LV v, int j, int i, const Pred&
   float v_w2 = 0.5f * (vW + vc);
   float conv_vx = (u_e2 * v_e2 - u_w2 * v_w2) * c.idx;
   return vc + c.dt * (c.nu * lap_v - conv_vy - conv_vx);
+}
+
+template <class LU, class LV>
+__device__ __forceinline__ float u_star_at(LU u, LV v, int j, int i, const Pred& c) {
+  if (!(j >= 1 && j <= c.ny && i >= 1 && i <= c.nx - 1)) return 0.f;
+  return u_star_formula(u, v, j, i, c);
+}
+
+template <class LU, class LV>
+__device__ __forceinline__ float v_star_at(LU u, LV v, int j, int i, const Pred& c) {
+  if (!(j >= 1 && j <= c.ny - 1 && i >= 1 && i <= c.nx)) return 0.f;
+  return v_star_formula(u, v, j, i, c);
 }
 
 __device__ __forceinline__ float u_star(const float* u, const float* v, int j, int i,

@@ -29,22 +29,70 @@ __device__ __forceinline__ Corr corr_at(Corr c, const float* dt) {
   return c;
 }
 
+// The pressure correction of a face from accessors us(j, i), vs(j, i),
+// p(j, i): global logical (j, i), reads of the quad arrays (qld) or of a
+// shared-memory tile (carry_tile.cuh). The *_formula functions are the
+// arithmetic alone, for a face known to be valid (a tile's interior path).
+template <class LUS, class LP>
+__device__ __forceinline__ float u_corr_formula(LUS us, LP p, int j, int i, const Corr& c) {
+  const float pc = p(j, i);
+  const float pe = p(j, i + 1);
+  return us(j, i) - c.cu * (pe - pc);
+}
+
+template <class LVS, class LP>
+__device__ __forceinline__ float v_corr_formula(LVS vs, LP p, int j, int i, const Corr& c) {
+  const float pc = p(j, i);
+  const float pn = p(j + 1, i);
+  return vs(j, i) - c.cv * (pn - pc);
+}
+
 // corrected u on valid faces (j in [1, ny], i in [1, nx-1]), else 0
-__device__ __forceinline__ float u_corr(const float* us, const float* p, int j, int i,
-                                        const Corr& c) {
+template <class LUS, class LP>
+__device__ __forceinline__ float u_corr_at(LUS us, LP p, int j, int i, const Corr& c) {
   if (!(j >= 1 && j <= c.ny && i >= 1 && i <= c.nx - 1)) return 0.f;
-  float pc = qld(p, j, i, c.Hq8, c.Wqa, c.row0);
-  float pe = qld(p, j, i + 1, c.Hq8, c.Wqa, c.row0);
-  return qld(us, j, i, c.Hq8, c.Wqa, c.row0) - c.cu * (pe - pc);
+  return u_corr_formula(us, p, j, i, c);
 }
 
 // corrected v on valid faces (j in [1, ny-1], i in [1, nx]), else 0
+template <class LVS, class LP>
+__device__ __forceinline__ float v_corr_at(LVS vs, LP p, int j, int i, const Corr& c) {
+  if (!(j >= 1 && j <= c.ny - 1 && i >= 1 && i <= c.nx)) return 0.f;
+  return v_corr_formula(vs, p, j, i, c);
+}
+
+__device__ __forceinline__ float u_corr(const float* us, const float* p, int j, int i,
+                                        const Corr& c) {
+  return u_corr_at(quad_read(us, c), quad_read(p, c), j, i, c);
+}
+
 __device__ __forceinline__ float v_corr(const float* vs, const float* p, int j, int i,
                                         const Corr& c) {
-  if (!(j >= 1 && j <= c.ny - 1 && i >= 1 && i <= c.nx)) return 0.f;
-  float pc = qld(p, j, i, c.Hq8, c.Wqa, c.row0);
-  float pn = qld(p, j + 1, i, c.Hq8, c.Wqa, c.row0);
-  return qld(vs, j, i, c.Hq8, c.Wqa, c.row0) - c.cv * (pn - pc);
+  return v_corr_at(quad_read(vs, c), quad_read(p, c), j, i, c);
+}
+
+// The cavity's corrected u, v at (j, i) with the lid ghosts, from
+// accessors (u_corr_at's)
+template <class LUS, class LVS, class LP>
+__device__ __forceinline__ float2 cavity_uv_at(LUS us, LVS vs, LP p, int j, int i,
+                                               const Corr& c) {
+  float u;
+  if (j == c.ny + 1 && i <= c.nx) {
+    u = c.ghost - u_corr_at(us, p, c.ny, i, c);
+  } else if (j == 0 && i <= c.nx) {
+    u = -u_corr_at(us, p, 1, i, c);
+  } else {
+    u = u_corr_at(us, p, j, i, c);
+  }
+  float v;
+  if (i == 0 && j <= c.ny) {
+    v = -v_corr_at(vs, p, j, 1, c);
+  } else if (i == c.nx + 1 && j <= c.ny) {
+    v = -v_corr_at(vs, p, j, c.nx, c);
+  } else {
+    v = v_corr_at(vs, p, j, i, c);
+  }
+  return make_float2(u, v);
 }
 
 // The cavity corrector at quad cell idx: the corrected u, v with the lid
@@ -55,27 +103,12 @@ __device__ __forceinline__ float2 cavity_corrector_cell(const float* us, const f
                                                         float* u2, float* v2, float* guess,
                                                         long long idx, const Corr& c) {
   cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa, c.row0);
-  int j = cell.j, i = cell.i;
-  float u;
-  if (j == c.ny + 1 && i <= c.nx) {
-    u = c.ghost - u_corr(us, p, c.ny, i, c);
-  } else if (j == 0 && i <= c.nx) {
-    u = -u_corr(us, p, 1, i, c);
-  } else {
-    u = u_corr(us, p, j, i, c);
-  }
-  float v;
-  if (i == 0 && j <= c.ny) {
-    v = -v_corr(vs, p, j, 1, c);
-  } else if (i == c.nx + 1 && j <= c.ny) {
-    v = -v_corr(vs, p, j, c.nx, c);
-  } else {
-    v = v_corr(vs, p, j, i, c);
-  }
-  u2[idx] = u;
-  v2[idx] = v;
+  const float2 uv = cavity_uv_at(quad_read(us, c), quad_read(vs, c), quad_read(p, c), cell.j,
+                                 cell.i, c);
+  u2[idx] = uv.x;
+  v2[idx] = uv.y;
   guess[idx] = 2.0f * p[idx] - p_prev[idx];
-  return make_float2(fabsf(u), fabsf(v));
+  return make_float2(fabsf(uv.x), fabsf(uv.y));
 }
 
 // the lid-cavity ghosts applied to an input field on read, in the

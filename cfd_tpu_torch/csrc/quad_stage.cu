@@ -18,7 +18,9 @@
 // outside the block reads 0, and the reductions (the cavity's max|b|, the
 // channel's sum of b, and the Courant maxima) cover the own rows only: the
 // shard's partials (quad.py:308-312 masks every scalar so). The
-// scratch u, v cover the whole block. The cavity's stages reach 5 rows
+// channel's scratch u, v cover the whole block, and the cavity's tiles
+// stage the corrected u, v on it alone (zero outside it, as a read of the
+// scratch there was). The cavity's stages reach 5 rows
 // (quad.py:970-971); the channel's reach 5 too, counting one row for each
 // stage: the corrector (p at j+1), the ghosts on the corrected fields (the
 // ghost rows read rows 1 and ny), the predictor (j-1 ... j+1), the ghosts
@@ -32,18 +34,27 @@
 // field at 2048^2, 3.8 MB at 1536x512). The arithmetic (about 60 flops a
 // cell for the predictor) is far below the card's rate.
 //
-// Design: one thread per quad cell, neighbours through the guarded quad
-// accessor, so one code path serves every plane and no halo bookkeeping is
-// needed. The per-cell bodies live in quad_carry.cuh, which the whole-step
-// kernel (whole_step.cu) runs too. A carry runs as TWO launches (three for
-// the channel, see below): (1) the corrector writes the corrected and
-// ghost-rebuilt u, v into scratch fields, (2) the predictor + source +
-// reduction reads them. A thread of launch 2 evaluates the predictor at its
-// own faces and again at the west/south faces its divergence needs
-// (re-reads that hit L1/L2). This
-// costs one extra round trip of u, v through device memory compared with a
-// single fused launch with a shared-memory tile and a 3-cell halo, which is
-// the next kernel step.
+// Design. The cavity carry is ONE launch over shared-memory tiles
+// (carry_tile.cuh): a block loads us, vs and p with a halo of 3 plane rows
+// and columns (6 logical, >= the reference's CARRY_RADIUS of 5), computes
+// the corrected, ghosted u, v on the region the predictor reads, then u*,
+// v* once a face on the region the source reads (its own cells and one
+// row and column to the south and west), then writes us', vs', b and the
+// guess of its own cells and reduces max|b| (and the Courant maxima) over
+// them. Tiles that touch no wall, ghost row or padding take a path with no
+// ghost or mask test. The corrected u, v never go through device memory:
+// 8 passes over the field (4 in, 4 out) where the earlier two-launch
+// chain made 12, plus the halo's re-reads, mostly from L2.
+//
+// The correctors, the cavity's non-carry stage and the channel carry keep
+// the first design: one thread per quad cell, neighbours through the
+// guarded quad accessor. Their per-cell bodies live in quad_carry.cuh,
+// which the whole-step kernel (whole_step.cu) and the tiles run too. The
+// channel carry runs as THREE launches: (1) the corrector writes the
+// corrected and ghost-rebuilt u, v into scratch fields, (2) the predictor +
+// source + partial sums reads them, a thread evaluating the predictor at
+// its own faces and again at the west/south faces its divergence needs,
+// (3) the fold of the partials.
 //
 // Cavity ghost order (cfd_tpu/kernels/quad.py:420-435, cavity-01.cpp:
 // 523-543): u top ghost row j = ny+1 for i <= nx, then u bottom row j = 0
@@ -71,15 +82,18 @@
 // predictor and source. kCourant also reduces max|u| and max|v| of the
 // corrected, ghosted fields over every quad cell of a whole field, or the
 // own rows of a shard's block (the region of the reference's
-// scalar_reduce, quad.py:300-360), into two device scalars the host zeroes. The non-carry cavity stage make_quad_predictor_source
-// (quad.py:438, traced dt) is the carry's second launch with the lid ghosts
-// applied to its input on read (lid_u, lid_v).
+// scalar_reduce, quad.py:300-360), into two device scalars the host
+// zeroes. The cavity carry's tiles take one flag, kAdaptive, for both. The
+// non-carry cavity stage make_quad_predictor_source (quad.py:438,
+// traced dt) is the predictor + source of the first design with the lid
+// ghosts applied to its input on read (lid_u, lid_v).
 //
 // Channel source sum: each block of launch 2 sums its kThreads values of b
 // by a fixed pairwise tree into a per-block partial (cfd::block_sum_to);
 // launch 3, one block, folds the partials in the order of the PyTorch
 // twin's fold_sum. No float atomics: the sum is the same on every run, and
 // equal bit for bit to the plain twin's fixed_order_sum.
+#include "carry_tile.cuh"
 #include "common.cuh"
 #include "predictor.cuh"
 #include "quad_carry.cuh"
@@ -94,48 +108,131 @@ using cfd::quad::corr_at;
 constexpr int kChannelRadius = 5;
 static_assert(kChannelRadius <= 8, "the channel carry reaches past the 8-row halo");
 
-// kCourant: max|u|, max|v| of the outputs into courant[0], courant[1];
-// kBlock: a shard's local block, whose maxima take its own rows only
-// (cfd::own_row, the `halo`-row strips excluded)
-template <bool kTraced, bool kCourant, bool kBlock = false>
+// the cavity corrector (kTraced: cu, cv formed from *dt)
+template <bool kTraced>
 __global__ void corrector_kernel(const float* us, const float* vs, const float* p,
                                  const float* p_prev, float* u2, float* v2, float* guess,
-                                 Corr c0, const float* dt, float* courant, int halo) {
+                                 Corr c0, const float* dt) {
   const Corr c = corr_at<kTraced, false>(c0, dt);
   long long n = 4LL * c.Hq8 * c.Wqa;
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float au = 0.f, av = 0.f;
-  if (idx < n) {
-    const float2 a =
-        cfd::quad::cavity_corrector_cell(us, vs, p, p_prev, u2, v2, guess, idx, c);
-    if (!kBlock || cfd::own_row(idx, c.Hq8, c.Wqa, halo)) {
-      au = a.x;
-      av = a.y;
-    }
-  }
-  if constexpr (kCourant) cfd::block_max2_into(au, av, courant);
+  if (idx < n) cfd::quad::cavity_corrector_cell(us, vs, p, p_prev, u2, v2, guess, idx, c);
 }
 
-// the predictor, b = rho/dt * div on the cells and max|b|; kLid applies the
-// lid ghosts to u, v on read (the non-carry stage, quad.py:438). kBlock: a
-// shard's local block, with its row offset and the max over its own rows
-// only (cfd::own_row); a whole field's instance folds the row offset away
-// at compile time (the run-time offset cost it 7% on the H100)
-template <bool kTraced, bool kLid, bool kBlock = false>
-__global__ void predictor_source_kernel(const float* u, const float* v, float* us2,
-                                        float* vs2, float* b, float* max_b, Pred c0,
-                                        const float* dt, float two_lid, int halo) {
-  Pred c = cfd::pred_at<kTraced>(c0, dt);
-  if constexpr (!kBlock) c.row0 = 0;
+// the non-carry cavity stage with a traced dt (quad.py:438): the lid ghosts
+// on u, v on read, the predictor, b = rho/dt * div on the cells and max|b|
+__global__ void lid_predictor_source_kernel(const float* u, const float* v, float* us2,
+                                            float* vs2, float* b, float* max_b, Pred c0,
+                                            const float* dt, float two_lid) {
+  const Pred c = cfd::pred_at<true>(c0, dt);
   long long n = 4LL * c.Hq8 * c.Wqa;
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   float absb = 0.f;
   if (idx < n) {
-    const float bb =
-        cfd::quad::predictor_source_cell<kLid>(u, v, us2, vs2, b, idx, c, two_lid);
-    if (!kBlock || cfd::own_row(idx, c.Hq8, c.Wqa, halo)) absb = fabsf(bb);
+    absb = fabsf(cfd::quad::predictor_source_cell<true>(u, v, us2, vs2, b, idx, c, two_lid));
   }
   cfd::block_max_into(absb, max_b);
+}
+
+namespace tile = cfd::tile;
+
+// The cavity carry's tiles: the reference's CARRY_RADIUS (quad.py:1021),
+// the logical rows the halo must cover, and the buffers a block stages:
+// us, vs and p, then the corrected u, v (u*, v* overwrite us, vs)
+constexpr int kCavityRadius = 5;
+constexpr int kCavityBuffers = 5;
+
+// The cavity carry in one launch (the design above): a block's tile of the
+// corrector, the lid ghosts, the predictor and the source. kAdaptive: the
+// coefficients from dts = (dt_corr, dt_pred) on the card and the Courant
+// maxima, red = (max|b|, max|u|, max|v|), else red = max|b|; kBlock: a
+// shard's local block, whose reductions take its own rows only, else row0
+// folds to 0.
+template <bool kAdaptive, bool kBlock>
+__global__ void __launch_bounds__(tile::kThreads)
+    cavity_carry_kernel(const float* us, const float* vs, const float* p, const float* p_prev,
+                        float* us2, float* vs2, float* b, float* guess, float* red, Corr c,
+                        Pred pc, const float* dts, tile::Plan pl, int halo) {
+  c = corr_at<kAdaptive, false>(c, dts);
+  pc = cfd::pred_at<kAdaptive>(pc, kAdaptive ? dts + 1 : nullptr);
+  if constexpr (!kBlock) c.row0 = pc.row0 = 0;
+  const int Hq8 = c.Hq8, Wqa = c.Wqa, plane = Hq8 * Wqa;
+  const tile::Tile t = tile::make_tile(pl, Hq8, Wqa, c.row0);
+  const int N = static_cast<int>(tile::buffer_floats(pl.rows, pl.cols, pl.halo)), LC = t.LC;
+  float* const s_us = tile::smem();
+  float* const s_vs = s_us + N;
+  float* const s_p = s_us + 2 * N;
+  float* const s_u = s_us + 3 * N;
+  float* const s_v = s_us + 4 * N;
+  {
+    const float* src[3] = {us, vs, p};
+    float* const dst[3] = {s_us, s_vs, s_p};
+    tile::load<3>(src, dst, t, Hq8, Wqa);
+  }
+  __syncthreads();
+  // the corrected u, v where the predictor reads them; u*, v* where the
+  // source reads them (own cells, one row south, one column west)
+  const tile::Box A = tile::around(t, 2, 1, 2, 1), B = tile::around(t, 1, 0, 1, 0);
+  const tile::View vus = tile::view(s_us, t), vvs = tile::view(s_vs, t);
+  const tile::View vp = tile::view(s_p, t), vu = tile::view(s_u, t), vv = tile::view(s_v, t);
+  const bool inner = tile::interior(t, A, c.ny, c.nx, Hq8);
+  if (inner) {
+    tile::each_cell(A, LC, [&](int lj, int li, int k) {
+      const int j = t.gj + lj, i = t.ai + li;
+      s_u[k] = cfd::quad::u_corr_formula(vus, vp, j, i, c);
+      s_v[k] = cfd::quad::v_corr_formula(vvs, vp, j, i, c);
+    });
+    __syncthreads();
+    tile::each_cell(B, LC, [&](int lj, int li, int k) {
+      const int j = t.gj + lj, i = t.ai + li;
+      s_us[k] = cfd::u_star_formula(vu, vv, j, i, pc);
+      s_vs[k] = cfd::v_star_formula(vu, vv, j, i, pc);
+    });
+  } else {
+    tile::each_cell(A, LC, [&](int lj, int li, int k) {
+      float2 uv = make_float2(0.f, 0.f);  // outside the array a neighbour reads 0
+      if (tile::in_array(t, lj, li, Hq8, Wqa)) {
+        uv = cfd::quad::cavity_uv_at(vus, vvs, vp, t.gj + lj, t.ai + li, c);
+      }
+      s_u[k] = uv.x;
+      s_v[k] = uv.y;
+    });
+    __syncthreads();
+    tile::each_cell(B, LC, [&](int lj, int li, int k) {
+      const int j = t.gj + lj, i = t.ai + li;
+      s_us[k] = cfd::u_star_at(vu, vv, j, i, pc);
+      s_vs[k] = cfd::v_star_at(vu, vv, j, i, pc);
+    });
+  }
+  __syncthreads();
+  float m[kAdaptive ? 3 : 1] = {};
+  tile::each_own(t, Wqa, [&](int g, int gr, int lj0, int li0) {
+    const bool own = !kBlock || (gr >= halo && gr < Hq8 - halo);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int lj = lj0 + (q >> 1), li = li0 + (q & 1);
+      const int k = lj * LC + li, gq = q * plane + g;
+      const int j = t.gj + lj, i = t.ai + li;
+      const float a = s_us[k], bv = s_vs[k];
+      float bb = 0.f;
+      if (inner || (j >= 1 && j <= c.ny && i >= 1 && i <= c.nx)) {
+        const float div = (a - s_us[k - 1]) * pc.idx + (bv - s_vs[k - LC]) * pc.idy;
+        bb = pc.rho_dt * div;
+      }
+      us2[gq] = a;
+      vs2[gq] = bv;
+      b[gq] = bb;
+      guess[gq] = 2.0f * s_p[k] - p_prev[gq];
+      if (own) {
+        m[0] = cfd::bits_max(m[0], fabsf(bb));
+        if constexpr (kAdaptive) {
+          m[1] = cfd::bits_max(m[1], fabsf(s_u[k]));
+          m[2] = cfd::bits_max(m[2], fabsf(s_v[k]));
+        }
+      }
+    }
+  });
+  tile::block_max(m, red);
 }
 
 // kBlock: a shard's local block (its row offset, and the Courant maxima
@@ -197,26 +294,31 @@ cudaError_t cfd::fold_partials(float* partials, int n, float* sum, cudaStream_t 
 
 namespace {
 
-// the cavity carry's two launches: the corrector into the scratch u, v,
-// then the predictor + source + max|b| from them; kBlock: a shard's local
-// block with a `halo`-row strip, whose maxima take its own rows only
-template <bool kAdaptive, bool kBlock = false>
+const void* cavity_carry_fn(bool adaptive, bool block) {
+  if (adaptive) {
+    return block ? reinterpret_cast<const void*>(cavity_carry_kernel<true, true>)
+                 : reinterpret_cast<const void*>(cavity_carry_kernel<true, false>);
+  }
+  return block ? reinterpret_cast<const void*>(cavity_carry_kernel<false, true>)
+               : reinterpret_cast<const void*>(cavity_carry_kernel<false, false>);
+}
+
+// the cavity carry's launch: the plan checked, the reductions zeroed (red:
+// 1 float, or 3 with kAdaptive), one tile kernel; kBlock: a shard's local
+// block with a `halo`-row strip, whose reductions take its own rows only
+template <bool kAdaptive, bool kBlock>
 cudaError_t cavity_carry(const float* us, const float* vs, const float* p,
-                         const float* p_prev, float* u_scr, float* v_scr, float* us2,
-                         float* vs2, float* b, float* guess, float* max_b, float* courant,
-                         const float* dts, const Corr& c, const Pred& pc, int halo,
-                         cudaStream_t s) {
-  const long long n = 4LL * c.Hq8 * c.Wqa;
-  corrector_kernel<kAdaptive, kAdaptive, kBlock><<<cfd::blocks_for(n), cfd::kThreads, 0, s>>>(
-      us, vs, p, p_prev, u_scr, v_scr, guess, c, dts, courant, halo);
-  cudaError_t err = cudaGetLastError();
+                         const float* p_prev, float* us2, float* vs2, float* b, float* guess,
+                         float* red, const float* dts, const Corr& c, const Pred& pc,
+                         const int* plan, int halo, cudaStream_t s) {
+  const tile::Plan pl{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
+  cudaError_t err = tile::check(pl, c.Hq8, c.Wqa, kCavityRadius, kCavityBuffers);
   if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(max_b, 0, sizeof(float), s);
+  err = cudaMemsetAsync(red, 0, (kAdaptive ? 3 : 1) * sizeof(float), s);
   if (err != cudaSuccess) return err;
-  predictor_source_kernel<kAdaptive, false, kBlock><<<cfd::blocks_for(n), cfd::kThreads, 0,
-                                                      s>>>(u_scr, v_scr, us2, vs2, b, max_b,
-                                                           pc, kAdaptive ? dts + 1 : nullptr,
-                                                           0.f, halo);
+  cavity_carry_kernel<kAdaptive, kBlock>
+      <<<dim3(pl.grid_x, pl.grid_y), tile::kThreads, pl.smem_bytes, s>>>(
+          us, vs, p, p_prev, us2, vs2, b, guess, red, c, pc, dts, pl, halo);
   return cudaGetLastError();
 }
 
@@ -248,8 +350,8 @@ extern "C" int cfd_quad_corrector(const float* us, const float* vs, const float*
                                   float cu, float cv, float two_lid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Corr c{Hq8, Wqa, ny, nx, cu, cv, two_lid};
-  corrector_kernel<false, false><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
-      us, vs, p, p_prev, u2, v2, guess, c, nullptr, nullptr, 0);
+  corrector_kernel<false><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
+      us, vs, p, p_prev, u2, v2, guess, c, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -261,8 +363,8 @@ extern "C" int cfd_quad_corrector_traced(const float* us, const float* vs, const
                                          float two_lid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Corr c{Hq8, Wqa, ny, nx, cu_f, cv_f, two_lid};
-  corrector_kernel<true, false><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
-      us, vs, p, p_prev, u2, v2, guess, c, dt, nullptr, 0);
+  corrector_kernel<true><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
+      us, vs, p, p_prev, u2, v2, guess, c, dt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -277,56 +379,61 @@ extern "C" int cfd_quad_predictor_source(const float* u, const float* v, float* 
   cudaError_t err = cudaMemsetAsync(max_b, 0, sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   Pred pc{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho};
-  predictor_source_kernel<true, true><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0,
-                                        s>>>(u, v, us2, vs2, b, max_b, pc, dt, two_lid, 0);
+  lid_predictor_source_kernel<<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
+      u, v, us2, vs2, b, max_b, pc, dt, two_lid);
   return static_cast<int>(cudaGetLastError());
 }
 
-// row_base, halo: a local block's global plane row of row 0 and its halo
-// strip (0, 0 on a whole field)
+// Readies the cavity carry's tile kernel (adaptive, block: its instance)
+// for `smem_bytes` of dynamic shared memory on the current device: blocks
+// (SMs x blocks per SM), blocks per SM and registers out (tile::ready)
+extern "C" int cfd_quad_carry_grid(int adaptive, int block, int smem_bytes, int* blocks,
+                                   int* per_sm, int* regs) {
+  return tile::ready(cavity_carry_fn(adaptive != 0, block != 0), smem_bytes, blocks, per_sm,
+                     regs);
+}
+
+// plan: the 6 ints of the tile plan (tile::Plan, kernels/plan.py
+// carry_plan), a host array; row_base, halo: a local block's global plane
+// row of row 0 and its halo strip (0, 0 on a whole field), max|b| then over
+// the own rows
 extern "C" int cfd_quad_carry(const float* us, const float* vs, const float* p,
-                              const float* p_prev, float* u_scr, float* v_scr,
-                              float* us2, float* vs2, float* b, float* guess,
-                              float* max_b, int Hq8, int Wqa, int ny, int nx, float cu,
-                              float cv, float two_lid, float dt, float nu, float idx,
-                              float idy, float idx2, float idy2, float rho_dt,
-                              int row_base, int halo, void* stream) {
+                              const float* p_prev, float* us2, float* vs2, float* b,
+                              float* guess, float* max_b, int Hq8, int Wqa, int ny, int nx,
+                              float cu, float cv, float two_lid, float dt, float nu, float idx,
+                              float idy, float idx2, float idy2, float rho_dt, int row_base,
+                              int halo, const int* plan, void* stream) {
   Corr c{Hq8, Wqa, ny, nx, cu, cv, two_lid, row_base};
   Pred pc{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt, 0.f, row_base};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (halo > 0) {
-    return static_cast<int>(cavity_carry<false, true>(us, vs, p, p_prev, u_scr, v_scr, us2,
-                                                      vs2, b, guess, max_b, nullptr, nullptr,
-                                                      c, pc, halo, s));
+    return static_cast<int>(cavity_carry<false, true>(us, vs, p, p_prev, us2, vs2, b, guess,
+                                                      max_b, nullptr, c, pc, plan, halo, s));
   }
-  return static_cast<int>(cavity_carry<false>(us, vs, p, p_prev, u_scr, v_scr, us2, vs2, b,
-                                               guess, max_b, nullptr, nullptr, c, pc, 0, s));
+  return static_cast<int>(cavity_carry<false, false>(us, vs, p, p_prev, us2, vs2, b, guess,
+                                                     max_b, nullptr, c, pc, plan, 0, s));
 }
 
 // traced_dt + emit_courant: dts = (dt_corr, dt_pred) on the card; cu_f, cv_f
-// the float32 rho/dx, rho/dy; courant: 2 floats (max|u|, max|v|), zeroed here;
-// row_base, halo as cfd_quad_carry's, max|b| and the Courant maxima then
+// the float32 rho/dx, rho/dy; scal: 3 floats (max|b|, max|u|, max|v|),
+// zeroed here; row_base, halo, plan as cfd_quad_carry's, the maxima then
 // over the own rows (row 16a+)
 extern "C" int cfd_quad_carry_adaptive(const float* us, const float* vs, const float* p,
-                                       const float* p_prev, float* u_scr, float* v_scr,
-                                       float* us2, float* vs2, float* b, float* guess,
-                                       float* max_b, float* courant, const float* dts,
-                                       int Hq8, int Wqa, int ny, int nx, float cu_f,
-                                       float cv_f, float two_lid, float nu, float idx,
-                                       float idy, float idx2, float idy2, float rho,
-                                       int row_base, int halo, void* stream) {
+                                       const float* p_prev, float* us2, float* vs2, float* b,
+                                       float* guess, float* scal, const float* dts, int Hq8,
+                                       int Wqa, int ny, int nx, float cu_f, float cv_f,
+                                       float two_lid, float nu, float idx, float idy,
+                                       float idx2, float idy2, float rho, int row_base,
+                                       int halo, const int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(courant, 0, 2 * sizeof(float), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
   Corr c{Hq8, Wqa, ny, nx, cu_f, cv_f, two_lid, row_base};
   Pred pc{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho, row_base};
   if (halo > 0) {
-    return static_cast<int>(cavity_carry<true, true>(us, vs, p, p_prev, u_scr, v_scr, us2,
-                                                     vs2, b, guess, max_b, courant, dts, c,
-                                                     pc, halo, s));
+    return static_cast<int>(cavity_carry<true, true>(us, vs, p, p_prev, us2, vs2, b, guess,
+                                                     scal, dts, c, pc, plan, halo, s));
   }
-  return static_cast<int>(cavity_carry<true>(us, vs, p, p_prev, u_scr, v_scr, us2, vs2, b,
-                                              guess, max_b, courant, dts, c, pc, 0, s));
+  return static_cast<int>(cavity_carry<true, false>(us, vs, p, p_prev, us2, vs2, b, guess,
+                                                    scal, dts, c, pc, plan, 0, s));
 }
 
 extern "C" int cfd_quad_channel_corrector(const float* us, const float* vs,

@@ -57,39 +57,97 @@ __device__ __forceinline__ float box_v(F f, int j, int i, int ny, int nx) {
   return f(j, i);
 }
 
+// The arithmetic of the stages from accessors a(j, i): global logical
+// (j, i), reads of the quad arrays (cfd::QuadRead, through qld) or of a
+// shared-memory tile (carry_tile.cuh). The *_formula functions are the
+// arithmetic alone, for a face or cell known to be valid (a tile's interior
+// path).
+
+template <class LUS, class LP>
+__device__ __forceinline__ float rb_u_corr_formula(LUS us, LP p, int j, int i,
+                                                   const RBCorr& c) {
+  return us(j, i) - c.cu * (p(j, i + 1) - p(j, i));
+}
+
+template <class LVS, class LP>
+__device__ __forceinline__ float rb_v_corr_formula(LVS vs, LP p, int j, int i,
+                                                   const RBCorr& c) {
+  return vs(j, i) - c.cv * (p(j + 1, i) - p(j, i));
+}
+
 // corrected u on valid faces, the tentative value elsewhere
-__device__ __forceinline__ float rb_u_corr(const float* us, const float* p, int j, int i,
-                                           const RBCorr& c) {
-  const float a = qld(us, j, i, c.Hq8, c.Wqa, c.row0);
-  if (!u_valid(j, i, c.ny, c.nx)) return a;
-  return a - c.cu * (qld(p, j, i + 1, c.Hq8, c.Wqa, c.row0) -
-                     qld(p, j, i, c.Hq8, c.Wqa, c.row0));
+template <class LUS, class LP>
+__device__ __forceinline__ float rb_u_corr_at(LUS us, LP p, int j, int i, const RBCorr& c) {
+  if (!u_valid(j, i, c.ny, c.nx)) return us(j, i);
+  return rb_u_corr_formula(us, p, j, i, c);
 }
 
-__device__ __forceinline__ float rb_v_corr(const float* vs, const float* p, int j, int i,
-                                           const RBCorr& c) {
-  const float a = qld(vs, j, i, c.Hq8, c.Wqa, c.row0);
-  if (!v_valid(j, i, c.ny, c.nx)) return a;
-  return a - c.cv * (qld(p, j + 1, i, c.Hq8, c.Wqa, c.row0) -
-                     qld(p, j, i, c.Hq8, c.Wqa, c.row0));
+template <class LVS, class LP>
+__device__ __forceinline__ float rb_v_corr_at(LVS vs, LP p, int j, int i, const RBCorr& c) {
+  if (!v_valid(j, i, c.ny, c.nx)) return vs(j, i);
+  return rb_v_corr_formula(vs, p, j, i, c);
 }
 
-// T before its ghost update: the flux-form advection + diffusion on the
-// cells (the twin's operation order), the old value elsewhere
-__device__ __forceinline__ float t_pre(const float* T, const float* u, const float* v, int j,
-                                       int i, const RBTemp& c) {
-  const int H = c.Hq8, W = c.Wqa, r = c.row0;
-  const float t = qld(T, j, i, H, W, r);
-  if (!is_cell(j, i, c.ny, c.nx)) return t;
-  const float te = qld(T, j, i + 1, H, W, r), tw = qld(T, j, i - 1, H, W, r);
-  const float tn = qld(T, j + 1, i, H, W, r), ts = qld(T, j - 1, i, H, W, r);
-  const float fe = qld(u, j, i, H, W, r) * 0.5f * (t + te);
-  const float fw = qld(u, j, i - 1, H, W, r) * 0.5f * (tw + t);
-  const float fn = qld(v, j, i, H, W, r) * 0.5f * (t + tn);
-  const float fs = qld(v, j - 1, i, H, W, r) * 0.5f * (ts + t);
+// the corrected u, v at (j, i) with the box no-slip ghosts
+template <class LUS, class LVS, class LP>
+__device__ __forceinline__ float2 rb_uv_at(LUS us, LVS vs, LP p, int j, int i,
+                                           const RBCorr& c) {
+  auto fu = [&](int jj, int ii) { return rb_u_corr_at(us, p, jj, ii, c); };
+  auto fv = [&](int jj, int ii) { return rb_v_corr_at(vs, p, jj, ii, c); };
+  return make_float2(box_u(fu, j, i, c.ny, c.nx), box_v(fv, j, i, c.ny, c.nx));
+}
+
+// T on a cell: the flux-form advection + diffusion (the twin's operation
+// order)
+template <class LT, class LU, class LV>
+__device__ __forceinline__ float t_pre_formula(LT T, LU u, LV v, int j, int i,
+                                               const RBTemp& c) {
+  const float t = T(j, i);
+  const float te = T(j, i + 1), tw = T(j, i - 1);
+  const float tn = T(j + 1, i), ts = T(j - 1, i);
+  const float fe = u(j, i) * 0.5f * (t + te);
+  const float fw = u(j, i - 1) * 0.5f * (tw + t);
+  const float fn = v(j, i) * 0.5f * (t + tn);
+  const float fs = v(j - 1, i) * 0.5f * (ts + t);
   const float adv = (fe - fw) * c.idx + (fn - fs) * c.idy;
   const float lap = (te - 2.0f * t + tw) * c.idx2 + (tn - 2.0f * t + ts) * c.idy2;
   return t + c.dt * (c.kappa * lap - adv);
+}
+
+// T before its ghost update: t_pre_formula on the cells, the old value
+// elsewhere
+template <class LT, class LU, class LV>
+__device__ __forceinline__ float t_pre_at(LT T, LU u, LV v, int j, int i, const RBTemp& c) {
+  if (!is_cell(j, i, c.ny, c.nx)) return T(j, i);
+  return t_pre_formula(T, u, v, j, i, c);
+}
+
+// T' at (j, i) with the Dirichlet ghost rows and the adiabatic ghost columns
+template <class LT, class LU, class LV>
+__device__ __forceinline__ float temperature_at(LT T, LU u, LV v, int j, int i,
+                                                const RBTemp& c) {
+  const int ny = c.ny, nx = c.nx;
+  if (j == 0 && i >= 1 && i <= nx) return c.two_tb - t_pre_at(T, u, v, 1, i, c);
+  if (j == ny + 1 && i >= 1 && i <= nx) return c.two_tt - t_pre_at(T, u, v, ny, i, c);
+  if (i == 0 && j >= 1 && j <= ny) return t_pre_at(T, u, v, j, 1, c);
+  if (i == nx + 1 && j >= 1 && j <= ny) return t_pre_at(T, u, v, j, nx, c);
+  return t_pre_at(T, u, v, j, i, c);
+}
+
+// the tentative u on a valid face (the predictor), u2 elsewhere
+template <class LU, class LV>
+__device__ __forceinline__ float rb_fu_at(LU u, LV v, int j, int i, const Pred& c) {
+  return u_valid(j, i, c.ny, c.nx) ? cfd::u_star_at(u, v, j, i, c) : u(j, i);
+}
+
+// the tentative v on a valid face (the predictor and the buoyancy buoy *
+// (T'(j) + T'(j+1))), v2 elsewhere
+template <class LU, class LV, class LT>
+__device__ __forceinline__ float rb_fv_at(LU u, LV v, LT T2, int j, int i, const Pred& c,
+                                          float buoy) {
+  if (!v_valid(j, i, c.ny, c.nx)) return v(j, i);
+  const float t = T2(j, i) + T2(j + 1, i);
+  return cfd::v_star_at(u, v, j, i, c) + buoy * t;
 }
 
 // The RB corrector at quad cell idx: the corrected, ghosted u2, v2; the
@@ -99,14 +157,12 @@ __device__ __forceinline__ float2 corrector_cell(const float* us, const float* v
                                                  float* u2, float* v2, float* guess,
                                                  long long idx, const RBCorr& c) {
   const cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa, c.row0);
-  auto fu = [&](int j, int i) { return rb_u_corr(us, p, j, i, c); };
-  auto fv = [&](int j, int i) { return rb_v_corr(vs, p, j, i, c); };
-  const float u = box_u(fu, cell.j, cell.i, c.ny, c.nx);
-  const float v = box_v(fv, cell.j, cell.i, c.ny, c.nx);
-  u2[idx] = u;
-  v2[idx] = v;
+  const float2 uv = rb_uv_at(quad_read(us, c), quad_read(vs, c), quad_read(p, c), cell.j,
+                             cell.i, c);
+  u2[idx] = uv.x;
+  v2[idx] = uv.y;
   if (p_prev != nullptr) guess[idx] = 2.0f * p[idx] - p_prev[idx];
-  return make_float2(fabsf(u), fabsf(v));
+  return make_float2(fabsf(uv.x), fabsf(uv.y));
 }
 
 // T' at quad cell idx with the Dirichlet ghost rows and the adiabatic ghost
@@ -115,20 +171,8 @@ __device__ __forceinline__ void temperature_cell(const float* T, const float* u,
                                                  const float* v, float* T2, long long idx,
                                                  const RBTemp& c) {
   const cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa, c.row0);
-  const int j = cell.j, i = cell.i, ny = c.ny, nx = c.nx;
-  float out;
-  if (j == 0 && i >= 1 && i <= nx) {
-    out = c.two_tb - t_pre(T, u, v, 1, i, c);
-  } else if (j == ny + 1 && i >= 1 && i <= nx) {
-    out = c.two_tt - t_pre(T, u, v, ny, i, c);
-  } else if (i == 0 && j >= 1 && j <= ny) {
-    out = t_pre(T, u, v, j, 1, c);
-  } else if (i == nx + 1 && j >= 1 && j <= ny) {
-    out = t_pre(T, u, v, j, nx, c);
-  } else {
-    out = t_pre(T, u, v, j, i, c);
-  }
-  T2[idx] = out;
+  T2[idx] = temperature_at(quad_read(T, c), quad_read(u, c), quad_read(v, c), cell.j, cell.i,
+                           c);
 }
 
 // The RB predictor at quad cell idx on the valid faces (u2, v2 elsewhere),
@@ -141,16 +185,9 @@ __device__ __forceinline__ float predictor_source_cell(const float* u, const flo
                                                        const Pred& c, float buoy) {
   const cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa, c.row0);
   const int j = cell.j, i = cell.i;
-  auto fu = [&](int jj, int ii) {
-    return u_valid(jj, ii, c.ny, c.nx) ? cfd::u_star(u, v, jj, ii, c)
-                                       : qld(u, jj, ii, c.Hq8, c.Wqa, c.row0);
-  };
-  auto fv = [&](int jj, int ii) {
-    if (!v_valid(jj, ii, c.ny, c.nx)) return qld(v, jj, ii, c.Hq8, c.Wqa, c.row0);
-    const float t = qld(T2, jj, ii, c.Hq8, c.Wqa, c.row0) +
-                    qld(T2, jj + 1, ii, c.Hq8, c.Wqa, c.row0);
-    return cfd::v_star(u, v, jj, ii, c) + buoy * t;
-  };
+  const QuadRead lu = quad_read(u, c), lv = quad_read(v, c), lt = quad_read(T2, c);
+  auto fu = [&](int jj, int ii) { return rb_fu_at(lu, lv, jj, ii, c); };
+  auto fv = [&](int jj, int ii) { return rb_fv_at(lu, lv, lt, jj, ii, c, buoy); };
   const float a = box_u(fu, j, i, c.ny, c.nx);
   const float bv = box_v(fv, j, i, c.ny, c.nx);
   us2[idx] = a;

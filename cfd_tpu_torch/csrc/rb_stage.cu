@@ -12,19 +12,23 @@
 // the temperature update, the predictor with buoyancy, the source) is far
 // below the card's rate.
 //
-// Design: one thread per quad cell, neighbours through the guarded quad
-// accessor, as csrc/quad_stage.cu; the per-cell bodies live in
-// rb_carry.cuh, which the whole-step kernel (whole_step.cu) runs too. The
-// stages depend on their neighbours' results of the stage before, so the
-// carry runs as FOUR launches:
-// (1) the corrector with the box no-slip ghosts writes the corrected u2, v2
-// into scratch (and the guess 2p - p_prev), (2) the temperature stage reads
-// T and the scratch u2, v2 and writes T' with its ghosts, (3) the predictor,
-// the buoyancy from T', the box ghosts on the tentative fields, the source
-// and the per-block partial sums of b, (4) one block folds the partials in
-// the order of the PyTorch twin's fixed_order_sum. A thread that writes a
-// ghost recomputes the pre-ghost value it copies from (box_u, box_v,
-// temperature), so no stage needs a second pass for its ghosts.
+// Design. The carry is ONE tile launch and one sum launch. The tile kernel
+// (carry_tile.cuh) loads us, vs, p and T with a halo of 4 plane rows and
+// columns (8 logical, >= the stages' 7 rows, kRBRadius) into shared memory
+// and runs the stages there, each on the region the next one reads: the
+// corrector with the box no-slip ghosts (u2, v2), the temperature stage
+// with its ghosts (T'), the predictor with the buoyancy from T' and the box
+// ghosts on the tentative fields (us', vs'), then the source b of its own
+// cells; it writes us', vs', T', b (and the guess 2p - p_prev) of its own
+// cells and reduces the Courant maxima over them. A thread that writes a
+// ghost evaluates the pre-ghost value it copies from (box_u, box_v,
+// temperature_at), as the per-cell bodies do. Tiles that touch no wall,
+// ghost row or padding take a path with no ghost or mask test. The sum
+// launch (carry_tile.cuh source_sum) sums b in the order of the PyTorch
+// twin's fixed_order_sum: 256-wide chunks by the pairwise tree, then the
+// last block to finish folds the partials. 8 passes over the fields (4
+// in, 4 out) and one more over b, where the earlier four-launch chain
+// made about 15.
 //
 // The corrector keeps the tentative value on invalid faces (u_else = us,
 // rb_quad.py:171-174, 251-252), unlike the cavity and channel correctors,
@@ -44,8 +48,8 @@
 // jy * P - 8 is the global plane row of local row 0, as the cavity's and
 // the channel's (csrc/quad_stage.cu): the ghosts test the global row, so
 // the T ghost rows j = 0 and ny + 1 and the walls are written by the shard
-// that holds them; a neighbour outside the block reads 0 (the scratch u2,
-// v2 and T' exist on the block only); the partial sums of b take the own
+// that holds them; a neighbour outside the block reads 0 (the tiles stage
+// u2, v2 and T' on the block only, zero outside it); the sum of b takes the own
 // rows only, and so do the Courant maxima of its traced-dt instance (row
 // 16e+). The stages' dependency radius (kRBRadius), one row for each:
 // the corrector (p at j+1), the box ghosts (the ghost rows read rows 1 and
@@ -56,11 +60,14 @@
 // halo 0, and its instances fold the row offset away at compile time
 // (kBlock).
 //
-// Adaptive stepping (template flags kTraced, kCourant, as csrc/quad_stage.cu):
+// Adaptive stepping (template flag kAdaptive, as csrc/quad_stage.cu's):
 // the carry completes step n with dt_corr, the corrector AND the temperature
 // transport (rb_quad.py:153-157), and advances step n+1 with dt_pred, the
 // predictor, the buoyancy dt_pred * 0.5 (rb_quad.py:195) and the source; the
-// corrector reduces max|u2|, max|v2| (rb_quad.py:211).
+// tiles reduce max|u2|, max|v2| (rb_quad.py:211). The stats/export
+// corrector (make_quad_rb_corrector) keeps the first design, one thread per
+// quad cell through the guarded quad accessor.
+#include "carry_tile.cuh"
 #include "common.cuh"
 #include "predictor.cuh"
 #include "rb_carry.cuh"
@@ -75,96 +82,191 @@ using cfd::rb::RBTemp;
 constexpr int kRBRadius = 7;
 static_assert(kRBRadius <= 8, "the RB carry reaches past the 8-row halo");
 
-// launch 1 (and the corrector entry point): the corrected, ghosted u2, v2;
-// guess = 2p - p_prev where p_prev is given. kTraced: cu, cv formed from
-// *dt (c0 holds rho*dx, rho*dy); kCourant: max|u2|, max|v2| into courant[0],
-// courant[1]; kBlock: a shard's local block (its row offset, and the
-// Courant maxima over its own rows only, cfd::own_row), else row0 folds to 0
-template <bool kTraced, bool kCourant, bool kBlock = false>
+// the corrector entry point: the corrected, ghosted u2, v2 (kTraced: cu, cv
+// formed from *dt; c0 holds rho*dx, rho*dy)
+template <bool kTraced>
 __global__ void rb_corrector_kernel(const float* us, const float* vs, const float* p,
-                                    const float* p_prev, float* u2, float* v2, float* guess,
-                                    RBCorr c0, const float* dt, float* courant, int halo) {
+                                    float* u2, float* v2, RBCorr c0, const float* dt) {
   RBCorr c = c0;
-  if constexpr (!kBlock) c.row0 = 0;
+  c.row0 = 0;
   if constexpr (kTraced) {
     c.cu = cfd::traced_coeff<true>(*dt, c0.cu);
     c.cv = cfd::traced_coeff<true>(*dt, c0.cv);
   }
   const long long n = 4LL * c.Hq8 * c.Wqa;
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float au = 0.f, av = 0.f;
-  if (idx < n) {
-    const float2 a = cfd::rb::corrector_cell(us, vs, p, p_prev, u2, v2, guess, idx, c);
-    if (!kBlock || cfd::own_row(idx, c.Hq8, c.Wqa, halo)) {
-      au = a.x;
-      av = a.y;
+  if (idx < n) cfd::rb::corrector_cell(us, vs, p, nullptr, u2, v2, nullptr, idx, c);
+}
+
+namespace tile = cfd::tile;
+
+// the buffers a tile stages: us, vs, p, T, then the corrected u2, v2 (T'
+// overwrites p, us' and vs' overwrite us and vs)
+constexpr int kRBBuffers = 6;
+
+// The carry's tile kernel (the design above). kAdaptive: the coefficients
+// from dts = (dt_corr, dt_pred) on the card, dt_corr for the corrector and
+// the temperature transport, dt_pred for the predictor, the buoyancy dt_pred
+// * 0.5 (the reference's (dt_pred * buoyancy) * 0.5 at buoyancy 1) and the
+// source, and the Courant maxima into courant[0], courant[1]; kBlock: a
+// shard's local block, whose maxima take its own rows only, else row0
+// folds to 0. guess = 2p - p_prev where p_prev is given.
+template <bool kAdaptive, bool kBlock>
+__global__ void __launch_bounds__(tile::kThreads)
+    rb_carry_kernel(const float* us, const float* vs, const float* p, const float* T,
+                    const float* p_prev, float* us2, float* vs2, float* T2, float* b,
+                    float* guess, float* courant, RBCorr cc, RBTemp tc, Pred pc, float buoy,
+                    const float* dts, tile::Plan pl, int halo) {
+  if constexpr (kAdaptive) {
+    cc.cu = cfd::traced_coeff<true>(*dts, cc.cu);
+    cc.cv = cfd::traced_coeff<true>(*dts, cc.cv);
+    tc.dt = *dts;
+  }
+  pc = cfd::pred_at<kAdaptive>(pc, kAdaptive ? dts + 1 : nullptr);
+  if constexpr (kAdaptive) buoy = pc.dt * 0.5f;
+  if constexpr (!kBlock) cc.row0 = tc.row0 = pc.row0 = 0;
+  const int Hq8 = cc.Hq8, Wqa = cc.Wqa, ny = cc.ny, nx = cc.nx, plane = Hq8 * Wqa;
+  const tile::Tile t = tile::make_tile(pl, Hq8, Wqa, cc.row0);
+  const int N = static_cast<int>(tile::buffer_floats(pl.rows, pl.cols, pl.halo)), LC = t.LC;
+  float* const s_us = tile::smem();
+  float* const s_vs = s_us + N;
+  float* const s_p = s_us + 2 * N;
+  float* const s_T = s_us + 3 * N;
+  float* const s_u = s_us + 4 * N;
+  float* const s_v = s_us + 5 * N;
+  {
+    const float* src[4] = {us, vs, p, T};
+    float* const dst[4] = {s_us, s_vs, s_p, s_T};
+    tile::load<4>(src, dst, t, Hq8, Wqa);
+  }
+  __syncthreads();
+  // u2, v2 where T' and the predictor read them; T' where the predictor
+  // reads it; us', vs' where the source reads them (own cells, one row
+  // south, one column west)
+  const tile::Box A = tile::around(t, 3, 3, 4, 3), TB = tile::around(t, 1, 1, 2, 1);
+  const tile::Box B = tile::around(t, 1, 0, 1, 0);
+  const tile::View vus = tile::view(s_us, t), vvs = tile::view(s_vs, t);
+  const tile::View vp = tile::view(s_p, t), vT = tile::view(s_T, t);
+  const tile::View vu = tile::view(s_u, t), vv = tile::view(s_v, t), vT2 = vp;
+  const bool inner = tile::interior(t, A, ny, nx, Hq8);
+  if (inner) {
+    tile::each_cell(A, LC, [&](int lj, int li, int k) {
+      const int j = t.gj + lj, i = t.ai + li;
+      s_u[k] = cfd::rb::rb_u_corr_formula(vus, vp, j, i, cc);
+      s_v[k] = cfd::rb::rb_v_corr_formula(vvs, vp, j, i, cc);
+    });
+    __syncthreads();
+    tile::each_cell(TB, LC, [&](int lj, int li, int k) {
+      s_p[k] = cfd::rb::t_pre_formula(vT, vu, vv, t.gj + lj, t.ai + li, tc);
+    });
+    __syncthreads();
+    tile::each_cell(B, LC, [&](int lj, int li, int k) {
+      const int j = t.gj + lj, i = t.ai + li;
+      s_us[k] = cfd::u_star_formula(vu, vv, j, i, pc);
+      s_vs[k] = cfd::v_star_formula(vu, vv, j, i, pc) + buoy * (vT2(j, i) + vT2(j + 1, i));
+    });
+  } else {
+    tile::each_cell(A, LC, [&](int lj, int li, int k) {
+      float2 uv = make_float2(0.f, 0.f);  // outside the array a neighbour reads 0
+      if (tile::in_array(t, lj, li, Hq8, Wqa)) {
+        uv = cfd::rb::rb_uv_at(vus, vvs, vp, t.gj + lj, t.ai + li, cc);
+      }
+      s_u[k] = uv.x;
+      s_v[k] = uv.y;
+    });
+    __syncthreads();
+    tile::each_cell(TB, LC, [&](int lj, int li, int k) {
+      s_p[k] = tile::in_array(t, lj, li, Hq8, Wqa)
+                   ? cfd::rb::temperature_at(vT, vu, vv, t.gj + lj, t.ai + li, tc)
+                   : 0.f;
+    });
+    __syncthreads();
+    auto fu = [&](int j, int i) { return cfd::rb::rb_fu_at(vu, vv, j, i, pc); };
+    auto fv = [&](int j, int i) { return cfd::rb::rb_fv_at(vu, vv, vT2, j, i, pc, buoy); };
+    tile::each_cell(B, LC, [&](int lj, int li, int k) {
+      const int j = t.gj + lj, i = t.ai + li;
+      s_us[k] = cfd::rb::box_u(fu, j, i, ny, nx);
+      s_vs[k] = cfd::rb::box_v(fv, j, i, ny, nx);
+    });
+  }
+  __syncthreads();
+  float m[2] = {0.f, 0.f};
+  tile::each_own(t, Wqa, [&](int g, int gr, int lj0, int li0) {
+    const bool own = !kBlock || (gr >= halo && gr < Hq8 - halo);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int lj = lj0 + (q >> 1), li = li0 + (q & 1);
+      const int k = lj * LC + li, gq = q * plane + g;
+      const float a = s_us[k], bv = s_vs[k];
+      float bb = 0.f;
+      if (inner || cfd::rb::is_cell(t.gj + lj, t.ai + li, ny, nx)) {
+        const float div = (a - s_us[k - 1]) * pc.idx + (bv - s_vs[k - LC]) * pc.idy;
+        bb = pc.rho_dt * div;
+      }
+      us2[gq] = a;
+      vs2[gq] = bv;
+      T2[gq] = s_p[k];
+      b[gq] = bb;
+      if (p_prev != nullptr) guess[gq] = 2.0f * p[gq] - p_prev[gq];
+      if (kAdaptive && own) {
+        m[0] = cfd::bits_max(m[0], fabsf(s_u[k]));
+        m[1] = cfd::bits_max(m[1], fabsf(s_v[k]));
+      }
     }
+  });
+  if constexpr (kAdaptive) tile::block_max(m, courant);
+}
+
+// the sum of b over the own rows (all rows on a whole field) into *sum, in
+// fixed_order_sum's order (tile::source_sum)
+template <bool kBlock>
+__global__ void __launch_bounds__(cfd::kThreads)
+    rb_source_sum_kernel(const float* b, int Hq8, int Wqa, int halo, float* partials,
+                         unsigned int* count, float* sum) {
+  tile::source_sum<kBlock>(b, Hq8, Wqa, halo, partials, count, sum);
+}
+
+const void* rb_carry_fn(bool adaptive, bool block) {
+  if (adaptive) {
+    return block ? reinterpret_cast<const void*>(rb_carry_kernel<true, true>)
+                 : reinterpret_cast<const void*>(rb_carry_kernel<true, false>);
   }
-  if constexpr (kCourant) cfd::block_max2_into(au, av, courant);
+  return block ? reinterpret_cast<const void*>(rb_carry_kernel<false, true>)
+               : reinterpret_cast<const void*>(rb_carry_kernel<false, false>);
 }
 
-// launch 2: T' with the Dirichlet ghost rows and the adiabatic ghost columns
-// (kTraced: over the step of *dt, dt_corr)
-template <bool kTraced, bool kBlock = false>
-__global__ void rb_temperature_kernel(const float* T, const float* u, const float* v,
-                                      float* T2, RBTemp c0, const float* dt) {
-  RBTemp c = c0;
-  if constexpr (!kBlock) c.row0 = 0;
-  if constexpr (kTraced) c.dt = *dt;
-  const long long n = 4LL * c.Hq8 * c.Wqa;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  cfd::rb::temperature_cell(T, u, v, T2, idx, c);
-}
-
-// launch 3: the predictor, the buoyancy, the box ghosts, the source and the
-// block's partial sum of b (fixed tree; kBlock: the own rows of a shard's
-// block only, cfd::own_row). kTraced: dt, rho/dt and buoy = dt * 0.5 from
-// *dt (dt_pred), the reference's (dt_pred * buoyancy) * 0.5 at buoyancy 1
-template <bool kTraced, bool kBlock = false>
-__global__ void rb_predictor_source_kernel(const float* u, const float* v, const float* T2,
-                                           float* us2, float* vs2, float* b, float* partials,
-                                           Pred c0, float buoy0, const float* dt, int halo) {
-  Pred c = cfd::pred_at<kTraced>(c0, dt);
-  if constexpr (!kBlock) c.row0 = 0;
-  const float buoy = kTraced ? c.dt * 0.5f : buoy0;
-  const long long n = 4LL * c.Hq8 * c.Wqa;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float part = 0.f;
-  if (idx < n) {
-    const float bb = cfd::rb::predictor_source_cell(u, v, T2, us2, vs2, b, idx, c, buoy);
-    if (!kBlock || cfd::own_row(idx, c.Hq8, c.Wqa, halo)) part = bb;
-  }
-  cfd::block_sum_to(part, partials + blockIdx.x);
-}
-
-}  // namespace
-
-namespace {
-
-// the carry's four launches; kAdaptive: dts = (dt_corr, dt_pred) on the
-// card; kBlock: a shard's local block with a `halo`-row strip
-template <bool kAdaptive, bool kBlock = false>
+// The carry's two launches: the plan checked, the Courant maxima zeroed
+// (kAdaptive), the tile kernel, then the sum. kBlock: a shard's local block
+// with a `halo`-row strip, whose sum and maxima take its own rows only.
+// partials: ceil(4 Hq8 Wqa / 256) floats of scratch; count: one unsigned
+// int, 0 before the launch and after it (the sum's last block resets it).
+template <bool kAdaptive, bool kBlock>
 cudaError_t rb_carry(const float* us, const float* vs, const float* p, const float* T,
-                     const float* p_prev, float* u_scr, float* v_scr, float* us2, float* vs2,
-                     float* T2, float* b, float* guess, float* partials, float* sum_b,
+                     const float* p_prev, float* us2, float* vs2, float* T2, float* b,
+                     float* guess, float* partials, unsigned int* count, float* sum_b,
                      float* courant, const float* dts, const RBCorr& cc, const RBTemp& tc,
-                     const Pred& pc, float buoy, int halo, cudaStream_t s) {
+                     const Pred& pc, float buoy, const int* plan, int halo, cudaStream_t s) {
   if ((p_prev == nullptr) != (guess == nullptr)) return cudaErrorInvalidValue;
-  const int blocks = cfd::blocks_for(4LL * cc.Hq8 * cc.Wqa);
-  rb_corrector_kernel<kAdaptive, kAdaptive, kBlock><<<blocks, cfd::kThreads, 0, s>>>(
-      us, vs, p, p_prev, u_scr, v_scr, guess, cc, dts, courant, halo);
-  cudaError_t err = cudaGetLastError();
+  const tile::Plan pl{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
+  cudaError_t err = tile::check(pl, cc.Hq8, cc.Wqa, kRBRadius, kRBBuffers);
   if (err != cudaSuccess) return err;
-  rb_temperature_kernel<kAdaptive, kBlock><<<blocks, cfd::kThreads, 0, s>>>(
-      T, u_scr, v_scr, T2, tc, dts);
+  if constexpr (kAdaptive) {
+    err = cudaMemsetAsync(courant, 0, 2 * sizeof(float), s);
+    if (err != cudaSuccess) return err;
+  }
+  rb_carry_kernel<kAdaptive, kBlock>
+      <<<dim3(pl.grid_x, pl.grid_y), tile::kThreads, pl.smem_bytes, s>>>(
+          us, vs, p, T, p_prev, us2, vs2, T2, b, guess, courant, cc, tc, pc, buoy, dts, pl,
+          halo);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  rb_predictor_source_kernel<kAdaptive, kBlock><<<blocks, cfd::kThreads, 0, s>>>(
-      u_scr, v_scr, T2, us2, vs2, b, partials, pc, buoy, kAdaptive ? dts + 1 : nullptr, halo);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return cfd::fold_partials(partials, blocks, sum_b, s);  // launch 4
+  const int chunks = cfd::blocks_for(4LL * cc.Hq8 * cc.Wqa);
+  // a warp a chunk; at most 256 blocks, so few arrive at the count
+  const int groups = (chunks + cfd::kThreads / 32 - 1) / (cfd::kThreads / 32);
+  const int blocks = groups < 256 ? groups : 256;
+  rb_source_sum_kernel<kBlock><<<blocks, cfd::kThreads, 0, s>>>(b, cc.Hq8, cc.Wqa, halo,
+                                                                partials, count, sum_b);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -174,8 +276,8 @@ extern "C" int cfd_rb_corrector(const float* us, const float* vs, const float* p
                                 float cv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   RBCorr c{Hq8, Wqa, ny, nx, cu, cv};
-  rb_corrector_kernel<false, false><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
-      us, vs, p, nullptr, u2, v2, nullptr, c, nullptr, nullptr, 0);
+  rb_corrector_kernel<false><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
+      us, vs, p, u2, v2, c, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -186,63 +288,70 @@ extern "C" int cfd_rb_corrector_traced(const float* us, const float* vs, const f
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   RBCorr c{Hq8, Wqa, ny, nx, cu_f, cv_f};
-  rb_corrector_kernel<true, false><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
-      us, vs, p, nullptr, u2, v2, nullptr, c, dt, nullptr, 0);
+  rb_corrector_kernel<true><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
+      us, vs, p, u2, v2, c, dt);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Readies the carry's tile kernel (adaptive, block: its instance) for
+// `smem_bytes` of dynamic shared memory on the current device: blocks (SMs
+// x blocks per SM), blocks per SM and registers out (tile::ready)
+extern "C" int cfd_rb_carry_grid(int adaptive, int block, int smem_bytes, int* blocks,
+                                 int* per_sm, int* regs) {
+  return tile::ready(rb_carry_fn(adaptive != 0, block != 0), smem_bytes, blocks, per_sm, regs);
+}
+
 // p_prev and guess: both null (plain carry) or both given (emit_guess);
-// u_scr, v_scr: quad scratch; partials: cfd::blocks_for(4 * Hq8 * Wqa)
-// floats of scratch; two_tb, two_tt: 2 * the wall temperatures; buoy:
-// dt * 0.5 (the free-fall buoyancy 1); row_base, halo: a local block's
-// global plane row of row 0 and its halo strip (0, 0 on a whole field),
-// sum_b then the sum over the own rows
+// partials: cfd::blocks_for(4 * Hq8 * Wqa) floats of scratch; count: one
+// unsigned int, 0 (the sum leaves it 0); two_tb, two_tt: 2 * the wall
+// temperatures; buoy: dt * 0.5 (the free-fall buoyancy 1); row_base, halo:
+// a local block's global plane row of row 0 and its halo strip (0, 0 on a
+// whole field), sum_b then the sum over the own rows; plan: the 6 ints of
+// the tile plan (tile::Plan, kernels/plan.py carry_plan), a host array
 extern "C" int cfd_rb_carry(const float* us, const float* vs, const float* p, const float* T,
-                            const float* p_prev, float* u_scr, float* v_scr, float* us2,
-                            float* vs2, float* T2, float* b, float* guess, float* partials,
-                            float* sum_b, int Hq8, int Wqa, int ny, int nx, float cu, float cv,
-                            float dt, float nu, float idx, float idy, float idx2, float idy2,
+                            const float* p_prev, float* us2, float* vs2, float* T2, float* b,
+                            float* guess, float* partials, unsigned int* count, float* sum_b,
+                            int Hq8, int Wqa, int ny, int nx, float cu, float cv, float dt,
+                            float nu, float idx, float idy, float idx2, float idy2,
                             float rho_dt, float kappa, float two_tb, float two_tt, float buoy,
-                            int row_base, int halo, void* stream) {
+                            int row_base, int halo, const int* plan, void* stream) {
   RBCorr cc{Hq8, Wqa, ny, nx, cu, cv, row_base};
   RBTemp tc{Hq8, Wqa, ny, nx, dt, kappa, idx, idy, idx2, idy2, two_tb, two_tt, row_base};
   Pred pc{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt, 0.f, row_base};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (halo > 0) {
-    return static_cast<int>(rb_carry<false, true>(us, vs, p, T, p_prev, u_scr, v_scr, us2, vs2,
-                                                  T2, b, guess, partials, sum_b, nullptr,
-                                                  nullptr, cc, tc, pc, buoy, halo, s));
+    return static_cast<int>(rb_carry<false, true>(us, vs, p, T, p_prev, us2, vs2, T2, b, guess,
+                                                  partials, count, sum_b, nullptr, nullptr,
+                                                  cc, tc, pc, buoy, plan, halo, s));
   }
-  return static_cast<int>(rb_carry<false>(us, vs, p, T, p_prev, u_scr, v_scr, us2, vs2, T2, b,
-                                           guess, partials, sum_b, nullptr, nullptr, cc, tc, pc,
-                                           buoy, 0, s));
+  return static_cast<int>(rb_carry<false, false>(us, vs, p, T, p_prev, us2, vs2, T2, b, guess,
+                                                 partials, count, sum_b, nullptr, nullptr, cc,
+                                                 tc, pc, buoy, plan, 0, s));
 }
 
 // traced_dt + emit_courant (no guess: the adaptive RB step warm-starts from
 // plain p, and so does the sharded one): dts = (dt_corr, dt_pred) on the
 // card; cu_f, cv_f the float32 rho*dx, rho*dy; courant: 2 floats, zeroed
-// here; row_base, halo as cfd_rb_carry's, the sum and the Courant maxima
-// then over the own rows (row 16e+)
+// here; partials, count, row_base, halo, plan as cfd_rb_carry's, the sum
+// and the Courant maxima then over the own rows (row 16e+)
 extern "C" int cfd_rb_carry_adaptive(const float* us, const float* vs, const float* p,
-                                     const float* T, float* u_scr, float* v_scr, float* us2,
-                                     float* vs2, float* T2, float* b, float* partials,
+                                     const float* T, float* us2, float* vs2, float* T2,
+                                     float* b, float* partials, unsigned int* count,
                                      float* sum_b, float* courant, const float* dts, int Hq8,
                                      int Wqa, int ny, int nx, float cu_f, float cv_f, float nu,
                                      float idx, float idy, float idx2, float idy2, float rho,
                                      float kappa, float two_tb, float two_tt, int row_base,
-                                     int halo, void* stream) {
+                                     int halo, const int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(courant, 0, 2 * sizeof(float), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
   RBCorr cc{Hq8, Wqa, ny, nx, cu_f, cv_f, row_base};
   RBTemp tc{Hq8, Wqa, ny, nx, 0.f, kappa, idx, idy, idx2, idy2, two_tb, two_tt, row_base};
   Pred pc{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho, row_base};
   if (halo > 0) {
-    return static_cast<int>(rb_carry<true, true>(us, vs, p, T, nullptr, u_scr, v_scr, us2,
-                                                 vs2, T2, b, nullptr, partials, sum_b, courant,
-                                                 dts, cc, tc, pc, 0.f, halo, s));
+    return static_cast<int>(rb_carry<true, true>(us, vs, p, T, nullptr, us2, vs2, T2, b,
+                                                 nullptr, partials, count, sum_b, courant, dts,
+                                                 cc, tc, pc, 0.f, plan, halo, s));
   }
-  return static_cast<int>(rb_carry<true>(us, vs, p, T, nullptr, u_scr, v_scr, us2, vs2, T2, b,
-                                          nullptr, partials, sum_b, courant, dts, cc, tc, pc,
-                                          0.f, 0, s));
+  return static_cast<int>(rb_carry<true, false>(us, vs, p, T, nullptr, us2, vs2, T2, b,
+                                                nullptr, partials, count, sum_b, courant, dts,
+                                                cc, tc, pc, 0.f, plan, 0, s));
 }

@@ -48,9 +48,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ints as c_int, coefficients as c_float); every one returns cudaError_t.
 SIGNATURES = {
     "cfd_quad_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
-    # the cavity's carry, pre and post; the last two ints are a sharded
-    # local block's row_base and halo (0, 0 on a whole field)
-    "cfd_quad_carry": [_P] * 11 + [_I] * 4 + [_F] * 10 + [_I, _I, _P],
+    # the cavity's carry, pre and post; the carry's last two ints are a
+    # sharded local block's row_base and halo (0, 0 on a whole field), the
+    # pointer after them its tile plan (kernels/plan.py CarryPlan)
+    "cfd_quad_carry": [_P] * 9 + [_I] * 4 + [_F] * 10 + [_I, _I, _P, _P],
+    # the carries' tile kernels readied: adaptive, block, shared memory;
+    # blocks, blocks per SM, registers out
+    "cfd_quad_carry_grid": [_I] * 3 + [_P] * 3,
+    "cfd_rb_carry_grid": [_I] * 3 + [_P] * 3,
     "cfd_quad_pre_smooth_restrict": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
     "cfd_quad_post_prolong_smooth": [_P] * 9 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
     "cfd_rb_pairs": [_I] + [_P] * 10 + [_I] * 4 + [_F] * 3 + [_I, _P],
@@ -79,19 +84,19 @@ SIGNATURES = {
     "cfd_step_post_prolong_smooth": [_P] * 6 + [_I] * 6 + [_F] * 5 + [_I] * 3 + [_P],
     "cfd_rb_pairs_full": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I, _P],
     "cfd_rb_corrector": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_P],
-    "cfd_rb_carry": [_P] * 14 + [_I] * 4 + [_F] * 13 + [_I, _I, _P],
+    "cfd_rb_carry": [_P] * 13 + [_I] * 4 + [_F] * 13 + [_I, _I, _P, _P],
     # adaptive stepping: the traced-dt correctors, the traced-dt cavity
     # predictor+source, the traced-dt + Courant carries (their last two
-    # ints as the fixed carries')
+    # ints, and the cavity's and RB's plan, as the fixed carries')
     "cfd_quad_corrector_traced": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
     "cfd_quad_predictor_source": [_P] * 7 + [_I] * 4 + [_F] * 7 + [_P],
-    "cfd_quad_carry_adaptive": [_P] * 13 + [_I] * 4 + [_F] * 9 + [_I, _I, _P],
+    "cfd_quad_carry_adaptive": [_P] * 10 + [_I] * 4 + [_F] * 9 + [_I, _I, _P, _P],
     "cfd_quad_channel_corrector_traced": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
     "cfd_quad_channel_carry_adaptive": [_P] * 14 + [_I] * 4 + [_F] * 9 + [_I, _I, _P],
     "cfd_step_corrector_traced": [_P] * 6 + [_I] * 6 + [_F] * 3 + [_P],
     "cfd_step_carry_adaptive": [_P] * 12 + [_I] * 6 + [_F] * 9 + [_I, _I, _P],
     "cfd_rb_corrector_traced": [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P],
-    "cfd_rb_carry_adaptive": [_P] * 14 + [_I] * 4 + [_F] * 11 + [_I, _I, _P],
+    "cfd_rb_carry_adaptive": [_P] * 13 + [_I] * 4 + [_F] * 11 + [_I, _I, _P, _P],
     # the natural layout: the four stage kernels and the step's exact
     # masked finest-level pairs
     "cfd_predictor_source": [_P] * 6 + [_I] * 4 + [_F] * 8 + [_P],

@@ -1,6 +1,7 @@
-"""The launch plan of the cooperative solve kernels (csrc/whole_solve.cuh
-Plan): the whole-solve (kernels.whole_solve), the whole step
-(kernels.whole_step) and the fused tail (kernels.mg_tail).
+"""The launch plans of the tiled kernels: the cooperative solve kernels
+(csrc/whole_solve.cuh Plan: the whole-solve, kernels.whole_solve, the whole
+step, kernels.whole_step, and the fused tail, kernels.mg_tail) and the
+one-launch carries (csrc/carry_tile.cuh Plan, carry_plan below).
 
 Each runs one cooperative grid of one block of BLOCK_THREADS threads on
 every SM. The coarse levels from ``block_from`` down run in ONE
@@ -230,12 +231,13 @@ def device_sms(device) -> int:
 
 
 def cooperative_grid(symbol: str, *which: int) -> dict:
-    """The cooperative grid of the kernel chosen by ``which`` (the entry
-    point's arguments before the outputs: a flavor and shared memory where
-    it takes them) of the C entry point ``symbol`` (cfd_whole_solve_grid,
-    cfd_whole_step_grid, cfd_mg_tail_grid, cfd_quad_fused_pre_grid) on the
-    current CUDA device: blocks (SMs x blocks per SM), blocks per SM and
-    registers per thread. Raises when the card refuses the grid."""
+    """The grid of the kernel chosen by ``which`` (the entry point's
+    arguments before the outputs: a flavor and shared memory where it takes
+    them) of the C entry point ``symbol`` (cfd_whole_solve_grid,
+    cfd_whole_step_grid, cfd_mg_tail_grid, cfd_quad_fused_pre_grid; the
+    carries' cfd_quad_carry_grid, cfd_rb_carry_grid) on the current CUDA
+    device: blocks (SMs x blocks per SM), blocks per SM and registers per
+    thread. Raises when the card refuses the grid."""
     lib = library()
     vals = [ctypes.c_int(0) for _ in range(3)]
     err = getattr(lib, symbol)(*which, *(
@@ -258,4 +260,88 @@ def ready_grid(plan: Plan, device, symbol: str, *which: int) -> dict:
         raise RuntimeError(f"{symbol}: the card holds {grid['blocks']} blocks at once at "
                            f"{plan.smem_bytes} B of shared memory, the plan launches "
                            f"{plan.blocks}")
+    return grid
+
+
+# ------------------------------------------------------ the one-launch carries
+
+# The tile of each carry, (plane rows, plane columns), chosen on an H100 by
+# timing the candidates at the main shapes (PERF.md, the carries'
+# findings): two blocks of 512 threads (csrc/carry_tile.cuh kThreads) an SM.
+# A sweep edits these in a scratch copy; nothing overrides them.
+CARRY_TILES = {"cavity": (8, 64), "rb": (16, 32)}
+# The logical rows each carry's chain reaches (the cavity: the reference's
+# CARRY_RADIUS, cfd_tpu/kernels/quad.py:1021; RB: csrc/rb_stage.cu
+# kRBRadius) and the shared-memory buffers a tile stages (csrc/quad_stage.cu
+# kCavityBuffers, csrc/rb_stage.cu kRBBuffers).
+CARRY_RADIUS = {"cavity": 5, "rb": 7}
+CARRY_BUFFERS = {"cavity": 5, "rb": 6}
+
+
+@dataclasses.dataclass(frozen=True)
+class CarryPlan:
+    """The launch plan of a one-launch carry (csrc/carry_tile.cuh Plan):
+    tiles of ``rows`` x ``cols`` plane cells of all four planes with a halo
+    of ``halo`` plane rows and columns, ``smem_bytes`` of dynamic shared
+    memory a block, a grid of ``grid_x`` tile columns by ``grid_y`` tile
+    rows, one tile a block."""
+
+    rows: int
+    cols: int
+    halo: int
+    smem_bytes: int
+    grid_x: int
+    grid_y: int
+
+    def c_ints(self):
+        """The host array the C entry points take (the six fields)."""
+        return (ctypes.c_int * 6)(self.rows, self.cols, self.halo, self.smem_bytes,
+                                  self.grid_x, self.grid_y)
+
+
+def carry_buffer_floats(rows: int, cols: int, halo: int) -> int:
+    """Floats of one logical buffer of a tile: 2 (rows + 2 halo) x 2 (cols +
+    2 halo) (csrc/carry_tile.cuh buffer_floats)."""
+    return 4 * (rows + 2 * halo) * (cols + 2 * halo)
+
+
+def carry_plan(flow: str, qshape, tile: tuple[int, int] | None = None) -> CarryPlan:
+    """The plan of ``flow``'s carry ("cavity" or "rb") on a (4, Hq8, Wqa)
+    field or local block: CARRY_TILES' tile (the card tests pass another
+    ``tile`` to hold the kernels to their twins under it), cut to the field
+    where it is larger, a halo of ceil(CARRY_RADIUS / 2) plane rows. Raises
+    when a block's buffers do not fit its shared memory."""
+    _, Hq8, Wqa = qshape
+    rows, cols = CARRY_TILES[flow] if tile is None else tile
+    rows, cols = min(rows, Hq8), min(cols, Wqa)
+    halo = -(-CARRY_RADIUS[flow] // 2)
+    smem = 4 * CARRY_BUFFERS[flow] * carry_buffer_floats(rows, cols, halo)
+    if smem > SMEM_MAX:
+        raise ValueError(f"the {flow} carry's {rows}x{cols} tile takes {smem} B of shared "
+                         f"memory, more than a block's {SMEM_MAX}")
+    return CarryPlan(rows, cols, halo, smem, -(-Wqa // cols), -(-Hq8 // rows))
+
+
+def carry_tiles(plan: CarryPlan, qshape):
+    """Each tile's own region (plane row, plane column, rows, columns),
+    clipped at the field's edge as the kernel clips it (carry_tile.cuh
+    make_tile)."""
+    _, Hq8, Wqa = qshape
+    for ty in range(plan.grid_y):
+        for tx in range(plan.grid_x):
+            r0, c0 = ty * plan.rows, tx * plan.cols
+            yield r0, c0, min(plan.rows, Hq8 - r0), min(plan.cols, Wqa - c0)
+
+
+def ready_tiles(plan: CarryPlan, device, symbol: str, *which: int) -> dict:
+    """Ready the carry tile kernel of ``symbol`` (cfd_quad_carry_grid,
+    cfd_rb_carry_grid) and ``which`` (adaptive, block) on ``device`` for
+    the plan's shared memory, and raise unless the card holds a block of
+    it. The carry modules call it once a device and instance, before their
+    first launch there; returns cooperative_grid's dict."""
+    with torch.cuda.device(device):
+        grid = cooperative_grid(symbol, *which, plan.smem_bytes)
+    if grid["blocks_per_sm"] < 1:
+        raise RuntimeError(f"{symbol}: the card holds no block at {plan.smem_bytes} B of "
+                           f"shared memory")
     return grid

@@ -31,10 +31,15 @@ every division is by a device tensor (PyTorch turns a Python divisor of a
 CUDA tensor, and a Python dividend, into a reciprocal multiply).
 
 The TPU kernels' slab/halo/band machinery (quad.py:132-417, _band_maker
-:611-627) exists for a sequential grid with large VMEM and is not ported.
+:611-627) exists for a sequential grid with large VMEM and is not ported
+as such; the cavity carry's CUDA kernel keeps its idea, the whole chain on
+chip, in shared-memory tiles (csrc/carry_tile.cuh, planned by
+kernels/plan.py carry_plan).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -42,6 +47,7 @@ from torch import nn
 
 from cfd_tpu_torch.kernels._build import Kernel, ptr, route
 from cfd_tpu_torch.kernels.mg_tail import fold_sum
+from cfd_tpu_torch.kernels.plan import carry_plan, ready_tiles
 from cfd_tpu_torch.ops.stencil import StencilCoeffs
 
 CARRY = Kernel("quad_corr_predictor_source", "cfd_quad_carry",
@@ -511,12 +517,30 @@ class QuadCorrector(_QuadStage):
         return u2, v2, guess
 
 
+def tile_plan_ptr(op, flow: str, device, symbol: str, adaptive: bool, block: bool):
+    """``op``'s carry tile plan (``op._tile_plan``: kernels/plan.py
+    carry_plan on op.qshape unless set before its first launch) as the C
+    entry points take it, its kernel instance readied on ``device`` once
+    (plan.ready_tiles through ``symbol``)."""
+    if getattr(op, "_tile_ints", None) is None:
+        if getattr(op, "_tile_plan", None) is None:
+            op._tile_plan = carry_plan(flow, op.qshape)
+        op._tile_ints, op._tile_ready = op._tile_plan.c_ints(), set()
+    key = (str(device), adaptive, block)
+    if key not in op._tile_ready:
+        ready_tiles(op._tile_plan, device, symbol, int(adaptive), int(block))
+        op._tile_ready.add(key)
+    return ctypes.cast(op._tile_ints, ctypes.c_void_p)
+
+
 class QuadCorrPredictorSource(QuadCorrector):
     """Tentative-state cavity stage (cfd_tpu/kernels/quad.py:938):
     (us, vs, p, p_prev) -> (us', vs', b', guess, max|b'|). Corrects the
     carried (u*, v*) with p, rebuilds the lid-cavity ghosts, runs the MAC
     predictor, builds b = rho/dt * div on the cells and reduces max|b|.
-    ``max|b'|`` is a 0-d float32 tensor on the fields' device."""
+    ``max|b'|`` is a 0-d float32 tensor on the fields' device. On the card
+    it is one launch over shared-memory tiles (csrc/quad_stage.cu
+    cavity_carry_kernel) after the zeroing of max|b'|."""
 
     def __init__(self, shape, coeffs: StencilCoeffs, lid_velocity: float = 1.0):
         super().__init__(shape, coeffs, lid_velocity)
@@ -531,15 +555,23 @@ class QuadCorrPredictorSource(QuadCorrector):
         return us2, vs2, b, torch.stack(guess), torch.max(torch.abs(b))
 
     def kernel(self, us, vs, p, p_prev):
-        u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
-        max_b = torch.empty((), dtype=torch.float32, device=us.device)
-        _, Hq8, Wqa = self.qshape
-        c = self.coeffs
-        CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr), ptr(v_scr), ptr(us2),
-              ptr(vs2), ptr(b), ptr(guess), ptr(max_b), Hq8, Wqa, self.ny, self.nx,
-              self.cu, self.cv, 2.0 * self.lid, c.dt, c.viscosity, c.idx, c.idy,
-              c.idx2, c.idy2, self.rho_dt, 0, 0)
-        return us2, vs2, b, guess, max_b
+        return _cavity_carry(self, CARRY, (us, vs, p, p_prev), 0, 0)
+
+
+def _cavity_carry(op, kern: Kernel, fields, row_base: int, halo: int):
+    """One launch of cfd_quad_carry through ``kern`` (its counter): (us',
+    vs', b', guess, max|b'|), max|b'| over the own rows of a block with a
+    ``halo``-row strip."""
+    us, vs, p, p_prev = fields
+    us2, vs2, b, guess = (torch.empty_like(us) for _ in range(4))
+    max_b = torch.empty((), dtype=torch.float32, device=us.device)
+    _, H, Wqa = op.qshape
+    c = op.coeffs
+    plan = tile_plan_ptr(op, "cavity", us.device, "cfd_quad_carry_grid", False, halo > 0)
+    kern(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(us2), ptr(vs2), ptr(b), ptr(guess),
+         ptr(max_b), H, Wqa, op.ny, op.nx, op.cu, op.cv, 2.0 * op.lid, c.dt, c.viscosity, c.idx,
+         c.idy, c.idx2, c.idy2, op.rho_dt, row_base, halo, plan)
+    return us2, vs2, b, guess, max_b
 
 
 class QuadChannelCorrector(_QuadStage):
@@ -742,7 +774,9 @@ class QuadCorrPredictorSourceAdaptive(_Traced, QuadCorrPredictorSource):
     b', guess, max|b'|, max|u|, max|v|). dts = (dt_corr, dt_pred): dt_corr
     corrects the carried tentative fields (the dt that built them), dt_pred
     drives this step's predictor and source; max|u|, max|v| are of the
-    corrected, ghosted fields (the lagged controller's Courant feedback)."""
+    corrected, ghosted fields (the lagged controller's Courant feedback).
+    On the card: the fixed carry's tile kernel, its adaptive instance, after
+    one zeroing of the three maxima."""
 
     n_dt = 2
     divided = False
@@ -769,14 +803,14 @@ def _cavity_carry_adaptive(op, kern: Kernel, dts, fields, row_base: int, halo: i
     (us', vs', b', guess, max|b'|, max|u|, max|v|), the reductions over the
     own rows of a block with a ``halo``-row strip."""
     us, vs, p, p_prev = fields
-    u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
+    us2, vs2, b, guess = (torch.empty_like(us) for _ in range(4))
     scal = torch.empty(3, dtype=torch.float32, device=us.device)  # max|b|, max|u|, max|v|
     _, H, Wqa = op.qshape
     c = op.coeffs
-    kern(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr), ptr(v_scr), ptr(us2), ptr(vs2),
-         ptr(b), ptr(guess), ptr(scal), ptr(scal[1:]), ptr(dts), H, Wqa, op.ny, op.nx, op.cu_f,
-         op.cv_f, 2.0 * op.lid, c.viscosity, c.idx, c.idy, c.idx2, c.idy2, c.density, row_base,
-         halo)
+    plan = tile_plan_ptr(op, "cavity", us.device, "cfd_quad_carry_grid", True, halo > 0)
+    kern(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(us2), ptr(vs2), ptr(b), ptr(guess),
+         ptr(scal), ptr(dts), H, Wqa, op.ny, op.nx, op.cu_f, op.cv_f, 2.0 * op.lid, c.viscosity,
+         c.idx, c.idy, c.idx2, c.idy2, c.density, row_base, halo, plan)
     return us2, vs2, b, guess, scal[0], scal[1], scal[2]
 
 
@@ -1128,9 +1162,10 @@ class _CarryBlock:
     """A cavity or channel carry on one shard's local (4, P + 16, Wqa) block,
     called (row_base, us, vs, p, p_prev). Its twin is the single-device
     twin on the block padded with DEV_HALO zero rows either side, the
-    corrected u, v zeroed on the padding: the kernel (csrc/quad_stage.cu)
-    reads 0 outside the block and its corrector writes the corrected u, v of
-    the block only."""
+    corrected u, v zeroed on the padding: the kernels (csrc/quad_stage.cu)
+    read 0 outside the block and hold the corrected u, v of the block only
+    (the channel's corrector in its scratch, the cavity's tiles in shared
+    memory)."""
 
     def __init__(self, shape, coeffs: StencilCoeffs, velocity: float = 1.0,
                  shard: tuple[int, int] = (8, 1)):
@@ -1176,24 +1211,18 @@ class QuadCorrPredictorSourceShard(_CarryBlock, QuadCorrPredictorSource):
     (local 8 ... P + 7): the shard's partial.
 
     The twin is _CarryBlock's. The radius of the stages is 5 rows, so the
-    own rows equal the single-device carry's."""
+    own rows equal the single-device carry's. On the card: row 1's tile
+    kernel, its block instance (its tiles stage the corrected u, v on the
+    block alone and reduce over the own rows)."""
 
     def plain(self, row_base, us, vs, p, p_prev):
         us2, vs2, b, guess, _, _ = self._block_stage(row_base, us, vs, p, p_prev)
         return us2, vs2, b, guess, torch.max(torch.abs(own_rows(b, self.P)))
 
     def kernel(self, row_base, us, vs, p, p_prev):
-        u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
-        max_b = torch.empty((), dtype=torch.float32, device=us.device)
-        _, H, Wqa = self.qshape
-        c = self.coeffs
         with torch.cuda.device(us.device):  # the shards may lie on several cards
-            SHARD_CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr), ptr(v_scr),
-                        ptr(us2), ptr(vs2), ptr(b), ptr(guess), ptr(max_b), H, Wqa,
-                        self.ny, self.nx, self.cu, self.cv, 2.0 * self.lid, c.dt,
-                        c.viscosity, c.idx, c.idy, c.idx2, c.idy2, self.rho_dt,
-                        int(row_base), DEV_HALO)
-        return us2, vs2, b, guess, max_b
+            return _cavity_carry(self, SHARD_CARRY, (us, vs, p, p_prev), int(row_base),
+                                 DEV_HALO)
 
 
 class QuadChannelCorrPredictorSourceShard(_CarryBlock, QuadChannelCorrPredictorSource):

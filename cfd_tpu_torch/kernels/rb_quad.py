@@ -31,6 +31,9 @@ source); the corrector with ``traced_dt``. The carry with ``shard=(P,
 mdy)`` runs on one shard's local block of the plane-row mesh
 (QuadRBStepShard, parallel.quad_sharded), fixed and with traced_dt +
 emit_courant (QuadRBStepShardAdaptive: the sharded lagged controller).
+On the card every carry instance is two launches: a shared-memory tile
+kernel that runs the whole chain on chip and writes the outputs, then the
+fixed-order sum of b (csrc/rb_stage.cu, csrc/carry_tile.cuh).
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from cfd_tpu_torch.kernels.quad import (
     own_rows,
     quad_shape,
     rho_over,
+    tile_plan_ptr,
 )
 from cfd_tpu_torch.ops.stencil import StencilCoeffs
 
@@ -176,7 +180,12 @@ class QuadRBStep(QuadRBCorrector):
 
     The buoyancy constant is the reference's ``dt * buoyancy * 0.5`` with
     the free-fall buoyancy 1, formed as a Python double and then multiplied
-    as one float32 (rb_quad.py:201); plain and kernel take the same value."""
+    as one float32 (rb_quad.py:201); plain and kernel take the same value.
+
+    On the card: one tile kernel (csrc/rb_stage.cu rb_carry_kernel, the
+    corrector, T', the predictor and the source in shared memory) and one
+    launch of the sum, whose last block folds the partials and leaves its
+    count (a persistent int on each device, _sum_scratch) at 0."""
 
     def __init__(self, shape, coeffs: StencilCoeffs, kappa: float, params: RBParams,
                  emit_guess: bool = False):
@@ -253,20 +262,39 @@ class QuadRBStep(QuadRBCorrector):
         return outs, torch.stack(u2), torch.stack(v2)
 
     def kernel(self, us, vs, p, T, p_prev=None):
-        u_scr, v_scr, us2, vs2, T2, b = (torch.empty_like(us) for _ in range(6))
-        guess = torch.empty_like(us) if self.emit_guess else None
-        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
-                               device=us.device)
-        sum_b = torch.empty((), dtype=torch.float32, device=us.device)
-        c = self.coeffs
-        opt = lambda t: ptr(t) if t is not None else None
-        RB_CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(T), opt(p_prev), ptr(u_scr), ptr(v_scr),
-                 ptr(us2), ptr(vs2), ptr(T2), ptr(b), opt(guess), ptr(partials), ptr(sum_b),
-                 *self._ints(), self.cu, self.cv, c.dt, c.viscosity, c.idx, c.idy, c.idx2,
-                 c.idy2, self.rho_dt, self.kappa, 2.0 * self.t_bottom, 2.0 * self.t_top,
-                 self.buoy, 0, 0)
-        outs = [us2, vs2, T2, b] + ([guess] if self.emit_guess else [])
-        return (*outs, sum_b)
+        return _rb_carry(self, RB_CARRY, (us, vs, p, T), p_prev, 0, 0)
+
+
+def _sum_scratch(op, us):
+    """(partials, count) of one launch of the sum of b over ``us``'s shape
+    (csrc/carry_tile.cuh source_sum): fresh partials, and the count, one
+    int32 on ``us``'s device that ``op`` keeps (op._sum_counts), zeroed
+    once: every sum leaves it 0."""
+    counts = op.__dict__.setdefault("_sum_counts", {})
+    if str(us.device) not in counts:
+        counts[str(us.device)] = torch.zeros(1, dtype=torch.int32, device=us.device)
+    partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32, device=us.device)
+    return partials, counts[str(us.device)]
+
+
+def _rb_carry(op, kern: Kernel, fields, p_prev, row_base: int, halo: int):
+    """One launch of cfd_rb_carry through ``kern`` (its counter): (us', vs',
+    T', b[, guess], sum b), the sum over the own rows of a block with a
+    ``halo``-row strip; the guess where p_prev is given."""
+    us, vs, p, T = fields
+    us2, vs2, T2, b = (torch.empty_like(us) for _ in range(4))
+    guess = torch.empty_like(us) if p_prev is not None else None
+    partials, count = _sum_scratch(op, us)
+    sum_b = torch.empty((), dtype=torch.float32, device=us.device)
+    c = op.coeffs
+    opt = lambda t: ptr(t) if t is not None else None
+    plan = tile_plan_ptr(op, "rb", us.device, "cfd_rb_carry_grid", False, halo > 0)
+    kern(us, ptr(us), ptr(vs), ptr(p), ptr(T), opt(p_prev), ptr(us2), ptr(vs2), ptr(T2), ptr(b),
+         opt(guess), ptr(partials), ptr(count), ptr(sum_b), *op._ints(), op.cu, op.cv, c.dt,
+         c.viscosity, c.idx, c.idy, c.idx2, c.idy2, op.rho_dt, op.kappa, 2.0 * op.t_bottom,
+         2.0 * op.t_top, op.buoy, row_base, halo, plan)
+    outs = [us2, vs2, T2, b] + ([guess] if guess is not None else [])
+    return (*outs, sum_b)
 
 
 class QuadRBStepShard(QuadRBStep):
@@ -282,7 +310,9 @@ class QuadRBStepShard(QuadRBStep):
     zero rows either side, with the corrected u2, v2 and T' zeroed on the
     padding: the kernel (csrc/rb_stage.cu) holds them on the block only and
     reads 0 outside it. The stages reach 7 rows (kRBRadius there), so the own
-    rows equal the single-device carry's."""
+    rows equal the single-device carry's. On the card: row 10's two
+    launches, their block instances (the tiles' maxima and the sum over the
+    own rows)."""
 
     def __init__(self, shape, coeffs: StencilCoeffs, kappa: float, params: RBParams,
                  shard: tuple[int, int] = (8, 1)):
@@ -313,19 +343,9 @@ class QuadRBStepShard(QuadRBStep):
         return tuple(_crop_rows(a, z) for a in (*outs, u2, v2))
 
     def kernel(self, row_base, us, vs, p, T):
-        u_scr, v_scr, us2, vs2, T2, b = (torch.empty_like(us) for _ in range(6))
-        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
-                               device=us.device)
-        sum_b = torch.empty((), dtype=torch.float32, device=us.device)
-        c = self.coeffs
         with torch.cuda.device(us.device):  # the shards may lie on several cards
-            SHARD_RB_CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(T), None, ptr(u_scr), ptr(v_scr),
-                           ptr(us2), ptr(vs2), ptr(T2), ptr(b), None, ptr(partials),
-                           ptr(sum_b), *self._ints(), self.cu, self.cv, c.dt, c.viscosity,
-                           c.idx, c.idy, c.idx2, c.idy2, self.rho_dt, self.kappa,
-                           2.0 * self.t_bottom, 2.0 * self.t_top, self.buoy, int(row_base),
-                           DEV_HALO)
-        return us2, vs2, T2, b, sum_b
+            return _rb_carry(self, SHARD_RB_CARRY, (us, vs, p, T), None, int(row_base),
+                             DEV_HALO)
 
 
 class QuadRBCorrectorTraced(_Traced, QuadRBCorrector):
@@ -357,7 +377,9 @@ class QuadRBStepAdaptive(_Traced, QuadRBStep):
     the carried fields and transports T (completing step n), dt_pred drives
     the predictor, the buoyancy dt_pred * 0.5 and the source (step n+1). No
     warm-start guess: the adaptive RB step warm-starts from plain p, as the
-    reference's (physics/boussinesq.py:372-411)."""
+    reference's (physics/boussinesq.py:372-411). On the card: the fixed
+    carry's two launches, their adaptive instances, after one zeroing of the
+    Courant maxima."""
 
     n_dt = 2
 
@@ -404,14 +426,15 @@ def _rb_carry_adaptive(op, kern: Kernel, dts, fields, row_base: int, halo: int):
     (us', vs', T', b, sum b, max|u2|, max|v2|), the reductions over the own
     rows of a block with a ``halo``-row strip."""
     us, vs, p, T = fields
-    u_scr, v_scr, us2, vs2, T2, b = (torch.empty_like(us) for _ in range(6))
-    partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32, device=us.device)
+    us2, vs2, T2, b = (torch.empty_like(us) for _ in range(4))
+    partials, count = _sum_scratch(op, us)
     scal = torch.empty(3, dtype=torch.float32, device=us.device)  # sum b, max|u|, max|v|
     c = op.coeffs
-    kern(us, ptr(us), ptr(vs), ptr(p), ptr(T), ptr(u_scr), ptr(v_scr), ptr(us2), ptr(vs2),
-         ptr(T2), ptr(b), ptr(partials), ptr(scal), ptr(scal[1:]), ptr(dts), *op._ints(),
-         op.cu_f, op.cv_f, c.viscosity, c.idx, c.idy, c.idx2, c.idy2, c.density, op.kappa,
-         2.0 * op.t_bottom, 2.0 * op.t_top, row_base, halo)
+    plan = tile_plan_ptr(op, "rb", us.device, "cfd_rb_carry_grid", True, halo > 0)
+    kern(us, ptr(us), ptr(vs), ptr(p), ptr(T), ptr(us2), ptr(vs2), ptr(T2), ptr(b),
+         ptr(partials), ptr(count), ptr(scal), ptr(scal[1:]), ptr(dts), *op._ints(), op.cu_f,
+         op.cv_f, c.viscosity, c.idx, c.idy, c.idx2, c.idy2, c.density, op.kappa,
+         2.0 * op.t_bottom, 2.0 * op.t_top, row_base, halo, plan)
     return us2, vs2, T2, b, scal[0], scal[1], scal[2]
 
 

@@ -15,7 +15,13 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
    of the per-kernel cavity path (mg_overrides whole_solve=False) against
    its plain PyTorch twin on the same seeded inputs on the card. Error = max |kernel - plain| / max |plain| per
    output; limits: 1e-5 for float32 fields and scalars, 2^-7 for
-   bfloat16-stored fields. Times are CUDA-event medians of 20 launches.
+   bfloat16-stored fields; the redesigned tile carries (rows 1, 1+, 10,
+   10+ here and in phases 11 and 14; their shard rows in phases 32, 35
+   and 41 with every shard kernel) error 0. Times are CUDA-event medians
+   of 20 launches; each carry (rows 1, 8a, 9a, 10 in phases 2, 5, 8, 11,
+   their traced-dt instances in phase 14) also has its device time,
+   ``dev_ms``: CUDA events around 50 back-to-back calls with the card held
+   busy while the host queues them (cfd_tpu_torch.time_carries.dev_ms).
    Then the launch plan of the cavity's f32 whole-solve at 2048^2: its grid
    levels (tiled or grid-stride), the levels in one block, the finest
    level's tile and halos, its shared memory, blocks and block size, and
@@ -354,6 +360,14 @@ SHARDS = 4
 ADAPTIVE_RUN = (300, 100)
 
 
+# the kernels of the one-launch tile carries (csrc/carry_tile.cuh), held to
+# error 0 against their twins wherever the phases check them: kernel name ->
+# row (the shard rows 16a, 16e, 16a+, 16e+ through check_shard_op, which
+# holds every shard row bit for bit)
+REDESIGNED = {"quad_corr_predictor_source": "row 1",
+              "quad_corr_predictor_source_adaptive": "row 1+", "quad_rb_step": "row 10",
+              "quad_rb_step_adaptive": "row 10+"}
+
 T0 = time.perf_counter()
 
 
@@ -414,6 +428,32 @@ def rel_err(got, want, what: str, tol: float, errs: list) -> float:
     return abs_err
 
 
+def bit_identical(name: str, errs: list) -> None:
+    """Raise unless every output of the redesigned kernel ``name``
+    (REDESIGNED) equals its twin's: a redesign keeps the bits (error 0)."""
+    what = f"{name} ({REDESIGNED[name]}, redesigned)"
+    if max(errs) != 0:
+        raise AssertionError(f"{what}: max|err| {max(errs)!r} against its twin, 0 expected")
+    log(f"  {what}: bit-identical to its twin (error 0)")
+
+
+def carry_dev_ms(fn) -> float:
+    """A carry's device ms a call (cfd_tpu_torch.time_carries.dev_ms: CUDA
+    events around 50 back-to-back calls, the card busy while the host
+    queues them); raises if the host fell behind."""
+    from cfd_tpu_torch.time_carries import dev_ms
+
+    ms, ahead = dev_ms(fn)
+    if not ahead:
+        raise AssertionError("dev_ms: the host did not queue the timed calls ahead of the card")
+    return ms
+
+
+def dev_note(r: dict) -> str:
+    """A carry's device ms beside its wrapper's ms in a phase's line."""
+    return f" (device {r['dev_ms']:.4f} ms)" if "dev_ms" in r else ""
+
+
 def host(out):
     """A solve's or a step's outputs with (cycles, res) read to the host: the
     whole-solve and whole-step wrappers leave them on the card."""
@@ -462,9 +502,11 @@ def check_kernels(case, dev) -> dict:
     got, want = carry.kernel(us, vs, p, p_prev), carry.plain(us, vs, p, p_prev)
     for name, a, b in zip(("us'", "vs'", "b", "guess", "max|b|"), got, want):
         rel_err(a, b, f"quad_corr_predictor_source {name}", TOL_F32, errs)
+    bit_identical("quad_corr_predictor_source", errs)
     cells = g.nx * g.ny
     results["quad_corr_predictor_source"] = dict(
         err=max(errs), ms=median_ms(lambda: carry.kernel(us, vs, p, p_prev)),
+        dev_ms=carry_dev_ms(lambda: carry.kernel(us, vs, p, p_prev)),
         plain_ms=median_ms(lambda: carry.plain(us, vs, p, p_prev)),
         **bound(nbytes(us, vs, p, p_prev, *got),
                 cells * (CORRECTOR_OPS + PREDICTOR_SOURCE_OPS)))
@@ -655,6 +697,7 @@ def check_channel_kernels(case, dev) -> dict:
         rel_err(a, b, f"quad_channel_corr_predictor_source {name}", TOL_F32, errs)
     results["quad_channel_corr_predictor_source"] = dict(
         err=max(errs), ms=median_ms(lambda: carry.kernel(us, vs, p, p_prev)),
+        dev_ms=carry_dev_ms(lambda: carry.kernel(us, vs, p, p_prev)),
         plain_ms=median_ms(lambda: carry.plain(us, vs, p, p_prev)),
         **bound(nbytes(us, vs, p, p_prev, *got),
                 cells * (CORRECTOR_OPS + PREDICTOR_SOURCE_OPS)))
@@ -726,6 +769,7 @@ def check_step_kernels(case, dev) -> dict:
         rel_err(a, b, f"quad_step_corr_predictor_source {name}", TOL_F32, errs)
     results["quad_step_corr_predictor_source"] = dict(
         err=max(errs), ms=median_ms(lambda: carry.kernel(us, vs, p)),
+        dev_ms=carry_dev_ms(lambda: carry.kernel(us, vs, p)),
         plain_ms=median_ms(lambda: carry.plain(us, vs, p)),
         **bound(nbytes(us, vs, p, *got), cells * (CORRECTOR_OPS + PREDICTOR_SOURCE_OPS)))
     errs = []
@@ -860,8 +904,10 @@ def check_rb_kernels(case, dev) -> dict:
     want_g = guess_op.plain(us, vs, p, T, p_prev)
     for name, a, b in zip(("us'", "vs'", "T'", "b", "guess", "sum b"), got_g, want_g):
         rel_err(a, b, f"quad_rb_step (emit_guess) {name}", TOL_F32, errs)
+    bit_identical("quad_rb_step", errs)  # plain and emit_guess
     results["quad_rb_step"] = dict(
         err=max(errs), ms=median_ms(lambda: carry.kernel(us, vs, p, T)),
+        dev_ms=carry_dev_ms(lambda: carry.kernel(us, vs, p, T)),
         plain_ms=median_ms(lambda: carry.plain(us, vs, p, T)),
         **bound(nbytes(us, vs, p, T, *got),
                 cells * (CORRECTOR_OPS + TEMPERATURE_OPS + PREDICTOR_SOURCE_OPS
@@ -1004,8 +1050,12 @@ def check_adaptive_kernels(flows: dict, dev) -> dict:
             got, want = op.kernel(dts, *args), op.plain(dts, *args)
             for out, a, b in zip(outs, got, want, strict=True):
                 rel_err(a, b, f"{name} {out}", TOL_F32, errs)
+            carry = name.endswith("_adaptive")  # rows 1+, 8a+, 9a+, 10+
+            if name in REDESIGNED:
+                bit_identical(name, errs)
             results[name] = dict(
                 err=max(errs), ms=median_ms(lambda: op.kernel(dts, *args)),
+                **(dict(dev_ms=carry_dev_ms(lambda: op.kernel(dts, *args))) if carry else {}),
                 fixed_ms=median_ms(lambda: fixed.kernel(*fixed_args)),
                 plain_ms=median_ms(lambda: op.plain(dts, *args)),
                 **bound(nbytes(dts, *args, *got), ops))
@@ -2572,8 +2622,8 @@ def main() -> int:
     checks.update(check_channel_kernels(case, dev))
     flows["channel"] = (case.grid, case.coeffs, None)
     for k, r in checks.items():
-        log(f"  {k:36s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
+        log(f"  {k:36s} kernel {r['ms']:.4f} ms{dev_note(r)}  plain {r['plain_ms']:.4f} ms  "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
     w = checks["quad_whole_solve"]
     log(f"  quad_whole_solve: {w['cycles']} V-cycles, {w['ms_per_cycle']:.4f} ms per "
         f"V-cycle; bound {w['bound_bytes_ms']:.4f} ms per solve (bytes), "
@@ -2643,8 +2693,8 @@ def main() -> int:
 
     flows["step"] = (g, case.coeffs, dict(rect=step_rect_params(g)))
     for k, r in step_checks.items():
-        log(f"  {k:36s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
+        log(f"  {k:36s} kernel {r['ms']:.4f} ms{dev_note(r)}  plain {r['plain_ms']:.4f} ms  "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
     w = step_checks["quad_step_whole_solve"]
     log_plan("quad_step_whole_solve", case.poisson_solve, card, w["ms_per_cycle"])
     log(f"  quad_step_whole_solve: {w['cycles']} V-cycles, {w['ms_per_cycle']:.4f} ms per "
@@ -2696,8 +2746,8 @@ def main() -> int:
     rb_checks = check_rb_kernels(case, dev)
     flows["rb"] = (case.grid, case.coeffs, case.info)
     for k, r in rb_checks.items():
-        log(f"  {k:36s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
+        log(f"  {k:36s} kernel {r['ms']:.4f} ms{dev_note(r)}  plain {r['plain_ms']:.4f} ms  "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
     w = rb_checks["quad_whole_solve_pin_mean"]
     log_plan("quad_whole_solve_pin_mean", case.poisson_solve, card, w["ms_per_cycle"])
     log(f"  quad_whole_solve_pin_mean: {w['cycles']} V-cycles, {w['ms_per_cycle']:.4f} ms "
@@ -2746,8 +2796,9 @@ def main() -> int:
         f"shapes, dt_corr = 0.8 dt, dt_pred = 1.1 dt ({card})")
     ad_checks = check_adaptive_kernels(flows, dev)
     for k, r in ad_checks.items():
-        log(f"  {k:44s} kernel {r['ms']:.4f} ms  fixed-dt {r['fixed_ms']:.4f} ms  plain "
-            f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
+        log(f"  {k:44s} kernel {r['ms']:.4f} ms{dev_note(r)}  fixed-dt {r['fixed_ms']:.4f} ms  "
+            f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
+            f"({card})")
     checks.update(ad_checks)
 
     log(f"phase 15: adaptive runs at the full widths, max_courant {MAX_CO}, growth "
@@ -2980,8 +3031,8 @@ def main() -> int:
         f"({card})")
     nat_checks = check_natural_kernels(dev)
     for k, r in nat_checks.items():
-        log(f"  {k:36s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
+        log(f"  {k:36s} kernel {r['ms']:.4f} ms{dev_note(r)}  plain {r['plain_ms']:.4f} ms  "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
     checks.update(nat_checks)
 
     log(f"phase 26: the natural slices at full width, counters zeroed before each run "
@@ -3157,7 +3208,8 @@ def main() -> int:
                             replaces=k.replaces, launches=launches[k.name],
                             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                            library_ms=None))
+                            library_ms=None,
+                            **({"dev_ms": r["dev_ms"]} if "dev_ms" in r else {})))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s, the "
         f"build included")
     print(card, flush=True)
