@@ -1,5 +1,6 @@
-// Shared-memory tiles of the one-launch carries: the cavity's
-// (quad_stage.cu) and Rayleigh-Benard's (rb_stage.cu). The tile machinery
+// Shared-memory tiles of the one-launch carries: the cavity's and the
+// channel's (quad_stage.cu), the backward step's (step_stage.cu) and
+// Rayleigh-Benard's (rb_stage.cu). The tile machinery
 // of the reference's slab kernels (cfd_tpu/kernels/quad.py
 // _make_quad_slab_kernel :132, pl.pallas_call :376), which keeps a row slab
 // and a CARRY_RADIUS-row halo in VMEM, on Hopper: a block owns `rows` x
@@ -21,19 +22,24 @@
 // Reductions take each quad cell once, in its own tile, never a halo copy;
 // the maxima are order-free (cfd::bits_max, atomicMax on the int bits) and
 // the source sum runs after the tile kernel in the twin's fixed order
-// (source_sum below).
+// (source_sum below, one launch: launch_source_sum).
 //
 // Paths. A tile whose every staged position lies at least one cell inside
-// the domain's faces (interior()) runs the stages with no ghost or mask
+// the domain's faces (interior(); the step's also off its solid block and
+// interface faces, misses_corner()) runs the stages with no ghost or mask
 // test, through the *_formula arithmetic; a tile that touches the walls,
 // the ghost rows and columns, the padding or the array's edge runs the
 // ghost-aware stages (the *_at functions). Both paths compute the same
-// operations on the same operands where both apply. All index arithmetic
+// operations on the same operands where both apply. The channel's and the
+// step's tiles whose own cells all lie outside the domain's ghost ring
+// (outside(): the padding columns and rows, a block's rows beyond the
+// field) write their outputs' constants without loading. All index arithmetic
 // is 32-bit (the entry points refuse fields of 2^31 floats or more), and
 // the block loops divide once per thread, not per cell (each()).
 #pragma once
 
 #include "common.cuh"
+#include "predictor.cuh"
 
 namespace cfd {
 namespace tile {
@@ -147,6 +153,25 @@ __device__ __forceinline__ bool interior(const Tile& T, const Box& B, int ny, in
          T.ai + B.c1 - 1 <= nx - 1 && T.aj + B.r0 >= 0 && T.aj + B.r1 <= 2 * Hq8;
 }
 
+// Whether box B misses every position with i <= ci and j >= cj: the
+// backward step's solid block {i <= step_i, j > inlet_j} and its interface
+// faces (u at i = step_i, v at j = inlet_j), where a face is invalid or
+// zeroed (step_carry.cuh); with interior() the step's interior path
+__device__ __forceinline__ bool misses_corner(const Tile& T, const Box& B, int ci, int cj) {
+  return T.ai + B.c0 > ci || T.gj + B.r1 - 1 < cj;
+}
+
+// Whether the tile's own cells all lie outside the domain's logical rows
+// [0, ny + 1] or columns [0, nx + 1] (the padding, or a local block's rows
+// beyond the field): there every face is invalid, no ghost rule writes and
+// no cell has a source, so the channel's and the step's carries give 0 for
+// us', vs' and b (the padding path)
+__device__ __forceinline__ bool outside(const Tile& T, int ny, int nx) {
+  const int o = 2 * T.h;
+  const int j0 = T.gj + o, i0 = T.ai + o;
+  return i0 > nx + 1 || j0 > ny + 1 || j0 + 2 * T.rows - 1 < 0;
+}
+
 // whether buffer cell (lj, li) lies in the array
 __device__ __forceinline__ bool in_array(const Tile& T, int lj, int li, int Hq8, int Wqa) {
   const int r = T.aj + lj, c = T.ai + li;
@@ -228,6 +253,18 @@ __device__ __forceinline__ void each_own(const Tile& T, int Wqa, F f) {
   each(0, T.rows, 0, T.cols, [&](int r, int c) {
     const int gr = T.R0 + r;
     f(gr * Wqa + T.C0 + c, gr, o + 2 * r, o + 2 * c);
+  });
+}
+
+// f(gq) over every quad index gq of the tile's own cells, all four planes:
+// the padding path's output pass
+template <class F>
+__device__ __forceinline__ void each_own_index(const Tile& T, int Hq8, int Wqa, F f) {
+  const int plane = Hq8 * Wqa;
+  each(0, T.rows, 0, T.cols, [&](int r, int c) {
+    const int g = (T.R0 + r) * Wqa + T.C0 + c;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) f(q * plane + g);
   });
 }
 
@@ -313,7 +350,20 @@ __device__ __forceinline__ void source_sum(const float* b, int Hq8, int Wqa, int
   volatile float* x = partials;
   int m = chunks;
   while (m > kFoldShared) m = cfd::fold_level(x, m, first, step, sync);
-  for (int t = first; t < m; t += step) s[t] = __ldcg(partials + t);
+  // all of a thread's (at most kFoldShared / kThreads) loads in flight
+  // before its stores: one round trip to L2, not one a partial
+  constexpr int kBatch = kFoldShared / cfd::kThreads;
+  float v[kBatch];
+#pragma unroll
+  for (int r = 0; r < kBatch; ++r) {
+    const int t = first + r * step;
+    v[r] = t < m ? __ldcg(partials + t) : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < kBatch; ++r) {
+    const int t = first + r * step;
+    if (t < m) s[t] = v[r];
+  }
   __syncthreads();
   const float total = cfd::fold_sum(s, m, first, step, sync);
   if (threadIdx.x == 0) {
@@ -321,6 +371,125 @@ __device__ __forceinline__ void source_sum(const float* b, int Hq8, int Wqa, int
     *count = 0u;
   }
 }
+
+// The buffers of a duct carry's tile (duct_carry): us, vs and p, then the
+// corrected u, v (u*, v* overwrite us, vs)
+constexpr int kDuctBuffers = 5;
+
+// The carry of the duct flows, the channel's and the step's (an inlet, an
+// outlet, walls; quad_stage.cu, step_stage.cu), on the block's tile: us,
+// vs and p staged with the plan's halo, the corrected,
+// ghosted u, v on box A, which the predictor and the ghosts of the
+// tentative fields read (the own region widened 2 rows south, 1 north, 3
+// columns west, 1 east: the outlet copies reach one column further than
+// the predictor), u* on the own cells and one column west, v* on the own
+// cells and one row south, then us', vs', b = rho/dt * div on the flow's
+// cells (and the guess 2p - p_prev) of the own cells, with the Courant
+// maxima of the corrected u, v over the own rows (kAdaptive). A tile whose
+// own cells all lie outside the ghost ring (outside) writes the outputs'
+// constants without loading. F, the flow, gives the arithmetic at global
+// logical (j, i) on tile Views: inner(t, A) (the path with no ghost or mask
+// test), uv_formula / uv_at (the corrected u, v without and with the
+// ghosts), us_at / vs_at (u*, v* with the ghosts of the tentative fields),
+// cell(j, i), kGuess, and its constants c (Hq8, Wqa, ny, nx, row0) and pc
+// (the predictor's, dt already read on the card).
+template <bool kAdaptive, bool kBlock, class F>
+__device__ __forceinline__ void duct_carry(const F& f, const float* us, const float* vs,
+                                           const float* p, const float* p_prev, float* us2,
+                                           float* vs2, float* b, float* guess, float* courant,
+                                           const Plan& pl, int halo) {
+  const int Hq8 = f.c.Hq8, Wqa = f.c.Wqa, plane = Hq8 * Wqa;
+  const cfd::Pred& pc = f.pc;
+  const Tile t = make_tile(pl, Hq8, Wqa, f.c.row0);
+  if (outside(t, f.c.ny, f.c.nx)) {  // the maxima keep their zeroing
+    each_own_index(t, Hq8, Wqa, [&](int gq) {
+      us2[gq] = 0.f;
+      vs2[gq] = 0.f;
+      b[gq] = 0.f;
+      if constexpr (F::kGuess) guess[gq] = 2.0f * p[gq] - p_prev[gq];
+    });
+    return;
+  }
+  const int N = static_cast<int>(buffer_floats(pl.rows, pl.cols, pl.halo)), LC = t.LC;
+  float* const s_us = smem();
+  float* const s_vs = s_us + N;
+  float* const s_p = s_us + 2 * N;
+  float* const s_u = s_us + 3 * N;
+  float* const s_v = s_us + 4 * N;
+  {
+    const float* src[3] = {us, vs, p};
+    float* const dst[3] = {s_us, s_vs, s_p};
+    load<3>(src, dst, t, Hq8, Wqa);
+  }
+  __syncthreads();
+  const Box A = around(t, 2, 1, 3, 1), BU = around(t, 0, 0, 1, 0), BV = around(t, 1, 0, 0, 0);
+  const View vus = view(s_us, t), vvs = view(s_vs, t), vp = view(s_p, t);
+  const View vu = view(s_u, t), vv = view(s_v, t);
+  const bool inner = f.inner(t, A);
+  if (inner) {
+    each_cell(A, LC, [&](int lj, int li, int k) {
+      const float2 uv = f.uv_formula(vus, vvs, vp, t.gj + lj, t.ai + li);
+      s_u[k] = uv.x;
+      s_v[k] = uv.y;
+    });
+    __syncthreads();
+    each_cell(BU, LC, [&](int lj, int li, int k) {
+      s_us[k] = cfd::u_star_formula(vu, vv, t.gj + lj, t.ai + li, pc);
+    });
+    each_cell(BV, LC, [&](int lj, int li, int k) {
+      s_vs[k] = cfd::v_star_formula(vu, vv, t.gj + lj, t.ai + li, pc);
+    });
+  } else {
+    each_cell(A, LC, [&](int lj, int li, int k) {
+      float2 uv = make_float2(0.f, 0.f);  // outside the array a neighbour reads 0
+      if (in_array(t, lj, li, Hq8, Wqa)) uv = f.uv_at(vus, vvs, vp, t.gj + lj, t.ai + li);
+      s_u[k] = uv.x;
+      s_v[k] = uv.y;
+    });
+    __syncthreads();
+    each_cell(BU, LC, [&](int lj, int li, int k) {
+      s_us[k] = f.us_at(vu, vv, t.gj + lj, t.ai + li);
+    });
+    each_cell(BV, LC, [&](int lj, int li, int k) {
+      s_vs[k] = f.vs_at(vu, vv, t.gj + lj, t.ai + li);
+    });
+  }
+  __syncthreads();
+  float m[2] = {0.f, 0.f};
+  each_own(t, Wqa, [&](int g, int gr, int lj0, int li0) {
+    const bool own = !kBlock || (gr >= halo && gr < Hq8 - halo);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int lj = lj0 + (q >> 1), li = li0 + (q & 1);
+      const int k = lj * LC + li, gq = q * plane + g;
+      const float a = s_us[k], bv = s_vs[k];
+      float bb = 0.f;
+      if (inner || f.cell(t.gj + lj, t.ai + li)) {
+        const float div = (a - s_us[k - 1]) * pc.idx + (bv - s_vs[k - LC]) * pc.idy;
+        bb = pc.rho_dt * div;
+      }
+      us2[gq] = a;
+      vs2[gq] = bv;
+      b[gq] = bb;
+      if constexpr (F::kGuess) guess[gq] = 2.0f * s_p[k] - p_prev[gq];
+      if (kAdaptive && own) {
+        m[0] = cfd::bits_max(m[0], fabsf(s_u[k]));
+        m[1] = cfd::bits_max(m[1], fabsf(s_v[k]));
+      }
+    }
+  });
+  if constexpr (kAdaptive) block_max(m, courant);
+}
+
+// The source sum's launch over the own rows of a (4, Hq8, Wqa) field or a
+// local block with a `halo`-row strip (halo 0: every row): a warp a chunk,
+// at most 256 blocks of cfd::kThreads threads, so that few arrive at the
+// count. partials: ceil(4 Hq8 Wqa / 256) floats of scratch; count: one
+// unsigned int, 0 before the launch and after it. Shared by the channel's,
+// the step's and RB's carries; defined once, in rb_stage.cu. Returns the
+// launch's error.
+cudaError_t launch_source_sum(const float* b, int Hq8, int Wqa, int halo, float* partials,
+                              unsigned int* count, float* sum, cudaStream_t stream);
 
 }  // namespace tile
 }  // namespace cfd

@@ -121,16 +121,6 @@ __device__ __forceinline__ void block_max_into(float v, float* out) {
   }
 }
 
-// Block-wide maxima of a >= 0 and b >= 0 into out[0] and out[1] (the
-// Courant feedback max|u|, max|v| of the emit_courant stage instances). The
-// barrier between the two passes keeps warp 0's reads of the first apart
-// from the second's writes of the same shared array.
-__device__ __forceinline__ void block_max2_into(float a, float b, float* out) {
-  block_max_into(a, out);
-  __syncthreads();
-  block_max_into(b, out + 1);
-}
-
 // A pressure-correction coefficient from a traced dt (adaptive stepping) in
 // the reference's float32 order: the cavity's rho-multiplied form
 // dt * (rho/dx) (cfd_tpu/kernels/quad.py:505, :1080), the channel's, the
@@ -184,8 +174,9 @@ __device__ __forceinline__ float fold_sum(float* x, int n, int first, int step, 
 }
 
 // One block folds partials[0:n] into *sum in the PyTorch twin's fold_sum
-// order (the last launch of each carry that sums its source). Defined once,
-// in quad_stage.cu; returns the launch's error.
+// order (the last launch of the stages that sum their source by blocks:
+// the channel's row 8c, the natural channel stage). Defined once, in
+// quad_stage.cu; returns the launch's error.
 cudaError_t fold_partials(float* partials, int n, float* sum, cudaStream_t stream);
 
 }  // namespace cfd

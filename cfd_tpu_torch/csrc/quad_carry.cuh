@@ -1,7 +1,8 @@
 // Per-cell bodies of the cavity and channel tentative-carry stages on the
-// quad layout: the correctors and the predictor + source. Shared by the
-// standalone stage kernels (quad_stage.cu) and the whole-step kernel
-// (whole_step.cu), so that the two run the same code. The ghost orders and
+// quad layout: the correctors and the predictor + source, and the
+// accessor-taking arithmetic they are built of. Shared by the standalone
+// stage kernels and the carries' shared-memory tiles (quad_stage.cu) and
+// the whole-step kernel (whole_step.cu), so that all run the same code. The ghost orders and
 // the traced-dt instances are described in quad_stage.cu.
 #pragma once
 
@@ -59,16 +60,6 @@ template <class LVS, class LP>
 __device__ __forceinline__ float v_corr_at(LVS vs, LP p, int j, int i, const Corr& c) {
   if (!(j >= 1 && j <= c.ny - 1 && i >= 1 && i <= c.nx)) return 0.f;
   return v_corr_formula(vs, p, j, i, c);
-}
-
-__device__ __forceinline__ float u_corr(const float* us, const float* p, int j, int i,
-                                        const Corr& c) {
-  return u_corr_at(quad_read(us, c), quad_read(p, c), j, i, c);
-}
-
-__device__ __forceinline__ float v_corr(const float* vs, const float* p, int j, int i,
-                                        const Corr& c) {
-  return v_corr_at(quad_read(vs, c), quad_read(p, c), j, i, c);
 }
 
 // The cavity's corrected u, v at (j, i) with the lid ghosts, from
@@ -187,6 +178,17 @@ __device__ __forceinline__ float channel_v(F f, int j, int i, int ny, int nx) {
   return f(j, i);
 }
 
+// The channel's corrected u, v at (j, i) with the channel ghosts, from
+// accessors (u_corr_at's): the rho-divided correction of the valid faces,
+// the inlet and outlet columns, the walls and the ghost rows
+template <class LUS, class LVS, class LP>
+__device__ __forceinline__ float2 channel_uv_at(LUS us, LVS vs, LP p, int j, int i,
+                                                const Corr& c) {
+  auto uc = [&](int jj, int ii) { return u_corr_at(us, p, jj, ii, c); };
+  auto vc = [&](int jj, int ii) { return v_corr_at(vs, p, jj, ii, c); };
+  return make_float2(channel_u(uc, j, i, c.ny, c.nx, c.ghost), channel_v(vc, j, i, c.ny, c.nx));
+}
+
 // The channel corrector at quad cell idx: the rho-divided correction, the
 // channel ghosts, the warm start. Returns (|u|, |v|).
 __device__ __forceinline__ float2 channel_corrector_cell(const float* us, const float* vs,
@@ -194,14 +196,12 @@ __device__ __forceinline__ float2 channel_corrector_cell(const float* us, const 
                                                          float* u2, float* v2, float* guess,
                                                          long long idx, const Corr& c) {
   cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa, c.row0);
-  auto uc = [&](int j, int i) { return u_corr(us, p, j, i, c); };
-  auto vc = [&](int j, int i) { return v_corr(vs, p, j, i, c); };
-  const float u = channel_u(uc, cell.j, cell.i, c.ny, c.nx, c.ghost);
-  const float v = channel_v(vc, cell.j, cell.i, c.ny, c.nx);
-  u2[idx] = u;
-  v2[idx] = v;
+  const float2 uv = channel_uv_at(quad_read(us, c), quad_read(vs, c), quad_read(p, c), cell.j,
+                                  cell.i, c);
+  u2[idx] = uv.x;
+  v2[idx] = uv.y;
   guess[idx] = 2.0f * p[idx] - p_prev[idx];
-  return make_float2(fabsf(u), fabsf(v));
+  return make_float2(fabsf(uv.x), fabsf(uv.y));
 }
 
 // The channel predictor at quad cell idx, the channel ghosts on the

@@ -8,53 +8,56 @@
 // make_quad_channel_corr_predictor_source (:1126, math in
 // channel_carry_compute :1160-1222), the carries fixed and with
 // traced_dt + emit_courant, and make_quad_channel_predictor_source (:847:
-// the channel carry's second and third launches on (u, v) as given). The
-// cavity and channel carries, fixed and traced_dt + emit_courant, also run
-// with shard=(P, mdy) on one shard's local block (rows 16a and 16d, and
-// 16a+ and 16d+, cfd_tpu/parallel/quad_sharded.py): the
-// arrays are a shard's (4, P + 16, Wqa) block between two 8-row halo
+// the predictor + source of the channel's first design on (u, v) as
+// given). The cavity and channel carries, fixed and traced_dt +
+// emit_courant, also run with shard=(P, mdy) on one shard's local block
+// (rows 16a and 16d, and 16a+ and 16d+, cfd_tpu/parallel/quad_sharded.py):
+// the arrays are a shard's (4, P + 16, Wqa) block between two 8-row halo
 // strips, row_base = jy * P - 8 is the global plane row of local row 0
 // (every mask and ghost keeps its global meaning, common.cuh), a neighbour
 // outside the block reads 0, and the reductions (the cavity's max|b|, the
 // channel's sum of b, and the Courant maxima) cover the own rows only: the
-// shard's partials (quad.py:308-312 masks every scalar so). The
-// channel's scratch u, v cover the whole block, and the cavity's tiles
-// stage the corrected u, v on it alone (zero outside it, as a read of the
-// scratch there was). The cavity's stages reach 5 rows
-// (quad.py:970-971); the channel's reach 5 too, counting one row for each
-// stage: the corrector (p at j+1), the ghosts on the corrected fields (the
-// ghost rows read rows 1 and ny), the predictor (j-1 ... j+1), the ghosts
-// on the tentative fields and the source (vs at j-1). Both are inside the
-// 8-row halo (kChannelRadius below), so the own rows are exact. A whole
-// field is row_base 0, halo 0, and its instances fold the row offset away
-// at compile time (kBlock).
+// shard's partials (quad.py:308-312 masks every scalar so). The tiles
+// stage the corrected u, v on the block alone (zero outside it, as a read
+// of the earlier chain's scratch there was). The cavity's stages reach 5
+// rows (quad.py:970-971); the channel's reach 5 too, counting one row for
+// each stage: the corrector (p at j+1), the ghosts on the corrected fields
+// (the ghost rows read rows 1 and ny), the predictor (j-1 ... j+1), the
+// ghosts on the tentative fields and the source (vs at j-1). Both are
+// inside the 8-row halo (kChannelRadius below), so the own rows are exact.
+// A whole field is row_base 0, halo 0, and its instances fold the row
+// offset away at compile time (kBlock).
 //
 // Bound on the H100: device-memory bytes. The correctors read 4 quad fields
 // and write 3; the carries read 4 and write 4 plus one scalar (19 MB per
 // field at 2048^2, 3.8 MB at 1536x512). The arithmetic (about 60 flops a
 // cell for the predictor) is far below the card's rate.
 //
-// Design. The cavity carry is ONE launch over shared-memory tiles
-// (carry_tile.cuh): a block loads us, vs and p with a halo of 3 plane rows
-// and columns (6 logical, >= the reference's CARRY_RADIUS of 5), computes
-// the corrected, ghosted u, v on the region the predictor reads, then u*,
-// v* once a face on the region the source reads (its own cells and one
-// row and column to the south and west), then writes us', vs', b and the
-// guess of its own cells and reduces max|b| (and the Courant maxima) over
-// them. Tiles that touch no wall, ghost row or padding take a path with no
-// ghost or mask test. The corrected u, v never go through device memory:
-// 8 passes over the field (4 in, 4 out) where the earlier two-launch
-// chain made 12, plus the halo's re-reads, mostly from L2.
+// Design. Each carry is ONE launch over shared-memory tiles
+// (carry_tile.cuh), the channel's followed by one launch for its source
+// sum: a block loads us, vs and p with a halo of 3 plane rows and columns
+// (6 logical, >= the reference's CARRY_RADIUS of 5), computes the
+// corrected, ghosted u, v on the region the predictor reads, then u*, v*
+// once a face on the region the source reads (its own cells and one row
+// and column to the south and west), then writes us', vs', b and the guess
+// of its own cells and reduces max|b| (the cavity) and the Courant maxima
+// over them. Tiles that touch no wall, ghost row or padding take a path
+// with no ghost or mask test; the channel's tiles whose own cells lie
+// wholly in the padding write its constants without loading. The cavity's
+// tile kernel is its own; the channel's runs carry_tile.cuh's duct_carry
+// with its arithmetic (ChannelTile below), as the step's does. The channel's
+// sum launch (carry_tile.cuh source_sum, shared with RB's and the step's)
+// sums b in the twin's fixed_order_sum order. The corrected u, v never go
+// through device memory: 8 passes over the field (4 in, 4 out) where the
+// earlier chains made 12, plus the halo's re-reads, mostly from L2.
 //
-// The correctors, the cavity's non-carry stage and the channel carry keep
-// the first design: one thread per quad cell, neighbours through the
+// The correctors, the cavity's non-carry stage and the channel's (row 8c)
+// keep the first design: one thread per quad cell, neighbours through the
 // guarded quad accessor. Their per-cell bodies live in quad_carry.cuh,
-// which the whole-step kernel (whole_step.cu) and the tiles run too. The
-// channel carry runs as THREE launches: (1) the corrector writes the
-// corrected and ghost-rebuilt u, v into scratch fields, (2) the predictor +
-// source + partial sums reads them, a thread evaluating the predictor at
-// its own faces and again at the west/south faces its divergence needs,
-// (3) the fold of the partials.
+// which the whole-step kernel (whole_step.cu) and the tiles run too. Row
+// 8c is two launches: the predictor + source + partial sums on (u, v) as
+// given, a thread evaluating the predictor at its own faces and again at
+// the west/south faces its divergence needs, and the fold of the partials.
 //
 // Cavity ghost order (cfd_tpu/kernels/quad.py:420-435, cavity-01.cpp:
 // 523-543): u top ghost row j = ny+1 for i <= nx, then u bottom row j = 0
@@ -73,26 +76,27 @@
 // the tentative fields.
 //
 // Adaptive stepping (cfd_tpu/adaptive.py) adds instances of these kernels,
-// chosen by two template flags, so the fixed-dt instances keep their code:
+// chosen by template flags, so the fixed-dt instances keep their code:
 // kTraced reads dt from a device pointer (never a host float: the chunked
 // and lagged controllers keep dt on the card) and forms the coefficients
 // from it in the reference's float32 order (cfd::traced_coeff,
 // cfd::pred_at); the carries take the pair (dt_corr, dt_pred), dt_corr for
 // the correction of the carried tentative fields, dt_pred for this step's
-// predictor and source. kCourant also reduces max|u| and max|v| of the
-// corrected, ghosted fields over every quad cell of a whole field, or the
-// own rows of a shard's block (the region of the reference's
-// scalar_reduce, quad.py:300-360), into two device scalars the host
-// zeroes. The cavity carry's tiles take one flag, kAdaptive, for both. The
-// non-carry cavity stage make_quad_predictor_source (quad.py:438,
-// traced dt) is the predictor + source of the first design with the lid
-// ghosts applied to its input on read (lid_u, lid_v).
+// predictor and source, and also reduce max|u| and max|v| of the corrected,
+// ghosted fields over every quad cell of a whole field, or the own rows of
+// a shard's block (the region of the reference's scalar_reduce,
+// quad.py:300-360), into two device scalars zeroed before the launch. The
+// carries' tiles take one flag, kAdaptive, for both. The non-carry cavity
+// stage make_quad_predictor_source (quad.py:438, traced dt) is the
+// predictor + source of the first design with the lid ghosts applied to
+// its input on read (lid_u, lid_v).
 //
-// Channel source sum: each block of launch 2 sums its kThreads values of b
-// by a fixed pairwise tree into a per-block partial (cfd::block_sum_to);
-// launch 3, one block, folds the partials in the order of the PyTorch
-// twin's fold_sum. No float atomics: the sum is the same on every run, and
-// equal bit for bit to the plain twin's fixed_order_sum.
+// Row 8c's source sum: each block of its first launch sums its kThreads
+// values of b by a fixed pairwise tree into a per-block partial
+// (cfd::block_sum_to); the second, one block, folds the partials in the
+// order of the PyTorch twin's fold_sum. No float atomics: the sum is the
+// same on every run, and equal bit for bit to the plain twin's
+// fixed_order_sum, as the carry's source_sum is.
 #include "carry_tile.cuh"
 #include "common.cuh"
 #include "predictor.cuh"
@@ -235,47 +239,76 @@ __global__ void __launch_bounds__(tile::kThreads)
   tile::block_max(m, red);
 }
 
-// kBlock: a shard's local block (its row offset, and the Courant maxima
-// over its own rows only); else row0 folds to 0
-template <bool kTraced, bool kCourant, bool kBlock = false>
+// the channel corrector (kTraced: cu, cv formed from *dt)
+template <bool kTraced>
 __global__ void channel_corrector_kernel(const float* us, const float* vs, const float* p,
                                          const float* p_prev, float* u2, float* v2,
-                                         float* guess, Corr c0, const float* dt,
-                                         float* courant, int halo) {
+                                         float* guess, Corr c0, const float* dt) {
   Corr c = corr_at<kTraced, true>(c0, dt);
-  if constexpr (!kBlock) c.row0 = 0;
+  c.row0 = 0;
   long long n = 4LL * c.Hq8 * c.Wqa;
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float au = 0.f, av = 0.f;
-  if (idx < n) {
-    const float2 a =
-        cfd::quad::channel_corrector_cell(us, vs, p, p_prev, u2, v2, guess, idx, c);
-    if (!kBlock || cfd::own_row(idx, c.Hq8, c.Wqa, halo)) {
-      au = a.x;
-      av = a.y;
-    }
-  }
-  if constexpr (kCourant) cfd::block_max2_into(au, av, courant);
+  if (idx < n) cfd::quad::channel_corrector_cell(us, vs, p, p_prev, u2, v2, guess, idx, c);
 }
 
-// predictor, channel ghosts on the tentative fields, b = rho/dt * div on the
-// cells, and the block's partial sum of b (fixed tree); kBlock: a shard's
-// local block, whose partials take its own rows only (cfd::own_row)
-template <bool kTraced, bool kBlock = false>
+// the channel's non-carry stage (row 8c): the predictor on (u, v) as given,
+// the channel ghosts on the tentative fields, b = rho/dt * div on the
+// cells, and the block's partial sum of b (fixed tree)
 __global__ void channel_predictor_source_kernel(const float* u, const float* v, float* us2,
-                                                float* vs2, float* b, float* partials,
-                                                Pred c0, float uin, const float* dt,
-                                                int halo) {
-  Pred c = cfd::pred_at<kTraced>(c0, dt);
-  if constexpr (!kBlock) c.row0 = 0;
+                                                float* vs2, float* b, float* partials, Pred c,
+                                                float uin) {
   long long n = 4LL * c.Hq8 * c.Wqa;
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   float part = 0.f;
-  if (idx < n) {
-    const float bb = cfd::quad::channel_predictor_source_cell(u, v, us2, vs2, b, idx, c, uin);
-    if (!kBlock || cfd::own_row(idx, c.Hq8, c.Wqa, halo)) part = bb;
-  }
+  if (idx < n) part = cfd::quad::channel_predictor_source_cell(u, v, us2, vs2, b, idx, c, uin);
   cfd::block_sum_to(part, partials + blockIdx.x);
+}
+
+// The channel's arithmetic on a tile (tile::duct_carry): the rho-divided
+// correction with the channel ghosts, the predictor with the channel ghosts
+// on the tentative fields, the source on the cells, the guess
+struct ChannelTile {
+  static constexpr bool kGuess = true;
+  Corr c;
+  Pred pc;
+  __device__ bool inner(const tile::Tile& t, const tile::Box& A) const {
+    return tile::interior(t, A, c.ny, c.nx, c.Hq8);
+  }
+  __device__ float2 uv_formula(tile::View us, tile::View vs, tile::View p, int j, int i) const {
+    return make_float2(cfd::quad::u_corr_formula(us, p, j, i, c),
+                       cfd::quad::v_corr_formula(vs, p, j, i, c));
+  }
+  __device__ float2 uv_at(tile::View us, tile::View vs, tile::View p, int j, int i) const {
+    return cfd::quad::channel_uv_at(us, vs, p, j, i, c);
+  }
+  __device__ float us_at(tile::View u, tile::View v, int j, int i) const {
+    auto fu = [&](int jj, int ii) { return cfd::u_star_at(u, v, jj, ii, pc); };
+    return cfd::quad::channel_u(fu, j, i, c.ny, c.nx, c.ghost);
+  }
+  __device__ float vs_at(tile::View u, tile::View v, int j, int i) const {
+    auto fv = [&](int jj, int ii) { return cfd::v_star_at(u, v, jj, ii, pc); };
+    return cfd::quad::channel_v(fv, j, i, c.ny, c.nx);
+  }
+  __device__ bool cell(int j, int i) const {
+    return j >= 1 && j <= c.ny && i >= 1 && i <= c.nx;
+  }
+};
+
+// The channel carry's tile kernel (the design above). kAdaptive: the
+// coefficients from dts = (dt_corr, dt_pred) on the card and the Courant
+// maxima into courant[0], courant[1]; kBlock: a shard's local block, whose
+// maxima take its own rows only, else row0 folds to 0.
+template <bool kAdaptive, bool kBlock>
+__global__ void __launch_bounds__(tile::kThreads)
+    channel_carry_kernel(const float* us, const float* vs, const float* p,
+                         const float* p_prev, float* us2, float* vs2, float* b, float* guess,
+                         float* courant, Corr c, Pred pc, const float* dts, tile::Plan pl,
+                         int halo) {
+  c = corr_at<kAdaptive, true>(c, dts);
+  pc = cfd::pred_at<kAdaptive>(pc, kAdaptive ? dts + 1 : nullptr);
+  if constexpr (!kBlock) c.row0 = pc.row0 = 0;
+  tile::duct_carry<kAdaptive, kBlock>(ChannelTile{c, pc}, us, vs, p, p_prev, us2, vs2, b,
+                                      guess, courant, pl, halo);
 }
 
 // one block: the partials folded into *sum in the twin's fold_sum order
@@ -322,24 +355,38 @@ cudaError_t cavity_carry(const float* us, const float* vs, const float* p,
   return cudaGetLastError();
 }
 
-// the channel carry's three launches: corrector, predictor + source +
-// partial sums (own rows of a block with a `halo`-row strip), fold
-template <bool kAdaptive, bool kBlock = false>
+const void* channel_carry_fn(bool adaptive, bool block) {
+  if (adaptive) {
+    return block ? reinterpret_cast<const void*>(channel_carry_kernel<true, true>)
+                 : reinterpret_cast<const void*>(channel_carry_kernel<true, false>);
+  }
+  return block ? reinterpret_cast<const void*>(channel_carry_kernel<false, true>)
+               : reinterpret_cast<const void*>(channel_carry_kernel<false, false>);
+}
+
+// the channel carry's two launches: the plan checked, the Courant maxima
+// zeroed (kAdaptive), the tile kernel, then the sum of b (own rows of a
+// block with a `halo`-row strip). partials: ceil(4 Hq8 Wqa / 256) floats
+// of scratch; count: one unsigned int, 0 before the launch and after it
+template <bool kAdaptive, bool kBlock>
 cudaError_t channel_carry(const float* us, const float* vs, const float* p,
-                          const float* p_prev, float* u_scr, float* v_scr, float* us2,
-                          float* vs2, float* b, float* guess, float* partials, float* sum_b,
-                          float* courant, const float* dts, const Corr& c, const Pred& pc,
+                          const float* p_prev, float* us2, float* vs2, float* b, float* guess,
+                          float* partials, unsigned int* count, float* sum_b, float* courant,
+                          const float* dts, const Corr& c, const Pred& pc, const int* plan,
                           int halo, cudaStream_t s) {
-  const int blocks = cfd::blocks_for(4LL * c.Hq8 * c.Wqa);
-  channel_corrector_kernel<kAdaptive, kAdaptive, kBlock><<<blocks, cfd::kThreads, 0, s>>>(
-      us, vs, p, p_prev, u_scr, v_scr, guess, c, dts, courant, halo);
-  cudaError_t err = cudaGetLastError();
+  const tile::Plan pl{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
+  cudaError_t err = tile::check(pl, c.Hq8, c.Wqa, kChannelRadius, tile::kDuctBuffers);
   if (err != cudaSuccess) return err;
-  channel_predictor_source_kernel<kAdaptive, kBlock><<<blocks, cfd::kThreads, 0, s>>>(
-      u_scr, v_scr, us2, vs2, b, partials, pc, c.ghost, kAdaptive ? dts + 1 : nullptr, halo);
+  if constexpr (kAdaptive) {
+    err = cudaMemsetAsync(courant, 0, 2 * sizeof(float), s);
+    if (err != cudaSuccess) return err;
+  }
+  channel_carry_kernel<kAdaptive, kBlock>
+      <<<dim3(pl.grid_x, pl.grid_y), tile::kThreads, pl.smem_bytes, s>>>(
+          us, vs, p, p_prev, us2, vs2, b, guess, courant, c, pc, dts, pl, halo);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return cfd::fold_partials(partials, blocks, sum_b, s);
+  return tile::launch_source_sum(b, c.Hq8, c.Wqa, halo, partials, count, sum_b, s);
 }
 
 }  // namespace
@@ -443,9 +490,8 @@ extern "C" int cfd_quad_channel_corrector(const float* us, const float* vs,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Corr c{Hq8, Wqa, ny, nx, cu, cv, uin};
-  channel_corrector_kernel<false, false>
-      <<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
-          us, vs, p, p_prev, u2, v2, guess, c, nullptr, nullptr, 0);
+  channel_corrector_kernel<false><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
+      us, vs, p, p_prev, u2, v2, guess, c, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -458,40 +504,49 @@ extern "C" int cfd_quad_channel_corrector_traced(const float* us, const float* v
                                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Corr c{Hq8, Wqa, ny, nx, cu_f, cv_f, uin};
-  channel_corrector_kernel<true, false>
-      <<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
-          us, vs, p, p_prev, u2, v2, guess, c, dt, nullptr, 0);
+  channel_corrector_kernel<true><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
+      us, vs, p, p_prev, u2, v2, guess, c, dt);
   return static_cast<int>(cudaGetLastError());
 }
 
-// partials: cfd::blocks_for(4 * Hq8 * Wqa) floats of scratch; row_base,
-// halo: a local block's global plane row of row 0 and its halo strip (0, 0
-// on a whole field), sum_b then the sum over the own rows
+// Readies the channel carry's tile kernel (adaptive, block: its instance)
+// for `smem_bytes` of dynamic shared memory on the current device
+// (cfd_quad_carry_grid's outputs)
+extern "C" int cfd_quad_channel_carry_grid(int adaptive, int block, int smem_bytes,
+                                           int* blocks, int* per_sm, int* regs) {
+  return tile::ready(channel_carry_fn(adaptive != 0, block != 0), smem_bytes, blocks, per_sm,
+                     regs);
+}
+
+// partials: cfd::blocks_for(4 * Hq8 * Wqa) floats of scratch; count: one
+// unsigned int, 0 (the sum leaves it 0); row_base, halo: a local block's
+// global plane row of row 0 and its halo strip (0, 0 on a whole field),
+// sum_b then the sum over the own rows; plan: the 6 ints of the tile plan
+// (tile::Plan, kernels/plan.py carry_plan), a host array
 extern "C" int cfd_quad_channel_carry(const float* us, const float* vs, const float* p,
-                                      const float* p_prev, float* u_scr, float* v_scr,
-                                      float* us2, float* vs2, float* b, float* guess,
-                                      float* partials, float* sum_b, int Hq8, int Wqa,
-                                      int ny, int nx, float cu, float cv, float uin,
-                                      float dt, float nu, float idx, float idy,
-                                      float idx2, float idy2, float rho_dt, int row_base,
-                                      int halo, void* stream) {
+                                      const float* p_prev, float* us2, float* vs2, float* b,
+                                      float* guess, float* partials, unsigned int* count,
+                                      float* sum_b, int Hq8, int Wqa, int ny, int nx, float cu,
+                                      float cv, float uin, float dt, float nu, float idx,
+                                      float idy, float idx2, float idy2, float rho_dt,
+                                      int row_base, int halo, const int* plan, void* stream) {
   Corr c{Hq8, Wqa, ny, nx, cu, cv, uin, row_base};
   Pred pc{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt, 0.f, row_base};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (halo > 0) {
-    return static_cast<int>(channel_carry<false, true>(us, vs, p, p_prev, u_scr, v_scr, us2,
-                                                       vs2, b, guess, partials, sum_b, nullptr,
-                                                       nullptr, c, pc, halo, s));
+    return static_cast<int>(channel_carry<false, true>(us, vs, p, p_prev, us2, vs2, b, guess,
+                                                       partials, count, sum_b, nullptr,
+                                                       nullptr, c, pc, plan, halo, s));
   }
-  return static_cast<int>(channel_carry<false>(us, vs, p, p_prev, u_scr, v_scr, us2, vs2, b,
-                                                guess, partials, sum_b, nullptr, nullptr, c,
-                                                pc, 0, s));
+  return static_cast<int>(channel_carry<false, false>(us, vs, p, p_prev, us2, vs2, b, guess,
+                                                      partials, count, sum_b, nullptr, nullptr,
+                                                      c, pc, plan, 0, s));
 }
 
-// The non-carry channel stage (quad.py:847): the predictor on (u, v) as
-// given, the channel ghosts on the tentative fields, the raw source and its
-// interior sum; the channel carry's second and third launches.
-// partials: cfd::blocks_for(4 * Hq8 * Wqa) floats of scratch
+// The non-carry channel stage (row 8c, quad.py:847): the predictor on (u,
+// v) as given, the channel ghosts on the tentative fields, the raw source
+// and its interior sum. partials: cfd::blocks_for(4 * Hq8 * Wqa) floats of
+// scratch
 extern "C" int cfd_quad_channel_predictor_source(const float* u, const float* v, float* us2,
                                                  float* vs2, float* b, float* partials,
                                                  float* sum_b, int Hq8, int Wqa, int ny,
@@ -501,36 +556,34 @@ extern "C" int cfd_quad_channel_predictor_source(const float* u, const float* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = cfd::blocks_for(4LL * Hq8 * Wqa);
   Pred pc{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt};
-  channel_predictor_source_kernel<false><<<blocks, cfd::kThreads, 0, s>>>(
-      u, v, us2, vs2, b, partials, pc, uin, nullptr, 0);
+  channel_predictor_source_kernel<<<blocks, cfd::kThreads, 0, s>>>(u, v, us2, vs2, b, partials,
+                                                                   pc, uin);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cfd::fold_partials(partials, blocks, sum_b, s));
 }
 
 // traced_dt + emit_courant: dts = (dt_corr, dt_pred) on the card; cu_f, cv_f
-// the float32 rho*dx, rho*dy; courant: 2 floats, zeroed here; row_base,
-// halo as cfd_quad_channel_carry's, the sum and the Courant maxima then over
-// the own rows (row 16d+)
+// the float32 rho*dx, rho*dy; courant: 2 floats, zeroed here; partials,
+// count, row_base, halo, plan as cfd_quad_channel_carry's, the sum and the
+// Courant maxima then over the own rows (row 16d+)
 extern "C" int cfd_quad_channel_carry_adaptive(
-    const float* us, const float* vs, const float* p, const float* p_prev, float* u_scr,
-    float* v_scr, float* us2, float* vs2, float* b, float* guess, float* partials,
-    float* sum_b, float* courant, const float* dts, int Hq8, int Wqa, int ny, int nx,
-    float cu_f, float cv_f, float uin, float nu, float idx, float idy, float idx2,
-    float idy2, float rho, int row_base, int halo, void* stream) {
+    const float* us, const float* vs, const float* p, const float* p_prev, float* us2,
+    float* vs2, float* b, float* guess, float* partials, unsigned int* count, float* sum_b,
+    float* courant, const float* dts, int Hq8, int Wqa, int ny, int nx, float cu_f,
+    float cv_f, float uin, float nu, float idx, float idy, float idx2, float idy2, float rho,
+    int row_base, int halo, const int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(courant, 0, 2 * sizeof(float), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
   Corr c{Hq8, Wqa, ny, nx, cu_f, cv_f, uin, row_base};
   Pred pc{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho, row_base};
   if (halo > 0) {
-    return static_cast<int>(channel_carry<true, true>(us, vs, p, p_prev, u_scr, v_scr, us2,
-                                                      vs2, b, guess, partials, sum_b, courant,
-                                                      dts, c, pc, halo, s));
+    return static_cast<int>(channel_carry<true, true>(us, vs, p, p_prev, us2, vs2, b, guess,
+                                                      partials, count, sum_b, courant, dts, c,
+                                                      pc, plan, halo, s));
   }
-  return static_cast<int>(channel_carry<true>(us, vs, p, p_prev, u_scr, v_scr, us2, vs2, b,
-                                               guess, partials, sum_b, courant, dts, c, pc, 0,
-                                               s));
+  return static_cast<int>(channel_carry<true, false>(us, vs, p, p_prev, us2, vs2, b, guess,
+                                                     partials, count, sum_b, courant, dts, c,
+                                                     pc, plan, 0, s));
 }
 
 extern "C" const char* cfd_error_string(int err) {

@@ -26,7 +26,8 @@
 // ghost row or padding take a path with no ghost or mask test. The sum
 // launch (carry_tile.cuh source_sum) sums b in the order of the PyTorch
 // twin's fixed_order_sum: 256-wide chunks by the pairwise tree, then the
-// last block to finish folds the partials. 8 passes over the fields (4
+// last block to finish folds the partials (tile::launch_source_sum, which
+// the channel's and the step's carries launch too). 8 passes over the fields (4
 // in, 4 out) and one more over b, where the earlier four-launch chain
 // made about 15.
 //
@@ -218,11 +219,12 @@ __global__ void __launch_bounds__(tile::kThreads)
 }
 
 // the sum of b over the own rows (all rows on a whole field) into *sum, in
-// fixed_order_sum's order (tile::source_sum)
+// fixed_order_sum's order (tile::source_sum): the second launch of the
+// channel's, the step's and RB's carries (tile::launch_source_sum)
 template <bool kBlock>
 __global__ void __launch_bounds__(cfd::kThreads)
-    rb_source_sum_kernel(const float* b, int Hq8, int Wqa, int halo, float* partials,
-                         unsigned int* count, float* sum) {
+    source_sum_kernel(const float* b, int Hq8, int Wqa, int halo, float* partials,
+                      unsigned int* count, float* sum) {
   tile::source_sum<kBlock>(b, Hq8, Wqa, halo, partials, count, sum);
 }
 
@@ -260,16 +262,27 @@ cudaError_t rb_carry(const float* us, const float* vs, const float* p, const flo
           halo);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int chunks = cfd::blocks_for(4LL * cc.Hq8 * cc.Wqa);
-  // a warp a chunk; at most 256 blocks, so few arrive at the count
-  const int groups = (chunks + cfd::kThreads / 32 - 1) / (cfd::kThreads / 32);
-  const int blocks = groups < 256 ? groups : 256;
-  rb_source_sum_kernel<kBlock><<<blocks, cfd::kThreads, 0, s>>>(b, cc.Hq8, cc.Wqa, halo,
-                                                                partials, count, sum_b);
-  return cudaGetLastError();
+  return tile::launch_source_sum(b, cc.Hq8, cc.Wqa, halo, partials, count, sum_b, s);
 }
 
 }  // namespace
+
+cudaError_t cfd::tile::launch_source_sum(const float* b, int Hq8, int Wqa, int halo,
+                                         float* partials, unsigned int* count, float* sum,
+                                         cudaStream_t stream) {
+  const int chunks = cfd::blocks_for(4LL * Hq8 * Wqa);
+  // a warp a chunk; at most 256 blocks, so few arrive at the count
+  const int groups = (chunks + cfd::kThreads / 32 - 1) / (cfd::kThreads / 32);
+  const int blocks = groups < 256 ? groups : 256;
+  if (halo > 0) {
+    source_sum_kernel<true><<<blocks, cfd::kThreads, 0, stream>>>(b, Hq8, Wqa, halo, partials,
+                                                                   count, sum);
+  } else {
+    source_sum_kernel<false><<<blocks, cfd::kThreads, 0, stream>>>(b, Hq8, Wqa, 0, partials,
+                                                                    count, sum);
+  }
+  return cudaGetLastError();
+}
 
 extern "C" int cfd_rb_corrector(const float* us, const float* vs, const float* p, float* u2,
                                 float* v2, int Hq8, int Wqa, int ny, int nx, float cu,

@@ -1,7 +1,8 @@
 // Per-cell bodies of the backward step's tentative-carry stages on the quad
 // layout: the masked corrector and the masked predictor + source, with the
-// step BCs. Shared by the standalone stage kernels (step_stage.cu, on a
-// whole field or on a shard's local block) and the whole-step kernel
+// step BCs, and the accessor-taking arithmetic they are built of. Shared by
+// the corrector kernel and the carry's shared-memory tiles (step_stage.cu,
+// on a whole field or on a shard's local block) and the whole-step kernel
 // (whole_step.cu). The BC order is described in step_stage.cu. On a local
 // block (row0 != 0, common.cuh) every j is global, so the masks, the
 // inlet rows and the interface faces keep their global meaning.
@@ -74,61 +75,91 @@ __device__ __forceinline__ float step_v(F f, int j, int i, const Step& s) {
   return val;
 }
 
-// the rho-divided correction on valid faces, else 0
-__device__ __forceinline__ float u_corr(const float* us, const float* p, int j, int i,
-                                        const Step& s) {
+// The stages' arithmetic from accessors a(j, i): global logical (j, i),
+// reads of the quad arrays (cfd::QuadRead, through qld) or of a
+// shared-memory tile (carry_tile.cuh). The *_formula functions are the
+// arithmetic alone, for a face known to be valid (a tile's interior path).
+
+// the rho-divided correction of a u face
+template <class LUS, class LP>
+__device__ __forceinline__ float u_corr_formula(LUS us, LP p, int j, int i, const Step& s) {
+  const float pc = p(j, i);
+  const float pe = p(j, i + 1);
+  return us(j, i) - s.cu * (pe - pc);
+}
+
+// the rho-divided correction of a v face
+template <class LVS, class LP>
+__device__ __forceinline__ float v_corr_formula(LVS vs, LP p, int j, int i, const Step& s) {
+  const float pc = p(j, i);
+  const float pn = p(j + 1, i);
+  return vs(j, i) - s.cv * (pn - pc);
+}
+
+// the correction on valid faces, else 0
+template <class LUS, class LP>
+__device__ __forceinline__ float u_corr_at(LUS us, LP p, int j, int i, const Step& s) {
   if (!u_valid(j, i, s)) return 0.f;
-  const float pc = qld(p, j, i, s.Hq8, s.Wqa, s.row0);
-  const float pe = qld(p, j, i + 1, s.Hq8, s.Wqa, s.row0);
-  return qld(us, j, i, s.Hq8, s.Wqa, s.row0) - s.cu * (pe - pc);
+  return u_corr_formula(us, p, j, i, s);
 }
 
-__device__ __forceinline__ float v_corr(const float* vs, const float* p, int j, int i,
-                                        const Step& s) {
+template <class LVS, class LP>
+__device__ __forceinline__ float v_corr_at(LVS vs, LP p, int j, int i, const Step& s) {
   if (!v_valid(j, i, s)) return 0.f;
-  const float pc = qld(p, j, i, s.Hq8, s.Wqa, s.row0);
-  const float pn = qld(p, j + 1, i, s.Hq8, s.Wqa, s.row0);
-  return qld(vs, j, i, s.Hq8, s.Wqa, s.row0) - s.cv * (pn - pc);
+  return v_corr_formula(vs, p, j, i, s);
 }
 
-// The step corrector at quad cell idx: the rho-divided correction on valid
-// faces and the step BCs into u2, v2. Returns (|u|, |v|). kBlock: a shard's
-// local block at s.row0; a whole field folds the row offset away at compile
-// time.
-template <bool kBlock = false>
+// The corrected u, v at (j, i) with the step BCs
+template <class LUS, class LVS, class LP>
+__device__ __forceinline__ float2 step_uv_at(LUS us, LVS vs, LP p, int j, int i,
+                                             const Step& s) {
+  auto uc = [&](int jj, int ii) { return u_corr_at(us, p, jj, ii, s); };
+  auto vc = [&](int jj, int ii) { return v_corr_at(vs, p, jj, ii, s); };
+  return make_float2(step_u(uc, j, i, s), step_v(vc, j, i, s));
+}
+
+// The predictor of a u (v) face of the corrected fields u, v on the valid
+// faces, else 0: the tentative field before the step BCs
+template <class LU, class LV>
+__device__ __forceinline__ float fu_at(LU u, LV v, int j, int i, const Pred& c,
+                                       const Step& s) {
+  return u_valid(j, i, s) ? cfd::u_star_at(u, v, j, i, c) : 0.f;
+}
+
+template <class LU, class LV>
+__device__ __forceinline__ float fv_at(LU u, LV v, int j, int i, const Pred& c,
+                                       const Step& s) {
+  return v_valid(j, i, s) ? cfd::v_star_at(u, v, j, i, c) : 0.f;
+}
+
+// The step corrector at quad cell idx of a whole field: the rho-divided
+// correction on valid faces and the step BCs into u2, v2. Returns (|u|,
+// |v|).
 __device__ __forceinline__ float2 corrector_cell(const float* us, const float* vs,
                                                  const float* p, float* u2, float* v2,
                                                  long long idx, Step s) {
-  if constexpr (!kBlock) s.row0 = 0;
+  s.row0 = 0;
   const cfd::QuadCell cell = cfd::quad_cell(idx, s.Hq8, s.Wqa, s.row0);
-  auto uc = [&](int j, int i) { return u_corr(us, p, j, i, s); };
-  auto vc = [&](int j, int i) { return v_corr(vs, p, j, i, s); };
-  const float u = step_u(uc, cell.j, cell.i, s);
-  const float v = step_v(vc, cell.j, cell.i, s);
-  u2[idx] = u;
-  v2[idx] = v;
-  return make_float2(fabsf(u), fabsf(v));
+  const float2 uv =
+      step_uv_at(quad_read(us, s), quad_read(vs, s), quad_read(p, s), cell.j, cell.i, s);
+  u2[idx] = uv.x;
+  v2[idx] = uv.y;
+  return make_float2(fabsf(uv.x), fabsf(uv.y));
 }
 
 // The step predictor at quad cell idx on valid faces, the step BCs on the
 // tentative fields, b = rho/dt * div on the fluid cells (0 elsewhere);
-// returns b. kBlock as corrector_cell's (c.row0 == s.row0 on a block).
-template <bool kBlock = false>
+// returns b. The whole step's (whole_step.cu), on a whole field.
 __device__ __forceinline__ float predictor_source_cell(const float* u, const float* v,
                                                        float* us2, float* vs2, float* b,
                                                        long long idx, Pred c, Step s) {
-  if constexpr (!kBlock) {
-    c.row0 = 0;
-    s.row0 = 0;
-  }
+  c.row0 = 0;
+  s.row0 = 0;
   const cfd::QuadCell cell = cfd::quad_cell(idx, s.Hq8, s.Wqa, s.row0);
   const int j = cell.j, i = cell.i;
-  auto fu = [&](int jj, int ii) {
-    return u_valid(jj, ii, s) ? cfd::u_star(u, v, jj, ii, c) : 0.f;
-  };
-  auto fv = [&](int jj, int ii) {
-    return v_valid(jj, ii, s) ? cfd::v_star(u, v, jj, ii, c) : 0.f;
-  };
+  const cfd::QuadRead lu = quad_read(u, c), lv = quad_read(v, c);
+  auto fu = [&](int jj, int ii) { return fu_at(lu, lv, jj, ii, c, s); };
+  auto fv = [&](int jj, int ii) { return fv_at(lu, lv, jj, ii, c, s); };
   const float a = step_u(fu, j, i, s);
   const float bv = step_v(fv, j, i, s);
   us2[idx] = a;

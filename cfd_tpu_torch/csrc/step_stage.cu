@@ -10,28 +10,43 @@
 // shard's (4, P + 16, Wqa) block between two 8-row halo strips, row_base =
 // jy * P - 8 is the global plane row of local row 0 (every mask, inlet row
 // and interface face keeps its global meaning, common.cuh), a neighbour
-// outside the block reads 0, and the partial sums of b take the own rows
-// only (cfd::own_row), in the twin's fold order: the shard's partial, as do
-// the Courant maxima of the traced-dt instance. The
-// carry's stages reach kStepRadius rows: the corrector (p at j+1), the step
-// BCs on the corrected fields (the ghost rows read rows 1 and ny), the
-// predictor (j-1 ... j+1), the step BCs on the tentative fields and the
-// source (vs at j-1), one row each; inside the 8-row halo, so the own rows
-// are exact. A whole field is row_base 0, halo 0, and its instances fold
-// the row offset away at compile time (kBlock).
+// outside the block reads 0, and the sum of b takes the own rows only, in
+// the twin's fold order: the shard's partial, as do the Courant maxima of
+// the traced-dt instance. The carry's stages reach kStepRadius rows: the
+// corrector (p at j+1), the step BCs on the corrected fields (the ghost
+// rows read rows 1 and ny), the predictor (j-1 ... j+1), the step BCs on
+// the tentative fields and the source (vs at j-1), one row each; inside
+// the 8-row halo, so the own rows are exact. A whole field is row_base 0,
+// halo 0, and its instances fold the row offset away at compile time
+// (kBlock).
 //
 // Bound on the H100: device-memory bytes. The corrector reads 3 quad fields
 // and writes 2; the carry reads 3 and writes 3 plus one scalar (2.5 MB per
 // field at 2048x256). The arithmetic (about 85 flops a cell) is far below
 // the card's rate.
 //
-// Design: the channel stage kernels' (quad_stage.cu) with the step's masks.
-// One thread per quad cell; the per-cell bodies live in step_carry.cuh,
-// which the whole-step kernel (whole_step.cu) runs too. The carry is three launches: (1) the corrected
-// and BC'd u, v into scratch fields; (2) the predictor on valid faces, the
-// step BCs again on the tentative fields, b = rho/dt * div on FLUID cells
-// (0 elsewhere) and each block's partial sum of b by a fixed pairwise tree;
-// (3) one block folds the partials in the twin's fold_sum order.
+// Design. The carry is ONE tile launch and one sum launch, as the
+// channel's (quad_stage.cu) with the step's masks: both run
+// carry_tile.cuh's duct_carry, each with its own arithmetic (StepTile
+// below). The tile kernel loads us, vs and p with a halo of 3 plane rows and
+// columns (6 logical, >= kStepRadius) into shared memory, computes the
+// corrected, BC'd u, v on the region the predictor reads, then u* (own
+// cells and one column west) and v* (own cells and one row south) with the
+// step BCs on the tentative fields, and writes us', vs' and b = rho/dt *
+// div on the FLUID cells (0 elsewhere) of its own cells, reducing the
+// Courant maxima over them (kAdaptive). A tile whose staged region misses
+// the walls, the ghost rows and columns, the padding, the array's edge and
+// the solid block with its interface faces (i <= step_i, j >= inlet_j:
+// tile::misses_corner) takes a path with no mask or BC test; a tile whose
+// own cells all lie outside the domain (the padding columns: 1025 of the
+// 2048x256 step's 1152 quad columns are used) writes its zeros without
+// loading. The sum launch (carry_tile.cuh source_sum) sums b in the twin's
+// fixed_order_sum order; b is 0 off the fluid cells, so that is the
+// fluid-only sum. 6 passes over the fields (3 in, 3 out) and one more over
+// b, where the earlier three-launch chain made 10. The corrector (row 9b)
+// keeps the first design, one thread per quad cell; the per-cell bodies
+// and the tiles share the arithmetic of step_carry.cuh, which the
+// whole-step kernel (whole_step.cu) runs too.
 //
 // Step BC order (cfd_tpu/kernels/step_quad.py:60-97, bc.step_bc): u inlet
 // column (uin on rows 1..inlet_j, 0 above), v inlet column 0, u outlet
@@ -42,10 +57,12 @@
 // ny AFTER the inlet and outlet updates and BEFORE the interface zeroing, so
 // a thread rebuilding a ghost recomputes the value it depends on (step_u).
 //
-// The adaptive-stepping instances (template flags kTraced, kCourant) follow
-// csrc/quad_stage.cu: dt from the card, the rho-divided coefficients
-// dt / (rho*dx) in float32 (step_quad.py:163), the carry's pair (dt_corr,
-// dt_pred), and max|u|, max|v| of the corrected, BC'd fields.
+// The adaptive-stepping instances (template flags kTraced on the
+// corrector, kAdaptive on the carry) follow csrc/quad_stage.cu: dt from
+// the card, the rho-divided coefficients dt / (rho*dx) in float32
+// (step_quad.py:163), the carry's pair (dt_corr, dt_pred), and max|u|,
+// max|v| of the corrected, BC'd fields.
+#include "carry_tile.cuh"
 #include "common.cuh"
 #include "predictor.cuh"
 #include "step_carry.cuh"
@@ -54,19 +71,16 @@ namespace {
 
 using cfd::Pred;
 using cfd::step::Step;
+namespace tile = cfd::tile;
 
 // the dependency radius of the carry's stages, in rows (above)
 constexpr int kStepRadius = 5;
 static_assert(kStepRadius <= 8, "the step carry reaches past the 8-row halo");
 
-// kTraced: cu, cv formed from *dt (s0 holds rho*dx, rho*dy); kCourant:
-// max|u|, max|v| of the outputs into courant[0], courant[1]; kBlock: a
-// shard's local block (its row offset, and the Courant maxima over its own
-// rows only, cfd::own_row)
-template <bool kTraced, bool kCourant, bool kBlock = false>
+// the corrector (kTraced: cu, cv formed from *dt; s0 holds rho*dx, rho*dy)
+template <bool kTraced>
 __global__ void step_corrector_kernel(const float* us, const float* vs, const float* p,
-                                      float* u2, float* v2, Step s0, const float* dt,
-                                      float* courant, int halo) {
+                                      float* u2, float* v2, Step s0, const float* dt) {
   Step s = s0;
   if constexpr (kTraced) {
     s.cu = cfd::traced_coeff<true>(*dt, s0.cu);
@@ -74,57 +88,92 @@ __global__ void step_corrector_kernel(const float* us, const float* vs, const fl
   }
   const long long n = 4LL * s.Hq8 * s.Wqa;
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float au = 0.f, av = 0.f;
-  if (idx < n) {
-    const float2 a = cfd::step::corrector_cell<kBlock>(us, vs, p, u2, v2, idx, s);
-    if (!kBlock || cfd::own_row(idx, s.Hq8, s.Wqa, halo)) {
-      au = a.x;
-      av = a.y;
-    }
-  }
-  if constexpr (kCourant) cfd::block_max2_into(au, av, courant);
+  if (idx < n) cfd::step::corrector_cell(us, vs, p, u2, v2, idx, s);
 }
 
-// predictor on valid faces, the step BCs on the tentative fields, b on the
-// fluid cells, and the block's partial sum of b (fixed tree); kBlock: a
-// shard's local block, whose partials take its own rows only (cfd::own_row)
-template <bool kTraced, bool kBlock = false>
-__global__ void step_predictor_source_kernel(const float* u, const float* v, float* us2,
-                                             float* vs2, float* b, float* partials, Pred c0,
-                                             Step s, const float* dt, int halo) {
-  const Pred c = cfd::pred_at<kTraced>(c0, dt);
-  const long long n = 4LL * s.Hq8 * s.Wqa;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float part = 0.f;
-  if (idx < n) {
-    const float bb =
-        cfd::step::predictor_source_cell<kBlock>(u, v, us2, vs2, b, idx, c, s);
-    if (!kBlock || cfd::own_row(idx, s.Hq8, s.Wqa, halo)) part = bb;
+// The step's arithmetic on a tile (tile::duct_carry): the masked
+// correction with the step BCs, the masked predictor with the step BCs on
+// the tentative fields, the source on the fluid cells; the unmasked path
+// also off the solid block and its interface faces
+struct StepTile {
+  static constexpr bool kGuess = false;
+  Step c;
+  Pred pc;
+  __device__ bool inner(const tile::Tile& t, const tile::Box& A) const {
+    return tile::interior(t, A, c.ny, c.nx, c.Hq8) &&
+           tile::misses_corner(t, A, c.step_i, c.inlet_j);
   }
-  cfd::block_sum_to(part, partials + blockIdx.x);
+  __device__ float2 uv_formula(tile::View us, tile::View vs, tile::View p, int j, int i) const {
+    return make_float2(cfd::step::u_corr_formula(us, p, j, i, c),
+                       cfd::step::v_corr_formula(vs, p, j, i, c));
+  }
+  __device__ float2 uv_at(tile::View us, tile::View vs, tile::View p, int j, int i) const {
+    return cfd::step::step_uv_at(us, vs, p, j, i, c);
+  }
+  __device__ float us_at(tile::View u, tile::View v, int j, int i) const {
+    auto fu = [&](int jj, int ii) { return cfd::step::fu_at(u, v, jj, ii, pc, c); };
+    return cfd::step::step_u(fu, j, i, c);
+  }
+  __device__ float vs_at(tile::View u, tile::View v, int j, int i) const {
+    auto fv = [&](int jj, int ii) { return cfd::step::fv_at(u, v, jj, ii, pc, c); };
+    return cfd::step::step_v(fv, j, i, c);
+  }
+  __device__ bool cell(int j, int i) const { return cfd::step::fluid(j, i, c); }
+};
+
+// The carry's tile kernel (the design above). kAdaptive: the coefficients
+// from dts = (dt_corr, dt_pred) on the card and the Courant maxima into
+// courant[0], courant[1]; kBlock: a shard's local block, whose maxima take
+// its own rows only, else row0 folds to 0. The fixed-dt instances fit four
+// blocks an SM in 32 registers a thread without spilling, 3% faster than
+// three at the 40 the compiler picks unbounded; the adaptive instances two,
+// at 64 (a bound of one block let the compiler take more registers and fit
+// one block an SM, 13% slower; PERF.md, the carries' findings).
+template <bool kAdaptive, bool kBlock>
+__global__ void __launch_bounds__(tile::kThreads, kAdaptive ? 2 : 4)
+    step_carry_kernel(const float* us, const float* vs, const float* p, float* us2,
+                      float* vs2, float* b, float* courant, Step s, Pred pc,
+                      const float* dts, tile::Plan pl, int halo) {
+  if constexpr (kAdaptive) {
+    s.cu = cfd::traced_coeff<true>(*dts, s.cu);
+    s.cv = cfd::traced_coeff<true>(*dts, s.cv);
+  }
+  pc = cfd::pred_at<kAdaptive>(pc, kAdaptive ? dts + 1 : nullptr);
+  if constexpr (!kBlock) s.row0 = pc.row0 = 0;
+  tile::duct_carry<kAdaptive, kBlock>(StepTile{s, pc}, us, vs, p, nullptr, us2, vs2, b,
+                                      nullptr, courant, pl, halo);
 }
 
-}  // namespace
+const void* step_carry_fn(bool adaptive, bool block) {
+  if (adaptive) {
+    return block ? reinterpret_cast<const void*>(step_carry_kernel<true, true>)
+                 : reinterpret_cast<const void*>(step_carry_kernel<true, false>);
+  }
+  return block ? reinterpret_cast<const void*>(step_carry_kernel<false, true>)
+               : reinterpret_cast<const void*>(step_carry_kernel<false, false>);
+}
 
-namespace {
-
-// the carry's three launches: corrector, predictor + source + partial sums
-// (own rows of a block with a `halo`-row strip), fold
-template <bool kAdaptive, bool kBlock = false>
-cudaError_t step_carry(const float* us, const float* vs, const float* p, float* u_scr,
-                       float* v_scr, float* us2, float* vs2, float* b, float* partials,
+// The carry's two launches: the plan checked, the Courant maxima zeroed
+// (kAdaptive), the tile kernel, then the sum. kBlock: a shard's local block
+// with a `halo`-row strip, whose sum and maxima take its own rows only.
+template <bool kAdaptive, bool kBlock>
+cudaError_t step_carry(const float* us, const float* vs, const float* p, float* us2,
+                       float* vs2, float* b, float* partials, unsigned int* count,
                        float* sum_b, float* courant, const float* dts, const Step& s,
-                       const Pred& c, int halo, cudaStream_t st) {
-  const int blocks = cfd::blocks_for(4LL * s.Hq8 * s.Wqa);
-  step_corrector_kernel<kAdaptive, kAdaptive, kBlock><<<blocks, cfd::kThreads, 0, st>>>(
-      us, vs, p, u_scr, v_scr, s, dts, courant, halo);
-  cudaError_t err = cudaGetLastError();
+                       const Pred& pc, const int* plan, int halo, cudaStream_t st) {
+  const tile::Plan pl{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
+  cudaError_t err = tile::check(pl, s.Hq8, s.Wqa, kStepRadius, tile::kDuctBuffers);
   if (err != cudaSuccess) return err;
-  step_predictor_source_kernel<kAdaptive, kBlock><<<blocks, cfd::kThreads, 0, st>>>(
-      u_scr, v_scr, us2, vs2, b, partials, c, s, kAdaptive ? dts + 1 : nullptr, halo);
+  if constexpr (kAdaptive) {
+    err = cudaMemsetAsync(courant, 0, 2 * sizeof(float), st);
+    if (err != cudaSuccess) return err;
+  }
+  step_carry_kernel<kAdaptive, kBlock>
+      <<<dim3(pl.grid_x, pl.grid_y), tile::kThreads, pl.smem_bytes, st>>>(
+          us, vs, p, us2, vs2, b, courant, s, pc, dts, pl, halo);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return cfd::fold_partials(partials, blocks, sum_b, st);
+  return tile::launch_source_sum(b, s.Hq8, s.Wqa, halo, partials, count, sum_b, st);
 }
 
 }  // namespace
@@ -135,9 +184,8 @@ extern "C" int cfd_step_corrector(const float* us, const float* vs, const float*
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Step s{Hq8, Wqa, ny, nx, step_i, inlet_j, cu, cv, uin};
-  step_corrector_kernel<false, false>
-      <<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, st>>>(us, vs, p, u2, v2, s,
-                                                                  nullptr, nullptr, 0);
+  step_corrector_kernel<false><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, st>>>(
+      us, vs, p, u2, v2, s, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -148,56 +196,62 @@ extern "C" int cfd_step_corrector_traced(const float* us, const float* vs, const
                                          float cu_f, float cv_f, float uin, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Step s{Hq8, Wqa, ny, nx, step_i, inlet_j, cu_f, cv_f, uin};
-  step_corrector_kernel<true, false>
-      <<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, st>>>(us, vs, p, u2, v2, s, dt,
-                                                                  nullptr, 0);
+  step_corrector_kernel<true><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, st>>>(
+      us, vs, p, u2, v2, s, dt);
   return static_cast<int>(cudaGetLastError());
 }
 
-// partials: cfd::blocks_for(4 * Hq8 * Wqa) floats of scratch; row_base,
-// halo: a local block's global plane row of row 0 and its halo strip (0, 0
-// on a whole field), sum_b then the sum over the own rows
-extern "C" int cfd_step_carry(const float* us, const float* vs, const float* p,
-                              float* u_scr, float* v_scr, float* us2, float* vs2, float* b,
-                              float* partials, float* sum_b, int Hq8, int Wqa, int ny,
-                              int nx, int step_i, int inlet_j, float cu, float cv,
-                              float uin, float dt, float nu, float idx, float idy,
-                              float idx2, float idy2, float rho_dt, int row_base, int halo,
-                              void* stream) {
+// Readies the carry's tile kernel (adaptive, block: its instance) for
+// `smem_bytes` of dynamic shared memory on the current device: blocks (SMs
+// x blocks per SM), blocks per SM and registers out (tile::ready)
+extern "C" int cfd_step_carry_grid(int adaptive, int block, int smem_bytes, int* blocks,
+                                   int* per_sm, int* regs) {
+  return tile::ready(step_carry_fn(adaptive != 0, block != 0), smem_bytes, blocks, per_sm,
+                     regs);
+}
+
+// partials: cfd::blocks_for(4 * Hq8 * Wqa) floats of scratch; count: one
+// unsigned int, 0 (the sum leaves it 0); row_base, halo: a local block's
+// global plane row of row 0 and its halo strip (0, 0 on a whole field),
+// sum_b then the sum over the own rows; plan: the 6 ints of the tile plan
+// (tile::Plan, kernels/plan.py carry_plan), a host array
+extern "C" int cfd_step_carry(const float* us, const float* vs, const float* p, float* us2,
+                              float* vs2, float* b, float* partials, unsigned int* count,
+                              float* sum_b, int Hq8, int Wqa, int ny, int nx, int step_i,
+                              int inlet_j, float cu, float cv, float uin, float dt, float nu,
+                              float idx, float idy, float idx2, float idy2, float rho_dt,
+                              int row_base, int halo, const int* plan, void* stream) {
   Step s{Hq8, Wqa, ny, nx, step_i, inlet_j, cu, cv, uin, row_base};
   Pred c{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt, 0.f, row_base};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (halo > 0) {
-    return static_cast<int>(step_carry<false, true>(us, vs, p, u_scr, v_scr, us2, vs2, b,
-                                                    partials, sum_b, nullptr, nullptr, s, c,
-                                                    halo, st));
+    return static_cast<int>(step_carry<false, true>(us, vs, p, us2, vs2, b, partials, count,
+                                                    sum_b, nullptr, nullptr, s, c, plan, halo,
+                                                    st));
   }
-  return static_cast<int>(step_carry<false>(us, vs, p, u_scr, v_scr, us2, vs2, b, partials,
-                                             sum_b, nullptr, nullptr, s, c, 0, st));
+  return static_cast<int>(step_carry<false, false>(us, vs, p, us2, vs2, b, partials, count,
+                                                   sum_b, nullptr, nullptr, s, c, plan, 0, st));
 }
 
 // traced_dt + emit_courant: dts = (dt_corr, dt_pred) on the card; cu_f, cv_f
-// the float32 rho*dx, rho*dy; courant: 2 floats, zeroed here; row_base,
-// halo as cfd_step_carry's, the sum and the Courant maxima then over the
-// own rows (row 16f+)
+// the float32 rho*dx, rho*dy; courant: 2 floats, zeroed here; partials,
+// count, row_base, halo, plan as cfd_step_carry's, the sum and the Courant
+// maxima then over the own rows (row 16f+)
 extern "C" int cfd_step_carry_adaptive(const float* us, const float* vs, const float* p,
-                                       float* u_scr, float* v_scr, float* us2, float* vs2,
-                                       float* b, float* partials, float* sum_b,
-                                       float* courant, const float* dts, int Hq8, int Wqa,
-                                       int ny, int nx, int step_i, int inlet_j, float cu_f,
-                                       float cv_f, float uin, float nu, float idx, float idy,
-                                       float idx2, float idy2, float rho, int row_base,
-                                       int halo, void* stream) {
+                                       float* us2, float* vs2, float* b, float* partials,
+                                       unsigned int* count, float* sum_b, float* courant,
+                                       const float* dts, int Hq8, int Wqa, int ny, int nx,
+                                       int step_i, int inlet_j, float cu_f, float cv_f,
+                                       float uin, float nu, float idx, float idy, float idx2,
+                                       float idy2, float rho, int row_base, int halo,
+                                       const int* plan, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(courant, 0, 2 * sizeof(float), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
   Step s{Hq8, Wqa, ny, nx, step_i, inlet_j, cu_f, cv_f, uin, row_base};
   Pred c{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho, row_base};
   if (halo > 0) {
-    return static_cast<int>(step_carry<true, true>(us, vs, p, u_scr, v_scr, us2, vs2, b,
-                                                   partials, sum_b, courant, dts, s, c, halo,
-                                                   st));
+    return static_cast<int>(step_carry<true, true>(us, vs, p, us2, vs2, b, partials, count,
+                                                   sum_b, courant, dts, s, c, plan, halo, st));
   }
-  return static_cast<int>(step_carry<true>(us, vs, p, u_scr, v_scr, us2, vs2, b, partials,
-                                            sum_b, courant, dts, s, c, 0, st));
+  return static_cast<int>(step_carry<true, false>(us, vs, p, us2, vs2, b, partials, count,
+                                                  sum_b, courant, dts, s, c, plan, 0, st));
 }

@@ -55,13 +55,16 @@ SIGNATURES = {
     # the carries' tile kernels readied: adaptive, block, shared memory;
     # blocks, blocks per SM, registers out
     "cfd_quad_carry_grid": [_I] * 3 + [_P] * 3,
+    "cfd_quad_channel_carry_grid": [_I] * 3 + [_P] * 3,
+    "cfd_step_carry_grid": [_I] * 3 + [_P] * 3,
     "cfd_rb_carry_grid": [_I] * 3 + [_P] * 3,
     "cfd_quad_pre_smooth_restrict": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
     "cfd_quad_post_prolong_smooth": [_P] * 9 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
     "cfd_rb_pairs": [_I] + [_P] * 10 + [_I] * 4 + [_F] * 3 + [_I, _P],
     "cfd_quad_channel_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
-    # the channel's and RB's carries: the last two ints as the cavity's
-    "cfd_quad_channel_carry": [_P] * 12 + [_I] * 4 + [_F] * 10 + [_I, _I, _P],
+    # the channel's, the step's and RB's carries: the last two ints and the
+    # plan as the cavity's
+    "cfd_quad_channel_carry": [_P] * 11 + [_I] * 4 + [_F] * 10 + [_I, _I, _P, _P],
     # ... the last two pointers before the stream: rc32 and the launch plan
     # (kernels/whole_solve.py Plan)
     "cfd_whole_solve": ([_I] + [_P] * 13 + [_I] * 6 + [_F] * 4 + [_I] + [_P] * 3 + [_F]
@@ -79,7 +82,7 @@ SIGNATURES = {
     "cfd_whole_step_grid": [_I] * 2 + [_P] * 3,
     "cfd_step_corrector": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P],
     # the step's carry, pre and post: the last two ints as the cavity's
-    "cfd_step_carry": [_P] * 10 + [_I] * 6 + [_F] * 10 + [_I, _I, _P],
+    "cfd_step_carry": [_P] * 9 + [_I] * 6 + [_F] * 10 + [_I, _I, _P, _P],
     "cfd_step_pre_smooth_restrict": [_P] * 5 + [_I] * 6 + [_F] * 5 + [_I] * 3 + [_P],
     "cfd_step_post_prolong_smooth": [_P] * 6 + [_I] * 6 + [_F] * 5 + [_I] * 3 + [_P],
     "cfd_rb_pairs_full": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I, _P],
@@ -87,14 +90,14 @@ SIGNATURES = {
     "cfd_rb_carry": [_P] * 13 + [_I] * 4 + [_F] * 13 + [_I, _I, _P, _P],
     # adaptive stepping: the traced-dt correctors, the traced-dt cavity
     # predictor+source, the traced-dt + Courant carries (their last two
-    # ints, and the cavity's and RB's plan, as the fixed carries')
+    # ints and their plan as the fixed carries')
     "cfd_quad_corrector_traced": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
     "cfd_quad_predictor_source": [_P] * 7 + [_I] * 4 + [_F] * 7 + [_P],
     "cfd_quad_carry_adaptive": [_P] * 10 + [_I] * 4 + [_F] * 9 + [_I, _I, _P, _P],
     "cfd_quad_channel_corrector_traced": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
-    "cfd_quad_channel_carry_adaptive": [_P] * 14 + [_I] * 4 + [_F] * 9 + [_I, _I, _P],
+    "cfd_quad_channel_carry_adaptive": [_P] * 13 + [_I] * 4 + [_F] * 9 + [_I, _I, _P, _P],
     "cfd_step_corrector_traced": [_P] * 6 + [_I] * 6 + [_F] * 3 + [_P],
-    "cfd_step_carry_adaptive": [_P] * 12 + [_I] * 6 + [_F] * 9 + [_I, _I, _P],
+    "cfd_step_carry_adaptive": [_P] * 11 + [_I] * 6 + [_F] * 9 + [_I, _I, _P, _P],
     "cfd_rb_corrector_traced": [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P],
     "cfd_rb_carry_adaptive": [_P] * 13 + [_I] * 4 + [_F] * 11 + [_I, _I, _P, _P],
     # the natural layout: the four stage kernels and the step's exact

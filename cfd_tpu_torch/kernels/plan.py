@@ -235,7 +235,8 @@ def cooperative_grid(symbol: str, *which: int) -> dict:
     arguments before the outputs: a flavor and shared memory where it takes
     them) of the C entry point ``symbol`` (cfd_whole_solve_grid,
     cfd_whole_step_grid, cfd_mg_tail_grid, cfd_quad_fused_pre_grid; the
-    carries' cfd_quad_carry_grid, cfd_rb_carry_grid) on the current CUDA
+    carries' cfd_quad_carry_grid, cfd_quad_channel_carry_grid,
+    cfd_step_carry_grid, cfd_rb_carry_grid) on the current CUDA
     device: blocks (SMs x blocks per SM), blocks per SM and registers per
     thread. Raises when the card refuses the grid."""
     lib = library()
@@ -267,15 +268,18 @@ def ready_grid(plan: Plan, device, symbol: str, *which: int) -> dict:
 
 # The tile of each carry, (plane rows, plane columns), chosen on an H100 by
 # timing the candidates at the main shapes (PERF.md, the carries'
-# findings): two blocks of 512 threads (csrc/carry_tile.cuh kThreads) an SM.
-# A sweep edits these in a scratch copy; nothing overrides them.
-CARRY_TILES = {"cavity": (8, 64), "rb": (16, 32)}
+# findings): blocks of 512 threads (csrc/carry_tile.cuh kThreads), two an
+# SM (four for the step's fixed-dt instance, csrc/step_stage.cu). A sweep
+# edits these in a scratch copy; nothing overrides them.
+CARRY_TILES = {"cavity": (8, 64), "channel": (16, 32), "step": (8, 32), "rb": (16, 32)}
 # The logical rows each carry's chain reaches (the cavity: the reference's
-# CARRY_RADIUS, cfd_tpu/kernels/quad.py:1021; RB: csrc/rb_stage.cu
-# kRBRadius) and the shared-memory buffers a tile stages (csrc/quad_stage.cu
-# kCavityBuffers, csrc/rb_stage.cu kRBBuffers).
-CARRY_RADIUS = {"cavity": 5, "rb": 7}
-CARRY_BUFFERS = {"cavity": 5, "rb": 6}
+# CARRY_RADIUS, cfd_tpu/kernels/quad.py:1021; the channel, the step and RB:
+# csrc/quad_stage.cu kChannelRadius, csrc/step_stage.cu kStepRadius,
+# csrc/rb_stage.cu kRBRadius) and the shared-memory buffers a tile stages
+# (csrc/quad_stage.cu kCavityBuffers, csrc/carry_tile.cuh kDuctBuffers for
+# the channel and the step, csrc/rb_stage.cu kRBBuffers).
+CARRY_RADIUS = {"cavity": 5, "channel": 5, "step": 5, "rb": 7}
+CARRY_BUFFERS = {"cavity": 5, "channel": 5, "step": 5, "rb": 6}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,11 +310,12 @@ def carry_buffer_floats(rows: int, cols: int, halo: int) -> int:
 
 
 def carry_plan(flow: str, qshape, tile: tuple[int, int] | None = None) -> CarryPlan:
-    """The plan of ``flow``'s carry ("cavity" or "rb") on a (4, Hq8, Wqa)
-    field or local block: CARRY_TILES' tile (the card tests pass another
-    ``tile`` to hold the kernels to their twins under it), cut to the field
-    where it is larger, a halo of ceil(CARRY_RADIUS / 2) plane rows. Raises
-    when a block's buffers do not fit its shared memory."""
+    """The plan of ``flow``'s carry ("cavity", "channel", "step" or "rb")
+    on a (4, Hq8, Wqa) field or local block: CARRY_TILES' tile (the card
+    tests pass another ``tile`` to hold the kernels to their twins under
+    it), cut to the field where it is larger, a halo of ceil(CARRY_RADIUS /
+    2) plane rows. Raises when a block's buffers do not fit its shared
+    memory."""
     _, Hq8, Wqa = qshape
     rows, cols = CARRY_TILES[flow] if tile is None else tile
     rows, cols = min(rows, Hq8), min(cols, Wqa)
@@ -335,7 +340,8 @@ def carry_tiles(plan: CarryPlan, qshape):
 
 def ready_tiles(plan: CarryPlan, device, symbol: str, *which: int) -> dict:
     """Ready the carry tile kernel of ``symbol`` (cfd_quad_carry_grid,
-    cfd_rb_carry_grid) and ``which`` (adaptive, block) on ``device`` for
+    cfd_quad_channel_carry_grid, cfd_step_carry_grid, cfd_rb_carry_grid)
+    and ``which`` (adaptive, block) on ``device`` for
     the plan's shared memory, and raise unless the card holds a block of
     it. The carry modules call it once a device and instance, before their
     first launch there; returns cooperative_grid's dict."""

@@ -32,9 +32,9 @@ CUDA tensor, and a Python dividend, into a reciprocal multiply).
 
 The TPU kernels' slab/halo/band machinery (quad.py:132-417, _band_maker
 :611-627) exists for a sequential grid with large VMEM and is not ported
-as such; the cavity carry's CUDA kernel keeps its idea, the whole chain on
-chip, in shared-memory tiles (csrc/carry_tile.cuh, planned by
-kernels/plan.py carry_plan).
+as such; the cavity's and the channel's carry kernels keep its idea, the
+whole chain on chip, in shared-memory tiles (csrc/carry_tile.cuh, planned
+by kernels/plan.py carry_plan).
 """
 
 from __future__ import annotations
@@ -533,6 +533,20 @@ def tile_plan_ptr(op, flow: str, device, symbol: str, adaptive: bool, block: boo
     return ctypes.cast(op._tile_ints, ctypes.c_void_p)
 
 
+def sum_scratch(op, like):
+    """(partials, count) of one launch of the carries' sum of b over
+    ``like``'s shape (csrc/carry_tile.cuh source_sum, the channel's, the
+    step's and RB's): fresh partials, one a 256-wide chunk, and the count,
+    one int32 on ``like``'s device that ``op`` keeps (op._sum_counts),
+    zeroed once: every sum leaves it 0."""
+    counts = op.__dict__.setdefault("_sum_counts", {})
+    if str(like.device) not in counts:
+        counts[str(like.device)] = torch.zeros(1, dtype=torch.int32, device=like.device)
+    partials = torch.empty(-(-like.numel() // SUM_BLOCK), dtype=torch.float32,
+                           device=like.device)
+    return partials, counts[str(like.device)]
+
+
 class QuadCorrPredictorSource(QuadCorrector):
     """Tentative-state cavity stage (cfd_tpu/kernels/quad.py:938):
     (us, vs, p, p_prev) -> (us', vs', b', guess, max|b'|). Corrects the
@@ -618,7 +632,9 @@ class QuadChannelCorrPredictorSource(QuadChannelCorrector):
     corrected fields, the MAC predictor, the channel ghosts again on the
     tentative fields, b = rho/dt * div on the cells, and the interior sum of
     b (the caller removes its mean). ``sum b'`` is a 0-d float32 tensor,
-    summed in fixed_order_sum's order."""
+    summed in fixed_order_sum's order. On the card it is one launch over
+    shared-memory tiles (csrc/quad_stage.cu channel_carry_kernel) and one
+    for the sum (carry_tile.cuh source_sum)."""
 
     def __init__(self, shape, coeffs: StencilCoeffs, inlet_velocity: float = 1.0):
         super().__init__(shape, coeffs, inlet_velocity)
@@ -633,17 +649,25 @@ class QuadChannelCorrPredictorSource(QuadChannelCorrector):
         return us2, vs2, b, torch.stack(guess), fixed_order_sum(b)
 
     def kernel(self, us, vs, p, p_prev):
-        u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
-        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
-                               device=us.device)
-        sum_b = torch.empty((), dtype=torch.float32, device=us.device)
-        _, Hq8, Wqa = self.qshape
-        c = self.coeffs
-        CHANNEL_CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr), ptr(v_scr),
-                      ptr(us2), ptr(vs2), ptr(b), ptr(guess), ptr(partials), ptr(sum_b),
-                      Hq8, Wqa, self.ny, self.nx, self.cu, self.cv, self.uin, c.dt,
-                      c.viscosity, c.idx, c.idy, c.idx2, c.idy2, self.rho_dt, 0, 0)
-        return us2, vs2, b, guess, sum_b
+        return _channel_carry(self, CHANNEL_CARRY, (us, vs, p, p_prev), 0, 0)
+
+
+def _channel_carry(op, kern: Kernel, fields, row_base: int, halo: int):
+    """One call of cfd_quad_channel_carry through ``kern`` (its counter):
+    (us', vs', b', guess, sum b'), the sum over the own rows of a block with
+    a ``halo``-row strip."""
+    us, vs, p, p_prev = fields
+    us2, vs2, b, guess = (torch.empty_like(us) for _ in range(4))
+    partials, count = sum_scratch(op, us)
+    sum_b = torch.empty((), dtype=torch.float32, device=us.device)
+    _, H, Wqa = op.qshape
+    c = op.coeffs
+    plan = tile_plan_ptr(op, "channel", us.device, "cfd_quad_channel_carry_grid", False,
+                         halo > 0)
+    kern(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(us2), ptr(vs2), ptr(b), ptr(guess),
+         ptr(partials), ptr(count), ptr(sum_b), H, Wqa, op.ny, op.nx, op.cu, op.cv, op.uin,
+         c.dt, c.viscosity, c.idx, c.idy, c.idx2, c.idy2, op.rho_dt, row_base, halo, plan)
+    return us2, vs2, b, guess, sum_b
 
 
 class QuadChannelPredictorSource(_QuadStage):
@@ -841,7 +865,8 @@ class QuadChannelCorrPredictorSourceAdaptive(_Traced, QuadChannelCorrPredictorSo
     """The channel carry with traced_dt and emit_courant
     (cfd_tpu/kernels/quad.py:1126): (dts, us, vs, p, p_prev) -> (us', vs',
     b', guess, sum b', max|u|, max|v|), dts = (dt_corr, dt_pred) as the
-    cavity's."""
+    cavity's. On the card: the fixed carry's tile kernel, its adaptive
+    instance, after one zeroing of the two maxima, and the sum launch."""
 
     n_dt = 2
 
@@ -864,19 +889,21 @@ class QuadChannelCorrPredictorSourceAdaptive(_Traced, QuadChannelCorrPredictorSo
 
 
 def _channel_carry_adaptive(op, kern: Kernel, dts, fields, row_base: int, halo: int):
-    """One launch of cfd_quad_channel_carry_adaptive through ``kern``: (us',
+    """One call of cfd_quad_channel_carry_adaptive through ``kern``: (us',
     vs', b', guess, sum b', max|u|, max|v|), the reductions over the own rows
     of a block with a ``halo``-row strip."""
     us, vs, p, p_prev = fields
-    u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
-    partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32, device=us.device)
+    us2, vs2, b, guess = (torch.empty_like(us) for _ in range(4))
+    partials, count = sum_scratch(op, us)
     scal = torch.empty(3, dtype=torch.float32, device=us.device)  # sum b, max|u|, max|v|
     _, H, Wqa = op.qshape
     c = op.coeffs
-    kern(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr), ptr(v_scr), ptr(us2), ptr(vs2),
-         ptr(b), ptr(guess), ptr(partials), ptr(scal), ptr(scal[1:]), ptr(dts), H, Wqa, op.ny,
-         op.nx, op.cu_f, op.cv_f, op.uin, c.viscosity, c.idx, c.idy, c.idx2, c.idy2, c.density,
-         row_base, halo)
+    plan = tile_plan_ptr(op, "channel", us.device, "cfd_quad_channel_carry_grid", True,
+                         halo > 0)
+    kern(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(us2), ptr(vs2), ptr(b), ptr(guess),
+         ptr(partials), ptr(count), ptr(scal), ptr(scal[1:]), ptr(dts), H, Wqa, op.ny, op.nx,
+         op.cu_f, op.cv_f, op.uin, c.viscosity, c.idx, c.idy, c.idx2, c.idy2, c.density,
+         row_base, halo, plan)
     return us2, vs2, b, guess, scal[0], scal[1], scal[2]
 
 
@@ -1163,9 +1190,8 @@ class _CarryBlock:
     called (row_base, us, vs, p, p_prev). Its twin is the single-device
     twin on the block padded with DEV_HALO zero rows either side, the
     corrected u, v zeroed on the padding: the kernels (csrc/quad_stage.cu)
-    read 0 outside the block and hold the corrected u, v of the block only
-    (the channel's corrector in its scratch, the cavity's tiles in shared
-    memory)."""
+    read 0 outside the block and their tiles hold the corrected u, v of the
+    block only, in shared memory."""
 
     def __init__(self, shape, coeffs: StencilCoeffs, velocity: float = 1.0,
                  shard: tuple[int, int] = (8, 1)):
@@ -1236,7 +1262,9 @@ class QuadChannelCorrPredictorSourceShard(_CarryBlock, QuadChannelCorrPredictorS
 
     The twin is _CarryBlock's with the channel ghosts on the tentative
     fields. The stages reach 5 rows (kChannelRadius there), so the own rows
-    equal the single-device carry's."""
+    equal the single-device carry's. On the card: row 8a's two launches,
+    their block instances (the tiles' maxima and the sum over the own
+    rows)."""
 
     def _tentative_bc(self, grow, gcol):
         return self._bc(grow, gcol)
@@ -1246,19 +1274,9 @@ class QuadChannelCorrPredictorSourceShard(_CarryBlock, QuadChannelCorrPredictorS
         return us2, vs2, b, guess, own_row_sum(b, self.P)
 
     def kernel(self, row_base, us, vs, p, p_prev):
-        u_scr, v_scr, us2, vs2, b, guess = (torch.empty_like(us) for _ in range(6))
-        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
-                               device=us.device)
-        sum_b = torch.empty((), dtype=torch.float32, device=us.device)
-        _, H, Wqa = self.qshape
-        c = self.coeffs
         with torch.cuda.device(us.device):  # the shards may lie on several cards
-            SHARD_CHANNEL_CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr),
-                                ptr(v_scr), ptr(us2), ptr(vs2), ptr(b), ptr(guess),
-                                ptr(partials), ptr(sum_b), H, Wqa, self.ny, self.nx, self.cu,
-                                self.cv, self.uin, c.dt, c.viscosity, c.idx, c.idy, c.idx2,
-                                c.idy2, self.rho_dt, int(row_base), DEV_HALO)
-        return us2, vs2, b, guess, sum_b
+            return _channel_carry(self, SHARD_CHANNEL_CARRY, (us, vs, p, p_prev),
+                                  int(row_base), DEV_HALO)
 
 
 class QuadCorrPredictorSourceShardAdaptive(_ShardTraced, QuadCorrPredictorSourceShard):
@@ -1299,7 +1317,8 @@ class QuadChannelCorrPredictorSourceShardAdaptive(_ShardTraced,
     block (row 16d+, cfd_tpu/kernels/quad.py:1126 with shard=(P, mdy),
     traced_dt=True, emit_courant=True): (row_base, dts, us, vs, p, p_prev)
     -> (us', vs', b', guess, sum_own, max|u|, max|v|), the sum and the
-    maxima over the own rows only, as QuadCorrPredictorSourceShardAdaptive's."""
+    maxima over the own rows only, as QuadCorrPredictorSourceShardAdaptive's.
+    On the card: row 8a+'s launches, their block instances."""
 
     def __init__(self, shape, coeffs: StencilCoeffs, inlet_velocity: float = 1.0,
                  shard: tuple[int, int] = (8, 1)):

@@ -45,7 +45,6 @@ import torch
 from cfd_tpu_torch.kernels._build import Kernel, ptr, route
 from cfd_tpu_torch.kernels.quad import (
     DEV_HALO,
-    SUM_BLOCK,
     _block_rows,
     _check,
     _courant,
@@ -63,6 +62,7 @@ from cfd_tpu_torch.kernels.quad import (
     own_rows,
     quad_shape,
     rho_over,
+    sum_scratch,
     tile_plan_ptr,
 )
 from cfd_tpu_torch.ops.stencil import StencilCoeffs
@@ -185,7 +185,7 @@ class QuadRBStep(QuadRBCorrector):
     On the card: one tile kernel (csrc/rb_stage.cu rb_carry_kernel, the
     corrector, T', the predictor and the source in shared memory) and one
     launch of the sum, whose last block folds the partials and leaves its
-    count (a persistent int on each device, _sum_scratch) at 0."""
+    count (a persistent int on each device, kernels.quad.sum_scratch) at 0."""
 
     def __init__(self, shape, coeffs: StencilCoeffs, kappa: float, params: RBParams,
                  emit_guess: bool = False):
@@ -265,18 +265,6 @@ class QuadRBStep(QuadRBCorrector):
         return _rb_carry(self, RB_CARRY, (us, vs, p, T), p_prev, 0, 0)
 
 
-def _sum_scratch(op, us):
-    """(partials, count) of one launch of the sum of b over ``us``'s shape
-    (csrc/carry_tile.cuh source_sum): fresh partials, and the count, one
-    int32 on ``us``'s device that ``op`` keeps (op._sum_counts), zeroed
-    once: every sum leaves it 0."""
-    counts = op.__dict__.setdefault("_sum_counts", {})
-    if str(us.device) not in counts:
-        counts[str(us.device)] = torch.zeros(1, dtype=torch.int32, device=us.device)
-    partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32, device=us.device)
-    return partials, counts[str(us.device)]
-
-
 def _rb_carry(op, kern: Kernel, fields, p_prev, row_base: int, halo: int):
     """One launch of cfd_rb_carry through ``kern`` (its counter): (us', vs',
     T', b[, guess], sum b), the sum over the own rows of a block with a
@@ -284,7 +272,7 @@ def _rb_carry(op, kern: Kernel, fields, p_prev, row_base: int, halo: int):
     us, vs, p, T = fields
     us2, vs2, T2, b = (torch.empty_like(us) for _ in range(4))
     guess = torch.empty_like(us) if p_prev is not None else None
-    partials, count = _sum_scratch(op, us)
+    partials, count = sum_scratch(op, us)
     sum_b = torch.empty((), dtype=torch.float32, device=us.device)
     c = op.coeffs
     opt = lambda t: ptr(t) if t is not None else None
@@ -427,7 +415,7 @@ def _rb_carry_adaptive(op, kern: Kernel, dts, fields, row_base: int, halo: int):
     rows of a block with a ``halo``-row strip."""
     us, vs, p, T = fields
     us2, vs2, T2, b = (torch.empty_like(us) for _ in range(4))
-    partials, count = _sum_scratch(op, us)
+    partials, count = sum_scratch(op, us)
     scal = torch.empty(3, dtype=torch.float32, device=us.device)  # sum b, max|u|, max|v|
     c = op.coeffs
     plan = tile_plan_ptr(op, "rb", us.device, "cfd_rb_carry_grid", True, halo > 0)

@@ -34,7 +34,6 @@ from torch import nn
 from cfd_tpu_torch.kernels._build import Kernel, ptr, route
 from cfd_tpu_torch.kernels.quad import (
     DEV_HALO,
-    SUM_BLOCK,
     _band_maker,
     _bilinear_corr,
     _block_rows,
@@ -55,6 +54,8 @@ from cfd_tpu_torch.kernels.quad import (
     quad_dims,
     quad_shape,
     rho_over,
+    sum_scratch,
+    tile_plan_ptr,
 )
 from cfd_tpu_torch.ops.stencil import StencilCoeffs
 
@@ -230,7 +231,9 @@ class QuadStepCorrPredictorSource(_StepStage):
     on valid faces, the step BCs on the tentative fields, b = rho/dt * div
     on FLUID cells and its sum (b is 0 elsewhere), which the caller removes
     over n_fluid. No warm-start output: the step warm-starts from plain p.
-    ``sum b'`` is a 0-d float32 tensor summed in fixed_order_sum's order."""
+    ``sum b'`` is a 0-d float32 tensor summed in fixed_order_sum's order. On
+    the card it is one launch over shared-memory tiles (csrc/step_stage.cu
+    step_carry_kernel) and one for the sum (carry_tile.cuh source_sum)."""
 
     def plain(self, us, vs, p):
         return self._stage(us, vs, p)[:4]
@@ -262,16 +265,23 @@ class QuadStepCorrPredictorSource(_StepStage):
         return torch.stack(us2), torch.stack(vs2), torch.stack(b)
 
     def kernel(self, us, vs, p):
-        u_scr, v_scr, us2, vs2, b = (torch.empty_like(us) for _ in range(5))
-        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
-                               device=us.device)
-        sum_b = torch.empty((), dtype=torch.float32, device=us.device)
-        c = self.coeffs
-        STEP_CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(u_scr), ptr(v_scr), ptr(us2),
-                   ptr(vs2), ptr(b), ptr(partials), ptr(sum_b), *self._ints(), self.cu,
-                   self.cv, self.uin, c.dt, c.viscosity, c.idx, c.idy, c.idx2, c.idy2,
-                   c.density / c.dt, 0, 0)
-        return us2, vs2, b, sum_b
+        return _step_carry(self, STEP_CARRY, (us, vs, p), 0, 0)
+
+
+def _step_carry(op, kern: Kernel, fields, row_base: int, halo: int):
+    """One call of cfd_step_carry through ``kern`` (its counter): (us', vs',
+    b', sum b'), the sum over the own rows of a block with a ``halo``-row
+    strip."""
+    us, vs, p = fields
+    us2, vs2, b = (torch.empty_like(us) for _ in range(3))
+    partials, count = sum_scratch(op, us)
+    sum_b = torch.empty((), dtype=torch.float32, device=us.device)
+    c = op.coeffs
+    plan = tile_plan_ptr(op, "step", us.device, "cfd_step_carry_grid", False, halo > 0)
+    kern(us, ptr(us), ptr(vs), ptr(p), ptr(us2), ptr(vs2), ptr(b), ptr(partials), ptr(count),
+         ptr(sum_b), *op._ints(), op.cu, op.cv, op.uin, c.dt, c.viscosity, c.idx, c.idy,
+         c.idx2, c.idy2, c.density / c.dt, row_base, halo, plan)
+    return us2, vs2, b, sum_b
 
 
 class QuadStepCorrPredictorSourceShard(QuadStepCorrPredictorSource):
@@ -285,9 +295,11 @@ class QuadStepCorrPredictorSourceShard(QuadStepCorrPredictorSource):
 
     The twin is the single-device twin on the block padded with DEV_HALO
     zero rows either side, the corrected u, v zeroed on the padding: the
-    kernel (csrc/step_stage.cu) reads 0 outside the block. The stages reach
-    5 rows (kStepRadius there), so the own rows equal the single-device
-    carry's."""
+    kernel (csrc/step_stage.cu) reads 0 outside the block and its tiles hold
+    the corrected u, v of the block only. The stages reach 5 rows
+    (kStepRadius there), so the own rows equal the single-device carry's.
+    On the card: row 9a's two launches, their block instances (the tiles'
+    maxima and the sum over the own rows)."""
 
     def __init__(self, shape, coeffs: StencilCoeffs, step_i: int, inlet_j: int,
                  inlet_velocity: float = 1.0, shard: tuple[int, int] = (8, 1)):
@@ -323,17 +335,8 @@ class QuadStepCorrPredictorSourceShard(QuadStepCorrPredictorSource):
                                                 torch.stack(u), torch.stack(v)))
 
     def kernel(self, row_base, us, vs, p):
-        u_scr, v_scr, us2, vs2, b = (torch.empty_like(us) for _ in range(5))
-        partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32,
-                               device=us.device)
-        sum_b = torch.empty((), dtype=torch.float32, device=us.device)
-        c = self.coeffs
         with torch.cuda.device(us.device):  # the shards may lie on several cards
-            SHARD_STEP_CARRY(us, ptr(us), ptr(vs), ptr(p), ptr(u_scr), ptr(v_scr), ptr(us2),
-                             ptr(vs2), ptr(b), ptr(partials), ptr(sum_b), *self._ints(),
-                             self.cu, self.cv, self.uin, c.dt, c.viscosity, c.idx, c.idy,
-                             c.idx2, c.idy2, c.density / c.dt, int(row_base), DEV_HALO)
-        return us2, vs2, b, sum_b
+            return _step_carry(self, SHARD_STEP_CARRY, (us, vs, p), int(row_base), DEV_HALO)
 
 
 class QuadStepCorrectorTraced(_Traced, QuadStepCorrector):
@@ -363,7 +366,9 @@ class QuadStepCorrPredictorSourceAdaptive(_Traced, QuadStepCorrPredictorSource):
     """The step carry with traced_dt and emit_courant
     (cfd_tpu/kernels/step_quad.py:100): (dts, us, vs, p) -> (us', vs', b',
     sum b', max|u|, max|v|), dts = (dt_corr, dt_pred) as kernels.quad's
-    adaptive carries."""
+    adaptive carries. On the card: the fixed carry's tile kernel, its
+    adaptive instance, after one zeroing of the two maxima, and the sum
+    launch."""
 
     n_dt = 2
 
@@ -388,7 +393,8 @@ class QuadStepCorrPredictorSourceShardAdaptive(_ShardTraced,
     traced_dt=True, emit_courant=True): (row_base, dts, us, vs, p) -> (us',
     vs', b', sum_own, max|u|, max|v|), the fluid-cell sum and the maxima
     over the own rows only. The twin is QuadStepCorrPredictorSourceShard's
-    at QuadStepCorrPredictorSourceAdaptive's traced coefficients."""
+    at QuadStepCorrPredictorSourceAdaptive's traced coefficients. On the
+    card: row 9a+'s launches, their block instances."""
 
     def __init__(self, shape, coeffs: StencilCoeffs, step_i: int, inlet_j: int,
                  inlet_velocity: float = 1.0, shard: tuple[int, int] = (8, 1)):
@@ -408,17 +414,18 @@ class QuadStepCorrPredictorSourceShardAdaptive(_ShardTraced,
 
 
 def _step_carry_adaptive(op, kern: Kernel, dts, fields, row_base: int, halo: int):
-    """One launch of cfd_step_carry_adaptive through ``kern`` (its counter):
+    """One call of cfd_step_carry_adaptive through ``kern`` (its counter):
     (us', vs', b', sum b', max|u|, max|v|), the reductions over the own rows
     of a block with a ``halo``-row strip."""
     us, vs, p = fields
-    u_scr, v_scr, us2, vs2, b = (torch.empty_like(us) for _ in range(5))
-    partials = torch.empty(-(-us.numel() // SUM_BLOCK), dtype=torch.float32, device=us.device)
+    us2, vs2, b = (torch.empty_like(us) for _ in range(3))
+    partials, count = sum_scratch(op, us)
     scal = torch.empty(3, dtype=torch.float32, device=us.device)  # sum b, max|u|, max|v|
     c = op.coeffs
-    kern(us, ptr(us), ptr(vs), ptr(p), ptr(u_scr), ptr(v_scr), ptr(us2), ptr(vs2), ptr(b),
-         ptr(partials), ptr(scal), ptr(scal[1:]), ptr(dts), *op._ints(), op.cu_f, op.cv_f,
-         op.uin, c.viscosity, c.idx, c.idy, c.idx2, c.idy2, c.density, row_base, halo)
+    plan = tile_plan_ptr(op, "step", us.device, "cfd_step_carry_grid", True, halo > 0)
+    kern(us, ptr(us), ptr(vs), ptr(p), ptr(us2), ptr(vs2), ptr(b), ptr(partials), ptr(count),
+         ptr(scal), ptr(scal[1:]), ptr(dts), *op._ints(), op.cu_f, op.cv_f, op.uin,
+         c.viscosity, c.idx, c.idy, c.idx2, c.idy2, c.density, row_base, halo, plan)
     return us2, vs2, b, scal[0], scal[1], scal[2]
 
 

@@ -15,9 +15,9 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
    of the per-kernel cavity path (mg_overrides whole_solve=False) against
    its plain PyTorch twin on the same seeded inputs on the card. Error = max |kernel - plain| / max |plain| per
    output; limits: 1e-5 for float32 fields and scalars, 2^-7 for
-   bfloat16-stored fields; the redesigned tile carries (rows 1, 1+, 10,
-   10+ here and in phases 11 and 14; their shard rows in phases 32, 35
-   and 41 with every shard kernel) error 0. Times are CUDA-event medians
+   bfloat16-stored fields; the redesigned tile carries (rows 1, 1+, 8a,
+   8a+, 9a, 9a+, 10, 10+ here and in phases 5, 8, 11 and 14; their shard
+   rows in phases 32, 35, 38 and 41 with every shard kernel) error 0. Times are CUDA-event medians
    of 20 launches; each carry (rows 1, 8a, 9a, 10 in phases 2, 5, 8, 11,
    their traced-dt instances in phase 14) also has its device time,
    ``dev_ms``: CUDA events around 50 back-to-back calls with the card held
@@ -41,8 +41,8 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
    and with the f32 and the bf16 coarse hierarchy pinned: per-step V-cycle
    counts equal, fields within 5e-5 relative, avg_KE within 1e-6
    relative.
-5. Per-kernel check at the 1536x512 channel shapes: the channel carry and
-   corrector against their twins (1e-5), and the whole-solve kernel on a
+5. Per-kernel check at the 1536x512 channel shapes: the channel carry
+   (error 0) and corrector (1e-5) against their twins, and the whole-solve kernel on a
    seeded source against its twin (the same cycles, p within 1e-5) and
    against the per-kernel composition of the cavity path's kernels
    (cycles within 1, p within 50 tol). Times as in phase 2; the
@@ -60,8 +60,8 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
    (the whole-solve on the card) and with whole_solve=False: cycles equal
    every step, fields within 5e-5 relative, avg_KE within 1e-6 relative.
 8. Per-kernel check at the 2048x256 backward-step shapes: the masked carry
-   and corrector, the masked finest-level pre and post kernels, the
-   full-2D coarse pairs on level 1 (both variants) against their twins
+   (error 0) and corrector, the masked finest-level pre and post kernels,
+   the full-2D coarse pairs on level 1 (both variants) against their twins
    (1e-5) on seeded inputs with b on the fluid cells, and the masked
    whole-solve against its twin and against the per-kernel composition of
    the step's kernels (the same cycles, p within 1e-5). Times as in phase
@@ -362,10 +362,14 @@ ADAPTIVE_RUN = (300, 100)
 
 # the kernels of the one-launch tile carries (csrc/carry_tile.cuh), held to
 # error 0 against their twins wherever the phases check them: kernel name ->
-# row (the shard rows 16a, 16e, 16a+, 16e+ through check_shard_op, which
-# holds every shard row bit for bit)
+# row (the shard rows 16a, 16d, 16e, 16f and their + instances through
+# check_shard_op, which holds every shard row bit for bit)
 REDESIGNED = {"quad_corr_predictor_source": "row 1",
-              "quad_corr_predictor_source_adaptive": "row 1+", "quad_rb_step": "row 10",
+              "quad_corr_predictor_source_adaptive": "row 1+",
+              "quad_channel_corr_predictor_source": "row 8a",
+              "quad_channel_corr_predictor_source_adaptive": "row 8a+",
+              "quad_step_corr_predictor_source": "row 9a",
+              "quad_step_corr_predictor_source_adaptive": "row 9a+", "quad_rb_step": "row 10",
               "quad_rb_step_adaptive": "row 10+"}
 
 T0 = time.perf_counter()
@@ -695,6 +699,7 @@ def check_channel_kernels(case, dev) -> dict:
     got, want = carry.kernel(us, vs, p, p_prev), carry.plain(us, vs, p, p_prev)
     for name, a, b in zip(("us'", "vs'", "b", "guess", "sum b"), got, want):
         rel_err(a, b, f"quad_channel_corr_predictor_source {name}", TOL_F32, errs)
+    bit_identical("quad_channel_corr_predictor_source", errs)
     results["quad_channel_corr_predictor_source"] = dict(
         err=max(errs), ms=median_ms(lambda: carry.kernel(us, vs, p, p_prev)),
         dev_ms=carry_dev_ms(lambda: carry.kernel(us, vs, p, p_prev)),
@@ -767,6 +772,7 @@ def check_step_kernels(case, dev) -> dict:
     got, want = carry.kernel(us, vs, p), carry.plain(us, vs, p)
     for name, a, b in zip(("us'", "vs'", "b", "sum b"), got, want):
         rel_err(a, b, f"quad_step_corr_predictor_source {name}", TOL_F32, errs)
+    bit_identical("quad_step_corr_predictor_source", errs)
     results["quad_step_corr_predictor_source"] = dict(
         err=max(errs), ms=median_ms(lambda: carry.kernel(us, vs, p)),
         dev_ms=carry_dev_ms(lambda: carry.kernel(us, vs, p)),

@@ -189,7 +189,12 @@ def test_profile_trace_summary():
     # the step's kernels, whose names contain other kernels' names
     assert {"step_ghost_red", "step_black", "step_ghosts", "step_prolong_add",
             "step_residual_restrict", "step_residual_max", "step_corrector_kernel",
-            "step_predictor_source_kernel", "fold_partials_kernel"} <= names
+            "step_carry_kernel", "fold_partials_kernel"} <= names
+    # the tile carries and their shared sum launch
+    assert {"cavity_carry_kernel", "channel_carry_kernel", "step_carry_kernel",
+            "rb_carry_kernel", "source_sum_kernel"} <= names
+    assert is_port_kernel("void (anonymous namespace)::source_sum_kernel<true>(float const*)",
+                          names)
     assert is_port_kernel("void (anonymous namespace)::whole_solve_kernel<true>(Params)",
                           names)
     assert is_port_kernel("(anonymous namespace)::step_ghosts(float const*, StepL0)", names)
