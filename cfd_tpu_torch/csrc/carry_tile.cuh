@@ -13,8 +13,9 @@
 // grid-wide barrier and the corrected fields never go through device
 // memory.
 //
-// Bits. A tile reproduces the per-cell bodies (quad_carry.cuh,
-// rb_carry.cuh) exactly: the stages call the same arithmetic through
+// Bits. A tile reproduces the per-cell chains of the first design (the
+// twins' arithmetic) exactly: the stages call the accessor-taking
+// arithmetic of quad_carry.cuh, step_carry.cuh and rb_carry.cuh through
 // accessors that read the shared buffers instead of the quad arrays; a
 // position outside the array reads 0, as qld (the loader writes 0 there),
 // and a stage whose result the per-cell kernels kept in a scratch array
@@ -36,6 +37,12 @@
 // field) write their outputs' constants without loading. All index arithmetic
 // is 32-bit (the entry points refuse fields of 2^31 floats or more), and
 // the block loops divide once per thread, not per cell (each()).
+//
+// The standalone carries launch one block a tile (block_tile). The whole
+// step (whole_step.cu) runs the same tile bodies inside its cooperative
+// grid of one block an SM: each block walks the tiles t = blockIdx.x + k
+// gridDim.x in turn (each_tile), with the next tile's loads in flight
+// (cp.async) while the current tile runs its stages.
 #pragma once
 
 #include "common.cuh"
@@ -52,11 +59,21 @@ constexpr int kSmemMax = 232448;
 // above it fold in device memory first
 constexpr int kFoldShared = 4096;
 
-// The launch plan, computed on the host (kernels/plan.py carry_plan): tiles
-// of rows x cols plane cells with a halo of `halo` plane rows and columns,
-// smem_bytes of dynamic shared memory (the flow's buffers, each 2 (rows +
-// 2 halo) x 2 (cols + 2 halo) floats), a grid of grid_x tile columns by
-// grid_y tile rows, one tile a block.
+// the buffers a tile's stages write besides its staged inputs: the
+// corrected u, v
+constexpr int kWorkBuffers = 2;
+
+// What a carry writes into its guess output: nothing, the extrapolated
+// warm start 2p - p_prev, or the previous p (the whole step's warm start
+// for the step and RB)
+enum class Guess { kNone, kExtrapolate, kCopy };
+
+// The launch plan, computed on the host (kernels/plan.py carry_plan,
+// whole_step_plan): tiles of rows x cols plane cells with a halo of `halo`
+// plane rows and columns, smem_bytes of dynamic shared memory (the flow's
+// buffers, each 2 (rows + 2 halo) x 2 (cols + 2 halo) floats), a grid of
+// grid_x tile columns by grid_y tile rows: one tile a block, or the tiles
+// of a cooperative block in turn (each_tile).
 struct Plan {
   int rows, cols, halo, smem_bytes, grid_x, grid_y;
 };
@@ -108,28 +125,44 @@ __device__ __forceinline__ float* smem() {
   return reinterpret_cast<float*>(carry_tile_smem);
 }
 
-// The block's tile: own plane rows [R0, R0 + rows) x columns [C0, C0 + cols)
-// of the (4, Hq8, Wqa) arrays (clipped at their edge); buffer cell (lj, li)
-// holds array logical (aj + lj, ai + li), global logical row gj + lj.
+// A tile: own plane rows [R0, R0 + rows) x columns [C0, C0 + cols) of the
+// (4, Hq8, Wqa) arrays (clipped at their edge); buffer cell (lj, li) holds
+// array logical (aj + lj, ai + li), global logical row gj + lj.
 struct Tile {
   int R0, C0, rows, cols, h;
   int LC;      // the buffers' pitch: logical columns
+  int N;       // the floats of one buffer (buffer_floats)
   int aj, ai;  // the array's logical row and column of buffer cell (0, 0)
   int gj;      // its global logical row (aj + 2 row0)
 };
 
-__device__ __forceinline__ Tile make_tile(const Plan& pl, int Hq8, int Wqa, int row0) {
+// the tile in tile column tx, tile row ty of the plan's grid
+__device__ __forceinline__ Tile make_tile(const Plan& pl, int Hq8, int Wqa, int row0, int tx,
+                                          int ty) {
   Tile T;
-  T.R0 = static_cast<int>(blockIdx.y) * pl.rows;
-  T.C0 = static_cast<int>(blockIdx.x) * pl.cols;
+  T.R0 = ty * pl.rows;
+  T.C0 = tx * pl.cols;
   T.rows = min(pl.rows, Hq8 - T.R0);
   T.cols = min(pl.cols, Wqa - T.C0);
   T.h = pl.halo;
   T.LC = 2 * (pl.cols + 2 * pl.halo);
+  T.N = static_cast<int>(buffer_floats(pl.rows, pl.cols, pl.halo));
   T.aj = 2 * (T.R0 - pl.halo);
   T.ai = 2 * (T.C0 - pl.halo);
   T.gj = T.aj + 2 * row0;
   return T;
+}
+
+// the block's tile of a launch of one tile a block
+__device__ __forceinline__ Tile block_tile(const Plan& pl, int Hq8, int Wqa, int row0) {
+  return make_tile(pl, Hq8, Wqa, row0, static_cast<int>(blockIdx.x),
+                   static_cast<int>(blockIdx.y));
+}
+
+// tile t of the plan's grid, in row-major order
+__device__ __forceinline__ Tile tile_at(const Plan& pl, int Hq8, int Wqa, int row0, int t) {
+  const int ty = t / pl.grid_x;
+  return make_tile(pl, Hq8, Wqa, row0, t - ty * pl.grid_x, ty);
 }
 
 // buffer logical rows [r0, r1) x columns [c0, c1)
@@ -218,12 +251,12 @@ __device__ __forceinline__ void each_cell(const Box& B, int LC, F f) {
   each(B.r0, B.r1, B.c0, B.c1, [&](int lj, int li) { f(lj, li, lj * LC + li); });
 }
 
-// dst[f] = the tile's region (own and halo) of quad fields src[f] in the
-// logical layout, 0 outside the array (qld's value); the 4 NF loads of a
-// plane cell are issued together
+// Buffer f of dst (dst + f N) = the tile's region (own and halo) of quad
+// field src[f] in the logical layout, 0 outside the array (qld's value);
+// the 4 NF loads of a plane cell are issued together
 template <int NF>
-__device__ __forceinline__ void load(const float* const (&src)[NF], float* const (&dst)[NF],
-                                     const Tile& T, int Hq8, int Wqa) {
+__device__ __forceinline__ void load(const float* const (&src)[NF], float* dst, const Tile& T,
+                                     int Hq8, int Wqa) {
   const int plane = Hq8 * Wqa;
   each(0, T.rows + 2 * T.h, 0, T.cols + 2 * T.h, [&](int r, int c) {
     const int gr = T.R0 - T.h + r, gc = T.C0 - T.h + c;
@@ -238,9 +271,103 @@ __device__ __forceinline__ void load(const float* const (&src)[NF], float* const
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) dst[f][(2 * r + (q >> 1)) * T.LC + 2 * c + (q & 1)] = v[f][q];
+      for (int q = 0; q < 4; ++q) {
+        dst[f * T.N + (2 * r + (q >> 1)) * T.LC + 2 * c + (q & 1)] = v[f][q];
+      }
     }
   });
+}
+
+// One float copied from device memory into shared memory without passing
+// through registers (cp.async, completed by cp_async_wait); 0 written
+// where !in (a source size of 0 bytes: nothing is read)
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `pending` of this thread's committed groups are in flight
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
+// load's copies issued as cp.async (the same values into the same places);
+// the caller commits them as one group
+template <int NF>
+__device__ __forceinline__ void load_async(const float* const (&src)[NF], float* dst,
+                                           const Tile& T, int Hq8, int Wqa) {
+  const int plane = Hq8 * Wqa;
+  each(0, T.rows + 2 * T.h, 0, T.cols + 2 * T.h, [&](int r, int c) {
+    const int gr = T.R0 - T.h + r, gc = T.C0 - T.h + c;
+    const bool in = gr >= 0 && gr < Hq8 && gc >= 0 && gc < Wqa;
+    const int g = in ? gr * Wqa + gc : 0;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        cp_async_f32(dst + f * T.N + (2 * r + (q >> 1)) * T.LC + 2 * c + (q & 1),
+                     src[f] + q * plane + g, in);
+      }
+    }
+  });
+}
+
+// The input sets each_tile stages: the running tile's and the next one's
+constexpr int kInputSets = 2;
+
+// The tiles of one block of a cooperative grid, in turn: t = blockIdx.x +
+// k gridDim.x over the plan's grid_x * grid_y tiles (the whole step,
+// whole_step.cu). body(tile, in, work) runs a carry's stages from the
+// tile's NF staged inputs of src (in: NF buffers) with the kWorkBuffers
+// buffers at work; loads(tile) says whether a tile stages its inputs (the
+// padding path's do not). The next tile's loads are in flight (cp.async)
+// into the other of kInputSets input sets while this tile runs. A
+// __syncthreads() separates a tile's last reads of the buffers from the
+// loads that overwrite them, and ends the loop, so the caller may reuse
+// the shared memory. Shared memory: kInputSets NF + kWorkBuffers buffers.
+// Every thread of the block calls it.
+template <int NF, class Loads, class Body>
+__device__ __forceinline__ void each_tile(const Plan& pl, int Hq8, int Wqa, int row0,
+                                          const float* const (&src)[NF], Loads loads,
+                                          Body body) {
+  static_assert(kInputSets == 2, "the running tile's inputs and the next one's");
+  const int n = pl.grid_x * pl.grid_y, stride = static_cast<int>(gridDim.x);
+  const int N = static_cast<int>(buffer_floats(pl.rows, pl.cols, pl.halo));
+  float* cur = smem();
+  float* next = cur + NF * N;
+  float* const work = cur + kInputSets * NF * N;
+  int k = static_cast<int>(blockIdx.x);
+  Tile t{};
+  if (k < n) {
+    t = tile_at(pl, Hq8, Wqa, row0, k);
+    if (loads(t)) load_async<NF>(src, cur, t, Hq8, Wqa);
+  }
+  cp_async_commit();
+  for (; k < n; k += stride) {
+    Tile t2{};
+    if (k + stride < n) {
+      t2 = tile_at(pl, Hq8, Wqa, row0, k + stride);
+      if (loads(t2)) load_async<NF>(src, next, t2, Hq8, Wqa);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's group
+    __syncthreads();
+    body(t, cur, work);
+    __syncthreads();
+    t = t2;
+    float* const done = cur;
+    cur = next;
+    next = done;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 }
 
 // f(g, gr, lj, li) over the tile's own plane cells: gr the array plane
@@ -298,27 +425,22 @@ __device__ __forceinline__ bool own_row32(int k, int Hq8, int Wqa, int halo) {
   return J >= halo && J < Hq8 - halo;
 }
 
-// The source sum of b over the own rows (all rows where halo is 0) in the
-// order of the twin's fixed_order_sum (kernels/quad.py): the flat array in
-// cfd::kThreads-wide chunks, each summed by cfd::block_sum_to's pairwise
-// tree, then the chunk partials by fold_sum. One warp sums one chunk: its
-// lanes hold the chunk's values 32 apart, so the tree's first three levels
-// (strides 128, 64, 32) add a lane's own values and the last five
-// (16 ... 1) are shuffles, the same pairs in the same order as the
-// shared-memory tree. The last block to finish (a __threadfence and an
-// atomic count, which it resets, so no launch zeroes it) folds the
-// partials: the levels above kFoldShared partials in device memory, the
-// rest in shared memory. Launched with cfd::kThreads threads a block.
+// The sums of b's cfd::kThreads-wide chunks c = c0, c0 + dc, ... of the
+// flat array into partials[c] (over the own rows: a local block's halo
+// rows read 0, kBlock), each by cfd::block_sum_to's pairwise tree. One
+// warp sums one chunk (the calling warp: c0 and dc count warps): its lanes
+// hold the chunk's values 32 apart, so the tree's first three levels
+// (strides 128, 64, 32) add a lane's own values and the last five (16 ...
+// 1) are shuffles, the same pairs in the same order as the shared-memory
+// tree (and cfd::ws::chunk_sums). No barrier.
 template <bool kBlock>
-__device__ __forceinline__ void source_sum(const float* b, int Hq8, int Wqa, int halo,
-                                           float* partials, unsigned int* count, float* sum) {
+__device__ __forceinline__ void warp_chunk_sums(const float* b, int Hq8, int Wqa, int halo,
+                                                float* partials, int c0, int dc) {
   static_assert(cfd::kThreads == 256, "a chunk is 8 values a lane");
   const int n = 4 * Hq8 * Wqa;
   const int chunks = (n + cfd::kThreads - 1) / cfd::kThreads;
   const int lane = static_cast<int>(threadIdx.x) & 31;
-  const int warps = cfd::kThreads / 32;
-  for (int c = static_cast<int>(blockIdx.x) * warps + (static_cast<int>(threadIdx.x) >> 5);
-       c < chunks; c += static_cast<int>(gridDim.x) * warps) {
+  for (int c = c0; c < chunks; c += dc) {
     float v[8];
 #pragma unroll
     for (int m = 0; m < 8; ++m) {
@@ -333,6 +455,26 @@ __device__ __forceinline__ void source_sum(const float* b, int Hq8, int Wqa, int
     for (int o = 16; o > 0; o >>= 1) x = x + __shfl_down_sync(0xffffffffu, x, o);
     if (lane == 0) partials[c] = x;
   }
+}
+
+// The source sum of b over the own rows (all rows where halo is 0) in the
+// order of the twin's fixed_order_sum (kernels/quad.py): the flat array in
+// cfd::kThreads-wide chunks, each summed by cfd::block_sum_to's pairwise
+// tree (warp_chunk_sums), then the chunk partials by fold_sum. The last
+// block to finish (a __threadfence and an
+// atomic count, which it resets, so no launch zeroes it) folds the
+// partials: the levels above kFoldShared partials in device memory, the
+// rest in shared memory. Launched with cfd::kThreads threads a block.
+template <bool kBlock>
+__device__ __forceinline__ void source_sum(const float* b, int Hq8, int Wqa, int halo,
+                                           float* partials, unsigned int* count, float* sum) {
+  const int n = 4 * Hq8 * Wqa;
+  const int chunks = (n + cfd::kThreads - 1) / cfd::kThreads;
+  const int warps = cfd::kThreads / 32;
+  warp_chunk_sums<kBlock>(b, Hq8, Wqa, halo, partials,
+                          static_cast<int>(blockIdx.x) * warps +
+                              (static_cast<int>(threadIdx.x) >> 5),
+                          static_cast<int>(gridDim.x) * warps);
   __shared__ bool last;
   __shared__ float s[kFoldShared];
   __threadfence();  // this block's partials before its count
@@ -372,56 +514,73 @@ __device__ __forceinline__ void source_sum(const float* b, int Hq8, int Wqa, int
   }
 }
 
-// The buffers of a duct carry's tile (duct_carry): us, vs and p, then the
-// corrected u, v (u*, v* overwrite us, vs)
-constexpr int kDuctBuffers = 5;
+// The inputs a duct carry's tile stages (us, vs, p) and its buffers: the
+// inputs, then the corrected u, v (u*, v* overwrite us, vs)
+constexpr int kDuctInputs = 3;
+constexpr int kDuctBuffers = kDuctInputs + kWorkBuffers;
+
+// The guess output of a carry at quad index gq: 2p - p_prev or p, from p's
+// value pv (kG)
+template <Guess kG>
+__device__ __forceinline__ void write_guess(float* guess, int gq, float pv, float p_prev) {
+  if constexpr (kG == Guess::kExtrapolate) guess[gq] = 2.0f * pv - p_prev;
+  if constexpr (kG == Guess::kCopy) guess[gq] = pv;
+}
+
+// The four planes' values of quad field a at plane cell g into v, loaded
+// together before an output pass's stores: the compiler may not move a
+// load past a store to another float array, so a load among the stores
+// would cost a round trip of its own
+__device__ __forceinline__ void own4(const float* a, int g, int plane, float (&v)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = a[q * plane + g];
+}
+
+// The padding path of the duct carries: a tile whose own cells all lie
+// outside the ghost ring (outside) writes the outputs' constants without
+// loading (us', vs', b 0, and the guess)
+template <Guess kG>
+__device__ __forceinline__ void duct_pad(const Tile& t, const float* p, const float* p_prev,
+                                         float* us2, float* vs2, float* b, float* guess,
+                                         int Hq8, int Wqa) {
+  each_own_index(t, Hq8, Wqa, [&](int gq) {
+    const float pv = kG == Guess::kNone ? 0.f : p[gq];
+    const float pp = kG == Guess::kExtrapolate ? p_prev[gq] : 0.f;
+    us2[gq] = 0.f;
+    vs2[gq] = 0.f;
+    b[gq] = 0.f;
+    write_guess<kG>(guess, gq, pv, pp);
+  });
+}
 
 // The carry of the duct flows, the channel's and the step's (an inlet, an
-// outlet, walls; quad_stage.cu, step_stage.cu), on the block's tile: us,
-// vs and p staged with the plan's halo, the corrected,
-// ghosted u, v on box A, which the predictor and the ghosts of the
-// tentative fields read (the own region widened 2 rows south, 1 north, 3
-// columns west, 1 east: the outlet copies reach one column further than
-// the predictor), u* on the own cells and one column west, v* on the own
-// cells and one row south, then us', vs', b = rho/dt * div on the flow's
-// cells (and the guess 2p - p_prev) of the own cells, with the Courant
-// maxima of the corrected u, v over the own rows (kAdaptive). A tile whose
-// own cells all lie outside the ghost ring (outside) writes the outputs'
-// constants without loading. F, the flow, gives the arithmetic at global
-// logical (j, i) on tile Views: inner(t, A) (the path with no ghost or mask
+// outlet, walls; quad_stage.cu, step_stage.cu), on tile t from its staged
+// us, vs, p in `in` (kDuctInputs buffers, the plan's halo) with the
+// corrected u, v in `work`: the corrected, ghosted u, v on box A, which
+// the predictor and the ghosts of the tentative fields read (the own
+// region widened 2 rows south, 1 north, 3 columns west, 1 east: the outlet
+// copies reach one column further than the predictor), u* on the own cells
+// and one column west, v* on the own cells and one row south, then us',
+// vs', b = rho/dt * div on the flow's cells and the guess (kG) of the own
+// cells, with the Courant maxima of the corrected u, v over the own rows
+// into m (kAdaptive). F, the flow, gives the arithmetic at global logical
+// (j, i) on tile Views: inner(t, A) (the path with no ghost or mask
 // test), uv_formula / uv_at (the corrected u, v without and with the
 // ghosts), us_at / vs_at (u*, v* with the ghosts of the tentative fields),
-// cell(j, i), kGuess, and its constants c (Hq8, Wqa, ny, nx, row0) and pc
-// (the predictor's, dt already read on the card).
-template <bool kAdaptive, bool kBlock, class F>
-__device__ __forceinline__ void duct_carry(const F& f, const float* us, const float* vs,
-                                           const float* p, const float* p_prev, float* us2,
-                                           float* vs2, float* b, float* guess, float* courant,
-                                           const Plan& pl, int halo) {
-  const int Hq8 = f.c.Hq8, Wqa = f.c.Wqa, plane = Hq8 * Wqa;
+// cell(j, i), and its constants c (Hq8, Wqa, ny, nx, row0) and pc (the
+// predictor's, dt already read on the card). A tile outside the ghost
+// ring takes duct_pad instead.
+template <bool kAdaptive, bool kBlock, Guess kG, class F>
+__device__ __forceinline__ void duct_tile(const F& f, const Tile& t, float* in, float* work,
+                                          const float* p_prev, float* us2, float* vs2,
+                                          float* b, float* guess, float (&m)[2], int halo) {
+  const int Hq8 = f.c.Hq8, Wqa = f.c.Wqa, plane = Hq8 * Wqa, LC = t.LC;
   const cfd::Pred& pc = f.pc;
-  const Tile t = make_tile(pl, Hq8, Wqa, f.c.row0);
-  if (outside(t, f.c.ny, f.c.nx)) {  // the maxima keep their zeroing
-    each_own_index(t, Hq8, Wqa, [&](int gq) {
-      us2[gq] = 0.f;
-      vs2[gq] = 0.f;
-      b[gq] = 0.f;
-      if constexpr (F::kGuess) guess[gq] = 2.0f * p[gq] - p_prev[gq];
-    });
-    return;
-  }
-  const int N = static_cast<int>(buffer_floats(pl.rows, pl.cols, pl.halo)), LC = t.LC;
-  float* const s_us = smem();
-  float* const s_vs = s_us + N;
-  float* const s_p = s_us + 2 * N;
-  float* const s_u = s_us + 3 * N;
-  float* const s_v = s_us + 4 * N;
-  {
-    const float* src[3] = {us, vs, p};
-    float* const dst[3] = {s_us, s_vs, s_p};
-    load<3>(src, dst, t, Hq8, Wqa);
-  }
-  __syncthreads();
+  float* const s_us = in;
+  float* const s_vs = in + t.N;
+  float* const s_p = in + 2 * t.N;
+  float* const s_u = work;
+  float* const s_v = work + t.N;
   const Box A = around(t, 2, 1, 3, 1), BU = around(t, 0, 0, 1, 0), BV = around(t, 1, 0, 0, 0);
   const View vus = view(s_us, t), vvs = view(s_vs, t), vp = view(s_p, t);
   const View vu = view(s_u, t), vv = view(s_v, t);
@@ -455,9 +614,10 @@ __device__ __forceinline__ void duct_carry(const F& f, const float* us, const fl
     });
   }
   __syncthreads();
-  float m[2] = {0.f, 0.f};
   each_own(t, Wqa, [&](int g, int gr, int lj0, int li0) {
     const bool own = !kBlock || (gr >= halo && gr < Hq8 - halo);
+    float pp[4] = {};
+    if constexpr (kG == Guess::kExtrapolate) own4(p_prev, g, plane, pp);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int lj = lj0 + (q >> 1), li = li0 + (q & 1);
@@ -471,13 +631,35 @@ __device__ __forceinline__ void duct_carry(const F& f, const float* us, const fl
       us2[gq] = a;
       vs2[gq] = bv;
       b[gq] = bb;
-      if constexpr (F::kGuess) guess[gq] = 2.0f * s_p[k] - p_prev[gq];
+      write_guess<kG>(guess, gq, s_p[k], pp[q]);
       if (kAdaptive && own) {
         m[0] = cfd::bits_max(m[0], fabsf(s_u[k]));
         m[1] = cfd::bits_max(m[1], fabsf(s_v[k]));
       }
     }
   });
+}
+
+// A duct carry's launch of one tile a block (the standalone carries): the
+// padding path, or the loads, then duct_tile, then the Courant maxima into
+// courant[0], courant[1] (kAdaptive)
+template <bool kAdaptive, bool kBlock, Guess kG, class F>
+__device__ __forceinline__ void duct_carry(const F& f, const float* us, const float* vs,
+                                           const float* p, const float* p_prev, float* us2,
+                                           float* vs2, float* b, float* guess, float* courant,
+                                           const Plan& pl, int halo) {
+  const int Hq8 = f.c.Hq8, Wqa = f.c.Wqa;
+  const Tile t = block_tile(pl, Hq8, Wqa, f.c.row0);
+  if (outside(t, f.c.ny, f.c.nx)) {  // the maxima keep their zeroing
+    duct_pad<kG>(t, p, p_prev, us2, vs2, b, guess, Hq8, Wqa);
+    return;
+  }
+  const float* src[kDuctInputs] = {us, vs, p};
+  load<kDuctInputs>(src, smem(), t, Hq8, Wqa);
+  __syncthreads();
+  float m[2] = {0.f, 0.f};
+  duct_tile<kAdaptive, kBlock, kG>(f, t, smem(), smem() + kDuctInputs * t.N, p_prev, us2, vs2,
+                                   b, guess, m, halo);
   if constexpr (kAdaptive) block_max(m, courant);
 }
 

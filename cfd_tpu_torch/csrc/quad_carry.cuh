@@ -1,11 +1,15 @@
 // Per-cell bodies of the cavity and channel tentative-carry stages on the
 // quad layout: the correctors and the predictor + source, and the
-// accessor-taking arithmetic they are built of. Shared by the standalone
-// stage kernels and the carries' shared-memory tiles (quad_stage.cu) and
-// the whole-step kernel (whole_step.cu), so that all run the same code. The ghost orders and
-// the traced-dt instances are described in quad_stage.cu.
+// accessor-taking arithmetic they are built of; and the carries' bodies on
+// a shared-memory tile (carry_tile.cuh): cavity_tile and the channel's
+// arithmetic for tile::duct_tile (ChannelTile). Shared by the standalone
+// stage kernels and tile carries (quad_stage.cu), the fused-pre carry
+// (quad_fused_pre.cu) and the whole-step kernel (whole_step.cu), so that
+// all run the same code. The ghost orders and the traced-dt instances are
+// described in quad_stage.cu.
 #pragma once
 
+#include "carry_tile.cuh"
 #include "common.cuh"
 #include "predictor.cuh"
 
@@ -119,22 +123,17 @@ __device__ __forceinline__ float lid_v(const float* v, int j, int i, const Pred&
   return qld(v, j, i, c.Hq8, c.Wqa, c.row0);
 }
 
-// The cavity predictor at quad cell idx into us2, vs2 and b = rho/dt * div
-// on the cells (0 elsewhere); returns b. kLid applies the lid ghosts to u,
-// v on read (the non-carry stage, quad.py:438).
-template <bool kLid>
-__device__ __forceinline__ float predictor_source_cell(const float* u, const float* v,
-                                                       float* us2, float* vs2, float* b,
-                                                       long long idx, const Pred& c,
-                                                       float two_lid) {
+// The cavity predictor at quad cell idx, with the lid ghosts applied to u,
+// v on read (the non-carry stage, quad.py:438), into us2, vs2 and b =
+// rho/dt * div on the cells (0 elsewhere); returns b.
+__device__ __forceinline__ float lid_predictor_source_cell(const float* u, const float* v,
+                                                           float* us2, float* vs2, float* b,
+                                                           long long idx, const Pred& c,
+                                                           float two_lid) {
   cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa, c.row0);
   int j = cell.j, i = cell.i;
-  auto lu = [&](int jj, int ii) {
-    return kLid ? lid_u(u, jj, ii, c, two_lid) : qld(u, jj, ii, c.Hq8, c.Wqa, c.row0);
-  };
-  auto lv = [&](int jj, int ii) {
-    return kLid ? lid_v(v, jj, ii, c) : qld(v, jj, ii, c.Hq8, c.Wqa, c.row0);
-  };
+  auto lu = [&](int jj, int ii) { return lid_u(u, jj, ii, c, two_lid); };
+  auto lv = [&](int jj, int ii) { return lid_v(v, jj, ii, c); };
   float a = cfd::u_star_at(lu, lv, j, i, c);
   float bv = cfd::v_star_at(lu, lv, j, i, c);
   us2[idx] = a;
@@ -228,6 +227,129 @@ __device__ __forceinline__ float channel_predictor_source_cell(const float* u, c
   b[idx] = bb;
   return bb;
 }
+
+// ------------------------------------------------- the carries' tile bodies
+
+// The logical rows the cavity carry's stages reach (the reference's
+// CARRY_RADIUS, cfd_tpu/kernels/quad.py:1021) and the channel's (one row
+// for each stage: the corrector, the ghosts on the corrected fields, the
+// predictor, the ghosts on the tentative fields, the source); a tile's
+// halo covers them (kernels/plan.py CARRY_RADIUS)
+constexpr int kCavityRadius = 5;
+constexpr int kChannelRadius = 5;
+// the inputs the cavity's tile stages: us, vs, p
+constexpr int kCavityInputs = 3;
+
+// The cavity carry on tile t (quad_stage.cu describes the design) from its
+// staged us, vs, p in `in` (kCavityInputs buffers) with the corrected u, v
+// in `work` (tile::kWorkBuffers): the corrected u, v where the predictor
+// reads them, u*, v* (over us, vs) where the source reads them (own cells,
+// one row south, one column west), then us', vs', b and the guess 2p -
+// p_prev of the own cells; m[0] takes max|b| and, kAdaptive, m[1], m[2]
+// max|u|, max|v| of the corrected fields, over the own rows (kBlock: a
+// local block's rows between its `halo`-row strips).
+template <bool kAdaptive, bool kBlock, int NM>
+__device__ __forceinline__ void cavity_tile(const tile::Tile& t, float* in, float* work,
+                                            const float* p_prev, float* us2, float* vs2,
+                                            float* b, float* guess, const Corr& c,
+                                            const Pred& pc, int halo, float (&m)[NM]) {
+  static_assert(NM == (kAdaptive ? 3 : 1), "max|b|, and the Courant maxima when adaptive");
+  const int Hq8 = c.Hq8, Wqa = c.Wqa, plane = Hq8 * Wqa, LC = t.LC;
+  float* const s_us = in;
+  float* const s_vs = in + t.N;
+  float* const s_p = in + 2 * t.N;
+  float* const s_u = work;
+  float* const s_v = work + t.N;
+  const tile::Box A = tile::around(t, 2, 1, 2, 1), B = tile::around(t, 1, 0, 1, 0);
+  const tile::View vus = tile::view(s_us, t), vvs = tile::view(s_vs, t);
+  const tile::View vp = tile::view(s_p, t), vu = tile::view(s_u, t), vv = tile::view(s_v, t);
+  const bool inner = tile::interior(t, A, c.ny, c.nx, Hq8);
+  if (inner) {
+    tile::each_cell(A, LC, [&](int lj, int li, int k) {
+      const int j = t.gj + lj, i = t.ai + li;
+      s_u[k] = u_corr_formula(vus, vp, j, i, c);
+      s_v[k] = v_corr_formula(vvs, vp, j, i, c);
+    });
+    __syncthreads();
+    tile::each_cell(B, LC, [&](int lj, int li, int k) {
+      const int j = t.gj + lj, i = t.ai + li;
+      s_us[k] = cfd::u_star_formula(vu, vv, j, i, pc);
+      s_vs[k] = cfd::v_star_formula(vu, vv, j, i, pc);
+    });
+  } else {
+    tile::each_cell(A, LC, [&](int lj, int li, int k) {
+      float2 uv = make_float2(0.f, 0.f);  // outside the array a neighbour reads 0
+      if (tile::in_array(t, lj, li, Hq8, Wqa)) {
+        uv = cavity_uv_at(vus, vvs, vp, t.gj + lj, t.ai + li, c);
+      }
+      s_u[k] = uv.x;
+      s_v[k] = uv.y;
+    });
+    __syncthreads();
+    tile::each_cell(B, LC, [&](int lj, int li, int k) {
+      const int j = t.gj + lj, i = t.ai + li;
+      s_us[k] = cfd::u_star_at(vu, vv, j, i, pc);
+      s_vs[k] = cfd::v_star_at(vu, vv, j, i, pc);
+    });
+  }
+  __syncthreads();
+  tile::each_own(t, Wqa, [&](int g, int gr, int lj0, int li0) {
+    const bool own = !kBlock || (gr >= halo && gr < Hq8 - halo);
+    float pp[4];
+    tile::own4(p_prev, g, plane, pp);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int lj = lj0 + (q >> 1), li = li0 + (q & 1);
+      const int k = lj * LC + li, gq = q * plane + g;
+      const int j = t.gj + lj, i = t.ai + li;
+      const float a = s_us[k], bv = s_vs[k];
+      float bb = 0.f;
+      if (inner || (j >= 1 && j <= c.ny && i >= 1 && i <= c.nx)) {
+        const float div = (a - s_us[k - 1]) * pc.idx + (bv - s_vs[k - LC]) * pc.idy;
+        bb = pc.rho_dt * div;
+      }
+      us2[gq] = a;
+      vs2[gq] = bv;
+      b[gq] = bb;
+      guess[gq] = 2.0f * s_p[k] - pp[q];
+      if (own) {
+        m[0] = cfd::bits_max(m[0], fabsf(bb));
+        if constexpr (kAdaptive) {
+          m[1] = cfd::bits_max(m[1], fabsf(s_u[k]));
+          m[2] = cfd::bits_max(m[2], fabsf(s_v[k]));
+        }
+      }
+    }
+  });
+}
+
+// The channel's arithmetic on a tile (tile::duct_tile): the rho-divided
+// correction with the channel ghosts, the predictor with the channel ghosts
+// on the tentative fields, the source on the cells
+struct ChannelTile {
+  Corr c;
+  Pred pc;
+  __device__ bool inner(const tile::Tile& t, const tile::Box& A) const {
+    return tile::interior(t, A, c.ny, c.nx, c.Hq8);
+  }
+  __device__ float2 uv_formula(tile::View us, tile::View vs, tile::View p, int j, int i) const {
+    return make_float2(u_corr_formula(us, p, j, i, c), v_corr_formula(vs, p, j, i, c));
+  }
+  __device__ float2 uv_at(tile::View us, tile::View vs, tile::View p, int j, int i) const {
+    return channel_uv_at(us, vs, p, j, i, c);
+  }
+  __device__ float us_at(tile::View u, tile::View v, int j, int i) const {
+    auto fu = [&](int jj, int ii) { return cfd::u_star_at(u, v, jj, ii, pc); };
+    return channel_u(fu, j, i, c.ny, c.nx, c.ghost);
+  }
+  __device__ float vs_at(tile::View u, tile::View v, int j, int i) const {
+    auto fv = [&](int jj, int ii) { return cfd::v_star_at(u, v, jj, ii, pc); };
+    return channel_v(fv, j, i, c.ny, c.nx);
+  }
+  __device__ bool cell(int j, int i) const {
+    return j >= 1 && j <= c.ny && i >= 1 && i <= c.nx;
+  }
+};
 
 }  // namespace quad
 }  // namespace cfd

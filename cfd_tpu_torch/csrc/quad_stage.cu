@@ -43,9 +43,10 @@
 // of its own cells and reduces max|b| (the cavity) and the Courant maxima
 // over them. Tiles that touch no wall, ghost row or padding take a path
 // with no ghost or mask test; the channel's tiles whose own cells lie
-// wholly in the padding write its constants without loading. The cavity's
-// tile kernel is its own; the channel's runs carry_tile.cuh's duct_carry
-// with its arithmetic (ChannelTile below), as the step's does. The channel's
+// wholly in the padding write its constants without loading. The tile
+// bodies live in quad_carry.cuh (cavity_tile; ChannelTile, the channel's
+// arithmetic for carry_tile.cuh's duct_tile, as the step's StepTile is),
+// which the whole-step kernel (whole_step.cu) runs too. The channel's
 // sum launch (carry_tile.cuh source_sum, shared with RB's and the step's)
 // sums b in the twin's fixed_order_sum order. The corrected u, v never go
 // through device memory: 8 passes over the field (4 in, 4 out) where the
@@ -54,7 +55,7 @@
 // The correctors, the cavity's non-carry stage and the channel's (row 8c)
 // keep the first design: one thread per quad cell, neighbours through the
 // guarded quad accessor. Their per-cell bodies live in quad_carry.cuh,
-// which the whole-step kernel (whole_step.cu) and the tiles run too. Row
+// whose arithmetic the tiles share. Row
 // 8c is two launches: the predictor + source + partial sums on (u, v) as
 // given, a thread evaluating the predictor at its own faces and again at
 // the west/south faces its divergence needs, and the fold of the partials.
@@ -108,9 +109,11 @@ using cfd::Pred;
 using cfd::quad::Corr;
 using cfd::quad::corr_at;
 
-// the dependency radius of the channel carry's stages, in rows (above)
-constexpr int kChannelRadius = 5;
+using cfd::quad::kCavityRadius;
+using cfd::quad::kChannelRadius;
 static_assert(kChannelRadius <= 8, "the channel carry reaches past the 8-row halo");
+// the buffers of the cavity's tile: its inputs, then the corrected u, v
+constexpr int kCavityBuffers = cfd::quad::kCavityInputs + cfd::tile::kWorkBuffers;
 
 // the cavity corrector (kTraced: cu, cv formed from *dt)
 template <bool kTraced>
@@ -133,25 +136,19 @@ __global__ void lid_predictor_source_kernel(const float* u, const float* v, floa
   long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   float absb = 0.f;
   if (idx < n) {
-    absb = fabsf(cfd::quad::predictor_source_cell<true>(u, v, us2, vs2, b, idx, c, two_lid));
+    absb = fabsf(cfd::quad::lid_predictor_source_cell(u, v, us2, vs2, b, idx, c, two_lid));
   }
   cfd::block_max_into(absb, max_b);
 }
 
 namespace tile = cfd::tile;
 
-// The cavity carry's tiles: the reference's CARRY_RADIUS (quad.py:1021),
-// the logical rows the halo must cover, and the buffers a block stages:
-// us, vs and p, then the corrected u, v (u*, v* overwrite us, vs)
-constexpr int kCavityRadius = 5;
-constexpr int kCavityBuffers = 5;
-
 // The cavity carry in one launch (the design above): a block's tile of the
-// corrector, the lid ghosts, the predictor and the source. kAdaptive: the
-// coefficients from dts = (dt_corr, dt_pred) on the card and the Courant
-// maxima, red = (max|b|, max|u|, max|v|), else red = max|b|; kBlock: a
-// shard's local block, whose reductions take its own rows only, else row0
-// folds to 0.
+// corrector, the lid ghosts, the predictor and the source
+// (cfd::quad::cavity_tile). kAdaptive: the coefficients from dts =
+// (dt_corr, dt_pred) on the card and the Courant maxima, red = (max|b|,
+// max|u|, max|v|), else red = max|b|; kBlock: a shard's local block, whose
+// reductions take its own rows only, else row0 folds to 0.
 template <bool kAdaptive, bool kBlock>
 __global__ void __launch_bounds__(tile::kThreads)
     cavity_carry_kernel(const float* us, const float* vs, const float* p, const float* p_prev,
@@ -160,82 +157,14 @@ __global__ void __launch_bounds__(tile::kThreads)
   c = corr_at<kAdaptive, false>(c, dts);
   pc = cfd::pred_at<kAdaptive>(pc, kAdaptive ? dts + 1 : nullptr);
   if constexpr (!kBlock) c.row0 = pc.row0 = 0;
-  const int Hq8 = c.Hq8, Wqa = c.Wqa, plane = Hq8 * Wqa;
-  const tile::Tile t = tile::make_tile(pl, Hq8, Wqa, c.row0);
-  const int N = static_cast<int>(tile::buffer_floats(pl.rows, pl.cols, pl.halo)), LC = t.LC;
-  float* const s_us = tile::smem();
-  float* const s_vs = s_us + N;
-  float* const s_p = s_us + 2 * N;
-  float* const s_u = s_us + 3 * N;
-  float* const s_v = s_us + 4 * N;
-  {
-    const float* src[3] = {us, vs, p};
-    float* const dst[3] = {s_us, s_vs, s_p};
-    tile::load<3>(src, dst, t, Hq8, Wqa);
-  }
-  __syncthreads();
-  // the corrected u, v where the predictor reads them; u*, v* where the
-  // source reads them (own cells, one row south, one column west)
-  const tile::Box A = tile::around(t, 2, 1, 2, 1), B = tile::around(t, 1, 0, 1, 0);
-  const tile::View vus = tile::view(s_us, t), vvs = tile::view(s_vs, t);
-  const tile::View vp = tile::view(s_p, t), vu = tile::view(s_u, t), vv = tile::view(s_v, t);
-  const bool inner = tile::interior(t, A, c.ny, c.nx, Hq8);
-  if (inner) {
-    tile::each_cell(A, LC, [&](int lj, int li, int k) {
-      const int j = t.gj + lj, i = t.ai + li;
-      s_u[k] = cfd::quad::u_corr_formula(vus, vp, j, i, c);
-      s_v[k] = cfd::quad::v_corr_formula(vvs, vp, j, i, c);
-    });
-    __syncthreads();
-    tile::each_cell(B, LC, [&](int lj, int li, int k) {
-      const int j = t.gj + lj, i = t.ai + li;
-      s_us[k] = cfd::u_star_formula(vu, vv, j, i, pc);
-      s_vs[k] = cfd::v_star_formula(vu, vv, j, i, pc);
-    });
-  } else {
-    tile::each_cell(A, LC, [&](int lj, int li, int k) {
-      float2 uv = make_float2(0.f, 0.f);  // outside the array a neighbour reads 0
-      if (tile::in_array(t, lj, li, Hq8, Wqa)) {
-        uv = cfd::quad::cavity_uv_at(vus, vvs, vp, t.gj + lj, t.ai + li, c);
-      }
-      s_u[k] = uv.x;
-      s_v[k] = uv.y;
-    });
-    __syncthreads();
-    tile::each_cell(B, LC, [&](int lj, int li, int k) {
-      const int j = t.gj + lj, i = t.ai + li;
-      s_us[k] = cfd::u_star_at(vu, vv, j, i, pc);
-      s_vs[k] = cfd::v_star_at(vu, vv, j, i, pc);
-    });
-  }
+  const tile::Tile t = tile::block_tile(pl, c.Hq8, c.Wqa, c.row0);
+  const float* src[cfd::quad::kCavityInputs] = {us, vs, p};
+  tile::load<cfd::quad::kCavityInputs>(src, tile::smem(), t, c.Hq8, c.Wqa);
   __syncthreads();
   float m[kAdaptive ? 3 : 1] = {};
-  tile::each_own(t, Wqa, [&](int g, int gr, int lj0, int li0) {
-    const bool own = !kBlock || (gr >= halo && gr < Hq8 - halo);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int lj = lj0 + (q >> 1), li = li0 + (q & 1);
-      const int k = lj * LC + li, gq = q * plane + g;
-      const int j = t.gj + lj, i = t.ai + li;
-      const float a = s_us[k], bv = s_vs[k];
-      float bb = 0.f;
-      if (inner || (j >= 1 && j <= c.ny && i >= 1 && i <= c.nx)) {
-        const float div = (a - s_us[k - 1]) * pc.idx + (bv - s_vs[k - LC]) * pc.idy;
-        bb = pc.rho_dt * div;
-      }
-      us2[gq] = a;
-      vs2[gq] = bv;
-      b[gq] = bb;
-      guess[gq] = 2.0f * s_p[k] - p_prev[gq];
-      if (own) {
-        m[0] = cfd::bits_max(m[0], fabsf(bb));
-        if constexpr (kAdaptive) {
-          m[1] = cfd::bits_max(m[1], fabsf(s_u[k]));
-          m[2] = cfd::bits_max(m[2], fabsf(s_v[k]));
-        }
-      }
-    }
-  });
+  cfd::quad::cavity_tile<kAdaptive, kBlock>(t, tile::smem(),
+                                            tile::smem() + cfd::quad::kCavityInputs * t.N,
+                                            p_prev, us2, vs2, b, guess, c, pc, halo, m);
   tile::block_max(m, red);
 }
 
@@ -264,36 +193,6 @@ __global__ void channel_predictor_source_kernel(const float* u, const float* v, 
   cfd::block_sum_to(part, partials + blockIdx.x);
 }
 
-// The channel's arithmetic on a tile (tile::duct_carry): the rho-divided
-// correction with the channel ghosts, the predictor with the channel ghosts
-// on the tentative fields, the source on the cells, the guess
-struct ChannelTile {
-  static constexpr bool kGuess = true;
-  Corr c;
-  Pred pc;
-  __device__ bool inner(const tile::Tile& t, const tile::Box& A) const {
-    return tile::interior(t, A, c.ny, c.nx, c.Hq8);
-  }
-  __device__ float2 uv_formula(tile::View us, tile::View vs, tile::View p, int j, int i) const {
-    return make_float2(cfd::quad::u_corr_formula(us, p, j, i, c),
-                       cfd::quad::v_corr_formula(vs, p, j, i, c));
-  }
-  __device__ float2 uv_at(tile::View us, tile::View vs, tile::View p, int j, int i) const {
-    return cfd::quad::channel_uv_at(us, vs, p, j, i, c);
-  }
-  __device__ float us_at(tile::View u, tile::View v, int j, int i) const {
-    auto fu = [&](int jj, int ii) { return cfd::u_star_at(u, v, jj, ii, pc); };
-    return cfd::quad::channel_u(fu, j, i, c.ny, c.nx, c.ghost);
-  }
-  __device__ float vs_at(tile::View u, tile::View v, int j, int i) const {
-    auto fv = [&](int jj, int ii) { return cfd::v_star_at(u, v, jj, ii, pc); };
-    return cfd::quad::channel_v(fv, j, i, c.ny, c.nx);
-  }
-  __device__ bool cell(int j, int i) const {
-    return j >= 1 && j <= c.ny && i >= 1 && i <= c.nx;
-  }
-};
-
 // The channel carry's tile kernel (the design above). kAdaptive: the
 // coefficients from dts = (dt_corr, dt_pred) on the card and the Courant
 // maxima into courant[0], courant[1]; kBlock: a shard's local block, whose
@@ -307,8 +206,8 @@ __global__ void __launch_bounds__(tile::kThreads)
   c = corr_at<kAdaptive, true>(c, dts);
   pc = cfd::pred_at<kAdaptive>(pc, kAdaptive ? dts + 1 : nullptr);
   if constexpr (!kBlock) c.row0 = pc.row0 = 0;
-  tile::duct_carry<kAdaptive, kBlock>(ChannelTile{c, pc}, us, vs, p, p_prev, us2, vs2, b,
-                                      guess, courant, pl, halo);
+  tile::duct_carry<kAdaptive, kBlock, tile::Guess::kExtrapolate>(
+      cfd::quad::ChannelTile{c, pc}, us, vs, p, p_prev, us2, vs2, b, guess, courant, pl, halo);
 }
 
 // one block: the partials folded into *sum in the twin's fold_sum order

@@ -1,14 +1,17 @@
-// Per-cell bodies of the Rayleigh-Benard tentative-carry stages on the quad
-// layout: the corrector with the box no-slip ghosts, the temperature
-// transport with its ghosts, and the predictor with the buoyancy and the
-// source. Shared by the standalone stage kernels (rb_stage.cu) and the
-// whole-step kernel (whole_step.cu). The ghost order is described in
-// rb_stage.cu. ``row0`` is a sharded local block's global plane row of its
-// row 0 (common.cuh): every j below is the global logical row, so the ghost
-// rows (j = 0, ny + 1) and the walls keep their global meaning on any
-// shard; 0 on a whole field.
+// The Rayleigh-Benard tentative-carry stages on the quad layout: the
+// corrector with the box no-slip ghosts, the temperature transport with its
+// ghosts, and the predictor with the buoyancy and the source, as
+// accessor-taking arithmetic; the corrector's per-cell body; and the
+// carry's body on a shared-memory tile (rb_tile, carry_tile.cuh). Shared by
+// the standalone stage kernels (rb_stage.cu) and the whole-step kernel
+// (whole_step.cu). The ghost order is described in rb_stage.cu. ``row0``
+// is a sharded local block's global plane row of its row 0 (common.cuh):
+// every j below is the global logical row, so the ghost rows (j = 0, ny +
+// 1) and the walls keep their global meaning on any shard; 0 on a whole
+// field.
 #pragma once
 
+#include "carry_tile.cuh"
 #include "common.cuh"
 #include "predictor.cuh"
 
@@ -165,42 +168,113 @@ __device__ __forceinline__ float2 corrector_cell(const float* us, const float* v
   return make_float2(fabsf(uv.x), fabsf(uv.y));
 }
 
-// T' at quad cell idx with the Dirichlet ghost rows and the adiabatic ghost
-// columns
-__device__ __forceinline__ void temperature_cell(const float* T, const float* u,
-                                                 const float* v, float* T2, long long idx,
-                                                 const RBTemp& c) {
-  const cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa, c.row0);
-  T2[idx] = temperature_at(quad_read(T, c), quad_read(u, c), quad_read(v, c), cell.j, cell.i,
-                           c);
-}
+// The logical rows the carry's stages reach, one row each: the corrector
+// (p at j+1), the box ghosts (the ghost rows read rows 1 and ny), the
+// temperature transport (T, v2 at j-1 ... j+1), the T ghosts, the
+// predictor with the buoyancy (u2, v2 at j-1 ... j+1, T' at j+1), the box
+// ghosts on the tentative fields and the source (vs at j-1); a tile's halo
+// covers them (kernels/plan.py CARRY_RADIUS)
+constexpr int kRBRadius = 7;
+// the inputs the carry's tile stages: us, vs, p, T
+constexpr int kRBInputs = 4;
 
-// The RB predictor at quad cell idx on the valid faces (u2, v2 elsewhere),
-// the buoyancy buoy * (T'(j) + T'(j+1)) on the valid v faces, the box ghosts
-// on the tentative fields, b = rho/dt * div on the cells (0 elsewhere);
-// returns b.
-__device__ __forceinline__ float predictor_source_cell(const float* u, const float* v,
-                                                       const float* T2, float* us2,
-                                                       float* vs2, float* b, long long idx,
-                                                       const Pred& c, float buoy) {
-  const cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa, c.row0);
-  const int j = cell.j, i = cell.i;
-  const QuadRead lu = quad_read(u, c), lv = quad_read(v, c), lt = quad_read(T2, c);
-  auto fu = [&](int jj, int ii) { return rb_fu_at(lu, lv, jj, ii, c); };
-  auto fv = [&](int jj, int ii) { return rb_fv_at(lu, lv, lt, jj, ii, c, buoy); };
-  const float a = box_u(fu, j, i, c.ny, c.nx);
-  const float bv = box_v(fv, j, i, c.ny, c.nx);
-  us2[idx] = a;
-  vs2[idx] = bv;
-  float bb = 0.f;
-  if (is_cell(j, i, c.ny, c.nx)) {
-    const float aw = box_u(fu, j, i - 1, c.ny, c.nx);
-    const float bs = box_v(fv, j - 1, i, c.ny, c.nx);
-    const float div = (a - aw) * c.idx + (bv - bs) * c.idy;
-    bb = c.rho_dt * div;
+// The RB carry on tile t (rb_stage.cu describes the design) from its
+// staged us, vs, p, T in `in` (kRBInputs buffers) with the corrected u2, v2
+// in `work` (tile::kWorkBuffers): u2, v2 where T' and the predictor read
+// them, T' (over p) where the predictor reads it, us', vs' (over us, vs)
+// where the source reads them (own cells, one row south, one column west),
+// then us', vs', T', b and the guess (kG; kExtrapolate: 2p - p_prev where
+// p_prev is given) of the own cells; m takes the Courant maxima of u2, v2
+// over the own rows (kAdaptive; kBlock: a local block's rows between its
+// `halo`-row strips). p is the field in device memory, read for the guess.
+template <bool kAdaptive, bool kBlock, tile::Guess kG>
+__device__ __forceinline__ void rb_tile(const tile::Tile& t, float* in, float* work,
+                                        const float* p, const float* p_prev, float* us2,
+                                        float* vs2, float* T2, float* b, float* guess,
+                                        const RBCorr& cc, const RBTemp& tc, const Pred& pc,
+                                        float buoy, int halo, float (&m)[2]) {
+  const int Hq8 = cc.Hq8, Wqa = cc.Wqa, ny = cc.ny, nx = cc.nx, plane = Hq8 * Wqa, LC = t.LC;
+  float* const s_us = in;
+  float* const s_vs = in + t.N;
+  float* const s_p = in + 2 * t.N;
+  float* const s_T = in + 3 * t.N;
+  float* const s_u = work;
+  float* const s_v = work + t.N;
+  const tile::Box A = tile::around(t, 3, 3, 4, 3), TB = tile::around(t, 1, 1, 2, 1);
+  const tile::Box B = tile::around(t, 1, 0, 1, 0);
+  const tile::View vus = tile::view(s_us, t), vvs = tile::view(s_vs, t);
+  const tile::View vp = tile::view(s_p, t), vT = tile::view(s_T, t);
+  const tile::View vu = tile::view(s_u, t), vv = tile::view(s_v, t), vT2 = vp;
+  const bool inner = tile::interior(t, A, ny, nx, Hq8);
+  if (inner) {
+    tile::each_cell(A, LC, [&](int lj, int li, int k) {
+      const int j = t.gj + lj, i = t.ai + li;
+      s_u[k] = rb_u_corr_formula(vus, vp, j, i, cc);
+      s_v[k] = rb_v_corr_formula(vvs, vp, j, i, cc);
+    });
+    __syncthreads();
+    tile::each_cell(TB, LC, [&](int lj, int li, int k) {
+      s_p[k] = t_pre_formula(vT, vu, vv, t.gj + lj, t.ai + li, tc);
+    });
+    __syncthreads();
+    tile::each_cell(B, LC, [&](int lj, int li, int k) {
+      const int j = t.gj + lj, i = t.ai + li;
+      s_us[k] = cfd::u_star_formula(vu, vv, j, i, pc);
+      s_vs[k] = cfd::v_star_formula(vu, vv, j, i, pc) + buoy * (vT2(j, i) + vT2(j + 1, i));
+    });
+  } else {
+    tile::each_cell(A, LC, [&](int lj, int li, int k) {
+      float2 uv = make_float2(0.f, 0.f);  // outside the array a neighbour reads 0
+      if (tile::in_array(t, lj, li, Hq8, Wqa)) {
+        uv = rb_uv_at(vus, vvs, vp, t.gj + lj, t.ai + li, cc);
+      }
+      s_u[k] = uv.x;
+      s_v[k] = uv.y;
+    });
+    __syncthreads();
+    tile::each_cell(TB, LC, [&](int lj, int li, int k) {
+      s_p[k] = tile::in_array(t, lj, li, Hq8, Wqa)
+                   ? temperature_at(vT, vu, vv, t.gj + lj, t.ai + li, tc)
+                   : 0.f;
+    });
+    __syncthreads();
+    auto fu = [&](int j, int i) { return rb_fu_at(vu, vv, j, i, pc); };
+    auto fv = [&](int j, int i) { return rb_fv_at(vu, vv, vT2, j, i, pc, buoy); };
+    tile::each_cell(B, LC, [&](int lj, int li, int k) {
+      const int j = t.gj + lj, i = t.ai + li;
+      s_us[k] = box_u(fu, j, i, ny, nx);
+      s_vs[k] = box_v(fv, j, i, ny, nx);
+    });
   }
-  b[idx] = bb;
-  return bb;
+  __syncthreads();
+  const bool extrapolate = kG == tile::Guess::kExtrapolate && p_prev != nullptr;
+  tile::each_own(t, Wqa, [&](int g, int gr, int lj0, int li0) {
+    const bool own = !kBlock || (gr >= halo && gr < Hq8 - halo);
+    float pv[4] = {}, pp[4] = {};
+    if (kG == tile::Guess::kCopy || extrapolate) tile::own4(p, g, plane, pv);
+    if (extrapolate) tile::own4(p_prev, g, plane, pp);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int lj = lj0 + (q >> 1), li = li0 + (q & 1);
+      const int k = lj * LC + li, gq = q * plane + g;
+      const float a = s_us[k], bv = s_vs[k];
+      float bb = 0.f;
+      if (inner || is_cell(t.gj + lj, t.ai + li, ny, nx)) {
+        const float div = (a - s_us[k - 1]) * pc.idx + (bv - s_vs[k - LC]) * pc.idy;
+        bb = pc.rho_dt * div;
+      }
+      us2[gq] = a;
+      vs2[gq] = bv;
+      T2[gq] = s_p[k];
+      b[gq] = bb;
+      if constexpr (kG == tile::Guess::kCopy) guess[gq] = pv[q];
+      if (extrapolate) guess[gq] = 2.0f * pv[q] - pp[q];
+      if (kAdaptive && own) {
+        m[0] = cfd::bits_max(m[0], fabsf(s_u[k]));
+        m[1] = cfd::bits_max(m[1], fabsf(s_v[k]));
+      }
+    }
+  });
 }
 
 }  // namespace rb

@@ -22,7 +22,7 @@
 // cells; it writes us', vs', T', b (and the guess 2p - p_prev) of its own
 // cells and reduces the Courant maxima over them. A thread that writes a
 // ghost evaluates the pre-ghost value it copies from (box_u, box_v,
-// temperature_at), as the per-cell bodies do. Tiles that touch no wall,
+// temperature_at), as the per-cell corrector does. Tiles that touch no wall,
 // ghost row or padding take a path with no ghost or mask test. The sum
 // launch (carry_tile.cuh source_sum) sums b in the order of the PyTorch
 // twin's fixed_order_sum: 256-wide chunks by the pairwise tree, then the
@@ -79,8 +79,7 @@ using cfd::Pred;
 using cfd::rb::RBCorr;
 using cfd::rb::RBTemp;
 
-// the dependency radius of the carry's stages, in rows (above)
-constexpr int kRBRadius = 7;
+using cfd::rb::kRBRadius;
 static_assert(kRBRadius <= 8, "the RB carry reaches past the 8-row halo");
 
 // the corrector entry point: the corrected, ghosted u2, v2 (kTraced: cu, cv
@@ -103,15 +102,16 @@ namespace tile = cfd::tile;
 
 // the buffers a tile stages: us, vs, p, T, then the corrected u2, v2 (T'
 // overwrites p, us' and vs' overwrite us and vs)
-constexpr int kRBBuffers = 6;
+constexpr int kRBBuffers = cfd::rb::kRBInputs + tile::kWorkBuffers;
 
-// The carry's tile kernel (the design above). kAdaptive: the coefficients
-// from dts = (dt_corr, dt_pred) on the card, dt_corr for the corrector and
-// the temperature transport, dt_pred for the predictor, the buoyancy dt_pred
-// * 0.5 (the reference's (dt_pred * buoyancy) * 0.5 at buoyancy 1) and the
-// source, and the Courant maxima into courant[0], courant[1]; kBlock: a
-// shard's local block, whose maxima take its own rows only, else row0
-// folds to 0. guess = 2p - p_prev where p_prev is given.
+// The carry's tile kernel (the design above; its stages cfd::rb::rb_tile).
+// kAdaptive: the coefficients from dts = (dt_corr, dt_pred) on the card,
+// dt_corr for the corrector and the temperature transport, dt_pred for the
+// predictor, the buoyancy dt_pred * 0.5 (the reference's (dt_pred *
+// buoyancy) * 0.5 at buoyancy 1) and the source, and the Courant maxima
+// into courant[0], courant[1]; kBlock: a shard's local block, whose maxima
+// take its own rows only, else row0 folds to 0. guess = 2p - p_prev where
+// p_prev is given.
 template <bool kAdaptive, bool kBlock>
 __global__ void __launch_bounds__(tile::kThreads)
     rb_carry_kernel(const float* us, const float* vs, const float* p, const float* T,
@@ -126,95 +126,14 @@ __global__ void __launch_bounds__(tile::kThreads)
   pc = cfd::pred_at<kAdaptive>(pc, kAdaptive ? dts + 1 : nullptr);
   if constexpr (kAdaptive) buoy = pc.dt * 0.5f;
   if constexpr (!kBlock) cc.row0 = tc.row0 = pc.row0 = 0;
-  const int Hq8 = cc.Hq8, Wqa = cc.Wqa, ny = cc.ny, nx = cc.nx, plane = Hq8 * Wqa;
-  const tile::Tile t = tile::make_tile(pl, Hq8, Wqa, cc.row0);
-  const int N = static_cast<int>(tile::buffer_floats(pl.rows, pl.cols, pl.halo)), LC = t.LC;
-  float* const s_us = tile::smem();
-  float* const s_vs = s_us + N;
-  float* const s_p = s_us + 2 * N;
-  float* const s_T = s_us + 3 * N;
-  float* const s_u = s_us + 4 * N;
-  float* const s_v = s_us + 5 * N;
-  {
-    const float* src[4] = {us, vs, p, T};
-    float* const dst[4] = {s_us, s_vs, s_p, s_T};
-    tile::load<4>(src, dst, t, Hq8, Wqa);
-  }
-  __syncthreads();
-  // u2, v2 where T' and the predictor read them; T' where the predictor
-  // reads it; us', vs' where the source reads them (own cells, one row
-  // south, one column west)
-  const tile::Box A = tile::around(t, 3, 3, 4, 3), TB = tile::around(t, 1, 1, 2, 1);
-  const tile::Box B = tile::around(t, 1, 0, 1, 0);
-  const tile::View vus = tile::view(s_us, t), vvs = tile::view(s_vs, t);
-  const tile::View vp = tile::view(s_p, t), vT = tile::view(s_T, t);
-  const tile::View vu = tile::view(s_u, t), vv = tile::view(s_v, t), vT2 = vp;
-  const bool inner = tile::interior(t, A, ny, nx, Hq8);
-  if (inner) {
-    tile::each_cell(A, LC, [&](int lj, int li, int k) {
-      const int j = t.gj + lj, i = t.ai + li;
-      s_u[k] = cfd::rb::rb_u_corr_formula(vus, vp, j, i, cc);
-      s_v[k] = cfd::rb::rb_v_corr_formula(vvs, vp, j, i, cc);
-    });
-    __syncthreads();
-    tile::each_cell(TB, LC, [&](int lj, int li, int k) {
-      s_p[k] = cfd::rb::t_pre_formula(vT, vu, vv, t.gj + lj, t.ai + li, tc);
-    });
-    __syncthreads();
-    tile::each_cell(B, LC, [&](int lj, int li, int k) {
-      const int j = t.gj + lj, i = t.ai + li;
-      s_us[k] = cfd::u_star_formula(vu, vv, j, i, pc);
-      s_vs[k] = cfd::v_star_formula(vu, vv, j, i, pc) + buoy * (vT2(j, i) + vT2(j + 1, i));
-    });
-  } else {
-    tile::each_cell(A, LC, [&](int lj, int li, int k) {
-      float2 uv = make_float2(0.f, 0.f);  // outside the array a neighbour reads 0
-      if (tile::in_array(t, lj, li, Hq8, Wqa)) {
-        uv = cfd::rb::rb_uv_at(vus, vvs, vp, t.gj + lj, t.ai + li, cc);
-      }
-      s_u[k] = uv.x;
-      s_v[k] = uv.y;
-    });
-    __syncthreads();
-    tile::each_cell(TB, LC, [&](int lj, int li, int k) {
-      s_p[k] = tile::in_array(t, lj, li, Hq8, Wqa)
-                   ? cfd::rb::temperature_at(vT, vu, vv, t.gj + lj, t.ai + li, tc)
-                   : 0.f;
-    });
-    __syncthreads();
-    auto fu = [&](int j, int i) { return cfd::rb::rb_fu_at(vu, vv, j, i, pc); };
-    auto fv = [&](int j, int i) { return cfd::rb::rb_fv_at(vu, vv, vT2, j, i, pc, buoy); };
-    tile::each_cell(B, LC, [&](int lj, int li, int k) {
-      const int j = t.gj + lj, i = t.ai + li;
-      s_us[k] = cfd::rb::box_u(fu, j, i, ny, nx);
-      s_vs[k] = cfd::rb::box_v(fv, j, i, ny, nx);
-    });
-  }
+  const tile::Tile t = tile::block_tile(pl, cc.Hq8, cc.Wqa, cc.row0);
+  const float* src[cfd::rb::kRBInputs] = {us, vs, p, T};
+  tile::load<cfd::rb::kRBInputs>(src, tile::smem(), t, cc.Hq8, cc.Wqa);
   __syncthreads();
   float m[2] = {0.f, 0.f};
-  tile::each_own(t, Wqa, [&](int g, int gr, int lj0, int li0) {
-    const bool own = !kBlock || (gr >= halo && gr < Hq8 - halo);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int lj = lj0 + (q >> 1), li = li0 + (q & 1);
-      const int k = lj * LC + li, gq = q * plane + g;
-      const float a = s_us[k], bv = s_vs[k];
-      float bb = 0.f;
-      if (inner || cfd::rb::is_cell(t.gj + lj, t.ai + li, ny, nx)) {
-        const float div = (a - s_us[k - 1]) * pc.idx + (bv - s_vs[k - LC]) * pc.idy;
-        bb = pc.rho_dt * div;
-      }
-      us2[gq] = a;
-      vs2[gq] = bv;
-      T2[gq] = s_p[k];
-      b[gq] = bb;
-      if (p_prev != nullptr) guess[gq] = 2.0f * p[gq] - p_prev[gq];
-      if (kAdaptive && own) {
-        m[0] = cfd::bits_max(m[0], fabsf(s_u[k]));
-        m[1] = cfd::bits_max(m[1], fabsf(s_v[k]));
-      }
-    }
-  });
+  cfd::rb::rb_tile<kAdaptive, kBlock, tile::Guess::kExtrapolate>(
+      t, tile::smem(), tile::smem() + cfd::rb::kRBInputs * t.N, p, p_prev, us2, vs2, T2, b,
+      guess, cc, tc, pc, buoy, halo, m);
   if constexpr (kAdaptive) tile::block_max(m, courant);
 }
 

@@ -1,13 +1,16 @@
-// Per-cell bodies of the backward step's tentative-carry stages on the quad
-// layout: the masked corrector and the masked predictor + source, with the
-// step BCs, and the accessor-taking arithmetic they are built of. Shared by
-// the corrector kernel and the carry's shared-memory tiles (step_stage.cu,
-// on a whole field or on a shard's local block) and the whole-step kernel
-// (whole_step.cu). The BC order is described in step_stage.cu. On a local
-// block (row0 != 0, common.cuh) every j is global, so the masks, the
-// inlet rows and the interface faces keep their global meaning.
+// The backward step's tentative-carry stages on the quad layout: the
+// masked corrector with the step BCs, the masked predictor, the
+// accessor-taking arithmetic they are built of, and the step's arithmetic
+// for the carry's shared-memory tile (StepTile, for carry_tile.cuh
+// duct_tile). Shared by the corrector kernel and the carry's tiles
+// (step_stage.cu, on a whole field or on a shard's local block) and the
+// whole-step kernel (whole_step.cu). The BC order is described in
+// step_stage.cu. On a local block (row0 != 0, common.cuh) every j is
+// global, so the masks, the inlet rows and the interface faces keep their
+// global meaning.
 #pragma once
 
+#include "carry_tile.cuh"
 #include "common.cuh"
 #include "predictor.cuh"
 
@@ -147,33 +150,40 @@ __device__ __forceinline__ float2 corrector_cell(const float* us, const float* v
   return make_float2(fabsf(uv.x), fabsf(uv.y));
 }
 
-// The step predictor at quad cell idx on valid faces, the step BCs on the
-// tentative fields, b = rho/dt * div on the fluid cells (0 elsewhere);
-// returns b. The whole step's (whole_step.cu), on a whole field.
-__device__ __forceinline__ float predictor_source_cell(const float* u, const float* v,
-                                                       float* us2, float* vs2, float* b,
-                                                       long long idx, Pred c, Step s) {
-  c.row0 = 0;
-  s.row0 = 0;
-  const cfd::QuadCell cell = cfd::quad_cell(idx, s.Hq8, s.Wqa, s.row0);
-  const int j = cell.j, i = cell.i;
-  const cfd::QuadRead lu = quad_read(u, c), lv = quad_read(v, c);
-  auto fu = [&](int jj, int ii) { return fu_at(lu, lv, jj, ii, c, s); };
-  auto fv = [&](int jj, int ii) { return fv_at(lu, lv, jj, ii, c, s); };
-  const float a = step_u(fu, j, i, s);
-  const float bv = step_v(fv, j, i, s);
-  us2[idx] = a;
-  vs2[idx] = bv;
-  float bb = 0.f;
-  if (fluid(j, i, s)) {
-    const float aw = step_u(fu, j, i - 1, s);
-    const float bs = step_v(fv, j - 1, i, s);
-    const float div = (a - aw) * c.idx + (bv - bs) * c.idy;
-    bb = c.rho_dt * div;
+// The logical rows the carry's stages reach, one row each: the corrector
+// (p at j+1), the step BCs on the corrected fields (the ghost rows read
+// rows 1 and ny), the predictor (j-1 ... j+1), the step BCs on the
+// tentative fields and the source (vs at j-1); a tile's halo covers them
+// (kernels/plan.py CARRY_RADIUS)
+constexpr int kStepRadius = 5;
+
+// The step's arithmetic on a tile (tile::duct_tile): the masked correction
+// with the step BCs, the masked predictor with the step BCs on the
+// tentative fields, the source on the fluid cells; the unmasked path also
+// off the solid block and its interface faces
+struct StepTile {
+  Step c;
+  Pred pc;
+  __device__ bool inner(const tile::Tile& t, const tile::Box& A) const {
+    return tile::interior(t, A, c.ny, c.nx, c.Hq8) &&
+           tile::misses_corner(t, A, c.step_i, c.inlet_j);
   }
-  b[idx] = bb;
-  return bb;
-}
+  __device__ float2 uv_formula(tile::View us, tile::View vs, tile::View p, int j, int i) const {
+    return make_float2(u_corr_formula(us, p, j, i, c), v_corr_formula(vs, p, j, i, c));
+  }
+  __device__ float2 uv_at(tile::View us, tile::View vs, tile::View p, int j, int i) const {
+    return step_uv_at(us, vs, p, j, i, c);
+  }
+  __device__ float us_at(tile::View u, tile::View v, int j, int i) const {
+    auto fu = [&](int jj, int ii) { return fu_at(u, v, jj, ii, pc, c); };
+    return step_u(fu, j, i, c);
+  }
+  __device__ float vs_at(tile::View u, tile::View v, int j, int i) const {
+    auto fv = [&](int jj, int ii) { return fv_at(u, v, jj, ii, pc, c); };
+    return step_v(fv, j, i, c);
+  }
+  __device__ bool cell(int j, int i) const { return fluid(j, i, c); }
+};
 
 }  // namespace step
 }  // namespace cfd

@@ -27,9 +27,10 @@
 //
 // Design. The carry is ONE tile launch and one sum launch, as the
 // channel's (quad_stage.cu) with the step's masks: both run
-// carry_tile.cuh's duct_carry, each with its own arithmetic (StepTile
-// below). The tile kernel loads us, vs and p with a halo of 3 plane rows and
-// columns (6 logical, >= kStepRadius) into shared memory, computes the
+// carry_tile.cuh's duct_carry, each with its own arithmetic (StepTile, in
+// step_carry.cuh, which the whole-step kernel runs too). The tile kernel
+// loads us, vs and p with a halo of 3 plane rows and columns (6 logical,
+// >= kStepRadius) into shared memory, computes the
 // corrected, BC'd u, v on the region the predictor reads, then u* (own
 // cells and one column west) and v* (own cells and one row south) with the
 // step BCs on the tentative fields, and writes us', vs' and b = rho/dt *
@@ -45,8 +46,7 @@
 // fluid-only sum. 6 passes over the fields (3 in, 3 out) and one more over
 // b, where the earlier three-launch chain made 10. The corrector (row 9b)
 // keeps the first design, one thread per quad cell; the per-cell bodies
-// and the tiles share the arithmetic of step_carry.cuh, which the
-// whole-step kernel (whole_step.cu) runs too.
+// and the tiles share the arithmetic of step_carry.cuh.
 //
 // Step BC order (cfd_tpu/kernels/step_quad.py:60-97, bc.step_bc): u inlet
 // column (uin on rows 1..inlet_j, 0 above), v inlet column 0, u outlet
@@ -73,8 +73,7 @@ using cfd::Pred;
 using cfd::step::Step;
 namespace tile = cfd::tile;
 
-// the dependency radius of the carry's stages, in rows (above)
-constexpr int kStepRadius = 5;
+using cfd::step::kStepRadius;
 static_assert(kStepRadius <= 8, "the step carry reaches past the 8-row halo");
 
 // the corrector (kTraced: cu, cv formed from *dt; s0 holds rho*dx, rho*dy)
@@ -90,36 +89,6 @@ __global__ void step_corrector_kernel(const float* us, const float* vs, const fl
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx < n) cfd::step::corrector_cell(us, vs, p, u2, v2, idx, s);
 }
-
-// The step's arithmetic on a tile (tile::duct_carry): the masked
-// correction with the step BCs, the masked predictor with the step BCs on
-// the tentative fields, the source on the fluid cells; the unmasked path
-// also off the solid block and its interface faces
-struct StepTile {
-  static constexpr bool kGuess = false;
-  Step c;
-  Pred pc;
-  __device__ bool inner(const tile::Tile& t, const tile::Box& A) const {
-    return tile::interior(t, A, c.ny, c.nx, c.Hq8) &&
-           tile::misses_corner(t, A, c.step_i, c.inlet_j);
-  }
-  __device__ float2 uv_formula(tile::View us, tile::View vs, tile::View p, int j, int i) const {
-    return make_float2(cfd::step::u_corr_formula(us, p, j, i, c),
-                       cfd::step::v_corr_formula(vs, p, j, i, c));
-  }
-  __device__ float2 uv_at(tile::View us, tile::View vs, tile::View p, int j, int i) const {
-    return cfd::step::step_uv_at(us, vs, p, j, i, c);
-  }
-  __device__ float us_at(tile::View u, tile::View v, int j, int i) const {
-    auto fu = [&](int jj, int ii) { return cfd::step::fu_at(u, v, jj, ii, pc, c); };
-    return cfd::step::step_u(fu, j, i, c);
-  }
-  __device__ float vs_at(tile::View u, tile::View v, int j, int i) const {
-    auto fv = [&](int jj, int ii) { return cfd::step::fv_at(u, v, jj, ii, pc, c); };
-    return cfd::step::step_v(fv, j, i, c);
-  }
-  __device__ bool cell(int j, int i) const { return cfd::step::fluid(j, i, c); }
-};
 
 // The carry's tile kernel (the design above). kAdaptive: the coefficients
 // from dts = (dt_corr, dt_pred) on the card and the Courant maxima into
@@ -140,8 +109,8 @@ __global__ void __launch_bounds__(tile::kThreads, kAdaptive ? 2 : 4)
   }
   pc = cfd::pred_at<kAdaptive>(pc, kAdaptive ? dts + 1 : nullptr);
   if constexpr (!kBlock) s.row0 = pc.row0 = 0;
-  tile::duct_carry<kAdaptive, kBlock>(StepTile{s, pc}, us, vs, p, nullptr, us2, vs2, b,
-                                      nullptr, courant, pl, halo);
+  tile::duct_carry<kAdaptive, kBlock, tile::Guess::kNone>(
+      cfd::step::StepTile{s, pc}, us, vs, p, nullptr, us2, vs2, b, nullptr, courant, pl, halo);
 }
 
 const void* step_carry_fn(bool adaptive, bool block) {

@@ -71,9 +71,9 @@ SIGNATURES = {
                         + [_I] * 3 + [_F] * 3 + [_I, _P, _F] + [_I, _I, _P, _P] + [_P]),
     # masked, shared memory; blocks, blocks per SM, registers out
     "cfd_whole_solve_grid": [_I] * 2 + [_P] * 3,
-    # the whole time step: flavor, io, cf, then cfd_whole_solve's arguments
-    # from `masked` on without p_in, b0 and max_b
-    "cfd_whole_step": ([_I, _P, _P, _I] + [_P] * 10 + [_I] * 6 + [_F] * 4 + [_I] + [_P] * 3
+    # the whole time step: flavor, io, cf, the carry's tile plan, then
+    # cfd_whole_solve's arguments from `masked` on without p_in, b0 and max_b
+    "cfd_whole_step": ([_I, _P, _P, _P, _I] + [_P] * 10 + [_I] * 6 + [_F] * 4 + [_I] + [_P] * 3
                        + [_F] + [_I] * 3 + [_F] * 3 + [_I, _P, _F] + [_I, _I, _P, _P] + [_P]),
     # the fused coarse tail: b, e, pinv, the levels, omega, pre, post, the
     # plan

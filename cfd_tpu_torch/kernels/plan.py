@@ -1,7 +1,8 @@
 """The launch plans of the tiled kernels: the cooperative solve kernels
 (csrc/whole_solve.cuh Plan: the whole-solve, kernels.whole_solve, the whole
-step, kernels.whole_step, and the fused tail, kernels.mg_tail) and the
-one-launch carries (csrc/carry_tile.cuh Plan, carry_plan below).
+step, kernels.whole_step, and the fused tail, kernels.mg_tail), the
+one-launch carries (csrc/carry_tile.cuh Plan, carry_plan below) and the
+whole step's, which joins the two (whole_step_plan below).
 
 Each runs one cooperative grid of one block of BLOCK_THREADS threads on
 every SM. The coarse levels from ``block_from`` down run in ONE
@@ -279,7 +280,12 @@ CARRY_TILES = {"cavity": (8, 64), "channel": (16, 32), "step": (8, 32), "rb": (1
 # (csrc/quad_stage.cu kCavityBuffers, csrc/carry_tile.cuh kDuctBuffers for
 # the channel and the step, csrc/rb_stage.cu kRBBuffers).
 CARRY_RADIUS = {"cavity": 5, "channel": 5, "step": 5, "rb": 7}
-CARRY_BUFFERS = {"cavity": 5, "channel": 5, "step": 5, "rb": 6}
+# The fields a tile stages (csrc/quad_carry.cuh kCavityInputs,
+# csrc/carry_tile.cuh kDuctInputs, csrc/rb_carry.cuh kRBInputs) and its
+# buffers: those, then the corrected u, v (carry_tile.cuh kWorkBuffers).
+CARRY_INPUTS = {"cavity": 3, "channel": 3, "step": 3, "rb": 4}
+WORK_BUFFERS = 2
+CARRY_BUFFERS = {flow: n + WORK_BUFFERS for flow, n in CARRY_INPUTS.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,18 +315,20 @@ def carry_buffer_floats(rows: int, cols: int, halo: int) -> int:
     return 4 * (rows + 2 * halo) * (cols + 2 * halo)
 
 
-def carry_plan(flow: str, qshape, tile: tuple[int, int] | None = None) -> CarryPlan:
+def carry_plan(flow: str, qshape, tile: tuple[int, int] | None = None,
+               buffers: int | None = None) -> CarryPlan:
     """The plan of ``flow``'s carry ("cavity", "channel", "step" or "rb")
     on a (4, Hq8, Wqa) field or local block: CARRY_TILES' tile (the card
     tests pass another ``tile`` to hold the kernels to their twins under
     it), cut to the field where it is larger, a halo of ceil(CARRY_RADIUS /
-    2) plane rows. Raises when a block's buffers do not fit its shared
+    2) plane rows, shared memory for CARRY_BUFFERS[flow] buffers (or
+    ``buffers``). Raises when a block's buffers do not fit its shared
     memory."""
     _, Hq8, Wqa = qshape
     rows, cols = CARRY_TILES[flow] if tile is None else tile
     rows, cols = min(rows, Hq8), min(cols, Wqa)
     halo = -(-CARRY_RADIUS[flow] // 2)
-    smem = 4 * CARRY_BUFFERS[flow] * carry_buffer_floats(rows, cols, halo)
+    smem = 4 * (buffers or CARRY_BUFFERS[flow]) * carry_buffer_floats(rows, cols, halo)
     if smem > SMEM_MAX:
         raise ValueError(f"the {flow} carry's {rows}x{cols} tile takes {smem} B of shared "
                          f"memory, more than a block's {SMEM_MAX}")
@@ -351,3 +359,57 @@ def ready_tiles(plan: CarryPlan, device, symbol: str, *which: int) -> dict:
         raise RuntimeError(f"{symbol}: the card holds no block at {plan.smem_bytes} B of "
                            f"shared memory")
     return grid
+
+
+# ------------------------------------------------------------- the whole step
+
+# The whole step's carry runs the carries' tiles inside its cooperative
+# grid (csrc/whole_step.cu): each block of BLOCK_THREADS threads, one an
+# SM, walks the tiles t = block + k blocks in turn with the next tile's
+# loads under this tile's stages, so it stages WHOLE_STEP_INPUT_SETS sets
+# of a tile's inputs. Its tile (plane rows,
+# plane columns) is its own constant, chosen on an H100 by timing the carry
+# phases alone (the whole step at max_cycles 0) and the whole call under
+# eight candidates a flow (PERF.md, the whole step's findings): a tile's
+# shared memory sets the launch's, and the V-cycles ran slower beside the
+# larger ones (a smaller L1 beside them fits the readings). A sweep edits
+# it in a scratch copy; nothing overrides it.
+WHOLE_STEP_TILES = {"cavity": (16, 64), "channel": (40, 24), "step": (24, 32), "rb": (20, 32)}
+WHOLE_STEP_INPUT_SETS = 2    # csrc/carry_tile.cuh kInputSets
+# Grid-wide barriers of the carry phases (csrc/whole_step.cu): after the
+# tiles; the others also after the chunk sums and after the mean removal.
+WHOLE_STEP_CARRY_BARRIERS = {"cavity": 1, "channel": 3, "step": 3, "rb": 3}
+SUM_CHUNK = 256         # csrc/whole_solve.cuh kSumChunk: the source sum's chunks
+
+
+@dataclasses.dataclass(frozen=True)
+class WholeStepPlan:
+    """The launch plan of a whole step: ``solve``, its solve's plan with the
+    shared memory raised to the largest need of its phases (the carry's
+    tiles, the fold of the source sum's partials, the solve's); ``carry``,
+    the carry's tiles; ``carry_barriers``, the grid-wide barriers of the
+    carry phases (before the solve's V-cycles, ``solve.barriers`` each)."""
+
+    solve: Plan
+    carry: CarryPlan
+    carry_barriers: int
+
+
+def whole_step_plan(flow: str, solve: Plan, qshape,
+                    tile: tuple[int, int] | None = None) -> WholeStepPlan:
+    """The plan of ``flow``'s whole step on a (4, Hq8, Wqa) field from its
+    solve's plan: WHOLE_STEP_TILES' tile (or ``tile``: the card tests hold
+    the kernel to its twin under others) with WHOLE_STEP_INPUT_SETS input sets,
+    and the larger of the phases' shared memory. Raises when it exceeds a
+    block's."""
+    _, Hq8, Wqa = qshape
+    carry = carry_plan(flow, qshape, WHOLE_STEP_TILES[flow] if tile is None else tile,
+                       buffers=WHOLE_STEP_INPUT_SETS * CARRY_INPUTS[flow] + WORK_BUFFERS)
+    fold = 0 if flow == "cavity" else 4 * -(-4 * Hq8 * Wqa // SUM_CHUNK)
+    smem = max(solve.smem_bytes, carry.smem_bytes, fold)
+    if smem > SMEM_MAX:
+        raise ValueError(f"the {flow} whole step's phases take {smem} B of shared memory, "
+                         f"more than a block's {SMEM_MAX}")
+    return WholeStepPlan(dataclasses.replace(solve, smem_bytes=smem), carry,
+                         WHOLE_STEP_CARRY_BARRIERS[flow])
+

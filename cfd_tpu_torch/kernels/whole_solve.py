@@ -199,10 +199,11 @@ class _WholeSolveBase(nn.Module):
                ptr(self.ctl), ptr(stats), *common)
         return (p_out, *split_stats(stats))
 
-    def launch_args(self, like):
+    def launch_args(self, like, plan_ints=None):
         """(launch counter, masked, (q0, filled), the C arguments of
         cfd_whole_solve after ``stats``) for a launch on ``like``'s device
-        (the casts of the host arrays keep them alive)."""
+        (the casts of the host arrays keep them alive); ``plan_ints``: the
+        plan's host array in place of this solve's (the whole step's)."""
         if like.device != self.ctl.device:
             raise ValueError(f"tensor on {like.device}, solver buffers on "
                              f"{self.ctl.device}")
@@ -220,7 +221,7 @@ class _WholeSolveBase(nn.Module):
                   cfg.post_sweeps, cfg.max_cycles, cfg.tol_factor, cfg.abs_tol,
                   cfg.stall_ratio, pin[0], opt(pin[1]), pin[2],
                   int(self.mg.store_dtype is not None), int(cfg.corr_opt), opt(self.rc32),
-                  as_ptr(self._plan_ints))
+                  as_ptr(self._plan_ints if plan_ints is None else plan_ints))
         return record, int(self.MASKED), tuple(map(opt, scratch)), common
 
 

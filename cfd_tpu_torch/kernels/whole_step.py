@@ -15,10 +15,14 @@ p for the step and RB. The caller carries p_prev = the pre-solve p, as the
 composed path does (solver.make_step).
 
 * ``kernel`` — csrc/whole_step.cu: ONE cooperative launch per step, the
-  carry's stages as grid-stride phases between grid-wide barriers, then the
-  whole-solve's cycles (csrc/whole_solve.cuh). The corrected fields, b and
-  the per-chunk sums live in scratch allocated once as buffers of this
-  module; the hierarchy's scratch is the inner whole-solve's.
+  carry on the standalone carries' shared-memory tiles (each block walks
+  its tiles in turn), the source sum and mean removal (1 grid-wide barrier
+  for the cavity, 3 for the others), then the whole-solve's cycles
+  (csrc/whole_solve.cuh). The launch plan (``self.plan``,
+  kernels/plan.py whole_step_plan) is the solve's with the carry's tiles.
+  b and the per-chunk sums (the cavity: the blocks' max|b|) live in scratch
+  allocated once as buffers of this module; the hierarchy's scratch is the
+  inner whole-solve's.
 * ``plain`` — the port's own composition: the flavor's carry twin, then
   solver.remove_mean_quad (channel, step, RB), then WholeSolve.plain or
   StepWholeSolve.plain. The kernel repeats its arithmetic in order, so the
@@ -51,7 +55,7 @@ from cfd_tpu_torch.kernels.quad import (
     _check,
     quad_cell_mask,
 )
-from cfd_tpu_torch.kernels.plan import Plan, cooperative_grid, ready_grid
+from cfd_tpu_torch.kernels.plan import Plan, cooperative_grid, ready_grid, whole_step_plan
 from cfd_tpu_torch.kernels.rb_quad import QuadRBStep
 from cfd_tpu_torch.kernels.step_quad import QuadStepCorrPredictorSource, step_cell_mask
 from cfd_tpu_torch.kernels.whole_solve import StepWholeSolve, WholeSolve, split_stats
@@ -108,9 +112,12 @@ class _WholeStep(nn.Module):
     object), ``solver`` (a WholeSolve or StepWholeSolve), and for the flavors
     with a mean removal the quad mask of the cells it runs over and their
     count. ``RECORD`` counts the launches with the float32 hierarchy,
-    ``RECORD_BF16`` with the bfloat16 one; ``record`` is this instance's."""
+    ``RECORD_BF16`` with the bfloat16 one; ``record`` is this instance's.
+    ``plan`` (kernels/plan.py WholeStepPlan) is read at the first launch
+    (the card tests set another before it)."""
 
     FLAVOR: int
+    FLOW: str
     RECORD: Kernel
     RECORD_BF16: Kernel
     N_FIELDS: int = 4
@@ -126,13 +133,14 @@ class _WholeStep(nn.Module):
         self.qshape = solver.qshape
         device = solver.ctl.device
         f32 = dict(dtype=torch.float32, device=device)
-        for name in ("u_scr", "v_scr", "b"):
-            self.register_buffer(name, torch.zeros(self.qshape, **f32), persistent=False)
+        self.plan = whole_step_plan(self.FLOW, solver.plan, self.qshape)
+        self.register_buffer("b", torch.zeros(self.qshape, **f32), persistent=False)
+        # the per-chunk sums of b, or the cavity's max|b| of each block
         n0 = self.qshape[0] * self.qshape[1] * self.qshape[2]
-        self.register_buffer("partials", torch.zeros(-(-n0 // SUM_BLOCK), **f32),
-                             persistent=False)
+        self.register_buffer("partials", torch.zeros(
+            max(-(-n0 // SUM_BLOCK), self.plan.solve.blocks), **f32), persistent=False)
         self.n_fluid = n_fluid
-        self._grid_ready = False  # ready_grid before the first launch
+        self._plan_ints = None  # the plan's host arrays, its kernel readied at the first launch
         if cell is not None:
             self.register_buffer("cell", cell, persistent=False)
             self.register_buffer("n_cells", torch.tensor(float(n_fluid), **f32),
@@ -163,25 +171,33 @@ class _WholeStep(nn.Module):
         return (k.cu, k.cv, ghost, c.dt, c.viscosity, c.idx, c.idy, c.idx2, c.idy2, rho_dt,
                 *rb, float(self.n_fluid or 0))
 
+    def _launch_plan(self, device):
+        """The plan's host arrays (solve, carry), the kernel readied for the
+        plan on ``device`` at the first launch (plan.ready_grid)."""
+        if self._plan_ints is None:
+            if self.plan.solve.blocks > self.partials.numel():
+                raise ValueError(f"the plan launches {self.plan.solve.blocks} blocks, the "
+                                 f"partials hold {self.partials.numel()}")
+            ready_grid(self.plan.solve, device, "cfd_whole_step_grid", self.FLAVOR)
+            self._plan_ints = (self.plan.solve.c_ints(), self.plan.carry.c_ints())
+        return self._plan_ints
+
     def kernel(self, *fields):
         us, vs, p = fields[:3]
         us2, vs2, p_out = (torch.empty_like(us) for _ in range(3))
         T2 = torch.empty_like(us) if self.FLAVOR == RB else None
         stats = torch.empty(2, dtype=torch.int32, device=us.device)
-        _, masked, scratch, common = self.solver.launch_args(us)
-        if not self._grid_ready:
-            ready_grid(self.solver.plan, us.device, "cfd_whole_step_grid", self.FLAVOR)
-            self._grid_ready = True
+        solve_ints, carry_ints = self._launch_plan(us.device)
+        _, masked, scratch, common = self.solver.launch_args(us, solve_ints)
         opt = lambda t: t.data_ptr() if t is not None else None
-        io = (ctypes.c_void_p * 11)(
+        io = (ctypes.c_void_p * 9)(
             us.data_ptr(), vs.data_ptr(), p.data_ptr(),
             opt(fields[3] if len(fields) > 3 else None), us2.data_ptr(), vs2.data_ptr(),
-            opt(T2), self.u_scr.data_ptr(), self.v_scr.data_ptr(), self.b.data_ptr(),
-            self.partials.data_ptr())
+            opt(T2), self.b.data_ptr(), self.partials.data_ptr())
         cf = (ctypes.c_float * 15)(*self._coeffs())
         as_ptr = lambda a: ctypes.cast(a, ctypes.c_void_p)
-        self.record(us, self.FLAVOR, as_ptr(io), as_ptr(cf), masked, ptr(p_out), *scratch,
-                    ptr(self.solver.ctl), ptr(stats), *common)
+        self.record(us, self.FLAVOR, as_ptr(io), as_ptr(cf), as_ptr(carry_ints), masked,
+                    ptr(p_out), *scratch, ptr(self.solver.ctl), ptr(stats), *common)
         cycles, res = split_stats(stats)
         outs = (us2, vs2) + ((T2,) if T2 is not None else ())
         return (*outs, p_out, cycles, res)
@@ -193,7 +209,8 @@ class QuadWholeStepCavity(_WholeStep):
     eps-regularised operator is nonsingular), the solve from the guess 2p -
     p_prev with the carry's max|b|."""
 
-    FLAVOR, RECORD, RECORD_BF16 = CAVITY, WHOLE_STEP_CAVITY, WHOLE_STEP_CAVITY_BF16
+    FLAVOR, FLOW = CAVITY, "cavity"
+    RECORD, RECORD_BF16 = WHOLE_STEP_CAVITY, WHOLE_STEP_CAVITY_BF16
 
     def plain(self, us, vs, p, p_prev):
         us2, vs2, b, guess, max_b = self.carry.plain(us, vs, p, p_prev)
@@ -206,7 +223,8 @@ class QuadWholeStepChannel(_WholeStep):
     carry, the interior source mean removal (channel-01.cpp:620-628), the
     solve from the guess 2p - p_prev."""
 
-    FLAVOR, RECORD, RECORD_BF16 = CHANNEL, WHOLE_STEP_CHANNEL, WHOLE_STEP_CHANNEL_BF16
+    FLAVOR, FLOW = CHANNEL, "channel"
+    RECORD, RECORD_BF16 = WHOLE_STEP_CHANNEL, WHOLE_STEP_CHANNEL_BF16
 
     def plain(self, us, vs, p, p_prev):
         us2, vs2, b, guess, sum_b = self.carry.plain(us, vs, p, p_prev)
@@ -220,7 +238,8 @@ class QuadWholeStepRB(_WholeStep):
     removal over the nx * ny cells, the pure-Neumann pinned solve from the
     plain previous p."""
 
-    FLAVOR, RECORD, RECORD_BF16 = RB, WHOLE_STEP_RB, WHOLE_STEP_RB_BF16
+    FLAVOR, FLOW = RB, "rb"
+    RECORD, RECORD_BF16 = WHOLE_STEP_RB, WHOLE_STEP_RB_BF16
 
     def plain(self, us, vs, p, T):
         us2, vs2, T2, b, sum_b = self.carry.plain(us, vs, p, T)
@@ -234,7 +253,8 @@ class QuadWholeStepStep(_WholeStep):
     p; with ``cfg.corr_opt`` the launches count on
     WHOLE_STEP_STEP_CORR_OPT."""
 
-    FLAVOR, RECORD, RECORD_BF16, N_FIELDS = STEP, WHOLE_STEP_STEP, WHOLE_STEP_STEP_BF16, 3
+    FLAVOR, FLOW, N_FIELDS = STEP, "step", 3
+    RECORD, RECORD_BF16 = WHOLE_STEP_STEP, WHOLE_STEP_STEP_BF16
 
     @property
     def record(self) -> Kernel:

@@ -6,11 +6,11 @@ Courant instance (dt_corr = 0.8 dt, dt_pred = 1.1 dt), on seeded inputs.
     python -m cfd_tpu_torch.time_carries TAG [--only 1,1+,10,10+] [--reps 50]
 
 Prints one JSON line per carry, tagged with TAG: ``dev_ms``, the device
-time of one call, is CUDA events around ``--reps`` back-to-back calls
-after a warm-up, divided by the count, with the card held busy
-(torch.cuda._sleep) while the host queues them, so the wrappers' host time
-is not in it (``host_ahead`` says whether the host finished queueing
-first); ``ms``, the wrapper's time, is the median of 20 single calls
+time of one call (cfd_tpu_torch.time_whole_solve.dev_ms: CUDA events
+around ``--reps`` back-to-back calls after a warm-up, divided by the
+count, with the card held busy while the host queues them, so the
+wrappers' host time is not in it; ``host_ahead`` says whether the host
+finished queueing first); ``ms``, the wrapper's time, is the median of 20 single calls
 between CUDA events (chip_smoke.py's ``ms``); ``sum`` is a checksum of the
 source b. The inputs are seeded (cfd_tpu_torch.seeded). Run from the root
 of a checkout, it times that checkout's kernels, so two checkouts timed in
@@ -24,36 +24,14 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import torch
 
-from cfd_tpu_torch.time_whole_solve import FLOWS, make, median_ms
+from cfd_tpu_torch.time_whole_solve import FLOWS, dev_ms, make, median_ms
 
 ROWS = {"1": ("cavity", False), "1+": ("cavity", True), "8a": ("channel", False),
         "8a+": ("channel", True), "9a": ("step", False), "9a+": ("step", True),
         "10": ("rb", False), "10+": ("rb", True)}
-# the card's busy wait while the host queues the timed calls: about 50 ms
-# at the H100's 1.98 GHz
-SLEEP_CYCLES = 100_000_000
-
-
-def dev_ms(fn, reps: int = 50) -> tuple[float, bool]:
-    """(device ms of one call of ``fn``, whether the host queued all
-    ``reps`` calls before the card reached them)."""
-    fn()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    ev[0].record()
-    torch.cuda._sleep(SLEEP_CYCLES)
-    ev[1].record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    ev[2].record()
-    ev[2].synchronize()
-    return ev[1].elapsed_time(ev[2]) / reps, host_ms < ev[0].elapsed_time(ev[1])
 
 
 def carry_of(flow: str, adaptive: bool, case):

@@ -8,7 +8,12 @@ the four fused tails from level 1, each on seeded inputs.
 
 Prints one JSON line per measurement (CUDA-event median of 20 launches, 10
 for a whole step) with its cycles and ms per V-cycle, the launch plan and a
-checksum of the output, tagged with TAG. The inputs are seeded
+checksum of the output, tagged with TAG. A whole step also has its device
+time, ``dev_ms`` (dev_ms below: CUDA events around 50 back-to-back calls
+with the host ahead of the card, so the wrapper's host time is not in it;
+``host_ahead`` says whether it was), and ``carry_dev_ms``, the device time
+of the same call with the solve's max_cycles 0: the carry phases alone
+(the tiles, the source sum and mean removal, their barriers). The inputs are seeded
 (cfd_tpu_torch.seeded, as chip_smoke.py's). Run from the root of a
 checkout, it times that checkout's kernels, so two checkouts timed in
 turns on one card (parent, change, change, parent) give an A/B. Needs a
@@ -18,7 +23,9 @@ CUDA card; it raises without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import time
 
 import numpy as np
 import torch
@@ -51,6 +58,31 @@ def median_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+# the card's busy wait while the host queues the timed calls of dev_ms:
+# about 50 ms at the H100's 1.98 GHz
+SLEEP_CYCLES = 100_000_000
+
+
+def dev_ms(fn, reps: int = 50) -> tuple[float, bool]:
+    """(device ms of one call of ``fn``, whether the host queued all
+    ``reps`` calls before the card reached them): CUDA events around the
+    calls, queued while the card sleeps (torch.cuda._sleep), after a
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    ev[2].synchronize()
+    return ev[1].elapsed_time(ev[2]) / reps, host_ms < ev[0].elapsed_time(ev[1])
+
+
 def make(flow: str, overrides: dict):
     from cfd_tpu_torch import cases
 
@@ -61,7 +93,7 @@ def make(flow: str, overrides: dict):
 
 def plan_of(obj):
     plan = getattr(obj, "plan", None)
-    return None if plan is None else {k: v for k, v in vars(plan).items()}
+    return None if plan is None else dataclasses.asdict(plan)
 
 
 def main(argv=None) -> int:
@@ -95,8 +127,13 @@ def main(argv=None) -> int:
             f = seeded_fields(case, 17)
             cycles = int(ws.kernel(*f)[-2])
             ms = median_ms(lambda: ws.kernel(*f), reps=10)
+            d, ahead = dev_ms(lambda: ws.kernel(*f))
+            cfg, ws.solver.cfg = ws.solver.cfg, dataclasses.replace(ws.solver.cfg, max_cycles=0)
+            carry, carry_ahead = dev_ms(lambda: ws.kernel(*f))
+            ws.solver.cfg = cfg
             out(kind="whole_step", flow=flow, cycles=cycles, ms=ms, ms_per_cycle=ms / cycles,
-                plan=plan_of(ws.solver))
+                dev_ms=d, host_ahead=ahead, carry_dev_ms=carry,
+                carry_host_ahead=carry_ahead, plan=plan_of(ws))
             del case, ws
     if "tail" in what:
         from cfd_tpu_torch.kernels.mg_tail import level_masks

@@ -21,7 +21,7 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
    of 20 launches; each carry (rows 1, 8a, 9a, 10 in phases 2, 5, 8, 11,
    their traced-dt instances in phase 14) also has its device time,
    ``dev_ms``: CUDA events around 50 back-to-back calls with the card held
-   busy while the host queues them (cfd_tpu_torch.time_carries.dev_ms).
+   busy while the host queues them (cfd_tpu_torch.time_whole_solve.dev_ms).
    Then the launch plan of the cavity's f32 whole-solve at 2048^2: its grid
    levels (tiled or grid-stride), the levels in one block, the finest
    level's tile and halos, its shared memory, blocks and block size, and
@@ -118,10 +118,13 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
     channel at 256x128, the step at 512x64 and RB at 256x128 (lagged): the
     same dt every step, equal cycles, fields within 5e-5 relative.
 17. The whole time step in one launch (mg_overrides whole_step=True) at
-    the full widths of phases 3, 6, 9 and 12: each flavor's kernel against
-    its twin (the composition carry -> mean removal -> whole-solve twin)
-    on seeded fields: bit-identical fields, equal cycles and residual;
-    CUDA-event medians of 10 launches (the twin's of 3), the bound.
+    the full widths of phases 3, 6, 9 and 12: each flavor's launch plan
+    (the carry's tiles, blocks, registers, shared memory, the grid barriers
+    of the carry and of a V-cycle), its kernel against its twin (the
+    composition carry -> mean removal -> whole-solve twin) on seeded
+    fields: bit-identical fields, equal cycles and residual; CUDA-event
+    medians of 10 launches (the twin's of 3), the device time (``dev_ms``
+    as in phase 2), the bound.
 18. 300 steps of each flow with whole_step at the full widths, in chunks
     of 100, the counters zeroed just before: 300 launches of the flavor's
     kernel (the corrector runs only at the stats rows), the cycles of the
@@ -370,7 +373,10 @@ REDESIGNED = {"quad_corr_predictor_source": "row 1",
               "quad_channel_corr_predictor_source_adaptive": "row 8a+",
               "quad_step_corr_predictor_source": "row 9a",
               "quad_step_corr_predictor_source_adaptive": "row 9a+", "quad_rb_step": "row 10",
-              "quad_rb_step_adaptive": "row 10+"}
+              "quad_rb_step_adaptive": "row 10+",
+              **{f"quad_whole_step_{flow}{v}": "row 15" for flow in ("cavity", "channel",
+                                                                     "rb", "step")
+                 for v in ("", "_bf16")}, "quad_whole_step_step_corr_opt": "row 15"}
 
 T0 = time.perf_counter()
 
@@ -442,10 +448,10 @@ def bit_identical(name: str, errs: list) -> None:
 
 
 def carry_dev_ms(fn) -> float:
-    """A carry's device ms a call (cfd_tpu_torch.time_carries.dev_ms: CUDA
-    events around 50 back-to-back calls, the card busy while the host
+    """A kernel's device ms a call (cfd_tpu_torch.time_whole_solve.dev_ms:
+    CUDA events around 50 back-to-back calls, the card busy while the host
     queues them); raises if the host fell behind."""
-    from cfd_tpu_torch.time_carries import dev_ms
+    from cfd_tpu_torch.time_whole_solve import dev_ms
 
     ms, ahead = dev_ms(fn)
     if not ahead:
@@ -1246,6 +1252,23 @@ def check_cavity_whole_solve(case, dev) -> dict:
                 **bound(n_bytes, ck * solve_ops_per_cycle(ws, cells) + cells))
 
 
+def log_whole_step_plan(ws) -> None:
+    """Print a whole step's launch plan (kernels/plan.py whole_step_plan):
+    the carry's tiles and how many rounds of them the blocks run, the
+    blocks, registers and shared memory, and the grid-wide barriers of the
+    carry phases and of a V-cycle."""
+    from cfd_tpu_torch.kernels.whole_step import launch_grid
+
+    pl = ws.plan
+    c, g = pl.carry, launch_grid(ws.FLAVOR, pl.solve)
+    tiles = c.grid_x * c.grid_y
+    log(f"  {ws.record.name} plan: carry tiles {c.rows}x{c.cols} plane cells, halo {c.halo}, "
+        f"{tiles} tiles ({tiles / pl.solve.blocks:.2f} rounds); {pl.solve.blocks} blocks x "
+        f"{pl.solve.threads} threads ({g['blocks_per_sm']} fit an SM, {g['registers']} "
+        f"registers/thread); {pl.solve.smem_bytes} B shared memory (carry {c.smem_bytes}); "
+        f"grid barriers: carry {pl.carry_barriers}, a V-cycle {pl.solve.barriers}")
+
+
 def check_whole_steps(cases: dict) -> dict:
     """Phase 17: each flavor's whole-step kernel against its twin (the
     composition carry -> mean removal -> whole-solve twin) at the full
@@ -1270,6 +1293,8 @@ def check_whole_steps(cases: dict) -> dict:
         if got[-2:] != want[-2:]:
             raise AssertionError(f"{ws.record.name}: (cycles, res) {got[-2:]} against the "
                                  f"twin's {want[-2:]}")
+        bit_identical(ws.record.name, errs)
+        log_whole_step_plan(ws)
         cells = case.grid.n_fluid
         carry_ops = CORRECTOR_OPS + PREDICTOR_SOURCE_OPS + (
             TEMPERATURE_OPS + BUOYANCY_OPS if flow == "rb" else 0)
@@ -1278,6 +1303,7 @@ def check_whole_steps(cases: dict) -> dict:
         n_bytes = nbytes(*fields, *got[:-2], ws.solver.mg.pinv)
         results[ws.record.name] = dict(
             err=max(errs), ms=median_ms(lambda: ws.kernel(*fields), reps=10),
+            dev_ms=carry_dev_ms(lambda: ws.kernel(*fields)),
             plain_ms=median_ms(lambda: ws.plain(*fields), reps=3), cycles=got[-2],
             bound_bytes_ms=n_bytes / PEAK_BYTES_S * 1e3,
             bound_ops_ms_per_cycle=solve_ops_per_cycle(ws.solver, cells) / PEAK_F32_S * 1e3,
@@ -2872,7 +2898,7 @@ def main() -> int:
                 for flow, (make, kw, _, _) in full.items()}
     ws_checks = check_whole_steps(ws_cases)
     for k, r in ws_checks.items():
-        log(f"  {k:36s} kernel {r['ms']:.4f} ms ({r['cycles']} V-cycles)  plain "
+        log(f"  {k:36s} kernel {r['ms']:.4f} ms{dev_note(r)} ({r['cycles']} V-cycles)  plain "
             f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}; bytes "
             f"{r['bound_bytes_ms']:.4f} ms a step, operations {r['bound_ops_ms_per_cycle']:.4f}"
             f" ms a V-cycle)  ({card})")
@@ -2953,7 +2979,8 @@ def main() -> int:
         ws_record = ws_case.whole_step_kernel.record
         r = check_whole_steps({flow: ws_case})[ws_record.name]
         checks[ws_record.name] = r
-        log(f"  {ws_record.name}: kernel {r['ms']:.4f} ms ({r['cycles']} V-cycles)  plain "
+        log(f"  {ws_record.name}: kernel {r['ms']:.4f} ms{dev_note(r)} ({r['cycles']} "
+            f"V-cycles)  plain "
             f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
         got, state, whole = run_path(case, 300, (*solve_paths[flow], record),
                                      f"{flow} bf16 whole-solve", card, flow_rate)
@@ -2986,7 +3013,8 @@ def main() -> int:
                                        **st_kw)
     r = check_whole_steps({"step": ws_case})[WST.WHOLE_STEP_STEP_CORR_OPT.name]
     checks[WST.WHOLE_STEP_STEP_CORR_OPT.name] = r
-    log(f"  {WST.WHOLE_STEP_STEP_CORR_OPT.name}: kernel {r['ms']:.4f} ms ({r['cycles']} "
+    log(f"  {WST.WHOLE_STEP_STEP_CORR_OPT.name}: kernel {r['ms']:.4f} ms{dev_note(r)} "
+        f"({r['cycles']} "
         f"V-cycles)  plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']})  ({card})")
     step_rate = full["step"][3]

@@ -1,9 +1,11 @@
 """The whole time step in one cooperative launch (csrc/whole_step.cu) on the
 card, for the four flavors: each kernel against its plain twin (the port's
 own composition carry -> mean removal -> whole-solve twin) at a small and at
-the full width, whole_step on against off over 20 steps, the card against
-the CPU over 20 steps, the fresh (cycles, res) of every call, and one launch
-a step.
+the full width, under two carry tiles besides the default at the full width
+(kernels/plan.py whole_step_plan's ``tile``; the walk's last round of tiles
+partial) and at a size whose every tile touches a wall, whole_step on
+against off over 20 steps, the card against the CPU over 20 steps, the
+fresh (cycles, res) of every call, and one launch a step.
 
 Every test needs a CUDA card and skips without one. The file imports no
 jax, so on a machine without JAX it runs on its own:
@@ -27,6 +29,7 @@ from cfd_tpu_torch.cases import (
 )
 from cfd_tpu_torch.convert import state_from_numpy
 from cfd_tpu_torch.kernels import KERNELS
+from cfd_tpu_torch.kernels import plan as PL
 from cfd_tpu_torch.kernels import whole_step as WS
 from cfd_tpu_torch.solver import Simulation
 
@@ -45,6 +48,12 @@ FLOWS = {
                                                            abs_tol=0.0),
              {"small": (512, 64), "full": (2048, 256)}, WS.WHOLE_STEP_STEP),
 }
+# sizes at which every carry tile's staged box reaches a wall, a ghost row
+# or column or the array's edge (the tiles' ghost-aware path)
+WALLS = {"cavity": (32,), "channel": (64, 32), "rb": (48, 16), "step": (64, 16)}
+# carry tiles besides the default (plane rows, columns): ragged at the full
+# widths, and their counts leave the blocks' last round partial
+TILES = [(6, 24), (12, 40)]
 
 
 @pytest.fixture
@@ -56,8 +65,34 @@ def cuda_device():
 
 def _case(flow, size, device, **ov):
     make, kw, sizes, _ = FLOWS[flow]
-    return make(dtype=torch.float32, device=device, print_interval=20,
-                **kw(*sizes[size]), **ov)
+    dims = WALLS[flow] if size == "walls" else sizes[size]
+    return make(dtype=torch.float32, device=device, print_interval=20, **kw(*dims), **ov)
+
+
+def _holds_twin(ws, fields):
+    """One launch of ``ws`` bit-identical to its twin, equal cycles and res."""
+    got = ws.kernel(*fields)
+    torch.cuda.synchronize()
+    want = ws.plain(*fields)
+    assert int(got[-2]) == int(want[-2])
+    assert float(got[-1]) == float(want[-1])
+    for a, b in zip(got[:-2], want[:-2], strict=True):
+        assert torch.equal(a, b)
+
+
+def _touches_wall(plan: PL.CarryPlan, qshape, ny: int, nx: int) -> bool:
+    """Whether every tile's staged box (its own cells and the halo, in
+    logical rows and columns) reaches row 0 or ny + 1, column 0 or nx + 1,
+    or the array's edge."""
+    _, Hq8, Wqa = qshape
+    for ty in range(plan.grid_y):
+        for tx in range(plan.grid_x):
+            r0, r1 = 2 * (ty * plan.rows - plan.halo), 2 * ((ty + 1) * plan.rows + plan.halo)
+            c0, c1 = 2 * (tx * plan.cols - plan.halo), 2 * ((tx + 1) * plan.cols + plan.halo)
+            inside = r0 >= 1 and r1 - 1 <= ny and c0 >= 1 and c1 - 1 <= nx
+            if inside and r1 <= 2 * Hq8 and c1 <= 2 * Wqa:
+                return False
+    return True
 
 
 def _fields(case, seed):
@@ -94,6 +129,30 @@ def test_whole_step_kernel_matches_twin(cuda_device, flow, size):
     assert float(got[-1]) == float(want[-1])
     for a, b in zip(got[:-2], want[:-2], strict=True):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("flow", sorted(FLOWS))
+def test_whole_step_carry_tiles_match_twin(cuda_device, flow, tile):
+    case = _case(flow, "full", cuda_device, mg_overrides={"whole_step": True})
+    ws = case.whole_step_kernel
+    ws.plan = PL.whole_step_plan(ws.FLOW, ws.solver.plan, ws.qshape, tile=tile)
+    c = ws.plan.carry
+    assert (c.rows, c.cols) == tile
+    tiles = [PL.whole_step_plan(ws.FLOW, ws.solver.plan, ws.qshape, tile=t).carry
+             for t in TILES]
+    assert any((p.grid_x * p.grid_y) % ws.plan.solve.blocks for p in tiles)
+    _holds_twin(ws, _fields(case, seed=29))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flow", sorted(FLOWS))
+def test_whole_step_every_tile_on_a_wall_matches_twin(cuda_device, flow):
+    case = _case(flow, "walls", cuda_device, mg_overrides={"whole_step": True})
+    ws = case.whole_step_kernel
+    assert _touches_wall(ws.plan.carry, ws.qshape, case.grid.ny, case.grid.nx)
+    _holds_twin(ws, _fields(case, seed=31))
 
 
 @pytest.mark.cuda
