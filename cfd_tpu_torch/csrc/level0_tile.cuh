@@ -1,0 +1,430 @@
+// The finest multigrid level in shared-memory tiles: the block-level
+// loops, the tile machinery (a tile's buffers, their loads and stores, the
+// level-1 correction's tile and its prolongation) and the backward step's
+// exact masked arithmetic on a tile, with the bodies of its pre and post
+// kernels on one tile. Shared by the whole-solve (whole_solve.cuh: every
+// tile of a whole field inside its cooperative grid, the separable level
+// too) and the step's standalone finest-level kernels (step_vcycle.cu: one
+// tile a block, on a whole field or a shard's local block), so that the
+// two run the same bodies.
+//
+// A tile is the block's own plane rows [R0, R0 + rows) x columns [C0, C0 +
+// cols) of all four planes, loaded with a halo of h plane rows and columns
+// into shared memory as a LOGICAL (2 (rows + 2h)) x (2 (cols + 2h)) array
+// (logical cell (j, i) of the quad layout at local (j - oj, i - oi), j the
+// global row); a position outside the array reads 0, as qld's. Stage s of
+// a phase (from 0) updates the local cells [s + 1, LR - s - 1) x [s + 1,
+// LC - s - 1) from stage s - 1's values, so after s + 1 stages the cells
+// at least s + 1 from the buffer's edge hold exactly what the per-cell
+// kernels compute there: every stage reads only the 3 x 3 box around a
+// cell (the masked ghost stage included, step_level0.cuh). The halo is as
+// deep as the stages need (kernels/plan.py halos); the tile writes its own
+// cells only.
+//
+// Local blocks (kBlock; the shard kernels of row 16f, step_level0.cuh): the
+// arrays are a shard's (4, P + 16, Wqa) block at global plane row row0, so
+// j is global in every mask, ghost and interface test; stage ``lo`` of the
+// ledger writes only the rows of its band (step_in_band), a cell outside
+// the band keeping its input; a position outside the block stays 0 (no
+// band reaches it, and the prolongation adds nothing there); a residual
+// outside the block is 0; and the level-1 correction's row Hq8 of the
+// coarse tile reads the block's row 0 (the wrap of quad_prolong_corr, the
+// TPU kernel's roll). The whole-field instances (kBlock false) fold the
+// offset, the bands and the wrap away at compile time.
+#pragma once
+
+#include "common.cuh"
+#include "step_level0.cuh"
+
+namespace cfd {
+namespace ws {
+
+// ------------------------------------------------------- block-level loops
+
+// f(j, i) on rows [r0, r1) x columns [c0, c1): warps over rows, lanes over
+// columns
+template <class F>
+__device__ __forceinline__ void each_cell(int r0, int r1, int c0, int c1, F f) {
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int nw = static_cast<int>(blockDim.x) >> 5;
+  for (int j = r0 + (static_cast<int>(threadIdx.x) >> 5); j < r1; j += nw) {
+    for (int i = c0 + lane; i < c1; i += 32) f(j, i);
+  }
+}
+
+// An update of one cell: whether it is written, and its value
+struct Upd {
+  bool on;
+  float v;
+};
+
+// out[j * pitch + i] = f(j, i).v where f(j, i).on, over the cells of
+// `colour` ((j + i) & 1; every cell if colour < 0) of rows [r0, r1) x
+// columns [c0, c1): warps over rows, two cells a lane at a time, both
+// values computed before either is stored. f may read out: no cell an
+// update reads is one that the same pass writes (a red/black sweep's
+// other colour, a pointwise update's own cell).
+template <class F>
+__device__ __forceinline__ void update2(float* out, int pitch, int r0, int r1, int c0, int c1,
+                                        int colour, F f) {
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int nw = static_cast<int>(blockDim.x) >> 5;
+  const int step = colour < 0 ? 32 : 64;
+  for (int j = r0 + (static_cast<int>(threadIdx.x) >> 5); j < r1; j += nw) {
+    const int first = colour < 0 ? c0 + lane : c0 + ((j + c0 + colour) & 1) + 2 * lane;
+    for (int i = first; i < c1; i += 2 * step) {
+      const int i2 = i + step;
+      const Upd a = f(j, i);
+      const Upd b = i2 < c1 ? f(j, i2) : Upd{false, 0.f};
+      if (a.on) out[j * pitch + i] = a.v;
+      if (b.on) out[j * pitch + i2] = b.v;
+    }
+  }
+}
+
+// dst[j * dp + i] = src(j, i) on rows [0, rows) x columns [0, cols): warps
+// over rows, each lane's four columns 32 apart loaded before they are
+// stored, so four loads are in flight a thread
+template <class Src>
+__device__ __forceinline__ void copy_rect(float* dst, int dp, int rows, int cols, Src src) {
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int nw = static_cast<int>(blockDim.x) >> 5;
+  for (int j = static_cast<int>(threadIdx.x) >> 5; j < rows; j += nw) {
+    for (int i0 = lane; i0 < cols; i0 += 128) {
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = i0 + 32 * u < cols ? src(j, i0 + 32 * u) : 0.f;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (i0 + 32 * u < cols) dst[j * dp + i0 + 32 * u] = v[u];
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ the tiles
+
+struct Tile {
+  int R0, C0, rows, cols, h;
+  int oj, oi;  // the global logical origin of the buffers
+  int LR, LC;  // the buffers' logical rows and columns
+  int row0;    // the array's global plane row of its row 0 (a local block's)
+};
+
+// tile t (row-major) of the tiles of tile_rows x tile_cols plane cells
+// over an array of Wqa plane columns at global plane row row0
+__device__ inline Tile make_tile(int tile_rows, int tile_cols, int Wqa, int t, int h,
+                                 int row0 = 0) {
+  const int ncol = (Wqa + tile_cols - 1) / tile_cols;
+  Tile T;
+  T.R0 = (t / ncol) * tile_rows;
+  T.C0 = (t % ncol) * tile_cols;
+  T.rows = tile_rows;
+  T.cols = tile_cols;
+  T.h = h;
+  T.oj = 2 * (T.R0 - h + row0);
+  T.oi = 2 * (T.C0 - h);
+  T.LR = 2 * (T.rows + 2 * h);
+  T.LC = 2 * (T.cols + 2 * h);
+  T.row0 = row0;
+  return T;
+}
+
+__device__ inline int tile_count(int tile_rows, int tile_cols, int Hq8, int Wqa) {
+  return ((Hq8 + tile_rows - 1) / tile_rows) * ((Wqa + tile_cols - 1) / tile_cols);
+}
+
+// buf_a, buf_b = the tile's region of quad fields a, b in the logical
+// layout (all four planes' loads of a cell issued together)
+__device__ inline void load_tile(const float* a, const float* b, const Tile& T, int Hq8, int Wqa,
+                                 float* buf_a, float* buf_b) {
+  const long long plane = static_cast<long long>(Hq8) * Wqa;
+  each_cell(0, T.rows + 2 * T.h, 0, T.cols + 2 * T.h, [&](int r, int c) {
+    const int gr = T.R0 - T.h + r, gc = T.C0 - T.h + c;
+    const bool in = gr >= 0 && gr < Hq8 && gc >= 0 && gc < Wqa;
+    const long long g = static_cast<long long>(gr) * Wqa + gc;
+    float va[4], vb[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      va[q] = in ? a[q * plane + g] : 0.f;
+      vb[q] = in ? b[q * plane + g] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = (2 * r + (q >> 1)) * T.LC + 2 * c + (q & 1);
+      buf_a[k] = va[q];
+      buf_b[k] = vb[q];
+    }
+  });
+}
+
+// the tile's own cells of buf into quad field dst
+__device__ inline void store_tile(const float* buf, const Tile& T, int Hq8, int Wqa, float* dst) {
+  const long long plane = static_cast<long long>(Hq8) * Wqa;
+  each_cell(T.R0, min(T.R0 + T.rows, Hq8), T.C0, min(T.C0 + T.cols, Wqa), [&](int gr, int gc) {
+    const int r = gr - T.R0 + T.h, c = gc - T.C0 + T.h;
+    const long long g = static_cast<long long>(gr) * Wqa + gc;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      dst[q * plane + g] = buf[(2 * r + (q >> 1)) * T.LC + 2 * c + (q & 1)];
+    }
+  });
+}
+
+// The level-1 correction rows [R0 - h, R0 + rows + h] x columns [C0 - h, C0
+// + cols + h] of aligned (Hq8, Wqa) array ec, the rows and columns the
+// tile's prolongation reads, read at the global coarse row J
+struct CoarseTile {
+  const float* e;
+  int J0, I0, pitch;
+  __device__ __forceinline__ float operator()(int J, int I) const {
+    return e[(J - J0) * pitch + (I - I0)];
+  }
+};
+
+// kWrap (a local block): the array's row Hq8 is its row 0, as
+// quad_prolong_corr's (Jl + 1) % Hq8; elsewhere a row outside the array
+// reads 0 (no fluid cell of a whole field reads one)
+template <bool kWrap = false>
+__device__ inline CoarseTile load_coarse_tile(const float* ec, const Tile& T, int Hq8, int Wqa,
+                                              float* buf) {
+  const int rows = T.rows + 2 * T.h + 1, cols = T.cols + 2 * T.h + 1;
+  copy_rect(buf, cols, rows, cols, [&](int r, int c) {
+    int J = T.R0 - T.h + r;
+    if (kWrap && J == Hq8) J = 0;
+    const int I = T.C0 - T.h + c;
+    return (J >= 0 && J < Hq8 && I >= 0 && I < Wqa) ? ec[static_cast<long long>(J) * Wqa + I]
+                                                    : 0.f;
+  });
+  return CoarseTile{buf, T.R0 - T.h + T.row0, T.C0 - T.h, cols};
+}
+
+// quad_prolong_corr's arithmetic at logical (j, i) from a coarse tile: the
+// 9-3-3-1 prolongation of the level-1 correction with the edge clamps on
+// J = 0, J = ny/2, I = 0, I = nx/2 (a cell of the interior reads rows J,
+// J + 1 and columns I, I + 1, all in the tile)
+__device__ __forceinline__ float tile_prolong_corr(const CoarseTile& E, int j, int i, int ny,
+                                                   int nx) {
+  const int r = j & 1, s = i & 1, J = j >> 1, I = i >> 1;
+  const int nyc = ny / 2, nxc = nx / 2;
+  auto rowmix = [&](int col) {
+    const float e0 = E(J, col);
+    const float e1 = E(J + 1, col);
+    const float ecJ0 = (J == 0) ? e1 : e0;
+    const float ecJ1 = (J == nyc) ? e0 : e1;
+    return r == 0 ? 0.75f * ecJ0 + 0.25f * ecJ1 : 0.25f * ecJ0 + 0.75f * ecJ1;
+  };
+  const float rm = rowmix(I);
+  const float rm1 = rowmix(I + 1);
+  const float m0 = (I == 0) ? rm1 : rm;
+  const float m1 = (I == nxc) ? rm : rm1;
+  return s == 0 ? 0.75f * m0 + 0.25f * m1 : 0.25f * m0 + 0.75f * m1;
+}
+
+// A logical buffer of a tile read at global logical (j, i)
+struct TileView {
+  const float* a;
+  int oj, oi, LC;
+  __device__ __forceinline__ float operator()(int j, int i) const {
+    return a[(j - oj) * LC + (i - oi)];
+  }
+};
+
+// ------------------------------------- the masked finest level (step_level0.cuh)
+
+// the ghost stage's output at (j, i) from its input src (step_level0.cuh;
+// step_quad.py:270-302)
+template <class A>
+__device__ __forceinline__ float t_ghost(const A& src, int j, int i, const cfd::StepL0& L) {
+  const bool row_in = j >= 1 && j <= L.ny, col_in = i >= 1 && i <= L.nx;
+  if (i == 0 && row_in) return src(j, 1);
+  if (i == L.nx + 1 && row_in) return 0.f;
+  if (j == 0 && col_in) return src(1, i);
+  if (j == L.ny + 1 && col_in) return src(L.ny, i);
+  if (row_in && col_in && i <= L.step_i && j > L.inlet_j) {
+    const bool eastw = i == L.step_i && i < L.nx;
+    const bool southw = j == L.inlet_j + 1 && j > 1;
+    if (eastw || southw) {
+      const float cnt = (eastw ? 1.0f : 0.0f) + (southw ? 1.0f : 0.0f);
+      const float inv = 1.0f / cnt;
+      return ((eastw ? src(j, i + 1) : 0.0f) + (southw ? src(j - 1, i) : 0.0f)) * inv;
+    }
+  }
+  return src(j, i);
+}
+
+// the value at (j, i) after ghost stage ``lo`` of src: its output in the
+// band, its input outside
+template <bool kBlock, class A>
+__device__ __forceinline__ float t_banded_ghost(const A& src, int j, int i, int lo,
+                                                const cfd::StepL0& L) {
+  if (cfd::step_in_band<kBlock>(j, lo, L)) return t_ghost(src, j, i, L);
+  return src(j, i);
+}
+
+// ghost stage ``lo`` then the red half-sweep ``lo + 1`` at (j, i): a red
+// fluid cell's Gauss-Seidel update from the ghosted src, every other cell
+// its ghosted value. Red = (i + j) even. The update is (1 - omega)*p +
+// omega*gs, gs = (idx2*(E + W) + idy2*(N + S) - b) / denom
+// (multigrid.py:995-999), a true division as the twin's.
+template <bool kBlock, class A>
+__device__ __forceinline__ float t_ghost_red(const A& src, const A& b, int j, int i,
+                                             const cfd::StepL0& L, int lo) {
+  const bool red = ((j + i) & 1) == 0;
+  if (!(red && cfd::step_fluid(j, i, L) && cfd::step_in_band<kBlock>(j, lo + 1, L)))
+    return t_banded_ghost<kBlock>(src, j, i, lo, L);
+  const float E = t_banded_ghost<kBlock>(src, j, i + 1, lo, L);
+  const float Wv = t_banded_ghost<kBlock>(src, j, i - 1, lo, L);
+  const float N = t_banded_ghost<kBlock>(src, j + 1, i, lo, L);
+  const float S = t_banded_ghost<kBlock>(src, j - 1, i, lo, L);
+  const float gs = (L.idx2 * (E + Wv) + L.idy2 * (N + S) - b(j, i)) / L.denom;
+  return L.one_minus_omega * src(j, i) + L.omega * gs;
+}
+
+// the exact residual at (j, i): ghost stage ``lo`` re-applied to p, then b
+// - lap on fluid cells, 0 elsewhere and outside a block
+// (step_quad.py:339-351)
+template <bool kBlock, class A>
+__device__ __forceinline__ float t_step_residual(const A& p, const A& b, int j, int i,
+                                                 const cfd::StepL0& L, int lo) {
+  if (!cfd::step_fluid(j, i, L)) return 0.f;
+  if constexpr (kBlock) {
+    const int jl = j - 2 * L.row0;
+    if (jl < 0 || jl >= 2 * L.Hq8) return 0.f;
+  }
+  const float pc = t_banded_ghost<kBlock>(p, j, i, lo, L);
+  const float E = t_banded_ghost<kBlock>(p, j, i + 1, lo, L);
+  const float Wv = t_banded_ghost<kBlock>(p, j, i - 1, lo, L);
+  const float N = t_banded_ghost<kBlock>(p, j + 1, i, lo, L);
+  const float S = t_banded_ghost<kBlock>(p, j - 1, i, lo, L);
+  const float lap = (E - 2.0f * pc + Wv) * L.idx2 + (N - 2.0f * pc + S) * L.idy2;
+  return b(j, i) - lap;
+}
+
+// out = stage s of in on the cells s + 1 from the buffer's edge
+template <class F>
+__device__ inline void tile_stage(float* out, const Tile& T, int s, F f) {
+  update2(out, T.LC, s + 1, T.LR - s - 1, s + 1, T.LC - s - 1, -1,
+          [&](int lj, int li) { return Upd{true, f(T.oj + lj, T.oi + li)}; });
+  __syncthreads();
+}
+
+// n_pairs exact masked pairs and the trailing ghost stage on the tile, the
+// ledger's stage k (from shift + 1) on the band k; *a holds the iterate
+// before and after, *o is the second buffer. Returns the ledger count of
+// the trailing ghost stage (the residual's ghost stage is the next one).
+template <bool kBlock>
+__device__ inline int step_pairs(float** a, float** o, const float* b, const Tile& T,
+                                 const cfd::StepL0& L, int n_pairs, int shift) {
+  const TileView bv{b, T.oj, T.oi, T.LC};
+  int s = 0, k = shift;
+  for (int pair = 0; pair < n_pairs; ++pair) {
+    const TileView av{*a, T.oj, T.oi, T.LC};
+    tile_stage(*o, T, s++,
+               [&](int j, int i) { return t_ghost_red<kBlock>(av, bv, j, i, L, k + 1); });
+    float* t = *a;
+    *a = *o;
+    *o = t;
+    float* p = *a;
+    const TileView pv{p, T.oj, T.oi, T.LC};
+    update2(p, T.LC, s + 1, T.LR - s - 1, s + 1, T.LC - s - 1, 1, [&](int lj, int li) {
+      const int j = T.oj + lj, i = T.oi + li;
+      if (!(cfd::step_fluid(j, i, L) && cfd::step_in_band<kBlock>(j, k + 3, L)))
+        return Upd{false, 0.f};
+      const float E = pv(j, i + 1), Wv = pv(j, i - 1);
+      const float N = pv(j + 1, i), S = pv(j - 1, i);
+      const float gs = (L.idx2 * (E + Wv) + L.idy2 * (N + S) - bv(j, i)) / L.denom;
+      return Upd{true, L.one_minus_omega * p[lj * T.LC + li] + L.omega * gs};
+    });
+    ++s;
+    k += 3;
+    __syncthreads();
+  }
+  const TileView av{*a, T.oj, T.oi, T.LC};
+  tile_stage(*o, T, s, [&](int j, int i) { return t_banded_ghost<kBlock>(av, j, i, k + 1, L); });
+  float* t = *a;
+  *a = *o;
+  *o = t;
+  return k + 1;
+}
+
+// The floats of the three logical buffers the masked bodies stage (the
+// iterate, its second buffer, the source); the post body's coarse tile
+// follows them
+__device__ __forceinline__ int step_tile_floats(const Tile& T) { return 3 * T.LR * T.LC; }
+
+// The pre body on tile T from shared memory buf: n_pairs exact pairs and
+// the trailing ghost stage from src (ledger stages 1..), the result into
+// dst (own cells), then rc(idx, v) with the exact residual's full
+// weighting at each own coarse cell idx of the (Hq8, Wqa) level-1 array:
+// 0.25 * the four residuals of its children on the coarse interior (the
+// global coarse row Jc), else 0. Every thread of the block calls it.
+template <bool kBlock, class Rc>
+__device__ inline void step_pre_tile(const Tile& T, const float* src, const float* b0, float* dst,
+                                     const cfd::StepL0& L, int n_pairs, float* buf, Rc rc) {
+  float* a = buf;
+  float* o = a + T.LR * T.LC;
+  float* b = o + T.LR * T.LC;
+  load_tile(src, b0, T, L.Hq8, L.Wqa, a, b);
+  __syncthreads();
+  const int lo = step_pairs<kBlock>(&a, &o, b, T, L, n_pairs, 0) + 1;
+  store_tile(a, T, L.Hq8, L.Wqa, dst);
+  const TileView av{a, T.oj, T.oi, T.LC}, bv{b, T.oj, T.oi, T.LC};
+  each_cell(T.R0, min(T.R0 + T.rows, L.Hq8), T.C0, min(T.C0 + T.cols, L.Wqa),
+            [&](int Jl, int Ic) {
+              const int Jc = Jl + (kBlock ? T.row0 : 0);
+              float v = 0.f;
+              if (Jc >= 1 && Jc <= L.ny / 2 && Ic >= 1 && Ic <= L.nx / 2) {
+                const int j = 2 * Jc, i = 2 * Ic;
+                v = 0.25f * (t_step_residual<kBlock>(av, bv, j, i, L, lo) +
+                             t_step_residual<kBlock>(av, bv, j, i - 1, L, lo) +
+                             t_step_residual<kBlock>(av, bv, j - 1, i, L, lo) +
+                             t_step_residual<kBlock>(av, bv, j - 1, i - 1, L, lo));
+              }
+              rc(static_cast<long long>(Jl) * L.Wqa + Ic, v);
+            });
+  __syncthreads();
+}
+
+// The post body on tile T from shared memory buf: the prolong-add of the
+// solid-filled level-1 correction ec on the fluid cells of the array
+// (step_quad.py:470), n_pairs exact pairs and the trailing ghost
+// stage (ledger stages 2..: the bands start one row further in), the
+// result into dst (own cells); returns r folded with the max |exact
+// residual| over the tile's own cells (of a block's own rows [halo, Hq8 -
+// halo)). Every thread of the block calls it.
+template <bool kBlock>
+__device__ inline float step_post_tile(const Tile& T, const float* src, const float* b0,
+                                       const float* ec, float* dst, const cfd::StepL0& L,
+                                       int n_pairs, float* buf, float r) {
+  float* a = buf;
+  float* o = a + T.LR * T.LC;
+  float* b = o + T.LR * T.LC;
+  load_tile(src, b0, T, L.Hq8, L.Wqa, a, b);
+  const CoarseTile E = load_coarse_tile<kBlock>(ec, T, L.Hq8, L.Wqa, buf + step_tile_floats(T));
+  __syncthreads();
+  update2(a, T.LC, 0, T.LR, 0, T.LC, -1, [&](int lj, int li) {
+    const int j = T.oj + lj, i = T.oi + li;
+    if (!cfd::step_fluid(j, i, L)) return Upd{false, 0.f};
+    const int J = (j >> 1) - T.row0;  // the array's plane row
+    if (kBlock && (J < 0 || J >= L.Hq8)) return Upd{false, 0.f};
+    return Upd{true, a[lj * T.LC + li] + tile_prolong_corr(E, j, i, L.ny, L.nx)};
+  });
+  __syncthreads();
+  const int lo = step_pairs<kBlock>(&a, &o, b, T, L, n_pairs, 1) + 1;
+  store_tile(a, T, L.Hq8, L.Wqa, dst);
+  const TileView av{a, T.oj, T.oi, T.LC}, bv{b, T.oj, T.oi, T.LC};
+  each_cell(2 * T.h, 2 * (T.h + T.rows), 2 * T.h, 2 * (T.h + T.cols), [&](int lj, int li) {
+    const int j = T.oj + lj, i = T.oi + li;
+    const int J = (j >> 1) - (kBlock ? T.row0 : 0);
+    const bool own = kBlock ? J >= L.halo && J < L.Hq8 - L.halo : J < L.Hq8;
+    if (own && (i >> 1) < L.Wqa) {
+      r = cfd::bits_max(r, fabsf(t_step_residual<kBlock>(av, bv, j, i, L, lo)));
+    }
+  });
+  __syncthreads();
+  return r;
+}
+
+}  // namespace ws
+}  // namespace cfd

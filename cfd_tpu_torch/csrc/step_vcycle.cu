@@ -29,175 +29,198 @@
 // outputs. A whole field is halo 0 and row_base 0: every row in every band,
 // and its instances fold the offset away at compile time (kBlock).
 //
-// Bound on the H100: device-memory bytes and, at 2048x256 (2.5 MB quad
-// fields, all in L2), launch latency: a V(1,2) cycle is 10 launches of a
-// few microseconds each; a shard's block at 2048x256 on 4 shards (0.55 MB)
-// is launch-bound outright.
+// Bound on the H100: at 2048x256 (2.5 MB quad fields, all in L2) and on a
+// shard's block (0.55 MB) the latency of the launches and of the stages'
+// dependent passes, far above the bytes' bound: each call reads p, b (and
+// ec) and writes p and rc (or one float) once.
 //
-// Design (step_level0.cuh): a ghost stage reads one array and writes
-// another, so each pair is two launches, the ghost stage fused with the red
-// half-sweep into the other buffer (each red update evaluates the ghost
-// stage of its neighbours on the fly), then the black half-sweep in place.
-// The trailing ghost stage is a launch of its own; the residual applies the
-// stage again on the fly. The iterate alternates between the output array
-// and a scratch array so that the last stage lands in the output; the
-// caller's input is never written.
+// Design: ONE launch of shared-memory tiles a call, one tile a block
+// (kernels/plan.py level0_plan: the tile, a halo of
+// n_pairs + 2 plane rows and columns on pre and n_pairs + 1 on post, the
+// shared memory, the grid). A block loads p and b with the halo, and on
+// post the level-1 correction's rows and columns under them, into shared
+// memory, and runs the bodies of level0_tile.cuh, which the masked
+// whole-solve runs on its tiles too: each ghost stage and half-sweep a
+// pass over a box that shrinks by one logical cell a stage, the exact
+// residual from the last; it writes p_out's own cells and rc's own coarse
+// cells, or folds the own cells' max|r| into the op's running max (an
+// atomicMax on the int bits, tile::block_max): the last block to finish
+// (a __threadfence and an atomic count) moves it into res and leaves the
+// max and the count at 0 for the next call, so no launch zeroes them. The
+// iterate never goes through device memory between the stages. A tile whose own cells all lie outside the
+// domain (the padding columns: 1025 of the 2048x256 step's 1152 quad
+// columns are used; a block's rows beyond the field) is left unchanged by
+// every stage: it copies p to p_out (and writes rc's zeros) without
+// staging.
+#include "carry_tile.cuh"
+#include "level0_tile.cuh"
 #include "step_level0.cuh"
 
 namespace {
 
 using cfd::StepL0;
+namespace tile = cfd::tile;
+namespace ws = cfd::ws;
 
-// ghost stage ``lo`` fused with red half-sweep ``lo + 1``, src -> dst
+// the block's tile of the launch's grid (one tile a block)
 template <bool kBlock>
-__global__ void step_ghost_red(const float* src, const float* b, float* dst, StepL0 L,
-                               int lo) {
-  const long long n = 4LL * L.Hq8 * L.Wqa;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const cfd::QuadCell c = cfd::quad_cell(idx, L.Hq8, L.Wqa, cfd::step_row0<kBlock>(L));
-  dst[idx] = cfd::ghost_red_value<kBlock>(src, b, c, L, lo);
+__device__ __forceinline__ ws::Tile grid_tile(const tile::Plan& pl, const StepL0& L) {
+  const int t = static_cast<int>(blockIdx.y) * pl.grid_x + static_cast<int>(blockIdx.x);
+  return ws::make_tile(pl.rows, pl.cols, L.Wqa, t, pl.halo, cfd::step_row0<kBlock>(L));
 }
 
-// black half-sweep ``lo`` in place
-template <bool kBlock>
-__global__ void step_black(float* p, const float* b, StepL0 L, int lo) {
-  const long long n = 4LL * L.Hq8 * L.Wqa;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const cfd::QuadCell c = cfd::quad_cell(idx, L.Hq8, L.Wqa, cfd::step_row0<kBlock>(L));
-  float v;
-  if (cfd::black_update<kBlock>(p, b, c, L, &v, lo)) p[idx] = v;
+// Whether the tile's own cells all lie outside the domain's logical rows
+// [0, ny + 1] or columns [0, nx + 1]: no stage changes them and their
+// residual and level-1 source are 0
+__device__ __forceinline__ bool outside(const ws::Tile& T, const StepL0& L) {
+  const int j0 = 2 * (T.R0 + T.row0), i0 = 2 * T.C0;
+  return i0 > L.nx + 1 || j0 > L.ny + 1 || j0 + 2 * T.rows - 1 < 0;
 }
 
-// ghost stage ``lo``, src -> dst
-template <bool kBlock>
-__global__ void step_ghosts(const float* src, float* dst, StepL0 L, int lo) {
-  const long long n = 4LL * L.Hq8 * L.Wqa;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const cfd::QuadCell c = cfd::quad_cell(idx, L.Hq8, L.Wqa, cfd::step_row0<kBlock>(L));
-  dst[idx] = cfd::banded_ghost<kBlock>(src, c.j, c.i, lo, L);
-}
-
-// the residual with ghost stage ``lo``, restricted into rc
-template <bool kBlock>
-__global__ void step_residual_restrict(const float* p, const float* b, float* rc, StepL0 L,
-                                       int lo) {
-  const long long n = static_cast<long long>(L.Hq8) * L.Wqa;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  rc[idx] = cfd::step_restrict_value<kBlock>(p, b, idx, L, lo);
+// p_out = p on the tile's own cells
+__device__ __forceinline__ void copy_own(const float* p, float* p_out, const ws::Tile& T,
+                                         const StepL0& L) {
+  const long long plane = static_cast<long long>(L.Hq8) * L.Wqa;
+  ws::each_cell(T.R0, min(T.R0 + T.rows, L.Hq8), T.C0, min(T.C0 + T.cols, L.Wqa),
+                [&](int gr, int gc) {
+                  const long long g = static_cast<long long>(gr) * L.Wqa + gc;
+                  float v[4];
+#pragma unroll
+                  for (int q = 0; q < 4; ++q) v[q] = p[q * plane + g];
+#pragma unroll
+                  for (int q = 0; q < 4; ++q) p_out[q * plane + g] = v[q];
+                });
 }
 
 template <bool kBlock>
-__global__ void step_prolong_add(const float* p, const float* ec, float* out, StepL0 L) {
-  const long long n = 4LL * L.Hq8 * L.Wqa;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  out[idx] = cfd::step_prolong_add_value<kBlock>(p, ec, idx, L);
-}
-
-// max|residual| with ghost stage ``lo`` over the block's own rows
-template <bool kBlock>
-__global__ void step_residual_max(const float* p, const float* b, float* res, StepL0 L,
-                                  int lo) {
-  const long long n = 4LL * L.Hq8 * L.Wqa;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float r = 0.f;
-  if (idx < n && (!kBlock || cfd::own_row(idx, L.Hq8, L.Wqa, L.halo))) {
-    const cfd::QuadCell c = cfd::quad_cell(idx, L.Hq8, L.Wqa, cfd::step_row0<kBlock>(L));
-    r = fabsf(cfd::step_residual<kBlock>(p, b, c.j, c.i, L, lo));
+__global__ void __launch_bounds__(tile::kThreads)
+    step_pre_kernel(const float* p, const float* b, float* p_out, float* rc, StepL0 L,
+                    int n_pairs, tile::Plan pl) {
+  const ws::Tile T = grid_tile<kBlock>(pl, L);
+  if (outside(T, L)) {
+    copy_own(p, p_out, T, L);
+    ws::each_cell(T.R0, min(T.R0 + T.rows, L.Hq8), T.C0, min(T.C0 + T.cols, L.Wqa),
+                  [&](int Jl, int Ic) { rc[static_cast<long long>(Jl) * L.Wqa + Ic] = 0.f; });
+    return;
   }
-  cfd::block_max_into(r, res);
+  ws::step_pre_tile<kBlock>(T, p, b, p_out, L, n_pairs, tile::smem(),
+                            [&](long long idx, float v) { rc[idx] = v; });
 }
 
-// `stages` ghost-stage writes follow, each into the other buffer; the
-// buffer to write first so that the last write lands in out
-float* first_target(int stages, float* out, float* scr) {
-  return (stages % 2 == 1) ? out : scr;
-}
-
-// n pairs from src (never written) and the trailing ghost stage into out;
-// stage k of the ledger (from 1) has band k + shift. Returns the ledger
-// count of the trailing ghost stage.
+// acc: the running max (int bits) and the blocks' count, both 0 before
+// the launch and after it
 template <bool kBlock>
-int smooth(const float* src, const float* b, float* out, float* scr, int n_pairs, int shift,
-           const StepL0& L, cudaStream_t s, int* err) {
-  const int blocks = cfd::blocks_for(4LL * L.Hq8 * L.Wqa);
-  float* dst = first_target(n_pairs + 1, out, scr);
-  int k = shift;
-  for (int pair = 0; pair < n_pairs; ++pair) {
-    step_ghost_red<kBlock><<<blocks, cfd::kThreads, 0, s>>>(src, b, dst, L, k + 1);
-    step_black<kBlock><<<blocks, cfd::kThreads, 0, s>>>(dst, b, L, k + 3);
-    k += 3;
-    src = dst;
-    dst = (dst == out) ? scr : out;
+__global__ void __launch_bounds__(tile::kThreads)
+    step_post_kernel(const float* p, const float* b, const float* ec, float* p_out, float* res,
+                     unsigned int* acc, StepL0 L, int n_pairs, tile::Plan pl) {
+  const ws::Tile T = grid_tile<kBlock>(pl, L);
+  float r[1] = {0.f};
+  if (outside(T, L)) {
+    copy_own(p, p_out, T, L);
+  } else {
+    r[0] = ws::step_post_tile<kBlock>(T, p, b, ec, p_out, L, n_pairs, tile::smem(), 0.f);
   }
-  step_ghosts<kBlock><<<blocks, cfd::kThreads, 0, s>>>(src, dst, L, k + 1);
-  *err = static_cast<int>(cudaGetLastError());
-  return k + 1;
+  tile::block_max(r, reinterpret_cast<float*>(acc));
+  if (threadIdx.x == 0) {  // the thread that folded the block's max into acc[0]
+    __threadfence();
+    if (atomicAdd(acc + 1, 1u) == gridDim.x * gridDim.y - 1) {
+      __threadfence();
+      *res = __uint_as_float(atomicExch(acc, 0u));
+      atomicExch(acc + 1, 0u);
+    }
+  }
+}
+
+const void* level0_fn(bool post, bool block) {
+  if (post) {
+    return block ? reinterpret_cast<const void*>(step_post_kernel<true>)
+                 : reinterpret_cast<const void*>(step_post_kernel<false>);
+  }
+  return block ? reinterpret_cast<const void*>(step_pre_kernel<true>)
+               : reinterpret_cast<const void*>(step_pre_kernel<false>);
+}
+
+// cudaSuccess when the plan covers a (4, Hq8, Wqa) field with the halo the
+// kernel's stages reach (n_pairs + 2 plane rows on pre, n_pairs + 1 on
+// post) and the shared memory of its three buffers (and on post the coarse
+// tile), else cudaErrorInvalidValue (the wrapper raises)
+cudaError_t check_plan(const tile::Plan& pl, const StepL0& L, int n_pairs, bool post) {
+  if (n_pairs < 1 || pl.halo != n_pairs + (post ? 1 : 2)) return cudaErrorInvalidValue;
+  if (pl.rows < 1 || pl.cols < 1 || L.Hq8 < 1 || L.Wqa < 1) return cudaErrorInvalidValue;
+  if (pl.grid_x != (L.Wqa + pl.cols - 1) / pl.cols ||
+      pl.grid_y != (L.Hq8 + pl.rows - 1) / pl.rows)
+    return cudaErrorInvalidValue;
+  const long long lr = 2LL * (pl.rows + 2 * pl.halo), lc = 2LL * (pl.cols + 2 * pl.halo);
+  const long long coarse =
+      post ? (pl.rows + 2LL * pl.halo + 1) * (pl.cols + 2 * pl.halo + 1) : 0;
+  const long long bytes = 4 * (3 * lr * lc + coarse);
+  if (pl.smem_bytes != bytes || bytes > tile::kSmemMax) return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 template <bool kBlock>
-int pre(const float* p, const float* b, float* p_out, float* scr, float* rc, int n_pairs,
-        const StepL0& L, cudaStream_t s) {
-  int err = 0;
-  const int k = smooth<kBlock>(p, b, p_out, scr, n_pairs, 0, L, s, &err);
-  if (err) return err;
-  step_residual_restrict<kBlock><<<cfd::blocks_for(static_cast<long long>(L.Hq8) * L.Wqa),
-                                   cfd::kThreads, 0, s>>>(p_out, b, rc, L, k + 1);
+int pre(const float* p, const float* b, float* p_out, float* rc, int n_pairs, const StepL0& L,
+        const tile::Plan& pl, cudaStream_t s) {
+  const cudaError_t err = check_plan(pl, L, n_pairs, false);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  step_pre_kernel<kBlock><<<dim3(pl.grid_x, pl.grid_y), tile::kThreads, pl.smem_bytes, s>>>(
+      p, b, p_out, rc, L, n_pairs, pl);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kBlock>
-int post(const float* p, const float* b, const float* ec, float* p_out, float* scr,
-         float* res, int n_pairs, const StepL0& L, cudaStream_t s) {
-  const int blocks = cfd::blocks_for(4LL * L.Hq8 * L.Wqa);
-  // the prolonged iterate goes to the buffer the smoothing does not write
-  // first, so that its first ghost stage reads one array and writes another
-  float* prolonged = first_target(n_pairs + 1, p_out, scr) == p_out ? scr : p_out;
-  step_prolong_add<kBlock><<<blocks, cfd::kThreads, 0, s>>>(p, ec, prolonged, L);
-  // the prolongation's row J + 1 wraps at a block's top: one more row of
-  // shrink before the stages (step_quad.py:471-474)
-  int err = 0;
-  const int k = smooth<kBlock>(prolonged, b, p_out, scr, n_pairs, 1, L, s, &err);
-  if (err) return err;
-  cudaError_t e = cudaMemsetAsync(res, 0, sizeof(float), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  step_residual_max<kBlock><<<blocks, cfd::kThreads, 0, s>>>(p_out, b, res, L, k + 1);
+int post(const float* p, const float* b, const float* ec, float* p_out, float* res,
+         unsigned int* acc, int n_pairs, const StepL0& L, const tile::Plan& pl,
+         cudaStream_t s) {
+  const cudaError_t err = check_plan(pl, L, n_pairs, true);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  step_post_kernel<kBlock><<<dim3(pl.grid_x, pl.grid_y), tile::kThreads, pl.smem_bytes, s>>>(
+      p, b, ec, p_out, res, acc, L, n_pairs, pl);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// scr: one quad field of scratch; row_base, halo: a local block's global
-// plane row of row 0 and its halo strip (0, 0 on a whole field); rc: (Hq8,
-// Wqa), the block's level-1 rows
-extern "C" int cfd_step_pre_smooth_restrict(const float* p, const float* b, float* p_out,
-                                            float* scr, float* rc, int Hq8, int Wqa, int ny,
-                                            int nx, int step_i, int inlet_j, float idx2,
-                                            float idy2, float denom, float omega,
-                                            float one_minus_omega, int n_pairs,
-                                            int row_base, int halo, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  StepL0 L{Hq8,  Wqa,   ny,    nx,    step_i,          inlet_j,
-           idx2, idy2,  denom, omega, one_minus_omega, row_base, halo};
-  if (halo > 0) return pre<true>(p, b, p_out, scr, rc, n_pairs, L, s);
-  return pre<false>(p, b, p_out, scr, rc, n_pairs, L, s);
+// Readies the pre (post 0) or post kernel (block: its local-block instance)
+// for `smem_bytes` of dynamic shared memory on the current device: blocks
+// (SMs x blocks per SM), blocks per SM and registers out (tile::ready)
+extern "C" int cfd_step_level0_grid(int post, int block, int smem_bytes, int* blocks,
+                                    int* per_sm, int* regs) {
+  return tile::ready(level0_fn(post != 0, block != 0), smem_bytes, blocks, per_sm, regs);
 }
 
-// res: max|r| over the own rows of a block (every row of a whole field)
-extern "C" int cfd_step_post_prolong_smooth(const float* p, const float* b, const float* ec,
-                                            float* p_out, float* scr, float* res, int Hq8,
-                                            int Wqa, int ny, int nx, int step_i,
-                                            int inlet_j, float idx2, float idy2,
-                                            float denom, float omega,
-                                            float one_minus_omega, int n_pairs,
-                                            int row_base, int halo, void* stream) {
+// row_base, halo: a local block's global plane row of row 0 and its halo
+// strip (0, 0 on a whole field); rc: (Hq8, Wqa), the block's level-1 rows;
+// plan: the 6 ints of the tile plan (tile::Plan, kernels/plan.py
+// level0_plan), a host array
+extern "C" int cfd_step_pre_smooth_restrict(const float* p, const float* b, float* p_out,
+                                            float* rc, int Hq8, int Wqa, int ny, int nx,
+                                            int step_i, int inlet_j, float idx2, float idy2,
+                                            float denom, float omega, float one_minus_omega,
+                                            int n_pairs, int row_base, int halo,
+                                            const int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   StepL0 L{Hq8,  Wqa,   ny,    nx,    step_i,          inlet_j,
            idx2, idy2,  denom, omega, one_minus_omega, row_base, halo};
-  if (halo > 0) return post<true>(p, b, ec, p_out, scr, res, n_pairs, L, s);
-  return post<false>(p, b, ec, p_out, scr, res, n_pairs, L, s);
+  const tile::Plan pl{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
+  if (halo > 0) return pre<true>(p, b, p_out, rc, n_pairs, L, pl, s);
+  return pre<false>(p, b, p_out, rc, n_pairs, L, pl, s);
+}
+
+// res: max|r| over the own rows of a block (every row of a whole field);
+// acc: two unsigned ints on the device, 0 (the launch leaves them 0);
+// plan as the pre kernel's
+extern "C" int cfd_step_post_prolong_smooth(const float* p, const float* b, const float* ec,
+                                            float* p_out, float* res, unsigned int* acc,
+                                            int Hq8, int Wqa, int ny, int nx, int step_i,
+                                            int inlet_j, float idx2, float idy2, float denom,
+                                            float omega, float one_minus_omega, int n_pairs,
+                                            int row_base, int halo, const int* plan,
+                                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  StepL0 L{Hq8,  Wqa,   ny,    nx,    step_i,          inlet_j,
+           idx2, idy2,  denom, omega, one_minus_omega, row_base, halo};
+  const tile::Plan pl{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
+  if (halo > 0) return post<true>(p, b, ec, p_out, res, acc, n_pairs, L, pl, s);
+  return post<false>(p, b, ec, p_out, res, acc, n_pairs, L, pl, s);
 }

@@ -50,7 +50,8 @@
 // (kernels/plan.py grid_barriers). The arithmetic of each cell is the per-kernel path's,
 // through the same device functions where they take arrays
 // (aligned_level.cuh, mg_smooth.cuh) and in their exact operation order
-// where a tile reads shared memory (quad_level0.cuh, step_level0.cuh), and
+// where a tile reads shared memory (quad_level0.cuh; the masked level's
+// tile bodies in level0_tile.cuh, which step_vcycle.cu runs too), and
 // for the transfers between coarse levels and the coarsest solve in the
 // order of their PyTorch glue (kernels/mg_tail.py _restrict, _solid_fill,
 // _prolong, dense_coarse_solve), so the solve equals the per-kernel

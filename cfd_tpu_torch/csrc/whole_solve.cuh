@@ -11,6 +11,7 @@
 #include <cooperative_groups.h>
 
 #include "aligned_level.cuh"
+#include "level0_tile.cuh"
 #include "quad_level0.cuh"
 #include "step_level0.cuh"
 
@@ -149,70 +150,11 @@ __device__ inline void chunk_sums(long long n, float* out, F val) {
 
 // ------------------------------------------------------- block-level loops
 
-// f(j, i) on rows [r0, r1) x columns [c0, c1): warps over rows, lanes over
-// columns
-template <class F>
-__device__ __forceinline__ void each_cell(int r0, int r1, int c0, int c1, F f) {
-  const int lane = static_cast<int>(threadIdx.x) & 31;
-  const int nw = static_cast<int>(blockDim.x) >> 5;
-  for (int j = r0 + (static_cast<int>(threadIdx.x) >> 5); j < r1; j += nw) {
-    for (int i = c0 + lane; i < c1; i += 32) f(j, i);
-  }
-}
+// (each_cell, update2, copy_rect: level0_tile.cuh)
 
 // a[0:n] = 0 by the block
 __device__ inline void s_zero(float* a, int n) {
   for (int k = static_cast<int>(threadIdx.x); k < n; k += static_cast<int>(blockDim.x)) a[k] = 0.f;
-}
-
-// An update of one cell: whether it is written, and its value
-struct Upd {
-  bool on;
-  float v;
-};
-
-// out[j * pitch + i] = f(j, i).v where f(j, i).on, over the cells of
-// `colour` ((j + i) & 1; every cell if colour < 0) of rows [r0, r1) x
-// columns [c0, c1): warps over rows, two cells a lane at a time, both
-// values computed before either is stored. f may read out: no cell an
-// update reads is one that the same pass writes (a red/black sweep's
-// other colour, a pointwise update's own cell).
-template <class F>
-__device__ __forceinline__ void update2(float* out, int pitch, int r0, int r1, int c0, int c1,
-                                        int colour, F f) {
-  const int lane = static_cast<int>(threadIdx.x) & 31;
-  const int nw = static_cast<int>(blockDim.x) >> 5;
-  const int step = colour < 0 ? 32 : 64;
-  for (int j = r0 + (static_cast<int>(threadIdx.x) >> 5); j < r1; j += nw) {
-    const int first = colour < 0 ? c0 + lane : c0 + ((j + c0 + colour) & 1) + 2 * lane;
-    for (int i = first; i < c1; i += 2 * step) {
-      const int i2 = i + step;
-      const Upd a = f(j, i);
-      const Upd b = i2 < c1 ? f(j, i2) : Upd{false, 0.f};
-      if (a.on) out[j * pitch + i] = a.v;
-      if (b.on) out[j * pitch + i2] = b.v;
-    }
-  }
-}
-
-// dst[j * dp + i] = src(j, i) on rows [0, rows) x columns [0, cols): warps
-// over rows, each lane's four columns 32 apart loaded before they are
-// stored, so four loads are in flight a thread
-template <class Src>
-__device__ __forceinline__ void copy_rect(float* dst, int dp, int rows, int cols, Src src) {
-  const int lane = static_cast<int>(threadIdx.x) & 31;
-  const int nw = static_cast<int>(blockDim.x) >> 5;
-  for (int j = static_cast<int>(threadIdx.x) >> 5; j < rows; j += nw) {
-    for (int i0 = lane; i0 < cols; i0 += 128) {
-      float v[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) v[u] = i0 + 32 * u < cols ? src(j, i0 + 32 * u) : 0.f;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (i0 + 32 * u < cols) dst[j * dp + i0 + 32 * u] = v[u];
-      }
-    }
-  }
 }
 
 // -------------------------------------------------- grid-resident coarse levels
@@ -731,124 +673,11 @@ __device__ inline void coarse_vcycle(const Sweep& s, cg::grid_group& grid, const
 
 // ------------------------------------------------- the finest level in tiles
 //
-// A tile is the block's own plane rows [R0, R0 + rows) x columns [C0, C0 +
-// cols) of all four planes, loaded with a halo of h plane rows and columns
-// into shared memory as a LOGICAL (2 (rows + 2h)) x (2 (cols + 2h)) array
-// (logical cell (j, i) of the quad layout at local (j - oj, i - oi)); a
-// position outside the field reads 0, as qld's. Stage s of a phase (from 0)
-// updates the local cells [s + 1, LR - s - 1) x [s + 1, LC - s - 1) from
-// stage s - 1's values, so after s + 1 stages the cells at least s + 1 from
-// the buffer's edge hold exactly what the grid-wide phases compute there:
-// every stage reads only the 3 x 3 box around a cell (the masked ghost
-// stage included, step_level0.cuh). The halo is as deep as the stages need
-// (kernels/plan.py halos); the tile writes its own cells only. A separable
-// tile also stages its weight vectors (wE, wW by column, wN, wS by row).
-
-struct Tile {
-  int R0, C0, rows, cols, h;
-  int oj, oi;  // the logical origin of the buffers
-  int LR, LC;  // the buffers' logical rows and columns
-};
-
-__device__ inline Tile make_tile(const Plan& pl, int Wqa, int t, int h) {
-  const int ncol = (Wqa + pl.tile_cols - 1) / pl.tile_cols;
-  Tile T;
-  T.R0 = (t / ncol) * pl.tile_rows;
-  T.C0 = (t % ncol) * pl.tile_cols;
-  T.rows = pl.tile_rows;
-  T.cols = pl.tile_cols;
-  T.h = h;
-  T.oj = 2 * (T.R0 - h);
-  T.oi = 2 * (T.C0 - h);
-  T.LR = 2 * (T.rows + 2 * h);
-  T.LC = 2 * (T.cols + 2 * h);
-  return T;
-}
-
-__device__ inline int tile_count(const Plan& pl, int Hq8, int Wqa) {
-  return ((Hq8 + pl.tile_rows - 1) / pl.tile_rows) * ((Wqa + pl.tile_cols - 1) / pl.tile_cols);
-}
-
-// buf_a, buf_b = the tile's region of quad fields a, b in the logical
-// layout (all four planes' loads of a cell issued together)
-__device__ inline void load_tile(const float* a, const float* b, const Tile& T, int Hq8, int Wqa,
-                                 float* buf_a, float* buf_b) {
-  const long long plane = static_cast<long long>(Hq8) * Wqa;
-  each_cell(0, T.rows + 2 * T.h, 0, T.cols + 2 * T.h, [&](int r, int c) {
-    const int gr = T.R0 - T.h + r, gc = T.C0 - T.h + c;
-    const bool in = gr >= 0 && gr < Hq8 && gc >= 0 && gc < Wqa;
-    const long long g = static_cast<long long>(gr) * Wqa + gc;
-    float va[4], vb[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      va[q] = in ? a[q * plane + g] : 0.f;
-      vb[q] = in ? b[q * plane + g] : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int k = (2 * r + (q >> 1)) * T.LC + 2 * c + (q & 1);
-      buf_a[k] = va[q];
-      buf_b[k] = vb[q];
-    }
-  });
-}
-
-// the tile's own cells of buf into quad field dst
-__device__ inline void store_tile(const float* buf, const Tile& T, int Hq8, int Wqa, float* dst) {
-  const long long plane = static_cast<long long>(Hq8) * Wqa;
-  each_cell(T.R0, min(T.R0 + T.rows, Hq8), T.C0, min(T.C0 + T.cols, Wqa), [&](int gr, int gc) {
-    const int r = gr - T.R0 + T.h, c = gc - T.C0 + T.h;
-    const long long g = static_cast<long long>(gr) * Wqa + gc;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      dst[q * plane + g] = buf[(2 * r + (q >> 1)) * T.LC + 2 * c + (q & 1)];
-    }
-  });
-}
-
-// The level-1 correction rows [R0 - h, R0 + rows + h] x columns [C0 - h, C0
-// + cols + h] of aligned (Hq8, Wqa) array ec, the rows and columns the
-// tile's prolongation reads
-struct CoarseTile {
-  const float* e;
-  int J0, I0, pitch;
-  __device__ __forceinline__ float operator()(int J, int I) const {
-    return e[(J - J0) * pitch + (I - I0)];
-  }
-};
-
-__device__ inline CoarseTile load_coarse_tile(const float* ec, const Tile& T, int Hq8, int Wqa,
-                                              float* buf) {
-  const int rows = T.rows + 2 * T.h + 1, cols = T.cols + 2 * T.h + 1;
-  copy_rect(buf, cols, rows, cols, [&](int r, int c) {
-    const int J = T.R0 - T.h + r, I = T.C0 - T.h + c;
-    return (J >= 0 && J < Hq8 && I >= 0 && I < Wqa) ? ec[static_cast<long long>(J) * Wqa + I]
-                                                    : 0.f;
-  });
-  return CoarseTile{buf, T.R0 - T.h, T.C0 - T.h, cols};
-}
-
-// quad_prolong_corr's arithmetic at logical (j, i) from a coarse tile: the
-// 9-3-3-1 prolongation of the level-1 correction with the edge clamps on
-// J = 0, J = ny/2, I = 0, I = nx/2 (a cell of the interior reads rows J,
-// J + 1 and columns I, I + 1, all in the tile)
-__device__ __forceinline__ float tile_prolong_corr(const CoarseTile& E, int j, int i, int ny,
-                                                   int nx) {
-  const int r = j & 1, s = i & 1, J = j >> 1, I = i >> 1;
-  const int nyc = ny / 2, nxc = nx / 2;
-  auto rowmix = [&](int col) {
-    const float e0 = E(J, col);
-    const float e1 = E(J + 1, col);
-    const float ecJ0 = (J == 0) ? e1 : e0;
-    const float ecJ1 = (J == nyc) ? e0 : e1;
-    return r == 0 ? 0.75f * ecJ0 + 0.25f * ecJ1 : 0.25f * ecJ0 + 0.75f * ecJ1;
-  };
-  const float rm = rowmix(I);
-  const float rm1 = rowmix(I + 1);
-  const float m0 = (I == 0) ? rm1 : rm;
-  const float m1 = (I == nxc) ? rm : rm1;
-  return s == 0 ? 0.75f * m0 + 0.25f * m1 : 0.25f * m0 + 0.75f * m1;
-}
+// level0_tile.cuh: the tiles, their loads and stores, the level-1
+// correction's tile, and the masked level's bodies on one tile. Each
+// block walks the tiles t = blockIdx.x + k gridDim.x of the plan's
+// tile_rows x tile_cols. A separable tile also stages its weight
+// vectors (wE, wW by column, wN, wS by row).
 
 // The level-1 source rc at idx: b_lv[1] (rounded to bfloat16 with
 // store_bf16, the stored b[0] of run_tail_vcycle(store_dtype)), and its
@@ -857,15 +686,6 @@ __device__ __forceinline__ void store_rc(const Params& P, long long idx, float v
   P.b_lv[1][idx] = P.store_bf16 ? round_bf16(v) : v;
   if (P.rc32 != nullptr) P.rc32[idx] = v;
 }
-
-// A logical buffer of a tile read at global logical (j, i)
-struct TileView {
-  const float* a;
-  int oj, oi, LC;
-  __device__ __forceinline__ float operator()(int j, int i) const {
-    return a[(j - oj) * LC + (i - oi)];
-  }
-};
 
 // --- the separable finest level (quad_level0.cuh's arithmetic)
 
@@ -925,9 +745,9 @@ __device__ inline void sep_pairs(float* p, const float* b, const TileW& W, const
 __device__ inline void sep_pre_tiles(const Params& P, const float* src, float* dst) {
   const cfd::Level0& L = P.L0;
   float* p = dyn_smem() + kRedFloats;
-  const int nt = tile_count(P.plan, L.Hq8, L.Wqa);
+  const int nt = tile_count(P.plan.tile_rows, P.plan.tile_cols, L.Hq8, L.Wqa);
   for (int t = blockIdx.x; t < nt; t += gridDim.x) {
-    const Tile T = make_tile(P.plan, L.Wqa, t, P.plan.halo_pre);
+    const Tile T = make_tile(P.plan.tile_rows, P.plan.tile_cols, L.Wqa, t, P.plan.halo_pre);
     float* b = p + T.LR * T.LC;
     load_tile(src, P.b0, T, L.Hq8, L.Wqa, p, b);
     const TileW W = load_tile_weights(L, T, b + T.LR * T.LC);
@@ -958,9 +778,9 @@ __device__ inline float sep_post_tiles(const Params& P, const float* src, float*
   const cfd::Level0& L = P.L0;
   float* p = dyn_smem() + kRedFloats;
   float r = 0.f;
-  const int nt = tile_count(P.plan, L.Hq8, L.Wqa);
+  const int nt = tile_count(P.plan.tile_rows, P.plan.tile_cols, L.Hq8, L.Wqa);
   for (int t = blockIdx.x; t < nt; t += gridDim.x) {
-    const Tile T = make_tile(P.plan, L.Wqa, t, P.plan.halo_post);
+    const Tile T = make_tile(P.plan.tile_rows, P.plan.tile_cols, L.Wqa, t, P.plan.halo_post);
     float* b = p + T.LR * T.LC;
     load_tile(src, P.b0, T, L.Hq8, L.Wqa, p, b);
     float* wbuf = b + T.LR * T.LC;
@@ -985,163 +805,36 @@ __device__ inline float sep_post_tiles(const Params& P, const float* src, float*
   return r;
 }
 
-// --- the masked finest level (step_level0.cuh's whole-field arithmetic)
-
-// the ghost stage's output at (j, i) from its input src (ghost_value)
-template <class A>
-__device__ __forceinline__ float t_ghost(const A& src, int j, int i, const cfd::StepL0& L) {
-  const bool row_in = j >= 1 && j <= L.ny, col_in = i >= 1 && i <= L.nx;
-  if (i == 0 && row_in) return src(j, 1);
-  if (i == L.nx + 1 && row_in) return 0.f;
-  if (j == 0 && col_in) return src(1, i);
-  if (j == L.ny + 1 && col_in) return src(L.ny, i);
-  if (row_in && col_in && i <= L.step_i && j > L.inlet_j) {
-    const bool eastw = i == L.step_i && i < L.nx;
-    const bool southw = j == L.inlet_j + 1 && j > 1;
-    if (eastw || southw) {
-      const float cnt = (eastw ? 1.0f : 0.0f) + (southw ? 1.0f : 0.0f);
-      const float inv = 1.0f / cnt;
-      return ((eastw ? src(j, i + 1) : 0.0f) + (southw ? src(j - 1, i) : 0.0f)) * inv;
-    }
-  }
-  return src(j, i);
-}
-
-// the ghost stage then the red half-sweep at (j, i) (ghost_red_value)
-template <class A>
-__device__ __forceinline__ float t_ghost_red(const A& src, const A& b, int j, int i,
-                                             const cfd::StepL0& L) {
-  if (!(((j + i) & 1) == 0 && cfd::step_fluid(j, i, L))) return t_ghost(src, j, i, L);
-  const float E = t_ghost(src, j, i + 1, L);
-  const float Wv = t_ghost(src, j, i - 1, L);
-  const float N = t_ghost(src, j + 1, i, L);
-  const float S = t_ghost(src, j - 1, i, L);
-  const float gs = (L.idx2 * (E + Wv) + L.idy2 * (N + S) - b(j, i)) / L.denom;
-  return L.one_minus_omega * src(j, i) + L.omega * gs;
-}
-
-// the exact residual at (j, i): the ghost stage re-applied to p, then b -
-// lap on fluid cells, 0 elsewhere (step_residual)
-template <class A>
-__device__ __forceinline__ float t_step_residual(const A& p, const A& b, int j, int i,
-                                                 const cfd::StepL0& L) {
-  if (!cfd::step_fluid(j, i, L)) return 0.f;
-  const float pc = t_ghost(p, j, i, L);
-  const float E = t_ghost(p, j, i + 1, L);
-  const float Wv = t_ghost(p, j, i - 1, L);
-  const float N = t_ghost(p, j + 1, i, L);
-  const float S = t_ghost(p, j - 1, i, L);
-  const float lap = (E - 2.0f * pc + Wv) * L.idx2 + (N - 2.0f * pc + S) * L.idy2;
-  return b(j, i) - lap;
-}
-
-// out = stage s of in on the cells s + 1 from the buffer's edge
-template <class F>
-__device__ inline void tile_stage(float* out, const Tile& T, int s, F f) {
-  update2(out, T.LC, s + 1, T.LR - s - 1, s + 1, T.LC - s - 1, -1,
-          [&](int lj, int li) { return Upd{true, f(T.oj + lj, T.oi + li)}; });
-  __syncthreads();
-}
-
-// n_pairs exact masked pairs and the trailing ghost stage (the whole-field
-// step_vcycle.cu smooth) on the tile; *a holds the iterate before and after,
-// *o is the second buffer
-__device__ inline void step_pairs(float** a, float** o, const float* b, const Tile& T,
-                                  const cfd::StepL0& L, int n_pairs) {
-  const TileView bv{b, T.oj, T.oi, T.LC};
-  int s = 0;
-  for (int k = 0; k < n_pairs; ++k) {
-    const TileView av{*a, T.oj, T.oi, T.LC};
-    tile_stage(*o, T, s++, [&](int j, int i) { return t_ghost_red(av, bv, j, i, L); });
-    float* t = *a;
-    *a = *o;
-    *o = t;
-    float* p = *a;
-    const TileView pv{p, T.oj, T.oi, T.LC};
-    update2(p, T.LC, s + 1, T.LR - s - 1, s + 1, T.LC - s - 1, 1, [&](int lj, int li) {
-      const int j = T.oj + lj, i = T.oi + li;
-      if (!cfd::step_fluid(j, i, L)) return Upd{false, 0.f};
-      const float E = pv(j, i + 1), Wv = pv(j, i - 1);
-      const float N = pv(j + 1, i), S = pv(j - 1, i);
-      const float gs = (L.idx2 * (E + Wv) + L.idy2 * (N + S) - bv(j, i)) / L.denom;
-      return Upd{true, L.one_minus_omega * p[lj * T.LC + li] + L.omega * gs};
-    });
-    ++s;
-    __syncthreads();
-  }
-  const TileView av{*a, T.oj, T.oi, T.LC};
-  tile_stage(*o, T, s, [&](int j, int i) { return t_ghost(av, j, i, L); });
-  float* t = *a;
-  *a = *o;
-  *o = t;
-}
+// --- the masked finest level (level0_tile.cuh's bodies on a whole field)
 
 // The pre phase of the masked finest level on every tile: P.pre exact pairs
 // and the trailing ghost stage from src, the result into dst (own cells),
-// the exact residual's restriction into level 1 (step_restrict_value)
-// through store_rc.
+// the exact residual's restriction into level 1 through store_rc.
 __device__ inline void step_pre_tiles(const Params& P, const float* src, float* dst) {
   const cfd::StepL0& L = P.S0;
-  const int nt = tile_count(P.plan, L.Hq8, L.Wqa);
+  const Plan& pl = P.plan;
+  const int nt = tile_count(pl.tile_rows, pl.tile_cols, L.Hq8, L.Wqa);
   for (int t = blockIdx.x; t < nt; t += gridDim.x) {
-    const Tile T = make_tile(P.plan, L.Wqa, t, P.plan.halo_pre);
-    float* a = dyn_smem() + kRedFloats;
-    float* o = a + T.LR * T.LC;
-    float* b = o + T.LR * T.LC;
-    load_tile(src, P.b0, T, L.Hq8, L.Wqa, a, b);
-    __syncthreads();
-    step_pairs(&a, &o, b, T, L, P.pre);
-    store_tile(a, T, L.Hq8, L.Wqa, dst);
-    const TileView av{a, T.oj, T.oi, T.LC}, bv{b, T.oj, T.oi, T.LC};
-    each_cell(T.R0, min(T.R0 + T.rows, L.Hq8), T.C0, min(T.C0 + T.cols, L.Wqa),
-              [&](int Jc, int Ic) {
-                float v = 0.f;
-                if (Jc >= 1 && Jc <= L.ny / 2 && Ic >= 1 && Ic <= L.nx / 2) {
-                  const int j = 2 * Jc, i = 2 * Ic;
-                  v = 0.25f * (t_step_residual(av, bv, j, i, L) +
-                               t_step_residual(av, bv, j, i - 1, L) +
-                               t_step_residual(av, bv, j - 1, i, L) +
-                               t_step_residual(av, bv, j - 1, i - 1, L));
-                }
-                store_rc(P, static_cast<long long>(Jc) * L.Wqa + Ic, v);
-              });
-    __syncthreads();
+    const Tile T = make_tile(pl.tile_rows, pl.tile_cols, L.Wqa, t, pl.halo_pre);
+    step_pre_tile<false>(T, src, P.b0, dst, L, P.pre, dyn_smem() + kRedFloats,
+                         [&](long long idx, float v) { store_rc(P, idx, v); });
   }
 }
 
 // The post phase of the masked finest level on every tile: the prolong-add
-// of the solid-filled level-1 correction P.filled on the fluid cells
-// (step_prolong_add_value), P.post exact pairs and the trailing ghost
-// stage, the result into dst (own cells); returns the thread's max |exact
-// residual| over its own cells.
+// of the solid-filled level-1 correction P.filled on the fluid cells,
+// P.post exact pairs and the trailing ghost stage, the result into dst
+// (own cells); returns the thread's max |exact residual| over its own
+// cells.
 __device__ inline float step_post_tiles(const Params& P, const float* src, float* dst) {
   const cfd::StepL0& L = P.S0;
+  const Plan& pl = P.plan;
   float r = 0.f;
-  const int nt = tile_count(P.plan, L.Hq8, L.Wqa);
+  const int nt = tile_count(pl.tile_rows, pl.tile_cols, L.Hq8, L.Wqa);
   for (int t = blockIdx.x; t < nt; t += gridDim.x) {
-    const Tile T = make_tile(P.plan, L.Wqa, t, P.plan.halo_post);
-    float* a = dyn_smem() + kRedFloats;
-    float* o = a + T.LR * T.LC;
-    float* b = o + T.LR * T.LC;
-    load_tile(src, P.b0, T, L.Hq8, L.Wqa, a, b);
-    const CoarseTile E = load_coarse_tile(P.filled, T, L.Hq8, L.Wqa, b + T.LR * T.LC);
-    __syncthreads();
-    update2(a, T.LC, 0, T.LR, 0, T.LC, -1, [&](int lj, int li) {
-      const int j = T.oj + lj, i = T.oi + li;
-      if (!cfd::step_fluid(j, i, L)) return Upd{false, 0.f};
-      return Upd{true, a[lj * T.LC + li] + tile_prolong_corr(E, j, i, L.ny, L.nx)};
-    });
-    __syncthreads();
-    step_pairs(&a, &o, b, T, L, P.post);
-    store_tile(a, T, L.Hq8, L.Wqa, dst);
-    const TileView av{a, T.oj, T.oi, T.LC}, bv{b, T.oj, T.oi, T.LC};
-    each_cell(2 * T.h, 2 * (T.h + T.rows), 2 * T.h, 2 * (T.h + T.cols), [&](int lj, int li) {
-      const int j = T.oj + lj, i = T.oi + li;
-      if ((j >> 1) < L.Hq8 && (i >> 1) < L.Wqa) {
-        r = cfd::bits_max(r, fabsf(t_step_residual(av, bv, j, i, L)));
-      }
-    });
-    __syncthreads();
+    const Tile T = make_tile(pl.tile_rows, pl.tile_cols, L.Wqa, t, pl.halo_post);
+    r = step_post_tile<false>(T, src, P.b0, P.filled, dst, L, P.post, dyn_smem() + kRedFloats,
+                              r);
   }
   return r;
 }

@@ -81,10 +81,15 @@ SIGNATURES = {
     "cfd_mg_tail_grid": [_I] + [_P] * 3,
     "cfd_whole_step_grid": [_I] * 2 + [_P] * 3,
     "cfd_step_corrector": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P],
-    # the step's carry, pre and post: the last two ints as the cavity's
+    # the step's carry, pre and post: the last two ints as the cavity's, the
+    # pointer after them the tile plan (the pre's and post's: kernels/plan.py
+    # level0_plan)
     "cfd_step_carry": [_P] * 9 + [_I] * 6 + [_F] * 10 + [_I, _I, _P, _P],
-    "cfd_step_pre_smooth_restrict": [_P] * 5 + [_I] * 6 + [_F] * 5 + [_I] * 3 + [_P],
-    "cfd_step_post_prolong_smooth": [_P] * 6 + [_I] * 6 + [_F] * 5 + [_I] * 3 + [_P],
+    "cfd_step_pre_smooth_restrict": [_P] * 4 + [_I] * 6 + [_F] * 5 + [_I] * 3 + [_P, _P],
+    "cfd_step_post_prolong_smooth": [_P] * 6 + [_I] * 6 + [_F] * 5 + [_I] * 3 + [_P, _P],
+    # the pre and post tile kernels readied: post, block, shared memory;
+    # blocks, blocks per SM, registers out
+    "cfd_step_level0_grid": [_I] * 3 + [_P] * 3,
     "cfd_rb_pairs_full": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I, _P],
     "cfd_rb_corrector": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_P],
     "cfd_rb_carry": [_P] * 13 + [_I] * 4 + [_F] * 13 + [_I, _I, _P, _P],

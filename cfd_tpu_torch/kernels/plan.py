@@ -1,8 +1,10 @@
 """The launch plans of the tiled kernels: the cooperative solve kernels
 (csrc/whole_solve.cuh Plan: the whole-solve, kernels.whole_solve, the whole
 step, kernels.whole_step, and the fused tail, kernels.mg_tail), the
-one-launch carries (csrc/carry_tile.cuh Plan, carry_plan below) and the
-whole step's, which joins the two (whole_step_plan below).
+one-launch carries (csrc/carry_tile.cuh Plan, carry_plan below), the
+step's finest-level tile kernels (the same Plan, level0_plan below) and
+the whole step's, which joins the solve's and the carry's
+(whole_step_plan below).
 
 Each runs one cooperative grid of one block of BLOCK_THREADS threads on
 every SM. The coarse levels from ``block_from`` down run in ONE
@@ -290,7 +292,8 @@ CARRY_BUFFERS = {flow: n + WORK_BUFFERS for flow, n in CARRY_INPUTS.items()}
 
 @dataclasses.dataclass(frozen=True)
 class CarryPlan:
-    """The launch plan of a one-launch carry (csrc/carry_tile.cuh Plan):
+    """The launch plan of a one-launch carry (csrc/carry_tile.cuh Plan; the
+    step's finest-level kernels take the same, level0_plan):
     tiles of ``rows`` x ``cols`` plane cells of all four planes with a halo
     of ``halo`` plane rows and columns, ``smem_bytes`` of dynamic shared
     memory a block, a grid of ``grid_x`` tile columns by ``grid_y`` tile
@@ -347,18 +350,61 @@ def carry_tiles(plan: CarryPlan, qshape):
 
 
 def ready_tiles(plan: CarryPlan, device, symbol: str, *which: int) -> dict:
-    """Ready the carry tile kernel of ``symbol`` (cfd_quad_carry_grid,
-    cfd_quad_channel_carry_grid, cfd_step_carry_grid, cfd_rb_carry_grid)
-    and ``which`` (adaptive, block) on ``device`` for
-    the plan's shared memory, and raise unless the card holds a block of
-    it. The carry modules call it once a device and instance, before their
-    first launch there; returns cooperative_grid's dict."""
+    """Ready the tile kernel of ``symbol`` (the carries' cfd_quad_carry_grid,
+    cfd_quad_channel_carry_grid, cfd_step_carry_grid, cfd_rb_carry_grid
+    with ``which`` adaptive, block; the step's finest-level
+    cfd_step_level0_grid with post, block) on ``device`` for the plan's
+    shared memory, and raise unless the card holds a block of it. The
+    modules call it once a device and instance, before their first launch
+    there; returns cooperative_grid's dict."""
     with torch.cuda.device(device):
         grid = cooperative_grid(symbol, *which, plan.smem_bytes)
     if grid["blocks_per_sm"] < 1:
         raise RuntimeError(f"{symbol}: the card holds no block at {plan.smem_bytes} B of "
                            f"shared memory")
     return grid
+
+
+# --------------------------------------- the step's finest-level V-cycle kernels
+
+# The tile of the step's pre and post kernels (csrc/step_vcycle.cu: one
+# launch of one tile a block, 512 threads at 64 registers, two blocks an
+# SM) on a whole field and on a shard's local block, (plane rows, plane
+# columns), chosen on an H100 by timing candidates at the main path's
+# instances (PERF.md, the finest-level kernels' findings): the 2048x256
+# step's field (4, 136, 1152) and its 4-shard block (4, 56, 1152) both
+# split into 8 x 36 tiles, 264 of them off the padding columns, one wave of
+# two blocks on each of the 132 SMs. A sweep sets a fresh op's plan
+# (time_level0 --tiles); nothing overrides these but the card tests'
+# ``tile``.
+LEVEL0_TILES = {"field": (17, 32), "block": (7, 32)}
+# The logical buffers a tile stages (csrc/level0_tile.cuh step_tile_floats):
+# the iterate, its second buffer and the source; the post kernel's coarse
+# tile follows them.
+LEVEL0_BUFFERS = 3
+
+
+def level0_plan(qshape, n_pairs: int, post: bool, *, block: bool = False,
+                tile: tuple[int, int] | None = None) -> CarryPlan:
+    """The plan of the step's finest-level pre (``post`` False) or post
+    kernel at ``n_pairs`` exact pairs on a (4, Hq8, Wqa) whole field or
+    (``block``) a shard's local block: LEVEL0_TILES' tile (the card tests
+    pass another ``tile``), cut to the field where it is larger; the halo
+    of the masked tiles (halos: n + 2 plane rows and columns on pre, n + 1
+    on post); shared memory for LEVEL0_BUFFERS buffers and, on post, the
+    level-1 correction's tile (tile_floats); one tile a block. Raises when
+    a tile does not fit a block's shared memory."""
+    _, Hq8, Wqa = qshape
+    kind = "post" if post else "pre"
+    rows, cols = LEVEL0_TILES["block" if block else "field"] if tile is None else tile
+    rows, cols = min(rows, Hq8), min(cols, Wqa)
+    h_pre, h_post = halos(True, n_pairs, n_pairs)
+    halo = h_post if post else h_pre
+    smem = 4 * tile_floats(rows, cols, halo, LEVEL0_BUFFERS, False, post)
+    if smem > SMEM_MAX:
+        raise ValueError(f"the step's {kind} kernel's {rows}x{cols} tile (halo {halo}) takes "
+                         f"{smem} B of shared memory, more than a block's {SMEM_MAX}")
+    return CarryPlan(rows, cols, halo, smem, -(-Wqa // cols), -(-Hq8 // rows))
 
 
 # ------------------------------------------------------------- the whole step

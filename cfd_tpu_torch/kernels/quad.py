@@ -517,18 +517,20 @@ class QuadCorrector(_QuadStage):
         return u2, v2, guess
 
 
-def tile_plan_ptr(op, flow: str, device, symbol: str, adaptive: bool, block: bool):
-    """``op``'s carry tile plan (``op._tile_plan``: kernels/plan.py
-    carry_plan on op.qshape unless set before its first launch) as the C
-    entry points take it, its kernel instance readied on ``device`` once
-    (plan.ready_tiles through ``symbol``)."""
+def tile_plan_ptr(op, flow, device, symbol: str, *which: bool):
+    """``op``'s tile plan (``op._tile_plan``: unless set before its first
+    launch, kernels/plan.py carry_plan of the carry ``flow`` on op.qshape,
+    or ``flow()`` where it is a function) as the C entry points take it,
+    its kernel instance ``which`` (the carries' adaptive, block; the step's
+    finest-level post, block) readied on ``device`` once (plan.ready_tiles
+    through ``symbol``)."""
     if getattr(op, "_tile_ints", None) is None:
         if getattr(op, "_tile_plan", None) is None:
-            op._tile_plan = carry_plan(flow, op.qshape)
+            op._tile_plan = flow() if callable(flow) else carry_plan(flow, op.qshape)
         op._tile_ints, op._tile_ready = op._tile_plan.c_ints(), set()
-    key = (str(device), adaptive, block)
+    key = (str(device), *which)
     if key not in op._tile_ready:
-        ready_tiles(op._tile_plan, device, symbol, int(adaptive), int(block))
+        ready_tiles(op._tile_plan, device, symbol, *(int(w) for w in which))
         op._tile_ready.add(key)
     return ctypes.cast(op._tile_ints, ctypes.c_void_p)
 

@@ -5,13 +5,15 @@ bf16 hierarchy, RB 1536x512 with and without it), the four whole steps and
 the four fused tails from level 1, each on seeded inputs.
 
     python -m cfd_tpu_torch.time_whole_solve TAG [--only solve,step,tail]
+                                                 [--flows cavity,channel,step,rb]
 
 Prints one JSON line per measurement (CUDA-event median of 20 launches, 10
 for a whole step) with its cycles and ms per V-cycle, the launch plan and a
-checksum of the output, tagged with TAG. A whole step also has its device
-time, ``dev_ms`` (dev_ms below: CUDA events around 50 back-to-back calls
-with the host ahead of the card, so the wrapper's host time is not in it;
-``host_ahead`` says whether it was), and ``carry_dev_ms``, the device time
+checksum of the output, tagged with TAG; ``--flows`` keeps the flows named.
+A whole-solve and a whole step also have their device time, ``dev_ms``
+(dev_ms below: CUDA events around 50 back-to-back calls with the host
+ahead of the card, so the wrapper's host time is not in it;
+``host_ahead`` says whether it was), and a whole step ``carry_dev_ms``, the device time
 of the same call with the solve's max_cycles 0: the carry phases alone
 (the tiles, the source sum and mean removal, their barriers). The inputs are seeded
 (cfd_tpu_torch.seeded, as chip_smoke.py's). Run from the root of a
@@ -100,16 +102,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tag")
     ap.add_argument("--only", default="solve,step,tail")
+    ap.add_argument("--flows", default=",".join(FLOWS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_whole_solve needs a CUDA card")
     from cfd_tpu_torch.seeded import seeded_fields, seeded_source
 
-    what = set(args.only.split(","))
+    what, flows = set(args.only.split(",")), args.flows.split(",")
     out = lambda **kw: print(json.dumps(dict(tag=args.tag, **kw)), flush=True)
 
     if "solve" in what:
-        for flow, ov in SOLVES:
+        for flow, ov in (s for s in SOLVES if s[0] in flows):
             case = make(flow, {"whole_solve": True, **ov})
             solve = case.poisson_solve
             b = seeded_source(case, 11)
@@ -117,11 +120,13 @@ def main(argv=None) -> int:
             p, cycles, res = solve.kernel(p0, b)
             cycles = int(cycles)
             ms = median_ms(lambda: solve.kernel(p0, b))
+            d, ahead = dev_ms(lambda: solve.kernel(p0, b))
             out(kind="solve", flow=flow, ov=ov, cycles=cycles, res=float(res), ms=ms,
-                ms_per_cycle=ms / cycles, p_sum=float(p.double().sum()), plan=plan_of(solve))
+                ms_per_cycle=ms / cycles, dev_ms=d, host_ahead=ahead,
+                p_sum=float(p.double().sum()), plan=plan_of(solve))
             del case, solve
     if "step" in what:
-        for flow in FLOWS:
+        for flow in flows:
             case = make(flow, {"whole_step": True})
             ws = case.whole_step_kernel
             f = seeded_fields(case, 17)
@@ -138,7 +143,7 @@ def main(argv=None) -> int:
     if "tail" in what:
         from cfd_tpu_torch.kernels.mg_tail import level_masks
 
-        for flow in FLOWS:
+        for flow in flows:
             case = make(flow, {"tail_from": 1})
             tail = case.poisson_solve.tail
             lv = tail.levels[0]

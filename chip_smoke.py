@@ -9,8 +9,9 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
 1. Device and build: requires a CUDA device, prints the card's name and
    power limit (nvidia-smi), builds the kernels from csrc/ with nvcc (one
    process per source, in parallel), prints the build seconds, the
-   whole-solve and whole-step kernels' registers and their cooperative
-   grids at the most shared memory a launch plan may ask (kernels/plan.py).
+   whole-solve, whole-step and the step's finest-level tile kernels'
+   registers, and the cooperative kernels' grids at the most shared
+   memory a launch plan may ask (kernels/plan.py).
 2. Per-kernel check at the 2048^2 cavity shapes: each hand-written kernel
    of the per-kernel cavity path (mg_overrides whole_solve=False) against
    its plain PyTorch twin on the same seeded inputs on the card. Error = max |kernel - plain| / max |plain| per
@@ -60,12 +61,16 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
    (the whole-solve on the card) and with whole_solve=False: cycles equal
    every step, fields within 5e-5 relative, avg_KE within 1e-6 relative.
 8. Per-kernel check at the 2048x256 backward-step shapes: the masked carry
-   (error 0) and corrector, the masked finest-level pre and post kernels,
-   the full-2D coarse pairs on level 1 (both variants) against their twins
+   and the masked finest-level pre and post kernels (rows 9c, 9d: one
+   launch of shared-memory tiles each; error 0), the corrector and the
+   full-2D coarse pairs on level 1 (both variants) against their twins
    (1e-5) on seeded inputs with b on the fluid cells, and the masked
    whole-solve against its twin and against the per-kernel composition of
    the step's kernels (the same cycles, p within 1e-5). Times as in phase
-   2, each with its bound.
+   2, each with its bound; the pre and post kernels also with ``dev_ms``
+   and their device operations a call, counted in a torch.profiler trace
+   of one call in a fresh process (python -m cfd_tpu_torch.time_level0):
+   one launch each, the post's last block folding its residual.
 9. The step slice: make_backwards_step_case(nx=2048, ny=256,
    poisson="multigrid", tolerance_factor=1e-6, abs_tol=0.0, dtype=float32,
    print_interval=100, save_interval=100) on cuda, 300 steps in chunks of 100 with the launch
@@ -250,8 +255,10 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
     the first solid row, plane row 64, is shard 1's local row 32), for
     shards 0, 1 and 3: bit-identical to their twins on every row, and on
     the own rows equal to rows 9a, 9c and 9d (the per-kernel V(1,1)
-    solve's) on the same global rows; times on shard 1 as in phase 2, the
-    bound of one local block (its fluid cells for the operations).
+    solve's) on the same global rows; times on shard 1 as in phase 2 (the
+    pre and post kernels with ``dev_ms`` and device operations a call as
+    in phase 8), the bound of one local block (its fluid cells for the
+    operations).
 39. The sharded step: make_backwards_step_case(nx=2048, ny=256,
     tolerance_factor=1e-6, abs_tol=0) on make_mesh(4), Simulation(mesh=,
     sharded_kwargs={"tol_factor": 1e-6}), 300 steps (V(1,1), the masked
@@ -363,9 +370,10 @@ SHARDS = 4
 ADAPTIVE_RUN = (300, 100)
 
 
-# the kernels of the one-launch tile carries (csrc/carry_tile.cuh), held to
-# error 0 against their twins wherever the phases check them: kernel name ->
-# row (the shard rows 16a, 16d, 16e, 16f and their + instances through
+# the kernels of the one-launch tile carries (csrc/carry_tile.cuh) and the
+# step's finest-level tile kernels (csrc/step_vcycle.cu), held to error 0
+# against their twins wherever the phases check them: kernel name -> row
+# (the shard rows 16a, 16d, 16e, 16f and their + instances through
 # check_shard_op, which holds every shard row bit for bit)
 REDESIGNED = {"quad_corr_predictor_source": "row 1",
               "quad_corr_predictor_source_adaptive": "row 1+",
@@ -374,6 +382,8 @@ REDESIGNED = {"quad_corr_predictor_source": "row 1",
               "quad_step_corr_predictor_source": "row 9a",
               "quad_step_corr_predictor_source_adaptive": "row 9a+", "quad_rb_step": "row 10",
               "quad_rb_step_adaptive": "row 10+",
+              "quad_step_pre_smooth_restrict": "row 9c",
+              "quad_step_post_prolong_smooth": "row 9d",
               **{f"quad_whole_step_{flow}{v}": "row 15" for flow in ("cavity", "channel",
                                                                      "rb", "step")
                  for v in ("", "_bf16")}, "quad_whole_step_step_corr_opt": "row 15"}
@@ -460,8 +470,33 @@ def carry_dev_ms(fn) -> float:
 
 
 def dev_note(r: dict) -> str:
-    """A carry's device ms beside its wrapper's ms in a phase's line."""
-    return f" (device {r['dev_ms']:.4f} ms)" if "dev_ms" in r else ""
+    """A kernel's device ms (and its device operations a call) beside its
+    wrapper's ms in a phase's line."""
+    ops = f", {r['launches_a_call']} a call" if "launches_a_call" in r else ""
+    return f" (device {r['dev_ms']:.4f} ms{ops})" if "dev_ms" in r else ""
+
+
+def level0_launches(rows) -> dict:
+    """{row: device operations a call} of the step's finest-level tile
+    kernels (time_level0's rows 9c, 9d, 16f-pre, 16f-post: the main path's
+    instances on seeded inputs), each counted in a torch.profiler trace of
+    one call (profile_step.device_ops_a_call) in a fresh process of its
+    own: a process's later traces have come back without any device event
+    on the H100 machine, its first one has not. Raises unless each is one
+    launch."""
+    got = {}
+    for row in rows:
+        out = subprocess.run(
+            [sys.executable, "-m", "cfd_tpu_torch.time_level0", "smoke", "--only", row,
+             "--reps", "5"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"time_level0 exited {out.returncode}:\n{out.stderr[-4000:]}")
+        lines = [json.loads(l) for l in out.stdout.splitlines() if l.startswith("{")]
+        got[row] = lines[0]["launches_a_call"] if lines else None
+        if got[row] != 1:
+            raise AssertionError(f"row {row}: {got[row]} device operations a call, one "
+                                 "launch expected")
+    return got
 
 
 def host(out):
@@ -801,8 +836,11 @@ def check_step_kernels(case, dev) -> dict:
     got, want = pre.kernel(p, b), pre.plain(p, b)
     for name, a, w in zip(("p", "rc"), got, want):
         rel_err(a, w, f"quad_step_pre_smooth_restrict {name}", TOL_F32, errs)
+    bit_identical("quad_step_pre_smooth_restrict", errs)
+    ops = level0_launches(("9c", "9d"))
     results["quad_step_pre_smooth_restrict"] = dict(
         err=max(errs), ms=median_ms(lambda: pre.kernel(p, b)),
+        dev_ms=carry_dev_ms(lambda: pre.kernel(p, b)), launches_a_call=ops["9c"],
         plain_ms=median_ms(lambda: pre.plain(p, b)),
         **bound(nbytes(p, b, *got),
                 n_fluid * (pre.n_pairs * STEP_GS_OPS + STEP_RES_OPS) + cells // 4 * RESTRICT_OPS))
@@ -814,8 +852,10 @@ def check_step_kernels(case, dev) -> dict:
     got, want = post.kernel(p, b, ec), post.plain(p, b, ec)
     for name, a, w in zip(("p", "max|r|"), got, want):
         rel_err(a, w, f"quad_step_post_prolong_smooth {name}", TOL_F32, errs)
+    bit_identical("quad_step_post_prolong_smooth", errs)
     results["quad_step_post_prolong_smooth"] = dict(
         err=max(errs), ms=median_ms(lambda: post.kernel(p, b, ec)),
+        dev_ms=carry_dev_ms(lambda: post.kernel(p, b, ec)), launches_a_call=ops["9d"],
         plain_ms=median_ms(lambda: post.plain(p, b, ec)),
         **bound(nbytes(p, b, ec, *got),
                 n_fluid * (PROLONG_OPS + post.n_pairs * STEP_GS_OPS + STEP_RES_OPS + 1)))
@@ -1668,14 +1708,14 @@ def hold_run(what: str, iters, state, ref_iters, ref_state, exact: bool) -> None
 
 
 def check_shard_op(kname: str, op, fields, single, names, n_fields: int, P: int,
-                   extra=()) -> tuple[list, tuple]:
+                   extra=(), dev=False) -> tuple[list, tuple]:
     """One shard kernel against its twin on shards 0, 1 and 3 of a SHARDS-way
     mesh: ``fields`` are the global quad (or level-1) inputs, sliced to each
     shard's local block; every output bit-identical to the twin's, the
     first ``n_fields`` on the own rows equal to ``single`` (the
     single-device kernel's outputs) on the same global rows. Returns the
     errors and, on shard 1, (kernel ms, plain ms, bytes of one block's
-    inputs, outputs and ``extra``)."""
+    inputs, outputs and ``extra``, and with ``dev`` its dev_ms)."""
     from cfd_tpu_torch.kernels import quad as Q
 
     H = Q.DEV_HALO
@@ -1702,6 +1742,8 @@ def check_shard_op(kname: str, op, fields, single, names, n_fields: int, P: int,
             timing = (median_ms(lambda: op.kernel(rb, *args)),
                       median_ms(lambda: op.plain(rb, *args), reps=5),
                       nbytes(*args, *got, *extra))
+            if dev:
+                timing += (carry_dev_ms(lambda: op.kernel(rb, *args)),)
         log(f"  {kname} shard {jy} (row_base {rb}, global rows {lo}..{hi - 1} in the field): "
             "bit-identical to the twin, own rows equal to the single-device kernel's")
     return errs, timing
@@ -2210,17 +2252,20 @@ def check_step_shard_kernels(case, dev) -> dict:
         (SQ.SHARD_STEP_CARRY, SQ.make_quad_step_corr_predictor_source(
             shape, case.coeffs, step_i, inlet_j, carry.uin, shard=shard),
          (us, vs, p), carry.kernel(us, vs, p), ("us'", "vs'", "b", "sum_own"), 3,
-         cells * (CORRECTOR_OPS + PREDICTOR_SOURCE_OPS)),
+         cells * (CORRECTOR_OPS + PREDICTOR_SOURCE_OPS), None),
         (SQ.SHARD_STEP_PRE, pre, (p, b), pre0.kernel(p, b), ("p", "rc"), 2,
-         n_fluid * (STEP_GS_OPS + STEP_RES_OPS) + cells // 4 * RESTRICT_OPS),
+         n_fluid * (STEP_GS_OPS + STEP_RES_OPS) + cells // 4 * RESTRICT_OPS, "16f-pre"),
         (SQ.SHARD_STEP_POST, post, (p, b, ec), post0.kernel(p, b, ec), ("p", "max|r|"), 1,
-         n_fluid * (PROLONG_OPS + STEP_GS_OPS + STEP_RES_OPS + 1)))
+         n_fluid * (PROLONG_OPS + STEP_GS_OPS + STEP_RES_OPS + 1), "16f-post"))
+    ops = level0_launches(("16f-pre", "16f-post"))
     results = {}
-    for kern, op, fields, single, names, n_fields, n_ops in checks:
-        errs, (ms, plain_ms, n_bytes) = check_shard_op(kern.name, op, fields, single, names,
-                                                       n_fields, P)
+    for kern, op, fields, single, names, n_fields, n_ops, row in checks:
+        errs, (ms, plain_ms, n_bytes, *dev) = check_shard_op(
+            kern.name, op, fields, single, names, n_fields, P, dev=row is not None)
         results[kern.name] = dict(err=max(errs), ms=ms, plain_ms=plain_ms,
                                   **bound(n_bytes, n_ops))
+        if row is not None:
+            results[kern.name].update(dev_ms=dev[0], launches_a_call=ops[row])
     return results
 
 
@@ -2245,8 +2290,8 @@ def step_sharded_phases(card: str, dev) -> tuple[dict, dict]:
         f"{SHARDS}-shard mesh vs their plain twins and the single-device kernels ({card})")
     checks = check_step_shard_kernels(make(mg_overrides=v11), dev)
     for k, r in checks.items():
-        log(f"  {k:40s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), one local block  ({card})")
+        log(f"  {k:40s} kernel {r['ms']:.4f} ms{dev_note(r)}  plain {r['plain_ms']:.4f} ms  "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), one local block  ({card})")
 
     log(f"phase 39: the sharded step at {nx}x{ny} on {SHARDS} shards of the card, 300 steps "
         f"beside the single-device per-kernel V(1,1) run, then 100 with tail_from=1, then a "
@@ -2572,7 +2617,7 @@ def main() -> int:
     ptxas = path.with_suffix(".log").read_text().splitlines()
     for i, line in enumerate(ptxas):
         for kname in ("whole_solve_kernel", "whole_step_kernel", "mg_tail_kernel",
-                      "fused_pre_kernel"):
+                      "fused_pre_kernel", "step_pre_kernel", "step_post_kernel"):
             if "Compiling entry function" in line and kname in line:
                 for info in ptxas[i + 1 : i + 4]:
                     if "Function properties" not in info:
@@ -3243,7 +3288,7 @@ def main() -> int:
                             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=None,
-                            **({"dev_ms": r["dev_ms"]} if "dev_ms" in r else {})))
+                            **{k: r[k] for k in ("dev_ms", "launches_a_call") if k in r}))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s, the "
         f"build included")
     print(card, flush=True)

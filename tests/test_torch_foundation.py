@@ -187,8 +187,7 @@ def test_profile_trace_summary():
     assert not is_port_kernel("void at::native::elementwise_kernel<128, 2>(int)", names)
     assert not is_port_kernel("(anonymous namespace)::quad_half_sweep_x(int)", names)
     # the step's kernels, whose names contain other kernels' names
-    assert {"step_ghost_red", "step_black", "step_ghosts", "step_prolong_add",
-            "step_residual_restrict", "step_residual_max", "step_corrector_kernel",
+    assert {"step_pre_kernel", "step_post_kernel", "step_corrector_kernel",
             "step_carry_kernel", "fold_partials_kernel"} <= names
     # the tile carries and their shared sum launch
     assert {"cavity_carry_kernel", "channel_carry_kernel", "step_carry_kernel",
@@ -197,9 +196,10 @@ def test_profile_trace_summary():
                           names)
     assert is_port_kernel("void (anonymous namespace)::whole_solve_kernel<true>(Params)",
                           names)
-    assert is_port_kernel("(anonymous namespace)::step_ghosts(float const*, StepL0)", names)
-    assert is_port_kernel("(anonymous namespace)::step_prolong_add(float const*)", names)
-    assert not is_port_kernel("(anonymous namespace)::step_ghost(float const*)", names)
+    assert is_port_kernel("(anonymous namespace)::step_pre_kernel<false>(float const*, StepL0)",
+                          names)
+    assert is_port_kernel("(anonymous namespace)::step_post_kernel<true>(float const*)", names)
+    assert not is_port_kernel("(anonymous namespace)::step_post(float const*)", names)
     assert busy_us([(0, 10), (5, 10), (30, 5), (31, 1)]) == 20
     events = [
         dict(cat="kernel", name="(anonymous namespace)::finish<float>(int)", ts=0, dur=10),

@@ -12,20 +12,32 @@ Limits: the kernels are built with --fmad=false and repeat their twins'
 float32 operations in order, and the partial sums fold in the twins'
 order, so every output of every shard, halo rows included, is expected bit
 for bit; the runs are held to equal cycles and fields within 5e-5 of scale
-(bit-identical expected)."""
+(bit-identical expected). The block instances of the finest-level pre and
+post kernels (one launch of shared-memory tiles each) are held bit for
+bit on every shard under kernels/plan.py LEVEL0_TILES' tile, under tiles
+that do not divide the block, and under one larger than it, with their
+device operations a call counted by torch.profiler."""
 
 import numpy as np
 import pytest
 import torch
 
 from cfd_tpu_torch.cases import make_backwards_step_case
+from cfd_tpu_torch.kernels import plan as PL
 from cfd_tpu_torch.kernels import quad as TQ
 from cfd_tpu_torch.kernels import step_quad as TSQ
 from cfd_tpu_torch.ops.stencil import StencilCoeffs
 from cfd_tpu_torch.parallel import ShardedQuadProjection, make_mesh
 from cfd_tpu_torch.poisson.multigrid import step_rect_params
+from cfd_tpu_torch.profile_step import device_ops_a_call
 
 H = TQ.DEV_HALO
+# (nx, ny, mdy, tile) of the block instances: LEVEL0_TILES' tile at the
+# 2048x256 step's 4-shard blocks (the corner row, shard 1's local row 32,
+# inside a 7-row tile) and 8-row tiles (the corner row on a tile edge),
+# ragged tiles, and one larger than the 32x8 mesh's blocks
+LEVEL0_CASES = [(2048, 256, 4, None), (2048, 256, 4, (8, 32)), (2048, 256, 4, (5, 24)),
+                (512, 64, 4, (3, 7)), (512, 64, 4, None), (32, 8, 2, (1000, 5000))]
 
 
 @pytest.fixture
@@ -83,6 +95,56 @@ def test_step_shard_kernels_match_plain_on_card(cuda_device, nx, ny, mdy):
         for got, want in pairs:
             for a, w in zip(got, want, strict=True):
                 assert torch.equal(a, w), (jy, tuple(a.shape))
+
+
+def _level0_ops(nx, ny, mdy, device, tile):
+    """The step's shard pre and post kernels (V(1,1)) on an mdy-way mesh of
+    nx x ny under ``tile`` (None: LEVEL0_TILES'), and the field's shape
+    and fluid mask."""
+    case = make_backwards_step_case(nx=nx, ny=ny, poisson="multigrid", dtype=torch.float32,
+                                    device="cpu")
+    shape, g = case.grid.shape, case.grid
+    _, P, W = TQ.quad_shard_dims(shape, mdy)
+    coeffs = StencilCoeffs(dx=g.dx, dy=g.dy, dt=case.coeffs.dt, viscosity=1e-2)
+    level0 = (shape, *step_rect_params(g), coeffs.idx2, coeffs.idy2, 1.0, 1, (P + 2 * H, W))
+    pre = TSQ.make_quad_step_pre_smooth_restrict(*level0, device=device, shard=(P, mdy))
+    post = TSQ.make_quad_step_post_prolong_smooth(*level0, device=device, shard=(P, mdy))
+    if tile is not None:
+        pre._tile_plan = PL.level0_plan(pre.qshape, 1, False, block=True, tile=tile)
+        post._tile_plan = PL.level0_plan(post.qshape, 1, True, block=True, tile=tile)
+    return pre, post, shape, np.asarray(g.fluid, dtype=np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,mdy,tile", LEVEL0_CASES)
+def test_step_shard_level0_tiles_match_plain_bit_for_bit(cuda_device, nx, ny, mdy, tile):
+    pre, post, shape, fluid = _level0_ops(nx, ny, mdy, cuda_device, tile)
+    P = TQ.quad_shard_dims(shape, mdy)[1]
+    for jy in range(mdy):
+        _, _, p, b, ec = _blocks(shape, mdy, jy, cuda_device, seed=3 * nx + jy, fluid=fluid)
+        rb = jy * P - H
+        before = (TSQ.SHARD_STEP_PRE.launches, TSQ.SHARD_STEP_POST.launches)
+        pairs = [(pre(rb, p, b), pre.plain(rb, p, b)),
+                 (post(rb, p, b, ec), post.plain(rb, p, b, ec))]
+        torch.cuda.synchronize()
+        assert (TSQ.SHARD_STEP_PRE.launches, TSQ.SHARD_STEP_POST.launches) == (
+            before[0] + 1, before[1] + 1)
+        for got, want in pairs:
+            for a, w in zip(got, want, strict=True):
+                assert torch.equal(a, w), (jy, tuple(a.shape), float((a - w).abs().max()))
+    if tile == (1000, 5000):
+        assert (post._tile_plan.grid_x, post._tile_plan.grid_y) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_step_shard_level0_device_operations_a_call(cuda_device):
+    pre, post, shape, fluid = _level0_ops(2048, 256, 4, cuda_device, None)
+    P = TQ.quad_shard_dims(shape, 4)[1]
+    _, _, p, b, ec = _blocks(shape, 4, 1, cuda_device, seed=5, fluid=fluid)
+    ops = device_ops_a_call(lambda: pre(P - H, p, b))
+    assert len(ops) == 1 and "step_pre_kernel" in ops[0], ops
+    ops = device_ops_a_call(lambda: post(P - H, p, b, ec))
+    assert len(ops) == 1 and "step_post_kernel" in ops[0], ops
 
 
 def _run(sq, steps):

@@ -14,21 +14,35 @@ jax, so on a machine without JAX it runs on its own:
 Limits: the kernels are built with --fmad=false and repeat their twins'
 float32 operations in order, so fields agree within 1e-5 of their scale
 (expected: bit for bit), the whole-solve's cycle count equals its twin's
-and the per-kernel composition's, and card and CPU take equal cycles."""
+and the per-kernel composition's, and card and CPU take equal cycles. The finest-level pre and post kernels
+(one launch of shared-memory tiles each, the post's residual folded by
+its last block) are held to their twins bit for bit (torch.equal) under
+kernels/plan.py LEVEL0_TILES' tile, under tiles that do not divide the
+field and under one larger than it, with their device operations a call
+counted by torch.profiler; the masked whole-solve, which runs the same
+tile bodies, bit for bit too."""
 
 import numpy as np
 import pytest
 import torch
 
 from cfd_tpu_torch.cases import make_backwards_step_case
+from cfd_tpu_torch.kernels import plan as PL
 from cfd_tpu_torch.kernels import rb_smoother as TR
 from cfd_tpu_torch.kernels import step_quad as TS
 from cfd_tpu_torch.kernels import whole_solve as TW
 from cfd_tpu_torch.kernels.mg_tail import level_masks
 from cfd_tpu_torch.kernels.quad import to_quad
+from cfd_tpu_torch.poisson.multigrid import step_rect_params
+from cfd_tpu_torch.profile_step import device_ops_a_call
 from cfd_tpu_torch.solver import Simulation
 
 SIZES = [(256, 64), (320, 48)]
+# (nx, ny, tile) of the finest-level tile kernels: LEVEL0_TILES' tile,
+# tiles that do not divide the field (ragged rows and columns), a large
+# one, and one larger than the whole 64x16 field (cut to it: one tile)
+LEVEL0_CASES = [(256, 64, None), (256, 64, (5, 24)), (320, 48, (3, 7)),
+                (320, 48, (16, 64)), (64, 16, (1000, 5000))]
 
 
 @pytest.fixture
@@ -157,3 +171,65 @@ def test_step_slice_card_matches_cpu(cuda_device, whole_solve):
     assert ig == ic
     for name in ("u", "v", "p"):
         _close(getattr(sg, name).cpu(), getattr(sc, name), 5e-5)
+
+
+def _level0_ops(case, n_pre, n_post, tile):
+    """Fresh pre and post kernels of ``case`` at n_pre, n_post pairs, under
+    ``tile`` (None: LEVEL0_TILES')."""
+    g, mg = case.grid, case.poisson_solve
+    consts = (g.shape, *step_rect_params(g), mg.pre0.idx2, mg.pre0.idy2, mg.pre0.omega)
+    coarse = mg.pre0.coarse_shape
+    pre = TS.make_quad_step_pre_smooth_restrict(*consts, n_pre, coarse, device=case.device)
+    post = TS.make_quad_step_post_prolong_smooth(*consts, n_post, coarse, device=case.device)
+    if tile is not None:
+        pre._tile_plan = PL.level0_plan(pre.qshape, n_pre, False, tile=tile)
+        post._tile_plan = PL.level0_plan(post.qshape, n_post, True, tile=tile)
+    return pre, post
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_post", [1, 2])
+@pytest.mark.parametrize("nx,ny,tile", LEVEL0_CASES)
+def test_step_level0_tiles_match_plain_bit_for_bit(cuda_device, nx, ny, tile, n_post):
+    case = _case(nx, ny, cuda_device, mg_overrides={"whole_solve": False})
+    pre, post = _level0_ops(case, 1, n_post, tile)
+    p, b = _quad(case, 1, 1.0), _quad(case, 2, 1e2, fluid_only=True)
+    ec = torch.randn(pre.coarse_shape, device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(nx + n_post))
+    before = (TS.STEP_PRE.launches, TS.STEP_POST.launches)
+    pairs = [(pre(p, b), pre.plain(p, b)), (post(p, b, ec), post.plain(p, b, ec))]
+    torch.cuda.synchronize()
+    assert (TS.STEP_PRE.launches, TS.STEP_POST.launches) == (before[0] + 1, before[1] + 1)
+    for got, want in pairs:
+        for a, w in zip(got, want, strict=True):
+            assert torch.equal(a, w), float((a - w).abs().max())
+    if tile == (1000, 5000):
+        assert (pre._tile_plan.grid_x, pre._tile_plan.grid_y) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_post", [1, 2])
+def test_step_level0_device_operations_a_call(cuda_device, n_post):
+    case = _case(256, 64, cuda_device, mg_overrides={"whole_solve": False})
+    pre, post = _level0_ops(case, 1, n_post, None)
+    p, b = _quad(case, 1, 1.0), _quad(case, 2, 1e2, fluid_only=True)
+    ec = torch.zeros(pre.coarse_shape, device=cuda_device)
+    ops = device_ops_a_call(lambda: pre(p, b))
+    assert len(ops) == 1 and "step_pre_kernel" in ops[0], ops
+    ops = device_ops_a_call(lambda: post(p, b, ec))
+    assert len(ops) == 1 and "step_post_kernel" in ops[0], ops
+    # the running max and the count are left at 0 for the next call
+    assert post._max_acc[str(p.device)].tolist() == [0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny", SIZES)
+def test_step_whole_solve_bit_identical_on_card(cuda_device, nx, ny):
+    case = _case(nx, ny, cuda_device)
+    solve = case.poisson_solve
+    b4 = _quad(case, ny + 7, 1e3, fluid_only=True)
+    p0 = _quad(case, ny + 8, 0.1, fluid_only=True)
+    pk, ck, rk = solve(p0, b4)
+    pp, cp, rp = solve.plain(p0, b4)
+    assert int(ck) == int(cp) and float(rk) == float(rp)
+    assert torch.equal(pk, pp)
