@@ -1,6 +1,7 @@
 // One aligned (H8, W) multigrid level: its constants and the per-cell
-// red/black update, shared by the coarse-level smoother (rb_smoother.cu)
-// and the whole-solve kernel (whole_solve.cu).
+// red/black update, shared by the coarse levels' tiles (level_tile.cuh:
+// the coarse smoother, rb_smoother.cu, and the whole-solve) and the
+// whole-solve's grid-stride phases (whole_solve.cuh).
 //
 // Layout: row-major (H8, W); the interior is j in [1, ny], i in [1, nx].
 // Storage is float or bfloat16, the arithmetic always float32.

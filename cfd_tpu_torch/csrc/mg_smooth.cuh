@@ -1,17 +1,22 @@
 // Red/black Gauss-Seidel arithmetic shared by the fine-level quad kernels
-// (quad_vcycle.cu) and the coarse-level smoother (rb_smoother.cu).
+// (quad_vcycle.cu), the coarse levels' tiles (level_tile.cuh: the coarse
+// smoother, rb_smoother.cu, and the whole-solve) and the aligned levels'
+// per-cell updates (aligned_level.cuh).
 //
 // The weighted 5-point operator of cfd_tpu.poisson.multigrid:
 //   A(p) = idx2*(wE*(pE - p) + wW*(pW - p)) + idy2*(wN*(pN - p) + wS*(pS - p))
 // with separable weights: wE/wW depend on the column only, wN/wS on the
 // row only, so each kernel reads them from two short vectors.
 //
-// One red or black half-sweep is one launch: it reads the other colour's
-// values over the whole grid, so no block may start the next half-sweep
-// before every block finished this one. A half-sweep updates its colour in
-// place: a cell reads only cells of the other colour, which the launch does
-// not write, so the in-place update is race-free and equals the TPU's
-// whole-array update exactly. Red = (i + j) even = quad planes {0, 3}
+// A half-sweep reads the other colour's values around each cell. The
+// per-cell kernels (quad_vcycle.cu) run one half-sweep a launch, so that no
+// block starts the next one before every block finished this one; the tile
+// kernels (level_tile.cuh, level0_tile.cuh) run every half-sweep of a call
+// in shared memory, each on a box one cell smaller than the last, so that
+// a tile's cells need no other block's values. A half-sweep updates its
+// colour in place: a cell reads only cells of the other colour, which the
+// pass does not write, so the in-place update is race-free and equals the
+// TPU's whole-array update exactly. Red = (i + j) even = quad planes {0, 3}
 // (cfd_tpu/kernels/quad.py:569-596), updated first.
 #pragma once
 

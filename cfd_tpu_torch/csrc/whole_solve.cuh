@@ -12,6 +12,7 @@
 
 #include "aligned_level.cuh"
 #include "level0_tile.cuh"
+#include "level_tile.cuh"
 #include "quad_level0.cuh"
 #include "step_level0.cuh"
 
@@ -266,121 +267,8 @@ __device__ inline void level_solid_fill(const Sweep& s, const cfd::Level& L, con
   });
 }
 
-// one tile of an aligned level: own rows [R0, R0 + rows) x columns [C0,
-// C0 + cols), buffers of (rows + 2H) x (cols + 2H) from (oj, oi); the
-// block's compact level (below) is the tile of the whole level's interior
-// and ghost ring from (0, 0)
-struct LTile {
-  int R0, C0, rows, cols, H, oj, oi, LR, LC;
-};
-
-__device__ inline LTile make_ltile(int t, int rows, int cols, int w_ext, int H) {
-  const int ncol = (w_ext + cols - 1) / cols;
-  LTile T;
-  T.R0 = (t / ncol) * rows;
-  T.C0 = (t % ncol) * cols;
-  T.rows = rows;
-  T.cols = cols;
-  T.H = H;
-  T.oj = T.R0 - H;
-  T.oi = T.C0 - H;
-  T.LR = rows + 2 * H;
-  T.LC = cols + 2 * H;
-  return T;
-}
-
-// a level tile's shared-memory iterate, source and weights (four arrays of
-// a masked level; a separable level's vectors by local column (e, w) and
-// local row (n, s))
-struct LBuf {
-  float* p;
-  float* b;
-  float *we, *ww, *wn, *ws;
-  int full, LC;
-  __device__ __forceinline__ cfd::Weights w(int lj, int li) const {
-    if (full) {
-      const int k = lj * LC + li;
-      return {we[k], ww[k], wn[k], ws[k]};
-    }
-    return {we[li], ww[li], wn[lj], ws[lj]};
-  }
-};
-
-__device__ inline LBuf level_buf(const cfd::Level& L, const LTile& T,
-                                 float* base = dyn_smem() + kRedFloats) {
-  const int n = T.LR * T.LC;
-  float* w = base + 2 * n;
-  if (L.full) return LBuf{base, base + n, w, w + n, w + 2 * n, w + 3 * n, 1, T.LC};
-  return LBuf{base, base + n, w, w + T.LC, w + 2 * T.LC, w + 2 * T.LC + T.LR, 0, T.LC};
-}
-
-// cfd::active at local (lj, li) from the tile's weights
-__device__ __forceinline__ bool l_active(const LBuf& B, const LTile& T, int lj, int li,
-                                         const cfd::Level& L) {
-  if (!cfd::interior(T.oj + lj, T.oi + li, L)) return false;
-  if (!B.full) return true;
-  const cfd::Weights w = B.w(lj, li);
-  return L.idx2 * (w.e + w.w) + L.idy2 * (w.n + w.s) > 0.f;
-}
-
-// dst = the tile's region of level array src (0 outside it), and the
-// level's weights on the region
-__device__ inline void load_level(const float* src, float* dst, const LTile& T,
-                                  const cfd::Level& L) {
-  copy_rect(dst, T.LC, T.LR, T.LC, [&](int lj, int li) {
-    const int j = T.oj + lj, i = T.oi + li;
-    return (j >= 0 && j < L.H8 && i >= 0 && i < L.W) ? src[j * L.W + i] : 0.f;
-  });
-}
-
-__device__ inline void load_level_weights(const LBuf& B, const LTile& T, const cfd::Level& L) {
-  if (B.full) {
-    const float* g[4] = {L.wE, L.wW, L.wN, L.wS};
-    float* d[4] = {B.we, B.ww, B.wn, B.ws};
-    for (int a = 0; a < 4; ++a) load_level(g[a], d[a], T, L);
-    return;
-  }
-  for (int k = static_cast<int>(threadIdx.x); k < T.LC; k += static_cast<int>(blockDim.x)) {
-    const int i = T.oi + k;
-    const bool in = i >= 0 && i < L.W;
-    B.we[k] = in ? L.wE[i] : 0.f;
-    B.ww[k] = in ? L.wW[i] : 0.f;
-  }
-  for (int k = static_cast<int>(threadIdx.x); k < T.LR; k += static_cast<int>(blockDim.x)) {
-    const int j = T.oj + k;
-    const bool in = j >= 0 && j < L.H8;
-    B.wn[k] = in ? L.wN[j] : 0.f;
-    B.ws[k] = in ? L.wS[j] : 0.f;
-  }
-}
-
-// a half-sweep of `colour` (red 0) of a level tile in place (rb_update's
-// arithmetic) on the cells shrink + 1 from the buffer's edge
-__device__ inline void l_half_sweep(const LBuf& B, const LTile& T, const cfd::Level& L,
-                                    int colour, int shrink) {
-  const int local = (colour + T.oj + T.oi) & 1;  // the local parity of the global colour
-  update2(B.p, T.LC, shrink + 1, T.LR - shrink - 1, shrink + 1, T.LC - shrink - 1, local,
-          [&](int lj, int li) {
-    if (!l_active(B, T, lj, li, L)) return Upd{false, 0.f};
-    const float* c = B.p + lj * T.LC + li;
-    const cfd::Weights w = B.w(lj, li);
-    return Upd{true, cfd::gs_update(c[0], c[1], c[-1], c[T.LC], c[-T.LC], B.b[lj * T.LC + li],
-                                    w.e, w.w, w.n, w.s, L.idx2, L.idy2, L.omega)};
-  });
-  __syncthreads();
-}
-
-// the signed residual b - A p at local (lj, li) of a level tile, 0 off the
-// active cells (rb_residual's arithmetic)
-__device__ __forceinline__ float l_residual(const LBuf& B, const LTile& T, int lj, int li,
-                                            const cfd::Level& L) {
-  if (!l_active(B, T, lj, li, L)) return 0.f;
-  const float* c = B.p + lj * T.LC + li;
-  const cfd::Weights w = B.w(lj, li);
-  const float ap = cfd::apply_a(c[0], c[1], c[-1], c[T.LC], c[-T.LC], w.e, w.w, w.n, w.s,
-                                L.idx2, L.idy2);
-  return B.b[lj * T.LC + li] - ap;
-}
+// (a level tile, LTile, its buffers, LBuf, their loads, l_half_sweep and
+// l_residual: level_tile.cuh, shared with the coarse smoother)
 
 // Level k's way down on every tile: 2 pre half-sweeps from a zero iterate
 // (the first reads zeros, every cell it does not update is 0), the
@@ -399,7 +287,7 @@ __device__ inline void level_pre_tiles(const Params& P, int k) {
   const int nt = ((h_ext + rows - 1) / rows) * ((w_ext + cols - 1) / cols);
   for (int t = blockIdx.x; t < nt; t += gridDim.x) {
     const LTile T = make_ltile(t, rows, cols, w_ext, 2 * P.pre + 2);
-    const LBuf B = level_buf(L, T);
+    const LBuf B = level_buf(L, T, dyn_smem() + kRedFloats);
     load_level(P.b_lv[k], B.b, T, L);
     load_level_weights(B, T, L);
     s_zero(B.p, T.LR * T.LC);
@@ -442,7 +330,7 @@ __device__ inline void level_post_tiles(const Params& P, int k) {
   };
   for (int t = blockIdx.x; t < nt; t += gridDim.x) {
     const LTile T = make_ltile(t, rows, cols, L.W, 2 * P.post);
-    const LBuf B = level_buf(L, T);
+    const LBuf B = level_buf(L, T, dyn_smem() + kRedFloats);
     load_level(P.q_lv[k], B.p, T, L);
     load_level(P.b_lv[k], B.b, T, L);
     load_level_weights(B, T, L);

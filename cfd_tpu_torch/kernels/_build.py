@@ -60,7 +60,12 @@ SIGNATURES = {
     "cfd_rb_carry_grid": [_I] * 3 + [_P] * 3,
     "cfd_quad_pre_smooth_restrict": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
     "cfd_quad_post_prolong_smooth": [_P] * 9 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
-    "cfd_rb_pairs": [_I] + [_P] * 10 + [_I] * 4 + [_F] * 3 + [_I, _P],
+    # the coarse smoother: storage, p, b, out, r, res, acc, the weights,
+    # the level, n_pairs, the tile plan (kernels/plan.py pairs_plan)
+    "cfd_rb_pairs": [_I] + [_P] * 10 + [_I] * 4 + [_F] * 3 + [_I, _P, _P],
+    # its kernel readied: storage, shared memory; blocks, blocks per SM,
+    # registers out
+    "cfd_rb_pairs_grid": [_I] * 2 + [_P] * 3,
     "cfd_quad_channel_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
     # the channel's, the step's and RB's carries: the last two ints and the
     # plan as the cavity's
@@ -90,7 +95,7 @@ SIGNATURES = {
     # the pre and post tile kernels readied: post, block, shared memory;
     # blocks, blocks per SM, registers out
     "cfd_step_level0_grid": [_I] * 3 + [_P] * 3,
-    "cfd_rb_pairs_full": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I, _P],
+    "cfd_rb_pairs_full": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I, _P, _P],
     "cfd_rb_corrector": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_P],
     "cfd_rb_carry": [_P] * 13 + [_I] * 4 + [_F] * 13 + [_I, _I, _P, _P],
     # adaptive stepping: the traced-dt correctors, the traced-dt cavity

@@ -2,9 +2,9 @@
 (csrc/whole_solve.cuh Plan: the whole-solve, kernels.whole_solve, the whole
 step, kernels.whole_step, and the fused tail, kernels.mg_tail), the
 one-launch carries (csrc/carry_tile.cuh Plan, carry_plan below), the
-step's finest-level tile kernels (the same Plan, level0_plan below) and
-the whole step's, which joins the solve's and the carry's
-(whole_step_plan below).
+step's finest-level tile kernels and the coarse smoother (the same Plan,
+level0_plan and pairs_plan below) and the whole step's, which joins the
+solve's and the carry's (whole_step_plan below).
 
 Each runs one cooperative grid of one block of BLOCK_THREADS threads on
 every SM. The coarse levels from ``block_from`` down run in ONE
@@ -134,9 +134,15 @@ def level_halo(pre: int, post: int) -> int:
 def level_tile_floats(level, rows: int, cols: int, halo: int) -> int:
     """Shared-memory floats of a grid level's tile: its iterate and source,
     and its weights (four arrays on a masked level, vectors on a separable
-    one)."""
+    one; csrc/level_tile.cuh level_buf)."""
+    return ltile_floats(rows, cols, halo, not level.separable)
+
+
+def ltile_floats(rows: int, cols: int, halo: int, full: bool) -> int:
+    """level_tile_floats of a level with full-2D (``full``) or separable
+    weights."""
     lr, lc = rows + 2 * halo, cols + 2 * halo
-    return 2 * lr * lc + (4 * lr * lc if not level.separable else 2 * (lr + lc))
+    return 2 * lr * lc + (4 * lr * lc if full else 2 * (lr + lc))
 
 
 def tile_shape(Hq8: int, Wqa: int, halo: int, blocks: int, fits,
@@ -353,7 +359,8 @@ def ready_tiles(plan: CarryPlan, device, symbol: str, *which: int) -> dict:
     """Ready the tile kernel of ``symbol`` (the carries' cfd_quad_carry_grid,
     cfd_quad_channel_carry_grid, cfd_step_carry_grid, cfd_rb_carry_grid
     with ``which`` adaptive, block; the step's finest-level
-    cfd_step_level0_grid with post, block) on ``device`` for the plan's
+    cfd_step_level0_grid with post, block; the coarse smoother's
+    cfd_rb_pairs_grid with its storage) on ``device`` for the plan's
     shared memory, and raise unless the card holds a block of it. The
     modules call it once a device and instance, before their first launch
     there; returns cooperative_grid's dict."""
@@ -405,6 +412,59 @@ def level0_plan(qshape, n_pairs: int, post: bool, *, block: bool = False,
         raise ValueError(f"the step's {kind} kernel's {rows}x{cols} tile (halo {halo}) takes "
                          f"{smem} B of shared memory, more than a block's {SMEM_MAX}")
     return CarryPlan(rows, cols, halo, smem, -(-Wqa // cols), -(-Hq8 // rows))
+
+
+# ----------------------------------------------------- the coarse smoother
+
+# The tiles of the coarse red/black smoother (csrc/rb_smoother.cu: one
+# launch of one tile a block, 512 threads at 64 registers, two blocks an
+# SM). A tile's buffers are PAIRS_TILE_WIDTH columns wide, one warp's row
+# of two cells a lane (level0_tile.cuh update2), so its own columns are
+# that less twice its halo. Its rows are the most of PAIRS_TILE_ROWS (of
+# those whose buffers fit a block) whose grid gives the card two tiles an
+# SM, else the most whose grid gives one an SM (PAIRS_MIN_TILES), else
+# PAIRS_SMALL_ROWS: a large level in large tiles (their halos cost less), a
+# small one in as many tiles as its rows allow (a tile's passes are
+# latency-bound, so the card wants blocks). Chosen on an H100 by timing
+# candidates at the main path's levels (PERF.md, the coarse smoother's
+# findings); a sweep times a fresh op under another plan (time_pairs
+# --tiles); nothing overrides these but the card tests' ``tile``.
+PAIRS_TILE_WIDTH = 128
+PAIRS_TILE_ROWS = (64, 32, 16, 8)
+PAIRS_SMALL_ROWS = 4
+PAIRS_MIN_TILES = (2 * H100_SMS, H100_SMS)
+
+
+def pairs_plan(shape, n_pairs: int, residual: bool, full: bool,
+               tile: tuple[int, int] | None = None) -> CarryPlan:
+    """The plan of the coarse smoother at ``n_pairs`` red/black pairs on an
+    aligned (H8, W) level with full-2D (``full``) or separable weights: a
+    halo of 2 n_pairs cells (each half-sweep costs one), one more with the
+    ``residual`` (its stencil reads the smoothed neighbours); the tile of
+    the rule above (the card tests pass another ``tile``), cut to the level
+    where it is larger; shared memory for the tile's iterate, source and
+    weights (ltile_floats); one tile a block over the whole array, its
+    padding included. Raises when a tile does not fit a block's shared
+    memory."""
+    H8, W = shape
+    halo = 2 * n_pairs + int(residual)
+    if tile is None:
+        cols = PAIRS_TILE_WIDTH - 2 * halo
+        fits = [r for r in PAIRS_TILE_ROWS
+                if 4 * ltile_floats(r, cols, halo, full) <= SMEM_MAX]
+        rows = PAIRS_SMALL_ROWS
+        for least in PAIRS_MIN_TILES:
+            many = [r for r in fits if -(-H8 // r) * -(-W // cols) >= least]
+            if many:
+                rows = max(many)
+                break
+        tile = (rows, cols)
+    rows, cols = min(tile[0], H8), min(tile[1], W)
+    smem = 4 * ltile_floats(rows, cols, halo, full)
+    if smem > SMEM_MAX:
+        raise ValueError(f"the coarse smoother's {rows}x{cols} tile (halo {halo}) takes "
+                         f"{smem} B of shared memory, more than a block's {SMEM_MAX}")
+    return CarryPlan(rows, cols, halo, smem, -(-W // cols), -(-H8 // rows))
 
 
 # ------------------------------------------------------------- the whole step

@@ -13,9 +13,11 @@ or bfloat16 for the mixed-precision coarse hierarchy); the arithmetic is
 always float32 and the iterate is rounded to the storage type once, after
 the last half-sweep, as on the TPU (rb_smoother.py:199-200,255).
 
-The kernel is csrc/rb_smoother.cu. ``plain`` is the whole-array PyTorch
-twin (no slabs, no bands); ``forward`` sends CPU tensors to it and CUDA
-tensors to the kernel.
+The kernel is csrc/rb_smoother.cu: every instance one launch of
+shared-memory tiles a call (kernels/plan.py pairs_plan), with no memset
+and no scratch field. ``plain`` is the whole-array PyTorch twin (no
+slabs, no bands); ``forward`` sends CPU tensors to it and CUDA tensors to
+the kernel.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import torch
 from torch import nn
 
 from cfd_tpu_torch.kernels._build import Kernel, ptr, route
+from cfd_tpu_torch.kernels.plan import pairs_plan
+from cfd_tpu_torch.kernels.quad import tile_plan_ptr
 
 RB_PAIRS = Kernel("rb_pairs", "cfd_rb_pairs", "cfd_tpu_torch/csrc/rb_smoother.cu",
                   "cfd_tpu/kernels/rb_smoother.py:37")
@@ -135,27 +139,36 @@ class RBPairs(nn.Module):
         return p.to(self.dtype), r.to(self.dtype)
 
     def kernel(self, p, b):
+        """One launch of shared-memory tiles (csrc/rb_smoother.cu) under the
+        op's plan (kernels/plan.py pairs_plan unless set before its first
+        launch). The with_residual variant's running max and block count
+        are two int32 that the op keeps on each device (``_max_acc``),
+        zeroed once: every launch leaves them 0."""
         H8, W = self.shape
-        if self.full:
-            out = torch.empty_like(p)
-            r = torch.empty_like(p) if self.with_residual_field else None
-            RB_PAIRS_FULL(p, ptr(p), ptr(b), ptr(out),
-                          ptr(r) if r is not None else ctypes.c_void_p(None),
-                          ptr(self.wE), ptr(self.wW), ptr(self.wN), ptr(self.wS), H8, W,
-                          self.ny, self.nx, self.idx2, self.idy2, self.omega, self.n_pairs)
-            return out if r is None else (out, r)
+        residual = self.with_residual_field or self.with_residual
+        storage = _STORAGE[self.dtype]
+        plan = tile_plan_ptr(
+            self, lambda: pairs_plan(self.shape, self.n_pairs, residual, self.full),
+            p.device, "cfd_rb_pairs_grid", storage)
         out = torch.empty_like(p)
-        scratch = out if self.dtype == torch.float32 else torch.empty(
-            self.shape, dtype=torch.float32, device=p.device)
         r = torch.empty_like(p) if self.with_residual_field else None
-        res = (torch.empty((), dtype=torch.float32, device=p.device) if self.with_residual
-               else None)
         null = ctypes.c_void_p(None)
+        r_ptr = ptr(r) if r is not None else null
+        weights = (ptr(self.wE), ptr(self.wW), ptr(self.wN), ptr(self.wS))
+        consts = (H8, W, self.ny, self.nx, self.idx2, self.idy2, self.omega, self.n_pairs, plan)
+        if self.full:
+            RB_PAIRS_FULL(p, ptr(p), ptr(b), ptr(out), r_ptr, *weights, *consts)
+            return out if r is None else (out, r)
+        res, acc = null, null
+        if self.with_residual:
+            accs = self.__dict__.setdefault("_max_acc", {})
+            if str(p.device) not in accs:
+                accs[str(p.device)] = torch.zeros(2, dtype=torch.int32, device=p.device)
+            res = torch.empty((), dtype=torch.float32, device=p.device)
+            acc = ptr(accs[str(p.device)])
         (RB_PAIRS_RES if self.with_residual else RB_PAIRS)(
-            p, _STORAGE[self.dtype], ptr(p), ptr(b), ptr(out), ptr(scratch),
-            ptr(r) if r is not None else null, ptr(res) if res is not None else null,
-            ptr(self.wE), ptr(self.wW), ptr(self.wN), ptr(self.wS), H8, W, self.ny, self.nx,
-            self.idx2, self.idy2, self.omega, self.n_pairs)
+            p, storage, ptr(p), ptr(b), ptr(out), r_ptr,
+            ptr(res) if self.with_residual else null, acc, *weights, *consts)
         if self.with_residual:
             return out, res
         return out if r is None else (out, r)

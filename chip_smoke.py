@@ -15,10 +15,15 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
 2. Per-kernel check at the 2048^2 cavity shapes: each hand-written kernel
    of the per-kernel cavity path (mg_overrides whole_solve=False) against
    its plain PyTorch twin on the same seeded inputs on the card. Error = max |kernel - plain| / max |plain| per
-   output; limits: 1e-5 for float32 fields and scalars, 2^-7 for
-   bfloat16-stored fields; the redesigned tile carries (rows 1, 1+, 8a,
+   output; limit 1e-5; the redesigned tile carries (rows 1, 1+, 8a,
    8a+, 9a, 9a+, 10, 10+ here and in phases 5, 8, 11 and 14; their shard
-   rows in phases 32, 35, 38 and 41 with every shard kernel) error 0. Times are CUDA-event medians
+   rows in phases 32, 35, 38 and 41 with every shard kernel) error 0, and
+   so is the coarse smoother (rows 5, 5b, 5-wr here and in phases 8 and
+   25: one launch of shared-memory tiles a call), here at every level of
+   the per-kernel cavity's, channel's and RB's hierarchies in float32 and
+   bfloat16, 1 and 2 pairs, both variants; its timed instance (the
+   cavity's bf16 level 1 pre-smooth) with ``dev_ms`` and its device
+   operations a call (a child time_pairs process). Times are CUDA-event medians
    of 20 launches; each carry (rows 1, 8a, 9a, 10 in phases 2, 5, 8, 11,
    their traced-dt instances in phase 14) also has its device time,
    ``dev_ms``: CUDA events around 50 back-to-back calls with the card held
@@ -62,9 +67,12 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
    every step, fields within 5e-5 relative, avg_KE within 1e-6 relative.
 8. Per-kernel check at the 2048x256 backward-step shapes: the masked carry
    and the masked finest-level pre and post kernels (rows 9c, 9d: one
-   launch of shared-memory tiles each; error 0), the corrector and the
-   full-2D coarse pairs on level 1 (both variants) against their twins
-   (1e-5) on seeded inputs with b on the fluid cells, and the masked
+   launch of shared-memory tiles each; error 0), the corrector against
+   its twin (1e-5), the full-2D coarse pairs (row 5b: one launch of tiles
+   a call; error 0) on every level the path smooths (its two instances and
+   1-3 pairs in both variants) on seeded inputs with b on the fluid cells,
+   timed on level 1's pre-smooth with ``dev_ms`` and its device operations
+   a call (time_pairs), and the masked
    whole-solve against its twin and against the per-kernel composition of
    the step's kernels (the same cycles, p within 1e-5). Times as in phase
    2, each with its bound; the pre and post kernels also with ``dev_ms``
@@ -167,7 +175,9 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
     (limit 1e-5, bit-identical expected), times as in phase 2: the four
     stage kernels of csrc/projection.cu at the full-width aligned shapes
     (cavity 2056x2176, channel 520x1664), the with_residual pairs at the
-    cavity's aligned level 0, the step's exact masked pairs (three
+    cavity's aligned level 0 (row 5-wr, error 0, with ``dev_ms`` and its
+    device operations a call; the level's pre-smooth error 0 too), the
+    step's exact masked pairs (three
     variants) at the natural step's level 0 (512x30).
 26. The natural slices at full width, counters zeroed before each run and
     every kernel of the path required to launch: the cavity at 2048^2 with
@@ -335,7 +345,6 @@ ROOT = Path(__file__).resolve().parent
 N_MAIN = 2048
 CHANNEL = (1536, 512)
 TOL_F32 = 1e-5
-TOL_BF16 = 2.0 ** -7
 PEAK_BYTES_S = 3.35e12  # H100 SXM device memory, spec sheet
 PEAK_F32_S = 67e12      # H100 SXM float32 outside the tensor cores, spec sheet
 # float32 operations per cell, counted from the kernels' formulas: one
@@ -370,8 +379,9 @@ SHARDS = 4
 ADAPTIVE_RUN = (300, 100)
 
 
-# the kernels of the one-launch tile carries (csrc/carry_tile.cuh) and the
-# step's finest-level tile kernels (csrc/step_vcycle.cu), held to error 0
+# the kernels of the one-launch tile carries (csrc/carry_tile.cuh), the
+# step's finest-level tile kernels (csrc/step_vcycle.cu) and the coarse
+# smoother's (csrc/rb_smoother.cu, every instance), held to error 0
 # against their twins wherever the phases check them: kernel name -> row
 # (the shard rows 16a, 16d, 16e, 16f and their + instances through
 # check_shard_op, which holds every shard row bit for bit)
@@ -384,6 +394,7 @@ REDESIGNED = {"quad_corr_predictor_source": "row 1",
               "quad_rb_step_adaptive": "row 10+",
               "quad_step_pre_smooth_restrict": "row 9c",
               "quad_step_post_prolong_smooth": "row 9d",
+              "rb_pairs": "row 5", "rb_pairs_full": "row 5b", "rb_pairs_residual": "row 5-wr",
               **{f"quad_whole_step_{flow}{v}": "row 15" for flow in ("cavity", "channel",
                                                                      "rb", "step")
                  for v in ("", "_bf16")}, "quad_whole_step_step_corr_opt": "row 15"}
@@ -476,21 +487,22 @@ def dev_note(r: dict) -> str:
     return f" (device {r['dev_ms']:.4f} ms{ops})" if "dev_ms" in r else ""
 
 
-def level0_launches(rows) -> dict:
-    """{row: device operations a call} of the step's finest-level tile
-    kernels (time_level0's rows 9c, 9d, 16f-pre, 16f-post: the main path's
-    instances on seeded inputs), each counted in a torch.profiler trace of
-    one call (profile_step.device_ops_a_call) in a fresh process of its
-    own: a process's later traces have come back without any device event
-    on the H100 machine, its first one has not. Raises unless each is one
-    launch."""
+def child_launches(rows, module: str) -> dict:
+    """{row: device operations a call} of the tile kernels that the timer
+    ``module`` times on the main path's instances (time_level0's rows 9c,
+    9d, 16f-pre, 16f-post: the step's finest-level kernels; time_pairs'
+    rows 5, 5b, 5-wr: the coarse smoother), each counted in a
+    torch.profiler trace of one call (profile_step.device_ops_a_call) in a
+    fresh process of its own: a process's later traces have come back
+    without any device event on the H100 machine, its first one has not.
+    Raises unless each is one launch."""
     got = {}
     for row in rows:
         out = subprocess.run(
-            [sys.executable, "-m", "cfd_tpu_torch.time_level0", "smoke", "--only", row,
+            [sys.executable, "-m", f"cfd_tpu_torch.{module}", "smoke", "--only", row,
              "--reps", "5"], cwd=ROOT, capture_output=True, text=True, timeout=600)
         if out.returncode != 0:
-            raise AssertionError(f"time_level0 exited {out.returncode}:\n{out.stderr[-4000:]}")
+            raise AssertionError(f"{module} exited {out.returncode}:\n{out.stderr[-4000:]}")
         lines = [json.loads(l) for l in out.stdout.splitlines() if l.startswith("{")]
         got[row] = lines[0]["launches_a_call"] if lines else None
         if got[row] != 1:
@@ -594,34 +606,48 @@ def check_kernels(case, dev) -> dict:
         **bound(nbytes(p, b, ec, *got, *weights),
                 cells * (PROLONG_OPS + post.n_pairs * GS_OPS + RES_OPS + 1)))
 
-    # 5. coarse smoother: every level shape the path smooths, f32 and bf16
+    # 5. coarse smoother (row 5): every level shape the per-kernel cavity,
+    # channel and RB solves smooth, float32 and bfloat16, 1 and 2 pairs,
+    # both variants, bit-identical; timed at the cavity's bf16 level 1
+    # pre-smooth (2 pairs, the residual field), its device time and device
+    # operations a call from time_pairs (the same instance)
+    from cfd_tpu_torch.poisson.multigrid import channel_problem, neumann_problem
+
     errs, timing = [], None
-    probs = build_problems(solve_problem(case), solve.cfg)
-    for k, prob in enumerate(probs[1:-1], start=1):
-        for dt in (torch.float32, torch.bfloat16):
-            lv = _build_level(prob, dt, dev)
-            tol = TOL_F32 if dt == torch.float32 else TOL_BF16
-            H8, W = lv.shape
-            a = np.zeros((H8, W), np.float32)
-            a[1 : prob.ny + 1, 1 : prob.nx + 1] = rng.standard_normal((prob.ny, prob.nx))
-            bb = torch.from_numpy(a * 1e2).to(dev, dt)
-            pp = torch.from_numpy(a * 0.1).to(dev, dt)
-            for n_pairs, field_variant in ((solve.cfg.pre_sweeps, True),
-                                           (solve.cfg.post_sweeps, False)):
-                sm = rb_pairs_for_level(lv, solve.cfg.omega, n_pairs,
-                                        with_residual_field=field_variant)
-                got, want = sm.kernel(pp, bb), sm.plain(pp, bb)
-                got = got if field_variant else (got,)
-                want = want if field_variant else (want,)
-                tag = f"rb_pairs L{k} {tuple(lv.shape)} {str(dt)[6:]} n={n_pairs}"
-                for name, x, y in zip(("p", "r"), got, want):
-                    rel_err(x, y, f"{tag} {name}", tol, errs)
-                if k == 1 and dt == torch.bfloat16 and field_variant:
-                    timing = dict(ms=median_ms(lambda: sm.kernel(pp, bb)),
-                                  plain_ms=median_ms(lambda: sm.plain(pp, bb)),
-                                  **bound(nbytes(pp, bb, *got, sm.wE, sm.wW, sm.wN, sm.wS),
-                                          prob.nx * prob.ny * (n_pairs * GS_OPS + RES_OPS)))
+    hierarchies = (("cavity", solve_problem(case)),
+                   ("channel", channel_problem(*CHANNEL, 3.0 / CHANNEL[0], 1.0 / CHANNEL[1])),
+                   ("rb", neumann_problem(*RB_SHAPE, 3.0 / RB_SHAPE[0], 1.0 / RB_SHAPE[1])))
+    for flow, problem in hierarchies:
+        probs = build_problems(problem, solve.cfg)
+        for k, prob in enumerate(probs[1:-1], start=1):
+            for dt in (torch.float32, torch.bfloat16):
+                lv = _build_level(prob, dt, dev)
+                H8, W = lv.shape
+                a = np.zeros((H8, W), np.float32)
+                a[1 : prob.ny + 1, 1 : prob.nx + 1] = rng.standard_normal((prob.ny, prob.nx))
+                bb = torch.from_numpy(a * 1e2).to(dev, dt)
+                pp = torch.from_numpy(a * 0.1).to(dev, dt)
+                for n_pairs, field_variant in ((2, True), (1, False), (1, True), (2, False)):
+                    sm = rb_pairs_for_level(lv, solve.cfg.omega, n_pairs,
+                                            with_residual_field=field_variant)
+                    got, want = sm.kernel(pp, bb), sm.plain(pp, bb)
+                    got = got if field_variant else (got,)
+                    want = want if field_variant else (want,)
+                    tag = f"rb_pairs {flow} L{k} {tuple(lv.shape)} {str(dt)[6:]} n={n_pairs}"
+                    for name, x, y in zip(("p", "r"), got, want):
+                        rel_err(x, y, f"{tag} {name}", TOL_F32, errs)
+                    if (flow, k, dt, n_pairs, field_variant) == ("cavity", 1, torch.bfloat16,
+                                                                solve.cfg.pre_sweeps, True):
+                        timing = dict(ms=median_ms(lambda: sm.kernel(pp, bb)),
+                                      dev_ms=carry_dev_ms(lambda: sm.kernel(pp, bb)),
+                                      plain_ms=median_ms(lambda: sm.plain(pp, bb)),
+                                      **bound(nbytes(pp, bb, *got, sm.wE, sm.wW, sm.wN, sm.wS),
+                                              prob.nx * prob.ny * (n_pairs * GS_OPS + RES_OPS)))
+    bit_identical("rb_pairs", errs)
+    timing["launches_a_call"] = child_launches(("5",), "time_pairs")["5"]
     results["rb_pairs"] = dict(err=max(errs), **timing)
+    log(f"  rb_pairs (cavity L1 bf16, n=2, residual field): {timing['ms']:.4f} ms"
+        f"{dev_note(timing)}, bound {timing['bound_ms']:.4f} ms")
     return results
 
 
@@ -793,6 +819,7 @@ def check_step_kernels(case, dev) -> dict:
     """Phase 8: the step's kernels against their twins at its shapes."""
     from cfd_tpu_torch.kernels.mg_tail import level_masks
     from cfd_tpu_torch.kernels.quad import to_quad
+    from cfd_tpu_torch.kernels.rb_smoother import rb_pairs_for_level
 
     rng = np.random.default_rng(2056)
     g = case.grid
@@ -837,7 +864,7 @@ def check_step_kernels(case, dev) -> dict:
     for name, a, w in zip(("p", "rc"), got, want):
         rel_err(a, w, f"quad_step_pre_smooth_restrict {name}", TOL_F32, errs)
     bit_identical("quad_step_pre_smooth_restrict", errs)
-    ops = level0_launches(("9c", "9d"))
+    ops = child_launches(("9c", "9d"), "time_level0")
     results["quad_step_pre_smooth_restrict"] = dict(
         err=max(errs), ms=median_ms(lambda: pre.kernel(p, b)),
         dev_ms=carry_dev_ms(lambda: pre.kernel(p, b)), launches_a_call=ops["9c"],
@@ -860,27 +887,37 @@ def check_step_kernels(case, dev) -> dict:
         **bound(nbytes(p, b, ec, *got),
                 n_fluid * (PROLONG_OPS + post.n_pairs * STEP_GS_OPS + STEP_RES_OPS + 1)))
 
-    # the full-2D pairs on every level the path smooths; timed on level 1
+    # the full-2D pairs (row 5b) on every level the path smooths, the path's
+    # two instances and 1-3 pairs in both variants, bit-identical; timed on
+    # level 1's pre-smooth, its device time and device operations a call
+    # from time_pairs (the same instance)
     errs, timing = [], None
     for k, lv in enumerate(mg.levels[:-1]):
         _, active = level_masks(lv, dev)
         pp = torch.from_numpy(rng.standard_normal(lv.shape).astype(np.float32) * 0.1).to(dev)
         bb = torch.from_numpy(rng.standard_normal(lv.shape).astype(np.float32) * 1e2).to(dev)
         pp, bb = pp * active, bb * active
-        for sm in (mg.pre[k], mg.post[k]):
+        others = [rb_pairs_for_level(lv, mg.cfg.omega, n, with_residual_field=f)
+                  for n in (1, 2, 3) for f in (True, False)]
+        for sm in (mg.pre[k], mg.post[k], *others):
             got, want = sm.kernel(pp, bb), sm.plain(pp, bb)
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             tag = f"rb_pairs_full L{k + 1} {tuple(lv.shape)} n={sm.n_pairs}"
             for name, x, y in zip(("p", "r"), got, want):
                 rel_err(x, y, f"{tag} {name}", TOL_F32, errs)
-            if k == 0 and sm.with_residual_field:
+            if k == 0 and sm is mg.pre[k]:
                 n_act = int(active.sum())
                 timing = dict(ms=median_ms(lambda: sm.kernel(pp, bb)),
+                              dev_ms=carry_dev_ms(lambda: sm.kernel(pp, bb)),
                               plain_ms=median_ms(lambda: sm.plain(pp, bb)),
                               **bound(nbytes(pp, bb, *got, sm.wE, sm.wW, sm.wN, sm.wS),
                                       n_act * (sm.n_pairs * GS_OPS + RES_OPS)))
+    bit_identical("rb_pairs_full", errs)
+    timing["launches_a_call"] = child_launches(("5b",), "time_pairs")["5b"]
     results["rb_pairs_full"] = dict(err=max(errs), **timing)
+    log(f"  rb_pairs_full (step L1, n={mg.pre[0].n_pairs}, residual field): "
+        f"{timing['ms']:.4f} ms{dev_note(timing)}, bound {timing['bound_ms']:.4f} ms")
 
     # the masked whole-solve on a seeded, fluid-mean-free source
     bn = np.where(g.fluid, rng.standard_normal(shape), 0.0)
@@ -1583,6 +1620,18 @@ def check_natural_kernels(dev) -> dict:
     timed(RB_PAIRS_RES.name, lambda: post.kernel(p0, b), lambda: post.plain(p0, b),
           lambda got: nbytes(p0, b, *got, post.wE, post.wW, post.wN, post.wS),
           N_MAIN * N_MAIN * (post.n_pairs * GS_OPS + RES_OPS), ("p", "max|r|"))
+    # row 5-wr redesigned: error 0, its device time and device operations a
+    # call (time_pairs, the same instance); the level's pre-smooth (row 5's
+    # entry point, 2 pairs and the residual field) bit-identical too
+    errs = [results[RB_PAIRS_RES.name]["err"]]
+    for name, x, y in zip(("p", "r"), solve.pre0.kernel(p0, b), solve.pre0.plain(p0, b)):
+        rel_err(x, y, f"rb_pairs natural level 0 pre-smooth {name}", TOL_F32, errs)
+    bit_identical(RB_PAIRS_RES.name, errs)
+    results[RB_PAIRS_RES.name].update(
+        dev_ms=carry_dev_ms(lambda: post.kernel(p0, b)),
+        launches_a_call=child_launches(("5-wr",), "time_pairs")["5-wr"])
+    log(f"  {RB_PAIRS_RES.name}: {results[RB_PAIRS_RES.name]['ms']:.4f} ms"
+        f"{dev_note(results[RB_PAIRS_RES.name])}")
     del cav, ch, solve
     # the step's exact masked pairs at the natural step's level 0, three
     # variants, V(2,2); the plain and the field variant share an entry point,
@@ -2257,7 +2306,7 @@ def check_step_shard_kernels(case, dev) -> dict:
          n_fluid * (STEP_GS_OPS + STEP_RES_OPS) + cells // 4 * RESTRICT_OPS, "16f-pre"),
         (SQ.SHARD_STEP_POST, post, (p, b, ec), post0.kernel(p, b, ec), ("p", "max|r|"), 1,
          n_fluid * (PROLONG_OPS + STEP_GS_OPS + STEP_RES_OPS + 1), "16f-post"))
-    ops = level0_launches(("16f-pre", "16f-post"))
+    ops = child_launches(("16f-pre", "16f-post"), "time_level0")
     results = {}
     for kern, op, fields, single, names, n_fields, n_ops, row in checks:
         errs, (ms, plain_ms, n_bytes, *dev) = check_shard_op(

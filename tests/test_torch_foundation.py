@@ -181,9 +181,9 @@ def test_profile_trace_summary():
 
     names = port_kernel_names()
     assert {"corrector_kernel", "predictor_source_kernel", "quad_half_sweep",
-            "half_sweep", "finish", "whole_solve_kernel"} <= names
+            "pairs_kernel", "whole_solve_kernel"} <= names
     assert is_port_kernel("(anonymous namespace)::quad_half_sweep(float const*, int)", names)
-    assert is_port_kernel("void (anonymous namespace)::half_sweep<float, float>(int)", names)
+    assert is_port_kernel("void (anonymous namespace)::pairs_kernel<float>(int)", names)
     assert not is_port_kernel("void at::native::elementwise_kernel<128, 2>(int)", names)
     assert not is_port_kernel("(anonymous namespace)::quad_half_sweep_x(int)", names)
     # the step's kernels, whose names contain other kernels' names
@@ -202,7 +202,7 @@ def test_profile_trace_summary():
     assert not is_port_kernel("(anonymous namespace)::step_post(float const*)", names)
     assert busy_us([(0, 10), (5, 10), (30, 5), (31, 1)]) == 20
     events = [
-        dict(cat="kernel", name="(anonymous namespace)::finish<float>(int)", ts=0, dur=10),
+        dict(cat="kernel", name="(anonymous namespace)::pairs_kernel<float>(int)", ts=0, dur=10),
         dict(cat="kernel", name="at::native::add(int)", ts=5, dur=10),
         dict(cat="gpu_memset", name="Memset (Device)", ts=40, dur=20),
         dict(cat="cuda_runtime", name="cudaLaunchKernel", ts=0, dur=100),
@@ -212,4 +212,4 @@ def test_profile_trace_summary():
     assert s["idle_share"] == pytest.approx(0.65)
     assert (s["port_launches_per_step"], s["other_launches_per_step"]) == (0.5, 1.0)
     assert s["port_ms_per_step"] == pytest.approx(0.005)
-    assert [t["name"] for t in s["port"]] == ["(anonymous namespace)::finish<float>(int)"]
+    assert [t["name"] for t in s["port"]] == ["(anonymous namespace)::pairs_kernel<float>(int)"]
