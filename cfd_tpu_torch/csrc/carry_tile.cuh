@@ -418,6 +418,25 @@ __device__ __forceinline__ void block_max(const float (&v)[N], float* out) {
   }
 }
 
+// The block's max of v >= 0 folded into a launch's running max, moved
+// into *res by the last block to finish: acc holds the running max (int
+// bits) and the blocks' count, both 0 before the launch and left 0 after
+// it, so no launch zeroes them (a __threadfence and an atomic count order
+// every block's fold before the last block's read). Every thread of every
+// block of the grid calls it.
+__device__ __forceinline__ void fold_max_into(float v, unsigned int* acc, float* res) {
+  const float m[1] = {v};
+  block_max(m, reinterpret_cast<float*>(acc));
+  if (threadIdx.x == 0) {  // the thread that folded the block's max into acc[0]
+    __threadfence();
+    if (atomicAdd(acc + 1, 1u) == gridDim.x * gridDim.y - 1) {
+      __threadfence();
+      *res = __uint_as_float(atomicExch(acc, 0u));
+      atomicExch(acc + 1, 0u);
+    }
+  }
+}
+
 // Whether flat quad index k of a (4, Hq8, Wqa) block lies in its own plane
 // rows [halo, Hq8 - halo) (cfd::own_row in 32 bits)
 __device__ __forceinline__ bool own_row32(int k, int Hq8, int Wqa, int halo) {

@@ -1,12 +1,13 @@
 // The finest multigrid level in shared-memory tiles: the block-level
 // loops, the tile machinery (a tile's buffers, their loads and stores, the
-// level-1 correction's tile and its prolongation) and the backward step's
-// exact masked arithmetic on a tile, with the bodies of its pre and post
-// kernels on one tile. Shared by the whole-solve (whole_solve.cuh: every
-// tile of a whole field inside its cooperative grid, the separable level
-// too) and the step's standalone finest-level kernels (step_vcycle.cu: one
-// tile a block, on a whole field or a shard's local block), so that the
-// two run the same bodies.
+// level-1 correction's tile and its prolongation) and the bodies of the
+// pre and post kernels on one tile, for the separable level (the
+// quad_level0.cuh arithmetic: the cavity, the channel, RB) and for the
+// backward step's exact masked level. Shared by the whole-solve
+// (whole_solve.cuh: every tile of a whole field inside its cooperative
+// grid) and the standalone finest-level kernels (quad_vcycle.cu,
+// step_vcycle.cu: one tile a block, on a whole field or a shard's local
+// block), so that the two run the same bodies.
 //
 // A tile is the block's own plane rows [R0, R0 + rows) x columns [C0, C0 +
 // cols) of all four planes, loaded with a halo of h plane rows and columns
@@ -21,19 +22,21 @@
 // deep as the stages need (kernels/plan.py halos); the tile writes its own
 // cells only.
 //
-// Local blocks (kBlock; the shard kernels of row 16f, step_level0.cuh): the
+// Local blocks (kBlock; the shard kernels of rows 16b, 16c and 16f): the
 // arrays are a shard's (4, P + 16, Wqa) block at global plane row row0, so
-// j is global in every mask, ghost and interface test; stage ``lo`` of the
-// ledger writes only the rows of its band (step_in_band), a cell outside
-// the band keeping its input; a position outside the block stays 0 (no
-// band reaches it, and the prolongation adds nothing there); a residual
-// outside the block is 0; and the level-1 correction's row Hq8 of the
-// coarse tile reads the block's row 0 (the wrap of quad_prolong_corr, the
-// TPU kernel's roll). The whole-field instances (kBlock false) fold the
-// offset, the bands and the wrap away at compile time.
+// j is global in every mask, weight, ghost and interface test; stage
+// ``lo`` of the ledger writes only the rows of its band (in_band,
+// step_in_band), a cell outside the band keeping its input; a position
+// outside the block stays 0 (no band reaches it, and the prolongation
+// adds nothing there); a residual outside the block is 0; and the level-1
+// correction's row Hq8 of the coarse tile reads the block's row 0 (the
+// TPU kernel's roll within its slab, quad.py:762-767). The whole-field
+// instances (kBlock false) fold the offset, the bands and the wrap away at
+// compile time.
 #pragma once
 
 #include "common.cuh"
+#include "quad_level0.cuh"
 #include "step_level0.cuh"
 
 namespace cfd {
@@ -171,6 +174,29 @@ __device__ inline void store_tile(const float* buf, const Tile& T, int Hq8, int 
   });
 }
 
+// Whether the tile's own cells all lie outside the domain's logical rows
+// [0, ny + 1] or columns [0, nx + 1] (the padding columns; a block's rows
+// beyond the field): no stage changes them and their residual and level-1
+// source are 0, so the standalone kernels copy them (copy_own) without
+// staging
+__device__ __forceinline__ bool tile_outside(const Tile& T, int ny, int nx) {
+  const int j0 = 2 * (T.R0 + T.row0), i0 = 2 * T.C0;
+  return i0 > nx + 1 || j0 > ny + 1 || j0 + 2 * T.rows - 1 < 0;
+}
+
+// dst = src on the tile's own cells of (4, Hq8, Wqa) fields
+__device__ inline void copy_own(const float* src, float* dst, const Tile& T, int Hq8, int Wqa) {
+  const long long plane = static_cast<long long>(Hq8) * Wqa;
+  each_cell(T.R0, min(T.R0 + T.rows, Hq8), T.C0, min(T.C0 + T.cols, Wqa), [&](int gr, int gc) {
+    const long long g = static_cast<long long>(gr) * Wqa + gc;
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = src[q * plane + g];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dst[q * plane + g] = v[q];
+  });
+}
+
 // The level-1 correction rows [R0 - h, R0 + rows + h] x columns [C0 - h, C0
 // + cols + h] of aligned (Hq8, Wqa) array ec, the rows and columns the
 // tile's prolongation reads, read at the global coarse row J
@@ -182,9 +208,9 @@ struct CoarseTile {
   }
 };
 
-// kWrap (a local block): the array's row Hq8 is its row 0, as
-// quad_prolong_corr's (Jl + 1) % Hq8; elsewhere a row outside the array
-// reads 0 (no fluid cell of a whole field reads one)
+// kWrap (a local block): the array's row Hq8 is its row 0, as the
+// twins' torch.roll(ec, -1) within the block; elsewhere a row outside the
+// array reads 0 (no fluid cell of a whole field reads one)
 template <bool kWrap = false>
 __device__ inline CoarseTile load_coarse_tile(const float* ec, const Tile& T, int Hq8, int Wqa,
                                               float* buf) {
@@ -199,10 +225,10 @@ __device__ inline CoarseTile load_coarse_tile(const float* ec, const Tile& T, in
   return CoarseTile{buf, T.R0 - T.h + T.row0, T.C0 - T.h, cols};
 }
 
-// quad_prolong_corr's arithmetic at logical (j, i) from a coarse tile: the
-// 9-3-3-1 prolongation of the level-1 correction with the edge clamps on
-// J = 0, J = ny/2, I = 0, I = nx/2 (a cell of the interior reads rows J,
-// J + 1 and columns I, I + 1, all in the tile)
+// The 9-3-3-1 prolongation of the level-1 correction at logical (j, i)
+// from a coarse tile, with the edge clamps on J = 0, J = ny/2, I = 0, I =
+// nx/2 (cfd_tpu/kernels/quad.py:741-760; a cell of the interior reads rows
+// J, J + 1 and columns I, I + 1, all in the tile)
 __device__ __forceinline__ float tile_prolong_corr(const CoarseTile& E, int j, int i, int ny,
                                                    int nx) {
   const int r = j & 1, s = i & 1, J = j >> 1, I = i >> 1;
@@ -229,6 +255,152 @@ struct TileView {
     return a[(j - oj) * LC + (i - oi)];
   }
 };
+
+// ------------------------------- the separable finest level (quad_level0.cuh)
+
+// the tile's weight vectors in shared memory, by local column (e, w) and
+// local row (n, s); 0 outside the array (on a block, j global: L.wN and
+// L.wS are indexed by the global row)
+struct TileW {
+  float *e, *w, *n, *s;
+};
+
+// The floats of the weight vectors of a tile
+__device__ __forceinline__ int tile_weight_floats(const Tile& T) { return 2 * (T.LR + T.LC); }
+
+template <bool kBlock>
+__device__ inline TileW load_tile_weights(const cfd::Level0& L, const Tile& T, float* buf) {
+  const TileW W{buf, buf + T.LC, buf + 2 * T.LC, buf + 2 * T.LC + T.LR};
+  for (int k = static_cast<int>(threadIdx.x); k < T.LC; k += static_cast<int>(blockDim.x)) {
+    const int i = T.oi + k;
+    const bool in = i >= 0 && i < 2 * L.Wqa;
+    W.e[k] = in ? L.wE[i] : 0.f;
+    W.w[k] = in ? L.wW[i] : 0.f;
+  }
+  for (int k = static_cast<int>(threadIdx.x); k < T.LR; k += static_cast<int>(blockDim.x)) {
+    const int j = T.oj + k, jl = kBlock ? j - 2 * T.row0 : j;
+    const bool in = jl >= 0 && jl < 2 * L.Hq8;
+    W.n[k] = in ? L.wN[j] : 0.f;
+    W.s[k] = in ? L.wS[j] : 0.f;
+  }
+  return W;
+}
+
+// signed residual b - A p at local (lj, li) of a tile (quad_residual): 0
+// off the interior and outside a block
+template <bool kBlock>
+__device__ __forceinline__ float sep_residual(const float* p, const float* b, const TileW& W,
+                                              const Tile& T, int lj, int li,
+                                              const cfd::Level0& L) {
+  const int j = T.oj + lj;
+  if (!cfd::interior(j, T.oi + li, L)) return 0.f;
+  if constexpr (kBlock) {
+    const int jl = j - 2 * T.row0;
+    if (jl < 0 || jl >= 2 * L.Hq8) return 0.f;
+  }
+  const int k = lj * T.LC + li;
+  const float* c = p + k;
+  const float ap = cfd::apply_a(c[0], c[1], c[-1], c[T.LC], c[-T.LC], W.e[li], W.w[li],
+                                W.n[lj], W.s[lj], L.idx2, L.idy2);
+  return b[k] - ap;
+}
+
+// n_pairs red/black pairs of the tile's iterate p in place (quad_gs),
+// half-sweep k (from 1) on the band k + shift of a block
+template <bool kBlock>
+__device__ inline void sep_pairs(float* p, const float* b, const TileW& W, const Tile& T,
+                                 const cfd::Level0& L, int n_pairs, int shift) {
+  for (int k = 0; k < 2 * n_pairs; ++k) {
+    update2(p, T.LC, k + 1, T.LR - k - 1, k + 1, T.LC - k - 1, k & 1, [&](int lj, int li) {
+      const int j = T.oj + lj;
+      if (!cfd::interior(j, T.oi + li, L)) return Upd{false, 0.f};
+      if (kBlock && !cfd::in_band((j >> 1) - T.row0, k + 1 + shift, L)) return Upd{false, 0.f};
+      const float* c = p + lj * T.LC + li;
+      return Upd{true, cfd::gs_update(c[0], c[1], c[-1], c[T.LC], c[-T.LC], b[lj * T.LC + li],
+                                      W.e[li], W.w[li], W.n[lj], W.s[lj], L.idx2, L.idy2,
+                                      L.omega)};
+    });
+    __syncthreads();
+  }
+}
+
+// The floats of the separable bodies' buffers: the iterate, the source and
+// the weight vectors; the post body's coarse tile follows them
+__device__ __forceinline__ int sep_tile_floats(const Tile& T) {
+  return 2 * T.LR * T.LC + tile_weight_floats(T);
+}
+
+// The separable pre body on tile T from shared memory buf: n_pairs pairs
+// from src (half-sweeps 1..), the result into dst (own cells), then rc(idx,
+// v) with the residual's full weighting (quad_restrict_value) at each own
+// coarse cell idx of the (Hq8, Wqa) level-1 array: 0.25 * the four
+// residuals of its children on the coarse interior (the global coarse row
+// Jc), else 0. Every thread of the block calls it.
+template <bool kBlock, class Rc>
+__device__ inline void sep_pre_tile(const Tile& T, const float* src, const float* b0, float* dst,
+                                    const cfd::Level0& L, int n_pairs, float* buf, Rc rc) {
+  float* p = buf;
+  float* b = p + T.LR * T.LC;
+  load_tile(src, b0, T, L.Hq8, L.Wqa, p, b);
+  const TileW W = load_tile_weights<kBlock>(L, T, b + T.LR * T.LC);
+  __syncthreads();
+  sep_pairs<kBlock>(p, b, W, T, L, n_pairs, 0);
+  store_tile(p, T, L.Hq8, L.Wqa, dst);
+  each_cell(T.R0, min(T.R0 + T.rows, L.Hq8), T.C0, min(T.C0 + T.cols, L.Wqa),
+            [&](int Jl, int Ic) {
+              const int Jc = Jl + (kBlock ? T.row0 : 0);
+              float v = 0.f;
+              if (Jc >= 1 && Jc <= L.ny / 2 && Ic >= 1 && Ic <= L.nx / 2) {
+                const int lj = 2 * Jc - T.oj, li = 2 * Ic - T.oi;
+                v = 0.25f * (sep_residual<kBlock>(p, b, W, T, lj, li, L) +
+                             sep_residual<kBlock>(p, b, W, T, lj, li - 1, L) +
+                             sep_residual<kBlock>(p, b, W, T, lj - 1, li, L) +
+                             sep_residual<kBlock>(p, b, W, T, lj - 1, li - 1, L));
+              }
+              rc(static_cast<long long>(Jl) * L.Wqa + Ic, v);
+            });
+  __syncthreads();
+}
+
+// The separable post body on tile T from shared memory buf: the
+// prolong-add of the level-1 correction ec on the interior cells of the
+// array (tile_prolong_corr), n_pairs pairs (half-sweeps 2..: a
+// block's bands start one row further in, as the prolongation's row J + 1
+// wraps), the result into dst (own cells); returns r folded with the max
+// |b - A p| over the tile's own cells (of a block's own rows [halo, Hq8 -
+// halo)). Every thread of the block calls it.
+template <bool kBlock>
+__device__ inline float sep_post_tile(const Tile& T, const float* src, const float* b0,
+                                      const float* ec, float* dst, const cfd::Level0& L,
+                                      int n_pairs, float* buf, float r) {
+  float* p = buf;
+  float* b = p + T.LR * T.LC;
+  load_tile(src, b0, T, L.Hq8, L.Wqa, p, b);
+  const TileW W = load_tile_weights<kBlock>(L, T, b + T.LR * T.LC);
+  const CoarseTile E = load_coarse_tile<kBlock>(ec, T, L.Hq8, L.Wqa, buf + sep_tile_floats(T));
+  __syncthreads();
+  update2(p, T.LC, 0, T.LR, 0, T.LC, -1, [&](int lj, int li) {
+    const int j = T.oj + lj, i = T.oi + li;
+    if (!cfd::interior(j, i, L)) return Upd{false, 0.f};
+    if constexpr (kBlock) {
+      const int J = (j >> 1) - T.row0;  // the array's plane row
+      if (J < 0 || J >= L.Hq8) return Upd{false, 0.f};
+    }
+    return Upd{true, p[lj * T.LC + li] + tile_prolong_corr(E, j, i, L.ny, L.nx)};
+  });
+  __syncthreads();
+  sep_pairs<kBlock>(p, b, W, T, L, n_pairs, 1);
+  store_tile(p, T, L.Hq8, L.Wqa, dst);
+  each_cell(2 * T.h, 2 * (T.h + T.rows), 2 * T.h, 2 * (T.h + T.cols), [&](int lj, int li) {
+    const int J = ((T.oj + lj) >> 1) - (kBlock ? T.row0 : 0);
+    const bool own = kBlock ? J >= L.halo && J < L.Hq8 - L.halo : J < L.Hq8;
+    if (own && ((T.oi + li) >> 1) < L.Wqa) {
+      r = cfd::bits_max(r, fabsf(sep_residual<kBlock>(p, b, W, T, lj, li, L)));
+    }
+  });
+  __syncthreads();
+  return r;
+}
 
 // ------------------------------------- the masked finest level (step_level0.cuh)
 

@@ -1,9 +1,10 @@
-// The finest multigrid level on the quad layout: its constants and the
-// per-cell arithmetic of the half-sweep, the residual, the full-weighting
-// restriction into level 1 and the 9-3-3-1 prolongation from level 1.
-// Shared by the per-kernel V-cycle kernels (quad_vcycle.cu, on a whole field
-// or on a shard's local block) and the whole-solve kernel (whole_solve.cu),
-// so that the index math is written once. On a local block (row0 != 0,
+// The finest multigrid level on the quad layout: its constants, the
+// interior and band tests, and the per-cell arithmetic of the half-sweep,
+// the residual and the full-weighting restriction into level 1. The
+// constants and tests serve the tile bodies of level0_tile.cuh (the
+// separable pre and post kernels, quad_vcycle.cu, and the whole-solve,
+// whole_solve.cuh); the per-cell arithmetic the fused-pre carry's
+// grid-stride phases (quad_fused_pre.cu). On a local block (row0 != 0,
 // common.cuh) every j is global: the masks and the row vectors keep their
 // global meaning, the loads subtract 2 * row0, and a residual outside the
 // block is 0.
@@ -80,46 +81,6 @@ __device__ __forceinline__ float quad_restrict_value(const float* p, const float
   int j = 2 * Jc, i = 2 * Ic;
   return 0.25f * (quad_residual(p, b, j, i, L) + quad_residual(p, b, j, i - 1, L) +
                   quad_residual(p, b, j - 1, i, L) + quad_residual(p, b, j - 1, i - 1, L));
-}
-
-// The bilinear 9-3-3-1 prolongation of the aligned (Hq8, Wqa) level-1
-// correction ec at quad cell c, with the edge clamps of quad.py:741-760 on
-// the global row J; row J + 1 wraps within the block, as the TPU kernel's
-// roll within its slab
-__device__ __forceinline__ float quad_prolong_corr(const float* ec, const QuadCell& c,
-                                                   int Hq8, int Wqa, int ny, int nx,
-                                                   int row0 = 0) {
-  const int r = c.q >> 1, s = c.q & 1, J = c.j >> 1, I = c.i >> 1;
-  const int nyc = ny / 2, nxc = nx / 2, W = Wqa, Jl = J - row0;
-  const int J1 = (Jl + 1) % Hq8;  // jnp.roll(ec, -1, axis=0)
-  auto rowmix = [&](int col) {
-    float e0 = ec[static_cast<long long>(Jl) * W + col];
-    float e1 = ec[static_cast<long long>(J1) * W + col];
-    float ecJ0 = (J == 0) ? e1 : e0;    // clamp the J = 0 ghost to row 1
-    float ecJ1 = (J == nyc) ? e0 : e1;  // clamp J + 1 > nyc to row nyc
-    return r == 0 ? 0.75f * ecJ0 + 0.25f * ecJ1 : 0.25f * ecJ0 + 0.75f * ecJ1;
-  };
-  float rm = rowmix(I);
-  float rm1 = rowmix((I + 1) % W);
-  float m0 = (I == 0) ? rm1 : rm;
-  float m1 = (I == nxc) ? rm : rm1;
-  return s == 0 ? 0.75f * m0 + 0.25f * m1 : 0.25f * m0 + 0.75f * m1;
-}
-
-// p + prolong(ec) at quad cell idx on the interior, p elsewhere
-__device__ __forceinline__ float quad_prolong_add_value(const float* p, const float* ec,
-                                                        long long idx, const Level0& L) {
-  QuadCell c = quad_cell(idx, L.Hq8, L.Wqa, L.row0);
-  float pc = p[idx];
-  if (!interior(c.j, c.i, L)) return pc;
-  return pc + quad_prolong_corr(ec, c, L.Hq8, L.Wqa, L.ny, L.nx, L.row0);
-}
-
-// |b - A p| at quad cell idx (0 outside the interior)
-__device__ __forceinline__ float quad_abs_residual(const float* p, const float* b,
-                                                   long long idx, const Level0& L) {
-  QuadCell c = quad_cell(idx, L.Hq8, L.Wqa, L.row0);
-  return fabsf(quad_residual(p, b, c.j, c.i, L));
 }
 
 }  // namespace cfd

@@ -1,8 +1,8 @@
 // Finest-level V-cycle kernels on the quad layout.
 //
 // Replaces cfd_tpu/kernels/quad.py make_quad_pre_smooth_restrict (:630) and
-// make_quad_post_prolong_smooth (:700), on a whole field and with
-// shard=(P, mdy) on one shard's local block (rows 16b, 16c).
+// make_quad_post_prolong_smooth (:700), on a whole field (rows 3, 4) and
+// with shard=(P, mdy) on one shard's local block (rows 16b, 16c).
 //
 // pre:  n red/black pairs, then the residual, then full weighting straight
 //       into the aligned level-1 source rc (Hq8, Wqa).
@@ -13,9 +13,9 @@
 // a shard's (4, P + 16, Wqa) block, its P own plane rows between two 8-row
 // halo strips that the caller refreshes from the neighbouring shards, and
 // row_base = jy * P - 8 is the global plane row of local row 0. Every mask,
-// band, ghost and weight-vector index keeps its global meaning (row0 =
-// row_base, quad_level0.cuh); the row weight vectors are the global ones with
-// a `halo`-plane-row zero prefix, so the global row -2 * halo <= j of any
+// band and weight-vector index keeps its global meaning (row0 = row_base,
+// quad_level0.cuh); the row weight vectors are the global ones with a
+// `halo`-plane-row zero prefix, so the global row -2 * halo <= j of any
 // block reads inside them. A neighbour outside the block reads 0 and a
 // residual outside it is 0; the prolongation's row J + 1 wraps within the
 // block. What such a read feeds is a halo row, which the next refresh
@@ -25,81 +25,103 @@
 // only: the shard's partial, whose maximum over the shards the caller takes.
 // A whole field is halo 0 and row_base 0: every row in every band and owned.
 //
-// Bound on the H100: device-memory bytes. Each half-sweep launch reads p
-// and b and writes half of p (about 3 quad fields of traffic, 19 MB each at
-// 2048^2); the restriction and residual launches read p and b once more.
-// V(2,1) is therefore about 10 field passes per cycle on the finest level.
+// Bound on the H100: device-memory bytes. Each call reads p and b (and ec)
+// and writes p and rc (or one float) once: at 2048^2 (19 MB quad fields,
+// more than the 50 MB L2 holds together) about 3.25 field passes; a
+// shard's block and the 1536x512 fields fit the L2.
 //
-// Design: one launch per half-sweep (a half-sweep needs the other colour's
-// final values over the whole grid), one thread per quad cell, updates in
-// place (see mg_smooth.cuh). The first launch of each kernel writes a new
-// output array, so the caller's input is never modified. The restriction
-// runs one thread per coarse cell and sums its four children with the
-// child mapping of quad.py:678-687. Keeping several sweeps in shared
-// memory (temporal blocking) is the next step for these kernels; the slab,
-// halo and band bookkeeping of the TPU kernels is needed only on a local
-// block.
+// Design: ONE launch of shared-memory tiles a call, one tile a block
+// (kernels/plan.py level0_plan with masked=False: the tile, a halo of
+// n_pairs + 1 plane rows and columns, the shared memory of the iterate,
+// the source, the weight vectors and on post the level-1 correction's
+// tile, the grid). A block loads p, b and the weights with the halo into
+// shared memory and runs the separable bodies of level0_tile.cuh, which
+// the whole-solve runs on its tiles too: each half-sweep a pass over a box
+// that shrinks by one logical cell, the residual from the last; it writes
+// p_out's own cells and rc's own coarse cells, or folds the own cells'
+// max|r| into the op's running max (an atomicMax on the int bits,
+// tile::fold_max_into): the last block to finish (a __threadfence and an
+// atomic count) moves it into res and leaves the max and the count at 0
+// for the next call, so no launch zeroes them. The iterate never goes
+// through device memory between the half-sweeps. The tiles cover the whole
+// array, padding included (p_out and rc are fresh tensors); a tile whose
+// own cells all lie outside the domain (ws::tile_outside: the padding
+// columns, 1025 of the 2048^2 cavity's 1152 quad columns being used; a
+// block's rows beyond the field) is left unchanged by every half-sweep: it
+// copies p to p_out (and writes rc's zeros) without staging.
+#include "carry_tile.cuh"
+#include "level0_tile.cuh"
 #include "quad_level0.cuh"
 
 namespace {
 
 using cfd::Level0;
+namespace tile = cfd::tile;
+namespace ws = cfd::ws;
 
-// Half-sweep ``lo`` over the planes of `colour` (0 = red = planes {0, 3}).
-// src != dst copies the cells it does not update, so the first launch can
-// move the iterate into a fresh array; src == dst updates in place.
-__global__ void quad_half_sweep(const float* src, float* dst, const float* b, int colour,
-                                int lo, Level0 L) {
-  long long n = 4LL * L.Hq8 * L.Wqa;
-  long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  cfd::QuadCell c = cfd::quad_cell(idx, L.Hq8, L.Wqa, L.row0);
-  if (cfd::quad_updates(c, colour, L) && cfd::in_band((c.j >> 1) - L.row0, lo, L)) {
-    dst[idx] = cfd::quad_gs(src, b, c, L);
-  } else if (src != dst) {
-    dst[idx] = src[idx];
-  }
-}
-
-__global__ void residual_restrict(const float* p, const float* b, float* rc, Level0 L) {
-  long long n = static_cast<long long>(L.Hq8) * L.Wqa;
-  long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  rc[idx] = cfd::quad_restrict_value(p, b, idx, L);
-}
-
-// kBlock: a shard's local block; a whole field's instance folds the row
-// offset away at compile time (the run-time offset cost it 3% on the H100)
+// the block's tile of the launch's grid (one tile a block)
 template <bool kBlock>
-__global__ void prolong_add(const float* p, const float* ec, float* out, Level0 L) {
-  long long n = 4LL * L.Hq8 * L.Wqa;
-  long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  if constexpr (!kBlock) L.row0 = 0;
-  out[idx] = cfd::quad_prolong_add_value(p, ec, idx, L);
+__device__ __forceinline__ ws::Tile grid_tile(const tile::Plan& pl, const Level0& L) {
+  const int t = static_cast<int>(blockIdx.y) * pl.grid_x + static_cast<int>(blockIdx.x);
+  return ws::make_tile(pl.rows, pl.cols, L.Wqa, t, pl.halo, kBlock ? L.row0 : 0);
 }
 
-__global__ void residual_max(const float* p, const float* b, float* res, Level0 L) {
-  long long n = 4LL * L.Hq8 * L.Wqa;
-  long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float r = (idx < n && cfd::own_row(idx, L.Hq8, L.Wqa, L.halo))
-                ? cfd::quad_abs_residual(p, b, idx, L)
-                : 0.f;
-  cfd::block_max_into(r, res);
-}
-
-// n_pairs red+black pairs on dst (already holding the iterate when
-// first_src == dst); the first half-sweep reads first_src; half-sweep k
-// (from 1) has band lo = k + shift
-int sweep_pairs(const float* first_src, float* dst, const float* b, int n_pairs, int shift,
-                const Level0& L, cudaStream_t s) {
-  const int blocks = cfd::blocks_for(4LL * L.Hq8 * L.Wqa);
-  for (int k = 0; k < n_pairs; ++k) {
-    quad_half_sweep<<<blocks, cfd::kThreads, 0, s>>>(k == 0 ? first_src : dst, dst, b, 0,
-                                                    2 * k + 1 + shift, L);
-    quad_half_sweep<<<blocks, cfd::kThreads, 0, s>>>(dst, dst, b, 1, 2 * k + 2 + shift, L);
+template <bool kBlock>
+__global__ void __launch_bounds__(tile::kThreads)
+    sep_pre_kernel(const float* p, const float* b, float* p_out, float* rc, Level0 L,
+                   int n_pairs, tile::Plan pl) {
+  const ws::Tile T = grid_tile<kBlock>(pl, L);
+  if (ws::tile_outside(T, L.ny, L.nx)) {
+    ws::copy_own(p, p_out, T, L.Hq8, L.Wqa);
+    ws::each_cell(T.R0, min(T.R0 + T.rows, L.Hq8), T.C0, min(T.C0 + T.cols, L.Wqa),
+                  [&](int Jl, int Ic) { rc[static_cast<long long>(Jl) * L.Wqa + Ic] = 0.f; });
+    return;
   }
-  return static_cast<int>(cudaGetLastError());
+  ws::sep_pre_tile<kBlock>(T, p, b, p_out, L, n_pairs, tile::smem(),
+                           [&](long long idx, float v) { rc[idx] = v; });
+}
+
+// acc: the running max and the blocks' count of tile::fold_max_into
+template <bool kBlock>
+__global__ void __launch_bounds__(tile::kThreads)
+    sep_post_kernel(const float* p, const float* b, const float* ec, float* p_out,
+                    float* res, unsigned int* acc, Level0 L, int n_pairs, tile::Plan pl) {
+  const ws::Tile T = grid_tile<kBlock>(pl, L);
+  float r = 0.f;
+  if (ws::tile_outside(T, L.ny, L.nx)) {
+    ws::copy_own(p, p_out, T, L.Hq8, L.Wqa);
+  } else {
+    r = ws::sep_post_tile<kBlock>(T, p, b, ec, p_out, L, n_pairs, tile::smem(), 0.f);
+  }
+  tile::fold_max_into(r, acc, res);
+}
+
+const void* level0_fn(bool post, bool block) {
+  if (post) {
+    return block ? reinterpret_cast<const void*>(sep_post_kernel<true>)
+                 : reinterpret_cast<const void*>(sep_post_kernel<false>);
+  }
+  return block ? reinterpret_cast<const void*>(sep_pre_kernel<true>)
+               : reinterpret_cast<const void*>(sep_pre_kernel<false>);
+}
+
+// cudaSuccess when the plan covers a (4, Hq8, Wqa) field with the halo the
+// kernel's half-sweeps and residual reach (n_pairs + 1 plane rows on pre
+// and post) and the shared memory of the iterate, the source, the weight
+// vectors (and on post the coarse tile), else cudaErrorInvalidValue (the
+// wrapper raises)
+cudaError_t check_plan(const tile::Plan& pl, const Level0& L, int n_pairs, bool post) {
+  if (n_pairs < 1 || pl.halo != n_pairs + 1) return cudaErrorInvalidValue;
+  if (pl.rows < 1 || pl.cols < 1 || L.Hq8 < 1 || L.Wqa < 1) return cudaErrorInvalidValue;
+  if (pl.grid_x != (L.Wqa + pl.cols - 1) / pl.cols ||
+      pl.grid_y != (L.Hq8 + pl.rows - 1) / pl.rows)
+    return cudaErrorInvalidValue;
+  const long long lr = 2LL * (pl.rows + 2 * pl.halo), lc = 2LL * (pl.cols + 2 * pl.halo);
+  const long long coarse =
+      post ? (pl.rows + 2LL * pl.halo + 1) * (pl.cols + 2 * pl.halo + 1) : 0;
+  const long long bytes = 4 * (2 * lr * lc + 2 * (lr + lc) + coarse);
+  if (pl.smem_bytes != bytes || bytes > tile::kSmemMax) return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 Level0 level(int Hq8, int Wqa, int ny, int nx, float idx2, float idy2, float omega,
@@ -110,46 +132,70 @@ Level0 level(int Hq8, int Wqa, int ny, int nx, float idx2, float idy2, float ome
                 wS + 2 * halo, row_base, halo};
 }
 
+tile::Plan plan_of(const int* plan) {
+  return tile::Plan{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
+}
+
 }  // namespace
 
+// Readies the pre (post 0) or post kernel (block: its local-block instance)
+// for `smem_bytes` of dynamic shared memory on the current device: blocks
+// (SMs x blocks per SM), blocks per SM and registers out (tile::ready)
+extern "C" int cfd_quad_level0_grid(int post, int block, int smem_bytes, int* blocks,
+                                    int* per_sm, int* regs) {
+  return tile::ready(level0_fn(post != 0, block != 0), smem_bytes, blocks, per_sm, regs);
+}
+
 // row_base, halo: a local block's global plane row of row 0 and its halo
-// strip (0, 0 on a whole field); rc: (Hq8, Wqa), the block's level-1 rows
+// strip (0, 0 on a whole field); rc: (Hq8, Wqa), the block's level-1 rows;
+// plan: the 6 ints of the tile plan (tile::Plan, kernels/plan.py
+// level0_plan with masked=False), a host array
 extern "C" int cfd_quad_pre_smooth_restrict(const float* p, const float* b, float* p_out,
                                             float* rc, const float* wE, const float* wW,
                                             const float* wN, const float* wS, int Hq8,
                                             int Wqa, int ny, int nx, float idx2,
                                             float idy2, float omega, int n_pairs,
-                                            int row_base, int halo, void* stream) {
+                                            int row_base, int halo, const int* plan,
+                                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Level0 L = level(Hq8, Wqa, ny, nx, idx2, idy2, omega, wE, wW, wN, wS, row_base, halo);
-  int err = sweep_pairs(p, p_out, b, n_pairs, 0, L, s);
-  if (err) return err;
-  residual_restrict<<<cfd::blocks_for(static_cast<long long>(Hq8) * Wqa), cfd::kThreads,
-                      0, s>>>(p_out, b, rc, L);
+  const Level0 L = level(Hq8, Wqa, ny, nx, idx2, idy2, omega, wE, wW, wN, wS, row_base, halo);
+  const tile::Plan pl = plan_of(plan);
+  const cudaError_t err = check_plan(pl, L, n_pairs, false);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(pl.grid_x, pl.grid_y);
+  if (halo > 0) {
+    sep_pre_kernel<true><<<grid, tile::kThreads, pl.smem_bytes, s>>>(p, b, p_out, rc, L,
+                                                                    n_pairs, pl);
+  } else {
+    sep_pre_kernel<false><<<grid, tile::kThreads, pl.smem_bytes, s>>>(p, b, p_out, rc, L,
+                                                                     n_pairs, pl);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+// res: max|r| over the own rows of a block (every row of a whole field);
+// acc: two unsigned ints on the device, 0 (the launch leaves them 0);
+// plan as the pre kernel's
 extern "C" int cfd_quad_post_prolong_smooth(const float* p, const float* b,
                                             const float* ec, float* p_out, float* res,
-                                            const float* wE, const float* wW,
-                                            const float* wN, const float* wS, int Hq8,
-                                            int Wqa, int ny, int nx, float idx2,
-                                            float idy2, float omega, int n_pairs,
-                                            int row_base, int halo, void* stream) {
+                                            unsigned int* acc, const float* wE,
+                                            const float* wW, const float* wN,
+                                            const float* wS, int Hq8, int Wqa, int ny,
+                                            int nx, float idx2, float idy2, float omega,
+                                            int n_pairs, int row_base, int halo,
+                                            const int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Level0 L = level(Hq8, Wqa, ny, nx, idx2, idy2, omega, wE, wW, wN, wS, row_base, halo);
-  const int blocks = cfd::blocks_for(4LL * Hq8 * Wqa);
+  const Level0 L = level(Hq8, Wqa, ny, nx, idx2, idy2, omega, wE, wW, wN, wS, row_base, halo);
+  const tile::Plan pl = plan_of(plan);
+  const cudaError_t err = check_plan(pl, L, n_pairs, true);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(pl.grid_x, pl.grid_y);
   if (halo > 0) {
-    prolong_add<true><<<blocks, cfd::kThreads, 0, s>>>(p, ec, p_out, L);
+    sep_post_kernel<true><<<grid, tile::kThreads, pl.smem_bytes, s>>>(p, b, ec, p_out, res,
+                                                                     acc, L, n_pairs, pl);
   } else {
-    prolong_add<false><<<blocks, cfd::kThreads, 0, s>>>(p, ec, p_out, L);
+    sep_post_kernel<false><<<grid, tile::kThreads, pl.smem_bytes, s>>>(p, b, ec, p_out, res,
+                                                                      acc, L, n_pairs, pl);
   }
-  // the prolongation's row J + 1 wraps at a block's top: one more row of
-  // shrink before the sweeps (quad.py:764-767)
-  int err = sweep_pairs(p_out, p_out, b, n_pairs, 1, L, s);
-  if (err) return err;
-  cudaError_t e = cudaMemsetAsync(res, 0, sizeof(float), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  residual_max<<<blocks, cfd::kThreads, 0, s>>>(p_out, b, res, L);
   return static_cast<int>(cudaGetLastError());
 }

@@ -70,7 +70,7 @@ __global__ void __launch_bounds__(tile::kThreads)
                  int n_pairs, tile::Plan pl) {
   const ws::LTile Tl = grid_tile(pl, L);
   const int r1 = min(Tl.R0 + Tl.rows, L.H8), c1 = min(Tl.C0 + Tl.cols, L.W);
-  float m[1] = {0.f};
+  float m = 0.f;
   if (outside(Tl, L)) {
     ws::each_cell(Tl.R0, r1, Tl.C0, c1, [&](int j, int i) {
       const int g = j * L.W + i;
@@ -89,20 +89,11 @@ __global__ void __launch_bounds__(tile::kThreads)
       if (resid) {
         const float rv = ws::l_residual(B, Tl, lj, li, L);
         if (r != nullptr) r[g] = cfd::from_f32<T>(rv);
-        m[0] = cfd::bits_max(m[0], fabsf(rv));
+        m = cfd::bits_max(m, fabsf(rv));
       }
     });
   }
-  if (res == nullptr) return;
-  tile::block_max(m, reinterpret_cast<float*>(acc));
-  if (threadIdx.x == 0) {  // the thread that folded the block's max into acc[0]
-    __threadfence();
-    if (atomicAdd(acc + 1, 1u) == gridDim.x * gridDim.y - 1) {
-      __threadfence();
-      *res = __uint_as_float(atomicExch(acc, 0u));
-      atomicExch(acc + 1, 0u);
-    }
-  }
+  if (res != nullptr) tile::fold_max_into(m, acc, res);
 }
 
 const void* pairs_fn(int storage) {

@@ -44,7 +44,7 @@
 // pass over a box that shrinks by one logical cell a stage, the exact
 // residual from the last; it writes p_out's own cells and rc's own coarse
 // cells, or folds the own cells' max|r| into the op's running max (an
-// atomicMax on the int bits, tile::block_max): the last block to finish
+// atomicMax on the int bits, tile::fold_max_into): the last block to finish
 // (a __threadfence and an atomic count) moves it into res and leaves the
 // max and the count at 0 for the next call, so no launch zeroes them. The
 // iterate never goes through device memory between the stages. A tile whose own cells all lie outside the
@@ -69,36 +69,13 @@ __device__ __forceinline__ ws::Tile grid_tile(const tile::Plan& pl, const StepL0
   return ws::make_tile(pl.rows, pl.cols, L.Wqa, t, pl.halo, cfd::step_row0<kBlock>(L));
 }
 
-// Whether the tile's own cells all lie outside the domain's logical rows
-// [0, ny + 1] or columns [0, nx + 1]: no stage changes them and their
-// residual and level-1 source are 0
-__device__ __forceinline__ bool outside(const ws::Tile& T, const StepL0& L) {
-  const int j0 = 2 * (T.R0 + T.row0), i0 = 2 * T.C0;
-  return i0 > L.nx + 1 || j0 > L.ny + 1 || j0 + 2 * T.rows - 1 < 0;
-}
-
-// p_out = p on the tile's own cells
-__device__ __forceinline__ void copy_own(const float* p, float* p_out, const ws::Tile& T,
-                                         const StepL0& L) {
-  const long long plane = static_cast<long long>(L.Hq8) * L.Wqa;
-  ws::each_cell(T.R0, min(T.R0 + T.rows, L.Hq8), T.C0, min(T.C0 + T.cols, L.Wqa),
-                [&](int gr, int gc) {
-                  const long long g = static_cast<long long>(gr) * L.Wqa + gc;
-                  float v[4];
-#pragma unroll
-                  for (int q = 0; q < 4; ++q) v[q] = p[q * plane + g];
-#pragma unroll
-                  for (int q = 0; q < 4; ++q) p_out[q * plane + g] = v[q];
-                });
-}
-
 template <bool kBlock>
 __global__ void __launch_bounds__(tile::kThreads)
     step_pre_kernel(const float* p, const float* b, float* p_out, float* rc, StepL0 L,
                     int n_pairs, tile::Plan pl) {
   const ws::Tile T = grid_tile<kBlock>(pl, L);
-  if (outside(T, L)) {
-    copy_own(p, p_out, T, L);
+  if (ws::tile_outside(T, L.ny, L.nx)) {
+    ws::copy_own(p, p_out, T, L.Hq8, L.Wqa);
     ws::each_cell(T.R0, min(T.R0 + T.rows, L.Hq8), T.C0, min(T.C0 + T.cols, L.Wqa),
                   [&](int Jl, int Ic) { rc[static_cast<long long>(Jl) * L.Wqa + Ic] = 0.f; });
     return;
@@ -107,28 +84,19 @@ __global__ void __launch_bounds__(tile::kThreads)
                             [&](long long idx, float v) { rc[idx] = v; });
 }
 
-// acc: the running max (int bits) and the blocks' count, both 0 before
-// the launch and after it
+// acc: the running max and the blocks' count of tile::fold_max_into
 template <bool kBlock>
 __global__ void __launch_bounds__(tile::kThreads)
     step_post_kernel(const float* p, const float* b, const float* ec, float* p_out, float* res,
                      unsigned int* acc, StepL0 L, int n_pairs, tile::Plan pl) {
   const ws::Tile T = grid_tile<kBlock>(pl, L);
-  float r[1] = {0.f};
-  if (outside(T, L)) {
-    copy_own(p, p_out, T, L);
+  float r = 0.f;
+  if (ws::tile_outside(T, L.ny, L.nx)) {
+    ws::copy_own(p, p_out, T, L.Hq8, L.Wqa);
   } else {
-    r[0] = ws::step_post_tile<kBlock>(T, p, b, ec, p_out, L, n_pairs, tile::smem(), 0.f);
+    r = ws::step_post_tile<kBlock>(T, p, b, ec, p_out, L, n_pairs, tile::smem(), 0.f);
   }
-  tile::block_max(r, reinterpret_cast<float*>(acc));
-  if (threadIdx.x == 0) {  // the thread that folded the block's max into acc[0]
-    __threadfence();
-    if (atomicAdd(acc + 1, 1u) == gridDim.x * gridDim.y - 1) {
-      __threadfence();
-      *res = __uint_as_float(atomicExch(acc, 0u));
-      atomicExch(acc + 1, 0u);
-    }
-  }
+  tile::fold_max_into(r, acc, res);
 }
 
 const void* level0_fn(bool post, bool block) {

@@ -562,9 +562,9 @@ __device__ inline void coarse_vcycle(const Sweep& s, cg::grid_group& grid, const
 // ------------------------------------------------- the finest level in tiles
 //
 // level0_tile.cuh: the tiles, their loads and stores, the level-1
-// correction's tile, and the masked level's bodies on one tile. Each
-// block walks the tiles t = blockIdx.x + k gridDim.x of the plan's
-// tile_rows x tile_cols. A separable tile also stages its weight
+// correction's tile, and the separable and masked levels' bodies on one
+// tile. Each block walks the tiles t = blockIdx.x + k gridDim.x of the
+// plan's tile_rows x tile_cols. A separable tile also stages its weight
 // vectors (wE, wW by column, wN, wS by row).
 
 // The level-1 source rc at idx: b_lv[1] (rounded to bfloat16 with
@@ -575,120 +575,35 @@ __device__ __forceinline__ void store_rc(const Params& P, long long idx, float v
   if (P.rc32 != nullptr) P.rc32[idx] = v;
 }
 
-// --- the separable finest level (quad_level0.cuh's arithmetic)
-
-// the tile's weight vectors in shared memory, by local column (e, w) and
-// local row (n, s)
-struct TileW {
-  float *e, *w, *n, *s;
-};
-
-__device__ inline TileW load_tile_weights(const cfd::Level0& L, const Tile& T, float* buf) {
-  const TileW W{buf, buf + T.LC, buf + 2 * T.LC, buf + 2 * T.LC + T.LR};
-  for (int k = static_cast<int>(threadIdx.x); k < T.LC; k += static_cast<int>(blockDim.x)) {
-    const int i = T.oi + k;
-    const bool in = i >= 0 && i < 2 * L.Wqa;
-    W.e[k] = in ? L.wE[i] : 0.f;
-    W.w[k] = in ? L.wW[i] : 0.f;
-  }
-  for (int k = static_cast<int>(threadIdx.x); k < T.LR; k += static_cast<int>(blockDim.x)) {
-    const int j = T.oj + k;
-    const bool in = j >= 0 && j < 2 * L.Hq8;
-    W.n[k] = in ? L.wN[j] : 0.f;
-    W.s[k] = in ? L.wS[j] : 0.f;
-  }
-  return W;
-}
-
-// signed residual b - A p at local (lj, li) of a tile (quad_residual)
-__device__ __forceinline__ float sep_residual(const float* p, const float* b, const TileW& W,
-                                              const Tile& T, int lj, int li,
-                                              const cfd::Level0& L) {
-  if (!cfd::interior(T.oj + lj, T.oi + li, L)) return 0.f;
-  const int k = lj * T.LC + li;
-  const float* c = p + k;
-  const float ap = cfd::apply_a(c[0], c[1], c[-1], c[T.LC], c[-T.LC], W.e[li], W.w[li],
-                                W.n[lj], W.s[lj], L.idx2, L.idy2);
-  return b[k] - ap;
-}
-
-// n_pairs red/black pairs of the tile's iterate p in place (quad_gs)
-__device__ inline void sep_pairs(float* p, const float* b, const TileW& W, const Tile& T,
-                                 const cfd::Level0& L, int n_pairs) {
-  for (int k = 0; k < 2 * n_pairs; ++k) {
-    update2(p, T.LC, k + 1, T.LR - k - 1, k + 1, T.LC - k - 1, k & 1, [&](int lj, int li) {
-      if (!cfd::interior(T.oj + lj, T.oi + li, L)) return Upd{false, 0.f};
-      const float* c = p + lj * T.LC + li;
-      return Upd{true, cfd::gs_update(c[0], c[1], c[-1], c[T.LC], c[-T.LC], b[lj * T.LC + li],
-                                      W.e[li], W.w[li], W.n[lj], W.s[lj], L.idx2, L.idy2,
-                                      L.omega)};
-    });
-    __syncthreads();
-  }
-}
+// --- the separable finest level (level0_tile.cuh's bodies on a whole field)
 
 // The pre phase of the separable finest level on every tile: P.pre pairs
 // from src, the smoothed iterate into dst (own cells), the residual's full
 // weighting into level 1 (quad_restrict_value) through store_rc.
 __device__ inline void sep_pre_tiles(const Params& P, const float* src, float* dst) {
   const cfd::Level0& L = P.L0;
-  float* p = dyn_smem() + kRedFloats;
-  const int nt = tile_count(P.plan.tile_rows, P.plan.tile_cols, L.Hq8, L.Wqa);
+  const Plan& pl = P.plan;
+  const int nt = tile_count(pl.tile_rows, pl.tile_cols, L.Hq8, L.Wqa);
   for (int t = blockIdx.x; t < nt; t += gridDim.x) {
-    const Tile T = make_tile(P.plan.tile_rows, P.plan.tile_cols, L.Wqa, t, P.plan.halo_pre);
-    float* b = p + T.LR * T.LC;
-    load_tile(src, P.b0, T, L.Hq8, L.Wqa, p, b);
-    const TileW W = load_tile_weights(L, T, b + T.LR * T.LC);
-    __syncthreads();
-    sep_pairs(p, b, W, T, L, P.pre);
-    store_tile(p, T, L.Hq8, L.Wqa, dst);
-    each_cell(T.R0, min(T.R0 + T.rows, L.Hq8), T.C0, min(T.C0 + T.cols, L.Wqa),
-              [&](int Jc, int Ic) {
-                float v = 0.f;
-                if (Jc >= 1 && Jc <= L.ny / 2 && Ic >= 1 && Ic <= L.nx / 2) {
-                  const int lj = 2 * Jc - T.oj, li = 2 * Ic - T.oi;
-                  v = 0.25f * (sep_residual(p, b, W, T, lj, li, L) +
-                               sep_residual(p, b, W, T, lj, li - 1, L) +
-                               sep_residual(p, b, W, T, lj - 1, li, L) +
-                               sep_residual(p, b, W, T, lj - 1, li - 1, L));
-                }
-                store_rc(P, static_cast<long long>(Jc) * L.Wqa + Ic, v);
-              });
-    __syncthreads();
+    const Tile T = make_tile(pl.tile_rows, pl.tile_cols, L.Wqa, t, pl.halo_pre);
+    sep_pre_tile<false>(T, src, P.b0, dst, L, P.pre, dyn_smem() + kRedFloats,
+                        [&](long long idx, float v) { store_rc(P, idx, v); });
   }
 }
 
 // The post phase of the separable finest level on every tile: the
 // prolong-add of the level-1 correction P.p_lv[1] to the pre-smoothed src,
 // P.post pairs, the result into dst (own cells); returns the thread's max
-// |b - A p| over its own cells (quad_abs_residual).
+// |b - A p| over its own cells.
 __device__ inline float sep_post_tiles(const Params& P, const float* src, float* dst) {
   const cfd::Level0& L = P.L0;
-  float* p = dyn_smem() + kRedFloats;
+  const Plan& pl = P.plan;
   float r = 0.f;
-  const int nt = tile_count(P.plan.tile_rows, P.plan.tile_cols, L.Hq8, L.Wqa);
+  const int nt = tile_count(pl.tile_rows, pl.tile_cols, L.Hq8, L.Wqa);
   for (int t = blockIdx.x; t < nt; t += gridDim.x) {
-    const Tile T = make_tile(P.plan.tile_rows, P.plan.tile_cols, L.Wqa, t, P.plan.halo_post);
-    float* b = p + T.LR * T.LC;
-    load_tile(src, P.b0, T, L.Hq8, L.Wqa, p, b);
-    float* wbuf = b + T.LR * T.LC;
-    const TileW W = load_tile_weights(L, T, wbuf);
-    const CoarseTile E = load_coarse_tile(P.p_lv[1], T, L.Hq8, L.Wqa, wbuf + 2 * (T.LR + T.LC));
-    __syncthreads();
-    update2(p, T.LC, 0, T.LR, 0, T.LC, -1, [&](int lj, int li) {
-      const int j = T.oj + lj, i = T.oi + li;
-      if (!cfd::interior(j, i, L)) return Upd{false, 0.f};
-      return Upd{true, p[lj * T.LC + li] + tile_prolong_corr(E, j, i, L.ny, L.nx)};
-    });
-    __syncthreads();
-    sep_pairs(p, b, W, T, L, P.post);
-    store_tile(p, T, L.Hq8, L.Wqa, dst);
-    each_cell(2 * T.h, 2 * (T.h + T.rows), 2 * T.h, 2 * (T.h + T.cols), [&](int lj, int li) {
-      if (((T.oj + lj) >> 1) < L.Hq8 && ((T.oi + li) >> 1) < L.Wqa) {
-        r = cfd::bits_max(r, fabsf(sep_residual(p, b, W, T, lj, li, L)));
-      }
-    });
-    __syncthreads();
+    const Tile T = make_tile(pl.tile_rows, pl.tile_cols, L.Wqa, t, pl.halo_post);
+    r = sep_post_tile<false>(T, src, P.b0, P.p_lv[1], dst, L, P.post, dyn_smem() + kRedFloats,
+                             r);
   }
   return r;
 }

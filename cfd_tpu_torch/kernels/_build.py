@@ -48,9 +48,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ints as c_int, coefficients as c_float); every one returns cudaError_t.
 SIGNATURES = {
     "cfd_quad_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
-    # the cavity's carry, pre and post; the carry's last two ints are a
-    # sharded local block's row_base and halo (0, 0 on a whole field), the
-    # pointer after them its tile plan (kernels/plan.py CarryPlan)
+    # the cavity's carry; its last two ints are a sharded local block's
+    # row_base and halo (0, 0 on a whole field), the pointer after them its
+    # tile plan (kernels/plan.py CarryPlan)
     "cfd_quad_carry": [_P] * 9 + [_I] * 4 + [_F] * 10 + [_I, _I, _P, _P],
     # the carries' tile kernels readied: adaptive, block, shared memory;
     # blocks, blocks per SM, registers out
@@ -58,8 +58,15 @@ SIGNATURES = {
     "cfd_quad_channel_carry_grid": [_I] * 3 + [_P] * 3,
     "cfd_step_carry_grid": [_I] * 3 + [_P] * 3,
     "cfd_rb_carry_grid": [_I] * 3 + [_P] * 3,
-    "cfd_quad_pre_smooth_restrict": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
-    "cfd_quad_post_prolong_smooth": [_P] * 9 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
+    # the cavity's, channel's and RB's finest-level pre and post: the last
+    # three ints n_pairs and a block's row_base and halo, the pointer after
+    # them the tile plan (kernels/plan.py level0_plan, masked=False); the
+    # post's running max and count (acc) after res
+    "cfd_quad_pre_smooth_restrict": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P, _P],
+    "cfd_quad_post_prolong_smooth": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P, _P],
+    # their tile kernels readied: post, block, shared memory; blocks,
+    # blocks per SM, registers out
+    "cfd_quad_level0_grid": [_I] * 3 + [_P] * 3,
     # the coarse smoother: storage, p, b, out, r, res, acc, the weights,
     # the level, n_pairs, the tile plan (kernels/plan.py pairs_plan)
     "cfd_rb_pairs": [_I] + [_P] * 10 + [_I] * 4 + [_F] * 3 + [_I, _P, _P],

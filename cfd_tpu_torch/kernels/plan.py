@@ -2,9 +2,9 @@
 (csrc/whole_solve.cuh Plan: the whole-solve, kernels.whole_solve, the whole
 step, kernels.whole_step, and the fused tail, kernels.mg_tail), the
 one-launch carries (csrc/carry_tile.cuh Plan, carry_plan below), the
-step's finest-level tile kernels and the coarse smoother (the same Plan,
-level0_plan and pairs_plan below) and the whole step's, which joins the
-solve's and the carry's (whole_step_plan below).
+finest-level tile kernels, separable and the step's, and the coarse
+smoother (the same Plan, level0_plan and pairs_plan below) and the whole
+step's, which joins the solve's and the carry's (whole_step_plan below).
 
 Each runs one cooperative grid of one block of BLOCK_THREADS threads on
 every SM. The coarse levels from ``block_from`` down run in ONE
@@ -358,9 +358,9 @@ def carry_tiles(plan: CarryPlan, qshape):
 def ready_tiles(plan: CarryPlan, device, symbol: str, *which: int) -> dict:
     """Ready the tile kernel of ``symbol`` (the carries' cfd_quad_carry_grid,
     cfd_quad_channel_carry_grid, cfd_step_carry_grid, cfd_rb_carry_grid
-    with ``which`` adaptive, block; the step's finest-level
-    cfd_step_level0_grid with post, block; the coarse smoother's
-    cfd_rb_pairs_grid with its storage) on ``device`` for the plan's
+    with ``which`` adaptive, block; the finest-level
+    cfd_quad_level0_grid and cfd_step_level0_grid with post, block; the
+    coarse smoother's cfd_rb_pairs_grid with its storage) on ``device`` for the plan's
     shared memory, and raise unless the card holds a block of it. The
     modules call it once a device and instance, before their first launch
     there; returns cooperative_grid's dict."""
@@ -372,7 +372,7 @@ def ready_tiles(plan: CarryPlan, device, symbol: str, *which: int) -> dict:
     return grid
 
 
-# --------------------------------------- the step's finest-level V-cycle kernels
+# ------------------------------------------ the finest-level V-cycle kernels
 
 # The tile of the step's pre and post kernels (csrc/step_vcycle.cu: one
 # launch of one tile a block, 512 threads at 64 registers, two blocks an
@@ -385,31 +385,72 @@ def ready_tiles(plan: CarryPlan, device, symbol: str, *which: int) -> dict:
 # (time_level0 --tiles); nothing overrides these but the card tests'
 # ``tile``.
 LEVEL0_TILES = {"field": (17, 32), "block": (7, 32)}
-# The logical buffers a tile stages (csrc/level0_tile.cuh step_tile_floats):
-# the iterate, its second buffer and the source; the post kernel's coarse
-# tile follows them.
+# The logical buffers a masked tile stages (csrc/level0_tile.cuh
+# step_tile_floats): the iterate, its second buffer and the source; the
+# post kernel's coarse tile follows them. A separable tile stages two (the
+# iterate, smoothed in place, and the source; sep_tile_floats) and the
+# weight vectors.
 LEVEL0_BUFFERS = 3
+SEP_LEVEL0_BUFFERS = 2
+# The tiles of the separable pre and post kernels (csrc/quad_vcycle.cu:
+# the cavity's, the channel's and RB's; one launch of one tile a block,
+# 512 threads at 61-64 registers, two blocks an SM). A tile's buffers are
+# SEP_LEVEL0_WIDTH plane columns wide, one warp's row of two cells of a
+# colour a lane (level0_tile.cuh update2), so its own columns are that
+# less twice its halo (58 at n = 2, 60 at n = 1); its rows the most of
+# SEP_LEVEL0_ROWS whose grid holds at least SEP_LEVEL0_MIN_TILES tiles,
+# else the last: a large field in taller tiles (their halos cost less), a
+# small one in enough tiles to keep the SMs busy. Chosen on an H100 by
+# timing candidates at the 2048^2 cavity's field (4, 1032, 1152), the
+# 1536x512 channel's (4, 264, 896) and their 4-shard blocks (4, 280, 1152)
+# and (4, 88, 896) (PERF.md, the separable finest level's findings: 24,
+# 24, 16 and 8 rows timed fastest there). A sweep sets a fresh op's plan
+# (time_level0 --tiles); nothing overrides these but the card tests'
+# ``tile``.
+SEP_LEVEL0_WIDTH = 64
+SEP_LEVEL0_ROWS = (24, 16, 8)
+SEP_LEVEL0_MIN_TILES = 3 * H100_SMS // 2
 
 
-def level0_plan(qshape, n_pairs: int, post: bool, *, block: bool = False,
+def sep_level0_tile(qshape, halo: int) -> tuple[int, int]:
+    """The separable finest-level tile (plane rows, plane columns) of a
+    (4, Hq8, Wqa) field or block at ``halo``: SEP_LEVEL0_WIDTH less twice
+    the halo wide, the most of SEP_LEVEL0_ROWS rows whose grid holds at
+    least SEP_LEVEL0_MIN_TILES tiles, else the last."""
+    _, Hq8, Wqa = qshape
+    cols = SEP_LEVEL0_WIDTH - 2 * halo
+    for rows in SEP_LEVEL0_ROWS:
+        if -(-Hq8 // rows) * -(-Wqa // cols) >= SEP_LEVEL0_MIN_TILES:
+            return rows, cols
+    return SEP_LEVEL0_ROWS[-1], cols
+
+
+def level0_plan(qshape, n_pairs: int, post: bool, *, masked: bool, block: bool = False,
                 tile: tuple[int, int] | None = None) -> CarryPlan:
-    """The plan of the step's finest-level pre (``post`` False) or post
-    kernel at ``n_pairs`` exact pairs on a (4, Hq8, Wqa) whole field or
-    (``block``) a shard's local block: LEVEL0_TILES' tile (the card tests
-    pass another ``tile``), cut to the field where it is larger; the halo
-    of the masked tiles (halos: n + 2 plane rows and columns on pre, n + 1
-    on post); shared memory for LEVEL0_BUFFERS buffers and, on post, the
-    level-1 correction's tile (tile_floats); one tile a block. Raises when
-    a tile does not fit a block's shared memory."""
+    """The plan of a finest-level pre (``post`` False) or post kernel at
+    ``n_pairs`` pairs on a (4, Hq8, Wqa) whole field or (``block``) a
+    shard's local block: the step's exact masked pairs (``masked``,
+    csrc/step_vcycle.cu: LEVEL0_TILES' tile, a halo of n + 2 plane rows and
+    columns on pre and n + 1 on post, LEVEL0_BUFFERS buffers) or the
+    separable red/black pairs (csrc/quad_vcycle.cu: a halo of n + 1 on
+    both, sep_level0_tile's tile, SEP_LEVEL0_BUFFERS buffers and the
+    weight vectors); the card tests pass another ``tile``, which is cut to
+    the field where it is larger; on post also the level-1 correction's
+    tile (tile_floats); one tile a block. Raises when a tile does not fit
+    a block's shared memory."""
     _, Hq8, Wqa = qshape
     kind = "post" if post else "pre"
-    rows, cols = LEVEL0_TILES["block" if block else "field"] if tile is None else tile
-    rows, cols = min(rows, Hq8), min(cols, Wqa)
-    h_pre, h_post = halos(True, n_pairs, n_pairs)
+    h_pre, h_post = halos(masked, n_pairs, n_pairs)
     halo = h_post if post else h_pre
-    smem = 4 * tile_floats(rows, cols, halo, LEVEL0_BUFFERS, False, post)
+    if tile is None:
+        tile = (LEVEL0_TILES["block" if block else "field"] if masked
+                else sep_level0_tile(qshape, halo))
+    rows, cols = min(tile[0], Hq8), min(tile[1], Wqa)
+    buffers = LEVEL0_BUFFERS if masked else SEP_LEVEL0_BUFFERS
+    smem = 4 * tile_floats(rows, cols, halo, buffers, not masked, post)
     if smem > SMEM_MAX:
-        raise ValueError(f"the step's {kind} kernel's {rows}x{cols} tile (halo {halo}) takes "
+        what = "step's" if masked else "separable"
+        raise ValueError(f"the {what} {kind} kernel's {rows}x{cols} tile (halo {halo}) takes "
                          f"{smem} B of shared memory, more than a block's {SMEM_MAX}")
     return CarryPlan(rows, cols, halo, smem, -(-Wqa // cols), -(-Hq8 // rows))
 

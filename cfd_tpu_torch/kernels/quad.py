@@ -47,7 +47,7 @@ from torch import nn
 
 from cfd_tpu_torch.kernels._build import Kernel, ptr, route
 from cfd_tpu_torch.kernels.mg_tail import fold_sum
-from cfd_tpu_torch.kernels.plan import carry_plan, ready_tiles
+from cfd_tpu_torch.kernels.plan import carry_plan, level0_plan, ready_tiles
 from cfd_tpu_torch.ops.stencil import StencilCoeffs
 
 CARRY = Kernel("quad_corr_predictor_source", "cfd_quad_carry",
@@ -547,6 +547,17 @@ def sum_scratch(op, like):
     partials = torch.empty(-(-like.numel() // SUM_BLOCK), dtype=torch.float32,
                            device=like.device)
     return partials, counts[str(like.device)]
+
+
+def max_acc(op, device) -> torch.Tensor:
+    """The running max (int bits) and block count of a tile kernel whose
+    last block folds a max (the finest-level post kernels, the coarse
+    smoother's with_residual instance): two int32 on ``device`` that ``op``
+    keeps (op._max_acc), zeroed once: every launch leaves them 0."""
+    accs = op.__dict__.setdefault("_max_acc", {})
+    if str(device) not in accs:
+        accs[str(device)] = torch.zeros(2, dtype=torch.int32, device=device)
+    return accs[str(device)]
 
 
 class QuadCorrPredictorSource(QuadCorrector):
@@ -1051,10 +1062,49 @@ class _QuadLevel0(nn.Module):
                              f"{self.wE.device}")
 
 
+def _level0_plan(op, device, post: bool, block: bool, masked: bool):
+    """``op``'s tile plan (kernels/plan.py level0_plan unless set before its
+    first launch) as the C entry points take it, its kernel instance
+    readied on ``device`` once: the step's masked kernels
+    (cfd_step_level0_grid) or the separable ones (cfd_quad_level0_grid)."""
+    symbol = "cfd_step_level0_grid" if masked else "cfd_quad_level0_grid"
+    return tile_plan_ptr(
+        op, lambda: level0_plan(op.qshape, op.n_pairs, post, block=block, masked=masked),
+        device, symbol, post, block)
+
+
+def level0_pre(op, kern: Kernel, p, b, row_base: int, halo: int, *, masked: bool):
+    """One call of a finest-level pre kernel (cfd_quad_pre_smooth_restrict,
+    or with ``masked`` the step's cfd_step_pre_smooth_restrict) through
+    ``kern`` (its counter): (p_out, rc) of a whole field (halo 0) or a
+    local block."""
+    p_out = torch.empty_like(p)
+    rc = torch.empty(op.coarse_shape, dtype=torch.float32, device=p.device)
+    plan = _level0_plan(op, p.device, False, halo > 0, masked)
+    kern(p, ptr(p), ptr(b), ptr(p_out), ptr(rc), *op._kernel_args(), row_base, halo, plan)
+    return p_out, rc
+
+
+def level0_post(op, kern: Kernel, p, b, ec, row_base: int, halo: int, *, masked: bool):
+    """One call of a finest-level post kernel (cfd_quad_post_prolong_smooth,
+    or with ``masked`` the step's) through ``kern``: (p_out, max|r|) of a
+    whole field or a local block's own rows, the running max in
+    max_acc."""
+    p_out = torch.empty_like(p)
+    res = torch.empty((), dtype=torch.float32, device=p.device)
+    plan = _level0_plan(op, p.device, True, halo > 0, masked)
+    kern(p, ptr(p), ptr(b), ptr(ec), ptr(p_out), ptr(res), ptr(max_acc(op, p.device)),
+         *op._kernel_args(), row_base, halo, plan)
+    return p_out, res
+
+
 class QuadPreSmoothRestrict(_QuadLevel0):
     """(p4, b4) -> (p4, rc): n_pairs red/black pairs on the finest level,
     then the residual restricted (full weighting) straight into the aligned
-    level-1 source rc (Hq8, Wqa) (cfd_tpu/kernels/quad.py:630)."""
+    level-1 source rc (Hq8, Wqa) (cfd_tpu/kernels/quad.py:630). On the card
+    one launch of shared-memory tiles (csrc/quad_vcycle.cu sep_pre_kernel, the
+    whole-solve's separable tile body; kernels/plan.py level0_plan with
+    masked=False)."""
 
     def forward(self, p, b):
         _check(self.qshape, p, b)
@@ -1072,17 +1122,16 @@ class QuadPreSmoothRestrict(_QuadLevel0):
         return torch.stack(P), _restrict_rc(r, self.ny, self.nx)
 
     def kernel(self, p, b):
-        p_out = torch.empty_like(p)
-        rc = torch.empty(self.coarse_shape, dtype=torch.float32, device=p.device)
-        PRE(p, ptr(p), ptr(b), ptr(p_out), ptr(rc), *self._kernel_args(), 0, 0)
-        return p_out, rc
+        return level0_pre(self, PRE, p, b, 0, 0, masked=False)
 
 
 class QuadPostProlongSmooth(_QuadLevel0):
     """(p4, b4, ec) -> (p4, max|b - Ap|): bilinear 9-3-3-1 prolongation of the
     level-1 correction ec (Hq8, Wqa) with edge clamps, added on the interior,
     then n_pairs pairs, then the tolerance residual
-    (cfd_tpu/kernels/quad.py:700). The residual is a 0-d float32 tensor."""
+    (cfd_tpu/kernels/quad.py:700). The residual is a 0-d float32 tensor. On
+    the card one launch of shared-memory tiles (csrc/quad_vcycle.cu
+    sep_post_kernel), whose last block moves the running max into it."""
 
     def forward(self, p, b, ec):
         _check(self.qshape, p, b)
@@ -1103,10 +1152,7 @@ class QuadPostProlongSmooth(_QuadLevel0):
         return torch.stack(P), torch.max(torch.abs(torch.stack(r)))
 
     def kernel(self, p, b, ec):
-        p_out = torch.empty_like(p)
-        res = torch.empty((), dtype=torch.float32, device=p.device)
-        POST(p, ptr(p), ptr(b), ptr(ec), ptr(p_out), ptr(res), *self._kernel_args(), 0, 0)
-        return p_out, res
+        return level0_post(self, POST, p, b, ec, 0, 0, masked=False)
 
 
 # ------------------------------------------ one shard of a plane-row mesh
@@ -1344,9 +1390,10 @@ class QuadPreSmoothRestrictShard(QuadPreSmoothRestrict):
     block (row 16b, cfd_tpu/kernels/quad.py:630 with shard=(P, mdy)):
     (row_base, p4, b4) -> (p4, rc) with rc the (P + 16, Wqa) local level-1
     block. Half-sweep k updates the band of quad.py:611-627 (_band_maker);
-    the kernel (csrc/quad_vcycle.cu) reads 0 outside the block and takes the
-    residual there as 0, which the twin does on the block padded with zero
-    rows. The own rows equal the single-device kernel's."""
+    the kernel (csrc/quad_vcycle.cu sep_pre_kernel<true>, one launch of tiles)
+    reads 0 outside the block and takes the residual there as 0, which the
+    twin does on the block padded with zero rows. The own rows equal the
+    single-device kernel's."""
 
     def forward(self, row_base: int, p, b):
         _check(self.qshape, p, b)
@@ -1370,12 +1417,9 @@ class QuadPreSmoothRestrictShard(QuadPreSmoothRestrict):
         return _crop_rows(torch.stack(P), z), _crop_rows(rc, z)
 
     def kernel(self, row_base, p, b):
-        p_out = torch.empty_like(p)
-        rc = torch.empty(self.coarse_shape, dtype=torch.float32, device=p.device)
-        with torch.cuda.device(p.device):
-            SHARD_PRE(p, ptr(p), ptr(b), ptr(p_out), ptr(rc), *self._kernel_args(),
-                      int(row_base), DEV_HALO)
-        return p_out, rc
+        with torch.cuda.device(p.device):  # the shards may lie on several cards
+            return level0_pre(self, SHARD_PRE, p, b, int(row_base), DEV_HALO,
+                              masked=False)
 
 
 class QuadPostProlongSmoothShard(QuadPostProlongSmooth):
@@ -1385,7 +1429,8 @@ class QuadPostProlongSmoothShard(QuadPostProlongSmooth):
     level-1 correction, whose row J + 1 wraps within the block as the TPU
     kernel's roll does; the sweeps' band starts one row further in
     (quad.py:762-767), and res is max|b - A p| over the own rows: the
-    shard's partial."""
+    shard's partial. On the card csrc/quad_vcycle.cu sep_post_kernel<true>,
+    one launch of tiles."""
 
     def forward(self, row_base: int, p, b, ec):
         _check(self.qshape, p, b)
@@ -1411,12 +1456,9 @@ class QuadPostProlongSmoothShard(QuadPostProlongSmooth):
         return _crop_rows(torch.stack(P), z), torch.max(torch.abs(own))
 
     def kernel(self, row_base, p, b, ec):
-        p_out = torch.empty_like(p)
-        res = torch.empty((), dtype=torch.float32, device=p.device)
-        with torch.cuda.device(p.device):
-            SHARD_POST(p, ptr(p), ptr(b), ptr(ec), ptr(p_out), ptr(res),
-                       *self._kernel_args(), int(row_base), DEV_HALO)
-        return p_out, res
+        with torch.cuda.device(p.device):  # the shards may lie on several cards
+            return level0_post(self, SHARD_POST, p, b, ec, int(row_base), DEV_HALO,
+                               masked=False)
 
 
 def make_quad_pre_smooth_restrict(shape, problem, omega: float, n_pairs: int,

@@ -29,7 +29,7 @@ from torch import nn
 
 from cfd_tpu_torch.kernels._build import Kernel, ptr, route
 from cfd_tpu_torch.kernels.plan import pairs_plan
-from cfd_tpu_torch.kernels.quad import tile_plan_ptr
+from cfd_tpu_torch.kernels.quad import max_acc, tile_plan_ptr
 
 RB_PAIRS = Kernel("rb_pairs", "cfd_rb_pairs", "cfd_tpu_torch/csrc/rb_smoother.cu",
                   "cfd_tpu/kernels/rb_smoother.py:37")
@@ -142,8 +142,7 @@ class RBPairs(nn.Module):
         """One launch of shared-memory tiles (csrc/rb_smoother.cu) under the
         op's plan (kernels/plan.py pairs_plan unless set before its first
         launch). The with_residual variant's running max and block count
-        are two int32 that the op keeps on each device (``_max_acc``),
-        zeroed once: every launch leaves them 0."""
+        are kernels.quad max_acc's."""
         H8, W = self.shape
         residual = self.with_residual_field or self.with_residual
         storage = _STORAGE[self.dtype]
@@ -161,11 +160,8 @@ class RBPairs(nn.Module):
             return out if r is None else (out, r)
         res, acc = null, null
         if self.with_residual:
-            accs = self.__dict__.setdefault("_max_acc", {})
-            if str(p.device) not in accs:
-                accs[str(p.device)] = torch.zeros(2, dtype=torch.int32, device=p.device)
             res = torch.empty((), dtype=torch.float32, device=p.device)
-            acc = ptr(accs[str(p.device)])
+            acc = ptr(max_acc(self, p.device))
         (RB_PAIRS_RES if self.with_residual else RB_PAIRS)(
             p, storage, ptr(p), ptr(b), ptr(out), r_ptr,
             ptr(res) if self.with_residual else null, acc, *weights, *consts)

@@ -32,7 +32,6 @@ import torch
 from torch import nn
 
 from cfd_tpu_torch.kernels._build import Kernel, ptr, route
-from cfd_tpu_torch.kernels.plan import level0_plan
 from cfd_tpu_torch.kernels.quad import (
     DEV_HALO,
     _band_maker,
@@ -50,6 +49,8 @@ from cfd_tpu_torch.kernels.quad import (
     _Traced,
     _where4,
     fixed_order_sum,
+    level0_post,
+    level0_pre,
     own_row_sum,
     own_rows,
     quad_dims,
@@ -596,40 +597,6 @@ class _StepLevel0(nn.Module):
             raise ValueError(f"tensor on {t.device}, kernel built for {self.device}")
 
 
-def _level0_plan(op, device, post: bool, block: bool):
-    """``op``'s tile plan (kernels/plan.py level0_plan unless set before its
-    first launch) as the C entry points take it, its kernel instance readied
-    on ``device`` once."""
-    return tile_plan_ptr(op, lambda: level0_plan(op.qshape, op.n_pairs, post, block=block),
-                         device, "cfd_step_level0_grid", post, block)
-
-
-def _step_pre(op, kern: Kernel, p, b, row_base: int, halo: int):
-    """One call of cfd_step_pre_smooth_restrict through ``kern`` (its
-    counter): (p_out, rc) of a whole field (halo 0) or a local block."""
-    p_out = torch.empty_like(p)
-    rc = torch.empty(op.coarse_shape, dtype=torch.float32, device=p.device)
-    plan = _level0_plan(op, p.device, False, halo > 0)
-    kern(p, ptr(p), ptr(b), ptr(p_out), ptr(rc), *op._kernel_args(), row_base, halo, plan)
-    return p_out, rc
-
-
-def _step_post(op, kern: Kernel, p, b, ec, row_base: int, halo: int):
-    """One call of cfd_step_post_prolong_smooth through ``kern``: (p_out,
-    max|r|) of a whole field or a local block's own rows. The kernel's
-    running max and block count are two int32 that ``op`` keeps on each
-    device (op._max_acc), zeroed once: every launch leaves them 0."""
-    p_out = torch.empty_like(p)
-    res = torch.empty((), dtype=torch.float32, device=p.device)
-    accs = op.__dict__.setdefault("_max_acc", {})
-    if str(p.device) not in accs:
-        accs[str(p.device)] = torch.zeros(2, dtype=torch.int32, device=p.device)
-    plan = _level0_plan(op, p.device, True, halo > 0)
-    kern(p, ptr(p), ptr(b), ptr(ec), ptr(p_out), ptr(res), ptr(accs[str(p.device)]),
-         *op._kernel_args(), row_base, halo, plan)
-    return p_out, res
-
-
 class QuadStepPreSmoothRestrict(_StepLevel0):
     """(p4, b4) -> (p4, rc): n_pairs exact masked iterations (with the
     trailing ghosts), then the exact residual restricted by full weighting
@@ -651,7 +618,7 @@ class QuadStepPreSmoothRestrict(_StepLevel0):
         return torch.stack(P), _restrict_rc(r, self.ny, self.nx)
 
     def kernel(self, p, b):
-        return _step_pre(self, STEP_PRE, p, b, 0, 0)
+        return level0_pre(self, STEP_PRE, p, b, 0, 0, masked=True)
 
 
 class QuadStepPostProlongSmooth(_StepLevel0):
@@ -679,7 +646,7 @@ class QuadStepPostProlongSmooth(_StepLevel0):
         return torch.stack(P), torch.max(torch.abs(torch.stack(r)))
 
     def kernel(self, p, b, ec):
-        return _step_post(self, STEP_POST, p, b, ec, 0, 0)
+        return level0_post(self, STEP_POST, p, b, ec, 0, 0, masked=True)
 
 
 class QuadStepPreSmoothRestrictShard(QuadStepPreSmoothRestrict):
@@ -712,7 +679,8 @@ class QuadStepPreSmoothRestrictShard(QuadStepPreSmoothRestrict):
 
     def kernel(self, row_base, p, b):
         with torch.cuda.device(p.device):  # the shards may lie on several cards
-            return _step_pre(self, SHARD_STEP_PRE, p, b, int(row_base), DEV_HALO)
+            return level0_pre(self, SHARD_STEP_PRE, p, b, int(row_base), DEV_HALO,
+                              masked=True)
 
 
 class QuadStepPostProlongSmoothShard(QuadStepPostProlongSmooth):
@@ -748,7 +716,8 @@ class QuadStepPostProlongSmoothShard(QuadStepPostProlongSmooth):
 
     def kernel(self, row_base, p, b, ec):
         with torch.cuda.device(p.device):
-            return _step_post(self, SHARD_STEP_POST, p, b, ec, int(row_base), DEV_HALO)
+            return level0_post(self, SHARD_STEP_POST, p, b, ec, int(row_base), DEV_HALO,
+                               masked=True)
 
 
 def make_quad_step_pre_smooth_restrict(shape, step_i: int, inlet_j: int, idx2: float,

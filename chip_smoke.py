@@ -9,8 +9,8 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
 1. Device and build: requires a CUDA device, prints the card's name and
    power limit (nvidia-smi), builds the kernels from csrc/ with nvcc (one
    process per source, in parallel), prints the build seconds, the
-   whole-solve, whole-step and the step's finest-level tile kernels'
-   registers, and the cooperative kernels' grids at the most shared
+   whole-solve, whole-step and finest-level tile kernels' (the step's and
+   the separable ones) registers, and the cooperative kernels' grids at the most shared
    memory a launch plan may ask (kernels/plan.py).
 2. Per-kernel check at the 2048^2 cavity shapes: each hand-written kernel
    of the per-kernel cavity path (mg_overrides whole_solve=False) against
@@ -23,7 +23,12 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
    the per-kernel cavity's, channel's and RB's hierarchies in float32 and
    bfloat16, 1 and 2 pairs, both variants; its timed instance (the
    cavity's bf16 level 1 pre-smooth) with ``dev_ms`` and its device
-   operations a call (a child time_pairs process). Times are CUDA-event medians
+   operations a call (a child time_pairs process). The finest-level pre
+   and post kernels (rows 3, 4: one launch of shared-memory tiles each,
+   csrc/quad_vcycle.cu) error 0 too, here at V(2,1), in phase 5 the
+   channel's V(1,2) and in phase 11 RB's V(2,1) instances, with
+   ``dev_ms`` and their device operations a call (a child time_level0
+   process). Times are CUDA-event medians
    of 20 launches; each carry (rows 1, 8a, 9a, 10 in phases 2, 5, 8, 11,
    their traced-dt instances in phase 14) also has its device time,
    ``dev_ms``: CUDA events around 50 back-to-back calls with the card held
@@ -40,7 +45,10 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
    steps_per_call=100), then 100 steps with whole_solve=False (the
    per-kernel solve). Launch counters are zeroed just before each run;
    every kernel of the path must have launched. Prints steps/s and
-   V-cycles/step over the last 100 steps of each.
+   V-cycles/step over the last 100 steps of each. The per-kernel 100 steps
+   again from the same state with the plain twins of rows 3 and 4 in the
+   kernels' place: equal cycles every step and bit-identical fields (so
+   in phases 6 and 12).
 4. Cavity card against CPU: the slice at 256^2 for 20 steps with the
    kernels on the card and the plain twins on the CPU, with the default
    solves (the whole-solve on the card, the per-kernel solve on the CPU),
@@ -216,7 +224,9 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
     shards 0, 1 and 3: bit-identical to their twins on every row, and on
     the own rows equal to the single-device kernels (rows 1, 3, 4) on the
     same global rows; times on shard 1 as in phase 2, the bound of one
-    local block.
+    local block; rows 16b and 16c (one launch of tiles each) with
+    ``dev_ms`` and their device operations a call (a child time_level0
+    process).
 33. The sharded cavity: make_cavity_case(n_interior=2048, dtype=float32,
     tolerance_factor=1e-6) on make_mesh(4) (every shard on the card),
     Simulation(mesh=, sharded_kwargs={"tol_factor": 1e-6}), 300 steps in
@@ -380,10 +390,10 @@ ADAPTIVE_RUN = (300, 100)
 
 
 # the kernels of the one-launch tile carries (csrc/carry_tile.cuh), the
-# step's finest-level tile kernels (csrc/step_vcycle.cu) and the coarse
-# smoother's (csrc/rb_smoother.cu, every instance), held to error 0
-# against their twins wherever the phases check them: kernel name -> row
-# (the shard rows 16a, 16d, 16e, 16f and their + instances through
+# finest-level tile kernels (csrc/quad_vcycle.cu, csrc/step_vcycle.cu) and
+# the coarse smoother's (csrc/rb_smoother.cu, every instance), held to
+# error 0 against their twins wherever the phases check them: kernel name
+# -> row (the shard rows 16a-16f and their + instances through
 # check_shard_op, which holds every shard row bit for bit)
 REDESIGNED = {"quad_corr_predictor_source": "row 1",
               "quad_corr_predictor_source_adaptive": "row 1+",
@@ -394,6 +404,9 @@ REDESIGNED = {"quad_corr_predictor_source": "row 1",
               "quad_rb_step_adaptive": "row 10+",
               "quad_step_pre_smooth_restrict": "row 9c",
               "quad_step_post_prolong_smooth": "row 9d",
+              "quad_pre_smooth_restrict": "row 3", "quad_post_prolong_smooth": "row 4",
+              "quad_pre_smooth_restrict_shard": "row 16b",
+              "quad_post_prolong_smooth_shard": "row 16c",
               "rb_pairs": "row 5", "rb_pairs_full": "row 5b", "rb_pairs_residual": "row 5-wr",
               **{f"quad_whole_step_{flow}{v}": "row 15" for flow in ("cavity", "channel",
                                                                      "rb", "step")
@@ -487,27 +500,47 @@ def dev_note(r: dict) -> str:
     return f" (device {r['dev_ms']:.4f} ms{ops})" if "dev_ms" in r else ""
 
 
+# the rows whose device operations a call a child timer process counts
+# (child_launches): every row of the main path's instances a phase holds
+CHILD_ROWS = {"time_level0": ("3", "4", "16b", "16c", "9c", "9d", "16f-pre", "16f-post"),
+              "time_pairs": ("5", "5b", "5-wr")}
+_CHILD_COUNTS: dict = {}
+
+
+def _child_counts(rows, module: str) -> dict:
+    """{row: device operations a call} of ``rows`` from one run of the
+    timer ``module`` in a fresh process."""
+    out = subprocess.run(
+        [sys.executable, "-m", f"cfd_tpu_torch.{module}", "smoke", "--only", ",".join(rows),
+         "--reps", "5"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"{module} exited {out.returncode}:\n{out.stderr[-4000:]}")
+    lines = [json.loads(l) for l in out.stdout.splitlines() if l.startswith("{")]
+    return {r["row"]: r["launches_a_call"] for r in lines}
+
+
 def child_launches(rows, module: str) -> dict:
     """{row: device operations a call} of the tile kernels that the timer
-    ``module`` times on the main path's instances (time_level0's rows 9c,
-    9d, 16f-pre, 16f-post: the step's finest-level kernels; time_pairs'
-    rows 5, 5b, 5-wr: the coarse smoother), each counted in a
-    torch.profiler trace of one call (profile_step.device_ops_a_call) in a
-    fresh process of its own: a process's later traces have come back
-    without any device event on the H100 machine, its first one has not.
-    Raises unless each is one launch."""
-    got = {}
-    for row in rows:
-        out = subprocess.run(
-            [sys.executable, "-m", f"cfd_tpu_torch.{module}", "smoke", "--only", row,
-             "--reps", "5"], cwd=ROOT, capture_output=True, text=True, timeout=600)
-        if out.returncode != 0:
-            raise AssertionError(f"{module} exited {out.returncode}:\n{out.stderr[-4000:]}")
-        lines = [json.loads(l) for l in out.stdout.splitlines() if l.startswith("{")]
-        got[row] = lines[0]["launches_a_call"] if lines else None
-        if got[row] != 1:
-            raise AssertionError(f"row {row}: {got[row]} device operations a call, one "
-                                 "launch expected")
+    ``module`` times on the main path's instances (time_level0's rows 3,
+    4, 16b, 16c, 9c, 9d, 16f-pre, 16f-post: the finest-level kernels;
+    time_pairs' rows 5, 5b, 5-wr: the coarse smoother), each counted in a
+    torch.profiler trace of one call (profile_step.device_ops_a_call). The
+    first call counts all of the timer's CHILD_ROWS in one fresh process
+    and a row whose trace held no device event again in a process of its
+    own: a process's later traces have come back empty on the H100
+    machine, its first one has not. A row that counted more than one
+    operation is not counted again. Raises unless each is one launch."""
+    if module not in _CHILD_COUNTS:
+        got = _child_counts(CHILD_ROWS[module], module)
+        for row in CHILD_ROWS[module]:
+            if not got.get(row):
+                got[row] = _child_counts((row,), module).get(row)
+        _CHILD_COUNTS[module] = got
+    got = {row: _CHILD_COUNTS[module].get(row) for row in rows}
+    for row, n in got.items():
+        if n != 1:
+            raise AssertionError(f"row {row}: {n} device operations a call, one launch "
+                                 "expected")
     return got
 
 
@@ -578,16 +611,22 @@ def check_kernels(case, dev) -> dict:
         plain_ms=median_ms(lambda: corr.plain(us, vs, p, p_prev)),
         **bound(nbytes(us, vs, p, p_prev, *got), cells * CORRECTOR_OPS))
 
-    # 3./4. finest-level V-cycle kernels (b on the interior, as the carry emits)
+    # 3./4. finest-level V-cycle kernels (b on the interior, as the carry
+    # emits): one launch of shared-memory tiles each, bit-identical; their
+    # device ms, and their device operations a call from time_level0 (the
+    # same instances)
     b = field(scale=1e3, interior_only=True)
     pre, post = solve.pre0, solve.post0
     errs = []
     got, want = pre.kernel(p, b), pre.plain(p, b)
     for name, a, w in zip(("p", "rc"), got, want):
         rel_err(a, w, f"quad_pre_smooth_restrict {name}", TOL_F32, errs)
+    bit_identical("quad_pre_smooth_restrict", errs)
+    ops = child_launches(("3", "4"), "time_level0")
     weights = (pre.wE, pre.wW, pre.wN, pre.wS)
     results["quad_pre_smooth_restrict"] = dict(
         err=max(errs), ms=median_ms(lambda: pre.kernel(p, b)),
+        dev_ms=carry_dev_ms(lambda: pre.kernel(p, b)), launches_a_call=ops["3"],
         plain_ms=median_ms(lambda: pre.plain(p, b)),
         **bound(nbytes(p, b, *got, *weights),
                 cells * (pre.n_pairs * GS_OPS + RES_OPS) + cells // 4 * RESTRICT_OPS))
@@ -600,8 +639,10 @@ def check_kernels(case, dev) -> dict:
     got, want = post.kernel(p, b, ec), post.plain(p, b, ec)
     for name, a, w in zip(("p", "max|r|"), got, want):
         rel_err(a, w, f"quad_post_prolong_smooth {name}", TOL_F32, errs)
+    bit_identical("quad_post_prolong_smooth", errs)
     results["quad_post_prolong_smooth"] = dict(
         err=max(errs), ms=median_ms(lambda: post.kernel(p, b, ec)),
+        dev_ms=carry_dev_ms(lambda: post.kernel(p, b, ec)), launches_a_call=ops["4"],
         plain_ms=median_ms(lambda: post.plain(p, b, ec)),
         **bound(nbytes(p, b, ec, *got, *weights),
                 cells * (PROLONG_OPS + post.n_pairs * GS_OPS + RES_OPS + 1)))
@@ -649,6 +690,50 @@ def check_kernels(case, dev) -> dict:
     log(f"  rb_pairs (cavity L1 bf16, n=2, residual field): {timing['ms']:.4f} ms"
         f"{dev_note(timing)}, bound {timing['bound_ms']:.4f} ms")
     return results
+
+
+def check_level0_pair(what: str, pre, post, g, dev, seed: int) -> None:
+    """A flow's finest-level pre and post kernels (rows 3, 4 at its V(pre,
+    post), the same entry points as the cavity's) against their twins at
+    its shapes on seeded inputs (p and b on the interior, ec on the coarse
+    interior), bit for bit."""
+    from cfd_tpu_torch.kernels.quad import to_quad
+
+    rng = np.random.default_rng(seed)
+    shape = g.shape
+    inner = np.zeros(shape, np.float32)
+    inner[1:-1, 1:-1] = 1.0
+    p, b = (to_quad(torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)
+                                     * inner).to(dev), shape) for scale in (0.1, 1e3))
+    ec = torch.zeros(pre.coarse_shape, device=dev)
+    ec[1 : g.ny // 2 + 1, 1 : g.nx // 2 + 1] = torch.from_numpy(
+        (rng.standard_normal((g.ny // 2, g.nx // 2)) * 0.1).astype(np.float32)).to(dev)
+    for name, op, args, outs in (("quad_pre_smooth_restrict", pre, (p, b), ("p", "rc")),
+                                 ("quad_post_prolong_smooth", post, (p, b, ec),
+                                  ("p", "max|r|"))):
+        errs = []
+        for out, a, w in zip(outs, op.kernel(*args), op.plain(*args), strict=True):
+            rel_err(a, w, f"{name} {what} n={op.n_pairs} {out}", TOL_F32, errs)
+        bit_identical(name, errs)
+
+
+def twin_level0_run(case, what: str, start, start_step: int, ref_iters, ref_state) -> None:
+    """The per-kernel path of ``case`` again for len(ref_iters) steps from
+    the same start, the finest-level pre and post kernels' plain twins in
+    their place on the card (every other kernel unchanged), held to the
+    kernel run (ref_iters, ref_state): equal cycles every step and
+    bit-identical fields, so that rows 3 and 4 keep the path's cycles."""
+    solve = case.poisson_solve
+    ops = (solve.pre0, solve.post0)
+    for op in ops:
+        op.kernel = op.plain
+    try:
+        sim, state = run_slice(case, len(ref_iters), 100, start, start_step)
+    finally:
+        for op in ops:
+            del op.kernel
+    hold_run(f"{what} per-kernel vs its run with the level-0 twins", sim.step_iters, state,
+             ref_iters, ref_state, exact=True)
 
 
 def solve_problem(case):
@@ -1840,11 +1925,20 @@ def check_shard_kernels(case, dev) -> dict:
         (Q.SHARD_POST, post, (p, b, ec), solve.post0.kernel(p, b, ec), ("p", "max|r|"), 1,
          weights, cells * (PROLONG_OPS + mg.post_sweeps * GS_OPS + RES_OPS + 1)))
     results = {}
+    # rows 16b and 16c (one launch of tiles each): their device ms and
+    # device operations a call (time_level0, the same instances on shard 1)
+    ops = child_launches(("16b", "16c"), "time_level0")
     for kern, op, fields, single, names, n_fields, extra, n_ops in checks:
-        errs, (ms, plain_ms, n_bytes) = check_shard_op(kern.name, op, fields, single, names,
-                                                       n_fields, P, extra)
-        results[kern.name] = dict(err=max(errs), ms=ms, plain_ms=plain_ms,
-                                  **bound(n_bytes, n_ops))
+        tiled = kern is not Q.SHARD_CARRY
+        errs, timing = check_shard_op(kern.name, op, fields, single, names, n_fields, P, extra,
+                                      dev=tiled)
+        results[kern.name] = dict(err=max(errs), ms=timing[0], plain_ms=timing[1],
+                                  **bound(timing[2], n_ops))
+        if tiled:
+            bit_identical(kern.name, errs)
+            results[kern.name].update(dev_ms=timing[3],
+                                      launches_a_call=ops["16b" if kern is Q.SHARD_PRE
+                                                          else "16c"])
     return results
 
 
@@ -2120,8 +2214,8 @@ def sharded_phases(card: str, dev, cav_main: dict) -> tuple[dict, dict]:
     pk_case = make_cavity_case(device=dev, mg_overrides={"whole_solve": False}, **cav_main)
     sh_checks = check_shard_kernels(pk_case, dev)
     for k, r in sh_checks.items():
-        log(f"  {k:36s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), one local block  ({card})")
+        log(f"  {k:36s} kernel {r['ms']:.4f} ms{dev_note(r)}  plain {r['plain_ms']:.4f} ms  "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), one local block  ({card})")
 
     log(f"phase 33: the sharded cavity at {N_MAIN}^2 on {SHARDS} shards of the card, 300 "
         f"steps beside the single-device per-kernel run, then 100 with tail_from=1, then a "
@@ -2542,11 +2636,11 @@ def adaptive_sharded_phases(card: str, dev) -> tuple[dict, dict]:
             f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"one local block  ({card})")
 
-    log(f"phase 42: the sharded lagged runs at full width on {SHARDS} shards of the card, "
-        f"max_courant {MAX_CO}, growth {GROWTH}, 300 steps in chunks of 100, beside the "
-        f"single-device lagged per-kernel runs ({card})")
     ad = dict(max_courant=MAX_CO, growth=GROWTH, controller="lagged")
     n, spc = ADAPTIVE_RUN
+    log(f"phase 42: the sharded lagged runs at full width on {SHARDS} shards of the card, "
+        f"max_courant {MAX_CO}, growth {GROWTH}, {n} steps in chunks of {spc}, beside the "
+        f"single-device lagged per-kernel runs ({card})")
     launches = {}
     for flow, (make, pk, kw, p_band, single_kern, shard_kern) in flows.items():
         what = f"sharded {flow} lagged, {SHARDS} shards"
@@ -2666,7 +2760,8 @@ def main() -> int:
     ptxas = path.with_suffix(".log").read_text().splitlines()
     for i, line in enumerate(ptxas):
         for kname in ("whole_solve_kernel", "whole_step_kernel", "mg_tail_kernel",
-                      "fused_pre_kernel", "step_pre_kernel", "step_post_kernel"):
+                      "fused_pre_kernel", "step_pre_kernel", "step_post_kernel",
+                      "sep_pre_kernel", "sep_post_kernel"):
             if "Compiling entry function" in line and kname in line:
                 for info in ptxas[i + 1 : i + 4]:
                     if "Function properties" not in info:
@@ -2721,6 +2816,7 @@ def main() -> int:
     pk_launches, pk_state, per_kernel = run_path(
         pk_case, 100, (Q.CARRY, Q.PRE, Q.POST, RB.RB_PAIRS), "cavity per-kernel", card, rate,
         state=state, start_step=300)
+    twin_level0_run(pk_case, "cavity", state, 300, per_kernel["iters"], pk_state)
     # phase 21 runs the tail from the same state
     pk_ref = {"cavity": (state, per_kernel["iters"], pk_state, per_kernel)}
     cavity_launches.update({k.name: pk_launches[k.name] for k in (Q.PRE, Q.POST, RB.RB_PAIRS)})
@@ -2746,6 +2842,8 @@ def main() -> int:
     log(f"  solver config: V({mg.pre_sweeps},{mg.post_sweeps}) whole_solve="
         f"{mg.whole_solve} levels={len(case.poisson_solve.mg.levels)}")
     checks.update(check_channel_kernels(case, dev))
+    solve_mg = case.poisson_solve.mg
+    check_level0_pair("channel", solve_mg.pre0, solve_mg.post0, case.grid, dev, 1537)
     flows["channel"] = (case.grid, case.coeffs, None)
     for k, r in checks.items():
         log(f"  {k:36s} kernel {r['ms']:.4f} ms{dev_note(r)}  plain {r['plain_ms']:.4f} ms  "
@@ -2782,6 +2880,7 @@ def main() -> int:
         per_kernel_case, 100, (Q.CHANNEL_CARRY, Q.PRE, Q.POST, RB.RB_PAIRS),
         "channel per-kernel", card, cells, state=state, start_step=300)
     pk_ref["channel"] = (start, per_kernel["iters"], state, per_kernel)
+    twin_level0_run(per_kernel_case, "channel", start, 300, per_kernel["iters"], state)
     del per_kernel_case
     _, _, whole_again = run_path(
         case, 100, (Q.CHANNEL_CARRY, WS.WHOLE_SOLVE), "channel whole-solve again", card,
@@ -2870,6 +2969,8 @@ def main() -> int:
         f"pin_mean={mg.pin_mean} tol_factor={mg.tol_factor} abs_tol={mg.abs_tol} "
         f"levels={len(case.poisson_solve.mg.levels)}")
     rb_checks = check_rb_kernels(case, dev)
+    solve_mg = case.poisson_solve.mg
+    check_level0_pair("rb", solve_mg.pre0, solve_mg.post0, case.grid, dev, 1538)
     flows["rb"] = (case.grid, case.coeffs, case.info)
     for k, r in rb_checks.items():
         log(f"  {k:36s} kernel {r['ms']:.4f} ms{dev_note(r)}  plain {r['plain_ms']:.4f} ms  "
@@ -2896,6 +2997,7 @@ def main() -> int:
         per_kernel_case, 100, (RQ.RB_CARRY, Q.PRE, Q.POST, RB.RB_PAIRS), "rb per-kernel", card,
         cells, state=state, start_step=300)
     pk_ref["rb"] = (state, per_kernel["iters"], pk_state, per_kernel)
+    twin_level0_run(per_kernel_case, "rb", state, 300, per_kernel["iters"], pk_state)
     del per_kernel_case
     for what, r in (("whole-solve", whole), ("per-kernel", per_kernel)):
         row = r["row"]

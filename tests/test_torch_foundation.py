@@ -180,12 +180,13 @@ def test_profile_trace_summary():
                                             summarize_trace)
 
     names = port_kernel_names()
-    assert {"corrector_kernel", "predictor_source_kernel", "quad_half_sweep",
-            "pairs_kernel", "whole_solve_kernel"} <= names
-    assert is_port_kernel("(anonymous namespace)::quad_half_sweep(float const*, int)", names)
+    assert {"corrector_kernel", "predictor_source_kernel", "sep_pre_kernel",
+            "sep_post_kernel", "pairs_kernel", "whole_solve_kernel"} <= names
+    assert is_port_kernel("void (anonymous namespace)::sep_pre_kernel<false>(float const*, int)",
+                          names)
     assert is_port_kernel("void (anonymous namespace)::pairs_kernel<float>(int)", names)
     assert not is_port_kernel("void at::native::elementwise_kernel<128, 2>(int)", names)
-    assert not is_port_kernel("(anonymous namespace)::quad_half_sweep_x(int)", names)
+    assert not is_port_kernel("(anonymous namespace)::sep_pre_kernel_x(int)", names)
     # the step's kernels, whose names contain other kernels' names
     assert {"step_pre_kernel", "step_post_kernel", "step_corrector_kernel",
             "step_carry_kernel", "fold_partials_kernel"} <= names

@@ -41,7 +41,7 @@ INSTANCES = [((4, 136, 1152), 1, False, False, 3), ((4, 136, 1152), 2, True, Fal
 
 @pytest.mark.parametrize("qshape,n_pairs,post,block,halo", INSTANCES)
 def test_level0_plan_tile_halo_and_shared_memory(qshape, n_pairs, post, block, halo):
-    pl = PL.level0_plan(qshape, n_pairs, post, block=block)
+    pl = PL.level0_plan(qshape, n_pairs, post, masked=True, block=block)
     _, Hq8, Wqa = qshape
     rows, cols = PL.LEVEL0_TILES["block" if block else "field"]
     assert (pl.rows, pl.cols) == (min(rows, Hq8), min(cols, Wqa))
@@ -64,21 +64,21 @@ def _covered_once(pl, qshape):
 @pytest.mark.parametrize("qshape,n_pairs,post,block,halo", INSTANCES)
 @pytest.mark.parametrize("tile", [None, (5, 24), (3, 7)])
 def test_level0_tiles_cover_every_cell_once(qshape, n_pairs, post, block, halo, tile):
-    pl = PL.level0_plan(qshape, n_pairs, post, block=block, tile=tile)
+    pl = PL.level0_plan(qshape, n_pairs, post, masked=True, block=block, tile=tile)
     assert _covered_once(pl, qshape)
 
 
 @pytest.mark.parametrize("qshape,n_pairs,post,block,halo", INSTANCES[6:])
 def test_level0_plan_cuts_a_tile_larger_than_the_field(qshape, n_pairs, post, block, halo):
-    pl = PL.level0_plan(qshape, n_pairs, post, tile=(1000, 5000))
+    pl = PL.level0_plan(qshape, n_pairs, post, masked=True, tile=(1000, 5000))
     assert (pl.rows, pl.cols, pl.grid_x, pl.grid_y) == (*qshape[1:], 1, 1)
     assert _covered_once(pl, qshape)
 
 
 def test_level0_plan_refuses_a_tile_past_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
-        PL.level0_plan((4, 136, 1152), 2, True, tile=(64, 128))
-    PL.level0_plan((4, 136, 1152), 2, True, tile=(16, 64))  # fits
+        PL.level0_plan((4, 136, 1152), 2, True, masked=True, tile=(64, 128))
+    PL.level0_plan((4, 136, 1152), 2, True, masked=True, tile=(16, 64))  # fits
 
 
 @pytest.mark.parametrize("qshape,block", [((4, 136, 1152), False), ((4, 56, 1152), True)])
@@ -87,7 +87,7 @@ def test_level0_tiles_strand_no_sliver_at_the_main_widths(qshape, block):
     # 264 tiles hold cells of the domain (2049 logical columns: plane
     # columns 0..1024), two an SM on 132 SMs
     for post in (False, True):
-        pl = PL.level0_plan(qshape, 1, post, block=block)
+        pl = PL.level0_plan(qshape, 1, post, masked=True, block=block)
         assert qshape[1] % pl.rows == 0
         assert pl.grid_y * -(-1025 // pl.cols) == 2 * PL.H100_SMS
 
@@ -335,9 +335,11 @@ def _inputs(op, seed):
 def _check(pre, post, tile, row0=0, halo=0, seed=0):
     p, b, ec = _inputs(pre, seed)
     block = halo > 0
-    mp = Mirror(pre, PL.level0_plan(pre.qshape, pre.n_pairs, False, block=block, tile=tile),
+    mp = Mirror(pre, PL.level0_plan(pre.qshape, pre.n_pairs, False, masked=True, block=block,
+                                     tile=tile),
                 row0, halo)
-    mq = Mirror(post, PL.level0_plan(post.qshape, post.n_pairs, True, block=block, tile=tile),
+    mq = Mirror(post, PL.level0_plan(post.qshape, post.n_pairs, True, masked=True, block=block,
+                                      tile=tile),
                 row0, halo)
     if halo:
         want_pre, want_post = pre.plain(row0, p, b), post.plain(row0, p, b, ec)

@@ -16,7 +16,12 @@ for bit; the runs are held to equal cycles and fields within 5e-5 of scale
 post kernels (one launch of shared-memory tiles each) are held bit for
 bit on every shard under kernels/plan.py LEVEL0_TILES' tile, under tiles
 that do not divide the block, and under one larger than it, with their
-device operations a call counted by torch.profiler."""
+device operations a call counted by torch.profiler in a child process."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,9 +34,9 @@ from cfd_tpu_torch.kernels import step_quad as TSQ
 from cfd_tpu_torch.ops.stencil import StencilCoeffs
 from cfd_tpu_torch.parallel import ShardedQuadProjection, make_mesh
 from cfd_tpu_torch.poisson.multigrid import step_rect_params
-from cfd_tpu_torch.profile_step import device_ops_a_call
 
 H = TQ.DEV_HALO
+ROOT = Path(__file__).resolve().parent.parent
 # (nx, ny, mdy, tile) of the block instances: LEVEL0_TILES' tile at the
 # 2048x256 step's 4-shard blocks (the corner row, shard 1's local row 32,
 # inside a 7-row tile) and 8-row tiles (the corner row on a tile edge),
@@ -110,8 +115,8 @@ def _level0_ops(nx, ny, mdy, device, tile):
     pre = TSQ.make_quad_step_pre_smooth_restrict(*level0, device=device, shard=(P, mdy))
     post = TSQ.make_quad_step_post_prolong_smooth(*level0, device=device, shard=(P, mdy))
     if tile is not None:
-        pre._tile_plan = PL.level0_plan(pre.qshape, 1, False, block=True, tile=tile)
-        post._tile_plan = PL.level0_plan(post.qshape, 1, True, block=True, tile=tile)
+        pre._tile_plan = PL.level0_plan(pre.qshape, 1, False, masked=True, block=True, tile=tile)
+        post._tile_plan = PL.level0_plan(post.qshape, 1, True, masked=True, block=True, tile=tile)
     return pre, post, shape, np.asarray(g.fluid, dtype=np.float32)
 
 
@@ -138,13 +143,18 @@ def test_step_shard_level0_tiles_match_plain_bit_for_bit(cuda_device, nx, ny, md
 
 @pytest.mark.cuda
 def test_step_shard_level0_device_operations_a_call(cuda_device):
-    pre, post, shape, fluid = _level0_ops(2048, 256, 4, cuda_device, None)
-    P = TQ.quad_shard_dims(shape, 4)[1]
-    _, _, p, b, ec = _blocks(shape, 4, 1, cuda_device, seed=5, fluid=fluid)
-    ops = device_ops_a_call(lambda: pre(P - H, p, b))
-    assert len(ops) == 1 and "step_pre_kernel" in ops[0], ops
-    ops = device_ops_a_call(lambda: post(P - H, p, b, ec))
-    assert len(ops) == 1 and "step_post_kernel" in ops[0], ops
+    # shard 1's block of the 2048x256 step's 4-shard mesh at V(1,1), counted
+    # in a fresh process (python -m cfd_tpu_torch.time_level0), as
+    # chip_smoke.py counts it: a process's later torch.profiler traces have
+    # come back without device events on the H100 machine, its first has not
+    out = subprocess.run([sys.executable, "-m", "cfd_tpu_torch.time_level0", "cardtest",
+                          "--only", "16f-pre,16f-post", "--reps", "5"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+    assert [r["row"] for r in lines] == ["16f-pre", "16f-post"]
+    for r, kernel in zip(lines, ("step_pre_kernel", "step_post_kernel")):
+        assert r["launches_a_call"] == 1 and kernel in r["ops"][0], r
 
 
 def _run(sq, steps):

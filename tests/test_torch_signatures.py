@@ -43,3 +43,24 @@ def test_every_entry_point_has_a_signature():
 @pytest.mark.parametrize("name", sorted(SIGNATURES))
 def test_signature_matches_the_declaration(name):
     assert SIGNATURES[name] == DECLS[name]
+
+
+def parameter_names(name: str) -> list[str]:
+    """The parameter names of ``extern "C" int name(...)`` in csrc/*.cu."""
+    for f in sorted(CSRC.glob("*.cu")):
+        m = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{', f.read_text(), re.S)
+        if m:
+            return [p.strip().split()[-1].lstrip("*") for p in m.group(1).split(",")]
+    raise AssertionError(f"{name} not declared")
+
+
+@pytest.mark.parametrize("name", ["cfd_quad_pre_smooth_restrict", "cfd_quad_post_prolong_smooth",
+                                  "cfd_step_pre_smooth_restrict", "cfd_step_post_prolong_smooth"])
+def test_finest_level_entry_points_take_the_tile_plan(name):
+    # both flavors' pre and post kernels end in the pairs, a block's
+    # row_base and halo, the tile plan and the stream; the post kernels
+    # take the running max's accumulator right after res
+    names = parameter_names(name)
+    assert names[-5:] == ["n_pairs", "row_base", "halo", "plan", "stream"]
+    if "post" in name:
+        assert names[names.index("res") + 1] == "acc"

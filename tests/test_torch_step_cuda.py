@@ -182,8 +182,8 @@ def _level0_ops(case, n_pre, n_post, tile):
     pre = TS.make_quad_step_pre_smooth_restrict(*consts, n_pre, coarse, device=case.device)
     post = TS.make_quad_step_post_prolong_smooth(*consts, n_post, coarse, device=case.device)
     if tile is not None:
-        pre._tile_plan = PL.level0_plan(pre.qshape, n_pre, False, tile=tile)
-        post._tile_plan = PL.level0_plan(post.qshape, n_post, True, tile=tile)
+        pre._tile_plan = PL.level0_plan(pre.qshape, n_pre, False, masked=True, tile=tile)
+        post._tile_plan = PL.level0_plan(post.qshape, n_post, True, masked=True, tile=tile)
     return pre, post
 
 
