@@ -35,6 +35,7 @@
 // compile time.
 #pragma once
 
+#include "carry_tile.cuh"
 #include "common.cuh"
 #include "quad_level0.cuh"
 #include "step_level0.cuh"
@@ -286,7 +287,7 @@ __device__ inline TileW load_tile_weights(const cfd::Level0& L, const Tile& T, f
   return W;
 }
 
-// signed residual b - A p at local (lj, li) of a tile (quad_residual): 0
+// signed residual b - A p at local (lj, li) of a tile (cfd::apply_a): 0
 // off the interior and outside a block
 template <bool kBlock>
 __device__ __forceinline__ float sep_residual(const float* p, const float* b, const TileW& W,
@@ -305,7 +306,7 @@ __device__ __forceinline__ float sep_residual(const float* p, const float* b, co
   return b[k] - ap;
 }
 
-// n_pairs red/black pairs of the tile's iterate p in place (quad_gs),
+// n_pairs red/black pairs of the tile's iterate p in place (cfd::gs_update),
 // half-sweep k (from 1) on the band k + shift of a block
 template <bool kBlock>
 __device__ inline void sep_pairs(float* p, const float* b, const TileW& W, const Tile& T,
@@ -330,10 +331,32 @@ __device__ __forceinline__ int sep_tile_floats(const Tile& T) {
   return 2 * T.LR * T.LC + tile_weight_floats(T);
 }
 
+// cudaSuccess when a separable pre (post false) or post kernel's tile plan
+// covers L's (4, Hq8, Wqa) field with the halo its half-sweeps and
+// residual reach (n_pairs + 1 plane rows) and the shared memory of the
+// iterate, the source, the weight vectors (and on post the coarse tile),
+// else cudaErrorInvalidValue (the wrapper raises); quad_vcycle.cu's kernels
+// and the fused-pre carry's phase B (quad_fused_pre.cu) check their plans
+// so
+inline cudaError_t check_sep_plan(const tile::Plan& pl, const cfd::Level0& L, int n_pairs,
+                                  bool post) {
+  if (n_pairs < 1 || pl.halo != n_pairs + 1) return cudaErrorInvalidValue;
+  if (pl.rows < 1 || pl.cols < 1 || L.Hq8 < 1 || L.Wqa < 1) return cudaErrorInvalidValue;
+  if (pl.grid_x != (L.Wqa + pl.cols - 1) / pl.cols ||
+      pl.grid_y != (L.Hq8 + pl.rows - 1) / pl.rows)
+    return cudaErrorInvalidValue;
+  const long long lr = 2LL * (pl.rows + 2 * pl.halo), lc = 2LL * (pl.cols + 2 * pl.halo);
+  const long long coarse =
+      post ? (pl.rows + 2LL * pl.halo + 1) * (pl.cols + 2 * pl.halo + 1) : 0;
+  const long long bytes = 4 * (2 * lr * lc + 2 * (lr + lc) + coarse);
+  if (pl.smem_bytes != bytes || bytes > tile::kSmemMax) return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
 // The separable pre body on tile T from shared memory buf: n_pairs pairs
 // from src (half-sweeps 1..), the result into dst (own cells), then rc(idx,
-// v) with the residual's full weighting (quad_restrict_value) at each own
-// coarse cell idx of the (Hq8, Wqa) level-1 array: 0.25 * the four
+// v) with the residual's full weighting (cfd_tpu/kernels/quad.py:678-687)
+// at each own coarse cell idx of the (Hq8, Wqa) level-1 array: 0.25 * the four
 // residuals of its children on the coarse interior (the global coarse row
 // Jc), else 0. Every thread of the block calls it.
 template <bool kBlock, class Rc>
@@ -404,41 +427,18 @@ __device__ inline float sep_post_tile(const Tile& T, const float* src, const flo
 
 // ------------------------------------- the masked finest level (step_level0.cuh)
 
-// the ghost stage's output at (j, i) from its input src (step_level0.cuh;
-// step_quad.py:270-302)
-template <class A>
-__device__ __forceinline__ float t_ghost(const A& src, int j, int i, const cfd::StepL0& L) {
-  const bool row_in = j >= 1 && j <= L.ny, col_in = i >= 1 && i <= L.nx;
-  if (i == 0 && row_in) return src(j, 1);
-  if (i == L.nx + 1 && row_in) return 0.f;
-  if (j == 0 && col_in) return src(1, i);
-  if (j == L.ny + 1 && col_in) return src(L.ny, i);
-  if (row_in && col_in && i <= L.step_i && j > L.inlet_j) {
-    const bool eastw = i == L.step_i && i < L.nx;
-    const bool southw = j == L.inlet_j + 1 && j > 1;
-    if (eastw || southw) {
-      const float cnt = (eastw ? 1.0f : 0.0f) + (southw ? 1.0f : 0.0f);
-      const float inv = 1.0f / cnt;
-      return ((eastw ? src(j, i + 1) : 0.0f) + (southw ? src(j - 1, i) : 0.0f)) * inv;
-    }
-  }
-  return src(j, i);
-}
-
 // the value at (j, i) after ghost stage ``lo`` of src: its output in the
 // band, its input outside
 template <bool kBlock, class A>
 __device__ __forceinline__ float t_banded_ghost(const A& src, int j, int i, int lo,
                                                 const cfd::StepL0& L) {
-  if (cfd::step_in_band<kBlock>(j, lo, L)) return t_ghost(src, j, i, L);
+  if (cfd::step_in_band<kBlock>(j, lo, L)) return cfd::step_ghost(src, j, i, L);
   return src(j, i);
 }
 
 // ghost stage ``lo`` then the red half-sweep ``lo + 1`` at (j, i): a red
-// fluid cell's Gauss-Seidel update from the ghosted src, every other cell
-// its ghosted value. Red = (i + j) even. The update is (1 - omega)*p +
-// omega*gs, gs = (idx2*(E + W) + idy2*(N + S) - b) / denom
-// (multigrid.py:995-999), a true division as the twin's.
+// fluid cell's Gauss-Seidel update (step_gs) from the ghosted src, every
+// other cell its ghosted value. Red = (i + j) even.
 template <bool kBlock, class A>
 __device__ __forceinline__ float t_ghost_red(const A& src, const A& b, int j, int i,
                                              const cfd::StepL0& L, int lo) {
@@ -449,8 +449,7 @@ __device__ __forceinline__ float t_ghost_red(const A& src, const A& b, int j, in
   const float Wv = t_banded_ghost<kBlock>(src, j, i - 1, lo, L);
   const float N = t_banded_ghost<kBlock>(src, j + 1, i, lo, L);
   const float S = t_banded_ghost<kBlock>(src, j - 1, i, lo, L);
-  const float gs = (L.idx2 * (E + Wv) + L.idy2 * (N + S) - b(j, i)) / L.denom;
-  return L.one_minus_omega * src(j, i) + L.omega * gs;
+  return cfd::step_gs(src(j, i), E, Wv, N, S, b(j, i), L);
 }
 
 // the exact residual at (j, i): ghost stage ``lo`` re-applied to p, then b
@@ -469,8 +468,7 @@ __device__ __forceinline__ float t_step_residual(const A& p, const A& b, int j, 
   const float Wv = t_banded_ghost<kBlock>(p, j, i - 1, lo, L);
   const float N = t_banded_ghost<kBlock>(p, j + 1, i, lo, L);
   const float S = t_banded_ghost<kBlock>(p, j - 1, i, lo, L);
-  const float lap = (E - 2.0f * pc + Wv) * L.idx2 + (N - 2.0f * pc + S) * L.idy2;
-  return b(j, i) - lap;
+  return cfd::step_residual(pc, E, Wv, N, S, b(j, i), L);
 }
 
 // out = stage s of in on the cells s + 1 from the buffer's edge
@@ -503,10 +501,8 @@ __device__ inline int step_pairs(float** a, float** o, const float* b, const Til
       const int j = T.oj + lj, i = T.oi + li;
       if (!(cfd::step_fluid(j, i, L) && cfd::step_in_band<kBlock>(j, k + 3, L)))
         return Upd{false, 0.f};
-      const float E = pv(j, i + 1), Wv = pv(j, i - 1);
-      const float N = pv(j + 1, i), S = pv(j - 1, i);
-      const float gs = (L.idx2 * (E + Wv) + L.idy2 * (N + S) - bv(j, i)) / L.denom;
-      return Upd{true, L.one_minus_omega * p[lj * T.LC + li] + L.omega * gs};
+      return Upd{true, cfd::step_gs(p[lj * T.LC + li], pv(j, i + 1), pv(j, i - 1),
+                                    pv(j + 1, i), pv(j - 1, i), bv(j, i), L)};
     });
     ++s;
     k += 3;

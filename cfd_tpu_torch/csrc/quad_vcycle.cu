@@ -105,25 +105,6 @@ const void* level0_fn(bool post, bool block) {
                : reinterpret_cast<const void*>(sep_pre_kernel<false>);
 }
 
-// cudaSuccess when the plan covers a (4, Hq8, Wqa) field with the halo the
-// kernel's half-sweeps and residual reach (n_pairs + 1 plane rows on pre
-// and post) and the shared memory of the iterate, the source, the weight
-// vectors (and on post the coarse tile), else cudaErrorInvalidValue (the
-// wrapper raises)
-cudaError_t check_plan(const tile::Plan& pl, const Level0& L, int n_pairs, bool post) {
-  if (n_pairs < 1 || pl.halo != n_pairs + 1) return cudaErrorInvalidValue;
-  if (pl.rows < 1 || pl.cols < 1 || L.Hq8 < 1 || L.Wqa < 1) return cudaErrorInvalidValue;
-  if (pl.grid_x != (L.Wqa + pl.cols - 1) / pl.cols ||
-      pl.grid_y != (L.Hq8 + pl.rows - 1) / pl.rows)
-    return cudaErrorInvalidValue;
-  const long long lr = 2LL * (pl.rows + 2 * pl.halo), lc = 2LL * (pl.cols + 2 * pl.halo);
-  const long long coarse =
-      post ? (pl.rows + 2LL * pl.halo + 1) * (pl.cols + 2 * pl.halo + 1) : 0;
-  const long long bytes = 4 * (2 * lr * lc + 2 * (lr + lc) + coarse);
-  if (pl.smem_bytes != bytes || bytes > tile::kSmemMax) return cudaErrorInvalidValue;
-  return cudaSuccess;
-}
-
 Level0 level(int Hq8, int Wqa, int ny, int nx, float idx2, float idy2, float omega,
              const float* wE, const float* wW, const float* wN, const float* wS,
              int row_base, int halo) {
@@ -160,7 +141,7 @@ extern "C" int cfd_quad_pre_smooth_restrict(const float* p, const float* b, floa
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Level0 L = level(Hq8, Wqa, ny, nx, idx2, idy2, omega, wE, wW, wN, wS, row_base, halo);
   const tile::Plan pl = plan_of(plan);
-  const cudaError_t err = check_plan(pl, L, n_pairs, false);
+  const cudaError_t err = ws::check_sep_plan(pl, L, n_pairs, false);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(pl.grid_x, pl.grid_y);
   if (halo > 0) {
@@ -187,7 +168,7 @@ extern "C" int cfd_quad_post_prolong_smooth(const float* p, const float* b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Level0 L = level(Hq8, Wqa, ny, nx, idx2, idy2, omega, wE, wW, wN, wS, row_base, halo);
   const tile::Plan pl = plan_of(plan);
-  const cudaError_t err = check_plan(pl, L, n_pairs, true);
+  const cudaError_t err = ws::check_sep_plan(pl, L, n_pairs, true);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(pl.grid_x, pl.grid_y);
   if (halo > 0) {

@@ -13,10 +13,9 @@
 // re-averages (column 0 at row inlet_j + 1 reads cell (inlet_j + 1, 1); row
 // ny + 1 at column step_i reads cell (ny, step_i)), so an in-place
 // grid-parallel stage would depend on thread order: the stage's output at
-// a cell is computed purely from the stage's INPUT (level0_tile.cuh
-// t_ghost), read from one buffer and written to another. The solid
-// averaging reads only interior fluid cells, which the stage does not
-// change.
+// a cell is computed purely from the stage's INPUT (step_ghost below), read
+// from one buffer and written to another. The solid averaging reads only
+// interior fluid cells, which the stage does not change.
 //
 // Local blocks (kBlock, row 16f; cfd_tpu/parallel/quad_sharded.py): the
 // arrays are a shard's (4, P + 16, Wqa) block at global plane row row0
@@ -42,8 +41,59 @@ struct StepL0 {
   int halo = 0;  // its halo strip in plane rows; 0 on a whole field
 };
 
-__device__ __forceinline__ bool step_fluid(int j, int i, const StepL0& L) {
+// The arithmetic of the exact masked operator on the step's rectangle, for
+// a geometry G with the fields ny, nx, step_i, inlet_j (the solid block
+// {i <= step_i, j > inlet_j}) and the constants idx2, idy2, denom, omega,
+// one_minus_omega: StepL0 here, and the natural layout's level 0
+// (step_smoother.cu), whose tiles run the same cell arithmetic. src(j, i)
+// reads a stage's input at global logical (j, i).
+
+template <class G>
+__device__ __forceinline__ bool step_fluid(int j, int i, const G& L) {
   return j >= 1 && j <= L.ny && i >= 1 && i <= L.nx && !(i <= L.step_i && j > L.inlet_j);
+}
+
+// The ghost stage's output at (j, i) from its input src (step_quad.py:
+// 270-302, cfd_tpu/kernels/step_smoother.py:140-152): the domain ghosts,
+// then a solid cell on the block's east column or bottom row takes
+// (east + south) * (1 / count) of its fluid neighbours, the absent one as
+// 0; every other cell keeps src. It reads the 3 x 3 box around (j, i).
+template <class A, class G>
+__device__ __forceinline__ float step_ghost(const A& src, int j, int i, const G& L) {
+  const bool row_in = j >= 1 && j <= L.ny, col_in = i >= 1 && i <= L.nx;
+  if (i == 0 && row_in) return src(j, 1);
+  if (i == L.nx + 1 && row_in) return 0.f;
+  if (j == 0 && col_in) return src(1, i);
+  if (j == L.ny + 1 && col_in) return src(L.ny, i);
+  if (row_in && col_in && i <= L.step_i && j > L.inlet_j) {
+    const bool eastw = i == L.step_i && i < L.nx;
+    const bool southw = j == L.inlet_j + 1 && j > 1;
+    if (eastw || southw) {
+      const float cnt = (eastw ? 1.0f : 0.0f) + (southw ? 1.0f : 0.0f);
+      const float inv = 1.0f / cnt;
+      return ((eastw ? src(j, i + 1) : 0.0f) + (southw ? src(j - 1, i) : 0.0f)) * inv;
+    }
+  }
+  return src(j, i);
+}
+
+// A fluid cell's Gauss-Seidel update from its value c, its neighbours and
+// b: (1 - omega) c + omega gs, gs = (idx2 (E + W) + idy2 (N + S) - b) /
+// denom (multigrid.py:995-999), a true division as the twins'
+template <class G>
+__device__ __forceinline__ float step_gs(float c, float E, float W, float N, float S, float b,
+                                         const G& L) {
+  const float gs = (L.idx2 * (E + W) + L.idy2 * (N + S) - b) / L.denom;
+  return L.one_minus_omega * c + L.omega * gs;
+}
+
+// b - lap at a fluid cell of ghosted value pc and ghosted neighbours
+// (multigrid.py residual0, :1010-1014)
+template <class G>
+__device__ __forceinline__ float step_residual(float pc, float E, float W, float N, float S,
+                                               float b, const G& L) {
+  const float lap = (E - 2.0f * pc + W) * L.idx2 + (N - 2.0f * pc + S) * L.idy2;
+  return b - lap;
 }
 
 // the block's row offset: 0 on a whole field, folded at compile time

@@ -579,7 +579,7 @@ __device__ __forceinline__ void store_rc(const Params& P, long long idx, float v
 
 // The pre phase of the separable finest level on every tile: P.pre pairs
 // from src, the smoothed iterate into dst (own cells), the residual's full
-// weighting into level 1 (quad_restrict_value) through store_rc.
+// weighting into level 1 (sep_pre_tile) through store_rc.
 __device__ inline void sep_pre_tiles(const Params& P, const float* src, float* dst) {
   const cfd::Level0& L = P.L0;
   const Plan& pl = P.plan;

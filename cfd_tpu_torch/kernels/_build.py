@@ -123,11 +123,17 @@ SIGNATURES = {
     "cfd_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
     "cfd_channel_predictor_source": [_P] * 7 + [_I] * 4 + [_F] * 8 + [_P],
     "cfd_channel_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
-    "cfd_step_pairs": [_P] * 6 + [_I] * 6 + [_F] * 5 + [_I, _P],
+    # ... p, b, out, r, res, acc, the level, n_pairs, the tile plan
+    # (kernels/plan.py step_pairs_plan); its kernel readied: shared memory;
+    # blocks, blocks per SM, registers out
+    "cfd_step_pairs": [_P] * 6 + [_I] * 6 + [_F] * 5 + [_I, _P, _P],
+    "cfd_step_pairs_grid": [_I] + [_P] * 3,
     # the cavity carry with the first pre-smooth and restriction (one
-    # cooperative launch) and its grid; the non-carry channel stage
-    "cfd_quad_fused_pre": [_P] * 12 + [_F] * 10 + [_P] * 4 + [_I] * 4 + [_F] * 3 + [_I, _P],
-    "cfd_quad_fused_pre_grid": [_P] * 3,
+    # cooperative launch; the pointer after n_pairs its plan,
+    # kernels/plan.py FusedPrePlan) and its grid readied: shared memory;
+    # blocks, blocks per SM, registers out; the non-carry channel stage
+    "cfd_quad_fused_pre": [_P] * 12 + [_F] * 10 + [_P] * 4 + [_I] * 4 + [_F] * 3 + [_I, _P, _P],
+    "cfd_quad_fused_pre_grid": [_I] + [_P] * 3,
     "cfd_quad_channel_predictor_source": [_P] * 7 + [_I] * 4 + [_F] * 8 + [_P],
 }
 

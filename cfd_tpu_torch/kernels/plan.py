@@ -2,9 +2,12 @@
 (csrc/whole_solve.cuh Plan: the whole-solve, kernels.whole_solve, the whole
 step, kernels.whole_step, and the fused tail, kernels.mg_tail), the
 one-launch carries (csrc/carry_tile.cuh Plan, carry_plan below), the
-finest-level tile kernels, separable and the step's, and the coarse
-smoother (the same Plan, level0_plan and pairs_plan below) and the whole
-step's, which joins the solve's and the carry's (whole_step_plan below).
+finest-level tile kernels, separable and the step's, the coarse smoother
+and the natural step's masked pairs (the same Plan, level0_plan,
+pairs_plan and step_pairs_plan below), the whole step's, which joins the
+solve's and the carry's (whole_step_plan below), and the fused-pre
+carry's, which joins the cavity carry's and the separable pre kernel's
+(fused_pre_plan below).
 
 Each runs one cooperative grid of one block of BLOCK_THREADS threads on
 every SM. The coarse levels from ``block_from`` down run in ONE
@@ -245,7 +248,8 @@ def cooperative_grid(symbol: str, *which: int) -> dict:
     them) of the C entry point ``symbol`` (cfd_whole_solve_grid,
     cfd_whole_step_grid, cfd_mg_tail_grid, cfd_quad_fused_pre_grid; the
     carries' cfd_quad_carry_grid, cfd_quad_channel_carry_grid,
-    cfd_step_carry_grid, cfd_rb_carry_grid) on the current CUDA
+    cfd_step_carry_grid, cfd_rb_carry_grid; the tile kernels' grids) on
+    the current CUDA
     device: blocks (SMs x blocks per SM), blocks per SM and registers per
     thread. Raises when the card refuses the grid."""
     lib = library()
@@ -360,7 +364,8 @@ def ready_tiles(plan: CarryPlan, device, symbol: str, *which: int) -> dict:
     cfd_quad_channel_carry_grid, cfd_step_carry_grid, cfd_rb_carry_grid
     with ``which`` adaptive, block; the finest-level
     cfd_quad_level0_grid and cfd_step_level0_grid with post, block; the
-    coarse smoother's cfd_rb_pairs_grid with its storage) on ``device`` for the plan's
+    coarse smoother's cfd_rb_pairs_grid with its storage; the natural
+    step's cfd_step_pairs_grid) on ``device`` for the plan's
     shared memory, and raise unless the card holds a block of it. The
     modules call it once a device and instance, before their first launch
     there; returns cooperative_grid's dict."""
@@ -508,6 +513,65 @@ def pairs_plan(shape, n_pairs: int, residual: bool, full: bool,
     return CarryPlan(rows, cols, halo, smem, -(-W // cols), -(-H8 // rows))
 
 
+# ------------------------------------------- the natural step's masked pairs
+
+# The tiles of the natural step's exact masked pairs (csrc/step_smoother.cu:
+# one launch of one tile a block, 512 threads). A tile's buffers are
+# STEP_PAIRS_TILE_WIDTH columns wide, one warp's row of a pass (two cells a
+# lane, level0_tile.cuh update2), so its own columns are that less twice
+# its halo; its rows the most of STEP_PAIRS_TILE_ROWS whose grid holds at
+# least STEP_PAIRS_MIN_TILES tiles, else the last: the levels are small
+# (the natural step's level 0 is 32 x 514), so a call is the latency of its
+# 3 n + 1 dependent passes, each shorter the fewer rows a tile's buffers
+# have. Chosen on an H100 by timing candidates at the natural step's level
+# 0 (PERF.md, the natural step's pairs: 4-row tiles, 96 of them, timed
+# fastest there in both residual variants, 32-row bands slowest); a sweep
+# times a fresh op under another plan (time_pairs --tiles); nothing
+# overrides these but the card tests' ``tile``.
+STEP_PAIRS_TILE_WIDTH = 64
+STEP_PAIRS_TILE_ROWS = (32, 16, 8, 4)
+STEP_PAIRS_MIN_TILES = 96
+# the logical buffers a tile stages: the iterate, its second buffer (the
+# refresh writes out of place), the source
+STEP_PAIRS_BUFFERS = 3
+
+
+def step_pairs_halo(n_pairs: int, residual: bool) -> int:
+    """Cells of halo of the natural step's pairs: each of the 3 n_pairs + 1
+    stages (n_pairs x (refresh, red, black) and the trailing refresh) reads
+    the 3 x 3 box around a cell, and the residual re-applies the refresh
+    before its 5-point stencil: 2 more (cfd_tpu/kernels/step_smoother.py:
+    70-75)."""
+    return 3 * n_pairs + 1 + 2 * int(residual)
+
+
+def step_pairs_plan(shape, n_pairs: int, residual: bool,
+                    tile: tuple[int, int] | None = None) -> CarryPlan:
+    """The plan of the natural step's masked pairs at ``n_pairs`` pairs on a
+    logical (ny + 2, nx + 2) level, with a ``residual`` (the field or its
+    max) or without: the halo of step_pairs_halo, the tile of the rule above
+    (the card tests pass another ``tile``), cut to the level where it is
+    larger, shared memory for STEP_PAIRS_BUFFERS buffers; one tile a block
+    over the whole array. Raises when a tile does not fit a block's shared
+    memory."""
+    H, W = shape
+    halo = step_pairs_halo(n_pairs, residual)
+    if tile is None:
+        cols = max(STEP_PAIRS_TILE_WIDTH - 2 * halo, 1)
+        rows = STEP_PAIRS_TILE_ROWS[-1]
+        for r in STEP_PAIRS_TILE_ROWS:
+            if -(-H // r) * -(-W // cols) >= STEP_PAIRS_MIN_TILES:
+                rows = r
+                break
+        tile = (rows, cols)
+    rows, cols = min(tile[0], H), min(tile[1], W)
+    smem = 4 * STEP_PAIRS_BUFFERS * (rows + 2 * halo) * (cols + 2 * halo)
+    if smem > SMEM_MAX:
+        raise ValueError(f"the natural step's pairs' {rows}x{cols} tile (halo {halo}) takes "
+                         f"{smem} B of shared memory, more than a block's {SMEM_MAX}")
+    return CarryPlan(rows, cols, halo, smem, -(-W // cols), -(-H // rows))
+
+
 # ------------------------------------------------------------- the whole step
 
 # The whole step's carry runs the carries' tiles inside its cooperative
@@ -560,3 +624,59 @@ def whole_step_plan(flow: str, solve: Plan, qshape,
     return WholeStepPlan(dataclasses.replace(solve, smem_bytes=smem), carry,
                          WHOLE_STEP_CARRY_BARRIERS[flow])
 
+
+
+# ------------------------------------------------------- the fused-pre carry
+
+# The fused-pre carry (csrc/quad_fused_pre.cu) runs the cavity carry's
+# tiles and then the separable pre kernel's in one cooperative launch, one
+# grid barrier between them: each block of BLOCK_THREADS threads walks the
+# carry's tiles t = block + k blocks in turn with the next tile's loads
+# under this tile's stages (FUSED_PRE_INPUT_SETS input sets, as the whole
+# step), then the pre tiles the same way. The carry's tile is
+# FUSED_PRE_TILE (plane rows, plane columns), the pre's level0_plan's; the
+# blocks are as many as co-reside at the larger of the two phases' shared
+# memory, at most two an SM (csrc/quad_fused_pre.cu kBlocksPerSM, the
+# kernel's launch bounds: 64 registers). Chosen on an H100 by timing candidates at the
+# 2048^2 cavity (PERF.md, the fused-pre carry's findings: 8 x 48, two
+# blocks an SM, timed fastest of seven, 3% ahead of 16 x 32 and 11% of
+# carry_plan's 8 x 64, one block an SM with two input sets); a sweep times
+# a fresh op under another plan (time_carries --tiles); nothing overrides
+# it but the card tests' ``tile``.
+FUSED_PRE_TILE = (8, 48)
+FUSED_PRE_INPUT_SETS = 2        # csrc/carry_tile.cuh kInputSets
+FUSED_PRE_BARRIERS = 1          # the grid barriers of a launch
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPrePlan:
+    """The launch plan of the fused-pre carry: ``carry``, the cavity carry's
+    tiles (phase A, FUSED_PRE_INPUT_SETS input sets); ``pre``, the separable
+    pre tiles (phase B); ``smem_bytes``, the larger of their shared memory;
+    ``blocks``, the cooperative grid (0 until a module readies it on a card:
+    as many as co-reside there, kernels.quad)."""
+
+    carry: CarryPlan
+    pre: CarryPlan
+    smem_bytes: int
+    blocks: int = 0
+
+    def c_ints(self):
+        """The host array cfd_quad_fused_pre takes: the carry's six fields,
+        the pre's six, the shared memory and the blocks."""
+        return (ctypes.c_int * 14)(*dataclasses.astuple(self.carry),
+                                   *dataclasses.astuple(self.pre), self.smem_bytes,
+                                   self.blocks)
+
+
+def fused_pre_plan(qshape, n_pairs: int, tile: tuple[int, int] | None = None) -> FusedPrePlan:
+    """The plan of the fused-pre carry on a (4, Hq8, Wqa) cavity field at
+    ``n_pairs`` pre pairs: carry_plan's cavity plan at FUSED_PRE_TILE (or
+    ``tile``: the card tests hold the kernel to its twin under others) with
+    FUSED_PRE_INPUT_SETS input sets and the corrected u, v; level0_plan's
+    separable pre plan; the larger of their shared memory. Raises when a
+    phase's tiles do not fit a block's shared memory."""
+    carry = carry_plan("cavity", qshape, FUSED_PRE_TILE if tile is None else tile,
+                       buffers=FUSED_PRE_INPUT_SETS * CARRY_INPUTS["cavity"] + WORK_BUFFERS)
+    pre = level0_plan(qshape, n_pairs, False, masked=False)
+    return FusedPrePlan(carry, pre, max(carry.smem_bytes, pre.smem_bytes))

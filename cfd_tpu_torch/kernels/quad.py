@@ -40,6 +40,7 @@ by kernels/plan.py carry_plan).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -47,7 +48,8 @@ from torch import nn
 
 from cfd_tpu_torch.kernels._build import Kernel, ptr, route
 from cfd_tpu_torch.kernels.mg_tail import fold_sum
-from cfd_tpu_torch.kernels.plan import carry_plan, level0_plan, ready_tiles
+from cfd_tpu_torch.kernels.plan import (carry_plan, fused_pre_plan, level0_plan, ready_grid,
+                                        ready_tiles)
 from cfd_tpu_torch.ops.stencil import StencilCoeffs
 
 CARRY = Kernel("quad_corr_predictor_source", "cfd_quad_carry",
@@ -1494,9 +1496,10 @@ class QuadCorrPredictorSourceFusedPre(QuadCorrPredictorSource):
     starts its first cycle at the coarse stage with it
     (MultigridPoisson.solve_rc). The twin is the composition carry twin ->
     ``pre`` twin, which the reference holds its kernel bit-equal to
-    (tests/test_quad.py:410); the kernel is one cooperative launch
-    (csrc/quad_fused_pre.cu). ``pre`` is the solve's QuadPreSmoothRestrict,
-    whose constants it shares."""
+    (tests/test_quad.py:410); the kernel is one cooperative launch of the
+    carry's tiles and then the pre's, one grid barrier between them
+    (csrc/quad_fused_pre.cu, kernels/plan.py fused_pre_plan). ``pre`` is
+    the solve's QuadPreSmoothRestrict, whose constants it shares."""
 
     def __init__(self, shape, coeffs: StencilCoeffs, pre: QuadPreSmoothRestrict,
                  lid_velocity: float = 1.0):
@@ -1514,13 +1517,29 @@ class QuadCorrPredictorSourceFusedPre(QuadCorrPredictorSource):
         p1, rc = self.pre.plain(guess, b)
         return us2, vs2, b, p1, rc, max_b
 
+    def launch_plan(self, device):
+        """The plan (``self._tile_plan``: unless set before the first launch,
+        fused_pre_plan on the field at pre's pairs) with its blocks, as
+        many as co-reside on ``device``, readied there once
+        (cfd_quad_fused_pre_grid), and its host array."""
+        if getattr(self, "_tile_plan", None) is None:
+            self._tile_plan = fused_pre_plan(self.qshape, self.pre.n_pairs)
+        ready = self.__dict__.setdefault("_ready", {})
+        if str(device) not in ready:
+            grid = ready_grid(self._tile_plan, device, "cfd_quad_fused_pre_grid")
+            plan = dataclasses.replace(self._tile_plan, blocks=grid["blocks"])
+            ready[str(device)] = (plan, plan.c_ints())
+        return ready[str(device)]
+
     def kernel(self, us, vs, p, p_prev):
-        u_scr, v_scr, us2, vs2, b, p1 = (torch.empty_like(us) for _ in range(6))
+        plan, ints = self.launch_plan(us.device)
+        us2, vs2, b, guess, p1 = (torch.empty_like(us) for _ in range(5))
         rc = torch.empty(self.pre.coarse_shape, dtype=torch.float32, device=us.device)
+        slots = torch.empty(plan.blocks, dtype=torch.float32, device=us.device)
         max_b = torch.empty((), dtype=torch.float32, device=us.device)
         c = self.coeffs
-        FUSED_PRE(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(u_scr), ptr(v_scr), ptr(us2),
-                  ptr(vs2), ptr(b), ptr(p1), ptr(rc), ptr(max_b), self.cu, self.cv,
+        FUSED_PRE(us, ptr(us), ptr(vs), ptr(p), ptr(p_prev), ptr(us2), ptr(vs2), ptr(b),
+                  ptr(guess), ptr(p1), ptr(rc), ptr(slots), ptr(max_b), self.cu, self.cv,
                   2.0 * self.lid, c.dt, c.viscosity, c.idx, c.idy, c.idx2, c.idy2,
-                  self.rho_dt, *self.pre._kernel_args())
+                  self.rho_dt, *self.pre._kernel_args(), ctypes.cast(ints, ctypes.c_void_p))
         return us2, vs2, b, p1, rc, max_b

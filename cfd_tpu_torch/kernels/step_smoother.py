@@ -15,9 +15,12 @@ device. Arrays are the logical (ny+2, nx+2) float32 grid.
   natural masked solve's finest level on the CPU. It equals the
   reference's general form (bc.step_pressure_ghosts, the weighted mean
   over the grid's neighbour predicates) up to the sign of a zero.
-* ``kernel`` — csrc/step_smoother.cu, a launch per dependent phase, with
-  the masks of the reference's solid rectangle {i <= step_i, j >
-  inlet_j_max} from the indices (step_smoother.py:45); CUDA tensors only.
+* ``kernel`` — csrc/step_smoother.cu, one launch of shared-memory tiles a
+  call (kernels/plan.py step_pairs_plan), with the masks of the
+  reference's solid rectangle {i <= step_i, j > inlet_j_max} from the
+  indices (step_smoother.py:45); CUDA tensors only. The with_residual
+  variant's last block folds max|r| into its output (kernels.quad
+  max_acc's running max and count, left 0), so no call zeroes anything.
 * ``__call__`` — CPU tensors to ``plain``, CUDA tensors to ``kernel``; no
   fallback.
 
@@ -34,7 +37,8 @@ import torch
 from torch import nn
 
 from cfd_tpu_torch.kernels._build import Kernel, ptr, route
-from cfd_tpu_torch.kernels.quad import _check, scalar_like
+from cfd_tpu_torch.kernels.plan import step_pairs_plan
+from cfd_tpu_torch.kernels.quad import _check, max_acc, scalar_like, tile_plan_ptr
 
 _SRC = "cfd_tpu_torch/csrc/step_smoother.cu"
 STEP_PAIRS = Kernel("step_masked_pairs", "cfd_step_pairs", _SRC,
@@ -145,15 +149,23 @@ class StepMaskedPairs(nn.Module):
         return p
 
     def kernel(self, p, b):
-        out, scratch = torch.empty_like(p), torch.empty_like(p)
+        """One launch of shared-memory tiles (csrc/step_smoother.cu) under
+        the op's plan (kernels/plan.py step_pairs_plan unless set before its
+        first launch)."""
+        residual = self.with_residual or self.with_residual_field
+        plan = tile_plan_ptr(self, lambda: step_pairs_plan(self.shape, self.n_pairs, residual),
+                             p.device, "cfd_step_pairs_grid")
+        out = torch.empty_like(p)
         r = torch.empty_like(p) if self.with_residual_field else None
-        res = (torch.empty((), dtype=torch.float32, device=p.device) if self.with_residual
-               else None)
         null = ctypes.c_void_p(None)
-        self.record(p, ptr(p), ptr(b), ptr(out), ptr(scratch),
-                    ptr(r) if r is not None else null, ptr(res) if res is not None else null,
-                    *self.shape, self.ny, self.nx, self.step_i, self.inlet_j_max, self.idx2,
-                    self.idy2, self.omega, 1.0 - self.omega, self.denom, self.n_pairs)
+        res, acc = null, null
+        if self.with_residual:
+            res = torch.empty((), dtype=torch.float32, device=p.device)
+            acc = ptr(max_acc(self, p.device))
+        self.record(p, ptr(p), ptr(b), ptr(out), ptr(r) if r is not None else null,
+                    ptr(res) if self.with_residual else null, acc, *self.shape, self.ny,
+                    self.nx, self.step_i, self.inlet_j_max, self.idx2, self.idy2, self.omega,
+                    1.0 - self.omega, self.denom, self.n_pairs, plan)
         if self.with_residual:
             return out, res
         return out if r is None else (out, r)

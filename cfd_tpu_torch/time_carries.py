@@ -1,9 +1,13 @@
 """Time the carries on the card: rows 1, 1+ (the cavity 2048^2), 8a, 8a+
 (the channel 1536x512), 9a, 9a+ (the step 2048x256) and 10, 10+ (RB
 1536x512), the fixed-dt carry of each case's step and its traced-dt +
-Courant instance (dt_corr = 0.8 dt, dt_pred = 1.1 dt), on seeded inputs.
+Courant instance (dt_corr = 0.8 dt, dt_pred = 1.1 dt), and row 7, the
+cavity's fused-pre carry (the carry with the first V-cycle's pre-smooth
+and restriction, ``fuse_pre=True`` on the per-kernel solve) timed beside
+the composed carry -> pre pair it replaces, on seeded inputs.
 
-    python -m cfd_tpu_torch.time_carries TAG [--only 1,1+,10,10+] [--reps 50]
+    python -m cfd_tpu_torch.time_carries TAG [--only 1,1+,7,10,10+] [--reps 50]
+                                             [--tiles 16x32,8x64]
 
 Prints one JSON line per carry, tagged with TAG: ``dev_ms``, the device
 time of one call (cfd_tpu_torch.time_whole_solve.dev_ms: CUDA events
@@ -12,7 +16,15 @@ count, with the card held busy while the host queues them, so the
 wrappers' host time is not in it; ``host_ahead`` says whether the host
 finished queueing first); ``ms``, the wrapper's time, is the median of 20 single calls
 between CUDA events (chip_smoke.py's ``ms``); ``sum`` is a checksum of the
-source b. The inputs are seeded (cfd_tpu_torch.seeded). Run from the root
+source b. Row 7 adds ``composed_dev_ms`` and ``composed_ms``, the same for
+the composed pair on the same inputs (the case's own pre kernel after the
+fixed-dt carry), ``launches_a_call``, the device operations of one call
+in a torch.profiler trace (profile_step.device_ops_a_call), and
+``p1_sum``; ``--tiles`` times it under each carry tile given (plane rows
+x columns), each on a fresh op given kernels/plan.py
+fused_pre_plan(tile=), the card tests' hook: the sweep that chose
+FUSED_PRE_TILE. The inputs are seeded (cfd_tpu_torch.seeded). Run from
+the root
 of a checkout, it times that checkout's kernels, so two checkouts timed in
 turns on one card (parent, change, change, parent) give an A/B. Every
 field fits the 50 MB L2 but the cavity's (8 fields of 19 MB), so the
@@ -23,6 +35,7 @@ without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import torch
@@ -31,7 +44,7 @@ from cfd_tpu_torch.time_whole_solve import FLOWS, dev_ms, make, median_ms
 
 ROWS = {"1": ("cavity", False), "1+": ("cavity", True), "8a": ("channel", False),
         "8a+": ("channel", True), "9a": ("step", False), "9a+": ("step", True),
-        "10": ("rb", False), "10+": ("rb", True)}
+        "10": ("rb", False), "10+": ("rb", True), "7": ("cavity", False)}
 
 
 def carry_of(flow: str, adaptive: bool, case):
@@ -67,17 +80,67 @@ def carry_of(flow: str, adaptive: bool, case):
     return op, (dts, *fields)
 
 
+def fused_pre_rows(tag: str, reps: int, tiles) -> None:
+    """Row 7's lines: the fused-pre carry of the 2048^2 cavity on the
+    per-kernel solve beside the composed carry -> pre pair, under the
+    plan's tile or each of ``tiles``."""
+    from cfd_tpu_torch import cases
+    from cfd_tpu_torch.kernels import quad as Q
+    from cfd_tpu_torch.profile_step import device_ops_a_call
+    from cfd_tpu_torch.seeded import seeded_fields
+
+    _, kw = FLOWS["cavity"]
+    case = cases.make_cavity_case(device="cuda", dtype=torch.float32, fuse_pre=True,
+                                  mg_overrides={"whole_solve": False}, **kw)
+    fused = case.step_kernels[0]
+    carry = Q.make_quad_corr_predictor_source(case.grid.shape, case.coeffs)
+    fields = seeded_fields(case, 23)
+
+    def composed():
+        _, _, b, guess, _ = carry.kernel(*fields)
+        return fused.pre.kernel(guess, b)
+
+    comp = dict(composed_dev_ms=dev_ms(composed, reps)[0], composed_ms=median_ms(composed))
+    for tile in tiles:
+        op = fused
+        if tile is not None:  # a fresh op under the tile's plan before its first launch
+            from cfd_tpu_torch.kernels.plan import fused_pre_plan
+
+            op = Q.QuadCorrPredictorSourceFusedPre(case.grid.shape, case.coeffs, fused.pre)
+            try:
+                op._tile_plan = fused_pre_plan(op.qshape, fused.pre.n_pairs, tile=tile)
+            except ValueError as e:  # past shared memory: no such instance
+                print(json.dumps(dict(tag=tag, row="7", tile=tile, error=str(e))), flush=True)
+                continue
+        call = lambda: op.kernel(*fields)
+        out = call()
+        d, ahead = dev_ms(call, reps)
+        launched = device_ops_a_call(call)
+        ready = getattr(op, "_ready", {}).get(str(out[0].device))
+        print(json.dumps(dict(
+            tag=tag, row="7", flow="cavity", shape=list(out[2].shape), dev_ms=d,
+            host_ahead=ahead, ms=median_ms(call), **comp, launches_a_call=len(launched),
+            ops=launched, sum=float(out[2].double().sum()), p1_sum=float(out[3].double().sum()),
+            tile=tile, plan=dataclasses.asdict(ready[0]) if ready else None)), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tag")
     ap.add_argument("--only", default=",".join(ROWS))
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--tiles", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_carries needs a CUDA card")
     rows = args.only.split(",")
     cases = {}
     for row in rows:
+        if row == "7":
+            tiles = [None] if args.tiles is None else [
+                tuple(int(x) for x in t.split("x")) for t in args.tiles.split(",")]
+            fused_pre_rows(args.tag, args.reps, tiles)
+            continue
         flow, adaptive = ROWS[row]
         if flow not in cases:
             cases[flow] = make(flow, {})

@@ -6,9 +6,12 @@ the float32 level, 1032 x 1152, ``5-post`` its 1-pair post-smooth, ``5-L4``
 the float32 level 4, 136 x 256); row 5b, the step's full-2D level 1 of the
 2048x256 per-kernel solve (136 x 1152: the 1-pair pre-smooth with the
 residual field; ``5b-post`` the 2-pair post-smooth); row 5-wr, the
-natural cavity's level 0 (2056 x 2176, 1 pair and max|r|).
+natural cavity's level 0 (2056 x 2176, 1 pair and max|r|); and the natural
+step's exact masked pairs (kernels/step_smoother.py StepMaskedPairs) at
+its level 0 of the 512x30 step (32 x 514, V(2,2)): row 12, the pre-smooth
+with the residual field, row 12-res, the post-smooth with max|r|.
 
-    python -m cfd_tpu_torch.time_pairs TAG [--only 5,5b,5-wr] [--reps 50]
+    python -m cfd_tpu_torch.time_pairs TAG [--only 5,5b,5-wr,12,12-res] [--reps 50]
                                            [--tiles 32x118,16x54,8,16]
 
 Prints one JSON line per instance, tagged with TAG: ``dev_ms``, the device
@@ -25,10 +28,11 @@ kernels too: run from the root of each checkout in turns on one card
 (parent, change, change, parent) for an A/B. ``--tiles`` times each
 instance under each tile given (rows x columns, or rows alone for the
 plan's width) in turn, each on a fresh
-op given the plan of kernels/plan.py pairs_plan(tile=), the card tests'
-hook: the sweep that chose the plan's tiles (PAIRS_TILE_WIDTH,
-PAIRS_TILE_ROWS, PAIRS_MIN_TILES). Every field fits the 50 MB L2, so
-the times are warm-cache. Needs a CUDA card; it raises without one.
+op given the plan of kernels/plan.py pairs_plan(tile=) (rows 12:
+step_pairs_plan(tile=)), the card tests' hook: the sweep that chose the
+plans' tiles (PAIRS_TILE_WIDTH, PAIRS_TILE_ROWS, PAIRS_MIN_TILES;
+STEP_PAIRS_TILE_WIDTH, STEP_PAIRS_TILE_ROWS, STEP_PAIRS_MIN_TILES). Every
+field fits the 50 MB L2, so the times are warm-cache. Needs a CUDA card; it raises without one.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import torch
 from cfd_tpu_torch.profile_step import device_ops_a_call
 from cfd_tpu_torch.time_whole_solve import dev_ms, make, median_ms
 
-ROWS = ("5", "5-f32", "5-post", "5-L4", "5b", "5b-post", "5-wr")
+ROWS = ("5", "5-f32", "5-post", "5-L4", "5b", "5b-post", "5-wr", "12", "12-res")
 
 
 def instances(rows):
@@ -91,7 +95,27 @@ def instances(rows):
         out["5-wr"] = (lambda: rb_pairs_for_level(lv0, solve.cfg.omega, solve.cfg.post_sweeps,
                                                   with_residual=True),
                        args(lv0, solve.interior0))
+    if {"12", "12-res"} & set(rows):
+        step = cases.make_backwards_step_case(nx=512, ny=30, poisson="multigrid",
+                                              dtype=torch.float32, tolerance_factor=1e-6,
+                                              abs_tol=0.0, device="cuda")
+        solve = step.poisson_solve
+        fluid = np.asarray(step.grid.cell_mask, np.float32)
+        a = tuple(torch.from_numpy((rng.standard_normal(fluid.shape) * s * fluid)
+                                   .astype(np.float32)).to("cuda") for s in (0.1, 1e2))
+        out["12"] = (lambda: _fresh(solve.pre0), a)
+        out["12-res"] = (lambda: _fresh(solve.post0), a)
     return out
+
+
+def _fresh(op):
+    """A fresh copy of a natural step's pairs op (its plan unset)."""
+    from cfd_tpu_torch.kernels.step_smoother import make_step_masked_pairs
+
+    return make_step_masked_pairs(op.shape, op.step_i, op.inlet_j_max, op.idx2, op.idy2,
+                                  op.omega, op.n_pairs, with_residual=op.with_residual,
+                                  with_residual_field=op.with_residual_field,
+                                  device=op.fluid.device)
 
 
 def main(argv=None) -> int:
@@ -113,14 +137,19 @@ def main(argv=None) -> int:
         for tile in tiles:
             op = make_op()
             if tile is not None:  # the tile's plan before the op's first launch
-                from cfd_tpu_torch.kernels.plan import PAIRS_TILE_WIDTH, pairs_plan
+                from cfd_tpu_torch.kernels import plan as PL
 
                 residual = op.with_residual_field or op.with_residual
+                natural = row.startswith("12")
                 if len(tile) == 1:
-                    tile = (tile[0], PAIRS_TILE_WIDTH - 2 * (2 * op.n_pairs + int(residual)))
+                    tile = (tile[0], PL.STEP_PAIRS_TILE_WIDTH
+                            - 2 * PL.step_pairs_halo(op.n_pairs, residual) if natural
+                            else PL.PAIRS_TILE_WIDTH - 2 * (2 * op.n_pairs + int(residual)))
                 try:
-                    op._tile_plan = pairs_plan(op.shape, op.n_pairs, residual, op.full,
-                                               tile=tile)
+                    op._tile_plan = (
+                        PL.step_pairs_plan(op.shape, op.n_pairs, residual, tile=tile)
+                        if natural else
+                        PL.pairs_plan(op.shape, op.n_pairs, residual, op.full, tile=tile))
                 except ValueError as e:  # past shared memory: no such instance
                     print(json.dumps(dict(tag=args.tag, row=row, tile=tile, error=str(e))))
                     continue
@@ -131,7 +160,8 @@ def main(argv=None) -> int:
             d, ahead = dev_ms(call, args.reps)
             plan = getattr(op, "_tile_plan", None)
             print(json.dumps(dict(
-                tag=args.tag, row=row, shape=list(op.shape), dtype=str(op.dtype)[6:],
+                tag=args.tag, row=row, shape=list(op.shape),
+                dtype=str(getattr(op, "dtype", torch.float32))[6:],
                 n_pairs=op.n_pairs, dev_ms=d, host_ahead=ahead, ms=median_ms(call),
                 launches_a_call=len(launched), ops=launched,
                 sum=sum(float(t.double().sum()) for t in out),

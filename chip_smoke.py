@@ -185,8 +185,10 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
     (cavity 2056x2176, channel 520x1664), the with_residual pairs at the
     cavity's aligned level 0 (row 5-wr, error 0, with ``dev_ms`` and its
     device operations a call; the level's pre-smooth error 0 too), the
-    step's exact masked pairs (three
-    variants) at the natural step's level 0 (512x30).
+    step's exact masked pairs (rows 12 and 12-res: one launch of
+    shared-memory tiles a call, csrc/step_smoother.cu; three variants,
+    error 0, with ``dev_ms`` and their device operations a call from a
+    child time_pairs process) at the natural step's level 0 (512x30).
 26. The natural slices at full width, counters zeroed before each run and
     every kernel of the path required to launch: the cavity at 2048^2 with
     layout="aligned" (300 steps in chunks of 100), the channel at 1536x512
@@ -200,10 +202,13 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
     aligned at 64^2 and by the auto rule at 46^2, the channel at 128x30,
     the step at 128x14): equal cycles every step, fields within 5e-5,
     avg_KE within 1e-6 relative.
-28. The cavity's fused-pre carry (row 7, one cooperative launch) at 2048^2
-    and the channel's non-carry stage (row 8c) at 1536x512 against their
-    twins (1e-5, bit-identical expected); row 7 timed in turns with the
-    composed carry -> pre pair it replaces.
+28. The cavity's fused-pre carry (row 7, one cooperative launch of the
+    carry's tiles, one grid barrier, the separable pre tiles;
+    csrc/quad_fused_pre.cu) at 2048^2 and the channel's non-carry stage
+    (row 8c) at 1536x512 against their twins (1e-5; row 7 error 0, with
+    ``dev_ms`` and its device operations a call from a child time_carries
+    process); row 7 timed in turns with the composed carry -> pre pair it
+    replaces, wrapper and device ms.
 29. The fused-pre path: make_cavity_case(fuse_pre=True,
     mg_overrides={"whole_solve": False}) at 2048^2, 300 steps from the
     initial state beside a per-kernel run from the same state, then 100
@@ -408,6 +413,8 @@ REDESIGNED = {"quad_corr_predictor_source": "row 1",
               "quad_pre_smooth_restrict_shard": "row 16b",
               "quad_post_prolong_smooth_shard": "row 16c",
               "rb_pairs": "row 5", "rb_pairs_full": "row 5b", "rb_pairs_residual": "row 5-wr",
+              "quad_corr_predictor_source_fused_pre": "row 7",
+              "step_masked_pairs": "row 12", "step_masked_pairs_res": "row 12-res",
               **{f"quad_whole_step_{flow}{v}": "row 15" for flow in ("cavity", "channel",
                                                                      "rb", "step")
                  for v in ("", "_bf16")}, "quad_whole_step_step_corr_opt": "row 15"}
@@ -503,7 +510,7 @@ def dev_note(r: dict) -> str:
 # the rows whose device operations a call a child timer process counts
 # (child_launches): every row of the main path's instances a phase holds
 CHILD_ROWS = {"time_level0": ("3", "4", "16b", "16c", "9c", "9d", "16f-pre", "16f-post"),
-              "time_pairs": ("5", "5b", "5-wr")}
+              "time_pairs": ("5", "5b", "5-wr", "12", "12-res"), "time_carries": ("7",)}
 _CHILD_COUNTS: dict = {}
 
 
@@ -523,7 +530,9 @@ def child_launches(rows, module: str) -> dict:
     """{row: device operations a call} of the tile kernels that the timer
     ``module`` times on the main path's instances (time_level0's rows 3,
     4, 16b, 16c, 9c, 9d, 16f-pre, 16f-post: the finest-level kernels;
-    time_pairs' rows 5, 5b, 5-wr: the coarse smoother), each counted in a
+    time_pairs' rows 5, 5b, 5-wr: the coarse smoother, and 12, 12-res:
+    the natural step's pairs; time_carries' row 7: the fused-pre carry),
+    each counted in a
     torch.profiler trace of one call (profile_step.device_ops_a_call). The
     first call counts all of the timer's CHILD_ROWS in one fresh process
     and a row whose trace held no device event again in a process of its
@@ -1646,6 +1655,7 @@ def check_natural_kernels(dev) -> dict:
     from cfd_tpu_torch.cases import make_cavity_case, make_channel_case
     from cfd_tpu_torch.kernels import projection as P
     from cfd_tpu_torch.kernels.rb_smoother import RB_PAIRS_RES
+    from cfd_tpu_torch.kernels import step_smoother as SS
     from cfd_tpu_torch.kernels.step_smoother import fluid_mask, make_step_masked_pairs
 
     rng = np.random.default_rng(25)
@@ -1727,6 +1737,10 @@ def check_natural_kernels(dev) -> dict:
     ps = torch.from_numpy(rng.standard_normal(grid.shape).astype(np.float32)).to(dev)
     bs = torch.from_numpy((rng.standard_normal(grid.shape) * 10).astype(np.float32)).to(dev)
     log(f"  the natural step's level 0: {grid.shape}, {fluid} fluid cells")
+    # rows 12 and 12-res redesigned: error 0 in the three variants; the
+    # entry points' device time and device operations a call at the path's
+    # instances (time_pairs rows 12, the field variant, and 12-res)
+    timing = {}
     for kw, labels in (({}, ("p",)), ({"with_residual_field": True}, ("p", "r")),
                        ({"with_residual": True}, ("p", "max|r|"))):
         pairs = make_step_masked_pairs(grid.shape, step_i, inlet, 1 / dx ** 2, 1 / dy ** 2,
@@ -1734,6 +1748,13 @@ def check_natural_kernels(dev) -> dict:
         n_ops = fluid * (2 * STEP_GS_OPS + (STEP_RES_OPS if kw else 0))
         timed(pairs.record.name, lambda: pairs.kernel(ps, bs), lambda: pairs.plain(ps, bs),
               lambda got: nbytes(ps, bs, *got), n_ops, labels)
+        if kw:
+            timing[pairs.record.name] = carry_dev_ms(lambda: pairs.kernel(ps, bs))
+    ops = child_launches(("12", "12-res"), "time_pairs")
+    for name, row in ((SS.STEP_PAIRS.name, "12"), (SS.STEP_PAIRS_RES.name, "12-res")):
+        bit_identical(name, [results[name]["err"]])
+        results[name].update(dev_ms=timing[name], launches_a_call=ops[row])
+        log(f"  {name}: {results[name]['ms']:.4f} ms{dev_note(results[name])}")
     return results
 
 
@@ -1774,12 +1795,16 @@ def check_fused_pre_kernels(dev) -> dict:
         _, _, b, guess, _ = carry.kernel(us, vs, p, pp)
         return pre.kernel(guess, b)
 
+    bit_identical(Q.FUSED_PRE.name, errs)
     run = lambda: fused.kernel(us, vs, p, pp)
-    # in turns: fused, composed, composed, fused
+    # in turns: fused, composed, composed, fused; wrapper ms, then device ms
     times = [median_ms(run), median_ms(composed), median_ms(composed), median_ms(run)]
+    dms = [carry_dev_ms(run), carry_dev_ms(composed), carry_dev_ms(composed), carry_dev_ms(run)]
     cells = case.grid.nx * case.grid.ny
     results[Q.FUSED_PRE.name] = dict(
         err=max(errs), ms=times[0], ms_again=times[3], composed_ms=times[1:3],
+        dev_ms=dms[0], dev_ms_again=dms[3], composed_dev_ms=dms[1:3],
+        launches_a_call=child_launches(("7",), "time_carries")["7"],
         plain_ms=median_ms(lambda: fused.plain(us, vs, p, pp), reps=5),
         **bound(nbytes(us, vs, p, pp, *got, pre.wE, pre.wW, pre.wN, pre.wS),
                 cells * (CORRECTOR_OPS + PREDICTOR_SOURCE_OPS + pre.n_pairs * GS_OPS + RES_OPS)
@@ -2781,9 +2806,13 @@ def main() -> int:
         log(f"  whole_step_kernel<{fname}>: {grid['registers']} registers/thread, "
             f"cooperative grid of {grid['blocks']} blocks ({grid['blocks_per_sm']} "
             f"co-resident per SM) at {PL.SMEM_MAX} B")
-    grid = WS.cooperative_grid("cfd_quad_fused_pre_grid")
+    fp_plan = PL.fused_pre_plan(Q.quad_shape((N_MAIN + 2, N_MAIN + 2)), 2)
+    grid = PL.ready_grid(fp_plan, dev, "cfd_quad_fused_pre_grid")
     log(f"  fused_pre_kernel: {grid['registers']} registers/thread, cooperative grid of "
-        f"{grid['blocks']} blocks ({grid['blocks_per_sm']} co-resident per SM)")
+        f"{grid['blocks']} blocks ({grid['blocks_per_sm']} co-resident per SM) at the "
+        f"{N_MAIN}^2 cavity's plan: {fp_plan.smem_bytes} B, the carry's "
+        f"{fp_plan.carry.rows}x{fp_plan.carry.cols} tiles then the pre's "
+        f"{fp_plan.pre.rows}x{fp_plan.pre.cols}, {PL.FUSED_PRE_BARRIERS} grid barrier")
 
     log(f"phase 2: kernels vs plain twins at {N_MAIN}^2 shapes ({card})")
     cav_main = dict(n_interior=N_MAIN, poisson="multigrid", dtype=torch.float32,
@@ -3324,8 +3353,10 @@ def main() -> int:
         f"stage (row 8c) at {CHANNEL[0]}x{CHANNEL[1]} vs their plain twins ({card})")
     fp_checks = check_fused_pre_kernels(dev)
     r = fp_checks[Q.FUSED_PRE.name]
-    log(f"  {Q.FUSED_PRE.name}: kernel {r['ms']:.4f} / {r['ms_again']:.4f} ms, the composed "
-        f"carry -> pre kernels {r['composed_ms'][0]:.4f} / {r['composed_ms'][1]:.4f} ms (in "
+    log(f"  {Q.FUSED_PRE.name}: kernel {r['ms']:.4f} / {r['ms_again']:.4f} ms (device "
+        f"{r['dev_ms']:.4f} / {r['dev_ms_again']:.4f} ms, {r['launches_a_call']} a call), the "
+        f"composed carry -> pre kernels {r['composed_ms'][0]:.4f} / {r['composed_ms'][1]:.4f} "
+        f"ms (device {r['composed_dev_ms'][0]:.4f} / {r['composed_dev_ms'][1]:.4f} ms) (in "
         f"turns), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']})  ({card})")
     r = fp_checks[Q.CHANNEL_PREDICTOR_SOURCE.name]
