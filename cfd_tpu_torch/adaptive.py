@@ -144,6 +144,35 @@ def lagged_start(sim, max_courant: float = 0.7, growth: float = 1.2,
     return state, step, LaggedController(like, dt, max_courant, growth, _ceiling(sim.case))
 
 
+def exact_start(sim, max_courant: float = 0.7, growth: float = 1.2,
+                dt0: float | None = None):
+    """The exact controller's host loop at the start of a run from the
+    case's initial state, for a driver that times its steps one by one
+    (profile_step): (carried state, advance); ``advance(state) -> (state,
+    diag)`` runs a step with the current dt and sets the next from its
+    Courant number in Python floats, one host read a step (the loop of
+    _run_exact_host)."""
+    step, to_aligned, _ = _resolve(sim, False, max_courant, growth, 1)
+    ceiling = _ceiling(sim.case)
+    dt = float(dt0 if dt0 is not None else sim.case.dt)
+    state, like = _start(sim, None, to_aligned, dt, False)
+
+    def advance(st):
+        nonlocal dt
+        st, diag, co_per_dt = step(st, scalar_like(dt, like))
+        dt = _next_dt(dt, dt * float(co_per_dt), max_courant, growth, ceiling)
+        return st, diag
+
+    return state, advance
+
+
+def _next_dt(dt: float, co: float, max_courant: float, growth: float, ceiling: float) -> float:
+    """The exact host controller's next dt: approach max_courant from below,
+    never above the diffusive ceiling; shrink at once when over the
+    target."""
+    return min(dt * min(growth, max_courant / max(co, 1e-12)), ceiling)
+
+
 def _resolve(sim, lagged: bool, max_courant: float, growth: float, spc: int):
     """(step, to_aligned, to_logical) of the controller on ``sim``'s engine,
     routed as the reference's (cfd_tpu/adaptive.py:219-262)."""
@@ -240,10 +269,7 @@ def _run_exact_host(sim, step, to_logical, state, like, dt, n_steps, final_time,
         if k % interval == 0:
             rows.append(_row(sim, to_logical(state), k, t, dt, co, *pending.read(), t0,
                              log))
-        # approach max_courant from below, never above the diffusive
-        # ceiling; shrink at once when over the target
-        scale = min(growth, max_courant / max(co, 1e-12))
-        dt = min(dt * scale, ceiling)
+        dt = _next_dt(dt, co, max_courant, growth, ceiling)
     pending.read()
     return to_logical(state), rows
 

@@ -18,7 +18,9 @@
 // patterns (same order for non-negative IEEE values; a NaN, sign cleared by
 // fabsf, sorts above +inf and so propagates like jnp.max). One warp-shuffle
 // + shared-memory pass per block, then one atomicMax into a device scalar
-// the host zeroes on the same stream. The TPU kernels carried the running
+// the host zeroes on the same stream, or into a running max that the last
+// block moves out and leaves 0 (carry_tile.cuh fold_max_into, no zeroing
+// launch). The TPU kernels carried the running
 // max in SMEM across their sequential grid, which Hopper's parallel
 // blocks cannot do.
 #pragma once
@@ -103,22 +105,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 // max of two values >= 0 (or NaN, which sorts above +inf) on their int bits
 __device__ __forceinline__ float bits_max(float a, float b) {
   return __int_as_float(max(__float_as_int(a), __float_as_int(b)));
-}
-
-// Block-wide max of v >= 0 into *out (as int bits). Every thread of the
-// block must call it.
-__device__ __forceinline__ void block_max_into(float v, float* out) {
-  __shared__ int warp_max[kThreads / 32];
-  int x = __float_as_int(v);
-  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_down_sync(0xffffffffu, x, o));
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_max[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    x = lane < (kThreads / 32) ? warp_max[lane] : 0;
-    for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_down_sync(0xffffffffu, x, o));
-    if (lane == 0) atomicMax(reinterpret_cast<int*>(out), x);
-  }
 }
 
 // A pressure-correction coefficient from a traced dt (adaptive stepping) in

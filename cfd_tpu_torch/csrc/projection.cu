@@ -14,14 +14,31 @@
 // channel's 520x1664); about 60 flops a cell for the predictor is far
 // below the card's rate.
 //
-// Design: one thread per aligned cell, row-major, so a warp reads 32
-// neighbouring floats of a row. Every element is written, the padding
+// Design. The cavity's predictor + source is ONE launch of shared-memory
+// tiles of the aligned array, one tile a block (ws::LTile, the natural
+// level's tile of level_tile.cuh), with no memset: a block loads u and v on
+// its own rows and columns with a halo of 2 cells (the predictor's 1 and
+// the source's 1; kernels/plan.py natural_predictor_plan), applies the lid
+// ghosts once in shared memory (cfd::quad::lid_ghosts; tiles whose stages
+// touch no ghost skip it), computes u*, v* once a face on the region the
+// source reads (its own cells, one row south, one column west:
+// cfd::quad::predictor_box, the quad tiles' stage on natural indices),
+// writes us, vs and b of every own cell, and folds max|b| into the
+// launch's running max, which the last block to finish moves into the
+// output (tile::fold_max_into). Every element is written, the padding
 // included (0 there), because the next kernel reads the padding and the
-// aligned contract says it is zero. Neighbours come through a guarded
-// accessor (0 outside the array): the TPU kernels roll their slabs with
-// wraparound, and every value a masked-in cell reads lies inside the array.
-// The per-cell arithmetic is the quad stage kernels' (predictor.cuh, the
-// channel ghost order of quad_carry.cuh) on natural indices. A thread
+// aligned contract says it is zero; a tile whose own cells lie wholly in
+// the padding writes zeros without loading. 5 passes over the field (2 in,
+// 3 out), plus the halo's re-reads.
+//
+// The correctors and the channel's predictor + source keep the first
+// design: one thread per aligned cell, row-major, so a warp reads 32
+// neighbouring floats of a row; every element written, the padding
+// included. Neighbours come through a guarded accessor (0 outside the
+// array): the TPU kernels roll their slabs with wraparound, and every
+// value a masked-in cell reads lies inside the array. The per-cell
+// arithmetic is the quad stage kernels' (predictor.cuh, the channel ghost
+// order of quad_carry.cuh) on natural indices. The channel's thread
 // evaluates the predictor at its own faces and again at the west/south
 // faces its divergence needs (re-reads that hit L1/L2).
 //
@@ -37,18 +54,28 @@
 // before them (the slim-ghost convention, projection.py:423-436), so the v
 // top ghost row and the corners stay 0 for the whole run.
 //
-// Reductions: max|b| is cfd::block_max_into (atomicMax on the int bits of a
-// non-negative float into a scalar zeroed here); the channel's sum of b is
+// Reductions: max|b| is tile::fold_max_into (each block's max, atomicMax on
+// the int bits of a non-negative float, order-free); the channel's sum of b is
 // the fixed-order fold of the quad channel carry (cfd::block_sum_to per
 // block, then cfd::fold_partials), equal bit for bit to the plain twin's
 // fixed_order_sum over the flat (H8, W) array.
+#include "carry_tile.cuh"
 #include "common.cuh"
+#include "level_tile.cuh"
 #include "predictor.cuh"
 #include "quad_carry.cuh"
 
 namespace {
 
 using cfd::Pred;
+namespace tile = cfd::tile;
+namespace ws = cfd::ws;
+
+// the cells the predictor + source reaches around its own (the predictor
+// 1, the source 1; kernels/plan.py NATURAL_PREDICTOR_RADIUS) and its
+// tile's buffers: u, v, then u*, v* (NATURAL_PREDICTOR_BUFFERS)
+constexpr int kPredictorRadius = 2;
+constexpr int kPredictorBuffers = 4;
 
 struct Nat {
   int H8, W, ny, nx;
@@ -93,36 +120,86 @@ __device__ __forceinline__ float lid_v(F f, int j, int i, int ny, int nx) {
   return f(j, i);
 }
 
-// cavity ghosts on u, v, the MAC predictor, b = rho/dt * div on the cells
-// and max|b| (projection.py:210, emit_max_b)
-__global__ void predictor_source_kernel(const float* u, const float* v, float* us,
-                                        float* vs, float* b, float* max_b, Pred c, int H8,
-                                        int W, float two_lid) {
-  const long long n = static_cast<long long>(H8) * W;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float absb = 0.f;
-  if (idx < n) {
-    const int j = static_cast<int>(idx / W);
-    const int i = static_cast<int>(idx - static_cast<long long>(j) * W);
-    auto ru = [&](int jj, int ii) { return nld(u, jj, ii, H8, W); };
-    auto rv = [&](int jj, int ii) { return nld(v, jj, ii, H8, W); };
-    auto lu = [&](int jj, int ii) { return lid_u(ru, jj, ii, c.ny, c.nx, two_lid); };
-    auto lv = [&](int jj, int ii) { return lid_v(rv, jj, ii, c.ny, c.nx); };
-    const float a = cfd::u_star_at(lu, lv, j, i, c);
-    const float bv = cfd::v_star_at(lu, lv, j, i, c);
-    us[idx] = a;
-    vs[idx] = bv;
-    float bb = 0.f;
-    if (j >= 1 && j <= c.ny && i >= 1 && i <= c.nx) {
-      const float aw = cfd::u_star_at(lu, lv, j, i - 1, c);
-      const float bs = cfd::v_star_at(lu, lv, j - 1, i, c);
-      const float div = (a - aw) * c.idx + (bv - bs) * c.idy;
-      bb = c.rho_dt * div;
+// The cavity's predictor + source in one launch (the design above): the
+// lid ghosts, the MAC predictor, b = rho/dt * div on the cells and max|b|
+// (projection.py:210, emit_max_b) on a block's tile, or a padding tile's
+// zeros without loading; max|b| folded into the running max in acc and
+// moved into *max_b by the last block
+__global__ void __launch_bounds__(tile::kThreads)
+    predictor_source_kernel(const float* u, const float* v, float* us, float* vs, float* b,
+                            float* max_b, unsigned int* acc, Pred c, int H8, int W,
+                            float two_lid, tile::Plan pl) {
+  const int t = static_cast<int>(blockIdx.y) * pl.grid_x + static_cast<int>(blockIdx.x);
+  const ws::LTile T = ws::make_ltile(t, pl.rows, pl.cols, W, pl.halo);
+  const int r1 = min(T.R0 + T.rows, H8), c1 = min(T.C0 + T.cols, W);
+  float m = 0.f;
+  if (T.R0 > c.ny + 1 || T.C0 > c.nx + 1) {  // the padding: no valid face, no cell
+    ws::each_cell(T.R0, r1, T.C0, c1, [&](int j, int i) {
+      const int g = j * W + i;
+      us[g] = 0.f;
+      vs[g] = 0.f;
+      b[g] = 0.f;
+    });
+  } else {
+    const int n = T.LR * T.LC;
+    float* const s_u = tile::smem();
+    float* const s_v = s_u + n;
+    float* const s_us = s_u + 2 * n;
+    float* const s_vs = s_u + 3 * n;
+    // both loads of a cell issued before their stores; 0 outside the array
+    ws::each_cell(0, T.LR, 0, T.LC, [&](int lj, int li) {
+      const int j = T.oj + lj, i = T.oi + li;
+      const bool in = j >= 0 && j < H8 && i >= 0 && i < W;
+      const int g = in ? j * W + i : 0;
+      const float a = in ? u[g] : 0.f, bv = in ? v[g] : 0.f;
+      s_u[lj * T.LC + li] = a;
+      s_v[lj * T.LC + li] = bv;
+    });
+    __syncthreads();
+    // the own cells from buffer cell (H, H); box A, the predictor's reads
+    // (2 south and west, 1 north and east), box B, its faces (1 south and
+    // west); the path with no test where A lies in rows [1, ny - 1] x
+    // columns [1, nx - 1]
+    const int o = T.H;
+    const tile::Box A{o - 2, o + T.rows + 1, o - 2, o + T.cols + 1};
+    const tile::Box B{o - 1, o + T.rows, o - 1, o + T.cols};
+    const bool inner = T.oj + A.r0 >= 1 && T.oj + A.r1 - 1 <= c.ny - 1 && T.oi + A.c0 >= 1 &&
+                       T.oi + A.c1 - 1 <= c.nx - 1;
+    const tile::View vu{s_u, T.oj, T.oi, T.LC}, vv{s_v, T.oj, T.oi, T.LC};
+    if (inner) {
+      cfd::quad::predictor_box<true>(B, T.LC, T.oj, T.oi, vu, vv, s_us, s_vs, c);
+    } else {
+      cfd::quad::lid_ghosts(s_u, s_v, T.oj, T.oi, T.LR, T.LC, c.ny, c.nx, two_lid);
+      __syncthreads();
+      cfd::quad::predictor_box<false>(B, T.LC, T.oj, T.oi, vu, vv, s_us, s_vs, c);
     }
-    b[idx] = bb;
-    absb = fabsf(bb);
+    __syncthreads();
+    ws::each_cell(T.R0, r1, T.C0, c1, [&](int j, int i) {
+      const int k = (j - T.oj) * T.LC + (i - T.oi), g = j * W + i;
+      const float a = s_us[k], bv = s_vs[k];
+      const float bb = cfd::quad::source_at(s_us, s_vs, k, T.LC, j, i, c.ny, c.nx, c, inner);
+      us[g] = a;
+      vs[g] = bv;
+      b[g] = bb;
+      m = cfd::bits_max(m, fabsf(bb));
+    });
   }
-  cfd::block_max_into(absb, max_b);
+  tile::fold_max_into(m, acc, max_b);
+}
+
+// cudaSuccess when the plan covers the (H8, W) array with a halo of at
+// least the stages' reach and the shared memory of its four buffers, else
+// cudaErrorInvalidValue (the wrapper raises)
+cudaError_t check_plan(const tile::Plan& pl, int H8, int W, int ny, int nx) {
+  if (pl.rows < 1 || pl.cols < 1 || pl.halo < kPredictorRadius) return cudaErrorInvalidValue;
+  if (ny < 1 || nx < 1 || H8 < ny + 2 || W < nx + 2 || 1LL * H8 * W >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  if (pl.grid_x != (W + pl.cols - 1) / pl.cols || pl.grid_y != (H8 + pl.rows - 1) / pl.rows)
+    return cudaErrorInvalidValue;
+  const long long floats =
+      1LL * kPredictorBuffers * (pl.rows + 2 * pl.halo) * (pl.cols + 2 * pl.halo);
+  if (pl.smem_bytes != 4 * floats || 4 * floats > tile::kSmemMax) return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 // the rho-multiplied cavity projection, the cavity ghosts rebuilt from the
@@ -197,19 +274,32 @@ Pred pred(int ny, int nx, float dt, float nu, float idx, float idy, float idx2, 
 
 }  // namespace
 
-// max_b: one float, zeroed here
+// max_b: one float; acc: the running max (int bits) and the blocks' count,
+// two unsigned ints on the device, 0 before the launch (it leaves them 0);
+// plan: the 6 ints of the tile plan (tile::Plan, kernels/plan.py
+// natural_predictor_plan), a host array
 extern "C" int cfd_predictor_source(const float* u, const float* v, float* us, float* vs,
-                                    float* b, float* max_b, int H8, int W, int ny, int nx,
-                                    float two_lid, float dt, float nu, float idx, float idy,
-                                    float idx2, float idy2, float rho_dt, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(max_b, 0, sizeof(float), s);
+                                    float* b, float* max_b, unsigned int* acc, int H8, int W,
+                                    int ny, int nx, float two_lid, float dt, float nu,
+                                    float idx, float idy, float idx2, float idy2,
+                                    float rho_dt, const int* plan, void* stream) {
+  const tile::Plan pl{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
+  const cudaError_t err = check_plan(pl, H8, W, ny, nx);
   if (err != cudaSuccess) return static_cast<int>(err);
-  predictor_source_kernel<<<cfd::blocks_for(static_cast<long long>(H8) * W), cfd::kThreads,
-                            0, s>>>(u, v, us, vs, b, max_b,
-                                    pred(ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt), H8,
-                                    W, two_lid);
+  predictor_source_kernel<<<dim3(pl.grid_x, pl.grid_y), tile::kThreads, pl.smem_bytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+      u, v, us, vs, b, max_b, acc, pred(ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt), H8, W,
+      two_lid, pl);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Readies the predictor + source's tile kernel for `smem_bytes` of dynamic
+// shared memory on the current device: blocks (SMs x blocks per SM),
+// blocks per SM and registers out (tile::ready)
+extern "C" int cfd_predictor_source_grid(int smem_bytes, int* blocks, int* per_sm,
+                                         int* regs) {
+  return tile::ready(reinterpret_cast<const void*>(predictor_source_kernel), smem_bytes,
+                     blocks, per_sm, regs);
 }
 
 extern "C" int cfd_corrector(const float* us, const float* vs, const float* p,

@@ -1,12 +1,15 @@
 // Per-cell bodies of the cavity and channel tentative-carry stages on the
-// quad layout: the correctors and the predictor + source, and the
-// accessor-taking arithmetic they are built of; and the carries' bodies on
-// a shared-memory tile (carry_tile.cuh): cavity_tile and the channel's
-// arithmetic for tile::duct_tile (ChannelTile). Shared by the standalone
-// stage kernels and tile carries (quad_stage.cu), the fused-pre carry
-// (quad_fused_pre.cu) and the whole-step kernel (whole_step.cu), so that
-// all run the same code. The ghost orders and the traced-dt instances are
-// described in quad_stage.cu.
+// quad layout: the correctors and the channel's predictor + source, and
+// the accessor-taking arithmetic they are built of; and the bodies on a
+// shared-memory tile (carry_tile.cuh): the cavity carry's (cavity_tile),
+// the channel's arithmetic for tile::duct_tile (ChannelTile), and the
+// cavity's non-carry predictor + source (lid_predictor_source_tile), whose
+// stages (lid_ghosts, predictor_box, source_at) the natural layout's
+// predictor + source runs on its own tiles too (projection.cu). Shared by
+// the standalone stage kernels and tile carries (quad_stage.cu), the
+// fused-pre carry (quad_fused_pre.cu) and the whole-step kernel
+// (whole_step.cu), so that all run the same code. The ghost orders and
+// the traced-dt instances are described in quad_stage.cu.
 #pragma once
 
 #include "carry_tile.cuh"
@@ -106,49 +109,6 @@ __device__ __forceinline__ float2 cavity_corrector_cell(const float* us, const f
   return make_float2(fabsf(uv.x), fabsf(uv.y));
 }
 
-// the lid-cavity ghosts applied to an input field on read, in the
-// corrector's order: u's top ghost row is 2*lid minus row ny, its bottom
-// ghost row minus row 1 (i <= nx); v's west ghost column is minus column 1,
-// its east minus column nx (j <= ny). No ghost reads another ghost.
-__device__ __forceinline__ float lid_u(const float* u, int j, int i, const Pred& c,
-                                       float two_lid) {
-  if (j == c.ny + 1 && i <= c.nx) return two_lid - qld(u, c.ny, i, c.Hq8, c.Wqa, c.row0);
-  if (j == 0 && i <= c.nx) return -qld(u, 1, i, c.Hq8, c.Wqa, c.row0);
-  return qld(u, j, i, c.Hq8, c.Wqa, c.row0);
-}
-
-__device__ __forceinline__ float lid_v(const float* v, int j, int i, const Pred& c) {
-  if (i == 0 && j <= c.ny) return -qld(v, j, 1, c.Hq8, c.Wqa, c.row0);
-  if (i == c.nx + 1 && j <= c.ny) return -qld(v, j, c.nx, c.Hq8, c.Wqa, c.row0);
-  return qld(v, j, i, c.Hq8, c.Wqa, c.row0);
-}
-
-// The cavity predictor at quad cell idx, with the lid ghosts applied to u,
-// v on read (the non-carry stage, quad.py:438), into us2, vs2 and b =
-// rho/dt * div on the cells (0 elsewhere); returns b.
-__device__ __forceinline__ float lid_predictor_source_cell(const float* u, const float* v,
-                                                           float* us2, float* vs2, float* b,
-                                                           long long idx, const Pred& c,
-                                                           float two_lid) {
-  cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa, c.row0);
-  int j = cell.j, i = cell.i;
-  auto lu = [&](int jj, int ii) { return lid_u(u, jj, ii, c, two_lid); };
-  auto lv = [&](int jj, int ii) { return lid_v(v, jj, ii, c); };
-  float a = cfd::u_star_at(lu, lv, j, i, c);
-  float bv = cfd::v_star_at(lu, lv, j, i, c);
-  us2[idx] = a;
-  vs2[idx] = bv;
-  float bb = 0.f;
-  if (j >= 1 && j <= c.ny && i >= 1 && i <= c.nx) {
-    float aw = cfd::u_star_at(lu, lv, j, i - 1, c);
-    float bs = cfd::v_star_at(lu, lv, j - 1, i, c);
-    float div = (a - aw) * c.idx + (bv - bs) * c.idy;
-    bb = c.rho_dt * div;
-  }
-  b[idx] = bb;
-  return bb;
-}
-
 // u after the channel ghost update of a pre-ghost field f(j, i) (0 outside
 // the valid u faces), in the reference's order: rows 1..ny take the inlet
 // value at i = 0 and f(j, nx-1) at i = nx; the ghost rows j = 0 and
@@ -239,6 +199,80 @@ constexpr int kCavityRadius = 5;
 constexpr int kChannelRadius = 5;
 // the inputs the cavity's tile stages: us, vs, p
 constexpr int kCavityInputs = 3;
+// The logical rows the cavity's non-carry predictor + source reaches (the
+// predictor 1, the source 1; kernels/plan.py CARRY_RADIUS) and the inputs
+// its tile stages: u, v (u*, v* go to the tile::kWorkBuffers buffers)
+constexpr int kPredictorRadius = 2;
+constexpr int kPredictorInputs = 2;
+
+// u*, v* once a face on box B of a tile's buffers (pitch LC, buffer cell
+// (lj, li) at global logical (gj + lj, ai + li)) from the views u, v into
+// the buffers us, vs: the *_formula arithmetic on the interior path
+// (kInner: every face of B is valid), else the *_at (0 off the valid
+// faces). The predictor stage of the cavity carry and of the non-carry
+// predictor + source, both layouts.
+template <bool kInner>
+__device__ __forceinline__ void predictor_box(const tile::Box& B, int LC, int gj, int ai,
+                                              tile::View u, tile::View v, float* us, float* vs,
+                                              const Pred& pc) {
+  tile::each_cell(B, LC, [&](int lj, int li, int k) {
+    const int j = gj + lj, i = ai + li;
+    if constexpr (kInner) {
+      us[k] = cfd::u_star_formula(u, v, j, i, pc);
+      vs[k] = cfd::v_star_formula(u, v, j, i, pc);
+    } else {
+      us[k] = cfd::u_star_at(u, v, j, i, pc);
+      vs[k] = cfd::v_star_at(u, v, j, i, pc);
+    }
+  });
+}
+
+// b = rho/dt * div at buffer cell k (pitch LC), logical (j, i), from u*, v*
+// of the cell and of its west and south neighbours; 0 off the cells [1, ny]
+// x [1, nx] (no test where `inner`: every own cell is one)
+__device__ __forceinline__ float source_at(const float* us, const float* vs, int k, int LC,
+                                           int j, int i, int ny, int nx, const Pred& pc,
+                                           bool inner) {
+  float bb = 0.f;
+  if (inner || (j >= 1 && j <= ny && i >= 1 && i <= nx)) {
+    const float div = (us[k] - us[k - 1]) * pc.idx + (vs[k] - vs[k - LC]) * pc.idy;
+    bb = pc.rho_dt * div;
+  }
+  return bb;
+}
+
+// The lid-cavity ghosts of the non-carry stage's input (the reference's
+// order, cfd_tpu/kernels/quad.py:420-435) applied once, in place, to a
+// tile's u and v buffers (LR x LC, buffer cell (lj, li) at logical (j0 +
+// lj, i0 + li)): u's top ghost row j = ny + 1 is 2 lid minus row ny and its
+// bottom row j = 0 minus row 1 (i <= nx); v's west ghost column i = 0 is
+// minus column 1 and its east one i = nx + 1 minus column nx (j <= ny). A
+// ghost reads an interior value and none reads another ghost, so one pass
+// gives each the value of the ordered updates. A ghost whose source lies
+// past the buffer keeps its load: no valid face of the tile's predictor box
+// reads it (a valid face reads a ghost only beside its own row or column).
+// Every thread of the block calls it after the loads' barrier; a barrier
+// follows.
+__device__ __forceinline__ void lid_ghosts(float* u, float* v, int j0, int i0, int LR, int LC,
+                                           int ny, int nx, float two_lid) {
+  const int n = 2 * (LC + LR);
+  for (int k = static_cast<int>(threadIdx.x); k < n; k += static_cast<int>(blockDim.x)) {
+    if (k < 2 * LC) {  // u: the top ghost row, then the bottom one
+      const bool top = k < LC;
+      const int li = top ? k : k - LC;
+      const int lj = (top ? ny + 1 : 0) - j0, ls = top ? lj - 1 : lj + 1;
+      if (lj < 0 || lj >= LR || ls < 0 || ls >= LR || i0 + li > nx) continue;
+      const float s = u[ls * LC + li];
+      u[lj * LC + li] = top ? two_lid - s : -s;
+    } else {  // v: the west ghost column, then the east one
+      const bool west = k - 2 * LC < LR;
+      const int lj = west ? k - 2 * LC : k - 2 * LC - LR;
+      const int li = (west ? 0 : nx + 1) - i0, ls = west ? li + 1 : li - 1;
+      if (li < 0 || li >= LC || ls < 0 || ls >= LC || j0 + lj > ny) continue;
+      v[lj * LC + li] = -v[lj * LC + ls];
+    }
+  }
+}
 
 // The cavity carry on tile t (quad_stage.cu describes the design) from its
 // staged us, vs, p in `in` (kCavityInputs buffers) with the corrected u, v
@@ -271,11 +305,7 @@ __device__ __forceinline__ void cavity_tile(const tile::Tile& t, float* in, floa
       s_v[k] = v_corr_formula(vvs, vp, j, i, c);
     });
     __syncthreads();
-    tile::each_cell(B, LC, [&](int lj, int li, int k) {
-      const int j = t.gj + lj, i = t.ai + li;
-      s_us[k] = cfd::u_star_formula(vu, vv, j, i, pc);
-      s_vs[k] = cfd::v_star_formula(vu, vv, j, i, pc);
-    });
+    predictor_box<true>(B, LC, t.gj, t.ai, vu, vv, s_us, s_vs, pc);
   } else {
     tile::each_cell(A, LC, [&](int lj, int li, int k) {
       float2 uv = make_float2(0.f, 0.f);  // outside the array a neighbour reads 0
@@ -286,11 +316,7 @@ __device__ __forceinline__ void cavity_tile(const tile::Tile& t, float* in, floa
       s_v[k] = uv.y;
     });
     __syncthreads();
-    tile::each_cell(B, LC, [&](int lj, int li, int k) {
-      const int j = t.gj + lj, i = t.ai + li;
-      s_us[k] = cfd::u_star_at(vu, vv, j, i, pc);
-      s_vs[k] = cfd::v_star_at(vu, vv, j, i, pc);
-    });
+    predictor_box<false>(B, LC, t.gj, t.ai, vu, vv, s_us, s_vs, pc);
   }
   __syncthreads();
   tile::each_own(t, Wqa, [&](int g, int gr, int lj0, int li0) {
@@ -301,13 +327,9 @@ __device__ __forceinline__ void cavity_tile(const tile::Tile& t, float* in, floa
     for (int q = 0; q < 4; ++q) {
       const int lj = lj0 + (q >> 1), li = li0 + (q & 1);
       const int k = lj * LC + li, gq = q * plane + g;
-      const int j = t.gj + lj, i = t.ai + li;
       const float a = s_us[k], bv = s_vs[k];
-      float bb = 0.f;
-      if (inner || (j >= 1 && j <= c.ny && i >= 1 && i <= c.nx)) {
-        const float div = (a - s_us[k - 1]) * pc.idx + (bv - s_vs[k - LC]) * pc.idy;
-        bb = pc.rho_dt * div;
-      }
+      const float bb = source_at(s_us, s_vs, k, LC, t.gj + lj, t.ai + li, c.ny, c.nx, pc,
+                                 inner);
       us2[gq] = a;
       vs2[gq] = bv;
       b[gq] = bb;
@@ -321,6 +343,51 @@ __device__ __forceinline__ void cavity_tile(const tile::Tile& t, float* in, floa
       }
     }
   });
+}
+
+// The cavity's non-carry predictor + source on tile t (quad.py:438;
+// quad_stage.cu describes the design) from its staged u, v in `in`
+// (kPredictorInputs buffers) with u*, v* in `work` (tile::kWorkBuffers):
+// the lid ghosts once on the staged u, v (a tile whose predictor box A
+// lies off the ghost rows and columns skips them), u*, v* once a face on
+// box B (the own cells, one row south, one column west), then us', vs' and
+// b = rho/dt * div of the own cells. Returns their max|b|.
+__device__ __forceinline__ float lid_predictor_source_tile(const tile::Tile& t, float* in,
+                                                           float* work, float* us2,
+                                                           float* vs2, float* b,
+                                                           const Pred& pc, float two_lid) {
+  const int Hq8 = pc.Hq8, Wqa = pc.Wqa, plane = Hq8 * Wqa, LC = t.LC;
+  float* const s_u = in;
+  float* const s_v = in + t.N;
+  float* const s_us = work;
+  float* const s_vs = work + t.N;
+  const tile::Box A = tile::around(t, 2, 1, 2, 1), B = tile::around(t, 1, 0, 1, 0);
+  const bool inner = tile::interior(t, A, pc.ny, pc.nx, Hq8);
+  const tile::View vu = tile::view(s_u, t), vv = tile::view(s_v, t);
+  if (inner) {
+    predictor_box<true>(B, LC, t.gj, t.ai, vu, vv, s_us, s_vs, pc);
+  } else {
+    lid_ghosts(s_u, s_v, t.gj, t.ai, t.N / LC, LC, pc.ny, pc.nx, two_lid);
+    __syncthreads();
+    predictor_box<false>(B, LC, t.gj, t.ai, vu, vv, s_us, s_vs, pc);
+  }
+  __syncthreads();
+  float m = 0.f;
+  tile::each_own(t, Wqa, [&](int g, int, int lj0, int li0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int lj = lj0 + (q >> 1), li = li0 + (q & 1);
+      const int k = lj * LC + li, gq = q * plane + g;
+      const float a = s_us[k], bv = s_vs[k];
+      const float bb =
+          source_at(s_us, s_vs, k, LC, t.gj + lj, t.ai + li, pc.ny, pc.nx, pc, inner);
+      us2[gq] = a;
+      vs2[gq] = bv;
+      b[gq] = bb;
+      m = cfd::bits_max(m, fabsf(bb));
+    }
+  });
+  return m;
 }
 
 // The channel's arithmetic on a tile (tile::duct_tile): the rho-divided

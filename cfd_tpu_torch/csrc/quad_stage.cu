@@ -29,7 +29,8 @@
 // offset away at compile time (kBlock).
 //
 // Bound on the H100: device-memory bytes. The correctors read 4 quad fields
-// and write 3; the carries read 4 and write 4 plus one scalar (19 MB per
+// and write 3; the carries read 4 and write 4 plus one scalar, the
+// cavity's non-carry stage reads 2 and writes 3 plus one scalar (19 MB per
 // field at 2048^2, 3.8 MB at 1536x512). The arithmetic (about 60 flops a
 // cell for the predictor) is far below the card's rate.
 //
@@ -52,13 +53,28 @@
 // through device memory: 8 passes over the field (4 in, 4 out) where the
 // earlier chains made 12, plus the halo's re-reads, mostly from L2.
 //
-// The correctors, the cavity's non-carry stage and the channel's (row 8c)
-// keep the first design: one thread per quad cell, neighbours through the
-// guarded quad accessor. Their per-cell bodies live in quad_carry.cuh,
-// whose arithmetic the tiles share. Row
-// 8c is two launches: the predictor + source + partial sums on (u, v) as
-// given, a thread evaluating the predictor at its own faces and again at
-// the west/south faces its divergence needs, and the fold of the partials.
+// The cavity's non-carry stage (make_quad_predictor_source, traced dt: the
+// exact adaptive controller's first stage) is ONE launch over the same
+// tiles, with no memset: a block loads u and v with a halo of 1 plane row
+// and column (2 logical: the predictor's 1 and the source's 1), applies
+// the lid ghosts once in shared memory (cfd::quad::lid_ghosts; tiles whose
+// stages touch no ghost skip it), computes u*, v* once a face on the
+// region the source reads (its own cells, one row south, one column west),
+// writes us', vs' and b of its own cells, and folds max|b| into the
+// launch's running max, which the last block to finish moves into the
+// output (tile::fold_max_into); a tile whose own cells lie wholly in the
+// padding writes zeros without loading. 5 passes over the field (2 in, 3
+// out), plus the halo's re-reads. The tile body is quad_carry.cuh's
+// lid_predictor_source_tile; its predictor and source stages are the
+// cavity carry's (predictor_box, source_at).
+//
+// The correctors and the channel's non-carry stage (row 8c) keep the
+// first design: one thread per quad cell, neighbours through the guarded
+// quad accessor. Their per-cell bodies live in quad_carry.cuh, whose
+// arithmetic the tiles share. Row 8c is two launches: the predictor +
+// source + partial sums on (u, v) as given, a thread evaluating the
+// predictor at its own faces and again at the west/south faces its
+// divergence needs, and the fold of the partials.
 //
 // Cavity ghost order (cfd_tpu/kernels/quad.py:420-435, cavity-01.cpp:
 // 523-543): u top ghost row j = ny+1 for i <= nx, then u bottom row j = 0
@@ -88,9 +104,8 @@
 // a shard's block (the region of the reference's scalar_reduce,
 // quad.py:300-360), into two device scalars zeroed before the launch. The
 // carries' tiles take one flag, kAdaptive, for both. The non-carry cavity
-// stage make_quad_predictor_source (quad.py:438, traced dt) is the
-// predictor + source of the first design with the lid ghosts applied to
-// its input on read (lid_u, lid_v).
+// stage make_quad_predictor_source (quad.py:438, traced dt) is the tile
+// kernel above with dt read from the card (cfd::pred_at).
 //
 // Row 8c's source sum: each block of its first launch sums its kThreads
 // values of b by a fixed pairwise tree into a per-block partial
@@ -126,22 +141,39 @@ __global__ void corrector_kernel(const float* us, const float* vs, const float* 
   if (idx < n) cfd::quad::cavity_corrector_cell(us, vs, p, p_prev, u2, v2, guess, idx, c);
 }
 
-// the non-carry cavity stage with a traced dt (quad.py:438): the lid ghosts
-// on u, v on read, the predictor, b = rho/dt * div on the cells and max|b|
-__global__ void lid_predictor_source_kernel(const float* u, const float* v, float* us2,
-                                            float* vs2, float* b, float* max_b, Pred c0,
-                                            const float* dt, float two_lid) {
-  const Pred c = cfd::pred_at<true>(c0, dt);
-  long long n = 4LL * c.Hq8 * c.Wqa;
-  long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float absb = 0.f;
-  if (idx < n) {
-    absb = fabsf(cfd::quad::lid_predictor_source_cell(u, v, us2, vs2, b, idx, c, two_lid));
-  }
-  cfd::block_max_into(absb, max_b);
-}
-
 namespace tile = cfd::tile;
+
+// the buffers of the non-carry stage's tile: u, v, then u*, v*
+constexpr int kPredictorBuffers = cfd::quad::kPredictorInputs + tile::kWorkBuffers;
+
+// The cavity's non-carry stage with a traced dt (quad.py:438) in one launch
+// (the design above): a block's tile of the lid ghosts, the predictor and
+// the source (cfd::quad::lid_predictor_source_tile), or a padding tile's
+// zeros without loading; max|b| folded into the launch's running max in
+// acc and moved into *max_b by the last block (tile::fold_max_into)
+__global__ void __launch_bounds__(tile::kThreads)
+    lid_predictor_source_kernel(const float* u, const float* v, float* us2, float* vs2,
+                                float* b, float* max_b, unsigned int* acc, Pred pc,
+                                const float* dt, float two_lid, tile::Plan pl) {
+  pc = cfd::pred_at<true>(pc, dt);
+  const tile::Tile t = tile::block_tile(pl, pc.Hq8, pc.Wqa, 0);
+  float m = 0.f;
+  if (tile::outside(t, pc.ny, pc.nx)) {  // no valid face, no cell: zeros
+    tile::each_own_index(t, pc.Hq8, pc.Wqa, [&](int gq) {
+      us2[gq] = 0.f;
+      vs2[gq] = 0.f;
+      b[gq] = 0.f;
+    });
+  } else {
+    const float* src[cfd::quad::kPredictorInputs] = {u, v};
+    tile::load<cfd::quad::kPredictorInputs>(src, tile::smem(), t, pc.Hq8, pc.Wqa);
+    __syncthreads();
+    m = cfd::quad::lid_predictor_source_tile(
+        t, tile::smem(), tile::smem() + cfd::quad::kPredictorInputs * t.N, us2, vs2, b, pc,
+        two_lid);
+  }
+  tile::fold_max_into(m, acc, max_b);
+}
 
 // The cavity carry in one launch (the design above): a block's tile of the
 // corrector, the lid ghosts, the predictor and the source
@@ -314,20 +346,35 @@ extern "C" int cfd_quad_corrector_traced(const float* us, const float* vs, const
   return static_cast<int>(cudaGetLastError());
 }
 
-// the non-carry cavity stage with a traced dt (*dt on the card): lid ghosts
-// on the input u, v, predictor, source, max|b| (zeroed here)
+// The non-carry cavity stage with a traced dt (*dt on the card): lid
+// ghosts on the input u, v, predictor, source, max|b|. acc: the running
+// max (int bits) and the blocks' count, two unsigned ints on the device, 0
+// before the launch (it leaves them 0); plan: the 6 ints of the tile plan
+// (tile::Plan, kernels/plan.py carry_plan("cavity_predictor")), a host
+// array
 extern "C" int cfd_quad_predictor_source(const float* u, const float* v, float* us2,
-                                         float* vs2, float* b, float* max_b, const float* dt,
-                                         int Hq8, int Wqa, int ny, int nx, float two_lid,
-                                         float nu, float idx, float idy, float idx2,
-                                         float idy2, float rho, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(max_b, 0, sizeof(float), s);
+                                         float* vs2, float* b, float* max_b,
+                                         unsigned int* acc, const float* dt, int Hq8, int Wqa,
+                                         int ny, int nx, float two_lid, float nu, float idx,
+                                         float idy, float idx2, float idy2, float rho,
+                                         const int* plan, void* stream) {
+  const tile::Plan pl{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
+  const cudaError_t err = tile::check(pl, Hq8, Wqa, cfd::quad::kPredictorRadius,
+                                      kPredictorBuffers);
   if (err != cudaSuccess) return static_cast<int>(err);
   Pred pc{Hq8, Wqa, ny, nx, 0.f, nu, idx, idy, idx2, idy2, 0.f, rho};
-  lid_predictor_source_kernel<<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, s>>>(
-      u, v, us2, vs2, b, max_b, pc, dt, two_lid);
+  lid_predictor_source_kernel<<<dim3(pl.grid_x, pl.grid_y), tile::kThreads, pl.smem_bytes,
+                                static_cast<cudaStream_t>(stream)>>>(
+      u, v, us2, vs2, b, max_b, acc, pc, dt, two_lid, pl);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Readies the non-carry stage's tile kernel for `smem_bytes` of dynamic
+// shared memory on the current device (cfd_quad_carry_grid's outputs)
+extern "C" int cfd_quad_predictor_source_grid(int smem_bytes, int* blocks, int* per_sm,
+                                              int* regs) {
+  return tile::ready(reinterpret_cast<const void*>(lid_predictor_source_kernel), smem_bytes,
+                     blocks, per_sm, regs);
 }
 
 // Readies the cavity carry's tile kernel (adaptive, block: its instance)

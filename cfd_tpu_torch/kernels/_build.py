@@ -106,10 +106,14 @@ SIGNATURES = {
     "cfd_rb_corrector": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_P],
     "cfd_rb_carry": [_P] * 13 + [_I] * 4 + [_F] * 13 + [_I, _I, _P, _P],
     # adaptive stepping: the traced-dt correctors, the traced-dt cavity
-    # predictor+source, the traced-dt + Courant carries (their last two
-    # ints and their plan as the fixed carries')
+    # predictor+source (the running max's accumulator after max_b, the
+    # pointer after the floats its tile plan, kernels/plan.py carry_plan;
+    # its kernel readied: shared memory; blocks, blocks per SM, registers
+    # out), the traced-dt + Courant carries (their last two ints and their
+    # plan as the fixed carries')
     "cfd_quad_corrector_traced": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
-    "cfd_quad_predictor_source": [_P] * 7 + [_I] * 4 + [_F] * 7 + [_P],
+    "cfd_quad_predictor_source": [_P] * 8 + [_I] * 4 + [_F] * 7 + [_P, _P],
+    "cfd_quad_predictor_source_grid": [_I] + [_P] * 3,
     "cfd_quad_carry_adaptive": [_P] * 10 + [_I] * 4 + [_F] * 9 + [_I, _I, _P, _P],
     "cfd_quad_channel_corrector_traced": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
     "cfd_quad_channel_carry_adaptive": [_P] * 13 + [_I] * 4 + [_F] * 9 + [_I, _I, _P, _P],
@@ -117,9 +121,13 @@ SIGNATURES = {
     "cfd_step_carry_adaptive": [_P] * 11 + [_I] * 6 + [_F] * 9 + [_I, _I, _P, _P],
     "cfd_rb_corrector_traced": [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P],
     "cfd_rb_carry_adaptive": [_P] * 13 + [_I] * 4 + [_F] * 11 + [_I, _I, _P, _P],
-    # the natural layout: the four stage kernels and the step's exact
-    # masked finest-level pairs
-    "cfd_predictor_source": [_P] * 6 + [_I] * 4 + [_F] * 8 + [_P],
+    # the natural layout: the four stage kernels (the predictor + source
+    # with the running max's accumulator after max_b and its tile plan,
+    # kernels/plan.py natural_predictor_plan, after the floats; its kernel
+    # readied as the cavity's) and the step's exact masked finest-level
+    # pairs
+    "cfd_predictor_source": [_P] * 7 + [_I] * 4 + [_F] * 8 + [_P, _P],
+    "cfd_predictor_source_grid": [_I] + [_P] * 3,
     "cfd_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
     "cfd_channel_predictor_source": [_P] * 7 + [_I] * 4 + [_F] * 8 + [_P],
     "cfd_channel_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],

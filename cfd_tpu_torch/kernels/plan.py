@@ -2,9 +2,10 @@
 (csrc/whole_solve.cuh Plan: the whole-solve, kernels.whole_solve, the whole
 step, kernels.whole_step, and the fused tail, kernels.mg_tail), the
 one-launch carries (csrc/carry_tile.cuh Plan, carry_plan below), the
-finest-level tile kernels, separable and the step's, the coarse smoother
-and the natural step's masked pairs (the same Plan, level0_plan,
-pairs_plan and step_pairs_plan below), the whole step's, which joins the
+finest-level tile kernels, separable and the step's, the coarse smoother,
+the natural cavity's predictor + source and the natural step's masked
+pairs (the same Plan, level0_plan, pairs_plan, natural_predictor_plan and
+step_pairs_plan below), the whole step's, which joins the
 solve's and the carry's (whole_step_plan below), and the fused-pre
 carry's, which joins the cavity carry's and the separable pre kernel's
 (fused_pre_plan below).
@@ -282,20 +283,30 @@ def ready_grid(plan: Plan, device, symbol: str, *which: int) -> dict:
 # The tile of each carry, (plane rows, plane columns), chosen on an H100 by
 # timing the candidates at the main shapes (PERF.md, the carries'
 # findings): blocks of 512 threads (csrc/carry_tile.cuh kThreads), two an
-# SM (four for the step's fixed-dt instance, csrc/step_stage.cu). A sweep
-# edits these in a scratch copy; nothing overrides them.
-CARRY_TILES = {"cavity": (8, 64), "channel": (16, 32), "step": (8, 32), "rb": (16, 32)}
+# SM (four for the step's fixed-dt instance, csrc/step_stage.cu). The
+# cavity's non-carry predictor + source ("cavity_predictor",
+# csrc/quad_stage.cu lid_predictor_source_kernel: the exact adaptive
+# controller's first stage) runs on the same tiles, its tile chosen the same
+# way at the 2048^2 cavity (PERF.md, the cavity predictor's findings). A
+# sweep times a fresh op under another plan (time_carries --tiles); nothing
+# overrides these but the card tests' ``tile``.
+CARRY_TILES = {"cavity": (8, 64), "channel": (16, 32), "step": (8, 32), "rb": (16, 32),
+               "cavity_predictor": (16, 48)}
 # The logical rows each carry's chain reaches (the cavity: the reference's
 # CARRY_RADIUS, cfd_tpu/kernels/quad.py:1021; the channel, the step and RB:
 # csrc/quad_stage.cu kChannelRadius, csrc/step_stage.cu kStepRadius,
-# csrc/rb_stage.cu kRBRadius) and the shared-memory buffers a tile stages
-# (csrc/quad_stage.cu kCavityBuffers, csrc/carry_tile.cuh kDuctBuffers for
-# the channel and the step, csrc/rb_stage.cu kRBBuffers).
-CARRY_RADIUS = {"cavity": 5, "channel": 5, "step": 5, "rb": 7}
+# csrc/rb_stage.cu kRBRadius; the cavity predictor: the predictor 1 and the
+# source 1, csrc/quad_carry.cuh kPredictorRadius) and the shared-memory
+# buffers a tile stages (csrc/quad_stage.cu kCavityBuffers,
+# csrc/carry_tile.cuh kDuctBuffers for the channel and the step,
+# csrc/rb_stage.cu kRBBuffers, csrc/quad_stage.cu kPredictorBuffers).
+CARRY_RADIUS = {"cavity": 5, "channel": 5, "step": 5, "rb": 7, "cavity_predictor": 2}
 # The fields a tile stages (csrc/quad_carry.cuh kCavityInputs,
-# csrc/carry_tile.cuh kDuctInputs, csrc/rb_carry.cuh kRBInputs) and its
-# buffers: those, then the corrected u, v (carry_tile.cuh kWorkBuffers).
-CARRY_INPUTS = {"cavity": 3, "channel": 3, "step": 3, "rb": 4}
+# csrc/carry_tile.cuh kDuctInputs, csrc/rb_carry.cuh kRBInputs,
+# csrc/quad_carry.cuh kPredictorInputs: u, v) and its buffers: those, then
+# the corrected u, v (carry_tile.cuh kWorkBuffers; the cavity predictor's
+# u*, v*).
+CARRY_INPUTS = {"cavity": 3, "channel": 3, "step": 3, "rb": 4, "cavity_predictor": 2}
 WORK_BUFFERS = 2
 CARRY_BUFFERS = {flow: n + WORK_BUFFERS for flow, n in CARRY_INPUTS.items()}
 
@@ -330,8 +341,9 @@ def carry_buffer_floats(rows: int, cols: int, halo: int) -> int:
 
 def carry_plan(flow: str, qshape, tile: tuple[int, int] | None = None,
                buffers: int | None = None) -> CarryPlan:
-    """The plan of ``flow``'s carry ("cavity", "channel", "step" or "rb")
-    on a (4, Hq8, Wqa) field or local block: CARRY_TILES' tile (the card
+    """The plan of ``flow``'s carry ("cavity", "channel", "step" or "rb";
+    "cavity_predictor", the cavity's non-carry predictor + source, on the
+    same tiles) on a (4, Hq8, Wqa) field or local block: CARRY_TILES' tile (the card
     tests pass another ``tile`` to hold the kernels to their twins under
     it), cut to the field where it is larger, a halo of ceil(CARRY_RADIUS /
     2) plane rows, shared memory for CARRY_BUFFERS[flow] buffers (or
@@ -365,7 +377,9 @@ def ready_tiles(plan: CarryPlan, device, symbol: str, *which: int) -> dict:
     with ``which`` adaptive, block; the finest-level
     cfd_quad_level0_grid and cfd_step_level0_grid with post, block; the
     coarse smoother's cfd_rb_pairs_grid with its storage; the natural
-    step's cfd_step_pairs_grid) on ``device`` for the plan's
+    step's cfd_step_pairs_grid; the cavity predictors'
+    cfd_quad_predictor_source_grid and cfd_predictor_source_grid) on
+    ``device`` for the plan's
     shared memory, and raise unless the card holds a block of it. The
     modules call it once a device and instance, before their first launch
     there; returns cooperative_grid's dict."""
@@ -510,6 +524,43 @@ def pairs_plan(shape, n_pairs: int, residual: bool, full: bool,
     if smem > SMEM_MAX:
         raise ValueError(f"the coarse smoother's {rows}x{cols} tile (halo {halo}) takes "
                          f"{smem} B of shared memory, more than a block's {SMEM_MAX}")
+    return CarryPlan(rows, cols, halo, smem, -(-W // cols), -(-H8 // rows))
+
+
+# ---------------------------------- the natural cavity's predictor + source
+
+# The tile of the natural cavity's predictor + source (csrc/projection.cu
+# predictor_source_kernel: one launch of one tile a block, 512 threads),
+# (rows, columns) of the aligned (H8, W) array: its columns a multiple of
+# 128, so that a tile row's stores start on a 128-byte line (W is a
+# multiple of 128), and its rows chosen on an H100 by timing candidates at
+# the 2048^2 cavity's (2056, 2176) (PERF.md, the natural predictor's
+# findings). A sweep times a fresh op under another plan (time_carries
+# --tiles); nothing overrides it but the card tests' ``tile``.
+NATURAL_PREDICTOR_TILE = (24, 128)
+# the cells its stages reach around a tile's own (the predictor 1, the
+# source 1; csrc/projection.cu kPredictorRadius) and its buffers: u, v,
+# then u*, v* (kPredictorBuffers)
+NATURAL_PREDICTOR_RADIUS = 2
+NATURAL_PREDICTOR_BUFFERS = 4
+
+
+def natural_predictor_plan(shape, tile: tuple[int, int] | None = None) -> CarryPlan:
+    """The plan of the natural cavity's predictor + source on an aligned
+    (H8, W) array: NATURAL_PREDICTOR_TILE (the card tests pass another
+    ``tile``), cut to the array where it is larger, a halo of
+    NATURAL_PREDICTOR_RADIUS cells, shared memory for
+    NATURAL_PREDICTOR_BUFFERS buffers of (rows + 2 halo) x (cols + 2 halo);
+    one tile a block over the whole array, its padding included. Raises when
+    a tile does not fit a block's shared memory."""
+    H8, W = shape
+    rows, cols = NATURAL_PREDICTOR_TILE if tile is None else tile
+    rows, cols = min(rows, H8), min(cols, W)
+    halo = NATURAL_PREDICTOR_RADIUS
+    smem = 4 * NATURAL_PREDICTOR_BUFFERS * (rows + 2 * halo) * (cols + 2 * halo)
+    if smem > SMEM_MAX:
+        raise ValueError(f"the natural predictor's {rows}x{cols} tile takes {smem} B of "
+                         f"shared memory, more than a block's {SMEM_MAX}")
     return CarryPlan(rows, cols, halo, smem, -(-W // cols), -(-H8 // rows))
 
 

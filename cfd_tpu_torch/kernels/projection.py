@@ -35,7 +35,9 @@ from __future__ import annotations
 import torch
 
 from cfd_tpu_torch.kernels._build import Kernel, ptr, route
-from cfd_tpu_torch.kernels.quad import SUM_BLOCK, _check, fixed_order_sum
+from cfd_tpu_torch.kernels.plan import natural_predictor_plan
+from cfd_tpu_torch.kernels.quad import (SUM_BLOCK, _check, fixed_order_sum, max_acc,
+                                        tile_plan_ptr)
 from cfd_tpu_torch.ops.stencil import StencilCoeffs, _sh, predictor
 
 _SRC = "cfd_tpu_torch/csrc/projection.cu"
@@ -133,7 +135,11 @@ class _Stage:
 
 class PredictorSource(_Stage):
     """(u, v) -> (us, vs, b, max|b|) for the cavity (projection.py:210 with
-    emit_max_b); max|b| a 0-d float32 tensor on the fields' device."""
+    emit_max_b); max|b| a 0-d float32 tensor on the fields' device. On the
+    card it is one launch over shared-memory tiles of the aligned array
+    (csrc/projection.cu predictor_source_kernel, kernels/plan.py
+    natural_predictor_plan), whose last block moves max|b| out of the op's
+    running max (kernels.quad.max_acc): no zeroing launch."""
 
     def plain(self, u, v):
         grow, gcol, u_valid, v_valid, cell = self._masks(u.device)
@@ -145,8 +151,11 @@ class PredictorSource(_Stage):
     def kernel(self, u, v):
         us, vs, b = (torch.empty_like(u) for _ in range(3))
         max_b = torch.empty((), dtype=torch.float32, device=u.device)
-        PREDICTOR_SOURCE(u, ptr(u), ptr(v), ptr(us), ptr(vs), ptr(b), ptr(max_b), *self.shape,
-                         self.ny, self.nx, 2.0 * self.ghost, *self._pred_args())
+        plan = tile_plan_ptr(self, lambda: natural_predictor_plan(self.shape), u.device,
+                             "cfd_predictor_source_grid")
+        PREDICTOR_SOURCE(u, ptr(u), ptr(v), ptr(us), ptr(vs), ptr(b), ptr(max_b),
+                         ptr(max_acc(self, u.device)), *self.shape, self.ny, self.nx,
+                         2.0 * self.ghost, *self._pred_args(), plan)
         return us, vs, b, max_b
 
 

@@ -554,7 +554,8 @@ def sum_scratch(op, like):
 def max_acc(op, device) -> torch.Tensor:
     """The running max (int bits) and block count of a tile kernel whose
     last block folds a max (the finest-level post kernels, the coarse
-    smoother's with_residual instance): two int32 on ``device`` that ``op``
+    smoother's with_residual instance, the cavity predictors of both
+    layouts, the natural step's pairs): two int32 on ``device`` that ``op``
     keeps (op._max_acc), zeroed once: every launch leaves them 0."""
     accs = op.__dict__.setdefault("_max_acc", {})
     if str(device) not in accs:
@@ -782,7 +783,11 @@ class QuadPredictorSource(_Traced, _QuadStage):
     with a traced dt (cfd_tpu/kernels/quad.py:438 traced_dt): the lid
     ghosts on the corrected u, v, the MAC predictor on valid faces, b =
     rho/dt * div on the cells and max|b| (a 0-d tensor). The exact
-    controller's first stage."""
+    controller's first stage. On the card it is one launch over
+    shared-memory tiles (csrc/quad_stage.cu lid_predictor_source_kernel,
+    kernels/plan.py carry_plan("cavity_predictor")), whose last block
+    moves max|b| out of the op's running max (max_acc): no zeroing
+    launch."""
 
     def __init__(self, shape, coeffs: StencilCoeffs, lid_velocity: float = 1.0):
         super().__init__(shape)
@@ -801,9 +806,12 @@ class QuadPredictorSource(_Traced, _QuadStage):
         max_b = torch.empty((), dtype=torch.float32, device=u.device)
         _, Hq8, Wqa = self.qshape
         c = self.coeffs
-        PREDICTOR_SOURCE(u, ptr(u), ptr(v), ptr(us2), ptr(vs2), ptr(b), ptr(max_b), ptr(dt),
-                         Hq8, Wqa, self.ny, self.nx, 2.0 * self.lid, c.viscosity, c.idx,
-                         c.idy, c.idx2, c.idy2, c.density)
+        plan = tile_plan_ptr(self, "cavity_predictor", u.device,
+                             "cfd_quad_predictor_source_grid")
+        PREDICTOR_SOURCE(u, ptr(u), ptr(v), ptr(us2), ptr(vs2), ptr(b), ptr(max_b),
+                         ptr(max_acc(self, u.device)), ptr(dt), Hq8, Wqa, self.ny, self.nx,
+                         2.0 * self.lid, c.viscosity, c.idx, c.idy, c.idx2, c.idy2,
+                         c.density, plan)
         return us2, vs2, b, max_b
 
 

@@ -13,6 +13,7 @@ step goes on the card.
     python -m cfd_tpu_torch.profile_step --mesh 4 [--case cavity|channel|step|rb]
                                          [--mg tail_from=1]
     python -m cfd_tpu_torch.profile_step [--mesh 4] --adaptive-dt 0.7 [--case ...]
+    python -m cfd_tpu_torch.profile_step --adaptive-dt 0.7 --adaptive-controller exact
 
 Drives a main path on cuda through Simulation's step function: the cavity,
 make_cavity_case(n_interior=n, poisson="multigrid", dtype=float32,
@@ -42,7 +43,11 @@ overrides then go to the sharded solve's own config,
 parallel.quad_sharded. ``--adaptive-dt MAX_CO`` steps with the lagged
 adaptive controller (cfd_tpu_torch.adaptive.LaggedController, growth 1.2,
 from the case's dt): the traced-dt + Courant carry and the controller's
-device ops each step, on one device or on the mesh.
+device ops each step, on one device or on the mesh; with
+``--adaptive-controller exact`` (the cavity on one device) the exact
+controller's host loop (cfd_tpu_torch.adaptive.exact_start: the non-carry
+traced-dt predictor + source and corrector, one host read of the Courant
+number a step).
 The steps' V-cycle counts stay on the card until each window ends, as in
 Simulation.run, so no window reads the host between its steps. It runs
 three windows:
@@ -272,7 +277,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
                     help="the sharded quad path on an N-shard plane-row mesh on the card")
     ap.add_argument("--adaptive-dt", type=float, default=None, metavar="MAX_CO",
-                    help="the lagged adaptive controller toward this max Courant number")
+                    help="adaptive stepping toward this max Courant number")
+    ap.add_argument("--adaptive-controller", choices=["lagged", "exact"], default="lagged",
+                    help="with --adaptive-dt: the lagged controller (default) or the exact "
+                         "one's host loop (the cavity on one device)")
     ap.add_argument("--warmup", type=int, default=100)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--out", type=Path, default=DEFAULT_OUT)
@@ -305,6 +313,11 @@ def main(argv=None) -> int:
         sim = Simulation(case, log=lambda m: None)
     if args.adaptive_dt is None:
         state, advance = sim.initial_state(), sim._step
+    elif args.adaptive_controller == "exact":
+        from cfd_tpu_torch.adaptive import exact_start
+
+        state, advance = exact_start(sim, args.adaptive_dt)
+        what += f", the exact adaptive controller toward Co {args.adaptive_dt}"
     else:
         from cfd_tpu_torch.adaptive import lagged_start
 

@@ -1,12 +1,17 @@
 """Time the carries on the card: rows 1, 1+ (the cavity 2048^2), 8a, 8a+
 (the channel 1536x512), 9a, 9a+ (the step 2048x256) and 10, 10+ (RB
 1536x512), the fixed-dt carry of each case's step and its traced-dt +
-Courant instance (dt_corr = 0.8 dt, dt_pred = 1.1 dt), and row 7, the
+Courant instance (dt_corr = 0.8 dt, dt_pred = 1.1 dt); row 16a, the
+cavity carry on shard 1's local block of the 4-shard plane-row mesh (the
+shard rows' block of time_level0); row 7, the
 cavity's fused-pre carry (the carry with the first V-cycle's pre-smooth
 and restriction, ``fuse_pre=True`` on the per-kernel solve) timed beside
-the composed carry -> pre pair it replaces, on seeded inputs.
+the composed carry -> pre pair it replaces; and the cavity's non-carry
+predictor + source at 2048^2, row 6 (the quad layout's traced-dt
+instance, the exact adaptive controller's first stage, at dt = 1.1 dt)
+and row 11 (the natural layout's, ``layout="aligned"``), on seeded inputs.
 
-    python -m cfd_tpu_torch.time_carries TAG [--only 1,1+,7,10,10+] [--reps 50]
+    python -m cfd_tpu_torch.time_carries TAG [--only 1,1+,6,7,10,10+,11,16a] [--reps 50]
                                              [--tiles 16x32,8x64]
 
 Prints one JSON line per carry, tagged with TAG: ``dev_ms``, the device
@@ -23,13 +28,18 @@ in a torch.profiler trace (profile_step.device_ops_a_call), and
 ``p1_sum``; ``--tiles`` times it under each carry tile given (plane rows
 x columns), each on a fresh op given kernels/plan.py
 fused_pre_plan(tile=), the card tests' hook: the sweep that chose
-FUSED_PRE_TILE. The inputs are seeded (cfd_tpu_torch.seeded). Run from
+FUSED_PRE_TILE. Rows 6 and 11 print ``launches_a_call`` and ``max_b``
+too; ``--tiles`` times them under each tile given (row 6: plane rows x
+columns, kernels/plan.py carry_plan("cavity_predictor", tile=); row 11:
+rows x columns of the aligned array, natural_predictor_plan(tile=)), each
+on a fresh op: the sweeps that chose CARRY_TILES["cavity_predictor"] and
+NATURAL_PREDICTOR_TILE. The inputs are seeded (cfd_tpu_torch.seeded). Run from
 the root
 of a checkout, it times that checkout's kernels, so two checkouts timed in
 turns on one card (parent, change, change, parent) give an A/B. Every
-field fits the 50 MB L2 but the cavity's (8 fields of 19 MB), so the
-times of rows 8a, 9a and 10 are warm-cache. Needs a CUDA card; it raises
-without one.
+field fits the 50 MB L2 but the cavity's (8 fields of 19 MB; 5 of 19 MB
+for row 6, of 17.9 MB for row 11), so the times of rows 8a, 9a and 10
+are warm-cache. Needs a CUDA card; it raises without one.
 """
 
 from __future__ import annotations
@@ -44,7 +54,8 @@ from cfd_tpu_torch.time_whole_solve import FLOWS, dev_ms, make, median_ms
 
 ROWS = {"1": ("cavity", False), "1+": ("cavity", True), "8a": ("channel", False),
         "8a+": ("channel", True), "9a": ("step", False), "9a+": ("step", True),
-        "10": ("rb", False), "10+": ("rb", True), "7": ("cavity", False)}
+        "10": ("rb", False), "10+": ("rb", True), "7": ("cavity", False),
+        "6": ("cavity", True), "11": ("cavity", False), "16a": ("cavity", False)}
 
 
 def carry_of(flow: str, adaptive: bool, case):
@@ -78,6 +89,20 @@ def carry_of(flow: str, adaptive: bool, case):
                                                   case.info["prandtl"]), adaptive=True)
     dts = torch.tensor([0.8 * c.dt, 1.1 * c.dt], dtype=torch.float32, device=case.device)
     return op, (dts, *fields)
+
+
+def shard_carry_of(case):
+    """Row 16a: (the cavity carry of shard 1's local block, its arguments:
+    the block's row_base and the seeded fields' block)."""
+    from cfd_tpu_torch.kernels import quad as Q
+    from cfd_tpu_torch.seeded import seeded_fields
+    from cfd_tpu_torch.time_level0 import SHARD, SHARDS, _block
+
+    shape = case.grid.shape
+    _, P, _ = Q.quad_shard_dims(shape, SHARDS)
+    Hq8 = Q.quad_dims(shape)[2]
+    op = Q.make_quad_corr_predictor_source(shape, case.coeffs, shard=(P, SHARDS))
+    return op, (SHARD * P - Q.DEV_HALO, *(_block(t, P, Hq8) for t in seeded_fields(case, 23)))
 
 
 def fused_pre_rows(tag: str, reps: int, tiles) -> None:
@@ -124,6 +149,53 @@ def fused_pre_rows(tag: str, reps: int, tiles) -> None:
             tile=tile, plan=dataclasses.asdict(ready[0]) if ready else None)), flush=True)
 
 
+def predictor_rows(tag: str, row: str, reps: int, tiles) -> None:
+    """Row 6's or row 11's lines: the cavity's non-carry predictor + source
+    at 2048^2 on the quad layout with a traced dt (1.1 dt, phase 14's
+    instance) or on the natural layout (the aligned case's own op), under
+    the plan's tile or each of ``tiles``."""
+    from cfd_tpu_torch import cases
+    from cfd_tpu_torch.kernels import projection as P
+    from cfd_tpu_torch.kernels import quad as Q
+    from cfd_tpu_torch.profile_step import device_ops_a_call
+    from cfd_tpu_torch.seeded import seeded_fields
+
+    _, kw = FLOWS["cavity"]
+    natural = row == "11"
+    case = cases.make_cavity_case(device="cuda", dtype=torch.float32,
+                                  **({"layout": "aligned"} if natural else {}), **kw)
+    g, c = case.grid, case.coeffs
+    u, v = seeded_fields(case, 23)[:2]
+    if natural:
+        make = lambda: P.make_predictor_source(g.shape, c, case.step_kernels[0].ghost)
+        args = (u, v)
+    else:
+        make = lambda: Q.make_quad_predictor_source(g.shape, c)
+        args = (torch.tensor(1.1 * c.dt, dtype=torch.float32, device="cuda"), u, v)
+    for tile in tiles:
+        op = make()
+        if tile is not None:  # a fresh op under the tile's plan before its first launch
+            from cfd_tpu_torch.kernels import plan as PL
+
+            try:
+                op._tile_plan = (PL.natural_predictor_plan(op.shape, tile) if natural else
+                                 PL.carry_plan("cavity_predictor", op.qshape, tile))
+            except ValueError as e:  # past shared memory: no such instance
+                print(json.dumps(dict(tag=tag, row=row, tile=tile, error=str(e))), flush=True)
+                continue
+        call = lambda: op.kernel(*args)
+        out = call()
+        d, ahead = dev_ms(call, reps)
+        launched = device_ops_a_call(call)
+        print(json.dumps(dict(
+            tag=tag, row=row, flow="cavity", layout="natural" if natural else "quad",
+            shape=list(out[2].shape), dev_ms=d, host_ahead=ahead, ms=median_ms(call),
+            launches_a_call=len(launched), ops=launched, sum=float(out[2].double().sum()),
+            max_b=float(out[3]), tile=tile,
+            plan=dict(vars(op._tile_plan)) if getattr(op, "_tile_plan", None) else None)),
+            flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tag")
@@ -134,17 +206,21 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("time_carries needs a CUDA card")
     rows = args.only.split(",")
+    tiles = [None] if args.tiles is None else [
+        tuple(int(x) for x in t.split("x")) for t in args.tiles.split(",")]
     cases = {}
     for row in rows:
         if row == "7":
-            tiles = [None] if args.tiles is None else [
-                tuple(int(x) for x in t.split("x")) for t in args.tiles.split(",")]
             fused_pre_rows(args.tag, args.reps, tiles)
+            continue
+        if row in ("6", "11"):
+            predictor_rows(args.tag, row, args.reps, tiles)
             continue
         flow, adaptive = ROWS[row]
         if flow not in cases:
             cases[flow] = make(flow, {})
-        op, fargs = carry_of(flow, adaptive, cases[flow])
+        op, fargs = (shard_carry_of(cases[flow]) if row == "16a" else
+                     carry_of(flow, adaptive, cases[flow]))
         call = lambda: op.kernel(*fargs)
         out = call()
         b = out[2] if flow in ("cavity", "channel", "step") else out[3]

@@ -123,6 +123,9 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
     traced-dt correctors and the traced-dt + Courant carries of the four
     flows against their twins (1e-5) with dt_corr = 0.8 dt and dt_pred =
     1.1 dt, each timed beside the fixed-dt instance on the same inputs.
+    The non-carry stage (row 6: one launch of shared-memory tiles a call,
+    csrc/quad_stage.cu) and the carries error 0, with ``dev_ms``; row 6
+    also with its device operations a call (a child time_carries process).
 15. Adaptive runs through cfd_tpu_torch.adaptive.run_adaptive at the full
     widths, max_courant 0.7 from the case's own dt, the launch counters
     zeroed just before each: the cavity 2048^2 with the exact controller on
@@ -182,7 +185,10 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
 25. The natural layout's kernels against their twins on seeded inputs
     (limit 1e-5, bit-identical expected), times as in phase 2: the four
     stage kernels of csrc/projection.cu at the full-width aligned shapes
-    (cavity 2056x2176, channel 520x1664), the with_residual pairs at the
+    (cavity 2056x2176, channel 520x1664; the cavity's predictor + source,
+    row 11, one launch of shared-memory tiles a call: error 0, with
+    ``dev_ms`` and its device operations a call from a child time_carries
+    process), the with_residual pairs at the
     cavity's aligned level 0 (row 5-wr, error 0, with ``dev_ms`` and its
     device operations a call; the level's pre-smooth error 0 too), the
     step's exact masked pairs (rows 12 and 12-res: one launch of
@@ -395,8 +401,9 @@ ADAPTIVE_RUN = (300, 100)
 
 
 # the kernels of the one-launch tile carries (csrc/carry_tile.cuh), the
-# finest-level tile kernels (csrc/quad_vcycle.cu, csrc/step_vcycle.cu) and
-# the coarse smoother's (csrc/rb_smoother.cu, every instance), held to
+# finest-level tile kernels (csrc/quad_vcycle.cu, csrc/step_vcycle.cu),
+# the coarse smoother's (csrc/rb_smoother.cu, every instance) and the
+# cavity's non-carry predictors' (csrc/quad_stage.cu, csrc/projection.cu), held to
 # error 0 against their twins wherever the phases check them: kernel name
 # -> row (the shard rows 16a-16f and their + instances through
 # check_shard_op, which holds every shard row bit for bit)
@@ -415,6 +422,8 @@ REDESIGNED = {"quad_corr_predictor_source": "row 1",
               "rb_pairs": "row 5", "rb_pairs_full": "row 5b", "rb_pairs_residual": "row 5-wr",
               "quad_corr_predictor_source_fused_pre": "row 7",
               "step_masked_pairs": "row 12", "step_masked_pairs_res": "row 12-res",
+              "quad_predictor_source": "row 6",
+              "projection_predictor_source": "row 11",
               **{f"quad_whole_step_{flow}{v}": "row 15" for flow in ("cavity", "channel",
                                                                      "rb", "step")
                  for v in ("", "_bf16")}, "quad_whole_step_step_corr_opt": "row 15"}
@@ -510,7 +519,8 @@ def dev_note(r: dict) -> str:
 # the rows whose device operations a call a child timer process counts
 # (child_launches): every row of the main path's instances a phase holds
 CHILD_ROWS = {"time_level0": ("3", "4", "16b", "16c", "9c", "9d", "16f-pre", "16f-post"),
-              "time_pairs": ("5", "5b", "5-wr", "12", "12-res"), "time_carries": ("7",)}
+              "time_pairs": ("5", "5b", "5-wr", "12", "12-res"),
+              "time_carries": ("7", "6", "11")}
 _CHILD_COUNTS: dict = {}
 
 
@@ -531,7 +541,8 @@ def child_launches(rows, module: str) -> dict:
     ``module`` times on the main path's instances (time_level0's rows 3,
     4, 16b, 16c, 9c, 9d, 16f-pre, 16f-post: the finest-level kernels;
     time_pairs' rows 5, 5b, 5-wr: the coarse smoother, and 12, 12-res:
-    the natural step's pairs; time_carries' row 7: the fused-pre carry),
+    the natural step's pairs; time_carries' rows 7: the fused-pre carry,
+    6 and 11: the cavity's non-carry predictors, quad and natural),
     each counted in a
     torch.profiler trace of one call (profile_step.device_ops_a_call). The
     first call counts all of the timer's CHILD_ROWS in one fresh process
@@ -1150,7 +1161,7 @@ def check_adaptive_kernels(flows: dict, dev) -> dict:
     """Phase 14: each adaptive-stepping instance against its twin at the
     full shapes, dt_corr = 0.8 dt and dt_pred = 1.1 dt, timed beside the
     fixed-dt instance on the same inputs (for the non-carry cavity stage:
-    the fixed carry, whose second launch it shares)."""
+    the fixed carry, whose predictor and source stages its tiles run)."""
     from cfd_tpu_torch.kernels import quad as Q
     from cfd_tpu_torch.kernels import rb_quad as RQ
     from cfd_tpu_torch.kernels import step_quad as SQ
@@ -1233,15 +1244,21 @@ def check_adaptive_kernels(flows: dict, dev) -> dict:
             got, want = op.kernel(dts, *args), op.plain(dts, *args)
             for out, a, b in zip(outs, got, want, strict=True):
                 rel_err(a, b, f"{name} {out}", TOL_F32, errs)
-            carry = name.endswith("_adaptive")  # rows 1+, 8a+, 9a+, 10+
+            # rows 1+, 8a+, 9a+, 10+, and row 6 (the exact controller's
+            # predictor + source): their device ms; row 6's device
+            # operations a call from a child time_carries (row 6, the same
+            # instance)
+            tiled = name.endswith("_adaptive") or name == Q.PREDICTOR_SOURCE.name
             if name in REDESIGNED:
                 bit_identical(name, errs)
             results[name] = dict(
                 err=max(errs), ms=median_ms(lambda: op.kernel(dts, *args)),
-                **(dict(dev_ms=carry_dev_ms(lambda: op.kernel(dts, *args))) if carry else {}),
+                **(dict(dev_ms=carry_dev_ms(lambda: op.kernel(dts, *args))) if tiled else {}),
                 fixed_ms=median_ms(lambda: fixed.kernel(*fixed_args)),
                 plain_ms=median_ms(lambda: op.plain(dts, *args)),
                 **bound(nbytes(dts, *args, *got), ops))
+            if name == Q.PREDICTOR_SOURCE.name:
+                results[name]["launches_a_call"] = child_launches(("6",), "time_carries")["6"]
     return results
 
 
@@ -1699,6 +1716,13 @@ def check_natural_kernels(dev) -> dict:
         timed(names[0].name, lambda: pred.kernel(u, v), lambda: pred.plain(u, v),
               lambda got: nbytes(u, v, *got), cells * PREDICTOR_SOURCE_OPS,
               ("us", "vs", "b", scalar))
+        if names[0] is P.PREDICTOR_SOURCE:
+            # row 11 redesigned: error 0, its device time and device
+            # operations a call (time_carries row 11, the same instance)
+            r = results[names[0].name]
+            bit_identical(names[0].name, [r["err"]])
+            r.update(dev_ms=carry_dev_ms(lambda: pred.kernel(u, v)),
+                     launches_a_call=child_launches(("11",), "time_carries")["11"])
         timed(names[1].name, lambda: corr.kernel(u, v, p, pp), lambda: corr.plain(u, v, p, pp),
               lambda got: nbytes(u, v, p, pp, *got), cells * CORRECTOR_OPS,
               ("u2", "v2", "guess"))
