@@ -476,6 +476,20 @@ __device__ __forceinline__ void warp_chunk_sums(const float* b, int Hq8, int Wqa
   }
 }
 
+// Programmatic dependent launch (Hopper's griddepcontrol): a kernel lets
+// the kernel launched after it with the programmatic stream serialization
+// attribute start its blocks once every block of this one has called
+// launch_dependents (or exited); the dependent calls wait_prerequisites,
+// which returns when the kernel before it has completed and its memory is
+// visible, before it reads what that kernel wrote.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_prerequisites() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
 // The source sum of b over the own rows (all rows where halo is 0) in the
 // order of the twin's fixed_order_sum (kernels/quad.py): the flat array in
 // cfd::kThreads-wide chunks, each summed by cfd::block_sum_to's pairwise
@@ -691,6 +705,16 @@ __device__ __forceinline__ void duct_carry(const F& f, const float* us, const fl
 // launch's error.
 cudaError_t launch_source_sum(const float* b, int Hq8, int Wqa, int halo, float* partials,
                               unsigned int* count, float* sum, cudaStream_t stream);
+
+// The same sum over a whole field launched as the programmatic dependent
+// of the kernel before it on the stream, which writes b and lets its
+// dependents launch from each block's start
+// (launch_dependents): the sum's blocks are set up while that kernel's
+// last blocks run and wait for its completion and its memory
+// (wait_prerequisites) before they read b. The channel's non-carry stages'
+// second launch; defined once, in rb_stage.cu.
+cudaError_t launch_dependent_source_sum(const float* b, int Hq8, int Wqa, float* partials,
+                                        unsigned int* count, float* sum, cudaStream_t stream);
 
 }  // namespace tile
 }  // namespace cfd

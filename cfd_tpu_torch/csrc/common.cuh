@@ -160,9 +160,10 @@ __device__ __forceinline__ float fold_sum(float* x, int n, int first, int step, 
 }
 
 // One block folds partials[0:n] into *sum in the PyTorch twin's fold_sum
-// order (the last launch of the stages that sum their source by blocks:
-// the channel's row 8c, the natural channel stage). Defined once, in
-// quad_stage.cu; returns the launch's error.
+// order (the second launch of the first design's block sums; no stage
+// launches it since the channel's non-carry stages moved onto the carries'
+// sum, carry_tile.cuh source_sum). Defined once, in quad_stage.cu; returns
+// the launch's error.
 cudaError_t fold_partials(float* partials, int n, float* sum, cudaStream_t stream);
 
 }  // namespace cfd

@@ -28,11 +28,9 @@ __device__ __forceinline__ Pred pred_at(Pred c, const float* dt) {
 
 // MAC predictor (cfd_tpu/kernels/quad.py _predictor_quad, :808-844), in the
 // JAX package's operation order. ``u(j, i)`` and ``v(j, i)`` read the input
-// fields: plain loads (u_star, v_star below), loads that apply ghost values
-// on read (the cavity's non-carry stage), or a shared-memory tile
-// (carry_tile.cuh). The *_formula functions are the arithmetic alone, for a
-// face known to be valid (a tile's interior path); the *_at functions give
-// 0 outside the valid faces.
+// fields from a shared-memory tile (carry_tile.cuh). The *_formula
+// functions are the arithmetic alone, for a face known to be valid (a
+// tile's interior path); the *_at functions give 0 outside the valid faces.
 template <class LU, class LV>
 __device__ __forceinline__ float u_star_formula(LU u, LV v, int j, int i, const Pred& c) {
   float uc = u(j, i), uE = u(j, i + 1), uW = u(j, i - 1);
@@ -79,20 +77,6 @@ template <class LU, class LV>
 __device__ __forceinline__ float v_star_at(LU u, LV v, int j, int i, const Pred& c) {
   if (!(j >= 1 && j <= c.ny - 1 && i >= 1 && i <= c.nx)) return 0.f;
   return v_star_formula(u, v, j, i, c);
-}
-
-__device__ __forceinline__ float u_star(const float* u, const float* v, int j, int i,
-                                        const Pred& c) {
-  auto lu = [&](int jj, int ii) { return qld(u, jj, ii, c.Hq8, c.Wqa, c.row0); };
-  auto lv = [&](int jj, int ii) { return qld(v, jj, ii, c.Hq8, c.Wqa, c.row0); };
-  return u_star_at(lu, lv, j, i, c);
-}
-
-__device__ __forceinline__ float v_star(const float* u, const float* v, int j, int i,
-                                        const Pred& c) {
-  auto lu = [&](int jj, int ii) { return qld(u, jj, ii, c.Hq8, c.Wqa, c.row0); };
-  auto lv = [&](int jj, int ii) { return qld(v, jj, ii, c.Hq8, c.Wqa, c.row0); };
-  return v_star_at(lu, lv, j, i, c);
 }
 
 }  // namespace cfd

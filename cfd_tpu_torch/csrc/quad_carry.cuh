@@ -1,11 +1,14 @@
 // Per-cell bodies of the cavity and channel tentative-carry stages on the
-// quad layout: the correctors and the channel's predictor + source, and
-// the accessor-taking arithmetic they are built of; and the bodies on a
-// shared-memory tile (carry_tile.cuh): the cavity carry's (cavity_tile),
-// the channel's arithmetic for tile::duct_tile (ChannelTile), and the
-// cavity's non-carry predictor + source (lid_predictor_source_tile), whose
-// stages (lid_ghosts, predictor_box, source_at) the natural layout's
-// predictor + source runs on its own tiles too (projection.cu). Shared by
+// quad layout: the correctors, and the accessor-taking arithmetic they are
+// built of; and the bodies on a shared-memory tile (carry_tile.cuh): the
+// cavity carry's (cavity_tile), the channel's arithmetic for
+// tile::duct_tile (ChannelTile), the cavity's non-carry predictor + source
+// (lid_predictor_source_tile), whose stages (lid_ghosts, predictor_box,
+// source_at) the natural layout's cavity predictor + source runs on its
+// own tiles too (projection.cu), and the channel's non-carry predictor +
+// source (channel_predictor_source_tile), whose predictor stage
+// (channel_predictor_boxes) the natural layout's channel predictor +
+// source runs too. Shared by
 // the standalone stage kernels and tile carries (quad_stage.cu), the
 // fused-pre carry (quad_fused_pre.cu) and the whole-step kernel
 // (whole_step.cu), so that all run the same code. The ghost orders and
@@ -161,31 +164,6 @@ __device__ __forceinline__ float2 channel_corrector_cell(const float* us, const 
   v2[idx] = uv.y;
   guess[idx] = 2.0f * p[idx] - p_prev[idx];
   return make_float2(fabsf(uv.x), fabsf(uv.y));
-}
-
-// The channel predictor at quad cell idx, the channel ghosts on the
-// tentative fields, b = rho/dt * div on the cells (0 elsewhere); returns b.
-__device__ __forceinline__ float channel_predictor_source_cell(const float* u, const float* v,
-                                                               float* us2, float* vs2,
-                                                               float* b, long long idx,
-                                                               const Pred& c, float uin) {
-  cfd::QuadCell cell = cfd::quad_cell(idx, c.Hq8, c.Wqa, c.row0);
-  const int j = cell.j, i = cell.i;
-  auto fu = [&](int jj, int ii) { return u_star(u, v, jj, ii, c); };
-  auto fv = [&](int jj, int ii) { return v_star(u, v, jj, ii, c); };
-  float a = channel_u(fu, j, i, c.ny, c.nx, uin);
-  float bv = channel_v(fv, j, i, c.ny, c.nx);
-  us2[idx] = a;
-  vs2[idx] = bv;
-  float bb = 0.f;
-  if (j >= 1 && j <= c.ny && i >= 1 && i <= c.nx) {
-    float aw = channel_u(fu, j, i - 1, c.ny, c.nx, uin);
-    float bs = channel_v(fv, j - 1, i, c.ny, c.nx);
-    float div = (a - aw) * c.idx + (bv - bs) * c.idy;
-    bb = c.rho_dt * div;
-  }
-  b[idx] = bb;
-  return bb;
 }
 
 // ------------------------------------------------- the carries' tile bodies
@@ -417,6 +395,88 @@ struct ChannelTile {
     return j >= 1 && j <= c.ny && i >= 1 && i <= c.nx;
   }
 };
+
+// The logical rows and columns the channel's non-carry predictor + source
+// reaches around a tile's own cells (box A below: 2 rows south, 1 north, 3
+// columns west, 1 east) and the inputs its tile stages: u, v (u*, v* go to
+// the tile::kWorkBuffers buffers). Its halo is kernels/plan.py
+// CARRY_RADIUS["channel_predictor"] logical cells, ceil(3 / 2) = 2 plane
+// rows and columns.
+constexpr int kChannelPredictorRadius = 3;
+constexpr int kChannelPredictorInputs = 2;
+
+// u* on box BU and v* on box BV of a tile's buffers (pitch LC, buffer cell
+// (lj, li) at global logical (gj + lj, ai + li)) from the views u, v into
+// the buffers us, vs, once a face: the *_formula arithmetic on the interior
+// path (kInner: no face of the boxes is invalid or a ghost), else f's
+// us_at, vs_at (the predictor on the valid faces, 0 off them, then the
+// channel ghosts of the tentative fields, a ghost evaluating the face it
+// copies). The predictor stage of the channel's non-carry predictor +
+// source on both layouts (tile::duct_tile's second stage on the given u, v).
+template <bool kInner>
+__device__ __forceinline__ void channel_predictor_boxes(const ChannelTile& f,
+                                                        const tile::Box& BU,
+                                                        const tile::Box& BV, int LC, int gj,
+                                                        int ai, tile::View u, tile::View v,
+                                                        float* us, float* vs) {
+  tile::each_cell(BU, LC, [&](int lj, int li, int k) {
+    const int j = gj + lj, i = ai + li;
+    if constexpr (kInner) {
+      us[k] = cfd::u_star_formula(u, v, j, i, f.pc);
+    } else {
+      us[k] = f.us_at(u, v, j, i);
+    }
+  });
+  tile::each_cell(BV, LC, [&](int lj, int li, int k) {
+    const int j = gj + lj, i = ai + li;
+    if constexpr (kInner) {
+      vs[k] = cfd::v_star_formula(u, v, j, i, f.pc);
+    } else {
+      vs[k] = f.vs_at(u, v, j, i);
+    }
+  });
+}
+
+// The channel's non-carry predictor + source on tile t (quad.py:847;
+// quad_stage.cu describes the design) from its staged u, v in `in`
+// (kChannelPredictorInputs buffers, as given: no ghost applies to them)
+// with u*, v* in `work` (tile::kWorkBuffers): u* once a face on the own
+// cells and one column west, v* on the own cells and one row south, with
+// the channel ghosts of the tentative fields (channel_predictor_boxes;
+// box A, the positions they read, decides the interior path), then us',
+// vs' and b = rho/dt * div on the flow's cells of the own cells.
+__device__ __forceinline__ void channel_predictor_source_tile(const ChannelTile& f,
+                                                              const tile::Tile& t, float* in,
+                                                              float* work, float* us2,
+                                                              float* vs2, float* b) {
+  const int Wqa = f.c.Wqa, plane = f.c.Hq8 * Wqa, LC = t.LC;
+  const Pred& pc = f.pc;
+  float* const s_us = work;
+  float* const s_vs = work + t.N;
+  const tile::Box A = tile::around(t, 2, 1, 3, 1), BU = tile::around(t, 0, 0, 1, 0),
+                  BV = tile::around(t, 1, 0, 0, 0);
+  const bool inner = f.inner(t, A);
+  const tile::View vu = tile::view(in, t), vv = tile::view(in + t.N, t);
+  if (inner) {
+    channel_predictor_boxes<true>(f, BU, BV, LC, t.gj, t.ai, vu, vv, s_us, s_vs);
+  } else {
+    channel_predictor_boxes<false>(f, BU, BV, LC, t.gj, t.ai, vu, vv, s_us, s_vs);
+  }
+  __syncthreads();
+  tile::each_own(t, Wqa, [&](int g, int, int lj0, int li0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int lj = lj0 + (q >> 1), li = li0 + (q & 1);
+      const int k = lj * LC + li, gq = q * plane + g;
+      const float a = s_us[k], bv = s_vs[k];
+      const float bb =
+          source_at(s_us, s_vs, k, LC, t.gj + lj, t.ai + li, f.c.ny, f.c.nx, pc, inner);
+      us2[gq] = a;
+      vs2[gq] = bv;
+      b[gq] = bb;
+    }
+  });
+}
 
 }  // namespace quad
 }  // namespace cfd

@@ -30,8 +30,8 @@
 //
 // Bound on the H100: device-memory bytes. The correctors read 4 quad fields
 // and write 3; the carries read 4 and write 4 plus one scalar, the
-// cavity's non-carry stage reads 2 and writes 3 plus one scalar (19 MB per
-// field at 2048^2, 3.8 MB at 1536x512). The arithmetic (about 60 flops a
+// non-carry stages read 2 and write 3 plus one scalar (19 MB per field at
+// 2048^2, 3.8 MB at 1536x512). The arithmetic (about 60 flops a
 // cell for the predictor) is far below the card's rate.
 //
 // Design. Each carry is ONE launch over shared-memory tiles
@@ -68,13 +68,29 @@
 // lid_predictor_source_tile; its predictor and source stages are the
 // cavity carry's (predictor_box, source_at).
 //
-// The correctors and the channel's non-carry stage (row 8c) keep the
-// first design: one thread per quad cell, neighbours through the guarded
-// quad accessor. Their per-cell bodies live in quad_carry.cuh, whose
-// arithmetic the tiles share. Row 8c is two launches: the predictor +
-// source + partial sums on (u, v) as given, a thread evaluating the
-// predictor at its own faces and again at the west/south faces its
-// divergence needs, and the fold of the partials.
+// The channel's non-carry stage (row 8c, make_quad_channel_predictor_source:
+// the predictor on (u, v) as given, the channel ghosts on the tentative
+// fields, the raw source and its sum) is ONE launch over the same tiles
+// plus the carries' sum launch, with no memset: a block loads u and v with
+// a halo of 2 plane rows and columns (the stages reach 3 logical columns
+// west and 2 rows south: kChannelPredictorRadius), computes u* once a face
+// on its own cells and one column west and v* on its own cells and one row
+// south, with the channel ghosts of the tentative fields (a ghost face
+// evaluates the face it copies: ChannelTile us_at, vs_at, as the channel
+// carry's tile does; tiles whose stages touch no wall, ghost or padding
+// take the formula with no test), and writes us', vs' and b of its own
+// cells; a tile whose own cells lie wholly in the padding writes zeros
+// without loading. Then the carries' sum, launched as the tile kernel's
+// programmatic dependent (tile::launch_dependent_source_sum: its blocks
+// are set up while the tiles' last blocks run), sums b in the twin's
+// fixed_order_sum order. 5 passes over the field (2 in, 3 out) and one
+// more over b, plus the halo's re-reads. The tile body is quad_carry.cuh's
+// channel_predictor_source_tile, on the channel carry's arithmetic
+// (ChannelTile) with a tile body of its own, not the carry's duct_tile.
+//
+// The correctors keep the first design: one thread per quad cell,
+// neighbours through the guarded quad accessor. Their per-cell bodies live
+// in quad_carry.cuh, whose arithmetic the tiles share.
 //
 // Cavity ghost order (cfd_tpu/kernels/quad.py:420-435, cavity-01.cpp:
 // 523-543): u top ghost row j = ny+1 for i <= nx, then u bottom row j = 0
@@ -107,12 +123,9 @@
 // stage make_quad_predictor_source (quad.py:438, traced dt) is the tile
 // kernel above with dt read from the card (cfd::pred_at).
 //
-// Row 8c's source sum: each block of its first launch sums its kThreads
-// values of b by a fixed pairwise tree into a per-block partial
-// (cfd::block_sum_to); the second, one block, folds the partials in the
-// order of the PyTorch twin's fold_sum. No float atomics: the sum is the
-// same on every run, and equal bit for bit to the plain twin's
-// fixed_order_sum, as the carry's source_sum is.
+// Row 8c's source sum is the carries' (tile::source_sum): no float
+// atomics, the same on every run, and equal bit for bit to the plain twin's
+// fixed_order_sum.
 #include "carry_tile.cuh"
 #include "common.cuh"
 #include "predictor.cuh"
@@ -212,17 +225,32 @@ __global__ void channel_corrector_kernel(const float* us, const float* vs, const
   if (idx < n) cfd::quad::channel_corrector_cell(us, vs, p, p_prev, u2, v2, guess, idx, c);
 }
 
-// the channel's non-carry stage (row 8c): the predictor on (u, v) as given,
-// the channel ghosts on the tentative fields, b = rho/dt * div on the
-// cells, and the block's partial sum of b (fixed tree)
-__global__ void channel_predictor_source_kernel(const float* u, const float* v, float* us2,
-                                                float* vs2, float* b, float* partials, Pred c,
-                                                float uin) {
-  long long n = 4LL * c.Hq8 * c.Wqa;
-  long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float part = 0.f;
-  if (idx < n) part = cfd::quad::channel_predictor_source_cell(u, v, us2, vs2, b, idx, c, uin);
-  cfd::block_sum_to(part, partials + blockIdx.x);
+// the buffers of the channel's non-carry tile: u, v, then u*, v*
+constexpr int kChannelPredictorBuffers =
+    cfd::quad::kChannelPredictorInputs + tile::kWorkBuffers;
+
+// The channel's non-carry stage (row 8c) in one launch (the design above):
+// a block's tile of the predictor on (u, v) as given, the channel ghosts on
+// the tentative fields and the source (cfd::quad::channel_predictor_source_tile),
+// or a padding tile's zeros without loading
+__global__ void __launch_bounds__(tile::kThreads)
+    channel_predictor_source_kernel(const float* u, const float* v, float* us2, float* vs2,
+                                    float* b, cfd::quad::ChannelTile f, tile::Plan pl) {
+  tile::launch_dependents();  // the sum's blocks may launch
+  const tile::Tile t = tile::block_tile(pl, f.c.Hq8, f.c.Wqa, 0);
+  if (tile::outside(t, f.c.ny, f.c.nx)) {  // no valid face, no cell: zeros
+    tile::each_own_index(t, f.c.Hq8, f.c.Wqa, [&](int gq) {
+      us2[gq] = 0.f;
+      vs2[gq] = 0.f;
+      b[gq] = 0.f;
+    });
+    return;
+  }
+  const float* src[cfd::quad::kChannelPredictorInputs] = {u, v};
+  tile::load<cfd::quad::kChannelPredictorInputs>(src, tile::smem(), t, f.c.Hq8, f.c.Wqa);
+  __syncthreads();
+  cfd::quad::channel_predictor_source_tile(
+      f, t, tile::smem(), tile::smem() + cfd::quad::kChannelPredictorInputs * t.N, us2, vs2, b);
 }
 
 // The channel carry's tile kernel (the design above). kAdaptive: the
@@ -242,7 +270,10 @@ __global__ void __launch_bounds__(tile::kThreads)
       cfd::quad::ChannelTile{c, pc}, us, vs, p, p_prev, us2, vs2, b, guess, courant, pl, halo);
 }
 
-// one block: the partials folded into *sum in the twin's fold_sum order
+// one block: the partials folded into *sum in the twin's fold_sum order (no
+// stage launches it since the channel's non-carry stages moved onto the
+// carries' sum launch; tests/test_torch_foundation.py names it among the
+// port's kernels)
 __global__ void fold_partials_kernel(float* partials, int n, float* sum) {
   float s = cfd::fold_sum(partials, n, static_cast<int>(threadIdx.x),
                           static_cast<int>(blockDim.x), [] { __syncthreads(); });
@@ -491,22 +522,39 @@ extern "C" int cfd_quad_channel_carry(const float* us, const float* vs, const fl
 
 // The non-carry channel stage (row 8c, quad.py:847): the predictor on (u,
 // v) as given, the channel ghosts on the tentative fields, the raw source
-// and its interior sum. partials: cfd::blocks_for(4 * Hq8 * Wqa) floats of
-// scratch
+// and its sum, in two launches: the tile kernel, then the sum of b.
+// partials: ceil(4 Hq8 Wqa / 256) floats of scratch; count: one unsigned
+// int, 0 before the call (the sum leaves it 0); plan: the 6 ints of the
+// tile plan (tile::Plan, kernels/plan.py carry_plan("channel_predictor")),
+// a host array
 extern "C" int cfd_quad_channel_predictor_source(const float* u, const float* v, float* us2,
                                                  float* vs2, float* b, float* partials,
-                                                 float* sum_b, int Hq8, int Wqa, int ny,
-                                                 int nx, float uin, float dt, float nu,
-                                                 float idx, float idy, float idx2,
-                                                 float idy2, float rho_dt, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = cfd::blocks_for(4LL * Hq8 * Wqa);
-  Pred pc{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt};
-  channel_predictor_source_kernel<<<blocks, cfd::kThreads, 0, s>>>(u, v, us2, vs2, b, partials,
-                                                                   pc, uin);
-  cudaError_t err = cudaGetLastError();
+                                                 unsigned int* count, float* sum_b, int Hq8,
+                                                 int Wqa, int ny, int nx, float uin, float dt,
+                                                 float nu, float idx, float idy, float idx2,
+                                                 float idy2, float rho_dt, const int* plan,
+                                                 void* stream) {
+  const tile::Plan pl{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
+  cudaError_t err = tile::check(pl, Hq8, Wqa, cfd::quad::kChannelPredictorRadius,
+                                kChannelPredictorBuffers);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cfd::fold_partials(partials, blocks, sum_b, s));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cfd::quad::ChannelTile f{Corr{Hq8, Wqa, ny, nx, 0.f, 0.f, uin},
+                                 Pred{Hq8, Wqa, ny, nx, dt, nu, idx, idy, idx2, idy2, rho_dt}};
+  channel_predictor_source_kernel<<<dim3(pl.grid_x, pl.grid_y), tile::kThreads, pl.smem_bytes,
+                                    s>>>(u, v, us2, vs2, b, f, pl);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      tile::launch_dependent_source_sum(b, Hq8, Wqa, partials, count, sum_b, s));
+}
+
+// Readies row 8c's tile kernel for `smem_bytes` of dynamic shared memory on
+// the current device (cfd_quad_carry_grid's outputs)
+extern "C" int cfd_quad_channel_predictor_source_grid(int smem_bytes, int* blocks,
+                                                      int* per_sm, int* regs) {
+  return tile::ready(reinterpret_cast<const void*>(channel_predictor_source_kernel),
+                     smem_bytes, blocks, per_sm, regs);
 }
 
 // traced_dt + emit_courant: dts = (dt_corr, dt_pred) on the card; cu_f, cv_f

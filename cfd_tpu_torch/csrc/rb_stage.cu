@@ -147,6 +147,17 @@ __global__ void __launch_bounds__(cfd::kThreads)
   tile::source_sum<kBlock>(b, Hq8, Wqa, halo, partials, count, sum);
 }
 
+// the same sum over a whole field, launched as the programmatic dependent
+// of the kernel that writes b (tile::launch_dependent_source_sum): it waits
+// for that grid's completion and its memory before any read. The second
+// launch of the channel's non-carry stages.
+__global__ void __launch_bounds__(cfd::kThreads)
+    dependent_source_sum_kernel(const float* b, int Hq8, int Wqa, float* partials,
+                                unsigned int* count, float* sum) {
+  tile::wait_prerequisites();
+  tile::source_sum<false>(b, Hq8, Wqa, 0, partials, count, sum);
+}
+
 const void* rb_carry_fn(bool adaptive, bool block) {
   if (adaptive) {
     return block ? reinterpret_cast<const void*>(rb_carry_kernel<true, true>)
@@ -184,15 +195,20 @@ cudaError_t rb_carry(const float* us, const float* vs, const float* p, const flo
   return tile::launch_source_sum(b, cc.Hq8, cc.Wqa, halo, partials, count, sum_b, s);
 }
 
+// the source sum's blocks over a (4, Hq8, Wqa) field: a warp a chunk, at
+// most 256 blocks, so few arrive at the count
+int source_sum_blocks(int Hq8, int Wqa) {
+  const int chunks = cfd::blocks_for(4LL * Hq8 * Wqa);
+  const int groups = (chunks + cfd::kThreads / 32 - 1) / (cfd::kThreads / 32);
+  return groups < 256 ? groups : 256;
+}
+
 }  // namespace
 
 cudaError_t cfd::tile::launch_source_sum(const float* b, int Hq8, int Wqa, int halo,
                                          float* partials, unsigned int* count, float* sum,
                                          cudaStream_t stream) {
-  const int chunks = cfd::blocks_for(4LL * Hq8 * Wqa);
-  // a warp a chunk; at most 256 blocks, so few arrive at the count
-  const int groups = (chunks + cfd::kThreads / 32 - 1) / (cfd::kThreads / 32);
-  const int blocks = groups < 256 ? groups : 256;
+  const int blocks = source_sum_blocks(Hq8, Wqa);
   if (halo > 0) {
     source_sum_kernel<true><<<blocks, cfd::kThreads, 0, stream>>>(b, Hq8, Wqa, halo, partials,
                                                                    count, sum);
@@ -201,6 +217,22 @@ cudaError_t cfd::tile::launch_source_sum(const float* b, int Hq8, int Wqa, int h
                                                                     count, sum);
   }
   return cudaGetLastError();
+}
+
+cudaError_t cfd::tile::launch_dependent_source_sum(const float* b, int Hq8, int Wqa,
+                                                   float* partials, unsigned int* count,
+                                                   float* sum, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(source_sum_blocks(Hq8, Wqa));
+  cfg.blockDim = dim3(cfd::kThreads);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, dependent_source_sum_kernel, b, Hq8, Wqa, partials, count,
+                            sum);
 }
 
 extern "C" int cfd_rb_corrector(const float* us, const float* vs, const float* p, float* u2,

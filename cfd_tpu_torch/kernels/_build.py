@@ -124,12 +124,14 @@ SIGNATURES = {
     # the natural layout: the four stage kernels (the predictor + source
     # with the running max's accumulator after max_b and its tile plan,
     # kernels/plan.py natural_predictor_plan, after the floats; its kernel
-    # readied as the cavity's) and the step's exact masked finest-level
-    # pairs
+    # readied as the cavity's; the channel's with the sum's count after the
+    # partials and its plan, natural_predictor_plan(channel=True), after the
+    # floats) and the step's exact masked finest-level pairs
     "cfd_predictor_source": [_P] * 7 + [_I] * 4 + [_F] * 8 + [_P, _P],
     "cfd_predictor_source_grid": [_I] + [_P] * 3,
     "cfd_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
-    "cfd_channel_predictor_source": [_P] * 7 + [_I] * 4 + [_F] * 8 + [_P],
+    "cfd_channel_predictor_source": [_P] * 8 + [_I] * 4 + [_F] * 8 + [_P, _P],
+    "cfd_channel_predictor_source_grid": [_I] + [_P] * 3,
     "cfd_channel_corrector": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
     # ... p, b, out, r, res, acc, the level, n_pairs, the tile plan
     # (kernels/plan.py step_pairs_plan); its kernel readied: shared memory;
@@ -140,9 +142,13 @@ SIGNATURES = {
     # cooperative launch; the pointer after n_pairs its plan,
     # kernels/plan.py FusedPrePlan) and its grid readied: shared memory;
     # blocks, blocks per SM, registers out; the non-carry channel stage
+    # (the sum's count after the partials, its tile plan, kernels/plan.py
+    # carry_plan("channel_predictor"), after the floats; its kernel readied
+    # as the cavity's non-carry stage)
     "cfd_quad_fused_pre": [_P] * 12 + [_F] * 10 + [_P] * 4 + [_I] * 4 + [_F] * 3 + [_I, _P, _P],
     "cfd_quad_fused_pre_grid": [_I] + [_P] * 3,
-    "cfd_quad_channel_predictor_source": [_P] * 7 + [_I] * 4 + [_F] * 8 + [_P],
+    "cfd_quad_channel_predictor_source": [_P] * 8 + [_I] * 4 + [_F] * 8 + [_P, _P],
+    "cfd_quad_channel_predictor_source_grid": [_I] + [_P] * 3,
 }
 
 

@@ -3,9 +3,10 @@
 step, kernels.whole_step, and the fused tail, kernels.mg_tail), the
 one-launch carries (csrc/carry_tile.cuh Plan, carry_plan below), the
 finest-level tile kernels, separable and the step's, the coarse smoother,
-the natural cavity's predictor + source and the natural step's masked
-pairs (the same Plan, level0_plan, pairs_plan, natural_predictor_plan and
-step_pairs_plan below), the whole step's, which joins the
+the natural cavity's and channel's predictor + source and the natural
+step's masked pairs (the same Plan, level0_plan, pairs_plan,
+natural_predictor_plan and step_pairs_plan below), the whole step's, which
+joins the
 solve's and the carry's (whole_step_plan below), and the fused-pre
 carry's, which joins the cavity carry's and the separable pre kernel's
 (fused_pre_plan below).
@@ -287,26 +288,35 @@ def ready_grid(plan: Plan, device, symbol: str, *which: int) -> dict:
 # cavity's non-carry predictor + source ("cavity_predictor",
 # csrc/quad_stage.cu lid_predictor_source_kernel: the exact adaptive
 # controller's first stage) runs on the same tiles, its tile chosen the same
-# way at the 2048^2 cavity (PERF.md, the cavity predictor's findings). A
+# way at the 2048^2 cavity (PERF.md, the cavity predictor's findings), and
+# so does the channel's ("channel_predictor", csrc/quad_stage.cu
+# channel_predictor_source_kernel: row 8c), its tile chosen at the 1536x512
+# channel (PERF.md, the channel predictors' findings: 20 x 40 puts the
+# field's 260 tiles that hold a cell in one wave of two blocks an SM). A
 # sweep times a fresh op under another plan (time_carries --tiles); nothing
 # overrides these but the card tests' ``tile``.
 CARRY_TILES = {"cavity": (8, 64), "channel": (16, 32), "step": (8, 32), "rb": (16, 32),
-               "cavity_predictor": (16, 48)}
+               "cavity_predictor": (16, 48), "channel_predictor": (20, 40)}
 # The logical rows each carry's chain reaches (the cavity: the reference's
 # CARRY_RADIUS, cfd_tpu/kernels/quad.py:1021; the channel, the step and RB:
 # csrc/quad_stage.cu kChannelRadius, csrc/step_stage.cu kStepRadius,
 # csrc/rb_stage.cu kRBRadius; the cavity predictor: the predictor 1 and the
-# source 1, csrc/quad_carry.cuh kPredictorRadius) and the shared-memory
+# source 1, csrc/quad_carry.cuh kPredictorRadius; the channel predictor: 3
+# logical columns west, the outlet copy of a face one column west of an own
+# cell, csrc/quad_carry.cuh kChannelPredictorRadius) and the shared-memory
 # buffers a tile stages (csrc/quad_stage.cu kCavityBuffers,
 # csrc/carry_tile.cuh kDuctBuffers for the channel and the step,
-# csrc/rb_stage.cu kRBBuffers, csrc/quad_stage.cu kPredictorBuffers).
-CARRY_RADIUS = {"cavity": 5, "channel": 5, "step": 5, "rb": 7, "cavity_predictor": 2}
+# csrc/rb_stage.cu kRBBuffers, csrc/quad_stage.cu kPredictorBuffers and
+# kChannelPredictorBuffers).
+CARRY_RADIUS = {"cavity": 5, "channel": 5, "step": 5, "rb": 7, "cavity_predictor": 2,
+                "channel_predictor": 3}
 # The fields a tile stages (csrc/quad_carry.cuh kCavityInputs,
 # csrc/carry_tile.cuh kDuctInputs, csrc/rb_carry.cuh kRBInputs,
-# csrc/quad_carry.cuh kPredictorInputs: u, v) and its buffers: those, then
-# the corrected u, v (carry_tile.cuh kWorkBuffers; the cavity predictor's
-# u*, v*).
-CARRY_INPUTS = {"cavity": 3, "channel": 3, "step": 3, "rb": 4, "cavity_predictor": 2}
+# csrc/quad_carry.cuh kPredictorInputs and kChannelPredictorInputs: u, v)
+# and its buffers: those, then the corrected u, v (carry_tile.cuh
+# kWorkBuffers; the predictors' u*, v*).
+CARRY_INPUTS = {"cavity": 3, "channel": 3, "step": 3, "rb": 4, "cavity_predictor": 2,
+                "channel_predictor": 2}
 WORK_BUFFERS = 2
 CARRY_BUFFERS = {flow: n + WORK_BUFFERS for flow, n in CARRY_INPUTS.items()}
 
@@ -342,8 +352,9 @@ def carry_buffer_floats(rows: int, cols: int, halo: int) -> int:
 def carry_plan(flow: str, qshape, tile: tuple[int, int] | None = None,
                buffers: int | None = None) -> CarryPlan:
     """The plan of ``flow``'s carry ("cavity", "channel", "step" or "rb";
-    "cavity_predictor", the cavity's non-carry predictor + source, on the
-    same tiles) on a (4, Hq8, Wqa) field or local block: CARRY_TILES' tile (the card
+    "cavity_predictor" and "channel_predictor", the non-carry predictor +
+    source kernels, on the same tiles) on a (4, Hq8, Wqa) field or local
+    block: CARRY_TILES' tile (the card
     tests pass another ``tile`` to hold the kernels to their twins under
     it), cut to the field where it is larger, a halo of ceil(CARRY_RADIUS /
     2) plane rows, shared memory for CARRY_BUFFERS[flow] buffers (or
@@ -377,8 +388,10 @@ def ready_tiles(plan: CarryPlan, device, symbol: str, *which: int) -> dict:
     with ``which`` adaptive, block; the finest-level
     cfd_quad_level0_grid and cfd_step_level0_grid with post, block; the
     coarse smoother's cfd_rb_pairs_grid with its storage; the natural
-    step's cfd_step_pairs_grid; the cavity predictors'
-    cfd_quad_predictor_source_grid and cfd_predictor_source_grid) on
+    step's cfd_step_pairs_grid; the non-carry predictors'
+    cfd_quad_predictor_source_grid, cfd_predictor_source_grid,
+    cfd_quad_channel_predictor_source_grid and
+    cfd_channel_predictor_source_grid) on
     ``device`` for the plan's
     shared memory, and raise unless the card holds a block of it. The
     modules call it once a device and instance, before their first launch
@@ -545,18 +558,32 @@ NATURAL_PREDICTOR_RADIUS = 2
 NATURAL_PREDICTOR_BUFFERS = 4
 
 
-def natural_predictor_plan(shape, tile: tuple[int, int] | None = None) -> CarryPlan:
-    """The plan of the natural cavity's predictor + source on an aligned
-    (H8, W) array: NATURAL_PREDICTOR_TILE (the card tests pass another
-    ``tile``), cut to the array where it is larger, a halo of
-    NATURAL_PREDICTOR_RADIUS cells, shared memory for
+# The natural channel's predictor + source (csrc/projection.cu
+# channel_predictor_source_kernel) on the same tiles: its tile, chosen the
+# same way at the 1536x512 channel's (520, 1664) (PERF.md, the channel
+# predictors' findings: 10 x 384 puts the 260 tiles that hold a cell in one
+# wave of two blocks an SM), and the cells its stages reach (3 columns
+# west: the outlet copy of a face one column west of an own cell;
+# csrc/projection.cu kChannelPredictorRadius); the same four buffers.
+NATURAL_CHANNEL_PREDICTOR_TILE = (10, 384)
+NATURAL_CHANNEL_PREDICTOR_RADIUS = 3
+
+
+def natural_predictor_plan(shape, tile: tuple[int, int] | None = None, *,
+                           channel: bool = False) -> CarryPlan:
+    """The plan of the natural cavity's predictor + source (``channel``:
+    the channel's) on an aligned (H8, W) array: NATURAL_PREDICTOR_TILE
+    (NATURAL_CHANNEL_PREDICTOR_TILE; the card tests pass another ``tile``),
+    cut to the array where it is larger, a halo of NATURAL_PREDICTOR_RADIUS
+    (NATURAL_CHANNEL_PREDICTOR_RADIUS) cells, shared memory for
     NATURAL_PREDICTOR_BUFFERS buffers of (rows + 2 halo) x (cols + 2 halo);
     one tile a block over the whole array, its padding included. Raises when
     a tile does not fit a block's shared memory."""
     H8, W = shape
-    rows, cols = NATURAL_PREDICTOR_TILE if tile is None else tile
+    default = NATURAL_CHANNEL_PREDICTOR_TILE if channel else NATURAL_PREDICTOR_TILE
+    rows, cols = default if tile is None else tile
     rows, cols = min(rows, H8), min(cols, W)
-    halo = NATURAL_PREDICTOR_RADIUS
+    halo = NATURAL_CHANNEL_PREDICTOR_RADIUS if channel else NATURAL_PREDICTOR_RADIUS
     smem = 4 * NATURAL_PREDICTOR_BUFFERS * (rows + 2 * halo) * (cols + 2 * halo)
     if smem > SMEM_MAX:
         raise ValueError(f"the natural predictor's {rows}x{cols} tile takes {smem} B of "

@@ -36,7 +36,7 @@ import torch
 
 from cfd_tpu_torch.kernels._build import Kernel, ptr, route
 from cfd_tpu_torch.kernels.plan import natural_predictor_plan
-from cfd_tpu_torch.kernels.quad import (SUM_BLOCK, _check, fixed_order_sum, max_acc,
+from cfd_tpu_torch.kernels.quad import (_check, fixed_order_sum, max_acc, sum_scratch,
                                         tile_plan_ptr)
 from cfd_tpu_torch.ops.stencil import StencilCoeffs, _sh, predictor
 
@@ -184,7 +184,12 @@ class Corrector(_Stage):
 
 class ChannelPredictorSource(_Stage):
     """(u, v) -> (us, vs, b_raw, sum b) for the channel (projection.py:386);
-    sum b a 0-d float32 tensor in fixed_order_sum's order."""
+    sum b a 0-d float32 tensor in fixed_order_sum's order. On the card it is
+    one launch over shared-memory tiles of the aligned array
+    (csrc/projection.cu channel_predictor_source_kernel, kernels/plan.py
+    natural_predictor_plan(channel=True)) and the carries' sum launch over
+    the flat array, whose count the op keeps (kernels.quad.sum_scratch): no
+    zeroing launch."""
 
     def plain(self, u, v):
         grow, gcol, u_valid, v_valid, cell = self._masks(u.device)
@@ -195,12 +200,13 @@ class ChannelPredictorSource(_Stage):
 
     def kernel(self, u, v):
         us, vs, b = (torch.empty_like(u) for _ in range(3))
-        partials = torch.empty(-(-u.numel() // SUM_BLOCK), dtype=torch.float32,
-                               device=u.device)
+        partials, count = sum_scratch(self, u)
         sum_b = torch.empty((), dtype=torch.float32, device=u.device)
+        plan = tile_plan_ptr(self, lambda: natural_predictor_plan(self.shape, channel=True),
+                             u.device, "cfd_channel_predictor_source_grid")
         CHANNEL_PREDICTOR_SOURCE(u, ptr(u), ptr(v), ptr(us), ptr(vs), ptr(b), ptr(partials),
-                                 ptr(sum_b), *self.shape, self.ny, self.nx, self.ghost,
-                                 *self._pred_args())
+                                 ptr(count), ptr(sum_b), *self.shape, self.ny, self.nx,
+                                 self.ghost, *self._pred_args(), plan)
         return us, vs, b, sum_b
 
 

@@ -692,7 +692,11 @@ class QuadChannelPredictorSource(_QuadStage):
     channel ghosts on the tentative fields, the raw source b = rho/dt * div
     on the cells and its interior sum in fixed_order_sum's order (the caller
     removes the mean). No factory of either package reaches it: the split
-    ordering QuadChannelCorrector -> this stage equals the channel carry."""
+    ordering QuadChannelCorrector -> this stage equals the channel carry. On
+    the card it is one launch over shared-memory tiles
+    (csrc/quad_stage.cu channel_predictor_source_kernel, kernels/plan.py
+    carry_plan("channel_predictor")) and the carries' sum launch, whose
+    count the op keeps (sum_scratch): no zeroing launch."""
 
     def __init__(self, shape, coeffs: StencilCoeffs, inlet_velocity: float = 1.0):
         super().__init__(shape)
@@ -715,14 +719,16 @@ class QuadChannelPredictorSource(_QuadStage):
 
     def kernel(self, u, v):
         us2, vs2, b = (torch.empty_like(u) for _ in range(3))
-        partials = torch.empty(-(-u.numel() // SUM_BLOCK), dtype=torch.float32,
-                               device=u.device)
+        partials, count = sum_scratch(self, u)
         sum_b = torch.empty((), dtype=torch.float32, device=u.device)
         _, Hq8, Wqa = self.qshape
         c = self.coeffs
+        plan = tile_plan_ptr(self, "channel_predictor", u.device,
+                             "cfd_quad_channel_predictor_source_grid")
         CHANNEL_PREDICTOR_SOURCE(u, ptr(u), ptr(v), ptr(us2), ptr(vs2), ptr(b), ptr(partials),
-                                 ptr(sum_b), Hq8, Wqa, self.ny, self.nx, self.uin, c.dt,
-                                 c.viscosity, c.idx, c.idy, c.idx2, c.idy2, self.rho_dt)
+                                 ptr(count), ptr(sum_b), Hq8, Wqa, self.ny, self.nx, self.uin,
+                                 c.dt, c.viscosity, c.idx, c.idy, c.idx2, c.idy2, self.rho_dt,
+                                 plan)
         return us2, vs2, b, sum_b
 
 

@@ -155,18 +155,19 @@ def summarize_trace(events: list[dict], names: set[str], n_steps: int,
 
 def device_ops_a_call(fn, attempts: int = 3) -> list[str]:
     """The device operations (kernels, memsets, copies: DEVICE_CATS) of one
-    call of ``fn`` after a warm-up call, as "category:name", from a
-    torch.profiler trace of that call alone. A trace with no device event
-    at all missed the call (a process's later traces have come back
-    empty on the H100 machine; the first one of a process has not), so it
-    is taken again, up to ``attempts`` traces; [] if all are empty."""
+    call of ``fn`` after a warm-up call, as "category:name", from
+    torch.profiler traces of that call alone: the fullest of ``attempts``
+    traces. A trace may miss some or all of the call's device events (a
+    process's later traces have come back empty on the H100 machine, and
+    traces of a two-kernel call with one of them), never add one; [] if
+    every trace is empty."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    ops = []
+    best = []
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
@@ -176,9 +177,9 @@ def device_ops_a_call(fn, attempts: int = 3) -> list[str]:
             prof.export_chrome_trace(str(path))
             events = json.loads(path.read_text())["traceEvents"]
         ops = [f"{e['cat']}:{e['name']}" for e in events if e.get("cat") in DEVICE_CATS]
-        if ops:
-            break
-    return ops
+        if len(ops) > len(best):
+            best = ops
+    return best
 
 
 def card_line() -> str:

@@ -6,13 +6,18 @@ cavity carry on shard 1's local block of the 4-shard plane-row mesh (the
 shard rows' block of time_level0); row 7, the
 cavity's fused-pre carry (the carry with the first V-cycle's pre-smooth
 and restriction, ``fuse_pre=True`` on the per-kernel solve) timed beside
-the composed carry -> pre pair it replaces; and the cavity's non-carry
+the composed carry -> pre pair it replaces; the cavity's non-carry
 predictor + source at 2048^2, row 6 (the quad layout's traced-dt
 instance, the exact adaptive controller's first stage, at dt = 1.1 dt)
-and row 11 (the natural layout's, ``layout="aligned"``), on seeded inputs.
+and row 11 (the natural layout's, ``layout="aligned"``); the channel's at
+1536x512, row 8c (the quad layout's, split_channel's second stage) and
+11-ch (row 11's channel instance, the natural layout's); and the
+correctors at the main shapes: rows 2, 8b, 9b and 10c (RB's), each fixed
+and traced-dt (``+``, dt = 0.8 dt), and row 11's 11-corr (the natural
+cavity's) and 11-ch-corr (the natural channel's), on seeded inputs.
 
-    python -m cfd_tpu_torch.time_carries TAG [--only 1,1+,6,7,10,10+,11,16a] [--reps 50]
-                                             [--tiles 16x32,8x64]
+    python -m cfd_tpu_torch.time_carries TAG [--only 1,1+,6,7,8c,10,10+,11,11-ch,16a,2,8b+]
+                                             [--reps 50] [--tiles 16x32,8x64]
 
 Prints one JSON line per carry, tagged with TAG: ``dev_ms``, the device
 time of one call (cfd_tpu_torch.time_whole_solve.dev_ms: CUDA events
@@ -33,13 +38,21 @@ too; ``--tiles`` times them under each tile given (row 6: plane rows x
 columns, kernels/plan.py carry_plan("cavity_predictor", tile=); row 11:
 rows x columns of the aligned array, natural_predictor_plan(tile=)), each
 on a fresh op: the sweeps that chose CARRY_TILES["cavity_predictor"] and
-NATURAL_PREDICTOR_TILE. The inputs are seeded (cfd_tpu_torch.seeded). Run from
+NATURAL_PREDICTOR_TILE. Rows 8c and 11-ch print ``launches_a_call``
+(the tile launch and the sum's), ``sum`` and ``sum_b`` (the op's own sum
+of b); ``--tiles`` times them the same way (row 8c:
+carry_plan("channel_predictor", tile=); 11-ch:
+natural_predictor_plan(tile=, channel=True)): the sweeps that chose
+CARRY_TILES["channel_predictor"] and NATURAL_CHANNEL_PREDICTOR_TILE. The
+correctors' lines print ``launches_a_call`` and ``sum`` (a checksum of the
+corrected u). The inputs are seeded (cfd_tpu_torch.seeded). Run from
 the root
 of a checkout, it times that checkout's kernels, so two checkouts timed in
 turns on one card (parent, change, change, parent) give an A/B. Every
 field fits the 50 MB L2 but the cavity's (8 fields of 19 MB; 5 of 19 MB
-for row 6, of 17.9 MB for row 11), so the times of rows 8a, 9a and 10
-are warm-cache. Needs a CUDA card; it raises without one.
+for row 6, of 17.9 MB for row 11; 7 for rows 2 and 11-corr), so the times
+of rows 8a, 8b, 8c, 9a, 9b, 10, 10c and 11-ch are warm-cache. Needs a
+CUDA card; it raises without one.
 """
 
 from __future__ import annotations
@@ -56,6 +69,15 @@ ROWS = {"1": ("cavity", False), "1+": ("cavity", True), "8a": ("channel", False)
         "8a+": ("channel", True), "9a": ("step", False), "9a+": ("step", True),
         "10": ("rb", False), "10+": ("rb", True), "7": ("cavity", False),
         "6": ("cavity", True), "11": ("cavity", False), "16a": ("cavity", False)}
+# the non-carry predictor + source rows: (flow, natural layout)
+PREDICTORS = {"6": ("cavity", False), "11": ("cavity", True), "8c": ("channel", False),
+              "11-ch": ("channel", True)}
+# the correctors: (flow, natural layout, traced dt)
+CORRECTORS = {"2": ("cavity", False, False), "2+": ("cavity", False, True),
+              "8b": ("channel", False, False), "8b+": ("channel", False, True),
+              "9b": ("step", False, False), "9b+": ("step", False, True),
+              "10c": ("rb", False, False), "10c+": ("rb", False, True),
+              "11-corr": ("cavity", True, False), "11-ch-corr": ("channel", True, False)}
 
 
 def carry_of(flow: str, adaptive: bool, case):
@@ -149,26 +171,38 @@ def fused_pre_rows(tag: str, reps: int, tiles) -> None:
             tile=tile, plan=dataclasses.asdict(ready[0]) if ready else None)), flush=True)
 
 
-def predictor_rows(tag: str, row: str, reps: int, tiles) -> None:
-    """Row 6's or row 11's lines: the cavity's non-carry predictor + source
-    at 2048^2 on the quad layout with a traced dt (1.1 dt, phase 14's
-    instance) or on the natural layout (the aligned case's own op), under
-    the plan's tile or each of ``tiles``."""
+def predictor_case(flow: str, natural: bool):
+    """The main shape's case of ``flow`` (the cavity or the channel), on the
+    natural layout or the quad one."""
     from cfd_tpu_torch import cases
+
+    name, kw = FLOWS[flow]
+    return getattr(cases, name)(device="cuda", dtype=torch.float32,
+                                **({"layout": "aligned"} if natural else {}), **kw)
+
+
+def predictor_rows(tag: str, row: str, reps: int, tiles) -> None:
+    """Row 6's, 11's, 8c's or 11-ch's lines: the non-carry predictor +
+    source on the quad layout (the cavity's with a traced dt, 1.1 dt, phase
+    14's instance; the channel's, phase 28's) or on the natural layout (the
+    aligned case's own op), under the plan's tile or each of ``tiles``."""
     from cfd_tpu_torch.kernels import projection as P
     from cfd_tpu_torch.kernels import quad as Q
     from cfd_tpu_torch.profile_step import device_ops_a_call
     from cfd_tpu_torch.seeded import seeded_fields
 
-    _, kw = FLOWS["cavity"]
-    natural = row == "11"
-    case = cases.make_cavity_case(device="cuda", dtype=torch.float32,
-                                  **({"layout": "aligned"} if natural else {}), **kw)
+    flow, natural = PREDICTORS[row]
+    case = predictor_case(flow, natural)
     g, c = case.grid, case.coeffs
     u, v = seeded_fields(case, 23)[:2]
-    if natural:
+    args = (u, v)
+    if flow == "channel" and natural:
+        make = lambda: P.make_channel_predictor_source(g.shape, c, case.step_kernels[0].ghost)
+    elif flow == "channel":
+        make = lambda: Q.make_quad_channel_predictor_source(g.shape, c,
+                                                            case.step_kernels[0].uin)
+    elif natural:
         make = lambda: P.make_predictor_source(g.shape, c, case.step_kernels[0].ghost)
-        args = (u, v)
     else:
         make = lambda: Q.make_quad_predictor_source(g.shape, c)
         args = (torch.tensor(1.1 * c.dt, dtype=torch.float32, device="cuda"), u, v)
@@ -178,8 +212,9 @@ def predictor_rows(tag: str, row: str, reps: int, tiles) -> None:
             from cfd_tpu_torch.kernels import plan as PL
 
             try:
-                op._tile_plan = (PL.natural_predictor_plan(op.shape, tile) if natural else
-                                 PL.carry_plan("cavity_predictor", op.qshape, tile))
+                op._tile_plan = (
+                    PL.natural_predictor_plan(op.shape, tile, channel=flow == "channel")
+                    if natural else PL.carry_plan(f"{flow}_predictor", op.qshape, tile))
             except ValueError as e:  # past shared memory: no such instance
                 print(json.dumps(dict(tag=tag, row=row, tile=tile, error=str(e))), flush=True)
                 continue
@@ -187,19 +222,67 @@ def predictor_rows(tag: str, row: str, reps: int, tiles) -> None:
         out = call()
         d, ahead = dev_ms(call, reps)
         launched = device_ops_a_call(call)
+        scalar = {"max_b" if flow == "cavity" else "sum_b": float(out[3])}
         print(json.dumps(dict(
-            tag=tag, row=row, flow="cavity", layout="natural" if natural else "quad",
+            tag=tag, row=row, flow=flow, layout="natural" if natural else "quad",
             shape=list(out[2].shape), dev_ms=d, host_ahead=ahead, ms=median_ms(call),
             launches_a_call=len(launched), ops=launched, sum=float(out[2].double().sum()),
-            max_b=float(out[3]), tile=tile,
+            **scalar, tile=tile,
             plan=dict(vars(op._tile_plan)) if getattr(op, "_tile_plan", None) else None)),
+            flush=True)
+
+
+def corrector_rows(tag: str, rows, reps: int) -> None:
+    """The correctors' lines (CORRECTORS): each flow's corrector at its main
+    shape on the case's seeded fields, fixed or with a traced dt (dt_corr =
+    0.8 dt), and the natural layout's two."""
+    from cfd_tpu_torch.kernels import projection as P
+    from cfd_tpu_torch.kernels import quad as Q
+    from cfd_tpu_torch.kernels import rb_quad as RQ
+    from cfd_tpu_torch.kernels import step_quad as SQ
+    from cfd_tpu_torch.poisson.multigrid import step_rect_params
+    from cfd_tpu_torch.profile_step import device_ops_a_call
+    from cfd_tpu_torch.seeded import seeded_fields
+
+    cases = {}
+    for row in rows:
+        flow, natural, traced = CORRECTORS[row]
+        if (flow, natural) not in cases:
+            case = predictor_case(flow, natural) if natural else make(flow, {})
+            cases[flow, natural] = case, seeded_fields(case, 23)
+        case, fields = cases[flow, natural]
+        g, c = case.grid, case.coeffs
+        ghost = getattr(case.step_kernels[0], "ghost", None)
+        if flow == "cavity":
+            op = (P.make_corrector(g.shape, c, ghost) if natural else
+                  Q.make_quad_corrector(g.shape, c, case.step_kernels[0].lid, traced_dt=traced))
+        elif flow == "channel":
+            op = (P.make_channel_corrector(g.shape, c, ghost) if natural else
+                  Q.make_quad_channel_corrector(g.shape, c, case.step_kernels[0].uin,
+                                                traced_dt=traced))
+        elif flow == "step":
+            op = SQ.make_quad_step_corrector(g.shape, c, *step_rect_params(g),
+                                             case.step_kernels[0].uin, traced_dt=traced)
+        else:
+            op = RQ.make_quad_rb_corrector(g.shape, c, traced_dt=traced)
+        args = fields[:3] if flow in ("step", "rb") else fields[:4]
+        if traced:
+            args = (torch.tensor(0.8 * c.dt, dtype=torch.float32, device="cuda"), *args)
+        call = lambda: op.kernel(*args)
+        out = call()
+        d, ahead = dev_ms(call, reps)
+        launched = device_ops_a_call(call)
+        print(json.dumps(dict(
+            tag=tag, row=row, flow=flow, layout="natural" if natural else "quad",
+            shape=list(out[0].shape), dev_ms=d, host_ahead=ahead, ms=median_ms(call),
+            launches_a_call=len(launched), ops=launched, sum=float(out[0].double().sum()))),
             flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tag")
-    ap.add_argument("--only", default=",".join(ROWS))
+    ap.add_argument("--only", default=",".join([*ROWS, "8c", "11-ch", *CORRECTORS]))
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--tiles", default=None)
     args = ap.parse_args(argv)
@@ -209,11 +292,16 @@ def main(argv=None) -> int:
     tiles = [None] if args.tiles is None else [
         tuple(int(x) for x in t.split("x")) for t in args.tiles.split(",")]
     cases = {}
+    correctors = [row for row in rows if row in CORRECTORS]
+    if correctors:
+        corrector_rows(args.tag, correctors, args.reps)
     for row in rows:
+        if row in CORRECTORS:
+            continue
         if row == "7":
             fused_pre_rows(args.tag, args.reps, tiles)
             continue
-        if row in ("6", "11"):
+        if row in PREDICTORS:
             predictor_rows(args.tag, row, args.reps, tiles)
             continue
         flow, adaptive = ROWS[row]
