@@ -135,21 +135,6 @@ __device__ __forceinline__ float fv_at(LU u, LV v, int j, int i, const Pred& c,
   return v_valid(j, i, s) ? cfd::v_star_at(u, v, j, i, c) : 0.f;
 }
 
-// The step corrector at quad cell idx of a whole field: the rho-divided
-// correction on valid faces and the step BCs into u2, v2. Returns (|u|,
-// |v|).
-__device__ __forceinline__ float2 corrector_cell(const float* us, const float* vs,
-                                                 const float* p, float* u2, float* v2,
-                                                 long long idx, Step s) {
-  s.row0 = 0;
-  const cfd::QuadCell cell = cfd::quad_cell(idx, s.Hq8, s.Wqa, s.row0);
-  const float2 uv =
-      step_uv_at(quad_read(us, s), quad_read(vs, s), quad_read(p, s), cell.j, cell.i, s);
-  u2[idx] = uv.x;
-  v2[idx] = uv.y;
-  return make_float2(fabsf(uv.x), fabsf(uv.y));
-}
-
 // The logical rows the carry's stages reach, one row each: the corrector
 // (p at j+1), the step BCs on the corrected fields (the ghost rows read
 // rows 1 and ny), the predictor (j-1 ... j+1), the step BCs on the

@@ -44,9 +44,27 @@
 // loading. The sum launch (carry_tile.cuh source_sum) sums b in the twin's
 // fixed_order_sum order; b is 0 off the fluid cells, so that is the
 // fluid-only sum. 6 passes over the fields (3 in, 3 out) and one more over
-// b, where the earlier three-launch chain made 10. The corrector (row 9b)
-// keeps the first design, one thread per quad cell; the per-cell bodies
-// and the tiles share the arithmetic of step_carry.cuh.
+// b, where the earlier three-launch chain made 10.
+//
+// The corrector (rows 9b, 9b+) is one launch of one thread a plane cell
+// (J, I), all four quads of it: the logical cells j = 2J + qy, i = 2I + qx.
+// Most of a cell's reach lies in its own 2 x 2 block (the ghost rows read
+// rows 1 and ny, v's outlet column reads nx); of what leaves it, p's two
+// quads east and two north are loaded once a thread, where the first
+// design's threads, one a quad cell in four blocks, loaded each p up to
+// three times through guarded 64-bit indices. Neighbouring threads take
+// neighbouring I, so every load and store is coalesced. A plane cell whose
+// four cells are interior faces of u and v (corrector_interior, once a
+// thread) runs u_corr_formula and v_corr_formula on registers with no mask
+// or BC test; any other takes step_uv_at on each cell (the ghost rows, u's
+// outlet copy, the solid block and its interface faces), and one wholly in
+// the padding writes zeros without loading. The formulas are step_uv_at's
+// expressions on the same values, so under --fmad=false the bits are the
+// twin's. Runs of 2 and 4 plane columns a thread (float2, float4 loads)
+// timed 34-48% and 104-141% slower at 2048x256: half and a quarter of the
+// warps to hide the latency with (PERF.md, the step corrector's findings).
+// The block is kernels/plan.py step_corrector_plan's; the field fits the
+// 50 MB L2, so instructions and latency, not bytes, bound it.
 //
 // Step BC order (cfd_tpu/kernels/step_quad.py:60-97, bc.step_bc): u inlet
 // column (uin on rows 1..inlet_j, 0 above), v inlet column 0, u outlet
@@ -76,18 +94,83 @@ namespace tile = cfd::tile;
 using cfd::step::kStepRadius;
 static_assert(kStepRadius <= 8, "the step carry reaches past the 8-row halo");
 
-// the corrector (kTraced: cu, cv formed from *dt; s0 holds rho*dx, rho*dy)
+// Whether the four cells of plane cell (J, I) (logical rows 2J, 2J + 1,
+// columns 2I, 2I + 1) are all faces that step_uv_at corrects and leaves as
+// they are: u's 1 <= j <= ny, 1 <= i <= nx - 1 and v's 1 <= j <= ny - 1,
+// 1 <= i <= nx, none in the solid block or on its interface faces (i <=
+// step_i and j >= inlet_j). There step_uv_at is u_corr_formula,
+// v_corr_formula, whose reads (j + 1, i + 1) lie in the array.
+__device__ __forceinline__ bool corrector_interior(int J, int I, const Step& s) {
+  const int j0 = 2 * J, j1 = j0 + 1, i0 = 2 * I, i1 = i0 + 1;
+  return j0 >= 1 && j1 <= s.ny - 1 && i0 >= 1 && i1 <= s.nx - 1 &&
+         (i0 > s.step_i || j1 < s.inlet_j);
+}
+
+// The corrector (the design above; kTraced: cu, cv formed from *dt, s
+// holding rho*dx, rho*dy): thread (x, y) of the grid takes plane cell (J,
+// I) = (y, x).
 template <bool kTraced>
-__global__ void step_corrector_kernel(const float* us, const float* vs, const float* p,
-                                      float* u2, float* v2, Step s0, const float* dt) {
-  Step s = s0;
+__global__ void step_corrector_kernel(const float* __restrict__ us,
+                                      const float* __restrict__ vs,
+                                      const float* __restrict__ p, float* __restrict__ u2,
+                                      float* __restrict__ v2, Step s, const float* dt) {
   if constexpr (kTraced) {
-    s.cu = cfd::traced_coeff<true>(*dt, s0.cu);
-    s.cv = cfd::traced_coeff<true>(*dt, s0.cv);
+    s.cu = cfd::traced_coeff<true>(*dt, s.cu);
+    s.cv = cfd::traced_coeff<true>(*dt, s.cv);
   }
-  const long long n = 4LL * s.Hq8 * s.Wqa;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx < n) cfd::step::corrector_cell(us, vs, p, u2, v2, idx, s);
+  const int J = blockIdx.y * blockDim.y + threadIdx.y;
+  const int I = blockIdx.x * blockDim.x + threadIdx.x;
+  if (J >= s.Hq8 || I >= s.Wqa) return;
+  const long long plane = static_cast<long long>(s.Hq8) * s.Wqa;
+  const long long at = static_cast<long long>(J) * s.Wqa + I;
+  if (corrector_interior(J, I, s)) {
+    // U, V: logical (2J + a, 2I + b); P the same, P[a][2] the east column
+    // (quads 0, 2 at I + 1) and P[2] the north row (quads 0, 1 at J + 1)
+    float U[2][2], V[2][2], P[3][3];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      U[q >> 1][q & 1] = __ldg(us + q * plane + at);
+      V[q >> 1][q & 1] = __ldg(vs + q * plane + at);
+      P[q >> 1][q & 1] = __ldg(p + q * plane + at);
+    }
+    P[0][2] = __ldg(p + at + 1);
+    P[1][2] = __ldg(p + 2 * plane + at + 1);
+    P[2][0] = __ldg(p + at + s.Wqa);
+    P[2][1] = __ldg(p + plane + at + s.Wqa);
+    auto ur = [&](int a, int b) { return U[a][b]; };
+    auto vr = [&](int a, int b) { return V[a][b]; };
+    auto pr = [&](int a, int b) { return P[a][b]; };
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      u2[q * plane + at] = cfd::step::u_corr_formula(ur, pr, q >> 1, q & 1, s);
+      v2[q * plane + at] = cfd::step::v_corr_formula(vr, pr, q >> 1, q & 1, s);
+    }
+    return;
+  }
+  const bool padding = 2 * J > s.ny + 1 || 2 * I > s.nx + 1;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float2 uv = make_float2(0.f, 0.f);
+    if (!padding) {
+      uv = cfd::step::step_uv_at(cfd::quad_read(us, s), cfd::quad_read(vs, s),
+                                 cfd::quad_read(p, s), 2 * J + (q >> 1), 2 * I + (q & 1), s);
+    }
+    u2[q * plane + at] = uv.x;
+    v2[q * plane + at] = uv.y;
+  }
+}
+
+// The corrector's launch: blocks of rows x cols plane cells
+// (kernels/plan.py step_corrector_plan), as many as cover the field;
+// refused unless a block holds 1 to 1024 threads
+template <bool kTraced>
+cudaError_t step_corrector(const float* us, const float* vs, const float* p, float* u2,
+                           float* v2, const float* dt, const Step& s, int rows, int cols,
+                           cudaStream_t st) {
+  if (rows < 1 || cols < 1 || rows * cols > 1024) return cudaErrorInvalidValue;
+  const dim3 grid((s.Wqa + cols - 1) / cols, (s.Hq8 + rows - 1) / rows);
+  step_corrector_kernel<kTraced><<<grid, dim3(cols, rows), 0, st>>>(us, vs, p, u2, v2, s, dt);
+  return cudaGetLastError();
 }
 
 // The carry's tile kernel (the design above). kAdaptive: the coefficients
@@ -147,27 +230,26 @@ cudaError_t step_carry(const float* us, const float* vs, const float* p, float* 
 
 }  // namespace
 
+// rows, cols: the block in plane cells (kernels/plan.py step_corrector_plan)
 extern "C" int cfd_step_corrector(const float* us, const float* vs, const float* p,
                                   float* u2, float* v2, int Hq8, int Wqa, int ny, int nx,
                                   int step_i, int inlet_j, float cu, float cv, float uin,
-                                  void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Step s{Hq8, Wqa, ny, nx, step_i, inlet_j, cu, cv, uin};
-  step_corrector_kernel<false><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, st>>>(
-      us, vs, p, u2, v2, s, nullptr);
-  return static_cast<int>(cudaGetLastError());
+                                  int rows, int cols, void* stream) {
+  const Step s{Hq8, Wqa, ny, nx, step_i, inlet_j, cu, cv, uin};
+  return static_cast<int>(step_corrector<false>(us, vs, p, u2, v2, nullptr, s, rows, cols,
+                                                static_cast<cudaStream_t>(stream)));
 }
 
-// traced dt: *dt on the card; cu_f, cv_f the float32 rho*dx, rho*dy
+// traced dt: *dt on the card; cu_f, cv_f the float32 rho*dx, rho*dy; rows,
+// cols as cfd_step_corrector's
 extern "C" int cfd_step_corrector_traced(const float* us, const float* vs, const float* p,
                                          float* u2, float* v2, const float* dt, int Hq8,
                                          int Wqa, int ny, int nx, int step_i, int inlet_j,
-                                         float cu_f, float cv_f, float uin, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Step s{Hq8, Wqa, ny, nx, step_i, inlet_j, cu_f, cv_f, uin};
-  step_corrector_kernel<true><<<cfd::blocks_for(4LL * Hq8 * Wqa), cfd::kThreads, 0, st>>>(
-      us, vs, p, u2, v2, s, dt);
-  return static_cast<int>(cudaGetLastError());
+                                         float cu_f, float cv_f, float uin, int rows,
+                                         int cols, void* stream) {
+  const Step s{Hq8, Wqa, ny, nx, step_i, inlet_j, cu_f, cv_f, uin};
+  return static_cast<int>(step_corrector<true>(us, vs, p, u2, v2, dt, s, rows, cols,
+                                               static_cast<cudaStream_t>(stream)));
 }
 
 // Readies the carry's tile kernel (adaptive, block: its instance) for

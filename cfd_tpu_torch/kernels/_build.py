@@ -92,7 +92,9 @@ SIGNATURES = {
     "cfd_mg_tail": [_P] * 3 + [_I] + [_P] * 3 + [_F] + [_I] * 2 + [_P, _P],
     "cfd_mg_tail_grid": [_I] + [_P] * 3,
     "cfd_whole_step_grid": [_I] * 2 + [_P] * 3,
-    "cfd_step_corrector": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P],
+    # the step's corrector: the two ints after the floats its block (kernels/
+    # plan.py step_corrector_plan), as its traced-dt instance's
+    "cfd_step_corrector": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_I, _I, _P],
     # the step's carry, pre and post: the last two ints as the cavity's, the
     # pointer after them the tile plan (the pre's and post's: kernels/plan.py
     # level0_plan)
@@ -117,7 +119,7 @@ SIGNATURES = {
     "cfd_quad_carry_adaptive": [_P] * 10 + [_I] * 4 + [_F] * 9 + [_I, _I, _P, _P],
     "cfd_quad_channel_corrector_traced": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
     "cfd_quad_channel_carry_adaptive": [_P] * 13 + [_I] * 4 + [_F] * 9 + [_I, _I, _P, _P],
-    "cfd_step_corrector_traced": [_P] * 6 + [_I] * 6 + [_F] * 3 + [_P],
+    "cfd_step_corrector_traced": [_P] * 6 + [_I] * 6 + [_F] * 3 + [_I, _I, _P],
     "cfd_step_carry_adaptive": [_P] * 11 + [_I] * 6 + [_F] * 9 + [_I, _I, _P, _P],
     "cfd_rb_corrector_traced": [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P],
     "cfd_rb_carry_adaptive": [_P] * 13 + [_I] * 4 + [_F] * 11 + [_I, _I, _P, _P],

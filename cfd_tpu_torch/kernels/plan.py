@@ -1,15 +1,14 @@
 """The launch plans of the tiled kernels: the cooperative solve kernels
 (csrc/whole_solve.cuh Plan: the whole-solve, kernels.whole_solve, the whole
 step, kernels.whole_step, and the fused tail, kernels.mg_tail), the
-one-launch carries (csrc/carry_tile.cuh Plan, carry_plan below), the
-finest-level tile kernels, separable and the step's, the coarse smoother,
-the natural cavity's and channel's predictor + source and the natural
-step's masked pairs (the same Plan, level0_plan, pairs_plan,
-natural_predictor_plan and step_pairs_plan below), the whole step's, which
-joins the
-solve's and the carry's (whole_step_plan below), and the fused-pre
-carry's, which joins the cavity carry's and the separable pre kernel's
-(fused_pre_plan below).
+one-launch carries (csrc/carry_tile.cuh Plan, carry_plan below), the step
+corrector's blocks (step_corrector_plan below), the finest-level tile
+kernels, separable and the step's, the coarse smoother, the natural
+cavity's and channel's predictor + source and the natural step's masked
+pairs (the same Plan, level0_plan, pairs_plan, natural_predictor_plan and
+step_pairs_plan below), the whole step's, which joins the solve's and the
+carry's (whole_step_plan below), and the fused-pre carry's, which joins the
+cavity carry's and the separable pre kernel's (fused_pre_plan below).
 
 Each runs one cooperative grid of one block of BLOCK_THREADS threads on
 every SM. The coarse levels from ``block_from`` down run in ONE
@@ -402,6 +401,42 @@ def ready_tiles(plan: CarryPlan, device, symbol: str, *which: int) -> dict:
         raise RuntimeError(f"{symbol}: the card holds no block at {plan.smem_bytes} B of "
                            f"shared memory")
     return grid
+
+
+# The block of the step's corrector (csrc/step_stage.cu
+# step_corrector_kernel, rows 9b and 9b+: one thread a plane cell, all four
+# quads of it), (plane rows, plane columns). Chosen on an H100 by timing
+# candidates at the 2048x256 step's (4, 136, 1152) (PERF.md, the step
+# corrector's findings: 1 x 128, nine blocks a plane row, timed fastest or
+# within 0.5% of it in both rows). A sweep times a fresh op under another
+# block (time_carries --only 9b,9b+ --tiles); nothing overrides it but the
+# card tests' ``block``.
+STEP_CORRECTOR_BLOCK = (1, 128)
+
+
+@dataclasses.dataclass(frozen=True)
+class CorrectorPlan:
+    """The launch of the step corrector: blocks of ``rows`` x ``cols``
+    plane cells, one thread each, and the grid of ``grid_rows`` x
+    ``grid_cols`` blocks over the field that the C entry points form from
+    the block."""
+
+    rows: int
+    cols: int
+    grid_rows: int
+    grid_cols: int
+
+
+def step_corrector_plan(qshape, block: tuple[int, int] | None = None) -> CorrectorPlan:
+    """The step corrector's launch on a (4, Hq8, Wqa) field:
+    STEP_CORRECTOR_BLOCK (the card tests and the sweep pass another
+    ``block``), its grid the blocks that cover Hq8 plane rows by Wqa plane
+    columns. Raises on a block of no thread or of more than 1024."""
+    _, Hq8, Wqa = qshape
+    rows, cols = STEP_CORRECTOR_BLOCK if block is None else block
+    if not (rows >= 1 and cols >= 1 and rows * cols <= 1024):
+        raise ValueError(f"the step corrector's block {rows} x {cols} is not 1 to 1024 threads")
+    return CorrectorPlan(rows, cols, -(-Hq8 // rows), -(-Wqa // cols))
 
 
 # ------------------------------------------ the finest-level V-cycle kernels

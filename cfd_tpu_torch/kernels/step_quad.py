@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from cfd_tpu_torch.kernels._build import Kernel, ptr, route
+from cfd_tpu_torch.kernels.plan import step_corrector_plan
 from cfd_tpu_torch.kernels.quad import (
     DEV_HALO,
     _band_maker,
@@ -212,7 +213,10 @@ class _StepStage:
 class QuadStepCorrector(_StepStage):
     """(us4, vs4, p4) -> (u4, v4): the rho-divided projection on valid faces
     and the step BCs (cfd_tpu/kernels/step_quad.py:204). Used at the
-    stats/export boundary (cases/backwards_step.py unalign_state)."""
+    stats/export boundary (cases/backwards_step.py unalign_state). On the
+    card: one launch of one thread a plane cell over all four quads
+    (csrc/step_stage.cu step_corrector_kernel, kernels/plan.py
+    step_corrector_plan)."""
 
     def plain(self, us, vs, p):
         grow, gcol, (_, u_valid, v_valid) = self._geometry(us.device)
@@ -222,8 +226,17 @@ class QuadStepCorrector(_StepStage):
     def kernel(self, us, vs, p):
         u2, v2 = torch.empty_like(us), torch.empty_like(us)
         STEP_CORRECTOR(us, ptr(us), ptr(vs), ptr(p), ptr(u2), ptr(v2), *self._ints(),
-                       self.cu, self.cv, self.uin)
+                       self.cu, self.cv, self.uin, *self._launch_block())
         return u2, v2
+
+    def _launch_block(self):
+        """(rows, cols) of ``self._tile_plan``'s block, the C entry points'
+        arguments (unless set before the first launch, kernels/plan.py
+        step_corrector_plan on the field; the card tests' and the sweep's
+        hook)."""
+        if getattr(self, "_tile_plan", None) is None:
+            self._tile_plan = step_corrector_plan(self.qshape)
+        return self._tile_plan.rows, self._tile_plan.cols
 
 
 class QuadStepCorrPredictorSource(_StepStage):
@@ -360,7 +373,8 @@ class QuadStepCorrectorTraced(_Traced, QuadStepCorrector):
     def kernel(self, dt, us, vs, p):
         u2, v2 = torch.empty_like(us), torch.empty_like(us)
         STEP_CORRECTOR_TRACED(us, ptr(us), ptr(vs), ptr(p), ptr(u2), ptr(v2), ptr(dt),
-                              *self._ints(), self.cu_f, self.cv_f, self.uin)
+                              *self._ints(), self.cu_f, self.cv_f, self.uin,
+                              *self._launch_block())
         return u2, v2
 
 

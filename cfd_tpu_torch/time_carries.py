@@ -44,10 +44,13 @@ of b); ``--tiles`` times them the same way (row 8c:
 carry_plan("channel_predictor", tile=); 11-ch:
 natural_predictor_plan(tile=, channel=True)): the sweeps that chose
 CARRY_TILES["channel_predictor"] and NATURAL_CHANNEL_PREDICTOR_TILE. The
-correctors' lines print ``launches_a_call`` and ``sum`` (a checksum of the
-corrected u). The inputs are seeded (cfd_tpu_torch.seeded). Run from
-the root
-of a checkout, it times that checkout's kernels, so two checkouts timed in
+correctors' lines print ``launches_a_call``, ``sum`` and ``sum_v``
+(checksums of the corrected u and v); ``--tiles`` times rows 9b and 9b+
+under each block given (plane rows x columns, kernels/plan.py
+step_corrector_plan(block=)), each on a fresh op: the sweep that chose
+STEP_CORRECTOR_BLOCK. The inputs are seeded
+(cfd_tpu_torch.seeded). Run from the root of a checkout, it times that
+checkout's kernels, so two checkouts timed in
 turns on one card (parent, change, change, parent) give an A/B. Every
 field fits the 50 MB L2 but the cavity's (8 fields of 19 MB; 5 of 19 MB
 for row 6, of 17.9 MB for row 11; 7 for rows 2 and 11-corr), so the times
@@ -232,10 +235,11 @@ def predictor_rows(tag: str, row: str, reps: int, tiles) -> None:
             flush=True)
 
 
-def corrector_rows(tag: str, rows, reps: int) -> None:
+def corrector_rows(tag: str, rows, reps: int, tiles=(None,)) -> None:
     """The correctors' lines (CORRECTORS): each flow's corrector at its main
     shape on the case's seeded fields, fixed or with a traced dt (dt_corr =
-    0.8 dt), and the natural layout's two."""
+    0.8 dt), and the natural layout's two; the step's (rows 9b, 9b+) under
+    its plan's block or each of ``tiles``, (plane rows, plane columns)."""
     from cfd_tpu_torch.kernels import projection as P
     from cfd_tpu_torch.kernels import quad as Q
     from cfd_tpu_torch.kernels import rb_quad as RQ
@@ -261,22 +265,32 @@ def corrector_rows(tag: str, rows, reps: int) -> None:
                   Q.make_quad_channel_corrector(g.shape, c, case.step_kernels[0].uin,
                                                 traced_dt=traced))
         elif flow == "step":
-            op = SQ.make_quad_step_corrector(g.shape, c, *step_rect_params(g),
-                                             case.step_kernels[0].uin, traced_dt=traced)
+            make_op = lambda: SQ.make_quad_step_corrector(g.shape, c, *step_rect_params(g),
+                                                          case.step_kernels[0].uin,
+                                                          traced_dt=traced)
         else:
             op = RQ.make_quad_rb_corrector(g.shape, c, traced_dt=traced)
         args = fields[:3] if flow in ("step", "rb") else fields[:4]
         if traced:
             args = (torch.tensor(0.8 * c.dt, dtype=torch.float32, device="cuda"), *args)
-        call = lambda: op.kernel(*args)
-        out = call()
-        d, ahead = dev_ms(call, reps)
-        launched = device_ops_a_call(call)
-        print(json.dumps(dict(
-            tag=tag, row=row, flow=flow, layout="natural" if natural else "quad",
-            shape=list(out[0].shape), dev_ms=d, host_ahead=ahead, ms=median_ms(call),
-            launches_a_call=len(launched), ops=launched, sum=float(out[0].double().sum()))),
-            flush=True)
+        for tile in tiles if flow == "step" else (None,):
+            if flow == "step":  # a fresh op under the tile's block before its first call
+                op = make_op()
+                if tile is not None:
+                    from cfd_tpu_torch.kernels.plan import step_corrector_plan
+
+                    op._tile_plan = step_corrector_plan(op.qshape, tile)
+            call = lambda: op.kernel(*args)
+            out = call()
+            d, ahead = dev_ms(call, reps)
+            launched = device_ops_a_call(call)
+            plan = getattr(op, "_tile_plan", None)
+            print(json.dumps(dict(
+                tag=tag, row=row, flow=flow, layout="natural" if natural else "quad",
+                shape=list(out[0].shape), dev_ms=d, host_ahead=ahead, ms=median_ms(call),
+                launches_a_call=len(launched), ops=launched, sum=float(out[0].double().sum()),
+                sum_v=float(out[1].double().sum()), tile=tile,
+                plan=dataclasses.asdict(plan) if plan else None)), flush=True)
 
 
 def main(argv=None) -> int:
@@ -294,7 +308,7 @@ def main(argv=None) -> int:
     cases = {}
     correctors = [row for row in rows if row in CORRECTORS]
     if correctors:
-        corrector_rows(args.tag, correctors, args.reps)
+        corrector_rows(args.tag, correctors, args.reps, tiles)
     for row in rows:
         if row in CORRECTORS:
             continue

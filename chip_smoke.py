@@ -75,8 +75,10 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
    every step, fields within 5e-5 relative, avg_KE within 1e-6 relative.
 8. Per-kernel check at the 2048x256 backward-step shapes: the masked carry
    and the masked finest-level pre and post kernels (rows 9c, 9d: one
-   launch of shared-memory tiles each; error 0), the corrector against
-   its twin (1e-5), the full-2D coarse pairs (row 5b: one launch of tiles
+   launch of shared-memory tiles each; error 0), the corrector (row 9b:
+   one launch of one thread a plane cell over all four quads; error 0,
+   with ``dev_ms`` and its device operations a call from a child
+   time_carries), the full-2D coarse pairs (row 5b: one launch of tiles
    a call; error 0) on every level the path smooths (its two instances and
    1-3 pairs in both variants) on seeded inputs with b on the fluid cells,
    timed on level 1's pre-smooth with ``dev_ms`` and its device operations
@@ -124,8 +126,9 @@ or cfd_tpu. Phases (any failure raises and the exit code is non-zero):
     flows against their twins (1e-5) with dt_corr = 0.8 dt and dt_pred =
     1.1 dt, each timed beside the fixed-dt instance on the same inputs.
     The non-carry stage (row 6: one launch of shared-memory tiles a call,
-    csrc/quad_stage.cu) and the carries error 0, with ``dev_ms``; row 6
-    also with its device operations a call (a child time_carries process).
+    csrc/quad_stage.cu), the step's corrector (row 9b+, csrc/step_stage.cu)
+    and the carries error 0, with ``dev_ms``; rows 6 and 9b+ also with
+    their device operations a call (a child time_carries process).
 15. Adaptive runs through cfd_tpu_torch.adaptive.run_adaptive at the full
     widths, max_courant 0.7 from the case's own dt, the launch counters
     zeroed just before each: the cavity 2048^2 with the exact controller on
@@ -349,7 +352,10 @@ its launches on its path's run, its error against its twin, its time and
 its twin's, and its bound: the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and its float32
 operations (counted per cell below) over 67 TFLOP/s, the H100 SXM's
-spec-sheet peaks. The last line is {"ok": true, "device": {...}}.
+spec-sheet peaks. The correctors' bytes count their inputs' logical cells
+only, since a corrector needs none of the padding (logical_nbytes); the
+other kernels' count every element. The last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -409,8 +415,9 @@ ADAPTIVE_RUN = (SHARD_RUN, 100)
 
 # the kernels of the one-launch tile carries (csrc/carry_tile.cuh), the
 # finest-level tile kernels (csrc/quad_vcycle.cu, csrc/step_vcycle.cu),
-# the coarse smoother's (csrc/rb_smoother.cu, every instance) and the
-# cavity's non-carry predictors' (csrc/quad_stage.cu, csrc/projection.cu), held to
+# the coarse smoother's (csrc/rb_smoother.cu, every instance), the
+# cavity's and the channel's non-carry predictors' (csrc/quad_stage.cu,
+# csrc/projection.cu) and the step's corrector (csrc/step_stage.cu), held to
 # error 0 against their twins wherever the phases check them: kernel name
 # -> row (the shard rows 16a-16f and their + instances through
 # check_shard_op, which holds every shard row bit for bit)
@@ -433,6 +440,7 @@ REDESIGNED = {"quad_corr_predictor_source": "row 1",
               "projection_predictor_source": "row 11",
               "quad_channel_predictor_source": "row 8c",
               "projection_channel_predictor_source": "row 11-ch",
+              "quad_step_corrector": "row 9b", "quad_step_corrector_traced": "row 9b+",
               **{f"quad_whole_step_{flow}{v}": "row 15" for flow in ("cavity", "channel",
                                                                      "rb", "step")
                  for v in ("", "_bf16")}, "quad_whole_step_step_corr_opt": "row 15"}
@@ -529,7 +537,7 @@ def dev_note(r: dict) -> str:
 # (child_launches): every row of the main path's instances a phase holds
 CHILD_ROWS = {"time_level0": ("3", "4", "16b", "16c", "9c", "9d", "16f-pre", "16f-post"),
               "time_pairs": ("5", "5b", "5-wr", "12", "12-res"),
-              "time_carries": ("7", "6", "11", "8c", "11-ch")}
+              "time_carries": ("7", "6", "11", "8c", "11-ch", "9b", "9b+")}
 # the device operations a call of the rows that are not one launch: the
 # channel's non-carry stages, a tile launch and the sum's
 CHILD_OPS = {"8c": 2, "11-ch": 2}
@@ -555,7 +563,7 @@ def child_launches(rows, module: str) -> dict:
     time_pairs' rows 5, 5b, 5-wr: the coarse smoother, and 12, 12-res:
     the natural step's pairs; time_carries' rows 7: the fused-pre carry,
     6 and 11: the cavity's non-carry predictors, quad and natural, 8c and
-    11-ch: the channel's), each counted in a
+    11-ch: the channel's, 9b and 9b+: the step's corrector), each counted in a
     torch.profiler trace of one call (profile_step.device_ops_a_call). The
     first call counts all of the timer's CHILD_ROWS in one fresh process
     and a row whose trace held no device event again in a process of its
@@ -589,6 +597,13 @@ def host(out):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def logical_nbytes(shape, *tensors) -> int:
+    """The bytes of ``tensors``' cells on the logical grid ``shape`` (ny + 2,
+    nx + 2), their padding left out: what a corrector must read of each
+    input, quad or natural layout."""
+    return sum(shape[0] * shape[1] * t.element_size() for t in tensors)
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -645,7 +660,8 @@ def check_kernels(case, dev) -> dict:
     results["quad_corrector"] = dict(
         err=max(errs), ms=median_ms(lambda: corr.kernel(us, vs, p, p_prev)),
         plain_ms=median_ms(lambda: corr.plain(us, vs, p, p_prev)),
-        **bound(nbytes(us, vs, p, p_prev, *got), cells * CORRECTOR_OPS))
+        **bound(logical_nbytes(shape, us, vs, p, p_prev) + nbytes(*got),
+                cells * CORRECTOR_OPS))
 
     # 3./4. finest-level V-cycle kernels (b on the interior, as the carry
     # emits): one launch of shared-memory tiles each, bit-identical; their
@@ -901,7 +917,8 @@ def check_channel_kernels(case, dev) -> dict:
     results["quad_channel_corrector"] = dict(
         err=max(errs), ms=median_ms(lambda: corr.kernel(us, vs, p, p_prev)),
         plain_ms=median_ms(lambda: corr.plain(us, vs, p, p_prev)),
-        **bound(nbytes(us, vs, p, p_prev, *got), cells * CORRECTOR_OPS))
+        **bound(logical_nbytes(shape, us, vs, p, p_prev) + nbytes(*got),
+                cells * CORRECTOR_OPS))
 
     # the whole-solve on a seeded, mean-free source from a zero warm start
     ws = case.poisson_solve
@@ -971,10 +988,13 @@ def check_step_kernels(case, dev) -> dict:
     got, want = corr.kernel(us, vs, p), corr.plain(us, vs, p)
     for name, a, b in zip(("u", "v"), got, want):
         rel_err(a, b, f"quad_step_corrector {name}", TOL_F32, errs)
+    bit_identical("quad_step_corrector", errs)
     results["quad_step_corrector"] = dict(
         err=max(errs), ms=median_ms(lambda: corr.kernel(us, vs, p)),
+        dev_ms=carry_dev_ms(lambda: corr.kernel(us, vs, p)),
+        launches_a_call=child_launches(("9b",), "time_carries")["9b"],
         plain_ms=median_ms(lambda: corr.plain(us, vs, p)),
-        **bound(nbytes(us, vs, p, *got), cells * CORRECTOR_OPS))
+        **bound(logical_nbytes(shape, us, vs, p) + nbytes(*got), cells * CORRECTOR_OPS))
 
     ws = case.poisson_solve
     mg, cfg = ws.mg, ws.cfg
@@ -1129,7 +1149,7 @@ def check_rb_kernels(case, dev) -> dict:
     results["quad_rb_corrector"] = dict(
         err=max(errs), ms=median_ms(lambda: corr.kernel(us, vs, p)),
         plain_ms=median_ms(lambda: corr.plain(us, vs, p)),
-        **bound(nbytes(us, vs, p, *got), cells * CORRECTOR_OPS))
+        **bound(logical_nbytes(shape, us, vs, p) + nbytes(*got), cells * CORRECTOR_OPS))
 
     # the pin-mean whole-solve on a seeded, mean-free source from a zero
     # warm start
@@ -1260,11 +1280,13 @@ def check_adaptive_kernels(flows: dict, dev) -> dict:
             got, want = op.kernel(dts, *args), op.plain(dts, *args)
             for out, a, b in zip(outs, got, want, strict=True):
                 rel_err(a, b, f"{name} {out}", TOL_F32, errs)
-            # rows 1+, 8a+, 9a+, 10+, and row 6 (the exact controller's
-            # predictor + source): their device ms; row 6's device
-            # operations a call from a child time_carries (row 6, the same
-            # instance)
-            tiled = name.endswith("_adaptive") or name == Q.PREDICTOR_SOURCE.name
+            # rows 1+, 8a+, 9a+, 10+, row 6 (the exact controller's
+            # predictor + source) and row 9b+ (the step's traced-dt
+            # corrector): their device ms; rows 6 and 9b+'s device
+            # operations a call from a child time_carries (the same
+            # instances)
+            child = {Q.PREDICTOR_SOURCE.name: "6", SQ.STEP_CORRECTOR_TRACED.name: "9b+"}
+            tiled = name.endswith("_adaptive") or name in child
             if name in REDESIGNED:
                 bit_identical(name, errs)
             results[name] = dict(
@@ -1272,9 +1294,11 @@ def check_adaptive_kernels(flows: dict, dev) -> dict:
                 **(dict(dev_ms=carry_dev_ms(lambda: op.kernel(dts, *args))) if tiled else {}),
                 fixed_ms=median_ms(lambda: fixed.kernel(*fixed_args)),
                 plain_ms=median_ms(lambda: op.plain(dts, *args)),
-                **bound(nbytes(dts, *args, *got), ops))
-            if name == Q.PREDICTOR_SOURCE.name:
-                results[name]["launches_a_call"] = child_launches(("6",), "time_carries")["6"]
+                **bound(nbytes(dts, *got) + (logical_nbytes(shape, *args)
+                                             if "corrector" in name else nbytes(*args)), ops))
+            if name in child:
+                row = child[name]
+                results[name]["launches_a_call"] = child_launches((row,), "time_carries")[row]
     return results
 
 
@@ -1741,7 +1765,8 @@ def check_natural_kernels(dev) -> dict:
         r.update(dev_ms=carry_dev_ms(lambda: pred.kernel(u, v)),
                  launches_a_call=child_launches((row,), "time_carries")[row])
         timed(names[1].name, lambda: corr.kernel(u, v, p, pp), lambda: corr.plain(u, v, p, pp),
-              lambda got: nbytes(u, v, p, pp, *got), cells * CORRECTOR_OPS,
+              lambda got: logical_nbytes(g.shape, u, v, p, pp) + nbytes(*got),
+              cells * CORRECTOR_OPS,
               ("u2", "v2", "guess"))
     # the with_residual pairs at the cavity's aligned level 0 (its post-smooth)
     solve = cav.poisson_solve
